@@ -1,0 +1,86 @@
+"""Build the port's CUDA C++ kernels with ``nvcc`` and load them with
+``ctypes``.
+
+Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles
+on its own into ``csrc/build/lib<name>.so`` on first use (a few seconds;
+no PyTorch headers are involved).  The library is rebuilt when the
+source is newer than it.  Nothing is compiled at import time, so the
+CPU tests can import every module on a host without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(_CSRC, "build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                       "PATH): the CUDA kernels are built from source")
+
+
+class _Registry:
+    """Loaded libraries of this process, one per source; a lock keeps
+    two threads from building the same one at once."""
+
+    def __init__(self):
+        self.libs: Dict[str, ctypes.CDLL] = {}
+        self.lock = threading.Lock()
+        #: ptxas report of the last build of each source (registers,
+        #: shared memory, spills), for the on-card smoke run to print
+        self.reports: Dict[str, str] = {}
+
+
+_REGISTRY = _Registry()
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into ``csrc/build/lib<name>.so`` when
+    the library is missing or older than the source; returns its path."""
+    src = os.path.join(_CSRC, f"{name}.cu")
+    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    if (os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(src)):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    _REGISTRY.reports[name] = proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _REGISTRY.lock:
+        lib = _REGISTRY.libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            _REGISTRY.libs[name] = lib
+        return lib
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said when this process built ``name`` ('' when
+    the library was already built)."""
+    return _REGISTRY.reports.get(name, "")

@@ -1,0 +1,211 @@
+"""Self-attention and flax-shaped projections, the pieces of
+``apex_tpu/models/bert.py`` that the GPT serving path runs.
+
+Projections keep flax's DenseGeneral layouts, so one weight set moves
+between the two packages unchanged (:mod:`apex_tpu_torch.convert`):
+query/key/value kernels ``[d, heads, head_dim]`` with biases ``[heads,
+head_dim]``, the output kernel ``[heads, head_dim, d]``.  Parameters are
+fp32; a projection with ``dtype=bf16`` casts both its input and its
+kernel to bf16, as flax does.
+
+Ported: the ``flash`` and ``full`` attention impls and
+the external-cache incremental forward the serving engine drives.  Not
+ported yet, and raising ``NotImplementedError``: ``ring``,
+``ring_flash``, ``ulysses``, the ``decode=True`` flax-cache path and
+``quant=``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+
+_NOT_PORTED_IMPLS = ("ring", "ring_flash", "ulysses")
+
+# flax's truncated-normal correction: the std of a unit normal truncated
+# to [-2, 2] (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's default kernel init (``lecun_normal``): a normal truncated
+    at two standard deviations, scaled to variance ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+class DenseGeneral(nn.Module):
+    """flax ``Dense``/``DenseGeneral``: contracts the trailing
+    ``len(in_shape)`` dims of the input with a kernel ``in_shape +
+    out_shape`` and adds a bias ``out_shape``.  Parameters are fp32 and
+    made on the CPU from ``generator``, then moved to ``device``."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 dtype: torch.dtype = torch.float32, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_shape = tuple(int(s) for s in in_shape)
+        self.out_shape = tuple(int(s) for s in out_shape)
+        self.dtype = dtype
+        n_in = math.prod(self.in_shape)
+        kernel = lecun_normal_(torch.empty(n_in, math.prod(self.out_shape)),
+                               n_in, generator)
+        dev = resolve_device(device)
+        self.kernel = nn.Parameter(
+            kernel.reshape(self.in_shape + self.out_shape).to(dev))
+        self.bias = nn.Parameter(torch.zeros(self.out_shape, device=dev))
+
+    def forward(self, x):
+        n_in = len(self.in_shape)
+        lead = x.shape[:x.dim() - n_in]
+        w = self.kernel.reshape(math.prod(self.in_shape), -1)
+        y = x.reshape(-1, w.shape[0]).to(self.dtype) @ w.to(self.dtype)
+        y = y + self.bias.reshape(-1).to(self.dtype)
+        return y.reshape(*lead, *self.out_shape)
+
+
+def _dense_factory(quant, dtype, *, device, generator):
+    """``dense(in_shape, out_shape)`` factory of the JAX
+    ``_dense_factory`` hook; the int8 path (``quant=``) is not ported."""
+    if quant is not None:
+        raise NotImplementedError("quant= (int8 projections) is not ported "
+                                  "yet")
+
+    def dense(in_shape, out_shape):
+        return DenseGeneral(in_shape, out_shape, dtype, device=device,
+                            generator=generator)
+    return dense
+
+
+class BertSelfAttention(nn.Module):
+    """Self-attention with a pluggable compute strategy
+    (``attention_impl``): ``"flash"`` (the CUDA kernel of
+    :mod:`apex_tpu_torch.ops.flash_attention`, its plain version on the
+    CPU) or ``"full"`` (materialized scores, the oracle)."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32, *,
+                 attention_impl: str = "full", causal: bool = False,
+                 num_kv_heads: Optional[int] = None,
+                 window: Optional[int] = None, decode: bool = False,
+                 quant=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if attention_impl in _NOT_PORTED_IMPLS:
+            raise NotImplementedError(
+                f"attention_impl={attention_impl!r} is not ported yet")
+        if attention_impl not in ("flash", "full"):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
+        if decode:
+            raise NotImplementedError(
+                "decode=True (the flax-cache decode path) is not ported; "
+                "use the external-cache forward (kv_cache=, positions=)")
+        n_kv = num_kv_heads or num_heads
+        if num_heads % n_kv:
+            raise ValueError(f"num_kv_heads {n_kv} must divide "
+                             f"num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.n_kv = n_kv
+        self.head_dim = hidden_size // num_heads
+        self.dtype = dtype
+        self.attention_impl = attention_impl
+        self.causal = causal
+        self.window = window
+        dense = _dense_factory(quant, dtype, device=device,
+                               generator=generator)
+        d, hd = hidden_size, self.head_dim
+        self.query = dense((d,), (num_heads, hd))
+        self.key = dense((d,), (n_kv, hd))
+        self.value = dense((d,), (n_kv, hd))
+        self.out = dense((num_heads, hd), (d,))
+
+    def forward(self, x, mask=None, *, kv_cache=None, positions=None):
+        q = self.query(x)
+        k = self.key(x)
+        v = self.value(x)
+        if kv_cache is not None:
+            ctx, kf, vf = self._incremental(q, k, v, kv_cache, positions,
+                                            mask)
+            return self.out(ctx.to(x.dtype)), (kf, vf)
+        if self.window is not None and (self.attention_impl != "flash"
+                                        or not self.causal):
+            raise ValueError(
+                f"window (sliding-window local attention) needs "
+                f"attention_impl='flash' and causal=True; got "
+                f"impl={self.attention_impl!r}, causal={self.causal}")
+        if self.attention_impl == "flash":
+            from ..ops.flash_attention import flash_attention
+            kb = None
+            if mask is not None:
+                kb = torch.where(mask, 0.0, -1e9)
+            ctx = flash_attention(q, k, v, causal=self.causal,
+                                  window=self.window, key_padding_bias=kb)
+        else:
+            from ..ops.attention import dot_product_attention
+            if self.n_kv != self.num_heads:
+                grp = self.num_heads // self.n_kv
+                k = k.repeat_interleave(grp, dim=2)
+                v = v.repeat_interleave(grp, dim=2)
+            bias = None
+            if mask is not None:
+                bias = torch.where(mask[:, None, None, :], 0.0, -1e9)
+            ctx = dot_product_attention(q, k, v, causal=self.causal,
+                                        bias=bias)
+        return self.out(ctx.to(x.dtype))
+
+    def _incremental(self, q, k, v, kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                     positions, mask):
+        """Incremental attention over caller-owned dense cache views
+        ``(k, v)`` ``[B, L, n_kv, head_dim]``: write the fresh tokens'
+        k/v at each sequence's own position and attend causally over
+        everything written so far.  ``positions`` ``[B]`` is the global
+        position of each sequence's first fresh token.
+
+        The views are updated IN PLACE (the serving engine gathers fresh
+        views every step, so nothing else sees them) and returned as
+        ``(ctx, k_full, v_full)``.  As ``dynamic_update_slice`` does in
+        the JAX version, a write that would run past the view is moved
+        back to end at it; the caller bounds ``positions + T`` by ``L``."""
+        from ..ops.flash_attention import flash_attention
+        if not self.causal or mask is not None:
+            raise ValueError("the external-cache incremental path is "
+                             "causal-only and takes no padding mask")
+        ck, cv = kv_cache
+        b, t = q.shape[0], q.shape[1]
+        cache_len = ck.shape[1]
+        positions = positions.to(device=q.device, dtype=torch.long)
+        start = positions.clamp(0, cache_len - t)
+        rows = start[:, None] + torch.arange(t, device=q.device)[None, :]
+        batch = torch.arange(b, device=q.device)[:, None]
+        ck[batch, rows] = k.to(ck.dtype)
+        cv[batch, rows] = v.to(cv.dtype)
+        key_pos = torch.arange(cache_len, device=q.device)
+        if t == 1:
+            # decode: the suffix-aligned decode path of flash_attention;
+            # key_padding_bias hides the dead cache tail (and the past
+            # outside the window)
+            live = key_pos[None, :] <= positions[:, None]
+            if self.window is not None:
+                live = live & (key_pos[None, :]
+                               > positions[:, None] - self.window)
+            kb = torch.where(live, 0.0, -1e9)
+            ctx = flash_attention(q, ck, cv, causal=True,
+                                  key_padding_bias=kb)
+        else:
+            # prefill: per-sequence offsets need a per-row causal
+            # frontier, an explicit [B, T, L] visibility bias
+            qpos = positions[:, None] + torch.arange(t, device=q.device)
+            visible = key_pos[None, None, :] <= qpos[:, :, None]
+            if self.window is not None:
+                visible = visible & (key_pos[None, None, :]
+                                     > qpos[:, :, None] - self.window)
+            bias = torch.where(visible, 0.0, -1e9)
+            ctx = flash_attention(q, ck, cv, causal=False, bias=bias)
+        return ctx, ck, cv

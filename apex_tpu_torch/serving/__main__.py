@@ -1,0 +1,93 @@
+"""Serve a GPT causal LM with the port's engine — counterpart of
+``examples/serving/serve_lm.py``.
+
+    python -m apex_tpu_torch.serving --model gpt2_small --dtype bfloat16 \\
+        --requests 16 --max-new 32 --buckets 256,1024 --max-seqs 8
+    python -m apex_tpu_torch.serving --model gpt_tiny --dtype float32 \\
+        --buckets 64,128 --device cpu
+
+Weights are random, made from ``--seed`` (the repo holds no checkpoint).
+Prompts are synthetic: lengths drawn uniformly from ``[4, max bucket -
+max_new)``, token ids from ``[1, vocab)``.  Runs on CUDA unless
+``--device cpu``; prints the same summary lines as ``serve_lm.py``
+(without the AOT-miss and hot-swap counts, which this engine does not
+have).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..models import gpt2_small, gpt_tiny
+from .engine import ServingEngine
+
+_MODELS = {"gpt2_small": gpt2_small, "gpt_tiny": gpt_tiny}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _pct(values, q):
+    return values[min(len(values) - 1, int(q * (len(values) - 1)))] * 1e3
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m apex_tpu_torch.serving")
+    ap.add_argument("--model", choices=sorted(_MODELS), default="gpt2_small")
+    ap.add_argument("--dtype", choices=sorted(_DTYPES), default="bfloat16")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="closed-loop load: this many synthetic prompts")
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--buckets", default="256,1024",
+                    help="comma-separated sequence-length buckets")
+    ap.add_argument("--max-seqs", type=int, default=8,
+                    help="decode batch width (concurrent sequences)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (fails without a GPU)")
+    args = ap.parse_args(argv)
+
+    # the LM head is an fp32 product: keep TF32 off on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    model = _MODELS[args.model](dtype=_DTYPES[args.dtype],
+                                device=args.device, seed=args.seed)
+    rng = np.random.RandomState(args.seed)
+    eng = ServingEngine(model, buckets=buckets, page_size=args.page_size,
+                        max_seqs=args.max_seqs, device=args.device)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        print(f"warmup: {len(buckets)} bucket(s) built and run in "
+              f"{time.perf_counter() - t0:.1f}s")
+        prompts = [rng.randint(1, model.vocab_size, (int(n),))
+                   for n in rng.randint(4, max(buckets) - args.max_new,
+                                        args.requests)]
+        t0 = time.perf_counter()
+        results = eng.generate(prompts, max_new_tokens=args.max_new)
+        wall = time.perf_counter() - t0
+        ok = [r for r in results if r.ok]
+        lats = sorted(r.timings["total_s"] for r in ok)
+        print(f"served {len(ok)}/{len(results)} requests, "
+              f"{eng.stats['tokens_out']} tokens in {wall:.2f}s "
+              f"({eng.stats['tokens_out'] / wall:.1f} tok/s), "
+              f"p99 latency {_pct(lats, 0.99):.1f} ms, "
+              f"rejected {eng.stats['rejected']}")
+        ttfts = sorted(r.timings["ttft_s"] for r in ok)
+        tpots = sorted(r.timings["tpot_s"] for r in ok
+                       if r.timings["tpot_s"] is not None)
+        if ttfts:
+            print(f"ttft p50 {_pct(ttfts, 0.5):.1f} / "
+                  f"p99 {_pct(ttfts, 0.99):.1f} ms"
+                  + (f", tpot p50 {_pct(tpots, 0.5):.2f} / "
+                     f"p99 {_pct(tpots, 0.99):.2f} ms" if tpots else ""))
+    finally:
+        eng.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,478 @@
+"""Bucketed inference engine: continuous batching over a paged KV cache —
+counterpart of ``apex_tpu/serving/engine.py``.
+
+* **buckets** — prefill and decode run at fixed sequence-length buckets:
+  a request takes the smallest bucket holding ``len(prompt) +
+  max_new_tokens``; prefill runs the whole padded bucket (pad positions
+  write junk K/V that decode later hides with ``key_pos <= position``);
+* **continuous batching** — a bounded request queue (``submit`` blocks
+  when it is full) feeds a scheduler that admits requests into free KV
+  pages at every step boundary, runs ONE batched decode for every active
+  sequence whatever their positions (the per-sequence ``positions`` of
+  the GPT incremental forward), and evicts finished sequences at once.
+  The decode runs at the smallest bucket covering every live sequence's
+  next position, so a long-bucket sequence early in its life decodes
+  through that bucket's truncated page table; dead slots decode at
+  position 0 against the trash page;
+* **paged KV cache** — :mod:`apex_tpu_torch.serving.kv_cache`, updated
+  in place;
+* **per-request timings** — queue wait, prefill, decode, TTFT (submit to
+  first token), TPOT (mean time per later token) and e2e, measured on the
+  host around work that ends in the token's copy to the host; each
+  prefill and decode step is also a ``torch.profiler`` range
+  (``prefill[bucket]``, ``decode[bucket]``), free when no profiler runs.
+
+Decoding is greedy (``argmax``, first maximum on ties, as ``jnp.argmax``)
+so the tokens equal the JAX engine's on the same weights.
+
+What the JAX engine has and this one does not yet: the AOT
+``cache.signature`` machinery (PyTorch runs eagerly; :meth:`warmup` runs
+one prefill and one decode per bucket instead, so every kernel is built
+before traffic), the telemetry recorder and tracer hooks, and
+``watch_dir`` weight hot-swap.
+
+Usage::
+
+    from apex_tpu_torch.models import gpt2_small
+    from apex_tpu_torch.serving import ServingEngine
+
+    model = gpt2_small(dtype=torch.bfloat16)          # on CUDA
+    eng = ServingEngine(model, buckets=(256, 1024), max_seqs=8).warmup()
+    results = eng.generate(prompts, max_new_tokens=32)
+    eng.close()
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import kv_cache as _kv
+
+__all__ = ["Request", "ServedResult", "Completion", "ServingEngine"]
+
+
+class Request(NamedTuple):
+    """One generation request: ``prompt`` int token ids ``[T]``,
+    ``max_new_tokens`` the decode budget, ``stop_token`` an optional
+    early-finish id (checked on sampled tokens)."""
+    prompt: np.ndarray
+    max_new_tokens: int
+    stop_token: Optional[int] = None
+
+
+class ServedResult(NamedTuple):
+    """A finished request: generated ``tokens`` (prompt excluded), timing
+    spans, and ``error`` (None on success — a rejection, e.g. a prompt
+    that fits no bucket, reports here instead of raising on the serving
+    thread)."""
+    tokens: np.ndarray
+    timings: dict
+    bucket: Optional[int] = None
+    error: Optional[str] = None
+
+    @property
+    def ok(self) -> bool:
+        return self.error is None
+
+
+class Completion:
+    """Future-ish handle for a submitted request."""
+
+    def __init__(self):
+        self._done = threading.Event()
+        self._result: Optional[ServedResult] = None
+
+    def _set(self, result: ServedResult) -> None:
+        self._result = result
+        self._done.set()
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> ServedResult:
+        if not self._done.wait(timeout):
+            raise TimeoutError("request not finished")
+        return self._result
+
+
+class _Active(NamedTuple):
+    """One admitted sequence (a batch slot)."""
+    request: Request
+    completion: Completion
+    bucket: int
+    pages: List[int]
+    t_submit: float
+    t_admit: float
+    t_prefill_done: float
+
+
+class ServingEngine:
+    """Continuous-batching engine for a
+    :class:`~apex_tpu_torch.models.gpt.GPT` model (see module docstring).
+
+    ``buckets`` are the sequence-length capacities prefill AND decode run
+    at (each must divide by ``page_size`` and fit ``model.max_len``);
+    ``max_seqs`` is the decode batch width; ``n_pages`` sizes the pool
+    (default: enough for ``max_seqs`` sequences of the largest bucket,
+    plus the trash page).  ``device`` defaults to CUDA and raises without
+    a GPU; pass ``device="cpu"`` to serve with the plain versions.  The
+    model is moved to ``device``."""
+
+    def __init__(self, model, *,
+                 buckets: Sequence[int] = (128, 256),
+                 page_size: int = 16,
+                 max_seqs: int = 4,
+                 n_pages: Optional[int] = None,
+                 max_queue: int = 64,
+                 device=None):
+        self.device = resolve_device(device)
+        buckets = sorted(int(b) for b in buckets)
+        if not buckets:
+            raise ValueError("need at least one sequence-length bucket")
+        for b in buckets:
+            if b % page_size:
+                raise ValueError(f"bucket {b} must divide by page_size "
+                                 f"{page_size}")
+            if b > model.max_len:
+                raise ValueError(f"bucket {b} exceeds model.max_len "
+                                 f"{model.max_len}")
+        self.model = model.to(self.device).eval()
+        self.buckets = tuple(buckets)
+        self.page_size = int(page_size)
+        self.max_seqs = int(max_seqs)
+        if n_pages is None:
+            n_pages = 1 + self.max_seqs * (buckets[-1] // page_size)
+        self.pool_k, self.pool_v = _kv.make_pool(model, n_pages, page_size,
+                                                 device=self.device)
+        self.pages = _kv.PageAllocator(n_pages)
+        self._slots: List[Optional[_Active]] = [None] * self.max_seqs
+        # per-slot decode state (host): current write position, last
+        # sampled token, generated tokens so far
+        self._pos = np.zeros((self.max_seqs,), np.int64)
+        self._tok = np.zeros((self.max_seqs,), np.int64)
+        self._gen: List[List[int]] = [[] for _ in range(self.max_seqs)]
+        self.max_queue = int(max_queue)
+        self._queue: List[tuple] = []          # (Request, Completion, t)
+        self._qlock = threading.Lock()
+        self._qcond = threading.Condition(self._qlock)
+        #: ``prefill_s`` / ``decode_s``: host seconds spent in prefills
+        #: and decode steps, each ending in its token's copy to the host
+        self.stats = {"submitted": 0, "completed": 0, "rejected": 0,
+                      "tokens_out": 0, "decode_steps": 0, "prefills": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0,
+                      "kv_bytes_per_token": _kv.kv_bytes_per_token(model)}
+        self._serve_stop = threading.Event()
+        self._serve_thread: Optional[threading.Thread] = None
+        self._closed = False
+
+    # -- bucketed step programs ---------------------------------------------
+    def _bucket_for(self, total_len: int) -> Optional[int]:
+        for b in self.buckets:
+            if total_len <= b:
+                return b
+        return None
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+
+    @torch.inference_mode()
+    def _prefill(self, bucket: int, pages, tokens, length: int
+                 ) -> torch.Tensor:
+        """Run one padded ``[1, bucket]`` prompt, write its K/V into
+        ``pages``, return the greedy next token (a device scalar)."""
+        model = self.model
+        shape = (1, bucket) + self.pool_k.shape[3:]
+        with torch.profiler.record_function(f"prefill[{bucket}]"):
+            zeros = [(torch.zeros(shape, dtype=self.pool_k.dtype,
+                                  device=self.device),
+                      torch.zeros(shape, dtype=self.pool_v.dtype,
+                                  device=self.device))
+                     for _ in range(model.num_layers)]
+            logits, caches = model(
+                tokens, kv_caches=zeros,
+                positions=torch.zeros((1,), dtype=torch.long,
+                                      device=self.device))
+            _kv.scatter_prefill(self.pool_k, pages,
+                                torch.stack([k[0] for k, _ in caches]))
+            _kv.scatter_prefill(self.pool_v, pages,
+                                torch.stack([v[0] for _, v in caches]))
+            return torch.argmax(logits[0, length - 1], dim=-1)
+
+    @torch.inference_mode()
+    def _decode(self, tables, positions, tokens) -> torch.Tensor:
+        """One batched single-token step over every slot; returns the
+        greedy next token per slot ``[S]``."""
+        with torch.profiler.record_function(
+                f"decode[{tables.shape[1] * self.page_size}]"):
+            caches = _kv.gather_views(self.pool_k, self.pool_v, tables)
+            logits, new = self.model(tokens[:, None], kv_caches=caches,
+                                     positions=positions)
+            slot = torch.arange(positions.shape[0], device=self.device)
+            k_tok = torch.stack([k[slot, positions] for k, _ in new])
+            v_tok = torch.stack([v[slot, positions] for _, v in new])
+            pid = tables[slot, positions // self.page_size]
+            off = positions % self.page_size
+            _kv.scatter_token(self.pool_k, pid, off, k_tok)
+            _kv.scatter_token(self.pool_v, pid, off, v_tok)
+            return torch.argmax(logits[:, -1, :], dim=-1)
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None
+               ) -> "ServingEngine":
+        """Run one prefill and one decode per bucket before traffic, so
+        every kernel is built and loaded first.  Both touch only the
+        trash page (all-zero page tables)."""
+        s = self.max_seqs
+        for b in (self.buckets if buckets is None else buckets):
+            n_pages_b = b // self.page_size
+            self._prefill(b, self._tensor(np.zeros((n_pages_b,))),
+                          self._tensor(np.zeros((1, b))), 1)
+            nxt = self._decode(self._tensor(np.zeros((s, n_pages_b))),
+                               self._tensor(np.zeros((s,))),
+                               self._tensor(np.zeros((s,))))
+            nxt.cpu()
+        return self
+
+    # -- request intake ------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int, *,
+               stop_token: Optional[int] = None,
+               block: bool = True,
+               timeout: Optional[float] = None) -> Completion:
+        """Enqueue one request; returns its :class:`Completion`.  The
+        queue is bounded (``max_queue``): when full, ``block=True`` waits
+        and ``block=False`` raises ``RuntimeError``."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new_tokens}")
+        req = Request(prompt, int(max_new_tokens), stop_token)
+        comp = Completion()
+        with self._qcond:
+            if self._closed:
+                raise RuntimeError("ServingEngine is closed")
+            while len(self._queue) >= self.max_queue:
+                if not block:
+                    raise RuntimeError(
+                        f"request queue full ({self.max_queue})")
+                if not self._qcond.wait(timeout=timeout or 30.0):
+                    raise TimeoutError("request queue stayed full")
+                if self._closed:
+                    raise RuntimeError("ServingEngine is closed")
+            self._queue.append((req, comp, time.perf_counter()))
+        self.stats["submitted"] += 1
+        return comp
+
+    # -- scheduler ----------------------------------------------------------
+    def step(self) -> bool:
+        """One scheduler iteration: admit what fits, run one batched
+        decode step.  Returns True when any work was done."""
+        did = self._admit()
+        return self._decode_once() or did
+
+    def run_until_idle(self, max_steps: int = 100000) -> None:
+        """Drive :meth:`step` until queue and slots are empty.  Refuses
+        to run beside an active :meth:`start` thread (two loops would
+        race the scheduler state and the pool)."""
+        if self._serve_thread is not None and self._serve_thread.is_alive():
+            raise RuntimeError(
+                "run_until_idle() cannot drive the scheduler while the "
+                "start() serve thread is running — submit() and wait on "
+                "the Completions instead")
+        for _ in range(max_steps):
+            with self._qlock:
+                queued = len(self._queue)
+            active = any(s is not None for s in self._slots)
+            if not queued and not active:
+                return
+            self.step()
+        raise RuntimeError(f"not idle after {max_steps} scheduler steps")
+
+    def generate(self, prompts: Sequence, max_new_tokens: int, *,
+                 timeout: Optional[float] = 600.0,
+                 **kw) -> List[ServedResult]:
+        """Closed-loop convenience: submit every prompt, wait for all,
+        return results in order.  With the :meth:`start` thread running
+        it only submits and waits; otherwise it drives the scheduler on
+        this thread."""
+        threaded = (self._serve_thread is not None
+                    and self._serve_thread.is_alive())
+        comps = [self.submit(p, max_new_tokens, **kw) for p in prompts]
+        if not threaded:
+            self.run_until_idle()
+        return [c.result(timeout=timeout if threaded else 0)
+                for c in comps]
+
+    def _admit(self) -> bool:
+        admitted = False
+        while True:
+            free_slot = next((i for i, s in enumerate(self._slots)
+                              if s is None), None)
+            if free_slot is None:
+                break
+            with self._qcond:
+                if not self._queue:
+                    break
+                req, comp, t_submit = self._queue[0]
+                bucket = self._bucket_for(req.prompt.size
+                                          + req.max_new_tokens)
+                if bucket is None:
+                    # fits no bucket: reject (never silently truncate)
+                    self._queue.pop(0)
+                    self._qcond.notify_all()
+                    reject = True
+                else:
+                    pages = self.pages.alloc(bucket // self.page_size)
+                    if pages is None:
+                        break           # no pages free: wait for evictions
+                    self._queue.pop(0)
+                    self._qcond.notify_all()
+                    reject = False
+            if reject:
+                self.stats["rejected"] += 1
+                comp._set(ServedResult(
+                    tokens=np.zeros((0,), np.int64), timings={},
+                    error=f"prompt {req.prompt.size} + max_new "
+                          f"{req.max_new_tokens} fits no bucket "
+                          f"(max {self.buckets[-1]})"))
+                continue
+            self._prefill_into(free_slot, req, comp, t_submit, bucket, pages)
+            admitted = True
+        return admitted
+
+    def _prefill_into(self, slot: int, req: Request, comp: Completion,
+                      t_submit: float, bucket: int, pages: List[int]
+                      ) -> None:
+        t_admit = time.perf_counter()
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :req.prompt.size] = req.prompt
+        nxt = self._prefill(bucket, self._tensor(pages),
+                            self._tensor(tokens), int(req.prompt.size))
+        # response boundary: the first token must reach the host — it
+        # seeds the decode batch and may already finish the request
+        first = int(nxt)
+        t_done = time.perf_counter()
+        self.stats["prefills"] += 1
+        self.stats["prefill_s"] += t_done - t_admit
+        self._slots[slot] = _Active(req, comp, bucket, pages, t_submit,
+                                    t_admit, t_done)
+        self._pos[slot] = req.prompt.size
+        self._tok[slot] = first
+        self._gen[slot] = [first]
+        if req.max_new_tokens == 1 or first == req.stop_token:
+            self._finish(slot)
+
+    def _decode_once(self) -> bool:
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        if not live:
+            return False
+        # one batched step at the smallest bucket covering every live
+        # sequence's NEXT position
+        bucket = self._bucket_for(int(max(self._pos[i] for i in live)) + 1)
+        n_pages_b = bucket // self.page_size
+        tables = np.zeros((self.max_seqs, n_pages_b), np.int64)
+        for i in live:
+            tables[i] = self.pages.padded_row(self._slots[i].pages,
+                                              n_pages_b)
+        t0 = time.perf_counter()
+        nxt = self._decode(self._tensor(tables), self._tensor(self._pos),
+                           self._tensor(self._tok))
+        toks = nxt.cpu().numpy()     # the per-step response boundary
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self.stats["tokens_out"] += len(live)
+        for i in live:
+            self._pos[i] += 1
+            tok = int(toks[i])
+            self._tok[i] = tok
+            self._gen[i].append(tok)
+            act = self._slots[i]
+            if (len(self._gen[i]) >= act.request.max_new_tokens
+                    or tok == act.request.stop_token):
+                self._finish(i)
+        return True
+
+    def _finish(self, slot: int) -> None:
+        act = self._slots[slot]
+        gen = self._gen[slot]
+        req = act.request
+        if req.stop_token is not None and req.stop_token in gen:
+            gen = gen[:gen.index(req.stop_token) + 1]
+        t_done = time.perf_counter()
+        decode_s = t_done - act.t_prefill_done
+        ttft_s = act.t_prefill_done - act.t_submit
+        tpot_s = (decode_s / (len(gen) - 1)
+                  if decode_s > 0 and len(gen) > 1 else None)
+        timings = {
+            "queue_wait_s": act.t_admit - act.t_submit,
+            "prefill_s": act.t_prefill_done - act.t_admit,
+            "decode_s": decode_s,
+            "total_s": t_done - act.t_submit,
+            "ttft_s": ttft_s,
+            "tpot_s": tpot_s,
+            "tok_per_s": ((len(gen) - 1) / decode_s
+                          if decode_s > 0 and len(gen) > 1 else None),
+        }
+        self.pages.free(act.pages)
+        self._slots[slot] = None
+        self._pos[slot] = 0
+        self._tok[slot] = 0
+        self._gen[slot] = []
+        self.stats["completed"] += 1
+        act.completion._set(ServedResult(
+            tokens=np.asarray(gen, np.int64), timings=timings,
+            bucket=act.bucket))
+
+    # -- threaded serving ----------------------------------------------------
+    def start(self) -> "ServingEngine":
+        """Run the scheduler on a background thread (idempotent): callers
+        just :meth:`submit` and wait."""
+        if self._serve_thread is None or not self._serve_thread.is_alive():
+            self._serve_stop.clear()
+            self._serve_thread = threading.Thread(
+                target=self._serve_loop, daemon=True,
+                name="apex-tpu-torch-serving")
+            self._serve_thread.start()
+        return self
+
+    def _serve_loop(self) -> None:
+        while not self._serve_stop.is_set():
+            if not self.step():
+                self._serve_stop.wait(0.002)    # idle: don't spin
+
+    def close(self) -> None:
+        """Stop the serve thread; fail queued AND in-flight requests so
+        no caller waits forever, and return their KV pages."""
+        with self._qcond:
+            if self._closed:
+                return
+            self._closed = True
+        self._serve_stop.set()
+        if self._serve_thread is not None:
+            self._serve_thread.join(timeout=10)
+            self._serve_thread = None
+        with self._qcond:
+            abandoned, self._queue = self._queue, []
+            self._qcond.notify_all()
+        closed = ServedResult(tokens=np.zeros((0,), np.int64),
+                              timings={}, error="engine closed")
+        for _req, comp, _t in abandoned:
+            comp._set(closed)
+        for i, act in enumerate(self._slots):
+            if act is None:
+                continue
+            self.pages.free(act.pages)
+            self._slots[i] = None
+            act.completion._set(closed)
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,0 +1,547 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``apex_tpu_torch``) on one NVIDIA
+GPU: builds the port's kernels from this checkout, holds each against its
+plain PyTorch version at the serving path's shapes, serves GPT-2 small
+through the paged-KV engine, and checks the card's answers against the
+CPU's.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases (any failure ends the run with a non-zero exit and no result
+line):
+
+1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
+   products are fp32;
+2. build the flash-attention CUDA library (``nvcc``) and compile the
+   LayerNorm Triton kernel, concurrently, and time both;
+3. LayerNorm kernel vs plain at ``[1024, 768]`` and ``[8, 768]``, bf16
+   and fp32;
+4. flash kernel vs plain at gpt2_small shapes: prefill with a
+   ``[B, T, S]`` bias, full causal, decode (``q_len = 1``, key padding
+   bias), GQA (12 query heads over 4 KV heads), a 256-key window, and
+   fp32.  ``library_ms`` times one PyTorch call computing the same
+   function (``F.layer_norm``, ``F.scaled_dot_product_attention``) as a
+   yardstick only; the port never calls it;
+5. serving: gpt2_small in bf16, buckets (256, 1024), page 16, 8 slots,
+   16 requests of 32-900 prompt tokens and 32 new tokens, with every
+   launch counter set to 0 just before and read just after; then a
+   256-token prefill's logits on the card against the CPU port in fp32,
+   and gpt_tiny served in fp32 on the card and on the CPU with equal
+   greedy tokens (a mismatch is allowed only where the CPU's top-2 logit
+   gap at that step is below 1e-4);
+6. where the time goes: one serving run traced with ``torch.profiler``
+   (device busy and idle share, host and device time per prefill and
+   decode step, device time by kernel kind).
+
+The line before the last two is one JSON object describing every kernel
+(time, bound, launches on the serving run); then the ``nvidia-smi`` line;
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+            torch.float32: 67e12}    # fp32 outside the tensor cores
+
+FAILURES = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(("ok    " if ok else "FAIL  ") + what, flush=True)
+    if not ok:
+        FAILURES.append(what)
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph and replayed between two CUDA events, so the host's launch cost
+    is left out (inputs stay warm in L2 where they fit its 50 MB, as they
+    do when the previous layer has just written them)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    return _events_ms(graph.replay) / iters
+
+
+def eager_ms(fn, iters: int = 20) -> float:
+    """Milliseconds per call of ``iters`` eager calls back to back: what
+    the eager serving path pays, host launch cost included."""
+    fn()
+    return _events_ms(lambda: [fn() for _ in range(iters)]) / iters
+
+
+def _events_ms(run) -> float:
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple:
+    """(bound_ms, bound_by): the least time for the bytes over the memory
+    rate and for the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+# -- phase 3: LayerNorm ---------------------------------------------------------
+
+def layer_norm_cases(fln, dev):
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy((1 + 0.1 * rng.randn(768)).astype(np.float32)).to(dev)
+    b = torch.from_numpy((0.1 * rng.randn(768)).astype(np.float32)).to(dev)
+    cases = []
+    for rows in (1024, 8):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            x = torch.from_numpy(rng.randn(rows, 768).astype(np.float32)).to(
+                dev, dtype)
+            got = fln.layer_norm_fwd_kernel(x, w, b, 1e-5)
+            want = fln._fwd_ref(x, w, b, 1e-5)
+            torch.cuda.synchronize()
+            err = max(max_err(g, t) for g, t in zip(got, want))
+            name = f"layer_norm [{rows}, 768] {str(dtype)[6:]}"
+            check(err <= tol, f"{name}: max_abs_err {err:.3g} <= {tol}")
+            isz = x.element_size()
+            nbytes = 2 * rows * 768 * isz + 2 * 768 * 4 + 2 * rows * 4
+            bms, by = bound(nbytes, 8 * rows * 768, torch.float32)
+            case = dict(
+                case=name, max_abs_err=err,
+                ms=time_ms(lambda: fln.layer_norm_fwd_kernel(x, w, b, 1e-5)),
+                eager_ms=eager_ms(
+                    lambda: fln.layer_norm_fwd_kernel(x, w, b, 1e-5)),
+                plain_ms=time_ms(lambda: fln._fwd_ref(x, w, b, 1e-5)),
+                library_ms=time_ms(lambda: F.layer_norm(x, (768,), w.to(dtype),
+                                                        b.to(dtype), 1e-5)),
+                bound_ms=bms, bound_by=by)
+            print(f"      {name}: kernel {case['ms']:.4f} ms (eager "
+                  f"{case['eager_ms']:.4f}), plain "
+                  f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f}"
+                  f" ms, bound {bms:.4f} ms ({by})", flush=True)
+            cases.append(case)
+    return cases
+
+
+# -- phase 4: flash attention --------------------------------------------------
+
+def _visible_pairs(b, tq, tk, causal, q_offset, window, kbias):
+    """Query-key pairs the masks of this call leave visible, summed over
+    batch (per head): the work these inputs need."""
+    if kbias is not None:                 # decode: the live cache keys
+        return int((kbias == 0).sum().item()) * tq
+    if not causal:
+        return b * tq * tk
+    n = np.minimum(q_offset + np.arange(tq) + 1, tk)
+    if window is not None:
+        n = np.minimum(n, window)
+    return b * int(n.sum())
+
+
+def flash_cases(fa, dev):
+    rng = np.random.RandomState(1)
+    t, h, d = 1024, 12, 64
+
+    def qkv(b, tq, tk, h_kv, dtype):
+        return [torch.from_numpy(rng.randn(b, n, hh, d).astype(np.float32))
+                .to(dev, dtype) for n, hh in ((tq, h), (tk, h_kv), (tk, h_kv))]
+
+    key = torch.arange(t, device=dev)
+    # the engine's prefill bias: causal visibility of a 1024 bucket
+    prefill_bias = torch.where(key[None, None, :] <= key[None, :, None],
+                               0.0, -1e9)
+    lengths = torch.from_numpy(rng.randint(32, t, 8)).to(dev)
+    decode_kb = torch.where(key[None, :] <= lengths[:, None], 0.0, -1e9)
+    band = ((key[:, None] >= key[None, :])
+            & (key[:, None] - key[None, :] < 256))
+    specs = [
+        # name, b, tq, h_kv, dtype, causal, window, kbias, bias, sdpa kwargs
+        ("prefill bias [1,1024,1024]", 1, t, h, torch.bfloat16, False, None,
+         None, prefill_bias, dict(attn_mask=prefill_bias[:, None])),
+        ("causal 1024", 1, t, h, torch.bfloat16, True, None, None, None,
+         dict(is_causal=True)),
+        ("decode b8 tq1 tk1024", 8, 1, h, torch.bfloat16, True, None,
+         decode_kb, None, dict(attn_mask=decode_kb[:, None, None, :])),
+        ("gqa 12/4 causal 1024", 1, t, 4, torch.bfloat16, True, None, None,
+         None, dict(is_causal=True)),
+        ("window 256 causal 1024", 1, t, h, torch.bfloat16, True, 256, None,
+         None, dict(attn_mask=band)),
+        ("fp32 causal 1024", 1, t, h, torch.float32, True, None, None, None,
+         dict(is_causal=True)),
+    ]
+    cases = []
+    for name, b, tq, h_kv, dtype, causal, window, kb, bias, sdpa in specs:
+        q, k, v = qkv(b, tq, t, h_kv, dtype)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, q_offset=t - tq,
+                  window=window)
+        out, lse = fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)
+        want_out, want_lse = fa._flash_fwd_ref(q, k, v, kb, bias, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        err = max_err(out, want_out)
+        lse_err = max_err(lse, want_lse)
+        check(err <= tol and lse_err <= 1e-3,
+              f"flash {name}: max_abs_err {err:.3g} <= {tol}, lse "
+              f"{lse_err:.3g} <= 1e-3")
+        isz = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz \
+            + lse.numel() * 4
+        if bias is not None:
+            nbytes += bias.numel() * 4
+        if kb is not None:
+            nbytes += kb.numel() * 4
+        pairs = _visible_pairs(b, tq, t, causal, t - tq, window, kb)
+        ops = 4.0 * h * d * pairs
+        bms, by = bound(nbytes, ops, dtype)
+        # the library call gets KV heads repeated up front (untimed)
+        qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2)
+                      .transpose(1, 2) for x in (q, k, v))
+        lib = {**sdpa}
+        if "attn_mask" in lib and lib["attn_mask"].dtype != torch.bool:
+            lib["attn_mask"] = lib["attn_mask"].to(dtype)
+        case = dict(
+            case=name, max_abs_err=err, lse_max_abs_err=lse_err,
+            ms=time_ms(lambda: fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)),
+            eager_ms=eager_ms(
+                lambda: fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)),
+            plain_ms=time_ms(lambda: fa._flash_fwd_ref(q, k, v, kb, bias,
+                                                       **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=d ** -0.5, **lib)),
+            bound_ms=bms, bound_by=by)
+        print(f"      flash {name}: kernel {case['ms']:.4f} ms (eager "
+              f"{case['eager_ms']:.4f}), plain "
+              f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
+              f"ms, bound {bms:.4f} ms ({by})", flush=True)
+        cases.append(case)
+    return cases
+
+
+# -- phase 5: serving ------------------------------------------------------------
+
+def _pct(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * (len(values) - 1)))] * 1e3
+
+
+def serve_gpt2_small(model, engine_mod, counters, dev):
+    rng = np.random.RandomState(2)
+    eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
+                                   max_seqs=8, device=dev)
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    prompts = [rng.randint(1, model.vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, max_new_tokens=32)
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    st = eng.stats
+    eng.close()
+    forwards = st["prefills"] + st["decode_steps"]
+    check(all(r.ok and len(r.tokens) == 32 for r in results),
+          f"gpt2_small: {sum(r.ok for r in results)}/16 requests served")
+    check(launches[0] == 25 * forwards and launches[1] == 12 * forwards,
+          f"gpt2_small: launches layer_norm {launches[0]} = 25 x {forwards} "
+          f"forwards, flash {launches[1]} = 12 x {forwards}")
+    ok = [r for r in results if r.ok]
+    res = dict(
+        warmup_s=warm_s, wall_s=wall, tokens_out=st["tokens_out"],
+        tokens_per_s=st["tokens_out"] / wall, prefills=st["prefills"],
+        decode_steps=st["decode_steps"],
+        prefill_ms_mean=st["prefill_s"] / max(1, st["prefills"]) * 1e3,
+        decode_step_ms_mean=st["decode_s"] / max(1, st["decode_steps"]) * 1e3,
+        ttft_p50_ms=_pct([r.timings["ttft_s"] for r in ok], 0.5),
+        ttft_p99_ms=_pct([r.timings["ttft_s"] for r in ok], 0.99),
+        tpot_p50_ms=_pct([r.timings["tpot_s"] for r in ok], 0.5),
+        tpot_p99_ms=_pct([r.timings["tpot_s"] for r in ok], 0.99),
+        buckets=sorted({r.bucket for r in ok}),
+        launches={"layer_norm_fwd": launches[0], "flash_attention_fwd":
+                  launches[1]})
+    print(f"      served 16 requests, {res['tokens_out']} tokens in "
+          f"{wall:.3f} s ({res['tokens_per_s']:.1f} tok/s); ttft p50 "
+          f"{res['ttft_p50_ms']:.2f} / p99 {res['ttft_p99_ms']:.2f} ms; tpot "
+          f"p50 {res['tpot_p50_ms']:.2f} / p99 {res['tpot_p99_ms']:.2f} ms; "
+          f"prefill {res['prefill_ms_mean']:.2f} ms, decode step "
+          f"{res['decode_step_ms_mean']:.2f} ms (means); warmup "
+          f"{warm_s:.1f} s", flush=True)
+    return res
+
+
+_KERNEL_KINDS = (("flash", ("flash_fwd_kernel",)), ("layer_norm", ("ln_fwd",)),
+                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("index", ("index", "gather", "scatter")))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in _KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def where_time_goes(model, engine_mod, dev):
+    """One traced serving run (8 prompts of 600-900 tokens, 16 new tokens
+    each: prefills and decode steps at the 1024 bucket) under
+    ``torch.profiler``: device busy share of the wall time, and per step
+    kind (the engine's ``prefill[b]`` / ``decode[b]`` ranges) the host
+    time, the device time and the device time by kernel kind.  Each step
+    ends in a host sync, so a kernel belongs to the last range that began
+    before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(5)
+    eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
+                                   max_seqs=8, device=dev).warmup()
+    prompts = [rng.randint(1, model.vocab_size, (int(n),))
+               for n in rng.randint(600, 901, 8)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.close()
+    events = prof.events()
+    is_range = lambda n: n.startswith(("prefill[", "decode["))  # noqa: E731
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events
+                    if e.device_type == DeviceType.CPU and is_range(e.name))
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in events
+                     if e.device_type == DeviceType.CUDA
+                     and not is_range(e.name))
+    starts = [r[0] for r in ranges]
+    steps = {}
+    for lo, hi, name in ranges:
+        st = steps.setdefault(name, {"count": 0, "host_us": 0.0,
+                                     "device_us": 0.0, "kinds_us": {}})
+        st["count"] += 1
+        st["host_us"] += hi - lo
+    busy, edge = 0.0, None
+    for lo, hi, name in kernels:
+        lo2 = lo if edge is None else max(lo, edge)
+        busy += max(0.0, hi - lo2)
+        edge = hi if edge is None else max(edge, hi)
+        i = int(np.searchsorted(starts, lo, side="right")) - 1
+        if i < 0:
+            continue
+        st = steps[ranges[i][2]]
+        st["device_us"] += hi - lo
+        st["kinds_us"][_kind(name)] = (st["kinds_us"].get(_kind(name), 0.0)
+                                       + hi - lo)
+    res = dict(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               device_idle_share=1 - busy / wall_us if wall_us else None,
+               kernels_traced=len(kernels), steps={})
+    for name, st in sorted(steps.items()):
+        n = st["count"]
+        res["steps"][name] = dict(
+            count=n, host_ms=st["host_us"] / n / 1e3,
+            device_ms=st["device_us"] / n / 1e3,
+            device_ms_by_kind={k: v / n / 1e3
+                               for k, v in sorted(st["kinds_us"].items())})
+        kinds = ", ".join(f"{k} {v / n / 1e3:.3f}"
+                          for k, v in sorted(st["kinds_us"].items()))
+        print(f"      {name} x{n}: host {st['host_us'] / n / 1e3:.2f} ms, "
+              f"device {st['device_us'] / n / 1e3:.3f} ms per step "
+              f"({kinds})", flush=True)
+    print(f"      traced run: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms, idle share {res['device_idle_share']:.3f}, "
+          f"{len(kernels)} kernels", flush=True)
+    check(len(kernels) > 0, "profiler traced device kernels")
+    return res
+
+
+def prefill_logits(models, dev):
+    """A 256-token prefill through the engine's incremental forward, on
+    the card (bf16 and fp32 weights) and on the CPU (fp32), same seed."""
+    ids = np.random.RandomState(3).randint(1, 50257, (1, 256))
+
+    def run(dtype, device):
+        m = models.gpt2_small(dtype=dtype, device=device, seed=0)
+        with torch.inference_mode():
+            caches = models.init_cache(m, 1, cache_len=256)
+            logits, _ = m(torch.from_numpy(ids).to(device), kv_caches=caches,
+                          positions=torch.zeros((1,), dtype=torch.long,
+                                                device=device))
+        return logits.float().cpu()
+
+    want = run(torch.float32, "cpu")
+    res = {}
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 0.25)):
+        err = max_err(run(dtype, dev), want)
+        name = str(dtype)[6:]
+        check(err <= tol, f"gpt2_small 256-token prefill logits, card "
+              f"{name} vs CPU fp32: max_abs_err {err:.3g} <= {tol}")
+        res[f"logits_{name}_vs_cpu_fp32_max_abs_err"] = err
+    return res
+
+
+def tiny_tokens(models, engine_mod, dev):
+    """gpt_tiny served in fp32 on the card and on the CPU: equal greedy
+    tokens, except after a step whose CPU top-2 logit gap is < 1e-4."""
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 1024, (int(n),))
+               for n in rng.randint(4, 200, 12)]
+    toks = {}
+    for device in (dev, "cpu"):
+        m = models.gpt_tiny(dtype=torch.float32, device=device, seed=1)
+        eng = engine_mod.ServingEngine(m, buckets=(128, 256), page_size=16,
+                                       max_seqs=4, device=device)
+        toks[str(device)] = [r.tokens for r in eng.generate(prompts, 24)]
+        eng.close()
+    cpu_model = models.gpt_tiny(dtype=torch.float32, device="cpu", seed=1)
+    mismatched, ties = 0, []
+    for p, a, b in zip(prompts, toks[str(dev)], toks["cpu"]):
+        if np.array_equal(a, b):
+            continue
+        mismatched += 1
+        j = int(np.argmax(a != b))       # first divergent step
+        with torch.inference_mode():
+            ids = torch.from_numpy(np.concatenate([p, b[:j]]))[None]
+            top2 = cpu_model(ids)[0, -1].topk(2).values
+        ties.append(float(top2[0] - top2[1]))
+    gap_ok = all(g < 1e-4 for g in ties)
+    check(gap_ok, f"gpt_tiny fp32 tokens card vs CPU: {12 - mismatched}/12 "
+          f"identical; top-2 gaps at divergence {ties}")
+    return dict(tiny_identical=12 - mismatched, tiny_divergence_gaps=ties)
+
+
+# -- main ---------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None,
+                    help="also write every measurement to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    fln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    models = importlib.import_module("apex_tpu_torch.models")
+    engine_mod = importlib.import_module("apex_tpu_torch.serving.engine")
+    build = importlib.import_module("apex_tpu_torch._build")
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # phase 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
+
+    # phase 2: both kernels built at once
+    def build_flash():
+        t0 = time.perf_counter()
+        build.load("flash_attention")
+        return time.perf_counter() - t0
+
+    def build_ln():
+        t0 = time.perf_counter()
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.ones((8, 768), device=dev, dtype=dtype)
+            w = torch.ones((768,), device=dev)
+            fln.layer_norm_fwd_kernel(x, w, w, 1e-5)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        f_flash, f_ln = pool.submit(build_flash), pool.submit(build_ln)
+        build_s = {"flash_attention_nvcc_s": f_flash.result(),
+                   "layer_norm_triton_s": f_ln.result()}
+    print(f"      build: {build_s}", flush=True)
+    report = [ln for ln in build.ptxas_report("flash_attention").splitlines()
+              if "registers" in ln or "spill" in ln]
+    print("      ptxas: " + " | ".join(r.strip() for r in report[:36]),
+          flush=True)
+
+    ln_cases = layer_norm_cases(fln, dev)          # phase 3
+    fa_cases = flash_cases(fa, dev)                # phase 4
+    counters = [fln.layer_norm_fwd_kernel, fa.flash_fwd_kernel]
+    model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+    serving = serve_gpt2_small(model, engine_mod, counters, dev)    # 5
+    serving.update(prefill_logits(models, dev))
+    serving.update(tiny_tokens(models, engine_mod, dev))
+    profile_res = where_time_goes(model, engine_mod, dev)          # 6
+
+    def entry(name, route, source, replaces, cases, main_case):
+        rep = cases[main_case]
+        return dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=serving["launches"][name],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            shape=rep["case"], cases=cases)
+
+    kernels = [
+        entry("layer_norm_fwd", "triton",
+              "apex_tpu_torch/normalization/fused_layer_norm.py",
+              "apex_tpu/normalization/fused_layer_norm.py:206", ln_cases, 0),
+        entry("flash_attention_fwd", "cuda",
+              "apex_tpu_torch/csrc/flash_attention.cu",
+              "apex_tpu/ops/flash_attention.py:238", fa_cases, 0),
+    ]
+    elapsed = time.perf_counter() - t_start
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(gpu=smi, torch=torch.__version__, build=build_s,
+                           kernels=kernels, serving=serving,
+                           profile=profile_res,
+                           elapsed_s=elapsed, failures=FAILURES), f,
+                      indent=1)
+    print(f"      elapsed {elapsed:.1f} s", flush=True)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": [{k: v for k, v in e.items()
+                                   if k != "cases"} for e in kernels]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,8 +33,10 @@ setup(
     version="0.1.0",
     description="TPU-native mixed-precision & distributed training framework "
                 "(the capabilities of NVIDIA Apex, rebuilt on jax/XLA/Pallas)",
-    packages=find_packages(include=["apex_tpu", "apex_tpu.*"]),
-    package_data={"apex_tpu": ["csrc/*.cpp"]},
+    packages=find_packages(include=["apex_tpu", "apex_tpu.*",
+                                    "apex_tpu_torch", "apex_tpu_torch.*"]),
+    package_data={"apex_tpu": ["csrc/*.cpp"],
+                  "apex_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy"],
     cmdclass={"build_native": BuildNative},

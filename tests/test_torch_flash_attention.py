@@ -1,0 +1,141 @@
+"""The port's flash-attention forward against the JAX package's.
+
+Same numpy inputs through JAX ``flash_attention`` (the Pallas kernel in
+interpret mode, with explicit blocks, wherever the shape tiles; its jnp
+path where it does not, e.g. ``q_len = 1``) and through the port, whose
+CPU path is the plain version of the CUDA kernel.  fp32 at 2e-5.  The
+kernel itself runs only on the card (``tests/test_torch_kernels_cuda.py``).
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from apex_tpu.ops.flash_attention import flash_attention as jflash
+from apex_tpu_torch.ops.attention import (blockwise_attention,
+                                          dot_product_attention)
+from apex_tpu_torch.ops.flash_attention import flash_attention
+
+# the package re-exports the function under the module's name
+fa_mod = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _qkv(b, tq, tk, h, h_kv, d, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, tq, h, d).astype(np.float32)
+    k = rng.randn(b, tk, h_kv, d).astype(np.float32)
+    v = rng.randn(b, tk, h_kv, d).astype(np.float32)
+    return q, k, v
+
+
+def _both(q, k, v, jax_kw=None, **kw):
+    jkw = {k_: jnp.asarray(v_) if isinstance(v_, np.ndarray) else v_
+           for k_, v_ in kw.items()}
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw,
+                  **(jax_kw or {}))
+    tkw = {k_: torch.from_numpy(v_) if isinstance(v_, np.ndarray) else v_
+           for k_, v_ in kw.items()}
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), **tkw)
+    assert got.shape == q.shape
+    return got.numpy(), np.asarray(want)
+
+
+BLOCKS = dict(interpret=True, block_q=16, block_k=16)
+
+
+def test_causal_mha():
+    q, k, v = _qkv(2, 32, 32, 2, 2, 16)
+    got, want = _both(q, k, v, BLOCKS, causal=True)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_gqa_four_over_two():
+    q, k, v = _qkv(2, 32, 32, 4, 2, 16, seed=1)
+    got, want = _both(q, k, v, BLOCKS, causal=True)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_decode_tq1_with_key_padding_bias():
+    """One fresh token against a cache whose tail is dead."""
+    q, k, v = _qkv(3, 1, 24, 2, 2, 16, seed=2)
+    live = np.arange(24)[None, :] <= np.array([[5], [23], [0]])
+    kb = np.where(live, 0.0, -1e9).astype(np.float32)
+    got, want = _both(q, k, v, {"interpret": True}, causal=True,
+                      key_padding_bias=kb)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_bts_bias_non_causal():
+    q, k, v = _qkv(2, 32, 32, 2, 2, 16, seed=3)
+    bias = np.random.RandomState(4).randn(2, 32, 32).astype(np.float32)
+    got, want = _both(q, k, v, BLOCKS, causal=False, bias=bias)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_bias_with_key_padding_folded_and_broadcast():
+    q, k, v = _qkv(2, 16, 16, 2, 2, 16, seed=5)
+    bias = np.random.RandomState(6).randn(2, 1, 16).astype(np.float32)
+    kb = np.where(np.arange(16) < 12, 0.0, -1e9)[None].repeat(2, 0).astype(
+        np.float32)
+    got, want = _both(q, k, v, BLOCKS, causal=False, bias=bias,
+                      key_padding_bias=kb)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_window_8():
+    q, k, v = _qkv(1, 32, 32, 2, 2, 16, seed=7)
+    got, want = _both(q, k, v, BLOCKS, causal=True, window=8)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_suffix_alignment_tq_lt_tk():
+    """Causal q_len < kv_len: the queries are the last q_len positions."""
+    q, k, v = _qkv(2, 16, 48, 2, 2, 16, seed=8)
+    got, want = _both(q, k, v, BLOCKS, causal=True)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_per_head_bias_runs_plain_on_cpu():
+    q, k, v = _qkv(1, 8, 8, 2, 2, 16, seed=9)
+    b4 = np.random.RandomState(10).randn(1, 2, 8, 8).astype(np.float32)
+    got, want = _both(q, k, v, causal=True, bias=b4)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_validation_errors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 3, 2, 16))
+    with pytest.raises(ValueError, match="must divide"):
+        flash_attention(q, k, v)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 2, 16))
+    with pytest.raises(ValueError, match="q_len <= kv_len"):
+        flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="requires causal"):
+        flash_attention(q, k, v, window=2)
+    with pytest.raises(ValueError, match="broadcastable"):
+        flash_attention(q, k, v, bias=torch.zeros(1, 3, 4))
+    with pytest.raises(ValueError, match="bias must be"):
+        flash_attention(q, k, v, bias=torch.zeros(8, 4))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_oracles_agree_with_plain_kernel_version(causal):
+    """ops.attention (materialized and blockwise) is the oracle of the
+    kernel's plain version; the fp32 lse is m + log(l)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 20, 20, 2, 2, 32, 11))
+    out, lse = fa_mod._flash_fwd_ref(q, k, v, None, None, sm_scale=32 ** -.5,
+                                     causal=causal)
+    torch.testing.assert_close(out, dot_product_attention(
+        q, k, v, causal=causal), **TOL)
+    torch.testing.assert_close(out, blockwise_attention(
+        q, k, v, causal=causal, block_size=8), **TOL)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 32 ** -.5
+    if causal:
+        s = s.masked_fill(~torch.ones(20, 20, dtype=torch.bool).tril(), -1e30)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), **TOL)
