@@ -10,7 +10,8 @@ kernel written by hand here (CUDA C++ for ``sm_90a`` under ``csrc/``,
 or Triton), with a plain PyTorch version beside it.  A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 
-Entry points (models, the serving engine, the CLI) run on CUDA unless
+Entry points (models, the serving engine and its CLI, the LM trainer
+``python -m apex_tpu_torch.examples.lm.main_amp``) run on CUDA unless
 the caller passes ``device="cpu"``; without a GPU they raise.
 """
 

@@ -37,12 +37,14 @@ def _nvcc() -> str:
 
 
 class _Registry:
-    """Loaded libraries of this process, one per source; a lock keeps
-    two threads from building the same one at once."""
+    """Loaded libraries of this process, one per source; a lock per
+    source keeps two threads from building the same one at once, while
+    different sources build concurrently."""
 
     def __init__(self):
         self.libs: Dict[str, ctypes.CDLL] = {}
         self.lock = threading.Lock()
+        self.source_locks: Dict[str, threading.Lock] = {}
         #: ptxas report of the last build of each source (registers,
         #: shared memory, spills), for the on-card smoke run to print
         self.reports: Dict[str, str] = {}
@@ -73,6 +75,8 @@ def build(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _REGISTRY.lock:
+        lock = _REGISTRY.source_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _REGISTRY.libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))

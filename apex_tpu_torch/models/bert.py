@@ -1,5 +1,6 @@
 """Self-attention and flax-shaped projections, the pieces of
-``apex_tpu/models/bert.py`` that the GPT serving path runs.
+``apex_tpu/models/bert.py`` that the GPT serving and training paths run
+(the non-cache forward is differentiable on both devices).
 
 Projections keep flax's DenseGeneral layouts, so one weight set moves
 between the two packages unchanged (:mod:`apex_tpu_torch.convert`):

@@ -4,11 +4,17 @@
 Pre-LN residual blocks, learned positions, an LM head tied to the token
 embedding.  The numerics follow the flax model step for step:
 
-* embeddings are summed in fp32 and then cast to the compute dtype;
+* embeddings are summed in the parameters' dtype (fp32, or bf16 when an
+  O2 step hands the model bf16 copies) and then cast to the compute
+  dtype;
 * each projection casts its input and kernel to the compute dtype;
 * GELU is the tanh approximation (flax ``nn.gelu``'s default), in fp32;
-* the LM head is an fp32 product against ``wte.T`` (on the card, TF32
-  must be off for it to be fp32: the entry points turn it off).
+* the LM head is an fp32 product against ``wte.T``, ``wte`` promoted to
+  fp32 whatever its dtype, as JAX promotes it (on the card, TF32 must be
+  off for it to be fp32: the entry points turn it off).
+
+The non-cache forward is differentiable on both devices: the LayerNorm
+and attention kernels carry their own backward kernels.
 
 Parameter names and shapes are flax's (``wte``, ``wpe``,
 ``block_{i}.ln1.scale``, ``block_{i}.attention.query.kernel`` ...), so
@@ -146,7 +152,7 @@ class GPT(nn.Module):
                 x, c = block(x, kv_cache=cache, positions=positions)
                 new_caches.append(c)
             x = self.ln_f(x)
-            return x.float() @ self.wte.T, new_caches
+            return x.float() @ self.wte.float().T, new_caches
         if t > self.max_len:
             raise ValueError(f"sequence of {t} tokens exceeds max_len="
                              f"{self.max_len}")
@@ -155,7 +161,7 @@ class GPT(nn.Module):
         for block in self.blocks():
             x = block(x)
         x = self.ln_f(x)
-        return x.float() @ self.wte.T
+        return x.float() @ self.wte.float().T
 
 
 def gpt2_small(**kw) -> GPT:

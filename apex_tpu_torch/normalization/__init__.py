@@ -1,4 +1,4 @@
-"""Normalization: the fused LayerNorm forward kernel and module."""
+"""Normalization: the fused LayerNorm kernels and module."""
 
 from .fused_layer_norm import (FusedLayerNorm, fused_layer_norm,
                                fused_layer_norm_affine)

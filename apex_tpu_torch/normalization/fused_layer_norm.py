@@ -1,21 +1,23 @@
-"""FusedLayerNorm forward — Triton kernel for Hopper, with its plain
-PyTorch version beside it.
+"""FusedLayerNorm — Triton kernels for Hopper (forward and input
+gradient), with their plain PyTorch versions beside them.
 
 Counterpart of ``apex_tpu/normalization/fused_layer_norm.py``: the input
 splits into ``(n1, n2)`` = (rows, normalized elements), statistics are
 fp32 whatever the input dtype, and the forward returns the output in the
 input dtype plus fp32 ``mean`` and ``invvar`` per row.  Parameters are
-fp32 and named ``scale`` / ``bias``, as in flax.
+fp32 and named ``scale`` / ``bias``, as in flax.  The gradient is a
+``torch.autograd.Function`` (the JAX ``custom_vjp``): ``dx`` comes from
+the backward kernel, ``dgamma`` and ``dbeta`` are plain fp32 column sums,
+as in the JAX backward rule.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 :func:`_fwd_ref` (the JAX ``_fwd_ref`` math, single-pass variance
-``E[x^2] - mean^2``); a CUDA tensor launches :func:`layer_norm_fwd_kernel`
-at every size, or raises.  Forward only: a CUDA call that needs a
-gradient raises ``NotImplementedError`` (the backward kernel comes with
-the training slice).
+``E[x^2] - mean^2``) and :func:`_bwd_input_ref`; a CUDA tensor launches
+:func:`layer_norm_fwd_kernel` and :func:`layer_norm_bwd_kernel` at every
+size, or raises.
 
-Kernel note.  Replaces the Pallas ``_fwd_kernel`` (launched by
-``_pallas_fwd``, ``apex_tpu/normalization/fused_layer_norm.py:206``).
+Kernel notes.  The forward replaces the Pallas ``_fwd_kernel`` (launched
+by ``_pallas_fwd``, ``apex_tpu/normalization/fused_layer_norm.py:206``).
 One Triton program per row holds the whole row in one power-of-two block
 (768 -> 1024, masked), reduces it in fp32 with ``tl.sum`` (the
 warp-shuffle tree a CUDA kernel would write by hand) and writes the
@@ -25,6 +27,12 @@ design keeps the row in registers and touches device memory exactly
 once each way.  The variance is two-pass in registers (``mean((x -
 mean)^2)``), which is no extra traffic and avoids the cancellation of
 the single-pass form; it agrees with the plain version to ~1e-6.
+
+The backward replaces the Pallas ``_bwd_kernel`` (launched by
+``_pallas_bwd_input``, ``:223``): ``dx = (g*w - mean(g*w) - xhat *
+mean(g*w*xhat)) * invvar`` per row.  Also bound by memory: one program
+per row reads g and x once, keeps the row in registers for its two
+``tl.sum`` reductions and writes dx once.
 """
 
 from __future__ import annotations
@@ -73,12 +81,26 @@ def _fwd_ref(x2d, weight, bias, eps):
     return out.to(x2d.dtype), mean[:, 0], invvar[:, 0]
 
 
-# -- Triton kernel ------------------------------------------------------------
+def _bwd_input_ref(g2d, x2d, mean, invvar, weight):
+    """Gradient with respect to the input (the JAX ``_bwd_input_ref``,
+    reference ``cuComputeGradInput``), in the input's dtype."""
+    n2 = x2d.shape[1]
+    gf = g2d.float()
+    if weight is not None:
+        gf = gf * weight.float()
+    xhat = (x2d.float() - mean[:, None]) * invvar[:, None]
+    sum_g = gf.sum(dim=1, keepdim=True)
+    sum_gx = (gf * xhat).sum(dim=1, keepdim=True)
+    dx = (gf - sum_g / n2 - xhat * sum_gx / n2) * invvar[:, None]
+    return dx.to(x2d.dtype)
+
+
+# -- Triton kernels -----------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def _triton_kernel():
-    """Compile-on-first-use Triton kernel (``triton`` is imported here,
-    never at module import: CPU-only hosts have none)."""
+    """Compile-on-first-use Triton forward kernel (``triton`` is imported
+    here, never at module import: CPU-only hosts have none)."""
     import triton
     import triton.language as tl
 
@@ -111,21 +133,33 @@ def _triton_kernel():
     return ln_fwd
 
 
-def layer_norm_fwd_kernel(x2d, weight, bias, eps):
-    """Launch the Triton kernel on a CUDA ``[n1, n2]`` input with unit
-    column stride; returns ``(out, mean, invvar)``.  Adds one to
-    ``layer_norm_fwd_kernel.launches`` per launch."""
+def _check_kernel_rows(x2d, n2_tensors, rows=()):
+    """What the kernels take: CUDA float ``[n1, n2]`` inputs with unit
+    column stride, contiguous ``[n2]`` vectors and contiguous fp32
+    ``[n1]`` row statistics, all on one device."""
     if not x2d.is_cuda or x2d.dim() != 2 or x2d.stride(1) != 1:
         raise ValueError("layer_norm kernel takes a CUDA [n1, n2] tensor "
                          "with unit column stride")
     if not x2d.dtype.is_floating_point:
         raise TypeError(f"layer_norm kernel takes floats, got {x2d.dtype}")
     n1, n2 = x2d.shape
-    for name, t in (("weight", weight), ("bias", bias)):
-        if t is not None and (t.device != x2d.device or t.shape != (n2,)
+    for name, t, shape in ([(n, t, (n2,)) for n, t in n2_tensors]
+                           + [(n, t, (n1,)) for n, t in rows]):
+        if t is not None and (t.device != x2d.device or t.shape != shape
                               or t.stride(0) != 1):
-            raise ValueError(f"{name} must be a contiguous [{n2}] tensor on "
-                             f"{x2d.device}")
+            raise ValueError(f"{name} must be a contiguous {list(shape)} "
+                             f"tensor on {x2d.device}")
+    for name, t in rows:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be fp32")
+
+
+def layer_norm_fwd_kernel(x2d, weight, bias, eps):
+    """Launch the Triton forward kernel on a CUDA ``[n1, n2]`` input with
+    unit column stride; returns ``(out, mean, invvar)``.  Adds one to
+    ``layer_norm_fwd_kernel.launches`` per launch."""
+    _check_kernel_rows(x2d, (("weight", weight), ("bias", bias)))
+    n1, n2 = x2d.shape
     out = torch.empty_like(x2d, memory_format=torch.contiguous_format)
     mean = torch.empty((n1,), dtype=torch.float32, device=x2d.device)
     invvar = torch.empty((n1,), dtype=torch.float32, device=x2d.device)
@@ -147,17 +181,111 @@ def layer_norm_fwd_kernel(x2d, weight, bias, eps):
 layer_norm_fwd_kernel.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _triton_bwd_kernel():
+    """Compile-on-first-use Triton backward (input-gradient) kernel."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def ln_bwd(g_ptr, x_ptr, mean_ptr, invvar_ptr, w_ptr, dx_ptr,
+               stride_g, stride_x, stride_dx, n2,
+               HAS_W: tl.constexpr, BLOCK: tl.constexpr):
+        row = tl.program_id(0)
+        cols = tl.arange(0, BLOCK)
+        live = cols < n2
+        g = tl.load(g_ptr + row * stride_g + cols, mask=live,
+                    other=0.0).to(tl.float32)
+        if HAS_W:
+            g = g * tl.load(w_ptr + cols, mask=live, other=0.0).to(
+                tl.float32)
+        x = tl.load(x_ptr + row * stride_x + cols, mask=live,
+                    other=0.0).to(tl.float32)
+        mean = tl.load(mean_ptr + row)
+        invvar = tl.load(invvar_ptr + row)
+        xhat = tl.where(live, (x - mean) * invvar, 0.0)
+        sum_g = tl.sum(g, axis=0) / n2
+        sum_gx = tl.sum(g * xhat, axis=0) / n2
+        dx = (g - sum_g - xhat * sum_gx) * invvar
+        tl.store(dx_ptr + row * stride_dx + cols,
+                 dx.to(dx_ptr.dtype.element_ty), mask=live)
+
+    return ln_bwd
+
+
+def layer_norm_bwd_kernel(g2d, x2d, mean, invvar, weight):
+    """Launch the Triton backward kernel: the output gradient ``g2d`` and
+    the forward's input ``x2d`` (CUDA ``[n1, n2]``, unit column stride,
+    one dtype), its fp32 ``mean`` and ``invvar`` ``[n1]`` and the weight
+    ``[n2]`` or None; returns ``dx`` in x's dtype.  Adds one to
+    ``layer_norm_bwd_kernel.launches`` per launch."""
+    _check_kernel_rows(x2d, (("weight", weight),),
+                       (("mean", mean), ("invvar", invvar)))
+    if g2d.shape != x2d.shape or g2d.device != x2d.device \
+            or g2d.stride(1) != 1:
+        raise ValueError("g must be x's shape on x's device, with unit "
+                         "column stride")
+    n1, n2 = x2d.shape
+    dx = torch.empty_like(x2d, memory_format=torch.contiguous_format)
+    if n1 == 0:
+        return dx
+    block = 1 << max(0, n2 - 1).bit_length()
+    kernel = _triton_bwd_kernel()
+    with torch.cuda.device(x2d.device):
+        kernel[(n1,)](
+            g2d, x2d, mean, invvar, weight if weight is not None else x2d,
+            dx, g2d.stride(0), x2d.stride(0), dx.stride(0), n2,
+            HAS_W=weight is not None, BLOCK=block,
+            num_warps=min(16, max(4, block // 256)))
+    layer_norm_bwd_kernel.launches += 1
+    return dx
+
+
+layer_norm_bwd_kernel.launches = 0
+
+
 def layer_norm_fwd(x2d, weight, bias, eps):
-    """``(out, mean, invvar)`` of a ``[n1, n2]`` input: the kernel for a
-    CUDA tensor, the plain version for a CPU one."""
+    """``(out, mean, invvar)`` of a ``[n1, n2]`` input, no gradient: the
+    kernel for a CUDA tensor, the plain version for a CPU one."""
     if not x2d.is_cuda:
         return _fwd_ref(x2d, weight, bias, eps)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x2d, weight, bias)):
-        raise NotImplementedError(
-            "the LayerNorm backward kernel is not ported yet; run the CUDA "
-            "forward under torch.no_grad() or inference_mode()")
     return layer_norm_fwd_kernel(x2d.contiguous(), weight, bias, eps)
+
+
+def layer_norm_bwd_input(g2d, x2d, mean, invvar, weight):
+    """``dx`` of a ``[n1, n2]`` input: the kernel for a CUDA tensor, the
+    plain version for a CPU one."""
+    if not x2d.is_cuda:
+        return _bwd_input_ref(g2d, x2d, mean, invvar, weight)
+    return layer_norm_bwd_kernel(g2d.contiguous(), x2d, mean, invvar,
+                                 weight)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Forward kernel, saving ``x2d``, ``w``, ``mean`` and ``invvar``;
+    backward the input-gradient kernel plus fp32 column sums for
+    ``dgamma`` and ``dbeta`` (``fused_layer_norm.py:318-334``)."""
+
+    @staticmethod
+    def forward(ctx, x2d, weight, bias, eps):
+        x2d = x2d.contiguous()
+        out, mean, invvar = layer_norm_fwd(x2d, weight, bias, eps)
+        ctx.save_for_backward(x2d, weight, mean, invvar)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x2d, weight, mean, invvar = ctx.saved_tensors
+        dx = layer_norm_bwd_input(g, x2d, mean, invvar, weight)
+        dw = db = None
+        if weight is not None and ctx.needs_input_grad[1]:
+            xhat = (x2d.float() - mean[:, None]) * invvar[:, None]
+            dw = (g.float() * xhat).sum(0).to(weight.dtype)
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            db = g.float().sum(0).to(ctx.bias_dtype)
+        return dx, dw, db, None
 
 
 # -- public functional API ----------------------------------------------------
@@ -169,8 +297,7 @@ def fused_layer_norm(x, normalized_shape, weight=None, bias=None, eps=1e-5):
     x2d = x.reshape(n1, n2)
     w = weight.reshape(n2) if weight is not None else None
     b = bias.reshape(n2) if bias is not None else None
-    out, _, _ = layer_norm_fwd(x2d, w, b, float(eps))
-    return out.reshape(x.shape)
+    return _LayerNorm.apply(x2d, w, b, float(eps)).reshape(x.shape)
 
 
 def fused_layer_norm_affine(x, weight, bias, normalized_shape, eps=1e-5):

@@ -1,5 +1,5 @@
-"""Flash attention forward — CUDA C++ kernel for Hopper, with its plain
-PyTorch version beside it.
+"""Flash attention — CUDA C++ kernels for Hopper (forward, dQ, dK/dV),
+with their plain PyTorch versions beside them.
 
 Counterpart of ``apex_tpu/ops/flash_attention.py``: the same public
 ``flash_attention(q, k, v, *, causal, sm_scale, key_padding_bias, bias,
@@ -10,15 +10,19 @@ causal cross-length queries are the SUFFIX of the keys (``q_offset =
 kv_len - q_len``), ``window`` needs causal, a 3-D bias is broadcast to
 ``[B, T, S]`` and a ``key_padding_bias`` is folded into it.
 
-Dispatch is by the tensors' device and nothing else: CPU tensors take
-:func:`_flash_fwd_ref`; CUDA tensors launch the kernel of
-``csrc/flash_attention.cu`` (every shape, ``q_len = 1`` decode and short
-prefills included — the TPU's measured crossovers do not carry over) or
-raise.  The kernel replaces the Pallas ``_fwd_kernel``
-(``apex_tpu/ops/flash_attention.py:238``); its source says what bounds it
-on the card and how it is laid out.  Forward only: a CUDA call that needs
-a gradient raises ``NotImplementedError`` (the backward kernels come with
-the training slice).
+The gradient is a ``torch.autograd.Function`` (the JAX ``custom_vjp``):
+its forward saves ``out`` and the fp32 ``lse``, its backward recomputes
+``p = exp(s - lse)`` tile by tile.  Dispatch is by the tensors' device and
+nothing else: CPU tensors take :func:`_flash_fwd_ref` and
+:func:`_flash_bwd_ref`; CUDA tensors launch the kernels of
+``csrc/flash_attention.cu`` (forward, every shape, ``q_len = 1`` decode
+included — the TPU's measured crossovers do not carry over) and
+``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), or raise.  The kernels
+replace the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (``apex_tpu/ops/flash_attention.py:238, 440, 478``);
+their sources say what bounds them on the card and how they are laid
+out.  On CUDA, a ``[B, T, S]`` bias that needs a gradient raises (the
+Pallas ``_bwd_db2_kernel`` is not ported yet), as does a per-head bias.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def _pick_block_q(tq: int) -> int:
     return 16 if tq >= 16 else 4
 
 
-# -- plain version ------------------------------------------------------------
+# -- plain versions -------------------------------------------------------------
 
 def _visible(tq: int, tk: int, q_offset: int, window: Optional[int],
              device) -> torch.Tensor:
@@ -55,6 +59,22 @@ def _visible(tq: int, tk: int, q_offset: int, window: Optional[int],
     if window is not None:
         vis = vis & (qp - kp < window)
     return vis
+
+
+def _scores(q, k, kbias, bias, sm_scale):
+    """fp32 ``[B, H, T, S]`` scores with both biases added; k already has
+    one head per query head."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    if kbias is not None:
+        s = s + kbias.float()[:, None, None, :]
+    if bias is not None:
+        s = s + (bias.float()[:, None] if bias.dim() == 3 else bias.float())
+    return s
+
+
+def _repeat_kv(q, *kv):
+    grp = q.shape[2] // kv[0].shape[2]
+    return [x.repeat_interleave(grp, dim=2) if grp > 1 else x for x in kv]
 
 
 def _flash_fwd_ref(q, k, v, kbias, bias, *, sm_scale: float, causal: bool,
@@ -69,15 +89,8 @@ def _flash_fwd_ref(q, k, v, kbias, bias, *, sm_scale: float, causal: bool,
     keys get ``NEG_INF`` and ``p = 0``, ``p`` is rounded to the value
     dtype before the PV product, and a row with ``l == 0`` gives zeros
     and ``lse = NEG_INF`` — as the Pallas kernel does."""
-    grp = q.shape[2] // k.shape[2]
-    if grp > 1:
-        k = k.repeat_interleave(grp, dim=2)
-        v = v.repeat_interleave(grp, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
-    if kbias is not None:
-        s = s + kbias.float()[:, None, None, :]
-    if bias is not None:
-        s = s + (bias.float()[:, None] if bias.dim() == 3 else bias.float())
+    k, v = _repeat_kv(q, k, v)
+    s = _scores(q, k, kbias, bias, sm_scale)
     if causal:
         vis = _visible(q.shape[1], k.shape[1], q_offset, window, q.device)
         s = torch.where(vis, s, torch.full_like(s, NEG_INF))
@@ -93,7 +106,52 @@ def _flash_fwd_ref(q, k, v, kbias, bias, *, sm_scale: float, causal: bool,
     return out.to(q.dtype), lse[..., 0]
 
 
-# -- CUDA kernel --------------------------------------------------------------
+def _delta(do, out) -> torch.Tensor:
+    """``rowsum(dO * out)`` in fp32, ``[B, H, T]`` contiguous (a plain
+    reduction outside the kernels, as in the JAX package)."""
+    return (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _flash_bwd_ref(q, k, v, kbias, bias, out, lse, do, *, sm_scale: float,
+                   causal: bool, q_offset: int = 0,
+                   window: Optional[int] = None):
+    """The backward kernels' arithmetic in plain PyTorch, on materialized
+    scores (the recompute of the JAX ``_recompute_p_ds``).
+
+    Arguments as :func:`_flash_fwd_ref` plus the forward's ``out`` and
+    fp32 ``lse`` and the output gradient ``do``.  Returns ``(dq, dk, dv,
+    dkbias, dbias)``: dq/dk/dv in the inputs' dtypes and layouts (the
+    query heads sharing a KV head summed in fp32), ``dkbias`` fp32 ``[B,
+    S]`` and ``dbias`` fp32 in ``bias``'s shape, each None without that
+    bias.  ``p`` is rounded to dO's dtype before ``p^T dO`` and ``ds`` to
+    the input dtype before ``ds K`` and ``ds^T Q``, where the kernels
+    round; the bias gradients take the unrounded ``ds / sm_scale``."""
+    b, tq, h, d = q.shape
+    tk, h_kv = k.shape[1], k.shape[2]
+    kr, vr = _repeat_kv(q, k, v)
+    s = _scores(q, kr, kbias, bias, sm_scale)
+    if causal:
+        vis = _visible(tq, tk, q_offset, window, q.device)
+        s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(vis, p, torch.zeros_like(p))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
+    ds = p * (dp - _delta(do, out)[..., None]) * sm_scale
+    dsr = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsr, kr.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsr, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = dk.reshape(b, tk, h_kv, h // h_kv, d).sum(3)
+    dv = dv.reshape(b, tk, h_kv, h // h_kv, d).sum(3)
+    dkbias = None if kbias is None else ds.sum(dim=(1, 2)) / sm_scale
+    dbias = None
+    if bias is not None:
+        dbias = (ds.sum(1) if bias.dim() == 3 else ds) / sm_scale
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dkbias, dbias)
+
+
+# -- CUDA kernels ---------------------------------------------------------------
 
 class _FlashParams(ctypes.Structure):
     """Mirror of ``struct Params`` in ``csrc/flash_attention.cu``."""
@@ -109,7 +167,22 @@ class _FlashParams(ctypes.Structure):
                 + [("sm_scale", ctypes.c_float)])
 
 
-def _lib() -> ctypes.CDLL:
+class _FlashBwdParams(ctypes.Structure):
+    """Mirror of ``struct BwdParams`` in ``csrc/flash_attention_bwd.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "dout", "lse", "delta", "kbias", "bias",
+                  "dq", "dk", "dv", "dkbias")]
+                + [(f"s{n}_{a}", ctypes.c_int64)
+                   for n in ("q", "k", "v", "do", "dq", "dk", "dv")
+                   for a in "bth"]
+                + [(n, ctypes.c_int64) for n in ("skb_b", "sb_b", "sb_t")]
+                + [(n, ctypes.c_int32) for n in
+                   ("B", "H", "Hkv", "tq", "tk", "causal", "q_offset",
+                    "window")]
+                + [("sm_scale", ctypes.c_float)])
+
+
+def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_int,
@@ -118,15 +191,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
-                     causal: bool, q_offset: int = 0,
-                     window: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel: the arguments of :func:`_flash_fwd_ref`
-    (a 3-D ``bias`` only), CUDA tensors; returns ``(out, lse)``.  Adds one
-    to ``flash_fwd_kernel.launches`` per launch."""
-    b, tq, h, d = q.shape
-    tk, h_kv = k.shape[1], k.shape[2]
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv):
+        fn.argtypes = [ctypes.POINTER(_FlashBwdParams), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_kernel_inputs(q, k, v, kbias, bias, *extra):
+    """Validate what every flash kernel takes and bring the biases to
+    the fp32 layouts the kernels read; returns ``(kbias, bias)``."""
+    b, tq, _, d = q.shape
+    tk = k.shape[1]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -136,7 +214,7 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                          f"{_HEAD_DIMS}, got {d}")
     if tq < 1 or tk < 1:
         raise ValueError("flash kernel needs q_len >= 1 and kv_len >= 1")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be on q's CUDA device")
         if t.stride(-1) != 1:
@@ -154,26 +232,48 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
         kbias = kbias.to(torch.float32).expand(b, tk)
         if kbias.stride(-1) != 1:
             kbias = kbias.contiguous()
+    return kbias, bias
+
+
+def _strides(**tensors):
+    return {f"s{n}_{a}": t.stride(i) for n, t in tensors.items()
+            for i, a in enumerate("bth")}
+
+
+def _common(q, k, kbias, bias, *, sm_scale, causal, q_offset, window):
+    return dict(
+        kbias=None if kbias is None else kbias.data_ptr(),
+        bias=None if bias is None else bias.data_ptr(),
+        skb_b=0 if kbias is None else kbias.stride(0),
+        sb_b=0 if bias is None else bias.stride(0),
+        sb_t=0 if bias is None else bias.stride(1),
+        B=q.shape[0], H=q.shape[2], Hkv=k.shape[2], tq=q.shape[1],
+        tk=k.shape[1], causal=int(causal), q_offset=int(q_offset),
+        window=0 if window is None else int(window),
+        sm_scale=float(sm_scale))
+
+
+def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
+                     causal: bool, q_offset: int = 0,
+                     window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA forward kernel: the arguments of
+    :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
+    ``(out, lse)``.  Adds one to ``flash_fwd_kernel.launches`` per
+    launch."""
+    kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias)
+    b, tq, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     prm = _FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-        kbias=None if kbias is None else kbias.data_ptr(),
-        bias=None if bias is None else bias.data_ptr(),
         out=out.data_ptr(), lse=lse.data_ptr(),
-        sq_b=q.stride(0), sq_t=q.stride(1), sq_h=q.stride(2),
-        sk_b=k.stride(0), sk_t=k.stride(1), sk_h=k.stride(2),
-        sv_b=v.stride(0), sv_t=v.stride(1), sv_h=v.stride(2),
-        so_b=out.stride(0), so_t=out.stride(1), so_h=out.stride(2),
-        skb_b=0 if kbias is None else kbias.stride(0),
-        sb_b=0 if bias is None else bias.stride(0),
-        sb_t=0 if bias is None else bias.stride(1),
-        B=b, H=h, Hkv=h_kv, tq=tq, tk=tk, causal=int(causal),
-        q_offset=int(q_offset), window=0 if window is None else int(window),
-        sm_scale=float(sm_scale))
+        **_strides(q=q, k=k, v=v, o=out),
+        **_common(q, k, kbias, bias, sm_scale=sm_scale, causal=causal,
+                  q_offset=q_offset, window=window))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _lib().flash_attention_fwd(
+        err = _fwd_lib().flash_attention_fwd(
             ctypes.byref(prm), d, _pick_block_q(tq),
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
@@ -186,6 +286,131 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
 flash_fwd_kernel.launches = 0
 
 
+def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
+                dv, dkbias, kw):
+    prm = _FlashBwdParams(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), dout=do.data_ptr(),
+        lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq=None if dq is None else dq.data_ptr(),
+        dk=None if dk is None else dk.data_ptr(),
+        dv=None if dv is None else dv.data_ptr(),
+        dkbias=None if dkbias is None else dkbias.data_ptr(),
+        **_strides(q=q, k=k, v=v, do=do, dq=q if dq is None else dq,
+                   dk=k if dk is None else dk, dv=v if dv is None else dv),
+        **_common(q, k, kbias, bias, **kw))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = getattr(_bwd_lib(), f"flash_attention_bwd_{which}")(
+            ctypes.byref(prm), q.shape[3], int(q.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_{which} launch failed: "
+                           f"CUDA error {err}")
+
+
+def _check_bwd_extras(q, do, lse, delta):
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError("do must have q's shape and dtype")
+    want = (q.shape[0], q.shape[2], q.shape[1])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != want or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be a contiguous fp32 {want} "
+                             f"tensor on q's device")
+
+
+def flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias, *,
+                        sm_scale: float, causal: bool, q_offset: int = 0,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA dQ kernel: the forward's arguments plus the output
+    gradient ``do`` (q's shape and dtype), the forward's fp32 ``lse`` and
+    ``delta = rowsum(do * out)`` (both ``[B, H, T]`` contiguous); returns
+    dq in q's shape and dtype.  Adds one to
+    ``flash_bwd_dq_kernel.launches`` per launch."""
+    kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
+    _check_bwd_extras(q, do, lse, delta)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch_bwd("dq", q, k, v, do, lse, delta, kbias, bias, dq, None, None,
+                None, dict(sm_scale=sm_scale, causal=causal,
+                           q_offset=q_offset, window=window))
+    flash_bwd_dq_kernel.launches += 1
+    return dq
+
+
+flash_bwd_dq_kernel.launches = 0
+
+
+def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kbias, bias, *,
+                         sm_scale: float, causal: bool, q_offset: int = 0,
+                         window: Optional[int] = None,
+                         kbias_grad: bool = False):
+    """Launch the CUDA dK/dV kernel (arguments as
+    :func:`flash_bwd_dq_kernel`); returns ``(dk, dv, dkbias_part)``: dk
+    and dv in k's shape and dtype (query heads of one KV head summed), and
+    with ``kbias_grad`` the fp32 ``[B, H, S]`` column sums of ``ds`` (the
+    key-padding-bias gradient before the head sum and the division by
+    ``sm_scale``), else None.  Adds one to
+    ``flash_bwd_dkv_kernel.launches`` per launch."""
+    kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
+    _check_bwd_extras(q, do, lse, delta)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    part = None
+    if kbias_grad:
+        part = torch.empty((q.shape[0], q.shape[2], k.shape[1]),
+                           dtype=torch.float32, device=q.device)
+    _launch_bwd("dkv", q, k, v, do, lse, delta, kbias, bias, None, dk, dv,
+                part, dict(sm_scale=sm_scale, causal=causal,
+                           q_offset=q_offset, window=window))
+    flash_bwd_dkv_kernel.launches += 1
+    return dk, dv, part
+
+
+flash_bwd_dkv_kernel.launches = 0
+
+
+# -- autograd --------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel, saving ``out`` and ``lse``; backward the dQ and
+    dK/dV kernels on CUDA, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kbias, bias, sm_scale, causal, q_offset,
+                window):
+        kw = dict(sm_scale=sm_scale, causal=causal, q_offset=q_offset,
+                  window=window)
+        fwd = flash_fwd_kernel if q.is_cuda else _flash_fwd_ref
+        out, lse = fwd(q, k, v, kbias, bias, **kw)
+        ctx.save_for_backward(q, k, v, kbias, bias, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, kbias, bias, out, lse = ctx.saved_tensors
+        kw = ctx.kw
+        if q.is_cuda:
+            do = do if do.stride(-1) == 1 else do.contiguous()
+            delta = _delta(do, out)
+            dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias,
+                                     **kw)
+            dk, dv, part = flash_bwd_dkv_kernel(
+                q, k, v, do, lse, delta, kbias, bias,
+                kbias_grad=ctx.needs_input_grad[3], **kw)
+            dkb = None if part is None else part.sum(1) / kw["sm_scale"]
+            db = None
+        else:
+            dq, dk, dv, dkb, db = _flash_bwd_ref(q, k, v, kbias, bias, out,
+                                                 lse, do, **kw)
+        if dkb is not None:
+            dkb = dkb.sum_to_size(kbias.shape).to(kbias.dtype)
+        if db is not None:
+            db = db.sum_to_size(bias.shape).to(bias.dtype)
+        return dq, dk, dv, dkb, db, None, None, None, None
+
+
 # -- public API ---------------------------------------------------------------
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -195,6 +420,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     window: Optional[int] = None):
     """Flash attention.  ``q``: [batch, q_len, heads, head_dim]; ``k, v``:
     [batch, kv_len, kv_heads, head_dim]; returns q's shape and dtype.
+    Differentiable in q, k, v and ``key_padding_bias``; in ``bias`` on
+    the CPU only.
 
     ``kv_heads`` may divide ``heads`` (GQA): each KV head serves
     ``heads / kv_heads`` query heads without being repeated on the card.
@@ -252,24 +479,20 @@ def flash_attention(q, k, v, *, causal: bool = False,
         bias = bias + key_padding_bias[:, None, :].to(bias.dtype)
         key_padding_bias = None
 
-    if not q.is_cuda:
-        if per_head_bias is not None:
-            bias = per_head_bias
-        out, _ = _flash_fwd_ref(q, k, v, key_padding_bias, bias,
+    if per_head_bias is not None:
+        if q.is_cuda:
+            raise NotImplementedError(
+                "a per-head [B, H, T, S] bias has no CUDA kernel (nor a "
+                "Pallas one); pass a [B, T, S] bias or run on the CPU")
+        out, _ = _flash_fwd_ref(q, k, v, key_padding_bias, per_head_bias,
                                 sm_scale=sm_scale, causal=causal,
                                 q_offset=q_offset, window=window)
         return out
-    if per_head_bias is not None:
+    if (q.is_cuda and bias is not None and bias.requires_grad
+            and torch.is_grad_enabled()):
         raise NotImplementedError(
-            "a per-head [B, H, T, S] bias has no CUDA kernel (nor a Pallas "
-            "one); pass a [B, T, S] bias or run on the CPU")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (q, k, v, bias, key_padding_bias)):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet; run "
-            "the CUDA forward under torch.no_grad() or inference_mode()")
-    out, _ = flash_fwd_kernel(q, k, v, key_padding_bias, bias,
-                              sm_scale=sm_scale, causal=causal,
-                              q_offset=q_offset, window=window)
-    return out
+            "the gradient of a [B, T, S] bias (the Pallas _bwd_db2_kernel) "
+            "has no CUDA kernel yet; detach the bias or run on the CPU")
+    return _FlashAttention.apply(q, k, v, key_padding_bias, bias,
+                                 float(sm_scale), bool(causal),
+                                 int(q_offset), window)

@@ -1,0 +1,183 @@
+"""The amp training step: cast, forward, backward, unscale, overflow
+check, loss-scale state machine and the skip-masked optimizer update.
+
+Counterpart of ``apex_tpu/training.py:217-429`` (``FunctionalOptimizer``,
+``adam``, ``TrainState``, ``make_train_step``), with the same opt-level
+semantics:
+
+* O0: fp32 end to end.
+* O1: fp32 parameters, no model cast (the autocast policy is not ported).
+* O2: parameters stored ONCE as fp32 masters; the bf16 copy exists only
+  inside the step (``amp.convert_params``, norms kept fp32).  The model
+  runs on the cast tree through ``torch.func.functional_call`` in the
+  caller's ``loss_fn``; ``.to(bf16)`` is differentiable and hands an fp32
+  gradient back to each master, as the JAX transpose of the cast does.
+* O3: parameters stored bf16, no masters.
+
+The parameter tree is a mapping of ``state_dict`` names to tensors.
+Skipping a step is a device-side ``torch.where`` (``apply_mask``), and
+every metric stays a tensor on the device: the step never reads a value
+back to the host.  Not ported yet: the DDP and mesh arguments
+(``axis_name``, ``reduce_grads``, ``param_view`` and the all-reduce
+options) and ``has_model_state``; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from .amp import policy as _policy
+from .amp.loss_scaler import LossScaler, LossScalerState
+from .amp.properties import opt_levels
+from .multi_tensor import flatten_tree
+from .optimizers import functional as F
+
+
+class FunctionalOptimizer(NamedTuple):
+    init: Callable        # params -> state
+    update: Callable      # (grads, state, params, apply_mask=) -> (p, s)
+
+
+def adam(lr=1e-3, **kw) -> FunctionalOptimizer:
+    """Leafwise Adam/AdamW (:func:`optimizers.functional.adam_update`);
+    weight decay applies to every parameter."""
+    return FunctionalOptimizer(
+        F.adam_init, functools.partial(F.adam_update, lr=lr, **kw))
+
+
+class TrainState(NamedTuple):
+    """Carry of the step.  ``params`` is the single source of truth: fp32
+    for O0/O1/O2 (O2 casts inside the step), bf16 for O3."""
+    params: Any
+    opt_state: Any
+    scaler: LossScalerState
+    model_state: Any = None
+
+
+def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
+                    opt_level: str = "O2", loss_scale=None,
+                    keep_batchnorm_fp32: Optional[bool] = None,
+                    cast_model_type=None, accum_steps: int = 1,
+                    norm_predicate=None, scale_window: int = 2000,
+                    min_loss_scale=None, max_loss_scale: float = 2.**24,
+                    has_model_state: bool = False, reduce_grads: bool = True,
+                    **not_ported):
+    """Build ``(init_fn, step_fn)`` for one amp training step.
+
+    ``loss_fn(params, batch) -> loss`` (a 0-dim tensor); ``params``
+    arrive cast to the compute dtype of the opt level.  ``init_fn(params)``
+    gives the :class:`TrainState`; ``step_fn(state, batch)`` gives
+    ``(new_state, metrics)`` with ``metrics`` ``{"loss", "loss_scale",
+    "overflow"}``, device tensors.
+
+    ``accum_steps=N`` splits every tensor of ``batch`` into N
+    microbatches along its leading axis, accumulates the mean of the
+    scaled gradients in fp32 (the cast is done once, outside the loop),
+    and unscales, checks and updates once.
+    """
+    if not_ported:
+        raise NotImplementedError(
+            f"not ported yet: {sorted(not_ported)} (the data- and "
+            f"model-parallel arguments of the JAX step)")
+    if has_model_state or not reduce_grads:
+        raise NotImplementedError("has_model_state and reduce_grads=False "
+                                  "are not ported yet")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    props = opt_levels[opt_level]()
+    if loss_scale is not None:
+        props.loss_scale = loss_scale
+    if keep_batchnorm_fp32 is not None:
+        props.keep_batchnorm_fp32 = keep_batchnorm_fp32
+    if cast_model_type is not None:
+        props.cast_model_type = cast_model_type
+
+    scaler = LossScaler(props.loss_scale, scale_window=scale_window,
+                        min_loss_scale=min_loss_scale,
+                        max_loss_scale=max_loss_scale)
+    cast_dtype = props.cast_model_type
+    reduced = cast_dtype is not None and cast_dtype != torch.float32
+    cast_in_step = reduced and props.master_weights
+    store_cast = reduced and not props.master_weights
+    keep_bn = props.keep_batchnorm_fp32
+    keep_bn = True if keep_bn is None else keep_bn
+
+    def cast(params):
+        return _policy.convert_params(params, cast_dtype,
+                                      keep_norm_fp32=keep_bn,
+                                      norm_predicate=norm_predicate)
+
+    def init_fn(params) -> TrainState:
+        params = dict(params)
+        if store_cast:               # O3: reduced precision, no masters
+            params = {k: v.detach() for k, v in cast(params).items()}
+        device = next(iter(params.values())).device
+        return TrainState(params=params, opt_state=optimizer.init(params),
+                          scaler=scaler.init(device))
+
+    def grads_of(leaves, batch, scale, view=None):
+        """(loss, grads of ``loss * scale`` with respect to ``leaves``);
+        ``view`` maps the leaves to what ``loss_fn`` takes, inside the
+        differentiated function."""
+        with torch.enable_grad():
+            loss = loss_fn(leaves if view is None else view(leaves), batch)
+            grads = torch.autograd.grad(loss.float() * scale,
+                                        list(leaves.values()),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves.values())]
+        return loss.detach().float(), grads
+
+    def step_fn(state: TrainState, batch):
+        scale = state.scaler.loss_scale
+        names = list(state.params)
+        if accum_steps == 1:
+            # under O2 the cast is inside the differentiated function:
+            # its backward returns each gradient in the master's dtype
+            masters = {k: v.detach().requires_grad_(True)
+                       for k, v in state.params.items()}
+            loss, grads = grads_of(masters, batch, scale,
+                                   cast if cast_in_step else None)
+        else:
+            leaves, _ = flatten_tree(batch)
+            for x in leaves:
+                if x.shape[0] % accum_steps:
+                    raise ValueError(
+                        f"batch leading dim {x.shape[0]} not divisible by "
+                        f"accum_steps={accum_steps}")
+            # the cast is hoisted out of the microbatch loop; its
+            # transpose is an upcast, the identity on the fp32 sum
+            cp = state.params
+            if cast_in_step:
+                cp = cast(cp)
+            cp = {k: v.detach().requires_grad_(True) for k, v in cp.items()}
+            _, rebuild = flatten_tree(batch)
+            parts = [torch.chunk(x, accum_steps) for x in leaves]
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in cp.values()]
+            loss = torch.zeros((), dtype=torch.float32, device=scale.device)
+            for i in range(accum_steps):
+                mb = rebuild([p[i] for p in parts])
+                l_i, g_i = grads_of(cp, mb, scale)
+                grads = [a + b.float() / accum_steps
+                         for a, b in zip(grads, g_i)]
+                loss = loss + l_i / accum_steps
+        grads, scaler_state = scaler.unscale(dict(zip(names, grads)),
+                                             state.scaler)
+        apply_mask = (torch.logical_not(scaler_state.overflow)
+                      if scaler.dynamic else None)
+        new_params, new_opt = optimizer.update(
+            grads, state.opt_state, state.params, apply_mask=apply_mask)
+        scaler_state = scaler.update_scale(scaler_state)
+        metrics = {"loss": loss, "loss_scale": scaler_state.loss_scale,
+                   "overflow": (torch.logical_not(apply_mask)
+                                if apply_mask is not None
+                                else torch.zeros_like(scaler_state.overflow))}
+        return TrainState(params=new_params, opt_state=new_opt,
+                          scaler=scaler_state,
+                          model_state=state.model_state), metrics
+
+    return init_fn, step_fn

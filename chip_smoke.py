@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``apex_tpu_torch``) on one NVIDIA
 GPU: builds the port's kernels from this checkout, holds each against its
-plain PyTorch version at the serving path's shapes, serves GPT-2 small
-through the paged-KV engine, and checks the card's answers against the
+plain PyTorch version at the shapes of the serving and training paths,
+serves GPT-2 small through the paged-KV engine, trains it for ten steps
+through the LM trainer, and checks the card's answers against the
 CPU's.
 
     python3 chip_smoke.py [--out results.json]
@@ -12,8 +13,9 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the flash-attention CUDA library (``nvcc``) and compile the
-   LayerNorm Triton kernel, concurrently, and time both;
+2. build the two flash-attention CUDA libraries (forward; dQ and dK/dV:
+   one ``nvcc`` each) and compile the LayerNorm Triton kernels (forward
+   and backward), all concurrently, and time each;
 3. LayerNorm kernel vs plain at ``[1024, 768]`` and ``[8, 768]``, bf16
    and fp32;
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
@@ -31,10 +33,31 @@ line):
    gap at that step is below 1e-4);
 6. where the time goes: one serving run traced with ``torch.profiler``
    (device busy and idle share, host and device time per prefill and
-   decode step, device time by kernel kind).
+   decode step, device time by kernel kind);
+7. LayerNorm backward kernel vs plain at ``[8184, 768]`` (8 x 1023
+   training rows) and ``[8, 768]``, bf16 and fp32; ``library_ms`` is one
+   ``aten.native_layer_norm_backward`` call computing dx;
+8. flash dQ and dK/dV kernels vs plain at gpt2_small training shapes (B
+   8, T 1023, 12 heads of 64, causal, bf16), GQA 12/4, a 256-key window,
+   fp32, and a key-padding bias that needs a gradient; ``library_ms`` is
+   the backward of one SDPA call, timed eagerly (autograd cannot be
+   captured in a CUDA graph);
+9. training: the LM trainer (``apex_tpu_torch.examples.lm.main_amp``)
+   on GPT-2 small, bf16 O2, Adam lr 3e-4, weight decay 0.1, static loss
+   scale 1.0, B 8, seq_len 1024, 10 steps, every launch counter set to 0
+   just before and read just after (25 LN forward and backward, 12 flash
+   forward, dQ and dK/dV per step); losses finite and falling; step ms,
+   tokens/s, peak memory; then two steps traced with ``torch.profiler``
+   (device time by kind, idle share);
+10. training correctness: gpt_tiny O0 fp32 three steps on the card and
+   on the CPU from the same weights; gpt2_small fp32 gradients at B 1, T
+   256 card vs CPU; gpt_tiny O2 with a dynamic scale and an injected inf
+   (the step is skipped, the scale halves, the next step applies).
 
 The line before the last two is one JSON object describing every kernel
-(time, bound, launches on the serving run); then the ``nvidia-smi`` line;
+(time, bound, launches on its path: the forward kernels' on the serving
+run, the backward kernels' on the training run); then the ``nvidia-smi``
+line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -87,9 +110,16 @@ def time_ms(fn, iters: int = 20) -> float:
 
 def eager_ms(fn, iters: int = 20) -> float:
     """Milliseconds per call of ``iters`` eager calls back to back: what
-    the eager serving path pays, host launch cost included."""
+    the eager serving path pays, host launch cost included.  Each result
+    is dropped before the next call, as a caller's would be, so the
+    caching allocator reuses its memory (a list of all the results made
+    every large call allocate afresh)."""
     fn()
-    return _events_ms(lambda: [fn() for _ in range(iters)]) / iters
+
+    def run():
+        for _ in range(iters):
+            fn()
+    return _events_ms(run) / iters
 
 
 def _events_ms(run) -> float:
@@ -244,6 +274,161 @@ def flash_cases(fa, dev):
               f"ms, bound {bms:.4f} ms ({by})", flush=True)
         cases.append(case)
     return cases
+
+
+# -- phase 7: LayerNorm backward --------------------------------------------------
+
+def layer_norm_bwd_cases(fln, dev):
+    """The input-gradient kernel against its plain version at the
+    training step's rows (8 x 1023) and at 8 rows."""
+    rng = np.random.RandomState(7)
+    w = torch.from_numpy((1 + 0.1 * rng.randn(768)).astype(np.float32)).to(dev)
+    cases = []
+    for rows, dtypes in ((8184, (torch.bfloat16, torch.float32)),
+                         (8, (torch.bfloat16, torch.float32))):
+        for dtype in dtypes:
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+            x, g = (torch.from_numpy(rng.randn(rows, 768).astype(np.float32))
+                    .to(dev, dtype) for _ in range(2))
+            _, mean, invvar = fln.layer_norm_fwd_kernel(x, w, None, 1e-5)
+            got = fln.layer_norm_bwd_kernel(g, x, mean, invvar, w)
+            want = fln._bwd_input_ref(g, x, mean, invvar, w)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            name = f"layer_norm_bwd [{rows}, 768] {str(dtype)[6:]}"
+            check(err <= tol, f"{name}: max_abs_err {err:.3g} <= {tol}")
+            isz = x.element_size()
+            nbytes = 3 * rows * 768 * isz + 2 * rows * 4 + 768 * 4
+            bms, by = bound(nbytes, 10 * rows * 768, torch.float32)
+            wd = w.to(dtype)
+            m2, r2 = mean[:, None], invvar[:, None]
+            case = dict(
+                case=name, max_abs_err=err,
+                ms=time_ms(lambda: fln.layer_norm_bwd_kernel(
+                    g, x, mean, invvar, w)),
+                eager_ms=eager_ms(lambda: fln.layer_norm_bwd_kernel(
+                    g, x, mean, invvar, w)),
+                plain_ms=time_ms(lambda: fln._bwd_input_ref(
+                    g, x, mean, invvar, w)),
+                library_ms=time_ms(
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        g, x, [768], m2, r2, wd, None,
+                        [True, False, False])),
+                bound_ms=bms, bound_by=by)
+            print(f"      {name}: kernel {case['ms']:.4f} ms (eager "
+                  f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f} "
+                  f"ms, library {case['library_ms']:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by})", flush=True)
+            cases.append(case)
+    return cases
+
+
+# -- phase 8: flash backward ------------------------------------------------------
+
+def flash_bwd_cases(fa, dev):
+    """dQ and dK/dV against their plain version at gpt2_small training
+    shapes (B 8, T 1023, 12 heads of 64).  ``plain_ms`` and
+    ``library_ms`` are each one call computing dq, dk and dv together
+    (``_flash_bwd_ref``; the backward of one SDPA call), so both kernels
+    carry the same two numbers."""
+    rng = np.random.RandomState(8)
+    b, t, h, d = 8, 1023, 12, 64
+    specs = [
+        # name, h_kv, dtype, causal, window, kbias needs grad
+        ("causal b8 t1023", h, torch.bfloat16, True, None, False),
+        ("gqa 12/4", 4, torch.bfloat16, True, None, False),
+        ("window 256", h, torch.bfloat16, True, 256, False),
+        ("fp32 causal", h, torch.float32, True, None, False),
+        ("key bias grad, full", h, torch.bfloat16, False, None, True),
+    ]
+    dq_cases, dkv_cases = [], []
+    for name, h_kv, dtype, causal, window, kgrad in specs:
+        q, do = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+                 .to(dev, dtype) for _ in range(2))
+        k, v = (torch.from_numpy(rng.randn(b, t, h_kv, d).astype(np.float32))
+                .to(dev, dtype) for _ in range(2))
+        kb = None
+        if kgrad:
+            kb = torch.from_numpy(
+                (0.5 * rng.randn(b, t)).astype(np.float32)).to(dev)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, q_offset=0,
+                  window=window)
+        out, lse = fa.flash_fwd_kernel(q, k, v, kb, None, **kw)
+        delta = fa._delta(do, out)
+
+        def run_dq():
+            return fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, None,
+                                          **kw)
+
+        def run_dkv():
+            return fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, None,
+                                           kbias_grad=kgrad, **kw)
+
+        def run_plain():
+            return fa._flash_bwd_ref(q, k, v, kb, None, out, lse, do, **kw)
+
+        dq = run_dq()
+        dk, dv, part = run_dkv()
+        want = run_plain()
+        torch.cuda.synchronize()
+        tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+        errs = dict(dq=max_err(dq, want[0]), dk=max_err(dk, want[1]),
+                    dv=max_err(dv, want[2]))
+        if kgrad:
+            errs["dkbias"] = max_err(part.sum(1) / kw["sm_scale"], want[3])
+        check(all(e <= tol for e in errs.values()),
+              f"flash bwd {name}: max_abs_err "
+              + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+              + f" <= {tol} (max |dq| {dq.float().abs().max().item():.3g},"
+              f" |dk| {dk.float().abs().max().item():.3g})")
+        isz = q.element_size()
+        pairs = _visible_pairs(b, t, t, causal, 0, window, None) * h
+        rows_bytes = 2 * b * h * t * 4                      # lse, delta
+        dq_bytes = (3 * q.numel() + k.numel() + v.numel()) * isz + rows_bytes
+        dkv_bytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) * isz \
+            + rows_bytes + (b * h * t * 4 if kgrad else 0)
+        if kb is not None:
+            dq_bytes += kb.numel() * 4
+            dkv_bytes += kb.numel() * 4
+        plain_ms = time_ms(run_plain, iters=3)
+        # the library yardstick: SDPA's backward on a retained graph,
+        # KV heads repeated up front (untimed)
+        qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2)
+                      .transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib = dict(is_causal=True) if causal and window is None else {}
+        if window is not None:
+            key = torch.arange(t, device=dev)
+            lib = dict(attn_mask=(key[:, None] >= key[None, :])
+                       & (key[:, None] - key[None, :] < window))
+        if kb is not None:
+            lib = dict(attn_mask=kb[:, None, None, :].to(dtype))
+        lout = F.scaled_dot_product_attention(qt, kt, vt, scale=d ** -0.5,
+                                              **lib)
+        dot = do.transpose(1, 2)
+        # (autograd's backward cannot be captured in a CUDA graph: timed
+        # eagerly; its host cost is small beside milliseconds of work)
+        library_ms = eager_ms(lambda: torch.autograd.grad(
+            lout, (qt, kt, vt), dot, retain_graph=True), iters=5)
+        for cases, fn, n_mm, nbytes, keys in (
+                (dq_cases, run_dq, 3, dq_bytes, ("dq",)),
+                (dkv_cases, run_dkv, 4, dkv_bytes,
+                 ("dk", "dv", "dkbias"))):
+            bms, by = bound(nbytes, 2.0 * n_mm * d * pairs, dtype)
+            case = dict(case=name, max_abs_err=max(
+                            e for k_, e in errs.items() if k_ in keys),
+                        ms=time_ms(fn, iters=5),
+                        eager_ms=eager_ms(fn, iters=5),
+                        plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bms, bound_by=by)
+            cases.append(case)
+            print(f"      flash bwd {fn.__name__[4:]} {name}: kernel "
+                  f"{case['ms']:.4f} ms (eager {case['eager_ms']:.4f}), "
+                  f"plain (dq+dk+dv) {plain_ms:.4f} ms, library (dq+dk+dv) "
+                  f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})",
+                  flush=True)
+        del lout, qt, kt, vt
+    return dq_cases, dkv_cases
 
 
 # -- phase 5: serving ------------------------------------------------------------
@@ -440,6 +625,188 @@ def tiny_tokens(models, engine_mod, dev):
     return dict(tiny_identical=12 - mismatched, tiny_divergence_gaps=ties)
 
 
+# -- phase 9: training ------------------------------------------------------------
+
+TRAIN_ARGS = ["--synthetic", "-b", "8", "--seq-len", "1024", "--vocab",
+              "50257", "--hidden", "768", "--layers", "12", "--heads", "12",
+              "--opt-level", "O2", "--lr", "3e-4", "--weight-decay", "0.1"]
+
+_TRAIN_KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
+                ("flash_bwd", ("flash_bwd_",)),
+                ("layer_norm", ("ln_fwd", "ln_bwd")),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+                ("optimizer", ("foreach", "multi_tensor")))
+
+
+def train_gpt2_small(main_amp, counters, steps=10):
+    """The LM trainer's entry point at GPT-2 small, bf16 O2, Adam: every
+    launch counter set to 0 just before and read just after."""
+    args = main_amp.parse(TRAIN_ARGS + ["--steps", str(steps)])
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = main_amp.train(args, log=lambda line: print("      " + line,
+                                                      flush=True))
+    launches = {name: c.launches for name, c in counters.items()}
+    per_step = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+                "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                "flash_attention_bwd_dkv": 12}
+    check(all(launches[n] == per_step[n] * steps for n in per_step),
+          f"gpt2_small training: launches {launches} = "
+          f"{per_step} x {steps} steps")
+    losses = res["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"gpt2_small training: losses finite, step {steps} "
+          f"{losses[-1]:.4f} < step 1 {losses[0]:.4f}")
+    step_ms = float(np.median(res["step_s"][2:])) * 1e3
+    out = dict(losses=losses, step_ms_all=[x * 1e3 for x in res["step_s"]],
+               step_ms_median_3_10=step_ms,
+               tokens_per_s=res["tokens_per_step"] / step_ms * 1e3,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    print(f"      gpt2_small O2 B8 T1023: step {step_ms:.2f} ms (median of "
+          f"steps 3-{steps}), {out['tokens_per_s']:.0f} tok/s, peak memory "
+          f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB", flush=True)
+    return out
+
+
+def trace_training(main_amp):
+    """Two training steps under ``torch.profiler``: device time by kind
+    and the device's idle share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = main_amp.parse(TRAIN_ARGS + ["--steps", "1"])
+    state, step_fn, batch = main_amp.build(args)
+    state, m = step_fn(state, batch)          # warm: compiles, allocates
+    m["loss"].item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = step_fn(state, batch)
+            m["loss"].item()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    busy, edge, kinds = 0.0, None, {}
+    for lo, hi, name in kernels:
+        lo2 = lo if edge is None else max(lo, edge)
+        busy += max(0.0, hi - lo2)
+        edge = hi if edge is None else max(edge, hi)
+        low = name.lower()
+        kind = next((k for k, keys in _TRAIN_KINDS
+                     if any(key in low for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + (hi - lo)
+    res = dict(wall_ms_per_step=wall_us / 2e3,
+               device_busy_ms_per_step=busy / 2e3,
+               device_idle_share=1 - busy / wall_us,
+               device_ms_per_step_by_kind={k: v / 2e3 for k, v in
+                                           sorted(kinds.items())},
+               kernels_per_step=len(kernels) / 2)
+    print(f"      traced training step: wall {res['wall_ms_per_step']:.2f} "
+          f"ms, device busy {res['device_busy_ms_per_step']:.2f} ms, idle "
+          f"share {res['device_idle_share']:.3f}, "
+          f"{res['kernels_per_step']:.0f} kernels; by kind (ms) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      res["device_ms_per_step_by_kind"].items()),
+          flush=True)
+    check(len(kernels) > 0, "profiler traced the training step's kernels")
+    return res
+
+
+# -- phase 10: training correctness ------------------------------------------------
+
+def _lm_step(main_amp, training, model, opt_level, loss_scale=None,
+             inject=False):
+    def loss_fn(p, batch):
+        loss = main_amp.lm_loss(torch.func.functional_call(
+            model, p, (batch[0],)), batch[1])
+        return loss * batch[2] if inject else loss
+    return training.make_train_step(loss_fn, training.adam(1e-3,
+                                                           weight_decay=0.1),
+                                    opt_level=opt_level,
+                                    loss_scale=loss_scale)
+
+
+def _zero_grad_leaf(name):
+    # the key projection's bias: its gradient is zero in exact arithmetic
+    # (a shift of a whole score row, which the softmax cancels)
+    return name.endswith("attention.key.bias")
+
+
+def training_correctness(models, main_amp, training, dev):
+    res = {}
+    # (a) gpt_tiny O0 fp32, three steps on the card and on the CPU
+    states, losses = {}, {}
+    for device in (dev, "cpu"):
+        m = models.gpt_tiny(dtype=torch.float32, device="cpu", seed=1).to(
+            device)
+        init, step = _lm_step(main_amp, training, m, "O0")
+        st = init(m.state_dict())
+        x, y = main_amp.synthetic_batch(4, 129, 1024, device)
+        losses[str(device)] = []
+        for _ in range(3):
+            st, met = step(st, (x, y))
+            losses[str(device)].append(met["loss"].item())
+        states[str(device)] = st.params
+    lerr = max(abs(a - b) / abs(b) for a, b in
+               zip(losses[str(dev)], losses["cpu"]))
+    perr = max(max_err(states[str(dev)][k].cpu(), v)
+               for k, v in states["cpu"].items() if not _zero_grad_leaf(k))
+    check(lerr <= 1e-4 and perr <= 1e-4,
+          f"gpt_tiny O0 3 steps card vs CPU: loss rel err {lerr:.3g} <= "
+          f"1e-4, params max_abs_err {perr:.3g} <= 1e-4")
+    res.update(tiny_o0_losses_card=losses[str(dev)],
+               tiny_o0_losses_cpu=losses["cpu"], tiny_o0_loss_rel_err=lerr,
+               tiny_o0_param_max_abs_err=perr)
+
+    # (b) gpt2_small fp32, one forward and backward at B 1, T 256
+    ids = torch.from_numpy(np.random.RandomState(9).randint(
+        1, 50257, (1, 257)))
+    grads = {}
+    for device in (dev, "cpu"):
+        m = models.gpt2_small(dtype=torch.float32, device="cpu",
+                              seed=0).to(device)
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in m.state_dict().items()}
+        b = ids.to(device)
+        loss = main_amp.lm_loss(torch.func.functional_call(
+            m, params, (b[:, :-1],)), b[:, 1:])
+        grads[str(device)] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+    rel = {k: max_err(grads[str(dev)][k].cpu(), g)
+           / max(g.abs().max().item(), 1e-30)
+           for k, g in grads["cpu"].items() if not _zero_grad_leaf(k)}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 1e-3,
+          f"gpt2_small fp32 grads card vs CPU: max relative error "
+          f"{rel[worst]:.3g} ({worst}) <= 1e-3")
+    res.update(small_grad_max_rel_err=rel[worst], small_grad_worst=worst)
+
+    # (c) gpt_tiny O2, dynamic scale, an inf injected into the loss
+    m = models.gpt_tiny(dtype=torch.bfloat16, device=dev, seed=2)
+    init, step = _lm_step(main_amp, training, m, "O2", "dynamic",
+                          inject=True)
+    st = init(m.state_dict())
+    x, y = main_amp.synthetic_batch(4, 129, 1024, dev)
+    before = {k: v.clone() for k, v in st.params.items()}
+    st, met = step(st, (x, y, torch.tensor(float("inf"), device=dev)))
+    skipped = (bool(met["overflow"]) and int(st.opt_state.step) == 0
+               and all(torch.equal(st.params[k], v)
+                       for k, v in before.items()))
+    scale1 = met["loss_scale"].item()
+    st, met = step(st, (x, y, torch.tensor(1.0, device=dev)))
+    applied = (not bool(met["overflow"]) and int(st.opt_state.step) == 1
+               and not torch.equal(st.params["wte"], before["wte"]))
+    check(skipped and scale1 == 2.0 ** 15 and applied,
+          f"gpt_tiny O2 dynamic: inf step skipped {skipped}, scale "
+          f"{scale1:.0f} == 32768, next step applied {applied}")
+    res.update(o2_dynamic_skip_ok=skipped and applied, o2_scale=scale1)
+    return res
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -456,6 +823,8 @@ def main(argv=None) -> int:
     models = importlib.import_module("apex_tpu_torch.models")
     engine_mod = importlib.import_module("apex_tpu_torch.serving.engine")
     build = importlib.import_module("apex_tpu_torch._build")
+    training = importlib.import_module("apex_tpu_torch.training")
+    main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -468,45 +837,67 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
 
-    # phase 2: both kernels built at once
-    def build_flash():
-        t0 = time.perf_counter()
-        build.load("flash_attention")
-        return time.perf_counter() - t0
+    # phase 2: every kernel built at once, one nvcc per CUDA source
+    def timed(fn):
+        def run():
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+        return run
 
     def build_ln():
-        t0 = time.perf_counter()
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.ones((8, 768), device=dev, dtype=dtype)
             w = torch.ones((768,), device=dev)
-            fln.layer_norm_fwd_kernel(x, w, w, 1e-5)
+            _, mean, invvar = fln.layer_norm_fwd_kernel(x, w, w, 1e-5)
+            fln.layer_norm_bwd_kernel(x, x, mean, invvar, w)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        f_flash, f_ln = pool.submit(build_flash), pool.submit(build_ln)
-        build_s = {"flash_attention_nvcc_s": f_flash.result(),
-                   "layer_norm_triton_s": f_ln.result()}
+    jobs = {"flash_attention_nvcc_s": lambda: build.load("flash_attention"),
+            "flash_attention_bwd_nvcc_s":
+                lambda: build.load("flash_attention_bwd"),
+            "layer_norm_triton_s": build_ln}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
+        build_s = {k: f.result() for k, f in futures.items()}
     print(f"      build: {build_s}", flush=True)
-    report = [ln for ln in build.ptxas_report("flash_attention").splitlines()
-              if "registers" in ln or "spill" in ln]
-    print("      ptxas: " + " | ".join(r.strip() for r in report[:36]),
-          flush=True)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        report = [ln for ln in build.ptxas_report(name).splitlines()
+                  if "registers" in ln or "spill" in ln]
+        print(f"      ptxas {name}: "
+              + " | ".join(r.strip() for r in report[:36]), flush=True)
 
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
     fa_cases = flash_cases(fa, dev)                # phase 4
-    counters = [fln.layer_norm_fwd_kernel, fa.flash_fwd_kernel]
+    serve_counters = [fln.layer_norm_fwd_kernel, fa.flash_fwd_kernel]
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
-    serving = serve_gpt2_small(model, engine_mod, counters, dev)    # 5
+    serving = serve_gpt2_small(model, engine_mod, serve_counters, dev)  # 5
     serving.update(prefill_logits(models, dev))
     serving.update(tiny_tokens(models, engine_mod, dev))
     profile_res = where_time_goes(model, engine_mod, dev)          # 6
+    del model
+    ln_bwd_cases = layer_norm_bwd_cases(fln, dev)                  # 7
+    dq_cases, dkv_cases = flash_bwd_cases(fa, dev)                 # 8
+    train_counters = {
+        "layer_norm_fwd": fln.layer_norm_fwd_kernel,
+        "layer_norm_bwd": fln.layer_norm_bwd_kernel,
+        "flash_attention_fwd": fa.flash_fwd_kernel,
+        "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+        "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+    trained = train_gpt2_small(main_amp, train_counters)           # 9
+    trained["profile"] = trace_training(main_amp)
+    trained.update(training_correctness(models, main_amp, training,
+                                        dev))                      # 10
 
-    def entry(name, route, source, replaces, cases, main_case):
+    def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
+        launches = {"serving": serving["launches"].get(name),
+                    "training": trained["launches"].get(name)}
         return dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=serving["launches"][name],
+            launches=launches[path],
+            launches_by_path={k: v for k, v in launches.items()
+                              if v is not None},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
@@ -515,10 +906,23 @@ def main(argv=None) -> int:
     kernels = [
         entry("layer_norm_fwd", "triton",
               "apex_tpu_torch/normalization/fused_layer_norm.py",
-              "apex_tpu/normalization/fused_layer_norm.py:206", ln_cases, 0),
+              "apex_tpu/normalization/fused_layer_norm.py:206", ln_cases, 0,
+              "serving"),
+        entry("layer_norm_bwd", "triton",
+              "apex_tpu_torch/normalization/fused_layer_norm.py",
+              "apex_tpu/normalization/fused_layer_norm.py:223", ln_bwd_cases,
+              0, "training"),
         entry("flash_attention_fwd", "cuda",
               "apex_tpu_torch/csrc/flash_attention.cu",
-              "apex_tpu/ops/flash_attention.py:238", fa_cases, 0),
+              "apex_tpu/ops/flash_attention.py:238", fa_cases, 0, "serving"),
+        entry("flash_attention_bwd_dq", "cuda",
+              "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+              "apex_tpu/ops/flash_attention.py:440", dq_cases, 0,
+              "training"),
+        entry("flash_attention_bwd_dkv", "cuda",
+              "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+              "apex_tpu/ops/flash_attention.py:478", dkv_cases, 0,
+              "training"),
     ]
     elapsed = time.perf_counter() - t_start
     if args.out:
@@ -526,7 +930,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(gpu=smi, torch=torch.__version__, build=build_s,
                            kernels=kernels, serving=serving,
-                           profile=profile_res,
+                           profile=profile_res, training=trained,
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)
     print(f"      elapsed {elapsed:.1f} s", flush=True)

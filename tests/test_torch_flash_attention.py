@@ -4,7 +4,12 @@ Same numpy inputs through JAX ``flash_attention`` (the Pallas kernel in
 interpret mode, with explicit blocks, wherever the shape tiles; its jnp
 path where it does not, e.g. ``q_len = 1``) and through the port, whose
 CPU path is the plain version of the CUDA kernel.  fp32 at 2e-5.  The
-kernel itself runs only on the card (``tests/test_torch_kernels_cuda.py``).
+gradients (the backward kernels' plain version through the autograd
+Function) against ``jax.grad`` of the Pallas kernels in interpret mode,
+at 5e-4 as the JAX package's own test holds them; ragged and
+cross-length cases, which the Pallas path cannot tile, against torch
+autograd through the plain forward.  The kernels themselves run only on
+the card (``tests/test_torch_kernels_cuda.py``).
 """
 
 import importlib
@@ -13,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from apex_tpu.ops.flash_attention import flash_attention as jflash
@@ -139,3 +145,89 @@ def test_oracles_agree_with_plain_kernel_version(causal):
     if causal:
         s = s.masked_fill(~torch.ones(20, 20, dtype=torch.bool).tril(), -1e30)
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), **TOL)
+
+
+# -- backward ------------------------------------------------------------------
+
+BWD_TOL = dict(atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("case", ["causal", "full", "gqa4_2", "mqa4_1",
+                                  "window64", "kbias_grad",
+                                  "bias_no_grad"])
+def test_grads_match_jax_pallas_interpret(case):
+    """dq, dk, dv (and the key-padding-bias gradient) at B=1, T=256, D=32
+    against ``jax.grad`` of the Pallas kernels (128-row blocks)."""
+    h_kv = {"gqa4_2": 2, "mqa4_1": 1}.get(case, 4)
+    q, k, v = _qkv(1, 256, 256, 4, h_kv, 32, seed=20)
+    rng = np.random.RandomState(21)
+    g = rng.randn(1, 256, 4, 32).astype(np.float32)
+    kw = dict(causal=case not in ("full", "kbias_grad", "bias_no_grad"),
+              window=64 if case == "window64" else None)
+    leaves = [q, k, v]
+    bias = None
+    if case == "kbias_grad":
+        leaves.append((0.5 * rng.randn(1, 256)).astype(np.float32))
+    if case == "bias_no_grad":
+        bias = rng.randn(1, 256, 256).astype(np.float32)
+
+    def jloss(*xs):
+        out = jflash(*xs[:3], key_padding_bias=xs[3] if len(xs) > 3 else
+                     None, bias=None if bias is None else jnp.asarray(bias),
+                     block_q=128, block_k=128, interpret=True, **kw)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(leaves))))(
+        *(jnp.asarray(x) for x in leaves))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in leaves]
+    out = flash_attention(*ts[:3], key_padding_bias=ts[3] if len(ts) > 3
+                          else None, bias=None if bias is None
+                          else torch.from_numpy(bias), **kw)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), ts)
+    for name, gt, wt in zip(("dq", "dk", "dv", "dkbias"), got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                   err_msg=name, **BWD_TOL)
+
+
+@pytest.mark.parametrize("case", ["ragged200", "cross_causal",
+                                  "ragged_gqa_window", "bias_grad",
+                                  "kbias_broadcast"])
+def test_grads_match_autograd_of_plain_forward(case):
+    """Lengths the Pallas path cannot tile, and a key-padding bias
+    broadcast over the batch: the Function's plain backward against
+    torch autograd through the plain forward."""
+    tq, tk, h_kv = {"cross_causal": (70, 200, 4),
+                    "ragged_gqa_window": (200, 200, 2)}.get(
+                        case, (200, 200, 4))
+    q, k, v = _qkv(2, tq, tk, 4, h_kv, 32, seed=22)
+    rng = np.random.RandomState(23)
+    kw = dict(causal=case != "bias_grad",
+              window=30 if case == "ragged_gqa_window" else None)
+    extra = []
+    if case == "bias_grad":
+        extra = [rng.randn(2, tq, tk).astype(np.float32),
+                 (0.5 * rng.randn(2, tk)).astype(np.float32)]
+    if case == "kbias_broadcast":
+        extra = [(0.5 * rng.randn(1, tk)).astype(np.float32)]
+    g = torch.from_numpy(rng.randn(2, tq, 4, 32).astype(np.float32))
+    grads = []
+    for plain in (False, True):
+        ts = [torch.from_numpy(x).requires_grad_(True)
+              for x in [q, k, v] + extra]
+        bias = kb = None
+        if len(extra) == 2:
+            bias, kb = ts[3], ts[4]
+        elif extra:
+            kb = ts[3]
+        if plain:
+            b3 = None if bias is None else bias + kb[:, None, :]
+            out, _ = fa_mod._flash_fwd_ref(
+                *ts[:3], kb if bias is None else None, b3,
+                sm_scale=32 ** -0.5,
+                q_offset=tk - tq if kw["causal"] else 0, **kw)
+        else:
+            out = flash_attention(*ts[:3], bias=bias, key_padding_bias=kb,
+                                  **kw)
+        grads.append(torch.autograd.grad((out * g).sum(), ts))
+    for gt, wt in zip(*grads):
+        torch.testing.assert_close(gt, wt, atol=1e-5, rtol=1e-5)

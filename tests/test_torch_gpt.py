@@ -130,3 +130,28 @@ def test_not_ported_paths_raise():
     m = gpt_tiny(**CFG, device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         m(torch.zeros((1, 33), dtype=torch.long))
+
+
+def test_o2_cast_params_forward_matches_jax(pair):
+    """Under O2 the step hands the model bf16 copies of every parameter
+    but the norms': the LM head then multiplies fp32 activations by a
+    bf16 ``wte``, which JAX promotes to fp32 and the port must too.
+    bf16 activations through two blocks: 2e-2."""
+    from apex_tpu.amp.policy import convert_params as jconvert
+    from apex_tpu_torch.amp import convert_params
+
+    _, params, tm = pair
+    jm = jgpt_tiny(**CFG, dtype=jnp.bfloat16)
+    tm16 = gpt_tiny(**CFG, dtype=torch.bfloat16, device="cpu")
+    ids = np.random.RandomState(4).randint(0, 96, (2, 12))
+    want = jm.apply({"params": jconvert(params, jnp.bfloat16)},
+                    jnp.asarray(ids))
+    cast = convert_params(tm.state_dict(), torch.bfloat16)
+    assert cast["wte"].dtype == torch.bfloat16
+    assert cast["ln_f.scale"].dtype == torch.float32
+    with torch.no_grad():
+        got = torch.func.functional_call(tm16, cast,
+                                         (torch.from_numpy(ids),))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2,
+                               rtol=2e-2)

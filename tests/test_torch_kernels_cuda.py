@@ -84,12 +84,21 @@ def test_flash_kernel_matches_plain(cuda_device, case, dtype, atol):
 
 @pytest.mark.cuda
 def test_cuda_calls_needing_grad_raise(cuda_device):
+    """Gradients go through the backward kernels; only the [B, T, S]
+    bias gradient and a per-head bias have no kernel and raise."""
     x = torch.randn(4, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fln.fused_layer_norm(x, 64)
+    before = fln.layer_norm_bwd_kernel.launches
+    fln.fused_layer_norm(x, 64).sum().backward()
+    assert fln.layer_norm_bwd_kernel.launches == before + 1
     q = torch.randn(1, 8, 2, 32, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention(q, q, q, causal=True)
+    before = fa.flash_bwd_dq_kernel.launches, fa.flash_bwd_dkv_kernel.launches
+    fa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert (fa.flash_bwd_dq_kernel.launches,
+            fa.flash_bwd_dkv_kernel.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    bias = torch.zeros(1, 8, 8, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="_bwd_db2_kernel"):
+        fa.flash_attention(q, q, q, bias=bias)
     with pytest.raises(NotImplementedError, match="per-head"):
         fa.flash_attention(q.detach(), q.detach(), q.detach(),
                            bias=torch.zeros(1, 2, 8, 8, device=cuda_device))
@@ -114,3 +123,169 @@ def test_flash_kernel_head_dims(cuda_device, head_dim, tq, dtype, atol):
     torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
                                rtol=atol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+# -- backward kernels ---------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,n2,affine", [(1023, 768, True),
+                                             (8, 768, True),
+                                             (37, 200, False)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, dtype, atol, rows,
+                                             n2, affine):
+    rng = np.random.RandomState(5)
+    x, g = (torch.from_numpy(rng.randn(rows, n2).astype(np.float32)).to(
+        cuda_device, dtype) for _ in range(2))
+    w = None
+    if affine:
+        w = torch.from_numpy(1 + 0.1 * rng.randn(n2).astype(np.float32)).to(
+            cuda_device)
+    _, mean, invvar = fln._fwd_ref(x, w, None, 1e-5)
+    before = fln.layer_norm_bwd_kernel.launches
+    got = fln.layer_norm_bwd_kernel(g, x, mean, invvar, w)
+    torch.cuda.synchronize()
+    assert fln.layer_norm_bwd_kernel.launches == before + 1
+    want = fln._bwd_input_ref(g, x, mean, invvar, w)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.cuda
+def test_layer_norm_grads_match_autograd_of_plain_forward(cuda_device):
+    """fp32 dx, dgamma, dbeta of the Function on the card against torch
+    autograd through the plain forward on the card."""
+    rng = np.random.RandomState(6)
+    x0 = torch.from_numpy(rng.randn(64, 96).astype(np.float32)).to(
+        cuda_device)
+    w0 = torch.from_numpy(1 + 0.1 * rng.randn(96).astype(np.float32)).to(
+        cuda_device)
+    b0 = torch.from_numpy(0.1 * rng.randn(96).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.randn(64, 96).astype(np.float32)).to(
+        cuda_device)
+    grads = []
+    for fwd in (lambda x, w, b: fln.fused_layer_norm(x, 96, w, b),
+                lambda x, w, b: fln._fwd_ref(x, w, b, 1e-5)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (x0, w0, b0)]
+        grads.append(torch.autograd.grad((fwd(*leaves) * g).sum(), leaves))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _bwd_case(dev, dtype, *, b=2, tq=200, tk=200, h=4, h_kv=4, d=64,
+              causal=True, window=None, kbias=False, bias=False, seed=14):
+    rng = np.random.RandomState(seed)
+    q, do = (torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32))
+             .to(dev, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, tk, h_kv, d).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    kb = bs = None
+    if kbias:
+        kb = torch.from_numpy(np.where(
+            np.arange(tk)[None] < rng.randint(tk // 2, tk, (b, 1)), 0.0,
+            -1e9).astype(np.float32) + 0.3 * rng.randn(b, tk).astype(
+                np.float32)).to(dev)
+    if bias:
+        bs = torch.from_numpy(rng.randn(b, tq, tk).astype(np.float32)).to(dev)
+    kw = dict(sm_scale=d ** -0.5, causal=causal,
+              q_offset=tk - tq if causal else 0, window=window)
+    return q, k, v, do, kb, bs, kw
+
+
+def _check_bwd_kernels(q, k, v, do, kb, bs, kw, atol):
+    out, lse = fa._flash_fwd_ref(q, k, v, kb, bs, **kw)
+    delta = fa._delta(do, out)
+    before = (fa.flash_bwd_dq_kernel.launches,
+              fa.flash_bwd_dkv_kernel.launches)
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, bs, **kw)
+    dk, dv, part = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, bs,
+                                           kbias_grad=kb is not None, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq_kernel.launches,
+            fa.flash_bwd_dkv_kernel.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = fa._flash_bwd_ref(q, k, v, kb, bs, out, lse, do, **kw)
+    for name, got, wnt in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
+        assert got.dtype == q.dtype and got.shape == wnt.shape, name
+        torch.testing.assert_close(got.float(), wnt.float(), atol=atol,
+                                   rtol=atol, msg=name)
+    if kb is not None:
+        torch.testing.assert_close(part.sum(1) / kw["sm_scale"], want[3],
+                                   atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal", "full", "gqa4_2", "mqa4_1",
+                                  "window", "cross", "kbias", "bias",
+                                  "q_tail", "k_tail"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_bwd_kernels_match_plain(cuda_device, case, dtype, atol):
+    """dQ and dK/dV against the plain version: ragged lengths (200 is no
+    multiple of the 64-row tiles), GQA and MQA, window, cross-length
+    causal, both biases, and a ragged q tail and k tail on their own."""
+    kw = dict(causal=case not in ("full", "bias"))
+    kw.update({"gqa4_2": dict(h_kv=2), "mqa4_1": dict(h_kv=1),
+               "window": dict(window=50), "cross": dict(tq=70, tk=200),
+               "kbias": dict(kbias=True, causal=False),
+               "bias": dict(bias=True, kbias=True),
+               "q_tail": dict(tq=130, tk=256, causal=False),
+               "k_tail": dict(tq=128, tk=190, causal=False)}.get(case, {}))
+    _check_bwd_kernels(*_bwd_case(cuda_device, dtype, **kw), atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_bwd_kernels_head_dims(cuda_device, head_dim, dtype, atol):
+    _check_bwd_kernels(*_bwd_case(cuda_device, dtype, d=head_dim, tq=100,
+                                  tk=150, h=4, h_kv=2, seed=15),
+                       atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_fully_masked_rows(cuda_device):
+    """Rows whose keys are all hidden by the key-padding bias and rows
+    past a window: p must be zero where the band hides a key."""
+    q, k, v, do, kb, bs, kw = _bwd_case(cuda_device, torch.float32, tq=96,
+                                        tk=96, window=1)
+    _check_bwd_kernels(q, k, v, do, kb, bs, kw, atol=1e-4)
+    kb = torch.full((2, 96), -1e9, device=cuda_device)
+    kw = dict(kw, causal=False, window=None)
+    _check_bwd_kernels(q, k, v, do, kb, None, kw, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal_gqa", "kbias_window"])
+def test_flash_grads_match_autograd_of_plain_forward(cuda_device, case):
+    """fp32 gradients of q, k, v (and the key-padding bias) through the
+    Function on the card against torch autograd through the plain
+    forward on the card, gradcheck-style."""
+    rng = np.random.RandomState(16)
+    b, t, h, h_kv, d = 2, 77, 4, 2, 32
+    leaves = [torch.from_numpy(rng.randn(b, t, n, d).astype(np.float32))
+              .to(cuda_device) for n in (h, h_kv, h_kv)]
+    g = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(
+        cuda_device)
+    kw = dict(causal=True, window=None)
+    if case == "kbias_window":
+        leaves.append(torch.from_numpy(
+            0.5 * rng.randn(b, t).astype(np.float32)).to(cuda_device))
+        kw["window"] = 20
+    grads = []
+    for use_kernel in (True, False):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        kb = xs[3] if len(xs) > 3 else None
+        if use_kernel:
+            out = fa.flash_attention(*xs[:3], key_padding_bias=kb, **kw)
+        else:
+            out, _ = fa._flash_fwd_ref(*xs[:3], kb, None, sm_scale=d ** -0.5,
+                                       q_offset=0, **kw)
+        grads.append(torch.autograd.grad((out * g).sum(), xs))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -2,8 +2,10 @@
 
 Same numpy inputs through JAX ``fused_layer_norm`` — its jnp reference
 (``impl="jnp"``) and its Pallas kernel in interpret mode — and through
-the port, whose CPU path is the plain version of its Triton kernel.
-fp32 at atol/rtol 1e-5.  The kernel itself runs only on the card
+the port, whose CPU path is the plain version of its Triton kernel; and
+the gradients (``dx`` from the backward kernel's plain version,
+``dgamma``/``dbeta`` as column sums) against ``jax.grad`` of the Pallas
+path in interpret mode.  fp32 at atol/rtol 1e-5, bf16 at 2e-2.  The kernel itself runs only on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
 
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from apex_tpu.normalization.fused_layer_norm import _pallas_fwd
@@ -94,8 +97,7 @@ def test_bf16_input_keeps_dtype_with_fp32_stats():
 
 def test_module_params_and_grad_on_cpu():
     """flax's parameter names and init; the CPU path is differentiable
-    (only the CUDA path refuses gradients until the backward is
-    ported)."""
+    through the autograd Function's plain backward."""
     ln = FusedLayerNorm(32, device="cpu")
     assert sorted(n for n, _ in ln.named_parameters()) == ["bias", "scale"]
     assert bool((ln.scale == 1).all()) and bool((ln.bias == 0).all())
@@ -103,3 +105,54 @@ def test_module_params_and_grad_on_cpu():
     ln(x).square().sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert FusedLayerNorm(32, elementwise_affine=False).scale is None
+
+
+@pytest.mark.parametrize("affine,has_bias", [(True, True), (False, False),
+                                             (True, False)],
+                         ids=["affine", "no_affine", "no_bias"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_grads_match_jax_grad_of_pallas_interpret(affine, has_bias, dtype,
+                                                  tol):
+    """dx, dw and db of the port against ``jax.grad`` of the Pallas
+    path (``_pallas_bwd_input`` in interpret mode)."""
+    shape, n2 = (3, 7, 96), 96
+    x, w, b = _inputs(shape, n2, seed=4, affine=affine,
+                      has_bias=has_bias and affine)
+    g = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jloss(x_, w_, b_):
+        out = jfln.fused_layer_norm(x_, n2, w_, b_, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * g)
+
+    argnums = tuple(i for i, a in enumerate((x, w, b)) if a is not None)
+    want = jax.grad(jloss, argnums=argnums)(
+        jnp.asarray(x).astype(jdt), _j(w), _j(b))
+    leaves = [None if a is None else torch.from_numpy(a) for a in (x, w, b)]
+    leaves[0] = leaves[0].to(tdt)
+    for t in leaves:
+        if t is not None:
+            t.requires_grad_(True)
+    out = fused_layer_norm(leaves[0], n2, leaves[1], leaves[2])
+    got = torch.autograd.grad((out.float() * torch.from_numpy(g)).sum(),
+                              [leaves[i] for i in argnums])
+    assert got[0].dtype == tdt
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.float().numpy(),
+                                   np.asarray(wt.astype(jnp.float32)),
+                                   atol=tol, rtol=tol)
+
+
+def test_bwd_input_ref_matches_pallas_kernel_interpret():
+    """The backward kernel's plain version against the Pallas backward
+    kernel itself (interpret mode), on the same saved statistics."""
+    x, w, _ = _inputs((40, 200), 200, seed=6)
+    g = np.random.RandomState(7).randn(40, 200).astype(np.float32)
+    _, mean, invvar = jfln._fwd_ref(_j(x), _j(w), None, 1e-5)
+    want = jfln._pallas_bwd_input(_j(g), _j(x), mean, invvar, _j(w),
+                                  interpret=True)
+    got = fln_mod._bwd_input_ref(_t(g), _t(x),
+                                 torch.from_numpy(np.asarray(mean)),
+                                 torch.from_numpy(np.asarray(invvar)), _t(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

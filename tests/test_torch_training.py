@@ -1,0 +1,377 @@
+"""The port's training stack against the JAX package's.
+
+Same numpy inputs and the same flax-made weights through the JAX
+functions and the port's: ``multi_tensor`` sweeps, the functional Adam,
+the dynamic loss scaler's state machine, the O2 parameter cast, and
+``make_train_step`` on gpt_tiny with the LM example's ``--no-fused-loss``
+loss for three steps (O0 at 1e-5, O2 at 2e-2: bf16 activations), plus a
+run continued in the port from a JAX ``TrainState``.  The CPU runs the
+kernels' plain versions; the card runs them in ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from apex_tpu import multi_tensor as jmta
+from apex_tpu import training as jtraining
+from apex_tpu.amp import policy as jpolicy
+from apex_tpu.amp.loss_scaler import LossScaler as JLossScaler
+from apex_tpu.models import gpt_tiny as jgpt_tiny
+from apex_tpu.optimizers import functional as jF
+from apex_tpu_torch import multi_tensor as mta
+from apex_tpu_torch import training
+from apex_tpu_torch.amp import (AmpOptionError, LossScaler, convert_params,
+                                opt_levels)
+from apex_tpu_torch.convert import gpt_params_from_jax, train_state_from_jax
+from apex_tpu_torch.examples.lm import main_amp
+from apex_tpu_torch.models import gpt_tiny
+from apex_tpu_torch.optimizers import adam_init, adam_update
+
+CFG = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
+           mlp_dim=128, max_len=32)
+
+
+def _tree(seed, shapes=((3, 5), (7,), (2, 2, 4))):
+    rng = np.random.RandomState(seed)
+    return {f"p{i}": rng.randn(*s).astype(np.float32)
+            for i, s in enumerate(shapes)}
+
+
+def _t(tree):
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _j(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def _close(got, want, tol):
+    for k in want:
+        np.testing.assert_allclose(
+            got[k].detach().float().numpy(),
+            np.asarray(want[k], np.float32), atol=tol, rtol=tol, err_msg=k)
+
+
+# -- multi_tensor ------------------------------------------------------------
+
+@pytest.mark.parametrize("poison", [None, np.inf, np.nan])
+def test_multi_tensor_scale_axpby_and_finite(poison):
+    x, y = _tree(0), _tree(1)
+    if poison is not None:
+        x["p1"][3] = poison
+    out, flag = mta.multi_tensor_scale(_t(x), 0.25)
+    jout, jflag = jmta.multi_tensor_scale(_j(x), 0.25)
+    _close(out, jout, 0)
+    assert bool(flag) == bool(jflag) == (poison is not None)
+    out, flag = mta.multi_tensor_axpby(_t(x), _t(y), 0.5, -2.0)
+    jout, jflag = jmta.multi_tensor_axpby(_j(x), _j(y), 0.5, -2.0)
+    _close(out, jout, 1e-6)
+    assert bool(flag) == bool(jflag)
+    assert bool(mta.tree_finite(_t(x))) == bool(jmta.tree_finite(_j(x)))
+
+
+def test_multi_tensor_l2norm_and_list_trees():
+    x = _tree(2)
+    total, per = mta.multi_tensor_l2norm(list(_t(x).values()),
+                                         per_tensor=True)
+    jtotal, jper = jmta.multi_tensor_l2norm(list(_j(x).values()),
+                                            per_tensor=True)
+    np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-6)
+    np.testing.assert_allclose([float(n) for n in per],
+                               [float(n) for n in jper], rtol=1e-6)
+    bf = {k: v.to(torch.bfloat16) for k, v in _t(x).items()}
+    out, _ = mta.multi_tensor_scale(bf, 2.0, out_dtype=torch.float32)
+    assert all(v.dtype == torch.float32 for v in out.values())
+
+
+# -- Adam --------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    dict(weight_decay=0.0),
+    dict(weight_decay=0.1),
+    dict(weight_decay=0.1, adam_w_mode=False, grad_scale=4.0),
+    dict(weight_decay=0.01, bias_correction=False),
+], ids=["plain", "adamw", "l2_grad_scale", "no_bias_correction"])
+def test_adam_update_matches_jax(kw):
+    params, grads = _tree(3), _tree(4)
+    jstate = jF.adam_init(_j(params))
+    state = adam_init(_t(params))
+    for step in range(2):                  # the second step sees moments
+        g = {k: v * (step + 1) for k, v in grads.items()}
+        jp, jstate = jF.adam_update(_j(g), jstate, _j(params), lr=1e-2, **kw)
+        p, state = adam_update(_t(g), state, _t(params), lr=1e-2, **kw)
+        _close(p, jp, 1e-6)
+        _close(state.exp_avg, jstate.exp_avg, 1e-6)
+        _close(state.exp_avg_sq, jstate.exp_avg_sq, 1e-6)
+        assert int(state.step) == int(jstate.step) == step + 1
+        params = {k: np.asarray(v) for k, v in jp.items()}
+
+
+def test_adam_apply_mask_skips_and_keeps_dtype():
+    params = {k: torch.from_numpy(v).to(torch.bfloat16)
+              for k, v in _tree(5).items()}
+    state = adam_init(params)
+    grads = _t(_tree(6))
+    p, s = adam_update(grads, state, params, lr=1e-2,
+                       apply_mask=torch.tensor(False))
+    assert int(s.step) == 0
+    for k in params:
+        assert torch.equal(p[k], params[k]) and p[k].dtype == torch.bfloat16
+        assert not s.exp_avg[k].any()
+    p, s = adam_update(grads, state, params, lr=1e-2,
+                       apply_mask=torch.tensor(True))
+    assert int(s.step) == 1 and not torch.equal(p["p0"], params["p0"])
+
+
+# -- amp ---------------------------------------------------------------------
+
+def test_dynamic_loss_scaler_state_machine_matches_jax():
+    """Step by step through grow, overflow, floor and cap."""
+    kw = dict(scale_window=3, min_loss_scale=2.0 ** 13,
+              max_loss_scale=2.0 ** 17)
+    jsc, sc = JLossScaler("dynamic", **kw), LossScaler("dynamic", **kw)
+    jst, st = jsc.init(), sc.init()
+    grads = _tree(7)
+    pattern = [0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 1, 0]
+    for i, bad in enumerate(pattern):
+        g = {k: v.copy() for k, v in grads.items()}
+        if bad:
+            g["p0"][0, 0] = np.inf
+        jout, jst = jsc.unscale(_j(g), jst)
+        out, st = sc.unscale(_t(g), st)
+        assert bool(st.overflow) == bool(jst.overflow) == bool(bad)
+        if not bad:
+            _close(out, jout, 0)
+        jst, st = jsc.update_scale(jst), sc.update_scale(st)
+        assert float(st.loss_scale) == float(jst.loss_scale), i
+        assert int(st.unskipped) == int(jst.unskipped), i
+        assert not bool(st.overflow)
+    static = LossScaler(1.0)
+    s0 = static.init()
+    out, s1 = static.unscale(_t(grads), s0)
+    assert not bool(s1.overflow) and float(static.update_scale(s1)
+                                          .loss_scale) == 1.0
+
+
+def test_opt_level_presets():
+    o2 = opt_levels["O2"]()
+    assert (o2.cast_model_type, o2.master_weights, o2.keep_batchnorm_fp32,
+            o2.loss_scale) == (torch.bfloat16, True, True, 1.0)
+    o3 = opt_levels["O3"]()
+    assert (o3.master_weights, o3.keep_batchnorm_fp32) == (False, False)
+    assert opt_levels["O0"]().cast_model_type == torch.float32
+    with pytest.raises(AmpOptionError):
+        o2.patch_functions = True
+    with pytest.raises(AmpOptionError):
+        o2.loss_scale = -1
+    with pytest.raises(AmpOptionError):
+        o2.no_such_option = 1
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    ids = jnp.asarray(np.random.RandomState(0).randint(1, 96, (2, 12)))
+    return jgpt_tiny(**CFG).init(jax.random.PRNGKey(3), ids)["params"]
+
+
+def test_convert_params_keeps_the_same_leaves_fp32(flax_params):
+    jcast = jpolicy.convert_params(flax_params, jnp.bfloat16)
+    want = {"/".join(str(p.key) for p in path): leaf.dtype == jnp.float32
+            for path, leaf in jax.tree_util.tree_leaves_with_path(jcast)}
+    sd = gpt_params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                    flax_params))
+    got = {k: v.dtype == torch.float32
+           for k, v in convert_params(sd, torch.bfloat16).items()}
+    assert got == {k.replace("/", "."): v for k, v in want.items()}
+    assert got["block_1.ln1.scale"] and got["ln_f.bias"]
+    assert not got["wte"] and not got["block_0.attention.query.kernel"]
+
+
+# -- make_train_step on gpt_tiny ----------------------------------------------
+
+def _batch(seed=1, b=4, t=17):
+    ids = np.random.RandomState(seed).randint(1, 96, (b, t))
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _jax_loss(jm, smoothing):
+    """The JAX LM example's --no-fused-loss loss."""
+    def loss_fn(p, batch):
+        xb, yb = batch
+        logits = jm.apply({"params": p}, xb)
+        flat = logits.reshape(-1, logits.shape[-1])
+        labels = yb.reshape(-1)
+        logp = jax.nn.log_softmax(flat.astype(jnp.float32), axis=-1)
+        nll = -jnp.take_along_axis(logp, labels[:, None], axis=-1)[:, 0]
+        smooth = -jnp.mean(logp, axis=-1)
+        losses = (1.0 - smoothing) * nll + smoothing * smooth
+        return jnp.mean(jnp.where(labels == 0, 0.0, losses))
+    return loss_fn
+
+
+def _port_loss(model, smoothing):
+    def loss_fn(p, batch):
+        x, y = batch
+        return main_amp.lm_loss(torch.func.functional_call(model, p, (x,)),
+                                y, smoothing)
+    return loss_fn
+
+
+def _pair(flax_params, opt_level, dtype, loss_scale=None, smoothing=0.1,
+          **kw):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jm = jgpt_tiny(**CFG, dtype=jdt)
+    tx_kw = dict(weight_decay=0.1)
+    jinit, jstep = jtraining.make_train_step(
+        _jax_loss(jm, smoothing), jtraining.adam(1e-3, **tx_kw),
+        opt_level=opt_level, loss_scale=loss_scale, **kw)
+    tm = gpt_tiny(**CFG, dtype=dtype, device="cpu")
+    tm.load_state_dict(gpt_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, flax_params)))
+    init, step = training.make_train_step(
+        _port_loss(tm, smoothing), training.adam(1e-3, **tx_kw),
+        opt_level=opt_level, loss_scale=loss_scale, **kw)
+    return (jinit(flax_params), jax.jit(jstep)), (init(tm.state_dict()),
+                                                 step)
+
+
+def _flat_jax(params):
+    return {"/".join(str(p.key) for p in path).replace("/", "."): leaf
+            for path, leaf in jax.tree_util.tree_leaves_with_path(params)}
+
+
+def _close_params(got, want, tol, lr=1e-3, steps=3):
+    """Parameters after ``steps`` Adam steps, at ``tol`` and at least a
+    tenth of one step (``0.1 * lr``; a wrong update moves a parameter by
+    about ``lr``): Adam divides each gradient element by its own running
+    magnitude, so an element whose gradient is near zero turns rounding
+    differences into a visible fraction of ``lr``.  The key projection's
+    bias has a gradient that is zero in exact arithmetic (it shifts
+    every score of a query row alike, which the softmax cancels), so its
+    steps are rounding noise throughout and are held to the bound of
+    ``steps * lr`` only."""
+    zero_grad = [k for k in want if k.endswith("attention.key.bias")]
+    for k in zero_grad:
+        assert float(got[k].abs().max()) <= steps * lr * 1.01, k
+    for k in want:
+        if k not in zero_grad:
+            np.testing.assert_allclose(
+                got[k].detach().float().numpy(),
+                np.asarray(want[k], np.float32), rtol=tol,
+                atol=max(tol, 0.1 * lr), err_msg=k)
+
+
+@pytest.mark.parametrize("opt_level,dtype,tol,accum", [
+    ("O0", torch.float32, 1e-5, 1),
+    ("O0", torch.float32, 1e-5, 2),
+    ("O2", torch.bfloat16, 2e-2, 1),
+], ids=["O0", "O0_accum2", "O2"])
+def test_make_train_step_three_steps_match_jax(flax_params, opt_level,
+                                               dtype, tol, accum):
+    (jst, jstep), (st, step) = _pair(flax_params, opt_level, dtype,
+                                     accum_steps=accum)
+    x, y = _batch()
+    for i in range(3):
+        jst, jm = jstep(jst, (jnp.asarray(x), jnp.asarray(y)))
+        st, m = step(st, (torch.from_numpy(x), torch.from_numpy(y)))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=tol, err_msg=f"step {i}")
+    _close_params(st.params, _flat_jax(jst.params), tol)
+    assert all(v.dtype == torch.float32 for v in st.params.values())
+    assert int(st.opt_state.step) == 3
+
+
+def test_overflow_skips_the_step_and_halves_the_scale(flax_params):
+    """O2 with a dynamic scale and an injected inf in the loss: the step
+    is skipped in both packages (parameters and moments unchanged), the
+    scale halves, and the next clean step applies."""
+    jm = jgpt_tiny(**CFG, dtype=jnp.bfloat16)
+    base = _jax_loss(jm, 0.0)
+    jinit, jstep = jtraining.make_train_step(
+        lambda p, b: base(p, b[:2]) * b[2], jtraining.adam(1e-3),
+        opt_level="O2", loss_scale="dynamic")
+    tm = gpt_tiny(**CFG, dtype=torch.bfloat16, device="cpu")
+    tm.load_state_dict(gpt_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, flax_params)))
+    tbase = _port_loss(tm, 0.0)
+    init, step = training.make_train_step(
+        lambda p, b: tbase(p, b[:2]) * b[2], training.adam(1e-3),
+        opt_level="O2", loss_scale="dynamic")
+    jst, st = jinit(flax_params), init(tm.state_dict())
+    x, y = _batch(2)
+    before = {k: v.clone() for k, v in st.params.items()}
+    for factor, skipped in ((np.inf, True), (1.0, False)):
+        jst, jmet = jstep(jst, (jnp.asarray(x), jnp.asarray(y),
+                                jnp.float32(factor)))
+        st, met = step(st, (torch.from_numpy(x), torch.from_numpy(y),
+                            torch.tensor(factor)))
+        assert bool(met["overflow"]) == bool(jmet["overflow"]) == skipped
+        assert float(met["loss_scale"]) == float(jmet["loss_scale"]) \
+            == 2.0 ** 15
+        if skipped:
+            assert int(st.opt_state.step) == 0
+            for k, v in before.items():
+                assert torch.equal(st.params[k], v), k
+    assert int(st.opt_state.step) == 1
+    assert not torch.equal(st.params["wte"], before["wte"])
+    _close_params(st.params, _flat_jax(jst.params), 2e-2, steps=1)
+
+
+def test_port_continues_a_jax_train_state(flax_params):
+    """One JAX step, then the state carried into the port
+    (``train_state_from_jax``): the next two steps agree at O0."""
+    (jst, jstep), (_, step) = _pair(flax_params, "O0", torch.float32)
+    x, y = _batch(3)
+    jb = (jnp.asarray(x), jnp.asarray(y))
+    jst, _ = jstep(jst, jb)
+    st = train_state_from_jax(jax.tree_util.tree_map(np.asarray, jst))
+    assert int(st.opt_state.step) == 1
+    for _ in range(2):
+        jst, jm = jstep(jst, jb)
+        st, m = step(st, (torch.from_numpy(x), torch.from_numpy(y)))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+    _close_params(st.params, _flat_jax(jst.params), 1e-5)
+    _close(st.opt_state.exp_avg_sq, _flat_jax(jst.opt_state.exp_avg_sq),
+           1e-5)
+
+
+def test_not_ported_arguments_raise():
+    with pytest.raises(NotImplementedError, match="axis_name"):
+        training.make_train_step(lambda p, b: 0, training.adam(),
+                                 axis_name="data")
+    with pytest.raises(NotImplementedError, match="gradient_average"):
+        training.make_train_step(lambda p, b: 0, training.adam(),
+                                 gradient_average=False)
+
+
+# -- the LM trainer entry point ------------------------------------------------
+
+TINY = ["--synthetic", "--device", "cpu", "--vocab", "128", "--hidden",
+        "64", "--layers", "2", "--heads", "4", "--seq-len", "33", "-b", "4"]
+
+
+def test_lm_trainer_runs_on_cpu_and_loss_falls(capsys):
+    assert main_amp.main(TINY + ["--steps", "3", "--lr", "3e-3"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("step ")]
+    losses = [float(ln.split()[3]) for ln in lines]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+
+
+def test_lm_trainer_options_and_refusals():
+    res = main_amp.train(main_amp.parse(
+        TINY + ["--steps", "2", "--kv-heads", "2", "--window", "8",
+                "--loss-scale", "dynamic", "--smoothing", "0.1"]),
+        log=lambda s: None)
+    assert res["loss_scales"] == [2.0 ** 16] * 2
+    assert all(np.isfinite(res["losses"]))
+    with pytest.raises(NotImplementedError, match="fused"):
+        main_amp.main(TINY + ["--fused-loss"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main_amp.main(TINY[:1] + TINY[3:] + ["--steps", "1"])
