@@ -7,15 +7,21 @@ The port keeps flax's names and layouts (``wte``, ``wpe``,
 key by joining its parts with ``.``, and the arrays move unchanged.
 Arrays cross as numpy: this module imports neither JAX nor flax.
 
+The ResNet trees keep flax's layouts too: conv kernels ``[KH, KW, Cin,
+Cout]`` (the port permutes them inside its forward) and the Dense kernel
+``[in, out]``, so optimizer state moves without transposes.
+:func:`resnet_variables_from_jax` splits flax's ``params`` and
+``batch_stats`` collections into two flat mappings.
+
 :func:`train_state_from_jax` carries a whole JAX ``TrainState`` (the
-parameters, the Adam moments and step, the loss-scaler state) into the
-port's, so both packages can continue one training run from the same
-point.
+parameters, the Adam or SGD state, the loss-scaler state and the model
+state) into the port's, so both packages can continue one training run
+from the same point.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +52,12 @@ def gpt_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     ``jax.tree_util.tree_map(np.asarray, params)``) as a ``state_dict``
     for :class:`apex_tpu_torch.models.GPT` (``load_state_dict`` then
     checks every name and shape)."""
+    return _flat_fp32(params)
+
+
+def _flat_fp32(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {key: torch.from_numpy(np.array(arr, dtype=np.float32))
-            for key, arr in _flatten(params).items()}
+            for key, arr in _flatten(tree).items()}
 
 
 def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor]
@@ -55,8 +65,32 @@ def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor]
     """The inverse: a GPT ``state_dict`` as a nested dict of float32 numpy
     arrays in the flax tree's layout (``flax.core.freeze`` it, or pass it
     to ``model.apply`` as ``{"params": tree}``)."""
+    return _nest(state_dict)
+
+
+def resnet_variables_from_jax(variables: Mapping[str, Any]
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Dict[str, torch.Tensor]]:
+    """A flax ResNet's variables (``{"params": ..., "batch_stats": ...}``,
+    nested mappings of numpy arrays) as ``(params, batch_stats)``, flat
+    mappings of ``state_dict`` names to fp32 tensors
+    (``ResNet.load_state_dict({**params, **batch_stats})`` checks every
+    name and shape)."""
+    return (_flat_fp32(variables["params"]),
+            _flat_fp32(variables.get("batch_stats", {})))
+
+
+def resnet_variables_to_jax(params: Mapping[str, torch.Tensor],
+                            batch_stats: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, Any]:
+    """The inverse: ``{"params": tree, "batch_stats": tree}`` of float32
+    numpy arrays in the flax layout."""
+    return {"params": _nest(params), "batch_stats": _nest(batch_stats)}
+
+
+def _nest(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for key, t in state_dict.items():
+    for key, t in flat.items():
         node = tree
         *path, leaf = key.split(".")
         for part in path:
@@ -68,11 +102,13 @@ def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor]
 def train_state_from_jax(state, device=None):
     """A JAX ``apex_tpu.training.TrainState`` whose leaves are numpy
     arrays (``jax.tree_util.tree_map(np.asarray, state)``), with an
-    ``AdamState`` optimizer state, as the port's ``TrainState`` on
-    ``device``: parameters and moments keep their dtypes and flax names,
-    the step and the scaler state become 0-dim tensors."""
+    ``AdamState`` or ``SGDState`` optimizer state, as the port's
+    ``TrainState`` on ``device``: parameters, moments, momentum buffers
+    and the model state (``batch_stats``) keep their dtypes and flax
+    names, the step, the SGD ``initialized`` flag and the scaler state
+    become 0-dim tensors."""
     from .amp.loss_scaler import LossScalerState
-    from .optimizers.functional import AdamState
+    from .optimizers.functional import AdamState, SGDState
     from .training import TrainState
 
     def tree(t):
@@ -82,9 +118,15 @@ def train_state_from_jax(state, device=None):
         return _tensor(x).to(device)
 
     opt = state.opt_state
+    if hasattr(opt, "momentum_buf"):
+        opt_state = SGDState(momentum_buf=tree(opt.momentum_buf),
+                             initialized=scalar(opt.initialized).bool())
+    else:
+        opt_state = AdamState(step=scalar(opt.step).to(torch.int32),
+                              exp_avg=tree(opt.exp_avg),
+                              exp_avg_sq=tree(opt.exp_avg_sq))
+    model_state = getattr(state, "model_state", None)
     return TrainState(
-        params=tree(state.params),
-        opt_state=AdamState(step=scalar(opt.step).to(torch.int32),
-                            exp_avg=tree(opt.exp_avg),
-                            exp_avg_sq=tree(opt.exp_avg_sq)),
-        scaler=LossScalerState(*(scalar(x) for x in state.scaler)))
+        params=tree(state.params), opt_state=opt_state,
+        scaler=LossScalerState(*(scalar(x) for x in state.scaler)),
+        model_state=None if model_state is None else tree(model_state))

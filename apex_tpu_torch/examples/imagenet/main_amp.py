@@ -1,0 +1,216 @@
+"""ImageNet training with amp — counterpart of
+``examples/imagenet/main_amp.py``.
+
+A ResNet (NHWC) trained by ``make_train_step`` with SGD (momentum,
+weight decay on every parameter, lr scaled by ``batch / 256``) and the
+BatchNorm running statistics as the model state, at the chosen opt level
+(bf16 compute under O1-O3, fp32 under O0).  The data is the JAX
+example's synthetic batch: the first batch of ``synthetic_imagenet``
+(byte for byte the JAX stream's), normalized on the device and reused
+every step, as the JAX example reuses its staged synthetic window.
+
+    python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
+        --arch resnet50 -b 128 --opt-level O2
+    python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
+        --device cpu --arch resnet18 -b 4 --image-size 32 --prof 2
+
+Defaults as in the JAX example: ``--fused-bn`` (every ``bn -> relu ->
+(+residual)`` chain through ``contrib.groupbn.BatchNorm2d_NHWC`` and the
+BN-epilogue kernels) and ``--fused-loss`` (the softmax cross-entropy
+kernels, ``padding_idx=-1``: every label is a class).  ``--no-fused-bn``
+keeps the plain flax-style BatchNorm with explicit ReLU and residual
+adds; ``--no-fused-loss`` the log_softmax + gather composition.
+
+Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
+ported yet, each raising with a plain message: ``--pallas-conv`` (the
+Pallas NHWC conv, TPU kernels 1-3; convolutions run through
+``F.conv2d``), ``--sync_bn``, ``--steps-per-call``, checkpointing,
+telemetry and real data.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ... import training
+from ..._device import resolve_device
+from ...contrib.groupbn import BatchNorm2d_NHWC
+from ...contrib.xentropy import softmax_cross_entropy_loss
+from ...data import normalize_images, synthetic_imagenet
+from ...models import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
+
+ARCHS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
+         "resnet101": ResNet101, "resnet152": ResNet152}
+
+
+def parse(argv=None):
+    p = argparse.ArgumentParser(
+        description="ResNet ImageNet training with amp on the port")
+    p.add_argument("data", nargs="?", default=None,
+                   help="path to the dataset (not ported: use --synthetic)")
+    p.add_argument("--arch", "-a", default="resnet18", choices=sorted(ARCHS))
+    p.add_argument("--epochs", default=90, type=int)
+    p.add_argument("--steps-per-epoch", default=100, type=int)
+    p.add_argument("-b", "--batch-size", default=256, type=int)
+    p.add_argument("--lr", "--learning-rate", default=0.1, type=float,
+                   help="scaled by batch / 256")
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--weight-decay", "--wd", default=1e-4, type=float)
+    p.add_argument("--print-freq", "-p", default=10, type=int)
+    p.add_argument("--prof", default=-1, type=int,
+                   help="stop after N steps")
+    p.add_argument("--opt-level", type=str, default="O0")
+    p.add_argument("--keep-batchnorm-fp32", type=str, default=None)
+    p.add_argument("--loss-scale", type=str, default=None,
+                   help="a number, or 'dynamic'")
+    p.add_argument("--fused-bn", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--fused-loss", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--pallas-conv", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="the Pallas NHWC conv is not ported yet, so "
+                        "--pallas-conv raises; convolutions run through "
+                        "F.conv2d")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--image-size", default=224, type=int)
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (default) or cpu")
+    # not ported yet: each raises when given
+    p.add_argument("--sync_bn", action="store_true")
+    p.add_argument("--steps-per-call", default=1, type=int)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--telemetry", default=None)
+    return p.parse_args(argv)
+
+
+def _refuse_not_ported(args):
+    refused = [
+        (args.pallas_conv, NotImplementedError,
+         "--pallas-conv needs the Pallas NHWC conv kernels, which are not "
+         "ported yet; use --no-pallas-conv (F.conv2d)"),
+        (args.sync_bn, NotImplementedError,
+         "--sync_bn (statistics across processes) is not ported yet"),
+        (args.steps_per_call != 1, NotImplementedError,
+         "--steps-per-call (chained steps) is not ported yet"),
+        (args.checkpoint_dir or args.resume, NotImplementedError,
+         "checkpointing (--checkpoint-dir, --resume) is not ported yet"),
+        (args.telemetry, NotImplementedError,
+         "--telemetry is not ported yet"),
+        (args.data is not None or not args.synthetic, SystemExit,
+         "only --synthetic data is implemented; pass --synthetic"),
+    ]
+    for bad, exc, msg in refused:
+        if bad:
+            raise exc(msg)
+
+
+def _loss_scale(value):
+    if value in (None, "dynamic"):
+        return value
+    return float(value)
+
+
+def synthetic_batch(batch_size: int, image_size: int, device):
+    """The JAX example's synthetic batch: the first of
+    ``synthetic_imagenet``, normalized; ``(images [B, S, S, 3] fp32,
+    labels [B] int64)`` on ``device``."""
+    imgs, labels = next(synthetic_imagenet(batch_size, image_size, steps=1))
+    x = normalize_images(torch.from_numpy(imgs).to(device))
+    return x, torch.from_numpy(labels.astype(np.int64)).to(device)
+
+
+def image_loss(logits, labels, fused: bool = True):
+    """Mean cross entropy of fp32 logits: the fused kernels
+    (``padding_idx=-1``, smoothing 0) or log_softmax + gather."""
+    if fused:
+        return softmax_cross_entropy_loss(logits.float(), labels,
+                                          smoothing=0.0,
+                                          padding_idx=-1).mean()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels[:, None]).mean()
+
+
+def build(args):
+    """``(state, step_fn, batch)`` for the parsed arguments."""
+    _refuse_not_ported(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dtype = (torch.bfloat16 if args.opt_level in ("O1", "O2", "O3")
+             else torch.float32)
+    norm_cls = BatchNorm2d_NHWC if args.fused_bn else None
+    model = ARCHS[args.arch](num_classes=1000, dtype=dtype,
+                             norm_cls=norm_cls, device=device, seed=0)
+    fused_loss = args.fused_loss
+
+    def loss_fn(p, ms, batch):
+        xb, yb = batch
+        logits, new_ms = model.apply(p, ms, xb, train=True)
+        return image_loss(logits, yb, fused_loss), new_ms
+
+    keep_bn = args.keep_batchnorm_fp32
+    if isinstance(keep_bn, str):
+        keep_bn = keep_bn == "True"
+    lr = args.lr * args.batch_size / 256.0
+    init_fn, step_fn = training.make_train_step(
+        loss_fn, training.sgd(lr=lr, momentum=args.momentum,
+                              weight_decay=args.weight_decay),
+        opt_level=args.opt_level, loss_scale=_loss_scale(args.loss_scale),
+        keep_batchnorm_fp32=keep_bn, has_model_state=True)
+    params, batch_stats = model.variables()
+    state = init_fn({k: v.detach() for k, v in params.items()},
+                    {k: v.clone() for k, v in batch_stats.items()})
+    batch = synthetic_batch(args.batch_size, args.image_size, device)
+    return state, step_fn, batch
+
+
+def train(args, log=print) -> dict:
+    """Run ``--prof`` steps (``epochs * steps_per_epoch`` without it);
+    returns the per-step losses, loss scales and wall seconds, and the
+    images per step.  Each step ends by reading its loss, which waits
+    for the device, so a step's seconds are the time from its launch to
+    the end of its work on the device."""
+    state, step_fn, batch = build(args)
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"{args.arch}  {n_params / 1e6:.1f}M params  opt_level = "
+        f"{args.opt_level}  fused_bn={args.fused_bn}  "
+        f"fused_loss={args.fused_loss}  on {batch[0].device}")
+    steps = args.prof if args.prof >= 0 else args.epochs * \
+        args.steps_per_epoch
+    res = dict(losses=[], loss_scales=[], step_s=[],
+               images_per_step=args.batch_size)
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = metrics["loss"].item()
+        res["step_s"].append(time.perf_counter() - t0)
+        res["losses"].append(loss)
+        res["loss_scales"].append(metrics["loss_scale"].item())
+        if i % args.print_freq == 0 or i == steps - 1:
+            log(f"iter {i}  loss {loss:.4f}  speed "
+                f"{args.batch_size / res['step_s'][-1]:.1f} img/s  "
+                f"loss_scale {res['loss_scales'][-1]:.0f}")
+    res["state"] = state
+    return res
+
+
+def main(argv=None) -> int:
+    args = parse(argv)
+    print("opt_level =", args.opt_level)
+    res = train(args)
+    if not all(np.isfinite(res["losses"])):
+        raise SystemExit("training diverged: a loss is not finite")
+    print("done")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

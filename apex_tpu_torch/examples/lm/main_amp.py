@@ -4,19 +4,20 @@ GPT with flash attention and FusedLayerNorm (their forward and backward
 kernels on the card), trained by ``make_train_step`` with Adam at the
 chosen opt level, on the JAX example's synthetic batch (numpy
 ``RandomState(0)`` token ids in ``[1, vocab)``, next-token pairs, so
-``T' = seq_len - 1`` tokens per row) and its ``--no-fused-loss`` loss:
-log_softmax + gather, label smoothing, ``padding_idx`` 0 masked.  Weight
-decay applies to every parameter, as the JAX example's
-``training.adam(lr, weight_decay=...)`` does.
+``T' = seq_len - 1`` tokens per row).  The loss is the JAX example's:
+by default (``--fused-loss``) the fused softmax cross-entropy kernels
+(``contrib.xentropy``), with ``--no-fused-loss`` the log_softmax +
+gather composition; both label-smoothed, ``padding_idx`` 0 masked, the
+mean over every token.  Weight decay applies to every parameter, as the
+JAX example's ``training.adam(lr, weight_decay=...)`` does.
 
     python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 5
     python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 3 \\
         --device cpu --vocab 256 --hidden 64 --layers 2 --heads 4 --seq-len 33
 
-Runs on CUDA unless given ``--device cpu``; raises without a GPU.  The
-fused cross-entropy (``--fused-loss``, the JAX default) is not ported
-yet, so the default here is ``--no-fused-loss``.  Not ported: sequence
-parallelism, step chaining, checkpointing and telemetry.
+Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
+ported: sequence parallelism, step chaining, checkpointing and
+telemetry.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch.func import functional_call
 
 from ... import training
 from ..._device import resolve_device
+from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...models import GPT
 
 
@@ -53,11 +55,10 @@ def parse(argv=None):
     p.add_argument("--weight-decay", type=float, default=0.1)
     p.add_argument("--smoothing", type=float, default=0.0)
     p.add_argument("--fused-loss", action=argparse.BooleanOptionalAction,
-                   default=False,
-                   help="the fused softmax cross-entropy kernels are not "
-                        "ported yet, so --fused-loss raises; the default "
-                        "--no-fused-loss is the log_softmax + gather "
-                        "composition")
+                   default=True,
+                   help="the fused softmax cross-entropy kernels (the "
+                        "default); --no-fused-loss is the log_softmax + "
+                        "gather composition")
     p.add_argument("--kv-heads", type=int, default=None,
                    help="GQA/MQA: kv heads shared across query heads "
                         "(must divide --heads)")
@@ -68,12 +69,15 @@ def parse(argv=None):
     return p.parse_args(argv)
 
 
-def lm_loss(logits, labels, smoothing: float = 0.0):
+def lm_loss(logits, labels, smoothing: float = 0.0, fused: bool = False):
     """Mean label-smoothed next-token loss over ``[..., V]`` logits, in
-    fp32; label 0 is padding and contributes 0 (the JAX example's
-    ``--no-fused-loss`` composition)."""
+    fp32; label 0 is padding and contributes 0.  ``fused``: the fused
+    cross-entropy kernels; otherwise the JAX example's
+    ``--no-fused-loss`` composition."""
     flat = logits.reshape(-1, logits.shape[-1])
     labels = labels.reshape(-1)
+    if fused:
+        return softmax_cross_entropy_loss(flat, labels, smoothing).mean()
     logp = F.log_softmax(flat.float(), dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     smooth = -logp.mean(dim=-1)
@@ -97,10 +101,6 @@ def _loss_scale(value):
 
 def build(args):
     """``(state, step_fn, batch)`` for the parsed arguments."""
-    if args.fused_loss:
-        raise NotImplementedError(
-            "--fused-loss needs the fused softmax cross-entropy kernels, "
-            "which are not ported yet; use --no-fused-loss")
     if not args.synthetic:
         raise SystemExit("only --synthetic data is implemented; pass "
                          "--synthetic")
@@ -114,11 +114,12 @@ def build(args):
                 dtype=torch.bfloat16, attention_impl="flash",
                 num_kv_heads=args.kv_heads, window=args.window,
                 device=device, seed=0)
-    smoothing = args.smoothing
+    smoothing, fused = args.smoothing, args.fused_loss
 
     def loss_fn(params, batch):
         x, y = batch
-        return lm_loss(functional_call(model, params, (x,)), y, smoothing)
+        return lm_loss(functional_call(model, params, (x,)), y, smoothing,
+                       fused)
 
     init_fn, step_fn = training.make_train_step(
         loss_fn, training.adam(args.lr, weight_decay=args.weight_decay),

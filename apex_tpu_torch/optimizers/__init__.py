@@ -1,5 +1,7 @@
-"""Optimizers: the functional Adam of the training step."""
+"""Optimizers: the functional Adam and SGD of the training step."""
 
-from .functional import AdamState, adam_init, adam_update
+from .functional import (AdamState, SGDState, adam_init, adam_update,
+                         sgd_init, sgd_update)
 
-__all__ = ["AdamState", "adam_init", "adam_update"]
+__all__ = ["AdamState", "SGDState", "adam_init", "adam_update", "sgd_init",
+           "sgd_update"]

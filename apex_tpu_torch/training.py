@@ -17,9 +17,14 @@ semantics:
 The parameter tree is a mapping of ``state_dict`` names to tensors.
 Skipping a step is a device-side ``torch.where`` (``apply_mask``), and
 every metric stays a tensor on the device: the step never reads a value
-back to the host.  Not ported yet: the DDP and mesh arguments
-(``axis_name``, ``reduce_grads``, ``param_view`` and the all-reduce
-options) and ``has_model_state``; they raise ``NotImplementedError``.
+back to the host.  With ``has_model_state`` the loss also returns the
+new model state (BatchNorm running statistics), threaded through the
+microbatches in order and kept even on a step the dynamic scaler skips,
+as in JAX.  Not ported yet: the DDP and mesh arguments (``axis_name``,
+``reduce_grads``, ``param_view`` and the all-reduce options); they
+raise ``NotImplementedError``.  On one device the JAX step's ``pmean``
+of the loss and the model state is the identity, so a one-card caller
+passes no ``axis_name``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,14 @@ def adam(lr=1e-3, **kw) -> FunctionalOptimizer:
         F.adam_init, functools.partial(F.adam_update, lr=lr, **kw))
 
 
+def sgd(lr=1e-3, momentum=0.0, **kw) -> FunctionalOptimizer:
+    """Leafwise SGD (:func:`optimizers.functional.sgd_update`); weight
+    decay applies to every parameter."""
+    return FunctionalOptimizer(
+        functools.partial(F.sgd_init, momentum=momentum),
+        functools.partial(F.sgd_update, lr=lr, momentum=momentum, **kw))
+
+
 class TrainState(NamedTuple):
     """Carry of the step.  ``params`` is the single source of truth: fp32
     for O0/O1/O2 (O2 casts inside the step), bf16 for O3."""
@@ -67,24 +80,26 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                     **not_ported):
     """Build ``(init_fn, step_fn)`` for one amp training step.
 
-    ``loss_fn(params, batch) -> loss`` (a 0-dim tensor); ``params``
-    arrive cast to the compute dtype of the opt level.  ``init_fn(params)``
-    gives the :class:`TrainState`; ``step_fn(state, batch)`` gives
-    ``(new_state, metrics)`` with ``metrics`` ``{"loss", "loss_scale",
-    "overflow"}``, device tensors.
+    ``loss_fn(params, batch) -> loss`` (a 0-dim tensor), or with
+    ``has_model_state`` ``loss_fn(params, model_state, batch) -> (loss,
+    new_model_state)``; ``params`` arrive cast to the compute dtype of
+    the opt level.  ``init_fn(params, model_state=None)`` gives the
+    :class:`TrainState`; ``step_fn(state, batch)`` gives ``(new_state,
+    metrics)`` with ``metrics`` ``{"loss", "loss_scale", "overflow"}``,
+    device tensors.
 
     ``accum_steps=N`` splits every tensor of ``batch`` into N
     microbatches along its leading axis, accumulates the mean of the
     scaled gradients in fp32 (the cast is done once, outside the loop),
-    and unscales, checks and updates once.
+    threads the model state through the microbatches in order, and
+    unscales, checks and updates once.
     """
     if not_ported:
         raise NotImplementedError(
             f"not ported yet: {sorted(not_ported)} (the data- and "
             f"model-parallel arguments of the JAX step)")
-    if has_model_state or not reduce_grads:
-        raise NotImplementedError("has_model_state and reduce_grads=False "
-                                  "are not ported yet")
+    if not reduce_grads:
+        raise NotImplementedError("reduce_grads=False is not ported yet")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     props = opt_levels[opt_level]()
@@ -110,26 +125,31 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                                       keep_norm_fp32=keep_bn,
                                       norm_predicate=norm_predicate)
 
-    def init_fn(params) -> TrainState:
+    def init_fn(params, model_state=None) -> TrainState:
         params = dict(params)
         if store_cast:               # O3: reduced precision, no masters
             params = {k: v.detach() for k, v in cast(params).items()}
         device = next(iter(params.values())).device
         return TrainState(params=params, opt_state=optimizer.init(params),
-                          scaler=scaler.init(device))
+                          scaler=scaler.init(device),
+                          model_state=model_state)
 
-    def grads_of(leaves, batch, scale, view=None):
-        """(loss, grads of ``loss * scale`` with respect to ``leaves``);
-        ``view`` maps the leaves to what ``loss_fn`` takes, inside the
-        differentiated function."""
+    def grads_of(leaves, model_state, batch, scale, view=None):
+        """(loss, grads of ``loss * scale`` with respect to ``leaves``,
+        new model state); ``view`` maps the leaves to what ``loss_fn``
+        takes, inside the differentiated function."""
         with torch.enable_grad():
-            loss = loss_fn(leaves if view is None else view(leaves), batch)
+            p = leaves if view is None else view(leaves)
+            if has_model_state:
+                loss, new_ms = loss_fn(p, model_state, batch)
+            else:
+                loss, new_ms = loss_fn(p, batch), model_state
             grads = torch.autograd.grad(loss.float() * scale,
                                         list(leaves.values()),
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves.values())]
-        return loss.detach().float(), grads
+        return loss.detach().float(), grads, new_ms
 
     def step_fn(state: TrainState, batch):
         scale = state.scaler.loss_scale
@@ -139,8 +159,9 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
             # its backward returns each gradient in the master's dtype
             masters = {k: v.detach().requires_grad_(True)
                        for k, v in state.params.items()}
-            loss, grads = grads_of(masters, batch, scale,
-                                   cast if cast_in_step else None)
+            loss, grads, new_ms = grads_of(masters, state.model_state,
+                                           batch, scale,
+                                           cast if cast_in_step else None)
         else:
             leaves, _ = flatten_tree(batch)
             for x in leaves:
@@ -159,9 +180,10 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in cp.values()]
             loss = torch.zeros((), dtype=torch.float32, device=scale.device)
+            new_ms = state.model_state
             for i in range(accum_steps):
                 mb = rebuild([p[i] for p in parts])
-                l_i, g_i = grads_of(cp, mb, scale)
+                l_i, g_i, new_ms = grads_of(cp, new_ms, mb, scale)
                 grads = [a + b.float() / accum_steps
                          for a, b in zip(grads, g_i)]
                 loss = loss + l_i / accum_steps
@@ -176,8 +198,8 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                    "overflow": (torch.logical_not(apply_mask)
                                 if apply_mask is not None
                                 else torch.zeros_like(scaler_state.overflow))}
+        # the new model state is kept even on a skipped step, as in JAX
         return TrainState(params=new_params, opt_state=new_opt,
-                          scaler=scaler_state,
-                          model_state=state.model_state), metrics
+                          scaler=scaler_state, model_state=new_ms), metrics
 
     return init_fn, step_fn

@@ -3,8 +3,8 @@
 GPU: builds the port's kernels from this checkout, holds each against its
 plain PyTorch version at the shapes of the serving and training paths,
 serves GPT-2 small through the paged-KV engine, trains it for ten steps
-through the LM trainer, and checks the card's answers against the
-CPU's.
+through the LM trainer, trains ResNet-50 for ten steps through the
+ImageNet trainer, and checks the card's answers against the CPU's.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -14,8 +14,9 @@ line):
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
 2. build the two flash-attention CUDA libraries (forward; dQ and dK/dV:
-   one ``nvcc`` each) and compile the LayerNorm Triton kernels (forward
-   and backward), all concurrently, and time each;
+   one ``nvcc`` each) and compile the Triton kernels (LayerNorm, BN
+   epilogue and cross-entropy, forward and backward, one after another),
+   the three concurrently, and time each;
 3. LayerNorm kernel vs plain at ``[1024, 768]`` and ``[8, 768]``, bf16
    and fp32;
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
@@ -44,20 +45,45 @@ line):
    captured in a CUDA graph);
 9. training: the LM trainer (``apex_tpu_torch.examples.lm.main_amp``)
    on GPT-2 small, bf16 O2, Adam lr 3e-4, weight decay 0.1, static loss
-   scale 1.0, B 8, seq_len 1024, 10 steps, every launch counter set to 0
-   just before and read just after (25 LN forward and backward, 12 flash
-   forward, dQ and dK/dV per step); losses finite and falling; step ms,
+   scale 1.0, the fused loss, B 8, seq_len 1024, 10 steps, every launch
+   counter set to 0 just before and read just after (25 LN forward and
+   backward, 12 flash forward, dQ and dK/dV, 1 cross-entropy forward and
+   backward per step, nothing else); losses finite and falling; step ms,
    tokens/s, peak memory; then two steps traced with ``torch.profiler``
    (device time by kind, idle share);
 10. training correctness: gpt_tiny O0 fp32 three steps on the card and
    on the CPU from the same weights; gpt2_small fp32 gradients at B 1, T
    256 card vs CPU; gpt_tiny O2 with a dynamic scale and an injected inf
-   (the step is skipped, the scale halves, the next step applies).
+   (the step is skipped, the scale halves, the next step applies); the
+   fused LM loss equal to the ``--no-fused-loss`` composition on the
+   card;
+11. BN epilogue forward and backward kernels vs plain at ResNet-50 B 128
+   shapes (``[1605632, 64]``, ``[401408, 256]`` with a residual,
+   ``[6272, 2048]`` without ReLU, bf16; one fp32 case): bf16 within one
+   ulp, fp32 within 1e-6; ``library_ms`` is ``F.batch_norm(training=
+   False)`` and its backward where it computes the same function;
+12. cross-entropy forward and backward kernels vs plain at
+   ``[8184, 50257]`` (smoothing 0 and 0.1, padding rows; fp32 and bf16)
+   and ``[128, 1000]``; ``library_ms`` is ``F.cross_entropy`` and its
+   backward;
+13. ResNet-50 training: the ImageNet trainer
+   (``apex_tpu_torch.examples.imagenet.main_amp``), B 128, 224 x 224,
+   bf16 O2, SGD, ``--fused-bn --fused-loss --no-pallas-conv``, 10 steps,
+   every launch counter set to 0 just before and read just after (53 BN
+   forward and backward, 1 cross-entropy forward and backward per step,
+   nothing else); losses finite; step ms, images/s, peak memory; two
+   steps traced (device time by kind, idle share);
+14. ResNet correctness: a small bottleneck ResNet at O0 fp32, three SGD
+   steps on the card and on the CPU (losses rtol 1e-4, parameters and
+   running statistics atol 1e-4); an O2 dynamic-scale step with an
+   injected inf skipped with the parameters bit-identical and the
+   running statistics advanced; conv outputs contiguous NHWC.
 
 The line before the last two is one JSON object describing every kernel
-(time, bound, launches on its path: the forward kernels' on the serving
-run, the backward kernels' on the training run); then the ``nvidia-smi``
-line;
+(time, bound, launches on its path: the LN and flash forward kernels' on
+the serving run, their backward kernels' on the LM training run, the BN
+and cross-entropy kernels' on the ResNet-50 run); then the
+``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -634,6 +660,7 @@ TRAIN_ARGS = ["--synthetic", "-b", "8", "--seq-len", "1024", "--vocab",
 _TRAIN_KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
                 ("flash_bwd", ("flash_bwd_",)),
                 ("layer_norm", ("ln_fwd", "ln_bwd")),
+                ("loss", ("xent_",)),
                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
                 ("optimizer", ("foreach", "multi_tensor")))
 
@@ -650,8 +677,9 @@ def train_gpt2_small(main_amp, counters, steps=10):
     launches = {name: c.launches for name, c in counters.items()}
     per_step = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
                 "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
-                "flash_attention_bwd_dkv": 12}
-    check(all(launches[n] == per_step[n] * steps for n in per_step),
+                "flash_attention_bwd_dkv": 12, "xentropy_fwd": 1,
+                "xentropy_bwd": 1}
+    check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
           f"gpt2_small training: launches {launches} = "
           f"{per_step} x {steps} steps")
     losses = res["losses"]
@@ -670,13 +698,13 @@ def train_gpt2_small(main_amp, counters, steps=10):
     return out
 
 
-def trace_training(main_amp):
-    """Two training steps under ``torch.profiler``: device time by kind
-    and the device's idle share of the wall time."""
+def trace_training(trainer, argv, kinds=_TRAIN_KINDS):
+    """Two training steps of ``trainer`` (an example module with
+    ``parse`` and ``build``) under ``torch.profiler``: device time by
+    kind and the device's idle share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    args = main_amp.parse(TRAIN_ARGS + ["--steps", "1"])
-    state, step_fn, batch = main_amp.build(args)
+    state, step_fn, batch = trainer.build(trainer.parse(argv))
     state, m = step_fn(state, batch)          # warm: compiles, allocates
     m["loss"].item()
     with profile(activities=[ProfilerActivity.CPU,
@@ -690,20 +718,23 @@ def trace_training(main_amp):
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in prof.events()
                      if e.device_type == DeviceType.CUDA)
-    busy, edge, kinds = 0.0, None, {}
+    busy, edge, by_kind, by_name = 0.0, None, {}, {}
     for lo, hi, name in kernels:
         lo2 = lo if edge is None else max(lo, edge)
         busy += max(0.0, hi - lo2)
         edge = hi if edge is None else max(edge, hi)
         low = name.lower()
-        kind = next((k for k, keys in _TRAIN_KINDS
+        kind = next((k for k, keys in kinds
                      if any(key in low for key in keys)), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + (hi - lo)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (hi - lo)
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     res = dict(wall_ms_per_step=wall_us / 2e3,
                device_busy_ms_per_step=busy / 2e3,
                device_idle_share=1 - busy / wall_us,
                device_ms_per_step_by_kind={k: v / 2e3 for k, v in
-                                           sorted(kinds.items())},
+                                           sorted(by_kind.items())},
+               top_kernels_ms_per_step=[(n[:100], v / 2e3) for n, v in top],
                kernels_per_step=len(kernels) / 2)
     print(f"      traced training step: wall {res['wall_ms_per_step']:.2f} "
           f"ms, device busy {res['device_busy_ms_per_step']:.2f} ms, idle "
@@ -712,6 +743,8 @@ def trace_training(main_amp):
           + ", ".join(f"{k} {v:.2f}" for k, v in
                       res["device_ms_per_step_by_kind"].items()),
           flush=True)
+    for n, v in res["top_kernels_ms_per_step"]:
+        print(f"        {v:8.3f} ms  {n}", flush=True)
     check(len(kernels) > 0, "profiler traced the training step's kernels")
     return res
 
@@ -722,7 +755,7 @@ def _lm_step(main_amp, training, model, opt_level, loss_scale=None,
              inject=False):
     def loss_fn(p, batch):
         loss = main_amp.lm_loss(torch.func.functional_call(
-            model, p, (batch[0],)), batch[1])
+            model, p, (batch[0],)), batch[1], fused=True)
         return loss * batch[2] if inject else loss
     return training.make_train_step(loss_fn, training.adam(1e-3,
                                                            weight_decay=0.1),
@@ -807,6 +840,353 @@ def training_correctness(models, main_amp, training, dev):
     return res
 
 
+# -- phase 11: BN epilogue ---------------------------------------------------------
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance between two bf16 tensors in units in the last
+    place (the bit patterns as ordered integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def _kernel_err(got, want):
+    """(max_abs_err, max bf16 ulps or None, within tolerance): bf16 within
+    one ulp, fp32 within 1e-6."""
+    err = max_err(got, want)
+    if got.dtype == torch.bfloat16:
+        ulps = bf16_ulps(got, want)
+        return err, ulps, ulps <= 1
+    return err, None, err <= 1e-6
+
+
+BN_CASES = [
+    # name, rows, channels, dtype, relu, residual z
+    ("[1605632, 64] bf16 relu", 1605632, 64, torch.bfloat16, True, False),
+    ("[401408, 256] bf16 relu +z", 401408, 256, torch.bfloat16, True, True),
+    ("[6272, 2048] bf16 no relu", 6272, 2048, torch.bfloat16, False, False),
+    ("[401408, 256] fp32 relu +z", 401408, 256, torch.float32, True, True),
+]
+
+
+def bn_epilogue_cases(fba, dev):
+    """Kernels 4 (forward) and 5 (dx/dz) against their plain versions at
+    ResNet-50 B 128 shapes (bn_init, a stage-1 bn3, a stage-4
+    downsample_bn, and an fp32 case).  ``library_ms`` is one
+    ``F.batch_norm(training=False)`` call (forward) and the backward of
+    one (dx), where it computes the same function: no z, no ReLU."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    fwd_cases, bwd_cases = [], []
+    for name, rows, c, dtype, relu, has_z in BN_CASES:
+        def rnd(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+        x, g = rnd(rows, c).to(dtype), rnd(rows, c).to(dtype)
+        z = rnd(rows, c).to(dtype) if has_z else None
+        mean, w, b = 0.3 * rnd(c), 1 + 0.2 * rnd(c), 0.2 * rnd(c)
+        invstd = rnd(c).abs() + 0.5
+
+        def run_fwd():
+            return fba.bn_act_fwd_kernel(x, mean, invstd, w, b, z, relu)
+
+        def run_bwd():
+            return fba.bn_act_bwd_kernel(g, x, mean, invstd, w, b, z, relu)
+        out, (dx, dz) = run_fwd(), run_bwd()
+        want_dx, want_dz = fba._bwd_act_ref(g, x, mean, invstd, w, b, z,
+                                            relu)
+        torch.cuda.synchronize()
+        f_err, f_ulps, f_ok = _kernel_err(
+            out, fba._fwd_ref(x, mean, invstd, w, b, z, relu))
+        b_err, b_ulps, b_ok = _kernel_err(dx, want_dx)
+        if has_z:
+            z_err, z_ulps, z_ok = _kernel_err(dz, want_dz)
+            b_err, b_ok = max(b_err, z_err), b_ok and z_ok
+            b_ulps = None if b_ulps is None else max(b_ulps, z_ulps)
+        check(f_ok and b_ok and (dz is None) == (z is None),
+              f"bn epilogue {name}: fwd max_abs_err {f_err:.3g} (ulps "
+              f"{f_ulps}), bwd {b_err:.3g} (ulps {b_ulps}); bf16 <= 1 ulp, "
+              f"fp32 <= 1e-6")
+        isz, n = x.element_size(), rows * c
+        acts_in = 2 if has_z else 1
+        # each input read once, each output written once: forward x (z)
+        # in, out; backward g in, dx out, x (and z) in only under ReLU,
+        # dz out with a z
+        fwd_bytes = (acts_in + 1) * n * isz + 4 * c * 4
+        bwd_acts = 2 + relu + (relu and has_z) + has_z
+        bwd_bytes = bwd_acts * n * isz + 4 * c * 4
+        lib_fwd = lib_bwd = None
+        if not relu and not has_z:
+            var = 1.0 / invstd ** 2 - 1e-5
+            lib_fwd = time_ms(lambda: F.batch_norm(x, mean, var, w, b, False,
+                                                   0.0, 1e-5))
+            xr = x.detach().requires_grad_(True)
+            lout = F.batch_norm(xr, mean, var, w, b, False, 0.0, 1e-5)
+            lib_bwd = eager_ms(lambda: torch.autograd.grad(
+                lout, xr, g, retain_graph=True), iters=10)
+            del lout, xr
+        for cases, fn, plain, nbytes, ops, err, ulps, lib in (
+                (fwd_cases, run_fwd,
+                 lambda: fba._fwd_ref(x, mean, invstd, w, b, z, relu),
+                 fwd_bytes, 6 * n, f_err, f_ulps, lib_fwd),
+                (bwd_cases, run_bwd,
+                 lambda: fba._bwd_act_ref(g, x, mean, invstd, w, b, z, relu),
+                 bwd_bytes, 8 * n, b_err, b_ulps, lib_bwd)):
+            bms, by = bound(nbytes, ops, torch.float32)
+            case = dict(case=name, max_abs_err=err, max_bf16_ulps=ulps,
+                        ms=time_ms(fn), eager_ms=eager_ms(fn),
+                        plain_ms=time_ms(plain, iters=5), library_ms=lib,
+                        bound_ms=bms, bound_by=by)
+            cases.append(case)
+            lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+            print(f"      bn {'fwd' if cases is fwd_cases else 'bwd'} "
+                  f"{name}: kernel {case['ms']:.4f} ms (eager "
+                  f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f} "
+                  f"ms, library {lib_s}, bound {bms:.4f} ms ({by})",
+                  flush=True)
+        del x, g, z, out, dx, dz, want_dx, want_dz
+    return fwd_cases, bwd_cases
+
+
+# -- phase 12: softmax cross-entropy ------------------------------------------------
+
+XENT_CASES = [
+    # name, rows, vocabulary, dtype, smoothing, padding_idx
+    ("[8184, 50257] fp32 s0", 8184, 50257, torch.float32, 0.0, 0),
+    ("[8184, 50257] fp32 s0.1", 8184, 50257, torch.float32, 0.1, 0),
+    ("[128, 1000] fp32", 128, 1000, torch.float32, 0.0, -1),
+    ("[8184, 50257] bf16 s0.1", 8184, 50257, torch.bfloat16, 0.1, 0),
+]
+
+
+def xentropy_cases(xent, dev):
+    """Kernels 6 (losses, mlse) and 7 (dx) against their plain versions
+    at the LM step's ``[8184, 50257]`` (every 10th label the padding
+    index) and the ResNet step's ``[128, 1000]``.  ``library_ms`` is one
+    ``F.cross_entropy(reduction="none")`` call and the backward of one
+    (eager), computing the same function."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    fwd_cases, bwd_cases = [], []
+    for name, n, v, dtype, smoothing, pad in XENT_CASES:
+        x = (2 * torch.randn(n, v, device=dev, generator=gen)).to(dtype)
+        labels = torch.randint(1, v, (n,), device=dev, generator=gen,
+                               dtype=torch.int32)
+        if pad >= 0:
+            labels[::10] = pad
+        g = torch.where(labels == pad, 0.0, 1.0 / n)
+
+        def run_fwd():
+            return xent.xentropy_fwd_kernel(x, labels, smoothing)
+        loss, mlse = run_fwd()
+
+        def run_bwd():
+            return xent.xentropy_bwd_kernel(g, x, mlse, labels, smoothing)
+        dx = run_bwd()
+        want_loss, want_mlse = xent._fwd_ref(x, labels, smoothing)
+        # the backward kernel and its plain version on the same inputs
+        # (the kernel's mlse)
+        want_dx = xent._bwd_ref(g, x, mlse, labels, smoothing)
+        torch.cuda.synchronize()
+        f_err = max(max_err(loss, want_loss), max_err(mlse, want_mlse))
+        b_err = max_err(dx, want_dx)
+        ulps = bf16_ulps(dx, want_dx) if dtype == torch.bfloat16 else None
+        b_ok = ulps <= 1 if ulps is not None else b_err <= 1e-5
+        check(f_err <= 1e-4 and b_ok,
+              f"xentropy {name}: losses/mlse max_abs_err {f_err:.3g} <= "
+              f"1e-4, dx {b_err:.3g} (ulps {ulps}); fp32 <= 1e-5, bf16 <= "
+              f"1 ulp")
+        isz = x.element_size()
+        lab64 = labels.long()
+        xr = x.detach().requires_grad_(True)
+        lout = F.cross_entropy(xr, lab64, reduction="none",
+                               label_smoothing=smoothing, ignore_index=pad)
+        lib_bwd = eager_ms(lambda: torch.autograd.grad(
+            lout, xr, g.to(lout.dtype), retain_graph=True), iters=5)
+        del lout, xr
+        lib_fwd = time_ms(lambda: F.cross_entropy(
+            x, lab64, reduction="none", label_smoothing=smoothing,
+            ignore_index=pad), iters=5)
+        for cases, fn, plain, nbytes, ops, err, lib in (
+                (fwd_cases, run_fwd,
+                 lambda: xent._fwd_ref(x, labels, smoothing),
+                 n * v * isz + 3 * n * 4, 5 * n * v, f_err, lib_fwd),
+                (bwd_cases, run_bwd,
+                 lambda: xent._bwd_ref(g, x, mlse, labels, smoothing),
+                 2 * n * v * isz + 3 * n * 4, 5 * n * v, b_err, lib_bwd)):
+            bms, by = bound(nbytes, ops, torch.float32)
+            case = dict(case=name, max_abs_err=err,
+                        max_bf16_ulps=ulps if cases is bwd_cases else None,
+                        ms=time_ms(fn, iters=10), eager_ms=eager_ms(fn),
+                        plain_ms=time_ms(plain, iters=3), library_ms=lib,
+                        bound_ms=bms, bound_by=by)
+            cases.append(case)
+            print(f"      xentropy {'fwd' if cases is fwd_cases else 'bwd'} "
+                  f"{name}: kernel {case['ms']:.4f} ms (eager "
+                  f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f} "
+                  f"ms, library {lib:.4f} ms, bound {bms:.4f} ms ({by})",
+                  flush=True)
+        del x, dx, want_dx
+    return fwd_cases, bwd_cases
+
+
+# -- phase 13: ResNet-50 training ------------------------------------------------------
+
+IMAGENET_ARGS = ["--synthetic", "--arch", "resnet50", "-b", "128",
+                 "--opt-level", "O2", "--print-freq", "1"]
+
+_RESNET_KINDS = (("bn_epilogue", ("bn_fwd", "bn_bwd")),
+                 ("loss", ("xent_",)),
+                 ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                           "implicit", "xmma")),
+                 ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
+                 ("optimizer", ("foreach", "multi_tensor")),
+                 ("reduce", ("reduce",)))
+
+
+def train_resnet50(imagenet, counters, steps=10):
+    """The ImageNet trainer's entry point at ResNet-50, B 128, 224 x
+    224, bf16 O2, SGD: every launch counter set to 0 just before and
+    read just after."""
+    args = imagenet.parse(IMAGENET_ARGS + ["--prof", str(steps)])
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = imagenet.train(args, log=lambda line: print("      " + line,
+                                                      flush=True))
+    launches = {name: c.launches for name, c in counters.items()}
+    per_step = {"bn_act_fwd": 53, "bn_act_bwd": 53, "xentropy_fwd": 1,
+                "xentropy_bwd": 1}
+    check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
+          f"resnet50 training: launches {launches} = {per_step} x {steps} "
+          f"steps (no other kernel)")
+    losses = res["losses"]
+    check(all(np.isfinite(losses)),
+          f"resnet50 training: losses finite ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f})")
+    step_ms = float(np.median(res["step_s"][2:])) * 1e3
+    out = dict(losses=losses, step_ms_all=[x * 1e3 for x in res["step_s"]],
+               step_ms_median_3_10=step_ms,
+               images_per_s=res["images_per_step"] / step_ms * 1e3,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    print(f"      resnet50 O2 B128 224: step {step_ms:.2f} ms (median of "
+          f"steps 3-{steps}), {out['images_per_s']:.1f} images/s, peak "
+          f"memory {out['max_memory_allocated_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    return out
+
+
+# -- phase 14: ResNet correctness ---------------------------------------------------------
+
+def resnet_correctness(imagenet, training, dev):
+    """(a) a small ResNet-50-shaped network (bottleneck blocks, 8
+    filters, 1000 classes, 32 x 32, B 8) at O0 fp32, three SGD steps on
+    the card and on the CPU; (b) O2 with a dynamic scale and an inf
+    injected into the loss on the card; (c) conv outputs are contiguous
+    NHWC (no copy before the epilogue)."""
+    from apex_tpu_torch.amp import convert_params
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.models.resnet import BottleneckBlock, Conv, ResNet
+    res = {}
+
+    def small(dtype, device):
+        return ResNet(stage_sizes=[1, 1, 1, 1], block_cls=BottleneckBlock,
+                      num_filters=8, dtype=dtype, norm_cls=BatchNorm2d_NHWC,
+                      device="cpu", seed=3).to(device)
+
+    def steps_of(m, opt_level, loss_scale=None, inject=False):
+        def loss_fn(p, ms, batch):
+            logits, new_ms = m.apply(p, ms, batch[0])
+            loss = imagenet.image_loss(logits, batch[1])
+            return (loss * batch[2] if inject else loss), new_ms
+        init, step = training.make_train_step(
+            loss_fn, training.sgd(0.02, momentum=0.9, weight_decay=1e-4),
+            opt_level=opt_level, loss_scale=loss_scale,
+            has_model_state=True)
+        params, stats = m.variables()
+        return init({k: v.detach() for k, v in params.items()},
+                    {k: v.clone() for k, v in stats.items()}), step
+
+    # (a)
+    states, losses = {}, {}
+    for device in (dev, "cpu"):
+        st, step = steps_of(small(torch.float32, device), "O0")
+        x, y = imagenet.synthetic_batch(8, 32, device)
+        losses[str(device)] = []
+        for _ in range(3):
+            st, met = step(st, (x, y))
+            losses[str(device)].append(met["loss"].item())
+        states[str(device)] = st
+    lerr = max(abs(a - b) / abs(b) for a, b in
+               zip(losses[str(dev)], losses["cpu"]))
+    perr = max(max_err(states[str(dev)].params[k].cpu(), v)
+               for k, v in states["cpu"].params.items())
+    serr = max(max_err(states[str(dev)].model_state[k].cpu(), v)
+               for k, v in states["cpu"].model_state.items())
+    check(lerr <= 1e-4 and perr <= 1e-4 and serr <= 1e-4,
+          f"small resnet O0 3 SGD steps card vs CPU: loss rel err "
+          f"{lerr:.3g} <= 1e-4, params max_abs_err {perr:.3g}, running "
+          f"stats {serr:.3g} <= 1e-4")
+    res.update(small_o0_losses_card=losses[str(dev)],
+               small_o0_losses_cpu=losses["cpu"], small_o0_loss_rel_err=lerr,
+               small_o0_param_max_abs_err=perr,
+               small_o0_stats_max_abs_err=serr)
+
+    # (b)
+    m = small(torch.bfloat16, dev)
+    st, step = steps_of(m, "O2", "dynamic", inject=True)
+    x, y = imagenet.synthetic_batch(8, 32, dev)
+    before = {k: v.clone() for k, v in st.params.items()}
+    with torch.no_grad():
+        _, want_stats = m.apply(convert_params(st.params, torch.bfloat16),
+                                st.model_state, x)
+    st, met = step(st, (x, y, torch.tensor(float("inf"), device=dev)))
+    kept = all(torch.equal(st.params[k], v) for k, v in before.items())
+    stats_err = max(max_err(st.model_state[k], v)
+                    for k, v in want_stats.items())
+    skipped = (bool(met["overflow"]) and kept
+               and not bool(st.opt_state.initialized)
+               and met["loss_scale"].item() == 2.0 ** 15)
+    check(skipped and stats_err <= 1e-6,
+          f"small resnet O2 dynamic, inf injected: skipped with params "
+          f"bit-identical {skipped}, running stats advanced as in JAX "
+          f"(max_abs_err vs the step's forward {stats_err:.3g} <= 1e-6)")
+    res.update(o2_skip_ok=skipped, o2_skip_stats_err=stats_err)
+
+    # (c)
+    xin = torch.randn(8, 56, 56, 64, device=dev, dtype=torch.bfloat16)
+    layout = {}
+    for name, k, s_ in (("3x3 s2", (3, 3), (2, 2)), ("1x1 s1", (1, 1),
+                                                     (1, 1)),
+                        ("3x3 s1", (3, 3), (1, 1))):
+        conv = Conv(64, 128, k, s_, dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            layout[name] = conv(xin).is_contiguous()
+    check(all(layout.values()),
+          f"conv outputs are contiguous NHWC: {layout}")
+    res["conv_outputs_contiguous"] = layout
+    return res
+
+
+def lm_fused_vs_plain_loss(models, main_amp, dev):
+    """The LM loss on the card: the fused kernels against the
+    ``--no-fused-loss`` composition on the same logits (gpt2_small bf16,
+    B 2, T 256, every 16th label padding)."""
+    ids = torch.from_numpy(np.random.RandomState(10).randint(
+        1, 50257, (2, 257))).to(dev)
+    labels = ids[:, 1:].clone()
+    labels[:, ::16] = 0
+    m = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+    with torch.no_grad():
+        logits = m(ids[:, :-1])
+        fused = main_amp.lm_loss(logits, labels, 0.1, fused=True).item()
+        plain = main_amp.lm_loss(logits, labels, 0.1, fused=False).item()
+    rel = abs(fused - plain) / abs(plain)
+    check(rel <= 1e-4, f"gpt2_small LM loss on the card: fused {fused:.6f} "
+          f"vs --no-fused-loss {plain:.6f}, rel err {rel:.3g} <= 1e-4")
+    return dict(lm_fused_loss=fused, lm_plain_loss=plain,
+                lm_fused_vs_plain_rel_err=rel)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -820,11 +1200,15 @@ def main(argv=None) -> int:
     fln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    fba = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
+    xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
     models = importlib.import_module("apex_tpu_torch.models")
     engine_mod = importlib.import_module("apex_tpu_torch.serving.engine")
     build = importlib.import_module("apex_tpu_torch._build")
     training = importlib.import_module("apex_tpu_torch.training")
     main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
+    imagenet = importlib.import_module(
+        "apex_tpu_torch.examples.imagenet.main_amp")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -837,7 +1221,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
 
-    # phase 2: every kernel built at once, one nvcc per CUDA source
+    # phase 2: every kernel built at once, one nvcc per CUDA source; the
+    # Triton kernels compile one after another in a third thread
     def timed(fn):
         def run():
             t0 = time.perf_counter()
@@ -845,18 +1230,27 @@ def main(argv=None) -> int:
             return time.perf_counter() - t0
         return run
 
-    def build_ln():
+    def build_triton():
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.ones((8, 768), device=dev, dtype=dtype)
+            x = torch.ones((16, 768), device=dev, dtype=dtype)
             w = torch.ones((768,), device=dev)
             _, mean, invvar = fln.layer_norm_fwd_kernel(x, w, w, 1e-5)
             fln.layer_norm_bwd_kernel(x, x, mean, invvar, w)
+            c = torch.ones((64,), device=dev)
+            for relu, z in ((True, None), (True, x[:, :64].contiguous()),
+                            (False, None)):
+                xc = x[:, :64].contiguous()
+                fba.bn_act_fwd_kernel(xc, c, c, c, c, z, relu)
+                fba.bn_act_bwd_kernel(xc, xc, c, c, c, c, z, relu)
+            labels = torch.zeros((16,), device=dev, dtype=torch.int32)
+            _, mlse = xent.xentropy_fwd_kernel(x, labels, 0.0)
+            xent.xentropy_bwd_kernel(mlse, x, mlse, labels, 0.0)
         torch.cuda.synchronize()
 
     jobs = {"flash_attention_nvcc_s": lambda: build.load("flash_attention"),
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
-            "layer_norm_triton_s": build_ln}
+            "triton_s": build_triton}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
         build_s = {k: f.result() for k, f in futures.items()}
@@ -867,6 +1261,16 @@ def main(argv=None) -> int:
         print(f"      ptxas {name}: "
               + " | ".join(r.strip() for r in report[:36]), flush=True)
 
+    counters = {
+        "layer_norm_fwd": fln.layer_norm_fwd_kernel,
+        "layer_norm_bwd": fln.layer_norm_bwd_kernel,
+        "flash_attention_fwd": fa.flash_fwd_kernel,
+        "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+        "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel,
+        "bn_act_fwd": fba.bn_act_fwd_kernel,
+        "bn_act_bwd": fba.bn_act_bwd_kernel,
+        "xentropy_fwd": xent.xentropy_fwd_kernel,
+        "xentropy_bwd": xent.xentropy_bwd_kernel}
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
     fa_cases = flash_cases(fa, dev)                # phase 4
     serve_counters = [fln.layer_norm_fwd_kernel, fa.flash_fwd_kernel]
@@ -878,21 +1282,25 @@ def main(argv=None) -> int:
     del model
     ln_bwd_cases = layer_norm_bwd_cases(fln, dev)                  # 7
     dq_cases, dkv_cases = flash_bwd_cases(fa, dev)                 # 8
-    train_counters = {
-        "layer_norm_fwd": fln.layer_norm_fwd_kernel,
-        "layer_norm_bwd": fln.layer_norm_bwd_kernel,
-        "flash_attention_fwd": fa.flash_fwd_kernel,
-        "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
-        "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
-    trained = train_gpt2_small(main_amp, train_counters)           # 9
-    trained["profile"] = trace_training(main_amp)
+    trained = train_gpt2_small(main_amp, counters)                 # 9
+    trained["profile"] = trace_training(main_amp,
+                                        TRAIN_ARGS + ["--steps", "1"])
     trained.update(training_correctness(models, main_amp, training,
                                         dev))                      # 10
+    trained.update(lm_fused_vs_plain_loss(models, main_amp, dev))
+    bn_fwd_cases, bn_bwd_cases = bn_epilogue_cases(fba, dev)       # 11
+    xent_fwd_cases, xent_bwd_cases = xentropy_cases(xent, dev)     # 12
+    resnet = train_resnet50(imagenet, counters)                    # 13
+    resnet["profile"] = trace_training(imagenet,
+                                       IMAGENET_ARGS + ["--prof", "1"],
+                                       _RESNET_KINDS)
+    resnet.update(resnet_correctness(imagenet, training, dev))     # 14
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
         launches = {"serving": serving["launches"].get(name),
-                    "training": trained["launches"].get(name)}
+                    "training": trained["launches"].get(name),
+                    "resnet_training": resnet["launches"].get(name)}
         return dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[path],
@@ -923,6 +1331,25 @@ def main(argv=None) -> int:
               "apex_tpu_torch/csrc/flash_attention_bwd.cu",
               "apex_tpu/ops/flash_attention.py:478", dkv_cases, 0,
               "training"),
+        # the BN rows show the stage-4 downsample_bn case, the one with a
+        # library call computing the same function; every case is in
+        # --out
+        entry("bn_act_fwd", "triton",
+              "apex_tpu_torch/normalization/fused_bn_act.py",
+              "apex_tpu/normalization/fused_bn_act.py:148", bn_fwd_cases, 2,
+              "resnet_training"),
+        entry("bn_act_bwd", "triton",
+              "apex_tpu_torch/normalization/fused_bn_act.py",
+              "apex_tpu/normalization/fused_bn_act.py:161", bn_bwd_cases, 2,
+              "resnet_training"),
+        entry("xentropy_fwd", "triton",
+              "apex_tpu_torch/contrib/xentropy/__init__.py",
+              "apex_tpu/contrib/xentropy/__init__.py:109", xent_fwd_cases,
+              2, "resnet_training"),
+        entry("xentropy_bwd", "triton",
+              "apex_tpu_torch/contrib/xentropy/__init__.py",
+              "apex_tpu/contrib/xentropy/__init__.py:123", xent_bwd_cases,
+              2, "resnet_training"),
     ]
     elapsed = time.perf_counter() - t_start
     if args.out:
@@ -931,8 +1358,8 @@ def main(argv=None) -> int:
             json.dump(dict(gpu=smi, torch=torch.__version__, build=build_s,
                            kernels=kernels, serving=serving,
                            profile=profile_res, training=trained,
-                           elapsed_s=elapsed, failures=FAILURES), f,
-                      indent=1)
+                           resnet_training=resnet, elapsed_s=elapsed,
+                           failures=FAILURES), f, indent=1)
     print(f"      elapsed {elapsed:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed",

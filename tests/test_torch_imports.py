@@ -42,7 +42,10 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_and_triton_out():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.serving, "
             "apex_tpu_torch.convert, apex_tpu_torch.serving.__main__, "
-            "apex_tpu_torch.training, apex_tpu_torch.examples.lm.main_amp; "
+            "apex_tpu_torch.training, apex_tpu_torch.examples.lm.main_amp, "
+            "apex_tpu_torch.examples.imagenet.main_amp, "
+            "apex_tpu_torch.contrib.xentropy, apex_tpu_torch.contrib.groupbn, "
+            "apex_tpu_torch.parallel, apex_tpu_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'apex_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

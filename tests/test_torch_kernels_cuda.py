@@ -289,3 +289,149 @@ def test_flash_grads_match_autograd_of_plain_forward(cuda_device, case):
         grads.append(torch.autograd.grad((out * g).sum(), xs))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# -- BN epilogue (kernels 4, 5) ------------------------------------------------
+
+fba = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
+xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+
+BN_VARIANTS = [(a, z, r) for a in (True, False) for z in (True, False)
+               for r in (True, False)]
+
+
+def _assert_kernel_close(got, want, dtype, atol):
+    """fp32 within ``atol``; bf16 within one bf16 ulp of the plain value
+    (2**-7 relative): fp32 sums that differ in their last bit may round
+    to neighbouring bf16 values."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=0,
+                                   rtol=2 ** -7)
+    else:
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affine,with_z,relu", BN_VARIANTS)
+@pytest.mark.parametrize("rows,c", [(1000, 64), (333, 200), (77, 2048)])
+def test_bn_epilogue_kernels_match_plain(cuda_device, dtype, affine, with_z,
+                                         relu, rows, c):
+    """Forward and dx/dz kernels against the plain version: ragged row
+    blocks (1000, 333 and 77 rows), a channel count that is not a power
+    of two with a ragged channel block (200 = 128 + 72), and every
+    affine / residual / ReLU variant."""
+    rng = np.random.RandomState(20)
+
+    def arr(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.randn(*shape) * scale + shift)
+                                .astype(np.float32)).to(cuda_device)
+    x, z, g = (arr(rows, c).to(dtype) for _ in range(3))
+    mean, b = arr(c, scale=0.3), arr(c, scale=0.2)
+    w = arr(c, scale=0.2, shift=1.0)
+    invstd = arr(c).abs() + 0.5
+    w, b = (w, b) if affine else (None, None)
+    z = z if with_z else None
+    before = (fba.bn_act_fwd_kernel.launches, fba.bn_act_bwd_kernel.launches)
+    out = fba.bn_act_fwd_kernel(x, mean, invstd, w, b, z, relu)
+    dx, dz = fba.bn_act_bwd_kernel(g, x, mean, invstd, w, b, z, relu)
+    torch.cuda.synchronize()
+    assert (fba.bn_act_fwd_kernel.launches,
+            fba.bn_act_bwd_kernel.launches) == (before[0] + 1, before[1] + 1)
+    want_dx, *_, want_dz = fba._bwd_ref(g, x, mean, invstd, w, b, z, relu)
+    _assert_kernel_close(out, fba._fwd_ref(x, mean, invstd, w, b, z, relu),
+                         dtype, 1e-6)
+    _assert_kernel_close(dx, want_dx, dtype, 1e-6)
+    assert (dz is None) == (z is None)
+    if z is not None:
+        _assert_kernel_close(dz, want_dz, dtype, 0)
+
+
+@pytest.mark.cuda
+def test_batchnorm_grads_match_autograd_of_plain_forward(cuda_device):
+    """fp32 gradients of the whole BatchNorm (statistics tracked by
+    autograd, the epilogue's Function with its kernels and channel sums)
+    against autograd through the plain epilogue, on the card."""
+    from apex_tpu_torch.parallel.sync_batchnorm import _moments
+    rng = np.random.RandomState(21)
+    x0, z0, g = (torch.from_numpy(rng.randn(4, 9, 9, 40).astype(np.float32))
+                 .to(cuda_device) for _ in range(3))
+    w0 = torch.from_numpy(1 + 0.2 * rng.randn(40).astype(np.float32)).to(
+        cuda_device)
+    b0 = torch.from_numpy(0.2 * rng.randn(40).astype(np.float32)).to(
+        cuda_device)
+    grads = []
+    for epilogue in (fba.bn_relu_residual,
+                     lambda *a, z, relu: fba._fwd_ref(*a, z, relu)):
+        leaves = [t.clone().requires_grad_(True) for t in (x0, w0, b0, z0)]
+        x, w, b, z = leaves
+        mean, var, _ = _moments(x, (0, 1, 2))
+        y = epilogue(x, mean, torch.rsqrt(var + 1e-5), w, b, z=z, relu=True)
+        grads.append(torch.autograd.grad((y * g).sum(), leaves))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# -- softmax cross-entropy (kernels 6, 7) -----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("n,v,dtype", [(37, 1000, torch.float32),
+                                       (6, 50257, torch.float32),
+                                       (9, 4097, torch.float32),
+                                       (37, 1000, torch.bfloat16),
+                                       (6, 50257, torch.bfloat16)])
+def test_xentropy_kernels_match_plain(cuda_device, smoothing, n, v, dtype):
+    """Losses, ``mlse`` and ``dx`` against the plain version: one chunk
+    (V 1000), a one-column tail chunk (4097 = 4096 + 1), the LM vocabulary
+    (50257 = 12 x 4096 + 1105), padding rows (label -1 picks no logit,
+    zero g), bf16 logits."""
+    rng = np.random.RandomState(22)
+    x = torch.from_numpy((3 * rng.randn(n, v)).astype(np.float32)).to(
+        cuda_device, dtype)
+    labels = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(
+        cuda_device)
+    labels[::4] = -1
+    g = torch.from_numpy(rng.rand(n).astype(np.float32)).to(cuda_device)
+    g = torch.where(labels == -1, 0.0, g)
+    before = (xent.xentropy_fwd_kernel.launches,
+              xent.xentropy_bwd_kernel.launches)
+    loss, mlse = xent.xentropy_fwd_kernel(x, labels, smoothing)
+    dx = xent.xentropy_bwd_kernel(g, x, mlse, labels, smoothing)
+    torch.cuda.synchronize()
+    assert (xent.xentropy_fwd_kernel.launches,
+            xent.xentropy_bwd_kernel.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want_loss, want_mlse = xent._fwd_ref(x, labels, smoothing)
+    torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(mlse, want_mlse, atol=1e-4, rtol=1e-5)
+    want_dx = xent._bwd_ref(g, x, mlse, labels, smoothing)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(dx.float(), want_dx.float(), atol=1e-6,
+                                   rtol=2 ** -7)
+    else:
+        torch.testing.assert_close(dx, want_dx, atol=1e-5, rtol=0)
+    assert not dx[::4].any()
+
+
+@pytest.mark.cuda
+def test_xentropy_function_grads_match_autograd_of_plain(cuda_device):
+    rng = np.random.RandomState(23)
+    x0 = torch.from_numpy(rng.randn(50, 300).astype(np.float32)).to(
+        cuda_device)
+    labels = torch.from_numpy(rng.randint(0, 300, 50)).to(cuda_device)
+    labels[::7] = 0
+    got_x = x0.clone().requires_grad_(True)
+    losses = xent.softmax_cross_entropy_loss(got_x, labels, 0.1, 0)
+    losses.mean().backward()
+    want_x = x0.clone().requires_grad_(True)
+    logp = torch.log_softmax(want_x, dim=-1)
+    want = -(0.9 * logp.gather(1, labels[:, None])[:, 0]
+             + 0.1 * logp.mean(-1))
+    want = torch.where(labels == 0, 0.0, want)
+    want.mean().backward()
+    torch.testing.assert_close(losses.detach(), want.detach(), atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(got_x.grad, want_x.grad, atol=1e-6,
+                               rtol=1e-5)

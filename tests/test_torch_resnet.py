@@ -1,0 +1,173 @@
+"""The port's ResNet against the JAX package's.
+
+A small ``ResNet(stage_sizes=[1, 1, 1, 1], num_filters=8)`` of each
+block class, with the same weights in both (made by the port, moved by
+``resnet_variables_to_jax``), on the same eight numpy images of 32 x 32
+(an even size, so the stride-2 3x3 convs pad flax's asymmetric
+``'SAME'`` ``(0, 1)``; eight, so the last stage's BatchNorms, at 1 x 1,
+average more than two values): training-mode logits (fp32, atol 1e-4) and the updated
+``batch_stats`` (atol 1e-5) through both the fused-epilogue routing
+(``BatchNorm2d_NHWC``) and the plain flax-style BatchNorm; eval-mode
+logits; the variables' round trip; and the O2 cast, which keeps the same
+leaves fp32 in both packages.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from apex_tpu.amp import policy as jpolicy
+from apex_tpu.contrib.groupbn import BatchNorm2d_NHWC as JBatchNorm2d_NHWC
+from apex_tpu.models import resnet as jresnet
+from apex_tpu_torch.amp import convert_params
+from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+from apex_tpu_torch.convert import (resnet_variables_from_jax,
+                                    resnet_variables_to_jax)
+from apex_tpu_torch.models import resnet
+
+SMALL = dict(stage_sizes=[1, 1, 1, 1], num_filters=8, num_classes=10)
+BLOCKS = {"basic": (jresnet.BasicBlock, resnet.BasicBlock),
+          "bottleneck": (jresnet.BottleneckBlock, resnet.BottleneckBlock)}
+
+
+def _images(n=8, size=32, seed=0):
+    return np.random.RandomState(seed).randn(n, size, size, 3).astype(
+        np.float32)
+
+
+def _pair(block, fused, dtype=torch.float32):
+    """(flax model, the port model's variables in the flax layout, the
+    port's model).  The weights are made by the port (flax's init is
+    slow to compile on the CPU) and must fit the flax model's tree."""
+    jblock, tblock = BLOCKS[block]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jm = jresnet.ResNet(block_cls=jblock, dtype=jdt,
+                        norm_cls=JBatchNorm2d_NHWC if fused else None,
+                        **SMALL)
+    tm = resnet.ResNet(block_cls=tblock, dtype=dtype,
+                       norm_cls=BatchNorm2d_NHWC if fused else None,
+                       device="cpu", seed=1, **SMALL)
+    with torch.no_grad():      # statistics other than the init's
+        for name, buf in tm.named_buffers():
+            buf.add_(torch.rand(buf.shape, generator=torch.Generator()
+                                .manual_seed(len(name))))
+    return jm, resnet_variables_to_jax(*tm.variables()), tm
+
+
+def _apply(jm, variables, x, train=True):
+    kw = dict(mutable=["batch_stats"]) if train else {}
+    return jax.jit(functools.partial(jm.apply, train=train, **kw))(
+        variables, jnp.asarray(x))
+
+
+def _flat(tree):
+    return {"/".join(str(p.key) for p in path).replace("/", "."): leaf
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain_bn"])
+@pytest.mark.parametrize("block", sorted(BLOCKS))
+def test_forward_logits_and_batch_stats_match_jax(block, fused):
+    jm, variables, tm = _pair(block, fused)
+    x = _images(seed=2)
+    jlogits, upd = _apply(jm, variables, x)
+    params, stats = tm.variables()
+    with torch.no_grad():
+        logits, new_stats = tm.apply(params, stats, torch.from_numpy(x))
+    assert logits.dtype == torch.float32 and logits.shape == (8, 10)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=1e-4, rtol=1e-4)
+    want = _flat(upd["batch_stats"])
+    assert sorted(new_stats) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(new_stats[k].numpy(), np.asarray(v),
+                                   atol=1e-5, err_msg=k)
+    # apply() leaves the module's own statistics as they were
+    for k, v in _flat(variables["batch_stats"]).items():
+        np.testing.assert_array_equal(stats[k].numpy(), v)
+    jeval = _apply(jm, {**variables, "batch_stats": upd["batch_stats"]}, x,
+                   train=False)
+    with torch.no_grad():
+        teval, _ = tm.apply(params, new_stats, torch.from_numpy(x),
+                            train=False)
+    np.testing.assert_allclose(teval.numpy(), np.asarray(jeval), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_fused_routing_counts_and_flax_names():
+    """ResNet-50's 53 BN sites (1 + 16 x 3 + 4 downsample) under flax's
+    names, at a small width."""
+    tm = resnet.ResNet50(num_filters=4, num_classes=10,
+                         norm_cls=BatchNorm2d_NHWC, device="cpu")
+    params, stats = tm.variables()
+    assert len([k for k in params if k.endswith(".bn.scale")]) == 53
+    assert len(stats) == 2 * 53
+    assert params["conv_init.kernel"].shape == (7, 7, 3, 4)
+    assert params["stage1_block1.conv2.kernel"].shape == (3, 3, 4, 4)
+    assert params["head.kernel"].shape == (128, 10)
+    assert "stage2_block1.downsample_bn.bn.running_var" in stats
+    assert not bool(params["stage4_block3.bn3.bn.scale"].any())   # zeros
+    with pytest.raises(ValueError, match="fused_epilogue"):
+        resnet.ResNet18(fused_epilogue=True, device="cpu")
+    for kw in (dict(sync_bn=True), dict(conv_cls=object), dict(remat="full")):
+        with pytest.raises(NotImplementedError):
+            resnet.ResNet18(device="cpu", **kw)
+
+
+def test_variables_round_trip():
+    """port -> flax tree -> port gives every tensor back, and the flax
+    tree has the flax model's structure (its ``init`` gives the same
+    names and shapes)."""
+    jm, variables, tm = _pair("bottleneck", True)
+    params, stats = resnet_variables_from_jax(variables)
+    tm.load_state_dict({**params, **stats}, strict=True)
+    for k, v in {**params, **stats}.items():
+        np.testing.assert_array_equal(v.numpy(), tm.get_buffer(k).numpy()
+                                      if k in stats else
+                                      tm.get_parameter(k).detach().numpy())
+    shapes = jax.eval_shape(functools.partial(jm.init, train=True),
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((2, 32, 32, 3)))
+    for coll in ("params", "batch_stats"):
+        want = {k: tuple(v.shape) for k, v in _flat(shapes[coll]).items()}
+        assert {k: v.shape for k, v in _flat(variables[coll]).items()} \
+            == want
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain_bn"])
+def test_o2_casts_the_same_leaves(fused):
+    """Every BN leaf (``bn_init``, ``bn1``..``bn3``, ``downsample_bn``)
+    stays fp32, the convs and the head go to bf16, in both packages."""
+    _, variables, tm = _pair("bottleneck", fused)
+    jcast = _flat(jpolicy.convert_params(variables["params"], jnp.bfloat16))
+    want = {k: v.dtype == jnp.float32 for k, v in jcast.items()}
+    params, _ = tm.variables()
+    got = {k: v.dtype == torch.float32
+           for k, v in convert_params(params, torch.bfloat16).items()}
+    assert got == want
+    kept = sorted(k for k, v in got.items() if v)
+    assert all(".bn" in k or k.startswith("bn_init") or "_bn." in k
+               for k in kept)
+    assert not got["head.kernel"] and not got["conv_init.kernel"]
+    assert not got["stage1_block1.downsample_conv.kernel"]
+
+
+def test_bf16_forward_close_to_jax():
+    """O2's compute dtype through the whole network (loose: bf16
+    activations through every layer)."""
+    jm, variables, tm = _pair("basic", True, dtype=torch.bfloat16)
+    x = _images(seed=3)
+    jcast = jpolicy.convert_params(variables["params"], jnp.bfloat16)
+    jlogits, _ = _apply(jm, {"params": jcast,
+                             "batch_stats": variables["batch_stats"]}, x)
+    params, stats = tm.variables()
+    with torch.no_grad():
+        logits, _ = tm.apply(convert_params(params, torch.bfloat16), stats,
+                             torch.from_numpy(x))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=5e-2, rtol=5e-2)

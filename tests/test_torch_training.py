@@ -1,12 +1,19 @@
 """The port's training stack against the JAX package's.
 
-Same numpy inputs and the same flax-made weights through the JAX
-functions and the port's: ``multi_tensor`` sweeps, the functional Adam,
-the dynamic loss scaler's state machine, the O2 parameter cast, and
-``make_train_step`` on gpt_tiny with the LM example's ``--no-fused-loss``
-loss for three steps (O0 at 1e-5, O2 at 2e-2: bf16 activations), plus a
-run continued in the port from a JAX ``TrainState``.  The CPU runs the
-kernels' plain versions; the card runs them in ``chip_smoke.py``.
+Same numpy inputs and the same weights through the JAX functions and
+the port's: ``multi_tensor`` sweeps, the functional Adam and SGD, the
+dynamic loss scaler's state machine, the O2 parameter cast, and
+``make_train_step`` on gpt_tiny with the LM example's losses (both
+``--no-fused-loss`` and the fused default) for three steps (O0 at 1e-5,
+O2 at 2e-2: bf16 activations), plus a run continued in the port from a
+JAX ``TrainState``.  The ImageNet step: ``make_train_step(
+has_model_state=True)`` on a small ResNet (BN statistics as the model
+state, SGD, the fused loss) for three steps at O0 (losses rtol 1e-4,
+parameters and statistics atol 1e-4), with ``accum_steps=2``, and at O2
+(losses 2e-2); a skipped O2 step; a JAX SGD ``TrainState`` continued in
+the port; ``synthetic_imagenet``'s bytes; and both trainers' CLIs.  The
+CPU runs the kernels' plain versions; the card runs them in
+``chip_smoke.py``.
 """
 
 import numpy as np
@@ -16,23 +23,35 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from apex_tpu import data as jdata
 from apex_tpu import multi_tensor as jmta
 from apex_tpu import training as jtraining
 from apex_tpu.amp import policy as jpolicy
 from apex_tpu.amp.loss_scaler import LossScaler as JLossScaler
+from apex_tpu.contrib.groupbn import BatchNorm2d_NHWC as JBatchNorm2d_NHWC
+from apex_tpu.contrib.xentropy import \
+    softmax_cross_entropy_loss as jax_xentropy
 from apex_tpu.models import gpt_tiny as jgpt_tiny
+from apex_tpu.models import resnet as jresnet
 from apex_tpu.optimizers import functional as jF
+from apex_tpu_torch import data
 from apex_tpu_torch import multi_tensor as mta
 from apex_tpu_torch import training
 from apex_tpu_torch.amp import (AmpOptionError, LossScaler, convert_params,
                                 opt_levels)
-from apex_tpu_torch.convert import gpt_params_from_jax, train_state_from_jax
+from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+from apex_tpu_torch.convert import (gpt_params_from_jax,
+                                    resnet_variables_to_jax,
+                                    train_state_from_jax)
+from apex_tpu_torch.examples.imagenet import main_amp as imagenet_main
 from apex_tpu_torch.examples.lm import main_amp
-from apex_tpu_torch.models import gpt_tiny
-from apex_tpu_torch.optimizers import adam_init, adam_update
+from apex_tpu_torch.models import BasicBlock, ResNet, gpt_tiny
+from apex_tpu_torch.optimizers import (adam_init, adam_update, sgd_init,
+                                       sgd_update)
 
 CFG = dict(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
            mlp_dim=128, max_len=32)
+RESNET_SMALL = dict(stage_sizes=[1, 1, 1, 1], num_filters=8, num_classes=10)
 
 
 def _tree(seed, shapes=((3, 5), (7,), (2, 2, 4))):
@@ -370,8 +389,258 @@ def test_lm_trainer_options_and_refusals():
         log=lambda s: None)
     assert res["loss_scales"] == [2.0 ** 16] * 2
     assert all(np.isfinite(res["losses"]))
-    with pytest.raises(NotImplementedError, match="fused"):
-        main_amp.main(TINY + ["--fused-loss"])
+    # --fused-loss is the default; --no-fused-loss is the composition,
+    # the same loss on the same batch and weights
+    assert main_amp.parse(TINY).fused_loss
+    plain = main_amp.train(main_amp.parse(
+        TINY + ["--steps", "1", "--smoothing", "0.1", "--no-fused-loss"]),
+        log=lambda s: None)
+    fused = main_amp.train(main_amp.parse(
+        TINY + ["--steps", "1", "--smoothing", "0.1"]), log=lambda s: None)
+    np.testing.assert_allclose(fused["losses"], plain["losses"], rtol=1e-5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main_amp.main(TINY[:1] + TINY[3:] + ["--steps", "1"])
+
+
+# -- SGD -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    dict(momentum=0.9, weight_decay=1e-2),
+    dict(momentum=0.9, nesterov=True, weight_decay=1e-2),
+    dict(momentum=0.9, dampening=0.3, weight_decay=1e-2,
+         wd_after_momentum=True, grad_scale=4.0),
+    dict(momentum=0.0, weight_decay=1e-2),
+], ids=["momentum", "nesterov", "dampening_wd_after_scale", "no_momentum"])
+def test_sgd_update_matches_jax(kw):
+    """Three steps, the first skipped by ``apply_mask``: the skip leaves
+    everything (the momentum buffer stays uninitialized), the first
+    applied step sets the buffer to the gradient."""
+    params, grads = _tree(8), _tree(9)
+    jstate = jF.sgd_init(_j(params), kw["momentum"])
+    state = sgd_init(_t(params), kw["momentum"])
+    for step, mask in enumerate((False, True, True)):
+        g = {k: v * (step + 1) for k, v in grads.items()}
+        jp, jstate = jF.sgd_update(_j(g), jstate, _j(params), lr=1e-2,
+                                   apply_mask=jnp.asarray(mask), **kw)
+        p, state = sgd_update(_t(g), state, _t(params), lr=1e-2,
+                              apply_mask=torch.tensor(mask), **kw)
+        _close(p, jp, 1e-6)
+        _close(state.momentum_buf, jstate.momentum_buf, 1e-6)
+        assert bool(state.initialized) == bool(jstate.initialized) \
+            == (step > 0)
+        params = {k: np.asarray(v) for k, v in jp.items()}
+    p, _ = sgd_update(_t(grads), sgd_init(_t(params)), _t(params), lr=1e-2)
+    assert not torch.equal(p["p0"], _t(params)["p0"])
+
+
+# -- the ImageNet step: make_train_step(has_model_state=True) ---------------------
+
+def _flat_tree(tree):
+    return {k: np.asarray(v) for k, v in _flat_jax(tree).items()}
+
+
+def _resnet_pair(opt_level, loss_scale=None, inject=False, **kw):
+    """The JAX and port ImageNet steps (SGD, BN statistics as the model
+    state, fused cross-entropy) on the same small ResNet weights."""
+    jdt = jnp.bfloat16 if opt_level == "O2" else jnp.float32
+    dtype = torch.bfloat16 if opt_level == "O2" else torch.float32
+    jm = jresnet.ResNet(block_cls=jresnet.BasicBlock, dtype=jdt,
+                        norm_cls=JBatchNorm2d_NHWC, **RESNET_SMALL)
+    tm = ResNet(block_cls=BasicBlock, dtype=dtype, norm_cls=BatchNorm2d_NHWC,
+                device="cpu", seed=4, **RESNET_SMALL)
+    variables = resnet_variables_to_jax(*tm.variables())
+
+    def jloss(p, ms, batch):
+        logits, upd = jm.apply({"params": p, "batch_stats": ms}, batch[0],
+                               train=True, mutable=["batch_stats"])
+        loss = jnp.mean(jax_xentropy(logits.astype(jnp.float32), batch[1],
+                                     0.0, -1))
+        return (loss * batch[2] if inject else loss), upd["batch_stats"]
+
+    def tloss(p, ms, batch):
+        logits, new_ms = tm.apply(p, ms, batch[0])
+        loss = imagenet_main.image_loss(logits, batch[1])
+        return (loss * batch[2] if inject else loss), new_ms
+
+    step_kw = dict(opt_level=opt_level, loss_scale=loss_scale,
+                   has_model_state=True, **kw)
+    jinit, jstep = jtraining.make_train_step(
+        jloss, jtraining.sgd(0.02, momentum=0.9, weight_decay=1e-4),
+        **step_kw)
+    init, step = training.make_train_step(
+        tloss, training.sgd(0.02, momentum=0.9, weight_decay=1e-4),
+        **step_kw)
+    params, stats = tm.variables()
+    return ((jinit(variables["params"], variables["batch_stats"]),
+             jax.jit(jstep)),
+            (init({k: v.detach() for k, v in params.items()},
+                  {k: v.clone() for k, v in stats.items()}), step))
+
+
+def _image_batch(seed=5, n=8):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, 32, 32, 3).astype(np.float32),
+            rng.randint(0, 10, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("opt_level,accum,tol", [
+    ("O0", 1, 1e-4), ("O0", 2, 1e-4), ("O2", 1, 2e-2)],
+    ids=["O0", "O0_accum2", "O2"])
+def test_resnet_step_with_model_state_matches_jax(opt_level, accum, tol):
+    """Three SGD steps: losses (rtol ``tol``), and at O0 the parameters
+    and the BN running statistics (atol 1e-4, fp32 summation order
+    through eight layers) and the momentum buffers."""
+    (jst, jstep), (st, step) = _resnet_pair(opt_level, accum_steps=accum)
+    x, y = _image_batch()
+    for i in range(3):
+        jst, jm = jstep(jst, (jnp.asarray(x), jnp.asarray(y)))
+        st, m = step(st, (torch.from_numpy(x), torch.from_numpy(y).long()))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=tol, err_msg=f"step {i}")
+    assert bool(st.opt_state.initialized)
+    assert all(v.dtype == torch.float32 for v in st.params.values())
+    if opt_level == "O0":
+        _close(st.params, _flat_tree(jst.params), 1e-4)
+        _close(st.model_state, _flat_tree(jst.model_state), 1e-4)
+        _close(st.opt_state.momentum_buf,
+               _flat_tree(jst.opt_state.momentum_buf), 1e-4)
+
+
+def test_resnet_skipped_step_keeps_params_and_advances_model_state():
+    """O2, dynamic scale, an inf injected into the loss: the step is
+    skipped (parameters bit-identical, momentum uninitialized), the
+    scale halves, and the BN statistics advance as in JAX."""
+    (jst, jstep), (st, step) = _resnet_pair("O2", "dynamic", inject=True)
+    x, y = _image_batch(6)
+    before = {k: v.clone() for k, v in st.params.items()}
+    stats0 = {k: v.clone() for k, v in st.model_state.items()}
+    jst, jm = jstep(jst, (jnp.asarray(x), jnp.asarray(y),
+                          jnp.float32(np.inf)))
+    st, m = step(st, (torch.from_numpy(x), torch.from_numpy(y).long(),
+                      torch.tensor(np.inf)))
+    assert bool(m["overflow"]) and bool(jm["overflow"])
+    assert float(m["loss_scale"]) == float(jm["loss_scale"]) == 2.0 ** 15
+    assert not bool(st.opt_state.initialized)
+    for k, v in before.items():
+        assert torch.equal(st.params[k], v), k
+    assert any(not torch.equal(st.model_state[k], v)
+               for k, v in stats0.items())
+    _close(st.model_state, _flat_tree(jst.model_state), 2e-2)
+
+
+def test_port_continues_a_jax_sgd_train_state():
+    """One JAX ImageNet step, then its state (SGD momentum, BN
+    statistics) carried into the port: the next step agrees at O0."""
+    (jst, jstep), (_, step) = _resnet_pair("O0")
+    x, y = _image_batch(7)
+    jb = (jnp.asarray(x), jnp.asarray(y))
+    jst, _ = jstep(jst, jb)
+    st = train_state_from_jax(jax.tree_util.tree_map(np.asarray, jst))
+    assert bool(st.opt_state.initialized)
+    jst, jm = jstep(jst, jb)
+    st, m = step(st, (torch.from_numpy(x), torch.from_numpy(y).long()))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-4)
+    _close(st.params, _flat_tree(jst.params), 1e-4)
+    _close(st.model_state, _flat_tree(jst.model_state), 1e-4)
+
+
+# -- synthetic ImageNet data ------------------------------------------------------
+
+def test_synthetic_imagenet_equals_jax_bytes_and_labels():
+    want = list(jdata.synthetic_imagenet(3, 16, num_classes=10, steps=2,
+                                         seed=7))
+    got = list(data.synthetic_imagenet(3, 16, num_classes=10, steps=2,
+                                       seed=7))
+    assert len(got) == 2
+    for (gi, gl), (wi, wl) in zip(got, want):
+        assert gi.dtype == np.uint8 and gl.dtype == np.int32
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gl, wl)
+    norm = data.normalize_images(torch.from_numpy(got[0][0]))
+    assert norm.dtype == torch.float32
+    np.testing.assert_allclose(norm.numpy(),
+                               jdata.normalize_images(want[0][0]),
+                               atol=1e-6)
+    assert data.IMAGENET_MEAN == jdata.IMAGENET_MEAN
+    assert data.IMAGENET_STD == jdata.IMAGENET_STD
+
+
+# -- the ImageNet trainer entry point ---------------------------------------------
+
+IMAGENET_TINY = ["--synthetic", "--device", "cpu", "--arch", "resnet18",
+                 "-b", "4", "--image-size", "32"]
+
+
+def test_imagenet_trainer_runs_on_cpu(capsys):
+    assert imagenet_main.main(IMAGENET_TINY + ["--prof", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "iter 1" in out and out.rstrip().endswith("done")
+    res = imagenet_main.train(imagenet_main.parse(
+        IMAGENET_TINY + ["--prof", "2", "--opt-level", "O2", "--loss-scale",
+                         "dynamic", "--no-fused-bn", "--no-fused-loss"]),
+        log=lambda s: None)
+    assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
+    assert res["loss_scales"] == [2.0 ** 16] * 2
+    assert res["images_per_step"] == 4
+    x, y = imagenet_main.synthetic_batch(4, 32, "cpu")
+    imgs, labels = next(jdata.synthetic_imagenet(4, 32, steps=1))
+    np.testing.assert_array_equal(y.numpy(), labels)
+    np.testing.assert_allclose(x.numpy(), jdata.normalize_images(imgs),
+                               atol=1e-6)
+
+
+def test_imagenet_trainer_refusals():
+    for extra, exc, match in (
+            (["--pallas-conv"], NotImplementedError, "pallas"),
+            (["--sync_bn"], NotImplementedError, "sync_bn"),
+            (["--steps-per-call", "4"], NotImplementedError, "steps-per"),
+            (["--checkpoint-dir", "ckpt"], NotImplementedError,
+             "checkpoint"),
+            (["--telemetry", "t.jsonl"], NotImplementedError, "telemetry")):
+        with pytest.raises(exc, match=match):
+            imagenet_main.main(IMAGENET_TINY + ["--prof", "1"] + extra)
+    with pytest.raises(SystemExit, match="synthetic"):
+        imagenet_main.main(["some/dir", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            imagenet_main.main(IMAGENET_TINY[:1] + IMAGENET_TINY[3:]
+                               + ["--prof", "1"])
+
+
+# -- the LM trainer's fused loss --------------------------------------------------
+
+def _jax_fused_loss(jm, smoothing):
+    """The JAX LM example's default (--fused-loss) loss."""
+    def loss_fn(p, batch):
+        logits = jm.apply({"params": p}, batch[0])
+        flat = logits.reshape(-1, logits.shape[-1])
+        return jnp.mean(jax_xentropy(flat, batch[1].reshape(-1), smoothing))
+    return loss_fn
+
+
+def test_lm_fused_loss_three_steps_match_jax(flax_params):
+    jm = jgpt_tiny(**CFG)
+    jinit, jstep = jtraining.make_train_step(
+        _jax_fused_loss(jm, 0.1), jtraining.adam(1e-3, weight_decay=0.1),
+        opt_level="O0")
+    tm = gpt_tiny(**CFG, device="cpu")
+    tm.load_state_dict(gpt_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, flax_params)))
+
+    def loss_fn(p, batch):
+        return main_amp.lm_loss(torch.func.functional_call(tm, p, (batch[0],)),
+                                batch[1], 0.1, fused=True)
+    init, step = training.make_train_step(
+        loss_fn, training.adam(1e-3, weight_decay=0.1), opt_level="O0")
+    jst, st = jinit(flax_params), init(tm.state_dict())
+    x, y = _batch(4)
+    y[:, ::3] = 0                                     # padding tokens
+    jstep = jax.jit(jstep)
+    for i in range(3):
+        jst, jmet = jstep(jst, (jnp.asarray(x), jnp.asarray(y)))
+        st, met = step(st, (torch.from_numpy(x), torch.from_numpy(y)))
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=1e-5, err_msg=f"step {i}")
+    _close_params(st.params, _flat_jax(jst.params), 1e-5)
