@@ -14,18 +14,22 @@ every step, as the JAX example reuses its staged synthetic window.
     python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
         --device cpu --arch resnet18 -b 4 --image-size 32 --prof 2
 
-Defaults as in the JAX example: ``--fused-bn`` (every ``bn -> relu ->
+Defaults as in the JAX example: ``--pallas-conv`` (every convolution,
+the stem included, through ``ops.PallasConv`` and the port's NHWC
+implicit-GEMM conv kernels; on the CPU their plain version, an fp32
+upcast of ``F.conv2d``), ``--fused-bn`` (every ``bn -> relu ->
 (+residual)`` chain through ``contrib.groupbn.BatchNorm2d_NHWC`` and the
 BN-epilogue kernels) and ``--fused-loss`` (the softmax cross-entropy
-kernels, ``padding_idx=-1``: every label is a class).  ``--no-fused-bn``
-keeps the plain flax-style BatchNorm with explicit ReLU and residual
-adds; ``--no-fused-loss`` the log_softmax + gather composition.
+kernels, ``padding_idx=-1``: every label is a class).
+``--no-pallas-conv`` runs the convolutions through ``F.conv2d`` (cuDNN
+on the card) with the same parameters; ``--no-fused-bn`` keeps the plain
+flax-style BatchNorm with explicit ReLU and residual adds;
+``--no-fused-loss`` the log_softmax + gather composition.  The run ends
+with the conv sites' count, as the JAX example's ``tune:`` line does.
 
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported yet, each raising with a plain message: ``--pallas-conv`` (the
-Pallas NHWC conv, TPU kernels 1-3; convolutions run through
-``F.conv2d``), ``--sync_bn``, ``--steps-per-call``, checkpointing,
-telemetry and real data.
+ported yet, each raising with a plain message: ``--sync_bn``,
+``--steps-per-call``, checkpointing, telemetry and real data.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ...contrib.groupbn import BatchNorm2d_NHWC
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...data import normalize_images, synthetic_imagenet
 from ...models import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
+from ...ops import PallasConv, conv_dispatch_stats, reset_conv_dispatch_stats
 
 ARCHS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
          "resnet101": ResNet101, "resnet152": ResNet152}
@@ -73,10 +78,11 @@ def parse(argv=None):
     p.add_argument("--fused-loss", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--pallas-conv", action=argparse.BooleanOptionalAction,
-                   default=False,
-                   help="the Pallas NHWC conv is not ported yet, so "
-                        "--pallas-conv raises; convolutions run through "
-                        "F.conv2d")
+                   default=True,
+                   help="route the ResNet convs through the port's NHWC "
+                        "implicit-GEMM conv kernels (ops.PallasConv via "
+                        "the conv_cls= hook); --no-pallas-conv runs them "
+                        "through F.conv2d with the same parameters")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--image-size", default=224, type=int)
     p.add_argument("--device", type=str, default=None,
@@ -92,9 +98,6 @@ def parse(argv=None):
 
 def _refuse_not_ported(args):
     refused = [
-        (args.pallas_conv, NotImplementedError,
-         "--pallas-conv needs the Pallas NHWC conv kernels, which are not "
-         "ported yet; use --no-pallas-conv (F.conv2d)"),
         (args.sync_bn, NotImplementedError,
          "--sync_bn (statistics across processes) is not ported yet"),
         (args.steps_per_call != 1, NotImplementedError,
@@ -148,7 +151,10 @@ def build(args):
              else torch.float32)
     norm_cls = BatchNorm2d_NHWC if args.fused_bn else None
     model = ARCHS[args.arch](num_classes=1000, dtype=dtype,
-                             norm_cls=norm_cls, device=device, seed=0)
+                             norm_cls=norm_cls,
+                             conv_cls=PallasConv if args.pallas_conv else None,
+                             device=device, seed=0)
+    reset_conv_dispatch_stats()
     fused_loss = args.fused_loss
 
     def loss_fn(p, ms, batch):
@@ -182,7 +188,8 @@ def train(args, log=print) -> dict:
     n_params = sum(p.numel() for p in state.params.values())
     log(f"{args.arch}  {n_params / 1e6:.1f}M params  opt_level = "
         f"{args.opt_level}  fused_bn={args.fused_bn}  "
-        f"fused_loss={args.fused_loss}  on {batch[0].device}")
+        f"fused_loss={args.fused_loss}  pallas_conv={args.pallas_conv}  "
+        f"on {batch[0].device}")
     steps = args.prof if args.prof >= 0 else args.epochs * \
         args.steps_per_epoch
     res = dict(losses=[], loss_scales=[], step_s=[],
@@ -208,6 +215,10 @@ def main(argv=None) -> int:
     res = train(args)
     if not all(np.isfinite(res["losses"])):
         raise SystemExit("training diverged: a loss is not finite")
+    cs = conv_dispatch_stats()
+    print(f"conv sites {cs['pallas_sites']} kernel / "
+          f"{cs['fallback_sites']} plain-fallback "
+          f"{cs['fallback_reasons'] or ''}".rstrip())
     print("done")
     return 0
 

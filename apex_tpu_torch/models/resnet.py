@@ -12,8 +12,11 @@ between the packages unchanged.  Running statistics are buffers (flax's
   NHWC tensor, whose strides are channels-last: no copy in or out.
   flax's ``'SAME'`` padding is asymmetric where the total is odd (a
   stride-2 3x3 conv on an even map pads ``(0, 1)``); such a conv pads
-  explicitly first.  The Pallas conv (``conv_cls=PallasConv``, TPU
-  kernels 1-3) is not ported yet: ``conv_cls`` must be None.
+  explicitly first.  ``conv_cls`` swaps in another conv class with
+  ``Conv``'s constructor and parameters, e.g.
+  :class:`apex_tpu_torch.ops.PallasConv` (the port's implicit-GEMM conv
+  kernels, TPU kernels 1-3), which pads nothing: it reads zeros for
+  taps outside the image.
 * The norm-factory hook: when the norm supports the fused-epilogue
   contract (a ``fuse_relu`` flag and a ``z`` residual argument:
   :class:`~apex_tpu_torch.contrib.groupbn.BatchNorm2d_NHWC`,
@@ -224,10 +227,12 @@ class ResNet(nn.Module):
     requires it, False keeps the explicit statements.  Parameters are
     made on the CPU from a ``torch.Generator`` seeded with ``seed``
     (lecun-normal kernels, as flax initializes them; the numbers differ
-    from JAX's), then moved to ``device``.  Not ported yet: ``sync_bn``
-    (cross-process statistics; the JAX model's ``axis_name`` and
-    ``bn_process_group`` serve only it), ``conv_cls`` (the Pallas conv)
-    and ``remat``; they raise ``NotImplementedError``."""
+    from JAX's), then moved to ``device``.  ``conv_cls`` (None:
+    :class:`Conv`) builds every conv, the stem included, with the same
+    arguments, so the parameters and their names do not change.  Not
+    ported yet: ``sync_bn`` (cross-process statistics; the JAX model's
+    ``axis_name`` and ``bn_process_group`` serve only it) and ``remat``;
+    they raise ``NotImplementedError``."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int = 1000, num_filters: int = 64,
@@ -240,16 +245,12 @@ class ResNet(nn.Module):
         if sync_bn:
             raise NotImplementedError(
                 "sync_bn (statistics across processes) is not ported yet")
-        if conv_cls is not None:
-            raise NotImplementedError(
-                "conv_cls (the Pallas NHWC conv, TPU kernels 1-3) is not "
-                "ported yet; convolutions run through F.conv2d")
         if remat:
             raise NotImplementedError("remat is not ported yet")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.dtype = dtype
-        conv = functools.partial(Conv, dtype=dtype, device=dev,
+        conv = functools.partial(conv_cls or Conv, dtype=dtype, device=dev,
                                  generator=gen)
         if norm_cls is not None:
             norm = functools.partial(norm_cls, device=dev)

@@ -4,7 +4,9 @@ GPU: builds the port's kernels from this checkout, holds each against its
 plain PyTorch version at the shapes of the serving and training paths,
 serves GPT-2 small through the paged-KV engine, trains it for ten steps
 through the LM trainer, trains ResNet-50 for ten steps through the
-ImageNet trainer, and checks the card's answers against the CPU's.
+ImageNet trainer (its default, every convolution in the port's conv
+kernels; then with ``--no-pallas-conv``), and checks the card's answers
+against the CPU's.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -13,10 +15,10 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the two flash-attention CUDA libraries (forward; dQ and dK/dV:
-   one ``nvcc`` each) and compile the Triton kernels (LayerNorm, BN
-   epilogue and cross-entropy, forward and backward, one after another),
-   the three concurrently, and time each;
+2. build the three CUDA libraries (flash forward; flash dQ and dK/dV;
+   the conv forward, dgrad and wgrad: one ``nvcc`` each) and compile the
+   Triton kernels (LayerNorm, BN epilogue and cross-entropy, forward and
+   backward, one after another), the four concurrently, and time each;
 3. LayerNorm kernel vs plain at ``[1024, 768]`` and ``[8, 768]``, bf16
    and fp32;
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
@@ -68,22 +70,36 @@ line):
    backward;
 13. ResNet-50 training: the ImageNet trainer
    (``apex_tpu_torch.examples.imagenet.main_amp``), B 128, 224 x 224,
-   bf16 O2, SGD, ``--fused-bn --fused-loss --no-pallas-conv``, 10 steps,
-   every launch counter set to 0 just before and read just after (53 BN
-   forward and backward, 1 cross-entropy forward and backward per step,
-   nothing else); losses finite; step ms, images/s, peak memory; two
-   steps traced (device time by kind, idle share);
+   bf16 O2, SGD, its defaults ``--pallas-conv --fused-bn --fused-loss``,
+   10 steps, every launch counter set to 0 just before and read just
+   after (53 conv forward, 52 dgrad (the stem's input needs no gradient)
+   and 53 wgrad, 53 BN forward and backward, 1 cross-entropy forward and
+   backward per step, nothing else); losses finite; step ms, images/s,
+   peak memory; two steps traced (device time by kind, idle share);
+   13b. the same with ``--no-pallas-conv`` (cuDNN convs), 5 steps, no
+   conv kernel launched, also traced;
 14. ResNet correctness: a small bottleneck ResNet at O0 fp32, three SGD
    steps on the card and on the CPU (losses rtol 1e-4, parameters and
-   running statistics atol 1e-4); an O2 dynamic-scale step with an
-   injected inf skipped with the parameters bit-identical and the
-   running statistics advanced; conv outputs contiguous NHWC.
+   running statistics atol 1e-4), with ``Conv`` and with ``PallasConv``
+   (the conv kernels); an O2 dynamic-scale step with an injected inf
+   skipped with the parameters bit-identical and the running statistics
+   advanced, with both; conv outputs contiguous NHWC;
+15. conv kernels vs plain at ResNet-50 B 128 shapes (the stem, a stage-1
+   3x3, a stride-2 3x3 with flax's ``(0, 1)`` pads, two stage-3/4 1x1s,
+   the stage-1 1x1 expansion with the fused epilogue; bf16) and one fp32
+   3x3 at B 32: forward, dgrad (not for the stem) and wgrad, fp32 within
+   1e-4 of max |plain|, bf16 within one ulp of max |plain| with 99.9% of
+   elements within one ulp of their plain value (wgrad: of the fp64 sum,
+   since its fp32 plain sum over up to 1.6 M products misses by more on
+   elements near zero), the epilogue equal to the kernel's conv
+   followed by the plain epilogue bit for bit; ``library_ms`` is cuDNN
+   (``F.conv2d`` channels-last, ``aten.convolution_backward``).
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
 the serving run, their backward kernels' on the LM training run, the BN
-and cross-entropy kernels' on the ResNet-50 run); then the
-``nvidia-smi`` line;
+and cross-entropy kernels' and the conv kernels' on the ResNet-50
+run); then the ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -842,13 +858,16 @@ def training_correctness(models, main_amp, training, dev):
 
 # -- phase 11: BN epilogue ---------------------------------------------------------
 
+def _bf16_ordered(t):
+    """bf16 bit patterns as integers ordered like the values."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
 def bf16_ulps(a, b) -> int:
     """Largest distance between two bf16 tensors in units in the last
-    place (the bit patterns as ordered integers)."""
-    def ordered(t):
-        i = t.contiguous().view(torch.int16).int()
-        return torch.where(i < 0, -(i & 0x7FFF), i)
-    return int((ordered(a) - ordered(b)).abs().max().item())
+    place."""
+    return int((_bf16_ordered(a) - _bf16_ordered(b)).abs().max().item())
 
 
 def _kernel_err(got, want):
@@ -1028,12 +1047,189 @@ def xentropy_cases(xent, dev):
     return fwd_cases, bwd_cases
 
 
+# -- phase 15: conv kernels ------------------------------------------------------
+
+CONV_CASES = [
+    # name, x shape, w shape, stride, flax padding, dtype, epilogue
+    ("stem [128,224,224,3] 7x7/2", (128, 224, 224, 3), (7, 7, 3, 64), 2,
+     ((3, 3), (3, 3)), torch.bfloat16, False),
+    ("[128,56,56,64] 3x3/1", (128, 56, 56, 64), (3, 3, 64, 64), 1, "SAME",
+     torch.bfloat16, False),
+    ("[128,56,56,128] 3x3/2 pad (0,1)", (128, 56, 56, 128),
+     (3, 3, 128, 128), 2, "SAME", torch.bfloat16, False),
+    ("[128,14,14,1024] 1x1 ->256", (128, 14, 14, 1024), (1, 1, 1024, 256),
+     1, "SAME", torch.bfloat16, False),
+    ("[128,14,14,1024] 1x1/2 ->2048", (128, 14, 14, 1024),
+     (1, 1, 1024, 2048), 2, "SAME", torch.bfloat16, False),
+    ("fp32 [32,56,56,64] 3x3/1", (32, 56, 56, 64), (3, 3, 64, 64), 1,
+     "SAME", torch.float32, False),
+    ("[128,56,56,64] 1x1 ->256 +bn,z,relu", (128, 56, 56, 64),
+     (1, 1, 64, 256), 1, "SAME", torch.bfloat16, True),
+]
+
+
+def _within_1ulp(got, want) -> float:
+    """Share of bf16 elements within one ulp of ``want``'s."""
+    dist = (_bf16_ordered(got) - _bf16_ordered(want)).abs()
+    return (dist <= 1).float().mean().item()
+
+
+def _conv_err(got, want, exact=None):
+    """(max_abs_err, share of elements within one bf16 ulp or None, ok):
+    fp32 within 1e-4 of max |plain|; bf16 within one ulp of max |plain|
+    (2**-7 of it) and 99.9% of elements within one ulp of their own
+    value: the plain one, or ``exact`` where given (wgrad)."""
+    err = max_err(got, want)
+    scale = want.float().abs().max().item()
+    if got.dtype != torch.bfloat16:
+        return err, None, err <= 1e-4 * scale
+    within = _within_1ulp(got, want if exact is None else exact)
+    return err, within, err <= 2.0 ** -7 * scale and within >= 0.999
+
+
+def _wgrad_fp64(x, dy, stride, padding, kernel_size):
+    """The weight gradient summed in fp64 and rounded once to x's type:
+    wgrad's sums run over N*OH*OW (up to 1.6 M) products, where the plain
+    fp32 sum itself misses by more than a bf16 ulp on elements near zero
+    (0.2% of them at ``[128,56,56,64]`` 3x3), so a kernel's per-element
+    share is taken against the exact value."""
+    (pt, pb), (pl_, pr) = padding
+    xd = F.pad(x.double().permute(0, 3, 1, 2), (pl_, pr, pt, pb))
+    dyd = dy.double().permute(0, 3, 1, 2).contiguous()
+    wd = torch.zeros((dy.shape[3], x.shape[3], *kernel_size),
+                     dtype=torch.float64, device=x.device)
+    dw = torch.ops.aten.convolution_backward(
+        dyd, xd.contiguous(), wd, None, list(stride), [0, 0], [1, 1], False,
+        [0, 0], 1, [False, True, False])[1]
+    return dw.permute(2, 3, 1, 0).to(x.dtype)
+
+
+def conv_cases(cv, fba, dev):
+    """Kernels 1-3 against their plain versions at ResNet-50 B 128 shapes
+    (cuDNN TF32 off, so the fp32 plain conv is full fp32).  ``library_ms``
+    is cuDNN on the same inputs, channels-last: ``F.conv2d`` (an
+    asymmetric pad applied to its input beforehand, untimed) and
+    ``aten.convolution_backward`` with the matching output mask; none for
+    the epilogue case.  The bound counts each conv's multiply-adds twice
+    (the dgrad kernel's zero taps at stride 2 are not work) over the
+    type's peak, and each input and output once."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {"conv_fwd": [], "conv_dgrad": [], "conv_wgrad": []}
+    for name, xs, ws, s, pad, dtype, ep in CONV_CASES:
+        stride, dil = (s, s), (1, 1)
+        padding = cv._norm_padding(pad, xs[1], xs[2], ws[0], ws[1], s, s, 1,
+                                   1)
+        oh, ow = cv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], s, s, 1, 1)
+        x = torch.randn(xs, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(ws, device=dev, generator=gen)
+             / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+        dy = torch.randn((xs[0], oh, ow, ws[3]), device=dev,
+                         generator=gen).to(dtype)
+        o = ws[3]
+        epi = ()
+        if ep:
+            epi = (0.3 * torch.randn(o, device=dev, generator=gen),
+                   torch.rand(o, device=dev, generator=gen) + 0.5,
+                   1 + 0.2 * torch.randn(o, device=dev, generator=gen),
+                   0.2 * torch.randn(o, device=dev, generator=gen),
+                   torch.randn((xs[0], oh, ow, o), device=dev,
+                               generator=gen).to(dtype), True)
+        macs = xs[0] * oh * ow * o * ws[0] * ws[1] * ws[2]
+        isz = x.element_size()
+        n_x, n_w, n_y = x.numel(), w.numel(), dy.numel()
+        # library operands: the NCHW views of the NHWC tensors (channels-
+        # last memory), the weights made channels-last, pads applied
+        (pt, pb), (pl_, pr) = padding
+        xl = F.pad(x.permute(0, 3, 1, 2), (pl_, pr, pt, pb))
+        xl = xl.contiguous(memory_format=torch.channels_last)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        dyl = dy.permute(0, 3, 1, 2)
+
+        def lib_fwd():
+            return F.conv2d(xl, wl, stride=stride)
+
+        def lib_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                dyl, xl, wl, None, list(stride), [0, 0], [1, 1], False,
+                [0, 0], 1, mask)
+
+        def run_fwd():
+            return cv.conv_fwd_kernel(x, w, stride, padding, dil, *epi)[0]
+
+        def run_dgrad():
+            return cv.conv_dgrad_kernel(dy, w, stride, padding, dil, xs[1:3])
+
+        def run_wgrad():
+            return cv.conv_wgrad_kernel(x, dy, stride, padding, dil, ws[:2])
+
+        def plain_fwd():
+            return cv._fwd_ref(x, w, stride, padding, dil, *epi)[0]
+        phases = [("conv_fwd", run_fwd, plain_fwd, lib_fwd, time_ms,
+                   (n_x + n_w + n_y * (2 if ep else 1)) * isz
+                   + (4 * o * 4 if ep else 0))]
+        if xs[3] != 3:                 # the stem's input needs no dx
+            phases.append((
+                "conv_dgrad", run_dgrad,
+                lambda: cv._dgrad_ref(dy, w, stride, padding, dil, xs[1:3]),
+                lambda: lib_bwd([True, False, False]), eager_ms,
+                (n_y + n_w + n_x) * isz))
+        phases.append((
+            "conv_wgrad", run_wgrad,
+            lambda: cv._wgrad_ref(x, dy, stride, padding, dil, ws[:2]),
+            lambda: lib_bwd([False, True, False]), eager_ms,
+            (n_x + n_y + n_w) * isz))
+        for kname, fn, plain, lib, lib_timer, nbytes in phases:
+            got = fn()
+            want = plain()
+            exact = plain_within = None
+            if kname == "conv_wgrad" and dtype == torch.bfloat16:
+                exact = _wgrad_fp64(x, dy, stride, padding, ws[:2])
+                plain_within = _within_1ulp(want, exact)
+            torch.cuda.synchronize()
+            err, within, ok = _conv_err(got, want, exact)
+            msg = (f"{kname} {name}: max_abs_err {err:.3g} (max |plain| "
+                   f"{want.float().abs().max().item():.3g}), within 1 ulp "
+                   f"{within}")
+            if exact is not None:
+                msg += (f" of the fp64 sum (the plain fp32 version: "
+                        f"{plain_within})")
+            if ep and kname == "conv_fwd":
+                y, _ = cv.conv_fwd_kernel(x, w, stride, padding, dil)
+                exact = torch.equal(got, fba._fwd_ref(y, *epi))
+                ok = ok and exact
+                msg += f", equals conv -> plain epilogue bit for bit {exact}"
+            check(ok, msg)
+            del got, want, exact
+            bms, by = bound(nbytes, 2.0 * macs, dtype)
+            case = dict(case=name, max_abs_err=err, within_1ulp=within,
+                        plain_within_1ulp_of_fp64=plain_within,
+                        ms=time_ms(fn, iters=10), eager_ms=eager_ms(fn,
+                                                                    iters=5),
+                        plain_ms=(time_ms(plain, iters=3)
+                                  if kname == "conv_fwd"
+                                  else eager_ms(plain, iters=3)),
+                        library_ms=(None if ep else lib_timer(lib, iters=5)),
+                        bound_ms=bms, bound_by=by)
+            case["tflops"] = 2.0 * macs / case["ms"] / 1e9
+            out[kname].append(case)
+            lib_s = ("n/a" if case["library_ms"] is None
+                     else f"{case['library_ms']:.4f} ms")
+            print(f"      {kname} {name}: kernel {case['ms']:.4f} ms (eager "
+                  f"{case['eager_ms']:.4f}, {case['tflops']:.1f} TFLOP/s), "
+                  f"plain {case['plain_ms']:.4f} ms, library {lib_s}, bound "
+                  f"{bms:.4f} ms ({by})", flush=True)
+        del x, w, dy, xl, wl, dyl, epi
+    return out
+
+
 # -- phase 13: ResNet-50 training ------------------------------------------------------
 
 IMAGENET_ARGS = ["--synthetic", "--arch", "resnet50", "-b", "128",
                  "--opt-level", "O2", "--print-freq", "1"]
 
-_RESNET_KINDS = (("bn_epilogue", ("bn_fwd", "bn_bwd")),
+_RESNET_KINDS = (("conv_kernels", ("conv_gemm_kernel", "wgrad_reduce")),
+                 ("bn_epilogue", ("bn_fwd", "bn_bwd")),
                  ("loss", ("xent_",)),
                  ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
                            "implicit", "xmma")),
@@ -1042,11 +1238,13 @@ _RESNET_KINDS = (("bn_epilogue", ("bn_fwd", "bn_bwd")),
                  ("reduce", ("reduce",)))
 
 
-def train_resnet50(imagenet, counters, steps=10):
+def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
     """The ImageNet trainer's entry point at ResNet-50, B 128, 224 x
-    224, bf16 O2, SGD: every launch counter set to 0 just before and
-    read just after."""
-    args = imagenet.parse(IMAGENET_ARGS + ["--prof", str(steps)])
+    224, bf16 O2, SGD, with its default ``--pallas-conv`` (the conv
+    kernels) or ``--no-pallas-conv`` (cuDNN): every launch counter set to
+    0 just before and read just after."""
+    flag = "--pallas-conv" if pallas_conv else "--no-pallas-conv"
+    args = imagenet.parse(IMAGENET_ARGS + ["--prof", str(steps), flag])
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
@@ -1055,12 +1253,15 @@ def train_resnet50(imagenet, counters, steps=10):
     launches = {name: c.launches for name, c in counters.items()}
     per_step = {"bn_act_fwd": 53, "bn_act_bwd": 53, "xentropy_fwd": 1,
                 "xentropy_bwd": 1}
+    if pallas_conv:
+        # 53 convs a step; the stem's input (the images) needs no dx
+        per_step.update(conv_fwd=53, conv_dgrad=52, conv_wgrad=53)
     check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
-          f"resnet50 training: launches {launches} = {per_step} x {steps} "
-          f"steps (no other kernel)")
+          f"resnet50 training {flag}: launches {launches} = {per_step} x "
+          f"{steps} steps (no other kernel)")
     losses = res["losses"]
     check(all(np.isfinite(losses)),
-          f"resnet50 training: losses finite ({losses[0]:.4f} -> "
+          f"resnet50 training {flag}: losses finite ({losses[0]:.4f} -> "
           f"{losses[-1]:.4f})")
     step_ms = float(np.median(res["step_s"][2:])) * 1e3
     out = dict(losses=losses, step_ms_all=[x * 1e3 for x in res["step_s"]],
@@ -1068,8 +1269,9 @@ def train_resnet50(imagenet, counters, steps=10):
                images_per_s=res["images_per_step"] / step_ms * 1e3,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                launches=launches)
-    print(f"      resnet50 O2 B128 224: step {step_ms:.2f} ms (median of "
-          f"steps 3-{steps}), {out['images_per_s']:.1f} images/s, peak "
+    print(f"      resnet50 O2 B128 224 {flag}: step {step_ms:.2f} ms "
+          f"(median of steps 3-{steps}), {out['images_per_s']:.1f} "
+          f"images/s, peak "
           f"memory {out['max_memory_allocated_bytes'] / 2**30:.2f} GiB",
           flush=True)
     return out
@@ -1081,17 +1283,19 @@ def resnet_correctness(imagenet, training, dev):
     """(a) a small ResNet-50-shaped network (bottleneck blocks, 8
     filters, 1000 classes, 32 x 32, B 8) at O0 fp32, three SGD steps on
     the card and on the CPU; (b) O2 with a dynamic scale and an inf
-    injected into the loss on the card; (c) conv outputs are contiguous
-    NHWC (no copy before the epilogue)."""
+    injected into the loss on the card; both with ``Conv`` (cuDNN) and
+    with ``PallasConv`` (the conv kernels, fp32 FMA path at O0); (c) conv
+    outputs are contiguous NHWC (no copy before the epilogue)."""
     from apex_tpu_torch.amp import convert_params
     from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
     from apex_tpu_torch.models.resnet import BottleneckBlock, Conv, ResNet
+    from apex_tpu_torch.ops import conv as cv
     res = {}
 
-    def small(dtype, device):
+    def small(dtype, device, conv_cls):
         return ResNet(stage_sizes=[1, 1, 1, 1], block_cls=BottleneckBlock,
                       num_filters=8, dtype=dtype, norm_cls=BatchNorm2d_NHWC,
-                      device="cpu", seed=3).to(device)
+                      conv_cls=conv_cls, device="cpu", seed=3).to(device)
 
     def steps_of(m, opt_level, loss_scale=None, inject=False):
         def loss_fn(p, ms, batch):
@@ -1106,51 +1310,59 @@ def resnet_correctness(imagenet, training, dev):
         return init({k: v.detach() for k, v in params.items()},
                     {k: v.clone() for k, v in stats.items()}), step
 
-    # (a)
-    states, losses = {}, {}
-    for device in (dev, "cpu"):
-        st, step = steps_of(small(torch.float32, device), "O0")
-        x, y = imagenet.synthetic_batch(8, 32, device)
-        losses[str(device)] = []
-        for _ in range(3):
-            st, met = step(st, (x, y))
-            losses[str(device)].append(met["loss"].item())
-        states[str(device)] = st
-    lerr = max(abs(a - b) / abs(b) for a, b in
-               zip(losses[str(dev)], losses["cpu"]))
-    perr = max(max_err(states[str(dev)].params[k].cpu(), v)
-               for k, v in states["cpu"].params.items())
-    serr = max(max_err(states[str(dev)].model_state[k].cpu(), v)
-               for k, v in states["cpu"].model_state.items())
-    check(lerr <= 1e-4 and perr <= 1e-4 and serr <= 1e-4,
-          f"small resnet O0 3 SGD steps card vs CPU: loss rel err "
-          f"{lerr:.3g} <= 1e-4, params max_abs_err {perr:.3g}, running "
-          f"stats {serr:.3g} <= 1e-4")
-    res.update(small_o0_losses_card=losses[str(dev)],
-               small_o0_losses_cpu=losses["cpu"], small_o0_loss_rel_err=lerr,
-               small_o0_param_max_abs_err=perr,
-               small_o0_stats_max_abs_err=serr)
+    for tag, conv_cls in (("conv", None), ("pallas_conv", cv.PallasConv)):
+        # (a)
+        states, losses = {}, {}
+        launches = cv.conv_fwd_kernel.launches
+        for device in (dev, "cpu"):
+            st, step = steps_of(small(torch.float32, device, conv_cls), "O0")
+            x, y = imagenet.synthetic_batch(8, 32, device)
+            losses[str(device)] = []
+            for _ in range(3):
+                st, met = step(st, (x, y))
+                losses[str(device)].append(met["loss"].item())
+            states[str(device)] = st
+        ran = cv.conv_fwd_kernel.launches - launches
+        lerr = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses[str(dev)], losses["cpu"]))
+        perr = max(max_err(states[str(dev)].params[k].cpu(), v)
+                   for k, v in states["cpu"].params.items())
+        serr = max(max_err(states[str(dev)].model_state[k].cpu(), v)
+                   for k, v in states["cpu"].model_state.items())
+        check(lerr <= 1e-4 and perr <= 1e-4 and serr <= 1e-4
+              and (ran == 3 * 17) == (conv_cls is not None),
+              f"small resnet ({tag}) O0 3 SGD steps card vs CPU: loss rel "
+              f"err {lerr:.3g} <= 1e-4, params max_abs_err {perr:.3g}, "
+              f"running stats {serr:.3g} <= 1e-4; conv kernel launches "
+              f"{ran}")
+        res.update({f"small_o0_{tag}_losses_card": losses[str(dev)],
+                    f"small_o0_{tag}_losses_cpu": losses["cpu"],
+                    f"small_o0_{tag}_loss_rel_err": lerr,
+                    f"small_o0_{tag}_param_max_abs_err": perr,
+                    f"small_o0_{tag}_stats_max_abs_err": serr})
 
-    # (b)
-    m = small(torch.bfloat16, dev)
-    st, step = steps_of(m, "O2", "dynamic", inject=True)
-    x, y = imagenet.synthetic_batch(8, 32, dev)
-    before = {k: v.clone() for k, v in st.params.items()}
-    with torch.no_grad():
-        _, want_stats = m.apply(convert_params(st.params, torch.bfloat16),
-                                st.model_state, x)
-    st, met = step(st, (x, y, torch.tensor(float("inf"), device=dev)))
-    kept = all(torch.equal(st.params[k], v) for k, v in before.items())
-    stats_err = max(max_err(st.model_state[k], v)
-                    for k, v in want_stats.items())
-    skipped = (bool(met["overflow"]) and kept
-               and not bool(st.opt_state.initialized)
-               and met["loss_scale"].item() == 2.0 ** 15)
-    check(skipped and stats_err <= 1e-6,
-          f"small resnet O2 dynamic, inf injected: skipped with params "
-          f"bit-identical {skipped}, running stats advanced as in JAX "
-          f"(max_abs_err vs the step's forward {stats_err:.3g} <= 1e-6)")
-    res.update(o2_skip_ok=skipped, o2_skip_stats_err=stats_err)
+        # (b)
+        m = small(torch.bfloat16, dev, conv_cls)
+        st, step = steps_of(m, "O2", "dynamic", inject=True)
+        x, y = imagenet.synthetic_batch(8, 32, dev)
+        before = {k: v.clone() for k, v in st.params.items()}
+        with torch.no_grad():
+            _, want_stats = m.apply(convert_params(st.params, torch.bfloat16),
+                                    st.model_state, x)
+        st, met = step(st, (x, y, torch.tensor(float("inf"), device=dev)))
+        kept = all(torch.equal(st.params[k], v) for k, v in before.items())
+        stats_err = max(max_err(st.model_state[k], v)
+                        for k, v in want_stats.items())
+        skipped = (bool(met["overflow"]) and kept
+                   and not bool(st.opt_state.initialized)
+                   and met["loss_scale"].item() == 2.0 ** 15)
+        check(skipped and stats_err <= 1e-6,
+              f"small resnet ({tag}) O2 dynamic, inf injected: skipped with "
+              f"params bit-identical {skipped}, running stats advanced as "
+              f"in JAX (max_abs_err vs the step's forward {stats_err:.3g} "
+              f"<= 1e-6)")
+        res.update({f"o2_{tag}_skip_ok": skipped,
+                    f"o2_{tag}_skip_stats_err": stats_err})
 
     # (c)
     xin = torch.randn(8, 56, 56, 64, device=dev, dtype=torch.bfloat16)
@@ -1158,9 +1370,10 @@ def resnet_correctness(imagenet, training, dev):
     for name, k, s_ in (("3x3 s2", (3, 3), (2, 2)), ("1x1 s1", (1, 1),
                                                      (1, 1)),
                         ("3x3 s1", (3, 3), (1, 1))):
-        conv = Conv(64, 128, k, s_, dtype=torch.bfloat16, device=dev)
-        with torch.no_grad():
-            layout[name] = conv(xin).is_contiguous()
+        for cls in (Conv, cv.PallasConv):
+            conv = cls(64, 128, k, s_, dtype=torch.bfloat16, device=dev)
+            with torch.no_grad():
+                layout[f"{cls.__name__} {name}"] = conv(xin).is_contiguous()
     check(all(layout.values()),
           f"conv outputs are contiguous NHWC: {layout}")
     res["conv_outputs_contiguous"] = layout
@@ -1202,6 +1415,7 @@ def main(argv=None) -> int:
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     fba = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
     xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    cv = importlib.import_module("apex_tpu_torch.ops.conv")
     models = importlib.import_module("apex_tpu_torch.models")
     engine_mod = importlib.import_module("apex_tpu_torch.serving.engine")
     build = importlib.import_module("apex_tpu_torch._build")
@@ -1222,7 +1436,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)} ({smi})", flush=True)
 
     # phase 2: every kernel built at once, one nvcc per CUDA source; the
-    # Triton kernels compile one after another in a third thread
+    # Triton kernels compile one after another in a fourth thread
     def timed(fn):
         def run():
             t0 = time.perf_counter()
@@ -1250,12 +1464,13 @@ def main(argv=None) -> int:
     jobs = {"flash_attention_nvcc_s": lambda: build.load("flash_attention"),
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
+            "conv_nvcc_s": lambda: build.load("conv"),
             "triton_s": build_triton}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
         build_s = {k: f.result() for k, f in futures.items()}
     print(f"      build: {build_s}", flush=True)
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "conv"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"      ptxas {name}: "
@@ -1270,7 +1485,10 @@ def main(argv=None) -> int:
         "bn_act_fwd": fba.bn_act_fwd_kernel,
         "bn_act_bwd": fba.bn_act_bwd_kernel,
         "xentropy_fwd": xent.xentropy_fwd_kernel,
-        "xentropy_bwd": xent.xentropy_bwd_kernel}
+        "xentropy_bwd": xent.xentropy_bwd_kernel,
+        "conv_fwd": cv.conv_fwd_kernel,
+        "conv_dgrad": cv.conv_dgrad_kernel,
+        "conv_wgrad": cv.conv_wgrad_kernel}
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
     fa_cases = flash_cases(fa, dev)                # phase 4
     serve_counters = [fln.layer_norm_fwd_kernel, fa.flash_fwd_kernel]
@@ -1294,7 +1512,13 @@ def main(argv=None) -> int:
     resnet["profile"] = trace_training(imagenet,
                                        IMAGENET_ARGS + ["--prof", "1"],
                                        _RESNET_KINDS)
+    resnet["no_pallas_conv"] = train_resnet50(imagenet, counters,  # 13b
+                                              pallas_conv=False)
+    resnet["no_pallas_conv"]["profile"] = trace_training(
+        imagenet, IMAGENET_ARGS + ["--prof", "1", "--no-pallas-conv"],
+        _RESNET_KINDS)
     resnet.update(resnet_correctness(imagenet, training, dev))     # 14
+    conv = conv_cases(cv, fba, dev)                                # 15
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -1350,6 +1574,16 @@ def main(argv=None) -> int:
               "apex_tpu_torch/contrib/xentropy/__init__.py",
               "apex_tpu/contrib/xentropy/__init__.py:123", xent_bwd_cases,
               2, "resnet_training"),
+        # the conv rows show the stage-1 3x3 case; every case is in --out
+        entry("conv_fwd", "cuda", "apex_tpu_torch/csrc/conv.cu",
+              "apex_tpu/ops/conv.py:267", conv["conv_fwd"], 1,
+              "resnet_training"),
+        entry("conv_dgrad", "cuda", "apex_tpu_torch/csrc/conv.cu",
+              "apex_tpu/ops/conv.py:375", conv["conv_dgrad"], 0,
+              "resnet_training"),
+        entry("conv_wgrad", "cuda", "apex_tpu_torch/csrc/conv.cu",
+              "apex_tpu/ops/conv.py:397", conv["conv_wgrad"], 1,
+              "resnet_training"),
     ]
     elapsed = time.perf_counter() - t_start
     if args.out:

@@ -1,0 +1,270 @@
+"""The port's NHWC conv (``apex_tpu_torch.ops.conv``) against the JAX
+package's Pallas conv, run in interpret mode (the real Pallas kernels on
+the CPU, as ``tests/test_conv.py`` runs them).
+
+Same numpy inputs through both.  Tolerances: fp32 rtol/atol 1e-4 (the
+summation order differs); bf16 forward 1e-1 (the JAX test's own: bf16
+outputs of sums over up to 392 products); gradients 1e-4 in fp32.  On
+the CPU the port runs its plain versions only, so every conv kernel
+counter stays 0; the kernels themselves are held against those plain
+versions on the card (``tests/test_torch_kernels_cuda.py``,
+``chip_smoke.py`` phase 15).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+
+from apex_tpu.ops import conv as jconv
+from apex_tpu_torch.models.resnet import Conv
+from apex_tpu_torch.ops import conv as tconv
+
+# (x_shape, w_shape, stride, padding, dilation): tests/test_conv.py's
+# matrix, then the C = 3 stem at a small size and a ragged C = 5, O = 8
+MATRIX = [
+    ((2, 8, 8, 16), (3, 3, 16, 32), 1, "SAME", 1),
+    ((2, 9, 7, 8), (3, 3, 8, 16), 2, "SAME", 1),
+    ((2, 8, 8, 8), (1, 1, 8, 16), 1, "VALID", 1),
+    ((2, 8, 8, 8), (1, 1, 8, 16), 2, "VALID", 1),
+    ((2, 12, 12, 8), (3, 3, 8, 16), 1, "VALID", 2),
+    ((1, 14, 14, 8), (7, 7, 8, 16), 2, ((3, 3), (3, 3)), 1),
+    ((2, 16, 16, 3), (7, 7, 3, 8), 2, ((3, 3), (3, 3)), 1),
+    ((2, 10, 10, 5), (3, 3, 5, 8), 2, "SAME", 1),
+]
+IDS = ["stage", "odd_stride", "pointwise", "strided_1x1", "dilated",
+       "stem_like", "stem_c3", "ragged_c5_o8"]
+
+
+def _arrays(seed, *shapes):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _geometry(case):
+    xs, ws, s, p, d = MATRIX[case]
+    stride, dilation = tconv._pair(s), tconv._pair(d)
+    padding = tconv._norm_padding(p, xs[1], xs[2], ws[0], ws[1], *stride,
+                                  *dilation)
+    return xs, ws, stride, padding, dilation
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(MATRIX)), ids=IDS)
+def test_forward_matches_jax_pallas(case, dtype):
+    xs, ws, s, p, d = MATRIX[case]
+    x, w = _arrays(case, xs, ws)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jconv.conv2d(jnp.asarray(x, jdt), jnp.asarray(w, jdt), stride=s,
+                        padding=p, dilation=d, interpret=True)
+    got = tconv.conv2d(torch.from_numpy(x).to(tdt),
+                       torch.from_numpy(w).to(tdt), stride=s, padding=p,
+                       dilation=d)
+    assert tuple(got.shape) == want.shape and got.dtype == tdt
+    _close(got.float().numpy(), want, 1e-1 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("case", range(len(MATRIX)), ids=IDS)
+def test_dx_dw_match_jax_grad_of_pallas(case):
+    """dx and dw of ``sum(sin(conv))``: the port's Function (plain
+    backward on the CPU) against ``jax.grad`` through the Pallas dgrad
+    and wgrad kernels.  The weights are scaled by ``1 / sqrt(fan_in)``,
+    as an initialized layer's are, so the outputs are of unit size."""
+    xs, ws, s, p, d = MATRIX[case]
+    x, w = _arrays(10 + case, xs, ws)
+    w = w / np.float32(np.sqrt(ws[0] * ws[1] * ws[2]))
+
+    def jloss(x, w):
+        return jnp.sum(jnp.sin(jconv.conv2d(x, w, stride=s, padding=p,
+                                            dilation=d, interpret=True)))
+    jdx, jdw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx, tw = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+    loss = torch.sin(tconv.conv2d(tx, tw, stride=s, padding=p,
+                                  dilation=d)).sum()
+    dx, dw = torch.autograd.grad(loss, (tx, tw))
+    _close(dx.numpy(), jdx, 1e-4)
+    _close(dw.numpy(), jdw, 1e-4)
+
+
+@pytest.mark.parametrize("case", range(len(MATRIX)), ids=IDS)
+def test_plain_dgrad_wgrad_match_pallas_kernels(case):
+    """Each backward kernel's plain version (what the card holds its
+    kernel against) against the Pallas kernel it replaces, on the same
+    cotangent."""
+    xs, ws, stride, padding, dilation = _geometry(case)
+    oh, ow = tconv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], *stride,
+                           *dilation)
+    x, w, dy = _arrays(20 + case, xs, ws, (xs[0], oh, ow, ws[3]))
+    want_dx = jconv._pallas_dgrad(jnp.asarray(dy), jnp.asarray(w), stride,
+                                  padding, dilation, xs[1:3], (None, None),
+                                  True)
+    want_dw = jconv._pallas_wgrad(jnp.asarray(x), jnp.asarray(dy), stride,
+                                  padding, dilation, ws, (None, None), True,
+                                  jnp.float32)
+    got_dx = tconv._dgrad_ref(torch.from_numpy(dy), torch.from_numpy(w),
+                              stride, padding, dilation, xs[1:3])
+    got_dw = tconv._wgrad_ref(torch.from_numpy(x), torch.from_numpy(dy),
+                              stride, padding, dilation, ws[:2])
+    _close(got_dx.numpy(), want_dx, 1e-4)
+    _close(got_dw.numpy(), want_dw, 1e-4)
+
+
+def _epilogue(seed, o, out_shape, with_z):
+    rs = np.random.RandomState(seed)
+    mean, scale, bias = (rs.randn(o).astype(np.float32) for _ in range(3))
+    invstd = (np.abs(rs.randn(o)) + 0.5).astype(np.float32)
+    z = rs.randn(*out_shape).astype(np.float32) if with_z else None
+    return mean, invstd, scale, bias, z
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("with_z", [False, True], ids=["no_z", "z"])
+def test_fused_epilogue_forward_and_seven_cotangents(with_z, relu):
+    """conv + BN epilogue (+ residual) (+ ReLU): the forward, the
+    pre-activation and every cotangent (x, w, mean, invstd, scale, bias,
+    z) against the JAX fused kernel (weights scaled by ``1 /
+    sqrt(fan_in)``)."""
+    x, w = _arrays(3, (2, 8, 8, 16), (3, 3, 16, 32))
+    w = w / np.float32(12.0)
+    ep = _epilogue(4, 32, (2, 8, 8, 32), with_z)
+    args = [x, w, *ep[:4]] + ([ep[4]] if with_z else [])
+
+    def jloss(x, w, mean, invstd, scale, bias, z=None):
+        return jnp.sum(jnp.sin(jconv.conv2d(
+            x, w, mean=mean, invstd=invstd, scale=scale, bias=bias, z=z,
+            relu=relu, interpret=True)))
+    jargs = [jnp.asarray(a) for a in args]
+    jval, jgrads = jax.value_and_grad(jloss, argnums=tuple(range(len(args))))(
+        *jargs)
+    targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    tx, tw, mean, invstd, scale, bias, *z = targs
+    out = tconv.conv2d(tx, tw, mean=mean, invstd=invstd, scale=scale,
+                       bias=bias, z=z[0] if z else None, relu=relu)
+    loss = torch.sin(out).sum()
+    grads = torch.autograd.grad(loss, targs)
+    np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5,
+                               atol=1e-4)
+    for g, jg in zip(grads, jgrads):
+        _close(g.numpy(), jg, 1e-4)
+    # the forward kernel's plain version with its pre-activation, against
+    # the Pallas forward kernel's
+    padding = tconv._norm_padding("SAME", 8, 8, 3, 3, 1, 1, 1, 1)
+    t_ep = [None if a is None else torch.from_numpy(a) for a in ep]
+    got, pre = tconv._fwd_ref(torch.from_numpy(x), torch.from_numpy(w),
+                              (1, 1), padding, (1, 1), *t_ep, relu=relu,
+                              want_preact=True)
+    j_ep = [None if a is None else jnp.asarray(a) for a in ep]
+    want, jpre = jconv._pallas_fwd(jnp.asarray(x), jnp.asarray(w), (1, 1),
+                                   padding, (1, 1), *j_ep, relu, True,
+                                   (None, None), True, jnp.float32)
+    _close(got.numpy(), want, 1e-4)
+    _close(pre.numpy(), jpre, 1e-4)
+
+
+def test_argument_validation_messages():
+    x, w = torch.ones((1, 4, 4, 8)), torch.ones((3, 3, 8, 8))
+    for kw, match in (
+            (dict(mean=torch.zeros(8)), "together"),
+            (dict(relu=True), "epilogue"),
+            (dict(mean=torch.zeros(8), invstd=torch.ones(8),
+                  scale=torch.ones(8)), "together"),
+            (dict(mean=torch.zeros(8), invstd=torch.ones(8),
+                  z=torch.ones((1, 2, 2, 8))), "output shape"),
+            (dict(groups=2), "in-channels")):
+        with pytest.raises(ValueError, match=match):
+            tconv.conv2d(x, w, **kw)
+        # the JAX function refuses the same calls with the same words
+        jkw = {k: (jnp.asarray(v.numpy()) if torch.is_tensor(v) else v)
+               for k, v in kw.items()}
+        with pytest.raises(ValueError, match=match):
+            jconv.conv2d(jnp.ones((1, 4, 4, 8)), jnp.ones((3, 3, 8, 8)),
+                         **jkw)
+    with pytest.raises(ValueError, match="NHWC"):
+        tconv.conv2d(torch.ones((4, 4, 8)), w)
+    with pytest.raises(ValueError, match="padding"):
+        tconv.conv2d(x, w, padding="FULL")
+
+
+def test_pallas_conv_has_conv_parameters_and_output():
+    """Same generator, same kernel; the same output as ``Conv`` (flax
+    'SAME', the asymmetric stride-2 pads on an even map)."""
+    x = torch.from_numpy(_arrays(5, (2, 10, 10, 6))[0])
+    for k, s in (((3, 3), (2, 2)), ((1, 1), (1, 1)), ((7, 7), (2, 2))):
+        a = Conv(6, 8, k, s, device="cpu",
+                 generator=torch.Generator().manual_seed(7))
+        b = tconv.PallasConv(6, 8, k, s, device="cpu",
+                             generator=torch.Generator().manual_seed(7))
+        assert [n for n, _ in b.named_parameters()] == ["kernel"]
+        assert torch.equal(a.kernel, b.kernel)
+        with torch.no_grad():
+            torch.testing.assert_close(b(x), a(x), atol=1e-5, rtol=1e-5)
+
+
+def test_grouped_conv_falls_back_and_is_counted():
+    """A depthwise conv is outside the kernels' contract: the plain conv,
+    the same output as flax's ``nn.Conv``, counted with reason
+    ``groups``."""
+    x = _arrays(6, (2, 8, 8, 16))[0]
+    m = tconv.PallasConv(16, 16, (3, 3), feature_group_count=16,
+                         use_bias=True, device="cpu")
+    assert tuple(m.kernel.shape) == (3, 3, 1, 16)
+    with torch.no_grad():
+        m.bias.copy_(torch.linspace(-1, 1, 16))
+    ref = fnn.Conv(features=16, kernel_size=(3, 3), feature_group_count=16)
+    want = ref.apply({"params": {"kernel": m.kernel.detach().numpy(),
+                                 "bias": m.bias.detach().numpy()}},
+                     jnp.asarray(x))
+    tconv.reset_conv_dispatch_stats()
+    with torch.no_grad():
+        got = m(torch.from_numpy(x))
+    _close(got.numpy(), want, 1e-5)
+    stats = tconv.conv_dispatch_stats()
+    assert stats == {"pallas_sites": 0, "fallback_sites": 1,
+                     "fallback_reasons": {"groups": 1}}
+    tconv.reset_conv_dispatch_stats()
+
+
+def test_cpu_path_launches_no_kernel():
+    """On the CPU, forward and backward (with an epilogue) run the plain
+    versions: every conv launch counter stays where it was, and the
+    kernel wrappers refuse CPU tensors."""
+    counters = (tconv.conv_fwd_kernel, tconv.conv_dgrad_kernel,
+                tconv.conv_wgrad_kernel)
+    before = [c.launches for c in counters]
+    x, w = (torch.from_numpy(a).requires_grad_(True)
+            for a in _arrays(8, (2, 6, 6, 8), (3, 3, 8, 8)))
+    out = tconv.conv2d(x, w, mean=torch.zeros(8), invstd=torch.ones(8),
+                       relu=True)
+    out.sum().backward()
+    assert x.grad is not None and w.grad is not None
+    assert [c.launches for c in counters] == before == [0, 0, 0]
+    pads = ((1, 1), (1, 1))
+    for call in (
+            lambda: tconv.conv_fwd_kernel(x.detach(), w.detach(), (1, 1),
+                                          pads, (1, 1)),
+            lambda: tconv.conv_dgrad_kernel(out.detach(), w.detach(), (1, 1),
+                                            pads, (1, 1), (6, 6)),
+            lambda: tconv.conv_wgrad_kernel(x.detach(), out.detach(), (1, 1),
+                                            pads, (1, 1), (3, 3))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("m,n,k", [(576, 64, 401408), (4608, 512, 6272),
+                                   (147, 64, 1605632), (1024, 2048, 25088),
+                                   (40, 8, 50)])
+def test_wgrad_splits_cover_k(m, n, k):
+    """wgrad's split of its pixel sum: every split non-empty, together
+    exactly K, each a whole number of K steps."""
+    splits, per = tconv._wgrad_splits(m, n, k, 132)
+    assert per % tconv._BK == 0 and splits >= 1
+    assert (splits - 1) * per < k <= splits * per

@@ -435,3 +435,155 @@ def test_xentropy_function_grads_match_autograd_of_plain(cuda_device):
                                rtol=1e-5)
     torch.testing.assert_close(got_x.grad, want_x.grad, atol=1e-6,
                                rtol=1e-5)
+
+
+# -- NHWC implicit-GEMM conv (kernels 1-3) -----------------------------------------
+
+cv = importlib.import_module("apex_tpu_torch.ops.conv")
+
+
+@pytest.fixture
+def conv_device(cuda_device):
+    """The card, with cuDNN's TF32 off while the test runs: the plain
+    fp32 conv is then full fp32, like the kernel's FMA path."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cudnn.allow_tf32 = tf32
+
+CONV_CASES = {
+    # x shape, w shape, stride, padding ((pt, pb), (pl, pr)), dilation
+    "3x3_s1": ((4, 14, 14, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1)),
+               (1, 1)),
+    "3x3_s2_same_even": ((4, 14, 14, 32), (3, 3, 32, 64), (2, 2),
+                         ((0, 1), (0, 1)), (1, 1)),
+    "1x1_s2": ((4, 14, 14, 64), (1, 1, 64, 128), (2, 2), ((0, 0), (0, 0)),
+               (1, 1)),
+    "stem_c3": ((2, 32, 32, 3), (7, 7, 3, 64), (2, 2), ((3, 3), (3, 3)),
+                (1, 1)),
+    "ragged_c5_o8": ((3, 9, 7, 5), (3, 3, 5, 8), (2, 1), ((1, 1), (0, 2)),
+                     (1, 1)),
+    "dilated": ((2, 12, 12, 16), (3, 3, 16, 24), (1, 1), ((0, 0), (0, 0)),
+                (2, 2)),
+    "wgrad_many_splits": ((8, 28, 28, 16), (3, 3, 16, 16), (1, 1),
+                          ((1, 1), (1, 1)), (1, 1)),
+}
+
+
+def _conv_tol_ok(got, want, dtype):
+    """fp32: within 1e-4 of max |plain| (summation order only); bf16:
+    within one bf16 ulp of max |plain| (2**-7 of it)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * scale
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_kernels_match_plain(conv_device, case, dtype):
+    """Forward, dgrad and wgrad against their plain versions: the 16-byte
+    gather (channels multiples of 8) and the element gather (C = 3, C =
+    5 / O = 8), asymmetric and dilated taps, a wgrad split many ways."""
+    xs, ws, stride, padding, dilation = CONV_CASES[case]
+    gen = torch.Generator(device=conv_device).manual_seed(30)
+    x = torch.randn(xs, device=conv_device, generator=gen).to(dtype)
+    w = (torch.randn(ws, device=conv_device, generator=gen)
+         / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+    oh, ow = cv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], *stride,
+                        *dilation)
+    dy = torch.randn((xs[0], oh, ow, ws[3]), device=conv_device,
+                     generator=gen).to(dtype)
+    counters = (cv.conv_fwd_kernel, cv.conv_dgrad_kernel,
+                cv.conv_wgrad_kernel)
+    before = [c.launches for c in counters]
+    out, pre = cv.conv_fwd_kernel(x, w, stride, padding, dilation)
+    dx = cv.conv_dgrad_kernel(dy, w, stride, padding, dilation, xs[1:3])
+    dw = cv.conv_wgrad_kernel(x, dy, stride, padding, dilation, ws[:2])
+    torch.cuda.synchronize()
+    assert pre is None
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    _conv_tol_ok(out, cv._fwd_ref(x, w, stride, padding, dilation)[0], dtype)
+    _conv_tol_ok(dx, cv._dgrad_ref(dy, w, stride, padding, dilation,
+                                   xs[1:3]), dtype)
+    _conv_tol_ok(dw, cv._wgrad_ref(x, dy, stride, padding, dilation,
+                                   ws[:2]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affine,with_z,relu", BN_VARIANTS)
+def test_conv_epilogue_equals_conv_then_plain_epilogue(conv_device, dtype,
+                                                       affine, with_z, relu):
+    """The fused epilogue equals the kernel's own conv followed by the
+    plain ``fused_bn_act._fwd_ref``, bit for bit, and the pre-activation
+    equals that conv."""
+    fba_ = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
+    gen = torch.Generator(device=conv_device).manual_seed(31)
+    xs, ws = (2, 10, 10, 32), (3, 3, 32, 40)
+    pads = ((1, 1), (1, 1))
+    x = torch.randn(xs, device=conv_device, generator=gen).to(dtype)
+    w = (0.1 * torch.randn(ws, device=conv_device, generator=gen)).to(dtype)
+    mean = 0.3 * torch.randn(40, device=conv_device, generator=gen)
+    invstd = torch.rand(40, device=conv_device, generator=gen) + 0.5
+    scale = 1 + 0.2 * torch.randn(40, device=conv_device, generator=gen)
+    bias = 0.2 * torch.randn(40, device=conv_device, generator=gen)
+    z = torch.randn((2, 10, 10, 40), device=conv_device,
+                    generator=gen).to(dtype)
+    scale, bias = (scale, bias) if affine else (None, None)
+    z = z if with_z else None
+    y, _ = cv.conv_fwd_kernel(x, w, (1, 1), pads, (1, 1))
+    out, pre = cv.conv_fwd_kernel(x, w, (1, 1), pads, (1, 1), mean, invstd,
+                                  scale, bias, z, relu, want_preact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(pre, y)
+    assert torch.equal(out, fba_._fwd_ref(y, mean, invstd, scale, bias, z,
+                                          relu))
+
+
+@pytest.mark.cuda
+def test_conv_function_grads_match_cpu(conv_device):
+    """fp32 ``conv2d`` with an epilogue through autograd on the card (the
+    three kernels) against the CPU's plain path; an input that needs no
+    gradient launches no dgrad kernel."""
+    rng = np.random.RandomState(32)
+    arrs = [rng.randn(*s).astype(np.float32) for s in
+            ((2, 9, 9, 16), (3, 3, 16, 24), (24,), (24,), (24,), (24,),
+             (2, 5, 5, 24))]
+    arrs[1] /= 12.0
+    arrs[3] = np.abs(arrs[3]) + 0.5
+    res = {}
+    for dev in (conv_device, torch.device("cpu")):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrs]
+        x, w, mean, invstd, scale, bias, z = ts
+        out = cv.conv2d(x, w, stride=2, mean=mean, invstd=invstd,
+                        scale=scale, bias=bias, z=z, relu=True)
+        res[dev.type] = [out] + list(torch.autograd.grad(
+            torch.sin(out).sum(), ts))
+    for got, want in zip(res["cuda"], res["cpu"]):
+        scale_ = want.abs().max().item()
+        err = (got.detach().cpu() - want.detach()).abs().max().item()
+        assert err <= 1e-4 * max(scale_, 1.0), (err, scale_)
+    before = cv.conv_dgrad_kernel.launches, cv.conv_wgrad_kernel.launches
+    x = torch.from_numpy(arrs[0]).to(conv_device)
+    w = torch.from_numpy(arrs[1]).to(conv_device).requires_grad_(True)
+    torch.autograd.grad(cv.conv2d(x, w).sum(), w)
+    assert (cv.conv_dgrad_kernel.launches,
+            cv.conv_wgrad_kernel.launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_conv_kernels_refuse_what_they_do_not_take(conv_device):
+    x = torch.randn((2, 8, 8, 16), device=conv_device)
+    w = torch.randn((3, 3, 16, 16), device=conv_device)
+    pads = ((1, 1), (1, 1))
+    with pytest.raises(TypeError):
+        cv.conv_fwd_kernel(x, w.to(torch.bfloat16), (1, 1), pads, (1, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv_fwd_kernel(x.transpose(1, 2), w, (1, 1), pads, (1, 1))
+    with pytest.raises(TypeError):
+        cv.conv_fwd_kernel(x.half(), w.half(), (1, 1), pads, (1, 1))
+    with pytest.raises(ValueError, match="output shape"):
+        cv.conv_dgrad_kernel(x[:, :4], w, (1, 1), pads, (1, 1), (8, 8))

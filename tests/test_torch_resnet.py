@@ -24,11 +24,13 @@ import jax.numpy as jnp
 from apex_tpu.amp import policy as jpolicy
 from apex_tpu.contrib.groupbn import BatchNorm2d_NHWC as JBatchNorm2d_NHWC
 from apex_tpu.models import resnet as jresnet
+from apex_tpu.ops import PallasConv as JPallasConv
 from apex_tpu_torch.amp import convert_params
 from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
 from apex_tpu_torch.convert import (resnet_variables_from_jax,
                                     resnet_variables_to_jax)
 from apex_tpu_torch.models import resnet
+from apex_tpu_torch.ops import PallasConv, conv as tconv
 
 SMALL = dict(stage_sizes=[1, 1, 1, 1], num_filters=8, num_classes=10)
 BLOCKS = {"basic": (jresnet.BasicBlock, resnet.BasicBlock),
@@ -40,17 +42,20 @@ def _images(n=8, size=32, seed=0):
         np.float32)
 
 
-def _pair(block, fused, dtype=torch.float32):
+def _pair(block, fused, dtype=torch.float32, pallas_conv=False):
     """(flax model, the port model's variables in the flax layout, the
     port's model).  The weights are made by the port (flax's init is
-    slow to compile on the CPU) and must fit the flax model's tree."""
+    slow to compile on the CPU) and must fit the flax model's tree.
+    ``pallas_conv`` builds both with their packages' ``PallasConv``."""
     jblock, tblock = BLOCKS[block]
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     jm = jresnet.ResNet(block_cls=jblock, dtype=jdt,
                         norm_cls=JBatchNorm2d_NHWC if fused else None,
+                        conv_cls=JPallasConv if pallas_conv else None,
                         **SMALL)
     tm = resnet.ResNet(block_cls=tblock, dtype=dtype,
                        norm_cls=BatchNorm2d_NHWC if fused else None,
+                       conv_cls=PallasConv if pallas_conv else None,
                        device="cpu", seed=1, **SMALL)
     with torch.no_grad():      # statistics other than the init's
         for name, buf in tm.named_buffers():
@@ -114,7 +119,7 @@ def test_fused_routing_counts_and_flax_names():
     assert not bool(params["stage4_block3.bn3.bn.scale"].any())   # zeros
     with pytest.raises(ValueError, match="fused_epilogue"):
         resnet.ResNet18(fused_epilogue=True, device="cpu")
-    for kw in (dict(sync_bn=True), dict(conv_cls=object), dict(remat="full")):
+    for kw in (dict(sync_bn=True), dict(remat="full")):
         with pytest.raises(NotImplementedError):
             resnet.ResNet18(device="cpu", **kw)
 
@@ -171,3 +176,64 @@ def test_bf16_forward_close_to_jax():
                              torch.from_numpy(x))
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("block", sorted(BLOCKS))
+def test_pallas_conv_resnet_matches_jax(block):
+    """``conv_cls=PallasConv`` in both packages, fused BN, 32 x 32:
+    training-mode logits (atol 1e-4), updated batch statistics (1e-5) and
+    the gradient of every parameter (``sum(sin(logits))``), each within
+    1e-3 of its largest value: fp32 summation order through the backward
+    of ten layers of batch statistics.  On the CPU every conv goes through
+    ``conv2d``'s plain version and no kernel is launched."""
+    jm, variables, tm = _pair(block, True, pallas_conv=True)
+    x = _images(seed=4)
+
+    def jloss(params):
+        logits, upd = jm.apply({"params": params,
+                                "batch_stats": variables["batch_stats"]},
+                               jnp.asarray(x), train=True,
+                               mutable=["batch_stats"])
+        return jnp.sum(jnp.sin(logits)), (logits, upd)
+    (_, (jlogits, upd)), jgrads = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(variables["params"])
+    params, stats = tm.variables()
+    params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    tconv.reset_conv_dispatch_stats()
+    launches = tconv.conv_fwd_kernel.launches
+    logits, new_stats = tm.apply(params, stats, torch.from_numpy(x))
+    grads = dict(zip(params, torch.autograd.grad(torch.sin(logits).sum(),
+                                                 list(params.values()))))
+    n_convs = len([k for k in params if k.endswith("kernel")]) - 1  # head
+    assert tconv.conv_dispatch_stats()["pallas_sites"] == n_convs
+    assert tconv.conv_fwd_kernel.launches == launches
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=1e-4, rtol=1e-4)
+    for k, v in _flat(upd["batch_stats"]).items():
+        np.testing.assert_allclose(new_stats[k].numpy(), np.asarray(v),
+                                   atol=1e-5, err_msg=k)
+    want = _flat(jgrads)
+    assert sorted(grads) == sorted(want)
+    for k, v in want.items():
+        v = np.asarray(v)
+        err = np.abs(grads[k].numpy() - v).max()
+        assert err <= 1e-3 * max(np.abs(v).max(), 1e-6), (k, err)
+
+
+def test_pallas_conv_keeps_names_and_round_trips():
+    """The conv class changes no parameter: the same names, shapes and
+    values as the ``Conv`` model from the same seed, and the variables
+    round-trip through the flax layout unchanged."""
+    _, variables, tm = _pair("bottleneck", True, pallas_conv=True)
+    plain = resnet.ResNet(block_cls=resnet.BottleneckBlock,
+                          norm_cls=BatchNorm2d_NHWC, device="cpu", seed=1,
+                          **SMALL)
+    for got, want in zip(tm.variables(), plain.variables()):
+        assert sorted(got) == sorted(want)
+    for k, v in plain.named_parameters():
+        assert torch.equal(tm.get_parameter(k), v), k
+    params, stats = resnet_variables_from_jax(variables)
+    for k, v in {**params, **stats}.items():
+        want = (tm.get_buffer(k) if k in stats else
+                tm.get_parameter(k).detach())
+        np.testing.assert_array_equal(v.numpy(), want.numpy())

@@ -33,6 +33,7 @@ from apex_tpu.contrib.xentropy import \
     softmax_cross_entropy_loss as jax_xentropy
 from apex_tpu.models import gpt_tiny as jgpt_tiny
 from apex_tpu.models import resnet as jresnet
+from apex_tpu.ops import PallasConv as JPallasConv
 from apex_tpu.optimizers import functional as jF
 from apex_tpu_torch import data
 from apex_tpu_torch import multi_tensor as mta
@@ -46,6 +47,7 @@ from apex_tpu_torch.convert import (gpt_params_from_jax,
 from apex_tpu_torch.examples.imagenet import main_amp as imagenet_main
 from apex_tpu_torch.examples.lm import main_amp
 from apex_tpu_torch.models import BasicBlock, ResNet, gpt_tiny
+from apex_tpu_torch.ops import PallasConv
 from apex_tpu_torch.optimizers import (adam_init, adam_update, sgd_init,
                                        sgd_update)
 
@@ -440,14 +442,20 @@ def _flat_tree(tree):
     return {k: np.asarray(v) for k, v in _flat_jax(tree).items()}
 
 
-def _resnet_pair(opt_level, loss_scale=None, inject=False, **kw):
+def _resnet_pair(opt_level, loss_scale=None, inject=False,
+                 pallas_conv=False, **kw):
     """The JAX and port ImageNet steps (SGD, BN statistics as the model
-    state, fused cross-entropy) on the same small ResNet weights."""
+    state, fused cross-entropy) on the same small ResNet weights; with
+    ``pallas_conv`` the convs of both are their packages' ``PallasConv``
+    (the trainers' ``--pallas-conv``)."""
     jdt = jnp.bfloat16 if opt_level == "O2" else jnp.float32
     dtype = torch.bfloat16 if opt_level == "O2" else torch.float32
     jm = jresnet.ResNet(block_cls=jresnet.BasicBlock, dtype=jdt,
-                        norm_cls=JBatchNorm2d_NHWC, **RESNET_SMALL)
+                        norm_cls=JBatchNorm2d_NHWC,
+                        conv_cls=JPallasConv if pallas_conv else None,
+                        **RESNET_SMALL)
     tm = ResNet(block_cls=BasicBlock, dtype=dtype, norm_cls=BatchNorm2d_NHWC,
+                conv_cls=PallasConv if pallas_conv else None,
                 device="cpu", seed=4, **RESNET_SMALL)
     variables = resnet_variables_to_jax(*tm.variables())
 
@@ -484,14 +492,18 @@ def _image_batch(seed=5, n=8):
             rng.randint(0, 10, n).astype(np.int32))
 
 
-@pytest.mark.parametrize("opt_level,accum,tol", [
-    ("O0", 1, 1e-4), ("O0", 2, 1e-4), ("O2", 1, 2e-2)],
-    ids=["O0", "O0_accum2", "O2"])
-def test_resnet_step_with_model_state_matches_jax(opt_level, accum, tol):
+@pytest.mark.parametrize("opt_level,accum,tol,pallas_conv", [
+    ("O0", 1, 1e-4, False), ("O0", 2, 1e-4, False), ("O2", 1, 2e-2, False),
+    ("O0", 1, 1e-4, True), ("O2", 1, 2e-2, True)],
+    ids=["O0", "O0_accum2", "O2", "O0_pallas_conv", "O2_pallas_conv"])
+def test_resnet_step_with_model_state_matches_jax(opt_level, accum, tol,
+                                                  pallas_conv):
     """Three SGD steps: losses (rtol ``tol``), and at O0 the parameters
     and the BN running statistics (atol 1e-4, fp32 summation order
-    through eight layers) and the momentum buffers."""
-    (jst, jstep), (st, step) = _resnet_pair(opt_level, accum_steps=accum)
+    through eight layers) and the momentum buffers; with and without
+    ``PallasConv`` in both packages."""
+    (jst, jstep), (st, step) = _resnet_pair(opt_level, accum_steps=accum,
+                                            pallas_conv=pallas_conv)
     x, y = _image_batch()
     for i in range(3):
         jst, jm = jstep(jst, (jnp.asarray(x), jnp.asarray(y)))
@@ -591,9 +603,22 @@ def test_imagenet_trainer_runs_on_cpu(capsys):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("flag", ["--pallas-conv", "--no-pallas-conv"])
+def test_imagenet_trainer_conv_flag_trains(capsys, flag):
+    """Both conv routes train two CPU steps; the run ends with the conv
+    sites' count (resnet18: 20 convs a forward, through ``conv2d`` under
+    ``--pallas-conv``, none without it)."""
+    assert imagenet_main.parse(IMAGENET_TINY).pallas_conv   # the default
+    assert imagenet_main.main(IMAGENET_TINY + ["--prof", "2", flag]) == 0
+    out = capsys.readouterr().out
+    sites = 40 if flag == "--pallas-conv" else 0
+    assert f"pallas_conv={flag == '--pallas-conv'}" in out
+    assert f"conv sites {sites} kernel / 0 plain-fallback" in out
+    assert "iter 1" in out and out.rstrip().endswith("done")
+
+
 def test_imagenet_trainer_refusals():
     for extra, exc, match in (
-            (["--pallas-conv"], NotImplementedError, "pallas"),
             (["--sync_bn"], NotImplementedError, "sync_bn"),
             (["--steps-per-call", "4"], NotImplementedError, "steps-per"),
             (["--checkpoint-dir", "ckpt"], NotImplementedError,
