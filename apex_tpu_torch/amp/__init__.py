@@ -1,6 +1,6 @@
-"""Mixed precision: the opt-level presets, the parameter cast and the
-functional loss scaler (the imperative ``amp.initialize`` API and O4
-wait)."""
+"""Mixed precision: the opt-level presets O0-O4, the parameter cast and
+the functional loss scaler (the imperative ``amp.initialize`` API
+waits).  O4 is O2 plus the int8 projections of :mod:`apex_tpu_torch.quant`."""
 
 from .loss_scaler import LossScaler, LossScalerState
 from .policy import convert_params, default_norm_predicate

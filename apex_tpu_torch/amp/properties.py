@@ -1,11 +1,12 @@
-"""Opt-level frontend: the ``Properties`` option struct and the O0-O3
+"""Opt-level frontend: the ``Properties`` option struct and the O0-O4
 presets.
 
 Counterpart of ``apex_tpu/amp/properties.py``: every assignment is
 validated, incompatible combinations raise ``AmpOptionError``, and the
 presets carry the JAX package's defaults — the half type is bfloat16,
-static loss scale 1.0 at every level (dynamic on request).  O4 (the int8
-path) is not ported yet.
+static loss scale 1.0 at every level (dynamic on request).  O4 is O2's
+storage and scaling semantics exactly plus ``quantize=True``: the int8
+routing is a property of the model (``quant=``, :mod:`apex_tpu_torch.quant`).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ class Properties:
             "keep_batchnorm_fp32": None,
             "master_weights": None,
             "loss_scale": 1.0,
+            "quantize": False,
         }
 
     def __getattr__(self, name):
@@ -77,10 +79,15 @@ class Properties:
                     "casting the model; cast_model_type is not allowed "
                     "with opt_level O1.")
         elif name == "patch_functions":
-            if value and self.opt_level in ("O2", "O3"):
+            if value and self.opt_level in ("O2", "O3", "O4"):
                 raise AmpOptionError(
                     "patch_functions (the O1 autocast policy) cannot be "
-                    "combined with a whole-model cast (O2/O3).")
+                    "combined with a whole-model cast (O2/O3/O4).")
+            if value and self.options.get("quantize"):
+                raise AmpOptionError(
+                    "patch_functions (the O1 autocast policy) cannot be "
+                    "combined with quantize (the O4 int8 path composes "
+                    "with a whole-model cast, O2 semantics).")
         elif name == "keep_batchnorm_fp32":
             if isinstance(value, str):
                 if value.lower() not in ("true", "false"):
@@ -97,6 +104,15 @@ class Properties:
                 value = float(value)
                 if value <= 0.0:
                     raise AmpOptionError("loss_scale must be positive")
+        elif name == "quantize":
+            if not isinstance(value, bool):
+                raise AmpOptionError(
+                    "quantize must be a bool, got {!r}".format(value))
+            if value and self.patch_functions:
+                raise AmpOptionError(
+                    "quantize (the O4 int8 path) composes with a "
+                    "whole-model cast (O2 semantics), not with the O1 "
+                    "autocast policy.")
         self.__dict__["options"][name] = value
 
     def __repr__(self):
@@ -116,6 +132,16 @@ def _make_preset(name, doc, **opts):
     build.__doc__ = doc
     return build
 
+
+O4 = _make_preset(
+    "O4", "Calibrated int8 mixed precision: O2's storage semantics exactly "
+          "(bf16 model cast, fp32 norms, fp32 master weights, loss "
+          "scaling) plus the models' quant= projections on the int8 "
+          "kernel.  Without a frozen calibration every site runs bitwise "
+          "as O2.",
+    cast_model_type=torch.bfloat16, patch_functions=False,
+    keep_batchnorm_fp32=True, master_weights=True, loss_scale=1.0,
+    quantize=True)
 
 O3 = _make_preset(
     "O3", "Pure reduced precision (bf16). Fast but no fp32 batchnorm "
@@ -141,4 +167,4 @@ O0 = _make_preset(
     cast_model_type=torch.float32, patch_functions=False,
     keep_batchnorm_fp32=None, master_weights=False, loss_scale=1.0)
 
-opt_levels = {"O3": O3, "O2": O2, "O1": O1, "O0": O0}
+opt_levels = {"O4": O4, "O3": O3, "O2": O2, "O1": O1, "O0": O0}

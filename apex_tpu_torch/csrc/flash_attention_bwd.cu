@@ -1,11 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels apex_tpu/ops/flash_attention.py
-// `_bwd_dq_kernel` (dQ) and `_bwd_dkv_kernel` (dK, dV and the partial
-// sums of the key-padding-bias gradient), both launched by
-// `_flash_bwd_pallas`.  Neither writes the [T, S] score matrix to device
-// memory: both recompute it tile by tile from q, k and the forward's fp32
-// log-sum-exp `lse`.
+// `_bwd_dq_kernel` (dQ), `_bwd_dkv_kernel` (dK, dV and the partial sums
+// of the key-padding-bias gradient) and `_bwd_db2_kernel` (the
+// head-summed gradient of a [B, T, S] bias), all launched by
+// `_flash_bwd_pallas`.  None writes the [T, S] score matrix of a head to
+// device memory: each recomputes it tile by tile from q, k and the
+// forward's fp32 log-sum-exp `lse`.
 //
 // What they compute, per (batch b, query head h, query row t, key j):
 //   s    = (q . k) * sm_scale + key_padding_bias[b, j] + bias[b, t, j]
@@ -19,6 +20,7 @@
 //   dk   = sum_t ds(rounded) * q
 //   dkb  = sum_t ds (fp32, unrounded), per (b, h, j): the caller sums it
 //          over heads and divides by sm_scale
+//   db2  = sum_h ds (fp32, unrounded) * (1 / sm_scale), per (b, t, j)
 // with every product accumulated in fp32, as the Pallas kernels do
 // (`_recompute_p_ds`, `p.astype(do.dtype)`, `ds.astype(k.dtype)`).
 //
@@ -36,6 +38,13 @@
 //    the H / H_kv query heads that share the KV head (GQA) and, for each,
 //    over the query tiles in the band.  A KV head's query heads therefore
 //    sum into one accumulator: no atomics, no second pass;
+//  * db2: grid (key tiles of 64, query tiles of 64, batch); the head axis
+//    is INSIDE the block, as in the Pallas kernel: one block owns one
+//    (b, q-tile, k-tile) of the output, loops over all H query heads (GQA
+//    heads read KV head h / (H / H_kv)), recomputes s, p, dp and ds for
+//    each, sums ds in fp32 registers and writes the tile once.  No
+//    atomics, deterministic.  Tiles outside the causal / window band are
+//    written as zeros without loading anything;
 //  * 256 threads; 4 threads share one row (a query row in dQ, a key row
 //    in dK/dV) and split its 64 columns and D output dims between them,
 //    reducing with warp shuffles; a row's threads sit in one warp;
@@ -65,6 +74,7 @@ struct BwdParams {
   void* dk;
   void* dv;
   float* dkbias;        // [B, H, S] fp32, contiguous, or null
+  float* dbias;         // [B, T, S] fp32, contiguous, or null (db2 only)
   int64_t sq_b, sq_t, sq_h;
   int64_t sk_b, sk_t, sk_h;
   int64_t sv_b, sv_t, sv_h;
@@ -376,6 +386,117 @@ flash_bwd_dkv_kernel(const BwdParams p) {
   }
 }
 
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_db2_kernel(const BwdParams p) {
+  constexpr int QS = D + 1;
+
+  extern __shared__ float smem[];
+  float* Qs = smem;                    // [BQ][QS]
+  float* dOs = Qs + BQ * QS;           // [BQ][QS]
+  float* Ks = dOs + BQ * QS;           // [BK][QS]
+  float* Vs = Ks + BK * QS;            // [BK][QS]
+  float* Bs = Vs + BK * QS;            // [BQ][PS] bias tile, then output
+  float* Ls = Bs + BQ * PS;            // [BQ] lse of this head
+  float* Dl = Ls + BQ;                 // [BQ] delta of this head
+  float* KBs = Dl + BQ;                // [BK] key bias
+
+  const int tid = threadIdx.x;
+  const int r = tid / TPR;             // query row of this thread
+  const int lane = tid % TPR;
+  const int k0 = blockIdx.x * BK;
+  const int q0 = blockIdx.y * BQ;
+  const int b = blockIdx.z;
+  const int grp = p.H / p.Hkv;
+  float* out = p.dbias + (static_cast<int64_t>(b) * p.tq + q0) * p.tk + k0;
+
+  // a tile no query row of which sees any of its keys: zeros
+  bool live = true;
+  if (p.causal) {
+    const int q_last = min(q0 + BQ, p.tq) - 1;
+    const int k_last = min(k0 + BK, p.tk) - 1;
+    live = k0 <= p.q_offset + q_last
+           && (p.window <= 0 || p.q_offset + q0 - k_last < p.window);
+  }
+  if (!live) {
+    for (int i = tid; i < BQ * BK; i += NTHREADS) {
+      const int rr = i / BK, c = i % BK;
+      if (q0 + rr < p.tq && k0 + c < p.tk)
+        out[static_cast<int64_t>(rr) * p.tk + c] = 0.f;
+    }
+    return;
+  }
+
+  const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
+  const float* bias = p.bias + b * p.sb_b;
+  for (int i = tid; i < BQ * BK; i += NTHREADS) {
+    const int rr = i / BK, c = i % BK;
+    const int t = q0 + rr, key = k0 + c;
+    Bs[rr * PS + c] = (t < p.tq && key < p.tk) ? bias[t * p.sb_t + key] : 0.f;
+  }
+  for (int c = tid; c < BK; c += NTHREADS)
+    KBs[c] = (kb && k0 + c < p.tk) ? kb[k0 + c] : 0.f;
+
+  const int row = q0 + r;
+  float acc[NS], s[NS], dp[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) acc[j] = 0.f;
+
+  for (int h = 0; h < p.H; ++h) {
+    const int hk = h / grp;
+    __syncthreads();                   // the previous head's tiles consumed
+    load_tile<T, D>(Qs, static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h,
+                    p.sq_t, q0, p.tq);
+    load_tile<T, D>(dOs,
+                    static_cast<const T*>(p.dout) + b * p.sdo_b + h * p.sdo_h,
+                    p.sdo_t, q0, p.tq);
+    load_tile<T, D>(Ks, static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h,
+                    p.sk_t, k0, p.tk);
+    load_tile<T, D>(Vs, static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h,
+                    p.sv_t, k0, p.tk);
+    const int64_t hrow = (static_cast<int64_t>(b) * p.H + h) * p.tq;
+    for (int i = tid; i < BQ; i += NTHREADS) {
+      const bool in = q0 + i < p.tq;
+      Ls[i] = in ? p.lse[hrow + q0 + i] : 0.f;
+      Dl[i] = in ? p.delta[hrow + q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qd = Qs[r * QS + d];
+      const float od = dOs[r * QS + d];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int c = j * TPR + lane;
+        s[j] += qd * Ks[c * QS + d];
+        dp[j] += od * Vs[c * QS + d];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int c = j * TPR + lane;
+      const float x = s[j] * p.sm_scale + KBs[c] + Bs[r * PS + c];
+      const float pj = visible(p, row, k0 + c) ? expf(x - Ls[r]) : 0.f;
+      acc[j] += pj * (dp[j] - Dl[r]) * p.sm_scale;
+    }
+  }
+
+  // stage the tile through shared memory for coalesced stores
+  __syncthreads();
+  const float inv_scale = 1.0f / p.sm_scale;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) Bs[r * PS + j * TPR + lane] = acc[j] * inv_scale;
+  __syncthreads();
+  for (int i = tid; i < BQ * BK; i += NTHREADS) {
+    const int rr = i / BK, c = i % BK;
+    if (q0 + rr < p.tq && k0 + c < p.tk)
+      out[static_cast<int64_t>(rr) * p.tk + c] = Bs[rr * PS + c];
+  }
+}
+
 // Each launcher opts in to more than 48 KB of shared memory once per
 // instantiation (and not again while a CUDA graph is being captured).
 template <typename T, int D>
@@ -408,24 +529,50 @@ cudaError_t launch_dkv(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_dim(const BwdParams& p, int head_dim, bool dkv,
-                   cudaStream_t st) {
-  switch (head_dim) {
-    case 32: return dkv ? launch_dkv<T, 32>(p, st) : launch_dq<T, 32>(p, st);
-    case 64: return dkv ? launch_dkv<T, 64>(p, st) : launch_dq<T, 64>(p, st);
-    case 128:
-      return dkv ? launch_dkv<T, 128>(p, st) : launch_dq<T, 128>(p, st);
+template <typename T, int D>
+cudaError_t launch_db2(const BwdParams& p, cudaStream_t stream) {
+  constexpr int QS = D + 1;
+  const size_t smem = sizeof(float) * (2 * BQ * QS + 2 * BK * QS
+                                       + BQ * PS + 2 * BQ + BK);
+  auto kernel = flash_bwd_db2_kernel<T, D>;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (configured != cudaSuccess) return configured;
+  const dim3 grid((p.tk + BK - 1) / BK, (p.tq + BQ - 1) / BQ, p.B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+enum class Which { kDq, kDkv, kDb2 };
+
+template <typename T, int D>
+cudaError_t launch(const BwdParams& p, Which which, cudaStream_t st) {
+  switch (which) {
+    case Which::kDq: return launch_dq<T, D>(p, st);
+    case Which::kDkv: return launch_dkv<T, D>(p, st);
+    case Which::kDb2: return launch_db2<T, D>(p, st);
   }
   return cudaErrorInvalidValue;
 }
 
-int run(const BwdParams* p, int head_dim, int is_bf16, bool dkv,
+template <typename T>
+cudaError_t by_dim(const BwdParams& p, int head_dim, Which which,
+                   cudaStream_t st) {
+  switch (head_dim) {
+    case 32: return launch<T, 32>(p, which, st);
+    case 64: return launch<T, 64>(p, which, st);
+    case 128: return launch<T, 128>(p, which, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int run(const BwdParams* p, int head_dim, int is_bf16, Which which,
         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? by_dim<__nv_bfloat16>(*p, head_dim, dkv, st)
-              : by_dim<float>(*p, head_dim, dkv, st);
+      is_bf16 ? by_dim<__nv_bfloat16>(*p, head_dim, which, st)
+              : by_dim<float>(*p, head_dim, which, st);
   return static_cast<int>(err);
 }
 
@@ -435,10 +582,16 @@ int run(const BwdParams* p, int head_dim, int is_bf16, bool dkv,
 // success).  Head dims 32/64/128; is_bf16 picks bf16 or fp32.
 extern "C" int flash_attention_bwd_dq(const BwdParams* p, int head_dim,
                                       int is_bf16, void* stream) {
-  return run(p, head_dim, is_bf16, false, stream);
+  return run(p, head_dim, is_bf16, Which::kDq, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const BwdParams* p, int head_dim,
                                        int is_bf16, void* stream) {
-  return run(p, head_dim, is_bf16, true, stream);
+  return run(p, head_dim, is_bf16, Which::kDkv, stream);
+}
+
+// p->bias and p->dbias must be set.
+extern "C" int flash_attention_bwd_db2(const BwdParams* p, int head_dim,
+                                       int is_bf16, void* stream) {
+  return run(p, head_dim, is_bf16, Which::kDb2, stream);
 }

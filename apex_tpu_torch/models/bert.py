@@ -9,11 +9,11 @@ head_dim]``, the output kernel ``[heads, head_dim, d]``.  Parameters are
 fp32; a projection with ``dtype=bf16`` casts both its input and its
 kernel to bf16, as flax does.
 
-Ported: the ``flash`` and ``full`` attention impls and
-the external-cache incremental forward the serving engine drives.  Not
-ported yet, and raising ``NotImplementedError``: ``ring``,
-``ring_flash``, ``ulysses``, the ``decode=True`` flax-cache path and
-``quant=``.
+Ported: the ``flash`` and ``full`` attention impls, the external-cache
+incremental forward the serving engine drives, and ``quant=`` (every
+projection a :class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`).
+Not ported yet, and raising ``NotImplementedError``: ``ring``,
+``ring_flash``, ``ulysses`` and the ``decode=True`` flax-cache path.
 """
 
 from __future__ import annotations
@@ -74,10 +74,17 @@ class DenseGeneral(nn.Module):
 
 def _dense_factory(quant, dtype, *, device, generator):
     """``dense(in_shape, out_shape)`` factory of the JAX
-    ``_dense_factory`` hook; the int8 path (``quant=``) is not ported."""
+    ``_dense_factory`` hook: with a ``QuantConfig`` every projection is
+    the parameter-compatible ``QuantDenseGeneral`` (the int8 kernel on
+    calibrated sites, the plain arithmetic elsewhere), without one the
+    plain ``DenseGeneral``."""
     if quant is not None:
-        raise NotImplementedError("quant= (int8 projections) is not ported "
-                                  "yet")
+        from ..quant.layers import QuantDenseGeneral
+
+        def qdense(in_shape, out_shape):
+            return QuantDenseGeneral(in_shape, out_shape, dtype, quant=quant,
+                                     device=device, generator=generator)
+        return qdense
 
     def dense(in_shape, out_shape):
         return DenseGeneral(in_shape, out_shape, dtype, device=device,

@@ -24,9 +24,13 @@ init mirrors flax's initializers from a ``torch.Generator`` seeded with
 kernels, zero biases, LayerNorm ones and zeros (the numbers differ from
 JAX's, whose generator is another).
 
+``quant=`` (a :class:`~apex_tpu_torch.quant.layers.QuantConfig`) builds
+every q/k/v/out/mlp_up/mlp_down projection as a ``QuantDenseGeneral``
+named by its flax path (``block_0/attention/query``), so a calibration
+moves between the packages; the LM head is not quantized, as in JAX.
 Not ported yet: ``generate()`` and ``decode=True`` (the serving engine's
-external-cache forward is the decode path), ``sp_axis`` sequence
-parallelism and ``quant=``.
+external-cache forward is the decode path) and ``sp_axis`` sequence
+parallelism.
 """
 
 from __future__ import annotations
@@ -120,6 +124,9 @@ class GPT(nn.Module):
                 attention_impl=attention_impl, num_kv_heads=num_kv_heads,
                 window=window, quant=quant, device=dev, generator=gen))
         self.ln_f = FusedLayerNorm(hidden_size, device=dev)
+        if quant is not None:
+            from ..quant.layers import name_quant_sites
+            name_quant_sites(self)
 
     @property
     def device(self) -> torch.device:

@@ -17,12 +17,15 @@ nothing else: CPU tensors take :func:`_flash_fwd_ref` and
 :func:`_flash_bwd_ref`; CUDA tensors launch the kernels of
 ``csrc/flash_attention.cu`` (forward, every shape, ``q_len = 1`` decode
 included — the TPU's measured crossovers do not carry over) and
-``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), or raise.  The kernels
-replace the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel`` (``apex_tpu/ops/flash_attention.py:238, 440, 478``);
-their sources say what bounds them on the card and how they are laid
-out.  On CUDA, a ``[B, T, S]`` bias that needs a gradient raises (the
-Pallas ``_bwd_db2_kernel`` is not ported yet), as does a per-head bias.
+``csrc/flash_attention_bwd.cu`` (dQ, dK/dV and, when a ``[B, T, S]``
+bias needs a gradient, its head-summed gradient), or raise.  The kernels
+replace the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel``,
+``_bwd_dkv_kernel`` and ``_bwd_db2_kernel``
+(``apex_tpu/ops/flash_attention.py:238, 440, 478, 562``); their sources
+say what bounds them on the card and how they are laid out.  A per-head
+``[B, H, T, S]`` bias has no kernel here or in the JAX package: it takes
+the plain, differentiable path on either device, as JAX takes its jnp
+``blockwise_attention``.
 """
 
 from __future__ import annotations
@@ -171,7 +174,7 @@ class _FlashBwdParams(ctypes.Structure):
     """Mirror of ``struct BwdParams`` in ``csrc/flash_attention_bwd.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("q", "k", "v", "dout", "lse", "delta", "kbias", "bias",
-                  "dq", "dk", "dv", "dkbias")]
+                  "dq", "dk", "dv", "dkbias", "dbias")]
                 + [(f"s{n}_{a}", ctypes.c_int64)
                    for n in ("q", "k", "v", "do", "dq", "dk", "dv")
                    for a in "bth"]
@@ -193,7 +196,8 @@ def _fwd_lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
-    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv):
+    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv,
+               lib.flash_attention_bwd_db2):
         fn.argtypes = [ctypes.POINTER(_FlashBwdParams), ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -287,7 +291,7 @@ flash_fwd_kernel.launches = 0
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
-                dv, dkbias, kw):
+                dv, dkbias, kw, dbias=None):
     prm = _FlashBwdParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), dout=do.data_ptr(),
         lse=lse.data_ptr(), delta=delta.data_ptr(),
@@ -295,6 +299,7 @@ def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
         dk=None if dk is None else dk.data_ptr(),
         dv=None if dv is None else dv.data_ptr(),
         dkbias=None if dkbias is None else dkbias.data_ptr(),
+        dbias=None if dbias is None else dbias.data_ptr(),
         **_strides(q=q, k=k, v=v, do=do, dq=q if dq is None else dq,
                    dk=k if dk is None else dk, dv=v if dv is None else dv),
         **_common(q, k, kbias, bias, **kw))
@@ -369,11 +374,38 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kbias, bias, *,
 flash_bwd_dkv_kernel.launches = 0
 
 
+def flash_bwd_db2_kernel(q, k, v, do, lse, delta, kbias, bias, *,
+                         sm_scale: float, causal: bool, q_offset: int = 0,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA bias-gradient kernel (arguments as
+    :func:`flash_bwd_dq_kernel`, ``bias`` required): returns the fp32
+    ``[B, T, S]`` gradient of the ``[B, T, S]`` bias, ``ds`` summed over
+    the query heads and divided by ``sm_scale``, zeros where the causal or
+    window band hides a key.  Adds one to
+    ``flash_bwd_db2_kernel.launches`` per launch."""
+    if bias is None:
+        raise ValueError("the bias-gradient kernel needs the [B, T, S] bias")
+    kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
+    _check_bwd_extras(q, do, lse, delta)
+    dbias = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
+                        dtype=torch.float32, device=q.device)
+    _launch_bwd("db2", q, k, v, do, lse, delta, kbias, bias, None, None,
+                None, None, dict(sm_scale=sm_scale, causal=causal,
+                                 q_offset=q_offset, window=window),
+                dbias=dbias)
+    flash_bwd_db2_kernel.launches += 1
+    return dbias
+
+
+flash_bwd_db2_kernel.launches = 0
+
+
 # -- autograd --------------------------------------------------------------------
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, saving ``out`` and ``lse``; backward the dQ and
-    dK/dV kernels on CUDA, the plain versions on the CPU."""
+    dK/dV kernels (and the bias-gradient kernel when the ``[B, T, S]``
+    bias needs one) on CUDA, the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, kbias, bias, sm_scale, causal, q_offset,
@@ -401,6 +433,9 @@ class _FlashAttention(torch.autograd.Function):
                 kbias_grad=ctx.needs_input_grad[3], **kw)
             dkb = None if part is None else part.sum(1) / kw["sm_scale"]
             db = None
+            if ctx.needs_input_grad[4]:
+                db = flash_bwd_db2_kernel(q, k, v, do, lse, delta, kbias,
+                                          bias, **kw)
         else:
             dq, dk, dv, dkb, db = _flash_bwd_ref(q, k, v, kbias, bias, out,
                                                  lse, do, **kw)
@@ -420,16 +455,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     window: Optional[int] = None):
     """Flash attention.  ``q``: [batch, q_len, heads, head_dim]; ``k, v``:
     [batch, kv_len, kv_heads, head_dim]; returns q's shape and dtype.
-    Differentiable in q, k, v and ``key_padding_bias``; in ``bias`` on
-    the CPU only.
+    Differentiable in q, k, v, ``key_padding_bias`` and ``bias``.
 
     ``kv_heads`` may divide ``heads`` (GQA): each KV head serves
     ``heads / kv_heads`` query heads without being repeated on the card.
     ``key_padding_bias``: additive ``[batch, kv_len]`` (0 visible, large
     negative hidden).  ``bias``: additive ``[batch, q_len, kv_len]``
     broadcast over heads (anything broadcastable to it is accepted), or a
-    per-head ``[batch, heads, q_len, kv_len]`` bias, which only the CPU
-    path takes (the JAX package has no kernel for it either).
+    per-head ``[batch, heads, q_len, kv_len]`` bias, which no kernel takes
+    (nor in the JAX package): it runs the plain version, differentiable,
+    on either device.
     ``window``: sliding-window local attention (needs ``causal``): each
     query sees the last ``window`` keys, itself included.  Causal
     ``q_len < kv_len`` aligns the queries to the END of the keys, the
@@ -480,19 +515,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
         key_padding_bias = None
 
     if per_head_bias is not None:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "a per-head [B, H, T, S] bias has no CUDA kernel (nor a "
-                "Pallas one); pass a [B, T, S] bias or run on the CPU")
+        # plain torch on either device, as JAX's jnp path: no kernel exists
         out, _ = _flash_fwd_ref(q, k, v, key_padding_bias, per_head_bias,
                                 sm_scale=sm_scale, causal=causal,
                                 q_offset=q_offset, window=window)
         return out
-    if (q.is_cuda and bias is not None and bias.requires_grad
-            and torch.is_grad_enabled()):
-        raise NotImplementedError(
-            "the gradient of a [B, T, S] bias (the Pallas _bwd_db2_kernel) "
-            "has no CUDA kernel yet; detach the bias or run on the CPU")
     return _FlashAttention.apply(q, k, v, key_padding_bias, bias,
                                  float(sm_scale), bool(causal),
                                  int(q_offset), window)

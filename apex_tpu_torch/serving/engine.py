@@ -15,7 +15,9 @@ counterpart of ``apex_tpu/serving/engine.py``.
   through that bucket's truncated page table; dead slots decode at
   position 0 against the trash page;
 * **paged KV cache** — :mod:`apex_tpu_torch.serving.kv_cache`, updated
-  in place;
+  in place; ``cache_dtype=torch.int8`` stores it as int8 with one fp32
+  scale per (token, head) (``QuantPool``), quantized by the scatters and
+  dequantized by the gather;
 * **per-request timings** — queue wait, prefill, decode, TTFT (submit to
   first token), TPOT (mean time per later token) and e2e, measured on the
   host around work that ends in the token's copy to the host; each
@@ -120,9 +122,10 @@ class ServingEngine:
     at (each must divide by ``page_size`` and fit ``model.max_len``);
     ``max_seqs`` is the decode batch width; ``n_pages`` sizes the pool
     (default: enough for ``max_seqs`` sequences of the largest bucket,
-    plus the trash page).  ``device`` defaults to CUDA and raises without
-    a GPU; pass ``device="cpu"`` to serve with the plain versions.  The
-    model is moved to ``device``."""
+    plus the trash page).  ``cache_dtype``: the KV pool's storage dtype,
+    default the model's compute dtype, or ``torch.int8``.  ``device``
+    defaults to CUDA and raises without a GPU; pass ``device="cpu"`` to
+    serve with the plain versions.  The model is moved to ``device``."""
 
     def __init__(self, model, *,
                  buckets: Sequence[int] = (128, 256),
@@ -130,6 +133,7 @@ class ServingEngine:
                  max_seqs: int = 4,
                  n_pages: Optional[int] = None,
                  max_queue: int = 64,
+                 cache_dtype=None,
                  device=None):
         self.device = resolve_device(device)
         buckets = sorted(int(b) for b in buckets)
@@ -148,8 +152,10 @@ class ServingEngine:
         self.max_seqs = int(max_seqs)
         if n_pages is None:
             n_pages = 1 + self.max_seqs * (buckets[-1] // page_size)
-        self.pool_k, self.pool_v = _kv.make_pool(model, n_pages, page_size,
-                                                 device=self.device)
+        self.pool_k, self.pool_v = _kv.make_pool(
+            model, n_pages, page_size, device=self.device, dtype=cache_dtype)
+        #: the pool's storage dtype ("int8" for an int8 cache)
+        self.kv_cache_dtype = _kv.storage_dtype(self.pool_k)
         self.pages = _kv.PageAllocator(n_pages)
         self._slots: List[Optional[_Active]] = [None] * self.max_seqs
         # per-slot decode state (host): current write position, last
@@ -166,7 +172,8 @@ class ServingEngine:
         self.stats = {"submitted": 0, "completed": 0, "rejected": 0,
                       "tokens_out": 0, "decode_steps": 0, "prefills": 0,
                       "prefill_s": 0.0, "decode_s": 0.0,
-                      "kv_bytes_per_token": _kv.kv_bytes_per_token(model)}
+                      "kv_bytes_per_token": _kv.kv_bytes_per_token(
+                          model, cache_dtype)}
         self._serve_stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
         self._closed = False

@@ -8,9 +8,12 @@
   masked lane can never corrupt a live page;
 * :func:`gather_views` / :func:`scatter_prefill` / :func:`scatter_token`
   bridge the pool and the dense ``[S, bucket, n_kv, head_dim]`` views the
-  GPT incremental forward consumes, in plain torch indexing.
-
-The int8 ``QuantPool`` waits for the quantization slice.
+  GPT incremental forward consumes, in plain torch indexing;
+* an int8 pool (``make_pool(..., dtype=torch.int8)``) is a
+  :class:`QuantPool` per half: int8 rows plus one fp32 scale per (token,
+  head).  The scatters quantize on the way in, the gather dequantizes to
+  the model's compute dtype, so the model never sees int8.  All of it is
+  plain torch, as it is plain jnp in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,11 +24,46 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["PageAllocator", "TRASH_PAGE", "make_pool", "gather_views",
-           "scatter_prefill", "scatter_token", "kv_bytes_per_token"]
+__all__ = ["PageAllocator", "QuantPool", "TRASH_PAGE", "make_pool",
+           "gather_views", "scatter_prefill", "scatter_token",
+           "kv_bytes_per_token", "pages_for_budget", "storage_dtype"]
 
 #: page id 0 is the trash page: dead slots and table padding point at it.
 TRASH_PAGE = 0
+
+
+class QuantPool:
+    """One int8 half of the KV pool: ``data`` int8 ``[n_layers, n_pages,
+    page_size, n_kv, head_dim]`` and ``scale`` fp32 ``[n_layers, n_pages,
+    page_size, n_kv]``, one symmetric absmax scale per cached row (4 bytes
+    against ``head_dim`` saved).  ``shape`` is the dense view's, ``dtype``
+    the dense view's dtype (what :func:`gather_views` hands the model);
+    the storage dtype is ``data.dtype``."""
+
+    def __init__(self, data: torch.Tensor, scale: torch.Tensor,
+                 out_dtype: torch.dtype):
+        self.data = data
+        self.scale = scale
+        self.out_dtype = out_dtype
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.out_dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def storage_dtype(pool) -> str:
+    """The dtype a pool half stores (``"int8"`` for a :class:`QuantPool`),
+    as the JAX package names it: the ``kv_cache_dtype`` label."""
+    dt = pool.data.dtype if isinstance(pool, QuantPool) else pool.dtype
+    return str(dt).replace("torch.", "")
 
 
 def _model_kv_dims(model) -> Tuple[int, int, int]:
@@ -33,21 +71,52 @@ def _model_kv_dims(model) -> Tuple[int, int, int]:
     return model.num_layers, n_kv, model.hidden_size // model.num_heads
 
 
-def kv_bytes_per_token(model) -> int:
-    """Device bytes ONE cached token costs across all layers (k + v)."""
+def kv_bytes_per_token(model, dtype=None) -> int:
+    """Device bytes ONE cached token costs across all layers (k + v,
+    the scales included for int8) at ``dtype`` storage (default: the
+    model's compute dtype)."""
     n_layers, n_kv, head_dim = _model_kv_dims(model)
-    return 2 * n_layers * n_kv * head_dim * model.dtype.itemsize
+    dt = model.dtype if dtype is None else dtype
+    if dt == torch.int8:
+        per_head = head_dim + 4              # int8 row + one fp32 scale
+    else:
+        per_head = head_dim * dt.itemsize
+    return 2 * n_layers * n_kv * per_head
 
 
-def make_pool(model, n_pages: int, page_size: int, device=None):
+def pages_for_budget(model, page_size: int, budget_bytes: int,
+                     dtype=None) -> int:
+    """How many KV pages fit a byte budget at ``dtype`` storage."""
+    per_page = kv_bytes_per_token(model, dtype) * int(page_size)
+    return int(budget_bytes) // per_page if per_page else 0
+
+
+def make_pool(model, n_pages: int, page_size: int, device=None,
+              dtype=None):
     """Zeroed ``(pool_k, pool_v)``, each ``[n_layers, n_pages, page_size,
-    n_kv_heads, head_dim]`` in the model's compute dtype on ``device``
-    (default: the model's)."""
+    n_kv_heads, head_dim]`` on ``device`` (default: the model's), in the
+    model's compute dtype, or :class:`QuantPool` halves when ``dtype`` is
+    ``torch.int8`` (their views dequantize to the compute dtype)."""
     n_layers, n_kv, head_dim = _model_kv_dims(model)
     dev = model.device if device is None else device
     shape = (n_layers, n_pages, page_size, n_kv, head_dim)
-    return (torch.zeros(shape, dtype=model.dtype, device=dev),
-            torch.zeros(shape, dtype=model.dtype, device=dev))
+    if dtype == torch.int8:
+        def half():
+            return QuantPool(torch.zeros(shape, dtype=torch.int8, device=dev),
+                             torch.ones(shape[:-1], device=dev), model.dtype)
+        return half(), half()
+    dt = model.dtype if dtype is None else dtype
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
+
+
+def _quant_rows(x):
+    """Symmetric int8 quantization of each row over the trailing
+    head_dim axis: ``(q int8, scale fp32[...])``, with the rounding and
+    zero-amax rules of :mod:`apex_tpu_torch.quant.kernels`."""
+    from ..quant.kernels import amax_to_scale, quantize
+    scale = amax_to_scale(x.float().abs().amax(dim=-1))
+    return quantize(x, scale[..., None]), scale
 
 
 def gather_views(pool_k, pool_v, tables):
@@ -62,8 +131,12 @@ def gather_views(pool_k, pool_v, tables):
     tables = tables.to(device=pool_k.device, dtype=torch.long)
 
     def dense(pool):
-        return pool[:, tables].reshape(n_layers, s, n_pages_b * page_size,
-                                       n_kv, head_dim)
+        if isinstance(pool, QuantPool):
+            d = (pool.data[:, tables].float()
+                 * pool.scale[:, tables][..., None]).to(pool.out_dtype)
+        else:
+            d = pool[:, tables]
+        return d.reshape(n_layers, s, n_pages_b * page_size, n_kv, head_dim)
 
     kd, vd = dense(pool_k), dense(pool_v)
     return [(kd[i], vd[i]) for i in range(n_layers)]
@@ -74,9 +147,16 @@ def scatter_prefill(pool, pages, dense):
 
     ``pages``: ``[n_pages_b]`` page ids; ``dense``: ``[n_layers, bucket,
     n_kv, head_dim]`` (the batch-1 view the prefill forward produced).
-    Returns ``pool``."""
+    An int8 pool quantizes per (token, head).  Returns ``pool``."""
     n_layers, _, page_size, n_kv, head_dim = pool.shape
     pages = pages.to(device=pool.device, dtype=torch.long)
+    if isinstance(pool, QuantPool):
+        q, sc = _quant_rows(dense)
+        pool.data[:, pages] = q.reshape(n_layers, pages.shape[0], page_size,
+                                        n_kv, head_dim)
+        pool.scale[:, pages] = sc.reshape(n_layers, pages.shape[0],
+                                          page_size, n_kv)
+        return pool
     paged = dense.reshape(n_layers, pages.shape[0], page_size, n_kv,
                           head_dim)
     pool[:, pages] = paged.to(pool.dtype)
@@ -88,9 +168,15 @@ def scatter_token(pool, page_ids, offsets, tok):
 
     ``page_ids``/``offsets``: ``[S]`` (page and in-page offset of each
     slot's current position — dead slots point at the trash page);
-    ``tok``: ``[n_layers, S, n_kv, head_dim]``.  Returns ``pool``."""
+    ``tok``: ``[n_layers, S, n_kv, head_dim]``.  An int8 pool quantizes
+    per (token, head).  Returns ``pool``."""
     page_ids = page_ids.to(device=pool.device, dtype=torch.long)
     offsets = offsets.to(device=pool.device, dtype=torch.long)
+    if isinstance(pool, QuantPool):
+        q, sc = _quant_rows(tok)
+        pool.data[:, page_ids, offsets] = q
+        pool.scale[:, page_ids, offsets] = sc
+        return pool
     pool[:, page_ids, offsets] = tok.to(pool.dtype)
     return pool
 

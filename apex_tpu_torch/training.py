@@ -13,6 +13,10 @@ semantics:
   caller's ``loss_fn``; ``.to(bf16)`` is differentiable and hands an fp32
   gradient back to each master, as the JAX transpose of the cast does.
 * O3: parameters stored bf16, no masters.
+* O4: O2's storage and scaling semantics exactly; the int8 routing is a
+  property of the model (``quant=``, :mod:`apex_tpu_torch.quant`), and
+  the quantized matmul's backward is the straight-through bf16 product,
+  so a model without a frozen calibration steps bitwise as O2.
 
 The parameter tree is a mapping of ``state_dict`` names to tensors.
 Skipping a step is a device-side ``torch.where`` (``apply_mask``), and

@@ -5,8 +5,10 @@ plain PyTorch version at the shapes of the serving and training paths,
 serves GPT-2 small through the paged-KV engine, trains it for ten steps
 through the LM trainer, trains ResNet-50 for ten steps through the
 ImageNet trainer (its default, every convolution in the port's conv
-kernels; then with ``--no-pallas-conv``), and checks the card's answers
-against the CPU's.
+kernels; then with ``--no-pallas-conv``), serves and trains GPT-2 small
+at amp O4 through the int8 quantized-matmul kernel, drives the
+``[B, T, S]`` bias gradient through ``flash_attention``, and checks the
+card's answers against the CPU's.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -15,10 +17,12 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the three CUDA libraries (flash forward; flash dQ and dK/dV;
-   the conv forward, dgrad and wgrad: one ``nvcc`` each) and compile the
-   Triton kernels (LayerNorm, BN epilogue and cross-entropy, forward and
-   backward, one after another), the four concurrently, and time each;
+2. build the four CUDA libraries (flash forward; flash dQ, dK/dV and the
+   bias gradient; the conv forward, dgrad and wgrad; the int8 quantized
+   matmul: one ``nvcc`` each) and compile the Triton kernels (LayerNorm,
+   BN epilogue and cross-entropy, forward and backward, one after
+   another), the five concurrently, time each and print ``ptxas``'s
+   registers and spills;
 3. LayerNorm kernel vs plain at ``[1024, 768]`` and ``[8, 768]``, bf16
    and fp32;
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
@@ -93,13 +97,38 @@ line):
    since its fp32 plain sum over up to 1.6 M products misses by more on
    elements near zero), the epilogue equal to the kernel's conv
    followed by the plain epilogue bit for bit; ``library_ms`` is cuDNN
-   (``F.conv2d`` channels-last, ``aten.convolution_backward``).
+   (``F.conv2d`` channels-last, ``aten.convolution_backward``);
+16. the int8 quantized-matmul kernel vs plain, bit for bit, at the O4
+   path's shapes: serving prefill M 1024 (768->768, 768->3072,
+   3072->768), decode M 8 (768->768, 3072->768), training M 8184
+   (768->3072), an fp32 case, a zero-amax weight column, ragged M 1000 /
+   N 130; ``library_ms`` ``torch._int_mm`` on the quantized operands where
+   it takes the shape, beside the bf16 matmul of O2;
+17. O4 serving: gpt2_small bf16 calibrated in observe mode on 4 batches
+   (frozen with "max"), rebuilt with the frozen scales, serving phase
+   5's load with an int8 KV cache (72 qmm, 25 LN and 12 flash launches a
+   forward, nothing else), traced as in phase 6; O4 with an empty
+   calibration equal to O2 bit for bit and O4 vs O2 prefill logits;
+   gpt_tiny fp32 O4 with an int8 KV cache on the card and on the CPU
+   with equal greedy tokens (a mismatch allowed only where the CPU
+   engine's top-2 logit gap at that step is below ``O4_TINY_GAP``);
+18. O4 training: ``make_train_step(opt_level="O4")`` on the calibrated
+   gpt2_small, Adam, B 8, seq_len 1024, the fused loss, 10 steps (72 qmm
+   a step beside phase 9's kernels), losses finite and falling, beside
+   phase 9's O2 numbers; two steps traced;
+19. the ``[B, T, S]`` bias-gradient kernel at B 8, T = S = 1024, 12 heads
+   of 64 (full, causal, GQA 12/4, a 256-key window, fp32): through
+   ``flash_attention`` under autograd (one db2 launch per backward, dq,
+   dk, dv unchanged against the run without a bias gradient), then
+   against ``_flash_bwd_ref``'s dbias within 1e-4 of max |dbias|;
+   ``library_ms`` SDPA's backward with the bias expanded to heads.
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
 the serving run, their backward kernels' on the LM training run, the BN
 and cross-entropy kernels' and the conv kernels' on the ResNet-50
-run); then the ``nvidia-smi`` line;
+run, the qmm kernel's on the O4 serving run, the bias-gradient kernel's
+on phase 19's backward passes); then the ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -120,7 +149,18 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
-            torch.float32: 67e12}    # fp32 outside the tensor cores
+            torch.float32: 67e12,    # fp32 outside the tensor cores
+            torch.int8: 1979e12}     # dense tensor-core int8
+
+# kernel launches per serving forward (prefill or decode step)
+SERVE_PER_FORWARD = {"layer_norm_fwd": 25, "flash_attention_fwd": 12}
+# the same at O4: the 72 q/k/v/out/mlp_up/mlp_down projections
+O4_SERVE_PER_FORWARD = dict(SERVE_PER_FORWARD, qmm=72)
+# kernel launches per LM training step (O2; O4 adds the 72 qmm)
+LM_PER_STEP = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+               "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+               "flash_attention_bwd_dkv": 12, "xentropy_fwd": 1,
+               "xentropy_bwd": 1}
 
 FAILURES = []
 
@@ -480,31 +520,43 @@ def _pct(values, q):
     return values[min(len(values) - 1, int(q * (len(values) - 1)))] * 1e3
 
 
-def serve_gpt2_small(model, engine_mod, counters, dev):
+def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
+                     cache_dtype=None):
+    """The phase-5 load (16 requests of 32-900 prompt tokens, 32 new
+    tokens, buckets (256, 1024), page 16, 8 slots) through
+    ``ServingEngine``: every launch counter set to 0 just before and read
+    just after, each equal to ``per_forward`` x the forwards run (0 where
+    it is not named)."""
     rng = np.random.RandomState(2)
     eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
-                                   max_seqs=8, device=dev)
+                                   max_seqs=8, cache_dtype=cache_dtype,
+                                   device=dev)
     t0 = time.perf_counter()
     eng.warmup()
     warm_s = time.perf_counter() - t0
     prompts = [rng.randint(1, model.vocab_size, (int(n),))
                for n in rng.randint(32, 901, 16)]
-    for c in counters:
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
     results = eng.generate(prompts, max_new_tokens=32)
     wall = time.perf_counter() - t0
-    launches = [c.launches for c in counters]
+    launches = {name: c.launches for name, c in counters.items()}
     st = eng.stats
+    tag = eng.kv_cache_dtype
     eng.close()
     forwards = st["prefills"] + st["decode_steps"]
     check(all(r.ok and len(r.tokens) == 32 for r in results),
-          f"gpt2_small: {sum(r.ok for r in results)}/16 requests served")
-    check(launches[0] == 25 * forwards and launches[1] == 12 * forwards,
-          f"gpt2_small: launches layer_norm {launches[0]} = 25 x {forwards} "
-          f"forwards, flash {launches[1]} = 12 x {forwards}")
+          f"gpt2_small ({tag} KV): {sum(r.ok for r in results)}/16 "
+          f"requests served")
+    check(all(launches[n] == per_forward.get(n, 0) * forwards
+              for n in launches),
+          f"gpt2_small ({tag} KV): launches {launches} = {per_forward} x "
+          f"{forwards} forwards (no other kernel)")
     ok = [r for r in results if r.ok]
     res = dict(
+        kv_cache_dtype=tag, kv_bytes_per_token=st["kv_bytes_per_token"],
         warmup_s=warm_s, wall_s=wall, tokens_out=st["tokens_out"],
         tokens_per_s=st["tokens_out"] / wall, prefills=st["prefills"],
         decode_steps=st["decode_steps"],
@@ -514,20 +566,23 @@ def serve_gpt2_small(model, engine_mod, counters, dev):
         ttft_p99_ms=_pct([r.timings["ttft_s"] for r in ok], 0.99),
         tpot_p50_ms=_pct([r.timings["tpot_s"] for r in ok], 0.5),
         tpot_p99_ms=_pct([r.timings["tpot_s"] for r in ok], 0.99),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         buckets=sorted({r.bucket for r in ok}),
-        launches={"layer_norm_fwd": launches[0], "flash_attention_fwd":
-                  launches[1]})
-    print(f"      served 16 requests, {res['tokens_out']} tokens in "
+        launches={n: v for n, v in launches.items() if v})
+    print(f"      served 16 requests ({tag} KV, {res['kv_bytes_per_token']} "
+          f"B/token), {res['tokens_out']} tokens in "
           f"{wall:.3f} s ({res['tokens_per_s']:.1f} tok/s); ttft p50 "
           f"{res['ttft_p50_ms']:.2f} / p99 {res['ttft_p99_ms']:.2f} ms; tpot "
           f"p50 {res['tpot_p50_ms']:.2f} / p99 {res['tpot_p99_ms']:.2f} ms; "
           f"prefill {res['prefill_ms_mean']:.2f} ms, decode step "
-          f"{res['decode_step_ms_mean']:.2f} ms (means); warmup "
+          f"{res['decode_step_ms_mean']:.2f} ms (means); peak memory "
+          f"{res['max_memory_allocated_bytes'] / 2**30:.2f} GiB; warmup "
           f"{warm_s:.1f} s", flush=True)
     return res
 
 
-_KERNEL_KINDS = (("flash", ("flash_fwd_kernel",)), ("layer_norm", ("ln_fwd",)),
+_KERNEL_KINDS = (("qmm", ("qmm_kernel",)),
+                 ("flash", ("flash_fwd_kernel",)), ("layer_norm", ("ln_fwd",)),
                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("index", ("index", "gather", "scatter")))
 
@@ -540,7 +595,7 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def where_time_goes(model, engine_mod, dev):
+def where_time_goes(model, engine_mod, dev, cache_dtype=None):
     """One traced serving run (8 prompts of 600-900 tokens, 16 new tokens
     each: prefills and decode steps at the 1024 bucket) under
     ``torch.profiler``: device busy share of the wall time, and per step
@@ -552,7 +607,8 @@ def where_time_goes(model, engine_mod, dev):
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(5)
     eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
-                                   max_seqs=8, device=dev).warmup()
+                                   max_seqs=8, cache_dtype=cache_dtype,
+                                   device=dev).warmup()
     prompts = [rng.randint(1, model.vocab_size, (int(n),))
                for n in rng.randint(600, 901, 8)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -673,7 +729,8 @@ TRAIN_ARGS = ["--synthetic", "-b", "8", "--seq-len", "1024", "--vocab",
               "50257", "--hidden", "768", "--layers", "12", "--heads", "12",
               "--opt-level", "O2", "--lr", "3e-4", "--weight-decay", "0.1"]
 
-_TRAIN_KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
+_TRAIN_KINDS = (("qmm", ("qmm_kernel",)),
+                ("flash_fwd", ("flash_fwd_kernel",)),
                 ("flash_bwd", ("flash_bwd_",)),
                 ("layer_norm", ("ln_fwd", "ln_bwd")),
                 ("loss", ("xent_",)),
@@ -691,10 +748,7 @@ def train_gpt2_small(main_amp, counters, steps=10):
     res = main_amp.train(args, log=lambda line: print("      " + line,
                                                       flush=True))
     launches = {name: c.launches for name, c in counters.items()}
-    per_step = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
-                "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
-                "flash_attention_bwd_dkv": 12, "xentropy_fwd": 1,
-                "xentropy_bwd": 1}
+    per_step = LM_PER_STEP
     check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
           f"gpt2_small training: launches {launches} = "
           f"{per_step} x {steps} steps")
@@ -718,9 +772,14 @@ def trace_training(trainer, argv, kinds=_TRAIN_KINDS):
     """Two training steps of ``trainer`` (an example module with
     ``parse`` and ``build``) under ``torch.profiler``: device time by
     kind and the device's idle share of the wall time."""
+    return trace_steps(*trainer.build(trainer.parse(argv)), kinds)
+
+
+def trace_steps(state, step_fn, batch, kinds=_TRAIN_KINDS):
+    """One warm step, then two steps of ``step_fn`` under
+    ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    state, step_fn, batch = trainer.build(trainer.parse(argv))
     state, m = step_fn(state, batch)          # warm: compiles, allocates
     m["loss"].item()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1400,6 +1459,373 @@ def lm_fused_vs_plain_loss(models, main_amp, dev):
                 lm_fused_vs_plain_rel_err=rel)
 
 
+# -- phase 16: the quantized matmul --------------------------------------------------
+
+QMM_CASES = [
+    # name, M, K, N, dtype, a zero-amax weight column
+    ("prefill M1024 768->768", 1024, 768, 768, torch.bfloat16, False),
+    ("prefill M1024 768->3072", 1024, 768, 3072, torch.bfloat16, False),
+    ("prefill M1024 3072->768", 1024, 3072, 768, torch.bfloat16, False),
+    ("decode M8 768->768", 8, 768, 768, torch.bfloat16, False),
+    ("decode M8 3072->768", 8, 3072, 768, torch.bfloat16, False),
+    ("training M8184 768->3072", 8184, 768, 3072, torch.bfloat16, False),
+    ("fp32 M1024 768->768", 1024, 768, 768, torch.float32, False),
+    ("zero-amax column M256 768->768", 256, 768, 768, torch.bfloat16, True),
+    ("ragged M1000 768->130", 1000, 768, 130, torch.bfloat16, False),
+]
+
+
+def qmm_cases(qk, dev):
+    """Kernel 14 against ``_qmm_ref`` at the O4 path's shapes, bit for
+    bit.  ``library_ms`` is ``torch._int_mm`` on the pre-quantized
+    operands where it takes the shape (the int8 GEMM alone: a lower bound
+    on the same product); ``o2_matmul_ms`` the bf16 ``torch.matmul`` the
+    O2 path runs at the same shape (what O4 competes with).  The bound
+    counts x, qw, the scales and the output once, and 2 M N K operations
+    at the int8 peak."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cases = []
+    for name, m, k, n, dtype, zero_col in QMM_CASES:
+        x = (2 * torch.randn(m, k, device=dev, generator=gen)).to(dtype)
+        w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
+        if zero_col:
+            w[:, n // 3] = 0.0
+        w = w.to(dtype)
+        ws = qk.channel_scale(w)
+        qw = qk.quantize(w, ws[None, :]).t().contiguous()
+        xs = torch.tensor(x.float().abs().max().item() / 127.0 * 0.9,
+                          device=dev)
+
+        def run():
+            return qk.qmm_kernel(x, qw, xs, ws, dtype)
+
+        def plain():
+            return qk._qmm_ref(x, qw, xs, ws, dtype)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        if zero_col:
+            exact = exact and not got[:, n // 3].any()
+        check(exact, f"qmm {name}: equals the plain version bit for bit "
+              f"{exact} (max_abs_err {max_err(got, want):.3g})")
+        isz = x.element_size()
+        nbytes = m * k * isz + n * k + 4 * n + 4 + m * n * isz
+        bms, by = bound(nbytes, 2.0 * m * n * k, torch.int8)
+        lib = None
+        qx, qkn = qk.quantize(x, xs), qw.t()
+        try:
+            lib = time_ms(lambda: torch._int_mm(qx, qkn))
+        except RuntimeError as e:          # shapes _int_mm refuses
+            print(f"      qmm {name}: torch._int_mm refused "
+                  f"({str(e).splitlines()[0][:80]})", flush=True)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        case = dict(case=name, max_abs_err=max_err(got, want),
+                    bit_exact=exact, ms=time_ms(run), eager_ms=eager_ms(run),
+                    plain_ms=time_ms(plain, iters=3), library_ms=lib,
+                    o2_matmul_ms=time_ms(lambda: xb @ wb),
+                    bound_ms=bms, bound_by=by)
+        case["tops"] = 2.0 * m * n * k / case["ms"] / 1e9
+        lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+        print(f"      qmm {name}: kernel {case['ms']:.4f} ms (eager "
+              f"{case['eager_ms']:.4f}, {case['tops']:.1f} TOP/s), plain "
+              f"{case['plain_ms']:.4f} ms, _int_mm {lib_s}, bf16 matmul "
+              f"{case['o2_matmul_ms']:.4f} ms, bound {bms:.4f} ms ({by})",
+              flush=True)
+        cases.append(case)
+        del x, w, qw, got, want, qx, xb, wb
+    return cases
+
+
+# -- phase 17: O4 serving ---------------------------------------------------------------
+
+def calibrate_gpt2_small(models, quant, dev, n_batches=4):
+    """The JAX recipe's observation phase on GPT-2 small bf16: 4 synthetic
+    batches (B 2, T 1024, ids from RandomState(17)) through the
+    observe-mode model, each batch's absmax of every site harvested, the
+    history frozen with "max"."""
+    obs = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
+                            quant=quant.QuantConfig.observe())
+    cal = quant.Calibrator()
+    rng = np.random.RandomState(17)
+    with torch.no_grad():
+        for _ in range(n_batches):
+            obs(torch.from_numpy(rng.randint(1, 50257, (2, 1024))).to(dev))
+            cal.harvest(quant.quant_stats(obs))
+    calib = cal.freeze("max")
+    check(len(calib) == 72 and all(a > 0 for a in calib.amax.values()),
+          f"gpt2_small calibration: {len(calib)} sites (72), amax "
+          f"{min(calib.amax.values()):.3g}-{max(calib.amax.values()):.3g}")
+    return calib
+
+
+def _prefill_logits(model, ids, dev):
+    from apex_tpu_torch.models import init_cache
+    with torch.inference_mode():
+        logits, _ = model(ids.to(dev), kv_caches=init_cache(
+            model, ids.shape[0], cache_len=ids.shape[1]),
+            positions=torch.zeros((ids.shape[0],), dtype=torch.long,
+                                  device=dev))
+    return logits.float()
+
+
+def o4_prefill_checks(models, quant, calib, dev):
+    """A 256-token prefill of gpt2_small bf16: O4 with an empty
+    calibration bit for bit O2, and the relative RMS error of O4 (the
+    frozen calibration) against O2."""
+    ids = torch.from_numpy(np.random.RandomState(3).randint(1, 50257,
+                                                            (1, 256)))
+    o2 = _prefill_logits(models.gpt2_small(dtype=torch.bfloat16, device=dev,
+                                           seed=0), ids, dev)
+    empty = _prefill_logits(models.gpt2_small(
+        dtype=torch.bfloat16, device=dev, seed=0,
+        quant=quant.QuantConfig("quant", scales={})), ids, dev)
+    o4 = _prefill_logits(models.gpt2_small(
+        dtype=torch.bfloat16, device=dev, seed=0,
+        quant=quant.QuantConfig.frozen(calib)), ids, dev)
+    same = torch.equal(empty, o2)
+    rel = ((o4 - o2).pow(2).mean().sqrt() / o2.pow(2).mean().sqrt()).item()
+    agree = (o4.argmax(-1) == o2.argmax(-1)).float().mean().item()
+    check(same and np.isfinite(rel),
+          f"gpt2_small O4 with an empty calibration equals O2 bit for bit "
+          f"{same}; O4 vs O2 256-token prefill logits relative RMS error "
+          f"{rel:.4g}, top-1 agreement {agree:.3f}")
+    return dict(o4_empty_equals_o2=same, o4_vs_o2_logits_rel_rms=rel,
+                o4_vs_o2_top1_agreement=agree)
+
+
+#: a card-vs-CPU token mismatch of the int8 gpt_tiny is allowed only
+#: where the CPU's top-2 logit gap at that step is below this: one fp32
+#: rounding difference that lands on an int8 rounding boundary moves a
+#: quantized value by a whole step (1/127 of its site's or row's amax),
+#: and all of quantization together moves gpt_tiny's logits by 0.04-0.07
+O4_TINY_GAP = 1e-2
+
+
+def tiny_tokens_o4(models, quant, engine_mod, dev):
+    """gpt_tiny fp32 with a frozen calibration (observed on the CPU) and an
+    int8 KV cache, served on the card and on the CPU: equal greedy tokens
+    except after a step whose top-2 logit gap on the CPU engine is below
+    ``O4_TINY_GAP`` (the gap read from a one-slot CPU rerun of that
+    request, whose logits a forward hook records)."""
+    rng = np.random.RandomState(4)
+    obs = models.gpt_tiny(dtype=torch.float32, device="cpu", seed=1,
+                          quant=quant.QuantConfig.observe())
+    cal = quant.Calibrator()
+    with torch.no_grad():
+        for _ in range(3):
+            obs(torch.from_numpy(rng.randint(1, 1024, (2, 128))))
+            cal.harvest(quant.quant_stats(obs))
+    cfg = quant.QuantConfig.frozen(cal.freeze())
+    prompts = [rng.randint(1, 1024, (int(n),))
+               for n in rng.randint(4, 200, 12)]
+
+    def engine(device, slots):
+        m = models.gpt_tiny(dtype=torch.float32, device=device, seed=1,
+                            quant=cfg)
+        return m, engine_mod.ServingEngine(
+            m, buckets=(128, 256), page_size=16, max_seqs=slots,
+            cache_dtype=torch.int8, device=device)
+    toks = {}
+    for device in (dev, "cpu"):
+        _, eng = engine(device, 4)
+        toks[str(device)] = [r.tokens for r in eng.generate(prompts, 24)]
+        eng.close()
+    mismatched, gaps = 0, []
+    for p, a, b in zip(prompts, toks[str(dev)], toks["cpu"]):
+        if np.array_equal(a, b):
+            continue
+        mismatched += 1
+        j = int(np.argmax(a != b))       # first divergent step
+        m, eng = engine("cpu", 1)
+        seen = []
+        hook = m.register_forward_hook(
+            lambda mod, inp, out: seen.append(out[0].detach()))
+        eng.generate([p], 24)
+        eng.close()
+        hook.remove()
+        step = seen[0][0, len(p) - 1] if j == 0 else seen[j][0, -1]
+        top2 = step.topk(2).values
+        gaps.append(float(top2[0] - top2[1]))
+    check(all(g < O4_TINY_GAP for g in gaps),
+          f"gpt_tiny fp32 O4 + int8 KV tokens card vs CPU: "
+          f"{12 - mismatched}/12 identical; top-2 gaps at divergence "
+          f"{gaps} < {O4_TINY_GAP}")
+    return dict(o4_tiny_identical=12 - mismatched,
+                o4_tiny_divergence_gaps=gaps)
+
+
+# -- phase 18: O4 training --------------------------------------------------------------
+
+def train_o4(models, quant, main_amp, training, counters, calib, dev,
+             steps=10):
+    """``make_train_step(opt_level="O4")`` on the calibrated GPT-2 small
+    (the LM trainer's model, loss and batch: Adam lr 3e-4, weight decay
+    0.1, B 8, seq_len 1024, the fused loss): every launch counter set to
+    0 just before and read just after."""
+    model = models.GPT(vocab_size=50257, hidden_size=768, num_layers=12,
+                       num_heads=12, mlp_dim=3072, max_len=1024,
+                       dtype=torch.bfloat16, attention_impl="flash",
+                       device=dev, seed=0,
+                       quant=quant.QuantConfig.frozen(calib))
+
+    def loss_fn(params, batch):
+        return main_amp.lm_loss(torch.func.functional_call(
+            model, params, (batch[0],)), batch[1], 0.0, True)
+    init, step = training.make_train_step(
+        loss_fn, training.adam(3e-4, weight_decay=0.1), opt_level="O4")
+    state = init(model.state_dict())
+    batch = main_amp.synthetic_batch(8, 1024, 50257, dev)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(met["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+    launches = {n: c.launches for n, c in counters.items()}
+    per_step = dict(LM_PER_STEP, qmm=72)
+    check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
+          f"gpt2_small O4 training: launches {launches} = {per_step} x "
+          f"{steps} steps (the qmm backward launches nothing)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"gpt2_small O4 training: losses finite, step {steps} "
+          f"{losses[-1]:.4f} < step 1 {losses[0]:.4f}")
+    step_ms = float(np.median(step_s[2:])) * 1e3
+    out = dict(losses=losses, step_ms_all=[x * 1e3 for x in step_s],
+               step_ms_median_3_10=step_ms,
+               tokens_per_s=8 * 1023 / step_ms * 1e3,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches={n: v for n, v in launches.items() if v})
+    print(f"      gpt2_small O4 B8 T1023: step {step_ms:.2f} ms (median of "
+          f"steps 3-{steps}), {out['tokens_per_s']:.0f} tok/s, peak memory "
+          f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    out["profile"] = trace_steps(state, step, batch)
+    return out
+
+
+# -- phase 19: the [B, T, S] bias gradient ------------------------------------------------
+
+DB2_CASES = [
+    # name, kv heads, dtype, causal, window
+    ("full", 12, torch.bfloat16, False, None),
+    ("causal", 12, torch.bfloat16, True, None),
+    ("gqa 12/4 causal", 4, torch.bfloat16, True, None),
+    ("window 256", 12, torch.bfloat16, True, 256),
+    ("fp32 causal", 12, torch.float32, True, None),
+]
+
+
+def db2_cases(fa, counters, dev):
+    """Kernel 13 at GPT-2 small's attention shapes (B 8, T = S = 1024, 12
+    heads of 64) with a learnable fp32 ``[B, T, S]`` bias.  First the
+    public op under autograd, every counter set to 0 just before and
+    read just after: one forward, dQ, dK/dV and db2 launch per backward
+    that needs the bias gradient, none of db2 without it, and dq/dk/dv
+    equal between the two.  Then the kernel against
+    ``_flash_bwd_ref``'s dbias on the same inputs, within 1e-4 of max
+    |dbias| (fp32 sums over 12 heads in another order), zero where the
+    band hides a key.  ``library_ms``: the eager backward of SDPA with
+    the bias expanded to ``[B, H, T, S]`` and needing a gradient (the
+    band folded into it as -inf), where a backend takes it."""
+    rng = np.random.RandomState(19)
+    b, t, h, d = 8, 1024, 12, 64
+    cases, db2_launches = [], 0
+    for name, h_kv, dtype, causal, window in DB2_CASES:
+        q, do = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+                 .to(dev, dtype) for _ in range(2))
+        k, v = (torch.from_numpy(rng.randn(b, t, h_kv, d).astype(np.float32))
+                .to(dev, dtype) for _ in range(2))
+        bias = torch.from_numpy(
+            (0.5 * rng.randn(b, t, t)).astype(np.float32)).to(dev)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, q_offset=0,
+                  window=window)
+        for c in counters.values():
+            c.launches = 0
+        grads = {}
+        for learn in (True, False):
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            bl = bias.detach().requires_grad_(learn)
+            out = fa.flash_attention(*leaves, bias=bl, causal=causal,
+                                     window=window)
+            grads[learn] = torch.autograd.grad(
+                out, leaves + ([bl] if learn else []), do)
+        launched = {n: c.launches for n, c in counters.items()
+                    if c.launches}
+        db2_launches += launched.get("flash_attention_bwd_db2", 0)
+        want_l = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+                  "flash_attention_bwd_dkv": 2, "flash_attention_bwd_db2": 1}
+        same = all(torch.equal(a, b_) for a, b_ in
+                   zip(grads[True][:3], grads[False]))
+        check(launched == want_l and same,
+              f"flash bias grad {name}: launches {launched} = {want_l}; "
+              f"dq/dk/dv equal to the run without a bias gradient {same}")
+
+        out, lse = fa.flash_fwd_kernel(q, k, v, None, bias, **kw)
+        delta = fa._delta(do, out)
+
+        def run():
+            return fa.flash_bwd_db2_kernel(q, k, v, do, lse, delta, None,
+                                           bias, **kw)
+
+        def plain():
+            return fa._flash_bwd_ref(q, k, v, None, bias, out, lse, do,
+                                     **kw)[4]
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want), want.abs().max().item()
+        zeros = True
+        if causal:
+            vis = fa._visible(t, t, 0, window, dev)
+            zeros = not got[:, ~vis].any()
+        op_same = torch.equal(grads[True][3], got)
+        check(err <= 1e-4 * scale and zeros and op_same,
+              f"flash db2 {name}: max_abs_err {err:.3g} <= 1e-4 x max "
+              f"|dbias| {scale:.3g}; hidden keys zero {zeros}; the op's "
+              f"dbias equals the kernel's {op_same}")
+        del grads
+        isz = q.element_size()
+        # the bias is read where the band leaves a key visible; dbias is
+        # written whole (its hidden entries are zeros)
+        pairs = _visible_pairs(b, t, t, causal, 0, window, None)
+        nbytes = ((q.numel() + k.numel() + v.numel() + do.numel()) * isz
+                  + pairs * 4 + bias.numel() * 4 + 2 * b * h * t * 4)
+        bms, by = bound(nbytes, 4.0 * d * pairs * h, dtype)
+        lib = None
+        try:
+            qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2)
+                          .transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lb = bias
+            if causal:
+                lb = torch.where(fa._visible(t, t, 0, window, dev), bias,
+                                 float("-inf"))
+            lb = lb.to(dtype)[:, None].expand(b, h, t, t).requires_grad_(True)
+            lout = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lb,
+                                                  scale=d ** -0.5)
+            dot = do.transpose(1, 2)
+            lib = eager_ms(lambda: torch.autograd.grad(
+                lout, (qt, kt, vt, lb), dot, retain_graph=True), iters=3)
+            del lout, qt, kt, vt, lb
+        except RuntimeError as e:
+            print(f"      flash db2 {name}: no SDPA backend takes a bias "
+                  f"gradient ({str(e).splitlines()[0][:80]})", flush=True)
+        case = dict(case=name, max_abs_err=err, max_abs_dbias=scale,
+                    ms=time_ms(run, iters=5), eager_ms=eager_ms(run, iters=5),
+                    plain_ms=time_ms(plain, iters=2), library_ms=lib,
+                    bound_ms=bms, bound_by=by)
+        lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+        print(f"      flash db2 {name}: kernel {case['ms']:.4f} ms (eager "
+              f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
+              f"SDPA backward with a bias gradient {lib_s}, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        cases.append(case)
+        del q, k, v, do, bias, out, lse, delta, got, want
+    return cases, {"flash_attention_bwd_db2": db2_launches}
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -1423,6 +1849,8 @@ def main(argv=None) -> int:
     main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
     imagenet = importlib.import_module(
         "apex_tpu_torch.examples.imagenet.main_amp")
+    quant = importlib.import_module("apex_tpu_torch.quant")
+    qk = importlib.import_module("apex_tpu_torch.quant.kernels")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -1465,12 +1893,13 @@ def main(argv=None) -> int:
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
             "conv_nvcc_s": lambda: build.load("conv"),
+            "quant_nvcc_s": lambda: build.load("quant"),
             "triton_s": build_triton}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
         build_s = {k: f.result() for k, f in futures.items()}
     print(f"      build: {build_s}", flush=True)
-    for name in ("flash_attention", "flash_attention_bwd", "conv"):
+    for name in ("flash_attention", "flash_attention_bwd", "conv", "quant"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"      ptxas {name}: "
@@ -1488,12 +1917,14 @@ def main(argv=None) -> int:
         "xentropy_bwd": xent.xentropy_bwd_kernel,
         "conv_fwd": cv.conv_fwd_kernel,
         "conv_dgrad": cv.conv_dgrad_kernel,
-        "conv_wgrad": cv.conv_wgrad_kernel}
+        "conv_wgrad": cv.conv_wgrad_kernel,
+        "qmm": qk.qmm_kernel,
+        "flash_attention_bwd_db2": fa.flash_bwd_db2_kernel}
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
     fa_cases = flash_cases(fa, dev)                # phase 4
-    serve_counters = [fln.layer_norm_fwd_kernel, fa.flash_fwd_kernel]
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
-    serving = serve_gpt2_small(model, engine_mod, serve_counters, dev)  # 5
+    serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
+                               SERVE_PER_FORWARD)
     serving.update(prefill_logits(models, dev))
     serving.update(tiny_tokens(models, engine_mod, dev))
     profile_res = where_time_goes(model, engine_mod, dev)          # 6
@@ -1519,12 +1950,35 @@ def main(argv=None) -> int:
         _RESNET_KINDS)
     resnet.update(resnet_correctness(imagenet, training, dev))     # 14
     conv = conv_cases(cv, fba, dev)                                # 15
+    qmm = qmm_cases(qk, dev)                                       # 16
+    calib = calibrate_gpt2_small(models, quant, dev)               # 17
+    o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
+                                 quant=quant.QuantConfig.frozen(calib))
+    o4_serving = serve_gpt2_small(o4_model, engine_mod, counters, dev,
+                                  O4_SERVE_PER_FORWARD,
+                                  cache_dtype=torch.int8)
+    o4_serving["profile"] = where_time_goes(o4_model, engine_mod, dev,
+                                            cache_dtype=torch.int8)
+    del o4_model
+    o4_serving.update(o4_prefill_checks(models, quant, calib, dev))
+    o4_serving.update(tiny_tokens_o4(models, quant, engine_mod, dev))
+    o4_serving["bf16_kv_o2"] = {k: serving[k] for k in (
+        "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+        "tpot_p99_ms", "kv_bytes_per_token", "max_memory_allocated_bytes")}
+    o4_train = train_o4(models, quant, main_amp, training, counters,  # 18
+                        calib, dev)
+    o4_train["o2"] = {k: trained[k] for k in (
+        "step_ms_median_3_10", "tokens_per_s", "max_memory_allocated_bytes")}
+    db2, db2_launches = db2_cases(fa, counters, dev)               # 19
+    paths = {"serving": serving["launches"], "training": trained["launches"],
+             "resnet_training": resnet["launches"],
+             "o4_serving": o4_serving["launches"],
+             "o4_training": o4_train["launches"],
+             "bias_grad": db2_launches}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
-        launches = {"serving": serving["launches"].get(name),
-                    "training": trained["launches"].get(name),
-                    "resnet_training": resnet["launches"].get(name)}
+        launches = {p: counts.get(name) for p, counts in paths.items()}
         return dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[path],
@@ -1584,6 +2038,13 @@ def main(argv=None) -> int:
         entry("conv_wgrad", "cuda", "apex_tpu_torch/csrc/conv.cu",
               "apex_tpu/ops/conv.py:397", conv["conv_wgrad"], 1,
               "resnet_training"),
+        # the qmm row shows the prefill 768->3072 case, the db2 row the
+        # causal one; every case is in --out
+        entry("qmm", "cuda", "apex_tpu_torch/csrc/quant.cu",
+              "apex_tpu/quant/kernels.py:147", qmm, 1, "o4_serving"),
+        entry("flash_attention_bwd_db2", "cuda",
+              "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+              "apex_tpu/ops/flash_attention.py:562", db2, 1, "bias_grad"),
     ]
     elapsed = time.perf_counter() - t_start
     if args.out:
@@ -1592,8 +2053,11 @@ def main(argv=None) -> int:
             json.dump(dict(gpu=smi, torch=torch.__version__, build=build_s,
                            kernels=kernels, serving=serving,
                            profile=profile_res, training=trained,
-                           resnet_training=resnet, elapsed_s=elapsed,
-                           failures=FAILURES), f, indent=1)
+                           resnet_training=resnet, o4_serving=o4_serving,
+                           o4_training=o4_train,
+                           o4_calibration=calib.state_dict(),
+                           elapsed_s=elapsed, failures=FAILURES), f,
+                      indent=1)
     print(f"      elapsed {elapsed:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed",

@@ -231,3 +231,57 @@ def test_grads_match_autograd_of_plain_forward(case):
         grads.append(torch.autograd.grad((out * g).sum(), ts))
     for gt, wt in zip(*grads):
         torch.testing.assert_close(gt, wt, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["full", "causal", "window64", "gqa4_2"])
+def test_bts_bias_grad_matches_jax_pallas_interpret(case):
+    """The head-summed gradient of a learnable [B, T, S] bias (the Pallas
+    ``_bwd_db2_kernel``, 128-row blocks, interpret mode) and dq/dk/dv
+    beside it, at B=2, T=256, D=32, against the Function's plain
+    backward; the same 5e-4 as the other gradients."""
+    h_kv = 2 if case == "gqa4_2" else 4
+    q, k, v = _qkv(2, 256, 256, 4, h_kv, 32, seed=30)
+    rng = np.random.RandomState(31)
+    bias = rng.randn(2, 256, 256).astype(np.float32)
+    g = rng.randn(2, 256, 4, 32).astype(np.float32)
+    kw = dict(causal=case != "full",
+              window=64 if case == "window64" else None)
+
+    def jloss(*xs):
+        out = jflash(*xs[:3], bias=xs[3], block_q=128, block_k=128,
+                     interpret=True, **kw)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(x) for x in (q, k, v, bias)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, bias)]
+    out = flash_attention(*ts[:3], bias=ts[3], **kw)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), ts)
+    for name, gt, wt in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                   err_msg=name, **BWD_TOL)
+    if kw["causal"]:                     # hidden keys get no gradient
+        hidden = np.triu(np.ones((256, 256), bool), 1)
+        assert not got[3].numpy()[:, hidden].any()
+
+
+def test_per_head_bias_grads_match_jax():
+    """A per-head [B, H, T, S] bias takes the plain path on either device
+    (JAX: its jnp ``blockwise_attention``); its gradient and q/k/v's
+    against ``jax.grad`` of the JAX function, GQA and causal."""
+    q, k, v = _qkv(2, 24, 24, 4, 2, 16, seed=32)
+    rng = np.random.RandomState(33)
+    b4 = rng.randn(2, 4, 24, 24).astype(np.float32)
+    g = rng.randn(2, 24, 4, 16).astype(np.float32)
+
+    def jloss(*xs):
+        return jnp.sum(jflash(*xs[:3], bias=xs[3], causal=True) * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(x) for x in (q, k, v, b4)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, b4)]
+    out = flash_attention(*ts[:3], bias=ts[3], causal=True)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), ts)
+    for name, gt, wt in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                   err_msg=name, atol=2e-5, rtol=2e-5)

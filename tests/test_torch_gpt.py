@@ -125,8 +125,14 @@ def test_not_ported_paths_raise():
         gpt_tiny(decode=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ring"):
         gpt_tiny(attention_impl="ring", device="cpu")
-    with pytest.raises(NotImplementedError, match="quant"):
-        gpt_tiny(quant=object(), device="cpu")
+    # quant= is ported: every projection is a QuantDenseGeneral named by
+    # its flax path, and the LM head stays plain
+    from apex_tpu_torch.quant import QuantConfig, QuantDenseGeneral
+    qm = gpt_tiny(**CFG, quant=QuantConfig.observe(), device="cpu")
+    sites = sorted(m.site for m in qm.modules()
+                   if isinstance(m, QuantDenseGeneral))
+    assert len(sites) == 12 and sites[0] == "block_0/attention/key"
+    assert "block_1/mlp_down" in sites
     m = gpt_tiny(**CFG, device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         m(torch.zeros((1, 33), dtype=torch.long))

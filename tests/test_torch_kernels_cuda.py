@@ -84,8 +84,10 @@ def test_flash_kernel_matches_plain(cuda_device, case, dtype, atol):
 
 @pytest.mark.cuda
 def test_cuda_calls_needing_grad_raise(cuda_device):
-    """Gradients go through the backward kernels; only the [B, T, S]
-    bias gradient and a per-head bias have no kernel and raise."""
+    """Gradients go through the backward kernels: a [B, T, S] bias that
+    needs a gradient launches the bias-gradient kernel once, and a
+    per-head bias (no kernel, here or in JAX) runs the plain version,
+    differentiable, on the card."""
     x = torch.randn(4, 64, device=cuda_device, requires_grad=True)
     before = fln.layer_norm_bwd_kernel.launches
     fln.fused_layer_norm(x, 64).sum().backward()
@@ -97,11 +99,20 @@ def test_cuda_calls_needing_grad_raise(cuda_device):
             fa.flash_bwd_dkv_kernel.launches) == (before[0] + 1,
                                                   before[1] + 1)
     bias = torch.zeros(1, 8, 8, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="_bwd_db2_kernel"):
-        fa.flash_attention(q, q, q, bias=bias)
-    with pytest.raises(NotImplementedError, match="per-head"):
-        fa.flash_attention(q.detach(), q.detach(), q.detach(),
-                           bias=torch.zeros(1, 2, 8, 8, device=cuda_device))
+    before = fa.flash_bwd_db2_kernel.launches
+    fa.flash_attention(q, q, q, bias=bias).sum().backward()
+    assert fa.flash_bwd_db2_kernel.launches == before + 1
+    assert bias.grad.shape == (1, 8, 8)
+    b4 = torch.randn(1, 2, 8, 8, device=cuda_device, requires_grad=True)
+    before = fa.flash_fwd_kernel.launches
+    out = fa.flash_attention(q, q, q, bias=b4, causal=True)
+    assert fa.flash_fwd_kernel.launches == before
+    got = torch.autograd.grad(out.sum(), (q, b4))
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, b4)]
+    want = torch.autograd.grad(fa.flash_attention(
+        cpu[0], cpu[0], cpu[0], bias=cpu[1], causal=True).sum(), cpu)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -246,6 +257,75 @@ def test_flash_bwd_kernels_head_dims(cuda_device, head_dim, dtype, atol):
     _check_bwd_kernels(*_bwd_case(cuda_device, dtype, d=head_dim, tq=100,
                                   tk=150, h=4, h_kv=2, seed=15),
                        atol=atol)
+
+
+def _check_db2_kernel(q, k, v, do, kb, bs, kw):
+    """The bias-gradient kernel against ``_flash_bwd_ref``'s dbias:
+    within 1e-4 of max |dbias| (fp32 sums over the heads in another
+    order), zeros where the band hides a key."""
+    out, lse = fa._flash_fwd_ref(q, k, v, kb, bs, **kw)
+    delta = fa._delta(do, out)
+    before = fa.flash_bwd_db2_kernel.launches
+    got = fa.flash_bwd_db2_kernel(q, k, v, do, lse, delta, kb, bs, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_db2_kernel.launches == before + 1
+    want = fa._flash_bwd_ref(q, k, v, kb, bs, out, lse, do, **kw)[4]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    if kw["causal"]:
+        vis = fa._visible(q.shape[1], k.shape[1], kw["q_offset"],
+                          kw["window"], q.device)
+        assert not got[:, ~vis].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "causal", "gqa4_2", "window",
+                                  "cross", "kbias", "q_tail"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_db2_kernel_matches_plain(cuda_device, case, dtype):
+    """Ragged lengths (200), GQA, a window, cross-length causal, a key
+    bias beside the [B, T, S] bias, a ragged q tail."""
+    kw = dict(bias=True, causal=case not in ("full", "kbias", "q_tail"))
+    kw.update({"gqa4_2": dict(h_kv=2), "window": dict(window=50),
+               "cross": dict(tq=70, tk=200),
+               "kbias": dict(kbias=True),
+               "q_tail": dict(tq=130, tk=256)}.get(case, {}))
+    _check_db2_kernel(*_bwd_case(cuda_device, dtype, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 128])
+def test_flash_db2_kernel_head_dims(cuda_device, head_dim):
+    _check_db2_kernel(*_bwd_case(cuda_device, torch.bfloat16, d=head_dim,
+                                 tq=100, tk=150, h=4, h_kv=2, bias=True,
+                                 seed=17))
+
+
+@pytest.mark.cuda
+def test_flash_bias_grad_matches_autograd_of_plain_forward(cuda_device):
+    """fp32 gradients of q, k, v and a broadcast [B, 1, S] bias through
+    the Function on the card against autograd through the plain forward
+    on the card."""
+    rng = np.random.RandomState(18)
+    b, t, h, d = 2, 77, 4, 32
+    leaves = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        cuda_device) for s in ((b, t, h, d), (b, t, h, d), (b, t, h, d),
+                               (b, 1, t))]
+    g = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(
+        cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        if use_kernel:
+            out = fa.flash_attention(*xs[:3], bias=xs[3], causal=True)
+        else:
+            out, _ = fa._flash_fwd_ref(*xs[:3], None,
+                                       xs[3].expand(b, t, t),
+                                       sm_scale=d ** -0.5, causal=True)
+        grads.append(torch.autograd.grad((out * g).sum(), xs))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -587,3 +667,83 @@ def test_conv_kernels_refuse_what_they_do_not_take(conv_device):
         cv.conv_fwd_kernel(x.half(), w.half(), (1, 1), pads, (1, 1))
     with pytest.raises(ValueError, match="output shape"):
         cv.conv_dgrad_kernel(x[:, :4], w, (1, 1), pads, (1, 1), (8, 8))
+
+
+# -- int8 quantized matmul (kernel 14) ----------------------------------------------
+
+qk = importlib.import_module("apex_tpu_torch.quant.kernels")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(32, 64, 48), (17, 96, 130), (8, 16, 8),
+                                   (200, 768, 300), (64, 3072, 96),
+                                   (65, 48, 129)])
+def test_qmm_kernel_equals_plain_bit_for_bit(cuda_device, dtype, m, k, n):
+    """The kernel against ``_qmm_ref`` on the same inputs, bit for bit:
+    ragged M and N (both tile configurations: M <= 64 and above), a K
+    tail of 32 and of 48 bytes, a zero-amax weight column, bf16 and fp32
+    in and out."""
+    rng = np.random.RandomState(40)
+    x = torch.from_numpy((rng.randn(m, k) * 2).astype(np.float32)).to(
+        cuda_device, dtype)
+    w = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(np.float32))
+    w[:, n // 2] = 0.0
+    w = w.to(cuda_device, dtype)
+    ws = qk.channel_scale(w)
+    qw = qk.quantize(w, ws[None, :]).t().contiguous()
+    # a scale below the absmax, so some elements clip
+    xs = torch.tensor(x.float().abs().max().item() / 127.0 * 0.8,
+                      device=cuda_device)
+    for out_dtype in (dtype, torch.float32):
+        before = qk.qmm_kernel.launches
+        got = qk.qmm_kernel(x, qw, xs, ws, out_dtype)
+        torch.cuda.synchronize()
+        assert qk.qmm_kernel.launches == before + 1
+        want = qk._qmm_ref(x, qw, xs, ws, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert torch.equal(got, want)
+    assert not got[:, n // 2].any()
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_on_card_equals_cpu(cuda_device):
+    """The public op on CUDA (the kernel) equals the CPU's (the plain
+    version) bit for bit, and its straight-through gradients run plain
+    matmuls: one kernel launch for forward and backward together."""
+    rng = np.random.RandomState(41)
+    x = torch.from_numpy(rng.randn(3, 40, 64).astype(np.float32))
+    w = torch.from_numpy((rng.randn(64, 80) / 8).astype(np.float32))
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xd = x.to(dev, torch.bfloat16).requires_grad_(True)
+        wd = w.to(dev, torch.bfloat16).requires_grad_(True)
+        before = qk.qmm_kernel.launches
+        out = qk.quantized_matmul(xd, wd, x_scale=0.03)
+        out.float().sum().backward()
+        outs[dev.type] = (out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu(),
+                          qk.qmm_kernel.launches - before)
+    assert torch.equal(outs["cuda"][0], outs["cpu"][0])
+    assert outs["cuda"][3] == 1 and outs["cpu"][3] == 0
+    for g_, w_ in zip(outs["cuda"][1:3], outs["cpu"][1:3]):
+        torch.testing.assert_close(g_.float(), w_.float(), atol=0,
+                                   rtol=2 ** -7)
+    ref = qk.quantized_matmul(x.to(cuda_device, torch.bfloat16),
+                              w.to(cuda_device, torch.bfloat16),
+                              x_scale=0.03, impl="jnp")
+    assert torch.equal(ref.cpu(), outs["cpu"][0])
+
+
+@pytest.mark.cuda
+def test_qmm_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((4, 24), device=cuda_device)
+    qw = torch.zeros((8, 24), dtype=torch.int8, device=cuda_device)
+    xs, ws = torch.ones((), device=cuda_device), torch.ones(8,
+                                                            device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qk.qmm_kernel(x, qw, xs, ws, torch.float32)
+    with pytest.raises(TypeError):
+        qk.qmm_kernel(x[:, :16].half(), qw[:, :16], xs, ws, torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        qk.qmm_kernel(torch.zeros(80, device=cuda_device)[2:66].view(4, 16),
+                      qw[:, :16].contiguous(), xs, ws, torch.float32)
