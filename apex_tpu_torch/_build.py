@@ -17,11 +17,27 @@ import subprocess
 import threading
 from typing import Dict
 
+import torch
+
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+#: the element-type codes every C entry point takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """0 for fp32, 1 for bf16, 2 for fp16 (the kernels' ``dtype``
+    argument); raises ``TypeError`` on any other type."""
+    try:
+        return DTYPE_CODES[dtype]
+    except KeyError:
+        raise TypeError(f"the kernels take fp32, bf16 or fp16, got "
+                        f"{dtype}") from None
 
 
 def _nvcc() -> str:

@@ -49,6 +49,11 @@
 //    in dK/dV) and split its 64 columns and D output dims between them,
 //    reducing with warp shuffles; a row's threads sit in one warp;
 //  * ragged edges (T = 1023 in training) are masked, so any length works;
+//  * any head width up to 128 runs in the next instantiated width (16, 32,
+//    64, 128): the tiles read the missing columns as zero and the stores
+//    skip them, so the results are those of the unpadded function;
+//  * fp32, bf16 and fp16 inputs (the rounding of p and ds is to the
+//    input's own type);
 //  * q, k, v, dO and the outputs are read and written through their
 //    strides in the [B, T, H, D] layout, as the forward does;
 //  * shared-memory rows are padded by one float against bank conflicts;
@@ -56,6 +61,7 @@
 //    162 KB (dQ) and 179 KB (dK/dV) of the SM's 227 KB.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,6 +92,7 @@ struct BwdParams {
   int64_t sb_b, sb_t;
   int32_t B, H, Hkv, tq, tk;
   int32_t causal, q_offset, window;   // window 0 = none
+  int32_t d;            // the head width (<= the instantiated width)
   float sm_scale;
 };
 
@@ -106,12 +113,18 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
     __nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype does
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and back: the Pallas kernels' `.astype(dtype)` before a
@@ -127,16 +140,17 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int t, int key) {
   return key <= qpos && (p.window <= 0 || qpos - key < p.window);
 }
 
-// Load rows [r0, r0 + 64) of a [*, D] operand (row stride `st`) into a
-// [64][D + 1] fp32 tile; rows past `n` are zero.
+// Load rows [r0, r0 + 64) of a [*, d] operand (row stride `st`) into a
+// [64][D + 1] fp32 tile; rows past `n` and columns past `d` (a width
+// padded to the instantiated D) are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t st, int r0, int n) {
+                                          int64_t st, int r0, int n, int dw) {
   constexpr int QS = D + 1;
   for (int i = threadIdx.x; i < 64 * D; i += NTHREADS) {
     const int rr = i / D, d = i % D;
     const int t = r0 + rr;
-    dst[rr * QS + d] = t < n ? to_f(src[t * st + d]) : 0.f;
+    dst[rr * QS + d] = t < n && d < dw ? to_f(src[t * st + d]) : 0.f;
   }
 }
 
@@ -170,8 +184,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  load_tile<T, D>(Qs, q, p.sq_t, q0, p.tq);
-  load_tile<T, D>(dOs, dout, p.sdo_t, q0, p.tq);
+  load_tile<T, D>(Qs, q, p.sq_t, q0, p.tq, p.d);
+  load_tile<T, D>(dOs, dout, p.sdo_t, q0, p.tq, p.d);
 
   const int row = q0 + r;
   const bool row_ok = row < p.tq;
@@ -194,8 +208,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                   // the previous tile is consumed
-    load_tile<T, D>(Ks, k, p.sk_t, k0, p.tk);
-    load_tile<T, D>(Vs, v, p.sv_t, k0, p.tk);
+    load_tile<T, D>(Ks, k, p.sk_t, k0, p.tk, p.d);
+    load_tile<T, D>(Vs, v, p.sv_t, k0, p.tk, p.d);
     if (bias) {
       for (int i = tid; i < BQ * BK; i += NTHREADS) {
         const int rr = i / BK, c = i % BK;
@@ -245,7 +259,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
   if (row_ok) {
     T* dq = static_cast<T*>(p.dq) + b * p.sdq_b + row * p.sdq_t + h * p.sdq_h;
 #pragma unroll
-    for (int i = 0; i < NA; ++i) dq[i * TPR + lane] = from_f<T>(acc[i]);
+    for (int i = 0; i < NA; ++i)
+      if (i * TPR + lane < p.d) dq[i * TPR + lane] = from_f<T>(acc[i]);
   }
 }
 
@@ -280,8 +295,8 @@ flash_bwd_dkv_kernel(const BwdParams p) {
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  load_tile<T, D>(Ks, k, p.sk_t, k0, p.tk);
-  load_tile<T, D>(Vs, v, p.sv_t, k0, p.tk);
+  load_tile<T, D>(Ks, k, p.sk_t, k0, p.tk, p.d);
+  load_tile<T, D>(Vs, v, p.sv_t, k0, p.tk, p.d);
   for (int i = tid; i < BK; i += NTHREADS)
     KBs[i] = (kb && k0 + i < p.tk) ? kb[k0 + i] : 0.f;
 
@@ -310,8 +325,8 @@ flash_bwd_dkv_kernel(const BwdParams p) {
 
     for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
       __syncthreads();                 // the previous tile is consumed
-      load_tile<T, D>(Qs, q, p.sq_t, q0, p.tq);
-      load_tile<T, D>(dOs, dout, p.sdo_t, q0, p.tq);
+      load_tile<T, D>(Qs, q, p.sq_t, q0, p.tq, p.d);
+      load_tile<T, D>(dOs, dout, p.sdo_t, q0, p.tq, p.d);
       for (int i = tid; i < BQ; i += NTHREADS) {
         const bool in = q0 + i < p.tq;
         Ls[i] = in ? p.lse[hrow + q0 + i] : 0.f;
@@ -380,6 +395,7 @@ flash_bwd_dkv_kernel(const BwdParams p) {
     T* dv = static_cast<T*>(p.dv) + b * p.sdv_b + key * p.sdv_t + hk * p.sdv_h;
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
+      if (i * TPR + lane >= p.d) continue;
       dk[i * TPR + lane] = from_f<T>(acc_k[i]);
       dv[i * TPR + lane] = from_f<T>(acc_v[i]);
     }
@@ -446,14 +462,14 @@ flash_bwd_db2_kernel(const BwdParams p) {
     const int hk = h / grp;
     __syncthreads();                   // the previous head's tiles consumed
     load_tile<T, D>(Qs, static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h,
-                    p.sq_t, q0, p.tq);
+                    p.sq_t, q0, p.tq, p.d);
     load_tile<T, D>(dOs,
                     static_cast<const T*>(p.dout) + b * p.sdo_b + h * p.sdo_h,
-                    p.sdo_t, q0, p.tq);
+                    p.sdo_t, q0, p.tq, p.d);
     load_tile<T, D>(Ks, static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h,
-                    p.sk_t, k0, p.tk);
+                    p.sk_t, k0, p.tk, p.d);
     load_tile<T, D>(Vs, static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h,
-                    p.sv_t, k0, p.tk);
+                    p.sv_t, k0, p.tk, p.d);
     const int64_t hrow = (static_cast<int64_t>(b) * p.H + h) * p.tq;
     for (int i = tid; i < BQ; i += NTHREADS) {
       const bool in = q0 + i < p.tq;
@@ -560,6 +576,7 @@ template <typename T>
 cudaError_t by_dim(const BwdParams& p, int head_dim, Which which,
                    cudaStream_t st) {
   switch (head_dim) {
+    case 16: return launch<T, 16>(p, which, st);
     case 32: return launch<T, 32>(p, which, st);
     case 64: return launch<T, 64>(p, which, st);
     case 128: return launch<T, 128>(p, which, st);
@@ -567,31 +584,33 @@ cudaError_t by_dim(const BwdParams& p, int head_dim, Which which,
   return cudaErrorInvalidValue;
 }
 
-int run(const BwdParams* p, int head_dim, int is_bf16, Which which,
+int run(const BwdParams* p, int head_dim, int dtype, Which which,
         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? by_dim<__nv_bfloat16>(*p, head_dim, which, st)
-              : by_dim<float>(*p, head_dim, which, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) err = by_dim<float>(*p, head_dim, which, st);
+  else if (dtype == 1) err = by_dim<__nv_bfloat16>(*p, head_dim, which, st);
+  else if (dtype == 2) err = by_dim<__half>(*p, head_dim, which, st);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
-// success).  Head dims 32/64/128; is_bf16 picks bf16 or fp32.
+// success).  head_dim is the instantiated width (16/32/64/128, >= p->d);
+// dtype 0 fp32, 1 bf16, 2 fp16.
 extern "C" int flash_attention_bwd_dq(const BwdParams* p, int head_dim,
-                                      int is_bf16, void* stream) {
-  return run(p, head_dim, is_bf16, Which::kDq, stream);
+                                      int dtype, void* stream) {
+  return run(p, head_dim, dtype, Which::kDq, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const BwdParams* p, int head_dim,
-                                       int is_bf16, void* stream) {
-  return run(p, head_dim, is_bf16, Which::kDkv, stream);
+                                       int dtype, void* stream) {
+  return run(p, head_dim, dtype, Which::kDkv, stream);
 }
 
 // p->bias and p->dbias must be set.
 extern "C" int flash_attention_bwd_db2(const BwdParams* p, int head_dim,
-                                       int is_bf16, void* stream) {
-  return run(p, head_dim, is_bf16, Which::kDb2, stream);
+                                       int dtype, void* stream) {
+  return run(p, head_dim, dtype, Which::kDb2, stream);
 }

@@ -5,12 +5,13 @@
 // inside the kernel, an int8 x int8 -> int32 product, and the dequantize
 // epilogue before the store.  x never exists as int8 in device memory.
 //
-// What it computes, for x [M, K] (bf16 or fp32), qw [N, K] int8 (the
-// weight quantized per output channel, K contiguous), a per-tensor scale
-// xs (one fp32 value in device memory) and per-channel scales ws [N]:
+// What it computes, for x [M, K] (fp32, bf16 or fp16), qw [N, Kp] int8 (the
+// weight quantized per output channel, K contiguous, padded with zero
+// columns to Kp, the next multiple of 16), a per-tensor scale xs (one fp32
+// value in device memory) and per-channel scales ws [N]:
 //   qx[m, k]   = clamp(rint(x[m, k] * (1 / xs)), -127, 127)   (fp32, RNE)
 //   acc[m, n]  = sum_k qx[m, k] * qw[n, k]                    (int32, exact)
-//   out[m, n]  = float(acc) * (xs * ws[n])  rounded once to bf16 or fp32
+//   out[m, n]  = float(acc) * (xs * ws[n])  rounded once to the output type
 // with the ops of the plain version `_qmm_ref` in the same order: `1 / xs`
 // is an IEEE division (no -use_fast_math), the products are __fmul_rn so
 // nothing contracts into an FMA.  Integer sums are exact in any order, so
@@ -37,9 +38,13 @@
 //    fragment loads of a warp hit 32 distinct banks; two shared buffers,
 //    the next chunk's loads in flight while this one's products run;
 //  * ragged M and N rows, and a K tail of 16 or 48 bytes, load as zeros;
-//    the epilogue masks its stores.
+//    x's columns from K to Kp read as zero (element loads where K is no
+//    multiple of 8 or x is not 16-byte aligned), against qw's zero
+//    padding, so the integer sums are those of the unpadded product; the
+//    epilogue masks its stores.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,18 +54,40 @@ constexpr int BK = 64;            // K elements (int8 bytes) per stage
 constexpr int SROW = BK + 16;     // padded shared row, bytes
 constexpr int NTHREADS = 256;
 
-// 8 consecutive elements of x, loaded with 16-byte loads.
-template <typename T> struct Chunk8;
+// The bits of a 16-bit float type and their value.
+__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ uint32_t bits16(__half x) {
+  return __half_as_ushort(x);
+}
+template <typename T> __device__ __forceinline__ float from_bits16(uint32_t b);
+template <> __device__ __forceinline__ float from_bits16<__nv_bfloat16>(
+    uint32_t b) {
+  return __uint_as_float(b << 16);
+}
+template <> __device__ __forceinline__ float from_bits16<__half>(uint32_t b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
 
-template <> struct Chunk8<__nv_bfloat16> {
+// 8 consecutive elements of x: one 16-byte load (`load`), or element
+// loads of the first n with zeros after them (`load_n`).
+template <typename T> struct Chunk8 {   // bf16 and fp16
   uint4 raw;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+  __device__ __forceinline__ void load(const T* p) {
     raw = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void load_n(const T* p, int n) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < n) w[j / 2] |= bits16(p[j]) << (16 * (j % 2));
+    raw = make_uint4(w[0], w[1], w[2], w[3]);
   }
   __device__ __forceinline__ void zero() { raw = make_uint4(0, 0, 0, 0); }
   __device__ __forceinline__ float get(int i) const {
     const uint32_t w = (&raw.x)[i / 2];
-    return __uint_as_float(i % 2 ? (w & 0xffff0000u) : (w << 16));
+    return from_bits16<T>(i % 2 ? w >> 16 : w & 0xffffu);
   }
 };
 
@@ -69,6 +96,13 @@ template <> struct Chunk8<float> {
   __device__ __forceinline__ void load(const float* p) {
     lo = *reinterpret_cast<const float4*>(p);
     hi = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void load_n(const float* p, int n) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? p[j] : 0.f;
+    lo = make_float4(v[0], v[1], v[2], v[3]);
+    hi = make_float4(v[4], v[5], v[6], v[7]);
   }
   __device__ __forceinline__ void zero() {
     lo = hi = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -103,6 +137,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -117,7 +154,7 @@ template <typename TX, typename TO, int BM, int BN>
 __global__ void __launch_bounds__(NTHREADS)
 qmm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qw,
            const float* __restrict__ xs_ptr, const float* __restrict__ ws,
-           TO* __restrict__ out, int M, int N, int K) {
+           TO* __restrict__ out, int M, int N, int K, int Kp, int vec) {
   constexpr int WM = BM / 2, WN = BN / 4;      // warp sub-tile
   constexpr int MI = WM / 16, NI = WN / 8;     // mma tiles per warp
   constexpr int A_CHUNKS = BM * (BK / 8) / NTHREADS;
@@ -144,19 +181,19 @@ qmm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qw,
       const int c = tid + i * NTHREADS;
       const int row = c / (BK / 8), kc = c % (BK / 8);
       const int gm = m0 + row, gk = k0 + kc * 8;
-      if (gm < M && gk < K)
-        xr[i].load(x + static_cast<int64_t>(gm) * K + gk);
-      else
-        xr[i].zero();
+      const TX* src = x + static_cast<int64_t>(gm) * K + gk;
+      if (gm >= M || gk >= K) xr[i].zero();
+      else if (vec) xr[i].load(src);
+      else xr[i].load_n(src, K - gk);
     }
 #pragma unroll
     for (int i = 0; i < B_CHUNKS; ++i) {
       const int c = tid + i * NTHREADS;
       const int row = c / (BK / 16), kc = c % (BK / 16);
       const int gn = n0 + row, gk = k0 + kc * 16;
-      br[i] = (gn < N && gk < K)
+      br[i] = (gn < N && gk < Kp)
                   ? *reinterpret_cast<const uint4*>(
-                        qw + static_cast<int64_t>(gn) * K + gk)
+                        qw + static_cast<int64_t>(gn) * Kp + gk)
                   : make_uint4(0, 0, 0, 0);
     }
   };
@@ -185,7 +222,7 @@ qmm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qw,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
 
-  const int nk = (K + BK - 1) / BK;
+  const int nk = (Kp + BK - 1) / BK;
   load(0);
   store(0);
   __syncthreads();
@@ -244,47 +281,54 @@ qmm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qw,
   }
 }
 
+struct Args {
+  const void* x;
+  const void* qw;
+  const float* xs;
+  const float* ws;
+  void* out;
+  int M, N, K, Kp, vec;
+};
+
 template <typename TX, typename TO, int BM, int BN>
-cudaError_t launch(const void* x, const void* qw, const float* xs,
-                   const float* ws, void* out, int M, int N, int K,
-                   cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
   qmm_kernel<TX, TO, BM, BN><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const int8_t*>(qw), xs, ws,
-      static_cast<TO*>(out), M, N, K);
+      static_cast<const TX*>(a.x), static_cast<const int8_t*>(a.qw), a.xs,
+      a.ws, static_cast<TO*>(a.out), a.M, a.N, a.K, a.Kp, a.vec);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TO>
-cudaError_t by_rows(const void* x, const void* qw, const float* xs,
-                    const float* ws, void* out, int M, int N, int K,
-                    cudaStream_t st) {
-  if (M <= 64) return launch<TX, TO, 32, 64>(x, qw, xs, ws, out, M, N, K, st);
-  return launch<TX, TO, 128, 128>(x, qw, xs, ws, out, M, N, K, st);
+cudaError_t by_rows(const Args& a, cudaStream_t st) {
+  if (a.M <= 64) return launch<TX, TO, 32, 64>(a, st);
+  return launch<TX, TO, 128, 128>(a, st);
+}
+
+template <typename TX>
+cudaError_t by_out(const Args& a, int out_dtype, cudaStream_t st) {
+  if (out_dtype == 0) return by_rows<TX, float>(a, st);
+  if (out_dtype == 1) return by_rows<TX, __nv_bfloat16>(a, st);
+  if (out_dtype == 2) return by_rows<TX, __half>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// x [M, K] bf16 (x_is_bf16) or fp32; qw [N, K] int8; xs one fp32 value
-// and ws [N] fp32 in device memory; out [M, N] bf16 (out_is_bf16) or
-// fp32.  K must be a multiple of 16 and x, qw 16-byte aligned (the
-// wrapper checks both).
+// x [M, K] and out [M, N] of dtype codes x_dtype / out_dtype (0 fp32,
+// 1 bf16, 2 fp16); qw [N, Kp] int8 with Kp a multiple of 16 and K <= Kp,
+// 16-byte aligned (the wrapper checks both); xs one fp32 value and ws [N]
+// fp32 in device memory.  vec: K % 8 == 0 and x 16-byte aligned.
 extern "C" int quant_matmul(const void* x, const void* qw, const float* xs,
                             const float* ws, void* out, int M, int N, int K,
-                            int x_is_bf16, int out_is_bf16, void* stream) {
+                            int Kp, int vec, int x_dtype, int out_dtype,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_is_bf16)
-    err = out_is_bf16
-              ? by_rows<__nv_bfloat16, __nv_bfloat16>(x, qw, xs, ws, out, M,
-                                                      N, K, st)
-              : by_rows<__nv_bfloat16, float>(x, qw, xs, ws, out, M, N, K,
-                                              st);
-  else
-    err = out_is_bf16
-              ? by_rows<float, __nv_bfloat16>(x, qw, xs, ws, out, M, N, K,
-                                              st)
-              : by_rows<float, float>(x, qw, xs, ws, out, M, N, K, st);
+  const Args a{x, qw, xs, ws, out, M, N, K, Kp, vec};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (x_dtype == 0) err = by_out<float>(a, out_dtype, st);
+  else if (x_dtype == 1) err = by_out<__nv_bfloat16>(a, out_dtype, st);
+  else if (x_dtype == 2) err = by_out<__half>(a, out_dtype, st);
   return static_cast<int>(err);
 }

@@ -24,9 +24,12 @@ warp-shuffle tree a CUDA kernel would write by hand) and writes the
 affine output.  It is bound by memory on the H100: each element is read
 once and written once and costs a handful of fp32 operations, so the
 design keeps the row in registers and touches device memory exactly
-once each way.  The variance is two-pass in registers (``mean((x -
-mean)^2)``), which is no extra traffic and avoids the cancellation of
-the single-pass form; it agrees with the plain version to ~1e-6.
+once each way.  The variance is JAX's single-pass ``E[x^2] - mean^2``
+in fp32 (``apex_tpu/normalization/fused_layer_norm.py:146, 211``), the
+formula of the plain version: a row whose mean is large against its
+spread loses digits to the cancellation in both alike, so the kernel
+follows them rather than a two-pass variance that would part from them
+there.
 
 The backward replaces the Pallas ``_bwd_kernel`` (launched by
 ``_pallas_bwd_input``, ``:223``): ``dx = (g*w - mean(g*w) - xhat *
@@ -115,8 +118,8 @@ def _triton_kernel():
         x = tl.load(x_ptr + row * stride_x + cols, mask=live,
                     other=0.0).to(tl.float32)
         mean = tl.sum(x, axis=0) / n2
+        var = tl.sum(x * x, axis=0) / n2 - mean * mean
         xc = tl.where(live, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / n2
         invvar = 1.0 / tl.sqrt(var + eps)
         y = xc * invvar
         if HAS_W:
@@ -173,7 +176,8 @@ def layer_norm_fwd_kernel(x2d, weight, bias, eps):
             bias if bias is not None else x2d, out, mean, invvar,
             x2d.stride(0), out.stride(0), n2, float(eps),
             HAS_W=weight is not None, HAS_B=bias is not None, BLOCK=block,
-            num_warps=min(16, max(4, block // 256)))
+            num_warps=min(16, max(4, block // 256)),
+            enable_fp_fusion=False)   # mean * mean rounded, as in JAX
     layer_norm_fwd_kernel.launches += 1
     return out, mean, invvar
 

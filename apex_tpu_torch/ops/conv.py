@@ -30,11 +30,13 @@ Kernel notes.  ``conv_fwd_kernel`` replaces the Pallas ``_fwd_kernel``
 all three are GEMMs bound by tensor-core operations (M, N, K in the
 thousands); the design gathers each operand tile straight from NHWC
 (implicit im2col, zero padding by a bounds test, no padded copy) into
-shared memory for bf16 ``wmma`` with fp32 accumulators, or a full-fp32
-FMA loop for fp32 operands; dgrad gathers the cotangent as a transposed
-conv (no dilated tensor); wgrad splits its pixel sum over a fp32
-workspace and reduces the splits in order (deterministic).  The source
-says more.
+shared memory for bf16 or fp16 ``wmma`` with fp32 accumulators, or a
+full-fp32 FMA loop for fp32 operands; dgrad gathers the cotangent as a
+transposed conv (no dilated tensor), at stride > 1 as one sub-GEMM per
+parity class of the input pixels over only the taps that reach it (one
+launch), so no zero tap reaches the tensor cores; wgrad splits its pixel
+sum over a fp32 workspace and reduces the splits in order
+(deterministic).  The source says more.
 
 Not ported (ROADMAP): ``publish_conv_counters`` (telemetry) and the
 tuner's ``tune_bucket`` / ``TUNE_VERSION``.
@@ -156,6 +158,52 @@ def _dgrad_ref(dy, w, stride, padding, dilation, hw):
         return torch.autograd.grad(y, x0, dy)[0]
 
 
+def _parity_taps(phase: int, pad: int, dil: int, s: int, k: int):
+    """The kernel offsets ``kk < k`` whose taps reach input pixels of
+    parity ``phase`` along one axis: ``(phase + pad - kk * dil) % s ==
+    0``."""
+    return [kk for kk in range(k) if (phase + pad - kk * dil) % s == 0]
+
+
+def _dgrad_parity_ref(dy, w, stride, padding, dilation, hw):
+    """The stride > 1 dgrad kernel's arithmetic in plain PyTorch: the
+    input gradient computed one parity class at a time.
+
+    Class ``(ph, pw)`` is the input pixels ``(ph + sh i, pw + sw j)``;
+    only the taps ``kh`` with ``(ph + pt - kh dh) % sh == 0`` (and likewise
+    in w) reach it, each from output pixel ``(i + (ph + pt - kh dh) / sh,
+    j + ...)``, read as zero outside ``dy``.  Each class sums ``dy_tap @
+    w[kh, kw].T`` over its taps in fp32 and is cast to dy's dtype once;
+    a class no tap reaches is zeros."""
+    n, oh, ow, o = dy.shape
+    kh_, kw_, c, _ = w.shape
+    (sh, sw), (dh, dw) = stride, dilation
+    (pt, _), (pl_, _) = padding
+    h, wd = hw
+    dyf, wf = dy.float(), w.float()
+    dx = torch.zeros((n, h, wd, c), dtype=torch.float32, device=dy.device)
+    for ph in range(min(sh, h)):
+        for pw in range(min(sw, wd)):
+            hc, wc = len(range(ph, h, sh)), len(range(pw, wd, sw))
+            acc = torch.zeros((n, hc, wc, c), dtype=torch.float32,
+                              device=dy.device)
+            for kh in _parity_taps(ph, pt, dh, sh, kh_):
+                oh0 = (ph + pt - kh * dh) // sh
+                for kw in _parity_taps(pw, pl_, dw, sw, kw_):
+                    ow0 = (pw + pl_ - kw * dw) // sw
+                    # output pixel oh0 + i for class row i, zero outside
+                    rows = torch.arange(hc, device=dy.device) + oh0
+                    cols = torch.arange(wc, device=dy.device) + ow0
+                    rok = (rows >= 0) & (rows < oh)
+                    cok = (cols >= 0) & (cols < ow)
+                    g = dyf[:, rows.clamp(0, oh - 1)][:, :,
+                                                      cols.clamp(0, ow - 1)]
+                    g = g * (rok[:, None] & cok[None, :])[None, :, :, None]
+                    acc = acc + g @ wf[kh, kw].t()
+            dx[:, ph::sh, pw::sw] = acc
+    return dx.to(dy.dtype)
+
+
 def _wgrad_ref(x, dy, stride, padding, dilation, kernel_size):
     """The wgrad kernel's plain version: the weight gradient of
     :func:`_raw_conv` (autograd), in x's dtype."""
@@ -193,11 +241,10 @@ def _lib() -> ctypes.CDLL:
 
 def _check_operands(acts, vecs=()):
     """What the kernels take: contiguous 4-D CUDA tensors of one float
-    type (bf16 or fp32) on one device, under 2**31 elements each, and
+    type (fp32, bf16 or fp16) on one device, under 2**31 elements each, and
     contiguous fp32 per-channel vectors there."""
     ref = acts[0][1]
-    if ref.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"conv kernel takes bf16 or fp32, got {ref.dtype}")
+    _build.dtype_code(ref.dtype)
     for name, t in acts:
         if t is None:
             continue
@@ -243,8 +290,8 @@ def _launch(name, prm, dtype, vec, device, *extra):
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(_lib(), name)(ctypes.byref(prm),
-                                    int(dtype == torch.bfloat16), vec,
-                                    *extra, stream)
+                                    _build.dtype_code(dtype), vec, *extra,
+                                    stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -306,8 +353,11 @@ conv_fwd_kernel.launches = 0
 def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw):
     """Launch the CUDA dgrad kernel: the input gradient ``[N, H, W, C]``
     (``hw = (H, W)``) of the conv of :func:`conv_fwd_kernel`'s arguments,
-    from the output gradient ``dy`` ``[N, OH, OW, O]``; in dy's type.
-    Adds one to ``conv_dgrad_kernel.launches`` per launch."""
+    from the output gradient ``dy`` ``[N, OH, OW, O]``; in dy's type.  At
+    stride 1 one GEMM over every pixel (:func:`_dgrad_ref`); at stride > 1
+    one launch of all the parity classes' sub-GEMMs
+    (:func:`_dgrad_parity_ref` is their arithmetic).  Adds one to
+    ``conv_dgrad_kernel.launches`` per launch."""
     n = dy.shape[0]
     x_shape = (n, *hw, w.shape[2])
     oh, ow = _geometry(x_shape, w.shape, stride, padding, dilation)

@@ -15,10 +15,14 @@ its forward saves ``out`` and the fp32 ``lse``, its backward recomputes
 ``p = exp(s - lse)`` tile by tile.  Dispatch is by the tensors' device and
 nothing else: CPU tensors take :func:`_flash_fwd_ref` and
 :func:`_flash_bwd_ref`; CUDA tensors launch the kernels of
-``csrc/flash_attention.cu`` (forward, every shape, ``q_len = 1`` decode
-included — the TPU's measured crossovers do not carry over) and
-``csrc/flash_attention_bwd.cu`` (dQ, dK/dV and, when a ``[B, T, S]``
-bias needs a gradient, its head-summed gradient), or raise.  The kernels
+``csrc/flash_attention.cu`` (forward, every shape: tensor cores for
+bf16/fp16 prefill, a full-fp32 SIMT kernel for fp32, split-KV with a
+combine for ``q_len < 16`` — the TPU's block sizes and measured
+crossovers do not carry over) and ``csrc/flash_attention_bwd.cu`` (dQ,
+dK/dV and, when a ``[B, T, S]`` bias needs a gradient, its head-summed
+gradient), or raise.  The kernels take fp32, bf16 and fp16 and any head
+width up to 128 (run in the next of 16, 32, 64, 128; nothing padded is
+copied to device memory).  The kernels
 replace the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_db2_kernel``
 (``apex_tpu/ops/flash_attention.py:238, 440, 478, 562``); their sources
@@ -31,6 +35,7 @@ the plain, differentiable path on either device, as JAX takes its jnp
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,15 +44,14 @@ from .. import _build
 
 NEG_INF = -1e30
 
-_HEAD_DIMS = (32, 64, 128)
-
-
-def _pick_block_q(tq: int) -> int:
-    """Query rows per CUDA block: 64 for prefill-sized calls, fewer for
-    short ones so a decode row is spread over a whole warp."""
-    if tq >= 64:
-        return 64
-    return 16 if tq >= 16 else 4
+#: the head widths the kernels are instantiated at; any width up to the
+#: last runs in the next one, its missing columns read as zero
+_KERNEL_DIMS = (16, 32, 64, 128)
+#: q_len below this takes the split-KV decode path (two CUDA kernels)
+_SPLIT_TQ = 16
+#: keys per split-KV chunk: at least a few passes of a block, at most
+#: what its shared-memory score rows hold
+_MIN_CHUNK, _MAX_CHUNK = 64, 512
 
 
 # -- plain versions -------------------------------------------------------------
@@ -109,6 +113,57 @@ def _flash_fwd_ref(q, k, v, kbias, bias, *, sm_scale: float, causal: bool,
     return out.to(q.dtype), lse[..., 0]
 
 
+def _flash_fwd_split_ref(q, k, v, kbias, bias, *, sm_scale: float,
+                         causal: bool, q_offset: int = 0,
+                         window: Optional[int] = None, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-KV decode kernels' arithmetic in plain PyTorch: the
+    function of :func:`_flash_fwd_ref`, computed over keys in chunks of
+    ``chunk`` and merged as the combine kernel merges them.
+
+    Each chunk c keeps fp32 ``(m_c, l_c, acc_c)``: its visible maximum,
+    ``l_c = sum p``, ``acc_c = sum p v`` with ``p = exp(s - m_c)`` rounded
+    to the value dtype for the product (``l_c == 0`` where the chunk has
+    no visible key).  The merge takes ``M = max m_c`` over the chunks with
+    ``l_c > 0``, weights ``w_c = exp(m_c - M)`` in chunk order, and
+    returns ``out = sum w_c acc_c / sum w_c l_c`` and ``lse = M + log(sum
+    w_c l_c)``; no live chunk gives zeros and ``lse = NEG_INF``."""
+    k, v = _repeat_kv(q, k, v)
+    s = _scores(q, k, kbias, bias, sm_scale)
+    tq, tk = q.shape[1], k.shape[1]
+    if causal:
+        vis = _visible(tq, tk, q_offset, window, q.device)
+    else:
+        vis = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    s = torch.where(vis, s, torch.full_like(s, float("-inf")))
+    parts = []
+    for c0 in range(0, tk, chunk):
+        sc = s[..., c0:c0 + chunk]
+        mx = sc.amax(dim=-1, keepdim=True)
+        mu = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
+        p = torch.exp(sc - mu)
+        l_c = p.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                           v[:, c0:c0 + chunk].float())
+        parts.append((mx, l_c, acc))
+    live = [l_c > 0 for _, l_c, _ in parts]
+    m_all = torch.stack([torch.where(ok, mx, torch.full_like(mx, -1e38))
+                         for ok, (mx, _, _) in zip(live, parts)])
+    big_m = m_all.amax(dim=0)
+    l_sum = torch.zeros_like(big_m)
+    o_sum = torch.zeros_like(parts[0][2])
+    for ok, (mx, l_c, acc) in zip(live, parts):
+        w = torch.where(ok, torch.exp(mx - big_m), torch.zeros_like(mx))
+        l_sum = l_sum + l_c * w
+        o_sum = o_sum + acc * w
+    any_live = l_sum > 0
+    out = torch.where(any_live, o_sum / torch.where(any_live, l_sum, 1.0),
+                      torch.zeros_like(o_sum))
+    lse = torch.where(any_live, big_m + torch.log(torch.where(
+        any_live, l_sum, 1.0)), torch.full_like(l_sum, NEG_INF))
+    return out.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0]
+
+
 def _delta(do, out) -> torch.Tensor:
     """``rowsum(dO * out)`` in fp32, ``[B, H, T]`` contiguous (a plain
     reduction outside the kernels, as in the JAX package)."""
@@ -159,14 +214,15 @@ def _flash_bwd_ref(q, k, v, kbias, bias, out, lse, do, *, sm_scale: float,
 class _FlashParams(ctypes.Structure):
     """Mirror of ``struct Params`` in ``csrc/flash_attention.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
-                 ("q", "k", "v", "kbias", "bias", "out", "lse")]
+                 ("q", "k", "v", "kbias", "bias", "out", "lse", "part_o",
+                  "part_ml")]
                 + [(n, ctypes.c_int64) for n in
                    ("sq_b", "sq_t", "sq_h", "sk_b", "sk_t", "sk_h",
                     "sv_b", "sv_t", "sv_h", "so_b", "so_t", "so_h",
                     "skb_b", "sb_b", "sb_t")]
                 + [(n, ctypes.c_int32) for n in
                    ("B", "H", "Hkv", "tq", "tk", "causal", "q_offset",
-                    "window")]
+                    "window", "d", "vec", "splits", "chunk", "bvec")]
                 + [("sm_scale", ctypes.c_float)])
 
 
@@ -181,7 +237,7 @@ class _FlashBwdParams(ctypes.Structure):
                 + [(n, ctypes.c_int64) for n in ("skb_b", "sb_b", "sb_t")]
                 + [(n, ctypes.c_int32) for n in
                    ("B", "H", "Hkv", "tq", "tk", "causal", "q_offset",
-                    "window")]
+                    "window", "d")]
                 + [("sm_scale", ctypes.c_float)])
 
 
@@ -189,7 +245,7 @@ def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -209,13 +265,12 @@ def _check_kernel_inputs(q, k, v, kbias, bias, *extra):
     the fp32 layouts the kernels read; returns ``(kbias, bias)``."""
     b, tq, _, d = q.shape
     tk = k.shape[1]
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
+    _build.dtype_code(q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel head_dim must be one of "
-                         f"{_HEAD_DIMS}, got {d}")
+    if not 1 <= d <= _KERNEL_DIMS[-1]:
+        raise ValueError(f"flash kernel head_dim must be 1 to "
+                         f"{_KERNEL_DIMS[-1]}, got {d}")
     if tq < 1 or tk < 1:
         raise ValueError("flash kernel needs q_len >= 1 and kv_len >= 1")
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
@@ -253,8 +308,45 @@ def _common(q, k, kbias, bias, *, sm_scale, causal, q_offset, window):
         sb_t=0 if bias is None else bias.stride(1),
         B=q.shape[0], H=q.shape[2], Hkv=k.shape[2], tq=q.shape[1],
         tk=k.shape[1], causal=int(causal), q_offset=int(q_offset),
-        window=0 if window is None else int(window),
+        window=0 if window is None else int(window), d=q.shape[3],
         sm_scale=float(sm_scale))
+
+
+def _kernel_dim(d: int) -> int:
+    """The instantiated head width a width-``d`` call runs in."""
+    return next(w for w in _KERNEL_DIMS if w >= d)
+
+
+def _vec16(d: int, *tensors) -> int:
+    """1 when every row of every tensor starts on a 16-byte boundary and
+    ``d`` is a multiple of 8: the 16-byte copies apply."""
+    return int(d % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+        for t in tensors))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bias_vec(bias) -> int:
+    """1 when the fp32 ``[B, T, S]`` bias takes 16-byte copies: S and the
+    strides multiples of 4 floats, the start 16-byte aligned."""
+    return int(bias is not None and bias.shape[2] % 4 == 0
+               and bias.stride(0) % 4 == 0 and bias.stride(1) % 4 == 0
+               and bias.data_ptr() % 16 == 0)
+
+
+def _kv_split(b: int, h: int, tk: int, sms: int) -> Tuple[int, int]:
+    """``(splits, chunk)`` for the split-KV decode path: enough chunks
+    that B * H * splits blocks cover the SMs about four times, each
+    chunk a multiple of 32 keys between ``_MIN_CHUNK`` and
+    ``_MAX_CHUNK``."""
+    want = max(1, -(-4 * sms // (b * h)))
+    chunk = -(-tk // want)
+    chunk = min(_MAX_CHUNK, max(_MIN_CHUNK, -(-chunk // 32) * 32))
+    return -(-tk // chunk), chunk
 
 
 def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
@@ -263,23 +355,39 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA forward kernel: the arguments of
     :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
-    ``(out, lse)``.  Adds one to ``flash_fwd_kernel.launches`` per
-    launch."""
+    ``(out, lse)``.  ``q_len >= 16`` runs one kernel (tensor cores for
+    bf16/fp16, fp32 FMA for fp32); a shorter call runs the split-KV
+    kernel and its combine (:func:`_flash_fwd_split_ref` is their
+    arithmetic), with fp32 scratch allocated here.  Adds one to
+    ``flash_fwd_kernel.launches`` per call."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias)
     b, tq, h, d = q.shape
+    dk = _kernel_dim(d)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    splits = chunk = 0
+    part_o = part_ml = None
+    if tq < _SPLIT_TQ:
+        splits, chunk = _kv_split(b, h, k.shape[1],
+                                  _sm_count(q.device.index or 0))
+        part_o = torch.empty((b, h, tq, splits, dk), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((b, h, tq, splits, 2), dtype=torch.float32,
+                              device=q.device)
     prm = _FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
         out=out.data_ptr(), lse=lse.data_ptr(),
+        part_o=None if part_o is None else part_o.data_ptr(),
+        part_ml=None if part_ml is None else part_ml.data_ptr(),
+        vec=_vec16(d, q, k, v, out), splits=splits, chunk=chunk,
+        bvec=_bias_vec(bias),
         **_strides(q=q, k=k, v=v, o=out),
         **_common(q, k, kbias, bias, sm_scale=sm_scale, causal=causal,
                   q_offset=q_offset, window=window))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _fwd_lib().flash_attention_fwd(
-            ctypes.byref(prm), d, _pick_block_q(tq),
-            int(q.dtype == torch.bfloat16), stream)
+            ctypes.byref(prm), dk, _build.dtype_code(q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
@@ -306,8 +414,8 @@ def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = getattr(_bwd_lib(), f"flash_attention_bwd_{which}")(
-            ctypes.byref(prm), q.shape[3], int(q.dtype == torch.bfloat16),
-            stream)
+            ctypes.byref(prm), _kernel_dim(q.shape[3]),
+            _build.dtype_code(q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_{which} launch failed: "
                            f"CUDA error {err}")

@@ -18,8 +18,11 @@ Pallas ``_qmm_kernel`` (``apex_tpu/quant/kernels.py:147``, launched by
 
 So the kernel equals :func:`_qmm_ref` bit for bit.  The weight is
 quantized per call in plain torch, as the JAX package does outside its
-kernel, and laid out ``[N, K]`` (K contiguous) in that same pass, the B
-operand layout of ``mma.sync``.  The backward is the straight-through
+kernel, and laid out ``[N, Kp]`` (K contiguous, zero columns up to
+``Kp``, the next multiple of 16) in that same pass
+(:func:`weight_layout`), the B operand layout of ``mma.sync``; the kernel
+reads x's columns past K as zero, so any K runs and the integer sums are
+those of the unpadded product.  The backward is the straight-through
 estimator in the operands' own precision (``dx = g @ w.T``, ``dw = x.T @
 g``, plain ``torch.matmul``), as in JAX: the int8 path never appears in
 it.
@@ -110,11 +113,14 @@ def saturation_count(x, x_scale) -> torch.Tensor:
 def _qmm_ref(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (JAX ``_matmul_ref``).
 
-    ``x2d`` ``[M, K]`` bf16 or fp32; ``qw`` the quantized weight ``[N,
-    K]`` int8; ``x_scale`` a 0-dim fp32 tensor; ``w_scale`` ``[N]`` fp32.
-    The int8 products are summed in fp64, which is exact (``|sum| <=
-    127^2 K < 2^53``), so the result equals the int32 accumulation."""
+    ``x2d`` ``[M, K]`` fp32, bf16 or fp16; ``qw`` the quantized weight
+    ``[N, Kp]`` int8 (:func:`weight_layout`: ``Kp >= K``, the columns
+    past K zero, which add nothing); ``x_scale`` a 0-dim fp32 tensor;
+    ``w_scale`` ``[N]`` fp32.  The int8 products are summed in fp64,
+    which is exact (``|sum| <= 127^2 K < 2^53``), so the result equals
+    the int32 accumulation."""
     qx = quantize(x2d, x_scale)
+    qw = qw[:, :x2d.shape[1]]
     acc = (qx.double() @ qw.double().t()).to(torch.int32)
     out = acc.float() * (x_scale * w_scale)[None, :]
     return out.to(out_dtype)
@@ -127,11 +133,23 @@ def quantized_matmul_ref(x, w, *, x_scale, w_scale=None) -> torch.Tensor:
         w_scale = channel_scale(w)
     x_scale = _f32(x_scale, x.device).reshape(())
     w_scale = _f32(w_scale, x.device).reshape(w.shape[1])
-    qw = quantize(w, w_scale[None, :]).t()
     lead = x.shape[:-1]
-    out = _qmm_ref(x.reshape(-1, x.shape[-1]), qw, x_scale, w_scale,
-                   x.dtype)
+    out = _qmm_ref(x.reshape(-1, x.shape[-1]), weight_layout(w, w_scale),
+                   x_scale, w_scale, x.dtype)
     return out.reshape(*lead, w.shape[-1])
+
+
+def weight_layout(w2d, w_scale) -> torch.Tensor:
+    """The quantized weight as the kernel reads it: ``w2d`` ``[K, N]``
+    quantized per column by ``w_scale`` ``[N]``, laid out ``[N, Kp]``
+    int8 (K contiguous) with zero columns up to ``Kp``, the next multiple
+    of 16 (the K step of ``mma.sync.m16n8k32`` loads)."""
+    k = w2d.shape[0]
+    qw = quantize(w2d, w_scale[None, :]).t()
+    pad = -k % 16
+    if pad:
+        qw = torch.nn.functional.pad(qw, (0, pad))
+    return qw.contiguous()
 
 
 # -- the CUDA kernel --------------------------------------------------------------
@@ -139,33 +157,30 @@ def quantized_matmul_ref(x, w, *, x_scale, w_scale=None) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quant")
     fn = lib.quant_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-_DTYPES = (torch.bfloat16, torch.float32)
-
-
 def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
     """Launch the CUDA quantized-matmul kernel: arguments as
-    :func:`_qmm_ref`, CUDA tensors, K a multiple of 16; returns ``[M,
-    N]`` in ``out_dtype`` (bf16 or fp32).  Adds one to
-    ``qmm_kernel.launches`` per launch."""
-    if x2d.dim() != 2 or qw.dim() != 2 or qw.shape[1] != x2d.shape[1]:
-        raise ValueError(f"need x [M, K] and qw [N, K]; got "
+    :func:`_qmm_ref`, CUDA tensors, ``qw`` ``[N, Kp]`` as
+    :func:`weight_layout` gives it (``Kp`` a multiple of 16, at most 15
+    past K); returns ``[M, N]`` in ``out_dtype`` (fp32, bf16 or fp16).
+    Adds one to ``qmm_kernel.launches`` per launch."""
+    if x2d.dim() != 2 or qw.dim() != 2:
+        raise ValueError(f"need x [M, K] and qw [N, Kp]; got "
                          f"{tuple(x2d.shape)} and {tuple(qw.shape)}")
     m, k = x2d.shape
-    n = qw.shape[0]
-    if x2d.dtype not in _DTYPES or out_dtype not in _DTYPES:
-        raise TypeError(f"qmm kernel takes bf16 or fp32 x and output, got "
-                        f"{x2d.dtype} -> {out_dtype}")
+    n, kp = qw.shape
+    x_code, out_code = (_build.dtype_code(x2d.dtype),
+                        _build.dtype_code(out_dtype))
     if qw.dtype != torch.int8:
         raise TypeError(f"qw must be int8, got {qw.dtype}")
-    if k % 16:
-        raise ValueError(f"the qmm kernel needs K a multiple of 16, got "
-                         f"K={k}")
+    if kp % 16 or not k <= kp < k + 16:
+        raise ValueError(f"qw's K must be x's K={k} padded to a multiple "
+                         f"of 16, got {kp}")
     if (x_scale.dtype != torch.float32 or x_scale.numel() != 1
             or w_scale.dtype != torch.float32 or w_scale.shape != (n,)):
         raise ValueError("x_scale must be one fp32 value and w_scale fp32 "
@@ -175,8 +190,9 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
         if not t.is_cuda or t.device != x2d.device:
             raise ValueError(f"{name} must be on x's CUDA device")
     x2d, qw, w_scale = (t.contiguous() for t in (x2d, qw, w_scale))
-    if x2d.data_ptr() % 16 or qw.data_ptr() % 16:
-        raise ValueError("x and qw must start on a 16-byte boundary")
+    if qw.data_ptr() % 16:
+        raise ValueError("qw must start on a 16-byte boundary")
+    vec = int(k % 8 == 0 and x2d.data_ptr() % 16 == 0)
     out = torch.empty((m, n), dtype=out_dtype, device=x2d.device)
     if m == 0 or n == 0:
         return out
@@ -184,9 +200,8 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
     with torch.cuda.device(x2d.device):
         err = _lib().quant_matmul(
             x2d.data_ptr(), qw.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), out.data_ptr(), m, n, k,
-            int(x2d.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+            w_scale.data_ptr(), out.data_ptr(), m, n, k, kp, vec, x_code,
+            out_code, stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
     qmm_kernel.launches += 1
@@ -206,7 +221,7 @@ class _QuantizedMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, w2d, x_scale, w_scale, use_kernel):
-        qw = quantize(w2d, w_scale[None, :]).t().contiguous()   # [N, K]
+        qw = weight_layout(w2d, w_scale)                       # [N, Kp]
         qmm = qmm_kernel if use_kernel else _qmm_ref
         out = qmm(x2d, qw, x_scale, w_scale, x2d.dtype)
         ctx.save_for_backward(x2d, w2d)

@@ -664,7 +664,7 @@ def test_conv_kernels_refuse_what_they_do_not_take(conv_device):
     with pytest.raises(ValueError, match="contiguous"):
         cv.conv_fwd_kernel(x.transpose(1, 2), w, (1, 1), pads, (1, 1))
     with pytest.raises(TypeError):
-        cv.conv_fwd_kernel(x.half(), w.half(), (1, 1), pads, (1, 1))
+        cv.conv_fwd_kernel(x.double(), w.double(), (1, 1), pads, (1, 1))
     with pytest.raises(ValueError, match="output shape"):
         cv.conv_dgrad_kernel(x[:, :4], w, (1, 1), pads, (1, 1), (8, 8))
 
@@ -743,7 +743,257 @@ def test_qmm_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16"):
         qk.qmm_kernel(x, qw, xs, ws, torch.float32)
     with pytest.raises(TypeError):
-        qk.qmm_kernel(x[:, :16].half(), qw[:, :16], xs, ws, torch.float32)
+        qk.qmm_kernel(x[:, :16].double(), qw[:, :16], xs, ws, torch.float32)
     with pytest.raises(ValueError, match="16-byte"):
-        qk.qmm_kernel(torch.zeros(80, device=cuda_device)[2:66].view(4, 16),
-                      qw[:, :16].contiguous(), xs, ws, torch.float32)
+        qk.qmm_kernel(x[:, :16].contiguous(),
+                      torch.zeros(144, dtype=torch.int8,
+                                  device=cuda_device)[2:130].view(8, 16),
+                      xs, ws, torch.float32)
+
+
+# -- head widths, fp16 and the LayerNorm variance -------------------------------
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_takes_jax_single_pass_variance(cuda_device):
+    """Rows of mean ~100 and spread ~1 built from quarters, so every sum
+    of x and of x*x is exact in fp32 and the single-pass variance
+    E[x^2] - mean^2 differs from the two-pass one only by the rounding of
+    mean^2.  The kernel follows the plain version (and JAX) to within two
+    fp32 ulps of invvar (rsqrt against 1 / sqrt), ten times closer than
+    the two-pass formula comes."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy((100.0 + rng.randint(-8, 9, (64, 64)) / 4.0)
+                         .astype(np.float32)).to(cuda_device)
+    out, mean, invvar = fln.layer_norm_fwd_kernel(x, None, None, 1e-5)
+    want_out, want_mean, want_inv = fln._fwd_ref(x, None, None, 1e-5)
+    xc = x - x.mean(1, keepdim=True)
+    two_pass = torch.rsqrt((xc * xc).mean(1) + 1e-5)
+    kern_err = (invvar - want_inv).abs().max().item()
+    two_err = (two_pass - want_inv).abs().max().item()
+    assert torch.equal(mean, want_mean)
+    assert kern_err <= 2 * 2.0 ** -23 * want_inv.abs().max().item()
+    assert two_err > 10 * kern_err, (two_err, kern_err)
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 48])
+@pytest.mark.parametrize("tq", [1, 5, 20, 130])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)])
+def test_flash_kernel_other_widths_and_fp16(cuda_device, head_dim, tq,
+                                            dtype, atol):
+    """Head widths 16 (its own instantiation) and 48 (run in the 64
+    one, the missing columns read as zero and never stored), at decode
+    lengths (the split-KV path, q_len < 16) and prefill lengths (the
+    tensor-core path), with GQA, a key bias and a [B, T, S] bias; fp16
+    held as bf16 is."""
+    rng = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy(rng.randn(2, n, hh, head_dim)
+                                .astype(np.float32)).to(cuda_device, dtype)
+               for n, hh in ((tq, 4), (150, 2), (150, 2)))
+    kb = torch.from_numpy(np.where(np.arange(150)[None] < [[120], [150]],
+                                   0.0, -1e9).astype(np.float32)).to(
+        cuda_device)
+    bias = torch.from_numpy(rng.randn(2, tq, 150).astype(np.float32)).to(
+        cuda_device)
+    for kw, kbias, bs in ((dict(causal=True, q_offset=150 - tq), kb, None),
+                          (dict(causal=False), None, bias)):
+        kw = dict(kw, sm_scale=head_dim ** -0.5)
+        out, lse = fa.flash_fwd_kernel(q, k, v, kbias, bs, **kw)
+        want_out, want_lse = fa._flash_fwd_ref(q, k, v, kbias, bs, **kw)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                                   rtol=atol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_lm_shape(cuda_device, dtype):
+    """The LM's training call: B 8, T 1023 (no multiple of the 64-row
+    tile), 12 heads of 64, causal: out within 2e-2, lse within 1e-3."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    q, k, v = (torch.randn((8, 1023, 12, 64), device=cuda_device,
+                           generator=gen).to(dtype) for _ in range(3))
+    kw = dict(sm_scale=0.125, causal=True)
+    out, lse = fa.flash_fwd_kernel(q, k, v, None, None, **kw)
+    want_out, want_lse = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tk,window,q_offset", [(1000, None, None),
+                                                (777, 64, None),
+                                                (300, None, -3)])
+def test_flash_split_kv_decode(cuda_device, tk, window, q_offset):
+    """The split-KV path against the plain version and against its own
+    plain arithmetic (``_flash_fwd_split_ref`` at the wrapper's chunk):
+    kv_len no multiple of the chunk, a window that leaves most chunks
+    wholly masked, and rows that see no key at all (a negative offset:
+    out 0, lse NEG_INF).  One call counts one launch."""
+    rng = np.random.RandomState(21)
+    tq = 2
+    q = torch.from_numpy(rng.randn(3, tq, 12, 64).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.randn(3, tk, 12, 64).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    kb = torch.from_numpy(np.where(np.arange(tk)[None] < [[tk // 3], [tk],
+                                                           [tk - 7]],
+                                   0.0, -1e9).astype(np.float32)).to(
+        cuda_device)
+    kw = dict(sm_scale=0.125, causal=True, window=window,
+              q_offset=tk - tq if q_offset is None else q_offset)
+    before = fa.flash_fwd_kernel.launches
+    out, lse = fa.flash_fwd_kernel(q, k, v, kb, None, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_kernel.launches == before + 1
+    splits, chunk = fa._kv_split(3, 12, tk, fa._sm_count(0))
+    assert splits > 1 and tk % chunk != 0
+    for ref in (fa._flash_fwd_ref(q, k, v, kb, None, **kw),
+                fa._flash_fwd_split_ref(q, k, v, kb, None, chunk=chunk,
+                                        **kw)):
+        torch.testing.assert_close(out.float(), ref[0].float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, ref[1], atol=1e-3, rtol=1e-3)
+    if q_offset is not None:
+        assert not out[:, :-q_offset].any()
+        assert (lse[..., :-q_offset] == fa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 48])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2),
+                                        (torch.float16, 3e-2)])
+def test_flash_bwd_kernels_other_widths_and_fp16(cuda_device, head_dim,
+                                                 dtype, atol):
+    """dQ, dK/dV and the [B, T, S] bias gradient at head widths 16 and
+    48 (run in the 64 instantiation) and in fp16."""
+    case = _bwd_case(cuda_device, dtype, d=head_dim, tq=100, tk=150, h=4,
+                     h_kv=2, kbias=True, seed=22)
+    _check_bwd_kernels(*case, atol=atol)
+    _check_db2_kernel(*_bwd_case(cuda_device, dtype, d=head_dim, tq=100,
+                                 tk=150, h=4, h_kv=2, bias=True, seed=23))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_kernels_match_plain_fp16(conv_device, case):
+    """Forward, dgrad and wgrad in fp16 against their plain versions,
+    within one fp16 ulp of max |plain| (2**-10 of it)."""
+    xs, ws, stride, padding, dilation = CONV_CASES[case]
+    gen = torch.Generator(device=conv_device).manual_seed(33)
+    x = torch.randn(xs, device=conv_device, generator=gen).half()
+    w = (torch.randn(ws, device=conv_device, generator=gen)
+         / (ws[0] * ws[1] * ws[2]) ** 0.5).half()
+    oh, ow = cv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], *stride,
+                        *dilation)
+    dy = torch.randn((xs[0], oh, ow, ws[3]), device=conv_device,
+                     generator=gen).half()
+    out, _ = cv.conv_fwd_kernel(x, w, stride, padding, dilation)
+    dx = cv.conv_dgrad_kernel(dy, w, stride, padding, dilation, xs[1:3])
+    dw = cv.conv_wgrad_kernel(x, dy, stride, padding, dilation, ws[:2])
+    for got, want in (
+            (out, cv._fwd_ref(x, w, stride, padding, dilation)[0]),
+            (dx, cv._dgrad_ref(dy, w, stride, padding, dilation, xs[1:3])),
+            (dw, cv._wgrad_ref(x, dy, stride, padding, dilation, ws[:2]))):
+        assert got.dtype == torch.float16 and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -10 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine,with_z,relu", BN_VARIANTS)
+def test_conv_epilogue_fp16_equals_conv_then_plain_epilogue(conv_device,
+                                                            affine, with_z,
+                                                            relu):
+    fba_ = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
+    gen = torch.Generator(device=conv_device).manual_seed(34)
+    x = torch.randn((2, 10, 10, 32), device=conv_device, generator=gen).half()
+    w = (0.1 * torch.randn((3, 3, 32, 40), device=conv_device,
+                           generator=gen)).half()
+    mean = 0.3 * torch.randn(40, device=conv_device, generator=gen)
+    invstd = torch.rand(40, device=conv_device, generator=gen) + 0.5
+    scale = 1 + 0.2 * torch.randn(40, device=conv_device, generator=gen)
+    bias = 0.2 * torch.randn(40, device=conv_device, generator=gen)
+    z = torch.randn((2, 10, 10, 40), device=conv_device, generator=gen).half()
+    scale, bias = (scale, bias) if affine else (None, None)
+    z = z if with_z else None
+    pads = ((1, 1), (1, 1))
+    y, _ = cv.conv_fwd_kernel(x, w, (1, 1), pads, (1, 1))
+    out, pre = cv.conv_fwd_kernel(x, w, (1, 1), pads, (1, 1), mean, invstd,
+                                  scale, bias, z, relu, want_preact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(pre, y)
+    assert torch.equal(out, fba_._fwd_ref(y, mean, invstd, scale, bias, z,
+                                          relu))
+
+
+# the six stride-2 dgrad sites of ResNet-50 (flax 'SAME': (0, 1) pads for
+# the 3x3/2, none for the 1x1/2), at B 8: x shape, w shape, padding
+RESNET_S2 = {
+    "s2_3x3": ((8, 56, 56, 128), (3, 3, 128, 128), ((0, 1), (0, 1))),
+    "s2_1x1": ((8, 56, 56, 256), (1, 1, 256, 512), ((0, 0), (0, 0))),
+    "s3_3x3": ((8, 28, 28, 256), (3, 3, 256, 256), ((0, 1), (0, 1))),
+    "s3_1x1": ((8, 28, 28, 512), (1, 1, 512, 1024), ((0, 0), (0, 0))),
+    "s4_3x3": ((8, 14, 14, 512), (3, 3, 512, 512), ((0, 1), (0, 1))),
+    "s4_1x1": ((8, 14, 14, 1024), (1, 1, 1024, 2048), ((0, 0), (0, 0))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(RESNET_S2))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_conv_dgrad_resnet_stride2_sites(conv_device, site, dtype):
+    """The per-parity dgrad at every ResNet-50 stride-2 shape against the
+    plain dgrad and against its own plain arithmetic
+    (``_dgrad_parity_ref``), within one ulp of max |plain|; the odd pixels
+    of a 1x1/2 site, which no tap reaches, exactly zero."""
+    xs, ws, pads = RESNET_S2[site]
+    gen = torch.Generator(device=conv_device).manual_seed(35)
+    w = (torch.randn(ws, device=conv_device, generator=gen)
+         / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+    oh, ow = cv._out_hw(xs[1], xs[2], pads, ws[0], ws[1], 2, 2, 1, 1)
+    dy = torch.randn((xs[0], oh, ow, ws[3]), device=conv_device,
+                     generator=gen).to(dtype)
+    before = cv.conv_dgrad_kernel.launches
+    dx = cv.conv_dgrad_kernel(dy, w, (2, 2), pads, (1, 1), xs[1:3])
+    torch.cuda.synchronize()
+    assert cv.conv_dgrad_kernel.launches == before + 1
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    for want in (cv._dgrad_ref(dy, w, (2, 2), pads, (1, 1), xs[1:3]),
+                 cv._dgrad_parity_ref(dy, w, (2, 2), pads, (1, 1),
+                                      xs[1:3])):
+        err = (dx.float() - want.float()).abs().max().item()
+        assert err <= ulp * want.float().abs().max().item()
+    if ws[0] == 1:
+        assert not dx[:, 1::2].any() and not dx[:, :, 1::2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("m,k,n", [(16, 8, 24), (33, 8, 130), (70, 40, 65),
+                                   (9, 100, 48), (130, 776, 96)])
+def test_qmm_kernel_any_k_and_fp16_bit_for_bit(cuda_device, dtype, m, k, n):
+    """K = 8 (the JAX test's), K no multiple of 8 (element loads of x)
+    and fp16 in and out: the weight padded to Kp by ``weight_layout``,
+    the kernel equal to ``_qmm_ref`` bit for bit."""
+    rng = np.random.RandomState(42)
+    x = torch.from_numpy((rng.randn(m, k) * 2).astype(np.float32)).to(
+        cuda_device, dtype)
+    w = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(
+        np.float32)).to(cuda_device, dtype)
+    ws = qk.channel_scale(w)
+    qw = qk.weight_layout(w, ws)
+    assert qw.shape == (n, -(-k // 16) * 16)
+    xs = torch.tensor(x.float().abs().max().item() / 127.0 * 0.8,
+                      device=cuda_device)
+    for out_dtype in (dtype, torch.float32):
+        got = qk.qmm_kernel(x, qw, xs, ws, out_dtype)
+        want = qk._qmm_ref(x, qw, xs, ws, out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, want)

@@ -306,6 +306,36 @@ def test_make_train_step_three_steps_match_jax(flax_params, opt_level,
     assert int(st.opt_state.step) == 3
 
 
+def test_make_train_step_fp16_three_steps_match_jax(flax_params):
+    """``cast_model_type=float16`` with a dynamic scale (the JAX
+    package's tested fp16 mode, ``tests/test_l1_cross_product.py``) on
+    gpt_tiny, three Adam steps against JAX's: fp16 activations keep 11
+    bits where bf16 keeps 8, so losses and parameters are held at 5e-3,
+    and the loss scale and the skip decisions are equal."""
+    tx_kw = dict(weight_decay=0.1)
+    jm = jgpt_tiny(**CFG, dtype=jnp.float16)
+    jinit, jstep = jtraining.make_train_step(
+        _jax_loss(jm, 0.1), jtraining.adam(1e-3, **tx_kw), opt_level="O2",
+        cast_model_type=jnp.float16, loss_scale="dynamic")
+    tm = gpt_tiny(**CFG, dtype=torch.float16, device="cpu")
+    tm.load_state_dict(gpt_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, flax_params)))
+    init, step = training.make_train_step(
+        _port_loss(tm, 0.1), training.adam(1e-3, **tx_kw), opt_level="O2",
+        cast_model_type=torch.float16, loss_scale="dynamic")
+    jst, jstep, st = jinit(flax_params), jax.jit(jstep), init(tm.state_dict())
+    x, y = _batch()
+    for i in range(3):
+        jst, jmet = jstep(jst, (jnp.asarray(x), jnp.asarray(y)))
+        st, met = step(st, (torch.from_numpy(x), torch.from_numpy(y)))
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=5e-3, err_msg=f"step {i}")
+        assert float(met["loss_scale"]) == float(jmet["loss_scale"])
+        assert bool(met["overflow"]) == bool(jmet["overflow"])
+    _close_params(st.params, _flat_jax(jst.params), 5e-3)
+    assert all(v.dtype == torch.float32 for v in st.params.values())
+
+
 def test_overflow_skips_the_step_and_halves_the_scale(flax_params):
     """O2 with a dynamic scale and an injected inf in the loss: the step
     is skipped in both packages (parameters and moments unchanged), the
