@@ -14,10 +14,11 @@
 // with (m, l, acc) carried in fp32.  p is rounded to the value dtype
 // before the PV product, as the TPU kernel casts p to v's dtype; fp32
 // inputs are computed in full fp32 (no TF32).  GQA reads KV head
-// h / (H / H_kv) directly: nothing is repeated.  Any head width up to 128
-// runs in the next instantiated width (16, 32, 64, 128): loads read the
-// missing columns as zero and stores skip them, so nothing padded is ever
-// in device memory and the results are those of the unpadded function.
+// h / (H / H_kv) directly: nothing is repeated.  Any head width up to 256
+// runs in the next instantiated width (16, 32, 64, 128, 256): loads read
+// the missing columns as zero and stores skip them, so nothing padded is
+// ever in device memory and the results are those of the unpadded
+// function.
 //
 // What bounds it on the H100, and what the design does about it:
 //  * Prefill and training (q_len >= 16, bf16/fp16) are bound by
@@ -42,7 +43,11 @@
 //    an SM.  `wgmma` and TMA are later work.  Query tiles are issued
 //    longest first, so causal blocks with the most keys start earliest.
 //  * fp32 prefill keeps a SIMT kernel in full fp32 (the tensor cores would
-//    round to TF32): 64 query rows, two threads a row, FMA loops.
+//    round to TF32): 64 query rows, two threads a row, FMA loops.  Width
+//    256 takes the same kernel for every dtype (p rounded to v's dtype),
+//    at 32 rows and 32 keys a tile, four threads a row: the tensor-core
+//    kernel's O accumulator and Q fragments (16 rows by 256 a warp) would
+//    leave no registers for the scores.  Chosen by shape, not yet fast.
 //  * Decode (q_len < 16, serving's q_len = 1) is bound by the K/V bytes.
 //    One block per (b, h) streamed 1,024 keys on 96 blocks; here the keys
 //    split into chunks (grid: chunks x H x B, sized by the wrapper to
@@ -494,54 +499,60 @@ flash_fwd_mma_kernel(const Params p) {
   }
 }
 
-// -- fp32 prefill: SIMT, full fp32 ---------------------------------------------
+// -- fp32 prefill, and every dtype at width 256: SIMT ---------------------------
 
-constexpr int F_BQ = 64;         // query rows per block
-constexpr int F_BK = 64;         // keys per KV tile
 constexpr int F_THREADS = 128;
 
-template <int D>
+// x rounded to T and back: the TPU kernel's cast of p to v's dtype
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// BQ query rows a block over KV tiles of BQ keys: 64 up to width 128,
+// 32 at 256 (fp32 tiles of 64 rows would not fit the SM's shared memory).
+template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(F_THREADS)
-flash_fwd_f32_kernel(const Params p) {
-  constexpr int TPR = F_THREADS / F_BQ;   // threads sharing one query row
-  constexpr int NS = F_BK / TPR;          // score columns per thread
+flash_fwd_simt_kernel(const Params p) {
+  constexpr int BK = BQ;
+  constexpr int TPR = F_THREADS / BQ;     // threads sharing one query row
+  constexpr int NS = BK / TPR;            // score columns per thread
   constexpr int NA = D / TPR;             // output dims per thread
   constexpr int QS = D + 1;               // padded row strides (banks)
-  constexpr int PS = F_BK + 1;
+  constexpr int PS = BK + 1;
 
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BQ][QS]
-  float* Ks = Qs + F_BQ * QS;          // [BK][QS]
-  float* Vs = Ks + F_BK * QS;          // [BK][D]
-  float* Ps = Vs + F_BK * D;           // [BQ][PS] probabilities
-  float* Bs = Ps + F_BQ * PS;          // [BQ][PS] bias tile
-  float* KBs = Bs + F_BQ * PS;         // [BK] key bias
+  float* Ks = Qs + BQ * QS;            // [BK][QS]
+  float* Vs = Ks + BK * QS;            // [BK][D]
+  float* Ps = Vs + BK * D;             // [BQ][PS] probabilities
+  float* Bs = Ps + BQ * PS;            // [BQ][PS] bias tile
+  float* KBs = Bs + BQ * PS;           // [BK] key bias
 
   const int tid = threadIdx.x;
   const int r = tid / TPR;
   const int lane = tid % TPR;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
 
-  const float* q = static_cast<const float*>(p.q) + b * p.sq_b + h * p.sq_h;
-  const float* k = static_cast<const float*>(p.k) + b * p.sk_b + hk * p.sk_h;
-  const float* v = static_cast<const float*>(p.v) + b * p.sv_b + hk * p.sv_h;
+  const T* q = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
+  const T* k = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
+  const T* v = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  for (int i = tid; i < F_BQ * D; i += F_THREADS) {
+  for (int i = tid; i < BQ * D; i += F_THREADS) {
     const int rr = i / D, d = i % D;
     const int t = q0 + rr;
-    Qs[rr * QS + d] = t < p.tq && d < p.d ? q[t * p.sq_t + d] : 0.f;
+    Qs[rr * QS + d] = t < p.tq && d < p.d ? to_f(q[t * p.sq_t + d]) : 0.f;
   }
 
   const int row = q0 + r;
-  const int q_last = min(q0 + F_BQ, p.tq) - 1;
+  const int q_last = min(q0 + BQ, p.tq) - 1;
   int k_begin, k_end;
   key_band(p, q0, q_last, k_begin, k_end);
-  k_begin = (k_begin / F_BK) * F_BK;
+  k_begin = (k_begin / BK) * BK;
 
   float m = NEG_INF, l = 0.f;
   float acc[NA];
@@ -549,25 +560,25 @@ flash_fwd_f32_kernel(const Params p) {
   for (int i = 0; i < NA; ++i) acc[i] = 0.f;
   float s[NS];
 
-  for (int k0 = k_begin; k0 < k_end; k0 += F_BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                   // the previous tile is consumed
-    for (int i = tid; i < F_BK * D; i += F_THREADS) {
+    for (int i = tid; i < BK * D; i += F_THREADS) {
       const int c = i / D, d = i % D;
       const int key = k0 + c;
       const bool in = key < p.tk && d < p.d;
-      Ks[c * QS + d] = in ? k[key * p.sk_t + d] : 0.f;
-      Vs[c * D + d] = in ? v[key * p.sv_t + d] : 0.f;
+      Ks[c * QS + d] = in ? to_f(k[key * p.sk_t + d]) : 0.f;
+      Vs[c * D + d] = in ? to_f(v[key * p.sv_t + d]) : 0.f;
     }
     if (bias) {
-      for (int i = tid; i < F_BQ * F_BK; i += F_THREADS) {
-        const int rr = i / F_BK, c = i % F_BK;
+      for (int i = tid; i < BQ * BK; i += F_THREADS) {
+        const int rr = i / BK, c = i % BK;
         const int t = q0 + rr, key = k0 + c;
         Bs[rr * PS + c] =
             (t < p.tq && key < p.tk) ? bias[t * p.sb_t + key] : 0.f;
       }
     }
     if (kb) {
-      for (int c = tid; c < F_BK; c += F_THREADS)
+      for (int c = tid; c < BK; c += F_THREADS)
         KBs[c] = k0 + c < p.tk ? kb[k0 + c] : 0.f;
     }
     __syncthreads();
@@ -605,7 +616,7 @@ flash_fwd_f32_kernel(const Params p) {
     for (int j = 0; j < NS; ++j) {
       const float pj = (valid >> j) & 1u ? expf(s[j] - m_new) : 0.f;
       ls += pj;
-      Ps[r * PS + j * TPR + lane] = pj;
+      Ps[r * PS + j * TPR + lane] = round_to<T>(pj);
     }
 #pragma unroll
     for (int off = TPR / 2; off > 0; off >>= 1)
@@ -617,7 +628,7 @@ flash_fwd_f32_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < NA; ++i) acc[i] *= alpha;
 #pragma unroll 4
-    for (int c = 0; c < F_BK; ++c) {
+    for (int c = 0; c < BK; ++c) {
       const float pc = Ps[r * PS + c];
 #pragma unroll
       for (int i = 0; i < NA; ++i) acc[i] += pc * Vs[c * D + i * TPR + lane];
@@ -626,11 +637,10 @@ flash_fwd_f32_kernel(const Params p) {
 
   if (row < p.tq) {
     const float safe = l == 0.f ? 1.f : l;
-    float* o = static_cast<float*>(p.out) + b * p.so_b + row * p.so_t +
-               h * p.so_h;
+    T* o = static_cast<T*>(p.out) + b * p.so_b + row * p.so_t + h * p.so_h;
 #pragma unroll
     for (int i = 0; i < NA; ++i)
-      if (i * TPR + lane < p.d) o[i * TPR + lane] = acc[i] / safe;
+      if (i * TPR + lane < p.d) o[i * TPR + lane] = from_f<T>(acc[i] / safe);
     if (lane == 0)
       p.lse[(static_cast<int64_t>(b) * p.H + h) * p.tq + row] =
           l == 0.f ? NEG_INF : m + logf(safe);
@@ -847,15 +857,15 @@ cudaError_t launch_mma(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(const Params& p, cudaStream_t st) {
-  constexpr int smem = sizeof(float) * (F_BQ * (D + 1) + F_BK * (D + 1) +
-                                        F_BK * D + 2 * F_BQ * (F_BK + 1) +
-                                        F_BK);
-  auto kernel = flash_fwd_f32_kernel<D>;
+template <typename T, int D>
+cudaError_t launch_simt(const Params& p, cudaStream_t st) {
+  constexpr int BQ = D > 128 ? 32 : 64;
+  constexpr int smem = sizeof(float) * (2 * BQ * (D + 1) + BQ * D +
+                                        2 * BQ * (BQ + 1) + BQ);
+  auto kernel = flash_fwd_simt_kernel<T, D, BQ>;
   static const cudaError_t configured = allow_smem(kernel, smem);
   if (configured != cudaSuccess) return configured;
-  const dim3 grid((p.tq + F_BQ - 1) / F_BQ, p.H, p.B);
+  const dim3 grid((p.tq + BQ - 1) / BQ, p.H, p.B);
   kernel<<<grid, F_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -880,11 +890,13 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
 }
 
 // The wrapper decides the path: scratch and chunks (p.splits > 0) for
-// q_len < 16, none otherwise.
+// q_len < 16, none otherwise.  Tensor cores take bf16 / fp16 up to width
+// 128; fp32, and every dtype at 256, take the SIMT kernel.
 template <typename T, int D>
 cudaError_t by_path(const Params& p, cudaStream_t st) {
   if (p.splits > 0) return launch_split<T, D>(p, st);
-  if constexpr (std::is_same<T, float>::value) return launch_f32<D>(p, st);
+  if constexpr (std::is_same<T, float>::value || D > 128)
+    return launch_simt<T, D>(p, st);
   else return launch_mma<T, D>(p, st);
 }
 
@@ -895,6 +907,7 @@ cudaError_t by_dim(const Params& p, int head_dim, cudaStream_t st) {
     case 32: return by_path<T, 32>(p, st);
     case 64: return by_path<T, 64>(p, st);
     case 128: return by_path<T, 128>(p, st);
+    case 256: return by_path<T, 256>(p, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -902,11 +915,11 @@ cudaError_t by_dim(const Params& p, int head_dim, cudaStream_t st) {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// head_dim is the instantiated width (16/32/64/128, >= p->d); dtype 0
-// fp32, 1 bf16, 2 fp16.  p->splits > 0 (q_len < 16) takes the split-KV
+// head_dim is the instantiated width (16/32/64/128/256, >= p->d); dtype
+// 0 fp32, 1 bf16, 2 fp16.  p->splits > 0 (q_len < 16) takes the split-KV
 // path (p->splits chunks of p->chunk keys, scratch in p->part_o /
 // p->part_ml, then the combine kernel); otherwise one kernel, tensor
-// cores for bf16/fp16.
+// cores for bf16/fp16 up to width 128.
 extern "C" int flash_attention_fwd(const Params* p, int head_dim, int dtype,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

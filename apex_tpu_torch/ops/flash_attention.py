@@ -21,8 +21,10 @@ combine for ``q_len < 16`` — the TPU's block sizes and measured
 crossovers do not carry over) and ``csrc/flash_attention_bwd.cu`` (dQ,
 dK/dV and, when a ``[B, T, S]`` bias needs a gradient, its head-summed
 gradient), or raise.  The kernels take fp32, bf16 and fp16 and any head
-width up to 128 (run in the next of 16, 32, 64, 128; nothing padded is
-copied to device memory).  The kernels
+width up to 256 (run in the next of 16, 32, 64, 128, 256; nothing padded
+is copied to device memory): bf16 and fp16 up to 128 run the forward,
+dQ and dK/dV on the tensor cores, fp32 and width 256 run SIMT kernels;
+a wider head raises.  The kernels
 replace the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_db2_kernel``
 (``apex_tpu/ops/flash_attention.py:238, 440, 478, 562``); their sources
@@ -46,7 +48,7 @@ NEG_INF = -1e30
 
 #: the head widths the kernels are instantiated at; any width up to the
 #: last runs in the next one, its missing columns read as zero
-_KERNEL_DIMS = (16, 32, 64, 128)
+_KERNEL_DIMS = (16, 32, 64, 128, 256)
 #: q_len below this takes the split-KV decode path (two CUDA kernels)
 _SPLIT_TQ = 16
 #: keys per split-KV chunk: at least a few passes of a block, at most
@@ -270,7 +272,7 @@ def _check_kernel_inputs(q, k, v, kbias, bias, *extra):
         raise TypeError("q, k and v must share one dtype")
     if not 1 <= d <= _KERNEL_DIMS[-1]:
         raise ValueError(f"flash kernel head_dim must be 1 to "
-                         f"{_KERNEL_DIMS[-1]}, got {d}")
+                         f"{_KERNEL_DIMS[-1]} (the widest kernel), got {d}")
     if tq < 1 or tk < 1:
         raise ValueError("flash kernel needs q_len >= 1 and kv_len >= 1")
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
@@ -356,7 +358,8 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     """Launch the CUDA forward kernel: the arguments of
     :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
     ``(out, lse)``.  ``q_len >= 16`` runs one kernel (tensor cores for
-    bf16/fp16, fp32 FMA for fp32); a shorter call runs the split-KV
+    bf16/fp16 up to width 128, fp32 FMA for fp32 and at width 256); a
+    shorter call runs the split-KV
     kernel and its combine (:func:`_flash_fwd_split_ref` is their
     arithmetic), with fp32 scratch allocated here.  Adds one to
     ``flash_fwd_kernel.launches`` per call."""
@@ -438,8 +441,9 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias, *,
     """Launch the CUDA dQ kernel: the forward's arguments plus the output
     gradient ``do`` (q's shape and dtype), the forward's fp32 ``lse`` and
     ``delta = rowsum(do * out)`` (both ``[B, H, T]`` contiguous); returns
-    dq in q's shape and dtype.  Adds one to
-    ``flash_bwd_dq_kernel.launches`` per launch."""
+    dq in q's shape and dtype.  bf16/fp16 up to width 128 run on the
+    tensor cores, fp32 and width 256 in fp32 FMA loops (dK/dV likewise).
+    Adds one to ``flash_bwd_dq_kernel.launches`` per launch."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
     _check_bwd_extras(q, do, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)

@@ -30,7 +30,7 @@ line):
    ``[B, T, S]`` bias, full causal, decode (``q_len = 1``, key padding
    bias: the split-KV path), GQA (12 query heads over 4 KV heads), a
    256-key window, fp32, the LM's B 8, T 1023 causal call, fp16 (prefill
-   and decode), and head widths 16 and 48.  ``library_ms`` times one
+   and decode), and head widths 16, 48 and 256.  ``library_ms`` times one
    PyTorch call computing the same function (``F.layer_norm``,
    ``F.scaled_dot_product_attention``) as a yardstick only; the port
    never calls it;
@@ -49,9 +49,10 @@ line):
    ``aten.native_layer_norm_backward`` call computing dx;
 8. flash dQ and dK/dV kernels vs plain at gpt2_small training shapes (B
    8, T 1023, 12 heads of 64, causal, bf16), GQA 12/4, a 256-key window,
-   fp32, a key-padding bias that needs a gradient, fp16, and head widths
-   16 and 48; ``library_ms`` is
-   the backward of one SDPA call, timed eagerly (autograd cannot be
+   fp32, a key-padding bias that needs a gradient, fp16, head widths 16,
+   48, 128 and 256, a ``[B, T, S]`` bias, and causal cross attention (q_len
+   333, kv_len 1021: the queries the suffix of the keys); ``library_ms``
+   is the backward of one SDPA call, timed eagerly (autograd cannot be
    captured in a CUDA graph);
 9. training: the LM trainer (``apex_tpu_torch.examples.lm.main_amp``)
    on GPT-2 small, bf16 O2, Adam lr 3e-4, weight decay 0.1, static loss
@@ -125,8 +126,8 @@ line):
    a step beside phase 9's kernels), losses finite and falling, beside
    phase 9's O2 numbers; two steps traced;
 19. the ``[B, T, S]`` bias-gradient kernel at B 8, T = S = 1024, 12 heads
-   of 64 (full, causal, GQA 12/4, a 256-key window, fp32, fp16) and of
-   16: through
+   of 64 (full, causal, GQA 12/4, a 256-key window, fp32, fp16), of 16
+   and of 256: through
    ``flash_attention`` under autograd (one db2 launch per backward, dq,
    dk, dv unchanged against the run without a bias gradient), then
    against ``_flash_bwd_ref``'s dbias within 1e-4 of max |dbias|;
@@ -370,6 +371,8 @@ def flash_cases(fa, dev):
          None, dict(is_causal=True)),
         ("head_dim 48 causal 1024", 1, t, t, h, 48, bf16, True, None, None,
          None, dict(is_causal=True)),
+        ("head_dim 256 causal 1024", 1, t, t, h, 256, bf16, True, None, None,
+         None, dict(is_causal=True)),
     ]
     cases = []
     for (name, b, tq, tk, h_kv, d, dtype, causal, window, kb, bias,
@@ -477,42 +480,60 @@ def flash_bwd_cases(fa, dev):
     carry the same two numbers."""
     rng = np.random.RandomState(8)
     b, t, h = 8, 1023, 12
+    bf16 = torch.bfloat16
     specs = [
-        # name, h_kv, dtype, causal, window, kbias needs grad, head_dim
-        ("causal b8 t1023", h, torch.bfloat16, True, None, False, 64),
-        ("gqa 12/4", 4, torch.bfloat16, True, None, False, 64),
-        ("window 256", h, torch.bfloat16, True, 256, False, 64),
-        ("fp32 causal", h, torch.float32, True, None, False, 64),
-        ("key bias grad, full", h, torch.bfloat16, False, None, True, 64),
-        ("fp16 causal", h, torch.float16, True, None, False, 64),
-        ("head_dim 16 causal", h, torch.bfloat16, True, None, False, 16),
-        ("head_dim 48 causal", h, torch.bfloat16, True, None, False, 48),
+        # name, h_kv, dtype, causal, window, kbias needs grad, head_dim,
+        # [B, T, S] bias, (q_len, kv_len)
+        ("causal b8 t1023", h, bf16, True, None, False, 64, False, (t, t)),
+        ("gqa 12/4", 4, bf16, True, None, False, 64, False, (t, t)),
+        ("window 256", h, bf16, True, 256, False, 64, False, (t, t)),
+        ("fp32 causal", h, torch.float32, True, None, False, 64, False,
+         (t, t)),
+        ("key bias grad, full", h, bf16, False, None, True, 64, False,
+         (t, t)),
+        ("fp16 causal", h, torch.float16, True, None, False, 64, False,
+         (t, t)),
+        ("head_dim 16 causal", h, bf16, True, None, False, 16, False, (t, t)),
+        ("head_dim 48 causal", h, bf16, True, None, False, 48, False, (t, t)),
+        ("head_dim 128 causal", h, bf16, True, None, False, 128, False,
+         (t, t)),
+        ("head_dim 256 causal", h, bf16, True, None, False, 256, False,
+         (t, t)),
+        ("[B,T,S] bias, full", h, bf16, False, None, False, 64, True, (t, t)),
+        # queries the suffix of the keys, neither length a tile multiple
+        ("cross causal tq 333 tk 1021", h, bf16, True, None, False, 64,
+         False, (333, 1021)),
     ]
     dq_cases, dkv_cases = [], []
-    for name, h_kv, dtype, causal, window, kgrad, d in specs:
-        q, do = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+    for (name, h_kv, dtype, causal, window, kgrad, d, with_bias,
+         (tq, tk)) in specs:
+        q, do = (torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32))
                  .to(dev, dtype) for _ in range(2))
-        k, v = (torch.from_numpy(rng.randn(b, t, h_kv, d).astype(np.float32))
+        k, v = (torch.from_numpy(rng.randn(b, tk, h_kv, d).astype(np.float32))
                 .to(dev, dtype) for _ in range(2))
-        kb = None
+        kb = bias = None
         if kgrad:
             kb = torch.from_numpy(
-                (0.5 * rng.randn(b, t)).astype(np.float32)).to(dev)
-        kw = dict(sm_scale=d ** -0.5, causal=causal, q_offset=0,
+                (0.5 * rng.randn(b, tk)).astype(np.float32)).to(dev)
+        if with_bias:
+            bias = torch.from_numpy(
+                (0.5 * rng.randn(b, tq, tk)).astype(np.float32)).to(dev)
+        q_offset = tk - tq if causal else 0
+        kw = dict(sm_scale=d ** -0.5, causal=causal, q_offset=q_offset,
                   window=window)
-        out, lse = fa.flash_fwd_kernel(q, k, v, kb, None, **kw)
+        out, lse = fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)
         delta = fa._delta(do, out)
 
         def run_dq():
-            return fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, None,
+            return fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, bias,
                                           **kw)
 
         def run_dkv():
-            return fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, None,
+            return fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, bias,
                                            kbias_grad=kgrad, **kw)
 
         def run_plain():
-            return fa._flash_bwd_ref(q, k, v, kb, None, out, lse, do, **kw)
+            return fa._flash_bwd_ref(q, k, v, kb, bias, out, lse, do, **kw)
 
         dq = run_dq()
         dk, dv, part = run_dkv()
@@ -528,15 +549,17 @@ def flash_bwd_cases(fa, dev):
               + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
               + f" <= {tol} (max |dq| {dq.float().abs().max().item():.3g},"
               f" |dk| {dk.float().abs().max().item():.3g})")
+        del want
         isz = q.element_size()
-        pairs = _visible_pairs(b, t, t, causal, 0, window, None) * h
-        rows_bytes = 2 * b * h * t * 4                      # lse, delta
+        pairs = _visible_pairs(b, tq, tk, causal, q_offset, window, None) * h
+        rows_bytes = 2 * b * h * tq * 4                     # lse, delta
         dq_bytes = (3 * q.numel() + k.numel() + v.numel()) * isz + rows_bytes
         dkv_bytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) * isz \
-            + rows_bytes + (b * h * t * 4 if kgrad else 0)
-        if kb is not None:
-            dq_bytes += kb.numel() * 4
-            dkv_bytes += kb.numel() * 4
+            + rows_bytes + (b * h * tk * 4 if kgrad else 0)
+        for extra in (kb, bias):
+            if extra is not None:
+                dq_bytes += extra.numel() * 4
+                dkv_bytes += extra.numel() * 4
         plain_ms = time_ms(run_plain, iters=3)
         # the library yardstick: SDPA's backward on a retained graph,
         # KV heads repeated up front (untimed)
@@ -544,12 +567,12 @@ def flash_bwd_cases(fa, dev):
                       .transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         lib = dict(is_causal=True) if causal and window is None else {}
-        if window is not None:
-            key = torch.arange(t, device=dev)
-            lib = dict(attn_mask=(key[:, None] >= key[None, :])
-                       & (key[:, None] - key[None, :] < window))
+        if window is not None or (causal and tq != tk):
+            lib = dict(attn_mask=fa._visible(tq, tk, q_offset, window, dev))
         if kb is not None:
             lib = dict(attn_mask=kb[:, None, None, :].to(dtype))
+        if bias is not None:
+            lib = dict(attn_mask=bias[:, None].to(dtype))
         lout = F.scaled_dot_product_attention(qt, kt, vt, scale=d ** -0.5,
                                               **lib)
         dot = do.transpose(1, 2)
@@ -1805,6 +1828,7 @@ DB2_CASES = [
     ("fp32 causal", 12, torch.float32, True, None, 64),
     ("fp16 causal", 12, torch.float16, True, None, 64),
     ("head_dim 16 causal", 12, torch.bfloat16, True, None, 16),
+    ("head_dim 256 causal", 12, torch.bfloat16, True, None, 256),
 ]
 
 

@@ -11,6 +11,11 @@ against the JAX package, on the CPU.
   rounded to their type (p is rounded to the value type against each
   chunk's own maximum, JAX's against its running one); lse 1e-3 against
   the unsplit plain version.
+* Flash at head widths 160 and 256 (the card runs both in its 256
+  kernels): forward and gradients of ``flash_attention`` against JAX's
+  with the Pallas kernels in interpret mode, at the tolerances of
+  ``test_torch_flash_attention.py``; width 257 refused by the kernel
+  path's validation.
 * ``_dgrad_parity_ref`` (the stride > 1 dgrad kernel's arithmetic: one
   dense sub-GEMM per parity class of the input pixels) against the JAX
   Pallas dgrad in interpret mode and the plain ``_dgrad_ref``: fp32 at
@@ -27,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from apex_tpu import quant as jquant
@@ -128,6 +134,76 @@ def test_kv_split_covers_the_card_and_the_keys():
         assert fa._MIN_CHUNK <= chunk <= fa._MAX_CHUNK
         assert (splits - 1) * chunk < tk <= splits * chunk
         assert b * h * splits >= min(2 * 132, b * h * -(-tk // 64))
+
+
+# -- flash head widths above 128 -------------------------------------------------
+
+WIDE_CASES = {
+    # h_kv, kwargs of both functions; "kbias" / "bias" make a learnable one
+    "causal": (4, dict(causal=True)),
+    "gqa_window": (2, dict(causal=True, window=8)),
+    "kbias_grad": (4, dict(causal=False, kbias=True)),
+    "bias_grad": (4, dict(causal=False, bias=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("d", [160, 256])
+def test_wide_heads_match_jax_pallas_interpret(case, d):
+    """Forward and gradients at head width 256 (the widest kernel) and
+    160 (run on the card in the 256 kernel): the port's CPU path against
+    JAX ``flash_attention`` with the Pallas kernels in interpret mode (B
+    1, T 32, blocks of 16): forward 2e-5, gradients (dq, dk, dv and the
+    learnable bias's) 5e-4, as ``test_torch_flash_attention.py`` holds
+    them at narrower widths."""
+    h_kv, kw = WIDE_CASES[case]
+    kw = dict(kw)
+    rng = np.random.RandomState(100 + d)
+    q = rng.randn(1, 32, 4, d).astype(np.float32)
+    k, v = (rng.randn(1, 32, h_kv, d).astype(np.float32) for _ in range(2))
+    g = rng.randn(1, 32, 4, d).astype(np.float32)
+    leaves, names = [q, k, v], ["dq", "dk", "dv"]
+    if kw.pop("kbias", False):
+        leaves.append((0.5 * rng.randn(1, 32)).astype(np.float32))
+        names.append("key_padding_bias")
+    if kw.pop("bias", False):
+        leaves.append(rng.randn(1, 32, 32).astype(np.float32))
+        names.append("bias")
+
+    def extra(xs):
+        return dict(zip(names[3:], xs[3:]))
+
+    def jloss(*xs):
+        out = jflash(*xs[:3], **extra(xs), block_q=16, block_k=16,
+                     interpret=True, **kw)
+        return jnp.sum(out * g), out
+
+    (_, jout), want = jax.value_and_grad(
+        jloss, argnums=tuple(range(len(leaves))), has_aux=True)(
+            *(jnp.asarray(x) for x in leaves))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in leaves]
+    out = fa.flash_attention(*ts[:3], **extra(ts), **kw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=2e-5, rtol=2e-5)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), ts)
+    for name, gt, wt in zip(names, got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), err_msg=name,
+                                   atol=5e-4, rtol=5e-4)
+
+
+def test_kernel_widths_up_to_256_and_257_refused():
+    """Widths 129-256 run in the 256 kernel; 257 is refused by the kernel
+    path's validation (which runs before any launch) with the limit in
+    the message, where 256 passes the width check and is refused here
+    only for lying on the CPU."""
+    assert fa._kernel_dim(129) == fa._kernel_dim(256) == 256
+    assert fa._kernel_dim(128) == 128
+    wide = torch.zeros((1, 8, 2, 257))
+    with pytest.raises(ValueError, match="head_dim must be 1 to 256"):
+        fa._check_kernel_inputs(wide, wide, wide, None, None)
+    ok = torch.zeros((1, 8, 2, 256))
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa._check_kernel_inputs(ok, ok, ok, None, None)
 
 
 # -- the per-parity dgrad ------------------------------------------------------

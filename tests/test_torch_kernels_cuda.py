@@ -777,18 +777,19 @@ def test_layer_norm_kernel_takes_jax_single_pass_variance(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 48])
+@pytest.mark.parametrize("head_dim", [16, 48, 160, 200, 256])
 @pytest.mark.parametrize("tq", [1, 5, 20, 130])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2),
                                         (torch.float16, 2e-2)])
 def test_flash_kernel_other_widths_and_fp16(cuda_device, head_dim, tq,
                                             dtype, atol):
-    """Head widths 16 (its own instantiation) and 48 (run in the 64
-    one, the missing columns read as zero and never stored), at decode
-    lengths (the split-KV path, q_len < 16) and prefill lengths (the
-    tensor-core path), with GQA, a key bias and a [B, T, S] bias; fp16
-    held as bf16 is."""
+    """Head widths 16 (its own instantiation), 48 (run in the 64 one, the
+    missing columns read as zero and never stored) and 160, 200, 256 (the
+    256 instantiation: the SIMT kernel in every dtype), at decode lengths
+    (the split-KV path, q_len < 16) and prefill lengths (the tensor-core
+    path up to 128), with GQA, a key bias and a [B, T, S] bias; fp16 held
+    as bf16 is."""
     rng = np.random.RandomState(19)
     q, k, v = (torch.from_numpy(rng.randn(2, n, hh, head_dim)
                                 .astype(np.float32)).to(cuda_device, dtype)
@@ -865,14 +866,16 @@ def test_flash_split_kv_decode(cuda_device, tk, window, q_offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [16, 48])
+@pytest.mark.parametrize("head_dim", [16, 48, 64, 128, 160, 200, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 3e-2),
                                         (torch.float16, 3e-2)])
 def test_flash_bwd_kernels_other_widths_and_fp16(cuda_device, head_dim,
                                                  dtype, atol):
-    """dQ, dK/dV and the [B, T, S] bias gradient at head widths 16 and
-    48 (run in the 64 instantiation) and in fp16."""
+    """dQ, dK/dV and the [B, T, S] bias gradient at every instantiated
+    width and at widths run in the next one (48 in 64; 160 and 200 in
+    256), GQA with a key-padding bias that needs a gradient, in fp32,
+    bf16 and fp16."""
     case = _bwd_case(cuda_device, dtype, d=head_dim, tq=100, tk=150, h=4,
                      h_kv=2, kbias=True, seed=22)
     _check_bwd_kernels(*case, atol=atol)
@@ -997,3 +1000,73 @@ def test_qmm_kernel_any_k_and_fp16_bit_for_bit(cuda_device, dtype, m, k, n):
         got = qk.qmm_kernel(x, qw, xs, ws, out_dtype)
         want = qk._qmm_ref(x, qw, xs, ws, out_dtype)
         assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+# -- flash backward on the tensor cores -----------------------------------------
+
+# dQ and dK/dV in bf16 and fp16 (the mma.sync kernels up to width 128):
+# keyword arguments of _bwd_case
+TC_BWD_CASES = {
+    "causal": dict(),
+    "full_kbias_grad": dict(causal=False, kbias=True),
+    "bts_bias": dict(causal=False, bias=True),
+    "causal_bts_bias_kbias": dict(bias=True, kbias=True),
+    "gqa12_4": dict(h=12, h_kv=4),
+    "mqa4_1": dict(h_kv=1),
+    "window": dict(window=50),
+    "q_offset": dict(tq=70, tk=200),
+    "q_offset_window": dict(tq=90, tk=333, window=100),
+    "ragged1023": dict(b=1, tq=1023, tk=1023, h=2, h_kv=2),
+    "ragged17": dict(tq=17, tk=17),
+    "ragged17_full": dict(tq=17, tk=40, causal=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TC_BWD_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_tensor_core_kernels_match_plain(cuda_device, case, dtype):
+    """dQ and dK/dV on the tensor cores against the plain version within
+    3e-2: causal and full, a key-padding bias that needs a gradient, a
+    [B, T, S] bias, GQA 12/4 and MQA, a window, queries that are the
+    suffix of the keys (q_offset > 0), and ragged lengths (1023, 200, 17:
+    none a multiple of the 64-row tiles)."""
+    _check_bwd_kernels(*_bwd_case(cuda_device, dtype, seed=24,
+                                  **TC_BWD_CASES[case]), atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_tensor_core_fully_masked_rows(cuda_device, dtype):
+    """Rows past a window of 1 and rows whose keys the key-padding bias
+    hides everywhere: p zero where the band hides a key (lse is NEG_INF
+    on a row the band hides entirely)."""
+    q, k, v, do, kb, bs, kw = _bwd_case(cuda_device, dtype, tq=96, tk=96,
+                                        window=1, seed=27)
+    _check_bwd_kernels(q, k, v, do, kb, bs, kw, atol=3e-2)
+    kb = torch.full((2, 96), -1e9, device=cuda_device)
+    kw = dict(kw, causal=False, window=None)
+    _check_bwd_kernels(q, k, v, do, kb, None, kw, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_kernels_bit_stable(cuda_device, head_dim, dtype):
+    """No atomics: dQ, dK/dV and the key-bias partial sums are equal bit
+    for bit from run to run (GQA, so several query heads sum into one
+    dK/dV block)."""
+    q, k, v, do, kb, bs, kw = _bwd_case(cuda_device, dtype, d=head_dim,
+                                        tq=300, tk=300, h=6, h_kv=2,
+                                        kbias=True, bias=True, seed=28)
+    out, lse = fa._flash_fwd_ref(q, k, v, kb, bs, **kw)
+    delta = fa._delta(do, out)
+
+    def run():
+        dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, bs, **kw)
+        return (dq, *fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, bs,
+                                             kbias_grad=True, **kw))
+    first = run()
+    for _ in range(3):
+        for a, b_ in zip(first, run()):
+            assert torch.equal(a, b_)
