@@ -12,7 +12,7 @@
 // contiguous; a tap (kh, kw) reads x at ih = oh*sh - pt + kh*dh, iw = ow*sw
 // - pl + kw*dw, and zero outside the image):
 //   forward  y[m, o]      = sum_{tap, c} x_tap[m, c] * w[tap, c, o]
-//            GEMM M = N*OH*OW, N = O, K = KH*KW*C
+//            GEMM M = N*OH*OW, N = O, K = KH*KW*C (k = tap*C + c)
 //   dgrad    dx[m, c]     = sum_{tap, o} dy[b, (h + pt - kh*dh) / sh,
 //                            (w + pl - kw*dw) / sw, o] * w[tap, c, o],
 //            taking dy only where both divisions are exact and in range
@@ -30,49 +30,77 @@
 //   out = relu((res - mean) * invstd * scale + bias + z)
 // which equals the conv followed by the port's plain `fused_bn_act._fwd_ref`
 // bit for bit; the pre-activation `res` is written too when asked for.
+// The kernels take channel counts C and O that are multiples of 8 and
+// 16-byte aligned tensors: the wrapper pads a ragged count (the C = 3 stem)
+// with zeros, and zero weights for the pad, before the launch.
 //
-// What bounds them on the H100: at ResNet-50 shapes these are large GEMMs
-// (hundreds of operations per byte), bound by tensor-core operations.  This
-// is the simple first kernel: bf16 / fp16 `wmma` (16x16x16, fp32
-// accumulators) from shared memory, fed by plain loads staged through
-// registers; no `wgmma`, TMA or cp.async pipeline yet, so it runs far below
-// the tensor-core peak.  fp32 operands take a SIMT FMA path in full fp32 (no
-// TF32).
-//
-// Design:
-//  * one kernel template for the three GEMMs; a block computes a 128 x 64
-//    output tile over K steps of 32.  Before the math of one K step, the
-//    next step's operands are loaded into registers, so global loads overlap
-//    the tensor-core work;
-//  * the im2col matrix is never built: each 8-element chunk of an operand
-//    tile is gathered from NHWC by its own (pixel, tap, channel) arithmetic.
-//    Padding is read as zero by the bounds test, so nothing is padded in
-//    device memory, and the asymmetric 'SAME' pads (0, 1) cost nothing;
-//  * when every channel count is a multiple of 8 (VEC), a chunk is one
-//    16-byte load (8 bf16) that never straddles a tap; otherwise (the C = 3
-//    stem, small test widths) each element is gathered on its own.  Ragged
-//    M, N and K edges are masked either way;
+// What bounds them on the H100: at ResNet-50 shapes these are GEMMs with
+// M, N, K in the hundreds to millions, hundreds of operations per byte,
+// so they are bound by tensor-core operations, and a kernel's distance
+// from that bound is how well it keeps the tensor cores fed.  The first
+// version of this file (wmma 16x16x16 from one shared tile, loads staged
+// through registers, 128 x 64 tiles, an im2col address decoded by four
+// divisions per 8-element chunk every K step, wgrad's A transposed by
+// scalar shared stores, the stem's C = 3 gathered element by element and
+// a fp32 staging tile for the epilogue) ran the forward at 13-72 TFLOP/s
+// and wgrad at 9-41, 4-11x cuDNN.  This design:
+//  * tensor cores: bf16 / fp16 `mma.sync.m16n8k16` with fp32 accumulators,
+//    fed by `ldmatrix`.  Every operand tile lies in shared memory as it
+//    lies in device memory, along its contiguous channel axis: A as [m][k]
+//    (forward, dgrad: channels along k) or [k][m] (wgrad: x's channels are
+//    m), B as [k][n] (forward's w, wgrad's dy: channels along n) or [n][k]
+//    (dgrad's w: o along k).  `ldmatrix` reads [m][k] and [n][k] tiles
+//    straight into fragments and `ldmatrix.trans` reads [k][m] and [k][n]
+//    ones, so no operand is ever transposed element by element;
+//  * tiles: 128 x 128 where N >= 128, 4 warps of 64 x 64 (4 x 8 mma
+//    tiles), and 128 x 64 where N = 64 (ResNet-50's many O = 64 sites), 4
+//    warps of 64 x 32; K steps of 32.  On the H100, 8 warps of 64 x 32 in
+//    the wide tile, K steps of 64 and a ring of 3 stages were each no
+//    faster over the 23 ResNet-50 sites;
+//  * a ring of 4 stages (3 for fp32) in dynamic shared memory, filled by
+//    16-byte `cp.async` copies issued 3 steps ahead of the math, so the
+//    loads of later steps are in flight while the tensor cores work.  A
+//    tap outside the image, a row past M and a column past N or K are
+//    zero-filled by the copy's source size of 0, not by a branch that
+//    writes registers.  Rows are padded by 16 bytes, which leaves
+//    `ldmatrix` free of bank conflicts;
+//  * addresses: a thread's rows of A are fixed for the whole K loop, so
+//    each is decoded once, before it, into registers (the forward: the
+//    image base, ih0 = oh*sh - pt, iw0 = ow*sw - pl).  K is walked
+//    tap-major with one 8-channel chunk a thread a step, so a step costs
+//    one tap decode (two divisions by multiply-high, shared by the
+//    thread's rows) and a bounds test per row and tap.  wgrad's thread
+//    owns a fixed (tap, channel) chunk and decodes the pixel of each of
+//    its rows per step, by multiply-high as well;
+//  * the C = 3 stem takes the same 16-byte gather: the wrapper pads C to 8
+//    (a layout pass over x, not counted as a launch), so a K step covers
+//    four taps of 8 channels;
+//  * the epilogue reads the accumulator fragments once: rounded to the
+//    output type into a shared tile (fp32 for wgrad's split sums), then
+//    each thread takes 8 channels of a row for 16-byte loads of z and
+//    stores of y and preact, the BN/ReLU arithmetic done in between;
+//  * fp32 operands keep a SIMT FMA path in full fp32 (no TF32) on the
+//    same tiles and ring: 8 x 8 outputs a thread, strided so that a
+//    warp's shared reads are free of bank conflicts;
 //  * dgrad gathers the cotangent directly (transposed conv): no dilated
 //    tensor is made.  At stride 1 every tap of every pixel is live.  At
 //    stride > 1 one GEMM over all pixels would gather mostly zeros (3/4 of
 //    them at stride 2, all through the tensor cores); instead the pixels
 //    split into sh*sw parity classes, each a dense sub-GEMM over only the
 //    taps that reach it, all classes in one launch (blockIdx.z = class).
-//    Each block decodes its 128 rows once into shared memory (the gather's
-//    output row base and the store's input pixel), so neither the K loop
-//    nor the epilogue divides by the image shape.  A class no tap reaches
-//    (the odd pixels of a 1x1/2 conv) has K = 0 and its blocks only write
-//    zeros;
+//    The store's input pixel of each row is decoded once into shared
+//    memory.  A class no tap reaches (the odd pixels of a 1x1/2 conv) has
+//    K = 0 and its blocks write zeros;
 //  * wgrad splits K (the N*OH*OW pixels) over gridDim.z into a fp32
 //    workspace [splits, KH*KW*C, O]; a second kernel of this file sums the
 //    splits in a fixed order and casts: deterministic, no atomics (the
 //    Pallas kernel carries the sum across its sequential batch axis, which
 //    the card does not have).
+// `wgmma`, TMA (and its im2col mode) and persistent blocks are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -98,28 +126,15 @@ struct ConvParams {
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int BM = 128;          // output rows per block
-constexpr int BN = 64;           // output columns per block
-constexpr int BK = 32;           // K per step
-constexpr int NTHREADS = 128;
-constexpr int LDC = BN + 4;      // fp32 staging of the output tile
-static_assert(BM == NTHREADS, "parity mode decodes one row a thread");
+constexpr int BK = 32;           // K per stage
+constexpr int WN_WIDE = 64;      // a warp's columns in a 128-wide tile
+constexpr int kFar = -(1 << 29); // a row past M: every bounds test fails
 
 constexpr int MODE_FWD = 0;
 constexpr int MODE_DGRAD = 1;
 constexpr int MODE_WGRAD = 2;
 constexpr int MODE_PARITY = 3;   // dgrad at stride > 1, per parity class
-
-// Shared-memory row strides: 16-bit rows are padded to keep the wmma tiles
-// 32-byte aligned; fp32 rows by one or four floats against bank conflicts.
-template <typename T> struct Tile {
-  static constexpr int LDA = BK + 8, LDB = BN + 8;
-};
-template <> struct Tile<float> {
-  static constexpr int LDA = BK + 1, LDB = BN + 4;
-};
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -141,29 +156,165 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
-struct Dims {
-  int M, N, K;
+// two floats rounded to T (as from_f rounds), the first in the low half
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo,
+                                                               float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(
+    float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
+                                                              float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !ok (source
+// size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one 8-element chunk (16 bytes of bf16 / fp16, 32 of fp32)
+template <typename T>
+__device__ __forceinline__ void copy8(T* dst, const T* src, bool ok) {
+#pragma unroll
+  for (int v = 0; v < static_cast<int>(sizeof(T)) * 8 / 16; ++v)
+    cp_async16(reinterpret_cast<char*>(dst) + 16 * v,
+               reinterpret_cast<const char*>(src) + 16 * v, ok);
+}
+
+template <typename T>
+__device__ __forceinline__ void load8(T (&v)[8], const T* src) {
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)) * 8 / 16; ++i) {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        reinterpret_cast<const char*>(src) + 16 * i);
+    memcpy(reinterpret_cast<char*>(v) + 16 * i, &u, 16);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const T (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T)) * 8 / 16; ++i) {
+    uint4 u;
+    memcpy(&u, reinterpret_cast<const char*>(v) + 16 * i, 16);
+    *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dst) + 16 * i) = u;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), fp32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// n / d for 0 <= n < 2**31 by a multiply-high and a shift (the
+// round-up method CUTLASS's FastDivmod uses), d >= 1.
+struct FastDiv {
+  uint32_t d, mul, shr;
+  __device__ __forceinline__ explicit FastDiv(int div) : d(div), mul(0),
+                                                          shr(0) {
+    if (div > 1) {
+      const uint32_t l = 32 - __clz(div - 1);          // ceil(log2 div)
+      mul = static_cast<uint32_t>(((1ull << (31 + l)) + div - 1) / div);
+      shr = l - 1;
+    }
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return d == 1 ? n
+                  : static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >>
+                                     shr);
+  }
+};
+
+// The block shape: BM x BN outputs (BN 64 or 128), rows padded by 16
+// bytes, a ring of STAGES K steps.  Tensor cores: warps of 64 x WN (4 x
+// WN / 8 mma tiles); fp32: 2 * BN threads of 8 x 8 outputs.
+template <int MODE, typename T, int BN_>
+struct Cfg {
+  static constexpr int BN = BN_;
+  static constexpr bool kTC = !std::is_same<T, float>::value;
+  static constexpr int WN = BN == 128 ? WN_WIDE : 32;
+  static constexpr int NT = kTC ? (BM / 64) * (BN / WN) * 32 : 2 * BN;
+  static constexpr int MIN_BLOCKS = BN == 64 ? 3 : 2;
+  static constexpr int PAD = 16 / sizeof(T);
+  static constexpr int STAGES = kTC ? 4 : 3;
+  // each operand tile as it lies in device memory (see the notes above)
+  static constexpr bool A_MK = MODE != MODE_WGRAD;
+  static constexpr bool B_KN = MODE == MODE_FWD || MODE == MODE_WGRAD;
+  static constexpr int LDA = A_MK ? BK + PAD : BM + PAD;
+  static constexpr int LDB = B_KN ? BN + PAD : BK + PAD;
+  static constexpr int A_ELEMS = A_MK ? BM * LDA : BK * LDA;
+  static constexpr int B_ELEMS = B_KN ? BK * LDB : BN * LDB;
+  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
+  static constexpr int A_IT = BM * BK / 8 / NT;   // A chunks a thread
+  static constexpr int B_IT = BK * BN / 8 / NT;   // B chunks a thread
+  // the epilogue's staging tile: wgrad's fp32 sums, else the output type
+  using S = typename std::conditional<MODE == MODE_WGRAD, float, T>::type;
+  static constexpr int LDC = BN + 16 / sizeof(S);
+  static constexpr int PIPE_BYTES = STAGES * STAGE_ELEMS * sizeof(T);
+  static constexpr int C_BYTES = BM * LDC * sizeof(S);
+  static constexpr int MAIN_BYTES =
+      PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
+  static constexpr int SMEM =
+      MAIN_BYTES + (MODE == MODE_PARITY ? BM * sizeof(int) : 0);
+  static_assert(A_IT * NT * 8 == BM * BK && B_IT * NT * 8 == BK * BN,
+                "chunks split evenly over the threads");
 };
 
 // A dgrad parity class: input pixels (ph + sh*i, pw + sw*j), i < Hc,
 // j < Wc, reached by the taps kh = kh0 + jh*sth (jh < nth) and
 // kw = kw0 + jw*stw (jw < ntw), which read output row oh = i + oh0 -
-// jh*doh and column ow = j + ow0 - jw*dow.  The block's rows are decoded
-// once into shared memory: `rbase` (b*OH*OW, or -1 past M), `rij` (i | j
-// << 16) and `rpix` (the input pixel the row writes).  Unused outside
-// MODE_PARITY.
+// jh*doh and column ow = j + ow0 - jw*dow.
 struct Parity {
   int ph, pw, Hc, Wc, kh0, kw0, sth, stw, nth, ntw, oh0, doh, ow0, dow;
-  int m0;
-  const int* rbase;
-  const int* rij;
-  const int* rpix;
 };
-struct NoParity {};
-// What a block of mode MODE carries beside the parameters.
-template <int MODE>
-using Ctx = typename std::conditional<MODE == MODE_PARITY, Parity,
-                                      NoParity>::type;
 
 // The kernel offsets k < K with (phase + pad - k*dil) % s == 0: an
 // arithmetic progression k0 + j*step (step = s / gcd(dil, s)), n long.
@@ -195,407 +346,387 @@ __device__ __forceinline__ Parity parity_class(const ConvParams& p, int z) {
   return c;
 }
 
-template <int MODE>
-__host__ __device__ __forceinline__ Dims gemm_dims(const ConvParams& p,
-                                                   const Ctx<MODE>& c) {
-  if constexpr (MODE == MODE_FWD)
-    return {p.N * p.OH * p.OW, p.O, p.KH * p.KW * p.C};
-  else if constexpr (MODE == MODE_DGRAD)
-    return {p.N * p.H * p.W, p.C, p.KH * p.KW * p.O};
-  else if constexpr (MODE == MODE_PARITY)
-    return {p.N * c.Hc * c.Wc, p.C, c.nth * c.ntw * p.O};
-  else
-    return {p.KH * p.KW * p.C, p.O, p.N * p.OH * p.OW};
-}
+// The operand gather of one thread: which chunks of each stage it copies,
+// and the part of their addresses that does not change along K, decoded
+// once.  A chunk is 8 channels of one pixel and tap (C and O are
+// multiples of 8), so it is one contiguous 16-byte (32-byte fp32) run.
+template <int MODE, typename T, int BN>
+struct Gather {
+  using C = Cfg<MODE, T, BN>;
+  const T* a;
+  const T* b;
+  int M, N, K, k_end, n0;
+  // A_MK modes: rows ar0 + i*AR_STEP at column kc; wgrad: k rows
+  // ak0 + i*AK_STEP at column mc
+  static constexpr int AR_STEP = C::NT / (BK / 8);
+  static constexpr int AK_STEP = C::NT / (BM / 8);
+  static constexpr int BR_STEP = C::B_KN ? C::NT / (BN / 8) : C::NT / (BK / 8);
+  int arow0, acol;             // first row (or k row) and column of A
+  int brow0, bcol;             // the same for B
+  int rb[C::A_IT];             // A_MK modes: the row's image base offset
+  int ry[C::A_IT], rx[C::A_IT];  // its tap-independent coordinates
+  // wgrad: the thread's fixed (tap, channel) chunk of A
+  int w_c, w_dih, w_diw;
+  bool w_ok;
+  FastDiv div_k, div_t, div_p, div_w;   // k -> tap, tap -> row, pixel decode
+  Parity par;
 
-// Offset of A[m, k] in its tensor, or -1 where the gather reads zero
-// (padding, or a dgrad tap that falls between strided outputs).
-template <int MODE>
-__device__ __forceinline__ int64_t a_offset(const ConvParams& p,
-                                            const Ctx<MODE>& c, int m,
-                                            int k) {
-  if constexpr (MODE == MODE_FWD) {
-    const int hw = p.OH * p.OW;
-    const int b = m / hw, r = m - b * hw;
-    const int oh = r / p.OW, ow = r - oh * p.OW;
-    const int tap = k / p.C, c = k - tap * p.C;
-    const int kh = tap / p.KW, kw = tap - kh * p.KW;
-    const int ih = oh * p.sh - p.pt + kh * p.dh;
-    const int iw = ow * p.sw - p.pl + kw * p.dw;
-    if (ih < 0 || ih >= p.H || iw < 0 || iw >= p.W) return -1;
-    return ((int64_t)(b * p.H + ih) * p.W + iw) * p.C + c;
-  } else if constexpr (MODE == MODE_DGRAD) {
-    const int hw = p.H * p.W;
-    const int b = m / hw, r = m - b * hw;
-    const int h = r / p.W, w = r - h * p.W;
-    const int tap = k / p.O, o = k - tap * p.O;
-    const int kh = tap / p.KW, kw = tap - kh * p.KW;
-    const int th = h + p.pt - kh * p.dh, tw = w + p.pl - kw * p.dw;
-    if (th < 0 || tw < 0) return -1;
-    const int oh = th / p.sh, ow = tw / p.sw;
-    if (oh * p.sh != th || ow * p.sw != tw || oh >= p.OH || ow >= p.OW)
-      return -1;
-    return ((int64_t)(b * p.OH + oh) * p.OW + ow) * p.O + o;
-  } else if constexpr (MODE == MODE_PARITY) {
-    const int r = m - c.m0;            // the block's row, decoded once
-    const int ij = c.rij[r];
-    const int tap = k / p.O, o = k - tap * p.O;
-    const int jh = tap / c.ntw, jw = tap - jh * c.ntw;
-    const int oh = (ij & 0xffff) + c.oh0 - jh * c.doh;
-    const int ow = (ij >> 16) + c.ow0 - jw * c.dow;
-    if (oh < 0 || oh >= p.OH || ow < 0 || ow >= p.OW) return -1;
-    return ((int64_t)c.rbase[r] + oh * p.OW + ow) * p.O + o;
-  } else {  // wgrad: m = (tap, c), k = output pixel
-    const int tap = m / p.C, c = m - tap * p.C;
-    const int kh = tap / p.KW, kw = tap - kh * p.KW;
-    const int hw = p.OH * p.OW;
-    const int b = k / hw, r = k - b * hw;
-    const int oh = r / p.OW, ow = r - oh * p.OW;
-    const int ih = oh * p.sh - p.pt + kh * p.dh;
-    const int iw = ow * p.sw - p.pl + kw * p.dw;
-    if (ih < 0 || ih >= p.H || iw < 0 || iw >= p.W) return -1;
-    return ((int64_t)(b * p.H + ih) * p.W + iw) * p.C + c;
+  __device__ __forceinline__ Gather(const ConvParams& p, const Parity& cls,
+                                    int m0, int n0_, int M_, int N_, int K_,
+                                    int k_end_)
+      : a(static_cast<const T*>(p.a)), b(static_cast<const T*>(p.b)), M(M_),
+        N(N_), K(K_), k_end(k_end_), n0(n0_),
+        div_k(MODE == MODE_FWD ? p.C : MODE == MODE_WGRAD ? 1 : p.O),
+        div_t(MODE == MODE_PARITY ? max(cls.ntw, 1)
+                                  : MODE == MODE_WGRAD ? 1 : p.KW),
+        div_p(MODE == MODE_WGRAD ? p.OH * p.OW : 1),
+        div_w(MODE == MODE_WGRAD ? p.OW : 1), par(cls) {
+    const int tid = threadIdx.x;
+    if constexpr (C::B_KN) {
+      brow0 = tid / (BN / 8);
+      bcol = tid % (BN / 8) * 8;
+    } else {
+      brow0 = tid / (BK / 8);
+      bcol = tid % (BK / 8) * 8;
+    }
+    if constexpr (MODE == MODE_WGRAD) {
+      arow0 = tid / (BM / 8);
+      acol = tid % (BM / 8) * 8;
+      const int m = m0 + acol;
+      const FastDiv div_c(p.C);
+      const int tap = div_c(m), c = m - tap * p.C;
+      const int kh = tap / p.KW, kw = tap - kh * p.KW;
+      w_c = c;
+      w_dih = kh * p.dh - p.pt;
+      w_diw = kw * p.dw - p.pl;
+      w_ok = m < M;
+    } else {
+      arow0 = tid / (BK / 8);
+      acol = tid % (BK / 8) * 8;
+#pragma unroll
+      for (int i = 0; i < C::A_IT; ++i) {
+        const int m = m0 + arow0 + i * AR_STEP;
+        rb[i] = 0;
+        ry[i] = rx[i] = kFar;
+        if (m >= M) continue;
+        if constexpr (MODE == MODE_FWD) {
+          const int hw = p.OH * p.OW;
+          const int bb = m / hw, r = m - bb * hw;
+          const int oh = r / p.OW, ow = r - oh * p.OW;
+          rb[i] = bb * p.H * p.W * p.C;
+          ry[i] = oh * p.sh - p.pt;
+          rx[i] = ow * p.sw - p.pl;
+        } else if constexpr (MODE == MODE_DGRAD) {
+          const int hw = p.H * p.W;
+          const int bb = m / hw, r = m - bb * hw;
+          const int h = r / p.W, w = r - h * p.W;
+          rb[i] = bb * p.OH * p.OW * p.O;
+          ry[i] = h + p.pt;
+          rx[i] = w + p.pl;
+        } else {   // parity: class row (bb, i, j)
+          const int hw = cls.Hc * cls.Wc;
+          const int bb = m / hw, r = m - bb * hw;
+          const int ii = r / cls.Wc, jj = r - ii * cls.Wc;
+          rb[i] = bb * p.OH * p.OW * p.O;
+          ry[i] = ii + cls.oh0;
+          rx[i] = jj + cls.ow0;
+        }
+      }
+    }
   }
-}
 
-// Offset of B[k, n]: forward w as [K, O]; dgrad w[tap, n = c, o] for
-// k = (tap, o); wgrad dy as [pixels, O].
-template <int MODE>
-__device__ __forceinline__ int64_t b_offset(const ConvParams& p,
-                                            const Ctx<MODE>& c, int k,
-                                            int n) {
-  if constexpr (MODE == MODE_DGRAD) {
-    const int tap = k / p.O, o = k - tap * p.O;
-    return ((int64_t)tap * p.C + n) * p.O + o;
-  } else if constexpr (MODE == MODE_PARITY) {
-    const int tap = k / p.O, o = k - tap * p.O;
-    const int jh = tap / c.ntw, jw = tap - jh * c.ntw;
-    const int kh = c.kh0 + jh * c.sth, kw = c.kw0 + jw * c.stw;
-    return ((int64_t)(kh * p.KW + kw) * p.C + n) * p.O + o;
-  } else {
-    return (int64_t)k * p.O + n;
+  // Issue the copies of the K step at k0 into the stage's tiles.
+  __device__ __forceinline__ void load(const ConvParams& p, T* As, T* Bs,
+                                       int k0) const {
+    if constexpr (MODE == MODE_WGRAD) {
+#pragma unroll
+      for (int i = 0; i < C::A_IT; ++i) {
+        const int kr = arow0 + i * AK_STEP;
+        const int px = k0 + kr;
+        const int bb = div_p(px), r = px - bb * (p.OH * p.OW);
+        const int oh = div_w(r), ow = r - oh * p.OW;
+        const int ih = oh * p.sh + w_dih, iw = ow * p.sw + w_diw;
+        const bool ok = w_ok && px < k_end &&
+                        static_cast<unsigned>(ih) < static_cast<unsigned>(p.H) &&
+                        static_cast<unsigned>(iw) < static_cast<unsigned>(p.W);
+        const T* src = ok ? a + ((bb * p.H + ih) * p.W + iw) * p.C + w_c : a;
+        copy8(As + kr * C::LDA + acol, src, ok);
+      }
+#pragma unroll
+      for (int i = 0; i < C::B_IT; ++i) {
+        const int kr = brow0 + i * BR_STEP;
+        const int px = k0 + kr, n = n0 + bcol;
+        const bool ok = px < k_end && n < N;
+        copy8(Bs + kr * C::LDB + bcol, ok ? b + px * N + n : b, ok);
+      }
+    } else {
+      // one tap decode a step, shared by the thread's rows of A and B
+      const int k = k0 + acol;
+      const bool kok = k < K;
+      const int tap = div_k(k);
+      const int ch = k - tap * (MODE == MODE_FWD ? p.C : p.O);
+      const int t1 = div_t(tap), t2 = tap - t1 * (MODE == MODE_PARITY
+                                                       ? par.ntw : p.KW);
+      int dy, dx;      // the tap's offset from the row's coordinates
+      if constexpr (MODE == MODE_FWD) { dy = t1 * p.dh; dx = t2 * p.dw; }
+      else if constexpr (MODE == MODE_DGRAD) {
+        dy = -t1 * p.dh; dx = -t2 * p.dw;
+      } else { dy = -t1 * par.doh; dx = -t2 * par.dow; }
+      const int YH = MODE == MODE_FWD ? p.H : p.OH;
+      const int XW = MODE == MODE_FWD ? p.W : p.OW;
+      const int CH = MODE == MODE_FWD ? p.C : p.O;
+#pragma unroll
+      for (int i = 0; i < C::A_IT; ++i) {
+        const int y = ry[i] + dy, x = rx[i] + dx;
+        const bool ok = kok &&
+                        static_cast<unsigned>(y) < static_cast<unsigned>(YH) &&
+                        static_cast<unsigned>(x) < static_cast<unsigned>(XW);
+        const T* src = ok ? a + rb[i] + (y * XW + x) * CH + ch : a;
+        copy8(As + (arow0 + i * AR_STEP) * C::LDA + acol, src, ok);
+      }
+      if constexpr (MODE == MODE_FWD) {     // w as [K][O]
+#pragma unroll
+        for (int i = 0; i < C::B_IT; ++i) {
+          const int kr = brow0 + i * BR_STEP;
+          const int kk = k0 + kr, n = n0 + bcol;
+          const bool ok = kk < K && n < N;
+          copy8(Bs + kr * C::LDB + bcol, ok ? b + kk * N + n : b, ok);
+        }
+      } else {                              // w[tap, n = c, o], k = (tap, o)
+        int wtap = tap;
+        if constexpr (MODE == MODE_PARITY)
+          wtap = (par.kh0 + t1 * par.sth) * p.KW + par.kw0 + t2 * par.stw;
+#pragma unroll
+        for (int i = 0; i < C::B_IT; ++i) {
+          const int nr = brow0 + i * BR_STEP;
+          const int n = n0 + nr;
+          const bool ok = kok && n < N;
+          copy8(Bs + nr * C::LDB + bcol,       // bcol == acol: the same k
+                ok ? b + (wtap * p.C + n) * p.O + ch : b, ok);
+        }
+      }
+    }
   }
-}
-
-// Which way an operand's 8-element chunks run: the tensor's contiguous
-// (channel) dimension.
-template <int MODE> struct Chunks {
-  static constexpr bool A_ALONG_K = MODE != MODE_WGRAD;
-  static constexpr bool B_ALONG_N = MODE != MODE_DGRAD && MODE != MODE_PARITY;
 };
 
-template <typename T>
-__device__ __forceinline__ void load_vec8(T (&dst)[8], const T* src) {
-  constexpr int kVecs = sizeof(T) * 8 / 16;     // 1 for bf16, 2 for fp32
-#pragma unroll
-  for (int v = 0; v < kVecs; ++v) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + v);
-    memcpy(&dst[v * (16 / sizeof(T))], &u, 16);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void zero8(T (&dst)[8]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) dst[j] = from_f<T>(0.f);
-}
-
-// The A chunk whose first element is (m, k): 8 elements along k (forward,
-// dgrad) or along m (wgrad).  M and K bound the live region.
-template <int MODE, typename T, bool VEC>
-__device__ __forceinline__ void load_a(const ConvParams& p,
-                                       const Ctx<MODE>& c,
-                                       const T* a, int M, int K, int m, int k,
-                                       T (&dst)[8]) {
-  if constexpr (VEC) {
-    const int64_t off = (m < M && k < K) ? a_offset<MODE>(p, c, m, k) : -1;
-    if (off >= 0) load_vec8(dst, a + off); else zero8(dst);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int mm = Chunks<MODE>::A_ALONG_K ? m : m + j;
-      const int kk = Chunks<MODE>::A_ALONG_K ? k + j : k;
-      const int64_t off =
-          (mm < M && kk < K) ? a_offset<MODE>(p, c, mm, kk) : -1;
-      dst[j] = off >= 0 ? a[off] : from_f<T>(0.f);
-    }
-  }
-}
-
-// The B chunk whose first element is (k, n): along n (forward, wgrad) or
-// along k (dgrad).
-template <int MODE, typename T, bool VEC>
-__device__ __forceinline__ void load_b(const ConvParams& p,
-                                       const Ctx<MODE>& c,
-                                       const T* b, int K, int N, int k, int n,
-                                       T (&dst)[8]) {
-  if constexpr (VEC) {
-    if (k < K && n < N) load_vec8(dst, b + b_offset<MODE>(p, c, k, n));
-    else zero8(dst);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int kk = Chunks<MODE>::B_ALONG_N ? k : k + j;
-      const int nn = Chunks<MODE>::B_ALONG_N ? n + j : n;
-      dst[j] = (kk < K && nn < N) ? b[b_offset<MODE>(p, c, kk, nn)]
-                                  : from_f<T>(0.f);
-    }
-  }
-}
-
-constexpr int A_CHUNKS = BM * BK / 8 / NTHREADS;   // 4 a thread
-constexpr int B_CHUNKS = BK * BN / 8 / NTHREADS;   // 2 a thread
-
-// Tile coordinates of a thread's i-th chunk.
-template <int MODE>
-__device__ __forceinline__ void a_chunk(int id, int& m, int& k) {
-  if (Chunks<MODE>::A_ALONG_K) { m = id / (BK / 8); k = id % (BK / 8) * 8; }
-  else { k = id / (BM / 8); m = id % (BM / 8) * 8; }
-}
-template <int MODE>
-__device__ __forceinline__ void b_chunk(int id, int& k, int& n) {
-  if (Chunks<MODE>::B_ALONG_N) { k = id / (BN / 8); n = id % (BN / 8) * 8; }
-  else { n = id / (BK / 8); k = id % (BK / 8) * 8; }
-}
-
-template <int MODE, typename T, bool VEC>
-__device__ __forceinline__ void fetch(const ConvParams& p,
-                                      const Ctx<MODE>& c,
-                                      const T* a, const T* b, const Dims& g,
-                                      int m0,
-                                      int n0, int k0, int k_end,
-                                      T (&ra)[A_CHUNKS][8],
-                                      T (&rb)[B_CHUNKS][8]) {
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    int m, k;
-    a_chunk<MODE>(threadIdx.x + i * NTHREADS, m, k);
-    load_a<MODE, T, VEC>(p, c, a, g.M, k_end, m0 + m, k0 + k, ra[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < B_CHUNKS; ++i) {
-    int k, n;
-    b_chunk<MODE>(threadIdx.x + i * NTHREADS, k, n);
-    load_b<MODE, T, VEC>(p, c, b, k_end, g.N, k0 + k, n0 + n, rb[i]);
-  }
-}
-
-// Registers to the shared tiles As[m][k] and Bs[k][n] (row-major).
-template <int MODE, typename T>
-__device__ __forceinline__ void stash(T* As, T* Bs, const T (&ra)[A_CHUNKS][8],
-                                      const T (&rb)[B_CHUNKS][8]) {
-  constexpr int LDA = Tile<T>::LDA, LDB = Tile<T>::LDB;
-  constexpr bool kTC = !std::is_same<T, float>::value;
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    int m, k;
-    a_chunk<MODE>(threadIdx.x + i * NTHREADS, m, k);
-    if constexpr (Chunks<MODE>::A_ALONG_K && kTC) {
-      uint4 u;
-      memcpy(&u, ra[i], 16);
-      *reinterpret_cast<uint4*>(As + m * LDA + k) = u;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (Chunks<MODE>::A_ALONG_K) As[m * LDA + k + j] = ra[i][j];
-        else As[(m + j) * LDA + k] = ra[i][j];
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < B_CHUNKS; ++i) {
-    int k, n;
-    b_chunk<MODE>(threadIdx.x + i * NTHREADS, k, n);
-    if constexpr (Chunks<MODE>::B_ALONG_N && kTC) {
-      uint4 u;
-      memcpy(&u, rb[i], 16);
-      *reinterpret_cast<uint4*>(Bs + k * LDB + n) = u;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (Chunks<MODE>::B_ALONG_N) Bs[k * LDB + n + j] = rb[i][j];
-        else Bs[(k + j) * LDB + n] = rb[i][j];
-      }
-    }
-  }
-}
-
-// One output element: the forward's cast and epilogue, dgrad's cast (at
-// the class's pixel in parity mode), or wgrad's fp32 partial sum into the
-// split's slice of the workspace.
-template <int MODE, typename T>
-__device__ __forceinline__ void emit(const ConvParams& p, const Ctx<MODE>& c,
-                                     const Dims& g, int m, int n, float v) {
-  const int64_t off = (int64_t)m * g.N + n;
+// The output of 8 channels of one row: the forward's epilogue, dgrad's
+// cast (at the class's pixel in parity mode), or wgrad's fp32 partial sum
+// into the split's slice of the workspace.
+template <int MODE, typename T, typename S>
+__device__ __forceinline__ void emit8(const ConvParams& p, int M, int N,
+                                      int m, int n, int pix, const S* src) {
   if constexpr (MODE == MODE_WGRAD) {
-    static_cast<float*>(p.out)[(int64_t)blockIdx.z * g.M * g.N + off] = v;
-  } else if constexpr (MODE == MODE_DGRAD) {
-    static_cast<T*>(p.out)[off] = from_f<T>(v);
-  } else if constexpr (MODE == MODE_PARITY) {
-    static_cast<T*>(p.out)[(int64_t)c.rpix[m - c.m0] * p.C + n] =
-        from_f<T>(v);
+    float v[8];
+    load8(v, src);
+    store8(static_cast<float*>(p.out) + ((int64_t)blockIdx.z * M + m) * N + n,
+           v);
   } else {
-    const T res = from_f<T>(v);
-    if (p.preact != nullptr) static_cast<T*>(p.preact)[off] = res;
-    if (p.epilogue) {
-      float of = __fmul_rn(__fsub_rn(to_f(res), p.mean[n]), p.invstd[n]);
-      if (p.scale != nullptr)
-        of = __fadd_rn(__fmul_rn(of, p.scale[n]), p.bias[n]);
-      if (p.z != nullptr)
-        of = __fadd_rn(of, to_f(static_cast<const T*>(p.z)[off]));
-      if (p.relu) of = of < 0.f ? 0.f : of;    // a NaN passes, as in torch
-      static_cast<T*>(p.out)[off] = from_f<T>(of);
-    } else {
-      static_cast<T*>(p.out)[off] = res;
+    T res[8];
+    load8(res, src);
+    const int64_t off = MODE == MODE_PARITY ? (int64_t)pix * p.C + n
+                                            : (int64_t)m * N + n;
+    if constexpr (MODE == MODE_FWD) {
+      if (p.preact != nullptr) store8(static_cast<T*>(p.preact) + off, res);
+      if (p.epilogue) {
+        T zv[8], out[8];
+        float mu[8], is[8], sc[8], bi[8];    // the channels' fp32 vectors
+        load8(mu, p.mean + n);
+        load8(is, p.invstd + n);
+        if (p.scale != nullptr) {
+          load8(sc, p.scale + n);
+          load8(bi, p.bias + n);
+        }
+        if (p.z != nullptr) load8(zv, static_cast<const T*>(p.z) + off);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float of = __fmul_rn(__fsub_rn(to_f(res[j]), mu[j]), is[j]);
+          if (p.scale != nullptr)
+            of = __fadd_rn(__fmul_rn(of, sc[j]), bi[j]);
+          if (p.z != nullptr) of = __fadd_rn(of, to_f(zv[j]));
+          if (p.relu) of = of < 0.f ? 0.f : of;  // a NaN passes, as in torch
+          out[j] = from_f<T>(of);
+        }
+        store8(static_cast<T*>(p.out) + off, out);
+        return;
+      }
     }
+    store8(static_cast<T*>(p.out) + off, res);
   }
 }
 
-template <int MODE, typename T, bool VEC>
-__global__ void __launch_bounds__(NTHREADS) conv_gemm_kernel(
-    const ConvParams p) {
-  constexpr bool kTC = !std::is_same<T, float>::value;   // tensor cores
-  constexpr int LDA = Tile<T>::LDA, LDB = Tile<T>::LDB;
-  constexpr int A_BYTES = BM * LDA * sizeof(T);
-  constexpr int B_BYTES = BK * LDB * sizeof(T);
-  constexpr int C_BYTES = kTC ? BM * LDC * 4 : 0;
-  constexpr int SMEM = A_BYTES + B_BYTES > C_BYTES ? A_BYTES + B_BYTES
-                                                   : C_BYTES;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + A_BYTES);
+template <int MODE, typename T, int BN>
+__global__ void __launch_bounds__(Cfg<MODE, T, BN>::NT,
+                                  Cfg<MODE, T, BN>::MIN_BLOCKS)
+conv_gemm_kernel(const ConvParams p) {
+  using C = Cfg<MODE, T, BN>;
+  using S = typename C::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* pipe = reinterpret_cast<T*>(smem);
 
-  Ctx<MODE> c{};
-  if constexpr (MODE == MODE_PARITY) c = parity_class(p, blockIdx.z);
-  const Dims g = gemm_dims<MODE>(p, c);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  int k_begin = blockIdx.z * p.k_per_split;
-  int k_end = min(g.K, k_begin + p.k_per_split);
-  if constexpr (MODE == MODE_PARITY) {
-    if (m0 >= g.M) return;         // a smaller class: no rows here
-    k_begin = 0;                   // blockIdx.z is the class
-    k_end = g.K;
-    // decode the block's rows once (BM == NTHREADS: one row a thread)
-    __shared__ int rbase[BM], rij[BM], rpix[BM];
-    const int m = m0 + threadIdx.x;
-    if (m < g.M) {
-      const int hw = c.Hc * c.Wc;
-      const int bb = m / hw, r = m - bb * hw;
-      const int i = r / c.Wc, j = r - i * c.Wc;
-      rbase[threadIdx.x] = bb * p.OH * p.OW;
-      rij[threadIdx.x] = i | (j << 16);
-      rpix[threadIdx.x] = (bb * p.H + c.ph + p.sh * i) * p.W + c.pw + p.sw * j;
-    }
-    c.m0 = m0;
-    c.rbase = rbase;
-    c.rij = rij;
-    c.rpix = rpix;
-    __syncthreads();
-    if (g.K == 0) {                // no tap reaches the class: zeros
-      for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
-        const int m = m0 + idx / BN, n = n0 + idx % BN;
-        if (m < g.M && n < g.N) emit<MODE, T>(p, c, g, m, n, 0.f);
-      }
-      return;
-    }
-  }
-  const T* a = static_cast<const T*>(p.a);
-  const T* b = static_cast<const T*>(p.b);
-  const int tid = threadIdx.x;
-
-  T ra[A_CHUNKS][8], rb[B_CHUNKS][8];
-
-  // bf16/fp16: warps 2 x 2, each a 64 x 32 sub-tile of 4 x 2 wmma tiles.
-  // fp32: threads 16 x 8, each an 8 x 8 sub-tile.
-  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-  const int tx = tid % 8, ty = tid / 8;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-  float sacc[kTC ? 1 : 8][kTC ? 1 : 8];
-  if constexpr (kTC) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  Parity cls{};
+  int M, N, K;
+  if constexpr (MODE == MODE_FWD) {
+    M = p.N * p.OH * p.OW; N = p.O; K = p.KH * p.KW * p.C;
+  } else if constexpr (MODE == MODE_DGRAD) {
+    M = p.N * p.H * p.W; N = p.C; K = p.KH * p.KW * p.O;
+  } else if constexpr (MODE == MODE_PARITY) {
+    cls = parity_class(p, blockIdx.z);
+    M = p.N * cls.Hc * cls.Wc; N = p.C; K = cls.nth * cls.ntw * p.O;
   } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sacc[i][j] = 0.f;
+    M = p.KH * p.KW * p.C; N = p.O; K = p.N * p.OH * p.OW;
+  }
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if (m0 >= M) return;             // parity: a smaller class, no rows here
+  int k_begin = 0, k_end = K;
+  if constexpr (MODE == MODE_WGRAD) {
+    k_begin = blockIdx.z * p.k_per_split;
+    k_end = min(K, k_begin + p.k_per_split);
+  }
+  int* rpix = reinterpret_cast<int*>(smem + C::MAIN_BYTES);
+  if constexpr (MODE == MODE_PARITY) {
+    // the input pixel each row's output goes to, read by the epilogue
+    for (int r = threadIdx.x; r < BM; r += C::NT) {
+      const int m = m0 + r;
+      if (m >= M) continue;
+      const int hw = cls.Hc * cls.Wc;
+      const int bb = m / hw, rr = m - bb * hw;
+      const int i = rr / cls.Wc, j = rr - i * cls.Wc;
+      rpix[r] = (bb * p.H + cls.ph + p.sh * i) * p.W + cls.pw + p.sw * j;
+    }
   }
 
-  fetch<MODE, T, VEC>(p, c, a, b, g, m0, n0, k_begin, k_end, ra, rb);
-  stash<MODE, T>(As, Bs, ra, rb);
-  __syncthreads();
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    const bool more = k0 + BK < k_end;
-    if (more)
-      fetch<MODE, T, VEC>(p, c, a, b, g, m0, n0, k0 + BK, k_end, ra, rb);
-    if constexpr (kTC) {
+  const Gather<MODE, T, BN> g(p, cls, m0, n0, M, N, K, k_end);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk = (k_end - k_begin + BK - 1) / BK;
+
+  // tensor cores: warps (BN / WN of them along n) of 64 x WN, 4 x NI mma
+  // tiles; fp32: threads 16 (m) x BN / 8 (n), each rows ty + 16 i and
+  // columns tx + BN / 8 j
+  constexpr int TXN = BN / 8;
+  constexpr int NI = C::kTC ? C::WN / 8 : 8;      // n tiles (or columns)
+  constexpr int MI = C::kTC ? 4 : 8;              // m tiles (or rows)
+  const int wm = warp / (BN / C::WN), wn = warp % (BN / C::WN);
+  const int ty = tid / TXN, tx = tid % TXN;
+  float acc[MI][NI][C::kTC ? 4 : 1];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int r = 0; r < (C::kTC ? 4 : 1); ++r) acc[i][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < nk)
+      g.load(p, pipe + s * C::STAGE_ELEMS,
+             pipe + s * C::STAGE_ELEMS + C::A_ELEMS, k_begin + s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<C::STAGES - 2>();   // step kt has landed
+    __syncthreads();                  // and step kt - 1's slot is free
+    const int nx = kt + C::STAGES - 1;
+    if (nx < nk) {
+      T* st = pipe + (nx % C::STAGES) * C::STAGE_ELEMS;
+      g.load(p, st, st + C::A_ELEMS, k_begin + nx * BK);
+    }
+    cp_async_commit();
+    const T* As = pipe + (kt % C::STAGES) * C::STAGE_ELEMS;
+    const T* Bs = As + C::A_ELEMS;
+    if constexpr (C::kTC) {
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-            fa[4];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>
-            fb[2];
+        uint32_t af[4][4], bfr[NI][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * 64 + i * 16) * LDA + kk,
-                                 LDA);
+        for (int mi = 0; mi < 4; ++mi) {
+          const int mb = wm * 64 + mi * 16;
+          if constexpr (C::A_MK)
+            ldsm_x4(af[mi], As + (mb + (lane & 15)) * C::LDA + kk +
+                                (lane >> 4) * 8);
+          else
+            ldsm_x4_t(af[mi], As + (kk + (lane & 7) + ((lane >> 4) << 3)) *
+                                       C::LDA + mb + ((lane >> 3) & 1) * 8);
+        }
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn * 32 + j * 16,
-                                 LDB);
+        for (int np = 0; np < NI / 2; ++np) {
+          const int nb = wn * C::WN + np * 16;
+          uint32_t r[4];
+          if constexpr (C::B_KN)
+            ldsm_x4_t(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  C::LDB + nb + (lane >> 4) * 8);
+          else
+            ldsm_x4(r, Bs + (nb + (lane & 7) + ((lane >> 4) << 3)) * C::LDB +
+                           kk + ((lane >> 3) & 1) * 8);
+          bfr[2 * np][0] = r[0];
+          bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2];
+          bfr[2 * np + 1][1] = r[3];
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+          for (int ni = 0; ni < NI; ++ni)
+            mma16816<T>(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
       }
     } else {
-#pragma unroll 4
+#pragma unroll 8
       for (int kk = 0; kk < BK; ++kk) {
         float av[8], bv[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = to_f(As[(ty * 8 + i) * LDA + kk]);
+        for (int i = 0; i < 8; ++i)
+          av[i] = to_f(C::A_MK ? As[(ty + 16 * i) * C::LDA + kk]
+                               : As[kk * C::LDA + ty + 16 * i]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = to_f(Bs[kk * LDB + tx * 8 + j]);
+        for (int j = 0; j < 8; ++j)
+          bv[j] = to_f(C::B_KN ? Bs[kk * C::LDB + tx + TXN * j]
+                               : Bs[(tx + TXN * j) * C::LDB + kk]);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            sacc[i][j] = fmaf(av[i], bv[j], sacc[i][j]);
+            acc[i][j][0] = fmaf(av[i], bv[j], acc[i][j][0]);
       }
     }
-    __syncthreads();
-    if (more) {
-      stash<MODE, T>(As, Bs, ra, rb);
-      __syncthreads();
-    }
   }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free for the epilogue
 
-  if constexpr (kTC) {
-    float* Cs = reinterpret_cast<float*>(smem);   // the tiles are done
+  // accumulators -> the staging tile (rounded to the output type, or fp32
+  // for wgrad), then 8 channels of a row a thread
+  S* Cs = reinterpret_cast<S*>(smem);
+  if constexpr (C::kTC) {
+    const int gq = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * LDC + wn * 32 +
-                                    j * 16,
-                                acc[i][j], LDC, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
-      const int r = idx / BN, cc = idx % BN;
-      const int m = m0 + r, n = n0 + cc;
-      if (m < g.M && n < g.N) emit<MODE, T>(p, c, g, m, n, Cs[r * LDC + cc]);
-    }
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = wm * 64 + mi * 16 + gq + 8 * hh;
+          const int col = wn * C::WN + ni * 8 + 2 * t4;
+          const float lo = acc[mi][ni][2 * hh], hi = acc[mi][ni][2 * hh + 1];
+          if constexpr (std::is_same<S, float>::value)
+            *reinterpret_cast<float2*>(Cs + row * C::LDC + col) =
+                make_float2(lo, hi);
+          else
+            *reinterpret_cast<uint32_t*>(Cs + row * C::LDC + col) =
+                pack2<T>(lo, hi);
+        }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int m = m0 + ty * 8 + i, n = n0 + tx * 8 + j;
-        if (m < g.M && n < g.N) emit<MODE, T>(p, c, g, m, n, sacc[i][j]);
-      }
+      for (int j = 0; j < 8; ++j)
+        Cs[(ty + 16 * i) * C::LDC + tx + TXN * j] = acc[i][j][0];
+  }
+  __syncthreads();
+  for (int id = tid; id < BM * (BN / 8); id += C::NT) {
+    const int r = id / (BN / 8), c8 = id % (BN / 8) * 8;
+    const int m = m0 + r, n = n0 + c8;
+    if (m < M && n < N)
+      emit8<MODE, T, S>(p, M, N, m, n,
+                        MODE == MODE_PARITY ? rpix[r] : 0,
+                        Cs + r * C::LDC + c8);
   }
 }
 
@@ -612,65 +743,73 @@ __global__ void wgrad_reduce_kernel(const float* ws, T* dw, int splits,
 }
 
 // Grid z: wgrad's K splits, the parity classes (sh*sw; x sized by the
-// largest, class (0, 0)), else 1.
-template <int MODE, typename T, bool VEC>
-cudaError_t launch_gemm(const ConvParams& p, int splits, cudaStream_t st) {
-  int m = p.N * p.H * p.W, z = splits;
-  if (MODE == MODE_PARITY) {
+// largest, class (0, 0)), else 1.  The tile is 128 x 128 where the GEMM's
+// N is at least 128, else 128 x 64.
+template <int MODE, typename T, int BN>
+cudaError_t launch_tile(const ConvParams& p, int splits, cudaStream_t st) {
+  using C = Cfg<MODE, T, BN>;
+  auto kernel = conv_gemm_kernel<MODE, T, BN>;
+  // opt in to more than 48 KB once per instantiation (not again while a
+  // CUDA graph is being captured)
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (configured != cudaSuccess) return configured;
+  int m, z = 1;
+  if (MODE == MODE_FWD) m = p.N * p.OH * p.OW;
+  else if (MODE == MODE_DGRAD) m = p.N * p.H * p.W;
+  else if (MODE == MODE_WGRAD) { m = p.KH * p.KW * p.C; z = splits; }
+  else {
     m = p.N * ((p.H + p.sh - 1) / p.sh) * ((p.W + p.sw - 1) / p.sw);
     z = p.sh * p.sw;
-  } else {
-    m = gemm_dims<MODE>(p, Ctx<MODE>{}).M;
   }
   const int n = MODE == MODE_FWD || MODE == MODE_WGRAD ? p.O : p.C;
   const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, z);
-  conv_gemm_kernel<MODE, T, VEC><<<grid, NTHREADS, 0, st>>>(p);
+  kernel<<<grid, C::NT, C::SMEM, st>>>(p);
   return cudaGetLastError();
 }
 
 template <int MODE, typename T>
-cudaError_t by_vec(const ConvParams& p, int vec, int splits,
-                   cudaStream_t st) {
-  return vec ? launch_gemm<MODE, T, true>(p, splits, st)
-             : launch_gemm<MODE, T, false>(p, splits, st);
+cudaError_t by_tile(const ConvParams& p, int splits, cudaStream_t st) {
+  const int n = MODE == MODE_FWD || MODE == MODE_WGRAD ? p.O : p.C;
+  return n >= 128 ? launch_tile<MODE, T, 128>(p, splits, st)
+                  : launch_tile<MODE, T, 64>(p, splits, st);
 }
 
 template <int MODE>
-cudaError_t dispatch(const ConvParams& p, int dtype, int vec, int splits,
+cudaError_t dispatch(const ConvParams& p, int dtype, int splits,
                      cudaStream_t st) {
-  if (dtype == 0) return by_vec<MODE, float>(p, vec, splits, st);
-  if (dtype == 1) return by_vec<MODE, __nv_bfloat16>(p, vec, splits, st);
-  if (dtype == 2) return by_vec<MODE, __half>(p, vec, splits, st);
+  if (p.C % 8 != 0 || p.O % 8 != 0) return cudaErrorInvalidValue;
+  if (dtype == 0) return by_tile<MODE, float>(p, splits, st);
+  if (dtype == 1) return by_tile<MODE, __nv_bfloat16>(p, splits, st);
+  if (dtype == 2) return by_tile<MODE, __half>(p, splits, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on
-// success).  dtype 0 picks fp32, 1 bf16, 2 fp16 operands; vec the 16-byte
-// gather, which needs C and O multiples of 8 and 16-byte aligned tensors.
-extern "C" int conv_fwd(const ConvParams* p, int dtype, int vec,
-                        void* stream) {
+// success).  dtype 0 picks fp32, 1 bf16, 2 fp16 operands.  C and O must be
+// multiples of 8 and every tensor 16-byte aligned.
+extern "C" int conv_fwd(const ConvParams* p, int dtype, void* stream) {
   return static_cast<int>(dispatch<MODE_FWD>(
-      *p, dtype, vec, 1, static_cast<cudaStream_t>(stream)));
+      *p, dtype, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // Stride 1: one GEMM over every pixel; stride > 1: the parity classes.
-extern "C" int conv_dgrad(const ConvParams* p, int dtype, int vec,
-                          void* stream) {
+extern "C" int conv_dgrad(const ConvParams* p, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p->sh > 1 || p->sw > 1)
-    return static_cast<int>(dispatch<MODE_PARITY>(*p, dtype, vec, 1, st));
-  return static_cast<int>(dispatch<MODE_DGRAD>(*p, dtype, vec, 1, st));
+    return static_cast<int>(dispatch<MODE_PARITY>(*p, dtype, 1, st));
+  return static_cast<int>(dispatch<MODE_DGRAD>(*p, dtype, 1, st));
 }
 
 // The split GEMM into p->out (fp32 [splits, KH*KW*C, O], K split every
 // p->k_per_split pixels), then the reduce into p->aux (dw, in the operands'
 // type).
-extern "C" int conv_wgrad(const ConvParams* p, int dtype, int vec,
-                          int splits, void* stream) {
+extern "C" int conv_wgrad(const ConvParams* p, int dtype, int splits,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch<MODE_WGRAD>(*p, dtype, vec, splits, st);
+  cudaError_t err = dispatch<MODE_WGRAD>(*p, dtype, splits, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t mn = (int64_t)p->KH * p->KW * p->C * p->O;
   const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);

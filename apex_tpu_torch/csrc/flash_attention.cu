@@ -18,7 +18,11 @@
 // runs in the next instantiated width (16, 32, 64, 128, 256): loads read
 // the missing columns as zero and stores skip them, so nothing padded is
 // ever in device memory and the results are those of the unpadded
-// function.
+// function.  A wider head runs the 256 instantiation in 256-wide column
+// slices (the SIMT and split-KV kernels): the scores sum their products
+// over every slice, and one more grid dimension (folded into y with the
+// heads) picks the slice of the output a block writes.  That path is
+// for correctness: no model of the repo runs it.
 //
 // What bounds it on the H100, and what the design does about it:
 //  * Prefill and training (q_len >= 16, bf16/fp16) are bound by
@@ -80,7 +84,8 @@ struct Params {
   const float* bias;    // [B, T, S] fp32 (last stride 1) or null
   void* out;
   float* lse;           // [B, H, T] fp32, contiguous
-  float* part_o;        // decode: [B, H, T, splits, Dp] fp32 scratch
+  float* part_o;        // decode: [B, H, T, splits, Dp] fp32 scratch (Dp:
+                        // the instantiated width times its slices)
   float* part_ml;       // decode: [B, H, T, splits, 2] fp32 (m, l)
   int64_t sq_b, sq_t, sq_h;
   int64_t sk_b, sk_t, sk_h;
@@ -100,6 +105,15 @@ struct Params {
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+// The widest instantiation: a head wider than it runs in it, in MAX_D-wide
+// column slices.  Narrower instantiations have one slice at compile time,
+// so they compile as they would without the slicing.
+constexpr int MAX_D = 256;
+template <int D>
+__host__ __device__ __forceinline__ int slices(int d) {
+  return D == MAX_D ? (d + D - 1) / D : 1;
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -508,8 +522,27 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// Rows [r0, r0 + ROWS) of a [*, dw] operand (row stride `st`) into a
+// [ROWS][LD] fp32 tile of D columns; rows past `n` and columns past `dw`
+// are zero.
+template <typename T, int D, int ROWS, int LD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src,
+                                              int64_t st, int r0, int n,
+                                              int dw) {
+  for (int i = threadIdx.x; i < ROWS * D; i += F_THREADS) {
+    const int rr = i / D, d = i % D;
+    const int t = r0 + rr;
+    dst[rr * LD + d] = t < n && d < dw ? to_f(src[t * st + d]) : 0.f;
+  }
+}
+
 // BQ query rows a block over KV tiles of BQ keys: 64 up to width 128,
 // 32 at 256 (fp32 tiles of 64 rows would not fit the SM's shared memory).
+// A head wider than D (D = 256) is taken in D-wide column slices: S sums
+// its products over every slice, each loaded in turn into the same Q and
+// K tiles, and blockIdx.y / H picks the slice of O (and of V) that this
+// block writes, so no block holds more than D accumulator columns; S is
+// recomputed by each slice's blocks, and slice 0 writes lse.
 template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(F_THREADS)
 flash_fwd_simt_kernel(const Params p) {
@@ -532,7 +565,9 @@ flash_fwd_simt_kernel(const Params p) {
   const int r = tid / TPR;
   const int lane = tid % TPR;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
+  const int nsl = slices<D>(p.d);   // D-wide slices of the head
+  const int h = blockIdx.y / nsl;
+  const int sl = blockIdx.y - h * nsl; // the slice of O this block writes
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
 
@@ -542,11 +577,7 @@ flash_fwd_simt_kernel(const Params p) {
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  for (int i = tid; i < BQ * D; i += F_THREADS) {
-    const int rr = i / D, d = i % D;
-    const int t = q0 + rr;
-    Qs[rr * QS + d] = t < p.tq && d < p.d ? to_f(q[t * p.sq_t + d]) : 0.f;
-  }
+  if (nsl == 1) load_rows_f32<T, D, BQ, QS>(Qs, q, p.sq_t, q0, p.tq, p.d);
 
   const int row = q0 + r;
   const int q_last = min(q0 + BQ, p.tq) - 1;
@@ -562,12 +593,17 @@ flash_fwd_simt_kernel(const Params p) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                   // the previous tile is consumed
-    for (int i = tid; i < BK * D; i += F_THREADS) {
-      const int c = i / D, d = i % D;
-      const int key = k0 + c;
-      const bool in = key < p.tk && d < p.d;
-      Ks[c * QS + d] = in ? to_f(k[key * p.sk_t + d]) : 0.f;
-      Vs[c * D + d] = in ? to_f(v[key * p.sv_t + d]) : 0.f;
+    if (nsl == 1) {
+      for (int i = tid; i < BK * D; i += F_THREADS) {
+        const int c = i / D, d = i % D;
+        const int key = k0 + c;
+        const bool in = key < p.tk && d < p.d;
+        Ks[c * QS + d] = in ? to_f(k[key * p.sk_t + d]) : 0.f;
+        Vs[c * D + d] = in ? to_f(v[key * p.sv_t + d]) : 0.f;
+      }
+    } else {
+      load_rows_f32<T, D, BK, D>(Vs, v + sl * D, p.sv_t, k0, p.tk,
+                                 p.d - sl * D);
     }
     if (bias) {
       for (int i = tid; i < BQ * BK; i += F_THREADS) {
@@ -585,11 +621,22 @@ flash_fwd_simt_kernel(const Params p) {
 
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j] = 0.f;
+    for (int sc = 0; sc < nsl; ++sc) {
+      if (nsl > 1) {                   // slice sc of Q and K
+        if (sc > 0) __syncthreads();
+        load_rows_f32<T, D, BQ, QS>(Qs, q + sc * D, p.sq_t, q0, p.tq,
+                                    p.d - sc * D);
+        load_rows_f32<T, D, BK, QS>(Ks, k + sc * D, p.sk_t, k0, p.tk,
+                                    p.d - sc * D);
+        __syncthreads();
+      }
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = Qs[r * QS + d];
+      for (int d = 0; d < D; ++d) {
+        const float qd = Qs[r * QS + d];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) s[j] += qd * Ks[(j * TPR + lane) * QS + d];
+        for (int j = 0; j < NS; ++j)
+          s[j] += qd * Ks[(j * TPR + lane) * QS + d];
+      }
     }
 
     uint32_t valid = 0;
@@ -637,11 +684,13 @@ flash_fwd_simt_kernel(const Params p) {
 
   if (row < p.tq) {
     const float safe = l == 0.f ? 1.f : l;
-    T* o = static_cast<T*>(p.out) + b * p.so_b + row * p.so_t + h * p.so_h;
+    T* o = static_cast<T*>(p.out) + b * p.so_b + row * p.so_t + h * p.so_h +
+           sl * D;
+    const int dw = p.d - sl * D;
 #pragma unroll
     for (int i = 0; i < NA; ++i)
-      if (i * TPR + lane < p.d) o[i * TPR + lane] = from_f<T>(acc[i] / safe);
-    if (lane == 0)
+      if (i * TPR + lane < dw) o[i * TPR + lane] = from_f<T>(acc[i] / safe);
+    if (lane == 0 && sl == 0)
       p.lse[(static_cast<int64_t>(b) * p.H + h) * p.tq + row] =
           l == 0.f ? NEG_INF : m + logf(safe);
   }
@@ -689,7 +738,12 @@ flash_fwd_split_kernel(const Params p) {
   float* red = qs + SP_ROWS * D;           // [KPP][SP_RB][D] PV partials
   float* ps = red + KPP * SP_RB * D;       // [tq][chunk] scores, then p
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // a head wider than D: scores summed over its D-wide slices, this
+  // block's slice `sl` of the output (as in the SIMT kernel above)
+  const int nsl = slices<D>(p.d);
+  const int PW = nsl * D;                  // a part_o row: every slice
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / nsl, sl = blockIdx.y - h * nsl;
   const int hk = h / (p.H / p.Hkv);
   const int tid = threadIdx.x, grp = tid / LPK, c8 = (tid % LPK) * 8;
   const int c0 = split * p.chunk;
@@ -703,8 +757,8 @@ flash_fwd_split_kernel(const Params p) {
 
   if (lo >= hi) {                          // nothing visible: l = 0
     for (int i = tid; i < p.tq * D; i += SP_THREADS)
-      p.part_o[slot(i / D) * D + i % D] = 0.f;
-    for (int r = tid; r < p.tq; r += SP_THREADS) {
+      p.part_o[slot(i / D) * PW + sl * D + i % D] = 0.f;
+    for (int r = tid; r < p.tq && sl == 0; r += SP_THREADS) {
       p.part_ml[slot(r) * 2] = NEG_INF;
       p.part_ml[slot(r) * 2 + 1] = 0.f;
     }
@@ -718,31 +772,54 @@ flash_fwd_split_kernel(const Params p) {
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
   const bool vec = p.vec;
 
-  for (int i = tid; i < p.tq * D; i += SP_THREADS) {
-    const int r = i / D, dd = i % D;
-    qs[r * D + dd] = dd < p.d ? to_f(q[r * p.sq_t + dd]) : 0.f;
-  }
-  __syncthreads();
+  // scores: LPK lanes share a key row, 8 columns each; a wider head sums
+  // each slice's dot products into ps, then scales and masks them
+  for (int sc = 0; sc < nsl; ++sc) {
+    if (sc > 0) __syncthreads();           // the last slice's qs consumed
+    const int dw = p.d - sc * D;
+    for (int i = tid; i < p.tq * D; i += SP_THREADS) {
+      const int r = i / D, dd = i % D;
+      qs[r * D + dd] = dd < dw ? to_f(q[r * p.sq_t + sc * D + dd]) : 0.f;
+    }
+    __syncthreads();
 
-  // scores: LPK lanes share a key row, 8 columns each
-  for (int kb0 = lo; kb0 < hi; kb0 += KPP) {
-    const int key = kb0 + grp;
-    float kx[8];
-    load8<T>(kx, k + static_cast<int64_t>(key) * p.sk_t, key < hi, c8, p.d,
-             vec);
-    for (int r = 0; r < p.tq; ++r) {
-      float part = 0.f;
+    for (int kb0 = lo; kb0 < hi; kb0 += KPP) {
+      const int key = kb0 + grp;
+      float kx[8];
+      load8<T>(kx, k + static_cast<int64_t>(key) * p.sk_t + sc * D,
+               key < hi, c8, dw, vec);
+      for (int r = 0; r < p.tq; ++r) {
+        float part = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) part = fmaf(kx[j], qs[r * D + c8 + j], part);
+        for (int j = 0; j < 8; ++j)
+          part = fmaf(kx[j], qs[r * D + c8 + j], part);
 #pragma unroll
-      for (int off = LPK / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (c8 == 0 && key < hi) {
-        float x = part * p.sm_scale;
-        if (kb) x += kb[key];
-        if (bias) x += bias[r * p.sb_t + key];
-        ps[r * p.chunk + key - c0] = visible(p, r, key) ? x : -INFINITY;
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (c8 == 0 && key < hi) {
+          float* dst = ps + r * p.chunk + key - c0;
+          if (nsl == 1) {
+            float x = part * p.sm_scale;
+            if (kb) x += kb[key];
+            if (bias) x += bias[r * p.sb_t + key];
+            *dst = visible(p, r, key) ? x : -INFINITY;
+          } else {
+            *dst = sc == 0 ? part : *dst + part;
+          }
+        }
       }
+    }
+  }
+  if (nsl > 1) {
+    __syncthreads();                       // every slice's sums are in
+    const int n = hi - lo;
+    for (int i = tid; i < p.tq * n; i += SP_THREADS) {
+      const int r = i / n, key = lo + i % n;
+      float* dst = ps + r * p.chunk + key - c0;
+      float x = *dst * p.sm_scale;
+      if (kb) x += kb[key];
+      if (bias) x += bias[r * p.sb_t + key];
+      *dst = visible(p, r, key) ? x : -INFINITY;
     }
   }
   __syncthreads();
@@ -767,7 +844,7 @@ flash_fwd_split_kernel(const Params p) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) {
+    if (lane == 0 && sl == 0) {
       p.part_ml[slot(r) * 2] = mx == -INFINITY ? NEG_INF : mx;
       p.part_ml[slot(r) * 2 + 1] = l;
     }
@@ -783,8 +860,8 @@ flash_fwd_split_kernel(const Params p) {
       for (int j = 0; j < 8; ++j) acc[rr][j] = 0.f;
     for (int key = lo + grp; key < hi; key += KPP) {
       float vx[8];
-      load8<T>(vx, v + static_cast<int64_t>(key) * p.sv_t, true, c8, p.d,
-               vec);
+      load8<T>(vx, v + static_cast<int64_t>(key) * p.sv_t + sl * D, true, c8,
+               p.d - sl * D, vec);
 #pragma unroll
       for (int rr = 0; rr < SP_RB; ++rr) {
         if (r0 + rr >= p.tq) break;
@@ -804,7 +881,7 @@ flash_fwd_split_kernel(const Params p) {
       if (r0 + rr >= p.tq) continue;
       float sum = 0.f;
       for (int gi = 0; gi < KPP; ++gi) sum += red[(gi * SP_RB + rr) * D + dd];
-      p.part_o[slot(r0 + rr) * D + dd] = sum;
+      p.part_o[slot(r0 + rr) * PW + sl * D + dd] = sum;
     }
     __syncthreads();
   }
@@ -816,8 +893,9 @@ __global__ void __launch_bounds__(SP_THREADS)
 flash_fwd_combine_kernel(const Params p) {
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int64_t row = (static_cast<int64_t>(b) * p.H + h) * p.tq + r;
+  const int PW = slices<D>(p.d) * D;   // a part_o row: every slice
   const float* ml = p.part_ml + row * p.splits * 2;
-  const float* po = p.part_o + row * p.splits * D;
+  const float* po = p.part_o + row * p.splits * PW;
   float M = -INFINITY;
   for (int c = 0; c < p.splits; ++c)
     if (ml[2 * c + 1] > 0.f) M = fmaxf(M, ml[2 * c]);
@@ -828,7 +906,7 @@ flash_fwd_combine_kernel(const Params p) {
   for (int dd = threadIdx.x; dd < p.d; dd += blockDim.x) {
     float o = 0.f;
     for (int c = 0; c < p.splits; ++c)
-      if (ml[2 * c + 1] > 0.f) o += po[c * D + dd] * expf(ml[2 * c] - M);
+      if (ml[2 * c + 1] > 0.f) o += po[c * PW + dd] * expf(ml[2 * c] - M);
     out[dd] = from_f<T>(L > 0.f ? o / L : 0.f);
   }
   if (threadIdx.x == 0) p.lse[row] = L > 0.f ? M + logf(L) : NEG_INF;
@@ -865,7 +943,7 @@ cudaError_t launch_simt(const Params& p, cudaStream_t st) {
   auto kernel = flash_fwd_simt_kernel<T, D, BQ>;
   static const cudaError_t configured = allow_smem(kernel, smem);
   if (configured != cudaSuccess) return configured;
-  const dim3 grid((p.tq + BQ - 1) / BQ, p.H, p.B);
+  const dim3 grid((p.tq + BQ - 1) / BQ, p.H * slices<D>(p.d), p.B);
   kernel<<<grid, F_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -881,7 +959,8 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
   auto kernel = flash_fwd_split_kernel<T, D>;
   static const cudaError_t configured = allow_smem(kernel, SP_MAX_SMEM);
   if (configured != cudaSuccess) return configured;
-  kernel<<<dim3(p.splits, p.H, p.B), SP_THREADS, smem, st>>>(p);
+  kernel<<<dim3(p.splits, p.H * slices<D>(p.d), p.B), SP_THREADS, smem,
+           st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_fwd_combine_kernel<T, D><<<dim3(p.tq, p.H, p.B), SP_THREADS, 0, st>>>(
@@ -891,7 +970,7 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
 
 // The wrapper decides the path: scratch and chunks (p.splits > 0) for
 // q_len < 16, none otherwise.  Tensor cores take bf16 / fp16 up to width
-// 128; fp32, and every dtype at 256, take the SIMT kernel.
+// 128; fp32, and every dtype at 256 and wider, take the SIMT kernel.
 template <typename T, int D>
 cudaError_t by_path(const Params& p, cudaStream_t st) {
   if (p.splits > 0) return launch_split<T, D>(p, st);
@@ -915,7 +994,8 @@ cudaError_t by_dim(const Params& p, int head_dim, cudaStream_t st) {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// head_dim is the instantiated width (16/32/64/128/256, >= p->d); dtype
+// head_dim is the instantiated width (16/32/64/128/256, >= p->d, or 256
+// for any wider p->d, taken in slices); dtype
 // 0 fp32, 1 bf16, 2 fp16.  p->splits > 0 (q_len < 16) takes the split-KV
 // path (p->splits chunks of p->chunk keys, scratch in p->part_o /
 // p->part_ml, then the combine kernel); otherwise one kernel, tensor

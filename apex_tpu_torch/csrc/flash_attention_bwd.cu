@@ -98,8 +98,10 @@
 // (loop bounds); ragged edges (T = 1023 in training) are masked, so any
 // length works; any head width up to 256 runs in the next instantiated
 // width (16, 32, 64, 128, 256): the tiles read the missing columns as
-// zero and the stores skip them; q, k, v, dO and the outputs are read
-// and written through their strides in the [B, T, H, D] layout.
+// zero and the stores skip them; a wider head runs the 256 SIMT kernels
+// in 256-wide column slices (a correctness path: no model of the repo
+// runs it); q, k, v, dO and the outputs are read and written through
+// their strides in the [B, T, H, D] layout.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -143,6 +145,15 @@ struct BwdParams {
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+// The widest instantiation: a head wider than it runs in it, in MAX_D-wide
+// column slices.  Narrower instantiations have one slice at compile time,
+// so they compile as they would without the slicing.
+constexpr int MAX_D = 256;
+template <int D>
+__host__ __device__ __forceinline__ int slices(int d) {
+  return D == MAX_D ? (d + D - 1) / D : 1;
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -227,7 +238,12 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const T* src,
   }
 }
 
-// BT rows (queries or keys) a tile; TPR threads share one row.
+// BT rows (queries or keys) a tile; TPR threads share one row.  A head
+// wider than D (D = 256) is taken in D-wide column slices, in every SIMT
+// kernel: S and dP sum their products over every slice, each loaded in
+// turn into the same tiles, and blockIdx.y / H (dQ) or / H_kv (dK/dV)
+// picks the slice of the output a block writes, so no block holds more
+// than D accumulator columns; each slice's blocks recompute S and dP.
 template <typename T, int D, int BT>
 __global__ void __launch_bounds__(NTHREADS, blocks_per_sm(dq_floats(D, BT)))
 flash_bwd_dq_simt_kernel(const BwdParams p) {
@@ -250,7 +266,9 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
   const int r = tid / TPR;
   const int lane = tid % TPR;
   const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
+  const int nsl = slices<D>(p.d);   // D-wide slices of the head
+  const int h = blockIdx.y / nsl;
+  const int sl = blockIdx.y - h * nsl; // the slice of dQ this block writes
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
 
@@ -261,8 +279,10 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  load_tile_f32<T, D, BT>(Qs, q, p.sq_t, q0, p.tq, p.d);
-  load_tile_f32<T, D, BT>(dOs, dout, p.sdo_t, q0, p.tq, p.d);
+  if (nsl == 1) {
+    load_tile_f32<T, D, BT>(Qs, q, p.sq_t, q0, p.tq, p.d);
+    load_tile_f32<T, D, BT>(dOs, dout, p.sdo_t, q0, p.tq, p.d);
+  }
 
   const int row = q0 + r;
   const bool row_ok = row < p.tq;
@@ -285,8 +305,10 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += BT) {
     __syncthreads();                   // the previous tile is consumed
-    load_tile_f32<T, D, BT>(Ks, k, p.sk_t, k0, p.tk, p.d);
-    load_tile_f32<T, D, BT>(Vs, v, p.sv_t, k0, p.tk, p.d);
+    if (nsl == 1) {
+      load_tile_f32<T, D, BT>(Ks, k, p.sk_t, k0, p.tk, p.d);
+      load_tile_f32<T, D, BT>(Vs, v, p.sv_t, k0, p.tk, p.d);
+    }
     if (bias) {
       for (int i = tid; i < BT * BT; i += NTHREADS) {
         const int rr = i / BT, c = i % BT;
@@ -303,16 +325,33 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
 
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = Qs[r * QS + d];
-      const float od = dOs[r * QS + d];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int c = j * TPR + lane;
-        s[j] += qd * Ks[c * QS + d];
-        dp[j] += od * Vs[c * QS + d];
+    for (int sc = 0; sc < nsl; ++sc) {
+      if (nsl > 1) {                   // slice sc of Q, dO, K and V
+        if (sc > 0) __syncthreads();
+        const int dw = p.d - sc * D;
+        load_tile_f32<T, D, BT>(Qs, q + sc * D, p.sq_t, q0, p.tq, dw);
+        load_tile_f32<T, D, BT>(dOs, dout + sc * D, p.sdo_t, q0, p.tq, dw);
+        load_tile_f32<T, D, BT>(Ks, k + sc * D, p.sk_t, k0, p.tk, dw);
+        load_tile_f32<T, D, BT>(Vs, v + sc * D, p.sv_t, k0, p.tk, dw);
+        __syncthreads();
       }
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float qd = Qs[r * QS + d];
+        const float od = dOs[r * QS + d];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const int c = j * TPR + lane;
+          s[j] += qd * Ks[c * QS + d];
+          dp[j] += od * Vs[c * QS + d];
+        }
+      }
+    }
+    if (nsl > 1 && sl != nsl - 1) {    // the slice of K this block sums
+      __syncthreads();
+      load_tile_f32<T, D, BT>(Ks, k + sl * D, p.sk_t, k0, p.tk,
+                              p.d - sl * D);
+      __syncthreads();
     }
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
@@ -334,10 +373,11 @@ flash_bwd_dq_simt_kernel(const BwdParams p) {
   }
 
   if (row_ok) {
-    T* dq = static_cast<T*>(p.dq) + b * p.sdq_b + row * p.sdq_t + h * p.sdq_h;
+    T* dq = static_cast<T*>(p.dq) + b * p.sdq_b + row * p.sdq_t + h * p.sdq_h +
+            sl * D;
 #pragma unroll
     for (int i = 0; i < NA; ++i)
-      if (i * TPR + lane < p.d) dq[i * TPR + lane] = from_f<T>(acc[i]);
+      if (i * TPR + lane < p.d - sl * D) dq[i * TPR + lane] = from_f<T>(acc[i]);
   }
 }
 
@@ -366,7 +406,9 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
   const int c = tid / TPR;             // key row of this thread
   const int lane = tid % TPR;
   const int k0 = blockIdx.x * BT;
-  const int hk = blockIdx.y;
+  const int nsl = slices<D>(p.d);   // D-wide slices of the head
+  const int hk = blockIdx.y / nsl;
+  const int sl = blockIdx.y - hk * nsl;  // the slice of dK, dV written
   const int b = blockIdx.z;
   const int grp = p.H / p.Hkv;
 
@@ -375,8 +417,10 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  load_tile_f32<T, D, BT>(Ks, k, p.sk_t, k0, p.tk, p.d);
-  load_tile_f32<T, D, BT>(Vs, v, p.sv_t, k0, p.tk, p.d);
+  if (nsl == 1) {
+    load_tile_f32<T, D, BT>(Ks, k, p.sk_t, k0, p.tk, p.d);
+    load_tile_f32<T, D, BT>(Vs, v, p.sv_t, k0, p.tk, p.d);
+  }
   for (int i = tid; i < BT; i += NTHREADS)
     KBs[i] = (kb && k0 + i < p.tk) ? kb[k0 + i] : 0.f;
 
@@ -405,8 +449,10 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
 
     for (int q0 = q_begin; q0 < q_end; q0 += BT) {
       __syncthreads();                 // the previous tile is consumed
-      load_tile_f32<T, D, BT>(Qs, q, p.sq_t, q0, p.tq, p.d);
-      load_tile_f32<T, D, BT>(dOs, dout, p.sdo_t, q0, p.tq, p.d);
+      if (nsl == 1) {
+        load_tile_f32<T, D, BT>(Qs, q, p.sq_t, q0, p.tq, p.d);
+        load_tile_f32<T, D, BT>(dOs, dout, p.sdo_t, q0, p.tq, p.d);
+      }
       for (int i = tid; i < BT; i += NTHREADS) {
         const bool in = q0 + i < p.tq;
         Ls[i] = in ? p.lse[hrow + q0 + i] : 0.f;
@@ -424,16 +470,35 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
 
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float kd = Ks[c * QS + d];
-        const float vd = Vs[c * QS + d];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const int rr = j * TPR + lane;
-          s[j] += kd * Qs[rr * QS + d];
-          dp[j] += vd * dOs[rr * QS + d];
+      for (int sc = 0; sc < nsl; ++sc) {
+        if (nsl > 1) {                 // slice sc of K, V, Q and dO
+          if (sc > 0) __syncthreads();
+          const int dw = p.d - sc * D;
+          load_tile_f32<T, D, BT>(Ks, k + sc * D, p.sk_t, k0, p.tk, dw);
+          load_tile_f32<T, D, BT>(Vs, v + sc * D, p.sv_t, k0, p.tk, dw);
+          load_tile_f32<T, D, BT>(Qs, q + sc * D, p.sq_t, q0, p.tq, dw);
+          load_tile_f32<T, D, BT>(dOs, dout + sc * D, p.sdo_t, q0, p.tq,
+                                  dw);
+          __syncthreads();
         }
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) {
+          const float kd = Ks[c * QS + d];
+          const float vd = Vs[c * QS + d];
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const int rr = j * TPR + lane;
+            s[j] += kd * Qs[rr * QS + d];
+            dp[j] += vd * dOs[rr * QS + d];
+          }
+        }
+      }
+      if (nsl > 1 && sl != nsl - 1) {  // the slices of Q and dO summed
+        __syncthreads();
+        const int dw = p.d - sl * D;
+        load_tile_f32<T, D, BT>(Qs, q + sl * D, p.sq_t, q0, p.tq, dw);
+        load_tile_f32<T, D, BT>(dOs, dout + sl * D, p.sdo_t, q0, p.tq, dw);
+        __syncthreads();
       }
       float db_part = 0.f;
 #pragma unroll
@@ -466,16 +531,18 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
         }
       }
     }
-    if (p.dkbias && lane == 0 && key < p.tk)
+    if (p.dkbias && lane == 0 && key < p.tk && sl == 0)
       p.dkbias[(static_cast<int64_t>(b) * p.H + h) * p.tk + key] = db_acc;
   }
 
   if (key < p.tk) {
-    T* dk = static_cast<T*>(p.dk) + b * p.sdk_b + key * p.sdk_t + hk * p.sdk_h;
-    T* dv = static_cast<T*>(p.dv) + b * p.sdv_b + key * p.sdv_t + hk * p.sdv_h;
+    T* dk = static_cast<T*>(p.dk) + b * p.sdk_b + key * p.sdk_t +
+            hk * p.sdk_h + sl * D;
+    T* dv = static_cast<T*>(p.dv) + b * p.sdv_b + key * p.sdv_t +
+            hk * p.sdv_h + sl * D;
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
-      if (i * TPR + lane >= p.d) continue;
+      if (i * TPR + lane >= p.d - sl * D) continue;
       dk[i * TPR + lane] = from_f<T>(acc_k[i]);
       dv[i * TPR + lane] = from_f<T>(acc_v[i]);
     }
@@ -541,40 +608,44 @@ flash_bwd_db2_kernel(const BwdParams p) {
 #pragma unroll
   for (int j = 0; j < NS; ++j) acc[j] = 0.f;
 
+  // a head wider than D: S and dP summed over its D-wide slices, each
+  // loaded in turn into the same tiles (db2 has no width output)
+  const int nsl = slices<D>(p.d);
   for (int h = 0; h < p.H; ++h) {
     const int hk = h / grp;
-    __syncthreads();                   // the previous head's tiles consumed
-    load_tile_f32<T, D, BT>(
-        Qs, static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h, p.sq_t, q0,
-        p.tq, p.d);
-    load_tile_f32<T, D, BT>(
-        dOs, static_cast<const T*>(p.dout) + b * p.sdo_b + h * p.sdo_h,
-        p.sdo_t, q0, p.tq, p.d);
-    load_tile_f32<T, D, BT>(
-        Ks, static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h, p.sk_t, k0,
-        p.tk, p.d);
-    load_tile_f32<T, D, BT>(
-        Vs, static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h, p.sv_t, k0,
-        p.tk, p.d);
+    const T* q = static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h;
+    const T* dout = static_cast<const T*>(p.dout) + b * p.sdo_b + h * p.sdo_h;
+    const T* k = static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h;
+    const T* v = static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h;
     const int64_t hrow = (static_cast<int64_t>(b) * p.H + h) * p.tq;
-    for (int i = tid; i < BT; i += NTHREADS) {
-      const bool in = q0 + i < p.tq;
-      Ls[i] = in ? p.lse[hrow + q0 + i] : 0.f;
-      Dl[i] = in ? p.delta[hrow + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.f;
+    for (int sc = 0; sc < nsl; ++sc) {
+      __syncthreads();                 // the last head's or slice's tiles
+      const int dw = p.d - sc * D;     // are consumed
+      load_tile_f32<T, D, BT>(Qs, q + sc * D, p.sq_t, q0, p.tq, dw);
+      load_tile_f32<T, D, BT>(dOs, dout + sc * D, p.sdo_t, q0, p.tq, dw);
+      load_tile_f32<T, D, BT>(Ks, k + sc * D, p.sk_t, k0, p.tk, dw);
+      load_tile_f32<T, D, BT>(Vs, v + sc * D, p.sv_t, k0, p.tk, dw);
+      if (sc == 0) {
+        for (int i = tid; i < BT; i += NTHREADS) {
+          const bool in = q0 + i < p.tq;
+          Ls[i] = in ? p.lse[hrow + q0 + i] : 0.f;
+          Dl[i] = in ? p.delta[hrow + q0 + i] : 0.f;
+        }
+      }
+      __syncthreads();
+
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = Qs[r * QS + d];
-      const float od = dOs[r * QS + d];
+      for (int d = 0; d < D; ++d) {
+        const float qd = Qs[r * QS + d];
+        const float od = dOs[r * QS + d];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int c = j * TPR + lane;
-        s[j] += qd * Ks[c * QS + d];
-        dp[j] += od * Vs[c * QS + d];
+        for (int j = 0; j < NS; ++j) {
+          const int c = j * TPR + lane;
+          s[j] += qd * Ks[c * QS + d];
+          dp[j] += od * Vs[c * QS + d];
+        }
       }
     }
 #pragma unroll
@@ -1280,7 +1351,7 @@ cudaError_t launch_dq_simt(const BwdParams& p, cudaStream_t st) {
   auto kernel = flash_bwd_dq_simt_kernel<T, D, BT>;
   static const cudaError_t configured = allow_smem(kernel, smem);
   if (configured != cudaSuccess) return configured;
-  const dim3 grid((p.tq + BT - 1) / BT, p.H, p.B);
+  const dim3 grid((p.tq + BT - 1) / BT, p.H * slices<D>(p.d), p.B);
   kernel<<<grid, NTHREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -1291,7 +1362,7 @@ cudaError_t launch_dkv_simt(const BwdParams& p, cudaStream_t st) {
   auto kernel = flash_bwd_dkv_simt_kernel<T, D, BT>;
   static const cudaError_t configured = allow_smem(kernel, smem);
   if (configured != cudaSuccess) return configured;
-  const dim3 grid((p.tk + BT - 1) / BT, p.Hkv, p.B);
+  const dim3 grid((p.tk + BT - 1) / BT, p.Hkv * slices<D>(p.d), p.B);
   kernel<<<grid, NTHREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -1354,7 +1425,8 @@ int run(const BwdParams* p, int head_dim, int dtype, Which which,
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success).  head_dim is the instantiated width (16/32/64/128/256,
-// >= p->d); dtype 0 fp32, 1 bf16, 2 fp16.
+// >= p->d, or 256 for any wider p->d, taken in slices); dtype 0 fp32, 1
+// bf16, 2 fp16.
 extern "C" int flash_attention_bwd_dq(const BwdParams* p, int head_dim,
                                       int dtype, void* stream) {
   return run(p, head_dim, dtype, Which::kDq, stream);

@@ -29,14 +29,21 @@ Kernel notes.  ``conv_fwd_kernel`` replaces the Pallas ``_fwd_kernel``
 ``conv_wgrad_kernel`` ``_wgrad_kernel`` (``:397``).  At ResNet-50 shapes
 all three are GEMMs bound by tensor-core operations (M, N, K in the
 thousands); the design gathers each operand tile straight from NHWC
-(implicit im2col, zero padding by a bounds test, no padded copy) into
-shared memory for bf16 or fp16 ``wmma`` with fp32 accumulators, or a
-full-fp32 FMA loop for fp32 operands; dgrad gathers the cotangent as a
-transposed conv (no dilated tensor), at stride > 1 as one sub-GEMM per
-parity class of the input pixels over only the taps that reach it (one
-launch), so no zero tap reaches the tensor cores; wgrad splits its pixel
-sum over a fp32 workspace and reduces the splits in order
-(deterministic).  The source says more.
+(implicit im2col, zero padding by the copy's bounds test, no padded
+copy) by 16-byte ``cp.async`` copies into a ring of shared-memory stages,
+each tile kept along its channel axis and read into bf16 or fp16
+``mma.sync`` fragments by ``ldmatrix`` (``.trans`` where the tile is
+K-major), with fp32 accumulators, or a full-fp32 FMA loop for fp32
+operands; dgrad gathers the cotangent as a transposed conv (no dilated
+tensor), at stride > 1 as one sub-GEMM per parity class of the input
+pixels over only the taps that reach it (one launch), so no zero tap
+reaches the tensor cores; wgrad splits its pixel sum over a fp32
+workspace and reduces the splits in order (deterministic).  The kernels
+take channel counts that are multiples of 8: a ragged C or O (the C = 3
+stem) is zero-padded to the next multiple here, zero weights included
+(:func:`_fwd_layout`, :func:`_dgrad_layout`, :func:`_wgrad_layout`; a
+layout pass, not a counted launch), and the padded output channels are
+cut off.  The source says more.
 
 Not ported (ROADMAP): ``publish_conv_counters`` (telemetry) and the
 tuner's ``tune_bucket`` / ``TUNE_VERSION``.
@@ -60,8 +67,15 @@ from ..normalization.fused_bn_act import bn_act_epilogue_ref
 __all__ = ["conv2d", "conv2d_ref", "PallasConv", "conv_dispatch_stats",
            "reset_conv_dispatch_stats"]
 
-# the kernels' tile, as in csrc/conv.cu
-_BM, _BN, _BK = 128, 64, 32
+# the kernels' tile, as in csrc/conv.cu: 128 rows, K steps of 32, 128
+# columns where the GEMM's N is at least 128, else 64
+_BM, _BK = 128, 32
+_BN = (64, 128)
+
+
+def _tile_n(n: int) -> int:
+    """The kernels' tile width for a GEMM of N columns."""
+    return _BN[1] if n >= _BN[1] else _BN[0]
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -231,10 +245,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv")
     for fn in (lib.conv_fwd, lib.conv_dgrad):
         fn.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.conv_wgrad.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                               ctypes.c_int, ctypes.c_void_p]
     lib.conv_wgrad.restype = ctypes.c_int
     return lib
 
@@ -267,12 +281,44 @@ def _check_operands(acts, vecs=()):
                              f"tensor on {ref.device}")
 
 
-def _vec(c: int, o: int, *tensors) -> int:
-    """1 when the 16-byte gather applies: channel counts multiples of 8
-    and every operand 16-byte aligned."""
-    return int(c % 8 == 0 and o % 8 == 0
-               and all(t.data_ptr() % 16 == 0 for t in tensors
-                       if t is not None))
+def _pad8(t, dim: int):
+    """``t`` with dimension ``dim`` zero-padded to a multiple of 8 and its
+    data 16-byte aligned (the kernels' 16-byte copies); ``t`` itself when
+    it already is; None stays None."""
+    if t is None:
+        return None
+    r = -t.shape[dim] % 8
+    if r:
+        t = F.pad(t, [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, r])
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"a tensor padded to {tuple(t.shape)} holds "
+                             f"2**31 elements or more")
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fwd_layout(x, w, mean=None, invstd=None, scale=None, bias=None,
+                z=None):
+    """The forward kernel's operands: C (``x``'s and ``w``'s) and O
+    (``w``'s, the epilogue vectors' and ``z``'s) zero-padded to multiples
+    of 8.  The pad's weights are zero, so the padded conv's first O
+    channels are the conv's."""
+    w = _pad8(_pad8(w, 2), 3)
+    return (_pad8(x, 3), w, *(_pad8(t, 0) for t in (mean, invstd, scale,
+                                                     bias)), _pad8(z, 3))
+
+
+def _dgrad_layout(dy, w):
+    """The dgrad kernel's operands: O (``dy``'s, ``w``'s) and C (``w``'s)
+    zero-padded to multiples of 8; dx's first C channels are the
+    input gradient."""
+    return _pad8(dy, 3), _pad8(_pad8(w, 2), 3)
+
+
+def _wgrad_layout(x, dy):
+    """The wgrad kernel's operands: C (``x``'s) and O (``dy``'s)
+    zero-padded to multiples of 8; dw's first C x O block is the weight
+    gradient."""
+    return _pad8(x, 3), _pad8(dy, 3)
 
 
 def _params(x_shape, w_shape, oh, ow, stride, padding, dilation,
@@ -286,11 +332,11 @@ def _params(x_shape, w_shape, oh, ow, stride, padding, dilation,
         sw=stride[1], dh=dilation[0], dw=dilation[1], pt=pt, pl=pl_)
 
 
-def _launch(name, prm, dtype, vec, device, *extra):
+def _launch(name, prm, dtype, device, *extra):
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(_lib(), name)(ctypes.byref(prm),
-                                    _build.dtype_code(dtype), vec, *extra,
+                                    _build.dtype_code(dtype), *extra,
                                     stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -334,16 +380,20 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
     _check_operands((("x", x), ("w", w), ("z", z)),
                     (("mean", mean, o), ("invstd", invstd, o),
                      ("scale", scale, o), ("bias", bias, o)))
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    x, w, mean, invstd, scale, bias, z = _fwd_layout(x, w, mean, invstd,
+                                                     scale, bias, z)
+    op = w.shape[3]
+    out = torch.empty((*out_shape[:3], op), dtype=x.dtype, device=x.device)
     preact = torch.empty_like(out) if want_preact else None
     prm = _params(x.shape, w.shape, oh, ow, stride, padding, dilation,
                   a=x, b=w, out=out, preact=preact, mean=mean, invstd=invstd,
                   scale=scale, bias=bias, z=z)
     prm.relu, prm.epilogue = int(bool(relu)), int(mean is not None)
-    prm.k_per_split = w.shape[0] * w.shape[1] * x.shape[3]
-    _launch("conv_fwd", prm, x.dtype,
-            _vec(x.shape[3], o, x, w, z, out, preact), x.device)
+    _launch("conv_fwd", prm, x.dtype, x.device)
     conv_fwd_kernel.launches += 1
+    if op != o:
+        out = out[..., :o].contiguous()
+        preact = None if preact is None else preact[..., :o].contiguous()
     return out, preact
 
 
@@ -365,14 +415,15 @@ def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw):
         raise ValueError(f"dy must have the output shape "
                          f"{(n, oh, ow, w.shape[3])}; got {tuple(dy.shape)}")
     _check_operands((("dy", dy), ("w", w)))
+    c = w.shape[2]
+    dy, w = _dgrad_layout(dy, w)
+    x_shape = (*x_shape[:3], w.shape[2])
     dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
     prm = _params(x_shape, w.shape, oh, ow, stride, padding, dilation,
                   a=dy, b=w, out=dx)
-    prm.k_per_split = w.shape[0] * w.shape[1] * w.shape[3]
-    _launch("conv_dgrad", prm, dy.dtype,
-            _vec(w.shape[2], w.shape[3], dy, w, dx), dy.device)
+    _launch("conv_dgrad", prm, dy.dtype, dy.device)
     conv_dgrad_kernel.launches += 1
-    return dx
+    return dx if w.shape[2] == c else dx[..., :c].contiguous()
 
 
 conv_dgrad_kernel.launches = 0
@@ -380,9 +431,10 @@ conv_dgrad_kernel.launches = 0
 
 def _wgrad_splits(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     """``(splits, pixels per split)`` for wgrad's K (the pixels): enough
-    blocks for ~4 a streaming multiprocessor, each split at least 8 K
-    steps; a multiple of the K step per split."""
-    tiles = -(-m // _BM) * -(-n // _BN)
+    blocks of the kernels' tile (:func:`_tile_n`) for ~4 a streaming
+    multiprocessor, each split at least 8 K steps; a multiple of the K
+    step per split."""
+    tiles = -(-m // _BM) * -(-n // _tile_n(n))
     k_steps = -(-k // _BK)
     splits = max(1, min(max(1, k_steps // 8), -(-4 * sms // tiles)))
     per = -(-k_steps // splits) * _BK
@@ -403,18 +455,21 @@ def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size):
                          f"{(x.shape[0], oh, ow, dy.shape[3])}; got "
                          f"{tuple(dy.shape)}")
     _check_operands((("x", x), ("dy", dy)))
+    x, dy = _wgrad_layout(x, dy)
+    wp_shape = (kh, kw, x.shape[3], dy.shape[3])
     m, n = kh * kw * x.shape[3], dy.shape[3]
     k = x.shape[0] * oh * ow
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     splits, per = _wgrad_splits(m, n, k, sms)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    dw = torch.empty(w_shape, dtype=x.dtype, device=x.device)
-    prm = _params(x.shape, w_shape, oh, ow, stride, padding, dilation,
+    dw = torch.empty(wp_shape, dtype=x.dtype, device=x.device)
+    prm = _params(x.shape, wp_shape, oh, ow, stride, padding, dilation,
                   a=x, b=dy, out=ws, aux=dw)
     prm.k_per_split = per
-    _launch("conv_wgrad", prm, x.dtype, _vec(x.shape[3], n, x, dy),
-            x.device, splits)
+    _launch("conv_wgrad", prm, x.dtype, x.device, splits)
     conv_wgrad_kernel.launches += 1
+    if wp_shape != w_shape:
+        dw = dw[:, :, :w_shape[2], :w_shape[3]].contiguous()
     return dw
 
 

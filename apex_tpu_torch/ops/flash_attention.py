@@ -21,10 +21,11 @@ combine for ``q_len < 16`` — the TPU's block sizes and measured
 crossovers do not carry over) and ``csrc/flash_attention_bwd.cu`` (dQ,
 dK/dV and, when a ``[B, T, S]`` bias needs a gradient, its head-summed
 gradient), or raise.  The kernels take fp32, bf16 and fp16 and any head
-width up to 256 (run in the next of 16, 32, 64, 128, 256; nothing padded
-is copied to device memory): bf16 and fp16 up to 128 run the forward,
-dQ and dK/dV on the tensor cores, fp32 and width 256 run SIMT kernels;
-a wider head raises.  The kernels
+width, as the JAX package does: up to 256 in the next of 16, 32, 64,
+128, 256 (nothing padded is copied to device memory), a wider head in
+the 256 kernels taken in 256-wide column slices; bf16 and fp16 up to 128
+run the forward, dQ and dK/dV on the tensor cores, fp32 and the widths
+above 128 run SIMT kernels.  The kernels
 replace the Pallas ``_fwd_kernel``, ``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_db2_kernel``
 (``apex_tpu/ops/flash_attention.py:238, 440, 478, 562``); their sources
@@ -47,7 +48,8 @@ from .. import _build
 NEG_INF = -1e30
 
 #: the head widths the kernels are instantiated at; any width up to the
-#: last runs in the next one, its missing columns read as zero
+#: last runs in the next one, its missing columns read as zero, and a
+#: wider one in the last, in slices of its width
 _KERNEL_DIMS = (16, 32, 64, 128, 256)
 #: q_len below this takes the split-KV decode path (two CUDA kernels)
 _SPLIT_TQ = 16
@@ -270,9 +272,8 @@ def _check_kernel_inputs(q, k, v, kbias, bias, *extra):
     _build.dtype_code(q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if not 1 <= d <= _KERNEL_DIMS[-1]:
-        raise ValueError(f"flash kernel head_dim must be 1 to "
-                         f"{_KERNEL_DIMS[-1]} (the widest kernel), got {d}")
+    if d < 1:
+        raise ValueError(f"flash kernel head_dim must be >= 1, got {d}")
     if tq < 1 or tk < 1:
         raise ValueError("flash kernel needs q_len >= 1 and kv_len >= 1")
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
@@ -315,8 +316,9 @@ def _common(q, k, kbias, bias, *, sm_scale, causal, q_offset, window):
 
 
 def _kernel_dim(d: int) -> int:
-    """The instantiated head width a width-``d`` call runs in."""
-    return next(w for w in _KERNEL_DIMS if w >= d)
+    """The instantiated head width a width-``d`` call runs in: the
+    widest for a wider head, which its kernels take in slices."""
+    return next((w for w in _KERNEL_DIMS if w >= d), _KERNEL_DIMS[-1])
 
 
 def _vec16(d: int, *tensors) -> int:
@@ -358,7 +360,7 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     """Launch the CUDA forward kernel: the arguments of
     :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
     ``(out, lse)``.  ``q_len >= 16`` runs one kernel (tensor cores for
-    bf16/fp16 up to width 128, fp32 FMA for fp32 and at width 256); a
+    bf16/fp16 up to width 128, fp32 FMA for fp32 and above 128); a
     shorter call runs the split-KV
     kernel and its combine (:func:`_flash_fwd_split_ref` is their
     arithmetic), with fp32 scratch allocated here.  Adds one to
@@ -373,8 +375,8 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     if tq < _SPLIT_TQ:
         splits, chunk = _kv_split(b, h, k.shape[1],
                                   _sm_count(q.device.index or 0))
-        part_o = torch.empty((b, h, tq, splits, dk), dtype=torch.float32,
-                             device=q.device)
+        part_o = torch.empty((b, h, tq, splits, -(-d // dk) * dk),
+                             dtype=torch.float32, device=q.device)
         part_ml = torch.empty((b, h, tq, splits, 2), dtype=torch.float32,
                               device=q.device)
     prm = _FlashParams(
@@ -442,7 +444,7 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias, *,
     gradient ``do`` (q's shape and dtype), the forward's fp32 ``lse`` and
     ``delta = rowsum(do * out)`` (both ``[B, H, T]`` contiguous); returns
     dq in q's shape and dtype.  bf16/fp16 up to width 128 run on the
-    tensor cores, fp32 and width 256 in fp32 FMA loops (dK/dV likewise).
+    tensor cores, fp32 and wider heads in fp32 FMA loops (dK/dV likewise).
     Adds one to ``flash_bwd_dq_kernel.launches`` per launch."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
     _check_bwd_extras(q, do, lse, delta)

@@ -10,7 +10,7 @@ at amp O4 through the int8 quantized-matmul kernel, drives the
 ``[B, T, S]`` bias gradient through ``flash_attention``, and checks the
 card's answers against the CPU's.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
 Phases (any failure ends the run with a non-zero exit and no result
 line):
@@ -30,7 +30,11 @@ line):
    ``[B, T, S]`` bias, full causal, decode (``q_len = 1``, key padding
    bias: the split-KV path), GQA (12 query heads over 4 KV heads), a
    256-key window, fp32, the LM's B 8, T 1023 causal call, fp16 (prefill
-   and decode), and head widths 16, 48 and 256.  ``library_ms`` times one
+   and decode), and head widths 16, 48, 256, 320 and 512 (the last two
+   in 256-wide slices of the 256 kernel); 4b. with ``--was``, the flash
+   kernels of this checkout and the other one at widths up to 256 on the
+   same inputs, compared bit for bit (printed, not a gate).
+   ``library_ms`` times one
    PyTorch call computing the same function (``F.layer_norm``,
    ``F.scaled_dot_product_attention``) as a yardstick only; the port
    never calls it;
@@ -50,7 +54,8 @@ line):
 8. flash dQ and dK/dV kernels vs plain at gpt2_small training shapes (B
    8, T 1023, 12 heads of 64, causal, bf16), GQA 12/4, a 256-key window,
    fp32, a key-padding bias that needs a gradient, fp16, head widths 16,
-   48, 128 and 256, a ``[B, T, S]`` bias, and causal cross attention (q_len
+   48, 128 and 256, 320 and 512 (B 1, T 1024), a ``[B, T, S]`` bias, and
+   causal cross attention (q_len
    333, kv_len 1021: the queries the suffix of the keys); ``library_ms``
    is the backward of one SDPA call, timed eagerly (autograd cannot be
    captured in a CUDA graph);
@@ -84,7 +89,8 @@ line):
    after (53 conv forward, 52 dgrad (the stem's input needs no gradient)
    and 53 wgrad, 53 BN forward and backward, 1 cross-entropy forward and
    backward per step, nothing else); losses finite; step ms, images/s,
-   peak memory; two steps traced (device time by kind, idle share);
+   peak memory; two steps traced (device time by kind, the conv kernels
+   split into forward, dgrad and wgrad; idle share);
    13b. the same with ``--no-pallas-conv`` (cuDNN convs), 5 steps, no
    conv kernel launched, also traced;
 14. ResNet correctness: a small bottleneck ResNet at O0 fp32, three SGD
@@ -106,6 +112,11 @@ line):
    elements near zero), the epilogue equal to the kernel's conv
    followed by the plain epilogue bit for bit; ``library_ms`` is cuDNN
    (``F.conv2d`` channels-last, ``aten.convolution_backward``);
+   15b. forward, dgrad and wgrad at every distinct ResNet-50 conv site (23
+   at B 128, bf16) against their plain versions as in 15, timed beside
+   cuDNN and, with ``--was``, beside the conv kernels of another checkout
+   (the parent commit's, built from its own sources), and summed over
+   the 53 convs of a step;
 16. the int8 quantized-matmul kernel vs plain, bit for bit, at the O4
    path's shapes: serving prefill M 1024 (768->768, 768->3072,
    3072->768), decode M 8 (768->768, 3072->768), training M 8184
@@ -127,7 +138,7 @@ line):
    phase 9's O2 numbers; two steps traced;
 19. the ``[B, T, S]`` bias-gradient kernel at B 8, T = S = 1024, 12 heads
    of 64 (full, causal, GQA 12/4, a 256-key window, fp32, fp16), of 16
-   and of 256: through
+   and of 256, and at B 1 of 320 and 512: through
    ``flash_attention`` under autograd (one db2 launch per backward, dq,
    dk, dv unchanged against the run without a bias gradient), then
    against ``_flash_bwd_ref``'s dbias within 1e-4 of max |dbias|;
@@ -373,6 +384,11 @@ def flash_cases(fa, dev):
          None, dict(is_causal=True)),
         ("head_dim 256 causal 1024", 1, t, t, h, 256, bf16, True, None, None,
          None, dict(is_causal=True)),
+        # wider than the widest kernel: the 256 one in 256-wide slices
+        ("head_dim 320 causal 1024", 1, t, t, h, 320, bf16, True, None, None,
+         None, dict(is_causal=True)),
+        ("head_dim 512 causal 1024", 1, t, t, h, 512, bf16, True, None, None,
+         None, dict(is_causal=True)),
     ]
     cases = []
     for (name, b, tq, tk, h_kv, d, dtype, causal, window, kb, bias,
@@ -421,6 +437,49 @@ def flash_cases(fa, dev):
               f"ms, bound {bms:.4f} ms ({by})", flush=True)
         cases.append(case)
     return cases
+
+
+def flash_same_as_was(fa, was_fa, dev):
+    """Phase 4b, with ``--was``: the flash kernels of this checkout and of
+    the other one on the same inputs at head widths up to 256, every path
+    (tensor cores, SIMT, split-KV decode; the forward, dQ, dK/dV and db2),
+    fp32 and bf16, compared bit for bit.  Recorded and printed, not a
+    gate: a kernel redesigned since that checkout may round otherwise."""
+    rng = np.random.RandomState(4)
+    rows = []
+    for d in (16, 48, 64, 128, 160, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            for tq in (1, 200):
+                q, do = (torch.from_numpy(rng.randn(2, tq, 4, d).astype(
+                    np.float32)).to(dev, dtype) for _ in range(2))
+                k, v = (torch.from_numpy(rng.randn(2, 300, 2, d).astype(
+                    np.float32)).to(dev, dtype) for _ in range(2))
+                bias = torch.from_numpy(rng.randn(2, tq, 300).astype(
+                    np.float32)).to(dev)
+                kw = dict(sm_scale=d ** -0.5, causal=True, q_offset=300 - tq)
+                outs = []
+                for mod in (fa, was_fa):
+                    out, lse = mod.flash_fwd_kernel(q, k, v, None, None,
+                                                    **kw)
+                    got = [out, lse]
+                    if tq > 1:
+                        delta = fa._delta(do, out)
+                        args = (q, k, v, do, lse, delta, None)
+                        got += [mod.flash_bwd_dq_kernel(*args, None, **kw),
+                                *mod.flash_bwd_dkv_kernel(*args, None,
+                                                          **kw)[:2],
+                                mod.flash_bwd_db2_kernel(*args, bias, **kw)]
+                    outs.append(got)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(*outs))
+                rows.append(dict(head_dim=d, dtype=str(dtype), q_len=tq,
+                                 bit_equal=same))
+    print(f"      flash kernels at widths <= 256 equal the other "
+          f"checkout's bit for bit: {sum(r['bit_equal'] for r in rows)} of "
+          f"{len(rows)} cases"
+          + "".join(f"; differ: {r}" for r in rows if not r["bit_equal"]),
+          flush=True)
+    return rows
 
 
 # -- phase 7: LayerNorm backward --------------------------------------------------
@@ -474,16 +533,17 @@ def layer_norm_bwd_cases(fln, dev):
 
 def flash_bwd_cases(fa, dev):
     """dQ and dK/dV against their plain version at gpt2_small training
-    shapes (B 8, T 1023, 12 heads of 64).  ``plain_ms`` and
+    shapes (B 8, T 1023, 12 heads of 64; a case's shape may give its own
+    batch).  ``plain_ms`` and
     ``library_ms`` are each one call computing dq, dk and dv together
     (``_flash_bwd_ref``; the backward of one SDPA call), so both kernels
     carry the same two numbers."""
     rng = np.random.RandomState(8)
-    b, t, h = 8, 1023, 12
+    t, h = 1023, 12
     bf16 = torch.bfloat16
     specs = [
         # name, h_kv, dtype, causal, window, kbias needs grad, head_dim,
-        # [B, T, S] bias, (q_len, kv_len)
+        # [B, T, S] bias, (q_len, kv_len[, batch, 8 if not given])
         ("causal b8 t1023", h, bf16, True, None, False, 64, False, (t, t)),
         ("gqa 12/4", 4, bf16, True, None, False, 64, False, (t, t)),
         ("window 256", h, bf16, True, 256, False, 64, False, (t, t)),
@@ -499,6 +559,11 @@ def flash_bwd_cases(fa, dev):
          (t, t)),
         ("head_dim 256 causal", h, bf16, True, None, False, 256, False,
          (t, t)),
+        # wider than the widest kernel (256-wide slices), at B 1, T 1024
+        ("head_dim 320 causal b1 t1024", h, bf16, True, None, False, 320,
+         False, (1024, 1024, 1)),
+        ("head_dim 512 causal b1 t1024", h, bf16, True, None, False, 512,
+         False, (1024, 1024, 1)),
         ("[B,T,S] bias, full", h, bf16, False, None, False, 64, True, (t, t)),
         # queries the suffix of the keys, neither length a tile multiple
         ("cross causal tq 333 tk 1021", h, bf16, True, None, False, 64,
@@ -506,7 +571,8 @@ def flash_bwd_cases(fa, dev):
     ]
     dq_cases, dkv_cases = [], []
     for (name, h_kv, dtype, causal, window, kgrad, d, with_bias,
-         (tq, tk)) in specs:
+         (tq, tk, *batch)) in specs:
+        b = batch[0] if batch else 8
         q, do = (torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32))
                  .to(dev, dtype) for _ in range(2))
         k, v = (torch.from_numpy(rng.randn(b, tk, h_kv, d).astype(np.float32))
@@ -1390,12 +1456,162 @@ def conv_cases(cv, fba, dev):
     return out
 
 
+# every distinct conv site of a ResNet-50 step at B 128, 224 x 224 (the
+# stride on the 3x3 and on the projection, flax 'SAME' pads): name, x
+# shape, w shape, stride, the site's convs a step (53 in all)
+RESNET50_SITES = [
+    ("stem 7x7/2 3->64", (128, 224, 224, 3), (7, 7, 3, 64), 2, 1),
+    ("s1 1x1 64->64", (128, 56, 56, 64), (1, 1, 64, 64), 1, 1),
+    ("s1 3x3 64->64", (128, 56, 56, 64), (3, 3, 64, 64), 1, 3),
+    ("s1 1x1 64->256", (128, 56, 56, 64), (1, 1, 64, 256), 1, 4),
+    ("s1 1x1 256->64", (128, 56, 56, 256), (1, 1, 256, 64), 1, 2),
+    ("s2 1x1 256->128", (128, 56, 56, 256), (1, 1, 256, 128), 1, 1),
+    ("s2 3x3/2 128->128", (128, 56, 56, 128), (3, 3, 128, 128), 2, 1),
+    ("s2 1x1 128->512", (128, 28, 28, 128), (1, 1, 128, 512), 1, 4),
+    ("s2 1x1/2 256->512", (128, 56, 56, 256), (1, 1, 256, 512), 2, 1),
+    ("s2 1x1 512->128", (128, 28, 28, 512), (1, 1, 512, 128), 1, 3),
+    ("s2 3x3 128->128", (128, 28, 28, 128), (3, 3, 128, 128), 1, 3),
+    ("s3 1x1 512->256", (128, 28, 28, 512), (1, 1, 512, 256), 1, 1),
+    ("s3 3x3/2 256->256", (128, 28, 28, 256), (3, 3, 256, 256), 2, 1),
+    ("s3 1x1 256->1024", (128, 14, 14, 256), (1, 1, 256, 1024), 1, 6),
+    ("s3 1x1/2 512->1024", (128, 28, 28, 512), (1, 1, 512, 1024), 2, 1),
+    ("s3 1x1 1024->256", (128, 14, 14, 1024), (1, 1, 1024, 256), 1, 5),
+    ("s3 3x3 256->256", (128, 14, 14, 256), (3, 3, 256, 256), 1, 5),
+    ("s4 1x1 1024->512", (128, 14, 14, 1024), (1, 1, 1024, 512), 1, 1),
+    ("s4 3x3/2 512->512", (128, 14, 14, 512), (3, 3, 512, 512), 2, 1),
+    ("s4 1x1 512->2048", (128, 7, 7, 512), (1, 1, 512, 2048), 1, 3),
+    ("s4 1x1/2 1024->2048", (128, 14, 14, 1024), (1, 1, 1024, 2048), 2, 1),
+    ("s4 1x1 2048->512", (128, 7, 7, 2048), (1, 1, 2048, 512), 1, 2),
+    ("s4 3x3 512->512", (128, 7, 7, 512), (3, 3, 512, 512), 1, 2),
+]
+
+
+def load_was(root, module):
+    """``module`` (e.g. ``"ops.conv"``) of another checkout of the port at
+    ``root`` (the parent commit's, unpacked), whose package is imported as
+    ``was_apex_tpu_torch`` so that it builds its own libraries from its
+    own sources into its own tree."""
+    import importlib.util
+    if "was_apex_tpu_torch" not in sys.modules:
+        pkg = os.path.join(os.path.abspath(root), "apex_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "was_apex_tpu_torch", os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"was_apex_tpu_torch.{module}")
+
+
+def conv_sites(cv, dev, was=None):
+    """Phase 15b: forward, dgrad (not at the stem) and wgrad at every
+    distinct ResNet-50 site, B 128, bf16: each held against its plain
+    version as phase 15 holds it, timed (a CUDA graph of 10 calls), beside
+    ``was`` (another checkout's conv module, ``--was``: the same call
+    timed through its kernels) and cuDNN; then each kernel's sum over the
+    53 convs of a step (each site times its count)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    step = {k: dict(ms=0.0, was_ms=0.0 if was else None, library_ms=0.0)
+            for k in ("conv_fwd", "conv_dgrad", "conv_wgrad")}
+    for name, xs, ws, s, count in RESNET50_SITES:
+        stride, dil = (s, s), (1, 1)
+        padding = cv._norm_padding(
+            ((3, 3), (3, 3)) if ws[0] == 7 else "SAME", xs[1], xs[2], ws[0],
+            ws[1], s, s, 1, 1)
+        oh, ow = cv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], s, s, 1, 1)
+        x = torch.randn(xs, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(ws, device=dev, generator=gen)
+             / (ws[0] * ws[1] * ws[2]) ** 0.5).to(torch.bfloat16)
+        dy = torch.randn((xs[0], oh, ow, ws[3]), device=dev,
+                         generator=gen).to(torch.bfloat16)
+        (pt, pb), (pl_, pr) = padding
+        xl = F.pad(x.permute(0, 3, 1, 2), (pl_, pr, pt, pb)).contiguous(
+            memory_format=torch.channels_last)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        dyl = dy.permute(0, 3, 1, 2)
+
+        def lib_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                dyl, xl, wl, None, list(stride), [0, 0], [1, 1], False,
+                [0, 0], 1, mask)
+
+        def call(mod, kname):
+            if kname == "conv_fwd":
+                return lambda: mod.conv_fwd_kernel(x, w, stride, padding,
+                                                   dil)[0]
+            if kname == "conv_dgrad":
+                return lambda: mod.conv_dgrad_kernel(dy, w, stride, padding,
+                                                     dil, xs[1:3])
+            return lambda: mod.conv_wgrad_kernel(x, dy, stride, padding, dil,
+                                                 ws[:2])
+        phases = [("conv_fwd",
+                   lambda: cv._fwd_ref(x, w, stride, padding, dil)[0],
+                   lambda: F.conv2d(xl, wl, stride=stride), time_ms)]
+        if xs[3] != 3:                 # the stem's input needs no dx
+            phases.append((
+                "conv_dgrad",
+                lambda: cv._dgrad_ref(dy, w, stride, padding, dil, xs[1:3]),
+                lambda: lib_bwd([True, False, False]), eager_ms))
+        phases.append((
+            "conv_wgrad",
+            lambda: cv._wgrad_ref(x, dy, stride, padding, dil, ws[:2]),
+            lambda: lib_bwd([False, True, False]), eager_ms))
+        macs = xs[0] * oh * ow * ws[3] * ws[0] * ws[1] * ws[2]
+        nbytes = (x.numel() + w.numel() + dy.numel()) * 2
+        bms, by = bound(nbytes, 2.0 * macs, torch.bfloat16)
+        for kname, plain, lib, lib_timer in phases:
+            run = call(cv, kname)
+            got, want = run(), plain()
+            exact = (_wgrad_fp64(x, dy, stride, padding, ws[:2])
+                     if kname == "conv_wgrad" else None)
+            torch.cuda.synchronize()
+            err, within, ok = _conv_err(got, want, exact)
+            check(ok, f"{kname} site {name}: max_abs_err {err:.3g} (max "
+                      f"|plain| {want.float().abs().max().item():.3g}), "
+                      f"within 1 ulp {within}")
+            del got, want, exact
+            row = dict(site=name, kernel=kname, count=count,
+                       max_abs_err=err, within_1ulp=within,
+                       ms=time_ms(run, iters=10),
+                       was_ms=(time_ms(call(was, kname), iters=10)
+                               if was else None),
+                       library_ms=lib_timer(lib, iters=5), bound_ms=bms,
+                       bound_by=by)
+            row["tflops"] = 2.0 * macs / row["ms"] / 1e9
+            rows.append(row)
+            for k in ("ms", "was_ms", "library_ms"):
+                if row[k] is not None:
+                    step[kname][k] += count * row[k]
+            was_s = ("" if row["was_ms"] is None
+                     else f", was {row['was_ms']:.4f} ms")
+            print(f"      {kname} site {name} (x{count}): kernel "
+                  f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s){was_s}"
+                  f", library {row['library_ms']:.4f} ms, bound {bms:.4f} "
+                  f"ms ({by})", flush=True)
+        del x, w, dy, xl, wl, dyl
+    for kname, st in step.items():
+        was_s = ("" if st["was_ms"] is None
+                 else f", was {st['was_ms']:.2f} ms")
+        print(f"      {kname}: the 53 convs of a step {st['ms']:.2f} ms"
+              f"{was_s}, cuDNN {st['library_ms']:.2f} ms", flush=True)
+    return dict(sites=rows, per_step=step)
+
+
 # -- phase 13: ResNet-50 training ------------------------------------------------------
 
 IMAGENET_ARGS = ["--synthetic", "--arch", "resnet50", "-b", "128",
                  "--opt-level", "O2", "--print-freq", "1"]
 
-_RESNET_KINDS = (("conv_kernels", ("conv_gemm_kernel", "wgrad_reduce")),
+# the conv kernels by template mode (0 forward, 1 and 3 dgrad, 2 wgrad),
+# as the profiler names them, demangled or not
+_RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e")),
+                 ("conv_dgrad_kernel", ("conv_gemm_kernel<1", "kernelili1e",
+                                        "conv_gemm_kernel<3",
+                                        "kernelili3e")),
+                 ("conv_wgrad_kernel", ("conv_gemm_kernel<2", "kernelili2e",
+                                        "wgrad_reduce")),
                  ("bn_epilogue", ("bn_fwd", "bn_bwd")),
                  ("loss", ("xent_",)),
                  ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -1820,7 +2036,8 @@ def train_o4(models, quant, main_amp, training, counters, calib, dev,
 # -- phase 19: the [B, T, S] bias gradient ------------------------------------------------
 
 DB2_CASES = [
-    # name, kv heads, dtype, causal, window, head_dim
+    # name, kv heads, dtype, causal, window, head_dim[, batch, 8 if not
+    # given]
     ("full", 12, torch.bfloat16, False, None, 64),
     ("causal", 12, torch.bfloat16, True, None, 64),
     ("gqa 12/4 causal", 4, torch.bfloat16, True, None, 64),
@@ -1829,6 +2046,9 @@ DB2_CASES = [
     ("fp16 causal", 12, torch.float16, True, None, 64),
     ("head_dim 16 causal", 12, torch.bfloat16, True, None, 16),
     ("head_dim 256 causal", 12, torch.bfloat16, True, None, 256),
+    # wider than the widest kernel (256-wide slices), at B 1
+    ("head_dim 320 causal b1", 12, torch.bfloat16, True, None, 320, 1),
+    ("head_dim 512 causal b1", 12, torch.bfloat16, True, None, 512, 1),
 ]
 
 
@@ -1845,9 +2065,10 @@ def db2_cases(fa, counters, dev):
     the bias expanded to ``[B, H, T, S]`` and needing a gradient (the
     band folded into it as -inf), where a backend takes it."""
     rng = np.random.RandomState(19)
-    b, t, h = 8, 1024, 12
+    t, h = 1024, 12
     cases, db2_launches = [], 0
-    for name, h_kv, dtype, causal, window, d in DB2_CASES:
+    for name, h_kv, dtype, causal, window, d, *batch in DB2_CASES:
+        b = batch[0] if batch else 8
         q, do = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
                  .to(dev, dtype) for _ in range(2))
         k, v = (torch.from_numpy(rng.randn(b, t, h_kv, d).astype(np.float32))
@@ -1946,6 +2167,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--was", default=None,
+                    help="the root of another checkout of the port (the "
+                         "parent commit's): phase 15b times its conv "
+                         "kernels beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2009,6 +2234,10 @@ def main(argv=None) -> int:
             "conv_nvcc_s": lambda: build.load("conv"),
             "quant_nvcc_s": lambda: build.load("quant"),
             "triton_s": build_triton}
+    if args.was:
+        was_build = load_was(args.was, "_build")
+        for name in ("flash_attention", "flash_attention_bwd", "conv"):
+            jobs[f"was_{name}_nvcc_s"] = (lambda n=name: was_build.load(n))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
         build_s = {k: f.result() for k, f in futures.items()}
@@ -2036,6 +2265,9 @@ def main(argv=None) -> int:
         "flash_attention_bwd_db2": fa.flash_bwd_db2_kernel}
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
     fa_cases = flash_cases(fa, dev)                # phase 4
+    same_as_was = (flash_same_as_was(fa, load_was(args.was,
+                                                  "ops.flash_attention"),
+                                     dev) if args.was else None)   # 4b
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
                                SERVE_PER_FORWARD)
@@ -2064,6 +2296,8 @@ def main(argv=None) -> int:
         _RESNET_KINDS)
     resnet.update(resnet_correctness(imagenet, training, dev))     # 14
     conv = conv_cases(cv, fba, dev)                                # 15
+    sites = conv_sites(cv, dev,                                    # 15b
+                       load_was(args.was, "ops.conv") if args.was else None)
     qmm = qmm_cases(qk, dev)                                       # 16
     calib = calibrate_gpt2_small(models, quant, dev)               # 17
     o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
@@ -2167,7 +2401,9 @@ def main(argv=None) -> int:
             json.dump(dict(gpu=smi, torch=torch.__version__, build=build_s,
                            kernels=kernels, serving=serving,
                            profile=profile_res, training=trained,
-                           resnet_training=resnet, o4_serving=o4_serving,
+                           resnet_training=resnet, conv_sites=sites,
+                           flash_same_as_was=same_as_was,
+                           o4_serving=o4_serving,
                            o4_training=o4_train,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,

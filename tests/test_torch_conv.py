@@ -261,10 +261,75 @@ def test_cpu_path_launches_no_kernel():
 
 @pytest.mark.parametrize("m,n,k", [(576, 64, 401408), (4608, 512, 6272),
                                    (147, 64, 1605632), (1024, 2048, 25088),
-                                   (40, 8, 50)])
+                                   (40, 8, 50), (392, 64, 1605632),
+                                   (1024, 256, 25088), (1152, 128, 100352),
+                                   (72, 136, 77)])
 def test_wgrad_splits_cover_k(m, n, k):
     """wgrad's split of its pixel sum: every split non-empty, together
-    exactly K, each a whole number of K steps."""
+    exactly K, each a whole number of K steps, and (where K has 8 steps a
+    split to give) about 4 blocks of the kernels' tile an SM."""
     splits, per = tconv._wgrad_splits(m, n, k, 132)
     assert per % tconv._BK == 0 and splits >= 1
     assert (splits - 1) * per < k <= splits * per
+    tiles = -(-m // tconv._BM) * -(-n // tconv._tile_n(n))
+    assert tconv._tile_n(n) == (128 if n >= 128 else 64)
+    if k >= 8 * tconv._BK * -(-4 * 132 // tiles):
+        # rounding each split up to whole K steps may drop a split or two
+        assert tiles * splits >= 3.5 * 132
+
+
+# the C = 3 stem and a ragged C / O, as the kernel wrappers lay them out
+LAYOUT_CASES = {
+    # x shape, w shape, stride, padding
+    "stem_c3": ((2, 16, 16, 3), (7, 7, 3, 8), (2, 2), ((3, 3), (3, 3))),
+    "ragged_c5_o12": ((2, 9, 7, 5), (3, 3, 5, 12), (2, 1),
+                      ((1, 1), (0, 2))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_padded_layout_matches_jax_pallas(case):
+    """The kernel wrappers' layout pass (C and O zero-padded to multiples
+    of 8, zero weights for the pad, the padded channels cut off after the
+    launch): the plain forward (with the epilogue) and wgrad on the padded
+    operands, cut back, against JAX's ``_pallas_fwd`` and
+    ``_pallas_wgrad`` in interpret mode on the unpadded ones; the pad is
+    exactly zero.  fp32, 1e-4 (summation order only)."""
+    xs, ws, stride, padding = LAYOUT_CASES[case]
+    dil = (1, 1)
+    c, o = xs[3], ws[3]
+    oh, ow = tconv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], *stride,
+                           *dil)
+    x, w, dy = _arrays(40, xs, ws, (xs[0], oh, ow, o))
+    w = w / np.float32(np.sqrt(ws[0] * ws[1] * c))
+    ep = _epilogue(41, o, (xs[0], oh, ow, o), True)
+    t_ep = [torch.from_numpy(a) for a in ep]
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    px, pw, *p_ep = tconv._fwd_layout(tx, tw, *t_ep)
+    assert px.shape[3] % 8 == 0 and pw.shape[2:] == (px.shape[3],
+                                                     -(-o // 8) * 8)
+    assert not px[..., c:].any() and not pw[:, :, c:].any()
+    assert not pw[..., o:].any()
+    got, pre = tconv._fwd_ref(px, pw, stride, padding, dil, *p_ep,
+                              relu=True, want_preact=True)
+    want, jpre = jconv._pallas_fwd(jnp.asarray(x), jnp.asarray(w), stride,
+                                   padding, dil,
+                                   *(jnp.asarray(a) for a in ep), True, True,
+                                   (None, None), True, jnp.float32)
+    _close(got[..., :o].numpy(), want, 1e-4)
+    _close(pre[..., :o].numpy(), jpre, 1e-4)
+    qx, qdy = tconv._wgrad_layout(tx, torch.from_numpy(dy))
+    assert qx.shape == px.shape and qdy.shape[3] == pw.shape[3]
+    dw = tconv._wgrad_ref(qx, qdy, stride, padding, dil, ws[:2])
+    assert not dw[:, :, c:].any() and not dw[..., o:].any()
+    want_dw = jconv._pallas_wgrad(jnp.asarray(x), jnp.asarray(dy), stride,
+                                  padding, dil, ws, (None, None), True,
+                                  jnp.float32)
+    _close(dw[:, :, :c, :o].numpy(), want_dw, 1e-4)
+    rdy, rw = tconv._dgrad_layout(torch.from_numpy(dy), tw)
+    assert rw.shape == pw.shape and rdy.shape[3] == pw.shape[3]
+    dx = tconv._dgrad_ref(rdy, rw, stride, padding, dil, xs[1:3])
+    assert not dx[..., c:].any()
+    want_dx = jconv._pallas_dgrad(jnp.asarray(dy), jnp.asarray(w), stride,
+                                  padding, dil, xs[1:3], (None, None), True)
+    _close(dx[..., :c].numpy(), want_dx, 1e-4)

@@ -12,10 +12,10 @@ against the JAX package, on the CPU.
   chunk's own maximum, JAX's against its running one); lse 1e-3 against
   the unsplit plain version.
 * Flash at head widths 160 and 256 (the card runs both in its 256
-  kernels): forward and gradients of ``flash_attention`` against JAX's
-  with the Pallas kernels in interpret mode, at the tolerances of
-  ``test_torch_flash_attention.py``; width 257 refused by the kernel
-  path's validation.
+  kernels) and 257, 320 and 512 (the card runs them in the 256 kernels,
+  in 256-wide column slices): forward and gradients of
+  ``flash_attention`` against JAX's with the Pallas kernels in interpret
+  mode, at the tolerances of ``test_torch_flash_attention.py``.
 * ``_dgrad_parity_ref`` (the stride > 1 dgrad kernel's arithmetic: one
   dense sub-GEMM per parity class of the input pixels) against the JAX
   Pallas dgrad in interpret mode and the plain ``_dgrad_ref``: fp32 at
@@ -156,6 +156,26 @@ def test_wide_heads_match_jax_pallas_interpret(case, d):
     1, T 32, blocks of 16): forward 2e-5, gradients (dq, dk, dv and the
     learnable bias's) 5e-4, as ``test_torch_flash_attention.py`` holds
     them at narrower widths."""
+    _check_wide_head(case, d)
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("d", [257, 320, 512])
+def test_heads_above_256_match_jax_pallas_interpret(case, d):
+    """Widths above the widest kernel, which the card runs in the 256
+    kernels in 256-wide column slices (the JAX package takes any width):
+    the kernel path's validation takes them (here it refuses the tensors
+    only for lying on the CPU), and forward and gradients match JAX's
+    Pallas kernels in interpret mode at the tolerances above."""
+    assert fa._kernel_dim(d) == fa._kernel_dim(129) == 256
+    assert fa._kernel_dim(128) == 128
+    wide = torch.zeros((1, 8, 2, d))
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa._check_kernel_inputs(wide, wide, wide, None, None)
+    _check_wide_head(case, d)
+
+
+def _check_wide_head(case, d):
     h_kv, kw = WIDE_CASES[case]
     kw = dict(kw)
     rng = np.random.RandomState(100 + d)
@@ -189,21 +209,6 @@ def test_wide_heads_match_jax_pallas_interpret(case, d):
     for name, gt, wt in zip(names, got, want):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt), err_msg=name,
                                    atol=5e-4, rtol=5e-4)
-
-
-def test_kernel_widths_up_to_256_and_257_refused():
-    """Widths 129-256 run in the 256 kernel; 257 is refused by the kernel
-    path's validation (which runs before any launch) with the limit in
-    the message, where 256 passes the width check and is refused here
-    only for lying on the CPU."""
-    assert fa._kernel_dim(129) == fa._kernel_dim(256) == 256
-    assert fa._kernel_dim(128) == 128
-    wide = torch.zeros((1, 8, 2, 257))
-    with pytest.raises(ValueError, match="head_dim must be 1 to 256"):
-        fa._check_kernel_inputs(wide, wide, wide, None, None)
-    ok = torch.zeros((1, 8, 2, 256))
-    with pytest.raises(ValueError, match="CUDA device"):
-        fa._check_kernel_inputs(ok, ok, ok, None, None)
 
 
 # -- the per-parity dgrad ------------------------------------------------------
