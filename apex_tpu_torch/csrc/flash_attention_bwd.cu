@@ -87,12 +87,21 @@
 //    kernels' fp32 accumulators (dQ, or dK and dV, 16 rows by 256 a warp)
 //    would leave no registers for the score tiles.  A kernel chosen by
 //    shape, not yet one made fast.
-//  * db2 (off every main path) keeps its SIMT kernel at every dtype: the
-//    head axis is INSIDE the block, as in the Pallas kernel; one block
-//    owns one (b, q-tile, k-tile) of the output, loops over all H query
-//    heads, sums ds in fp32 registers and writes the tile once.  Tiles
-//    outside the causal / window band are written as zeros without
-//    loading anything.
+//  * db2 (off every main path): the head axis is INSIDE the block, as in
+//    the Pallas kernel; one block owns one (b, 64-row query tile, 64-key
+//    tile) of the output, loops over all H query heads, sums ds in fp32
+//    registers and writes the tile once, staged through shared memory
+//    for coalesced stores.  Per visible pair and head it recomputes S
+//    and dP (4 D flops) and one exp: bound by operations (4 T S H D
+//    flops against ~(2 T + 2 S) H D + 8 T S bytes).  bf16 / fp16 up to
+//    width 128 run it on the tensor cores (`flash_bwd_db2_mma_kernel`):
+//    4 warps of 16 rows, S and dP by `mma.sync` from `ldmatrix`
+//    fragments as dQ computes them, the next head's Q, dO, K and V in
+//    flight by `cp.async` while this head computes, the bias tile, key
+//    bias and band mask read once into registers, ds unrounded in the
+//    accumulator layout.  fp32 and widths above 128 keep the SIMT
+//    kernel.  Tiles outside the causal / window band are written as
+//    zeros without loading anything.
 //
 // Common to all: tiles outside the causal / window band are never loaded
 // (loop bounds); ragged edges (T = 1023 in training) are masked, so any
@@ -1284,6 +1293,171 @@ flash_bwd_dkv_mma_kernel(const BwdParams p, const int vec, const int bvec) {
                    acc_v);
 }
 
+// db2 on tensor cores: a block is 4 warps, each owning 16 query rows of
+// one (b, 64-row query tile, 64-key tile) of the fp32 output; it loops
+// over the H query heads (head h + 1's Q, dO, K and V come in by
+// cp.async while head h computes), S = Q K^T and dP = dO V^T by
+// mma.sync as dQ computes them, ds in fp32 in the accumulator layout,
+// unrounded, summed over heads in registers.
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_db2_mma_kernel(const BwdParams p, const int vec, const int bvec) {
+  constexpr int LDS = D + 8;
+  constexpr int KD = D / 16;       // k-steps of S and dP
+  constexpr int NS = TC_BK / 8;    // 8-key n-tiles of S
+  constexpr int TILE = TC_BQ * LDS;
+  static_assert(TC_BQ == TC_BK && NS * 4 == 32, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);   // [2][Q, dO, K, V][64][LDS]
+  float* Bs = reinterpret_cast<float*>(tiles + 8 * TILE);  // [BQ][LDB_Q]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * TC_BK, q0 = blockIdx.y * TC_BQ;
+  const int b = blockIdx.z;
+  const int grp = p.H / p.Hkv;
+  float* out = p.dbias + (static_cast<int64_t>(b) * p.tq + q0) * p.tk + k0;
+  const int q_last = min(q0 + TC_BQ, p.tq) - 1;
+
+  // a tile no query row of which sees any of its keys: zeros
+  if (p.causal) {
+    const int k_last = min(k0 + TC_BK, p.tk) - 1;
+    if (k0 > p.q_offset + q_last ||
+        (p.window > 0 && p.q_offset + q0 - k_last >= p.window)) {
+      for (int i = tid; i < TC_BQ * TC_BK; i += TC_THREADS) {
+        const int rr = i / TC_BK, c = i % TC_BK;
+        if (q0 + rr < p.tq && k0 + c < p.tk)
+          out[static_cast<int64_t>(rr) * p.tk + c] = 0.f;
+      }
+      return;
+    }
+  }
+
+  const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
+  auto load_head = [&](int h, int buf) {
+    const int hk = h / grp;
+    T* base = tiles + buf * 4 * TILE;
+    load_tile<T, D, TC_BQ>(
+        base, static_cast<const T*>(p.q) + b * p.sq_b + h * p.sq_h, p.sq_t,
+        q0, p.tq, p.d, vec);
+    load_tile<T, D, TC_BQ>(
+        base + TILE,
+        static_cast<const T*>(p.dout) + b * p.sdo_b + h * p.sdo_h, p.sdo_t,
+        q0, p.tq, p.d, vec);
+    load_tile<T, D, TC_BK>(
+        base + 2 * TILE,
+        static_cast<const T*>(p.k) + b * p.sk_b + hk * p.sk_h, p.sk_t, k0,
+        p.tk, p.d, vec);
+    load_tile<T, D, TC_BK>(
+        base + 3 * TILE,
+        static_cast<const T*>(p.v) + b * p.sv_b + hk * p.sv_h, p.sv_t, k0,
+        p.tk, p.d, vec);
+  };
+  load_bias<LDB_Q>(Bs, p.bias + b * p.sb_b, p.sb_t, q0, k0, p.tq, p.tk,
+                   bvec);
+  load_head(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the additive terms and the band, once: element (n, r) is row
+  // g + 8 (r >> 1) of the warp, key n * 8 + 2 t4 + (r & 1)
+  const int wrow = warp * 16;
+  const int row0 = q0 + wrow + g;
+  const bool edge =
+      k0 + TC_BK > p.tk || q0 + TC_BQ > p.tq ||
+      (p.causal && (k0 + TC_BK - 1 > p.q_offset + q0 ||
+                    (p.window > 0 && p.q_offset + q_last - k0 >= p.window)));
+  float add[NS][4];
+  uint32_t vis = 0xffffffffu;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const int key0 = k0 + n * 8 + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = key0 + (r & 1), hh = r >> 1;
+      add[n][r] = (kb != nullptr && key < p.tk ? kb[key] : 0.f) +
+                  Bs[(wrow + g + 8 * hh) * LDB_Q + n * 8 + 2 * t4 + (r & 1)];
+      if (edge && !visible(p, row0 + 8 * hh, key)) vis &= ~(1u << (n * 4 + r));
+    }
+  }
+
+  float acc[NS][4];
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+
+  for (int h = 0; h < p.H; ++h) {
+    const int buf = h & 1;
+    if (h > 0) {
+      cp_async_wait_all();             // head h has landed
+      __syncthreads();                 // and head h - 1 is consumed
+    }
+    if (h + 1 < p.H) load_head(h + 1, buf ^ 1);
+    cp_async_commit();
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      const int64_t ix = (static_cast<int64_t>(b) * p.H + h) * p.tq + row;
+      lse_r[i] = row < p.tq ? p.lse[ix] : 0.f;
+      dl_r[i] = row < p.tq ? p.delta[ix] : 0.f;
+    }
+    const T* Qs = tiles + buf * 4 * TILE;
+    const T* dOs = Qs + TILE;
+    const T* Ks = Qs + 2 * TILE;
+    const T* Vs = Qs + 3 * TILE;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[n][r] = dp[n][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ad[4];
+      ldsm_x4(aq, Qs + a_off(wrow, kk, lane, LDS));
+      ldsm_x4(ad, dOs + a_off(wrow, kk, lane, LDS));
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, Ks + b_off(0, np, kk, lane, LDS));
+        mma16816<T>(s[2 * np], aq, kf[0], kf[1]);
+        mma16816<T>(s[2 * np + 1], aq, kf[2], kf[3]);
+        ldsm_x4(vf, Vs + b_off(0, np, kk, lane, LDS));
+        mma16816<T>(dp[2 * np], ad, vf[0], vf[1]);
+        mma16816<T>(dp[2 * np + 1], ad, vf[2], vf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = fmaf(s[n][r], p.sm_scale, add[n][r]);
+        const float pr = (vis >> (n * 4 + r)) & 1u
+                             ? __expf(x - lse_r[r >> 1]) : 0.f;
+        acc[n][r] += pr * (dp[n][r] - dl_r[r >> 1]) * p.sm_scale;
+      }
+  }
+
+  // stage the tile through shared memory for coalesced stores
+  __syncthreads();
+  const float inv_scale = 1.0f / p.sm_scale;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      Bs[(wrow + g + 8 * (r >> 1)) * LDB_Q + n * 8 + 2 * t4 + (r & 1)] =
+          acc[n][r] * inv_scale;
+  __syncthreads();
+  for (int i = tid; i < TC_BQ * TC_BK; i += TC_THREADS) {
+    const int rr = i / TC_BK, c = i % TC_BK;
+    if (q0 + rr < p.tq && k0 + c < p.tk)
+      out[static_cast<int64_t>(rr) * p.tk + c] = Bs[rr * LDB_Q + c];
+  }
+}
+
 // -- launchers -----------------------------------------------------------------
 
 // 1 when every operand row and output row starts on a 16-byte boundary
@@ -1367,6 +1541,19 @@ cudaError_t launch_dkv_simt(const BwdParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t launch_db2_mma(const BwdParams& p, cudaStream_t st) {
+  constexpr int smem = 8 * TC_BQ * (D + 8) * sizeof(T) +
+                       TC_BQ * LDB_Q * sizeof(float);
+  auto kernel = flash_bwd_db2_mma_kernel<T, D>;
+  static const cudaError_t configured = allow_smem(kernel, smem);
+  if (configured != cudaSuccess) return configured;
+  const dim3 grid((p.tk + TC_BK - 1) / TC_BK, (p.tq + TC_BQ - 1) / TC_BQ,
+                  p.B);
+  kernel<<<grid, TC_THREADS, smem, st>>>(p, vec16(p), bias_vec(p));
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int BT>
 cudaError_t launch_db2(const BwdParams& p, cudaStream_t stream) {
   constexpr int smem = sizeof(float) * db2_floats(D, BT);
@@ -1381,7 +1568,8 @@ cudaError_t launch_db2(const BwdParams& p, cudaStream_t stream) {
 enum class Which { kDq, kDkv, kDb2 };
 
 // The kernel a (dtype, width) takes: tensor cores for bf16 / fp16 up to
-// width 128, SIMT otherwise, with 32-row tiles at width 256.
+// width 128 (dQ, dK/dV and db2), SIMT otherwise, with 32-row tiles at
+// width 256.
 template <typename T, int D>
 cudaError_t launch(const BwdParams& p, Which which, cudaStream_t st) {
   constexpr bool kTensorCores = !std::is_same<T, float>::value && D <= 128;
@@ -1393,7 +1581,9 @@ cudaError_t launch(const BwdParams& p, Which which, cudaStream_t st) {
     case Which::kDkv:
       if constexpr (kTensorCores) return launch_dkv_mma<T, D>(p, st);
       else return launch_dkv_simt<T, D, BT>(p, st);
-    case Which::kDb2: return launch_db2<T, D, BT>(p, st);
+    case Which::kDb2:
+      if constexpr (kTensorCores) return launch_db2_mma<T, D>(p, st);
+      else return launch_db2<T, D, BT>(p, st);
   }
   return cudaErrorInvalidValue;
 }

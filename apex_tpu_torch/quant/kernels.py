@@ -22,10 +22,13 @@ kernel, and laid out ``[N, Kp]`` (K contiguous, zero columns up to
 ``Kp``, the next multiple of 16) in that same pass
 (:func:`weight_layout`), the B operand layout of ``mma.sync``; the kernel
 reads x's columns past K as zero, so any K runs and the integer sums are
-those of the unpadded product.  The backward is the straight-through
-estimator in the operands' own precision (``dx = g @ w.T``, ``dw = x.T @
-g``, plain ``torch.matmul``), as in JAX: the int8 path never appears in
-it.
+those of the unpadded product.  :func:`quantized_matmul` prepares the
+weight every call; ``QuantDenseGeneral`` (``layers.py``) prepares it
+once per weight version when no gradient is recorded and calls
+:func:`_quantized_matmul_prepared`.  The backward is the
+straight-through estimator in the operands' own precision (``dx = g @
+w.T``, ``dw = x.T @ g``, plain ``torch.matmul``), as in JAX: the int8
+path never appears in it.
 
 Dispatch is by the tensor's device: a CPU tensor takes :func:`_qmm_ref`,
 a CUDA tensor launches the kernel (every shape, decode rows included —
@@ -157,10 +160,35 @@ def weight_layout(w2d, w_scale) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quant")
     fn = lib.quant_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    ws = lib.quant_matmul_workspace
+    ws.argtypes = [ctypes.c_int] * 4
+    ws.restype = ctypes.c_int64
     return lib
+
+
+_WORKSPACE_INTS: dict = {}   # (M, N, Kp, x dtype code) -> int32 elements
+_WORKSPACES: dict = {}       # device -> zeroed int32 buffers, largest last
+
+
+def _workspace(m, n, kp, x_code, device) -> Optional[torch.Tensor]:
+    """The zeroed int32 workspace of a split-K call (``None`` without a
+    split), one per device, grown as needed; the kernel leaves it
+    zeroed.  A grown buffer keeps the smaller ones alive, since a CUDA
+    graph may hold their addresses."""
+    key = (m, n, kp, x_code)
+    ints = _WORKSPACE_INTS.get(key)
+    if ints is None:
+        ints = _WORKSPACE_INTS[key] = int(
+            _lib().quant_matmul_workspace(m, n, kp, x_code))
+    if ints == 0:
+        return None
+    bufs = _WORKSPACES.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < ints:
+        bufs.append(torch.zeros(ints, dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
@@ -198,10 +226,12 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
+        work = _workspace(m, n, kp, x_code, x2d.device)
         err = _lib().quant_matmul(
             x2d.data_ptr(), qw.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), out.data_ptr(), m, n, k, kp, vec, x_code,
-            out_code, stream)
+            w_scale.data_ptr(), out.data_ptr(),
+            0 if work is None else work.data_ptr(), m, n, k, kp, vec,
+            x_code, out_code, stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
     qmm_kernel.launches += 1
@@ -243,6 +273,19 @@ class _QuantizedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             dws = torch.zeros(ws_shape, device=dev)
         return dx, dw, dxs, dws, None
+
+
+def _quantized_matmul_prepared(x2d, qw, w_scale, x_scale,
+                               impl: Optional[str] = None) -> torch.Tensor:
+    """The forward of :func:`quantized_matmul` on a weight already
+    prepared (``qw`` ``[N, Kp]`` and ``w_scale`` ``[N]`` as
+    :func:`weight_layout` and :func:`channel_scale` give them), for
+    callers that record no gradient: the kernel on CUDA, :func:`_qmm_ref`
+    on the CPU or for ``impl="jnp"``; ``x2d`` ``[M, K]``, the result in
+    its dtype."""
+    if x2d.is_cuda and impl != "jnp":
+        return qmm_kernel(x2d, qw, x_scale, w_scale, x2d.dtype)
+    return _qmm_ref(x2d, qw, x_scale, w_scale, x2d.dtype)
 
 
 def quantized_matmul(x, w, *, x_scale, w_scale=None,

@@ -19,6 +19,18 @@ selects it (``models/bert.py`` ``_dense_factory``).
             missing or partial calibration degrades to O2
 ========== ==============================================================
 
+The weight's int8 operands (``qw [N, Kp]``, ``w_scale [N]``) are
+prepared once per weight version while no gradient is recorded (serving
+under ``torch.inference_mode``, evaluation under ``torch.no_grad``): the
+site keeps them keyed on its ``kernel`` parameter by identity (a weak
+reference), its ``_version`` counter and data address, the compute dtype
+and the device, so ``load_state_dict``, an in-place update or a
+``.data`` assignment prepares again.  An update through ``.data`` in
+place (``p.data.add_``) bumps no counter of ``p`` and is not seen.  With
+gradients recorded (training: under ``functional_call`` the kernel is a
+fresh tensor each step) every call prepares, as the JAX package does
+inside its jitted step.  ``preparations`` counts a site's preparations.
+
 A site's name is flax's ``/``-joined module path (``block_0/mlp_up``,
 ``block_1/attention/query``), given by :func:`name_quant_sites`, which
 the ``GPT`` constructor calls: a JAX ``Calibration`` drives the port's
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Dict, Optional
 
 import torch
@@ -92,6 +105,8 @@ class QuantDenseGeneral(DenseGeneral):
         self.register_buffer("amax", torch.zeros((), device=self.bias.device),
                              persistent=False)
         self._x_scales: Dict[tuple, torch.Tensor] = {}
+        self._prepared: Optional[tuple] = None   # (key, weakref, qw, ws)
+        self.preparations = 0
 
     def forward(self, x):
         cfg = self.quant
@@ -116,18 +131,47 @@ class QuantDenseGeneral(DenseGeneral):
             self._x_scales[key] = t
         return t
 
+    def _weight(self) -> torch.Tensor:
+        """The kernel as a ``[K, N]`` matrix in the compute dtype."""
+        return self.kernel.reshape(math.prod(self.in_shape), -1).to(
+            self.dtype)
+
+    def _prepared_weight(self):
+        """``(qw, w_scale)`` of :meth:`_weight`, made once per version of
+        ``self.kernel`` and kept (built outside inference mode, so that a
+        model that serves and then trains carries no inference tensor
+        into autograd)."""
+        p = self.kernel
+        key = (p._version, p.data_ptr(), self.dtype, p.device)
+        hit = self._prepared
+        if hit is not None and hit[0] == key and hit[1]() is p:
+            return hit[2], hit[3]
+        with torch.inference_mode(False), torch.no_grad():
+            w = self._weight()
+            ws = K.channel_scale(w)
+            qw = K.weight_layout(w, ws)
+        self._prepared = (key, weakref.ref(p), qw, ws)
+        self.preparations += 1
+        return qw, ws
+
     def _quantized(self, x, x_scale):
         """Cast x and the kernel to the compute dtype (the JAX
         ``promote_dtype``), flatten to 2-D, the int8 kernel, the bias
-        added in the compute dtype."""
+        added in the compute dtype.  Without gradients the weight's
+        operands come prepared (:meth:`_prepared_weight`)."""
         n_in = math.prod(self.in_shape)
         lead = x.shape[:x.dim() - len(self.in_shape)]
         x2d = x.reshape(-1, n_in).to(self.dtype)
-        w = self.kernel.reshape(n_in, -1).to(self.dtype)
         cfg = self.quant
-        y = K.quantized_matmul(x2d, w,
-                               x_scale=self._x_scale(x_scale, x.device),
-                               impl=cfg.impl, interpret=cfg.interpret)
+        xs = self._x_scale(x_scale, x.device)
+        if torch.is_grad_enabled():
+            self._prepared = None
+            self.preparations += 1
+            y = K.quantized_matmul(x2d, self._weight(), x_scale=xs,
+                                   impl=cfg.impl, interpret=cfg.interpret)
+        else:
+            qw, ws = self._prepared_weight()
+            y = K._quantized_matmul_prepared(x2d, qw, ws, xs, impl=cfg.impl)
         y = y + self.bias.reshape(-1).to(self.dtype)
         return y.reshape(*lead, *self.out_shape)
 

@@ -123,26 +123,34 @@ line):
    (768->3072), an fp32 case, a zero-amax weight column, ragged M 1000 /
    N 130, fp16, and K = 8 and K = 40 (the weight padded to a multiple of
    16); ``library_ms`` ``torch._int_mm`` on the quantized operands where
-   it takes the shape, beside the bf16 matmul of O2;
+   it takes the shape, beside the bf16 matmul of O2; with ``--was``, the
+   other checkout's qmm kernel timed on the same inputs;
 17. O4 serving: gpt2_small bf16 calibrated in observe mode on 4 batches
    (frozen with "max"), rebuilt with the frozen scales, serving phase
    5's load with an int8 KV cache (72 qmm, 25 LN and 12 flash launches a
-   forward, nothing else), traced as in phase 6; O4 with an empty
-   calibration equal to O2 bit for bit and O4 vs O2 prefill logits;
+   forward, nothing else; 72 weight preparations at the engine's warmup
+   and none while serving), traced as in phase 6 (kernels per step), and
+   O4 beside O2 (host and device ms and kernels a decode step,
+   tokens/s); O4 with an empty calibration equal to O2 bit for bit, O4
+   vs O2 prefill logits, and O4's prefill logits and greedy tokens with
+   the prepared weights equal to those with every preparation redone;
    gpt_tiny fp32 O4 with an int8 KV cache on the card and on the CPU
    with equal greedy tokens (a mismatch allowed only where the CPU
    engine's top-2 logit gap at that step is below ``O4_TINY_GAP``);
 18. O4 training: ``make_train_step(opt_level="O4")`` on the calibrated
    gpt2_small, Adam, B 8, seq_len 1024, the fused loss, 10 steps (72 qmm
-   a step beside phase 9's kernels), losses finite and falling, beside
-   phase 9's O2 numbers; two steps traced;
+   a step beside phase 9's kernels, and 72 weight preparations: training
+   prepares every call), losses finite and falling, beside phase 9's O2
+   numbers; two steps traced;
 19. the ``[B, T, S]`` bias-gradient kernel at B 8, T = S = 1024, 12 heads
    of 64 (full, causal, GQA 12/4, a 256-key window, fp32, fp16), of 16
    and of 256, and at B 1 of 320 and 512: through
    ``flash_attention`` under autograd (one db2 launch per backward, dq,
    dk, dv unchanged against the run without a bias gradient), then
    against ``_flash_bwd_ref``'s dbias within 1e-4 of max |dbias|;
-   ``library_ms`` SDPA's backward with the bias expanded to heads.
+   ``library_ms`` SDPA's backward with the bias expanded to heads; with
+   ``--was``, the other checkout's db2 kernel timed on the same inputs
+   (and equal bit for bit where this one runs the SIMT kernel).
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
@@ -685,9 +693,11 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
     eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
                                    max_seqs=8, cache_dtype=cache_dtype,
                                    device=dev)
+    preps = [preparations(model)]
     t0 = time.perf_counter()
     eng.warmup()
     warm_s = time.perf_counter() - t0
+    preps.append(preparations(model))
     prompts = [rng.randint(1, model.vocab_size, (int(n),))
                for n in rng.randint(32, 901, 16)]
     torch.cuda.reset_peak_memory_stats()
@@ -697,6 +707,7 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
     results = eng.generate(prompts, max_new_tokens=32)
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    preps.append(preparations(model))
     st = eng.stats
     tag = eng.kv_cache_dtype
     eng.close()
@@ -722,7 +733,19 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
         tpot_p99_ms=_pct([r.timings["tpot_s"] for r in ok], 0.99),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         buckets=sorted({r.bucket for r in ok}),
-        launches={n: v for n, v in launches.items() if v})
+        launches={n: v for n, v in launches.items() if v},
+        preparations_warmup=preps[1] - preps[0],
+        preparations_served=preps[2] - preps[1],
+        preparations_per_decode_step=(preps[2] - preps[1])
+        / max(1, st["decode_steps"]))
+    if per_forward.get("qmm"):
+        check(res["preparations_warmup"] == per_forward["qmm"]
+              and res["preparations_served"] == 0,
+              f"gpt2_small ({tag} KV): weight preparations "
+              f"{res['preparations_warmup']} at the engine's warmup "
+              f"({per_forward['qmm']}: each site once), "
+              f"{res['preparations_served']} while serving "
+              f"{forwards} forwards (0)")
     print(f"      served 16 requests ({tag} KV, {res['kv_bytes_per_token']} "
           f"B/token), {res['tokens_out']} tokens in "
           f"{wall:.3f} s ({res['tokens_per_s']:.1f} tok/s); ttft p50 "
@@ -739,6 +762,13 @@ _KERNEL_KINDS = (("qmm", ("qmm_kernel",)),
                  ("flash", ("flash_fwd_",)), ("layer_norm", ("ln_fwd",)),
                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("index", ("index", "gather", "scatter")))
+
+
+def preparations(model) -> int:
+    """Weight preparations so far of every int8 site of ``model``."""
+    from apex_tpu_torch.quant import QuantDenseGeneral
+    return sum(m.preparations for m in model.modules()
+               if isinstance(m, QuantDenseGeneral))
 
 
 def _kind(name: str) -> str:
@@ -785,7 +815,8 @@ def where_time_goes(model, engine_mod, dev, cache_dtype=None):
     steps = {}
     for lo, hi, name in ranges:
         st = steps.setdefault(name, {"count": 0, "host_us": 0.0,
-                                     "device_us": 0.0, "kinds_us": {}})
+                                     "device_us": 0.0, "kinds_us": {},
+                                     "kernels": 0})
         st["count"] += 1
         st["host_us"] += hi - lo
     busy, edge = 0.0, None
@@ -797,6 +828,7 @@ def where_time_goes(model, engine_mod, dev, cache_dtype=None):
         if i < 0:
             continue
         st = steps[ranges[i][2]]
+        st["kernels"] += 1
         st["device_us"] += hi - lo
         st["kinds_us"][_kind(name)] = (st["kinds_us"].get(_kind(name), 0.0)
                                        + hi - lo)
@@ -808,13 +840,15 @@ def where_time_goes(model, engine_mod, dev, cache_dtype=None):
         res["steps"][name] = dict(
             count=n, host_ms=st["host_us"] / n / 1e3,
             device_ms=st["device_us"] / n / 1e3,
+            kernels_per_step=st["kernels"] / n,
             device_ms_by_kind={k: v / n / 1e3
                                for k, v in sorted(st["kinds_us"].items())})
         kinds = ", ".join(f"{k} {v / n / 1e3:.3f}"
                           for k, v in sorted(st["kinds_us"].items()))
         print(f"      {name} x{n}: host {st['host_us'] / n / 1e3:.2f} ms, "
-              f"device {st['device_us'] / n / 1e3:.3f} ms per step "
-              f"({kinds})", flush=True)
+              f"device {st['device_us'] / n / 1e3:.3f} ms, "
+              f"{st['kernels'] / n:.1f} kernels per step ({kinds})",
+              flush=True)
     print(f"      traced run: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms, idle share {res['device_idle_share']:.3f}, "
           f"{len(kernels)} kernels", flush=True)
@@ -1802,10 +1836,12 @@ QMM_CASES = [
 ]
 
 
-def qmm_cases(qk, dev):
+def qmm_cases(qk, dev, was=None):
     """Kernel 14 against ``_qmm_ref`` at the O4 path's shapes, bit for
-    bit.  ``library_ms`` is ``torch._int_mm`` on the pre-quantized
-    operands where it takes the shape (the int8 GEMM alone: a lower bound
+    bit; with ``was`` (another checkout's ``quant.kernels``, ``--was``)
+    its kernel timed on the same inputs, in the same process.
+    ``library_ms`` is ``torch._int_mm`` on the pre-quantized operands
+    where it takes the shape (the int8 GEMM alone: a lower bound
     on the same product); ``o2_matmul_ms`` the bf16 ``torch.matmul`` the
     O2 path runs at the same shape (what O4 competes with).  The bound
     counts x, qw, the scales and the output once, and 2 M N K operations
@@ -1852,8 +1888,16 @@ def qmm_cases(qk, dev):
                     o2_matmul_ms=time_ms(lambda: xb @ wb),
                     bound_ms=bms, bound_by=by)
         case["tops"] = 2.0 * m * n * k / case["ms"] / 1e9
+        was_s = ""
+        if was is not None:
+            was_got = was.qmm_kernel(x, qw, xs, ws, dtype)
+            case["was_bit_exact"] = torch.equal(was_got, want)
+            case["was_ms"] = time_ms(
+                lambda: was.qmm_kernel(x, qw, xs, ws, dtype))
+            was_s = (f" [was {case['was_ms']:.4f} ms, bit for bit "
+                     f"{case['was_bit_exact']}]")
         lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
-        print(f"      qmm {name}: kernel {case['ms']:.4f} ms (eager "
+        print(f"      qmm {name}: kernel {case['ms']:.4f} ms{was_s} (eager "
               f"{case['eager_ms']:.4f}, {case['tops']:.1f} TOP/s), plain "
               f"{case['plain_ms']:.4f} ms, _int_mm {lib_s}, bf16 matmul "
               f"{case['o2_matmul_ms']:.4f} ms, bound {bms:.4f} ms ({by})",
@@ -1895,10 +1939,32 @@ def _prefill_logits(model, ids, dev):
     return logits.float()
 
 
-def o4_prefill_checks(models, quant, calib, dev):
+class _EmptiedWeights:
+    """Within it, every int8 site of ``model`` empties its prepared weight
+    before each forward, so each call prepares anew (the path without the
+    cache)."""
+
+    def __init__(self, model, quant):
+        self.sites = [m for m in model.modules()
+                      if isinstance(m, quant.QuantDenseGeneral)]
+
+    def __enter__(self):
+        def empty(mod, args):
+            mod._prepared = None
+        self.hooks = [m.register_forward_pre_hook(empty) for m in self.sites]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def o4_prefill_checks(models, quant, calib, dev, engine_mod):
     """A 256-token prefill of gpt2_small bf16: O4 with an empty
-    calibration bit for bit O2, and the relative RMS error of O4 (the
-    frozen calibration) against O2."""
+    calibration bit for bit O2, the relative RMS error of O4 (the frozen
+    calibration) against O2, and O4's prefill logits and greedy tokens
+    (4 prompts, 8 new tokens, int8 KV) with the prepared weights equal
+    bit for bit to those with every preparation redone."""
     ids = torch.from_numpy(np.random.RandomState(3).randint(1, 50257,
                                                             (1, 256)))
     o2 = _prefill_logits(models.gpt2_small(dtype=torch.bfloat16, device=dev,
@@ -1916,8 +1982,56 @@ def o4_prefill_checks(models, quant, calib, dev):
           f"gpt2_small O4 with an empty calibration equals O2 bit for bit "
           f"{same}; O4 vs O2 256-token prefill logits relative RMS error "
           f"{rel:.4g}, top-1 agreement {agree:.3f}")
+    m = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
+                          quant=quant.QuantConfig.frozen(calib))
+    prompts = [np.random.RandomState(6).randint(1, 50257, (n,))
+               for n in (40, 300, 700, 999)]
+
+    def served():
+        eng = engine_mod.ServingEngine(m, buckets=(256, 1024), page_size=16,
+                                       max_seqs=4, cache_dtype=torch.int8,
+                                       device=dev)
+        toks = [r.tokens for r in eng.generate(prompts, 8)]
+        eng.close()
+        return toks
+    cached, cached_toks = _prefill_logits(m, ids, dev), served()
+    with _EmptiedWeights(m, quant):
+        redone, redone_toks = _prefill_logits(m, ids, dev), served()
+    logits_same = torch.equal(cached, redone) and torch.equal(cached, o4)
+    toks_same = all(np.array_equal(a, b)
+                    for a, b in zip(cached_toks, redone_toks))
+    check(logits_same and toks_same,
+          f"gpt2_small O4 with prepared weights: prefill logits equal those "
+          f"with every preparation redone bit for bit {logits_same}; greedy "
+          f"tokens of 4 requests equal {toks_same}")
     return dict(o4_empty_equals_o2=same, o4_vs_o2_logits_rel_rms=rel,
-                o4_vs_o2_top1_agreement=agree)
+                o4_vs_o2_top1_agreement=agree,
+                o4_prepared_logits_equal_redone=logits_same,
+                o4_prepared_tokens_equal_redone=toks_same)
+
+
+def o4_vs_o2(o2, o4):
+    """Per decode step of the traced runs (phases 6 and 17) and end to
+    end: host ms, device ms and kernels, and tokens/s, O4 beside O2."""
+    def decode(prof):
+        steps = [v for k, v in prof["steps"].items()
+                 if k.startswith("decode")]
+        n = sum(v["count"] for v in steps)
+        return {key: sum(v[key] * v["count"] for v in steps) / max(1, n)
+                for key in ("host_ms", "device_ms", "kernels_per_step")}
+    d2, d4 = decode(o2["profile"]), decode(o4["profile"])
+    res = dict(o2_decode=d2, o4_decode=d4,
+               o2_tokens_per_s=o2["tokens_per_s"],
+               o4_tokens_per_s=o4["tokens_per_s"],
+               o4_over_o2_tokens_per_s=o4["tokens_per_s"]
+               / o2["tokens_per_s"])
+    print(f"      O4 vs O2 a decode step: host {d4['host_ms']:.2f} vs "
+          f"{d2['host_ms']:.2f} ms, device {d4['device_ms']:.3f} vs "
+          f"{d2['device_ms']:.3f} ms, {d4['kernels_per_step']:.1f} vs "
+          f"{d2['kernels_per_step']:.1f} kernels; tokens/s "
+          f"{o4['tokens_per_s']:.1f} vs {o2['tokens_per_s']:.1f} "
+          f"({res['o4_over_o2_tokens_per_s']:.3f}x)", flush=True)
+    return res
 
 
 #: a card-vs-CPU token mismatch of the int8 gpt_tiny is allowed only
@@ -2005,6 +2119,7 @@ def train_o4(models, quant, main_amp, training, counters, calib, dev,
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+    preps = preparations(model)
     losses, step_s = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -2012,6 +2127,10 @@ def train_o4(models, quant, main_amp, training, counters, calib, dev,
         losses.append(met["loss"].item())
         step_s.append(time.perf_counter() - t0)
     launches = {n: c.launches for n, c in counters.items()}
+    preps = preparations(model) - preps
+    check(preps == 72 * steps,
+          f"gpt2_small O4 training: {preps} weight preparations = 72 x "
+          f"{steps} steps (training prepares every call)")
     per_step = dict(LM_PER_STEP, qmm=72)
     check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
           f"gpt2_small O4 training: launches {launches} = {per_step} x "
@@ -2024,7 +2143,8 @@ def train_o4(models, quant, main_amp, training, counters, calib, dev,
                step_ms_median_3_10=step_ms,
                tokens_per_s=8 * 1023 / step_ms * 1e3,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               launches={n: v for n, v in launches.items() if v})
+               launches={n: v for n, v in launches.items() if v},
+               preparations_per_step=preps / steps)
     print(f"      gpt2_small O4 B8 T1023: step {step_ms:.2f} ms (median of "
           f"steps 3-{steps}), {out['tokens_per_s']:.0f} tok/s, peak memory "
           f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB; losses "
@@ -2052,7 +2172,7 @@ DB2_CASES = [
 ]
 
 
-def db2_cases(fa, counters, dev):
+def db2_cases(fa, counters, dev, was=None):
     """Kernel 13 at GPT-2 small's attention shapes (B 8, T = S = 1024, 12
     heads of 64) with a learnable fp32 ``[B, T, S]`` bias.  First the
     public op under autograd, every counter set to 0 just before and
@@ -2063,7 +2183,11 @@ def db2_cases(fa, counters, dev):
     |dbias| (fp32 sums over 12 heads in another order), zero where the
     band hides a key.  ``library_ms``: the eager backward of SDPA with
     the bias expanded to ``[B, H, T, S]`` and needing a gradient (the
-    band folded into it as -inf), where a backend takes it."""
+    band folded into it as -inf), where a backend takes it.  With ``was``
+    (another checkout's ``ops.flash_attention``, ``--was``) its db2
+    kernel is timed on the same inputs, and where this checkout runs the
+    SIMT kernel (fp32, widths above 128) the two must agree bit for
+    bit."""
     rng = np.random.RandomState(19)
     t, h = 1024, 12
     cases, db2_launches = [], 0
@@ -2151,9 +2275,22 @@ def db2_cases(fa, counters, dev):
                     ms=time_ms(run, iters=5), eager_ms=eager_ms(run, iters=5),
                     plain_ms=time_ms(plain, iters=2), library_ms=lib,
                     bound_ms=bms, bound_by=by)
+        was_s = ""
+        if was is not None:
+            def was_run():
+                return was.flash_bwd_db2_kernel(q, k, v, do, lse, delta, None,
+                                                bias, **kw)
+            case["was_equal"] = torch.equal(was_run(), got)
+            case["was_ms"] = time_ms(was_run, iters=5)
+            was_s = (f" [was {case['was_ms']:.4f} ms, equal "
+                     f"{case['was_equal']}]")
+            if dtype == torch.float32 or d > 128:
+                check(case["was_equal"],
+                      f"flash db2 {name} (SIMT): equals the --was "
+                      f"checkout's kernel bit for bit")
         lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
-        print(f"      flash db2 {name}: kernel {case['ms']:.4f} ms (eager "
-              f"{case['eager_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
+        print(f"      flash db2 {name}: kernel {case['ms']:.4f} ms{was_s} "
+              f"(eager {case['eager_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
               f"SDPA backward with a bias gradient {lib_s}, bound "
               f"{bms:.4f} ms ({by})", flush=True)
         cases.append(case)
@@ -2169,8 +2306,9 @@ def main(argv=None) -> int:
                     help="also write every measurement to this JSON file")
     ap.add_argument("--was", default=None,
                     help="the root of another checkout of the port (the "
-                         "parent commit's): phase 15b times its conv "
-                         "kernels beside this one's")
+                         "parent commit's): phases 4b, 15b, 16 and 19 "
+                         "time its flash, conv, qmm and db2 kernels "
+                         "beside this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2236,7 +2374,8 @@ def main(argv=None) -> int:
             "triton_s": build_triton}
     if args.was:
         was_build = load_was(args.was, "_build")
-        for name in ("flash_attention", "flash_attention_bwd", "conv"):
+        for name in ("flash_attention", "flash_attention_bwd", "conv",
+                     "quant"):
             jobs[f"was_{name}_nvcc_s"] = (lambda n=name: was_build.load(n))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
@@ -2298,7 +2437,8 @@ def main(argv=None) -> int:
     conv = conv_cases(cv, fba, dev)                                # 15
     sites = conv_sites(cv, dev,                                    # 15b
                        load_was(args.was, "ops.conv") if args.was else None)
-    qmm = qmm_cases(qk, dev)                                       # 16
+    qmm = qmm_cases(qk, dev, load_was(args.was, "quant.kernels")   # 16
+                    if args.was else None)
     calib = calibrate_gpt2_small(models, quant, dev)               # 17
     o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
                                  quant=quant.QuantConfig.frozen(calib))
@@ -2308,16 +2448,21 @@ def main(argv=None) -> int:
     o4_serving["profile"] = where_time_goes(o4_model, engine_mod, dev,
                                             cache_dtype=torch.int8)
     del o4_model
-    o4_serving.update(o4_prefill_checks(models, quant, calib, dev))
+    o4_serving.update(o4_prefill_checks(models, quant, calib, dev,
+                                        engine_mod))
     o4_serving.update(tiny_tokens_o4(models, quant, engine_mod, dev))
     o4_serving["bf16_kv_o2"] = {k: serving[k] for k in (
         "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
         "tpot_p99_ms", "kv_bytes_per_token", "max_memory_allocated_bytes")}
+    o4_serving["vs_o2"] = o4_vs_o2(dict(serving, profile=profile_res),
+                                   o4_serving)
     o4_train = train_o4(models, quant, main_amp, training, counters,  # 18
                         calib, dev)
     o4_train["o2"] = {k: trained[k] for k in (
         "step_ms_median_3_10", "tokens_per_s", "max_memory_allocated_bytes")}
-    db2, db2_launches = db2_cases(fa, counters, dev)               # 19
+    db2, db2_launches = db2_cases(                                 # 19
+        fa, counters, dev,
+        load_was(args.was, "ops.flash_attention") if args.was else None)
     paths = {"serving": serving["launches"], "training": trained["launches"],
              "resnet_training": resnet["launches"],
              "o4_serving": o4_serving["launches"],

@@ -1230,3 +1230,124 @@ def test_flash_bwd_kernels_bit_stable(cuda_device, head_dim, dtype):
     for _ in range(3):
         for a, b_ in zip(first, run()):
             assert torch.equal(a, b_)
+
+
+# -- the redesigned qmm (split K, decode tiles) and db2 on tensor cores ---
+
+def _qmm_operands(dev, m, k, n, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(m, k) * 2).astype(np.float32)).to(
+        dev, dtype)
+    w = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(np.float32))
+    w[:, n // 3] = 0.0
+    w = w.to(dev, dtype)
+    ws = qk.channel_scale(w)
+    qw = qk.weight_layout(w, ws)
+    xs = torch.tensor(x.float().abs().max().item() / 127.0 * 0.8, device=dev)
+    return x, qw, xs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("k,n", [(8, 130), (40, 768), (768, 3072),
+                                 (3072, 768), (768, 130)])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 65, 1000, 8184])
+def test_qmm_kernel_every_path_bit_for_bit(cuda_device, dtype, k, n, m):
+    """Every tile configuration (decode rows of 16 and of 64 with a K
+    split, the 128 x 256 tile (64 x 256 for fp32 x) and the 64 x 128
+    one), K not a multiple of 8 or 16, N 130: bit for bit against
+    ``_qmm_ref``, in the input dtype and in fp32 out, with a zero-amax
+    column."""
+    x, qw, xs, ws = _qmm_operands(cuda_device, m, k, n, dtype, seed=m + k + n)
+    for out_dtype in (dtype, torch.float32):
+        got = qk.qmm_kernel(x, qw, xs, ws, out_dtype)
+        want = qk._qmm_ref(x, qw, xs, ws, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert torch.equal(got, want)
+        assert not got[:, n // 3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 3072, 768), (8, 768, 768),
+                                   (1, 768, 2304), (17, 3072, 768),
+                                   (64, 768, 3072)])
+def test_qmm_split_k_resets_its_workspace(cuda_device, m, k, n):
+    """Decode rows split K into an int32 workspace: two calls in a row
+    give equal results, equal to the plain version, and leave the
+    workspace (arrival counters included) zero.  Prefill rows do not
+    split."""
+    x, qw, xs, ws = _qmm_operands(cuda_device, m, k, n, torch.bfloat16,
+                                  seed=7)
+    first = qk.qmm_kernel(x, qw, xs, ws, torch.bfloat16)
+    second = qk.qmm_kernel(x, qw, xs, ws, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, qk._qmm_ref(x, qw, xs, ws, torch.bfloat16))
+    work = qk._workspace(m, n, qw.shape[1], 1, x.device)
+    assert work is not None and not work.any()
+    assert qk._workspace(1024, n, qw.shape[1], 1, x.device) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_qmm_kernel_unaligned_x(cuda_device, m):
+    """x that starts off a 16-byte boundary takes element loads."""
+    x, qw, xs, ws = _qmm_operands(cuda_device, m, 768, 768, torch.bfloat16,
+                                  seed=9)
+    buf = torch.empty(m * 768 + 1, dtype=torch.bfloat16, device=cuda_device)
+    xu = buf[1:].view(m, 768)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16
+    got = qk.qmm_kernel(xu, qw, xs, ws, torch.bfloat16)
+    assert torch.equal(got, qk._qmm_ref(x, qw, xs, ws, torch.bfloat16))
+
+
+def _db2_kernel_names(fn):
+    """The names of the CUDA kernels ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if "db2" in e.key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "causal", "gqa4_2", "window",
+                                  "cross", "kbias", "q_tail"])
+@pytest.mark.parametrize("head_dim", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_db2_tensor_cores_match_plain(cuda_device, case, head_dim,
+                                            dtype):
+    """db2's tensor-core path at every width it takes, over the cases of
+    ``test_flash_db2_kernel_matches_plain``: within 1e-4 of max |dbias|
+    of the plain version, zeros outside the band."""
+    kw = dict(bias=True, causal=case not in ("full", "kbias", "q_tail"),
+              d=head_dim, seed=30 + head_dim)
+    kw.update({"gqa4_2": dict(h_kv=2), "window": dict(window=50),
+               "cross": dict(tq=70, tk=200),
+               "kbias": dict(kbias=True),
+               "q_tail": dict(tq=130, tk=256)}.get(case, {}))
+    _check_db2_kernel(*_bwd_case(cuda_device, dtype, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim,mma", [
+    (torch.bfloat16, 64, True), (torch.float16, 128, True),
+    (torch.bfloat16, 48, True), (torch.float32, 64, False),
+    (torch.bfloat16, 256, False), (torch.float16, 200, False)])
+def test_flash_db2_path_by_dtype_and_width(cuda_device, dtype, head_dim,
+                                           mma):
+    """bf16 and fp16 up to width 128 launch the tensor-core db2 kernel;
+    fp32 and wider heads the SIMT one (the profiler's kernel names)."""
+    q, k, v, do, kb, bs, kw = _bwd_case(cuda_device, dtype, d=head_dim,
+                                        tq=100, tk=100, bias=True, seed=33)
+    out, lse = fa._flash_fwd_ref(q, k, v, kb, bs, **kw)
+    delta = fa._delta(do, out)
+    names = _db2_kernel_names(lambda: fa.flash_bwd_db2_kernel(
+        q, k, v, do, lse, delta, kb, bs, **kw))
+    assert len(names) == 1, names
+    assert ("db2_mma" in names[0]) == mma, names
+    _check_db2_kernel(q, k, v, do, kb, bs, kw)

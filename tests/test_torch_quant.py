@@ -485,6 +485,118 @@ def test_o4_three_steps_track_jax(flax_params):
         assert rel <= 0.3, (k, rel)
 
 
+# -- the prepared weight -------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def o4_cfg(flax_params):
+    """The port's frozen config from JAX's calibration of gpt_tiny."""
+    jcalib = _jax_calibration(flax_params)[0].freeze()
+    return quant.QuantConfig.frozen(
+        quant.Calibration.from_state_dict(jcalib.state_dict()))
+
+
+def _sites(model):
+    return [m for m in model.modules()
+            if isinstance(m, quant.QuantDenseGeneral)]
+
+
+def _uncached_logits(model, ids):
+    """Logits with every site's prepared weight emptied before each use
+    (the per-call preparation, without gradients)."""
+    def empty(mod, args):
+        mod._prepared = None
+    hooks = [m.register_forward_pre_hook(empty) for m in _sites(model)]
+    try:
+        with torch.no_grad():
+            return model(ids)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def test_o4_prepares_each_site_once_without_grad(flax_params, o4_cfg):
+    """gpt_tiny bf16 at O4 under ``torch.no_grad()``: three forwards
+    prepare each of the 12 sites once, the logits equal, bit for bit,
+    those with the prepared weights emptied before every use, and they
+    lie within the O4 test's 2e-2 of JAX's O4 logits."""
+    tm = _port_model(flax_params, quant_cfg=o4_cfg)
+    ids = [torch.from_numpy(_ids(20 + i)) for i in range(3)]
+    with torch.no_grad():
+        got = [tm(x) for x in ids]
+    assert [m.preparations for m in _sites(tm)] == [1] * 12
+    for x, g in zip(ids, got):
+        assert torch.equal(g, _uncached_logits(tm, x))
+    jm = jgpt_tiny(**CFG, dtype=jnp.bfloat16, quant=jquant.QuantConfig.frozen(
+        jquant.Calibration.from_state_dict(o4_cfg.scales.state_dict())))
+    want = np.asarray(jm.apply({"params": flax_params},
+                               jnp.asarray(ids[0].numpy())), np.float32)
+    np.testing.assert_allclose(_np(got[0]), want, atol=2e-2, rtol=0)
+
+
+def test_o4_prepared_weight_follows_updates(flax_params, o4_cfg):
+    """An in-place update of one site's kernel prepares that site again;
+    ``load_state_dict`` and a ``.data`` assignment prepare again.  After
+    each, the logits equal those of a model built afresh from the same
+    weights."""
+    tm = _port_model(flax_params, quant_cfg=o4_cfg)
+    ids = torch.from_numpy(_ids(30))
+
+    def fresh_logits():
+        m = gpt_tiny(**CFG, dtype=torch.bfloat16, quant=o4_cfg, device="cpu")
+        m.load_state_dict(tm.state_dict())
+        with torch.no_grad():
+            return m(ids)
+    with torch.no_grad():
+        tm(ids)
+        site = tm.block_1.mlp_up
+        site.kernel.mul_(1.5)
+        got = tm(ids)
+    counts = {m.site: m.preparations for m in _sites(tm)}
+    assert counts.pop("block_1/mlp_up") == 2
+    assert set(counts.values()) == {1}
+    assert torch.equal(got, fresh_logits())
+
+    other = gpt_tiny(**CFG, dtype=torch.bfloat16, device="cpu", seed=11)
+    tm.load_state_dict(other.state_dict())
+    with torch.no_grad():
+        got = tm(ids)
+    assert {m.preparations for m in _sites(tm)} == {2, 3}
+    assert torch.equal(got, fresh_logits())
+
+    site = tm.block_0.attention.query
+    site.kernel.data = site.kernel.detach() * 0.5
+    with torch.no_grad():
+        got = tm(ids)
+    assert site.preparations == 3
+    assert torch.equal(got, fresh_logits())
+
+
+def test_o4_with_grad_never_reads_the_prepared_weight(flax_params, o4_cfg):
+    """With gradients recorded every call prepares (the training path),
+    and no call reads what a call without gradients kept; the logits are
+    the same bits either way.  Weights prepared under
+    ``torch.inference_mode`` are no inference tensors."""
+    tm = _port_model(flax_params, quant_cfg=o4_cfg)
+    ids = torch.from_numpy(_ids(31))
+    with torch.inference_mode():
+        served = tm(ids).clone()
+    for m in _sites(tm):
+        assert not m._prepared[2].is_inference()
+        assert not m._prepared[3].is_inference()
+
+    def refuse(*a, **kw):
+        raise AssertionError("the cache was read with grad enabled")
+    for m in _sites(tm):
+        m._prepared_weight = refuse
+    trained = [tm(ids) for _ in range(2)]
+    assert [m.preparations for m in _sites(tm)] == [3] * 12
+    assert trained[0].requires_grad
+    trained[0].float().sum().backward()
+    assert tm.block_0.mlp_up.kernel.grad is not None
+    for t in trained:
+        assert torch.equal(t.detach(), served)
+
+
 # -- the int8 KV cache --------------------------------------------------------------
 
 def _tiny_pair(max_len=64):
