@@ -52,6 +52,21 @@ def _nvcc() -> str:
                        "PATH): the CUDA kernels are built from source")
 
 
+#: the kernel wrappers whose ``launches`` counts their kernel's launches:
+#: a wrapper adds one where it launches, and a captured graph
+#: (:class:`apex_tpu_torch.cache.Captured`) adds, at every replay, the
+#: launches it recorded
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register kernel wrapper ``fn``: its ``launches`` counter, set to
+    0, is one of :data:`COUNTED`.  Returns ``fn``."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
 class _Registry:
     """Loaded libraries of this process, one per source; a lock per
     source keeps two threads from building the same one at once, while
@@ -69,8 +84,15 @@ class _Registry:
 _REGISTRY = _Registry()
 
 
+def set_build_dir(path: str) -> None:
+    """Build and look for the libraries in ``path`` from now on (the
+    default is ``csrc/build/``); a library loaded already stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = path
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into ``csrc/build/lib<name>.so`` when
+    """Compile ``csrc/<name>.cu`` into ``BUILD_DIR/lib<name>.so`` when
     the library is missing or older than the source; returns its path."""
     src = os.path.join(_CSRC, f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")

@@ -50,6 +50,8 @@ import functools
 
 import torch
 
+from ... import _build
+
 __all__ = ["SoftmaxCrossEntropyLoss", "softmax_cross_entropy_loss"]
 
 _MAX_BLOCK = 4096          # columns a program holds at once
@@ -191,7 +193,7 @@ def xentropy_fwd_kernel(logits, labels, smoothing):
     return losses, mlse
 
 
-xentropy_fwd_kernel.launches = 0
+_build.counted(xentropy_fwd_kernel)
 
 
 def xentropy_bwd_kernel(g, logits, mlse, labels, smoothing):
@@ -216,7 +218,7 @@ def xentropy_bwd_kernel(g, logits, mlse, labels, smoothing):
     return dx
 
 
-xentropy_bwd_kernel.launches = 0
+_build.counted(xentropy_bwd_kernel)
 
 
 class _SoftmaxXentropy(torch.autograd.Function):

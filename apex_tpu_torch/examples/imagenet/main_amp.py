@@ -12,7 +12,8 @@ every step, as the JAX example reuses its staged synthetic window.
     python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
         --arch resnet50 -b 128 --opt-level O2
     python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
-        --device cpu --arch resnet18 -b 4 --image-size 32 --prof 2
+        --device cpu --arch resnet18 -b 4 --image-size 32 --prof 4 \\
+        --steps-per-call 2
 
 Defaults as in the JAX example: ``--pallas-conv`` (every convolution,
 the stem included, through ``ops.PallasConv`` and the port's NHWC
@@ -27,21 +28,27 @@ flax-style BatchNorm with explicit ReLU and residual adds;
 ``--no-fused-loss`` the log_softmax + gather composition.  The run ends
 with the conv sites' count, as the JAX example's ``tune:`` line does.
 
+The loop runs on :class:`apex_tpu_torch.runtime.StepPipeline`, as the
+JAX example's does: ``--steps-per-call K`` runs K steps per host call
+(on CUDA one captured graph of K steps, captured before step 0 under
+``--aot-warmup``, the default), ``--prof`` and ``--print-freq`` round up
+to multiples of K, and the metrics are read one window behind.
+``--compilation-cache DIR`` keeps the built kernels in DIR.
+
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
 ported yet, each raising with a plain message: ``--sync_bn``,
-``--steps-per-call``, checkpointing, telemetry and real data.
+checkpointing, telemetry and real data.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ... import training
+from ... import cache, runtime, training
 from ..._device import resolve_device
 from ...contrib.groupbn import BatchNorm2d_NHWC
 from ...contrib.xentropy import softmax_cross_entropy_loss
@@ -87,9 +94,18 @@ def parse(argv=None):
     p.add_argument("--image-size", default=224, type=int)
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--steps-per-call", default=1, type=int,
+                   help="K steps per host call (runtime.StepPipeline: on "
+                        "CUDA one captured graph of K steps)")
+    p.add_argument("--aot-warmup", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="capture the K-step graph before step 0 (the "
+                        "default); without it the first window captures")
+    p.add_argument("--compilation-cache", default=None, metavar="DIR",
+                   help="build and keep the kernels in DIR "
+                        "(cache.enable)")
     # not ported yet: each raises when given
     p.add_argument("--sync_bn", action="store_true")
-    p.add_argument("--steps-per-call", default=1, type=int)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--telemetry", default=None)
@@ -100,8 +116,6 @@ def _refuse_not_ported(args):
     refused = [
         (args.sync_bn, NotImplementedError,
          "--sync_bn (statistics across processes) is not ported yet"),
-        (args.steps_per_call != 1, NotImplementedError,
-         "--steps-per-call (chained steps) is not ported yet"),
         (args.checkpoint_dir or args.resume, NotImplementedError,
          "checkpointing (--checkpoint-dir, --resume) is not ported yet"),
         (args.telemetry, NotImplementedError,
@@ -179,33 +193,58 @@ def build(args):
 
 
 def train(args, log=print) -> dict:
-    """Run ``--prof`` steps (``epochs * steps_per_epoch`` without it);
-    returns the per-step losses, loss scales and wall seconds, and the
-    images per step.  Each step ends by reading its loss, which waits
-    for the device, so a step's seconds are the time from its launch to
-    the end of its work on the device."""
+    """Run ``--prof`` steps (``epochs * steps_per_epoch`` without it),
+    rounded up to a multiple of ``--steps-per-call``, in windows of K;
+    returns the per-step losses, loss scales and seconds, the images per
+    step, the final state and the pipeline's counts.  A step's seconds
+    are its window's over K, timed on the device's timeline (CUDA
+    events; the host clock on the CPU) from the end of one window to the
+    end of the next, gaps the host leaves included."""
+    if args.compilation_cache:
+        cache.enable(args.compilation_cache)
     state, step_fn, batch = build(args)
     n_params = sum(p.numel() for p in state.params.values())
+    k = max(1, args.steps_per_call)
     log(f"{args.arch}  {n_params / 1e6:.1f}M params  opt_level = "
         f"{args.opt_level}  fused_bn={args.fused_bn}  "
         f"fused_loss={args.fused_loss}  pallas_conv={args.pallas_conv}  "
-        f"on {batch[0].device}")
+        f"steps_per_call {k}  on {batch[0].device}")
     steps = args.prof if args.prof >= 0 else args.epochs * \
         args.steps_per_epoch
+    steps = runtime.round_steps(steps, k, "--prof", log)
+    print_freq = runtime.round_steps(max(1, args.print_freq), k,
+                                     "--print-freq", log)
     res = dict(losses=[], loss_scales=[], step_s=[],
                images_per_step=args.batch_size)
-    for i in range(steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = metrics["loss"].item()
-        res["step_s"].append(time.perf_counter() - t0)
-        res["losses"].append(loss)
-        res["loss_scales"].append(metrics["loss_scale"].item())
-        if i % args.print_freq == 0 or i == steps - 1:
-            log(f"iter {i}  loss {loss:.4f}  speed "
-                f"{args.batch_size / res['step_s'][-1]:.1f} img/s  "
-                f"loss_scale {res['loss_scales'][-1]:.0f}")
+    # the synthetic batch is reused every step: one window of K views
+    window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
+    pipe = runtime.StepPipeline(step_fn, k)
+    if args.aot_warmup:
+        pipe.warmup(state, window)
+    last = runtime.mark(batch[0].device)
+
+    def emit(wm):
+        nonlocal last
+        vals = wm.fetch()
+        step_s = runtime.seconds_between(last, wm.end) / wm.n_valid
+        last = wm.end
+        for j in range(wm.n_valid):
+            i = wm.step + j
+            res["losses"].append(float(vals["loss"][j]))
+            res["loss_scales"].append(float(vals["loss_scale"][j]))
+            res["step_s"].append(step_s)
+            if i % print_freq == 0 or i == steps - 1:
+                log(f"iter {i}  loss {res['losses'][-1]:.4f}  speed "
+                    f"{args.batch_size / step_s:.1f} img/s  "
+                    f"loss_scale {res['loss_scales'][-1]:.0f}")
+
+    state, _ = pipe.run(state, ((window, k) for _ in range(steps // k)),
+                        on_metrics=emit)
+    mem = pipe.memory_stats()
+    if mem is not None:
+        log(f"memory: peak {mem['peak_bytes'] / 2**30:.2f} GiB allocated")
     res["state"] = state
+    res["pipeline"] = pipe.stats
     return res
 
 

@@ -11,26 +11,36 @@ gather composition; both label-smoothed, ``padding_idx`` 0 masked, the
 mean over every token.  Weight decay applies to every parameter, as the
 JAX example's ``training.adam(lr, weight_decay=...)`` does.
 
+The loop runs on :class:`apex_tpu_torch.runtime.StepPipeline`, as the
+JAX example's does: ``--steps-per-call K`` runs K steps per host call
+(on CUDA one captured graph of K steps, captured before step 0 under
+``--aot-warmup``, the default), ``--steps`` rounds up to a multiple of
+K, and the losses are read one window behind
+(:class:`~apex_tpu_torch.runtime.DeferredMetrics`).
+``--compilation-cache DIR`` keeps the built kernels in DIR
+(:func:`apex_tpu_torch.cache.enable`).
+
     python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 5
-    python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 3 \\
-        --device cpu --vocab 256 --hidden 64 --layers 2 --heads 4 --seq-len 33
+    python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 32 \\
+        --steps-per-call 8
+    python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 4 \\
+        --steps-per-call 2 --device cpu --vocab 256 --hidden 64 --layers 2 \\
+        --heads 4 --seq-len 33
 
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported: sequence parallelism, step chaining, checkpointing and
-telemetry.
+ported: sequence parallelism, checkpointing and telemetry.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from ... import training
+from ... import cache, runtime, training
 from ..._device import resolve_device
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...models import GPT
@@ -64,6 +74,17 @@ def parse(argv=None):
                         "(must divide --heads)")
     p.add_argument("--window", type=int, default=None,
                    help="sliding-window local attention (causal)")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="K steps per host call (runtime.StepPipeline: on "
+                        "CUDA one captured graph of K steps); --steps "
+                        "rounds up to a multiple of K")
+    p.add_argument("--aot-warmup", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="capture the K-step graph before step 0 (the "
+                        "default); without it the first window captures")
+    p.add_argument("--compilation-cache", default=None, metavar="DIR",
+                   help="build and keep the kernels in DIR "
+                        "(cache.enable)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -131,28 +152,53 @@ def build(args):
 
 
 def train(args, log=print) -> dict:
-    """Run ``args.steps`` steps; returns the per-step losses, loss
-    scales and wall seconds, and the tokens per step.  Each step ends by
-    reading its loss, which waits for the device, so a step's seconds
-    are the time from its launch to the end of its work on the device."""
+    """Run ``args.steps`` steps (rounded up to a multiple of
+    ``--steps-per-call``) in windows of K; returns the per-step losses,
+    loss scales and seconds, the tokens per step, the final state and
+    the pipeline's counts.  A window's metrics are read one window
+    behind; a step's seconds are its window's over K, timed on the
+    device's timeline (CUDA events; the host clock on the CPU) from the
+    end of one window to the end of the next, gaps the host leaves
+    included."""
+    if args.compilation_cache:
+        cache.enable(args.compilation_cache)
     state, step_fn, batch = build(args)
     n_params = sum(p.numel() for p in state.params.values())
+    k = max(1, args.steps_per_call)
     log(f"GPT {args.layers}L/{args.hidden}H  {n_params / 1e6:.1f}M params  "
-        f"attention=flash  opt_level = {args.opt_level}  on "
-        f"{batch[0].device}")
+        f"attention=flash  opt_level = {args.opt_level}  steps_per_call "
+        f"{k}  on {batch[0].device}")
+    steps = runtime.round_steps(args.steps, k, "--steps", log)
     tokens = args.batch_size * (args.seq_len - 1)
     res = dict(losses=[], loss_scales=[], step_s=[], tokens_per_step=tokens)
-    for i in range(args.steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = metrics["loss"].item()
-        res["step_s"].append(time.perf_counter() - t0)
-        res["losses"].append(loss)
-        res["loss_scales"].append(metrics["loss_scale"].item())
-        log(f"step {i}  loss {loss:.4f}  loss_scale "
-            f"{res['loss_scales'][-1]:.0f}  "
-            f"{tokens / res['step_s'][-1]:,.0f} tok/s")
+    # the synthetic batch is reused every step: one window of K views
+    window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
+    pipe = runtime.StepPipeline(step_fn, k)
+    if args.aot_warmup:
+        pipe.warmup(state, window)
+    last = runtime.mark(batch[0].device)
+
+    def emit(wm):
+        nonlocal last
+        vals = wm.fetch()
+        step_s = runtime.seconds_between(last, wm.end) / wm.n_valid
+        last = wm.end
+        for j in range(wm.n_valid):
+            loss = float(vals["loss"][j])
+            res["losses"].append(loss)
+            res["loss_scales"].append(float(vals["loss_scale"][j]))
+            res["step_s"].append(step_s)
+            log(f"step {wm.step + j}  loss {loss:.4f}  loss_scale "
+                f"{res['loss_scales'][-1]:.0f}  "
+                f"{tokens / step_s:,.0f} tok/s")
+
+    state, _ = pipe.run(state, ((window, k) for _ in range(steps // k)),
+                        on_metrics=emit)
+    mem = pipe.memory_stats()
+    if mem is not None:
+        log(f"memory: peak {mem['peak_bytes'] / 2**30:.2f} GiB allocated")
     res["state"] = state
+    res["pipeline"] = pipe.stats
     return res
 
 

@@ -52,6 +52,8 @@ import functools
 
 import torch
 
+from .. import _build
+
 __all__ = ["bn_relu_residual", "bn_act_epilogue_ref"]
 
 
@@ -255,7 +257,7 @@ def bn_act_fwd_kernel(x2d, mean, invstd, scale, bias, z2d, relu):
     return out
 
 
-bn_act_fwd_kernel.launches = 0
+_build.counted(bn_act_fwd_kernel)
 
 
 def bn_act_bwd_kernel(g2d, x2d, mean, invstd, scale, bias, z2d, relu):
@@ -285,7 +287,7 @@ def bn_act_bwd_kernel(g2d, x2d, mean, invstd, scale, bias, z2d, relu):
     return dx, dz
 
 
-bn_act_bwd_kernel.launches = 0
+_build.counted(bn_act_bwd_kernel)
 
 
 class _Epilogue(torch.autograd.Function):

@@ -48,6 +48,7 @@ from typing import Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from .. import _build
 from .._device import resolve_device
 
 
@@ -182,7 +183,7 @@ def layer_norm_fwd_kernel(x2d, weight, bias, eps):
     return out, mean, invvar
 
 
-layer_norm_fwd_kernel.launches = 0
+_build.counted(layer_norm_fwd_kernel)
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,7 +246,7 @@ def layer_norm_bwd_kernel(g2d, x2d, mean, invvar, weight):
     return dx
 
 
-layer_norm_bwd_kernel.launches = 0
+_build.counted(layer_norm_bwd_kernel)
 
 
 def layer_norm_fwd(x2d, weight, bias, eps):

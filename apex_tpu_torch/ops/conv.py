@@ -397,7 +397,7 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
     return out, preact
 
 
-conv_fwd_kernel.launches = 0
+_build.counted(conv_fwd_kernel)
 
 
 def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw):
@@ -426,7 +426,7 @@ def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw):
     return dx if w.shape[2] == c else dx[..., :c].contiguous()
 
 
-conv_dgrad_kernel.launches = 0
+_build.counted(conv_dgrad_kernel)
 
 
 def _wgrad_splits(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
@@ -473,7 +473,7 @@ def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size):
     return dw
 
 
-conv_wgrad_kernel.launches = 0
+_build.counted(conv_wgrad_kernel)
 
 
 # -- autograd --------------------------------------------------------------------

@@ -400,7 +400,7 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     return out, lse
 
 
-flash_fwd_kernel.launches = 0
+_build.counted(flash_fwd_kernel)
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
@@ -456,7 +456,7 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias, *,
     return dq
 
 
-flash_bwd_dq_kernel.launches = 0
+_build.counted(flash_bwd_dq_kernel)
 
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kbias, bias, *,
@@ -485,7 +485,7 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kbias, bias, *,
     return dk, dv, part
 
 
-flash_bwd_dkv_kernel.launches = 0
+_build.counted(flash_bwd_dkv_kernel)
 
 
 def flash_bwd_db2_kernel(q, k, v, do, lse, delta, kbias, bias, *,
@@ -511,7 +511,7 @@ def flash_bwd_db2_kernel(q, k, v, do, lse, delta, kbias, bias, *,
     return dbias
 
 
-flash_bwd_db2_kernel.launches = 0
+_build.counted(flash_bwd_db2_kernel)
 
 
 # -- autograd --------------------------------------------------------------------

@@ -238,7 +238,7 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
     return out
 
 
-qmm_kernel.launches = 0
+_build.counted(qmm_kernel)
 
 
 # -- autograd ---------------------------------------------------------------------

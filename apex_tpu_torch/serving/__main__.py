@@ -10,8 +10,10 @@ Weights are random, made from ``--seed`` (the repo holds no checkpoint).
 Prompts are synthetic: lengths drawn uniformly from ``[4, max bucket -
 max_new)``, token ids from ``[1, vocab)``.  Runs on CUDA unless
 ``--device cpu``; prints the same summary lines as ``serve_lm.py``
-(without the AOT-miss and hot-swap counts, which this engine does not
-have).
+(without the hot-swap count, which this engine does not have): the
+warmup's captured graphs (one prefill and one decode a bucket; none on
+the CPU, which runs the plain step bodies), then the served load with
+its AOT misses and graph replays.
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ def main(argv=None) -> None:
     try:
         t0 = time.perf_counter()
         eng.warmup()
-        print(f"warmup: {len(buckets)} bucket(s) built and run in "
+        print(f"warmup: {len(buckets)} bucket(s), "
+              f"{eng.stats['captures']} graph(s) captured in "
               f"{time.perf_counter() - t0:.1f}s")
         prompts = [rng.randint(1, model.vocab_size, (int(n),))
                    for n in rng.randint(4, max(buckets) - args.max_new,
@@ -76,7 +79,9 @@ def main(argv=None) -> None:
               f"{eng.stats['tokens_out']} tokens in {wall:.2f}s "
               f"({eng.stats['tokens_out'] / wall:.1f} tok/s), "
               f"p99 latency {_pct(lats, 0.99):.1f} ms, "
-              f"rejected {eng.stats['rejected']}")
+              f"rejected {eng.stats['rejected']}, aot misses "
+              f"{eng.stats['aot_misses']}, replays "
+              f"{eng.stats['replays']}")
         ttfts = sorted(r.timings["ttft_s"] for r in ok)
         tpots = sorted(r.timings["tpot_s"] for r in ok
                        if r.timings["tpot_s"] is not None)

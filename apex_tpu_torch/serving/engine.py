@@ -18,20 +18,36 @@ counterpart of ``apex_tpu/serving/engine.py``.
   in place; ``cache_dtype=torch.int8`` stores it as int8 with one fp32
   scale per (token, head) (``QuantPool``), quantized by the scatters and
   dequantized by the gather;
+* **the AOT table** — the counterpart of JAX's ahead-of-time executables:
+  on CUDA, prefill and decode of each bucket run as captured CUDA graphs
+  (:func:`apex_tpu_torch.cache.warmup`), keyed by
+  ``cache.signature(args, static=(kind, bucket))``.  :meth:`warmup`
+  captures every bucket's pair before traffic, all from one graph pool;
+  :meth:`_dispatch` replays, and a (kind, bucket) never warmed is
+  captured at its first use and counted in ``stats["aot_misses"]``, as
+  JAX compiles on a miss.  A step's inputs are one int64 vector (prefill:
+  the pages, the padded prompt and its length; decode: the page tables,
+  positions and tokens), written by the host into pinned memory and
+  copied in with one ``copy_``; the graph's token comes back with one
+  read.  The graphs are keyed on the weights' identities and versions
+  too: after an in-place update (``load_state_dict``, an optimizer step,
+  a ``.data`` assignment) or a replaced weight
+  (``load_state_dict(assign=True)``, a new ``nn.Parameter``) every graph
+  is captured again (``stats["recaptures"]``),
+  so new weights always take effect, as JAX passes ``params`` to every
+  call.  On the CPU the table holds the plain step bodies;
 * **per-request timings** — queue wait, prefill, decode, TTFT (submit to
   first token), TPOT (mean time per later token) and e2e, measured on the
   host around work that ends in the token's copy to the host; each
   prefill and decode step is also a ``torch.profiler`` range
-  (``prefill[bucket]``, ``decode[bucket]``), free when no profiler runs.
+  (``prefill[bucket]``, ``decode[bucket]``) around its dispatch and its
+  read, free when no profiler runs.
 
 Decoding is greedy (``argmax``, first maximum on ties, as ``jnp.argmax``)
 so the tokens equal the JAX engine's on the same weights.
 
-What the JAX engine has and this one does not yet: the AOT
-``cache.signature`` machinery (PyTorch runs eagerly; :meth:`warmup` runs
-one prefill and one decode per bucket instead, so every kernel is built
-before traffic), the telemetry recorder and tracer hooks, and
-``watch_dir`` weight hot-swap.
+What the JAX engine has and this one does not yet: the telemetry
+recorder and tracer hooks, and ``watch_dir`` weight hot-swap.
 
 Usage::
 
@@ -53,6 +69,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import cache as _cache
 from .._device import resolve_device
 from . import kv_cache as _kv
 
@@ -168,12 +185,24 @@ class ServingEngine:
         self._qlock = threading.Lock()
         self._qcond = threading.Condition(self._qlock)
         #: ``prefill_s`` / ``decode_s``: host seconds spent in prefills
-        #: and decode steps, each ending in its token's copy to the host
+        #: and decode steps, each ending in its token's copy to the host;
+        #: ``captures`` graphs captured, ``replays`` graph replays,
+        #: ``aot_misses`` steps that found no table entry, ``recaptures``
+        #: graphs captured again after the weights moved
         self.stats = {"submitted": 0, "completed": 0, "rejected": 0,
                       "tokens_out": 0, "decode_steps": 0, "prefills": 0,
                       "prefill_s": 0.0, "decode_s": 0.0,
+                      "aot_misses": 0, "captures": 0, "replays": 0,
+                      "recaptures": 0,
                       "kv_bytes_per_token": _kv.kv_bytes_per_token(
                           model, cache_dtype)}
+        # the AOT table: signature -> (kind, bucket, captured step, or
+        # the plain body on the CPU); the host input vector of each
+        # (kind, bucket); the weights' versions the table was made for
+        self._aot: dict = {}
+        self._host: dict = {}
+        self._pool = None
+        self._weights, self._weights_seen = self._weight_versions()
         self._serve_stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
         self._closed = False
@@ -185,64 +214,161 @@ class ServingEngine:
                 return b
         return None
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
-
     @torch.inference_mode()
-    def _prefill(self, bucket: int, pages, tokens, length: int
-                 ) -> torch.Tensor:
+    def _prefill(self, bucket: int, pages, tokens, length) -> torch.Tensor:
         """Run one padded ``[1, bucket]`` prompt, write its K/V into
-        ``pages``, return the greedy next token (a device scalar)."""
+        ``pages``, return the greedy next token (a device scalar).
+        ``length``, the prompt's length, is a device tensor, so the last
+        position is an ``index_select`` (clamped into the bucket, as
+        JAX's ``dynamic_index_in_dim`` clamps)."""
         model = self.model
         shape = (1, bucket) + self.pool_k.shape[3:]
-        with torch.profiler.record_function(f"prefill[{bucket}]"):
-            zeros = [(torch.zeros(shape, dtype=self.pool_k.dtype,
-                                  device=self.device),
-                      torch.zeros(shape, dtype=self.pool_v.dtype,
+        zeros = [(torch.zeros(shape, dtype=self.pool_k.dtype,
+                              device=self.device),
+                  torch.zeros(shape, dtype=self.pool_v.dtype,
+                              device=self.device))
+                 for _ in range(model.num_layers)]
+        logits, caches = model(
+            tokens, kv_caches=zeros,
+            positions=torch.zeros((1,), dtype=torch.long,
                                   device=self.device))
-                     for _ in range(model.num_layers)]
-            logits, caches = model(
-                tokens, kv_caches=zeros,
-                positions=torch.zeros((1,), dtype=torch.long,
-                                      device=self.device))
-            _kv.scatter_prefill(self.pool_k, pages,
-                                torch.stack([k[0] for k, _ in caches]))
-            _kv.scatter_prefill(self.pool_v, pages,
-                                torch.stack([v[0] for _, v in caches]))
-            return torch.argmax(logits[0, length - 1], dim=-1)
+        _kv.scatter_prefill(self.pool_k, pages,
+                            torch.stack([k[0] for k, _ in caches]))
+        _kv.scatter_prefill(self.pool_v, pages,
+                            torch.stack([v[0] for _, v in caches]))
+        last = (length.reshape(1) - 1).clamp(0, bucket - 1)
+        return torch.argmax(logits[0].index_select(0, last)[0], dim=-1)
 
     @torch.inference_mode()
     def _decode(self, tables, positions, tokens) -> torch.Tensor:
         """One batched single-token step over every slot; returns the
         greedy next token per slot ``[S]``."""
-        with torch.profiler.record_function(
-                f"decode[{tables.shape[1] * self.page_size}]"):
-            caches = _kv.gather_views(self.pool_k, self.pool_v, tables)
-            logits, new = self.model(tokens[:, None], kv_caches=caches,
-                                     positions=positions)
-            slot = torch.arange(positions.shape[0], device=self.device)
-            k_tok = torch.stack([k[slot, positions] for k, _ in new])
-            v_tok = torch.stack([v[slot, positions] for _, v in new])
-            pid = tables[slot, positions // self.page_size]
-            off = positions % self.page_size
-            _kv.scatter_token(self.pool_k, pid, off, k_tok)
-            _kv.scatter_token(self.pool_v, pid, off, v_tok)
-            return torch.argmax(logits[:, -1, :], dim=-1)
+        caches = _kv.gather_views(self.pool_k, self.pool_v, tables)
+        logits, new = self.model(tokens[:, None], kv_caches=caches,
+                                 positions=positions)
+        slot = torch.arange(positions.shape[0], device=self.device)
+        k_tok = torch.stack([k[slot, positions] for k, _ in new])
+        v_tok = torch.stack([v[slot, positions] for _, v in new])
+        pid = tables[slot, positions // self.page_size]
+        off = positions % self.page_size
+        _kv.scatter_token(self.pool_k, pid, off, k_tok)
+        _kv.scatter_token(self.pool_v, pid, off, v_tok)
+        return torch.argmax(logits[:, -1, :], dim=-1)
+
+    # -- the AOT table ---------------------------------------------------------
+    def _args_len(self, kind: str, bucket: int) -> int:
+        n_pages_b = bucket // self.page_size
+        if kind == "prefill":
+            return n_pages_b + bucket + 1
+        return self.max_seqs * (n_pages_b + 2)
+
+    def _host_args(self, kind: str, bucket: int) -> torch.Tensor:
+        """The (kind, bucket) step's int64 input vector on the host,
+        pinned on CUDA, made once and rewritten by every step (the step
+        before it ended in a read that waited for its copy)."""
+        buf = self._host.get((kind, bucket))
+        if buf is None:
+            buf = self._host[(kind, bucket)] = torch.zeros(
+                self._args_len(kind, bucket), dtype=torch.int64,
+                pin_memory=self.device.type == "cuda")
+        return buf
+
+    def _body(self, kind: str, bucket: int):
+        """The step function of (kind, bucket) on its input vector:
+        :meth:`_prefill` or :meth:`_decode` on views of it (moved to the
+        device first; in a graph it is there already)."""
+        n_pages_b = bucket // self.page_size
+        s = self.max_seqs
+
+        def prefill(packed):
+            packed = packed.to(self.device, non_blocking=True)
+            return self._prefill(
+                bucket, packed[:n_pages_b],
+                packed[n_pages_b:n_pages_b + bucket].reshape(1, bucket),
+                packed[n_pages_b + bucket:])
+
+        def decode(packed):
+            packed = packed.to(self.device, non_blocking=True)
+            at = s * n_pages_b
+            return self._decode(packed[:at].reshape(s, n_pages_b),
+                                packed[at:at + s], packed[at + s:])
+        return prefill if kind == "prefill" else decode
+
+    def _capture(self, kind: str, bucket: int):
+        """(kind, bucket)'s step captured on a template input that touches
+        only the trash page (all-zero pages and tables, prompt length 1);
+        the plain body on the CPU."""
+        if self.device.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        template = torch.zeros(self._args_len(kind, bucket),
+                               dtype=torch.int64)
+        if kind == "prefill":
+            template[-1] = 1
+        step = _cache.warmup(self._body(kind, bucket), template,
+                             device=self.device, pool=self._pool)
+        if isinstance(step, _cache.Captured):
+            self.stats["captures"] += 1
+        return step
+
+    def _weight_versions(self) -> tuple:
+        """The model's parameters and buffers as they are now, and the key
+        of each: its identity, version and data address.  The engine
+        holds the tensors of the last key, so an identity stays unique
+        while it is compared."""
+        weights = [*self.model.parameters(), *self.model.buffers()]
+        return weights, tuple((id(w), w._version, w.data_ptr())
+                              for w in weights)
+
+    def _check_weights(self) -> None:
+        """Capture every graph again when a weight moved since the table
+        was made: updated in place, or replaced by another tensor
+        (``load_state_dict(assign=True)``, a new ``nn.Parameter``).  A
+        graph reads the tensors it captured, and at O4 the int8 weights
+        prepared from them."""
+        weights, seen = self._weight_versions()
+        if seen == self._weights_seen:
+            return
+        self._weights, self._weights_seen = weights, seen
+        if self.device.type != "cuda":
+            return
+        entries = [(key, kind, bucket)
+                   for key, (kind, bucket, _) in self._aot.items()]
+        self._aot.clear()              # free the old graphs first
+        for key, kind, bucket in entries:
+            self._aot[key] = (kind, bucket, self._capture(kind, bucket))
+            self.stats["recaptures"] += 1
+
+    def _dispatch(self, kind: str, bucket: int, args: tuple):
+        """Replay (kind, bucket)'s captured step on ``args`` (the host
+        input vector), as JAX's ``_dispatch`` calls the compiled
+        executable; a (kind, bucket) not in the table is captured now and
+        counted in ``stats["aot_misses"]``.  Returns the step's token(s)
+        on the device."""
+        self._check_weights()
+        key = _cache.signature(args, static=(kind, bucket))
+        entry = self._aot.get(key)
+        if entry is None:
+            self.stats["aot_misses"] += 1
+            entry = self._aot[key] = (kind, bucket,
+                                      self._capture(kind, bucket))
+        step = entry[2]
+        if isinstance(step, _cache.Captured):
+            self.stats["replays"] += 1
+        return step(*args)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None
                ) -> "ServingEngine":
-        """Run one prefill and one decode per bucket before traffic, so
-        every kernel is built and loaded first.  Both touch only the
-        trash page (all-zero page tables)."""
-        s = self.max_seqs
+        """Capture prefill and decode of every bucket before traffic
+        (each run once on the trash page, then captured), so serving
+        captures nothing.  On the CPU it fills the table with the plain
+        bodies."""
+        self._check_weights()
         for b in (self.buckets if buckets is None else buckets):
-            n_pages_b = b // self.page_size
-            self._prefill(b, self._tensor(np.zeros((n_pages_b,))),
-                          self._tensor(np.zeros((1, b))), 1)
-            nxt = self._decode(self._tensor(np.zeros((s, n_pages_b))),
-                               self._tensor(np.zeros((s,))),
-                               self._tensor(np.zeros((s,))))
-            nxt.cpu()
+            for kind in ("prefill", "decode"):
+                key = _cache.signature((self._host_args(kind, b),),
+                                       static=(kind, b))
+                if key not in self._aot:
+                    self._aot[key] = (kind, b, self._capture(kind, b))
         return self
 
     # -- request intake ------------------------------------------------------
@@ -357,13 +483,18 @@ class ServingEngine:
                       t_submit: float, bucket: int, pages: List[int]
                       ) -> None:
         t_admit = time.perf_counter()
-        tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :req.prompt.size] = req.prompt
-        nxt = self._prefill(bucket, self._tensor(pages),
-                            self._tensor(tokens), int(req.prompt.size))
-        # response boundary: the first token must reach the host — it
-        # seeds the decode batch and may already finish the request
-        first = int(nxt)
+        host = self._host_args("prefill", bucket)
+        args = host.numpy()
+        n_pages_b = len(pages)
+        args[:n_pages_b] = pages
+        args[n_pages_b:n_pages_b + bucket] = 0
+        args[n_pages_b:n_pages_b + req.prompt.size] = req.prompt
+        args[-1] = req.prompt.size
+        with torch.profiler.record_function(f"prefill[{bucket}]"):
+            nxt = self._dispatch("prefill", bucket, (host,))
+            # response boundary: the first token must reach the host — it
+            # seeds the decode batch and may already finish the request
+            first = int(nxt)
         t_done = time.perf_counter()
         self.stats["prefills"] += 1
         self.stats["prefill_s"] += t_done - t_admit
@@ -383,14 +514,20 @@ class ServingEngine:
         # sequence's NEXT position
         bucket = self._bucket_for(int(max(self._pos[i] for i in live)) + 1)
         n_pages_b = bucket // self.page_size
-        tables = np.zeros((self.max_seqs, n_pages_b), np.int64)
+        s = self.max_seqs
+        host = self._host_args("decode", bucket)
+        args = host.numpy()
+        tables = args[:s * n_pages_b].reshape(s, n_pages_b)
+        tables[:] = 0
         for i in live:
             tables[i] = self.pages.padded_row(self._slots[i].pages,
                                               n_pages_b)
+        args[s * n_pages_b:s * n_pages_b + s] = self._pos
+        args[s * n_pages_b + s:] = self._tok
         t0 = time.perf_counter()
-        nxt = self._decode(self._tensor(tables), self._tensor(self._pos),
-                           self._tensor(self._tok))
-        toks = nxt.cpu().numpy()     # the per-step response boundary
+        with torch.profiler.record_function(f"decode[{bucket}]"):
+            nxt = self._dispatch("decode", bucket, (host,))
+            toks = nxt.cpu().numpy()     # the per-step response boundary
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["tokens_out"] += len(live)
@@ -477,6 +614,8 @@ class ServingEngine:
             self.pages.free(act.pages)
             self._slots[i] = None
             act.completion._set(closed)
+        self._aot.clear()              # the graphs and their pool
+        self._pool = None
 
     def __enter__(self) -> "ServingEngine":
         return self

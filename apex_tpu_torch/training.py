@@ -1,9 +1,9 @@
 """The amp training step: cast, forward, backward, unscale, overflow
 check, loss-scale state machine and the skip-masked optimizer update.
 
-Counterpart of ``apex_tpu/training.py:217-429`` (``FunctionalOptimizer``,
-``adam``, ``TrainState``, ``make_train_step``), with the same opt-level
-semantics:
+Counterpart of ``apex_tpu/training.py:177-429`` (``FunctionalOptimizer``,
+``adam``, ``TrainState``, ``chain_steps``, ``make_train_step``), with the
+same opt-level semantics:
 
 * O0: fp32 end to end.
 * O1: fp32 parameters, no model cast (the autocast policy is not ported).
@@ -37,6 +37,7 @@ import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .amp import policy as _policy
 from .amp.loss_scaler import LossScaler, LossScalerState
@@ -72,6 +73,36 @@ class TrainState(NamedTuple):
     opt_state: Any
     scaler: LossScalerState
     model_state: Any = None
+
+
+def _stack_trees(trees):
+    """One tree of ``torch.stack``-ed leaves from a list of trees of one
+    structure (the per-step metrics of a window, stacked on K)."""
+    flat = [pytree.tree_flatten(t) for t in trees]
+    spec = flat[0][1]
+    return pytree.tree_unflatten(
+        [torch.stack(xs) for xs in zip(*(leaves for leaves, _ in flat))],
+        spec)
+
+
+def chain_steps(step_fn: Callable) -> Callable:
+    """K training steps in order, as one function.
+
+    ``chain_steps(step_fn)(state, batches)`` runs ``step_fn`` over
+    ``batches`` (every tensor leaf stacked on a leading K axis) and
+    returns ``(state, metrics)``, the per-step metrics stacked on K: the
+    JAX ``lax.scan`` over the window, step by step.  It is a plain
+    function; capturing it, so that K steps cost one host call, is the
+    caller's (:class:`apex_tpu_torch.runtime.StepPipeline`)."""
+    def chained(state, batches):
+        leaves, spec = pytree.tree_flatten(batches)
+        per_step = []
+        for i in range(leaves[0].shape[0]):
+            batch = pytree.tree_unflatten([x[i] for x in leaves], spec)
+            state, metrics = step_fn(state, batch)
+            per_step.append(metrics)
+        return state, _stack_trees(per_step)
+    return chained
 
 
 def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,

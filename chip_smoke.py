@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``apex_tpu_torch``) on one NVIDIA
 GPU: builds the port's kernels from this checkout, holds each against its
 plain PyTorch version at the shapes of the serving and training paths,
-serves GPT-2 small through the paged-KV engine, trains it for ten steps
+serves GPT-2 small through the paged-KV engine (its steps captured in
+CUDA graphs, beside the same steps run eagerly), trains it for ten steps
 through the LM trainer, trains ResNet-50 for ten steps through the
 ImageNet trainer (its default, every convolution in the port's conv
-kernels; then with ``--no-pallas-conv``), serves and trains GPT-2 small
-at amp O4 through the int8 quantized-matmul kernel, drives the
-``[B, T, S]`` bias gradient through ``flash_attention``, and checks the
-card's answers against the CPU's.
+kernels; then with ``--no-pallas-conv``), both trainers replaying a
+captured step, serves and trains GPT-2 small at amp O4 through the int8
+quantized-matmul kernel, drives the ``[B, T, S]`` bias gradient through
+``flash_attention``, runs the trainers' K-step windows from CUDA graphs
+against eager steps, and checks the card's answers against the CPU's.
 
     python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
@@ -23,8 +25,8 @@ line):
    BN epilogue and cross-entropy, forward and backward, one after
    another), the five concurrently, time each and print ``ptxas``'s
    registers and spills;
-3. LayerNorm kernel vs plain at ``[1024, 768]`` and ``[8, 768]``, bf16
-   and fp32, and rows of mean 100 (the kernel's single-pass variance
+3. LayerNorm kernel vs plain at ``[1024, 768]``, ``[8, 768]`` and the LM
+   step's ``[8184, 768]``, bf16 and fp32, and rows of mean 100 (the kernel's single-pass variance
    follows the plain version's, not the two-pass one);
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
    ``[B, T, S]`` bias, full causal, decode (``q_len = 1``, key padding
@@ -39,15 +41,25 @@ line):
    ``F.scaled_dot_product_attention``) as a yardstick only; the port
    never calls it;
 5. serving: gpt2_small in bf16, buckets (256, 1024), page 16, 8 slots,
-   16 requests of 32-900 prompt tokens and 32 new tokens, with every
-   launch counter set to 0 just before and read just after; then a
+   16 requests of 32-900 prompt tokens and 32 new tokens through the
+   captured engine, with every launch counter set to 0 just before the
+   engine is made and read after it served (each kernel's count the
+   per-forward count times the forwards that ran on the card: the
+   warmup's warm run of prefill and decode for each bucket, and every
+   replay; a replay adds the launches its graph recorded, the capture
+   adds none; 4 graphs at warmup, no capture and no AOT miss while
+   serving, one replay a step), then the
+   same load through the eager bodies: greedy tokens equal bit for bit,
+   tokens/s, TTFT and TPOT p50/p99, host ms a step and the bytes of the
+   graphs' memory pool, both ways; then a
    256-token prefill's logits on the card against the CPU port in fp32,
    and gpt_tiny served in fp32 on the card and on the CPU with equal
    greedy tokens (a mismatch is allowed only where the CPU's top-2 logit
    gap at that step is below 1e-4);
 6. where the time goes: one serving run traced with ``torch.profiler``
    (device busy and idle share, host and device time per prefill and
-   decode step, device time by kernel kind);
+   decode step, kernels a step, device time by kernel kind), captured
+   and eager;
 7. LayerNorm backward kernel vs plain at ``[8184, 768]`` (8 x 1023
    training rows) and ``[8, 768]``, bf16 and fp32; ``library_ms`` is one
    ``aten.native_layer_norm_backward`` call computing dx;
@@ -57,15 +69,17 @@ line):
    48, 128 and 256, 320 and 512 (B 1, T 1024), a ``[B, T, S]`` bias, and
    causal cross attention (q_len
    333, kv_len 1021: the queries the suffix of the keys); ``library_ms``
-   is the backward of one SDPA call, timed eagerly (autograd cannot be
-   captured in a CUDA graph);
+   is the backward of one SDPA call, timed eagerly (its autograd graph
+   is recorded once, outside any capture, and walked again each call);
 9. training: the LM trainer (``apex_tpu_torch.examples.lm.main_amp``)
    on GPT-2 small, bf16 O2, Adam lr 3e-4, weight decay 0.1, static loss
-   scale 1.0, the fused loss, B 8, seq_len 1024, 10 steps, every launch
-   counter set to 0 just before and read just after (25 LN forward and
-   backward, 12 flash forward, dQ and dK/dV, 1 cross-entropy forward and
-   backward per step, nothing else); losses finite and falling; step ms,
-   tokens/s, peak memory; then two steps traced with ``torch.profiler``
+   scale 1.0, the fused loss, B 8, seq_len 1024, 10 steps replayed from
+   the graph of one step (``--steps-per-call 1``), every launch counter
+   set to 0 just before and read just after (25 LN forward and backward,
+   12 flash forward, dQ and dK/dV, 1 cross-entropy forward and backward
+   per step of the warm run and of the ten replays, nothing else; one
+   capture, ten replays); losses finite and falling; step ms, tokens/s,
+   peak memory; then two eager steps traced with ``torch.profiler``
    (device time by kind, idle share);
 10. training correctness: gpt_tiny O0 fp32 three steps on the card and
    on the CPU from the same weights; gpt2_small fp32 gradients at B 1, T
@@ -85,12 +99,13 @@ line):
 13. ResNet-50 training: the ImageNet trainer
    (``apex_tpu_torch.examples.imagenet.main_amp``), B 128, 224 x 224,
    bf16 O2, SGD, its defaults ``--pallas-conv --fused-bn --fused-loss``,
-   10 steps, every launch counter set to 0 just before and read just
-   after (53 conv forward, 52 dgrad (the stem's input needs no gradient)
-   and 53 wgrad, 53 BN forward and backward, 1 cross-entropy forward and
-   backward per step, nothing else); losses finite; step ms, images/s,
-   peak memory; two steps traced (device time by kind, the conv kernels
-   split into forward, dgrad and wgrad; idle share);
+   10 steps replayed from a captured step, every launch counter set to 0
+   just before and read just after (53 conv forward, 52 dgrad (the
+   stem's input needs no gradient) and 53 wgrad, 53 BN forward and
+   backward, 1 cross-entropy forward and backward per step of the warm
+   run and of the replays, nothing else); losses finite; step ms,
+   images/s, peak memory; two eager steps traced (device time by kind,
+   the conv kernels split into forward, dgrad and wgrad; idle share);
    13b. the same with ``--no-pallas-conv`` (cuDNN convs), 5 steps, no
    conv kernel launched, also traced;
 14. ResNet correctness: a small bottleneck ResNet at O0 fp32, three SGD
@@ -127,9 +142,10 @@ line):
    other checkout's qmm kernel timed on the same inputs;
 17. O4 serving: gpt2_small bf16 calibrated in observe mode on 4 batches
    (frozen with "max"), rebuilt with the frozen scales, serving phase
-   5's load with an int8 KV cache (72 qmm, 25 LN and 12 flash launches a
+   5's load with an int8 KV cache through the captured engine and the
+   eager bodies as in phase 5 (72 qmm, 25 LN and 12 flash launches a
    forward, nothing else; 72 weight preparations at the engine's warmup
-   and none while serving), traced as in phase 6 (kernels per step), and
+   and none while serving; tokens equal), traced as in phase 6, and
    O4 beside O2 (host and device ms and kernels a decode step,
    tokens/s); O4 with an empty calibration equal to O2 bit for bit, O4
    vs O2 prefill logits, and O4's prefill logits and greedy tokens with
@@ -150,7 +166,20 @@ line):
    against ``_flash_bwd_ref``'s dbias within 1e-4 of max |dbias|;
    ``library_ms`` SDPA's backward with the bias expanded to heads; with
    ``--was``, the other checkout's db2 kernel timed on the same inputs
-   (and equal bit for bit where this one runs the SIMT kernel).
+   (and equal bit for bit where this one runs the SIMT kernel);
+20. K-step windows from CUDA graphs: the LM trainer at GPT-2 small O2
+   and the ImageNet trainer at ResNet-50 O2 (phases 9 and 13's
+   configurations) with ``--steps-per-call`` 1 and 8, and phase 18's O4
+   step through the trainers' window loop, 16 steps each, against 16
+   eager calls of the step function from the same initial state: every
+   state leaf equal bit for bit (one capture, 16 / K replays); step ms
+   and peak memory of each.
+
+The phases run in the order 1-4, 17's calibration, 20, 5, 17's served
+load, 6 (with 17's traces), 7-16, the rest of 17, 18, 19: the eager
+sides of 20, 5 and 17 run before the first profiler session, after which
+every launch of the process costs the host more (phase 6 ends by timing
+phase 20's eager LM steps again).
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
@@ -165,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import importlib
 import json
 import os
@@ -264,7 +294,8 @@ def layer_norm_cases(fln, dev):
     w = torch.from_numpy((1 + 0.1 * rng.randn(768)).astype(np.float32)).to(dev)
     b = torch.from_numpy((0.1 * rng.randn(768)).astype(np.float32)).to(dev)
     cases = []
-    for rows in (1024, 8):
+    # serving prefill and decode rows, and the LM step's 8 x 1023
+    for rows in (1024, 8, 8184):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             x = torch.from_numpy(rng.randn(rows, 768).astype(np.float32)).to(
                 dev, dtype)
@@ -650,8 +681,9 @@ def flash_bwd_cases(fa, dev):
         lout = F.scaled_dot_product_attention(qt, kt, vt, scale=d ** -0.5,
                                               **lib)
         dot = do.transpose(1, 2)
-        # (autograd's backward cannot be captured in a CUDA graph: timed
-        # eagerly; its host cost is small beside milliseconds of work)
+        # (one autograd graph recorded outside any capture and walked
+        # again each call: timed eagerly; its host cost is small beside
+        # milliseconds of work)
         library_ms = eager_ms(lambda: torch.autograd.grad(
             lout, (qt, kt, vt), dot, retain_graph=True), iters=5)
         for cases, fn, n_mm, nbytes, keys in (
@@ -682,49 +714,67 @@ def _pct(values, q):
     return values[min(len(values) - 1, int(q * (len(values) - 1)))] * 1e3
 
 
-def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
-                     cache_dtype=None):
-    """The phase-5 load (16 requests of 32-900 prompt tokens, 32 new
-    tokens, buckets (256, 1024), page 16, 8 slots) through
-    ``ServingEngine``: every launch counter set to 0 just before and read
-    just after, each equal to ``per_forward`` x the forwards run (0 where
-    it is not named)."""
-    rng = np.random.RandomState(2)
-    eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
-                                   max_seqs=8, cache_dtype=cache_dtype,
-                                   device=dev)
+def eager_engine_cls(engine_mod):
+    """The serving engine with every step run eagerly: its ``_dispatch``
+    calls the step body the graphs capture, and its warmup runs each body
+    once on the trash page (the comparison's eager side; the engine
+    itself has no such switch)."""
+    class EagerEngine(engine_mod.ServingEngine):
+        def _dispatch(self, kind, bucket, args):
+            return self._body(kind, bucket)(*args)
+
+        def warmup(self, buckets=None):
+            for b in (self.buckets if buckets is None else buckets):
+                for kind in ("prefill", "decode"):
+                    host = self._host_args(kind, b)
+                    host.zero_()
+                    host[-1] = 1 if kind == "prefill" else 0
+                    self._dispatch(kind, b, (host,))
+            torch.cuda.synchronize()
+            return self
+    return EagerEngine
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the CUDA allocator holds in private pools, the memory of the
+    graphs alive in this process (the allocator's snapshot tags each
+    segment with its pool; the default pool is (0, 0))."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def _serve(model, cls, prompts, dev, cache_dtype):
+    """One engine of ``cls`` over ``prompts`` (32 new tokens each):
+    ``(results, stats, numbers)``."""
+    eng = cls(model, buckets=(256, 1024), page_size=16, max_seqs=8,
+              cache_dtype=cache_dtype, device=dev)
     preps = [preparations(model)]
+    gc.collect()
+    torch.cuda.empty_cache()       # the pools of graphs freed before
+    pools = graph_pool_bytes()
     t0 = time.perf_counter()
     eng.warmup()
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_captures = eng.stats["captures"]
+    pool_bytes = graph_pool_bytes() - pools
     preps.append(preparations(model))
-    prompts = [rng.randint(1, model.vocab_size, (int(n),))
-               for n in rng.randint(32, 901, 16)]
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
     t0 = time.perf_counter()
     results = eng.generate(prompts, max_new_tokens=32)
     wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
     preps.append(preparations(model))
-    st = eng.stats
-    tag = eng.kv_cache_dtype
+    st = dict(eng.stats)
     eng.close()
-    forwards = st["prefills"] + st["decode_steps"]
-    check(all(r.ok and len(r.tokens) == 32 for r in results),
-          f"gpt2_small ({tag} KV): {sum(r.ok for r in results)}/16 "
-          f"requests served")
-    check(all(launches[n] == per_forward.get(n, 0) * forwards
-              for n in launches),
-          f"gpt2_small ({tag} KV): launches {launches} = {per_forward} x "
-          f"{forwards} forwards (no other kernel)")
     ok = [r for r in results if r.ok]
-    res = dict(
-        kv_cache_dtype=tag, kv_bytes_per_token=st["kv_bytes_per_token"],
-        warmup_s=warm_s, wall_s=wall, tokens_out=st["tokens_out"],
-        tokens_per_s=st["tokens_out"] / wall, prefills=st["prefills"],
-        decode_steps=st["decode_steps"],
+    return results, st, dict(
+        kv_cache_dtype=eng.kv_cache_dtype,
+        warmup_s=warm_s, warmup_captures=warm_captures,
+        graph_pool_bytes=pool_bytes, wall_s=wall,
+        tokens_out=st["tokens_out"], tokens_per_s=st["tokens_out"] / wall,
+        prefills=st["prefills"], decode_steps=st["decode_steps"],
+        captures_serving=st["captures"] - warm_captures,
+        aot_misses=st["aot_misses"], replays=st["replays"],
         prefill_ms_mean=st["prefill_s"] / max(1, st["prefills"]) * 1e3,
         decode_step_ms_mean=st["decode_s"] / max(1, st["decode_steps"]) * 1e3,
         ttft_p50_ms=_pct([r.timings["ttft_s"] for r in ok], 0.5),
@@ -732,29 +782,84 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
         tpot_p50_ms=_pct([r.timings["tpot_s"] for r in ok], 0.5),
         tpot_p99_ms=_pct([r.timings["tpot_s"] for r in ok], 0.99),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-        buckets=sorted({r.bucket for r in ok}),
-        launches={n: v for n, v in launches.items() if v},
         preparations_warmup=preps[1] - preps[0],
-        preparations_served=preps[2] - preps[1],
-        preparations_per_decode_step=(preps[2] - preps[1])
-        / max(1, st["decode_steps"]))
+        preparations_served=preps[2] - preps[1])
+
+
+def _serve_line(tag, res):
+    return (f"{tag}: {res['tokens_out']} tokens in {res['wall_s']:.3f} s "
+            f"({res['tokens_per_s']:.1f} tok/s); ttft p50 "
+            f"{res['ttft_p50_ms']:.2f} / p99 {res['ttft_p99_ms']:.2f} ms; "
+            f"tpot p50 {res['tpot_p50_ms']:.2f} / p99 "
+            f"{res['tpot_p99_ms']:.2f} ms; prefill "
+            f"{res['prefill_ms_mean']:.2f} ms, decode step "
+            f"{res['decode_step_ms_mean']:.3f} ms host (means); peak memory "
+            f"{res['max_memory_allocated_bytes'] / 2**30:.2f} GiB; warmup "
+            f"{res['warmup_s']:.2f} s, {res['warmup_captures']} graphs, "
+            f"graph pools {res['graph_pool_bytes'] / 2**20:.1f} MiB")
+
+
+def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
+                     cache_dtype=None):
+    """The phase-5 load (16 requests of 32-900 prompt tokens, 32 new
+    tokens, buckets (256, 1024), page 16, 8 slots) through the captured
+    ``ServingEngine``: every launch counter set to 0 just before the
+    engine is made and read after it served, each equal to
+    ``per_forward`` x the forwards that ran on the card (the warmup's
+    warm run of every (kind, bucket), then one replay a prefill and a
+    decode step; 0 where it is not named), no capture and no AOT miss
+    while serving.  Then the
+    same load through the eager engine (the bodies the graphs captured):
+    greedy tokens equal bit for bit, its numbers beside."""
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, model.vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    for c in counters.values():
+        c.launches = 0
+    results, st, res = _serve(model, engine_mod.ServingEngine, prompts, dev,
+                              cache_dtype)
+    launches = {name: c.launches for name, c in counters.items()}
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    forwards = cache.WARM_RUNS * res["warmup_captures"] + res["replays"]
+    tag = res["kv_cache_dtype"]
+    check(all(r.ok and len(r.tokens) == 32 for r in results),
+          f"gpt2_small ({tag} KV): {sum(r.ok for r in results)}/16 "
+          f"requests served")
+    check(res["warmup_captures"] == 4 and res["captures_serving"] == 0
+          and res["aot_misses"] == 0
+          and res["replays"] == st["prefills"] + st["decode_steps"],
+          f"gpt2_small ({tag} KV): {res['warmup_captures']} graphs captured "
+          f"at warmup (4), {res['captures_serving']} while serving and "
+          f"{res['aot_misses']} AOT misses (0), {res['replays']} replays = "
+          f"{st['prefills']} prefills + {st['decode_steps']} decode steps")
+    check(all(launches[n] == per_forward.get(n, 0) * forwards
+              for n in launches),
+          f"gpt2_small ({tag} KV): launches {launches} = {per_forward} x "
+          f"{forwards} forwards (the warmup's warm runs and the "
+          f"replays)")
+    eager_results, _, eager = _serve(model, eager_engine_cls(engine_mod),
+                                     prompts, dev, cache_dtype)
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(results, eager_results))
+    check(same == 16, f"gpt2_small ({tag} KV): captured greedy tokens equal "
+          f"the eager bodies' in {same}/16 requests")
+    res.update(kv_bytes_per_token=st["kv_bytes_per_token"],
+               buckets=sorted({r.bucket for r in results if r.ok}),
+               launches={n: v for n, v in launches.items() if v},
+               tokens_equal_eager=same, eager=eager,
+               preparations_per_decode_step=res["preparations_served"]
+               / max(1, st["decode_steps"]))
     if per_forward.get("qmm"):
         check(res["preparations_warmup"] == per_forward["qmm"]
               and res["preparations_served"] == 0,
               f"gpt2_small ({tag} KV): weight preparations "
               f"{res['preparations_warmup']} at the engine's warmup "
               f"({per_forward['qmm']}: each site once), "
-              f"{res['preparations_served']} while serving "
-              f"{forwards} forwards (0)")
-    print(f"      served 16 requests ({tag} KV, {res['kv_bytes_per_token']} "
-          f"B/token), {res['tokens_out']} tokens in "
-          f"{wall:.3f} s ({res['tokens_per_s']:.1f} tok/s); ttft p50 "
-          f"{res['ttft_p50_ms']:.2f} / p99 {res['ttft_p99_ms']:.2f} ms; tpot "
-          f"p50 {res['tpot_p50_ms']:.2f} / p99 {res['tpot_p99_ms']:.2f} ms; "
-          f"prefill {res['prefill_ms_mean']:.2f} ms, decode step "
-          f"{res['decode_step_ms_mean']:.2f} ms (means); peak memory "
-          f"{res['max_memory_allocated_bytes'] / 2**30:.2f} GiB; warmup "
-          f"{warm_s:.1f} s", flush=True)
+              f"{res['preparations_served']} while serving (0)")
+    print("      " + _serve_line(f"captured ({tag} KV, "
+                                 f"{res['kv_bytes_per_token']} B/token)",
+                                 res), flush=True)
+    print("      " + _serve_line("eager", eager), flush=True)
     return res
 
 
@@ -779,20 +884,22 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def where_time_goes(model, engine_mod, dev, cache_dtype=None):
+def where_time_goes(model, engine_mod, dev, cache_dtype=None,
+                    engine_cls=None):
     """One traced serving run (8 prompts of 600-900 tokens, 16 new tokens
     each: prefills and decode steps at the 1024 bucket) under
-    ``torch.profiler``: device busy share of the wall time, and per step
-    kind (the engine's ``prefill[b]`` / ``decode[b]`` ranges) the host
-    time, the device time and the device time by kernel kind.  Each step
-    ends in a host sync, so a kernel belongs to the last range that began
-    before it."""
+    ``torch.profiler``, through the captured engine (or ``engine_cls``,
+    the eager one): device busy share of the wall time, and per step
+    kind (the engine's ``prefill[b]`` / ``decode[b]`` ranges around each
+    dispatch and its read) the host time, the device time and the device
+    time by kernel kind.  Each step ends in a host sync, so a kernel (a
+    graph's, too) belongs to the last range that began before it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(5)
-    eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
-                                   max_seqs=8, cache_dtype=cache_dtype,
-                                   device=dev).warmup()
+    cls = engine_cls or engine_mod.ServingEngine
+    eng = cls(model, buckets=(256, 1024), page_size=16, max_seqs=8,
+              cache_dtype=cache_dtype, device=dev).warmup()
     prompts = [rng.randint(1, model.vocab_size, (int(n),))
                for n in rng.randint(600, 901, 8)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -849,9 +956,10 @@ def where_time_goes(model, engine_mod, dev, cache_dtype=None):
               f"device {st['device_us'] / n / 1e3:.3f} ms, "
               f"{st['kernels'] / n:.1f} kernels per step ({kinds})",
               flush=True)
-    print(f"      traced run: wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{busy / 1e3:.1f} ms, idle share {res['device_idle_share']:.3f}, "
-          f"{len(kernels)} kernels", flush=True)
+    print(f"      traced run ({cls.__name__}): wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms, idle share "
+          f"{res['device_idle_share']:.3f}, {len(kernels)} kernels",
+          flush=True)
     check(len(kernels) > 0, "profiler traced device kernels")
     return res
 
@@ -926,6 +1034,18 @@ _TRAIN_KINDS = (("qmm", ("qmm_kernel",)),
                 ("optimizer", ("foreach", "multi_tensor")))
 
 
+def pipeline_gate(name, pipe, steps, k=1):
+    """The trainer's pipeline captured its hot loop once (K steps, after
+    one warm run of them) and replayed it once a window; returns the
+    steps that ran on the card (the warm run's and the replays')."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    check(pipe["captures"] == {"hot": 1, "tail": 0}
+          and pipe["replays"] == steps // k and pipe["steps"] == steps,
+          f"{name}: {pipe['captures']} captures (one hot loop), "
+          f"{pipe['replays']} replays for {steps} steps at K {k}")
+    return cache.WARM_RUNS * k + steps
+
+
 def train_gpt2_small(main_amp, counters, steps=10):
     """The LM trainer's entry point at GPT-2 small, bf16 O2, Adam: every
     launch counter set to 0 just before and read just after."""
@@ -936,10 +1056,13 @@ def train_gpt2_small(main_amp, counters, steps=10):
     res = main_amp.train(args, log=lambda line: print("      " + line,
                                                       flush=True))
     launches = {name: c.launches for name, c in counters.items()}
+    ran = pipeline_gate("gpt2_small training", res["pipeline"], steps)
     per_step = LM_PER_STEP
-    check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
+    check(all(launches[n] == per_step.get(n, 0) * ran
+              for n in launches),
           f"gpt2_small training: launches {launches} = "
-          f"{per_step} x {steps} steps")
+          f"{per_step} x {ran} steps (the warm run and the "
+          f"replays)")
     losses = res["losses"]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"gpt2_small training: losses finite, step {steps} "
@@ -1673,9 +1796,13 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
     if pallas_conv:
         # 53 convs a step; the stem's input (the images) needs no dx
         per_step.update(conv_fwd=53, conv_dgrad=52, conv_wgrad=53)
-    check(all(launches[n] == per_step.get(n, 0) * steps for n in launches),
+    ran = pipeline_gate(f"resnet50 training {flag}", res["pipeline"],
+                        steps)
+    check(all(launches[n] == per_step.get(n, 0) * ran
+              for n in launches),
           f"resnet50 training {flag}: launches {launches} = {per_step} x "
-          f"{steps} steps (no other kernel)")
+          f"{ran} steps (the warm run and the replays; no other "
+          f"kernel)")
     losses = res["losses"]
     check(all(np.isfinite(losses)),
           f"resnet50 training {flag}: losses finite ({losses[0]:.4f} -> "
@@ -2097,25 +2224,32 @@ def tiny_tokens_o4(models, quant, engine_mod, dev):
 
 # -- phase 18: O4 training --------------------------------------------------------------
 
-def train_o4(models, quant, main_amp, training, counters, calib, dev,
-             steps=10):
-    """``make_train_step(opt_level="O4")`` on the calibrated GPT-2 small
+def o4_setup(models, quant, main_amp, training, calib, dev):
+    """A function giving ``(state, step, batch, model)`` of
+    ``make_train_step(opt_level="O4")`` on the calibrated GPT-2 small
     (the LM trainer's model, loss and batch: Adam lr 3e-4, weight decay
-    0.1, B 8, seq_len 1024, the fused loss): every launch counter set to
-    0 just before and read just after."""
-    model = models.GPT(vocab_size=50257, hidden_size=768, num_layers=12,
-                       num_heads=12, mlp_dim=3072, max_len=1024,
-                       dtype=torch.bfloat16, attention_impl="flash",
-                       device=dev, seed=0,
-                       quant=quant.QuantConfig.frozen(calib))
+    0.1, B 8, seq_len 1024, the fused loss), made afresh each call."""
+    def build():
+        model = models.GPT(vocab_size=50257, hidden_size=768, num_layers=12,
+                           num_heads=12, mlp_dim=3072, max_len=1024,
+                           dtype=torch.bfloat16, attention_impl="flash",
+                           device=dev, seed=0,
+                           quant=quant.QuantConfig.frozen(calib))
 
-    def loss_fn(params, batch):
-        return main_amp.lm_loss(torch.func.functional_call(
-            model, params, (batch[0],)), batch[1], 0.0, True)
-    init, step = training.make_train_step(
-        loss_fn, training.adam(3e-4, weight_decay=0.1), opt_level="O4")
-    state = init(model.state_dict())
-    batch = main_amp.synthetic_batch(8, 1024, 50257, dev)
+        def loss_fn(params, batch):
+            return main_amp.lm_loss(torch.func.functional_call(
+                model, params, (batch[0],)), batch[1], 0.0, True)
+        init, step = training.make_train_step(
+            loss_fn, training.adam(3e-4, weight_decay=0.1), opt_level="O4")
+        return (init(model.state_dict()), step,
+                main_amp.synthetic_batch(8, 1024, 50257, dev), model)
+    return build
+
+
+def train_o4(build, counters, steps=10):
+    """Phase 18's O4 steps, eager (``o4_setup``): every launch counter
+    set to 0 just before and read just after."""
+    state, step, batch, model = build()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
@@ -2298,6 +2432,127 @@ def db2_cases(fa, counters, dev, was=None):
     return cases, {"flash_attention_bwd_db2": db2_launches}
 
 
+# -- phase 20: K-step windows captured, against eager steps --------------------------
+
+def _state_diff(got, want):
+    """(leaves that differ, leaves, the largest |difference| and the first
+    differing leaves' names) of two states of one structure."""
+    paths = torch.utils._pytree.tree_flatten_with_path(want)[0]
+    leaves = torch.utils._pytree.tree_leaves(got)
+    differ, worst, names = 0, 0.0, []
+    for (path, w), g in zip(paths, leaves):
+        if not isinstance(w, torch.Tensor) or torch.equal(g, w):
+            continue
+        differ += 1
+        worst = max(worst, (g.double() - w.double()).abs().max().item())
+        if len(names) < 5:
+            names.append(torch.utils._pytree.keystr(path))
+    return differ, len(paths), worst, names
+
+
+def window_loop(state, step_fn, batch, k, steps):
+    """The trainers' loop (``StepPipeline`` over one reused batch, the
+    metrics read one window behind) for a step function no trainer
+    builds: the same result dictionary as their ``train``."""
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
+    pipe = runtime.StepPipeline(step_fn, k).warmup(state, window)
+    res = dict(losses=[], step_s=[])
+    last = runtime.mark(batch[0].device)
+
+    def emit(wm):
+        nonlocal last
+        vals = wm.fetch()
+        res["losses"] += [float(x) for x in vals["loss"][:wm.n_valid]]
+        res["step_s"] += ([runtime.seconds_between(last, wm.end)
+                           / wm.n_valid] * wm.n_valid)
+        last = wm.end
+
+    state, _ = pipe.run(state, ((window, k) for _ in range(steps // k)),
+                        on_metrics=emit)
+    res.update(state=state, pipeline=pipe.stats)
+    return res
+
+
+def eager_steps(build, steps=16):
+    """``steps`` eager calls of the step function from ``build()``'s
+    state: the final state and the ms a step of calls 2-``steps`` (run
+    back to back, one read of the last loss)."""
+    state, step_fn, batch = build()
+    state, met = step_fn(state, batch)
+    met["loss"].item()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, met = step_fn(state, batch)
+    met["loss"].item()
+    return state, (time.perf_counter() - t0) / (steps - 1) * 1e3
+
+
+def capture_vs_eager(name, build, run_k, steps=16, ks=(1, 8)):
+    """``steps`` eager calls of the step function (``build()`` gives the
+    initial state, the step and the batch), then ``run_k(k, steps)`` for
+    each K, the same steps in windows of K replayed from CUDA graphs: the
+    final state of each equal to the eager one bit for bit; step ms (the
+    eager steps 2-16, each window after the first) and peak memory of
+    each."""
+    torch.cuda.reset_peak_memory_stats()
+    want, step_ms = eager_steps(build, steps)
+    out = {"eager": dict(
+        step_ms=step_ms,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())}
+    for k in ks:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_k(k, steps)
+        differ, n, worst, names = _state_diff(res["state"], want)
+        pipe = res["pipeline"]
+        check(differ == 0 and pipe["replays"] == steps // k
+              and pipe["captures"]["hot"] == 1,
+              f"{name} K {k}: state after {steps} steps equals {steps} eager "
+              f"steps in {n - differ}/{n} leaves (max |diff| {worst:.3g}"
+              + (f", first {names}" if names else "") + f"); "
+              f"{pipe['captures']['hot']} capture, {pipe['replays']} replays")
+        out[f"k{k}"] = dict(
+            step_ms=float(np.median(res["step_s"][k:])) * 1e3,
+            step_ms_all=[x * 1e3 for x in res["step_s"]],
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            leaves_differing=differ, leaves=n, max_abs_diff=worst,
+            losses=res["losses"])
+        del res
+    torch.cuda.empty_cache()
+    print(f"      {name}: step ms eager {out['eager']['step_ms']:.2f}, "
+          + ", ".join(f"K {k} {out[f'k{k}']['step_ms']:.2f}" for k in ks)
+          + "; peak GiB eager "
+          f"{out['eager']['max_memory_allocated_bytes'] / 2**30:.2f}, "
+          + ", ".join(f"K {k} "
+                      f"{out[f'k{k}']['max_memory_allocated_bytes'] / 2**30:.2f}"
+                      for k in ks), flush=True)
+    return out
+
+
+def training_windows(main_amp, imagenet, build_o4, steps=16):
+    """LM O2 and ResNet-50 O2 through their trainers at
+    ``--steps-per-call`` 1 and 8, O4 through the trainers' loop on
+    phase 18's step, each against the eager step function."""
+    quiet = dict(log=lambda line: None)
+    lm = capture_vs_eager(
+        "gpt2_small O2 B8 T1023",
+        lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
+        lambda k, n: main_amp.train(main_amp.parse(
+            TRAIN_ARGS + ["--steps", str(n), "--steps-per-call", str(k)]),
+            **quiet), steps)
+    o4 = capture_vs_eager(
+        "gpt2_small O4 B8 T1023", lambda: build_o4()[:3],
+        lambda k, n: window_loop(*build_o4()[:3], k, n), steps)
+    resnet = capture_vs_eager(
+        "resnet50 O2 B128 224",
+        lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
+        lambda k, n: imagenet.train(imagenet.parse(
+            IMAGENET_ARGS + ["--prof", str(n), "--steps-per-call", str(k)]),
+            **quiet), steps)
+    return dict(lm_o2=lm, lm_o4=o4, resnet50_o2=resnet)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -2407,13 +2662,37 @@ def main(argv=None) -> int:
     same_as_was = (flash_same_as_was(fa, load_was(args.was,
                                                   "ops.flash_attention"),
                                      dev) if args.was else None)   # 4b
+    # the eager sides of phases 20, 5 and 17 run before the first
+    # profiler session (phase 6), which leaves host work behind on every
+    # later launch of the process (measured below)
+    calib = calibrate_gpt2_small(models, quant, dev)               # 17
+    build_o4 = o4_setup(models, quant, main_amp, training, calib, dev)
+    windows = training_windows(main_amp, imagenet, build_o4)       # 20
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
                                SERVE_PER_FORWARD)
+    o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
+                                 quant=quant.QuantConfig.frozen(calib))
+    o4_serving = serve_gpt2_small(o4_model, engine_mod, counters,  # 17
+                                  dev, O4_SERVE_PER_FORWARD,
+                                  cache_dtype=torch.int8)
     serving.update(prefill_logits(models, dev))
     serving.update(tiny_tokens(models, engine_mod, dev))
     profile_res = where_time_goes(model, engine_mod, dev)          # 6
-    del model
+    profile_res["eager"] = where_time_goes(
+        model, engine_mod, dev, engine_cls=eager_engine_cls(engine_mod))
+    o4_serving["profile"] = where_time_goes(o4_model, engine_mod, dev,
+                                            cache_dtype=torch.int8)
+    o4_serving["profile"]["eager"] = where_time_goes(
+        o4_model, engine_mod, dev, cache_dtype=torch.int8,
+        engine_cls=eager_engine_cls(engine_mod))
+    del model, o4_model
+    windows["lm_o2"]["eager_after_profiler_step_ms"] = eager_steps(
+        lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)))[1]
+    print(f"      gpt2_small O2 eager step after the profiler sessions: "
+          f"{windows['lm_o2']['eager_after_profiler_step_ms']:.2f} ms "
+          f"(before them {windows['lm_o2']['eager']['step_ms']:.2f})",
+          flush=True)
     ln_bwd_cases = layer_norm_bwd_cases(fln, dev)                  # 7
     dq_cases, dkv_cases = flash_bwd_cases(fa, dev)                 # 8
     trained = train_gpt2_small(main_amp, counters)                 # 9
@@ -2439,16 +2718,7 @@ def main(argv=None) -> int:
                        load_was(args.was, "ops.conv") if args.was else None)
     qmm = qmm_cases(qk, dev, load_was(args.was, "quant.kernels")   # 16
                     if args.was else None)
-    calib = calibrate_gpt2_small(models, quant, dev)               # 17
-    o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
-                                 quant=quant.QuantConfig.frozen(calib))
-    o4_serving = serve_gpt2_small(o4_model, engine_mod, counters, dev,
-                                  O4_SERVE_PER_FORWARD,
-                                  cache_dtype=torch.int8)
-    o4_serving["profile"] = where_time_goes(o4_model, engine_mod, dev,
-                                            cache_dtype=torch.int8)
-    del o4_model
-    o4_serving.update(o4_prefill_checks(models, quant, calib, dev,
+    o4_serving.update(o4_prefill_checks(models, quant, calib, dev,  # 17
                                         engine_mod))
     o4_serving.update(tiny_tokens_o4(models, quant, engine_mod, dev))
     o4_serving["bf16_kv_o2"] = {k: serving[k] for k in (
@@ -2456,8 +2726,7 @@ def main(argv=None) -> int:
         "tpot_p99_ms", "kv_bytes_per_token", "max_memory_allocated_bytes")}
     o4_serving["vs_o2"] = o4_vs_o2(dict(serving, profile=profile_res),
                                    o4_serving)
-    o4_train = train_o4(models, quant, main_amp, training, counters,  # 18
-                        calib, dev)
+    o4_train = train_o4(build_o4, counters)                        # 18
     o4_train["o2"] = {k: trained[k] for k in (
         "step_ms_median_3_10", "tokens_per_s", "max_memory_allocated_bytes")}
     db2, db2_launches = db2_cases(                                 # 19
@@ -2550,6 +2819,7 @@ def main(argv=None) -> int:
                            flash_same_as_was=same_as_was,
                            o4_serving=o4_serving,
                            o4_training=o4_train,
+                           training_windows=windows,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

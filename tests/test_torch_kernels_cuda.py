@@ -1351,3 +1351,260 @@ def test_flash_db2_path_by_dtype_and_width(cuda_device, dtype, head_dim,
     assert len(names) == 1, names
     assert ("db2_mma" in names[0]) == mma, names
     _check_db2_kernel(q, k, v, do, kb, bs, kw)
+
+
+# -- the kernels captured in CUDA graphs -------------------------------------------
+
+cache = importlib.import_module("apex_tpu_torch.cache")
+
+
+def _tensors(out):
+    return [t for t in torch.utils._pytree.tree_leaves(out)
+            if isinstance(t, torch.Tensor)]
+
+
+def _captured_equals_eager(fn, *args):
+    """``fn(*args)`` eagerly, then captured (``cache.warmup``) and
+    replayed twice on the same inputs: each replay's outputs equal the
+    eager ones bit for bit, and every wrapper's counter counts what ran
+    on the card: the eager call, the warm run and the two replays, each
+    launching what the eager call launched (the capture launches
+    nothing)."""
+    counters = cache._build.COUNTED
+    before = [c.launches for c in counters]
+    want = [t.clone() for t in _tensors(fn(*args))]
+    eager = [c.launches - b for c, b in zip(counters, before)]
+    assert any(eager)
+    step = cache.warmup(fn, *args)
+    assert isinstance(step, cache.Captured)
+    assert {c.__name__: n for c, n in step.launches.items()} == {
+        c.__name__: n for c, n in zip(counters, eager) if n}
+    for _ in range(2):
+        got = _tensors(step(*args))
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        n * (1 + cache.WARM_RUNS + 2) for n in eager]
+    return step
+
+
+CAPTURE_CASES = ["layer_norm", "layer_norm_bwd", "flash_prefill",
+                 "flash_decode_split_kv", "flash_bwd", "qmm_decode_split_k",
+                 "qmm_prefill", "bn_act", "xentropy", "conv_fwd", "conv_dgrad",
+                 "conv_wgrad"]
+
+
+def _capture_case(dev, case):
+    """(the wrapper as a function of tensors, its arguments) at a shape of
+    the serving or training path."""
+    rng = np.random.RandomState(40)
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+    if case == "layer_norm":
+        return (lambda x, w, b: fln.layer_norm_fwd_kernel(x, w, b, 1e-5),
+                (t(1024, 768), t(768, dtype=torch.float32),
+                 t(768, dtype=torch.float32)))
+    if case == "layer_norm_bwd":
+        x, w = t(1024, 768), t(768, dtype=torch.float32)
+        _, mean, invvar = fln.layer_norm_fwd_kernel(x, w, w, 1e-5)
+        return (lambda g, x, m, iv, w: fln.layer_norm_bwd_kernel(
+            g, x, m, iv, w), (t(1024, 768), x, mean, invvar, w))
+    if case == "flash_prefill":
+        kw = dict(sm_scale=0.125, causal=True, q_offset=0, window=None)
+        return (lambda q, k, v: fa.flash_fwd_kernel(q, k, v, None, None,
+                                                    **kw),
+                (t(1, 256, 12, 64), t(1, 256, 12, 64), t(1, 256, 12, 64)))
+    if case == "flash_decode_split_kv":
+        kw = dict(sm_scale=0.125, causal=True, q_offset=1023, window=None)
+        kb = torch.where(torch.arange(1024, device=dev) < 700, 0.0,
+                         -1e9)[None].expand(8, 1024).contiguous()
+        return (lambda q, k, v, kb: fa.flash_fwd_kernel(q, k, v, kb, None,
+                                                        **kw),
+                (t(8, 1, 12, 64), t(8, 1024, 12, 64), t(8, 1024, 12, 64),
+                 kb))
+    if case == "flash_bwd":
+        q, k, v, do, kb, bs, kw = _bwd_case(dev, torch.bfloat16)
+        out, lse = fa._flash_fwd_ref(q, k, v, kb, bs, **kw)
+        delta = fa._delta(do, out)
+        return (lambda q, k, v, do, lse, delta: (
+            fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, None, None,
+                                   **kw),
+            fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, None, None,
+                                    **kw)[:2]),
+                (q, k, v, do, lse, delta))
+    if case in ("qmm_decode_split_k", "qmm_prefill"):
+        m = 8 if case == "qmm_decode_split_k" else 1024
+        x, qw, xs, ws = _qmm_operands(dev, m, 3072, 768, torch.bfloat16,
+                                      seed=41)
+        return (lambda x, qw, xs, ws: qk.qmm_kernel(x, qw, xs, ws,
+                                                    torch.bfloat16),
+                (x, qw, xs, ws))
+    if case == "bn_act":
+        c = 256
+        x, z, g = t(4096, c), t(4096, c), t(4096, c)
+        mean, invstd, w, b = (t(c, dtype=torch.float32) for _ in range(4))
+        invstd = invstd.abs() + 0.5
+        return (lambda x, z, g, mean, invstd, w, b: (
+            fba.bn_act_fwd_kernel(x, mean, invstd, w, b, z, True),
+            fba.bn_act_bwd_kernel(g, x, mean, invstd, w, b, z, True)),
+                (x, z, g, mean, invstd, w, b))
+    if case == "xentropy":
+        x = t(1023, 50257, dtype=torch.float32)
+        labels = torch.from_numpy(rng.randint(0, 50257, 1023).astype(
+            np.int32)).to(dev)
+        g = t(1023, dtype=torch.float32)
+
+        def run(x, labels, g):
+            loss, mlse = xent.xentropy_fwd_kernel(x, labels, 0.1)
+            return loss, xent.xentropy_bwd_kernel(g, x, mlse, labels, 0.1)
+        return run, (x, labels, g)
+    xs, ws = (16, 28, 28, 64), (3, 3, 64, 128)
+    stride, padding, dil = (2, 2), ((0, 1), (0, 1)), (1, 1)
+    oh, ow = cv._out_hw(28, 28, padding, 3, 3, *stride, *dil)
+    x, w, dy = t(*xs), t(*ws) * 0.05, t(16, oh, ow, 128)
+    if case == "conv_fwd":
+        return (lambda x, w: cv.conv_fwd_kernel(x, w, stride, padding,
+                                                dil)[0], (x, w))
+    if case == "conv_dgrad":
+        return (lambda dy, w: cv.conv_dgrad_kernel(dy, w, stride, padding,
+                                                   dil, (28, 28)), (dy, w))
+    return (lambda x, dy: cv.conv_wgrad_kernel(x, dy, stride, padding, dil,
+                                               (3, 3)), (x, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CAPTURE_CASES)
+def test_kernel_captured_replays_equal_eager(conv_device, case):
+    """Every kernel wrapper of the captured paths (serving's LN, flash
+    prefill and split-KV decode, qmm's split-K decode and its prefill
+    tiles; training's LN, flash, BN, cross-entropy and conv forward,
+    dgrad and wgrad) captured in a CUDA graph and replayed twice equals
+    its eager call bit for bit: the launchers take the current stream,
+    and the buffers they make (qmm's workspace, split-KV's partials,
+    wgrad's split sums) are safe to replay."""
+    fn, args = _capture_case(conv_device, case)
+    _captured_equals_eager(fn, *args)
+    if case == "qmm_decode_split_k":
+        work = qk._workspace(8, 768, args[1].shape[1], 1, conv_device)
+        assert work is not None and not work.any()
+
+
+@pytest.mark.cuda
+def test_captured_o4_engine_serves_new_weights(cuda_device):
+    """An O4 engine (int8 projections from prepared weights, an int8 KV
+    cache) captures its steps at warmup; after an in-place update of the
+    weights, or after they are replaced (``assign=True``), it captures
+    them again and serves the new weights' tokens, equal to a fresh
+    engine's on those weights."""
+    models = importlib.import_module("apex_tpu_torch.models")
+    quant = importlib.import_module("apex_tpu_torch.quant")
+    engine = importlib.import_module("apex_tpu_torch.serving.engine")
+    cfg = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+               mlp_dim=256, max_len=128, dtype=torch.bfloat16)
+    sites = [f"block_{i}/{p}" for i in range(2) for p in (
+        "attention/query", "attention/key", "attention/value",
+        "attention/out", "mlp_up", "mlp_down")]
+    qcfg = quant.QuantConfig.frozen(quant.Calibration(
+        {s: 0.05 for s in sites}))
+
+    def serve(model):
+        eng = engine.ServingEngine(model, buckets=(64,), page_size=16,
+                                   max_seqs=2, cache_dtype=torch.int8,
+                                   device=cuda_device).warmup()
+        prompts = [np.arange(1, 20) % 500, np.arange(7, 40) % 500]
+        out = [r.tokens for r in eng.generate(prompts, 8)]
+        return eng, out
+
+    model = models.gpt_tiny(**cfg, quant=qcfg, device=cuda_device, seed=1)
+    eng, before = serve(model)
+    assert eng.stats["captures"] == 2 and eng.stats["aot_misses"] == 0
+    new = models.gpt_tiny(**cfg, quant=qcfg, device=cuda_device, seed=2)
+    model.load_state_dict(new.state_dict())
+    prompts = [np.arange(1, 20) % 500, np.arange(7, 40) % 500]
+    after = [r.tokens for r in eng.generate(prompts, 8)]
+    assert eng.stats["recaptures"] == 2 and eng.stats["aot_misses"] == 0
+    fresh, want = serve(new)
+    for a, w in zip(after, want):
+        np.testing.assert_array_equal(a, w)
+    assert any(not np.array_equal(a, b) for a, b in zip(after, before))
+    fresh.close()
+    # replaced, not updated in place: the graphs are captured again too
+    third = models.gpt_tiny(**cfg, quant=qcfg, device=cuda_device, seed=3)
+    model.load_state_dict(third.state_dict(), assign=True)
+    again = [r.tokens for r in eng.generate(prompts, 8)]
+    assert eng.stats["recaptures"] == 4 and eng.stats["aot_misses"] == 0
+    fresh, want = serve(third)
+    for a, w in zip(again, want):
+        np.testing.assert_array_equal(a, w)
+    eng.close()
+    fresh.close()
+
+
+@pytest.mark.cuda
+def test_stage_windows_onto_the_card(cuda_device):
+    """Windows assembled by two workers and staged onto the card through
+    pinned memory on a side stream: CUDA tensors, in order, the ragged
+    tail padded with its last batch; their values are there when the
+    consumer's stream reads them."""
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    batches = [(np.full((64, 256), i, np.float32), np.full((64,), i))
+               for i in range(7)]
+    loader = runtime.stage_windows(iter(batches), 3, workers=2)
+    got = [(x.sum(dim=(1, 2)).cpu(), y[:, 0].cpu(), n)
+           for (x, y), n in loader]
+    assert [n for _, _, n in got] == [3, 3, 1]
+    for j, (xs, ys, _) in enumerate(got):
+        want = torch.tensor([min(3 * j + i, 6) for i in range(3)])
+        assert torch.equal(ys, want)
+        assert torch.equal(xs, want.float() * 64 * 256)
+    assert loader.stats.as_dict()["batches"] == 3
+
+
+@pytest.mark.cuda
+def test_step_pipeline_tail_and_skip_captured_equal_eager(cuda_device):
+    """``StepPipeline`` at K 3 on the card: two full windows (the hot
+    graph) and a ragged one of two steps (the tail graph, captured at
+    its first use, its padded step gated on the device), with an inf in
+    the loss of the second step under a dynamic scale: every state leaf
+    and every real step's loss equal eight eager steps bit for bit."""
+    models = importlib.import_module("apex_tpu_torch.models")
+    training = importlib.import_module("apex_tpu_torch.training")
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    model = models.gpt_tiny(vocab_size=96, hidden_size=64, num_layers=2,
+                            num_heads=4, mlp_dim=128, max_len=32,
+                            device=cuda_device, seed=3)
+
+    def loss_fn(p, batch):
+        x, y, mult = batch
+        logp = torch.log_softmax(
+            torch.func.functional_call(model, p, (x,)), dim=-1)
+        return -logp.gather(-1, y[..., None]).mean() * mult
+
+    init, step = training.make_train_step(
+        loss_fn, training.sgd(0.1, momentum=0.9), opt_level="O0",
+        loss_scale="dynamic")
+    rng = np.random.RandomState(5)
+    batches = []
+    for i in range(8):
+        ids = torch.from_numpy(rng.randint(1, 96, (4, 13))).to(cuda_device)
+        mult = torch.tensor(float("inf") if i == 1 else 1.0,
+                            device=cuda_device)
+        batches.append((ids[:, :-1], ids[:, 1:], mult))
+    ref, want = init(model.state_dict()), []
+    for b in batches:
+        ref, m = step(ref, b)
+        want.append(float(m["loss"]))
+    pipe = runtime.StepPipeline(step, 3)
+    state, reader = pipe.run(init(model.state_dict()),
+                             runtime.window_batches(iter(batches), 3))
+    assert pipe.stats["captures"] == {"hot": 1, "tail": 1}
+    assert pipe.stats["replays"] == 3 and reader.steps_pushed == 8
+    assert float(reader.last()["loss"][1]) == want[7]
+    for g, w in zip(torch.utils._pytree.tree_leaves(state),
+                    torch.utils._pytree.tree_leaves(ref)):
+        assert torch.equal(g, w) if isinstance(w, torch.Tensor) else g == w
+    assert float(state.scaler.loss_scale) == 2.0 ** 15

@@ -148,3 +148,113 @@ def test_engine_without_gpu_raises(models):
         ServingEngine(tm, buckets=(16,), page_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gpt_tiny(**CFG)
+
+
+def _jax_tokens(jm, params, prompts, n, buckets=(16, 32)):
+    """The JAX engine's greedy tokens (page 4, two slots)."""
+    jeng = jserving.ServingEngine(jm, params, buckets=buckets, page_size=4,
+                                  max_seqs=2)
+    out = [r.tokens for r in jeng.generate(prompts, max_new_tokens=n)]
+    jeng.close()
+    return out
+
+
+def test_engine_zero_misses_after_warmup(models):
+    """After ``warmup`` the AOT table holds both step kinds of every
+    bucket: serving misses nothing, with the JAX engine's tokens."""
+    jm, params, tm = models
+    eng = ServingEngine(tm, buckets=(16, 32), page_size=4, max_seqs=2,
+                        device="cpu").warmup()
+    assert len(eng._aot) == 4
+    assert {(kind, b) for kind, b, _ in eng._aot.values()} == {
+        (k, b) for k in ("prefill", "decode") for b in (16, 32)}
+    prompts = [_prompt(n, seed=n) for n in (3, 7, 12, 5, 9)]
+    results = eng.generate(prompts, max_new_tokens=5)
+    for want, r in zip(_jax_tokens(jm, params, prompts, 5), results):
+        assert r.ok
+        np.testing.assert_array_equal(r.tokens, want)
+    assert eng.stats["aot_misses"] == 0
+    assert eng.stats["captures"] == eng.stats["replays"] == 0   # the CPU
+    assert {r.bucket for r in results} == {16, 32}
+    eng.close()
+    assert not eng._aot
+
+
+def test_unwarmed_bucket_is_one_counted_miss(models):
+    """A bucket never warmed misses once for each step kind, as JAX's
+    engine misses its AOT table there, and is in the table after: a
+    second request at that bucket misses nothing.  The tokens equal the
+    JAX engine's."""
+    jm, params, tm = models
+    eng = ServingEngine(tm, buckets=(16, 32), page_size=4, max_seqs=2,
+                        device="cpu")
+    eng.warmup(buckets=(16,))
+    p_small, p_big = _prompt(4), _prompt(20, 1)
+    r_small, r_big = eng.generate([p_small, p_big], max_new_tokens=4)
+    assert r_small.bucket == 16 and r_big.bucket == 32
+    assert eng.stats["aot_misses"] == 2        # prefill[32], decode[32]
+    want_small, want_big = _jax_tokens(jm, params, [p_small, p_big], 4)
+    np.testing.assert_array_equal(r_big.tokens, want_big)
+    np.testing.assert_array_equal(r_small.tokens, want_small)
+    eng.generate([_prompt(18, 2)], max_new_tokens=4)
+    assert eng.stats["aot_misses"] == 2
+    eng.close()
+
+
+def test_engine_serves_new_weights_after_an_in_place_update(models):
+    """The table is made for the weights' versions: after
+    ``load_state_dict`` the engine notices (on the card it captures every
+    graph again) and serves the new weights' tokens."""
+    _, _, tm = models
+    model = gpt_tiny(**CFG, device="cpu")
+    model.load_state_dict(tm.state_dict())
+    eng = ServingEngine(model, buckets=(16,), page_size=4, max_seqs=2,
+                        device="cpu").warmup()
+    before = eng.generate([_prompt(6, 3)], max_new_tokens=4)[0].tokens
+    seen = eng._weights_seen
+    other = gpt_tiny(**CFG, device="cpu", seed=9)
+    model.load_state_dict(other.state_dict())
+    fresh = ServingEngine(other, buckets=(16,), page_size=4, max_seqs=2,
+                          device="cpu")
+    want = fresh.generate([_prompt(6, 3)], max_new_tokens=4)[0].tokens
+    got = eng.generate([_prompt(6, 3)], max_new_tokens=4)[0].tokens
+    assert eng._weights_seen != seen
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, before)
+    eng.close()
+    fresh.close()
+
+
+@pytest.mark.parametrize("how", ["assign", "new_parameter"])
+def test_engine_notices_replaced_weights(models, how):
+    """A weight replaced by another tensor, not updated in place
+    (``load_state_dict(assign=True)``, a new ``nn.Parameter``), moves
+    the table as an in-place update does (on the card every graph is
+    captured again), and the engine serves the new weights' tokens."""
+    _, _, tm = models
+    model = gpt_tiny(**CFG, device="cpu")
+    model.load_state_dict(tm.state_dict())
+    eng = ServingEngine(model, buckets=(16,), page_size=4, max_seqs=2,
+                        device="cpu").warmup()
+    eng.generate([_prompt(6, 3)], max_new_tokens=4)
+    seen = eng._weights_seen
+    other = gpt_tiny(**CFG, device="cpu", seed=9)
+    if how == "assign":
+        model.load_state_dict(
+            {k: v.clone() for k, v in other.state_dict().items()},
+            assign=True)
+    else:
+        for name, p in other.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf,
+                    torch.nn.Parameter(p.detach().clone()))
+    got = eng.generate([_prompt(6, 3)], max_new_tokens=4)[0].tokens
+    assert eng._weights_seen != seen
+    # every key moved by identity: no version or address was touched
+    assert all(a[0] != b[0] for a, b in zip(eng._weights_seen, seen))
+    fresh = ServingEngine(other, buckets=(16,), page_size=4, max_seqs=2,
+                          device="cpu")
+    want = fresh.generate([_prompt(6, 3)], max_new_tokens=4)[0].tokens
+    np.testing.assert_array_equal(got, want)
+    eng.close()
+    fresh.close()

@@ -650,7 +650,6 @@ def test_imagenet_trainer_conv_flag_trains(capsys, flag):
 def test_imagenet_trainer_refusals():
     for extra, exc, match in (
             (["--sync_bn"], NotImplementedError, "sync_bn"),
-            (["--steps-per-call", "4"], NotImplementedError, "steps-per"),
             (["--checkpoint-dir", "ckpt"], NotImplementedError,
              "checkpoint"),
             (["--telemetry", "t.jsonl"], NotImplementedError, "telemetry")):
