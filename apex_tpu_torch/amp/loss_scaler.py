@@ -6,7 +6,9 @@ Counterpart of the functional core of ``apex_tpu/amp/loss_scaler.py:40-228``
 steps, halves on overflow (floored at ``min_loss_scale``).  The state is
 three tensors on the device, ``unscale`` raises the overflow flag as a
 device bool, and ``update_scale`` is a chain of ``torch.where`` selects:
-no step reads a value back to the host.  The imperative API waits.
+no step reads a value back to the host.  ``store=`` (a
+:class:`~apex_tpu_torch.multi_tensor.BucketStore`) runs the unscale and
+its overflow check over flat buckets.  The imperative API waits.
 """
 
 from __future__ import annotations
@@ -23,6 +25,12 @@ class LossScalerState(NamedTuple):
     loss_scale: torch.Tensor     # fp32
     unskipped: torch.Tensor      # int32: clean steps since the last change
     overflow: torch.Tensor       # bool: overflow seen this step
+
+
+def all_finite(tree, store=None) -> torch.Tensor:
+    """Device-side AND of ``isfinite`` over a gradient tree; with
+    ``store`` (or a ``Packed`` tree), one reduction a bucket."""
+    return mta.tree_finite(tree, store=store)
 
 
 class LossScaler:
@@ -61,17 +69,20 @@ class LossScaler:
             return loss
         return loss.float() * state.loss_scale
 
-    def unscale(self, grads, state: LossScalerState):
+    def unscale(self, grads, state: LossScalerState, *, store=None):
         """Divide grads by the scale, in fp32; a dynamic scaler records
         non-finite results in the returned state's ``overflow``.  A static
         scale of 1.0 leaves fp32 grads as they are (dividing by one is
-        the identity)."""
+        the identity).  ``store`` runs the sweep and the check per
+        bucket; a ``Packed`` ``grads`` stays packed."""
+        leaves = (grads.data if isinstance(grads, mta.Packed)
+                  else mta.flatten_tree(grads)[0])
         if not self.dynamic and self._initial_scale == 1.0 and all(
-                g.dtype == torch.float32
-                for g in mta.flatten_tree(grads)[0]):
+                g.dtype == torch.float32 for g in leaves):
             return grads, state
         out, overflow = mta.multi_tensor_scale(
-            grads, 1.0 / state.loss_scale, out_dtype=torch.float32)
+            grads, 1.0 / state.loss_scale, out_dtype=torch.float32,
+            store=store)
         if self.dynamic:
             state = state._replace(
                 overflow=torch.logical_or(state.overflow, overflow))

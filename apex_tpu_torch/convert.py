@@ -14,9 +14,12 @@ Cout]`` (the port permutes them inside its forward) and the Dense kernel
 ``batch_stats`` collections into two flat mappings.
 
 :func:`train_state_from_jax` carries a whole JAX ``TrainState`` (the
-parameters, the Adam or SGD state, the loss-scaler state and the model
-state) into the port's, so both packages can continue one training run
-from the same point.
+parameters, the Adam, SGD, LAMB or NovoGrad state, leafwise or bucketed,
+the loss-scaler state and the model state) into the port's, so both
+packages can continue one training run from the same point.  A bucketed
+state's ``Packed`` moments cross unchanged: the port's
+:class:`~apex_tpu_torch.multi_tensor.BucketStore` lays out the same
+buckets as JAX's for the converted tree.
 """
 
 from __future__ import annotations
@@ -68,6 +71,20 @@ def gpt_params_to_jax(state_dict: Mapping[str, torch.Tensor]
     return _nest(state_dict)
 
 
+def bert_params_from_jax(params: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax BERT ``params`` tree (nested mappings of numpy arrays) as a
+    ``state_dict`` for :class:`apex_tpu_torch.models.BertEncoder`."""
+    return _flat_fp32(params)
+
+
+def bert_params_to_jax(state_dict: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """The inverse: a BERT ``state_dict`` as a nested dict of float32
+    numpy arrays in the flax tree's layout."""
+    return _nest(state_dict)
+
+
 def resnet_variables_from_jax(variables: Mapping[str, Any]
                               ) -> Tuple[Dict[str, torch.Tensor],
                                          Dict[str, torch.Tensor]]:
@@ -99,34 +116,47 @@ def _nest(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
+def _is_packed(x) -> bool:
+    return isinstance(x, tuple) and getattr(x, "_fields", None) == (
+        "data", "rest")
+
+
 def train_state_from_jax(state, device=None):
     """A JAX ``apex_tpu.training.TrainState`` whose leaves are numpy
     arrays (``jax.tree_util.tree_map(np.asarray, state)``), with an
-    ``AdamState`` or ``SGDState`` optimizer state, as the port's
-    ``TrainState`` on ``device``: parameters, moments, momentum buffers
-    and the model state (``batch_stats``) keep their dtypes and flax
-    names, the step, the SGD ``initialized`` flag and the scaler state
-    become 0-dim tensors."""
+    ``AdamState``, ``SGDState``, ``LambState`` or ``NovoGradState``
+    optimizer state, leafwise or bucketed, as the port's ``TrainState``
+    on ``device``: parameters, moments, momentum buffers and the model
+    state (``batch_stats``) keep their dtypes and flax names, a
+    ``Packed`` moment its buckets (NovoGrad's per-tensor vectors
+    included), the step, the SGD ``initialized`` flag and the scaler
+    state become 0-dim tensors."""
     from .amp.loss_scaler import LossScalerState
-    from .optimizers.functional import AdamState, SGDState
+    from .multi_tensor.buckets import Packed
+    from .optimizers import functional as F
     from .training import TrainState
 
-    def tree(t):
-        return {k: _tensor(v).to(device) for k, v in _flatten(t).items()}
-
-    def scalar(x):
+    def tensor(x):
         return _tensor(x).to(device)
 
+    def tree(t):
+        if _is_packed(t):
+            return Packed(data=tuple(tensor(x) for x in t.data),
+                          rest=tuple(tensor(x) for x in t.rest))
+        return {k: tensor(v) for k, v in _flatten(t).items()}
+
     opt = state.opt_state
-    if hasattr(opt, "momentum_buf"):
-        opt_state = SGDState(momentum_buf=tree(opt.momentum_buf),
-                             initialized=scalar(opt.initialized).bool())
-    else:
-        opt_state = AdamState(step=scalar(opt.step).to(torch.int32),
-                              exp_avg=tree(opt.exp_avg),
-                              exp_avg_sq=tree(opt.exp_avg_sq))
+    fields = {}
+    for name, value in opt._asdict().items():
+        if name == "step":
+            fields[name] = tensor(value).to(torch.int32)
+        elif name == "initialized":
+            fields[name] = tensor(value).bool()
+        else:
+            fields[name] = tree(value)
     model_state = getattr(state, "model_state", None)
     return TrainState(
-        params=tree(state.params), opt_state=opt_state,
-        scaler=LossScalerState(*(scalar(x) for x in state.scaler)),
+        params=tree(state.params),
+        opt_state=getattr(F, type(opt).__name__)(**fields),
+        scaler=LossScalerState(*(tensor(x) for x in state.scaler)),
         model_state=None if model_state is None else tree(model_state))

@@ -25,7 +25,9 @@ kernels, ``padding_idx=-1``: every label is a class).
 ``--no-pallas-conv`` runs the convolutions through ``F.conv2d`` (cuDNN
 on the card) with the same parameters; ``--no-fused-bn`` keeps the plain
 flax-style BatchNorm with explicit ReLU and residual adds;
-``--no-fused-loss`` the log_softmax + gather composition.  The run ends
+``--no-fused-loss`` the log_softmax + gather composition; ``--bucketed``
+keeps the SGD momentum in flat buckets (``training.sgd(bucketed=True)``).
+The run ends
 with the conv sites' count, as the JAX example's ``tune:`` line does.
 
 The loop runs on :class:`apex_tpu_torch.runtime.StepPipeline`, as the
@@ -77,6 +79,11 @@ def parse(argv=None):
     p.add_argument("--prof", default=-1, type=int,
                    help="stop after N steps")
     p.add_argument("--opt-level", type=str, default="O0")
+    p.add_argument("--bucketed", action="store_true",
+                   help="flat-bucket optimizer state: the SGD momentum "
+                        "carried as a few large per-dtype buffers "
+                        "instead of one per parameter (bit for bit the "
+                        "leafwise update)")
     p.add_argument("--keep-batchnorm-fp32", type=str, default=None)
     p.add_argument("--loss-scale", type=str, default=None,
                    help="a number, or 'dynamic'")
@@ -182,7 +189,8 @@ def build(args):
     lr = args.lr * args.batch_size / 256.0
     init_fn, step_fn = training.make_train_step(
         loss_fn, training.sgd(lr=lr, momentum=args.momentum,
-                              weight_decay=args.weight_decay),
+                              weight_decay=args.weight_decay,
+                              bucketed=args.bucketed),
         opt_level=args.opt_level, loss_scale=_loss_scale(args.loss_scale),
         keep_batchnorm_fp32=keep_bn, has_model_state=True)
     params, batch_stats = model.variables()
@@ -208,7 +216,8 @@ def train(args, log=print) -> dict:
     log(f"{args.arch}  {n_params / 1e6:.1f}M params  opt_level = "
         f"{args.opt_level}  fused_bn={args.fused_bn}  "
         f"fused_loss={args.fused_loss}  pallas_conv={args.pallas_conv}  "
-        f"steps_per_call {k}  on {batch[0].device}")
+        f"bucketed={args.bucketed}  steps_per_call {k}  on "
+        f"{batch[0].device}")
     steps = args.prof if args.prof >= 0 else args.epochs * \
         args.steps_per_epoch
     steps = runtime.round_steps(steps, k, "--prof", log)

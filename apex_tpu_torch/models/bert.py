@@ -1,6 +1,7 @@
-"""Self-attention and flax-shaped projections, the pieces of
-``apex_tpu/models/bert.py`` that the GPT serving and training paths run
-(the non-cache forward is differentiable on both devices).
+"""The BERT encoder — counterpart of ``apex_tpu/models/bert.py``:
+self-attention with flax-shaped projections (which the GPT serving and
+training paths also run), ``BertLayer``, ``BertEncoder``, ``bert_base``
+and ``bert_tiny``.  The forward is differentiable on both devices.
 
 Projections keep flax's DenseGeneral layouts, so one weight set moves
 between the two packages unchanged (:mod:`apex_tpu_torch.convert`):
@@ -9,11 +10,26 @@ head_dim]``, the output kernel ``[heads, head_dim, d]``.  Parameters are
 fp32; a projection with ``dtype=bf16`` casts both its input and its
 kernel to bf16, as flax does.
 
-Ported: the ``flash`` and ``full`` attention impls, the external-cache
-incremental forward the serving engine drives, and ``quant=`` (every
-projection a :class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`).
-Not ported yet, and raising ``NotImplementedError``: ``ring``,
-``ring_flash``, ``ulysses`` and the ``decode=True`` flax-cache path.
+The encoder keeps flax's names and layouts too: ``word_embeddings.
+embedding`` ``[vocab, hidden]`` (and the position and token-type
+tables), ``embeddings_ln``, ``layer_{i}.attention.*``,
+``layer_{i}.attention_ln``, ``layer_{i}.intermediate`` and
+``layer_{i}.output`` (Dense kernels ``[in, out]``),
+``layer_{i}.output_ln``, ``pooler`` and ``classifier``.  Its numerics
+follow the flax module: the embeddings summed in the parameters' dtype,
+every LayerNorm the fused kernel (fp32 statistics), GELU the tanh
+approximation in fp32, fp32 features with ``num_classes=None``, else
+the tanh pooler over the first token and the classifier, fp32 logits.
+The padding mask reaches ``flash`` as a key-padding bias and
+``blockwise`` and ``full`` as a ``[B, 1, 1, S]`` additive bias.
+
+Ported: the ``flash``, ``blockwise`` and ``full`` attention impls, the
+external-cache incremental forward the serving engine drives, and
+``quant=`` (every projection a
+:class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`).  Not ported
+yet, and raising ``NotImplementedError``: ``ring``, ``ring_flash``,
+``ulysses``, ``sp_axis`` (sequence parallelism) and the ``decode=True``
+flax-cache path.
 """
 
 from __future__ import annotations
@@ -22,9 +38,11 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..normalization import FusedLayerNorm
 
 _NOT_PORTED_IMPLS = ("ring", "ring_flash", "ulysses")
 
@@ -96,7 +114,10 @@ class BertSelfAttention(nn.Module):
     """Self-attention with a pluggable compute strategy
     (``attention_impl``): ``"flash"`` (the CUDA kernel of
     :mod:`apex_tpu_torch.ops.flash_attention`, its plain version on the
-    CPU) or ``"full"`` (materialized scores, the oracle)."""
+    CPU), ``"blockwise"`` (online softmax over key blocks in plain torch,
+    :func:`~apex_tpu_torch.ops.attention.blockwise_attention`) or
+    ``"full"`` (materialized scores, the oracle).  ``mask`` ``[B, S]``
+    marks the keys to attend to (nonzero or True)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, *,
@@ -109,7 +130,7 @@ class BertSelfAttention(nn.Module):
         if attention_impl in _NOT_PORTED_IMPLS:
             raise NotImplementedError(
                 f"attention_impl={attention_impl!r} is not ported yet")
-        if attention_impl not in ("flash", "full"):
+        if attention_impl not in ("flash", "blockwise", "full"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if decode:
             raise NotImplementedError(
@@ -135,6 +156,8 @@ class BertSelfAttention(nn.Module):
         self.out = dense((num_heads, hd), (d,))
 
     def forward(self, x, mask=None, *, kv_cache=None, positions=None):
+        if mask is not None:
+            mask = mask.to(torch.bool)
         q = self.query(x)
         k = self.key(x)
         v = self.value(x)
@@ -156,7 +179,8 @@ class BertSelfAttention(nn.Module):
             ctx = flash_attention(q, k, v, causal=self.causal,
                                   window=self.window, key_padding_bias=kb)
         else:
-            from ..ops.attention import dot_product_attention
+            from ..ops.attention import (blockwise_attention,
+                                         dot_product_attention)
             if self.n_kv != self.num_heads:
                 grp = self.num_heads // self.n_kv
                 k = k.repeat_interleave(grp, dim=2)
@@ -164,8 +188,9 @@ class BertSelfAttention(nn.Module):
             bias = None
             if mask is not None:
                 bias = torch.where(mask[:, None, None, :], 0.0, -1e9)
-            ctx = dot_product_attention(q, k, v, causal=self.causal,
-                                        bias=bias)
+            attend = (blockwise_attention if self.attention_impl
+                      == "blockwise" else dot_product_attention)
+            ctx = attend(q, k, v, causal=self.causal, bias=bias)
         return self.out(ctx.to(x.dtype))
 
     def _incremental(self, q, k, v, kv_cache: Tuple[torch.Tensor, torch.Tensor],
@@ -217,3 +242,143 @@ class BertSelfAttention(nn.Module):
             bias = torch.where(visible, 0.0, -1e9)
             ctx = flash_attention(q, ck, cv, causal=False, bias=bias)
         return ctx, ck, cv
+
+
+def _refuse_sp_axis(sp_axis):
+    if sp_axis is not None:
+        raise NotImplementedError(
+            "sp_axis (sequence parallelism over a mesh axis) is not "
+            "ported yet")
+
+
+class BertLayer(nn.Module):
+    """One post-LN encoder layer: self-attention, ``attention_ln(x +
+    attn)``, the GELU MLP (``intermediate``, ``output``) and
+    ``output_ln(x + h)``, each LayerNorm's output in the input's dtype.
+    ``hidden_size`` is the JAX layer's inferred input width (torch makes
+    parameters at construction)."""
+
+    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
+                 dtype: torch.dtype = torch.float32, *,
+                 attention_impl: str = "full", sp_axis=None,
+                 num_kv_heads: Optional[int] = None, quant=None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _refuse_sp_axis(sp_axis)
+        d = hidden_size
+        self.attention = BertSelfAttention(
+            d, num_heads, dtype, attention_impl=attention_impl,
+            num_kv_heads=num_kv_heads, quant=quant, device=device,
+            generator=generator)
+        self.attention_ln = FusedLayerNorm(d, device=device)
+        dense = _dense_factory(quant, dtype, device=device,
+                               generator=generator)
+        self.intermediate = dense((d,), (mlp_dim,))
+        self.output = dense((mlp_dim,), (d,))
+        self.output_ln = FusedLayerNorm(d, device=device)
+
+    def forward(self, x, mask=None):
+        attn = self.attention(x, mask)
+        x = self.attention_ln(x + attn).to(x.dtype)
+        h = self.intermediate(x)
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        h = self.output(h)
+        return self.output_ln(x + h).to(x.dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a table ``embedding`` ``[num, features]``,
+    normal with variance ``1 / features`` (flax's default init), looked
+    up in its own dtype."""
+
+    def __init__(self, num_embeddings: int, features: int, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        table = torch.randn(num_embeddings, features, generator=generator)
+        self.embedding = nn.Parameter(
+            (table * features ** -0.5).to(resolve_device(device)))
+
+    def forward(self, ids):
+        return self.embedding[ids]
+
+
+class BertEncoder(nn.Module):
+    """BERT: word, position and token-type embeddings, ``embeddings_ln``,
+    ``num_layers`` :class:`BertLayer` layers, then fp32 features ``[B, S,
+    hidden]`` (``num_classes=None``) or the pooler and classifier's fp32
+    logits ``[B, num_classes]``.  ``forward(input_ids, attention_mask=
+    None, token_type_ids=None)``.  Parameters are made on the CPU from a
+    ``torch.Generator`` seeded with ``seed`` (flax's initializers; the
+    numbers differ from JAX's), then moved to ``device``."""
+
+    def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
+                 num_layers: int = 12, num_heads: int = 12,
+                 mlp_dim: int = 3072, max_len: int = 512,
+                 type_vocab_size: int = 2,
+                 num_classes: Optional[int] = 2,
+                 dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "full", sp_axis=None,
+                 num_kv_heads: Optional[int] = None, quant=None, *,
+                 device=None, seed: int = 0):
+        super().__init__()
+        _refuse_sp_axis(sp_axis)
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.num_layers = num_layers
+        self.num_classes = num_classes
+        self.dtype = dtype
+        emb = dict(device=dev, generator=gen)
+        self.word_embeddings = Embed(vocab_size, hidden_size, **emb)
+        self.position_embeddings = Embed(max_len, hidden_size, **emb)
+        self.token_type_embeddings = Embed(type_vocab_size, hidden_size,
+                                           **emb)
+        self.embeddings_ln = FusedLayerNorm(hidden_size, device=dev)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", BertLayer(
+                hidden_size, num_heads, mlp_dim, dtype,
+                attention_impl=attention_impl, num_kv_heads=num_kv_heads,
+                quant=quant, device=dev, generator=gen))
+        if num_classes is not None:
+            self.pooler = DenseGeneral((hidden_size,), (hidden_size,),
+                                       dtype, device=dev, generator=gen)
+            self.classifier = DenseGeneral((hidden_size,), (num_classes,),
+                                           dtype, device=dev,
+                                           generator=gen)
+        if quant is not None:
+            from ..quant.layers import name_quant_sites
+            name_quant_sites(self)
+
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)[None]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = self.embeddings_ln(self.word_embeddings(input_ids)
+                               + self.position_embeddings(pos)
+                               + self.token_type_embeddings(token_type_ids))
+        x = x.to(self.dtype)
+        for layer in self.layers():
+            x = layer(x, attention_mask)
+        if self.num_classes is None:
+            return x.float()
+        pooled = torch.tanh(self.pooler(x[:, 0]))
+        return self.classifier(pooled).float()
+
+
+def bert_base(**kw) -> BertEncoder:
+    """BERT-base: hidden 768, 12 layers, 12 heads, MLP 3072, vocab
+    30522, max_len 512."""
+    return BertEncoder(**kw)
+
+
+def bert_tiny(**kw) -> BertEncoder:
+    kw.setdefault("hidden_size", 128)
+    kw.setdefault("num_layers", 2)
+    kw.setdefault("num_heads", 2)
+    kw.setdefault("mlp_dim", 512)
+    kw.setdefault("vocab_size", 1024)
+    kw.setdefault("max_len", 128)
+    return BertEncoder(**kw)

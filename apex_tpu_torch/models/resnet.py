@@ -30,16 +30,38 @@ between the packages unchanged.  Running statistics are buffers (flax's
 A norm factory is called ``norm(num_features, [fuse_relu=True],
 [scale_init=torch.zeros], device=...)`` at construction, and its modules
 ``bn(x, [z], use_running_average=not train)``.
+
+``remat`` recomputes activations in the backward instead of keeping
+them, per residual block, through ``torch.utils.checkpoint``
+(non-reentrant), as JAX's ``nn.remat`` does:
+
+* ``"full"``: only each block's input is kept; the backward runs the
+  whole block forward again.
+* ``"conv_out"``: a bottleneck block keeps exactly its conv outputs (and
+  its input); each stretch between two convs (BN, ReLU and the next
+  conv, or the last BN, the residual's BN, the add and the ReLU) runs
+  again in the backward.  A basic block names no conv output in JAX, so
+  it recomputes as under ``"full"``.
+
+Each recomputed stretch runs to its end, so the recompute launches the
+conv-forward and BN-epilogue kernels again: a ResNet-50 step at
+``"conv_out"`` launches 85 conv forwards (53 + 32) and 105 BN forwards
+(53 + 52), at ``"full"`` 105 and 105; the backward kernels are not
+repeated.  The running statistics a recompute writes are put back, so
+they advance once a step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils.stateless import _reparametrize_module
+from torch.utils import checkpoint as _checkpoint
 
 from .._device import resolve_device
 from .bert import DenseGeneral, lecun_normal_
@@ -142,8 +164,55 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+@contextlib.contextmanager
+def _restoring(stats):
+    """Put ``stats`` back as they were when the block leaves: a
+    recompute must not advance the running statistics a second time."""
+    saved = [t.clone() for t in stats]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, v in zip(stats, saved):
+                t.copy_(v)
+
+
 class _Block(nn.Module):
-    """What the two residual blocks share: the norm routing."""
+    """What the two residual blocks share: the norm routing and the
+    rematerialization (``remat``)."""
+
+    remat: Any = False
+
+    def _recomputed(self, fn, *xs):
+        """``fn(*xs)`` under non-reentrant ``torch.utils.checkpoint``.
+        The block's parameters go in as inputs and, with its buffers, are
+        put back on the block for the recompute: a caller's
+        ``functional_call`` swaps them in only for the forward.  The
+        recompute runs to the end of ``fn`` and restores the running
+        statistics (the buffers) it updates."""
+        names, params = zip(*self.named_parameters())
+        stats = dict(self.named_buffers())
+        n = len(xs)
+
+        def run(*flat):
+            with _reparametrize_module(
+                    self, {**dict(zip(names, flat[n:])), **stats}):
+                return fn(*flat[:n])
+
+        with _checkpoint.set_checkpoint_early_stop(False):
+            return _checkpoint.checkpoint(
+                run, *xs, *params, use_reentrant=False,
+                preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    _restoring(stats.values())))
+
+    def forward(self, x, train: bool = True):
+        if self.remat == "full" or (self.remat == "conv_out"
+                                    and not hasattr(self, "_conv_out")):
+            return self._recomputed(lambda t: self._forward(t, train), x)
+        if self.remat == "conv_out":
+            return self._conv_out(x, train)
+        return self._forward(x, train)
 
     def _bn(self, name, features, fused, **kw):
         self.add_module(name, (self.norm_act if fused else self.norm)(
@@ -189,11 +258,27 @@ class BottleneckBlock(_Block):
             self._bn("downsample_bn", out, False)
         self._bn("bn3", out, fused, scale_init=torch.zeros)
 
-    def forward(self, x, train: bool = True):
+    def _forward(self, x, train):
         y = self._bn_relu("bn1", self.conv1(x), train)
         y = self._bn_relu("bn2", self.conv2(y), train)
         y = self.conv3(y)
         return self._bn_add_relu("bn3", y, self._residual(x, train), train)
+
+    def _conv_out(self, x, train):
+        """The stretches between the conv outputs, each recomputed."""
+        y = self.conv1(x)
+        y = self._recomputed(
+            lambda t: self.conv2(self._bn_relu("bn1", t, train)), y)
+        y = self._recomputed(
+            lambda t: self.conv3(self._bn_relu("bn2", t, train)), y)
+        if not hasattr(self, "downsample_conv"):
+            return self._recomputed(
+                lambda t, r: self._bn_add_relu("bn3", t, r, train), y, x)
+        return self._recomputed(
+            lambda t, r: self._bn_add_relu(
+                "bn3", t, self.downsample_bn(r, use_running_average=not
+                                             train), train),
+            y, self.downsample_conv(x))
 
 
 class BasicBlock(_Block):
@@ -213,7 +298,7 @@ class BasicBlock(_Block):
             self._bn("downsample_bn", filters, False)
         self._bn("bn2", filters, fused, scale_init=torch.zeros)
 
-    def forward(self, x, train: bool = True):
+    def _forward(self, x, train):
         y = self._bn_relu("bn1", self.conv1(x), train)
         y = self.conv2(y)
         return self._bn_add_relu("bn2", y, self._residual(x, train), train)
@@ -229,10 +314,11 @@ class ResNet(nn.Module):
     (lecun-normal kernels, as flax initializes them; the numbers differ
     from JAX's), then moved to ``device``.  ``conv_cls`` (None:
     :class:`Conv`) builds every conv, the stem included, with the same
-    arguments, so the parameters and their names do not change.  Not
-    ported yet: ``sync_bn`` (cross-process statistics; the JAX model's
-    ``axis_name`` and ``bn_process_group`` serve only it) and ``remat``;
-    they raise ``NotImplementedError``."""
+    arguments, so the parameters and their names do not change.
+    ``remat``: ``False``, ``"full"`` (or ``True``) or ``"conv_out"`` (the
+    module docstring).  Not ported yet: ``sync_bn`` (cross-process
+    statistics; the JAX model's ``axis_name`` and ``bn_process_group``
+    serve only it); it raises ``NotImplementedError``."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int = 1000, num_filters: int = 64,
@@ -245,8 +331,11 @@ class ResNet(nn.Module):
         if sync_bn:
             raise NotImplementedError(
                 "sync_bn (statistics across processes) is not ported yet")
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
+        if remat is True:
+            remat = "full"
+        if remat not in (False, None, "full", "conv_out"):
+            raise ValueError(f"remat must be False, 'full', or "
+                             f"'conv_out'; got {remat!r}")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.dtype = dtype
@@ -278,9 +367,10 @@ class ResNet(nn.Module):
             for j in range(block_size):
                 strides = (2, 2) if i > 0 and j == 0 else (1, 1)
                 name = f"stage{i + 1}_block{j + 1}"
-                self.add_module(name, block_cls(
-                    features, num_filters * 2 ** i, strides, conv=conv,
-                    norm=norm, norm_act=norm_act))
+                block = block_cls(features, num_filters * 2 ** i, strides,
+                                  conv=conv, norm=norm, norm_act=norm_act)
+                block.remat = remat or False
+                self.add_module(name, block)
                 self.block_names.append(name)
                 features = num_filters * 2 ** i * block_cls.expansion
         self.head = DenseGeneral((features,), (num_classes,), dtype,

@@ -156,10 +156,13 @@ def _select_tree(flag, new, old):
 
 
 def _copy_tree(dst, src) -> None:
-    """Copy every tensor leaf of ``src`` into the same leaf of ``dst``."""
-    for d, s in zip(pytree.tree_leaves(dst), pytree.tree_leaves(src)):
-        if isinstance(d, torch.Tensor) and d is not s:
-            d.copy_(s)
+    """Copy every tensor leaf of ``src`` into the same leaf of ``dst``, in
+    one ``torch._foreach_copy_`` (a few launches for the whole state)."""
+    pairs = [(d, s) for d, s in zip(pytree.tree_leaves(dst),
+                                    pytree.tree_leaves(src))
+             if isinstance(d, torch.Tensor) and d is not s]
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
 
 def _device_of(tree) -> torch.device:
@@ -181,8 +184,8 @@ class StepPipeline:
 
     On CUDA each is captured once per window signature (:meth:`warmup`,
     or at its first call, counted in ``stats["captures"]``) into a graph
-    whose body copies the new state into its static input; every call
-    replays (``stats["replays"]``).  The hot and tail graphs share one
+    whose body copies each step's new state into its static input; every
+    call replays (``stats["replays"]``).  The hot and tail graphs share one
     memory pool.  The window is copied into the graph's static input,
     so the pipeline keeps no reference to the caller's (JAX's
     ``donate_window`` has nothing to donate here).
@@ -199,29 +202,41 @@ class StepPipeline:
         if telemetry is not None:
             raise NotImplementedError("telemetry= is not ported yet")
         self.k = int(k)
-        chained = chain_steps(step_fn)
+        self._step_fn = step_fn
+
+        #: the window functions, run eagerly on the CPU and captured on CUDA
+        self.loop = self._window_fn("hot")
+        self.tail_loop = self._window_fn("tail")
+        self._graphs: dict = {}       # (program, window signature) -> graph
+        self._pool = None
+        self._valid: dict = {}        # (device, n_valid) -> bool [K]
+        self.stats = {"captures": {"hot": 0, "tail": 0}, "replays": 0,
+                      "steps": 0}
+
+    def _window_fn(self, program: str, commit: Optional[Callable] = None):
+        """The ``(state, window, valid) -> (state, metrics)`` function of
+        ``program``: the hot loop's K steps, or the tail loop's with each
+        step's state gated by ``valid``; ``commit`` as in
+        :func:`~apex_tpu_torch.training.chain_steps`."""
+        step_fn = self._step_fn
+        if program == "hot":
+            chained = chain_steps(step_fn, commit)
+
+            def hot(state, window, valid):
+                del valid                 # full window: nothing to mask
+                return chained(state, window)
+            return hot
 
         def masked_step(state, xs):
             batch, valid = xs
             new_state, metrics = step_fn(state, batch)
             # a padded step runs, but leaves the state as it found it
             return _select_tree(valid, new_state, state), metrics
-        chained_masked = chain_steps(masked_step)
-
-        def hot(state, window, valid):
-            del valid                     # full window: nothing to mask
-            return chained(state, window)
+        chained_masked = chain_steps(masked_step, commit)
 
         def tail(state, window, valid):
             return chained_masked(state, (window, valid))
-
-        #: the window functions, run eagerly on the CPU and captured on CUDA
-        self.loop, self.tail_loop = hot, tail
-        self._graphs: dict = {}       # (program, window signature) -> graph
-        self._pool = None
-        self._valid: dict = {}        # (device, n_valid) -> bool [K]
-        self.stats = {"captures": {"hot": 0, "tail": 0}, "replays": 0,
-                      "steps": 0}
+        return tail
 
     def _valid_mask(self, n_valid: int, device) -> torch.Tensor:
         key = (device, n_valid)
@@ -239,12 +254,14 @@ class StepPipeline:
         return "tail", n_valid
 
     def _capture(self, program: str, state, window, valid):
-        fn = self.loop if program == "hot" else self.tail_loop
-
         def body(state, window, valid):
-            new_state, metrics = fn(state, window, valid)
-            _copy_tree(state, new_state)
-            return metrics
+            # each step's new state is copied into the static input state
+            # and the next step reads that: one new state is live at a
+            # time, so a K-step graph needs one step's memory
+            def commit(new_state):
+                _copy_tree(state, new_state)
+                return state
+            return self._window_fn(program, commit)(state, window, valid)[1]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = _cache.warmup(body, state, window, valid, pool=self._pool)

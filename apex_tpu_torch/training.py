@@ -1,9 +1,10 @@
 """The amp training step: cast, forward, backward, unscale, overflow
 check, loss-scale state machine and the skip-masked optimizer update.
 
-Counterpart of ``apex_tpu/training.py:177-429`` (``FunctionalOptimizer``,
-``adam``, ``TrainState``, ``chain_steps``, ``make_train_step``), with the
-same opt-level semantics:
+Counterpart of ``apex_tpu/training.py:93-429`` (``FunctionalOptimizer``,
+``adam``, ``sgd``, ``lamb``, ``novograd`` and their ``bucketed=`` forms,
+``TrainState``, ``chain_steps``, ``make_train_step``), with the same
+opt-level semantics:
 
 * O0: fp32 end to end.
 * O1: fp32 parameters, no model cast (the autocast policy is not ported).
@@ -43,27 +44,73 @@ from .amp import policy as _policy
 from .amp.loss_scaler import LossScaler, LossScalerState
 from .amp.properties import opt_levels
 from .multi_tensor import flatten_tree
+from .multi_tensor.buckets import cached_store
 from .optimizers import functional as F
 
 
 class FunctionalOptimizer(NamedTuple):
     init: Callable        # params -> state
     update: Callable      # (grads, state, params, apply_mask=) -> (p, s)
+    #: declared, not inferred: True iff ``update`` treats every parameter
+    #: element on its own (no per-tensor norms or trust ratios), so it
+    #: stays right on any flat chunk of the parameters
+    elementwise: bool = False
 
 
-def adam(lr=1e-3, **kw) -> FunctionalOptimizer:
-    """Leafwise Adam/AdamW (:func:`optimizers.functional.adam_update`);
-    weight decay applies to every parameter."""
-    return FunctionalOptimizer(
-        F.adam_init, functools.partial(F.adam_update, lr=lr, **kw))
+def _bucketed_tx(init_fn, update_fn, *, elementwise) -> FunctionalOptimizer:
+    """A :class:`FunctionalOptimizer` over the flat-bucket engine: the
+    :class:`~apex_tpu_torch.multi_tensor.BucketStore` is built from the
+    first tree of parameters it sees (one per signature,
+    :func:`~apex_tpu_torch.multi_tensor.buckets.cached_store`), and the
+    state holds its moments as a few ``Packed`` buffers."""
+    cell: dict = {}
+
+    def init(params):
+        return init_fn(params, store=cached_store(cell, params))
+
+    def update(grads, state, params, **kw):
+        return update_fn(grads, state, params,
+                         store=cached_store(cell, params), **kw)
+
+    return FunctionalOptimizer(init, update, elementwise=elementwise)
 
 
-def sgd(lr=1e-3, momentum=0.0, **kw) -> FunctionalOptimizer:
-    """Leafwise SGD (:func:`optimizers.functional.sgd_update`); weight
-    decay applies to every parameter."""
-    return FunctionalOptimizer(
-        functools.partial(F.sgd_init, momentum=momentum),
-        functools.partial(F.sgd_update, lr=lr, momentum=momentum, **kw))
+def _tx(init_fn, update_fn, bucketed, elementwise) -> FunctionalOptimizer:
+    if bucketed:
+        return _bucketed_tx(init_fn, update_fn, elementwise=elementwise)
+    return FunctionalOptimizer(init_fn, update_fn, elementwise=elementwise)
+
+
+def adam(lr=1e-3, *, bucketed=False, **kw) -> FunctionalOptimizer:
+    """Adam/AdamW (:func:`optimizers.functional.adam_update`), leafwise or
+    over flat buckets (``bucketed=True``, bit for bit the leafwise
+    update in fp32); weight decay applies to every parameter."""
+    return _tx(F.adam_init, functools.partial(F.adam_update, lr=lr, **kw),
+               bucketed, elementwise=True)
+
+
+def sgd(lr=1e-3, momentum=0.0, *, bucketed=False, **kw
+        ) -> FunctionalOptimizer:
+    """SGD (:func:`optimizers.functional.sgd_update`), leafwise or over
+    flat buckets; weight decay applies to every parameter."""
+    return _tx(functools.partial(F.sgd_init, momentum=momentum),
+               functools.partial(F.sgd_update, lr=lr, momentum=momentum,
+                                 **kw), bucketed, elementwise=True)
+
+
+def lamb(lr=1e-3, *, bucketed=False, **kw) -> FunctionalOptimizer:
+    """LAMB (:func:`optimizers.functional.lamb_update`), leafwise or over
+    flat buckets; not elementwise (per-tensor trust ratios)."""
+    return _tx(F.lamb_init, functools.partial(F.lamb_update, lr=lr, **kw),
+               bucketed, elementwise=False)
+
+
+def novograd(lr=1e-3, *, bucketed=False, **kw) -> FunctionalOptimizer:
+    """NovoGrad (:func:`optimizers.functional.novograd_update`), leafwise
+    or over flat buckets; not elementwise (per-tensor norms)."""
+    return _tx(F.novograd_init,
+               functools.partial(F.novograd_update, lr=lr, **kw), bucketed,
+               elementwise=False)
 
 
 class TrainState(NamedTuple):
@@ -85,7 +132,8 @@ def _stack_trees(trees):
         spec)
 
 
-def chain_steps(step_fn: Callable) -> Callable:
+def chain_steps(step_fn: Callable,
+                commit: Optional[Callable] = None) -> Callable:
     """K training steps in order, as one function.
 
     ``chain_steps(step_fn)(state, batches)`` runs ``step_fn`` over
@@ -93,13 +141,20 @@ def chain_steps(step_fn: Callable) -> Callable:
     returns ``(state, metrics)``, the per-step metrics stacked on K: the
     JAX ``lax.scan`` over the window, step by step.  It is a plain
     function; capturing it, so that K steps cost one host call, is the
-    caller's (:class:`apex_tpu_torch.runtime.StepPipeline`)."""
+    caller's (:class:`apex_tpu_torch.runtime.StepPipeline`).
+
+    ``commit(new_state) -> state`` (optional) runs after every step and
+    its result feeds the next one: the pipeline's capture copies each
+    step's state into its static input there, so no more than one new
+    state is live at a time and a window needs one step's memory."""
     def chained(state, batches):
         leaves, spec = pytree.tree_flatten(batches)
         per_step = []
         for i in range(leaves[0].shape[0]):
             batch = pytree.tree_unflatten([x[i] for x in leaves], spec)
             state, metrics = step_fn(state, batch)
+            if commit is not None:
+                state = commit(state)
             per_step.append(metrics)
         return state, _stack_trees(per_step)
     return chained

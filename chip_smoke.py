@@ -10,7 +10,9 @@ kernels; then with ``--no-pallas-conv``), both trainers replaying a
 captured step, serves and trains GPT-2 small at amp O4 through the int8
 quantized-matmul kernel, drives the ``[B, T, S]`` bias gradient through
 ``flash_attention``, runs the trainers' K-step windows from CUDA graphs
-against eager steps, and checks the card's answers against the CPU's.
+against eager steps, trains BERT-base at O2 with the leafwise and the
+bucketed Adam and the bucketed LAMB, and checks the card's answers
+against the CPU's.
 
     python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
@@ -25,15 +27,17 @@ line):
    BN epilogue and cross-entropy, forward and backward, one after
    another), the five concurrently, time each and print ``ptxas``'s
    registers and spills;
-3. LayerNorm kernel vs plain at ``[1024, 768]``, ``[8, 768]`` and the LM
-   step's ``[8184, 768]``, bf16 and fp32, and rows of mean 100 (the kernel's single-pass variance
+3. LayerNorm kernel vs plain at ``[1024, 768]``, ``[8, 768]``, the LM
+   step's ``[8184, 768]`` and the BERT step's ``[2048, 768]``, bf16 and
+   fp32, and rows of mean 100 (the kernel's single-pass variance
    follows the plain version's, not the two-pass one);
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
    ``[B, T, S]`` bias, full causal, decode (``q_len = 1``, key padding
    bias: the split-KV path), GQA (12 query heads over 4 KV heads), a
    256-key window, fp32, the LM's B 8, T 1023 causal call, fp16 (prefill
-   and decode), and head widths 16, 48, 256, 320 and 512 (the last two
-   in 256-wide slices of the 256 kernel); 4b. with ``--was``, the flash
+   and decode), head widths 16, 48, 256, 320 and 512 (the last two
+   in 256-wide slices of the 256 kernel), and the BERT step's B 16, T 128
+   with every key visible; 4b. with ``--was``, the flash
    kernels of this checkout and the other one at widths up to 256 on the
    same inputs, compared bit for bit (printed, not a gate).
    ``library_ms`` times one
@@ -61,14 +65,16 @@ line):
    decode step, kernels a step, device time by kernel kind), captured
    and eager;
 7. LayerNorm backward kernel vs plain at ``[8184, 768]`` (8 x 1023
-   training rows) and ``[8, 768]``, bf16 and fp32; ``library_ms`` is one
+   training rows) and ``[8, 768]``, bf16 and fp32, and the BERT step's
+   ``[2048, 768]`` bf16; ``library_ms`` is one
    ``aten.native_layer_norm_backward`` call computing dx;
 8. flash dQ and dK/dV kernels vs plain at gpt2_small training shapes (B
    8, T 1023, 12 heads of 64, causal, bf16), GQA 12/4, a 256-key window,
    fp32, a key-padding bias that needs a gradient, fp16, head widths 16,
    48, 128 and 256, 320 and 512 (B 1, T 1024), a ``[B, T, S]`` bias, and
    causal cross attention (q_len
-   333, kv_len 1021: the queries the suffix of the keys); ``library_ms``
+   333, kv_len 1021: the queries the suffix of the keys), and the BERT
+   step's B 16, T 128 with every key visible; ``library_ms``
    is the backward of one SDPA call, timed eagerly (its autograd graph
    is recorded once, outside any capture, and walked again each call);
 9. training: the LM trainer (``apex_tpu_torch.examples.lm.main_amp``)
@@ -93,9 +99,9 @@ line):
    ulp, fp32 within 1e-6; ``library_ms`` is ``F.batch_norm(training=
    False)`` and its backward where it computes the same function;
 12. cross-entropy forward and backward kernels vs plain at
-   ``[8184, 50257]`` (smoothing 0 and 0.1, padding rows; fp32 and bf16)
-   and ``[128, 1000]``; ``library_ms`` is ``F.cross_entropy`` and its
-   backward;
+   ``[8184, 50257]`` (smoothing 0 and 0.1, padding rows; fp32 and bf16),
+   ``[128, 1000]`` and the BERT head's fp32 ``[2048, 30522]`` (smoothing
+   0.1); ``library_ms`` is ``F.cross_entropy`` and its backward;
 13. ResNet-50 training: the ImageNet trainer
    (``apex_tpu_torch.examples.imagenet.main_amp``), B 128, 224 x 224,
    bf16 O2, SGD, its defaults ``--pallas-conv --fused-bn --fused-loss``,
@@ -107,7 +113,10 @@ line):
    images/s, peak memory; two eager steps traced (device time by kind,
    the conv kernels split into forward, dgrad and wgrad; idle share);
    13b. the same with ``--no-pallas-conv`` (cuDNN convs), 5 steps, no
-   conv kernel launched, also traced;
+   conv kernel launched, also traced; 13c. 16 steps at K 1 leafwise and
+   with ``--bucketed`` (the SGD momentum in flat buckets): the bucketed
+   run's launches as above, its state equal to the leafwise run's bit
+   for bit in every leaf;
 14. ResNet correctness: a small bottleneck ResNet at O0 fp32, three SGD
    steps on the card and on the CPU (losses rtol 1e-4, parameters and
    running statistics atol 1e-4), with ``Conv`` and with ``PallasConv``
@@ -173,20 +182,49 @@ line):
    step through the trainers' window loop, 16 steps each, against 16
    eager calls of the step function from the same initial state: every
    state leaf equal bit for bit (one capture, 16 / K replays); step ms
-   and peak memory of each.
+   and peak memory of each, the window's bytes, the K 8 peak over the K 1
+   peak plus the window; and each K 8 run again with the state copied
+   into the graph's static inputs only at the window's end (the design
+   before each step's state was copied in), its state bit for bit too,
+   for the step ms and peak memory before that change;
+21. BERT-base training: the JAX package's BERT step (``bench.py``:
+   ``bert_base(dtype=bf16, num_classes=None, attention_impl="flash")``,
+   B 16, T 128, the tied fp32 head, cross-entropy with smoothing 0.1,
+   ``padding_idx=-1``) at O2 through ``make_train_step`` with
+   ``training.adam(lr=1e-4)``, ``adam(lr=1e-4, bucketed=True)`` and
+   ``lamb(lr=1e-3, bucketed=True)``, each 16 eager steps and 16 steps at
+   K 1 and K 4 through ``runtime.StepPipeline``: every state leaf equal
+   to the eager one bit for bit, every launch counter set to 0 just
+   before each window run and read just after (25 LN forward and
+   backward, 12 flash forward, dQ and dK/dV, 1 cross-entropy forward and
+   backward per step that ran on the card, nothing else), losses finite
+   and falling (the last four steps' mean below the first four's);
+   step ms, sequences/s and peak memory; the bucketed Adam
+   equal to the leafwise Adam bit for bit after 16 steps with a dynamic
+   scale and an inf injected at step 5 (skipped in both), the bucketed
+   LAMB, fed the leafwise LAMB's gradients, within rtol 5e-5, atol 5e-6
+   of the leafwise LAMB's parameters; ``bert_tiny``
+   fp32 logits and the parameters after three bucketed LAMB steps on the
+   card against the CPU within 1e-4; and (after the profiler sessions
+   have begun) the optimizer's device ms a step from one trace, for the
+   three BERT optimizers and for the LM O2 step with the leafwise and
+   the bucketed Adam.
 
-The phases run in the order 1-4, 17's calibration, 20, 5, 17's served
-load, 6 (with 17's traces), 7-16, the rest of 17, 18, 19: the eager
-sides of 20, 5 and 17 run before the first profiler session, after which
-every launch of the process costs the host more (phase 6 ends by timing
-phase 20's eager LM steps again).
+The phases run in the order 1-4, 17's calibration, 20, 21 (all but its
+traces), 5, 17's served load, 6 (with 17's traces), 7-10, 21's traces,
+11-16, the rest of 17, 18, 19: the eager sides of 20, 21, 5 and 17 run
+before the first profiler session, after which every launch of the
+process costs the host more (phase 6 ends by timing phase 20's eager LM
+steps again).
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
 the serving run, their backward kernels' on the LM training run, the BN
 and cross-entropy kernels' and the conv kernels' on the ResNet-50
 run, the qmm kernel's on the O4 serving run, the bias-gradient kernel's
-on phase 19's backward passes); then the ``nvidia-smi`` line;
+on phase 19's backward passes; ``launches_by_path`` adds every other
+path, ``bert_training`` the bucketed LAMB's K 4 run); then the
+``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -194,6 +232,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import gc
 import importlib
 import json
@@ -294,8 +333,9 @@ def layer_norm_cases(fln, dev):
     w = torch.from_numpy((1 + 0.1 * rng.randn(768)).astype(np.float32)).to(dev)
     b = torch.from_numpy((0.1 * rng.randn(768)).astype(np.float32)).to(dev)
     cases = []
-    # serving prefill and decode rows, and the LM step's 8 x 1023
-    for rows in (1024, 8, 8184):
+    # serving prefill and decode rows, the LM step's 8 x 1023 and the
+    # BERT step's 16 x 128
+    for rows in (1024, 8, 8184, 2048):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             x = torch.from_numpy(rng.randn(rows, 768).astype(np.float32)).to(
                 dev, dtype)
@@ -428,6 +468,9 @@ def flash_cases(fa, dev):
          None, dict(is_causal=True)),
         ("head_dim 512 causal 1024", 1, t, t, h, 512, bf16, True, None, None,
          None, dict(is_causal=True)),
+        # the BERT step's call, 12 a forward: no mask, every key visible
+        ("bert b16 t128 full", 16, 128, 128, h, 64, bf16, False, None, None,
+         None, {}),
     ]
     cases = []
     for (name, b, tq, tk, h_kv, d, dtype, causal, window, kb, bias,
@@ -530,7 +573,8 @@ def layer_norm_bwd_cases(fln, dev):
     w = torch.from_numpy((1 + 0.1 * rng.randn(768)).astype(np.float32)).to(dev)
     cases = []
     for rows, dtypes in ((8184, (torch.bfloat16, torch.float32)),
-                         (8, (torch.bfloat16, torch.float32))):
+                         (8, (torch.bfloat16, torch.float32)),
+                         (2048, (torch.bfloat16,))):
         for dtype in dtypes:
             tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
             x, g = (torch.from_numpy(rng.randn(rows, 768).astype(np.float32))
@@ -607,6 +651,9 @@ def flash_bwd_cases(fa, dev):
         # queries the suffix of the keys, neither length a tile multiple
         ("cross causal tq 333 tk 1021", h, bf16, True, None, False, 64,
          False, (333, 1021)),
+        # the BERT step's backward: B 16, T 128, every key visible
+        ("bert b16 t128 full", h, bf16, False, None, False, 64, False,
+         (128, 128, 16)),
     ]
     dq_cases, dkv_cases = [], []
     for (name, h_kv, dtype, causal, window, kgrad, d, with_bias,
@@ -1101,9 +1148,12 @@ def trace_steps(state, step_fn, batch, kinds=_TRAIN_KINDS):
             m["loss"].item()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the optimizer.update range shows on the device's timeline too: it
+    # is no kernel
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
+                     if e.device_type == DeviceType.CUDA
+                     and e.name != "optimizer.update")
     busy, edge, by_kind, by_name = 0.0, None, {}, {}
     for lo, hi, name in kernels:
         lo2 = lo if edge is None else max(lo, edge)
@@ -1115,7 +1165,13 @@ def trace_steps(state, step_fn, batch, kinds=_TRAIN_KINDS):
         by_kind[kind] = by_kind.get(kind, 0.0) + (hi - lo)
         by_name[name] = by_name.get(name, 0.0) + (hi - lo)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    # the device time of the kernels each named range launched
+    ranges = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name == "optimizer.update":
+            ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total
     res = dict(wall_ms_per_step=wall_us / 2e3,
+               ranges_device_ms={k: v / 2e3 for k, v in ranges.items()},
                device_busy_ms_per_step=busy / 2e3,
                device_idle_share=1 - busy / wall_us,
                device_ms_per_step_by_kind={k: v / 2e3 for k, v in
@@ -1344,6 +1400,8 @@ XENT_CASES = [
     ("[8184, 50257] fp32 s0.1", 8184, 50257, torch.float32, 0.1, 0),
     ("[128, 1000] fp32", 128, 1000, torch.float32, 0.0, -1),
     ("[8184, 50257] bf16 s0.1", 8184, 50257, torch.bfloat16, 0.1, 0),
+    # the BERT step's tied head: 16 x 128 rows, padding_idx -1
+    ("[2048, 30522] fp32 s0.1", 2048, 30522, torch.float32, 0.1, -1),
 ]
 
 
@@ -1819,6 +1877,52 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
           f"memory {out['max_memory_allocated_bytes'] / 2**30:.2f} GiB",
           flush=True)
     return out
+
+
+def resnet50_bucketed(imagenet, counters, steps=16):
+    """Phase 13's trainer at K 1 for 16 steps, leafwise and with
+    ``--bucketed`` (the SGD momentum in flat buckets): the bucketed run's
+    launches as phase 13's (every counter set to 0 just before it), and
+    its state equal to the leafwise run's bit for bit in every leaf
+    (parameters, momentum, BN statistics, scaler), as JAX holds the
+    bucketed SGD to the leafwise one."""
+    mt = importlib.import_module("apex_tpu_torch.multi_tensor")
+    states = {}
+    for bucketed in (False, True):
+        args = imagenet.parse(IMAGENET_ARGS + ["--prof", str(steps)]
+                              + (["--bucketed"] if bucketed else []))
+        for c in counters.values():
+            c.launches = 0
+        res = imagenet.train(args, log=lambda line: None)
+        launches = {name: c.launches for name, c in counters.items()}
+        states[bucketed] = res["state"]
+    ran = pipeline_gate("resnet50 training --bucketed", res["pipeline"],
+                        steps)
+    per_step = dict(conv_fwd=53, conv_dgrad=52, conv_wgrad=53,
+                    bn_act_fwd=53, bn_act_bwd=53, xentropy_fwd=1,
+                    xentropy_bwd=1)
+    check(all(launches[n] == per_step.get(n, 0) * ran for n in launches),
+          f"resnet50 training --bucketed: launches {launches} = "
+          f"{per_step} x {ran} steps")
+    leaf, buck = states[False], states[True]
+    check(isinstance(buck.opt_state.momentum_buf, mt.Packed),
+          "resnet50 --bucketed: the momentum is Packed")
+    store = mt.BucketStore(buck.params)
+    want = {**leaf.params, **leaf.model_state,
+            **{f"momentum.{k}": v
+               for k, v in leaf.opt_state.momentum_buf.items()}}
+    got = {**buck.params, **buck.model_state,
+           **{f"momentum.{k}": v for k, v in store.unpack(
+               buck.opt_state.momentum_buf).items()}}
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    bad += [f"scaler.{i}" for i, (a, b) in enumerate(zip(buck.scaler,
+                                                          leaf.scaler))
+            if not torch.equal(a, b)]
+    check(not bad, f"resnet50 --bucketed K 1: state after {steps} steps "
+          f"equals the leafwise run's in {len(want) + 3 - len(bad)}/"
+          f"{len(want) + 3} leaves" + (f"; differing {bad[:5]}" if bad
+                                       else ""))
+    return dict(launches=launches, leaves_differing=len(bad))
 
 
 # -- phase 14: ResNet correctness ---------------------------------------------------------
@@ -2476,8 +2580,8 @@ def window_loop(state, step_fn, batch, k, steps):
 
 def eager_steps(build, steps=16):
     """``steps`` eager calls of the step function from ``build()``'s
-    state: the final state and the ms a step of calls 2-``steps`` (run
-    back to back, one read of the last loss)."""
+    state: the final state, the ms a step of calls 2-``steps`` (run back
+    to back, one read of the last loss) and the bytes of one batch."""
     state, step_fn, batch = build()
     state, met = step_fn(state, batch)
     met["loss"].item()
@@ -2485,72 +2589,397 @@ def eager_steps(build, steps=16):
     for _ in range(steps - 1):
         state, met = step_fn(state, batch)
     met["loss"].item()
-    return state, (time.perf_counter() - t0) / (steps - 1) * 1e3
+    batch_bytes = sum(t.numel() * t.element_size() for t in batch)
+    return (state, (time.perf_counter() - t0) / (steps - 1) * 1e3,
+            batch_bytes)
 
 
-def capture_vs_eager(name, build, run_k, steps=16, ks=(1, 8)):
+@contextlib.contextmanager
+def window_end_commit(runtime, cache):
+    """``StepPipeline`` as it captured a window before each step's state
+    was copied into the static inputs: K chained steps, the state copied
+    in once at the window's end.  Measured beside the per-step copy, in
+    the same process."""
+    per_step = runtime.StepPipeline._capture
+
+    def _capture(self, program, state, window, valid):
+        fn = self.loop if program == "hot" else self.tail_loop
+
+        def body(state, window, valid):
+            new_state, metrics = fn(state, window, valid)
+            runtime._copy_tree(state, new_state)
+            return metrics
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = cache.warmup(body, state, window, valid, pool=self._pool)
+        self.stats["captures"][program] += 1
+        return graph
+    runtime.StepPipeline._capture = _capture
+    try:
+        yield
+    finally:
+        runtime.StepPipeline._capture = per_step
+
+
+def _window_run(name, run_k, k, steps, want):
+    """``run_k(k, steps)`` from an emptied allocator: its state against
+    ``want`` bit for bit (one capture, ``steps / k`` replays); step ms
+    (each window after the first), peak memory and losses."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_k(k, steps)
+    differ, n, worst, names = _state_diff(res["state"], want)
+    pipe = res["pipeline"]
+    check(differ == 0 and pipe["replays"] == steps // k
+          and pipe["captures"]["hot"] == 1,
+          f"{name} K {k}: state after {steps} steps equals {steps} eager "
+          f"steps in {n - differ}/{n} leaves (max |diff| {worst:.3g}"
+          + (f", first {names}" if names else "") + f"); "
+          f"{pipe['captures']['hot']} capture, {pipe['replays']} replays")
+    return dict(step_ms=float(np.median(res["step_s"][k:])) * 1e3,
+                step_ms_all=[x * 1e3 for x in res["step_s"]],
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                leaves_differing=differ, leaves=n, max_abs_diff=worst,
+                losses=res["losses"])
+
+
+def capture_vs_eager(name, build, run_k, steps=16, ks=(1, 8),
+                     window_end=None):
     """``steps`` eager calls of the step function (``build()`` gives the
     initial state, the step and the batch), then ``run_k(k, steps)`` for
     each K, the same steps in windows of K replayed from CUDA graphs: the
     final state of each equal to the eager one bit for bit; step ms (the
     eager steps 2-16, each window after the first) and peak memory of
-    each."""
+    each.  With ``window_end`` (:func:`window_end_commit`'s arguments)
+    the K > 1 windows run again with the state copied in only at the
+    window's end, for the step ms and peak memory before the per-step
+    copy.  The window's bytes are K batches'."""
     torch.cuda.reset_peak_memory_stats()
-    want, step_ms = eager_steps(build, steps)
+    want, step_ms, batch_bytes = eager_steps(build, steps)
     out = {"eager": dict(
         step_ms=step_ms,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())}
     for k in ks:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        res = run_k(k, steps)
-        differ, n, worst, names = _state_diff(res["state"], want)
-        pipe = res["pipeline"]
-        check(differ == 0 and pipe["replays"] == steps // k
-              and pipe["captures"]["hot"] == 1,
-              f"{name} K {k}: state after {steps} steps equals {steps} eager "
-              f"steps in {n - differ}/{n} leaves (max |diff| {worst:.3g}"
-              + (f", first {names}" if names else "") + f"); "
-              f"{pipe['captures']['hot']} capture, {pipe['replays']} replays")
-        out[f"k{k}"] = dict(
-            step_ms=float(np.median(res["step_s"][k:])) * 1e3,
-            step_ms_all=[x * 1e3 for x in res["step_s"]],
-            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-            leaves_differing=differ, leaves=n, max_abs_diff=worst,
-            losses=res["losses"])
-        del res
+        out[f"k{k}"] = _window_run(name, run_k, k, steps, want)
+        out[f"k{k}"]["window_bytes"] = k * batch_bytes
+        if window_end is not None and k > 1:
+            with window_end_commit(*window_end):
+                out[f"k{k}_window_end_commit"] = _window_run(
+                    f"{name} (state copied at the window's end)", run_k, k,
+                    steps, want)
     torch.cuda.empty_cache()
-    print(f"      {name}: step ms eager {out['eager']['step_ms']:.2f}, "
-          + ", ".join(f"K {k} {out[f'k{k}']['step_ms']:.2f}" for k in ks)
-          + "; peak GiB eager "
-          f"{out['eager']['max_memory_allocated_bytes'] / 2**30:.2f}, "
-          + ", ".join(f"K {k} "
-                      f"{out[f'k{k}']['max_memory_allocated_bytes'] / 2**30:.2f}"
-                      for k in ks), flush=True)
+
+    def gib(key):
+        return out[key]["max_memory_allocated_bytes"] / 2**30
+    line = (f"      {name}: step ms eager {out['eager']['step_ms']:.2f}, "
+            + ", ".join(f"K {k} {out[f'k{k}']['step_ms']:.2f}" for k in ks)
+            + f"; peak GiB eager {gib('eager'):.2f}, "
+            + ", ".join(f"K {k} {gib(f'k{k}'):.2f}" for k in ks))
+    for k in ks[1:]:
+        win = out[f"k{k}"]["window_bytes"] / 2**30
+        ratio = gib(f"k{k}") / (gib(f"k{ks[0]}") + win)
+        out[f"k{k}"]["peak_over_k1_plus_window"] = ratio
+        line += (f"; K {k} window {win:.3f} GiB, K {k} peak / (K "
+                 f"{ks[0]} peak + window) {ratio:.3f}")
+        if f"k{k}_window_end_commit" in out:
+            before = out[f"k{k}_window_end_commit"]
+            line += (f"; state copied at the window's end: K {k} step "
+                     f"{before['step_ms']:.2f} ms, peak "
+                     f"{gib(f'k{k}_window_end_commit'):.2f} GiB")
+    print(line, flush=True)
     return out
 
 
 def training_windows(main_amp, imagenet, build_o4, steps=16):
     """LM O2 and ResNet-50 O2 through their trainers at
     ``--steps-per-call`` 1 and 8, O4 through the trainers' loop on
-    phase 18's step, each against the eager step function."""
+    phase 18's step, each against the eager step function, and each
+    K 8 window again with the state copied in at the window's end."""
     quiet = dict(log=lambda line: None)
+    window_end = (importlib.import_module("apex_tpu_torch.runtime"),
+                  importlib.import_module("apex_tpu_torch.cache"))
     lm = capture_vs_eager(
         "gpt2_small O2 B8 T1023",
         lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
         lambda k, n: main_amp.train(main_amp.parse(
             TRAIN_ARGS + ["--steps", str(n), "--steps-per-call", str(k)]),
-            **quiet), steps)
+            **quiet), steps, window_end=window_end)
     o4 = capture_vs_eager(
         "gpt2_small O4 B8 T1023", lambda: build_o4()[:3],
-        lambda k, n: window_loop(*build_o4()[:3], k, n), steps)
+        lambda k, n: window_loop(*build_o4()[:3], k, n), steps,
+        window_end=window_end)
     resnet = capture_vs_eager(
         "resnet50 O2 B128 224",
         lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
         lambda k, n: imagenet.train(imagenet.parse(
             IMAGENET_ARGS + ["--prof", str(n), "--steps-per-call", str(k)]),
-            **quiet), steps)
+            **quiet), steps, window_end=window_end)
     return dict(lm_o2=lm, lm_o4=o4, resnet50_o2=resnet)
+
+
+# -- phase 21: BERT-base at O2 with Adam and LAMB ------------------------------------
+
+BERT_B, BERT_T, BERT_VOCAB = 16, 128, 30522
+# kernel launches per BERT-base training step: 25 LayerNorms (the
+# embeddings' and two a layer), 12 flash attentions, one cross-entropy
+BERT_PER_STEP = dict(LM_PER_STEP)
+
+
+def bert_optimizers(training):
+    """The BERT path's three optimizers, made afresh each call."""
+    return {"adam": lambda: training.adam(lr=1e-4),
+            "adam_bucketed": lambda: training.adam(lr=1e-4, bucketed=True),
+            "lamb_bucketed": lambda: training.lamb(lr=1e-3, bucketed=True)}
+
+
+def bert_setup(models, training, xent, dev):
+    """A function ``build(tx, loss_scale=None)`` giving ``(state, step,
+    batch)`` of the JAX package's BERT step (``bench.py:538-577``):
+    ``bert_base(dtype=bf16, num_classes=None, attention_impl="flash")``,
+    B 16, T 128, the tied fp32 head ``feats @ word_embeddings.T``,
+    ``softmax_cross_entropy_loss`` with smoothing 0.1 and
+    ``padding_idx=-1``, O2 through ``make_train_step``; the batch is
+    ``(ids, labels, multiplier)``, the loss times the multiplier (1; inf
+    injects an overflow).  Every state starts from one model's weights."""
+    model = models.bert_base(dtype=torch.bfloat16, num_classes=None,
+                             attention_impl="flash", device=dev, seed=0)
+    rng = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rng.randint(0, BERT_VOCAB,
+                                                (BERT_B, BERT_T))).to(dev)
+                   for _ in range(2))
+    one = torch.ones((), device=dev)
+    weights = {k: v.detach() for k, v in model.state_dict().items()}
+
+    def loss_fn(p, batch):
+        ids_b, labels_b, mult = batch
+        feats = torch.func.functional_call(model, p, (ids_b,))
+        logits = feats @ p["word_embeddings.embedding"].float().T
+        losses = xent.softmax_cross_entropy_loss(
+            logits.reshape(-1, logits.shape[-1]), labels_b.reshape(-1),
+            smoothing=0.1, padding_idx=-1)
+        return losses.mean() * mult
+
+    def build(tx, loss_scale=None):
+        init, step = training.make_train_step(loss_fn, tx, opt_level="O2",
+                                              loss_scale=loss_scale)
+        return (init({k: v.clone() for k, v in weights.items()}), step,
+                (ids, labels, one))
+    return build
+
+
+def bert_windows(build, training, counters, steps=16):
+    """Each optimizer: 16 eager steps, then 16 steps at K 1 and K 4
+    through the trainers' window loop (every state leaf equal to the
+    eager one bit for bit), every launch counter set to 0 just before
+    each window run and read just after (``BERT_PER_STEP`` x the steps
+    that ran on the card, nothing else), losses finite and falling (the
+    last four steps' mean below the first four's: LAMB at lr 1e-3 on
+    one fixed batch jumps for a single step now and then, the JAX
+    package's BERT step as well); step ms, sequences/s and peak
+    memory.  The launches of the bucketed
+    LAMB's K 4 run are the path's."""
+    out, launches = {}, {}
+    for name, make_tx in bert_optimizers(training).items():
+        def run_k(k, n, name=name, make_tx=make_tx):
+            state, step, batch = build(make_tx())
+            for c in counters.values():
+                c.launches = 0
+            res = window_loop(state, step, batch, k, n)
+            got = {c: w.launches for c, w in counters.items()}
+            ran = pipeline_gate(f"bert_base {name} K {k}", res["pipeline"],
+                                n, k)
+            check(all(got[c] == BERT_PER_STEP.get(c, 0) * ran for c in got),
+                  f"bert_base {name} K {k}: launches {got} = "
+                  f"{BERT_PER_STEP} x {ran} steps (the warm run and the "
+                  f"replays)")
+            launches[(name, k)] = got
+            return res
+        res = capture_vs_eager(f"bert_base O2 B16 T128 {name}",
+                               lambda make_tx=make_tx: build(make_tx()),
+                               run_k, steps, ks=(1, 4))
+        for k in (1, 4):
+            losses = res[f"k{k}"]["losses"]
+            first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+            check(all(np.isfinite(losses)) and last < first,
+                  f"bert_base {name} K {k}: losses finite and falling, "
+                  f"steps {steps - 3}-{steps} {last:.4f} < steps 1-4 "
+                  f"{first:.4f} on average")
+            res[f"k{k}"]["sequences_per_s"] = (
+                BERT_B / res[f"k{k}"]["step_ms"] * 1e3)
+        print(f"      bert_base {name}: sequences/s K 1 "
+              f"{res['k1']['sequences_per_s']:.1f}, K 4 "
+              f"{res['k4']['sequences_per_s']:.1f}; losses "
+              + " ".join(f"{x:.4f}" for x in res["k1"]["losses"]),
+              flush=True)
+        out[name] = res
+    out["launches"] = launches[("lamb_bucketed", 4)]
+    return out
+
+
+def _twin(leaf_tx, bucketed_tx):
+    """A leafwise optimizer that also runs ``bucketed_tx`` on the same
+    gradients, skip mask and scale each step, on parameters and a state
+    of its own (``side``): the two updates compared on equal inputs, as
+    JAX's bucketed-vs-leafwise LAMB test compares them."""
+    training = importlib.import_module("apex_tpu_torch.training")
+    side = {}
+
+    def init(params):
+        side["params"] = {k: v.clone() for k, v in params.items()}
+        side["state"] = bucketed_tx.init(side["params"])
+        return leaf_tx.init(params)
+
+    def update(grads, state, params, **kw):
+        side["params"], side["state"] = bucketed_tx.update(
+            grads, side["state"], side["params"], **kw)
+        return leaf_tx.update(grads, state, params, **kw)
+    return training.FunctionalOptimizer(init, update), side
+
+
+def bert_optimizer_parity(build, training, steps=16, bad_step=5):
+    """16 eager steps with a dynamic loss scale and an inf injected at
+    ``bad_step`` (skipped): the bucketed Adam's run equals the leafwise
+    Adam's bit for bit in every parameter and moment (the step count 15
+    in both); the bucketed LAMB, fed the leafwise LAMB's gradients each
+    step, keeps parameters within rtol 5e-5 and atol 5e-6 of the
+    leafwise LAMB's (per-leaf norms summed in another order; two runs
+    that each take their own gradients part by more, since the bf16
+    forward turns any difference into other gradients)."""
+    mt = importlib.import_module("apex_tpu_torch.multi_tensor")
+    want_flags = [i == bad_step for i in range(steps)]
+
+    def run(tx):
+        state, step, (ids, labels, one) = build(tx, loss_scale="dynamic")
+        inf = torch.full_like(one, float("inf"))
+        flags = []
+        for i in range(steps):
+            state, met = step(state, (ids, labels,
+                                      inf if i == bad_step else one))
+            flags.append(met["overflow"])
+        return state, [bool(f) for f in flags]
+    leaf, leaf_flags = run(training.adam(1e-4))
+    buck, buck_flags = run(training.adam(1e-4, bucketed=True))
+    store = mt.BucketStore(buck.params)
+    pairs = [(f"params.{k}", v, buck.params[k])
+             for k, v in leaf.params.items()]
+    for moment in ("exp_avg", "exp_avg_sq"):
+        unpacked = store.unpack(getattr(buck.opt_state, moment))
+        pairs += [(f"{moment}.{k}", v, unpacked[k])
+                  for k, v in getattr(leaf.opt_state, moment).items()]
+    bad = [n for n, x, y in pairs if not torch.equal(x, y)]
+    check(not bad and leaf_flags == buck_flags == want_flags
+          and int(leaf.opt_state.step) == int(buck.opt_state.step)
+          == steps - 1,
+          f"bert_base adam_bucketed vs adam: {len(pairs) - len(bad)}/"
+          f"{len(pairs)} parameters and moments bit for bit after {steps} "
+          f"steps, step {bad_step} skipped in both"
+          + (f"; differing {bad[:5]}" if bad else ""))
+    del leaf, buck, pairs
+    tx, side = _twin(training.lamb(1e-3), training.lamb(1e-3,
+                                                        bucketed=True))
+    leaf, flags = run(tx)
+    outside = [k for k, v in leaf.params.items() if not torch.allclose(
+        side["params"][k], v, rtol=5e-5, atol=5e-6)]
+    worst = max(max_err(side["params"][k], v)
+                for k, v in leaf.params.items())
+    check(not outside and flags == want_flags
+          and int(side["state"].step) == steps - 1,
+          f"bert_base lamb_bucketed vs lamb on the same gradients: "
+          f"parameters within rtol 5e-5, atol 5e-6 (max |diff| "
+          f"{worst:.3g}) after {steps} steps, step {bad_step} skipped in "
+          f"both" + (f"; outside {outside[:5]}" if outside else ""))
+    return dict(adam_leaves_differing=len(bad),
+                lamb_leaves_outside=len(outside), lamb_max_abs_diff=worst)
+
+
+def bert_tiny_card_vs_cpu(models, training, xent, dev):
+    """``bert_tiny`` in fp32 on the card and on the CPU from the same
+    weights: the classifier's logits with a padding mask, then the
+    parameters after three bucketed LAMB steps of the tied-head loss at
+    O0, within rtol/atol 1e-4 (fp32 summation order)."""
+    rng = np.random.RandomState(21)
+    ids = torch.from_numpy(rng.randint(0, 1024, (4, 64)))
+    mask = torch.ones(4, 64, dtype=torch.bool)
+    mask[1, 40:] = False
+    mask[3, 9:] = False
+    pair = [models.bert_tiny(device=d, seed=3, attention_impl="flash")
+            for d in ("cpu", dev)]
+    with torch.no_grad():
+        logits = [m(ids.to(m.word_embeddings.embedding.device),
+                    mask.to(m.word_embeddings.embedding.device)).cpu()
+                  for m in pair]
+    err = max_err(logits[1], logits[0])
+    check(torch.allclose(logits[1], logits[0], rtol=1e-4, atol=1e-4),
+          f"bert_tiny fp32 logits card vs CPU: max |diff| {err:.3g} "
+          f"(rtol/atol 1e-4)")
+    params = []
+    for d in ("cpu", dev):
+        model = models.bert_tiny(device=d, seed=3, num_classes=None,
+                                 attention_impl="flash")
+
+        def loss_fn(p, batch, model=model):
+            feats = torch.func.functional_call(model, p, (batch[0],))
+            logits = feats @ p["word_embeddings.embedding"].T
+            return xent.softmax_cross_entropy_loss(
+                logits.reshape(-1, logits.shape[-1]), batch[1].reshape(-1),
+                smoothing=0.1, padding_idx=-1).mean()
+        init, step = training.make_train_step(
+            loss_fn, training.lamb(1e-3, bucketed=True), opt_level="O0")
+        state = init(model.state_dict())
+        for i in range(3):
+            b = np.random.RandomState(30 + i).randint(0, 1024, (2, 4, 64))
+            state, _ = step(state, tuple(torch.from_numpy(x).to(d)
+                                         for x in b))
+        params.append({k: v.cpu() for k, v in state.params.items()})
+    bad = [k for k in params[0] if not torch.allclose(
+        params[1][k], params[0][k], rtol=1e-4, atol=1e-4)]
+    perr = max(max_err(params[1][k], params[0][k]) for k in params[0])
+    check(not bad, f"bert_tiny fp32 parameters after 3 bucketed LAMB steps "
+          f"card vs CPU: max |diff| {perr:.3g} (rtol/atol 1e-4)"
+          + (f"; outside {bad[:5]}" if bad else ""))
+    return dict(logits_max_abs_diff=err, params_max_abs_diff=perr)
+
+
+def traced_tx(tx):
+    """``tx`` with its update inside a ``record_function`` range named
+    ``optimizer.update``, so a trace gives the optimizer's device time."""
+    def update(*args, **kw):
+        with torch.profiler.record_function("optimizer.update"):
+            return tx.update(*args, **kw)
+    return tx._replace(update=update)
+
+
+def optimizer_traces(bert_build, main_amp, models, training, dev):
+    """The optimizer's device ms a step, leafwise against bucketed, from
+    one trace of two eager steps each: the BERT-base step with the three
+    BERT optimizers, and the LM O2 step (phase 9's model and loss) with
+    the leafwise and the bucketed Adam."""
+    out = {}
+    for name, make_tx in bert_optimizers(training).items():
+        print(f"      bert_base {name}:", flush=True)
+        out[f"bert_{name}"] = trace_steps(*bert_build(traced_tx(make_tx())))
+    args = main_amp.parse(TRAIN_ARGS)
+    model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+
+    def loss_fn(params, batch):
+        return main_amp.lm_loss(torch.func.functional_call(
+            model, params, (batch[0],)), batch[1], args.smoothing,
+            args.fused_loss)
+    for bucketed in (False, True):
+        init, step = training.make_train_step(
+            loss_fn, traced_tx(training.adam(args.lr,
+                                             weight_decay=args.weight_decay,
+                                             bucketed=bucketed)),
+            opt_level="O2")
+        name = "lm_o2_adam" + ("_bucketed" if bucketed else "")
+        print(f"      gpt2_small O2 {name}:", flush=True)
+        out[name] = trace_steps(
+            init(model.state_dict()), step,
+            main_amp.synthetic_batch(8, 1024, 50257, dev))
+    print("      optimizer device ms a step (the optimizer.update range): "
+          + ", ".join(f"{k} {v['ranges_device_ms'].get('optimizer.update', 0):.3f}"
+                      for k, v in out.items()), flush=True)
+    return out
 
 
 # -- main ---------------------------------------------------------------------
@@ -2668,6 +3097,11 @@ def main(argv=None) -> int:
     calib = calibrate_gpt2_small(models, quant, dev)               # 17
     build_o4 = o4_setup(models, quant, main_amp, training, calib, dev)
     windows = training_windows(main_amp, imagenet, build_o4)       # 20
+    bert_build = bert_setup(models, training, xent, dev)           # 21
+    bert = bert_windows(bert_build, training, counters)
+    bert["parity"] = bert_optimizer_parity(bert_build, training)
+    bert["tiny_card_vs_cpu"] = bert_tiny_card_vs_cpu(models, training,
+                                                     xent, dev)
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
                                SERVE_PER_FORWARD)
@@ -2701,6 +3135,9 @@ def main(argv=None) -> int:
     trained.update(training_correctness(models, main_amp, training,
                                         dev))                      # 10
     trained.update(lm_fused_vs_plain_loss(models, main_amp, dev))
+    bert["optimizer_traces"] = optimizer_traces(bert_build, main_amp,  # 21
+                                                models, training, dev)
+    del bert_build
     bn_fwd_cases, bn_bwd_cases = bn_epilogue_cases(fba, dev)       # 11
     xent_fwd_cases, xent_bwd_cases = xentropy_cases(xent, dev)     # 12
     resnet = train_resnet50(imagenet, counters)                    # 13
@@ -2712,6 +3149,7 @@ def main(argv=None) -> int:
     resnet["no_pallas_conv"]["profile"] = trace_training(
         imagenet, IMAGENET_ARGS + ["--prof", "1", "--no-pallas-conv"],
         _RESNET_KINDS)
+    resnet["bucketed"] = resnet50_bucketed(imagenet, counters)      # 13c
     resnet.update(resnet_correctness(imagenet, training, dev))     # 14
     conv = conv_cases(cv, fba, dev)                                # 15
     sites = conv_sites(cv, dev,                                    # 15b
@@ -2736,7 +3174,8 @@ def main(argv=None) -> int:
              "resnet_training": resnet["launches"],
              "o4_serving": o4_serving["launches"],
              "o4_training": o4_train["launches"],
-             "bias_grad": db2_launches}
+             "bias_grad": db2_launches,
+             "bert_training": bert["launches"]}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -2820,6 +3259,7 @@ def main(argv=None) -> int:
                            o4_serving=o4_serving,
                            o4_training=o4_train,
                            training_windows=windows,
+                           bert_training=bert,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

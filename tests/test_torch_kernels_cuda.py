@@ -1608,3 +1608,97 @@ def test_step_pipeline_tail_and_skip_captured_equal_eager(cuda_device):
                     torch.utils._pytree.tree_leaves(ref)):
         assert torch.equal(g, w) if isinstance(w, torch.Tensor) else g == w
     assert float(state.scaler.loss_scale) == 2.0 ** 15
+
+
+# -- the bucketed optimizers captured, and ResNet remat on the card ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam", "lamb"])
+def test_bucketed_update_captured_replays_equal_eager(cuda_device, name):
+    """A bucketed Adam or LAMB update (Packed moments, a skip mask, a
+    dynamic grad scale) captured in a CUDA graph and replayed twice:
+    every output equal to its eager call bit for bit."""
+    mt = importlib.import_module("apex_tpu_torch.multi_tensor")
+    F = importlib.import_module("apex_tpu_torch.optimizers.functional")
+    rng = np.random.RandomState(40)
+    shapes = {"w": (768, 768), "b": (768,), "ln.scale": (768,),
+              "emb": (1000, 64)}
+
+    def tree(scale=1.0):
+        return {k: torch.from_numpy(scale * rng.randn(*s).astype(
+            np.float32)).to(cuda_device) for k, s in shapes.items()}
+    params, grads = tree(), tree(1e-2)
+    store = mt.BucketStore(params, decay_mask={k: not k.endswith(".scale")
+                                               for k in shapes})
+    init, update = {"adam": (F.adam_init, F.adam_update),
+                    "lamb": (F.lamb_init, F.lamb_update)}[name]
+    state = init(params, store=store)
+    for _ in range(2):                       # moments away from zero
+        params, state = update(grads, state, params, lr=1e-2, store=store,
+                               weight_decay=0.01)
+
+    def fn(grads, state, params, keep, grad_scale):
+        return update(grads, state, params, lr=1e-2, store=store,
+                      weight_decay=0.01, apply_mask=keep,
+                      grad_scale=grad_scale)
+    args = (grads, state, params, torch.tensor(True, device=cuda_device),
+            torch.tensor(2.0, device=cuda_device))
+    want = [t.clone() for t in _tensors(fn(*args))]
+    step = cache.warmup(fn, *args)
+    for _ in range(2):
+        got = _tensors(step(*args))
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert isinstance(step.out[1].exp_avg, mt.Packed)
+
+
+@pytest.mark.cuda
+def test_resnet_conv_out_remat_equals_no_remat(conv_device):
+    """A bottleneck ResNet (``PallasConv``, the fused BN, fp32) with
+    ``remat="conv_out"``: the loss, every gradient and the batch
+    statistics equal those without remat bit for bit, and the conv
+    forward and BN forward counters rise by the recomputed stretches'
+    launches (per block two convs, and its three BNs plus a downsample
+    BN), the backward counters not at all."""
+    models = importlib.import_module("apex_tpu_torch.models")
+    groupbn = importlib.import_module("apex_tpu_torch.contrib.groupbn")
+    ops = importlib.import_module("apex_tpu_torch.ops")
+    cv = importlib.import_module("apex_tpu_torch.ops.conv")
+    fba = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_bn_act")
+    counters = (cv.conv_fwd_kernel, cv.conv_dgrad_kernel,
+                cv.conv_wgrad_kernel, fba.bn_act_fwd_kernel,
+                fba.bn_act_bwd_kernel)
+    x = torch.from_numpy(np.random.RandomState(41).randn(
+        8, 32, 32, 3).astype(np.float32)).to(conv_device)
+    runs = {}
+    for remat in (False, "conv_out"):
+        m = models.ResNet(stage_sizes=[1, 1], block_cls=models.BottleneckBlock,
+                          num_filters=8, num_classes=10,
+                          norm_cls=groupbn.BatchNorm2d_NHWC,
+                          conv_cls=ops.PallasConv, remat=remat,
+                          device=conv_device, seed=2)
+        params, stats = m.variables()
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        stats = {k: v.clone() for k, v in stats.items()}
+        before = [c.launches for c in counters]
+        logits, new_stats = m.apply(params, stats, x)
+        loss = torch.sin(logits).sum()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        runs[remat] = (loss, grads, new_stats,
+                       [c.launches - b for c, b in zip(counters, before)])
+    (loss, grads, stats, plain), (rloss, rgrads, rstats, counts) = (
+        runs[False], runs["conv_out"])
+    assert torch.equal(loss, rloss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, rgrads))
+    assert all(torch.equal(stats[k], rstats[k]) for k in stats)
+    blocks, downsampled = 2, 2
+    assert plain == [1 + 4 * blocks, 4 * blocks, 1 + 4 * blocks,
+                     1 + 3 * blocks + downsampled,
+                     1 + 3 * blocks + downsampled]
+    assert counts == [plain[0] + 2 * blocks, plain[1], plain[2],
+                      plain[3] + 3 * blocks + downsampled, plain[4]]

@@ -8,8 +8,11 @@ block class, with the same weights in both (made by the port, moved by
 average more than two values): training-mode logits (fp32, atol 1e-4) and the updated
 ``batch_stats`` (atol 1e-5) through both the fused-epilogue routing
 (``BatchNorm2d_NHWC``) and the plain flax-style BatchNorm; eval-mode
-logits; the variables' round trip; and the O2 cast, which keeps the same
-leaves fp32 in both packages.
+logits; the variables' round trip; the O2 cast, which keeps the same
+leaves fp32 in both packages; and ``remat`` (``"full"``, ``"conv_out"``):
+the same loss, gradients and batch statistics as no remat, bit for bit
+(the recompute runs the same operations on the same inputs), and
+against JAX's remat within the forward test's tolerances.
 """
 
 import functools
@@ -119,9 +122,11 @@ def test_fused_routing_counts_and_flax_names():
     assert not bool(params["stage4_block3.bn3.bn.scale"].any())   # zeros
     with pytest.raises(ValueError, match="fused_epilogue"):
         resnet.ResNet18(fused_epilogue=True, device="cpu")
-    for kw in (dict(sync_bn=True), dict(remat="full")):
-        with pytest.raises(NotImplementedError):
-            resnet.ResNet18(device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        resnet.ResNet18(device="cpu", sync_bn=True)
+    # remat is ported: every block carries the policy
+    rm = resnet.ResNet18(device="cpu", remat=True)
+    assert {getattr(rm, n).remat for n in rm.block_names} == {"full"}
 
 
 def test_variables_round_trip():
@@ -237,3 +242,60 @@ def test_pallas_conv_keeps_names_and_round_trips():
         want = (tm.get_buffer(k) if k in stats else
                 tm.get_parameter(k).detach())
         np.testing.assert_array_equal(v.numpy(), want.numpy())
+
+
+def _loss_and_grads(tm, x):
+    params, stats = tm.variables()
+    params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    stats = {k: v.clone() for k, v in stats.items()}
+    logits, new_stats = tm.apply(params, stats, torch.from_numpy(x))
+    loss = torch.sin(logits).sum()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss, dict(zip(params, grads)), new_stats
+
+
+@pytest.mark.parametrize("remat", ["full", "conv_out"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain_bn"])
+@pytest.mark.parametrize("block", sorted(BLOCKS))
+def test_remat_matches_no_remat_and_jax(block, fused, remat):
+    """The loss ``sum(sin(logits))``, every gradient and the updated
+    batch statistics under ``remat`` equal those without it bit for bit
+    (the running statistics advance once, not again in the recompute),
+    and, with the fused BN, match JAX's ``remat`` model: the loss at 1e-4
+    and each gradient within 1e-3 of its largest value, as the
+    conv-kernel test above."""
+    jm, variables, tm = _pair(block, fused)
+    x = _images(seed=5)
+    rm = resnet.ResNet(block_cls=BLOCKS[block][1],
+                       norm_cls=BatchNorm2d_NHWC if fused else None,
+                       remat=remat, device="cpu", seed=1, **SMALL)
+    rm.load_state_dict(tm.state_dict())
+    loss, grads, stats = _loss_and_grads(tm, x)
+    rloss, rgrads, rstats = _loss_and_grads(rm, x)
+    assert torch.equal(loss, rloss)
+    for k in grads:
+        assert torch.equal(grads[k], rgrads[k]), k
+    for k in stats:
+        assert torch.equal(stats[k], rstats[k]), k
+    if not fused:
+        return           # JAX's remat of the plain BatchNorm: one compile less
+    jrm = jm.clone(remat=remat)
+
+    def jloss(params):
+        logits, _ = jrm.apply({"params": params,
+                               "batch_stats": variables["batch_stats"]},
+                              jnp.asarray(x), train=True,
+                              mutable=["batch_stats"])
+        return jnp.sum(jnp.sin(logits))
+    jl, jgrads = jax.jit(jax.value_and_grad(jloss))(variables["params"])
+    np.testing.assert_allclose(float(rloss.detach()), float(jl), rtol=1e-4)
+    for k, v in _flat(jgrads).items():
+        v = np.asarray(v)
+        err = np.abs(rgrads[k].numpy() - v).max()
+        assert err <= 1e-3 * max(np.abs(v).max(), 1e-6), (k, err)
+
+
+def test_remat_refuses_unknown_policies():
+    with pytest.raises(ValueError, match="remat must be"):
+        resnet.ResNet(block_cls=resnet.BasicBlock, remat="dots",
+                      device="cpu", **SMALL)
