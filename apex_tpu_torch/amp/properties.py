@@ -4,9 +4,11 @@ presets.
 Counterpart of ``apex_tpu/amp/properties.py``: every assignment is
 validated, incompatible combinations raise ``AmpOptionError``, and the
 presets carry the JAX package's defaults — the half type is bfloat16,
-static loss scale 1.0 at every level (dynamic on request).  O4 is O2's
-storage and scaling semantics exactly plus ``quantize=True``: the int8
-routing is a property of the model (``quant=``, :mod:`apex_tpu_torch.quant`).
+static loss scale 1.0 at every level (dynamic on request), and
+``cast_model_outputs`` unset (an O2/O3 model's outputs come back fp32).
+O4 is O2's storage and scaling semantics exactly plus ``quantize=True``:
+the int8 routing is a property of the model (``quant=``,
+:mod:`apex_tpu_torch.quant`).
 """
 
 from __future__ import annotations
@@ -59,8 +61,16 @@ class Properties:
             "keep_batchnorm_fp32": None,
             "master_weights": None,
             "loss_scale": 1.0,
+            "cast_model_outputs": None,
             "quantize": False,
         }
+
+    def _update_options_dict(self, new_options):
+        for k, v in new_options.items():
+            if k not in self.options:
+                raise AmpOptionError(
+                    "Tried to set unexpected option {!r}".format(k))
+            setattr(self, k, v)
 
     def __getattr__(self, name):
         if "options" in self.__dict__ and name in self.__dict__["options"]:
@@ -104,6 +114,8 @@ class Properties:
                 value = float(value)
                 if value <= 0.0:
                     raise AmpOptionError("loss_scale must be positive")
+        elif name == "cast_model_outputs":
+            value = _canonical_dtype(value)
         elif name == "quantize":
             if not isinstance(value, bool):
                 raise AmpOptionError(
@@ -118,6 +130,16 @@ class Properties:
     def __repr__(self):
         return "Properties({})".format(
             ", ".join("{}={!r}".format(k, v) for k, v in self.options.items()))
+
+    @property
+    def half_dtype(self):
+        """The reduced-precision dtype in play: ``cast_model_type`` for
+        O2-O4, bfloat16 for the O1 policy, None for O0."""
+        if self.cast_model_type is not None:
+            return self.cast_model_type
+        if self.patch_functions:
+            return torch.bfloat16
+        return None
 
 
 def _make_preset(name, doc, **opts):

@@ -15,8 +15,14 @@ Cout]`` (the port permutes them inside its forward) and the Dense kernel
 
 :func:`train_state_from_jax` carries a whole JAX ``TrainState`` (the
 parameters, the Adam, SGD, LAMB or NovoGrad state, leafwise or bucketed,
-the loss-scaler state and the model state) into the port's, so both
-packages can continue one training run from the same point.  A bucketed
+the loss-scaler state and the model state) into the port's, and
+:func:`fused_optimizer_state_from_jax` a JAX ``FusedOptimizer``'s
+``state_dict`` (masters, moments, step, bucketed ``Packed`` state) into
+the port's fused optimizer classes, so both packages can continue one
+training run from the same point (``amp.state_dict()`` needs nothing:
+the two packages write the same ``{"loss_scaler{i}": {"loss_scale",
+"unskipped"}}``).  The DCGAN pair's variables move with
+:func:`dcgan_params_from_jax` / :func:`dcgan_params_to_jax`.  A bucketed
 state's ``Packed`` moments cross unchanged: the port's
 :class:`~apex_tpu_torch.multi_tensor.BucketStore` lays out the same
 buckets as JAX's for the converted tree.
@@ -105,6 +111,24 @@ def resnet_variables_to_jax(params: Mapping[str, torch.Tensor],
     return {"params": _nest(params), "batch_stats": _nest(batch_stats)}
 
 
+def dcgan_params_from_jax(variables: Mapping[str, Any]
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Dict[str, torch.Tensor]]:
+    """A flax DCGAN ``Generator``'s or ``Discriminator``'s variables
+    (``{"params": ..., "batch_stats": ...}``) as ``(params,
+    batch_stats)`` for :mod:`apex_tpu_torch.models.dcgan` (kernels keep
+    flax's ``[in, out]`` and HWIO layouts)."""
+    return resnet_variables_from_jax(variables)
+
+
+def dcgan_params_to_jax(params: Mapping[str, torch.Tensor],
+                        batch_stats: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, Any]:
+    """The inverse: ``{"params": tree, "batch_stats": tree}`` of float32
+    numpy arrays in the flax layout."""
+    return resnet_variables_to_jax(params, batch_stats)
+
+
 def _nest(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, t in flat.items():
@@ -121,6 +145,32 @@ def _is_packed(x) -> bool:
         "data", "rest")
 
 
+def _state_tree(t, device):
+    """A numpy tree of the JAX package's optimizer state as the port's:
+    a ``Packed`` keeps its buckets, a nested mapping becomes a flat
+    ``name -> tensor`` dict (dtypes kept)."""
+    from .multi_tensor.buckets import Packed
+    if _is_packed(t):
+        return Packed(data=tuple(_tensor(x).to(device) for x in t.data),
+                      rest=tuple(_tensor(x).to(device) for x in t.rest))
+    return {k: _tensor(v).to(device) for k, v in _flatten(t).items()}
+
+
+def _opt_state_from_jax(opt, device):
+    """An ``AdamState``, ``SGDState``, ``LambState`` or ``NovoGradState``
+    of numpy leaves as the port's."""
+    from .optimizers import functional as F
+    fields = {}
+    for name, value in opt._asdict().items():
+        if name == "step":
+            fields[name] = _tensor(value).to(device, torch.int32)
+        elif name == "initialized":
+            fields[name] = _tensor(value).to(device).bool()
+        else:
+            fields[name] = _state_tree(value, device)
+    return getattr(F, type(opt).__name__)(**fields)
+
+
 def train_state_from_jax(state, device=None):
     """A JAX ``apex_tpu.training.TrainState`` whose leaves are numpy
     arrays (``jax.tree_util.tree_map(np.asarray, state)``), with an
@@ -132,31 +182,37 @@ def train_state_from_jax(state, device=None):
     included), the step, the SGD ``initialized`` flag and the scaler
     state become 0-dim tensors."""
     from .amp.loss_scaler import LossScalerState
-    from .multi_tensor.buckets import Packed
-    from .optimizers import functional as F
     from .training import TrainState
 
-    def tensor(x):
-        return _tensor(x).to(device)
-
-    def tree(t):
-        if _is_packed(t):
-            return Packed(data=tuple(tensor(x) for x in t.data),
-                          rest=tuple(tensor(x) for x in t.rest))
-        return {k: tensor(v) for k, v in _flatten(t).items()}
-
-    opt = state.opt_state
-    fields = {}
-    for name, value in opt._asdict().items():
-        if name == "step":
-            fields[name] = tensor(value).to(torch.int32)
-        elif name == "initialized":
-            fields[name] = tensor(value).bool()
-        else:
-            fields[name] = tree(value)
     model_state = getattr(state, "model_state", None)
     return TrainState(
-        params=tree(state.params),
-        opt_state=getattr(F, type(opt).__name__)(**fields),
-        scaler=LossScalerState(*(tensor(x) for x in state.scaler)),
-        model_state=None if model_state is None else tree(model_state))
+        params=_state_tree(state.params, device),
+        opt_state=_opt_state_from_jax(state.opt_state, device),
+        scaler=LossScalerState(*(_tensor(x).to(device)
+                                 for x in state.scaler)),
+        model_state=(None if model_state is None
+                     else _state_tree(model_state, device)))
+
+
+def fused_optimizer_state_from_jax(state_dict, device=None) -> dict:
+    """A JAX ``FusedOptimizer.state_dict()`` (numpy leaves:
+    ``jax.tree_util.tree_map(np.asarray, opt.state_dict())``) as the
+    port's :meth:`FusedOptimizer.state_dict` format, for
+    ``load_state_dict`` on a port optimizer whose groups carry the flax
+    names (``model.named_parameters()``, or names found by
+    ``amp.initialize``): each group's state (moments as flat
+    ``name -> tensor`` dicts, or the ``Packed`` buckets of a bucketed
+    optimizer, which the port's store lays out as JAX's does), its lr,
+    and the fp32 masters; a JAX run continues in the port."""
+    out = {"state": [_opt_state_from_jax(st, device)
+                     for st in (state_dict["state"]
+                                if isinstance(state_dict["state"], list)
+                                else [state_dict["state"]])],
+           "lr": [float(np.asarray(x)) for x in state_dict["lr"]]}
+    masters = state_dict.get("master_params")
+    if masters is not None:
+        out["master_params"] = [
+            {k: _tensor(v).to(device, torch.float32)
+             for k, v in _flatten(m).items()} for m in masters]
+    return out
+

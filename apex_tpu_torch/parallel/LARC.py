@@ -8,8 +8,11 @@ the weight decay absorbed into the rewritten gradient, before any base
 optimizer takes it.  :func:`larc_gradients` is the pure rewrite;
 :func:`larc_transform` wraps it as an ``(init, update)`` pair, the shape
 of the optax gradient transformation the JAX package returns (the port
-has no optax).  The ``LARC`` class, which wraps the fused optimizer
-classes, waits for them.
+has no optax).  The :class:`LARC` class wraps a fused optimizer class:
+it rewrites each group's gradients with the group's own lr and weight
+decay, then steps the optimizer with the group weight decay set to 0
+(absorbed into the rewrite) and restores it, as the reference does
+(``apex_tpu/parallel/LARC.py:43-103``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from ..multi_tensor import flatten_tree
 
-__all__ = ["GradientTransformation", "larc_gradients", "larc_transform"]
+__all__ = ["GradientTransformation", "LARC", "larc_gradients",
+           "larc_transform"]
 
 
 def larc_gradients(grads, params, *, lr, trust_coefficient=0.02, clip=True,
@@ -47,6 +51,63 @@ def larc_gradients(grads, params, *, lr, trust_coefficient=0.02, clip=True,
         gf = torch._foreach_add(gf, torch._foreach_mul(pf, weight_decay))
     new = torch._foreach_mul(gf, list(rate.unbind()))
     return rebuild([n.to(g.dtype) for n, g in zip(new, gs)])
+
+
+class LARC:
+    """Optimizer wrapper (reference class): ``optimizer`` is a
+    :class:`~apex_tpu_torch.optimizers.FusedOptimizer`, amp-wired or not;
+    its gradients this step (the master gradients ``scale_loss``
+    delivered, else the parameters' ``.grad``) are rewritten against
+    what it updates (its fp32 masters, else the parameters)."""
+
+    def __init__(self, optimizer, trust_coefficient=0.02, clip=True,
+                 eps=1e-8):
+        self.optim = optimizer
+        self.trust_coefficient = trust_coefficient
+        self.eps = eps
+        self.clip = clip
+
+    def __getattr__(self, name):
+        return getattr(self.optim, name)
+
+    @property
+    def param_groups(self):
+        return self.optim.param_groups
+
+    def step(self, closure=None):
+        from ..multi_tensor.buckets import Packed
+        opt = self.optim
+        new = []
+        for gr, g in zip(opt._step_grads(), opt.param_groups):
+            if isinstance(gr, Packed):
+                gr = g["_store"].unpack(gr)
+            params = (dict(zip(g["param_names"], g["params"]))
+                      if "param_names" in g else list(g["params"]))
+            new.append(larc_gradients(
+                gr, params, lr=g["lr"],
+                trust_coefficient=self.trust_coefficient, clip=self.clip,
+                eps=self.eps, weight_decay=g.get("weight_decay", 0.0)))
+        opt._master_grads = new
+        saved = [g.get("weight_decay", 0.0) for g in opt.param_groups]
+        saved_default = opt.defaults.get("weight_decay", 0.0)
+        for g in opt.param_groups:
+            g["weight_decay"] = 0.0
+        opt.defaults["weight_decay"] = 0.0
+        try:
+            return opt.step(closure)
+        finally:
+            opt.defaults["weight_decay"] = saved_default
+            for g, wd in zip(opt.param_groups, saved):
+                g["weight_decay"] = wd
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.optim.zero_grad(set_to_none)
+
+    def state_dict(self):
+        return self.optim.state_dict()
+
+    def load_state_dict(self, sd):
+        self.optim.load_state_dict(sd)
 
 
 class GradientTransformation(NamedTuple):

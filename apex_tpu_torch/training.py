@@ -7,7 +7,10 @@ Counterpart of ``apex_tpu/training.py:93-429`` (``FunctionalOptimizer``,
 opt-level semantics:
 
 * O0: fp32 end to end.
-* O1: fp32 parameters, no model cast (the autocast policy is not ported).
+* O1: fp32 parameters; the loss runs under whatever O1 policy
+  ``amp.init()`` has pushed (:mod:`apex_tpu_torch.amp.autocast`), as the
+  JAX step traces it, and the weight-cast cache is cleared after each
+  step.
 * O2: parameters stored ONCE as fp32 masters; the bf16 copy exists only
   inside the step (``amp.convert_params``, norms kept fp32).  The model
   runs on the cast tree through ``torch.func.functional_call`` in the
@@ -40,6 +43,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from .amp import autocast as _autocast
 from .amp import policy as _policy
 from .amp.loss_scaler import LossScaler, LossScalerState
 from .amp.properties import opt_levels
@@ -284,6 +288,7 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
         new_params, new_opt = optimizer.update(
             grads, state.opt_state, state.params, apply_mask=apply_mask)
         scaler_state = scaler.update_scale(scaler_state)
+        _autocast.clear_cast_cache()
         metrics = {"loss": loss, "loss_scale": scaler_state.loss_scale,
                    "overflow": (torch.logical_not(apply_mask)
                                 if apply_mask is not None

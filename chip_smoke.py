@@ -11,8 +11,11 @@ captured step, serves and trains GPT-2 small at amp O4 through the int8
 quantized-matmul kernel, drives the ``[B, T, S]`` bias gradient through
 ``flash_attention``, runs the trainers' K-step windows from CUDA graphs
 against eager steps, trains BERT-base at O2 with the leafwise and the
-bucketed Adam and the bucketed LAMB, and checks the card's answers
-against the CPU's.
+bucketed Adam and the bucketed LAMB, trains it again through the
+imperative amp API (``amp.initialize``, ``scale_loss``, ``FusedAdam``,
+``FusedLAMB``), trains the DCGAN pair with three loss scalers in both
+of its trainer's modes, and checks the card's answers against the
+CPU's.
 
     python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
@@ -208,14 +211,44 @@ line):
    card against the CPU within 1e-4; and (after the profiler sessions
    have begun) the optimizer's device ms a step from one trace, for the
    three BERT optimizers and for the LM O2 step with the leafwise and
-   the bucketed Adam.
+   the bucketed Adam;
+22. imperative BERT-base at O2: phase 21's model, weights, batch and
+   loss through ``amp.initialize(model, opt, opt_level="O2",
+   loss_scale="dynamic")``, ``amp.scale_loss`` and ``opt.step()`` with
+   ``FusedAdam(lr=1e-4)``, ``FusedAdam(lr=1e-4, bucketed=True)`` and
+   ``FusedLAMB(lr=1e-3, bucketed=True)``, 16 steps each with an inf loss
+   at step 5: the model's parameters bf16 with the norms fp32, the
+   masters fp32; every launch counter set to 0 just before the 16 steps
+   and read just after (phase 21's per-step counts x 16, nothing
+   else); the inf step leaves every master bit-identical and halves the
+   scaler; the Adam masters, moments and step bit for bit phase 21's
+   ``make_train_step`` (leafwise and bucketed) run from the same
+   masters; the LAMB masters and moments within rtol 5e-5, atol 5e-6 of
+   phase 21's bucketed LAMB fed the same gradients and skip mask; eager
+   step ms beside phase 21's eager and captured ms, peak memory;
+23. DCGAN at the reference example's widths (``examples/dcgan/
+   main_amp.py``: B 64, nz 100, ngf 64, ndf 64, 64 x 64 x 3, O1, three
+   dynamic loss scalers): the pipelined trainer at ``--steps-per-call``
+   1 and 8, 16 iterations each, every state leaf equal to 16 eager
+   iterations of its step function bit for bit (one capture, 16 / K
+   replays); ``--imperative`` with an overflow forced on loss 1 at
+   iteration 5 (D's step skipped, G's not; only scaler 1 halved); O0
+   three iterations on the CPU, each also on the card from the CPU's
+   state (losses within rtol/atol 1e-4; the gradients at the initial
+   weights within 1e-4 of each net's largest; every new parameter
+   within 2.2 lr, since Adam takes an lr-sized step wherever a gradient
+   is within rounding of zero, as the biases that feed a BatchNorm
+   are); losses finite; every kernel counter 0
+   (JAX runs this model through XLA, no Pallas kernel); the BatchNorm
+   running statistics unchanged (both modes drop the batch statistics,
+   as JAX's does); it/s of each mode and peak memory.
 
 The phases run in the order 1-4, 17's calibration, 20, 21 (all but its
-traces), 5, 17's served load, 6 (with 17's traces), 7-10, 21's traces,
-11-16, the rest of 17, 18, 19: the eager sides of 20, 21, 5 and 17 run
-before the first profiler session, after which every launch of the
-process costs the host more (phase 6 ends by timing phase 20's eager LM
-steps again).
+traces), 22, 23, 5, 17's served load, 6 (with 17's traces), 7-10, 21's
+traces, 11-16, the rest of 17, 18, 19: the eager sides of 20-23, 5 and
+17 run before the first profiler session, after which every launch of
+the process costs the host more (phase 6 ends by timing phase 20's eager
+LM steps again).
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
@@ -223,7 +256,8 @@ the serving run, their backward kernels' on the LM training run, the BN
 and cross-entropy kernels' and the conv kernels' on the ResNet-50
 run, the qmm kernel's on the O4 serving run, the bias-gradient kernel's
 on phase 19's backward passes; ``launches_by_path`` adds every other
-path, ``bert_training`` the bucketed LAMB's K 4 run); then the
+path, ``bert_training`` the bucketed LAMB's K 4 run, ``imperative_bert``
+phase 22's ``FusedLAMB`` run, ``dcgan`` phase 23's runs); then the
 ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2759,11 +2793,12 @@ def bert_setup(models, training, xent, dev):
             smoothing=0.1, padding_idx=-1)
         return losses.mean() * mult
 
-    def build(tx, loss_scale=None):
+    def build(tx, loss_scale=None, start=None):
         init, step = training.make_train_step(loss_fn, tx, opt_level="O2",
                                               loss_scale=loss_scale)
-        return (init({k: v.clone() for k, v in weights.items()}), step,
-                (ids, labels, one))
+        return (init({k: v.clone() for k, v in (start or weights).items()}),
+                step, (ids, labels, one))
+    build.weights, build.batch = weights, (ids, labels, one)
     return build
 
 
@@ -2982,6 +3017,451 @@ def optimizer_traces(bert_build, main_amp, models, training, dev):
     return out
 
 
+# -- phase 22: imperative BERT-base at O2 -------------------------------------------
+
+def _imperative_bert_run(name, make_opt, bert_build, models, amp, xent,
+                         counters, dev, steps, bad_step, side=None):
+    """``amp.initialize`` on a BERT-base of phase 21's weights with
+    ``make_opt(model)``, then ``steps`` steps of phase 21's loss through
+    ``scale_loss``, ``step()`` and ``zero_grad()``, an inf loss at
+    ``bad_step``; every launch counter set to 0 just before the steps and
+    read just after.  ``side(opt)`` runs after each backward, before the
+    step (it sees the master gradients and the pending overflow flag)."""
+    ids, labels, one = bert_build.batch
+    model = models.bert_base(dtype=torch.bfloat16, num_classes=None,
+                             attention_impl="flash", device=dev, seed=0)
+    model.load_state_dict(bert_build.weights)
+    model, opt = amp.initialize(model, make_opt(model), opt_level="O2",
+                                loss_scale="dynamic", verbosity=0)
+    norm = amp.default_norm_predicate
+    wrong = [n for n, p in model.named_parameters()
+             if p.dtype != (torch.float32 if norm(n) else torch.bfloat16)]
+    check(not wrong and all(m.dtype == torch.float32
+                            for m in amp.master_params(opt)),
+          f"imperative bert_base {name}: model parameters bf16, the norms' "
+          f"fp32, masters fp32" + (f"; wrong {wrong[:5]}" if wrong else ""))
+    start = {k: v.clone() for k, v in opt.master_tree().items()}
+    scaler = amp._amp_state.loss_scalers[0]
+    gc.collect()                   # an earlier run's cycles held off the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    inf = torch.full_like(one, float("inf"))
+    skipped_ok = False
+    t0 = None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        feats = model(ids)
+        logits = feats @ model.word_embeddings.embedding.float().T
+        loss = xent.softmax_cross_entropy_loss(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+            smoothing=0.1, padding_idx=-1).mean() * (
+                inf if i == bad_step else one)
+        if i == bad_step:
+            before = {k: v.clone() for k, v in opt.master_tree().items()}
+            scale = scaler.loss_scale()
+        with amp.scale_loss(loss, opt) as scaled:
+            scaled.backward()
+        if side is not None:
+            side(opt)
+        opt.step()
+        opt.zero_grad()
+        if i == bad_step:
+            skipped_ok = (all(torch.equal(v, before[k]) for k, v in
+                              opt.master_tree().items())
+                          and scaler.loss_scale() == scale / 2)
+            del before
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    got = {c: w.launches for c, w in counters.items()}
+    check(got == {c: BERT_PER_STEP.get(c, 0) * steps for c in counters},
+          f"imperative bert_base {name}: launches {got} = {BERT_PER_STEP} "
+          f"x {steps} steps")
+    check(skipped_ok, f"imperative bert_base {name}: the inf step {bad_step} "
+          f"left every master bit-identical and halved its scaler")
+    res = dict(step_ms=step_ms, launches=got,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    return model, opt, res, start
+
+
+def imperative_bert(bert_build, bert, models, training, amp, optimizers,
+                    xent, counters, dev, steps=16, bad_step=5):
+    """Phase 22: BERT-base O2 through the imperative API with
+    ``FusedAdam``, ``FusedAdam(bucketed=True)`` and ``FusedLAMB(lr=1e-3,
+    bucketed=True)``, 16 steps each with an inf loss at step 5, against
+    phase 21's ``make_train_step`` on the same weights, batch and
+    dynamic scale: the Adam masters, moments and step bit for bit; the
+    LAMB masters and moments within rtol 5e-5, atol 5e-6 of phase 21's
+    bucketed LAMB fed the same gradients and skip mask (per-leaf norms
+    summed in another order: the port's store keys the buckets on the
+    model's bf16 and fp32 parameters, ``make_train_step``'s on the fp32
+    masters).  LAMB's step ms, peak memory and launches come from a run
+    of its own, without that side update."""
+    out = {}
+    mt = importlib.import_module("apex_tpu_torch.multi_tensor")
+    for name, make_opt, make_tx in (
+            ("FusedAdam", lambda m: optimizers.FusedAdam(
+                m.parameters(), lr=1e-4), lambda: training.adam(1e-4)),
+            ("FusedAdam_bucketed", lambda m: optimizers.FusedAdam(
+                m.parameters(), lr=1e-4, bucketed=True),
+             lambda: training.adam(1e-4, bucketed=True))):
+        model, opt, res, start = _imperative_bert_run(
+            name, make_opt, bert_build, models, amp, xent, counters, dev,
+            steps, bad_step)
+        masters = opt.master_tree()
+        st = opt._fstate[0]
+        store = opt.param_groups[0]["_store"]
+        moments = {m: (store.unpack(getattr(st, m)) if store is not None
+                       else getattr(st, m))
+                   for m in ("exp_avg", "exp_avg_sq")}
+        del model
+        amp.initialize(enabled=False, verbosity=0)
+        state, step, (ids, labels, one) = bert_build(
+            make_tx(), loss_scale="dynamic", start=start)
+        inf = torch.full_like(one, float("inf"))
+        for i in range(steps):
+            state, _ = step(state, (ids, labels,
+                                    inf if i == bad_step else one))
+        want_m = {m: getattr(state.opt_state, m) for m in moments}
+        if isinstance(want_m["exp_avg"], mt.Packed):
+            ref_store = mt.BucketStore(state.params)
+            want_m = {m: ref_store.unpack(v) for m, v in want_m.items()}
+        pairs = [(f"params.{k}", v, state.params[k])
+                 for k, v in masters.items()]
+        pairs += [(f"{m}.{k}", v, want_m[m][k]) for m in moments
+                  for k, v in moments[m].items()]
+        bad = [n for n, x, y in pairs if not torch.equal(x, y)]
+        check(not bad and int(st.step) == int(state.opt_state.step)
+              == steps - 1,
+              f"imperative bert_base {name}: {len(pairs) - len(bad)}/"
+              f"{len(pairs)} masters and moments bit for bit phase 21's "
+              f"make_train_step after {steps} steps, step {bad_step} "
+              f"skipped in both" + (f"; differing {bad[:5]}" if bad else ""))
+        res["leaves_differing"] = len(bad)
+        out[name] = res
+        del opt, masters, moments, state, pairs, start
+        torch.cuda.empty_cache()
+
+    tx = training.lamb(1e-3, bucketed=True)
+    side = {}
+
+    def feed(opt):
+        """phase 21's bucketed LAMB on this step's master gradients and
+        skip mask"""
+        grads = opt.param_groups[0]["_store"].unpack(opt._master_grads[0])
+        if "params" not in side:
+            side["params"] = {k: v.clone()
+                              for k, v in opt.master_tree().items()}
+            side["state"] = tx.init(side["params"])
+        mask = torch.logical_not(opt._pending[-1][0])
+        side["params"], side["state"] = tx.update(
+            grads, side["state"], side["params"], apply_mask=mask)
+
+    def make_lamb(m):
+        return optimizers.FusedLAMB(m.parameters(), lr=1e-3, bucketed=True)
+
+    # the timed run (step ms, peak memory, launches) without the side
+    # update, then the gate's run with it
+    model, opt, res, _ = _imperative_bert_run(
+        "FusedLAMB_bucketed", make_lamb, bert_build, models, amp, xent,
+        counters, dev, steps, bad_step)
+    del model, opt
+    amp.initialize(enabled=False, verbosity=0)
+    torch.cuda.empty_cache()
+    model, opt, _, _ = _imperative_bert_run(
+        "FusedLAMB_bucketed (with phase 21's LAMB beside it)", make_lamb,
+        bert_build, models, amp, xent, counters, dev, steps, bad_step,
+        side=feed)
+    st = opt._fstate[0]
+    store = opt.param_groups[0]["_store"]
+    ref_store = mt.BucketStore(side["params"])
+    pairs = [(f"params.{k}", v, side["params"][k])
+             for k, v in opt.master_tree().items()]
+    for m in ("exp_avg", "exp_avg_sq"):
+        got_m = store.unpack(getattr(st, m))
+        want_m = ref_store.unpack(getattr(side["state"], m))
+        pairs += [(f"{m}.{k}", v, want_m[k]) for k, v in got_m.items()]
+    outside = [n for n, x, y in pairs
+               if not torch.allclose(x, y, rtol=5e-5, atol=5e-6)]
+    worst = max(max_err(x, y) for _, x, y in pairs)
+    check(not outside and int(st.step) == int(side["state"].step)
+          == steps - 1,
+          f"imperative bert_base FusedLAMB_bucketed vs phase 21's bucketed "
+          f"LAMB on the same gradients: masters and moments within rtol "
+          f"5e-5, atol 5e-6 (max |diff| {worst:.3g}) after {steps} steps, "
+          f"step {bad_step} skipped in both"
+          + (f"; outside {outside[:5]}" if outside else ""))
+    res.update(leaves_outside=len(outside), max_abs_diff=worst)
+    out["FusedLAMB_bucketed"] = res
+    del model, opt, pairs, side
+    amp.initialize(enabled=False, verbosity=0)
+    torch.cuda.empty_cache()
+    phase21 = {"FusedAdam": "adam", "FusedAdam_bucketed": "adam_bucketed",
+               "FusedLAMB_bucketed": "lamb_bucketed"}
+    for name, key in phase21.items():
+        r = out[name]
+        print(f"      imperative bert_base {name}: eager step "
+              f"{r['step_ms']:.2f} ms (phase 21's {key}: eager "
+              f"{bert[key]['eager']['step_ms']:.2f}, captured K 1 "
+              f"{bert[key]['k1']['step_ms']:.2f}); peak "
+              f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB",
+              flush=True)
+    out["launches"] = out["FusedLAMB_bucketed"]["launches"]
+    return out
+
+
+# -- phase 23: DCGAN at the reference example's widths ----------------------------------
+
+DCGAN_WIDTHS = ["--batchSize", "64", "--nz", "100", "--ngf", "64",
+                "--ndf", "64"]
+DCGAN_ARGS = DCGAN_WIDTHS + ["--opt_level", "O1", "--data-pool", "8",
+                             "--print-freq", "0", "--no-drain"]
+
+
+def _dcgan_stats_unchanged(name, nets):
+    """The running statistics of the pair are their initial 0 and 1."""
+    bad = [k for net in nets for k, v in net.named_buffers()
+           if not torch.equal(v, torch.zeros_like(v) if k.endswith("mean")
+                              else torch.ones_like(v))]
+    check(not bad, f"dcgan {name}: BatchNorm running statistics unchanged"
+          + (f"; changed {bad[:5]}" if bad else ""))
+
+
+def dcgan_phase(counters, dev, iters=16):
+    """Phase 23: the DCGAN trainer at the reference example's widths (B
+    64, nz 100, ngf/ndf 64, 64 x 64 x 3, O1): pipelined at K 1 and K 8,
+    16 iterations each, every state leaf equal to 16 eager iterations of
+    the step function on the same window's batches bit for bit;
+    ``--imperative`` with three scalers and an overflow forced on loss 1
+    at iteration 5 (only D's step skipped, only scaler 1 halved); O0
+    three iterations card against CPU; losses finite, every kernel
+    counter 0, the running statistics unchanged; it/s and peak memory."""
+    dcgan = importlib.import_module("apex_tpu_torch.examples.dcgan.main_amp")
+    amp = importlib.import_module("apex_tpu_torch.amp")
+    out = {}
+    for c in counters.values():
+        c.launches = 0
+    for k in (1, 8):
+        args = dcgan.parse(DCGAN_ARGS + ["--iters-per-epoch", str(iters),
+                                         "--steps-per-call", str(k)])
+        try:
+            netG, netD = dcgan.build_models(args, dev)
+            state, step_fn = dcgan.build_pipelined(args, netG, netD)
+            pool = dcgan.synthetic_pool(args, dev)
+            for i in range(iters):
+                state, met = step_fn(state, pool[(i % k) % len(pool)])
+            want = state
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            netG, netD = dcgan.build_models(args, dev)
+            res = dcgan.train_pipelined(args, netG, netD,
+                                        log=lambda line: None)
+        finally:
+            amp.shutdown()
+        differ, n, worst, names = _state_diff(res["state"], want)
+        pipe = res["pipeline"]
+        check(differ == 0 and pipe["captures"]["hot"] == 1
+              and pipe["replays"] == iters // k,
+              f"dcgan O1 B64 K {k}: state after {iters} iterations equals "
+              f"{iters} eager iterations in {n - differ}/{n} leaves (max "
+              f"|diff| {worst:.3g}" + (f", first {names}" if names else "")
+              + f"); {pipe['captures']['hot']} capture, {pipe['replays']} "
+              f"replays")
+        losses = res["loss_d"] + res["loss_g"]
+        check(len(losses) == 2 * iters and all(np.isfinite(losses)),
+              f"dcgan O1 K {k}: {len(losses)} losses, all finite")
+        _dcgan_stats_unchanged(f"pipelined K {k}", (netG, netD))
+        out[f"pipelined_k{k}"] = dict(
+            it_per_s=res["it_per_s"], loss_d=res["loss_d"],
+            loss_g=res["loss_g"], leaves_differing=differ,
+            max_memory_allocated_bytes=res.get("peak_bytes"))
+        del res, want
+        torch.cuda.empty_cache()
+
+    args = dcgan.parse(DCGAN_ARGS + ["--iters-per-epoch", str(iters),
+                                     "--imperative"])
+    netG, netD = dcgan.build_models(args, dev)
+    bad, seen = 5, {}
+
+    def on_iter(i):
+        if i == bad:
+            seen["d"] = {k: v.clone() for k, v in netD.named_parameters()}
+            seen["g"] = {k: v.clone() for k, v in netG.named_parameters()}
+            return (1.0, float("inf"), 1.0)
+        if i == bad + 1:
+            seen["d_kept"] = all(torch.equal(v, seen["d"][k])
+                                 for k, v in netD.named_parameters())
+            seen["g_moved"] = not all(torch.equal(v, seen["g"][k])
+                                      for k, v in netG.named_parameters())
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = dcgan.train_imperative(args, netG, netD, log=lambda l: None,
+                                     on_iter=on_iter)
+        scales = [s.loss_scale() for s in amp._amp_state.loss_scalers]
+    finally:
+        amp.shutdown()
+        amp.initialize(enabled=False, verbosity=0)
+    check(seen.get("d_kept") and seen.get("g_moved")
+          and scales == [2.0 ** 16, 2.0 ** 15, 2.0 ** 16],
+          f"dcgan --imperative O1: an overflow on loss 1 at iteration {bad} "
+          f"skipped D's step only (G stepped), scales {scales} (only "
+          f"scaler 1 halved)")
+    losses = res["loss_d"] + res["loss_g"]
+    check(all(np.isfinite(losses)),
+          f"dcgan --imperative O1: {len(losses)} losses, all finite")
+    _dcgan_stats_unchanged("--imperative", (netG, netD))
+    out["imperative"] = dict(it_per_s=res["it_per_s"],
+                             loss_d=res["loss_d"], loss_g=res["loss_g"],
+                             max_memory_allocated_bytes=res.get(
+                                 "peak_bytes"))
+    del res, netG, netD
+    got = {c: w.launches for c, w in counters.items()}
+    check(not any(got.values()),
+          f"dcgan: every kernel counter 0 over the pipelined and imperative "
+          f"runs ({got})")
+    out["launches"] = got
+    out["card_vs_cpu_o0"] = dcgan_card_vs_cpu(dcgan, dev)
+    print("      dcgan B64 O1 it/s: pipelined K 1 "
+          f"{out['pipelined_k1']['it_per_s']:.1f}, K 8 "
+          f"{out['pipelined_k8']['it_per_s']:.1f}, imperative "
+          f"{out['imperative']['it_per_s']:.1f}; peak GiB "
+          + ", ".join(f"{k} {out[k]['max_memory_allocated_bytes'] / 2**30:.2f}"
+                      for k in ("pipelined_k1", "pipelined_k8",
+                                "imperative")), flush=True)
+    return out
+
+
+def dcgan_grads(dcgan, args, device):
+    """The gradients at the initial weights of D's loss on the real batch
+    and of G's loss through D (the trainer's losses), one list a net."""
+    netG, netD = dcgan.build_models(args, device)
+    real, noise = dcgan.synthetic_pool(args, device)[0]
+    d_loss = dcgan.bce_with_logits(dcgan._forward(netD, None, real), 1.0)
+    g_loss = dcgan.bce_with_logits(dcgan._forward(
+        netD, None, dcgan._forward(netG, None, noise)), 1.0)
+    return [[g.cpu() for g in torch.autograd.grad(loss, list(net.parameters()))]
+            for loss, net in ((d_loss, netD), (g_loss, netG))]
+
+
+def dcgan_iteration_grads(dcgan, netG, netD, state, batch, d_next):
+    """One O0 iteration's gradients from ``state``: D's (its loss on the
+    real batch plus its loss on G's detached fakes) and G's (through the
+    discriminator ``d_next``), one dict a net."""
+    real, noise = batch
+
+    def grads(loss_fn, params):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        return dict(zip(leaves, torch.autograd.grad(
+            loss_fn(leaves), list(leaves.values()))))
+    with torch.no_grad():
+        fake = dcgan._forward(netG, state["g"], noise)
+    g_d = grads(lambda p: dcgan.bce_with_logits(
+        dcgan._forward(netD, p, real), 1.0) + dcgan.bce_with_logits(
+        dcgan._forward(netD, p, fake), 0.0), state["d"])
+    g_g = grads(lambda p: dcgan.bce_with_logits(dcgan._forward(
+        netD, d_next, dcgan._forward(netG, p, noise)), 1.0), state["g"])
+    return g_d, g_g
+
+
+def dcgan_card_vs_cpu(dcgan, dev, iters=3):
+    """Three O0 iterations on the CPU; each of them also on the card from
+    the CPU's state of that iteration, so that each is held alone: the
+    two losses within rtol/atol 1e-4; D's and G's gradients at the
+    initial weights within 1e-4 of each net's largest |gradient| (fp32
+    summation order); the trainer's Adam fed the CPU's gradients of each
+    iteration on both devices, its new parameters and moments within
+    1e-6 + 1e-5 |x| (the update's own rounding); every new parameter
+    whose new first moment on the CPU is at least 2% of its net's
+    largest |gradient| that iteration within rtol/atol 1e-4, and every
+    element within 2.2 lr.  Adam steps an element by about lr whatever
+    its gradient's size, so an element whose moment is within the two
+    devices' difference of zero steps either way: the biases that feed a
+    BatchNorm (their gradient is rounding), and elements near zero when a
+    leaky ReLU's branch moves a gradient (a pre-activation within
+    rounding of 0 takes the other slope on one device: on an H100 80GB
+    HBM3 at 700 W three of D's 7.9M after one iteration, which move G's
+    gradients by up to 0.25% of their largest, ``python -m
+    apex_tpu_torch.examples.dcgan.kink_probe``; the moment moves by half
+    the gradient's difference).  Three iterations run
+    freely on each device part by more (3e-4 in the G loss at the third
+    on that card): each Adam step turns those differences into lr-sized
+    steps, and the two players feed them to each other."""
+    pytree = torch.utils._pytree
+    args = dcgan.parse(DCGAN_WIDTHS + ["--opt_level", "O0", "--data-pool",
+                                       "3"])
+    tx = importlib.import_module("apex_tpu_torch.training").adam(
+        lr=args.lr, beta1=args.beta1, beta2=0.999)     # the trainer's
+    runs = {}
+    for d in ("cpu", dev):
+        netG, netD = dcgan.build_models(args, d)
+        state, step_fn = dcgan.build_pipelined(args, netG, netD)
+        runs[d] = (state, step_fn, dcgan.synthetic_pool(args, d),
+                   dcgan_grads(dcgan, args, d), (netG, netD))
+    state, _, _, cpu_g, cpu_nets = runs["cpu"]
+    card_g = runs[dev][3]
+    grad_err = max(max_err(a, b) / max(x.abs().max().item() for x in bs)
+                   for as_, bs in zip(card_g, cpu_g)
+                   for a, b in zip(as_, bs))
+    loss_err, param_err, update_err, losses = 0.0, 0.0, 0.0, []
+    held, total, off = 0, 0, []
+
+    def on(tree, d):
+        return pytree.tree_map(
+            lambda t: t.to(d) if isinstance(t, torch.Tensor) else t, tree)
+    for i in range(iters):
+        new = {d: runs[d][1](on(state, d), runs[d][2][i])
+               for d in ("cpu", dev)}
+        (cpu_s, cpu_m), (card_s, card_m) = new["cpu"], new[dev]
+        for k in ("loss_d", "loss_g"):
+            a, b = float(card_m[k]), float(cpu_m[k])
+            losses.append((b, a))
+            loss_err = max(loss_err, abs(a - b) / (1e-4 + 1e-4 * abs(b)))
+        grads = dcgan_iteration_grads(dcgan, *cpu_nets, state,
+                                      runs["cpu"][2][i], cpu_s["d"])
+        for n, g in zip(("d", "g"), grads):
+            floor = 0.02 * max(x.abs().max().item() for x in g.values())
+            moment = cpu_s[f"{n}_opt"].exp_avg
+            for k, ref in cpu_s[n].items():
+                got = card_s[n][k].cpu()
+                param_err = max(param_err, max_err(got, ref))
+                sure = moment[k].abs() >= floor
+                bad = sure & ~torch.isclose(got, ref, rtol=1e-4, atol=1e-4)
+                held, total = held + int(sure.sum()), total + sure.numel()
+                if bad.any():
+                    off.append(f"{i}:{n}.{k}x{int(bad.sum())}")
+            cpu_u, card_u = (pytree.tree_leaves(tx.update(
+                on(g, d), on(state[f"{n}_opt"], d), on(state[n], d)))
+                for d in ("cpu", dev))
+            update_err = max([update_err] + [
+                ((a.cpu() - b).abs() / (1e-6 + 1e-5 * b.abs())).max().item()
+                for a, b in zip(card_u, cpu_u) if b.is_floating_point()])
+        state = cpu_s
+    check(loss_err <= 1.0 and grad_err <= 1e-4 and update_err <= 1.0
+          and not off and param_err <= 2.2 * args.lr,
+          f"dcgan O0 B64 {iters} iterations card vs CPU, each from the "
+          f"CPU's state: losses within rtol/atol 1e-4 (worst at "
+          f"{loss_err:.3g} of it), initial gradients within {grad_err:.3g} "
+          f"of each net's largest (<= 1e-4), Adam on the CPU's gradients "
+          f"within 1e-6 + 1e-5 |x| (worst at {update_err:.3g} of it), the "
+          f"{held}/{total} new parameters whose moment is >= 2% of the "
+          f"net's largest |gradient| within rtol/atol 1e-4"
+          + (f" but {off[:5]}" if off else "") + f", every element within "
+          f"{param_err:.3g} (<= 2.2 lr = {2.2 * args.lr:.3g})")
+    return dict(loss_err_of_tol=loss_err, grad_rel_err=grad_err,
+                update_err_of_tol=update_err, params_held=held,
+                params_total=total, params_off=off,
+                param_max_abs_diff=param_err, losses_cpu_card=losses)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -3102,6 +3582,12 @@ def main(argv=None) -> int:
     bert["parity"] = bert_optimizer_parity(bert_build, training)
     bert["tiny_card_vs_cpu"] = bert_tiny_card_vs_cpu(models, training,
                                                      xent, dev)
+    imp_bert = imperative_bert(                                    # 22
+        bert_build, bert, models, training,
+        importlib.import_module("apex_tpu_torch.amp"),
+        importlib.import_module("apex_tpu_torch.optimizers"), xent,
+        counters, dev)
+    gan = dcgan_phase(counters, dev)                               # 23
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
                                SERVE_PER_FORWARD)
@@ -3175,7 +3661,9 @@ def main(argv=None) -> int:
              "o4_serving": o4_serving["launches"],
              "o4_training": o4_train["launches"],
              "bias_grad": db2_launches,
-             "bert_training": bert["launches"]}
+             "bert_training": bert["launches"],
+             "imperative_bert": imp_bert["launches"],
+             "dcgan": gan["launches"]}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -3260,6 +3748,7 @@ def main(argv=None) -> int:
                            o4_training=o4_train,
                            training_windows=windows,
                            bert_training=bert,
+                           imperative_bert=imp_bert, dcgan=gan,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

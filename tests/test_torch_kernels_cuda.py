@@ -1702,3 +1702,157 @@ def test_resnet_conv_out_remat_equals_no_remat(conv_device):
                      1 + 3 * blocks + downsampled]
     assert counts == [plain[0] + 2 * blocks, plain[1], plain[2],
                       plain[3] + 3 * blocks + downsampled, plain[4]]
+
+
+# -- the imperative amp API and the O1 policy on the card ------------------------
+
+@pytest.mark.cuda
+def test_o1_mode_captured_replays_equal_eager(conv_device):
+    """A function of listed ops (a bf16 product of fp32 tensors, an fp32
+    softmax of it, a promoted cat) under ``amp.init()``, captured by
+    ``cache.warmup`` while the mode is pushed and replayed twice: every
+    output equal to its eager call bit for bit, in the policy's dtypes."""
+    amp = importlib.import_module("apex_tpu_torch.amp")
+    gen = torch.Generator(device=conv_device).manual_seed(7)
+    a = torch.randn(64, 96, device=conv_device, generator=gen)
+    b = torch.randn(96, 32, device=conv_device, generator=gen)
+
+    def fn(a, b):
+        y = a @ b
+        return y, torch.softmax(y, -1), torch.cat([y, b[:64].T[:, :32]])
+    amp.init()
+    try:
+        want = [t.clone() for t in fn(a, b)]
+        assert [t.dtype for t in want] == [torch.bfloat16, torch.float32,
+                                           torch.float32]
+        step = cache.warmup(fn, a, b)
+        assert isinstance(step, cache.Captured)
+        for _ in range(2):
+            got = step(a, b)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    finally:
+        amp.shutdown()
+
+
+@pytest.mark.cuda
+def test_imperative_fused_adam_o2_bert_tiny_card_vs_cpu(conv_device):
+    """``amp.initialize(bert_tiny, FusedAdam, O2)``, three steps of the
+    tied-head cross-entropy through ``scale_loss`` on the card and on the
+    CPU from the same weights (fp32 activations over the bf16 parameters,
+    so the two differ by fp32 summation order): the fp32 masters within
+    rtol/atol 1e-4, the norms fp32, the rest bf16."""
+    amp = importlib.import_module("apex_tpu_torch.amp")
+    models = importlib.import_module("apex_tpu_torch.models")
+    optimizers = importlib.import_module("apex_tpu_torch.optimizers")
+    xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    masters = []
+    for dev in ("cpu", conv_device):
+        model = models.bert_tiny(device=dev, seed=3, num_classes=None,
+                                 attention_impl="flash")
+        opt = optimizers.FusedAdam(model.parameters(), lr=1e-4,
+                                   bucketed=True)
+        model, opt = amp.initialize(model, opt, opt_level="O2",
+                                    loss_scale="dynamic", verbosity=0)
+        assert model.word_embeddings.embedding.dtype == torch.bfloat16
+        assert model.embeddings_ln.scale.dtype == torch.float32
+        for i in range(3):
+            ids, labels = (torch.from_numpy(x).to(dev) for x in
+                           np.random.RandomState(30 + i).randint(
+                               0, 1024, (2, 4, 64)))
+            feats = model(ids)
+            logits = feats @ model.word_embeddings.embedding.float().T
+            loss = xent.softmax_cross_entropy_loss(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                smoothing=0.1, padding_idx=-1).mean()
+            with amp.scale_loss(loss, opt) as scaled:
+                scaled.backward()
+            opt.step()
+            opt.zero_grad()
+        masters.append({k: v.cpu() for k, v in opt.master_tree().items()})
+        amp.initialize(enabled=False, verbosity=0)
+    for k, v in masters[0].items():
+        torch.testing.assert_close(masters[1][k], v, rtol=1e-4, atol=1e-4,
+                                   msg=k)
+
+
+#: the DCGAN biases that feed a BatchNorm over their channel: their
+#: gradient is zero but for rounding, which Adam turns into lr-sized steps
+_DCGAN_BN_FED = {"deconv1.bias", "deconv2.bias", "deconv3.bias",
+                 "conv2.bias", "conv3.bias", "conv4.bias"}
+
+
+@pytest.mark.cuda
+def test_dcgan_o0_iteration_card_vs_cpu(conv_device):
+    """One pipelined DCGAN iteration at O0 (ngf/ndf 8, batch 4) on the
+    card and on the CPU from the same weights (TF32 off): the losses
+    within rtol 1e-4; the iteration's gradients of D's two losses and of
+    G's loss (through the CPU's new D on both) within 1e-4 of each net's
+    largest |gradient| (fp32 summation order); the new parameters within
+    rtol/atol 1e-4 in 99.9% of each leaf's elements but for the biases
+    that feed a BatchNorm, every element within 2.2 lr (Adam's step is
+    lr times the gradient's sign wherever the gradient is within
+    rounding of zero); and the trainer's Adam fed the CPU's gradients
+    on both devices within 1e-6 + 1e-5 |x| (the update's own
+    rounding)."""
+    dcgan = importlib.import_module("apex_tpu_torch.examples.dcgan.main_amp")
+    training = importlib.import_module("apex_tpu_torch.training")
+    pytree = torch.utils._pytree
+    args = dcgan.parse(["--batchSize", "4", "--ngf", "8", "--ndf", "8",
+                        "--opt_level", "O0", "--data-pool", "1"])
+    tx = training.adam(lr=args.lr, beta1=args.beta1, beta2=0.999)
+
+    def to(tree, dev):
+        return pytree.tree_map(
+            lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t, tree)
+
+    def grads(loss_fn, params):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        return {k: g.cpu() for k, g in zip(leaves, torch.autograd.grad(
+            loss_fn(leaves), list(leaves.values())))}
+    runs, start = [], None
+    for dev in ("cpu", conv_device):
+        netG, netD = dcgan.build_models(args, dev)
+        real, noise = dcgan.synthetic_pool(args, dev)[0]
+        state, step = dcgan.build_pipelined(args, netG, netD)
+        start = state if start is None else start      # the CPU's
+        runs.append((netG, netD, (real, noise),
+                     step(to(start, dev), (real, noise))))
+    d_next = runs[0][3][0]["d"]
+    got = []
+    for netG, netD, (real, noise), (new, metrics) in runs:
+        dev = real.device
+        st = to(start, dev)
+        with torch.no_grad():
+            fake = dcgan._forward(netG, st["g"], noise)
+        g_d = grads(lambda p: dcgan.bce_with_logits(
+            dcgan._forward(netD, p, real), 1.0) + dcgan.bce_with_logits(
+            dcgan._forward(netD, p, fake), 0.0), st["d"])
+        g_g = grads(lambda p: dcgan.bce_with_logits(dcgan._forward(
+            netD, to(d_next, dev), dcgan._forward(netG, p, noise)), 1.0),
+            st["g"])
+        got.append(({f"{n}.{k}": v.cpu() for n in ("g", "d")
+                     for k, v in new[n].items()},
+                    [float(metrics["loss_d"]), float(metrics["loss_g"])],
+                    (g_d, g_g)))
+    (cpu, cpu_l, cpu_g), (card, card_l, card_g) = got
+    np.testing.assert_allclose(card_l, cpu_l, rtol=1e-4)
+    for card_net, cpu_net in zip(card_g, cpu_g):
+        scale = max(g.abs().max().item() for g in cpu_net.values())
+        for k, b in cpu_net.items():
+            assert (card_net[k] - b).abs().max().item() <= 1e-4 * scale, k
+    for k, v in cpu.items():
+        torch.testing.assert_close(card[k], v, rtol=0,
+                                   atol=2.2 * args.lr, msg=k)
+        if k.split(".", 1)[1] not in _DCGAN_BN_FED:
+            close = torch.isclose(card[k], v, rtol=1e-4, atol=1e-4)
+            assert close.float().mean().item() >= 0.999, k
+    for n, g in zip(("d", "g"), cpu_g):
+        want, have = (pytree.tree_leaves(tx.update(
+            to(g, dev), to(start[f"{n}_opt"], dev), to(start[n], dev)))
+            for dev in ("cpu", conv_device))
+        for a, b in zip(have, want):
+            if b.is_floating_point():
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
