@@ -1,11 +1,13 @@
-"""Build the port's CUDA C++ kernels with ``nvcc`` and load them with
-``ctypes``.
+"""Build the port's C++ sources and load them with ``ctypes``.
 
-Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles
-on its own into ``csrc/build/lib<name>.so`` on first use (a few seconds;
-no PyTorch headers are involved).  The library is rebuilt when the
-source is newer than it.  Nothing is compiled at import time, so the
-CPU tests can import every module on a host without ``nvcc``.
+Each CUDA source ``csrc/<name>.cu`` exposes a plain C interface and
+compiles on its own with ``nvcc`` into ``csrc/build/lib<name>.so`` on
+first use (a few seconds; no PyTorch headers are involved).  The host
+runtime ``csrc/<name>.cpp`` (:mod:`apex_tpu_torch.native`) compiles the
+same way with the host compiler, ``g++ -O3 -shared -fPIC -pthread
+-std=c++17``.  A library is rebuilt when its source is newer than it.
+Nothing is compiled at import time, so the CPU tests can import every
+module on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ BUILD_DIR = os.path.join(_CSRC, "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17"]
 
 
 #: the element-type codes every C entry point takes
@@ -91,33 +95,46 @@ def set_build_dir(path: str) -> None:
     BUILD_DIR = path
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into ``BUILD_DIR/lib<name>.so`` when
-    the library is missing or older than the source; returns its path."""
-    src = os.path.join(_CSRC, f"{name}.cu")
+def _host_cxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH: the host runtime is built "
+                       "from source")
+
+
+def build(name: str, host: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` with ``nvcc`` (``host``:
+    ``csrc/<name>.cpp`` with the host compiler) into
+    ``BUILD_DIR/lib<name>.so`` when the library is missing or older than
+    the source; returns its path."""
+    src = os.path.join(_CSRC, f"{name}.cpp" if host else f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     if (os.path.exists(out)
             and os.path.getmtime(out) >= os.path.getmtime(src)):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
+    cmd = ([_host_cxx(), *HOST_FLAGS] if host else [_nvcc(), *NVCC_FLAGS])
+    proc = subprocess.run([*cmd, "-o", tmp, src], capture_output=True,
+                          text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed on {src}:\n"
+                           f"{proc.stderr}")
     _REGISTRY.reports[name] = proc.stderr
     os.replace(tmp, out)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, host: bool = False) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (``host``:
+    ``csrc/<name>.cpp``), built on first use."""
     with _REGISTRY.lock:
         lock = _REGISTRY.source_locks.setdefault(name, threading.Lock())
     with lock:
         lib = _REGISTRY.libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name, host))
             _REGISTRY.libs[name] = lib
         return lib
 

@@ -26,6 +26,11 @@ the two packages write the same ``{"loss_scaler{i}": {"loss_scale",
 state's ``Packed`` moments cross unchanged: the port's
 :class:`~apex_tpu_torch.multi_tensor.BucketStore` lays out the same
 buckets as JAX's for the converted tree.
+
+For weight hot-swap (:mod:`apex_tpu_torch.serving.hotswap`),
+:func:`lm_train_state_like` is the template an LM trainer checkpoint is
+loaded against and :func:`gpt_params_from_train_state` the ``extract``
+that gives the GPT module its parameters from it.
 """
 
 from __future__ import annotations
@@ -216,3 +221,27 @@ def fused_optimizer_state_from_jax(state_dict, device=None) -> dict:
              for k, v in _flatten(m).items()} for m in masters]
     return out
 
+
+
+def lm_train_state_like(model, opt_level: str = "O2", device="cpu"):
+    """A template of the LM trainer's ``TrainState`` for ``model``
+    (``examples/lm/main_amp.py``: Adam, ``opt_level``; the parameters as
+    ``model.state_dict()`` names them, on ``device``): what a checkpoint
+    of that trainer is loaded against (the watcher's ``like``).  Its
+    values are zeros; only dtypes, shapes and devices matter."""
+    from . import training
+
+    init_fn, _ = training.make_train_step(lambda p, b: None,
+                                          training.adam(),
+                                          opt_level=opt_level)
+    return init_fn({k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                    for k, v in model.state_dict().items()})
+
+
+def gpt_params_from_train_state(restored) -> Dict[str, torch.Tensor]:
+    """The GPT module's parameters from a restored LM trainer checkpoint
+    (a :class:`~apex_tpu_torch.checkpoint.Restored` or its
+    ``TrainState``): the fp32 masters, under the module's
+    ``state_dict`` names (``load_state_dict`` takes them as they are)."""
+    state = getattr(restored, "state", restored)
+    return dict(state.params)

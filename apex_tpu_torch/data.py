@@ -1,62 +1,57 @@
-"""Input pipeline: synthetic ImageNet batches, their normalization, and
-the multi-worker prefetch loader with asynchronous staging to the card —
-counterpart of ``synthetic_imagenet``, ``normalize_images``,
-``IMAGENET_MEAN``/``IMAGENET_STD``, ``LoaderError``, ``LoaderStats``,
-``format_loader_line`` and ``PrefetchLoader`` of ``apex_tpu/data.py``.
+"""Input pipeline: synthetic and directory ImageNet batches, their
+normalization and augmentation, and the multi-worker prefetch loader
+with asynchronous staging to the card — counterpart of
+``apex_tpu/data.py``.
 
-The bytes come from the JAX package's counter-based lattice (block ``i``
-of 8 bytes is ``splitmix64(seed + i)``, little-endian; the labels ride
-on the same lattice after the image block), in this module's own numpy
-copy, so a batch here is the JAX example's batch byte for byte.
+* :func:`synthetic_imagenet` draws its bytes from the JAX package's
+  counter-based lattice (block ``i`` of 8 bytes is ``splitmix64(seed +
+  i)``, little-endian; the labels ride on the same lattice after the
+  image block) through the host runtime (:mod:`apex_tpu_torch.native`),
+  so a batch here is the JAX example's batch byte for byte;
+* :func:`directory_imagenet` streams ``root/<class>/*.{npy,jpg,jpeg,png}``
+  as a :class:`DirectoryImagenet`, a cursor over a deterministic
+  schedule (per-epoch ``RandomState(seed + epoch)`` shuffle, ``drop_last``,
+  host-shard slices), so :meth:`~DirectoryImagenet.state_dict` and
+  :meth:`~DirectoryImagenet.resume` replay the identical remaining
+  stream; with ``decode=False`` it yields :class:`BatchFiles` that
+  :func:`load_batch` decodes in the loader's workers;
+* :func:`augment_images` is the random crop, flip and normalize in one
+  native pass (``native.crop_flip_normalize``).
 
 :class:`PrefetchLoader` is the JAX loader's worker pool, with the
 reference's ``data_prefetcher`` as its staging step: a staging thread
 copies each finished batch to pinned memory and then to the card with
 ``non_blocking=True`` on a side stream, and the consumer's stream waits
 on an event recorded after the copy, so the host-to-device copy of batch
-N+1 overlaps the work on batch N.  Not ported yet: the native C++ tier,
-augmentation and ``directory_imagenet`` (real data).
+N+1 overlaps the work on batch N.  ``ordered=False`` delivers in
+completion order; :meth:`PrefetchLoader.state_dict` rewinds the source
+to the delivered count.  Not ported yet: ``telemetry=`` (ROADMAP queue 1,
+"Observability and tuning") and ``host_shard=True``, which needs the
+process identity (queue 1, "Data parallel"); they raise.
 """
 
 from __future__ import annotations
 
+import os
 import queue
-import sys
 import threading
 import time
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import (Callable, Iterator, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from . import native
 from ._device import resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 _MASK = 0xFFFFFFFFFFFFFFFF
-
-
-def _splitmix64(x: np.ndarray) -> np.ndarray:
-    """splitmix64 over a uint64 lattice (wrapping arithmetic)."""
-    with np.errstate(over="ignore"):
-        z = (x + np.uint64(0x9E3779B97F4A7C15)).astype(np.uint64)
-        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-        return z ^ (z >> np.uint64(31))
-
-
-def synth_bytes(nbytes: int, seed: int) -> np.ndarray:
-    """``nbytes`` pseudorandom bytes: block ``i`` of 8 is
-    ``splitmix64(seed + i)`` in little-endian order."""
-    if nbytes < 0:
-        raise ValueError(f"nbytes must be >= 0, got {nbytes}")
-    if sys.byteorder != "little":
-        raise RuntimeError("synth_bytes assumes a little-endian host")
-    lattice = (np.arange((nbytes + 7) // 8, dtype=np.uint64)
-               + np.uint64(int(seed) & _MASK))
-    return _splitmix64(lattice).view(np.uint8)[:nbytes]
+_OBSERVABILITY = 'ROADMAP queue 1, "Observability and tuning"'
+_DATA_PARALLEL = 'ROADMAP queue 1, "Data parallel"'
 
 
 def synthetic_imagenet(batch_size: int, image_size: int = 224,
@@ -69,13 +64,13 @@ def synthetic_imagenet(batch_size: int, image_size: int = 224,
     for step in range(steps):
         base = (seed * 0x9E3779B97F4A7C15
                 + step * (nbytes // 8 + batch_size + 2)) & _MASK
-        imgs = synth_bytes(nbytes, base).reshape(batch_size, image_size,
-                                                 image_size, 3)
+        imgs = native.synth_bytes(nbytes, base).reshape(
+            batch_size, image_size, image_size, 3)
         lab_base = (base + nbytes // 8 + 1) & _MASK
         with np.errstate(over="ignore"):
             lattice = (np.uint64(lab_base)
                        + np.arange(batch_size, dtype=np.uint64))
-        labels = (_splitmix64(lattice)
+        labels = (native._splitmix64(lattice)
                   % np.uint64(num_classes)).astype(np.int32)
         yield imgs, labels
 
@@ -94,6 +89,24 @@ def normalize_images(u8_batch, mean: Sequence[float] = IMAGENET_MEAN,
     scale = 1.0 / (255.0 * std_t)
     bias = -mean_t / std_t
     return x.float() * scale + bias
+
+
+def augment_images(u8_batch: np.ndarray, out_size: int,
+                   rng: np.random.RandomState, flip: bool = True,
+                   mean: Sequence[float] = IMAGENET_MEAN,
+                   std: Sequence[float] = IMAGENET_STD) -> np.ndarray:
+    """Random crop, random horizontal flip and normalize of a uint8 NHWC
+    batch in one native pass (:func:`native.crop_flip_normalize`); only
+    the per-image offsets and flips are drawn in Python, from ``rng``,
+    in the JAX package's order."""
+    n, h, w, _ = u8_batch.shape
+    offsets = np.stack([rng.randint(0, h - out_size + 1, n),
+                        rng.randint(0, w - out_size + 1, n)],
+                       axis=1).astype(np.int32)
+    flips = ((rng.rand(n) < 0.5).astype(np.uint8) if flip
+             else np.zeros(n, np.uint8))
+    return native.crop_flip_normalize(u8_batch, out_size, offsets, flips,
+                                      mean, std)
 
 
 _THREAD_NAME = "apex-tpu-torch-prefetch"
@@ -212,25 +225,29 @@ class PrefetchLoader:
     * bounded queues (``depth`` staged batches, ``workers + depth`` host
       batches) apply back-pressure end to end.
 
-    ``device`` defaults to CUDA and raises without a GPU; pass
-    ``device="cpu"`` to load onto the CPU.  A producer-side exception
-    reaches the consumer in place of its batch, after every earlier one.
-    Abandoning the iteration (``break``) or :meth:`close` stops and joins
-    the threads; the loader is also a context manager.  ``telemetry`` is
-    not ported yet (it raises)."""
+    ``ordered=True`` (the default) delivers in source order, ``False`` in
+    completion order.  ``device`` defaults to CUDA and raises without a
+    GPU; pass ``device="cpu"`` to load onto the CPU.  A producer-side
+    exception reaches the consumer in place of its batch, after every
+    earlier one (ordered).  Abandoning the iteration (``break``) or
+    :meth:`close` stops and joins the threads; the loader is also a
+    context manager.  ``telemetry`` is not ported yet (it raises)."""
 
     def __init__(self, it, depth: int = 2,
                  transform: Optional[Callable] = None,
-                 device=None, workers: int = 1, telemetry=None):
+                 device=None, workers: int = 1, ordered: bool = True,
+                 telemetry=None):
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
         if telemetry is not None:
-            raise NotImplementedError("telemetry= is not ported yet")
+            raise NotImplementedError(
+                f"telemetry= is not ported yet ({_OBSERVABILITY})")
         self._it = it
         self._depth = max(1, depth)
         self._transform = transform
         self._device = resolve_device(device)
         self._workers = workers
+        self._ordered = bool(ordered)
         self.stats = LoaderStats()
         self._live: list = []  # (stop Event, [Thread], Queue, sentinel)
 
@@ -248,6 +265,31 @@ class PrefetchLoader:
                 q.put_nowait(sentinel)
             except queue.Full:
                 pass
+
+    def state_dict(self) -> dict:
+        """Resume state: ``delivered``, the batches the consumer received
+        (the pipeline runs ahead of it), and, when the source has the
+        resume protocol (:class:`DirectoryImagenet`), ``source``, its
+        ``state_dict(consumed=delivered)``: the source rewound to the
+        delivery boundary.  Rebuild the stream, ``resume`` it with that
+        and wrap it in a fresh loader.  Needs ``ordered=True``: in
+        completion order the delivered batches are no prefix of the
+        source, so no cursor can rewind to them."""
+        if not self._ordered:
+            raise ValueError(
+                "PrefetchLoader.state_dict() needs ordered=True: "
+                "completion-order delivery has no prefix cursor, so a "
+                "delivered-count resume would skip in-flight batches and "
+                "replay delivered ones")
+        delivered = self.stats.batches
+        out = {"delivered": int(delivered)}
+        sd = getattr(self._it, "state_dict", None)
+        if sd is not None:
+            try:
+                out["source"] = sd(consumed=delivered)
+            except TypeError:
+                out["source"] = sd()
+        return out
 
     def __enter__(self) -> "PrefetchLoader":
         return self
@@ -291,7 +333,7 @@ class PrefetchLoader:
 
     def __iter__(self) -> Iterator:
         depth, workers = self._depth, self._workers
-        transform = self._transform
+        transform, ordered = self._transform, self._ordered
         stats = self.stats
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         sentinel = object()
@@ -364,8 +406,12 @@ class PrefetchLoader:
                 with cond:
                     while not stop.is_set():
                         ready = st["ready"]
-                        if st["staged_n"] in ready:
-                            item, got = ready.pop(st["staged_n"]), True
+                        if ordered:
+                            if st["staged_n"] in ready:
+                                item, got = ready.pop(st["staged_n"]), True
+                                break
+                        elif ready:
+                            item, got = ready.pop(min(ready)), True
                             break
                         if st["done"] is not None \
                                 and st["staged_n"] >= st["done"]:
@@ -432,3 +478,213 @@ def _drain(q: "queue.Queue") -> None:
             q.get_nowait()
         except queue.Empty:
             return
+
+
+class BatchFiles(NamedTuple):
+    """The files of one batch, undecoded: yielded by
+    :func:`directory_imagenet` with ``decode=False`` so the source stays
+    cheap under the loader's lock and :func:`load_batch` decodes in the
+    workers.  ``seq`` is the batch's global sequence number (monotonic
+    across epochs, equal to the stream's cursor), so a resumed stream
+    yields the same descriptor and a per-batch augment seed mixed from
+    it replays the same draws."""
+    paths: Tuple[str, ...]
+    labels: np.ndarray            # int32 [batch]
+    image_size: int
+    seq: int = 0
+
+
+def _load_image(path: str, image_size: int) -> np.ndarray:
+    """One HWC uint8 image: ``.npy`` as stored, JPEG/PNG through PIL
+    (imported here, at use); resized nearest-neighbour to
+    ``image_size`` square when it differs."""
+    if path.endswith(".npy"):
+        img = np.load(path)
+    else:
+        from PIL import Image
+        img = np.asarray(Image.open(path).convert("RGB"))
+    if img.shape[:2] != (image_size, image_size):
+        ys = np.linspace(0, img.shape[0] - 1, image_size).astype(int)
+        xs = np.linspace(0, img.shape[1] - 1, image_size).astype(int)
+        img = img[ys][:, xs]
+    return img.astype(np.uint8)
+
+
+def load_batch(task: BatchFiles) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode one :class:`BatchFiles` into ``(uint8 NHWC batch, int32
+    labels)``: the workers' half of the ``decode=False`` protocol."""
+    imgs = np.stack([_load_image(p, task.image_size) for p in task.paths])
+    return imgs, task.labels
+
+
+class DirectoryImagenet:
+    """Resumable batch stream over an ImageNet-style directory (the class
+    behind :func:`directory_imagenet`).
+
+    The batch sequence is a function of the constructor's arguments and
+    one integer, ``cursor``, the batches this stream has yielded: the
+    epoch, its shuffle (``RandomState(seed + epoch)``), the host-shard
+    slice and the global ``seq`` (= cursor) all follow from it, so
+    :meth:`state_dict` / :meth:`resume` put a new stream on the same
+    remaining batches, and :meth:`skip` fast-forwards by index math
+    alone.  The object is its own single-pass iterator; :meth:`close`
+    releases the decode pool.  ``host_shard=(index, count)`` keeps every
+    ``count``-th batch from ``index`` (after cutting each epoch to a
+    multiple of ``count`` batches); ``host_shard=True`` needs the
+    process identity, not ported yet (it raises)."""
+
+    def __init__(self, root: str, batch_size: int, image_size: int = 224,
+                 shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = True, workers: int = 8,
+                 epochs: Optional[int] = 1, decode: bool = True,
+                 host_shard: Union[None, bool, Tuple[int, int]] = None):
+        if host_shard is True:
+            raise NotImplementedError(
+                f"host_shard=True derives the shard from the process "
+                f"identity, not ported yet ({_DATA_PARALLEL}); pass "
+                f"host_shard=(index, count)")
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        if not classes:
+            raise ValueError(f"no class subdirectories under {root}")
+        samples = []
+        for label, c in enumerate(classes):
+            cdir = os.path.join(root, c)
+            for f in sorted(os.listdir(cdir)):
+                if f.lower().endswith((".npy", ".jpg", ".jpeg", ".png")):
+                    samples.append((os.path.join(cdir, f), label))
+        if not samples:
+            raise ValueError(f"no samples under {root}")
+        index, count = host_shard if host_shard else (0, 1)
+        if not 0 <= index < count:
+            raise ValueError(f"host_shard index {index} not in [0, {count})")
+        self._samples = samples
+        self.batch_size = int(batch_size)
+        self.image_size = int(image_size)
+        self.shuffle = bool(shuffle)
+        self.seed = int(seed)
+        self.drop_last = bool(drop_last)
+        self.workers = int(workers)
+        self.decode = bool(decode)
+        self.host_shard = (int(index), int(count))
+        self.epochs = epochs
+        stop = (len(samples) - batch_size + 1) if drop_last \
+            else len(samples)
+        starts = list(range(0, stop, batch_size))
+        usable = len(starts) - len(starts) % count
+        self._local_starts = starts[index:usable:count]
+        #: batches already yielded (also the ``seq`` of the next one)
+        self.cursor = 0
+        self._epoch_cached: Optional[int] = None
+        self._epoch_samples = None
+        self._pool = None
+        self._closed = False
+
+    @property
+    def batches_per_epoch(self) -> int:
+        return len(self._local_starts)
+
+    def state_dict(self, consumed: Optional[int] = None) -> dict:
+        """The stream's resume state; ``consumed`` (the batches the
+        training loop has taken) replaces the cursor, which a prefetching
+        loader runs ahead of."""
+        cursor = self.cursor if consumed is None else int(consumed)
+        return {"cursor": cursor, "seed": self.seed,
+                "shuffle": self.shuffle, "batch_size": self.batch_size,
+                "host_shard": list(self.host_shard),
+                "batches_per_epoch": self.batches_per_epoch,
+                "n_samples": len(self._samples)}
+
+    def resume(self, state: dict) -> "DirectoryImagenet":
+        """Put this stream at ``state``'s cursor; raises ``ValueError``
+        when the recorded schedule (seed, shuffle, batch size, shard,
+        batches an epoch, sample count) differs from this stream's."""
+        for key, mine in (("seed", self.seed), ("shuffle", self.shuffle),
+                          ("batch_size", self.batch_size),
+                          ("host_shard", list(self.host_shard)),
+                          ("batches_per_epoch", self.batches_per_epoch),
+                          ("n_samples", len(self._samples))):
+            if key in state and state[key] != mine:
+                raise ValueError(
+                    f"loader resume mismatch: checkpoint {key}="
+                    f"{state[key]!r}, stream has {mine!r} — the resumed "
+                    f"stream must be built with the same dataset and "
+                    f"schedule arguments as the saved run")
+        self.cursor = int(state["cursor"])
+        return self
+
+    def skip(self, n_batches: int) -> "DirectoryImagenet":
+        """Fast-forward ``n_batches`` (index math, no decode)."""
+        self.cursor += int(n_batches)
+        return self
+
+    def _epoch_order(self, epoch: int):
+        if self._epoch_cached != epoch:
+            if self.shuffle:
+                order = np.random.RandomState(
+                    self.seed + epoch).permutation(len(self._samples))
+                self._epoch_samples = [self._samples[i] for i in order]
+            else:
+                self._epoch_samples = self._samples
+            self._epoch_cached = epoch
+        return self._epoch_samples
+
+    def _release_pool(self, wait: bool) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=wait)
+            self._pool = None
+
+    def close(self) -> None:
+        """Release the decode pool; iterating after close yields
+        nothing."""
+        self._closed = True
+        self._release_pool(wait=False)
+
+    def __iter__(self) -> "DirectoryImagenet":
+        return self
+
+    def __next__(self):
+        if self._closed:
+            raise StopIteration
+        bpe = self.batches_per_epoch
+        if bpe == 0 or (self.epochs is not None
+                        and self.cursor >= self.epochs * bpe):
+            self._release_pool(wait=True)
+            raise StopIteration
+        epoch, pos = divmod(self.cursor, bpe)
+        start = self._local_starts[pos]
+        batch = self._epoch_order(epoch)[start:start + self.batch_size]
+        labels = np.asarray([label for _, label in batch], np.int32)
+        seq = self.cursor
+        self.cursor += 1
+        paths = tuple(p for p, _ in batch)
+        if not self.decode:
+            return BatchFiles(paths, labels, self.image_size, seq)
+        if self.workers > 1 and self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(max_workers=self.workers)
+        load = lambda p: _load_image(p, self.image_size)  # noqa: E731
+        imgs = (self._pool.map(load, paths) if self._pool is not None
+                else map(load, paths))
+        return np.stack(list(imgs)), labels
+
+
+def directory_imagenet(root: str, batch_size: int, image_size: int = 224,
+                       shuffle: bool = True, seed: int = 0,
+                       drop_last: bool = True, workers: int = 8,
+                       epochs: Optional[int] = 1, decode: bool = True,
+                       host_shard: Union[None, bool,
+                                         Tuple[int, int]] = None
+                       ) -> DirectoryImagenet:
+    """Batches from ``root/<class_name>/*.{npy,jpg,jpeg,png}`` (``.npy``
+    holds HWC uint8; JPEG and PNG decode through PIL): a
+    :class:`DirectoryImagenet`.  ``epochs`` passes (None: forever), a
+    fresh shuffle each; ``decode=True`` yields ``(uint8 NHWC, int32
+    labels)`` decoded by ``workers`` threads, ``decode=False``
+    :class:`BatchFiles` for :func:`load_batch` in a loader's
+    ``transform``; ``host_shard`` as in the class."""
+    return DirectoryImagenet(root, batch_size, image_size=image_size,
+                             shuffle=shuffle, seed=seed,
+                             drop_last=drop_last, workers=workers,
+                             epochs=epochs, decode=decode,
+                             host_shard=host_shard)

@@ -29,6 +29,15 @@ as they were built.  The images are ``data.synthetic_imagenet`` at 64 x
 ``RandomState(0)`` gaussians, ``--data-pool`` batches staged once and
 cycled.
 
+The pipelined mode checkpoints the whole GAN (both parameter trees, both
+Adam states, the three scaler states) with ``--checkpoint-dir DIR``
+every ``--checkpoint-every`` iterations at a window boundary
+(``checkpoint.CheckpointManager``) and at the last one; ``--resume``
+restores the newest valid one and runs on to ``niter *
+iters_per_epoch``, bit for bit an uninterrupted run.  ``--imperative``
+refuses them, as the JAX example does: its state lives in the modules
+and optimizers, not in one carry.
+
     python -m apex_tpu_torch.examples.dcgan.main_amp --niter 1
     python -m apex_tpu_torch.examples.dcgan.main_amp --imperative
     python -m apex_tpu_torch.examples.dcgan.main_amp --device cpu \\
@@ -39,21 +48,21 @@ cycled.
 
 Runs on CUDA unless given ``--device cpu``.  Not ported yet, each
 refused with ``NotImplementedError`` naming the ROADMAP item that lifts
-it: ``--checkpoint-dir``/``--resume`` (queue 1, "State and input"),
-``--telemetry``, ``--metrics-port``, ``--metrics-textfile``,
+it: ``--telemetry``, ``--metrics-port``, ``--metrics-textfile``,
 ``--watchdog`` (queue 1, "Observability and tuning").
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from ... import amp, runtime, training
+from ... import amp, checkpoint, runtime, training
 from ..._device import resolve_device
 from ...amp import autocast
 from ...amp.loss_scaler import LossScaler
@@ -94,9 +103,16 @@ def parse(argv=None):
                         "iteration) and stop (runtime.GracefulShutdown)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="pipelined mode: save the whole GAN state every "
+                        "--checkpoint-every iterations and at the end")
+    p.add_argument("--checkpoint-every", type=int, default=100,
+                   help="save cadence in iterations (at window "
+                        "boundaries)")
+    p.add_argument("--resume", action="store_true",
+                   help="pipelined mode: resume from the newest valid "
+                        "checkpoint under --checkpoint-dir")
     # not ported yet: each raises when given
-    p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--resume", action="store_true")
     p.add_argument("--telemetry", default=None)
     p.add_argument("--metrics-port", type=int, default=None)
     p.add_argument("--metrics-textfile", default=None)
@@ -106,12 +122,13 @@ def parse(argv=None):
 
 
 def _refuse_not_ported(args):
-    state = 'ROADMAP queue 1, "State and input"'
+    if args.imperative and (args.checkpoint_dir or args.resume):
+        raise SystemExit(
+            "--checkpoint-dir/--resume need the pipelined default (the "
+            "functional state carry is what the manager snapshots); drop "
+            "--imperative")
     obs = 'ROADMAP queue 1, "Observability and tuning"'
     refused = [
-        (args.checkpoint_dir or args.resume,
-         f"checkpointing (--checkpoint-dir, --resume) is not ported yet "
-         f"({state})"),
         (args.telemetry, f"--telemetry is not ported yet ({obs})"),
         (args.metrics_port is not None,
          f"--metrics-port is not ported yet ({obs})"),
@@ -252,58 +269,59 @@ def stack_window(pool, k: int):
 
 
 def train_pipelined(args, netG, netD, log=print) -> dict:
-    """Run ``niter * iters_per_epoch`` iterations (rounded up to a
-    multiple of K) in windows of K; returns the per-iteration losses,
-    the steady iterations a second, the final state and the pipeline's
-    counts."""
+    """Run to iteration ``niter * iters_per_epoch`` (rounded up to a
+    multiple of K; from the resumed iteration under ``--resume``) in
+    windows of K, checkpointing under ``--checkpoint-dir``; returns the
+    per-iteration losses, the steady iterations a second, the final
+    state, the iteration it stands at and the pipeline's counts."""
     state, step_fn = build_pipelined(args, netG, netD)
     device = next(netG.parameters()).device
     k = max(1, args.steps_per_call)
     total = runtime.round_steps(args.niter * args.iters_per_epoch, k,
                                 "--niter * --iters-per-epoch", log)
+    mgr, restored = checkpoint.open_for_training(
+        args.checkpoint_dir, state, every_steps=args.checkpoint_every,
+        resume=args.resume, log=log, unit="iter")
+    start = 0
+    if restored is not None:
+        state, start = restored.state, restored.step
+    total -= start
     window = stack_window(synthetic_pool(args, device), k)
     pipe = runtime.StepPipeline(step_fn, k)
     pipe.warmup(state, window)
-    stop = runtime.GracefulShutdown().install() if args.drain else None
     print_every = max(1, -(-args.print_freq // k)) if args.print_freq else 0
     ipe = args.iters_per_epoch
     res = dict(loss_d=[], loss_g=[])
-    clock = {"steady": None, "warm": 0}
+    clock = {"steady": None, "warm": 0, "end": None}
 
     def emit(wm):
         vals = wm.fetch()
+        # the read waits for its window: the device is done up to here
+        clock["end"] = time.perf_counter()
         for j in range(wm.n_valid):
             res["loss_d"].append(float(vals["loss_d"][j]))
             res["loss_g"].append(float(vals["loss_g"][j]))
-        done = wm.step + wm.n_valid
+        done = start + wm.step + wm.n_valid
         if (print_every and (wm.step // k) % print_every == 0) \
-                or done >= total:
+                or done >= start + total:
             log(f"[{(done - 1) // ipe}/{args.niter}][{(done - 1) % ipe}/"
                 f"{ipe}] Loss_D: {res['loss_d'][-1]:.4f} "
                 f"Loss_G: {res['loss_g'][-1]:.4f}")
 
-    t0 = time.perf_counter()
-    reader = runtime.DeferredMetrics()
-    while reader.steps_pushed < total:
-        state, metrics = pipe.step_window(state, window)
-        prev = reader.push(metrics, k)
-        if prev is not None:
-            emit(prev)
-        if (clock["steady"] is None and reader.steps_pushed < total
-                and reader.steps_pushed >= args.warmup):
+    def steady_clock(n):
+        if clock["steady"] is None and args.warmup <= n < total:
             _sync(device)
             clock["steady"] = time.perf_counter()
-            clock["warm"] = reader.steps_pushed
-        if stop is not None and stop.draining:
-            log(f"drain: stopping at iter {reader.steps_pushed} "
-                f"({stop.reason})")
-            break
-    for wm in reader.flush():
-        emit(wm)
-    _sync(device)
-    t1 = time.perf_counter()
-    if stop is not None:
-        stop.uninstall()
+            clock["warm"] = n
+
+    t0 = time.perf_counter()
+    state, reader = pipe.run(state, itertools.repeat((window, k)),
+                             steps=total, on_metrics=emit,
+                             on_window=steady_clock, manager=mgr,
+                             start_step=start, drain=args.drain, log=log,
+                             unit="iter")
+    t1 = clock["end"] if clock["end"] is not None else time.perf_counter()
+    res["step"] = start + reader.steps_pushed
     n_steady = reader.steps_pushed - clock["warm"]
     res["it_per_s"] = (n_steady / (t1 - clock["steady"])
                        if clock["steady"] is not None and n_steady > 0

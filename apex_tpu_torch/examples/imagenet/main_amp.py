@@ -4,16 +4,36 @@
 A ResNet (NHWC) trained by ``make_train_step`` with SGD (momentum,
 weight decay on every parameter, lr scaled by ``batch / 256``) and the
 BatchNorm running statistics as the model state, at the chosen opt level
-(bf16 compute under O1-O3, fp32 under O0).  The data is the JAX
-example's synthetic batch: the first batch of ``synthetic_imagenet``
-(byte for byte the JAX stream's), normalized on the device and reused
-every step, as the JAX example reuses its staged synthetic window.
+(bf16 compute under O1-O3, fp32 under O0).  With ``--synthetic`` (or no
+``data``) the batch is the JAX example's synthetic batch: the first
+batch of ``synthetic_imagenet`` (byte for byte the JAX stream's),
+normalized on the device and reused every step, as the JAX example
+reuses its staged synthetic window.  Given a ``data`` directory
+(``root/<class>/*.{npy,jpg,jpeg,png}``), the batches are
+``data.directory_imagenet(..., decode=False)`` windows assembled by
+``--workers`` threads (``load_batch``, then ``--augment``'s fused crop,
+flip and normalize at the JAX example's per-batch seed, else the
+normalize) and staged ``--loader-depth`` ahead through
+``runtime.stage_windows``; the run ends with the loader's stall line.
+
+``--checkpoint-dir DIR`` saves the state (parameters, SGD momentum,
+BatchNorm statistics, scaler) every ``--checkpoint-every`` steps at a
+window boundary, asynchronously (``checkpoint.CheckpointManager``), with
+the loader's state taken at the loop's boundary (``stream.state_dict(
+consumed=step)``, never the stream's own cursor, which runs ahead), and
+a final one at the stopping step; ``--resume`` restores the newest valid
+one and the stream's position, so a killed run resumed ends bit for bit
+where an uninterrupted one does; ``--drain`` (the default) stops at the
+next window boundary on SIGTERM/SIGINT, after a final checkpoint.
 
     python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
         --arch resnet50 -b 128 --opt-level O2
     python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
         --device cpu --arch resnet18 -b 4 --image-size 32 --prof 4 \\
         --steps-per-call 2
+    python -m apex_tpu_torch.examples.imagenet.main_amp DIR --augment \\
+        --device cpu --arch resnet18 -b 4 --image-size 32 --epochs 2 \\
+        --steps-per-call 2 --checkpoint-dir CKPT --checkpoint-every 2
 
 Defaults as in the JAX example: ``--pallas-conv`` (every convolution,
 the stem included, through ``ops.PallasConv`` and the port's NHWC
@@ -38,23 +58,26 @@ to multiples of K, and the metrics are read one window behind.
 ``--compilation-cache DIR`` keeps the built kernels in DIR.
 
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported yet, each raising with a plain message: ``--sync_bn``,
-checkpointing, telemetry and real data.
+ported yet, each raising ``NotImplementedError``: ``--sync_bn``
+(ROADMAP queue 1, "Data parallel") and ``--telemetry`` ("Observability
+and tuning").
 """
 
 from __future__ import annotations
 
 import argparse
+import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ... import cache, runtime, training
+from ... import cache, checkpoint, runtime, training
 from ..._device import resolve_device
 from ...contrib.groupbn import BatchNorm2d_NHWC
 from ...contrib.xentropy import softmax_cross_entropy_loss
-from ...data import normalize_images, synthetic_imagenet
+from ...data import (augment_images, directory_imagenet, format_loader_line,
+                     load_batch, normalize_images, synthetic_imagenet)
 from ...models import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
 from ...ops import PallasConv, conv_dispatch_stats, reset_conv_dispatch_stats
 
@@ -66,7 +89,9 @@ def parse(argv=None):
     p = argparse.ArgumentParser(
         description="ResNet ImageNet training with amp on the port")
     p.add_argument("data", nargs="?", default=None,
-                   help="path to the dataset (not ported: use --synthetic)")
+                   help="the dataset: root/<class>/*.{npy,jpg,jpeg,png} "
+                        "(without it, or with --synthetic, the synthetic "
+                        "batch)")
     p.add_argument("--arch", "-a", default="resnet18", choices=sorted(ARCHS))
     p.add_argument("--epochs", default=90, type=int)
     p.add_argument("--steps-per-epoch", default=100, type=int)
@@ -98,6 +123,15 @@ def parse(argv=None):
                         "the conv_cls= hook); --no-pallas-conv runs them "
                         "through F.conv2d with the same parameters")
     p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--workers", default=4, type=int,
+                   help="loader threads, each assembling whole K-step "
+                        "windows (decode, augment, stack)")
+    p.add_argument("--loader-depth", default=2, type=int,
+                   help="staged windows held ahead of the loop")
+    p.add_argument("--augment", action="store_true",
+                   help="random crop and horizontal flip fused with the "
+                        "normalize in one native pass (images loaded at "
+                        "image-size + 32 and cropped back; real data)")
     p.add_argument("--image-size", default=224, type=int)
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
@@ -111,28 +145,38 @@ def parse(argv=None):
     p.add_argument("--compilation-cache", default=None, metavar="DIR",
                    help="build and keep the kernels in DIR "
                         "(cache.enable)")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="save the state every --checkpoint-every steps "
+                        "(async; the 3 newest kept) and at the end")
+    p.add_argument("--checkpoint-every", default=100, type=int,
+                   help="save cadence in steps (at window boundaries)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid checkpoint under "
+                        "--checkpoint-dir: state, step and loader position")
+    p.add_argument("--drain", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="on SIGTERM/SIGINT finish the window, write a "
+                        "final checkpoint and stop")
     # not ported yet: each raises when given
     p.add_argument("--sync_bn", action="store_true")
-    p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--resume", action="store_true")
     p.add_argument("--telemetry", default=None)
     return p.parse_args(argv)
 
 
 def _refuse_not_ported(args):
     refused = [
-        (args.sync_bn, NotImplementedError,
-         "--sync_bn (statistics across processes) is not ported yet"),
-        (args.checkpoint_dir or args.resume, NotImplementedError,
-         "checkpointing (--checkpoint-dir, --resume) is not ported yet"),
-        (args.telemetry, NotImplementedError,
-         "--telemetry is not ported yet"),
-        (args.data is not None or not args.synthetic, SystemExit,
-         "only --synthetic data is implemented; pass --synthetic"),
+        (args.sync_bn, "--sync_bn (statistics across processes) is not "
+         "ported yet (ROADMAP queue 1, \"Data parallel\")"),
+        (args.telemetry, "--telemetry is not ported yet (ROADMAP queue 1, "
+         "\"Observability and tuning\")"),
     ]
-    for bad, exc, msg in refused:
+    for bad, msg in refused:
         if bad:
-            raise exc(msg)
+            raise NotImplementedError(msg)
+
+
+def _synthetic(args) -> bool:
+    return args.synthetic or args.data is None
 
 
 def _loss_scale(value):
@@ -162,7 +206,8 @@ def image_loss(logits, labels, fused: bool = True):
 
 
 def build(args):
-    """``(state, step_fn, batch)`` for the parsed arguments."""
+    """``(state, step_fn, batch)`` for the parsed arguments (``batch``
+    the synthetic batch, None for a ``data`` directory)."""
     _refuse_not_ported(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -196,41 +241,95 @@ def build(args):
     params, batch_stats = model.variables()
     state = init_fn({k: v.detach() for k, v in params.items()},
                     {k: v.clone() for k, v in batch_stats.items()})
-    batch = synthetic_batch(args.batch_size, args.image_size, device)
+    batch = (synthetic_batch(args.batch_size, args.image_size, device)
+             if _synthetic(args) else None)
     return state, step_fn, batch
 
 
+def assemble_fn(args):
+    """The loader's transform of one :class:`~apex_tpu_torch.data.
+    BatchFiles`: ``(fp32 NHWC images, int64 labels)``, through the fused
+    augment at the JAX example's per-batch seed (the paths' crc32 mixed
+    with the global ``seq``, so a resumed run replays the same crops and
+    flips) with ``--augment``, else the normalize."""
+    def assemble(task):
+        imgs, labels = load_batch(task)
+        if args.augment:
+            rng = np.random.RandomState(
+                (zlib.crc32("|".join(task.paths).encode())
+                 ^ (task.seq * 2654435761)) & 0x7FFFFFFF)
+            imgs = augment_images(imgs, args.image_size, rng)
+        else:
+            imgs = normalize_images(imgs).numpy()
+        return imgs, labels.astype(np.int64)
+    return assemble
+
+
 def train(args, log=print) -> dict:
-    """Run ``--prof`` steps (``epochs * steps_per_epoch`` without it),
-    rounded up to a multiple of ``--steps-per-call``, in windows of K;
-    returns the per-step losses, loss scales and seconds, the images per
-    step, the final state and the pipeline's counts.  A step's seconds
-    are its window's over K, timed on the device's timeline (CUDA
-    events; the host clock on the CPU) from the end of one window to the
-    end of the next, gaps the host leaves included."""
+    """Run the steps (``--prof`` of this run, else ``epochs *
+    steps_per_epoch`` synthetic steps or the stream's ``epochs`` passes,
+    less the resumed steps), rounded up to a multiple of
+    ``--steps-per-call``, in windows of K; returns the per-step losses,
+    loss scales and seconds, the images per step, the final state, the
+    step it stands at, the pipeline's counts and, for a ``data``
+    directory, the loader's counters.  A step's seconds are its window's
+    over K, timed on the device's timeline (CUDA events; the host clock
+    on the CPU) from the end of one window to the end of the next, gaps
+    the host leaves included (a loader stall among them)."""
     if args.compilation_cache:
         cache.enable(args.compilation_cache)
     state, step_fn, batch = build(args)
+    device = next(iter(state.params.values())).device
     n_params = sum(p.numel() for p in state.params.values())
     k = max(1, args.steps_per_call)
+    synthetic = _synthetic(args)
     log(f"{args.arch}  {n_params / 1e6:.1f}M params  opt_level = "
         f"{args.opt_level}  fused_bn={args.fused_bn}  "
         f"fused_loss={args.fused_loss}  pallas_conv={args.pallas_conv}  "
-        f"bucketed={args.bucketed}  steps_per_call {k}  on "
-        f"{batch[0].device}")
-    steps = args.prof if args.prof >= 0 else args.epochs * \
-        args.steps_per_epoch
+        f"bucketed={args.bucketed}  steps_per_call {k}  on {device}")
+    mgr, restored = checkpoint.open_for_training(
+        args.checkpoint_dir, state, every_steps=args.checkpoint_every,
+        resume=args.resume, log=log)
+    start_step, loader_sd = 0, None
+    if restored is not None:
+        state, start_step = restored.state, restored.step
+        loader_sd = restored.loader_state
+    stream = None
+    if synthetic:
+        steps = max(0, args.epochs * args.steps_per_epoch - start_step)
+        # the synthetic batch is reused every step: one window of K views
+        window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
+    else:
+        load_size = args.image_size + (32 if args.augment else 0)
+        stream = directory_imagenet(args.data, args.batch_size, load_size,
+                                    epochs=args.epochs, decode=False)
+        if start_step:
+            if loader_sd and "cursor" in loader_sd and "seed" in loader_sd:
+                stream.resume(loader_sd)
+            else:
+                stream.skip(start_step)
+        steps = max(0, args.epochs * stream.batches_per_epoch - start_step)
+        window = (torch.zeros((k, args.batch_size, args.image_size,
+                               args.image_size, 3), device=device),
+                  torch.zeros((k, args.batch_size), dtype=torch.int64,
+                              device=device))
+    if args.prof >= 0:
+        steps = min(steps, args.prof)
     steps = runtime.round_steps(steps, k, "--prof", log)
     print_freq = runtime.round_steps(max(1, args.print_freq), k,
                                      "--print-freq", log)
     res = dict(losses=[], loss_scales=[], step_s=[],
                images_per_step=args.batch_size)
-    # the synthetic batch is reused every step: one window of K views
-    window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
     pipe = runtime.StepPipeline(step_fn, k)
     if args.aot_warmup:
         pipe.warmup(state, window)
-    last = runtime.mark(batch[0].device)
+    if synthetic:
+        windows = ((window, k) for _ in range(steps // k))
+    else:
+        windows = runtime.stage_windows(
+            stream, k, transform=assemble_fn(args), device=device,
+            workers=max(1, args.workers), depth=max(1, args.loader_depth))
+    last = runtime.mark(device)
 
     def emit(wm):
         nonlocal last
@@ -238,21 +337,35 @@ def train(args, log=print) -> dict:
         step_s = runtime.seconds_between(last, wm.end) / wm.n_valid
         last = wm.end
         for j in range(wm.n_valid):
-            i = wm.step + j
+            i = start_step + wm.step + j
             res["losses"].append(float(vals["loss"][j]))
             res["loss_scales"].append(float(vals["loss_scale"][j]))
             res["step_s"].append(step_s)
-            if i % print_freq == 0 or i == steps - 1:
+            if i % print_freq == 0 or wm.step + j == steps - 1:
                 log(f"iter {i}  loss {res['losses'][-1]:.4f}  speed "
                     f"{args.batch_size / step_s:.1f} img/s  "
                     f"loss_scale {res['loss_scales'][-1]:.0f}")
 
-    state, _ = pipe.run(state, ((window, k) for _ in range(steps // k)),
-                        on_metrics=emit)
+    def loader_state(step):
+        # at the loop's boundary: one batch a step, whatever the loader
+        # has pulled ahead
+        if stream is None:
+            return {"cursor": int(step)}
+        return stream.state_dict(consumed=step)
+
+    state, reader = pipe.run(state, windows, steps=steps, on_metrics=emit,
+                             manager=mgr, start_step=start_step,
+                             loader_state=loader_state, drain=args.drain,
+                             log=log)
+    gstep = start_step + reader.steps_pushed
+    if stream is not None:
+        res["loader"] = windows.stats.as_dict()
+        log(format_loader_line(res["loader"]))
     mem = pipe.memory_stats()
     if mem is not None:
         log(f"memory: peak {mem['peak_bytes'] / 2**30:.2f} GiB allocated")
     res["state"] = state
+    res["step"] = gstep
     res["pipeline"] = pipe.stats
     return res
 

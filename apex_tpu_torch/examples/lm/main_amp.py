@@ -20,15 +20,27 @@ K, and the losses are read one window behind
 ``--compilation-cache DIR`` keeps the built kernels in DIR
 (:func:`apex_tpu_torch.cache.enable`).
 
+``--checkpoint-dir DIR`` saves the state (fp32 masters, Adam moments and
+step, the scaler) every ``--checkpoint-every`` steps at a window
+boundary, asynchronously (``checkpoint.CheckpointManager``), and at the
+last step; ``--resume`` restores the newest valid one and runs on to
+``--steps`` (a global count), so a killed and resumed run ends bit for
+bit where an uninterrupted one does; ``--drain`` (the default) stops at
+the next window boundary on SIGTERM/SIGINT after a final checkpoint.
+
     python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 5
     python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 32 \\
         --steps-per-call 8
     python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 4 \\
         --steps-per-call 2 --device cpu --vocab 256 --hidden 64 --layers 2 \\
         --heads 4 --seq-len 33
+    python -m apex_tpu_torch.examples.lm.main_amp --synthetic --steps 8 \\
+        --steps-per-call 2 --device cpu --vocab 256 --hidden 64 --layers 2 \\
+        --heads 4 --seq-len 33 --checkpoint-dir CKPT --checkpoint-every 2 \\
+        --resume
 
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported: sequence parallelism, checkpointing and telemetry.
+ported: sequence parallelism and telemetry.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from ... import cache, runtime, training
+from ... import cache, checkpoint, runtime, training
 from ..._device import resolve_device
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...models import GPT
@@ -85,6 +97,18 @@ def parse(argv=None):
     p.add_argument("--compilation-cache", default=None, metavar="DIR",
                    help="build and keep the kernels in DIR "
                         "(cache.enable)")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="save the state every --checkpoint-every steps "
+                        "(async; the 3 newest kept) and at the end")
+    p.add_argument("--checkpoint-every", type=int, default=100,
+                   help="save cadence in steps (at window boundaries)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid checkpoint under "
+                        "--checkpoint-dir: state and step counter")
+    p.add_argument("--drain", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="on SIGTERM/SIGINT finish the window, write a "
+                        "final checkpoint and stop")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -152,14 +176,14 @@ def build(args):
 
 
 def train(args, log=print) -> dict:
-    """Run ``args.steps`` steps (rounded up to a multiple of
-    ``--steps-per-call``) in windows of K; returns the per-step losses,
-    loss scales and seconds, the tokens per step, the final state and
-    the pipeline's counts.  A window's metrics are read one window
-    behind; a step's seconds are its window's over K, timed on the
-    device's timeline (CUDA events; the host clock on the CPU) from the
-    end of one window to the end of the next, gaps the host leaves
-    included."""
+    """Run to step ``args.steps`` (rounded up to a multiple of
+    ``--steps-per-call``; from the resumed step under ``--resume``) in
+    windows of K; returns the per-step losses, loss scales and seconds,
+    the tokens per step, the final state, the step it stands at, the
+    pipeline's counts and the last checkpoint's ``stats``.  A window's metrics are read one window behind; a
+    step's seconds are its window's over K, timed on the device's
+    timeline (CUDA events; the host clock on the CPU) from the end of one
+    window to the end of the next, gaps the host leaves included."""
     if args.compilation_cache:
         cache.enable(args.compilation_cache)
     state, step_fn, batch = build(args)
@@ -169,6 +193,12 @@ def train(args, log=print) -> dict:
         f"attention=flash  opt_level = {args.opt_level}  steps_per_call "
         f"{k}  on {batch[0].device}")
     steps = runtime.round_steps(args.steps, k, "--steps", log)
+    mgr, restored = checkpoint.open_for_training(
+        args.checkpoint_dir, state, every_steps=args.checkpoint_every,
+        resume=args.resume, log=log)
+    start_step = 0
+    if restored is not None:
+        state, start_step = restored.state, restored.step
     tokens = args.batch_size * (args.seq_len - 1)
     res = dict(losses=[], loss_scales=[], step_s=[], tokens_per_step=tokens)
     # the synthetic batch is reused every step: one window of K views
@@ -188,16 +218,22 @@ def train(args, log=print) -> dict:
             res["losses"].append(loss)
             res["loss_scales"].append(float(vals["loss_scale"][j]))
             res["step_s"].append(step_s)
-            log(f"step {wm.step + j}  loss {loss:.4f}  loss_scale "
-                f"{res['loss_scales'][-1]:.0f}  "
+            log(f"step {start_step + wm.step + j}  loss {loss:.4f}  "
+                f"loss_scale {res['loss_scales'][-1]:.0f}  "
                 f"{tokens / step_s:,.0f} tok/s")
 
-    state, _ = pipe.run(state, ((window, k) for _ in range(steps // k)),
-                        on_metrics=emit)
+    windows = ((window, min(k, steps - done))
+               for done in range(start_step, steps, k))
+    state, reader = pipe.run(state, windows, on_metrics=emit, manager=mgr,
+                             start_step=start_step, drain=args.drain,
+                             log=log)
+    done = start_step + reader.steps_pushed
     mem = pipe.memory_stats()
     if mem is not None:
         log(f"memory: peak {mem['peak_bytes'] / 2**30:.2f} GiB allocated")
     res["state"] = state
+    res["step"] = done
+    res["checkpoint"] = dict(mgr.stats) if mgr is not None else None
     res["pipeline"] = pipe.stats
     return res
 

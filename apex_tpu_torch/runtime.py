@@ -329,20 +329,71 @@ class StepPipeline:
                 "source": "cuda_allocator"}
 
     def run(self, state, windows: Iterable, *,
-            on_metrics: Optional[Callable] = None):
+            steps: Optional[int] = None,
+            on_metrics: Optional[Callable] = None,
+            on_window: Optional[Callable] = None, manager=None,
+            start_step: int = 0, loader_state: Optional[Callable] = None,
+            drain: bool = False, log: Callable = print,
+            unit: str = "step"):
         """Drive the pipeline over ``(window, n_valid)`` pairs (the
-        :func:`stage_windows` protocol); ``on_metrics`` sees each
-        :class:`WindowMetrics` one window behind, and the last one after
-        the loop.  Returns ``(state, reader)``."""
+        :func:`stage_windows` protocol) until ``steps`` steps have run
+        (None: until ``windows`` ends), and close ``windows`` when it has
+        ``close``.  ``on_metrics`` sees each :class:`WindowMetrics` one
+        window behind, and the last one after the loop; ``on_window(n)``
+        runs after each window with the steps run so far.
+
+        The trainers' checkpointing and drain: steps count from
+        ``start_step`` (a resumed run's).  With ``manager`` (a
+        :class:`~apex_tpu_torch.checkpoint.CheckpointManager`) each window
+        ends in ``manager.maybe_save`` at its global step, with
+        ``loader_state(step)`` taken at that boundary when given; the run
+        ends with a blocking save at the stopping step, unless that step
+        was just saved, and closes the manager.  ``drain`` installs a
+        :class:`GracefulShutdown` for the run: after a signal the state is
+        saved at once and the loop stops at the window's end.  Returns
+        ``(state, reader)``; the run stopped at ``start_step +
+        reader.steps_pushed``.  ``log`` gets the drain and final-save lines,
+        which name a step ``unit``."""
+        def save_kw(step):
+            return ({} if loader_state is None
+                    else {"loader_state": loader_state(step)})
+
         reader = DeferredMetrics()
-        for window, n_valid in windows:
-            state, metrics = self.step_window(state, window, n_valid)
-            prev = reader.push(metrics, n_valid)
-            if prev is not None and on_metrics is not None:
-                on_metrics(prev)
+        stop = GracefulShutdown().install() if drain else None
+        step = start_step
+        try:
+            for window, n_valid in windows:
+                if steps is not None and reader.steps_pushed >= steps:
+                    break
+                state, metrics = self.step_window(state, window, n_valid)
+                prev = reader.push(metrics, n_valid)
+                if prev is not None and on_metrics is not None:
+                    on_metrics(prev)
+                if on_window is not None:
+                    on_window(reader.steps_pushed)
+                step = start_step + reader.steps_pushed
+                if stop is not None and stop.draining:
+                    if manager is not None:
+                        manager.save(step, state, block=True,
+                                     **save_kw(step))
+                    log(f"drain: stopping at {unit} {step} ({stop.reason})")
+                    break
+                if manager is not None:
+                    manager.maybe_save(step, state, **save_kw(step))
+        finally:
+            if stop is not None:
+                stop.uninstall()
+            if hasattr(windows, "close"):
+                windows.close()
         if on_metrics is not None:
             for wm in reader.flush():
                 on_metrics(wm)
+        if manager is not None:
+            if manager.last_saved != step:
+                manager.save(step, state, block=True, **save_kw(step))
+            manager.close()
+            log(f"checkpoint: {unit} {step} saved under "
+                f"{manager.directory}")
         return state, reader
 
 

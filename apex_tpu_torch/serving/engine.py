@@ -43,11 +43,23 @@ counterpart of ``apex_tpu/serving/engine.py``.
   (``prefill[bucket]``, ``decode[bucket]``) around its dispatch and its
   read, free when no profiler runs.
 
+* **weight hot-swap** — ``watch_dir=`` runs a
+  :class:`~apex_tpu_torch.serving.hotswap.WeightWatcher` on a checkpoint
+  directory (polled every ``poll_every_s`` on its own thread); a staged
+  checkpoint is adopted at the start of a scheduler step, between two
+  dispatches, by copying its weights into the model's parameters in
+  place (``load_state_dict``).  That moves the weights' versions, so the
+  same step captures every graph again (and, at O4, prepares the int8
+  weights again) before it dispatches: a request in flight finishes on
+  the new weights, and no request sees a half-updated model.
+  ``stats["hotswaps"]`` counts adoptions, ``stats["swap_s"]`` holds the
+  last one's host seconds (the copy and the recapture).
+
 Decoding is greedy (``argmax``, first maximum on ties, as ``jnp.argmax``)
 so the tokens equal the JAX engine's on the same weights.
 
 What the JAX engine has and this one does not yet: the telemetry
-recorder and tracer hooks, and ``watch_dir`` weight hot-swap.
+recorder and tracer hooks.
 
 Usage::
 
@@ -64,7 +76,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,6 +84,7 @@ import torch
 from .. import cache as _cache
 from .._device import resolve_device
 from . import kv_cache as _kv
+from .hotswap import WeightWatcher
 
 __all__ = ["Request", "ServedResult", "Completion", "ServingEngine"]
 
@@ -142,7 +155,14 @@ class ServingEngine:
     plus the trash page).  ``cache_dtype``: the KV pool's storage dtype,
     default the model's compute dtype, or ``torch.int8``.  ``device``
     defaults to CUDA and raises without a GPU; pass ``device="cpu"`` to
-    serve with the plain versions.  The model is moved to ``device``."""
+    serve with the plain versions.  The model is moved to ``device``.
+
+    ``watch_dir`` enables weight hot-swap (see the module docstring):
+    checkpoints are loaded against ``watch_like`` (default: the model's
+    ``state_dict``, i.e. a checkpoint of bare weights; a trainer's
+    ``TrainState`` template with ``extract`` mapping the
+    :class:`~apex_tpu_torch.checkpoint.Restored` to the weights), and
+    ``watch_from_step`` is the step the served weights came from."""
 
     def __init__(self, model, *,
                  buckets: Sequence[int] = (128, 256),
@@ -151,7 +171,12 @@ class ServingEngine:
                  n_pages: Optional[int] = None,
                  max_queue: int = 64,
                  cache_dtype=None,
-                 device=None):
+                 device=None,
+                 watch_dir: Optional[str] = None,
+                 extract: Optional[Callable] = None,
+                 poll_every_s: float = 1.0,
+                 watch_from_step: Optional[int] = None,
+                 watch_like=None):
         self.device = resolve_device(device)
         buckets = sorted(int(b) for b in buckets)
         if not buckets:
@@ -193,7 +218,7 @@ class ServingEngine:
                       "tokens_out": 0, "decode_steps": 0, "prefills": 0,
                       "prefill_s": 0.0, "decode_s": 0.0,
                       "aot_misses": 0, "captures": 0, "replays": 0,
-                      "recaptures": 0,
+                      "recaptures": 0, "hotswaps": 0, "swap_s": None,
                       "kv_bytes_per_token": _kv.kv_bytes_per_token(
                           model, cache_dtype)}
         # the AOT table: signature -> (kind, bucket, captured step, or
@@ -203,6 +228,14 @@ class ServingEngine:
         self._host: dict = {}
         self._pool = None
         self._weights, self._weights_seen = self._weight_versions()
+        self.watcher: Optional[WeightWatcher] = None
+        if watch_dir is not None:
+            if watch_like is None:
+                watch_like = self.model.state_dict()
+            self.watcher = WeightWatcher(
+                watch_dir, like=watch_like, extract=extract,
+                poll_every_s=poll_every_s,
+                initial_step=watch_from_step).start()
         self._serve_stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
         self._closed = False
@@ -404,10 +437,30 @@ class ServingEngine:
 
     # -- scheduler ----------------------------------------------------------
     def step(self) -> bool:
-        """One scheduler iteration: admit what fits, run one batched
-        decode step.  Returns True when any work was done."""
-        did = self._admit()
+        """One scheduler iteration: adopt staged weights, admit what
+        fits, run one batched decode step.  Returns True when any work
+        was done."""
+        did = self._adopt_weights()
+        did = self._admit() or did
         return self._decode_once() or did
+
+    def _adopt_weights(self) -> bool:
+        """Copy the watcher's staged weights into the model in place and
+        capture the graphs again (between two dispatches)."""
+        if self.watcher is None:
+            return False
+        staged = self.watcher.take()
+        if staged is None:
+            return False
+        t0 = time.perf_counter()
+        _, weights = staged
+        self.model.load_state_dict(weights)
+        self._check_weights()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats["swap_s"] = time.perf_counter() - t0
+        self.stats["hotswaps"] += 1
+        return True
 
     def run_until_idle(self, max_steps: int = 100000) -> None:
         """Drive :meth:`step` until queue and slots are empty.  Refuses
@@ -591,12 +644,15 @@ class ServingEngine:
                 self._serve_stop.wait(0.002)    # idle: don't spin
 
     def close(self) -> None:
-        """Stop the serve thread; fail queued AND in-flight requests so
-        no caller waits forever, and return their KV pages."""
+        """Stop the serve thread and the weight watcher; fail queued AND
+        in-flight requests so no caller waits forever, and return their
+        KV pages."""
         with self._qcond:
             if self._closed:
                 return
             self._closed = True
+        if self.watcher is not None:
+            self.watcher.close()
         self._serve_stop.set()
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=10)

@@ -14,8 +14,10 @@ against eager steps, trains BERT-base at O2 with the leafwise and the
 bucketed Adam and the bucketed LAMB, trains it again through the
 imperative amp API (``amp.initialize``, ``scale_loss``, ``FusedAdam``,
 ``FusedLAMB``), trains the DCGAN pair with three loss scalers in both
-of its trainer's modes, and checks the card's answers against the
-CPU's.
+of its trainer's modes, checks the card's answers against the CPU's,
+trains ResNet-50 from a directory of images killed and resumed, resumes
+the LM trainer from its checkpoint, and hot-swaps trained weights into a
+serving engine.
 
     python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
@@ -241,11 +243,46 @@ line):
    are); losses finite; every kernel counter 0
    (JAX runs this model through XLA, no Pallas kernel); the BatchNorm
    running statistics unchanged (both modes drop the batch statistics,
-   as JAX's does); it/s of each mode and peak memory.
+   as JAX's does); it/s of each mode and peak memory;
+24. ResNet-50 O2 from a directory (the ImageNet trainer's run line, B
+   128, 224 x 224, ``--steps-per-call 2 --workers 4 --augment``) over
+   640 uint8 ``.npy`` images of 256 x 256 in 10 class folders written
+   from seed 0 (5 batches an epoch, 4 epochs, 20 steps, a checkpoint
+   every 4): (a) uninterrupted, (b) the same run as a subprocess killed
+   with SIGKILL once its first checkpoint is published, (c)
+   ``--resume`` to the end: (c)'s final checkpoint equal to (a)'s bit
+   for bit in every leaf; every launch counter set to 0 just before (a)
+   and (c) and read just after (phase 13's per-step counts x the steps
+   that ran on the card); step ms beside phase 13's synthetic step, the
+   loader's stall share;
+25. the LM trainer at phase 20's GPT-2 small O2 (B 8, T 1023, Adam, K
+   2): 16 steps, against 8 steps, a save, and a fresh pipeline with
+   ``--resume`` to 16: the final checkpoints equal bit for bit (launches
+   as phase 9's per step); the 8-step run starts with the pinned host
+   cache emptied, and its first checkpoint's stall on the loop (the
+   buffer reserved while the trainer warmed up) is at most 20% of a
+   synchronous write of the same state; an async save that pins its
+   buffer on the loop and a later one are printed beside it; the
+   state's bytes, the snapshot ms, the serialize+fsync ms, the
+   device-to-host GB/s;
+26. hot-swap serving: phase 5's engine on random weights from seed 0,
+   watching an empty directory (``watch_dir``, ``extract`` the trained
+   masters, the watcher's own thread polling every 50 ms); phase 25's
+   step 16 published into it while 16 requests are in flight, and new
+   requests keep every slot busy until the swap lands between two
+   scheduler steps: every request ok with 32 tokens, one hot-swap, 16
+   later requests bit for bit a fresh engine's on the restored weights;
+   a later step with a corrupted shard not adopted (``last_error``
+   names it) while serving goes on; launches per forward (the warm runs
+   of every capture, the 4 after the swap among them, and the
+   replays); the watcher's load ms, the adopting step's ms and TPOT p99
+   across the swap, while the watcher staged, and without a swap.
 
-The phases run in the order 1-4, 17's calibration, 20, 21 (all but its
-traces), 22, 23, 5, 17's served load, 6 (with 17's traces), 7-10, 21's
-traces, 11-16, the rest of 17, 18, 19: the eager sides of 20-23, 5 and
+Phases 24-26 write their data under a temporary directory, removed at
+the end.  The phases run in the order 1-4, 17's calibration, 20, 21 (all
+but its traces), 22, 23, 5, 17's served load, 6 (with 17's traces),
+7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-26: the eager
+sides of 20-23, 5 and
 17 run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
 LM steps again).
@@ -257,7 +294,9 @@ and cross-entropy kernels' and the conv kernels' on the ResNet-50
 run, the qmm kernel's on the O4 serving run, the bias-gradient kernel's
 on phase 19's backward passes; ``launches_by_path`` adds every other
 path, ``bert_training`` the bucketed LAMB's K 4 run, ``imperative_bert``
-phase 22's ``FusedLAMB`` run, ``dcgan`` phase 23's runs); then the
+phase 22's ``FusedLAMB`` run, ``dcgan`` phase 23's runs,
+``resnet_directory``, ``lm_resume`` and ``hotswap_serving`` the
+uninterrupted runs of phases 24 and 25 and phase 26's engine); then the
 ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -271,8 +310,11 @@ import gc
 import importlib
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3462,6 +3504,431 @@ def dcgan_card_vs_cpu(dcgan, dev, iters=3):
                 param_max_abs_diff=param_err, losses_cpu_card=losses)
 
 
+# -- phases 24-26: state and input ------------------------------------------------
+
+RESNET_PER_STEP = {"conv_fwd": 53, "conv_dgrad": 52, "conv_wgrad": 53,
+                   "bn_act_fwd": 53, "bn_act_bwd": 53, "xentropy_fwd": 1,
+                   "xentropy_bwd": 1}
+
+
+def _ckpt_arrays(step_dir):
+    """Every leaf of a checkpoint step directory, as stored."""
+    out = {}
+    for name in sorted(os.listdir(step_dir)):
+        if name.endswith(".npz"):
+            with np.load(os.path.join(step_dir, name)) as z:
+                out.update({k: z[k] for k in z.files})
+    return out
+
+
+def _same_checkpoint(name, got_dir, want_dir):
+    """Check two checkpoints hold the same leaves bit for bit; returns
+    (leaves equal, leaves)."""
+    got, want = _ckpt_arrays(got_dir), _ckpt_arrays(want_dir)
+    same = sum(k in got and got[k].dtype == want[k].dtype
+               and np.array_equal(got[k], want[k]) for k in want)
+    differ = [k for k in want if k not in got
+              or not np.array_equal(got[k], want[k])][:5]
+    check(sorted(got) == sorted(want) and same == len(want),
+          f"{name}: {os.path.basename(got_dir)} equals the uninterrupted "
+          f"run's in {same}/{len(want)} leaves bit for bit"
+          + (f" (first differing {differ})" if differ else ""))
+    return same, len(want)
+
+
+def _counted_run(name, counters, run, per_step, k):
+    """``run()`` (a trainer's ``train``) with every launch counter set to
+    0 just before and read just after: each equal to ``per_step`` x the
+    steps that ran on the card (the warm run of one window and the
+    replays)."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    for c in counters.values():
+        c.launches = 0
+    res = run()
+    launches = {n: c.launches for n, c in counters.items()}
+    pipe = res["pipeline"]
+    ran = cache.WARM_RUNS * k + pipe["steps"]
+    check(pipe["captures"] == {"hot": 1, "tail": 0}
+          and pipe["replays"] == pipe["steps"] // k
+          and all(launches[n] == per_step.get(n, 0) * ran
+                  for n in launches),
+          f"{name}: {pipe['captures']} captures, {pipe['replays']} replays "
+          f"for {pipe['steps']} steps at K {k}; launches "
+          f"{ {n: v for n, v in launches.items() if v} } = {per_step} x "
+          f"{ran} steps")
+    return res, launches
+
+
+def write_image_folders(root, n_images=640, classes=10, size=256, seed=0):
+    """``n_images`` uint8 ``.npy`` images of ``size`` x ``size`` x 3 in
+    ``classes`` class folders, their bytes the splitmix64 stream of
+    ``seed`` (``native.synth_bytes``)."""
+    native = importlib.import_module("apex_tpu_torch.native")
+    per = size * size * 3
+    raw = native.synth_bytes(n_images * per, seed).reshape(
+        n_images, size, size, 3)
+    for i in range(n_images):
+        d = os.path.join(root, f"class_{i % classes:02d}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, f"img_{i:04d}.npy"), raw[i])
+    return root
+
+
+def _kill_after_first_checkpoint(argv, ck_dir, timeout=600):
+    """Run ``argv`` as a subprocess from this checkout and SIGKILL it once
+    its first valid checkpoint is published; returns ``(returncode, the
+    newest valid step directory's name then, its output)``."""
+    checkpoint = importlib.import_module("apex_tpu_torch.checkpoint")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = os.path.join(ck_dir + ".log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        t0 = time.time()
+        try:
+            while checkpoint.latest_checkpoint(ck_dir) is None:
+                if proc.poll() is not None or time.time() - t0 > timeout:
+                    break
+                time.sleep(0.05)
+            found = checkpoint.latest_checkpoint(ck_dir)
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            proc.wait()
+    with open(log) as f:
+        return proc.returncode, found and os.path.basename(found), f.read()
+
+
+def resnet50_directory_resume(imagenet, counters, tmp, synthetic_step_ms):
+    """Phase 24: the ImageNet trainer at its run line over 640 ``.npy``
+    images (5 batches of 128 an epoch, 4 epochs), ``--augment``, K 2,
+    ``--workers 4``, a checkpoint every 4 steps: (a) uninterrupted, (b)
+    the same run as a subprocess SIGKILLed after its first valid
+    checkpoint, (c) ``--resume`` to the end; (c)'s final checkpoint
+    equal to (a)'s bit for bit; launches per step; step ms beside the
+    synthetic step's, the loader's stall."""
+    data_dir = write_image_folders(os.path.join(tmp, "imagenet"))
+    k, steps = 2, 20
+
+    def argv(ck):
+        return [data_dir, "--arch", "resnet50", "-b", "128", "--opt-level",
+                "O2", "--pallas-conv", "--fused-bn", "--fused-loss",
+                "--image-size", "224", "--steps-per-call", str(k),
+                "--workers", "4", "--augment", "--epochs", "4",
+                "--checkpoint-every", "4", "--print-freq", "4",
+                "--checkpoint-dir", ck]
+
+    def train(ck, extra=()):
+        return imagenet.train(imagenet.parse(argv(ck) + list(extra)),
+                              log=lambda line: print("      " + line,
+                                                     flush=True))
+    ck_a, ck_b = os.path.join(tmp, "resnet_a"), os.path.join(tmp,
+                                                             "resnet_b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_a, launches = _counted_run("resnet50 directory (a) uninterrupted",
+                                   counters, lambda: train(ck_a),
+                                   RESNET_PER_STEP, k)
+    out = dict(steps=res_a["step"], loader=res_a["loader"],
+               step_ms_all=[x * 1e3 for x in res_a["step_s"]],
+               step_ms_median=float(np.median(res_a["step_s"][k:])) * 1e3,
+               synthetic_step_ms=synthetic_step_ms, launches=launches,
+               losses=res_a["losses"])
+    check(res_a["step"] == steps and all(np.isfinite(res_a["losses"])),
+          f"resnet50 directory (a): {res_a['step']} steps ({steps}), losses "
+          f"finite")
+    del res_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, saved, log_b = _kill_after_first_checkpoint(
+        [sys.executable, "-m", "apex_tpu_torch.examples.imagenet.main_amp"]
+        + argv(ck_b), ck_b)
+    out["killed_after_s"] = time.perf_counter() - t0
+    out["killed_with_valid_step"] = saved
+    check(rc == -signal.SIGKILL and saved,
+          f"resnet50 directory (b): the subprocess killed (rc {rc}) after "
+          f"its checkpoint {saved} was published"
+          + ("" if saved else f"\n{log_b[-2000:]}"))
+    res_c, out["launches_resumed"] = _counted_run(
+        "resnet50 directory (c) resumed", counters,
+        lambda: train(ck_b, ["--resume"]), RESNET_PER_STEP, k)
+    start = steps - res_c["pipeline"]["steps"]
+    check(res_c["step"] == steps and start > 0,
+          f"resnet50 directory (c): resumed at step {start}, ran to "
+          f"{res_c['step']}")
+    out["resumed_at"] = start
+    out["leaves_equal"], out["leaves"] = _same_checkpoint(
+        "resnet50 directory (c) resumed", os.path.join(ck_b,
+                                                       "step_00000020"),
+        os.path.join(ck_a, "step_00000020"))
+    del res_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"      resnet50 O2 B128 224 from a directory (--augment, K 2, "
+          f"4 workers): step {out['step_ms_median']:.2f} ms (median after "
+          f"the first window) beside the synthetic step "
+          f"{synthetic_step_ms:.2f} ms (phase 13); loader stall "
+          f"{out['loader']['loader_stall_pct']:.2f}% "
+          f"({out['loader']['consumer_wait_s']:.3f} s waited of "
+          f"{out['loader']['elapsed_s']:.3f} s); killed after "
+          f"{out['killed_after_s']:.1f} s, resumed at step {start}",
+          flush=True)
+    return out
+
+
+def empty_host_cache():
+    """Free the pinned host blocks PyTorch's caching host allocator keeps,
+    so the next pinned allocation is a new one, as a process's first."""
+    fn = (getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                  None) or getattr(torch._C, "_host_emptyCache", None))
+    check(fn is not None, "this torch can empty its pinned host cache")
+    if fn is not None:
+        fn()
+
+
+def lm_checkpoint_resume(main_amp, checkpoint, counters, tmp):
+    """Phase 25: the LM trainer at phase 20's GPT-2 small O2 (B 8, T 1023,
+    Adam, K 2): 16 uninterrupted steps; 8 steps and a save, then a fresh
+    pipeline with ``--resume`` to 16: the two final checkpoints equal bit
+    for bit.  Run (b) starts with the pinned host cache emptied, as a
+    fresh trainer does: its first checkpoint's stall on the loop (the
+    manager reserved the pinned buffer while the trainer warmed up) is
+    held to <= 20% of a synchronous write of the same state; then, the
+    cache emptied again, an async save by a manager that reserved
+    nothing (it pins its buffer on the loop's thread), the synchronous
+    one and a later async one, each timed from the loop's side."""
+    k = 2
+
+    def train(ck, steps, every, extra=()):
+        args = main_amp.parse(TRAIN_ARGS + [
+            "--steps", str(steps), "--steps-per-call", str(k),
+            "--checkpoint-dir", ck, "--checkpoint-every", str(every)]
+            + list(extra))
+        return main_amp.train(args, log=lambda line: None)
+    ck_a, ck_b = os.path.join(tmp, "lm_a"), os.path.join(tmp, "lm_b")
+    res_a, launches = _counted_run("gpt2_small checkpoint (a) 16 steps",
+                                   counters, lambda: train(ck_a, 16, 16),
+                                   LM_PER_STEP, k)
+    del res_a
+    gc.collect()
+    empty_host_cache()
+    res_b, _ = _counted_run("gpt2_small checkpoint (b) 8 steps", counters,
+                            lambda: train(ck_b, 8, 8), LM_PER_STEP, k)
+    first_s = res_b["checkpoint"]["snapshot_s"]
+    del res_b
+    res_c, launches_c = _counted_run(
+        "gpt2_small checkpoint (c) resumed to 16", counters,
+        lambda: train(ck_b, 16, 8, ["--resume"]), LM_PER_STEP, k)
+    check(res_c["pipeline"]["steps"] == 8 and res_c["step"] == 16,
+          f"gpt2_small checkpoint (c): resumed at step "
+          f"{16 - res_c['pipeline']['steps']} (8), ran to {res_c['step']}")
+    same, n = _same_checkpoint("gpt2_small checkpoint (c) resumed",
+                               os.path.join(ck_b, "step_00000016"),
+                               os.path.join(ck_a, "step_00000016"))
+    shutil.rmtree(ck_a, ignore_errors=True)
+    state = res_c["state"]
+    ck_t = os.path.join(tmp, "lm_timed")
+    mgr = checkpoint.CheckpointManager(ck_t, keep=2)
+
+    def async_stall(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(step, state)
+        stall = time.perf_counter() - t0
+        mgr.wait()
+        return stall, dict(mgr.stats)
+    # cold: a save that pins its buffer on the loop's thread; warm: the
+    # caching host allocator hands the same buffer back
+    gc.collect()
+    empty_host_cache()
+    cold_s, cold_stats = async_stall(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(2, state, block=True)
+    sync_s = time.perf_counter() - t0
+    sync_stats = dict(mgr.stats)
+    warm_s, warm_stats = async_stall(3)
+    mgr.close()
+    shutil.rmtree(ck_t, ignore_errors=True)
+    del res_c, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = warm_stats["bytes"]
+    out = dict(leaves_equal=same, leaves=n, launches=launches,
+               launches_resumed=launches_c, state_bytes=nbytes,
+               sync_write_s=sync_s, trainer_first_save_stall_s=first_s,
+               cold_async_stall_s=cold_s, warm_async_stall_s=warm_s,
+               snapshot_ms=warm_stats["snapshot_s"] * 1e3,
+               write_ms=warm_stats["write_s"] * 1e3,
+               d2h_ms=warm_stats["d2h_s"] * 1e3,
+               d2h_gb_per_s=nbytes / warm_stats["d2h_s"] / 1e9,
+               cold_d2h_ms=cold_stats["d2h_s"] * 1e3,
+               sync_snapshot_ms=sync_stats["snapshot_s"] * 1e3,
+               sync_d2h_ms=sync_stats["d2h_s"] * 1e3)
+    check(first_s <= 0.2 * sync_s,
+          f"gpt2_small checkpoint: the trainer's first async save stalls "
+          f"the loop {first_s * 1e3:.2f} ms, {first_s / sync_s:.4f} of the "
+          f"synchronous write's {sync_s * 1e3:.1f} ms (<= 0.2); a save "
+          f"that pins its buffer on the loop {cold_s * 1e3:.2f} ms "
+          f"({cold_s / sync_s:.4f}), a later one {warm_s * 1e3:.2f} ms "
+          f"({warm_s / sync_s:.4f})")
+    print(f"      gpt2_small O2 state {nbytes / 1e9:.3f} GB: async stall "
+          f"{first_s * 1e3:.2f} ms at the trainer's first save (buffer "
+          f"reserved), {cold_s * 1e3:.2f} ms with the buffer pinned on the "
+          f"loop, {warm_s * 1e3:.2f} ms at a later save (snapshot "
+          f"{out['snapshot_ms']:.2f} ms), D2H {out['d2h_ms']:.2f} ms "
+          f"({out['d2h_gb_per_s']:.2f} GB/s), serialize+fsync+publish "
+          f"{out['write_ms']:.1f} ms on the writer; synchronous save "
+          f"{sync_s * 1e3:.1f} ms", flush=True)
+    return out
+
+
+def _publish(prepared, watch):
+    """Move a prepared step directory into ``watch`` in one rename, as a
+    trainer's manager publishes it."""
+    dst = os.path.join(watch, os.path.basename(prepared))
+    os.rename(prepared, dst)
+    return dst
+
+
+def hotswap_serving(models, engine_mod, convert, checkpoint, counters, dev,
+                    ck_src, tmp):
+    """Phase 26: phase 5's GPT-2 small O2 engine on random weights (seed
+    0) watching an empty directory with its background watcher (a poll
+    every 50 ms); phase 25's step 16 is published into it while 16
+    requests are in flight, and the engine keeps serving (new requests
+    take freed slots) while the watcher's thread stages it, until the
+    swap lands between two scheduler steps (``extract``: the trained
+    masters); every request ok with 32 tokens, one hot-swap; 16 requests
+    after it equal a fresh engine's on the restored weights bit for bit;
+    a later step with a corrupted shard, published the same way, is not
+    adopted (``last_error`` names it) while serving goes on; launches per
+    forward."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    watch, prep = os.path.join(tmp, "watch"), os.path.join(tmp, "prepared")
+    os.makedirs(watch)
+    os.makedirs(prep)
+    src = os.path.join(ck_src, "step_00000016")
+    good = os.path.join(prep, "step_00000016")
+    shutil.copytree(src, good)
+    torn = os.path.join(prep, "step_00000024")
+    shutil.copytree(src, torn)
+    shard = [n for n in os.listdir(torn) if n.endswith(".npz")][0]
+    with open(os.path.join(torn, shard), "r+b") as f:
+        f.seek(os.path.getsize(os.path.join(torn, shard)) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+    like = convert.lm_train_state_like(model)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, model.vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    later = [rng.randint(1, model.vocab_size, (int(n),))
+             for n in rng.randint(32, 901, 16)]
+    for c in counters.values():
+        c.launches = 0
+    eng = engine_mod.ServingEngine(
+        model, buckets=(256, 1024), page_size=16, max_seqs=8, device=dev,
+        watch_dir=watch, extract=convert.gpt_params_from_train_state,
+        watch_like=like, poll_every_s=0.05)
+    eng.warmup()
+    comps = [eng.submit(p, 32) for p in prompts]
+    for _ in range(12):
+        eng.step()
+    _publish(good, watch)
+    t_pub = time.perf_counter()
+    deadline = t_pub + 120.0
+    i = 0
+    while eng.stats["hotswaps"] == 0 and time.perf_counter() < deadline:
+        # keep every slot busy while the watcher's thread stages
+        if sum(not c.done() for c in comps) < eng.max_seqs:
+            comps.append(eng.submit(prompts[i % len(prompts)], 32))
+            i += 1
+        eng.step()
+    wait_s = time.perf_counter() - t_pub
+    at_swap = [c for c in comps if not c.done()]
+    before = [c for c in comps if c.done()]
+    eng.run_until_idle()
+    across = [c.result(timeout=0) for c in at_swap]
+    first = [c.result(timeout=0) for c in comps]
+    served_before = [c.result(timeout=0) for c in before]
+    after = eng.generate(later, max_new_tokens=32)
+    _publish(torn, watch)
+    deadline = time.perf_counter() + 60.0
+    tail = eng.generate(prompts[:4], max_new_tokens=32)
+    while ("step 24" not in (eng.watcher.last_error or "")
+           and time.perf_counter() < deadline):
+        tail += eng.generate(prompts[:4], max_new_tokens=32)
+    launches = {n: c.launches for n, c in counters.items()}
+    st = dict(eng.stats)
+    load_ms = eng.watcher.load_s * 1e3
+    last_error = eng.watcher.last_error
+    adopted = eng.watcher.adopted_step
+    eng.close()
+    forwards = cache.WARM_RUNS * st["captures"] + st["replays"]
+    check(all(launches[n] == SERVE_PER_FORWARD.get(n, 0) * forwards
+              for n in launches),
+          f"gpt2_small hot-swap: launches "
+          f"{ {n: v for n, v in launches.items() if v} } = "
+          f"{SERVE_PER_FORWARD} x {forwards} forwards (the warm runs of "
+          f"{st['captures']} captures, {st['recaptures']} of them after the "
+          f"swap, and {st['replays']} replays)")
+    served = first + after + tail
+    check(st["hotswaps"] == 1 and len(at_swap) > 0
+          and all(r.ok and len(r.tokens) == 32 for r in served),
+          f"gpt2_small hot-swap: step 16 staged by the watcher's thread and "
+          f"adopted {wait_s:.2f} s after it was published, "
+          f"{st['hotswaps']} hot-swap (1), {len(at_swap)} requests in "
+          f"flight across it, "
+          f"{sum(r.ok and len(r.tokens) == 32 for r in served)}/"
+          f"{len(served)} requests ok with 32 tokens")
+    check(adopted == 16 and "step 24" in (last_error or ""),
+          f"gpt2_small hot-swap: the corrupted step 24 not adopted (adopted "
+          f"step {adopted}), last_error {last_error!r}")
+    fresh_model = models.gpt2_small(dtype=torch.bfloat16, device=dev,
+                                    seed=0)
+    restored = checkpoint.load_checkpoint_dir(src, like)
+    fresh_model.load_state_dict(convert.gpt_params_from_train_state(restored))
+    fresh = engine_mod.ServingEngine(fresh_model, buckets=(256, 1024),
+                                     page_size=16, max_seqs=8,
+                                     device=dev).warmup()
+    want = fresh.generate(later, max_new_tokens=32)
+    fresh.close()
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(after, want))
+    check(same == 16, f"gpt2_small hot-swap: tokens after adoption equal a "
+          f"fresh engine's on the restored weights in {same}/16 requests")
+    del model, fresh_model, like, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def tpot_p99(results):
+        return _pct([r.timings["tpot_s"] for r in results if r.ok], 0.99)
+    out = dict(in_flight_at_swap=len(at_swap), hotswaps=st["hotswaps"],
+               recaptures=st["recaptures"], watcher_load_ms=load_ms,
+               publish_to_swap_s=wait_s, swap_ms=st["swap_s"] * 1e3,
+               requests_while_staging=len(served_before),
+               tpot_p99_ms_across_swap=tpot_p99(across),
+               tpot_p99_ms_while_staging=tpot_p99(served_before),
+               tpot_p99_ms_without_swap=tpot_p99(after),
+               tokens_equal_fresh=same, torn_last_error=last_error,
+               launches=launches)
+    print(f"      gpt2_small hot-swap: the watcher's thread staged step 16 "
+          f"in {load_ms:.1f} ms (adopted {wait_s:.2f} s after it was "
+          f"published), the adopting step's swap and recapture "
+          f"{out['swap_ms']:.1f} ms ({st['recaptures']} graphs); TPOT p99 "
+          f"{out['tpot_p99_ms_across_swap']:.2f} ms of the {len(at_swap)} "
+          f"requests in flight across the swap, "
+          f"{out['tpot_p99_ms_while_staging']:.2f} ms of the "
+          f"{len(served_before)} finished while the watcher staged, "
+          f"{out['tpot_p99_ms_without_swap']:.2f} ms of 16 without a swap",
+          flush=True)
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -3656,6 +4123,19 @@ def main(argv=None) -> int:
     db2, db2_launches = db2_cases(                                 # 19
         fa, counters, dev,
         load_was(args.was, "ops.flash_attention") if args.was else None)
+    checkpoint = importlib.import_module("apex_tpu_torch.checkpoint")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        state_input = {"resnet_directory": resnet50_directory_resume(  # 24
+            imagenet, counters, tmp, resnet["step_ms_median_3_10"])}
+        state_input["lm_resume"] = lm_checkpoint_resume(               # 25
+            main_amp, checkpoint, counters, tmp)
+        state_input["hotswap_serving"] = hotswap_serving(              # 26
+            models, engine_mod,
+            importlib.import_module("apex_tpu_torch.convert"), checkpoint,
+            counters, dev, os.path.join(tmp, "lm_b"), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     paths = {"serving": serving["launches"], "training": trained["launches"],
              "resnet_training": resnet["launches"],
              "o4_serving": o4_serving["launches"],
@@ -3663,7 +4143,10 @@ def main(argv=None) -> int:
              "bias_grad": db2_launches,
              "bert_training": bert["launches"],
              "imperative_bert": imp_bert["launches"],
-             "dcgan": gan["launches"]}
+             "dcgan": gan["launches"],
+             "resnet_directory": state_input["resnet_directory"]["launches"],
+             "lm_resume": state_input["lm_resume"]["launches"],
+             "hotswap_serving": state_input["hotswap_serving"]["launches"]}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -3749,6 +4232,7 @@ def main(argv=None) -> int:
                            training_windows=windows,
                            bert_training=bert,
                            imperative_bert=imp_bert, dcgan=gan,
+                           state_and_input=state_input,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

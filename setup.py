@@ -36,7 +36,7 @@ setup(
     packages=find_packages(include=["apex_tpu", "apex_tpu.*",
                                     "apex_tpu_torch", "apex_tpu_torch.*"]),
     package_data={"apex_tpu": ["csrc/*.cpp"],
-                  "apex_tpu_torch": ["csrc/*.cu"]},
+                  "apex_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy"],
     cmdclass={"build_native": BuildNative},

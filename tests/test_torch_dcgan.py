@@ -23,7 +23,8 @@ and the same inputs:
   above, not by the cosine); every element within 2 x 3 x 1.1 lr (lr
   2e-4, beta1 0.5); the BatchNorm running statistics unchanged; an
   overflow on loss 1 halving only scaler 1 and skipping only D's step;
-  the refused flags.
+  the refused flags; the pipelined mode stopped and resumed from its
+  checkpoint bit for bit.
 """
 
 import importlib.util
@@ -417,8 +418,53 @@ def test_imperative_overflow_on_loss_one_skips_only_d():
                                   ["--metrics-textfile", "m.prom"],
                                   ["--watchdog"]])
 def test_trainer_refuses_what_is_not_ported(flag):
+    if flag[0] in ("--checkpoint-dir", "--resume"):
+        # checkpointing is ported for the pipelined mode; --imperative
+        # refuses it, as the JAX example does
+        with pytest.raises(SystemExit, match="pipelined"):
+            dcgan.main(["--device", "cpu", "--imperative"] + flag)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dcgan.main(["--device", "cpu"] + flag)
+
+
+def test_pipelined_resume_is_bit_for_bit(tmp_path, capsys):
+    """The pipelined mode at K 2: 8 iterations with a checkpoint every 2,
+    against 4 iterations, then ``--resume`` to 8 from a fresh process
+    state: the whole GAN (both nets, both Adam states, the three
+    scalers) bit for bit, in the returned state and in the final
+    checkpoint; the resumed run prints the iteration it resumed at."""
+    from apex_tpu_torch.checkpoint import load_checkpoint_dir
+    base = ["--device", "cpu", "--ngf", "8", "--ndf", "8", "--batchSize",
+            "2", "--data-pool", "3", "--steps-per-call", "2",
+            "--checkpoint-every", "2", "--opt_level", "O1"]
+
+    def run(ck, ipe, extra=()):
+        args = dcgan.parse(base + ["--iters-per-epoch", str(ipe),
+                                   "--checkpoint-dir", ck] + list(extra))
+        netG, netD = dcgan.build_models(args, torch.device("cpu"))
+        try:
+            return dcgan.train_pipelined(args, netG, netD)
+        finally:
+            amp.shutdown()
+    full = run(str(tmp_path / "a"), 8)
+    part = run(str(tmp_path / "b"), 4)
+    assert part["step"] == 4
+    resumed = run(str(tmp_path / "b"), 8, ["--resume"])
+    assert "resumed at iter 4" in capsys.readouterr().out
+    assert resumed["step"] == full["step"] == 8 and resumed["iters"] == 4
+    assert resumed["loss_d"] == full["loss_d"][4:]
+    leaves = [torch.utils._pytree.tree_leaves(r["state"])
+              for r in (full, resumed)]
+    assert len(leaves[0]) == len(leaves[1]) > 100
+    for a, b in zip(*leaves):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for d in ("a", "b"):
+        got = load_checkpoint_dir(str(tmp_path / d), full["state"])
+        assert got.step == 8
+        for a, b in zip(torch.utils._pytree.tree_leaves(got.state),
+                        leaves[0]):
+            assert torch.equal(a, b)
 
 
 def test_trainer_cli_both_modes(capsys):

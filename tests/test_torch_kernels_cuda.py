@@ -1856,3 +1856,162 @@ def test_dcgan_o0_iteration_card_vs_cpu(conv_device):
         for a, b in zip(have, want):
             if b.is_floating_point():
                 torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+# -- checkpoints of a captured pipeline, weight hot-swap on the card ----------------
+
+@pytest.mark.cuda
+def test_captured_pipeline_async_save_between_replays(cuda_device, tmp_path):
+    """An async save of the state a captured ``StepPipeline`` returned,
+    made between two replays: the next replay overwrites that state in
+    place, and the checkpoint still holds exactly the state after the
+    first window (its copies are ordered before the replay on the
+    stream).  A fresh pipeline resumed from it replays the second window
+    from the restored values: equal to four eager steps bit for bit."""
+    models = importlib.import_module("apex_tpu_torch.models")
+    training = importlib.import_module("apex_tpu_torch.training")
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    checkpoint = importlib.import_module("apex_tpu_torch.checkpoint")
+    model = models.gpt_tiny(vocab_size=4096, hidden_size=512, num_layers=4,
+                            num_heads=8, mlp_dim=2048, max_len=64,
+                            device=cuda_device, seed=4)
+
+    def loss_fn(p, batch):
+        x, y = batch
+        logp = torch.log_softmax(
+            torch.func.functional_call(model, p, (x,)).float(), dim=-1)
+        return -logp.gather(-1, y[..., None]).mean()
+
+    init, step = training.make_train_step(loss_fn, training.adam(1e-3),
+                                          opt_level="O2")
+    rng = np.random.RandomState(6)
+    batches = []
+    for _ in range(4):
+        ids = torch.from_numpy(rng.randint(1, 4096, (8, 65))).to(cuda_device)
+        batches.append((ids[:, :-1], ids[:, 1:]))
+    ref, after = init(model.state_dict()), []
+    for b in batches:
+        ref, _ = step(ref, b)
+        after.append(torch.utils._pytree.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t, ref))
+    windows = list(runtime.window_batches(iter(batches), 2))
+    pipe = runtime.StepPipeline(step, 2).warmup(init(model.state_dict()),
+                                                windows[0][0])
+    mgr = checkpoint.CheckpointManager(str(tmp_path))
+    state, _ = pipe.step_window(init(model.state_dict()), windows[0][0])
+    mgr.save(2, state)
+    state, _ = pipe.step_window(state, windows[1][0])
+    mgr.wait()
+    restored = mgr.restore(like=init(model.state_dict()))
+    mgr.close()
+
+    def leaves(tree):
+        return [x for x in torch.utils._pytree.tree_leaves(tree)
+                if isinstance(x, torch.Tensor)]
+    assert all(torch.equal(g, w) for g, w in zip(leaves(restored.state),
+                                                 leaves(after[1])))
+    assert all(torch.equal(g, w) for g, w in zip(leaves(state),
+                                                 leaves(after[3])))
+    assert all(x.is_cuda for x in leaves(restored.state))
+    fresh = runtime.StepPipeline(step, 2).warmup(restored.state,
+                                                 windows[1][0])
+    resumed, _ = fresh.step_window(restored.state, windows[1][0])
+    assert all(torch.equal(g, w) for g, w in zip(leaves(resumed),
+                                                 leaves(after[3])))
+
+
+@pytest.mark.cuda
+def test_manager_reserve_pins_the_first_save_buffer(cuda_device, tmp_path):
+    """``reserve`` pins the snapshot's buffer on its own thread and the
+    manager keeps it, through an emptied host cache (every CUDA graph
+    capture empties it), for the first async save, which then pins
+    nothing on the caller's thread; a later save reuses the same buffer.
+    Each checkpoint holds the tree bit for bit."""
+    checkpoint = importlib.import_module("apex_tpu_torch.checkpoint")
+    empty = (getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                     None) or torch._C._host_emptyCache)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tree = {"w": torch.randn(1000, 300, device=cuda_device, generator=g),
+            "h": torch.randn(77, device=cuda_device,
+                             generator=g).to(torch.bfloat16),
+            "n": torch.arange(5, device=cuda_device),
+            "cpu": torch.ones(3)}
+    empty()
+    mgr = checkpoint.CheckpointManager(str(tmp_path))
+    mgr.reserve(tree)
+    mgr._reserving.join()
+    empty()
+
+    def allocs():
+        return torch.cuda.memory.host_memory_stats()["num_host_alloc"]
+    before = allocs()
+    saved = {}
+    for step in (1, 2):
+        saved[step] = {k: v.clone() for k, v in tree.items()}
+        mgr.save(step, tree)
+        mgr.wait()
+        tree["w"].add_(1.0)
+    assert allocs() == before
+    for step, want in saved.items():
+        restored = mgr.restore(like=tree, step=step)
+        assert all(torch.equal(restored.state[k], want[k]) for k in want)
+        assert restored.state["h"].dtype == torch.bfloat16
+    mgr.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o4", [False, True])
+def test_engine_adopts_weights_between_steps(cuda_device, tmp_path, o4):
+    """A captured engine at O2 (bf16) or O4 (int8 projections, int8 KV)
+    watching a checkpoint directory: a checkpoint published while a
+    request is in flight is adopted between two scheduler steps, every
+    graph is captured again (at O4 with every int8 weight prepared
+    again), and the requests after it give a fresh engine's tokens on
+    the new weights."""
+    models = importlib.import_module("apex_tpu_torch.models")
+    quant = importlib.import_module("apex_tpu_torch.quant")
+    engine = importlib.import_module("apex_tpu_torch.serving.engine")
+    checkpoint = importlib.import_module("apex_tpu_torch.checkpoint")
+    cfg = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+               mlp_dim=256, max_len=128, dtype=torch.bfloat16)
+    kw = {}
+    if o4:
+        sites = [f"block_{i}/{p}" for i in range(2) for p in (
+            "attention/query", "attention/key", "attention/value",
+            "attention/out", "mlp_up", "mlp_down")]
+        cfg["quant"] = quant.QuantConfig.frozen(quant.Calibration(
+            {s: 0.05 for s in sites}))
+        kw["cache_dtype"] = torch.int8
+
+    def preparations(m):
+        return sum(getattr(x, "preparations", 0) for x in m.modules())
+    model = models.gpt_tiny(**cfg, device=cuda_device, seed=1)
+    new = models.gpt_tiny(**cfg, device=cuda_device, seed=2)
+    eng = engine.ServingEngine(model, buckets=(64,), page_size=16,
+                               max_seqs=2, device=cuda_device,
+                               watch_dir=str(tmp_path), poll_every_s=3600,
+                               **kw).warmup()
+    prompts = [np.arange(1, 20) % 500, np.arange(7, 40) % 500]
+    comp = eng.submit(prompts[0], 16)
+    for _ in range(4):
+        eng.step()
+    prepared = preparations(model)
+    with checkpoint.CheckpointManager(str(tmp_path)) as mgr:
+        mgr.save(5, new.state_dict(), block=True)
+    assert eng.watcher.poll_once()
+    eng.run_until_idle()
+    assert comp.result(timeout=0).ok
+    assert eng.stats["hotswaps"] == 1 and eng.stats["recaptures"] == 2
+    assert eng.stats["swap_s"] > 0
+    if o4:
+        assert preparations(model) - prepared == 12
+    after = [r.tokens for r in eng.generate(prompts, 8)]
+    assert eng.stats["aot_misses"] == 0
+    eng.close()
+    fresh = engine.ServingEngine(new, buckets=(64,), page_size=16,
+                                 max_seqs=2, device=cuda_device,
+                                 **kw).warmup()
+    want = [r.tokens for r in fresh.generate(prompts, 8)]
+    fresh.close()
+    for a, w in zip(after, want):
+        np.testing.assert_array_equal(a, w)

@@ -406,6 +406,72 @@ def test_graceful_shutdown_signal_and_request():
         runtime.GracefulShutdown(telemetry=object())
 
 
+class _Windows:
+    """A window stream that records being closed."""
+
+    def __init__(self, windows):
+        self._it, self.closed = iter(windows), False
+
+    def __iter__(self):
+        return self._it
+
+    def close(self):
+        self.closed = True
+
+
+@pytest.mark.parametrize("drain", [False, True])
+def test_pipeline_run_checkpoints_drains_and_closes(drain, tmp_path):
+    """``StepPipeline.run`` with a checkpoint manager: a save every 4
+    steps with the loader state taken at the window's boundary, a final
+    blocking save where it stops (``steps=6`` of 8 batches; with
+    ``drain``, a SIGTERM during the first window: a save at step 2 and no
+    second one), the windows closed; every checkpoint holds the state of
+    the step it names, bit for bit the uninterrupted run's."""
+    from apex_tpu_torch import checkpoint
+    _, (port_state, step, to_torch), make_batches = _gpt_pair(None)
+    batches = make_batches(8)
+    ref, states = port_state(), []
+    for b in batches[:6]:
+        ref, _ = step(ref, to_torch(b))
+        states.append(ref)
+    mgr = checkpoint.CheckpointManager(str(tmp_path), every_steps=4)
+    windows = _Windows(runtime.window_batches(iter(batches), 2,
+                                              transform=to_torch))
+    lines, taken = [], []
+
+    def loader_state(at):
+        taken.append(at)
+        return {"cursor": at}
+
+    def on_window(n):
+        if drain and n == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+    state, reader = runtime.StepPipeline(step, 2).run(
+        port_state(), windows, steps=6, manager=mgr, start_step=0,
+        loader_state=loader_state, on_window=on_window, drain=drain,
+        log=lines.append)
+    stop = 2 if drain else 6
+    assert reader.steps_pushed == stop and windows.closed
+    assert [s for s, _ in checkpoint.list_checkpoints(str(tmp_path))] == (
+        [2] if drain else [4, 6])
+    assert taken[-1] == stop and lines[-1].startswith(
+        f"checkpoint: step {stop} saved under")
+    assert any(line.startswith("drain: stopping at step 2")
+               for line in lines) == drain
+    def leaves(tree):
+        return [x for x in torch.utils._pytree.tree_leaves(tree)
+                if isinstance(x, torch.Tensor)]
+    for at in ([2] if drain else [4, 6]):
+        got = checkpoint.load_checkpoint_dir(str(tmp_path), port_state(),
+                                             step=at)
+        assert got.loader_state == {"cursor": at}
+        assert len(leaves(got.state)) == len(leaves(states[at - 1])) > 10
+        assert all(torch.equal(a, b) for a, b in
+                   zip(leaves(got.state), leaves(states[at - 1])))
+    assert all(torch.equal(a, b) for a, b in
+               zip(leaves(state), leaves(states[stop - 1])))
+
+
 # -- the trainers with --steps-per-call --------------------------------------------
 
 LM_TINY = ["--synthetic", "--device", "cpu", "--vocab", "128", "--hidden",

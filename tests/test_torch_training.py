@@ -647,20 +647,89 @@ def test_imagenet_trainer_conv_flag_trains(capsys, flag):
     assert "iter 1" in out and out.rstrip().endswith("done")
 
 
-def test_imagenet_trainer_refusals():
+def test_imagenet_trainer_refusals(tmp_path):
+    """``--sync_bn`` and ``--telemetry`` refuse, naming their ROADMAP
+    items; checkpointing and a ``data`` directory are ported (a missing
+    directory fails as a missing directory)."""
     for extra, exc, match in (
-            (["--sync_bn"], NotImplementedError, "sync_bn"),
-            (["--checkpoint-dir", "ckpt"], NotImplementedError,
-             "checkpoint"),
+            (["--sync_bn"], NotImplementedError, "Data parallel"),
             (["--telemetry", "t.jsonl"], NotImplementedError, "telemetry")):
         with pytest.raises(exc, match=match):
             imagenet_main.main(IMAGENET_TINY + ["--prof", "1"] + extra)
-    with pytest.raises(SystemExit, match="synthetic"):
-        imagenet_main.main(["some/dir", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        imagenet_main.main([str(tmp_path / "no_such_dir"), "--device",
+                            "cpu", "--arch", "resnet18", "-b", "4",
+                            "--image-size", "32"])
+    assert imagenet_main.main(IMAGENET_TINY + [
+        "--prof", "2", "--checkpoint-dir", str(tmp_path / "ck")]) == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             imagenet_main.main(IMAGENET_TINY[:1] + IMAGENET_TINY[3:]
                                + ["--prof", "1"])
+
+
+def _image_tree(root, classes=2, per_class=8, size=48):
+    rng = np.random.RandomState(11)
+    for c in range(classes):
+        d = root / f"n{c:02d}"
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            np.save(d / f"img{i}.npy",
+                    rng.randint(0, 256, (size, size, 3)).astype(np.uint8))
+    return str(root)
+
+
+def test_imagenet_trainer_directory_augment_tracks_jax(tmp_path):
+    """The trainer on a directory with ``--augment`` (resnet18, 32 px, O0,
+    K 2, 2 workers): its losses equal the JAX step's fed by the JAX
+    package's own stream over the same directory (``directory_imagenet(
+    decode=False)``, ``load_batch``, ``augment_images`` at the JAX
+    example's per-batch seed) from the same weights, at rtol 1e-4 as the
+    ImageNet step's parity above; the loader state rides in the
+    checkpoint at the loop's boundary."""
+    import zlib
+    root = _image_tree(tmp_path / "data")
+    argv = [root, "--device", "cpu", "--arch", "resnet18", "-b", "4",
+            "--image-size", "32", "--epochs", "1", "--steps-per-call", "2",
+            "--augment", "--workers", "2", "--no-pallas-conv",
+            "--checkpoint-dir", str(tmp_path / "ck")]
+    res = imagenet_main.train(imagenet_main.parse(argv), log=lambda s: None)
+    assert res["step"] == 4 and len(res["losses"]) == 4
+    assert res["loader"]["batches"] == 2
+    from apex_tpu_torch.checkpoint import load_checkpoint_dir
+    got = load_checkpoint_dir(str(tmp_path / "ck"), res["state"])
+    assert got.loader_state["cursor"] == 4 and got.step == 4
+
+    tm = imagenet_main.ARCHS["resnet18"](
+        num_classes=1000, dtype=torch.float32, norm_cls=BatchNorm2d_NHWC,
+        device="cpu", seed=0)
+    variables = resnet_variables_to_jax(*tm.variables())
+    jm = jresnet.ResNet18(num_classes=1000, dtype=jnp.float32,
+                          norm_cls=JBatchNorm2d_NHWC)
+
+    def jloss(p, ms, batch):
+        logits, upd = jm.apply({"params": p, "batch_stats": ms}, batch[0],
+                               train=True, mutable=["batch_stats"])
+        loss = jnp.mean(jax_xentropy(logits.astype(jnp.float32), batch[1],
+                                     0.0, -1))
+        return loss, upd["batch_stats"]
+    jinit, jstep = jtraining.make_train_step(
+        jloss, jtraining.sgd(0.1 * 4 / 256, momentum=0.9,
+                             weight_decay=1e-4),
+        opt_level="O0", has_model_state=True)
+    jstep = jax.jit(jstep)
+    jst = jinit(variables["params"], variables["batch_stats"])
+    want = []
+    for task in jdata.directory_imagenet(root, 4, 64, epochs=1,
+                                         decode=False):
+        imgs, labels = jdata.load_batch(task)
+        rng = np.random.RandomState(
+            (zlib.crc32("|".join(task.paths).encode())
+             ^ (task.seq * 2654435761)) & 0x7FFFFFFF)
+        x = jdata.augment_images(imgs, 32, rng)
+        jst, m = jstep(jst, (jnp.asarray(x), jnp.asarray(labels)))
+        want.append(float(m["loss"]))
+    np.testing.assert_allclose(res["losses"], want, rtol=1e-4)
 
 
 # -- the LM trainer's fused loss --------------------------------------------------
