@@ -139,14 +139,16 @@ def _cast_module(model: nn.Module, dtype, keep_norm_fp32: bool,
 
 def _check_models(model_list):
     """Modules only, and not yet wrapped (reference
-    ``_initialize.py:60-72``)."""
+    ``_initialize.py:60-72``): torch's parallel wrappers and the port's
+    own :class:`~apex_tpu_torch.parallel.DistributedDataParallel`."""
+    from ..parallel.distributed import DistributedDataParallel
     for model in model_list:
         if not isinstance(model, nn.Module):
             raise TypeError(
                 "amp.initialize takes torch.nn.Module models, got "
                 f"{type(model).__name__}")
         if isinstance(model, (nn.parallel.DistributedDataParallel,
-                              nn.DataParallel)):
+                              nn.DataParallel, DistributedDataParallel)):
             raise RuntimeError(
                 "Incoming model is an instance of {}. Parallel wrappers "
                 "should only be applied to the model(s) AFTER \nthe "

@@ -44,11 +44,20 @@ Usage (the trainers' ``--checkpoint-dir/--checkpoint-every/--resume``)::
     mgr.save(step, state, block=True)            # final, synchronous
     mgr.close()
 
-Not ported yet, each raising ``NotImplementedError``: ``procs`` other
-than ``(0, 1)`` (cross-process shards, ROADMAP queue 1 "Data
-parallel"), restoring a ``bucket_layout`` state at another shard count
-(the zero1 reshard, "Sharding") and ``telemetry=`` ("Observability and
-tuning").
+Across processes (``procs=(index, count)``, by default
+:func:`apex_tpu_torch.parallel.multiproc.process_identity`), each
+process writes the leaves it owns, round-robin over the flat leaf order,
+as ``shard_<index>_of_<count>.npz`` with its manifest part; process 0
+adds the amp state, the extras and the loader state, and prunes.  A
+checkpoint is valid only when every part landed and every checksum
+passes, and :func:`load_checkpoint_dir` merges the parts, so a
+checkpoint of any process count restores in any process (the state is
+replicated).  JAX writes and reads the same files.
+
+Not ported yet, each raising ``NotImplementedError``: restoring a
+``bucket_layout`` state at another shard count (the zero1 reshard,
+ROADMAP queue 1 item 3, "Sharding") and ``telemetry=`` ("Observability
+and tuning").
 """
 
 from __future__ import annotations
@@ -78,9 +87,8 @@ _JSON_PREFIX = "__extrajson__/"
 _STEP_DIR_RE = re.compile(r"^step_(\d{8,})$")
 _MANIFEST_VERSION = 1
 
-_DATA_PARALLEL = 'ROADMAP queue 1, "Data parallel"'
-_SHARDING = 'ROADMAP queue 1, "Sharding"'
-_OBSERVABILITY = 'ROADMAP queue 1, "Observability and tuning"'
+_SHARDING = 'ROADMAP queue 1 item 3, "Sharding"'
+_OBSERVABILITY = 'ROADMAP queue 1 item 2, "Observability and tuning"'
 
 
 class CheckpointError(RuntimeError):
@@ -162,13 +170,21 @@ def _pinned(nbytes: int) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
 
 
-def _snapshot(tree, take: Callable = _pinned) -> _Snapshot:
-    """Start every CUDA leaf's copy into one pinned host buffer of
-    ``take(nbytes)``, on the current stream (nothing is waited on here);
-    CPU leaves are cloned."""
+def _owned_leaves(tree, own: Optional[Callable] = None) -> list:
+    """``(key, leaf)`` of ``tree``'s leaves (``None`` skipped), those
+    whose flat index ``own`` accepts (None: all)."""
     flat = [(_path_key(path), leaf) for path, leaf in
             pytree.tree_flatten_with_path(tree)[0] if leaf is not None]
-    nbytes = _pinned_bytes(tree)
+    return [kl for i, kl in enumerate(flat) if own is None or own(i)]
+
+
+def _snapshot(tree, take: Callable = _pinned,
+              own: Optional[Callable] = None) -> _Snapshot:
+    """Start every owned CUDA leaf's copy into one pinned host buffer of
+    ``take(nbytes)``, on the current stream (nothing is waited on here);
+    CPU leaves are cloned."""
+    flat = _owned_leaves(tree, own)
+    nbytes = _pinned_bytes([leaf for _, leaf in flat])
     if not nbytes:
         return _Snapshot(
             [(key, leaf.detach().clone() if isinstance(leaf, torch.Tensor)
@@ -565,10 +581,12 @@ class CheckpointManager:
             raise ValueError(f"keep must be >= 1, got {keep}")
         if every_steps is not None and every_steps < 1:
             raise ValueError(f"every_steps must be >= 1, got {every_steps}")
-        if procs is not None and tuple(procs) != (0, 1):
-            raise NotImplementedError(
-                f"procs={tuple(procs)}: per-process shards are not ported "
-                f"yet ({_DATA_PARALLEL}); one process writes (0, 1)")
+        if procs is None:
+            from .parallel.multiproc import process_identity
+            procs = process_identity()
+        index, count = int(procs[0]), int(procs[1])
+        if not 0 <= index < count:
+            raise ValueError(f"procs index {index} not in [0, {count})")
         if telemetry is not None:
             raise NotImplementedError(
                 f"telemetry= is not ported yet ({_OBSERVABILITY})")
@@ -576,7 +594,7 @@ class CheckpointManager:
         self.keep = int(keep)
         self.every_steps = every_steps
         self.async_write = bool(async_write)
-        self.procs = (0, 1)
+        self.procs = (index, count)
         self.run_id = run_id or uuid.uuid4().hex[:12]
         self.max_pending = max(1, int(max_pending))
         self.fsync = bool(fsync)
@@ -600,12 +618,19 @@ class CheckpointManager:
         own, and keep it for the first save, which then pins nothing on
         the caller's thread.  A save waits for a reservation still
         running."""
-        nbytes = _pinned_bytes(like)
+        nbytes = _pinned_bytes([leaf for _, leaf in
+                                _owned_leaves(like, self._own())])
         if nbytes and self._reserving is None:
             self._reserving = threading.Thread(
                 target=lambda: self._keep_buffer(_pinned(nbytes)),
                 daemon=True, name="apex-tpu-torch-ckpt-reserve")
             self._reserving.start()
+
+    def _own(self) -> Optional[Callable]:
+        """The flat leaf indices this process writes: ``i % count ==
+        index`` (None: all, in one process)."""
+        index, count = self.procs
+        return None if count == 1 else (lambda i: i % count == index)
 
     def _join_reservation(self) -> None:
         if self._reserving is not None:
@@ -652,30 +677,34 @@ class CheckpointManager:
             raise CheckpointError("CheckpointManager is closed")
         t0 = time.perf_counter()
         self._join_reservation()
-        snap = _snapshot(state, self._take_buffer)
+        index, count = self.procs
+        snap = _snapshot(state, self._take_buffer, self._own())
         arrays = {}
-        if amp_state:
+        if amp_state and index == 0:
             for k, v in _flatten_with_paths(amp_state).items():
                 arrays["__amp__/" + k] = v
-        for k, v in extra.items():
-            ek, ev = _encode_extra(k, v)
-            arrays["__extra__/" + ek] = ev
+        if index == 0:
+            for k, v in extra.items():
+                ek, ev = _encode_extra(k, v)
+                arrays["__extra__/" + ek] = ev
         snapshot_s = time.perf_counter() - t0
         manifest = {
             "format": "apex_tpu-ckpt-v2",
             "version": _MANIFEST_VERSION,
             "step": int(step),
-            "shard": 0, "n_shards": 1,
-            "file": _shard_file_name(0, 1),
+            "shard": index, "n_shards": count,
+            "file": _shard_file_name(index, count),
             "run_id": self.run_id,
-            "world": {"process_count": 1,
+            "world": {"process_count": count,
                       "device_count": max(1, torch.cuda.device_count())},
             "wall_time": time.time(),
-            "loader": loader_state,
-            "buckets": bucket_layout,
-            "extra": {k: v for k, v in extra.items()
-                      if isinstance(v, (str, bool, int, float, type(None)))},
         }
+        if index == 0:
+            manifest.update(
+                loader=loader_state, buckets=bucket_layout,
+                extra={k: v for k, v in extra.items()
+                       if isinstance(v, (str, bool, int, float,
+                                         type(None)))})
         pending = _Pending(int(step), snap, arrays, manifest,
                            threading.Event(), time.perf_counter())
         self.stats = {"step": int(step), "snapshot_s": snapshot_s}
@@ -737,14 +766,17 @@ class CheckpointManager:
         os.replace(tmp, shard_path)
         manifest["file_bytes"] = os.path.getsize(shard_path)
         manifest["file_crc32"] = _crc32_file(shard_path)
-        mpath = os.path.join(step_dir, _manifest_file_name(0, 1))
+        mpath = os.path.join(step_dir, _manifest_file_name(
+            manifest["shard"], manifest["n_shards"]))
         mtmp = mpath + ".tmp"
         with open(mtmp, "w", encoding="utf-8") as f:
             json.dump(manifest, f, indent=1)
             self._sync_file(f)
-        os.replace(mtmp, mpath)        # the commit point
-        self._known_valid.add(step_dir)
-        self._prune()
+        os.replace(mtmp, mpath)        # this part's commit point
+        if manifest["n_shards"] == 1:
+            self._known_valid.add(step_dir)
+        if manifest["shard"] == 0:
+            self._prune()
         if self.stats.get("step") == pending.step:
             self.stats.update(
                 bytes=int(sum(a.nbytes for a in arrays.values())),

@@ -4,8 +4,12 @@ Counterpart of ``apex_tpu/contrib/groupbn/__init__.py``: a thin wrapper
 over :class:`apex_tpu_torch.parallel.SyncBatchNorm` under the name
 ``bn`` (so parameters read ``<site>.bn.scale``, as in flax), NHWC, with
 the fused ``bn_relu`` / ``bn_add_relu`` epilogue (``fuse_relu``, ``z``).
-``bn_group > 1`` shares statistics across processes, which is not ported
-yet and raises.
+``bn_group > 1`` shares statistics among that many processes: the world
+of ``world_size`` ranks on ``axis_name`` is cut into contiguous blocks of
+``bn_group`` ranks (as ``create_syncbn_process_group`` cuts it), each a
+sub-group of SyncBatchNorm's.  The reference exchanges the statistics
+through CUDA IPC peer buffers; here they are one ``all_reduce`` over the
+sub-group, as JAX's is one ``psum``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ class BatchNorm2d_NHWC(nn.Module):
     """Reference ctor ``BatchNorm2d_NHWC(planes, fuse_relu=False,
     bn_group=1)``; ``forward(x, z=None, use_running_average=None)``.
     ``num_features`` is required here (torch creates parameters at
-    construction)."""
+    construction).  ``bn_group > 1`` needs ``world_size`` (divisible by
+    it) and ``axis_name``; ``bn_group == 1`` syncs nothing, whatever
+    ``axis_name`` says."""
 
     fuse_relu: bool = False
 
@@ -36,14 +42,27 @@ class BatchNorm2d_NHWC(nn.Module):
                  scale_init: Callable = torch.ones,
                  bias_init: Callable = torch.zeros, *, device=None):
         super().__init__()
+        process_group = None
         if bn_group > 1:
-            raise NotImplementedError(
-                "bn_group > 1 (statistics shared across processes) is not "
-                "ported yet")
+            if world_size is None:
+                raise ValueError("bn_group > 1 requires world_size")
+            if axis_name is None:
+                raise ValueError(
+                    "bn_group > 1 requires axis_name (the group the "
+                    "replicas live on); without it statistics would stay "
+                    "per-replica")
+            if world_size % bn_group != 0:
+                raise ValueError(f"world_size {world_size} not divisible "
+                                 f"by bn_group {bn_group}")
+            process_group = [list(range(i, i + bn_group))
+                             for i in range(0, world_size, bn_group)]
+        else:
+            axis_name = None
         self.fuse_relu = fuse_relu
-        # group size 1 == no cross-replica sync, whatever axis_name says
+        self.bn_group = int(bn_group)
         self.bn = SyncBatchNorm(
-            num_features, eps=eps, momentum=momentum, channel_last=True,
+            num_features, eps=eps, momentum=momentum, axis_name=axis_name,
+            process_group=process_group, channel_last=True,
             fuse_relu=fuse_relu, use_running_average=use_running_average,
             scale_init=scale_init, bias_init=bias_init, device=device)
 

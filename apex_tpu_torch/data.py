@@ -25,9 +25,10 @@ copies each finished batch to pinned memory and then to the card with
 on an event recorded after the copy, so the host-to-device copy of batch
 N+1 overlaps the work on batch N.  ``ordered=False`` delivers in
 completion order; :meth:`PrefetchLoader.state_dict` rewinds the source
-to the delivered count.  Not ported yet: ``telemetry=`` (ROADMAP queue 1,
-"Observability and tuning") and ``host_shard=True``, which needs the
-process identity (queue 1, "Data parallel"); they raise.
+to the delivered count.  ``host_shard=True`` takes the stream's shard
+from :func:`apex_tpu_torch.parallel.multiproc.process_identity`.  Not
+ported yet: ``telemetry=`` (ROADMAP queue 1, "Observability and
+tuning"); it raises.
 """
 
 from __future__ import annotations
@@ -50,8 +51,7 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 _MASK = 0xFFFFFFFFFFFFFFFF
-_OBSERVABILITY = 'ROADMAP queue 1, "Observability and tuning"'
-_DATA_PARALLEL = 'ROADMAP queue 1, "Data parallel"'
+_OBSERVABILITY = 'ROADMAP queue 1 item 2, "Observability and tuning"'
 
 
 def synthetic_imagenet(batch_size: int, image_size: int = 224,
@@ -530,8 +530,8 @@ class DirectoryImagenet:
     alone.  The object is its own single-pass iterator; :meth:`close`
     releases the decode pool.  ``host_shard=(index, count)`` keeps every
     ``count``-th batch from ``index`` (after cutting each epoch to a
-    multiple of ``count`` batches); ``host_shard=True`` needs the
-    process identity, not ported yet (it raises)."""
+    multiple of ``count`` batches, so every process takes as many steps);
+    ``host_shard=True`` is this process's ``(rank, world size)``."""
 
     def __init__(self, root: str, batch_size: int, image_size: int = 224,
                  shuffle: bool = True, seed: int = 0,
@@ -539,10 +539,8 @@ class DirectoryImagenet:
                  epochs: Optional[int] = 1, decode: bool = True,
                  host_shard: Union[None, bool, Tuple[int, int]] = None):
         if host_shard is True:
-            raise NotImplementedError(
-                f"host_shard=True derives the shard from the process "
-                f"identity, not ported yet ({_DATA_PARALLEL}); pass "
-                f"host_shard=(index, count)")
+            from .parallel.multiproc import process_identity
+            host_shard = process_identity()
         classes = sorted(d for d in os.listdir(root)
                          if os.path.isdir(os.path.join(root, d)))
         if not classes:

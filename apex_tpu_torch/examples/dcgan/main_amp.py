@@ -127,7 +127,7 @@ def _refuse_not_ported(args):
             "--checkpoint-dir/--resume need the pipelined default (the "
             "functional state carry is what the manager snapshots); drop "
             "--imperative")
-    obs = 'ROADMAP queue 1, "Observability and tuning"'
+    obs = 'ROADMAP queue 1 item 2, "Observability and tuning"'
     refused = [
         (args.telemetry, f"--telemetry is not ported yet ({obs})"),
         (args.metrics_port is not None,

@@ -57,23 +57,46 @@ JAX example's does: ``--steps-per-call K`` runs K steps per host call
 to multiples of K, and the metrics are read one window behind.
 ``--compilation-cache DIR`` keeps the built kernels in DIR.
 
+Data parallel, as the JAX example's mesh: the trainer calls
+``parallel.multiproc.initialize()`` first (a no-op in one process, so a
+plain run is exactly a one-process run), and under the spawner
+
+    python -m apex_tpu_torch.parallel.multiproc --nproc N \
+        -m apex_tpu_torch.examples.imagenet.main_amp --synthetic ...
+
+each rank steps on its rows ``[r B/N, (r+1) B/N)`` of the same global
+batch (``-b`` stays the global batch) with its gradients averaged over
+the group (``make_train_step(axis_name="data")``); a ``data`` directory
+gives each rank every N-th batch of ``B / N`` images
+(``host_shard=True``).  ``--sync_bn`` sums the BatchNorm statistics over
+the group: with ``--fused-bn`` through GroupBN ``bn_group=N``, without
+through the ResNet's ``sync_bn`` (SyncBatchNorm); in one process it
+passes no group, so the statistics are the process's own.  Rank 0
+prints; every rank writes its shard of each checkpoint.  On CUDA the
+group is NCCL and the K-step graph holds the collectives.
+``--stats-json PATH`` writes the run's step times, the pipeline's counts
+and every kernel's and collective's launches (rank 0).
+
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported yet, each raising ``NotImplementedError``: ``--sync_bn``
-(ROADMAP queue 1, "Data parallel") and ``--telemetry`` ("Observability
-and tuning").
+ported yet, raising ``NotImplementedError``: ``--telemetry`` (ROADMAP
+queue 1 item 2, "Observability and tuning").
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import json
 import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from ... import cache, checkpoint, runtime, training
+from ... import _build, cache, checkpoint, runtime, training
 from ..._device import resolve_device
+from ...parallel import multiproc
 from ...contrib.groupbn import BatchNorm2d_NHWC
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...data import (augment_images, directory_imagenet, format_loader_line,
@@ -157,22 +180,26 @@ def parse(argv=None):
                    default=True,
                    help="on SIGTERM/SIGINT finish the window, write a "
                         "final checkpoint and stop")
-    # not ported yet: each raises when given
-    p.add_argument("--sync_bn", action="store_true")
+    p.add_argument("--sync_bn", action="store_true",
+                   help="BatchNorm statistics summed over the process "
+                        "group (GroupBN bn_group=world with --fused-bn, "
+                        "else SyncBatchNorm)")
+    p.add_argument("--rank", type=int, default=None,
+                   help="set by the spawner; the rank comes from its "
+                        "environment")
+    p.add_argument("--stats-json", default=None, metavar="PATH",
+                   help="write step times, pipeline counts and launches "
+                        "to PATH (rank 0)")
+    # not ported yet: raises when given
     p.add_argument("--telemetry", default=None)
     return p.parse_args(argv)
 
 
 def _refuse_not_ported(args):
-    refused = [
-        (args.sync_bn, "--sync_bn (statistics across processes) is not "
-         "ported yet (ROADMAP queue 1, \"Data parallel\")"),
-        (args.telemetry, "--telemetry is not ported yet (ROADMAP queue 1, "
-         "\"Observability and tuning\")"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise NotImplementedError(msg)
+    if args.telemetry:
+        raise NotImplementedError(
+            "--telemetry is not ported yet (ROADMAP queue 1 item 2, "
+            "\"Observability and tuning\")")
 
 
 def _synthetic(args) -> bool:
@@ -205,19 +232,39 @@ def image_loss(logits, labels, fused: bool = True):
     return -logp.gather(1, labels[:, None]).mean()
 
 
+def _world(args):
+    """``(rank, world size, axis)`` after joining the process group
+    (``axis`` "data" when there is a group, else None); ``-b`` must
+    divide over the world."""
+    rank, world = multiproc.initialize(device=args.device)
+    if args.batch_size % world:
+        raise SystemExit(f"global batch {args.batch_size} must divide over "
+                         f"{world} processes")
+    return rank, world, ("data" if dist.is_initialized() else None)
+
+
 def build(args):
     """``(state, step_fn, batch)`` for the parsed arguments (``batch``
-    the synthetic batch, None for a ``data`` directory)."""
+    this rank's rows of the synthetic batch, None for a ``data``
+    directory)."""
     _refuse_not_ported(args)
+    rank, world, axis = _world(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     dtype = (torch.bfloat16 if args.opt_level in ("O1", "O2", "O3")
              else torch.float32)
-    norm_cls = BatchNorm2d_NHWC if args.fused_bn else None
+    sync = axis if args.sync_bn else None
+    norm_cls = None
+    if args.fused_bn:
+        norm_cls = functools.partial(
+            BatchNorm2d_NHWC, bn_group=world if sync else 1, axis_name=sync,
+            world_size=world if sync else None)
     model = ARCHS[args.arch](num_classes=1000, dtype=dtype,
                              norm_cls=norm_cls,
+                             sync_bn=args.sync_bn and not args.fused_bn,
+                             axis_name=sync,
                              conv_cls=PallasConv if args.pallas_conv else None,
                              device=device, seed=0)
     reset_conv_dispatch_stats()
@@ -237,12 +284,16 @@ def build(args):
                               weight_decay=args.weight_decay,
                               bucketed=args.bucketed),
         opt_level=args.opt_level, loss_scale=_loss_scale(args.loss_scale),
-        keep_batchnorm_fp32=keep_bn, has_model_state=True)
+        keep_batchnorm_fp32=keep_bn, axis_name=axis, has_model_state=True)
     params, batch_stats = model.variables()
     state = init_fn({k: v.detach() for k, v in params.items()},
                     {k: v.clone() for k, v in batch_stats.items()})
-    batch = (synthetic_batch(args.batch_size, args.image_size, device)
-             if _synthetic(args) else None)
+    batch = None
+    if _synthetic(args):
+        rows = args.batch_size // world
+        batch = tuple(t[rank * rows:(rank + 1) * rows].contiguous()
+                      for t in synthetic_batch(args.batch_size,
+                                               args.image_size, device))
     return state, step_fn, batch
 
 
@@ -279,6 +330,10 @@ def train(args, log=print) -> dict:
     if args.compilation_cache:
         cache.enable(args.compilation_cache)
     state, step_fn, batch = build(args)
+    _, world, _ = _world(args)
+    if not multiproc.is_coordinator():
+        def log(*_, **__):
+            return None
     device = next(iter(state.params.values())).device
     n_params = sum(p.numel() for p in state.params.values())
     k = max(1, args.steps_per_call)
@@ -301,18 +356,20 @@ def train(args, log=print) -> dict:
         window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
     else:
         load_size = args.image_size + (32 if args.augment else 0)
-        stream = directory_imagenet(args.data, args.batch_size, load_size,
-                                    epochs=args.epochs, decode=False)
+        stream = directory_imagenet(args.data, args.batch_size // world,
+                                    load_size, epochs=args.epochs,
+                                    decode=False,
+                                    host_shard=True if world > 1 else None)
         if start_step:
             if loader_sd and "cursor" in loader_sd and "seed" in loader_sd:
                 stream.resume(loader_sd)
             else:
                 stream.skip(start_step)
         steps = max(0, args.epochs * stream.batches_per_epoch - start_step)
-        window = (torch.zeros((k, args.batch_size, args.image_size,
-                               args.image_size, 3), device=device),
-                  torch.zeros((k, args.batch_size), dtype=torch.int64,
-                              device=device))
+        rows = args.batch_size // world
+        window = (torch.zeros((k, rows, args.image_size, args.image_size, 3),
+                              device=device),
+                  torch.zeros((k, rows), dtype=torch.int64, device=device))
     if args.prof >= 0:
         steps = min(steps, args.prof)
     steps = runtime.round_steps(steps, k, "--prof", log)
@@ -370,17 +427,36 @@ def train(args, log=print) -> dict:
     return res
 
 
+def write_stats(path: str, res: dict) -> None:
+    """The run's numbers as JSON: steps, per-step seconds and losses, the
+    pipeline's counts, the world size and every counted kernel's and
+    collective's launches (``_build.COUNTED``, the non-zero ones)."""
+    stats = dict(steps=len(res["losses"]), step_s=res["step_s"],
+                 losses=res["losses"], pipeline=res["pipeline"],
+                 world=multiproc.process_identity()[1],
+                 launches={w.__name__: w.launches for w in _build.COUNTED
+                           if w.launches})
+    with open(path, "w") as f:
+        json.dump(stats, f, indent=1)
+
+
 def main(argv=None) -> int:
     args = parse(argv)
-    print("opt_level =", args.opt_level)
+    coordinator = multiproc.is_coordinator()
+    if coordinator:
+        print("opt_level =", args.opt_level)
     res = train(args)
     if not all(np.isfinite(res["losses"])):
         raise SystemExit("training diverged: a loss is not finite")
-    cs = conv_dispatch_stats()
-    print(f"conv sites {cs['pallas_sites']} kernel / "
-          f"{cs['fallback_sites']} plain-fallback "
-          f"{cs['fallback_reasons'] or ''}".rstrip())
-    print("done")
+    if coordinator:
+        cs = conv_dispatch_stats()
+        print(f"conv sites {cs['pallas_sites']} kernel / "
+              f"{cs['fallback_sites']} plain-fallback "
+              f"{cs['fallback_reasons'] or ''}".rstrip())
+        if args.stats_json:
+            write_stats(args.stats_json, res)
+        print("done")
+    multiproc.shutdown()
     return 0
 
 

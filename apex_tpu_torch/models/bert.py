@@ -129,12 +129,14 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         if attention_impl in _NOT_PORTED_IMPLS:
             raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported yet")
+                f"attention_impl={attention_impl!r} is not ported yet "
+                f"(ROADMAP queue 1 item 3, \"Sharding\")")
         if attention_impl not in ("flash", "blockwise", "full"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if decode:
             raise NotImplementedError(
-                "decode=True (the flax-cache decode path) is not ported; "
+                "decode=True (the flax-cache decode path; ROADMAP queue 1 "
+                "item 4) is not ported; "
                 "use the external-cache forward (kv_cache=, positions=)")
         n_kv = num_kv_heads or num_heads
         if num_heads % n_kv:
@@ -248,7 +250,7 @@ def _refuse_sp_axis(sp_axis):
     if sp_axis is not None:
         raise NotImplementedError(
             "sp_axis (sequence parallelism over a mesh axis) is not "
-            "ported yet")
+            "ported yet (ROADMAP queue 1 item 3, \"Sharding\")")
 
 
 class BertLayer(nn.Module):

@@ -100,8 +100,9 @@ class GPT(nn.Module):
         super().__init__()
         if decode:
             raise NotImplementedError(
-                "decode=True is not ported; decode through the serving "
-                "engine's external-cache forward (kv_caches=, positions=)")
+                "decode=True (ROADMAP queue 1 item 4) is not ported; decode "
+                "through the serving engine's external-cache forward "
+                "(kv_caches=, positions=)")
         dev = resolve_device(device)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size

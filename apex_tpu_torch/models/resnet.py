@@ -316,21 +316,24 @@ class ResNet(nn.Module):
     :class:`Conv`) builds every conv, the stem included, with the same
     arguments, so the parameters and their names do not change.
     ``remat``: ``False``, ``"full"`` (or ``True``) or ``"conv_out"`` (the
-    module docstring).  Not ported yet: ``sync_bn`` (cross-process
-    statistics; the JAX model's ``axis_name`` and ``bn_process_group``
-    serve only it); it raises ``NotImplementedError``."""
+    module docstring).  ``sync_bn`` (when no ``norm_cls`` is given) makes
+    every norm a :class:`~apex_tpu_torch.parallel.SyncBatchNorm` with
+    ``momentum=bn_momentum`` whose statistics are summed over
+    ``axis_name`` (``"data"`` or a ``ProcessGroup``; None: this
+    process's) and ``bn_process_group`` (rank lists), as the JAX model's;
+    it names the running statistics ``running_mean``/``running_var`` and
+    takes the fused epilogue.  The statistics are synced in training
+    only: evaluation reads the running statistics."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int = 1000, num_filters: int = 64,
                  dtype: torch.dtype = torch.float32, sync_bn: bool = False,
+                 axis_name=None, bn_process_group=None,
                  bn_momentum: float = 0.1, norm_cls: Any = None,
                  conv_cls: Any = None,
                  fused_epilogue: Optional[bool] = None, remat: Any = False,
                  *, in_channels: int = 3, device=None, seed: int = 0):
         super().__init__()
-        if sync_bn:
-            raise NotImplementedError(
-                "sync_bn (statistics across processes) is not ported yet")
         if remat is True:
             remat = "full"
         if remat not in (False, None, "full", "conv_out"):
@@ -343,6 +346,12 @@ class ResNet(nn.Module):
                                  generator=gen)
         if norm_cls is not None:
             norm = functools.partial(norm_cls, device=dev)
+        elif sync_bn:
+            from ..parallel.sync_batchnorm import SyncBatchNorm
+            norm = functools.partial(SyncBatchNorm, momentum=bn_momentum,
+                                     axis_name=axis_name,
+                                     process_group=bn_process_group,
+                                     device=dev)
         else:
             norm = functools.partial(BatchNorm, momentum=1.0 - bn_momentum,
                                      epsilon=1e-5, dtype=dtype, device=dev)

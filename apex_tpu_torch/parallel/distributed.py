@@ -1,0 +1,399 @@
+"""Data parallelism over ``torch.distributed`` — counterpart of
+``apex_tpu/parallel/distributed.py``.
+
+JAX's mesh axis ``"data"`` is a process group here, one device a rank
+(:mod:`apex_tpu_torch.parallel.multiproc` makes it).  An ``axis_name``
+is ``"data"`` (the default group) or a ``ProcessGroup``; rank lists
+(``axis_index_groups``, SyncBatchNorm's ``process_group``) become
+sub-groups made with ``dist.new_group`` the first time they are used.
+Every rank makes every sub-group, in the same order, as the reference's
+``create_syncbn_process_group`` requires, so every rank must use the
+same lists in the same order.
+
+Every collective is an ``all_reduce`` or a ``broadcast``: JAX needs no
+other (``psum``; its broadcast is a mask and a ``psum``), and they are
+what gloo takes on CUDA tensors.  The DDP contract is the JAX one:
+
+* parameters made equal at start (:func:`broadcast_params`, exact);
+* gradients averaged by step time (:func:`reduce_gradients`, with the
+  reference's ``gradient_predivide_factor`` and
+  ``allreduce_always_fp32`` arithmetic);
+* ``no_sync`` for gradient accumulation.
+
+There are no backward hooks: as in JAX, the reduction happens where the
+caller (or :func:`apex_tpu_torch.training.make_train_step`) asks for it.
+:func:`group_psum` is differentiable: its backward all-reduces the
+cotangent (the transpose of ``psum`` is ``psum``), which gives
+SyncBatchNorm the reference's ``mean_dy`` / ``mean_dy_xmu`` collective.
+
+Each kind of collective has a counter in ``COLLECTIVES`` (registered
+with the kernels' in :mod:`apex_tpu_torch._build`, so a captured graph's
+replays count what they issue): ``grads`` (:func:`reduce_gradients`),
+``bn_stats`` and ``bn_grad`` (:func:`group_psum` forward and backward:
+SyncBatchNorm's statistics are its one use in the port), ``state``
+(:func:`pmean_tree`), ``overflow`` (:func:`por`) and ``broadcast``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.utils import _pytree as pytree
+
+from .. import _build
+
+__all__ = ["DistributedDataParallel", "Reducer", "reduce_gradients",
+           "broadcast_params", "group_psum", "axis_group", "por",
+           "pmean_tree", "COLLECTIVES"]
+
+_WORLD_AXIS = "data"
+
+
+class _Collective:
+    """The launch counter of one kind of collective."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+
+    def __repr__(self):
+        return f"<collective {self.__name__}: {self.launches}>"
+
+
+#: one counter a kind; each adds one where a collective of its kind is
+#: issued on the device
+COLLECTIVES = {k: _build.counted(_Collective(f"collective_{k}"))
+               for k in ("grads", "bn_stats", "bn_grad", "state",
+                         "overflow", "broadcast")}
+
+#: rank lists -> this rank's sub-group (made once, by every rank)
+_SUBGROUPS: dict = {}
+
+
+def axis_group(axis_name, axis_index_groups=None):
+    """The process group an ``axis_name`` (and ``axis_index_groups``)
+    names: ``"data"`` is the default group, a ``ProcessGroup`` itself,
+    None None.  Rank lists give this rank's sub-group of the world."""
+    if axis_name is None:
+        if axis_index_groups:
+            raise ValueError("axis_index_groups needs an axis_name")
+        return None
+    if isinstance(axis_name, str):
+        if axis_name != _WORLD_AXIS:
+            raise ValueError(f"axis_name {axis_name!r}: the port's one "
+                             f"named axis is {_WORLD_AXIS!r}; pass a "
+                             f"ProcessGroup for any other")
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                f"axis_name={_WORLD_AXIS!r} needs a process group: call "
+                f"apex_tpu_torch.parallel.multiproc.initialize() first")
+        group = dist.group.WORLD
+    else:
+        group = axis_name
+    if not axis_index_groups:
+        return group
+    if group is not dist.group.WORLD:
+        raise ValueError("axis_index_groups are ranks of the world: they "
+                         "need axis_name='data'")
+    return _subgroup(axis_index_groups)
+
+
+def _subgroup(axis_index_groups):
+    key = tuple(tuple(int(r) for r in g) for g in axis_index_groups)
+    found = _SUBGROUPS.get(key)
+    if found is not None:
+        return found
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if sorted(r for g in key for r in g) != list(range(world)):
+        raise ValueError(f"axis_index_groups {[list(g) for g in key]} must "
+                         f"hold every rank of the world ({world}) once")
+    if len(key) == 1:
+        mine = dist.group.WORLD
+    else:
+        mine = None
+        for g in key:                    # every rank makes every group
+            pg = dist.new_group(list(g))
+            if rank in g:
+                mine = pg
+    _SUBGROUPS[key] = mine
+    return mine
+
+
+def _all_reduce_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """Sum ``t`` (owned by the caller, contiguous) over ``group`` in
+    place; counts one collective of ``kind``."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES[kind].launches += 1
+    return t
+
+
+def _owned(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` with its transpose: the backward all-reduces the
+    cotangent over the same group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(_owned(x), group, "bn_stats")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(_owned(g), ctx.group, "bn_grad"), None
+
+
+def group_psum(x: torch.Tensor, axis_name=_WORLD_AXIS,
+               axis_index_groups=None) -> torch.Tensor:
+    """``psum`` of ``x`` over ``axis_name``, or over this rank's group of
+    ``axis_index_groups``: a new tensor, differentiable (the backward
+    is the same sum of the cotangent).
+
+    Sub-groups are native in ``torch.distributed`` (``dist.new_group``),
+    so the JAX function's butterfly over ``ppermute`` and its
+    all-gather-and-mask fallback for irregular groups have no
+    counterpart here: every group size is one ``all_reduce``."""
+    group = axis_group(axis_name, axis_index_groups)
+    return _PSum.apply(x, group)
+
+
+def por(flag: torch.Tensor, axis_name=_WORLD_AXIS) -> torch.Tensor:
+    """Logical OR of a bool tensor over the group: an ``all_reduce`` of
+    it as int32, then ``> 0`` (JAX's ``_por_varying``), so every rank
+    skips a step or takes it together."""
+    group = axis_group(axis_name)
+    return _all_reduce_(flag.to(torch.int32), group, "overflow") > 0
+
+
+def pmean_tree(tree, axis_name=_WORLD_AXIS):
+    """The tree with every float leaf replaced by its mean over the
+    group: one flat ``all_reduce`` a dtype (XLA combines JAX's per-leaf
+    ``pmean``s the same way), then the sum over the group's size.  Other
+    leaves pass through."""
+    group = axis_group(axis_name)
+    n = dist.get_world_size(group)
+    leaves, spec = pytree.tree_flatten(tree)
+    by_dtype: dict = {}
+    for i, x in enumerate(leaves):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            by_dtype.setdefault(x.dtype, []).append(i)
+    out = list(leaves)
+    for idx in by_dtype.values():
+        flat = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
+        _all_reduce_(flat, group, "state")
+        if n != 1:
+            flat = flat / n
+        for i, piece in zip(idx, torch.split(
+                flat, [leaves[i].numel() for i in idx])):
+            out[i] = piece.view(leaves[i].shape)
+    return pytree.tree_unflatten(out, spec)
+
+
+def reduce_gradients(grads, axis_name=_WORLD_AXIS, *,
+                     gradient_average: bool = True,
+                     gradient_predivide_factor: float = 1.0,
+                     allreduce_always_fp32: bool = False,
+                     axis_index_groups: Optional[Sequence[Sequence[int]]]
+                     = None,
+                     world_size: Optional[int] = None,
+                     bucket_store=None):
+    """All-reduce a gradient tree over ``axis_name`` (JAX ``:197-354``).
+
+    Per float leaf: optionally up to fp32, divided by
+    ``gradient_predivide_factor``, summed over the group, then divided
+    by ``world / predivide`` when averaging (or multiplied back by the
+    predivide factor when not), and cast back; other leaves pass
+    through.  ``world_size`` defaults to the group's size (a sub-group's
+    under ``axis_index_groups``).  Returns a new tree.
+
+    ``bucket_store`` (a :class:`~apex_tpu_torch.multi_tensor.BucketStore`
+    of the gradient tree) is the flat-bucket path: the gradients are
+    packed into per-dtype buffers and each bucket is one ``all_reduce``,
+    issued in the store's ``reverse_topological_order()``; an already
+    ``Packed`` tree stays packed."""
+    from ..multi_tensor.buckets import Packed
+
+    group = axis_group(axis_name, axis_index_groups)
+    if world_size is None:
+        world_size = dist.get_world_size(group)
+
+    def one(g):
+        if not (isinstance(g, torch.Tensor) and g.is_floating_point()):
+            return g
+        orig_dtype, x = g.dtype, g
+        if allreduce_always_fp32:
+            x = x.float()
+        if gradient_predivide_factor != 1.0:
+            x = x / gradient_predivide_factor
+        x = _all_reduce_(_owned(x) if x is g else x.contiguous(), group,
+                         "grads")
+        if gradient_average:
+            postdiv = world_size / gradient_predivide_factor
+            if postdiv != 1.0:
+                x = x / postdiv
+        elif gradient_predivide_factor != 1.0:
+            x = x * gradient_predivide_factor
+        return x.to(orig_dtype)
+
+    if bucket_store is not None or isinstance(grads, Packed):
+        packed = (grads if isinstance(grads, Packed)
+                  else bucket_store.pack(grads))
+        order = (bucket_store.reverse_topological_order()
+                 if bucket_store is not None
+                 else tuple(range(len(packed.data))))
+        data = list(packed.data)
+        for bi in order:
+            data[bi] = one(data[bi])
+        out = Packed(data=tuple(data), rest=packed.rest)
+        return out if isinstance(grads, Packed) else bucket_store.unpack(out)
+    return pytree.tree_map(one, grads)
+
+
+def broadcast_params(params, axis_name=_WORLD_AXIS, root: int = 0,
+                     axis_index_groups=None):
+    """Every rank's ``params`` replaced by rank ``root``'s (``root`` an
+    index in the group), bit for bit: one ``broadcast`` a float leaf.
+    Returns a new tree; other leaves pass through."""
+    group = axis_group(axis_name, axis_index_groups)
+    src = dist.get_global_rank(group, root)
+
+    def one(p):
+        if not (isinstance(p, torch.Tensor) and p.is_floating_point()):
+            return p
+        out = _owned(p)
+        dist.broadcast(out, src=src, group=group)
+        COLLECTIVES["broadcast"].launches += 1
+        return out
+
+    return pytree.tree_map(one, params)
+
+
+class DistributedDataParallel(nn.Module):
+    """The reference wrapper's options over :func:`reduce_gradients`.
+
+    ``forward`` is the wrapped module's.  ``message_size``,
+    ``num_allreduce_streams``, ``allreduce_communicators``,
+    ``retain_allreduce_buffers`` and ``prof`` are taken for the
+    reference's signature and change nothing (NCCL schedules the
+    collectives; there are no hooks to delay, so ``delay_allreduce``
+    changes nothing either).  ``shared_param`` is refused, as the
+    reference deprecated it."""
+
+    def __init__(self, module: Optional[nn.Module] = None,
+                 axis_name=_WORLD_AXIS, message_size: int = 10000000,
+                 delay_allreduce: bool = False, shared_param=None,
+                 allreduce_trigger_params=None,
+                 retain_allreduce_buffers: bool = False,
+                 allreduce_always_fp32: bool = False,
+                 num_allreduce_streams: int = 1,
+                 allreduce_communicators=None,
+                 gradient_average: bool = True,
+                 gradient_predivide_factor: float = 1.0,
+                 axis_index_groups=None, prof: bool = False,
+                 bucket_store=None):
+        super().__init__()
+        if shared_param is not None:
+            raise ValueError("shared_param is deprecated (reference "
+                             "distributed.py:149-151); use delay_allreduce.")
+        self.module = module
+        self.axis_name = axis_name
+        self.delay_allreduce = delay_allreduce
+        self.allreduce_always_fp32 = allreduce_always_fp32
+        self.gradient_average = gradient_average
+        self.gradient_predivide_factor = gradient_predivide_factor
+        self.axis_index_groups = axis_index_groups
+        self.retain_allreduce_buffers = retain_allreduce_buffers
+        self.prof = prof
+        self.bucket_store = bucket_store
+        self._disable_allreduce = False
+
+    def forward(self, *args, **kwargs):
+        if self.module is None:
+            raise ValueError("DistributedDataParallel wraps no module")
+        return self.module(*args, **kwargs)
+
+    def sync_params(self, params=None, root: int = 0):
+        """``params`` (a tree) broadcast from ``root``; with none, the
+        wrapped module's parameters and buffers, in place."""
+        if params is not None:
+            return broadcast_params(params, self.axis_name, root,
+                                    self.axis_index_groups)
+        tensors = [*self.module.parameters(), *self.module.buffers()]
+        synced = broadcast_params([t.detach() for t in tensors],
+                                  self.axis_name, root,
+                                  self.axis_index_groups)
+        with torch.no_grad():
+            for t, s in zip(tensors, synced):
+                t.copy_(s)
+        return None
+
+    def reduce_gradients(self, grads=None):
+        """``grads`` (a tree) reduced; with none, every ``.grad`` of the
+        wrapped module, in place.  Inside :meth:`no_sync` nothing is
+        reduced."""
+        if self._disable_allreduce:
+            return grads
+        kw = dict(gradient_average=self.gradient_average,
+                  gradient_predivide_factor=self.gradient_predivide_factor,
+                  allreduce_always_fp32=self.allreduce_always_fp32,
+                  axis_index_groups=self.axis_index_groups)
+        if grads is not None:
+            return reduce_gradients(grads, self.axis_name,
+                                    bucket_store=self.bucket_store, **kw)
+        params = [p for p in self.module.parameters() if p.grad is not None]
+        reduced = reduce_gradients([p.grad for p in params], self.axis_name,
+                                   **kw)
+        for p, g in zip(params, reduced):
+            p.grad.copy_(g)
+        return None
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        """No gradient reduction inside the context (the reference's
+        ``disable_allreduce``): the accumulation idiom."""
+        saved = self._disable_allreduce
+        self._disable_allreduce = True
+        try:
+            yield
+        finally:
+            self._disable_allreduce = saved
+
+    def wrap_grad_fn(self, grad_fn: Callable) -> Callable:
+        """``grad_fn`` whose gradients come out reduced (a ``(value,
+        grads)`` pair keeps its value)."""
+        def wrapped(*args, **kwargs):
+            out = grad_fn(*args, **kwargs)
+            if isinstance(out, tuple) and len(out) == 2:
+                value, grads = out
+                return value, self.reduce_gradients(grads)
+            return self.reduce_gradients(out)
+        return wrapped
+
+
+class Reducer:
+    """A manually triggered all-reduce (reference ``Reducer``): of the
+    tree given to :meth:`reduce`, or of the target given at construction
+    (an ``nn.Module``: its ``.grad``s in place)."""
+
+    def __init__(self, module_or_grads_list=None, axis_name=_WORLD_AXIS,
+                 axis_index_groups=None):
+        self.axis_name = axis_name
+        self.axis_index_groups = axis_index_groups
+        self.target = module_or_grads_list
+
+    def reduce(self, tree=None, average: bool = True):
+        tree = tree if tree is not None else self.target
+        kw = dict(gradient_average=average,
+                  axis_index_groups=self.axis_index_groups)
+        if isinstance(tree, nn.Module):
+            params = [p for p in tree.parameters() if p.grad is not None]
+            for p, g in zip(params, reduce_gradients(
+                    [p.grad for p in params], self.axis_name, **kw)):
+                p.grad.copy_(g)
+            return None
+        return reduce_gradients(tree, self.axis_name, **kw)

@@ -1,11 +1,16 @@
-"""SyncBatchNorm on one process — counterpart of
-``apex_tpu/parallel/sync_batchnorm.py``.
+"""SyncBatchNorm — counterpart of ``apex_tpu/parallel/sync_batchnorm.py``.
 
 Statistics follow the JAX ``_global_moments`` (``:54-79``): fp32 sum and
-sum of squares over every axis but the channel axis, ``mean = sum / n``
-and ``var = sum_sq / n - mean^2``.  They are plain torch ops that
-autograd tracks, so the gradient of the whole BatchNorm is exact: the
-epilogue's Function hands back cotangents for ``mean`` and ``invstd``.
+sum of squares over every axis but the channel axis and the element
+count, ``[sum, sum_sq, count]`` concatenated and, across processes, one
+``all_reduce`` over the group (:func:`apex_tpu_torch.parallel.
+distributed.group_psum`); then ``mean = sum / n`` and ``var = sum_sq / n
+- mean^2``.  They are plain torch ops that autograd tracks, and the
+``all_reduce`` is a Function whose backward all-reduces the cotangent
+(the transpose of ``psum``), so the gradient of the whole BatchNorm is
+exact across ranks as in one process: the epilogue's Function hands back
+cotangents for ``mean`` and ``invstd``.  Without a group the same
+arithmetic runs on this process's sums alone.
 Running statistics use the torch momentum convention (``running = (1 -
 momentum) * running + momentum * batch``) with the unbiased variance,
 and are buffers (``running_mean``, ``running_var``) updated in place,
@@ -16,8 +21,14 @@ functional form passes copies through ``torch.func.functional_call``.
 normalize, affine, the optional residual ``z`` and ``fuse_relu`` —
 through :func:`apex_tpu_torch.normalization.fused_bn_act.
 bn_relu_residual` (the BN-epilogue kernels on the card).  The NCHW tail
-is plain torch.  Cross-process statistics (``axis_name``,
-``process_group``) are not ported yet and raise.
+is plain torch.
+
+``axis_name`` is ``"data"`` (the default group that
+:func:`apex_tpu_torch.parallel.multiproc.initialize` made) or a
+``ProcessGroup``; ``process_group`` is JAX's ``axis_index_groups``, a
+list of rank lists, each a sub-group (:func:`~apex_tpu_torch.parallel.
+create_syncbn_process_group`).  Without ``axis_name`` the statistics are
+this process's, whatever ``process_group`` says, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..normalization.fused_bn_act import bn_relu_residual
+from .distributed import group_psum
 
 
 def welford_parallel(mean, var, count):
@@ -41,16 +53,22 @@ def welford_parallel(mean, var, count):
     return mean_all, ex2 - mean_all ** 2
 
 
-def _moments(x, reduce_axes):
-    """fp32 ``(mean, var, count)`` over ``reduce_axes`` of x."""
+def _global_moments(x, reduce_axes, axis_name=None, process_group=None):
+    """fp32 ``(mean, var, count)`` over ``reduce_axes`` of x and, with
+    ``axis_name``, over the group's ranks (``count`` a ``[C]`` tensor)."""
     xf = x.float()
     local_sum = xf.sum(reduce_axes)
     local_sqr = torch.square(xf).sum(reduce_axes)
-    count = 1.0
+    n = 1
     for a in reduce_axes:
-        count *= x.shape[a]
-    mean = local_sum / count
-    var = local_sqr / count - torch.square(mean)
+        n *= x.shape[a]
+    stacked = torch.cat([local_sum, local_sqr,
+                         torch.full_like(local_sum, float(n))])
+    if axis_name is not None:
+        stacked = group_psum(stacked, axis_name, process_group)
+    total_sum, total_sqr, count = stacked.chunk(3)
+    mean = total_sum / count
+    var = total_sqr / count - torch.square(mean)
     return mean, var, count
 
 
@@ -68,18 +86,16 @@ class SyncBatchNorm(nn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
                  track_running_stats: bool = True,
-                 axis_name: Optional[str] = None, process_group=None,
+                 axis_name=None, process_group=None,
                  channel_last: bool = True, fuse_relu: bool = False,
                  use_running_average: Optional[bool] = None,
                  scale_init: Callable = torch.ones,
                  bias_init: Callable = torch.zeros,
                  *, device=None):
         super().__init__()
-        if axis_name is not None or process_group is not None:
-            raise NotImplementedError(
-                "cross-process SyncBatchNorm (axis_name, process_group) is "
-                "not ported yet; statistics are this process's")
         dev = resolve_device(device)
+        self.axis_name = axis_name
+        self.process_group = process_group
         self.num_features = int(num_features)
         self.eps = float(eps)
         self.momentum = float(momentum)
@@ -106,10 +122,11 @@ class SyncBatchNorm(nn.Module):
         if use_ra:
             mean, var = self.running_mean, self.running_var
         else:
-            mean, var, count = _moments(x, reduce_axes)
+            mean, var, count = _global_moments(
+                x, reduce_axes, self.axis_name, self.process_group)
             if self.track_running_stats:
                 with torch.no_grad():
-                    unbiased = var * count / max(count - 1, 1)
+                    unbiased = var * count / torch.clamp(count - 1, min=1)
                     self.running_mean.copy_(
                         (1 - self.momentum) * self.running_mean
                         + self.momentum * mean)

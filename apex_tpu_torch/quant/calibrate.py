@@ -119,7 +119,7 @@ class Calibration:
         event, which is not ported yet."""
         if recorder is not None:
             raise NotImplementedError("the telemetry recorder is not "
-                                      "ported yet")
+                                      "ported yet (ROADMAP queue 1 item 2)")
         del window
         self._saturations[name] = (self._saturations.get(name, 0)
                                    + int(exceeded))
@@ -139,7 +139,7 @@ class Calibrator:
     def __init__(self, *, history: int = 16, registry=None):
         if registry is not None:
             raise NotImplementedError("the metrics-registry mirror is not "
-                                      "ported yet")
+                                      "ported yet (ROADMAP queue 1 item 2)")
         self.history = max(1, int(history))
         self._hist: Dict[str, deque] = {}
 

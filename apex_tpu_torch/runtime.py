@@ -28,8 +28,17 @@ step left it.  A dynamic loss scale's overflow skip is a ``torch.where``
 inside the step, as it is in JAX, so no window reads a value back.
 
 On the CPU :class:`StepPipeline` runs the same window functions eagerly
-(nothing is captured) and returns fresh state.  ``wrap=`` (``shard_map``
-over a mesh) and ``telemetry=`` are not ported yet; they raise.
+(nothing is captured) and returns fresh state.
+
+A data-parallel step (``make_train_step(axis_name=...)``, whose
+``step_fn.process_group`` names its group) is captured with its
+collectives inside the graph when the group's backend is NCCL: the warm
+run issues them first on the capture stream, which makes the
+communicators before the capture begins.  Any other backend on CUDA
+raises: gloo's CUDA collectives wait on the host and cannot be captured,
+and the pipeline never runs eagerly in their place.  ``wrap=``
+(``shard_map`` over a mesh, ROADMAP queue 1 item 3, "Sharding") and
+``telemetry=`` are not ported yet; they raise.
 
 Usage::
 
@@ -85,7 +94,9 @@ class GracefulShutdown:
     def __init__(self, signals=(_signal.SIGTERM, _signal.SIGINT), *,
                  telemetry=None):
         if telemetry is not None:
-            raise NotImplementedError("telemetry= is not ported yet")
+            raise NotImplementedError(
+                "telemetry= is not ported yet (ROADMAP queue 1 item 2, "
+                "\"Observability and tuning\")")
         self.signals = tuple(signals)
         self._drain = threading.Event()
         self._prev: dict = {}
@@ -198,9 +209,12 @@ class StepPipeline:
             raise ValueError(f"k must be >= 1, got {k}")
         if wrap is not None:
             raise NotImplementedError(
-                "wrap= (shard_map over a mesh) is not ported yet")
+                "wrap= (shard_map over a mesh) is not ported yet (ROADMAP "
+                "queue 1 item 3, \"Sharding\")")
         if telemetry is not None:
-            raise NotImplementedError("telemetry= is not ported yet")
+            raise NotImplementedError(
+                "telemetry= is not ported yet (ROADMAP queue 1 item 2, "
+                "\"Observability and tuning\")")
         self.k = int(k)
         self._step_fn = step_fn
 
@@ -253,7 +267,22 @@ class StepPipeline:
             raise ValueError(f"n_valid must be >= 1, got {n_valid}")
         return "tail", n_valid
 
+    def _check_capturable(self) -> None:
+        group = getattr(self._step_fn, "process_group", None)
+        if group is None:
+            return
+        import torch.distributed as dist
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise RuntimeError(
+                f"a step whose collectives run on {backend!r} cannot be "
+                f"captured on CUDA (its CUDA collectives wait on the "
+                f"host); use NCCL, or run the step function eagerly "
+                f"without a StepPipeline")
+
     def _capture(self, program: str, state, window, valid):
+        self._check_capturable()
+
         def body(state, window, valid):
             # each step's new state is copied into the static input state
             # and the next step reads that: one new state is live at a
@@ -521,7 +550,9 @@ class DeferredMetrics:
 
     def __init__(self, telemetry=None):
         if telemetry is not None:
-            raise NotImplementedError("telemetry= is not ported yet")
+            raise NotImplementedError(
+                "telemetry= is not ported yet (ROADMAP queue 1 item 2, "
+                "\"Observability and tuning\")")
         self._held: Optional[WindowMetrics] = None
         self._next_step = 0
         self._flushed = False

@@ -70,7 +70,7 @@ class WeightWatcher:
                  initial_step: Optional[int] = None, telemetry=None):
         if telemetry is not None:
             raise NotImplementedError(
-                'telemetry= is not ported yet (ROADMAP queue 1, '
+                'telemetry= is not ported yet (ROADMAP queue 1 item 2, '
                 '"Observability and tuning")')
         self.directory = directory
         self._like = like

@@ -28,11 +28,23 @@ every metric stays a tensor on the device: the step never reads a value
 back to the host.  With ``has_model_state`` the loss also returns the
 new model state (BatchNorm running statistics), threaded through the
 microbatches in order and kept even on a step the dynamic scaler skips,
-as in JAX.  Not ported yet: the DDP and mesh arguments (``axis_name``,
-``reduce_grads``, ``param_view`` and the all-reduce options); they
-raise ``NotImplementedError``.  On one device the JAX step's ``pmean``
-of the loss and the model state is the identity, so a one-card caller
-passes no ``axis_name``.
+as in JAX.
+
+Data parallel (``axis_name``: ``"data"``, the default process group,
+or a ``ProcessGroup``), as the JAX step under ``shard_map``: each rank
+runs the step on its rows of the global batch; the gradients are
+all-reduced before the unscale (:func:`~apex_tpu_torch.parallel.
+reduce_gradients`, with ``gradient_average``,
+``gradient_predivide_factor``, ``allreduce_always_fp32`` and
+``axis_index_groups``; one ``all_reduce`` a flat bucket of a
+:class:`~apex_tpu_torch.multi_tensor.BucketStore` built from the
+gradients, issued in reverse-topological order, the same sums as
+leafwise); every rank agrees on the overflow flag (an ``all_reduce``
+of it), so all skip or step together; and the loss and the model state
+(the BN running statistics) are averaged over the group in one flat
+``all_reduce`` a dtype, so the carried state stays replicated.  The
+sharding arguments (``reduce_grads=False``, ``param_view``) raise
+``NotImplementedError``, naming ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -50,6 +62,9 @@ from .amp.properties import opt_levels
 from .multi_tensor import flatten_tree
 from .multi_tensor.buckets import cached_store
 from .optimizers import functional as F
+from .parallel import distributed as _dist
+
+_SHARDING = 'ROADMAP queue 1 item 3, "Sharding"'
 
 
 class FunctionalOptimizer(NamedTuple):
@@ -167,11 +182,16 @@ def chain_steps(step_fn: Callable,
 def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                     opt_level: str = "O2", loss_scale=None,
                     keep_batchnorm_fp32: Optional[bool] = None,
-                    cast_model_type=None, accum_steps: int = 1,
-                    norm_predicate=None, scale_window: int = 2000,
+                    cast_model_type=None, axis_name=None,
+                    reduce_grads: bool = True, accum_steps: int = 1,
+                    gradient_average: bool = True,
+                    gradient_predivide_factor: float = 1.0,
+                    allreduce_always_fp32: bool = False,
+                    axis_index_groups=None, norm_predicate=None,
+                    scale_window: int = 2000,
                     min_loss_scale=None, max_loss_scale: float = 2.**24,
-                    has_model_state: bool = False, reduce_grads: bool = True,
-                    **not_ported):
+                    has_model_state: bool = False,
+                    param_view: Optional[Callable] = None):
     """Build ``(init_fn, step_fn)`` for one amp training step.
 
     ``loss_fn(params, batch) -> loss`` (a 0-dim tensor), or with
@@ -187,13 +207,23 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
     scaled gradients in fp32 (the cast is done once, outside the loop),
     threads the model state through the microbatches in order, and
     unscales, checks and updates once.
+
+    ``axis_name`` makes the step data parallel (the module docstring);
+    the step function then carries the group as ``step_fn.process_group``
+    (:class:`~apex_tpu_torch.runtime.StepPipeline` reads it).
     """
-    if not_ported:
-        raise NotImplementedError(
-            f"not ported yet: {sorted(not_ported)} (the data- and "
-            f"model-parallel arguments of the JAX step)")
     if not reduce_grads:
-        raise NotImplementedError("reduce_grads=False is not ported yet")
+        raise NotImplementedError(
+            f"reduce_grads=False (an optimizer that reduces the gradients "
+            f"itself, the zero1 path) is not ported yet ({_SHARDING})")
+    if param_view is not None:
+        raise NotImplementedError(
+            f"param_view (the ZeRO-3 view of sharded parameters) is not "
+            f"ported yet ({_SHARDING})")
+    group = _dist.axis_group(axis_name)
+    if axis_index_groups and group is None:
+        raise ValueError("axis_index_groups needs an axis_name")
+    grad_store: dict = {}
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     props = opt_levels[opt_level]()
@@ -281,14 +311,27 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                 grads = [a + b.float() / accum_steps
                          for a, b in zip(grads, g_i)]
                 loss = loss + l_i / accum_steps
-        grads, scaler_state = scaler.unscale(dict(zip(names, grads)),
-                                             state.scaler)
+        grads = dict(zip(names, grads))
+        if group is not None:
+            grads = _dist.reduce_gradients(
+                grads, group, gradient_average=gradient_average,
+                gradient_predivide_factor=gradient_predivide_factor,
+                allreduce_always_fp32=allreduce_always_fp32,
+                axis_index_groups=axis_index_groups,
+                bucket_store=cached_store(grad_store, grads))
+        grads, scaler_state = scaler.unscale(grads, state.scaler)
+        if scaler.dynamic and group is not None:
+            scaler_state = scaler_state._replace(
+                overflow=_dist.por(scaler_state.overflow, group))
         apply_mask = (torch.logical_not(scaler_state.overflow)
                       if scaler.dynamic else None)
         new_params, new_opt = optimizer.update(
             grads, state.opt_state, state.params, apply_mask=apply_mask)
         scaler_state = scaler.update_scale(scaler_state)
         _autocast.clear_cast_cache()
+        if group is not None:
+            # a replicated loss, and replicated BN statistics
+            loss, new_ms = _dist.pmean_tree((loss, new_ms), group)
         metrics = {"loss": loss, "loss_scale": scaler_state.loss_scale,
                    "overflow": (torch.logical_not(apply_mask)
                                 if apply_mask is not None
@@ -297,4 +340,5 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
         return TrainState(params=new_params, opt_state=new_opt,
                           scaler=scaler_state, model_state=new_ms), metrics
 
+    step_fn.process_group = group
     return init_fn, step_fn

@@ -276,12 +276,35 @@ line):
    names it) while serving goes on; launches per forward (the warm runs
    of every capture, the 4 after the swap among them, and the
    replays); the watcher's load ms, the adopting step's ms and TPOT p99
-   across the swap, while the watcher staged, and without a swap.
+   across the swap, while the watcher staged, and without a swap;
+27. data parallel under NCCL: the ImageNet trainer at ResNet-50 O2 B
+   128 with ``--loss-scale dynamic --pallas-conv --fused-loss --sync_bn
+   --no-fused-bn --steps-per-call 2``, 16 steps, as subprocesses: (a) under the
+   spawner (``python -m apex_tpu_torch.parallel.multiproc --nproc 1``),
+   an NCCL group of one, so every collective of the step (the gradient
+   bucket, the 53 SyncBatchNorms' statistics and their cotangents, the
+   loss and statistics' pmean, the overflow flag) sits in the captured
+   graph; (b) without a group: (a)'s final checkpoint equal to (b)'s bit
+   for bit in every leaf, one capture and 8 replays each, the same kernel
+   launches with kernels 1-7 at least once a step, (a)'s collectives
+   counted at the warm run and each replay; step ms of both;
+28. data parallel under gloo: two ranks on the one card
+   (``chip_smoke.py --ddp-gloo-worker DIR`` under ``multiproc.spawn``,
+   600 s timeout), ResNet-50 fp32 O0 with ``PallasConv`` and GroupBN
+   ``bn_group=2``, 32 images a rank of a global 64, SGD with momentum,
+   3 eager steps: rank 1's seed-1 weights made rank 0's bit for bit by
+   ``DistributedDataParallel.sync_params()``; the ranks' parameters and
+   running statistics bit-identical, and within rtol/atol 1e-4 of one
+   process on the whole batch with ``bn_group=1``; a dynamic-scale step
+   with an inf on rank 1 only skipped on both, the scale halved; a CUDA
+   ``StepPipeline`` of the gloo step refused; launches as phase 13's per
+   step; the eager step ms a rank and gloo's share of it (not a measure
+   of NCCL).
 
-Phases 24-26 write their data under a temporary directory, removed at
+Phases 24-28 write their data under a temporary directory, removed at
 the end.  The phases run in the order 1-4, 17's calibration, 20, 21 (all
 but its traces), 22, 23, 5, 17's served load, 6 (with 17's traces),
-7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-26: the eager
+7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28: the eager
 sides of 20-23, 5 and
 17 run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
@@ -296,7 +319,9 @@ on phase 19's backward passes; ``launches_by_path`` adds every other
 path, ``bert_training`` the bucketed LAMB's K 4 run, ``imperative_bert``
 phase 22's ``FusedLAMB`` run, ``dcgan`` phase 23's runs,
 ``resnet_directory``, ``lm_resume`` and ``hotswap_serving`` the
-uninterrupted runs of phases 24 and 25 and phase 26's engine); then the
+uninterrupted runs of phases 24 and 25 and phase 26's engine,
+``ddp_nccl`` phase 27's run in an NCCL group, ``ddp_gloo`` phase 28's
+rank 0); then the
 ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3521,7 +3546,8 @@ def _ckpt_arrays(step_dir):
     return out
 
 
-def _same_checkpoint(name, got_dir, want_dir):
+def _same_checkpoint(name, got_dir, want_dir,
+                     what="the uninterrupted run's"):
     """Check two checkpoints hold the same leaves bit for bit; returns
     (leaves equal, leaves)."""
     got, want = _ckpt_arrays(got_dir), _ckpt_arrays(want_dir)
@@ -3530,8 +3556,8 @@ def _same_checkpoint(name, got_dir, want_dir):
     differ = [k for k in want if k not in got
               or not np.array_equal(got[k], want[k])][:5]
     check(sorted(got) == sorted(want) and same == len(want),
-          f"{name}: {os.path.basename(got_dir)} equals the uninterrupted "
-          f"run's in {same}/{len(want)} leaves bit for bit"
+          f"{name}: {os.path.basename(got_dir)} equals {what} in "
+          f"{same}/{len(want)} leaves bit for bit"
           + (f" (first differing {differ})" if differ else ""))
     return same, len(want)
 
@@ -3931,6 +3957,366 @@ def hotswap_serving(models, engine_mod, convert, checkpoint, counters, dev,
 
 # -- main ---------------------------------------------------------------------
 
+# -- phases 27-28: data parallel -----------------------------------------------------
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+RESNET_KERNELS = ("conv_fwd", "conv_dgrad", "conv_wgrad", "bn_act_fwd",
+                  "bn_act_bwd", "xentropy_fwd", "xentropy_bwd")
+DDP_NCCL_ARGS = ["-m", "apex_tpu_torch.examples.imagenet.main_amp",
+                 "--synthetic", "--arch", "resnet50", "-b", "128",
+                 "--opt-level", "O2", "--loss-scale", "dynamic",
+                 "--pallas-conv", "--fused-loss", "--sync_bn",
+                 "--no-fused-bn", "--steps-per-call", "2", "--prof", "16",
+                 "--print-freq", "8"]
+# per ResNet-50 O2 step under one NCCL rank: the gradients in one fp32
+# bucket, the 53 SyncBatchNorms' statistics forward and their cotangent
+# backward, the loss with the statistics' pmean, the overflow flag (the
+# O2 preset's scale is static: the flag's agreement needs the dynamic
+# scale)
+DDP_NCCL_COLLECTIVES = {"grads": 1, "bn_stats": 53, "bn_grad": 53,
+                        "state": 1, "overflow": 1}
+DDP_GLOO_WORLD, DDP_GLOO_BATCH, DDP_GLOO_STEPS = 2, 64, 3
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO_ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return env
+
+
+def _by_kernel(counters, launches):
+    """A run's launches (by wrapper name) by the kernels' names here,
+    every kernel listed."""
+    return {n: launches.get(c.__name__, 0) for n, c in counters.items()}
+
+
+def _collectives(launches):
+    return {w[len("collective_"):]: v for w, v in launches.items()
+            if w.startswith("collective_")}
+
+
+def _trainer_subprocess(name, cmd, tmp, timeout=900):
+    """Run a trainer command line as a subprocess, its state checkpointed
+    at the end and its numbers in ``--stats-json``; returns ``(stats,
+    checkpoint step dir)`` or None (the failure checked)."""
+    ck = os.path.join(tmp, name, "ck")
+    stats_path = os.path.join(tmp, name, "stats.json")
+    os.makedirs(os.path.dirname(stats_path), exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd + ["--checkpoint-dir", ck, "--stats-json",
+                                     stats_path], capture_output=True,
+                              text=True, timeout=timeout, env=_child_env(),
+                              cwd=REPO_ROOT)
+        rc, err = proc.returncode, proc.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, err = None, str(e)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{name}: the trainer exited {rc} after {wall:.1f} s"
+          + ("" if rc == 0 else f": {err[-3000:]}"))
+    if rc != 0:
+        return None
+    checkpoint = importlib.import_module("apex_tpu_torch.checkpoint")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    stats["wall_s"] = wall
+    return stats, checkpoint.latest_checkpoint(ck)
+
+
+def ddp_nccl(counters, tmp):
+    """Phase 27: the ImageNet trainer at ResNet-50 O2 B 128 with
+    ``--sync_bn --no-fused-bn`` and K 2, 16 steps, (a) under the spawner
+    as an NCCL group of one and (b) plainly: (a)'s final state equal to
+    (b)'s bit for bit, one capture and 8 replays each, the same kernel
+    launches, kernels 1-7 at least once a step, and (a)'s collectives
+    recorded in the graph (counted at the warm run and each replay)."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    k, steps = 2, 16
+    ran = cache.WARM_RUNS * k + steps
+    spawned = _trainer_subprocess("ddp_nccl_group", [
+        sys.executable, "-m", "apex_tpu_torch.parallel.multiproc", "--nproc",
+        "1", "--coordinator", f"file://{tmp}/ddp_nccl_store", "--timeout",
+        "800"] + DDP_NCCL_ARGS, tmp)
+    plain = _trainer_subprocess("ddp_nccl_plain",
+                                [sys.executable] + DDP_NCCL_ARGS, tmp)
+    if spawned is None or plain is None:
+        return dict(launches={})
+    (a, a_dir), (b, b_dir) = spawned, plain
+    for name, st in (("(a) NCCL group of one", a), ("(b) no group", b)):
+        pipe = st["pipeline"]
+        check(st["world"] == 1 and pipe["captures"] == {"hot": 1, "tail": 0}
+              and pipe["replays"] == steps // k and st["steps"] == steps,
+              f"ddp_nccl {name}: {pipe['captures']} captures, "
+              f"{pipe['replays']} replays for {st['steps']} steps at K {k}")
+    _same_checkpoint("ddp_nccl", a_dir, b_dir,
+                     what="the run without a group's")
+    ka, kb = _by_kernel(counters, a["launches"]), _by_kernel(counters,
+                                                            b["launches"])
+    check(ka == kb and all(ka.get(n, 0) >= ran for n in RESNET_KERNELS),
+          f"ddp_nccl: kernel launches of (a) {ka} = (b)'s {kb}, kernels 1-7 "
+          f"each at least once a step ({ran} steps on the card)")
+    coll = _collectives(a["launches"])
+    want = {kind: n * ran for kind, n in DDP_NCCL_COLLECTIVES.items()}
+    check(coll == want and not _collectives(b["launches"]),
+          f"ddp_nccl: (a)'s collectives {coll} = {DDP_NCCL_COLLECTIVES} a "
+          f"step x {ran} (the warm run and 8 replays of one graph), (b) "
+          f"none")
+    out = dict(launches=ka, collectives_per_step=DDP_NCCL_COLLECTIVES)
+    for tag, st in (("group", a), ("plain", b)):
+        out[f"{tag}_step_ms"] = float(np.median(st["step_s"][2:])) * 1e3
+        out[f"{tag}_step_ms_all"] = [x * 1e3 for x in st["step_s"]]
+        out[f"{tag}_wall_s"] = st["wall_s"]
+    print(f"      ddp_nccl ResNet-50 O2 B128 K2 --sync_bn, dynamic scale: "
+          f"step {out['group_step_ms']:.2f} ms in an NCCL group of one, "
+          f"{out['plain_step_ms']:.2f} ms without a group (medians of "
+          f"steps 3-16); collectives a step {DDP_NCCL_COLLECTIVES}",
+          flush=True)
+    return out
+
+
+def _ddp_gloo_model(models, groupbn, ops, dev, seed, bn_group):
+    import functools
+    norm = functools.partial(groupbn.BatchNorm2d_NHWC, bn_group=bn_group,
+                             axis_name="data" if bn_group > 1 else None,
+                             world_size=DDP_GLOO_WORLD if bn_group > 1
+                             else None)
+    return models.ResNet50(num_classes=1000, dtype=torch.float32,
+                           norm_cls=norm, conv_cls=ops.PallasConv,
+                           device=dev, seed=seed)
+
+
+def _ddp_gloo_step(training, imagenet, model, axis, loss_scale=None):
+    def loss_fn(p, ms, batch):
+        logits, new_ms = model.apply(p, ms, batch[0])
+        loss = imagenet.image_loss(logits, batch[1])
+        if len(batch) > 2:
+            loss = loss * batch[2].max()
+        return loss, new_ms
+    return training.make_train_step(
+        loss_fn, training.sgd(lr=0.1 * DDP_GLOO_BATCH / 256, momentum=0.9,
+                              weight_decay=1e-4),
+        opt_level="O0", loss_scale=loss_scale, axis_name=axis,
+        has_model_state=True)
+
+
+def _state_arrays(state):
+    out = {f"params/{k}": v.detach().cpu().numpy()
+           for k, v in state.params.items()}
+    out.update({f"stats/{k}": v.detach().cpu().numpy()
+                for k, v in state.model_state.items()})
+    return out
+
+
+def ddp_gloo_worker(out_dir) -> int:
+    """One rank of phase 28 (``chip_smoke.py --ddp-gloo-worker DIR``,
+    started by the spawner with ``--rank``): ResNet-50 fp32 O0 with
+    ``PallasConv`` and GroupBN ``bn_group=2``, its weights from seed
+    ``rank`` broadcast from rank 0; 3 eager steps of 32 images; a fourth
+    step instrumented for gloo's share; a dynamic-scale step with an inf
+    on rank 1 only.  Writes ``rank<r>.npz`` and ``rank<r>.json``."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    rank, world = multiproc.initialize(device="cuda", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    models = importlib.import_module("apex_tpu_torch.models")
+    groupbn = importlib.import_module("apex_tpu_torch.contrib.groupbn")
+    ops = importlib.import_module("apex_tpu_torch.ops")
+    parallel = importlib.import_module("apex_tpu_torch.parallel")
+    training = importlib.import_module("apex_tpu_torch.training")
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    build = importlib.import_module("apex_tpu_torch._build")
+    imagenet = importlib.import_module(
+        "apex_tpu_torch.examples.imagenet.main_amp")
+    info = dict(rank=rank, world=world)
+    model = _ddp_gloo_model(models, groupbn, ops, dev, rank, 2)
+    own = {k: v.clone() for k, v in model.state_dict().items()}
+    parallel.DistributedDataParallel(model).sync_params()
+    ref = _ddp_gloo_model(models, groupbn, ops, dev, 0, 2).state_dict()
+    info["broadcast_exact"] = all(torch.equal(v, ref[k])
+                                  for k, v in model.state_dict().items())
+    info["seed_differs"] = rank == 0 or not all(
+        torch.equal(v, ref[k]) for k, v in own.items())
+    del ref, own
+    init, step = _ddp_gloo_step(training, imagenet, model, "data")
+    params, stats = model.variables()
+    state = init({k: v.detach() for k, v in params.items()},
+                 {k: v.clone() for k, v in stats.items()})
+    rows = DDP_GLOO_BATCH // world
+    x, y = imagenet.synthetic_batch(DDP_GLOO_BATCH, 224, dev)
+    batch = (x[rank * rows:(rank + 1) * rows].contiguous(),
+             y[rank * rows:(rank + 1) * rows].contiguous())
+    window = tuple(t.unsqueeze(0).expand(2, *t.shape) for t in batch)
+    try:
+        runtime.StepPipeline(step, 2).warmup(state, window)
+        info["pipeline_refused"] = False
+    except RuntimeError as e:
+        info["pipeline_refused"] = "gloo" in str(e)
+    for c in build.COUNTED:
+        c.launches = 0
+    step_ms, losses = [], []
+    for _ in range(DDP_GLOO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    info.update(step_ms=step_ms, losses=losses,
+                launches={c.__name__: c.launches for c in build.COUNTED
+                          if c.launches})
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **_state_arrays(state))
+    # one more step, its result dropped, with every all_reduce timed
+    # between two synchronizations: gloo's share of an eager step
+    dist = importlib.import_module("torch.distributed")
+    plain_all_reduce, spent = dist.all_reduce, [0.0]
+
+    def timed_all_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain_all_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+    dist.all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = plain_all_reduce
+    info.update(instrumented_step_ms=total * 1e3,
+                all_reduce_ms=spent[0] * 1e3)
+    # a dynamic scale, and an inf on rank 1's rows only
+    init2, step2 = _ddp_gloo_step(training, imagenet, model, "data",
+                                  loss_scale="dynamic")
+    st2 = init2(state.params, state.model_state)
+    scale_before = float(st2.scaler.loss_scale)
+    before = {k: v.clone() for k, v in st2.params.items()}
+    factor = torch.full((rows,), float("inf") if rank == 1 else 1.0,
+                        device=dev)
+    st2, m2 = step2(st2, batch + (factor,))
+    info.update(
+        skip_overflow=bool(m2["overflow"]),
+        skip_params_same=all(torch.equal(before[k], v)
+                             for k, v in st2.params.items()),
+        skip_scale=float(m2["loss_scale"]), skip_scale_before=scale_before)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multiproc.shutdown()
+    return 0
+
+
+def ddp_gloo(counters, tmp, dev):
+    """Phase 28: two gloo ranks on the one card (``ddp_gloo_worker``),
+    then one process on the whole 64-image batch with ``bn_group=1``:
+    the ranks' parameters and statistics bit-identical to each other and
+    within rtol/atol 1e-4 of the one process's; the broadcast exact; the
+    inf on one rank skipped on both with the scale halved; a captured
+    pipeline refused; kernels 1-7 launched on every step."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    out_dir = os.path.join(tmp, "ddp_gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    res = multiproc.spawn([os.path.abspath(__file__), "--ddp-gloo-worker",
+                           out_dir], DDP_GLOO_WORLD,
+                          f"file://{out_dir}/store", timeout=600,
+                          capture=True, env=_child_env(), cwd=REPO_ROOT)
+    wall = time.perf_counter() - t0
+    rcs = [r["returncode"] for r in res]
+    check(rcs == [0] * DDP_GLOO_WORLD,
+          f"ddp_gloo: {DDP_GLOO_WORLD} ranks exited {rcs} in {wall:.1f} s"
+          + ("" if rcs == [0] * DDP_GLOO_WORLD else ": " + " | ".join(
+              (r["output"] or "")[-2000:] for r in res)))
+    if rcs != [0] * DDP_GLOO_WORLD:
+        return dict(launches={})
+    infos, arrays = [], []
+    for r in range(DDP_GLOO_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
+            arrays.append({k: z[k] for k in z.files})
+    same = sum(np.array_equal(arrays[0][k], arrays[1][k]) for k in arrays[0])
+    check(same == len(arrays[0]) and infos[0]["losses"] == infos[1]["losses"],
+          f"ddp_gloo: after {DDP_GLOO_STEPS} steps the ranks' parameters "
+          f"and running statistics bit-identical in {same}/"
+          f"{len(arrays[0])} leaves, losses {infos[0]['losses']}")
+    check(all(i["broadcast_exact"] and i["seed_differs"] for i in infos),
+          "ddp_gloo: rank 1's seed-1 weights made rank 0's bit for bit by "
+          "DistributedDataParallel.sync_params()")
+    check(all(i["pipeline_refused"] for i in infos),
+          "ddp_gloo: a CUDA StepPipeline refuses the gloo step (no capture, "
+          "no eager fallback)")
+    check(all(i["skip_overflow"] and i["skip_params_same"]
+              and i["skip_scale"] == i["skip_scale_before"] / 2
+              for i in infos),
+          f"ddp_gloo: an inf on rank 1 only: both ranks skip "
+          f"(parameters bit-identical), the scale "
+          f"{infos[0]['skip_scale_before']:.0f} -> "
+          f"{[i['skip_scale'] for i in infos]}")
+    launches = _by_kernel(counters, infos[0]["launches"])
+    want = {n: RESNET_PER_STEP.get(n, 0) * DDP_GLOO_STEPS for n in counters}
+    check({n: launches.get(n, 0) for n in counters} == want,
+          f"ddp_gloo rank 0: launches {launches} = {RESNET_PER_STEP} x "
+          f"{DDP_GLOO_STEPS} eager steps")
+    coll = {kind: n / DDP_GLOO_STEPS
+            for kind, n in _collectives(infos[0]["launches"]).items()}
+    # one process, the whole batch, statistics over all 64 images
+    models = importlib.import_module("apex_tpu_torch.models")
+    groupbn = importlib.import_module("apex_tpu_torch.contrib.groupbn")
+    ops = importlib.import_module("apex_tpu_torch.ops")
+    training = importlib.import_module("apex_tpu_torch.training")
+    imagenet = importlib.import_module(
+        "apex_tpu_torch.examples.imagenet.main_amp")
+    model = _ddp_gloo_model(models, groupbn, ops, dev, 0, 1)
+    init, step = _ddp_gloo_step(training, imagenet, model, None)
+    params, stats = model.variables()
+    state = init({k: v.detach() for k, v in params.items()},
+                 {k: v.clone() for k, v in stats.items()})
+    batch = imagenet.synthetic_batch(DDP_GLOO_BATCH, 224, dev)
+    losses = []
+    for _ in range(DDP_GLOO_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    whole = _state_arrays(state)
+    del model, state
+    worst, off = 0.0, []
+    for k, want_v in whole.items():
+        got = arrays[0][k]
+        err = float(np.max(np.abs(got - want_v)
+                           / (1e-4 + 1e-4 * np.abs(want_v))))
+        worst = max(worst, err)
+        if err > 1.0:
+            off.append(k)
+    check(not off and np.allclose(infos[0]["losses"], losses, rtol=1e-4,
+                                  atol=1e-4),
+          f"ddp_gloo: two ranks within rtol/atol 1e-4 of one process on the "
+          f"whole batch in every leaf (worst at {worst:.3g} of it)"
+          + (f" but {off[:5]}" if off else "") + f"; losses "
+          f"{infos[0]['losses']} vs {losses}")
+    out = dict(launches=launches, collectives_per_step=coll,
+               step_ms=[i["step_ms"] for i in infos],
+               step_ms_median=[float(np.median(i["step_ms"])) for i in infos],
+               instrumented_step_ms=[i["instrumented_step_ms"]
+                                     for i in infos],
+               all_reduce_ms=[i["all_reduce_ms"] for i in infos],
+               gloo_share=[i["all_reduce_ms"] / i["instrumented_step_ms"]
+                           for i in infos],
+               worst_of_tol=worst, wall_s=wall)
+    print(f"      ddp_gloo ResNet-50 O0 fp32, 2 ranks x 32 images on one "
+          f"card: eager step ms a rank {out['step_ms_median']} (median of "
+          f"{DDP_GLOO_STEPS}); gloo's host-staged all_reduce "
+          f"{[round(x, 2) for x in out['all_reduce_ms']]} ms of an "
+          f"instrumented step's {[round(x, 2) for x in out['instrumented_step_ms']]}"
+          f" (share {[round(x, 4) for x in out['gloo_share']]}; gloo, not "
+          f"a measure of NCCL); collectives a step {coll}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -3940,10 +4326,15 @@ def main(argv=None) -> int:
                          "parent commit's): phases 4b, 15b, 16 and 19 "
                          "time its flash, conv, qmm and db2 kernels "
                          "beside this one's")
+    ap.add_argument("--ddp-gloo-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.ddp_gloo_worker:
+        return ddp_gloo_worker(args.ddp_gloo_worker)
     fln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
@@ -4134,6 +4525,10 @@ def main(argv=None) -> int:
             models, engine_mod,
             importlib.import_module("apex_tpu_torch.convert"), checkpoint,
             counters, dev, os.path.join(tmp, "lm_b"), tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        data_parallel = {"ddp_nccl": ddp_nccl(counters, tmp)}           # 27
+        data_parallel["ddp_gloo"] = ddp_gloo(counters, tmp, dev)       # 28
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {"serving": serving["launches"], "training": trained["launches"],
@@ -4146,7 +4541,9 @@ def main(argv=None) -> int:
              "dcgan": gan["launches"],
              "resnet_directory": state_input["resnet_directory"]["launches"],
              "lm_resume": state_input["lm_resume"]["launches"],
-             "hotswap_serving": state_input["hotswap_serving"]["launches"]}
+             "hotswap_serving": state_input["hotswap_serving"]["launches"],
+             "ddp_nccl": data_parallel["ddp_nccl"]["launches"],
+             "ddp_gloo": data_parallel["ddp_gloo"]["launches"]}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -4233,6 +4630,7 @@ def main(argv=None) -> int:
                            bert_training=bert,
                            imperative_bert=imp_bert, dcgan=gan,
                            state_and_input=state_input,
+                           data_parallel=data_parallel,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

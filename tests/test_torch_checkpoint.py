@@ -311,11 +311,14 @@ def test_writer_error_surfaces_on_caller(tmp_path):
 
 
 def test_manager_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Data parallel"):
-        CheckpointManager(str(tmp_path), procs=(0, 2))
+    # per-process parts are ported (tests/test_torch_multiproc.py); a
+    # process index outside the count is refused, as in JAX
+    with pytest.raises(ValueError, match="not in"):
+        CheckpointManager(str(tmp_path), procs=(2, 2))
     with pytest.raises(NotImplementedError, match="Observability"):
         CheckpointManager(str(tmp_path), telemetry=object())
     CheckpointManager(str(tmp_path), procs=(0, 1)).close()
+    CheckpointManager(str(tmp_path), procs=(1, 2)).close()
 
 
 def test_bucketed_state_restores_at_the_same_count(tmp_path):

@@ -202,7 +202,16 @@ def test_welford_adopt_and_refusals():
     tree = {"bn1": {"mean": 1, "var": 2}, "head": {"kernel": 3}}
     assert adopt_batchnorm_stats(tree) == {
         "bn1": {"running_mean": 1, "running_var": 2}, "head": {"kernel": 3}}
-    with pytest.raises(NotImplementedError, match="cross-process"):
-        SyncBatchNorm(4, axis_name="data", device="cpu")
-    with pytest.raises(NotImplementedError, match="bn_group"):
-        BatchNorm2d_NHWC(4, bn_group=2, device="cpu")
+    # across processes (ported): an axis needs a process group at the
+    # first forward; GroupBN validates its group as JAX's does
+    bn = SyncBatchNorm(4, axis_name="data", device="cpu")
+    with pytest.raises(RuntimeError, match="multiproc.initialize"):
+        bn(torch.ones(2, 4))
+    for kw, match in ((dict(bn_group=2), "world_size"),
+                      (dict(bn_group=2, world_size=4), "axis_name"),
+                      (dict(bn_group=2, world_size=3, axis_name="data"),
+                       "divisible")):
+        with pytest.raises(ValueError, match=match):
+            BatchNorm2d_NHWC(4, device="cpu", **kw)
+    assert BatchNorm2d_NHWC(4, bn_group=1, axis_name="data",
+                            device="cpu").bn.axis_name is None

@@ -45,10 +45,52 @@ def test_import_leaves_jax_and_triton_out():
             "apex_tpu_torch.training, apex_tpu_torch.examples.lm.main_amp, "
             "apex_tpu_torch.examples.imagenet.main_amp, "
             "apex_tpu_torch.contrib.xentropy, apex_tpu_torch.contrib.groupbn, "
-            "apex_tpu_torch.parallel, apex_tpu_torch.data; "
+            "apex_tpu_torch.parallel, apex_tpu_torch.data, "
+            "apex_tpu_torch.parallel.multiproc, "
+            "apex_tpu_torch.parallel.distributed, "
+            "apex_tpu_torch.examples.simple.distributed."
+            "distributed_data_parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'apex_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+#: test files that run as the workers of their own spawns
+WORKER_TESTS = [os.path.join(REPO, "tests", name) for name in (
+    "test_torch_distributed.py", "test_torch_syncbn_dist.py")]
+
+
+def _main_guard_line(tree):
+    for node in tree.body:
+        if isinstance(node, ast.If) and "__main__" in ast.dump(node.test):
+            return node.lineno
+    return None
+
+
+@pytest.mark.parametrize("path", WORKER_TESTS,
+                         ids=[os.path.basename(p) for p in WORKER_TESTS])
+def test_worker_entry_points_import_no_jax(path):
+    """A worker runs its file as ``__main__`` and exits inside the main
+    guard, so every JAX or ``apex_tpu`` import must come after it (and
+    none inside a function the worker calls: those import the port)."""
+    tree = ast.parse(open(path).read(), path)
+    guard = _main_guard_line(tree)
+    assert guard is not None
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            roots = ([a.name.split(".")[0] for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module.split(".")[0]])
+            if any(r in FORBIDDEN for r in roots):
+                assert node.lineno > guard, (path, node.lineno)
+    for fn in tree.body:
+        if isinstance(fn, ast.FunctionDef) and (
+                fn.name.startswith("_rank") or fn.name.startswith("_worker")
+                or fn.name.startswith("_port")):
+            bad = {r for node in ast.walk(fn)
+                   if isinstance(node, ast.ImportFrom) and node.module
+                   for r in [node.module.split(".")[0]] if r in FORBIDDEN}
+            assert not bad, (path, fn.name, bad)

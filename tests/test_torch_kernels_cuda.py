@@ -433,7 +433,7 @@ def test_batchnorm_grads_match_autograd_of_plain_forward(cuda_device):
     """fp32 gradients of the whole BatchNorm (statistics tracked by
     autograd, the epilogue's Function with its kernels and channel sums)
     against autograd through the plain epilogue, on the card."""
-    from apex_tpu_torch.parallel.sync_batchnorm import _moments
+    from apex_tpu_torch.parallel.sync_batchnorm import _global_moments
     rng = np.random.RandomState(21)
     x0, z0, g = (torch.from_numpy(rng.randn(4, 9, 9, 40).astype(np.float32))
                  .to(cuda_device) for _ in range(3))
@@ -446,7 +446,7 @@ def test_batchnorm_grads_match_autograd_of_plain_forward(cuda_device):
                      lambda *a, z, relu: fba._fwd_ref(*a, z, relu)):
         leaves = [t.clone().requires_grad_(True) for t in (x0, w0, b0, z0)]
         x, w, b, z = leaves
-        mean, var, _ = _moments(x, (0, 1, 2))
+        mean, var, _ = _global_moments(x, (0, 1, 2))
         y = epilogue(x, mean, torch.rsqrt(var + 1e-5), w, b, z=z, relu=True)
         grads.append(torch.autograd.grad((y * g).sum(), leaves))
     for got, want in zip(*grads):

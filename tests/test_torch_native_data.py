@@ -226,8 +226,9 @@ def test_directory_stream_epochs_none_and_close(tmp_path):
 
 def test_directory_stream_refusals(tmp_path):
     root = _npy_tree(tmp_path)
-    with pytest.raises(NotImplementedError, match="Data parallel"):
-        data.directory_imagenet(root, batch_size=2, host_shard=True)
+    # host_shard=True (ported) is this process's identity, here (0, 1)
+    assert data.directory_imagenet(root, batch_size=2,
+                                   host_shard=True).host_shard == (0, 1)
     with pytest.raises(ValueError, match="host_shard"):
         data.directory_imagenet(root, batch_size=2, host_shard=(2, 2))
     empty = tmp_path / "empty"

@@ -122,8 +122,16 @@ def test_fused_routing_counts_and_flax_names():
     assert not bool(params["stage4_block3.bn3.bn.scale"].any())   # zeros
     with pytest.raises(ValueError, match="fused_epilogue"):
         resnet.ResNet18(fused_epilogue=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        resnet.ResNet18(device="cpu", sync_bn=True)
+    # sync_bn (ported): every site a SyncBatchNorm on the fused epilogue,
+    # its statistics under SyncBatchNorm's names, as in the JAX model
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    sm = resnet.ResNet18(num_filters=4, num_classes=10, device="cpu",
+                         sync_bn=True, bn_momentum=0.2)
+    norms = [m for m in sm.modules() if isinstance(m, SyncBatchNorm)]
+    assert len(norms) == 1 + 8 * 2 + 3 and sm.fused
+    assert {m.momentum for m in norms} == {0.2}
+    assert "stage2_block1.downsample_bn.running_var" in sm.state_dict()
+    assert not bool(sm.state_dict()["stage4_block2.bn2.scale"].any())
     # remat is ported: every block carries the policy
     rm = resnet.ResNet18(device="cpu", remat=True)
     assert {getattr(rm, n).remat for n in rm.block_names} == {"full"}

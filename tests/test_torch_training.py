@@ -392,12 +392,24 @@ def test_port_continues_a_jax_train_state(flax_params):
 
 
 def test_not_ported_arguments_raise():
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    """The sharding arguments raise naming their ROADMAP item; the data-
+    parallel ones are ported (``tests/test_torch_distributed.py``), and
+    ``axis_name="data"`` without a process group says how to make one."""
+    with pytest.raises(NotImplementedError, match="item 3"):
+        training.make_train_step(lambda p, b: 0, training.adam(),
+                                 axis_name="data", reduce_grads=False)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        training.make_train_step(lambda p, b: 0, training.adam(),
+                                 param_view=lambda p: p)
+    with pytest.raises(RuntimeError, match="multiproc.initialize"):
         training.make_train_step(lambda p, b: 0, training.adam(),
                                  axis_name="data")
-    with pytest.raises(NotImplementedError, match="gradient_average"):
+    with pytest.raises(ValueError, match="axis_index_groups"):
         training.make_train_step(lambda p, b: 0, training.adam(),
-                                 gradient_average=False)
+                                 axis_index_groups=[[0]])
+    _, step = training.make_train_step(lambda p, b: 0, training.adam(),
+                                       gradient_average=False)
+    assert step.process_group is None
 
 
 # -- the LM trainer entry point ------------------------------------------------
@@ -648,14 +660,16 @@ def test_imagenet_trainer_conv_flag_trains(capsys, flag):
 
 
 def test_imagenet_trainer_refusals(tmp_path):
-    """``--sync_bn`` and ``--telemetry`` refuse, naming their ROADMAP
-    items; checkpointing and a ``data`` directory are ported (a missing
-    directory fails as a missing directory)."""
-    for extra, exc, match in (
-            (["--sync_bn"], NotImplementedError, "Data parallel"),
-            (["--telemetry", "t.jsonl"], NotImplementedError, "telemetry")):
-        with pytest.raises(exc, match=match):
-            imagenet_main.main(IMAGENET_TINY + ["--prof", "1"] + extra)
+    """``--telemetry`` refuses, naming its ROADMAP item; ``--sync_bn``
+    is ported (in one process it syncs nothing; two ranks in
+    ``tests/test_torch_multiproc.py``), as are checkpointing and a
+    ``data`` directory (a missing directory fails as a missing
+    directory)."""
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        imagenet_main.main(IMAGENET_TINY + ["--prof", "1", "--telemetry",
+                                            "t.jsonl"])
+    assert imagenet_main.main(IMAGENET_TINY + ["--prof", "1",
+                                               "--sync_bn"]) == 0
     with pytest.raises(FileNotFoundError):
         imagenet_main.main([str(tmp_path / "no_such_dir"), "--device",
                             "cpu", "--arch", "resnet18", "-b", "4",
