@@ -18,8 +18,10 @@ keeps the result.  ``unscale_with_stashed`` is the fp32 axpby of
 gradient accumulation, ``update_scale_deferred`` runs the state machine
 and hands back the overflow flag as a device bool for the optimizer to
 fold into its update (no host read), ``update_scale_sync`` reads it (one
-read), ``loss_scale()`` reads the scale, and ``state_dict`` is the
-reference's ``{"loss_scale", "unskipped"}``.
+read; with a telemetry recorder a skip it reads is JAX's ``scale`` skip
+event and counts in ``loss_scale_skips``), ``loss_scale()`` reads the
+scale, and ``state_dict`` is the reference's ``{"loss_scale",
+"unskipped"}``.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ class LossScaler:
         self._min_loss_scale = min_loss_scale
         self._max_loss_scale = max_loss_scale
         self._state: Optional[LossScalerState] = None
+        self._imp_steps = 0          # update_scale_sync calls (telemetry)
 
     def _live(self, device) -> LossScalerState:
         """The scaler's own state, on ``device`` (made there at first
@@ -203,6 +206,15 @@ class LossScaler:
             return False
         should_skip = self.dynamic and bool(self._state.overflow)
         self.update_scale()
+        self._imp_steps += 1
+        if should_skip:
+            # the flag was just read: the skip event costs no other read
+            from ..telemetry import events as _events
+            rec = _events.get_recorder()
+            if rec is not None:
+                rec.metrics.counter("loss_scale_skips").inc()
+                rec.event("scale", event="skip", step=self._imp_steps - 1,
+                          source="imperative")
         return should_skip
 
     def update_scale_deferred(self) -> Optional[torch.Tensor]:

@@ -54,10 +54,18 @@ passes, and :func:`load_checkpoint_dir` merges the parts, so a
 checkpoint of any process count restores in any process (the state is
 replicated).  JAX writes and reads the same files.
 
-Not ported yet, each raising ``NotImplementedError``: restoring a
+Telemetry: with a recorder (``telemetry=``, else the active one) the
+manager emits JAX's ``checkpoint`` events: ``snapshot`` (the caller's
+time to start the copies, and the bytes), ``serialize`` and ``commit``
+from the writer, ``error`` for a failed write, ``backlog`` when a save
+waits for the writer, ``prune`` and ``restore``; and the
+``checkpoint_backlog``, ``checkpoint_last_step`` and
+``checkpoint_errors`` instruments.  A manager made without a ``run_id``
+takes the active recorder's.
+
+Not ported yet, raising ``NotImplementedError``: restoring a
 ``bucket_layout`` state at another shard count (the zero1 reshard,
-ROADMAP queue 1 item 3, "Sharding") and ``telemetry=`` ("Observability
-and tuning").
+ROADMAP queue 1 item 3, "Sharding").
 """
 
 from __future__ import annotations
@@ -77,6 +85,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from .telemetry import events as _events
+
 __all__ = ["save_checkpoint", "load_checkpoint", "CheckpointManager",
            "Restored", "load_checkpoint_dir", "latest_checkpoint",
            "list_checkpoints", "bucket_layout", "CheckpointError",
@@ -88,7 +98,6 @@ _STEP_DIR_RE = re.compile(r"^step_(\d{8,})$")
 _MANIFEST_VERSION = 1
 
 _SHARDING = 'ROADMAP queue 1 item 3, "Sharding"'
-_OBSERVABILITY = 'ROADMAP queue 1 item 2, "Observability and tuning"'
 
 
 class CheckpointError(RuntimeError):
@@ -526,7 +535,9 @@ def open_for_training(directory: Optional[str], like, *,
     under ``resume``, the newest valid checkpoint restored against
     ``like`` (None for a fresh start), logged with the trainer's name
     for a step (``unit``); the manager reserves its pinned buffer while
-    the trainer warms up.  Returns ``(manager, restored)``."""
+    the trainer warms up.  A resumed run's recorder takes the saved run's
+    id and records a ``resume`` event, as the JAX trainers do.  Returns
+    ``(manager, restored)``."""
     if not directory:
         return None, None
     mgr = CheckpointManager(directory, every_steps=max(1, every_steps))
@@ -534,6 +545,10 @@ def open_for_training(directory: Optional[str], like, *,
     if restored is not None:
         log(f"resumed at {unit} {restored.step} (run {mgr.run_id}) from "
             f"{directory}")
+        rec = _events.get_recorder()
+        if rec is not None:
+            rec.run_id = mgr.run_id
+            rec.event("resume", run_id=mgr.run_id, step=restored.step)
     mgr.reserve(like)
     return mgr, restored
 
@@ -587,15 +602,16 @@ class CheckpointManager:
         index, count = int(procs[0]), int(procs[1])
         if not 0 <= index < count:
             raise ValueError(f"procs index {index} not in [0, {count})")
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"telemetry= is not ported yet ({_OBSERVABILITY})")
+        self._telemetry = telemetry
         self.directory = directory
         self.keep = int(keep)
         self.every_steps = every_steps
         self.async_write = bool(async_write)
         self.procs = (index, count)
-        self.run_id = run_id or uuid.uuid4().hex[:12]
+        if run_id is None:
+            run_id = (getattr(_events.get_recorder(), "run_id", None)
+                      or uuid.uuid4().hex[:12])
+        self.run_id = run_id
         self.max_pending = max(1, int(max_pending))
         self.fsync = bool(fsync)
         self.stats: dict = {}
@@ -612,6 +628,27 @@ class CheckpointManager:
         self._spare: Optional[torch.Tensor] = None
         self._spare_lock = threading.Lock()
         os.makedirs(directory, exist_ok=True)
+
+    def _rec(self):
+        return (self._telemetry if self._telemetry is not None
+                else _events.get_recorder())
+
+    def _event(self, phase: str, **fields) -> None:
+        """A ``checkpoint`` event and its gauges (JAX's)."""
+        rec = self._rec()
+        if rec is None:
+            return
+        rec.event("checkpoint", phase=phase, **fields)
+        if phase == "backlog":
+            rec.metrics.gauge("checkpoint_backlog").set(
+                fields.get("value", 0))
+        elif phase == "commit":
+            rec.metrics.gauge("checkpoint_backlog").set(0)
+            if fields.get("step") is not None:
+                rec.metrics.gauge("checkpoint_last_step").set(
+                    fields["step"])
+        elif phase == "error":
+            rec.metrics.counter("checkpoint_errors").inc()
 
     def reserve(self, like) -> None:
         """Pin the host buffer a save of ``like`` takes, on a thread of its
@@ -688,6 +725,14 @@ class CheckpointManager:
                 ek, ev = _encode_extra(k, v)
                 arrays["__extra__/" + ek] = ev
         snapshot_s = time.perf_counter() - t0
+        if self._rec() is not None:
+            nbytes = sum(v.numel() * v.element_size()
+                         if isinstance(v, torch.Tensor) else v.nbytes
+                         for _, v in snap.leaves)
+            nbytes += sum(v.nbytes for v in arrays.values())
+            self._event("snapshot", step=int(step),
+                        dur=round(snapshot_s, 6), bytes=int(nbytes),
+                        shard=index)
         manifest = {
             "format": "apex_tpu-ckpt-v2",
             "version": _MANIFEST_VERSION,
@@ -715,6 +760,9 @@ class CheckpointManager:
             self._raise_pending_error()
             return
         self._ensure_writer()
+        backlog = self._q.qsize()
+        if backlog >= self.max_pending:
+            self._event("backlog", step=int(step), value=backlog)
         while (self._q.qsize() >= self.max_pending and self._writer is not None
                and self._writer.is_alive()):
             time.sleep(0.005)
@@ -739,6 +787,8 @@ class CheckpointManager:
                 self._write_one(item)
             except BaseException as e:  # surfaced on the caller's thread
                 self._error = e
+                self._event("error", step=item.step,
+                            error=f"{type(e).__name__}: {e}")
             finally:
                 item.done.set()
 
@@ -766,6 +816,9 @@ class CheckpointManager:
         os.replace(tmp, shard_path)
         manifest["file_bytes"] = os.path.getsize(shard_path)
         manifest["file_crc32"] = _crc32_file(shard_path)
+        self._event("serialize", step=pending.step,
+                    dur=round(time.perf_counter() - t0, 6),
+                    bytes=manifest["file_bytes"], shard=manifest["shard"])
         mpath = os.path.join(step_dir, _manifest_file_name(
             manifest["shard"], manifest["n_shards"]))
         mtmp = mpath + ".tmp"
@@ -773,6 +826,8 @@ class CheckpointManager:
             json.dump(manifest, f, indent=1)
             self._sync_file(f)
         os.replace(mtmp, mpath)        # this part's commit point
+        self._event("commit", step=pending.step, shard=manifest["shard"],
+                    dur=round(time.perf_counter() - pending.t_enqueue, 6))
         if manifest["n_shards"] == 1:
             self._known_valid.add(step_dir)
         if manifest["shard"] == 0:
@@ -806,6 +861,7 @@ class CheckpointManager:
                 continue
             shutil.rmtree(step_dir, ignore_errors=True)
             self._known_valid.discard(step_dir)
+            self._event("prune", path=os.path.basename(step_dir))
 
     def latest_step(self) -> Optional[int]:
         found = latest_checkpoint(self.directory)
@@ -819,12 +875,15 @@ class CheckpointManager:
         template ``like``; None when there is none (a fresh start) unless
         ``required``.  The run id becomes the saved run's."""
         self.wait()
+        t0 = time.perf_counter()
         try:
             restored = load_checkpoint_dir(self.directory, like, step=step)
         except CheckpointError:
             if required:
                 raise
             return None
+        self._event("restore", step=restored.step,
+                    dur=round(time.perf_counter() - t0, 6))
         self._last_saved = restored.step
         if restored.run_id:
             self.run_id = restored.run_id

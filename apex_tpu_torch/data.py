@@ -26,9 +26,15 @@ on an event recorded after the copy, so the host-to-device copy of batch
 N+1 overlaps the work on batch N.  ``ordered=False`` delivers in
 completion order; :meth:`PrefetchLoader.state_dict` rewinds the source
 to the delivered count.  ``host_shard=True`` takes the stream's shard
-from :func:`apex_tpu_torch.parallel.multiproc.process_identity`.  Not
-ported yet: ``telemetry=`` (ROADMAP queue 1, "Observability and
-tuning"); it raises.
+from :func:`apex_tpu_torch.parallel.multiproc.process_identity`.
+
+Telemetry: with a recorder (``telemetry=``, else the active one) the
+loader emits JAX's events from its own threads: ``stage`` for each batch
+staged (and the ``stage_s`` histogram), ``loader_wait`` for each
+delivery (the ``loader_wait_s`` histogram and the ``loader_queue_depth``
+gauge), and a ``loader`` snapshot of :class:`LoaderStats` when the
+stream ends or the loader closes (the ``loader_stall_pct`` gauge, the
+number the trainers print).
 """
 
 from __future__ import annotations
@@ -46,12 +52,12 @@ from torch.utils import _pytree as pytree
 
 from . import native
 from ._device import resolve_device
+from .telemetry import events as _events
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 _MASK = 0xFFFFFFFFFFFFFFFF
-_OBSERVABILITY = 'ROADMAP queue 1 item 2, "Observability and tuning"'
 
 
 def synthetic_imagenet(batch_size: int, image_size: int = 224,
@@ -231,7 +237,8 @@ class PrefetchLoader:
     exception reaches the consumer in place of its batch, after every
     earlier one (ordered).  Abandoning the iteration (``break``) or
     :meth:`close` stops and joins the threads; the loader is also a
-    context manager.  ``telemetry`` is not ported yet (it raises)."""
+    context manager.  ``telemetry`` pins a recorder (see the module
+    docstring); None takes the active one at each event."""
 
     def __init__(self, it, depth: int = 2,
                  transform: Optional[Callable] = None,
@@ -239,10 +246,8 @@ class PrefetchLoader:
                  telemetry=None):
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                f"telemetry= is not ported yet ({_OBSERVABILITY})")
         self._it = it
+        self._telemetry = telemetry
         self._depth = max(1, depth)
         self._transform = transform
         self._device = resolve_device(device)
@@ -251,10 +256,27 @@ class PrefetchLoader:
         self.stats = LoaderStats()
         self._live: list = []  # (stop Event, [Thread], Queue, sentinel)
 
+    def _rec(self):
+        return (self._telemetry if self._telemetry is not None
+                else _events.get_recorder())
+
+    def _emit_loader_snapshot(self, phase: str) -> None:
+        """One ``loader`` event with the same ``LoaderStats.as_dict()``
+        snapshot the trainers print, and the ``loader_stall_pct``
+        gauge."""
+        rec = self._rec()
+        if rec is not None:
+            stats = self.stats.as_dict()
+            rec.event("loader", phase=phase, stats=stats)
+            rec.metrics.gauge("loader_stall_pct").set(
+                stats["loader_stall_pct"])
+
     def close(self) -> None:
         """Stop every pipeline this loader started: set the stop events,
         drop staged batches and join the threads."""
         live, self._live = self._live, []
+        if live:
+            self._emit_loader_snapshot("close")
         for stop, threads, q, sentinel in live:
             stop.set()
             _drain(q)
@@ -402,7 +424,7 @@ class PrefetchLoader:
             stream = (torch.cuda.Stream(self._device)
                       if self._device.type == "cuda" else None)
             while not stop.is_set():
-                item, got, exhausted = None, False, False
+                item, got, exhausted, seq_no = None, False, False, None
                 with cond:
                     while not stop.is_set():
                         ready = st["ready"]
@@ -421,6 +443,7 @@ class PrefetchLoader:
                     if stop.is_set():
                         return
                     if got:
+                        seq_no = st["staged_n"]
                         st["staged_n"] += 1
                         cond.notify_all()
                 if exhausted:
@@ -437,8 +460,14 @@ class PrefetchLoader:
                     put(LoaderError(e))
                     put(sentinel)
                     return
-                stats._add("stage_s", time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                stats._add("stage_s", dt)
                 stats._staged_one()
+                rec = self._rec()
+                if rec is not None:
+                    # on the staging thread, never on the training loop
+                    rec.event("stage", seq=seq_no, dur=round(dt, 6))
+                    rec.metrics.histogram("stage_s").observe(dt)
                 if not put(staged):
                     return
 
@@ -456,12 +485,21 @@ class PrefetchLoader:
                 stats._start()
                 t0 = time.perf_counter()
                 item = q.get()
-                stats._add("consumer_wait_s", time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                stats._add("consumer_wait_s", dt)
                 if item is sentinel:
+                    self._emit_loader_snapshot("exhausted")
                     break
                 if isinstance(item, LoaderError):
                     raise item.exc
-                stats._delivered(q.qsize())
+                qdepth = q.qsize()
+                stats._delivered(qdepth)
+                rec = self._rec()
+                if rec is not None:
+                    rec.event("loader_wait", dur=round(dt, 6),
+                              qdepth=qdepth)
+                    rec.metrics.histogram("loader_wait_s").observe(dt)
+                    rec.metrics.gauge("loader_queue_depth").set(qdepth)
                 yield self._hand_over(item)
         finally:
             stop.set()

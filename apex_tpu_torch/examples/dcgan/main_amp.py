@@ -46,10 +46,13 @@ and optimizers, not in one carry.
     python -m apex_tpu_torch.examples.dcgan.main_amp --device cpu \\
         --ngf 8 --ndf 8 --batchSize 4 --iters-per-epoch 4 --imperative
 
-Runs on CUDA unless given ``--device cpu``.  Not ported yet, each
-refused with ``NotImplementedError`` naming the ROADMAP item that lifts
-it: ``--telemetry``, ``--metrics-port``, ``--metrics-textfile``,
-``--watchdog`` (queue 1, "Observability and tuning").
+``--telemetry PATH``, ``--watchdog``, ``--metrics-port`` and
+``--metrics-textfile`` are the JAX example's: the pipelined mode records
+its window replays, captures and the one-window-behind metric reads;
+``--imperative`` records each ``FusedAdam.step()`` as an ``opt_step``
+span and its skips.  A run without them is bit for bit the same.
+
+Runs on CUDA unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ from ...amp.loss_scaler import LossScaler
 from ...data import synthetic_imagenet
 from ...models import Discriminator, Generator
 from ...optimizers import FusedAdam
+from .. import _telemetry
 
 
 def parse(argv=None):
@@ -112,12 +116,7 @@ def parse(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="pipelined mode: resume from the newest valid "
                         "checkpoint under --checkpoint-dir")
-    # not ported yet: each raises when given
-    p.add_argument("--telemetry", default=None)
-    p.add_argument("--metrics-port", type=int, default=None)
-    p.add_argument("--metrics-textfile", default=None)
-    p.add_argument("--watchdog", action=argparse.BooleanOptionalAction,
-                   default=None)
+    _telemetry.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -127,18 +126,6 @@ def _refuse_not_ported(args):
             "--checkpoint-dir/--resume need the pipelined default (the "
             "functional state carry is what the manager snapshots); drop "
             "--imperative")
-    obs = 'ROADMAP queue 1 item 2, "Observability and tuning"'
-    refused = [
-        (args.telemetry, f"--telemetry is not ported yet ({obs})"),
-        (args.metrics_port is not None,
-         f"--metrics-port is not ported yet ({obs})"),
-        (args.metrics_textfile, f"--metrics-textfile is not ported yet "
-         f"({obs})"),
-        (args.watchdog, f"--watchdog is not ported yet ({obs})"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise NotImplementedError(msg)
 
 
 def bce_with_logits(logits, target: float):
@@ -418,7 +405,10 @@ def train_imperative(args, netG, netD, log=print, on_iter=None) -> dict:
     return res
 
 
-def main(argv=None) -> int:
+def run(argv=None, log=print) -> dict:
+    """The CLI's run: the mode's trainer under the recorder the telemetry
+    flags ask for, closed (and the ``health:`` line printed) however it
+    ends.  Returns the trainer's result."""
     args = parse(argv)
     _refuse_not_ported(args)
     device = resolve_device(args.device)
@@ -427,20 +417,30 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
     netG, netD = build_models(args, device)
     mode = "imperative" if args.imperative else "pipelined"
-    print(f"dcgan {mode}  opt_level = {args.opt_level}  batch "
-          f"{args.batchSize}  nz {args.nz}  ngf {args.ngf}  ndf "
-          f"{args.ndf}  on {device}")
+    log(f"dcgan {mode}  opt_level = {args.opt_level}  batch "
+        f"{args.batchSize}  nz {args.nz}  ngf {args.ngf}  ndf "
+        f"{args.ndf}  on {device}")
+    rec = _telemetry.start(args, "dcgan", log=log, mode=mode,
+                           opt_level=args.opt_level,
+                           steps_per_call=args.steps_per_call)
     try:
         res = (train_imperative if args.imperative else train_pipelined)(
-            args, netG, netD)
+            args, netG, netD, log=log)
     finally:
         amp.shutdown()
+        _telemetry.finish(rec, args, log=log)
     losses = res["loss_d"] + res["loss_g"]
     if not all(np.isfinite(losses)):
         raise SystemExit("training diverged: a loss is not finite")
     if res["it_per_s"] is not None:
-        print(f"steady {res['it_per_s']:.2f} it/s")
-    print(f"done: {res['iters']} iters in {res['seconds']:.1f} s")
+        log(f"steady {res['it_per_s']:.2f} it/s")
+    log(f"done: {res['iters']} iters in {res['seconds']:.1f} s")
+    res["nets"] = (netG, netD)
+    return res
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

@@ -77,9 +77,17 @@ group is NCCL and the K-step graph holds the collectives.
 ``--stats-json PATH`` writes the run's step times, the pipeline's counts
 and every kernel's and collective's launches (rank 0).
 
-Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported yet, raising ``NotImplementedError``: ``--telemetry`` (ROADMAP
-queue 1 item 2, "Observability and tuning").
+``--telemetry PATH`` records the run's event stream (window replays,
+captures, the one-window-behind metric reads, the loader's waits and
+staging, checkpoints, collectives, the memory peak; ``{rank}`` in PATH
+gives each rank its stream, which ``python -m apex_tpu_torch.prof.fleet``
+merges), ``--watchdog`` folds the run-health rules over it (on by
+default with ``--telemetry``), ``--metrics-port`` and
+``--metrics-textfile`` export live Prometheus metrics; the run's last
+line is ``health:``, with the conv sites published as counters.  A run
+without them is bit for bit the same.
+
+Runs on CUDA unless given ``--device cpu``; raises without a GPU.
 """
 
 from __future__ import annotations
@@ -102,7 +110,9 @@ from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...data import (augment_images, directory_imagenet, format_loader_line,
                      load_batch, normalize_images, synthetic_imagenet)
 from ...models import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
-from ...ops import PallasConv, conv_dispatch_stats, reset_conv_dispatch_stats
+from .. import _telemetry
+from ...ops import (PallasConv, conv_dispatch_stats, publish_conv_counters,
+                   reset_conv_dispatch_stats)
 
 ARCHS = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
          "resnet101": ResNet101, "resnet152": ResNet152}
@@ -190,16 +200,8 @@ def parse(argv=None):
     p.add_argument("--stats-json", default=None, metavar="PATH",
                    help="write step times, pipeline counts and launches "
                         "to PATH (rank 0)")
-    # not ported yet: raises when given
-    p.add_argument("--telemetry", default=None)
+    _telemetry.add_flags(p)
     return p.parse_args(argv)
-
-
-def _refuse_not_ported(args):
-    if args.telemetry:
-        raise NotImplementedError(
-            "--telemetry is not ported yet (ROADMAP queue 1 item 2, "
-            "\"Observability and tuning\")")
 
 
 def _synthetic(args) -> bool:
@@ -247,7 +249,6 @@ def build(args):
     """``(state, step_fn, batch)`` for the parsed arguments (``batch``
     this rank's rows of the synthetic batch, None for a ``data``
     directory)."""
-    _refuse_not_ported(args)
     rank, world, axis = _world(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -440,12 +441,34 @@ def write_stats(path: str, res: dict) -> None:
         json.dump(stats, f, indent=1)
 
 
-def main(argv=None) -> int:
+def _health_extras(rec) -> str:
+    """The conv sites, published into the registry before the recorder
+    closes (so the ``summary`` carries them), for the ``health:`` line."""
+    publish_conv_counters(rec.metrics)
+    fb = rec.metrics.counter("conv_fallback_sites").value
+    pl = rec.metrics.counter("conv_pallas_sites").value
+    return f"  conv-sites {pl or 0}p/{fb or 0}xla" if fb or pl else ""
+
+
+def run(argv=None) -> dict:
+    """The CLI's run: :func:`train` under the recorder the telemetry flags
+    ask for, closed (and the ``health:`` line printed) however it ends.
+    Returns :func:`train`'s result."""
     args = parse(argv)
     coordinator = multiproc.is_coordinator()
     if coordinator:
         print("opt_level =", args.opt_level)
-    res = train(args)
+    rec = _telemetry.start(args, "imagenet", arch=args.arch,
+                           opt_level=args.opt_level,
+                           batch_size=args.batch_size,
+                           steps_per_call=args.steps_per_call)
+    try:
+        res = train(args)
+    finally:
+        if rec is not None:
+            _telemetry.finish(rec, args, extras=_health_extras(rec),
+                              log=print if coordinator else
+                              (lambda *a, **k: None))
     if not all(np.isfinite(res["losses"])):
         raise SystemExit("training diverged: a loss is not finite")
     if coordinator:
@@ -457,6 +480,11 @@ def main(argv=None) -> int:
             write_stats(args.stats_json, res)
         print("done")
     multiproc.shutdown()
+    return res
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

@@ -39,8 +39,18 @@ the next window boundary on SIGTERM/SIGINT after a final checkpoint.
         --heads 4 --seq-len 33 --checkpoint-dir CKPT --checkpoint-every 2 \\
         --resume
 
+``--telemetry PATH`` records the run's event stream (the window
+replays and captures, the one-window-behind metric reads with the loss
+and the loss scale, checkpoints, the memory peak; ``python -m
+apex_tpu_torch.prof.timeline PATH`` reads it), ``--watchdog`` folds the
+run-health rules over it (on by default with ``--telemetry``; a
+``health:`` line at exit), ``--metrics-port`` and ``--metrics-textfile``
+export live Prometheus metrics; each defaults from the JAX example's
+environment variable.  A run without them is bit for bit the same.
+
 Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported: sequence parallelism and telemetry.
+ported: sequence parallelism (``--sp``, ROADMAP queue 1 item 3,
+"Sharding").
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from ... import cache, checkpoint, runtime, training
 from ..._device import resolve_device
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...models import GPT
+from .. import _telemetry
 
 
 def parse(argv=None):
@@ -111,6 +122,7 @@ def parse(argv=None):
                         "final checkpoint and stop")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")
+    _telemetry.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -238,10 +250,25 @@ def train(args, log=print) -> dict:
     return res
 
 
-def main(argv=None) -> int:
-    res = train(parse(argv))
+def run(argv=None, log=print) -> dict:
+    """The CLI's run: :func:`train` under the recorder the telemetry flags
+    ask for, closed (and the ``health:`` line printed) however the run
+    ends.  Returns :func:`train`'s result."""
+    args = parse(argv)
+    rec = _telemetry.start(args, "lm", log=log, opt_level=args.opt_level,
+                           attention="flash",
+                           steps_per_call=args.steps_per_call)
+    try:
+        res = train(args, log=log)
+    finally:
+        _telemetry.finish(rec, args, log=log)
     if not all(np.isfinite(res["losses"])):
         raise SystemExit("training diverged: a loss is not finite")
+    return res
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

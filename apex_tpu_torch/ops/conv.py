@@ -45,8 +45,10 @@ stem) is zero-padded to the next multiple here, zero weights included
 layout pass, not a counted launch), and the padded output channels are
 cut off.  The source says more.
 
-Not ported (ROADMAP): ``publish_conv_counters`` (telemetry) and the
-tuner's ``tune_bucket`` / ``TUNE_VERSION``.
+:func:`publish_conv_counters` exports the dispatch counters into a
+telemetry registry under the JAX package's names.  Not ported yet: the
+tuner's ``tune_bucket`` / ``TUNE_VERSION`` (ROADMAP queue 1 item 2, the
+``tune`` slice, keyed by the CUDA device name).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from ..normalization.fused_bn_act import _fwd_ref as _ep_fwd_ref
 from ..normalization.fused_bn_act import bn_act_epilogue_ref
 
 __all__ = ["conv2d", "conv2d_ref", "PallasConv", "conv_dispatch_stats",
-           "reset_conv_dispatch_stats"]
+           "reset_conv_dispatch_stats", "publish_conv_counters"]
 
 # the kernels' tile, as in csrc/conv.cu: 128 rows, K steps of 32, 128
 # columns where the GEMM's N is at least 128, else 64
@@ -623,6 +625,26 @@ def conv_dispatch_stats() -> Dict[str, Any]:
 def reset_conv_dispatch_stats() -> None:
     _DISPATCH_COUNTS["pallas"] = _DISPATCH_COUNTS["fallback"] = 0
     _FALLBACK_REASONS.clear()
+
+
+def publish_conv_counters(registry) -> Dict[str, Any]:
+    """Export the dispatch counters into a telemetry
+    :class:`~apex_tpu_torch.telemetry.MetricsRegistry` as the counters
+    ``conv_pallas_sites``, ``conv_fallback_sites`` and
+    ``conv_fallback_<reason>`` (the JAX package's names), each bumped by
+    how much its count grew since the last publish, so repeated calls
+    stay monotonic.  Returns :func:`conv_dispatch_stats`."""
+    stats = conv_dispatch_stats()
+    flat = {"conv_pallas_sites": stats["pallas_sites"],
+            "conv_fallback_sites": stats["fallback_sites"]}
+    for reason, n in stats["fallback_reasons"].items():
+        flat[f"conv_fallback_{reason}"] = int(n)
+    for name, total in flat.items():
+        c = registry.counter(name)
+        delta = total - (c.value or 0)
+        if delta > 0:
+            c.inc(delta)
+    return stats
 
 
 class PallasConv(nn.Module):

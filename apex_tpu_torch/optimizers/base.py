@@ -36,17 +36,28 @@ group is updated each step.
   update applies as a ``torch.where`` select, as ``make_train_step``
   does.  A skipped step leaves masters and state bit-identical (the
   step count too) and reads nothing back to the host.
+
+**Telemetry**: with a recorder, ``step()`` is an ``opt_step`` span (the
+host time of the update's launches) and a skipped step is JAX's
+``scale`` skip event (``source="optimizer"``) and a ``loss_scale_skips``
+count.  The skip mask stays on the device: on CUDA it is copied to
+pinned memory behind the update and read by a later ``step()`` once its
+event has completed (``Event.query``, which waits for nothing), so the
+event of step N lands at a later step; on the CPU it is read at once.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional
 
+import contextlib
+
 import torch
 
 from ..amp import policy as _policy
 from ..multi_tensor import flatten_tree
 from ..multi_tensor.buckets import BucketStore, Packed
+from ..telemetry import events as _events
 
 __all__ = ["FusedOptimizer"]
 
@@ -110,6 +121,8 @@ class FusedOptimizer(torch.optim.Optimizer):
         self._stashed: Optional[list] = None
         self._scaled_in_grad = False     # a delayed backward left .grad
         self._pending: list = []         # (device overflow flag, loss_id)
+        self._step_count = 0             # step() calls (telemetry)
+        self._skip_reads: list = []      # (step, host mask, event or None)
         super().__init__(_named(params), defaults)
 
     # -- groups --------------------------------------------------------------
@@ -328,11 +341,40 @@ class FusedOptimizer(torch.optim.Optimizer):
                 loss = closure()
         mask = self._skip_mask()
         grad_scale = self._take_grad_scale()
-        self._apply(self._step_grads(), mask, grad_scale)
+        rec = _events.get_recorder()
+        step_idx = self._step_count
+        self._step_count += 1
+        span = (contextlib.nullcontext() if rec is None
+                else rec.span("opt_step", step=step_idx))
+        with span:
+            self._apply(self._step_grads(), mask, grad_scale)
+        if rec is not None:
+            self._note_skips(rec, mask, step_idx)
         self._master_grads = None
         if self._amp_wired:
             self._clear_model_grads()
         return loss
+
+    def _note_skips(self, rec, mask, step_idx: int) -> None:
+        """Queue this step's skip mask for the recorder and emit the
+        ``scale`` skip events of every queued mask already on the host
+        (see the module docstring): no read waits for the device."""
+        if mask is not None:
+            if mask.is_cuda:
+                host = torch.empty((), dtype=torch.bool, pin_memory=True)
+                host.copy_(mask, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(mask.device))
+                self._skip_reads.append((step_idx, host, done))
+            else:
+                self._skip_reads.append((step_idx, mask, None))
+        while self._skip_reads and (self._skip_reads[0][2] is None
+                                    or self._skip_reads[0][2].query()):
+            step, applied, _ = self._skip_reads.pop(0)
+            if not bool(applied):
+                rec.metrics.counter("loss_scale_skips").inc()
+                rec.event("scale", event="skip", step=step,
+                          source="optimizer")
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         """Clear the model's ``.grad`` (set to None, or zeroed) and the

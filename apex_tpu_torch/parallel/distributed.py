@@ -32,6 +32,17 @@ replays count what they issue): ``grads`` (:func:`reduce_gradients`),
 ``bn_stats`` and ``bn_grad`` (:func:`group_psum` forward and backward:
 SyncBatchNorm's statistics are its one use in the port), ``state``
 (:func:`pmean_tree`), ``overflow`` (:func:`por`) and ``broadcast``.
+
+Telemetry: with a recorder, each collective issued is noted as JAX's
+``collective`` event (``op`` ``psum`` or ``broadcast``, the ``axis``,
+the ``bytes`` on the wire, ``n`` tensors, ``dtype``, ``participants``):
+one event a :func:`reduce_gradients` or :func:`broadcast_params` call
+(its leaves or buckets summed, as JAX sums them), one a
+:func:`group_psum`, :func:`por` or :func:`pmean_tree` all-reduce.  JAX
+notes at trace time; the port notes when a collective is issued eagerly
+or recorded into a graph, never per replay, and inside a
+:class:`~apex_tpu_torch.runtime.StepPipeline` only in the first step of
+the call that captures (see :mod:`apex_tpu_torch.telemetry.events`).
 """
 
 from __future__ import annotations
@@ -122,11 +133,39 @@ def _subgroup(axis_index_groups):
     return mine
 
 
-def _all_reduce_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _note_collective(op: str, axis_name, group, nbytes: int, n: int,
+                     dtypes) -> None:
+    """One ``collective`` event on the active recorder (see the module
+    docstring); ``dtypes`` the set of wire dtypes ("mixed" for more than
+    one, as JAX labels them)."""
+    from ..telemetry import events as _events
+    rec = _events.get_recorder()
+    if rec is None or not n or not _events._notes_open():
+        return
+    axis = ((axis_name,) if isinstance(axis_name, str)
+            else tuple(axis_name) if isinstance(axis_name, (tuple, list))
+            else ("group",))
+    dtype = (next(iter(dtypes)) if len(dtypes) == 1
+             else "mixed" if dtypes else None)
+    rec.note_collective(op, axis, nbytes, n, dtype=dtype,
+                        participants=dist.get_world_size(group))
+
+
+def _all_reduce_(t: torch.Tensor, group, kind: str,
+                 axis_name=None) -> torch.Tensor:
     """Sum ``t`` (owned by the caller, contiguous) over ``group`` in
-    place; counts one collective of ``kind``."""
+    place; counts one collective of ``kind`` and, given ``axis_name``,
+    notes it (a caller that sums several notes them itself)."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     COLLECTIVES[kind].launches += 1
+    if axis_name is not None:
+        _note_collective("psum", axis_name, group,
+                         t.numel() * t.element_size(), 1,
+                         {_dtype_name(t.dtype)})
     return t
 
 
@@ -139,13 +178,14 @@ class _PSum(torch.autograd.Function):
     cotangent over the same group."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_reduce_(_owned(x), group, "bn_stats")
+    def forward(ctx, x, group, axis_name):
+        ctx.group, ctx.axis_name = group, axis_name
+        return _all_reduce_(_owned(x), group, "bn_stats", axis_name)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_(_owned(g), ctx.group, "bn_grad"), None
+        return (_all_reduce_(_owned(g), ctx.group, "bn_grad",
+                             ctx.axis_name), None, None)
 
 
 def group_psum(x: torch.Tensor, axis_name=_WORLD_AXIS,
@@ -159,7 +199,7 @@ def group_psum(x: torch.Tensor, axis_name=_WORLD_AXIS,
     all-gather-and-mask fallback for irregular groups have no
     counterpart here: every group size is one ``all_reduce``."""
     group = axis_group(axis_name, axis_index_groups)
-    return _PSum.apply(x, group)
+    return _PSum.apply(x, group, axis_name)
 
 
 def por(flag: torch.Tensor, axis_name=_WORLD_AXIS) -> torch.Tensor:
@@ -167,7 +207,8 @@ def por(flag: torch.Tensor, axis_name=_WORLD_AXIS) -> torch.Tensor:
     it as int32, then ``> 0`` (JAX's ``_por_varying``), so every rank
     skips a step or takes it together."""
     group = axis_group(axis_name)
-    return _all_reduce_(flag.to(torch.int32), group, "overflow") > 0
+    return _all_reduce_(flag.to(torch.int32), group, "overflow",
+                        axis_name) > 0
 
 
 def pmean_tree(tree, axis_name=_WORLD_AXIS):
@@ -185,7 +226,7 @@ def pmean_tree(tree, axis_name=_WORLD_AXIS):
     out = list(leaves)
     for idx in by_dtype.values():
         flat = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
-        _all_reduce_(flat, group, "state")
+        _all_reduce_(flat, group, "state", axis_name)
         if n != 1:
             flat = flat / n
         for i, piece in zip(idx, torch.split(
@@ -221,6 +262,8 @@ def reduce_gradients(grads, axis_name=_WORLD_AXIS, *,
     group = axis_group(axis_name, axis_index_groups)
     if world_size is None:
         world_size = dist.get_world_size(group)
+    # one collective event for the call: its leaves or buckets summed
+    coll = {"bytes": 0, "n": 0, "dtypes": set()}
 
     def one(g):
         if not (isinstance(g, torch.Tensor) and g.is_floating_point()):
@@ -230,6 +273,9 @@ def reduce_gradients(grads, axis_name=_WORLD_AXIS, *,
             x = x.float()
         if gradient_predivide_factor != 1.0:
             x = x / gradient_predivide_factor
+        coll["bytes"] += x.numel() * x.element_size()
+        coll["n"] += 1
+        coll["dtypes"].add(_dtype_name(x.dtype))
         x = _all_reduce_(_owned(x) if x is g else x.contiguous(), group,
                          "grads")
         if gradient_average:
@@ -250,8 +296,13 @@ def reduce_gradients(grads, axis_name=_WORLD_AXIS, *,
         for bi in order:
             data[bi] = one(data[bi])
         out = Packed(data=tuple(data), rest=packed.rest)
+        _note_collective("psum", axis_name, group, coll["bytes"],
+                         coll["n"], coll["dtypes"])
         return out if isinstance(grads, Packed) else bucket_store.unpack(out)
-    return pytree.tree_map(one, grads)
+    out = pytree.tree_map(one, grads)
+    _note_collective("psum", axis_name, group, coll["bytes"], coll["n"],
+                     coll["dtypes"])
+    return out
 
 
 def broadcast_params(params, axis_name=_WORLD_AXIS, root: int = 0,
@@ -261,6 +312,7 @@ def broadcast_params(params, axis_name=_WORLD_AXIS, root: int = 0,
     Returns a new tree; other leaves pass through."""
     group = axis_group(axis_name, axis_index_groups)
     src = dist.get_global_rank(group, root)
+    coll = {"bytes": 0, "n": 0, "dtypes": set()}
 
     def one(p):
         if not (isinstance(p, torch.Tensor) and p.is_floating_point()):
@@ -268,9 +320,15 @@ def broadcast_params(params, axis_name=_WORLD_AXIS, root: int = 0,
         out = _owned(p)
         dist.broadcast(out, src=src, group=group)
         COLLECTIVES["broadcast"].launches += 1
+        coll["bytes"] += out.numel() * out.element_size()
+        coll["n"] += 1
+        coll["dtypes"].add(_dtype_name(out.dtype))
         return out
 
-    return pytree.tree_map(one, params)
+    out = pytree.tree_map(one, params)
+    _note_collective("broadcast", axis_name, group, coll["bytes"],
+                     coll["n"], coll["dtypes"])
+    return out
 
 
 class DistributedDataParallel(nn.Module):

@@ -14,17 +14,22 @@
   ``state_dict()`` is the JAX package's, key for key, so scales move
   between the two packages unchanged in either direction.
 
-Not ported yet (telemetry, a later slice): the metrics-registry mirror of
-``observe`` and the ``kind="quant"`` events of ``note_saturation``; a
-``registry=`` or ``recorder=`` that is given raises
-``NotImplementedError``.  Without one the port does what the JAX package
-does with no active recorder: it counts and returns.
+Telemetry, as in the JAX package: :meth:`Calibrator.observe` mirrors
+each absmax into a metrics registry (``registry=``, else the active
+recorder's; none, nothing) as the ``quant_absmax/<site>`` high-water
+gauge and the ``quant_amax/<site>`` histogram, and
+:meth:`Calibration.note_saturation` emits a ``kind="quant"`` event (the
+``quant_scale_saturation`` watchdog rule's input) and counts into
+``quant_saturations/<site>``.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Optional
+
+from ..telemetry import events as _events
+from ..telemetry.metrics import nearest_rank_percentiles
 
 __all__ = ["Calibrator", "Calibration"]
 
@@ -33,21 +38,11 @@ __all__ = ["Calibrator", "Calibration"]
 _QMAX = 127.0
 
 
-def nearest_rank_percentiles(samples: Sequence[float],
-                             qs: Sequence[float] = (50.0, 90.0, 99.0)
-                             ) -> List[Optional[float]]:
-    """Nearest-rank percentiles of a sample list (``[]`` -> all None): the
-    JAX package's one percentile definition
-    (``apex_tpu/telemetry/metrics.py``)."""
-    data = sorted(samples)
-    if not data:
-        return [None for _ in qs]
-    out = []
-    for q in qs:
-        idx = min(len(data) - 1,
-                  max(0, int(round(q / 100.0 * (len(data) - 1)))))
-        out.append(data[idx])
-    return out
+def _active_registry():
+    """The active recorder's registry, or None: calibration mirrors into
+    telemetry only while a run records."""
+    rec = _events.get_recorder()
+    return rec.metrics if rec is not None else None
 
 
 def _flatten_stats(tree, prefix=()) -> Dict[str, float]:
@@ -114,15 +109,21 @@ class Calibration:
                         window: Optional[int] = None,
                         recorder=None) -> None:
         """Count ``exceeded`` elements (or steps) that overflowed the
-        calibrated range of ``name`` (:func:`kernels.saturation_count`
-        gives the device-side count).  ``window`` labels the telemetry
-        event, which is not ported yet."""
-        if recorder is not None:
-            raise NotImplementedError("the telemetry recorder is not "
-                                      "ported yet (ROADMAP queue 1 item 2)")
-        del window
-        self._saturations[name] = (self._saturations.get(name, 0)
-                                   + int(exceeded))
+        calibrated range of ``name`` in the last window of ``window``
+        steps (:func:`kernels.saturation_count` gives the device-side
+        count; read it at a boundary the caller already pays).  With a
+        recorder (``recorder``, else the active one) a positive count is
+        a ``quant`` ``saturation`` event and adds to the
+        ``quant_saturations/<name>`` counter."""
+        exceeded = int(exceeded)
+        self._saturations[name] = self._saturations.get(name, 0) + exceeded
+        rec = recorder if recorder is not None else _events.get_recorder()
+        if rec is None or exceeded <= 0:
+            return
+        rec.event("quant", phase="saturation", name=name,
+                  exceeded=exceeded, amax=self.amax.get(name),
+                  **({"window": int(window)} if window else {}))
+        rec.metrics.counter(f"quant_saturations/{name}").inc(exceeded)
 
     @property
     def saturations(self) -> Dict[str, int]:
@@ -134,22 +135,27 @@ class Calibrator:
 
     ``history`` bounds the delayed-amax window (freeze against the max of
     the last H observations, so one early batch cannot pin the range
-    forever)."""
+    forever); ``registry`` the metrics registry the observations are
+    mirrored into (default: the active recorder's, none without one)."""
 
     def __init__(self, *, history: int = 16, registry=None):
-        if registry is not None:
-            raise NotImplementedError("the metrics-registry mirror is not "
-                                      "ported yet (ROADMAP queue 1 item 2)")
         self.history = max(1, int(history))
         self._hist: Dict[str, deque] = {}
+        self._registry = registry
 
     def observe(self, name: str, amax: float) -> None:
         """Fold one site's observed absmax (a host float)."""
+        amax = float(amax)
         name = str(name)
         h = self._hist.get(name)
         if h is None:
             h = self._hist[name] = deque(maxlen=self.history)
-        h.append(float(amax))
+        h.append(amax)
+        reg = (self._registry if self._registry is not None
+               else _active_registry())
+        if reg is not None:
+            reg.gauge(f"quant_absmax/{name}").set_max(amax)
+            reg.histogram(f"quant_amax/{name}").observe(amax)
 
     def harvest(self, stats) -> "Calibrator":
         """Fold one batch's statistics: the ``{site: amax}`` mapping of

@@ -320,8 +320,7 @@ def quantized_matmul(x, w, *, x_scale, w_scale=None,
     if block_m is not None or block_n is not None:
         raise NotImplementedError("block_m/block_n (and the tuner's "
                                   "consult) are not ported yet (ROADMAP "
-                                  "queue 1 item 2, \"Observability and "
-                                  "tuning\")")
+                                  "queue 1 item 2, the tune slice)")
     if w_scale is None:
         w_scale = channel_scale(w)
     x_scale = _f32(x_scale, x.device).reshape(())

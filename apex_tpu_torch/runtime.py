@@ -37,8 +37,22 @@ run issues them first on the capture stream, which makes the
 communicators before the capture begins.  Any other backend on CUDA
 raises: gloo's CUDA collectives wait on the host and cannot be captured,
 and the pipeline never runs eagerly in their place.  ``wrap=``
-(``shard_map`` over a mesh, ROADMAP queue 1 item 3, "Sharding") and
-``telemetry=`` are not ported yet; they raise.
+(``shard_map`` over a mesh, ROADMAP queue 1 item 3, "Sharding") is not
+ported yet; it raises.
+
+Telemetry (:mod:`apex_tpu_torch.telemetry`): ``telemetry=`` pins a
+recorder, else each call reads the active one.  The hooks sit at the host
+boundaries, never in a captured body (whose Python runs once, at
+capture): :meth:`StepPipeline.step_window` times the replay call and
+emits a ``window`` event (``dur`` the host time of the call, ``gap`` the
+host time since the last one returned) with the ``window_dispatch_s`` and
+``window_gap_s`` histograms, ``steps_dispatched`` and ``steps_per_s``;
+each capture (on the CPU, a program's first run or a new window
+signature) emits JAX's ``retrace`` event; :meth:`WindowMetrics.fetch`
+hands the values of its one read to the recorder
+(``observe_window_metrics``: the ``metrics`` event and the loss-scale
+``scale`` events); ``memory_stats()`` records the ``memory`` event.  With
+no recorder each site reads one global.
 
 Usage::
 
@@ -69,6 +83,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import cache as _cache
+from .telemetry import events as _events
 from .training import chain_steps
 
 __all__ = ["StepPipeline", "DeferredMetrics", "WindowMetrics",
@@ -89,14 +104,12 @@ class GracefulShutdown:
 
     The flag is a ``threading.Event``; outside the main thread (where
     ``signal.signal`` raises) nothing is installed and :meth:`request`
-    is the trigger.  ``telemetry`` is not ported yet (it raises)."""
+    is the trigger.  The first request emits a ``drain`` event on the
+    recorder (``telemetry``, else the active one)."""
 
     def __init__(self, signals=(_signal.SIGTERM, _signal.SIGINT), *,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not ported yet (ROADMAP queue 1 item 2, "
-                "\"Observability and tuning\")")
+        self._telemetry = telemetry
         self.signals = tuple(signals)
         self._drain = threading.Event()
         self._prev: dict = {}
@@ -110,8 +123,14 @@ class GracefulShutdown:
 
     def request(self, reason: str = "programmatic") -> None:
         """Trigger the drain without a signal; the first reason stays."""
+        first = not self._drain.is_set()
         self.reason = self.reason or reason
         self._drain.set()
+        if first:
+            rec = (self._telemetry if self._telemetry is not None
+                   else _events.get_recorder())
+            if rec is not None:
+                rec.event("drain", reason=reason)
 
     def _handler(self, signum, frame):
         del frame
@@ -176,6 +195,15 @@ def _copy_tree(dst, src) -> None:
         torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
 
+def _window_sig(window) -> str:
+    """JAX's signature string of a window: ``dtype[shape]`` of its first
+    16 leaves."""
+    def one(x):
+        dtype = str(getattr(x, "dtype", type(x).__name__))
+        return f"{dtype.replace('torch.', '')}{list(getattr(x, 'shape', ()))}"
+    return "|".join(one(x) for x in pytree.tree_leaves(window)[:16])
+
+
 def _device_of(tree) -> torch.device:
     return next((x.device for x in pytree.tree_leaves(tree)
                  if isinstance(x, torch.Tensor)), torch.device("cpu"))
@@ -211,12 +239,12 @@ class StepPipeline:
             raise NotImplementedError(
                 "wrap= (shard_map over a mesh) is not ported yet (ROADMAP "
                 "queue 1 item 3, \"Sharding\")")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not ported yet (ROADMAP queue 1 item 2, "
-                "\"Observability and tuning\")")
         self.k = int(k)
         self._step_fn = step_fn
+        self._telemetry = telemetry
+        self._t_last_dispatch: Optional[float] = None
+        # program -> the window signatures captured (on the CPU, run)
+        self._sigs_seen: dict = {"hot": set(), "tail": set()}
 
         #: the window functions, run eagerly on the CPU and captured on CUDA
         self.loop = self._window_fn("hot")
@@ -232,7 +260,15 @@ class StepPipeline:
         ``program``: the hot loop's K steps, or the tail loop's with each
         step's state gated by ``valid``; ``commit`` as in
         :func:`~apex_tpu_torch.training.chain_steps`."""
-        step_fn = self._step_fn
+        # a local, not self: a closure over self would make a reference
+        # cycle, and the collector could free a dropped pipeline's graphs
+        # in the middle of another capture
+        inner = self._step_fn
+
+        def step_fn(state, batch):
+            out = inner(state, batch)
+            _events._end_noted_step()
+            return out
         if program == "hot":
             chained = chain_steps(step_fn, commit)
 
@@ -280,6 +316,25 @@ class StepPipeline:
                 f"host); use NCCL, or run the step function eagerly "
                 f"without a StepPipeline")
 
+    def _rec(self):
+        return (self._telemetry if self._telemetry is not None
+                else _events.get_recorder())
+
+    def _note_retrace(self, rec, program: str, sig: str, n_traces: int,
+                      dur: float) -> None:
+        """JAX's ``retrace`` event for a capture (on the CPU, a
+        program's first run or a new window signature): ``first`` on the
+        program's first, ``new_sig`` for a window signature it has not
+        seen; a not-first new signature counts in ``retraces``."""
+        seen = self._sigs_seen[program]
+        first, new_sig = not seen, sig not in seen
+        seen.add(sig)
+        rec.event("retrace", program=program, step=self.stats["steps"],
+                  n_traces=n_traces, first=first, new_sig=new_sig, sig=sig,
+                  dur=round(dur, 6))
+        if not first and new_sig:
+            rec.metrics.counter("retraces").inc()
+
     def _capture(self, program: str, state, window, valid):
         self._check_capturable()
 
@@ -293,7 +348,18 @@ class StepPipeline:
             return self._window_fn(program, commit)(state, window, valid)[1]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = _cache.warmup(body, state, window, valid, pool=self._pool)
+        rec = self._rec()
+        if rec is None:
+            graph = _cache.warmup(body, state, window, valid, pool=self._pool)
+        else:
+            # the warm run's first step notes the step's collectives once
+            t0 = time.perf_counter()
+            with _events._pipeline_notes(True):
+                graph = _cache.warmup(body, state, window, valid,
+                                      pool=self._pool)
+            self._note_retrace(rec, program, _window_sig(window),
+                               self.stats["captures"][program] + 1,
+                               time.perf_counter() - t0)
         self.stats["captures"][program] += 1
         return graph
 
@@ -327,10 +393,48 @@ class StepPipeline:
         program, n = self._program(n_valid)
         device = _device_of(state)
         valid = self._valid_mask(n, device)
+        rec = self._rec()
+        if rec is None:
+            out = self._run_window(program, state, window, valid, device)
+            self.stats["steps"] += n
+            return out
+        step0 = self.stats["steps"]
+        t0 = time.perf_counter()
+        gap = (0.0 if self._t_last_dispatch is None
+               else t0 - self._t_last_dispatch)
+        out = self._run_window(program, state, window, valid, device, rec)
+        t1 = time.perf_counter()
+        self._t_last_dispatch = t1
         self.stats["steps"] += n
+        # dur: the host time of the call (the device may still run);
+        # gap: host time since the last call returned
+        rec.event("window", step=step0, k=self.k, n_valid=n,
+                  dur=round(t1 - t0, 6), gap=round(gap, 6),
+                  program=program)
+        rec.metrics.histogram("window_dispatch_s").observe(t1 - t0)
+        rec.metrics.histogram("window_gap_s").observe(gap)
+        rec.metrics.counter("steps_dispatched").inc(n)
+        rec.metrics.gauge("steps_per_s").set(n / max(t1 - t0 + gap, 1e-9))
+        return out
+
+    def _run_window(self, program, state, window, valid, device, rec=None):
         if device.type != "cuda":
             fn = self.loop if program == "hot" else self.tail_loop
-            return fn(state, window, valid)
+            if rec is None:
+                return fn(state, window, valid)
+            # a program's first run, or a new window signature, is the
+            # CPU's counterpart of a capture
+            sig = _window_sig(window)
+            if sig in self._sigs_seen[program]:
+                with _events._pipeline_notes(False):
+                    return fn(state, window, valid)
+            t0 = time.perf_counter()
+            with _events._pipeline_notes(True):
+                out = fn(state, window, valid)
+            self._note_retrace(rec, program, sig,
+                               len(self._sigs_seen[program]) + 1,
+                               time.perf_counter() - t0)
+            return out
         key = (program, _cache.signature(window))
         graph = self._graphs.get(key)
         if graph is None:
@@ -345,17 +449,26 @@ class StepPipeline:
             metrics)
         return graph.static_args[0], metrics
 
-    def memory_stats(self) -> Optional[dict]:
+    def memory_stats(self, *, emit: bool = True) -> Optional[dict]:
         """The CUDA allocator's counts for this process (bytes):
         ``peak_bytes`` (``max_memory_allocated``), ``allocated_bytes``,
-        ``reserved_bytes``; None on the CPU or before a capture."""
+        ``reserved_bytes``; None on the CPU or before a capture.  Host
+        reads, no synchronization.  ``emit`` also records them on the
+        recorder (the ``memory`` event against the card's memory and the
+        ``peak_hbm_bytes`` gauge, :func:`apex_tpu_torch.prof.memory.
+        record_memory`)."""
         if not self._graphs:
             return None
         device = next(iter(self._graphs.values())).device
-        return {"peak_bytes": torch.cuda.max_memory_allocated(device),
-                "allocated_bytes": torch.cuda.memory_allocated(device),
-                "reserved_bytes": torch.cuda.memory_reserved(device),
-                "source": "cuda_allocator"}
+        stats = {"peak_bytes": torch.cuda.max_memory_allocated(device),
+                 "allocated_bytes": torch.cuda.memory_allocated(device),
+                 "reserved_bytes": torch.cuda.memory_reserved(device),
+                 "source": "cuda_allocator"}
+        rec = self._rec() if emit else None
+        if rec is not None:
+            from .prof import memory as _memory
+            _memory.record_memory(rec, stats)
+        return stats
 
     def run(self, state, windows: Iterable, *,
             steps: Optional[int] = None,
@@ -387,8 +500,9 @@ class StepPipeline:
             return ({} if loader_state is None
                     else {"loader_state": loader_state(step)})
 
-        reader = DeferredMetrics()
-        stop = GracefulShutdown().install() if drain else None
+        reader = DeferredMetrics(telemetry=self._telemetry)
+        stop = (GracefulShutdown(telemetry=self._telemetry).install()
+                if drain else None)
         step = start_step
         try:
             for window, n_valid in windows:
@@ -520,18 +634,30 @@ class WindowMetrics(NamedTuple):
     """One window's stacked per-step metrics, still on the device.
     ``step`` is the global index of its first step, ``n_valid`` how many
     leading entries are real, ``read`` their copy to the host started at
-    :meth:`DeferredMetrics.push` (None: :meth:`fetch` starts it)."""
+    :meth:`DeferredMetrics.push` (None: :meth:`fetch` starts it),
+    ``telemetry`` the recorder the read's values go to (None: none)."""
     step: int
     n_valid: int
     metrics: Any
     read: Any = None
+    telemetry: Any = None
 
     def fetch(self):
         """The window's metrics on the host (numpy, stacked ``[K]``):
         one device-to-host read, which waits for this window's work only
-        (entries past ``n_valid`` are padding)."""
-        return _finish_read(self.read if self.read is not None
-                            else _start_read(self.metrics))
+        (entries past ``n_valid`` are padding).  With a recorder the
+        read's values, and its host seconds, go to
+        ``observe_window_metrics``: the telemetry rides this read and
+        makes none of its own."""
+        read = self.read if self.read is not None else _start_read(
+            self.metrics)
+        if self.telemetry is None:
+            return _finish_read(read)
+        t0 = time.perf_counter()
+        vals = _finish_read(read)
+        self.telemetry.observe_window_metrics(
+            self.step, self.n_valid, vals, time.perf_counter() - t0)
+        return vals
 
     @property
     def end(self):
@@ -546,13 +672,11 @@ class DeferredMetrics:
     dispatched, starts its one read to the host, and returns the
     previous window's :class:`WindowMetrics`; :meth:`flush` hands back
     the last one, so every pushed window is returned exactly once.
-    ``telemetry`` is not ported yet (it raises)."""
+    ``telemetry`` pins the recorder each window's :meth:`WindowMetrics.
+    fetch` reports to; None takes the active one at push time."""
 
     def __init__(self, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not ported yet (ROADMAP queue 1 item 2, "
-                "\"Observability and tuning\")")
+        self._telemetry = telemetry
         self._held: Optional[WindowMetrics] = None
         self._next_step = 0
         self._flushed = False
@@ -561,8 +685,10 @@ class DeferredMetrics:
         """Record a freshly dispatched window and start its metrics' copy
         to the host behind its work; returns the previous window's
         handles (None on the first push)."""
+        rec = (self._telemetry if self._telemetry is not None
+               else _events.get_recorder())
         prev, self._held = self._held, WindowMetrics(
-            self._next_step, n_valid, metrics, _start_read(metrics))
+            self._next_step, n_valid, metrics, _start_read(metrics), rec)
         self._next_step += n_valid
         self._flushed = False
         return prev

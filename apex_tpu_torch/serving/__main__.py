@@ -21,7 +21,11 @@ from ``[1, vocab)``.  Runs on CUDA unless ``--device cpu``; prints the
 same summary lines as ``serve_lm.py``: the warmup's captured graphs (one
 prefill and one decode a bucket; none on the CPU, which runs the plain
 step bodies), then the served load with its AOT misses, graph replays
-and hot-swaps.
+and hot-swaps.  ``--telemetry PATH`` records the engine's events with the
+watchdog (``APEX_TPU_TELEMETRY`` also does), ``--trace-sample N`` traces
+every Nth request as a span tree and ``--slo SPEC`` folds the requests
+into goodput and burn rates, as the JAX script's flags do; read them
+with ``python -m apex_tpu_torch.prof.requests PATH``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from ..checkpoint import (CheckpointError, latest_checkpoint,
                           load_checkpoint_dir)
 from ..convert import gpt_params_from_train_state, lm_train_state_like
+from .. import telemetry
 from ..models import gpt2_small, gpt_tiny
 from .engine import ServingEngine
 
@@ -92,10 +97,42 @@ def main(argv=None) -> None:
     ap.add_argument("--watch", action="store_true",
                     help="keep watching --checkpoint-dir and hot-swap "
                          "each newer valid step between scheduler steps")
+    ap.add_argument("--telemetry", default=None,
+                    help="JSONL stream path (env APEX_TPU_TELEMETRY)")
+    ap.add_argument("--trace-sample", type=int, default=None, metavar="N",
+                    help="trace every Nth request as a span tree (0/unset: "
+                         "off; env APEX_TPU_TRACE_SAMPLE); read it with "
+                         "python -m apex_tpu_torch.prof.requests")
+    ap.add_argument("--slo", default=None, metavar="SPEC",
+                    help="a latency SLO, e.g. "
+                         "'ttft_p99<200ms,tpot_p99<30ms' (env "
+                         "APEX_TPU_SLO): goodput and burn-rate gauges, "
+                         "slo_burn/slo_exhausted alerts")
     args = ap.parse_args(argv)
     if args.watch and not args.checkpoint_dir:
         ap.error("--watch needs --checkpoint-dir")
+    rec = None
+    if args.telemetry or (os.environ.get("APEX_TPU_TELEMETRY") or "").strip():
+        rec = telemetry.start(args.telemetry, watchdog=True,
+                              example="serve_lm",
+                              trace_sample_n=args.trace_sample,
+                              slo=args.slo)
+    try:
+        _serve(args)
+    finally:
+        if rec is not None:
+            slo_eng = rec.slo
+            rec.close()
+            if slo_eng is not None and slo_eng.last is not None:
+                print("slo:", slo_eng.format_line())
+            print("health:", rec.watchdog.format_line())
+            if args.trace_sample:
+                print(f"requests: python -m apex_tpu_torch.prof.requests "
+                      f"{rec.path}"
+                      + (f" --slo '{args.slo}'" if args.slo else ""))
 
+
+def _serve(args) -> None:
     # the LM head is an fp32 product: keep TF32 off on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -58,8 +58,22 @@ counterpart of ``apex_tpu/serving/engine.py``.
 Decoding is greedy (``argmax``, first maximum on ties, as ``jnp.argmax``)
 so the tokens equal the JAX engine's on the same weights.
 
-What the JAX engine has and this one does not yet: the telemetry
-recorder and tracer hooks.
+* **telemetry** — with a recorder (``telemetry=``, else the active
+  one) the engine emits JAX's ``serving`` events (``submit``, ``admit``
+  with the queue wait, ``decode`` with the batch size, ``done`` with
+  every request's ``ttft_s``, ``tpot_s``, ``total_s`` and
+  ``queue_wait_s``, ``reject``, ``hotswap``) and the gauges
+  ``serving_queue_depth``, ``serving_active_seqs``,
+  ``serving_kv_page_occupancy_pct``, ``serving_kv_bytes_per_token`` and
+  ``serving_tokens_per_s``; with the recorder's tracer
+  (``trace_sample_n``) every sampled request emits a span tree (a
+  ``request`` root, ``queue``, ``prefill``, one ``decode_step`` per step
+  it decoded in, ``hotswap``).  Every time is a host clock read around
+  the replay and the one read of the tokens the step already makes; each
+  capture at warmup or after the weights moved is a ``retrace`` event
+  (``program`` ``prefill[bucket]`` / ``decode[bucket]``; a recapture is
+  not ``first`` and not ``new_sig``).  An untraced request costs one
+  counter increment at submit.
 
 Usage::
 
@@ -83,6 +97,7 @@ import torch
 
 from .. import cache as _cache
 from .._device import resolve_device
+from ..telemetry import events as _events
 from . import kv_cache as _kv
 from .hotswap import WeightWatcher
 
@@ -134,7 +149,8 @@ class Completion:
 
 
 class _Active(NamedTuple):
-    """One admitted sequence (a batch slot)."""
+    """One admitted sequence (a batch slot); ``trace``/``root`` its trace
+    id and root span id when the tracer sampled it, else None."""
     request: Request
     completion: Completion
     bucket: int
@@ -142,6 +158,8 @@ class _Active(NamedTuple):
     t_submit: float
     t_admit: float
     t_prefill_done: float
+    trace: Optional[str] = None
+    root: Optional[str] = None
 
 
 class ServingEngine:
@@ -162,7 +180,9 @@ class ServingEngine:
     ``state_dict``, i.e. a checkpoint of bare weights; a trainer's
     ``TrainState`` template with ``extract`` mapping the
     :class:`~apex_tpu_torch.checkpoint.Restored` to the weights), and
-    ``watch_from_step`` is the step the served weights came from."""
+    ``watch_from_step`` is the step the served weights came from.
+    ``telemetry`` pins a recorder (the module docstring's events); None
+    takes the active one."""
 
     def __init__(self, model, *,
                  buckets: Sequence[int] = (128, 256),
@@ -176,8 +196,14 @@ class ServingEngine:
                  extract: Optional[Callable] = None,
                  poll_every_s: float = 1.0,
                  watch_from_step: Optional[int] = None,
-                 watch_like=None):
+                 watch_like=None,
+                 telemetry=None):
         self.device = resolve_device(device)
+        self._telemetry = telemetry
+        self._t_rate: Optional[float] = None  # the tokens/s gauge's anchor
+        #: with no exporter, the seconds without a decode step after which
+        #: the tokens/s gauge reads 0 (with one, its ``every_s``)
+        self.rate_idle_s = 5.0
         buckets = sorted(int(b) for b in buckets)
         if not buckets:
             raise ValueError("need at least one sequence-length bucket")
@@ -206,7 +232,7 @@ class ServingEngine:
         self._tok = np.zeros((self.max_seqs,), np.int64)
         self._gen: List[List[int]] = [[] for _ in range(self.max_seqs)]
         self.max_queue = int(max_queue)
-        self._queue: List[tuple] = []          # (Request, Completion, t)
+        self._queue: List[tuple] = []   # (Request, Completion, t, trace, root)
         self._qlock = threading.Lock()
         self._qcond = threading.Condition(self._qlock)
         #: ``prefill_s`` / ``decode_s``: host seconds spent in prefills
@@ -227,6 +253,7 @@ class ServingEngine:
         self._aot: dict = {}
         self._host: dict = {}
         self._pool = None
+        self._captured: dict = {}     # program -> captures (retrace events)
         self._weights, self._weights_seen = self._weight_versions()
         self.watcher: Optional[WeightWatcher] = None
         if watch_dir is not None:
@@ -235,10 +262,53 @@ class ServingEngine:
             self.watcher = WeightWatcher(
                 watch_dir, like=watch_like, extract=extract,
                 poll_every_s=poll_every_s,
-                initial_step=watch_from_step).start()
+                initial_step=watch_from_step, telemetry=telemetry).start()
         self._serve_stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
         self._closed = False
+
+    # -- telemetry ------------------------------------------------------------
+    def _rec(self):
+        return (self._telemetry if self._telemetry is not None
+                else _events.get_recorder())
+
+    def _event(self, phase: str, **fields) -> None:
+        rec = self._rec()
+        if rec is not None:
+            rec.event("serving", phase=phase, **fields)
+
+    def _tracer(self):
+        rec = self._rec()
+        return getattr(rec, "tracer", None) if rec is not None else None
+
+    def _gauges(self) -> None:
+        """The serving gauges at a scheduler step's end (JAX's)."""
+        rec = self._rec()
+        if rec is None:
+            return
+        with self._qlock:
+            depth = len(self._queue)
+        rec.metrics.gauge("serving_queue_depth").set(depth)
+        rec.metrics.gauge("serving_active_seqs").set(
+            sum(1 for s in self._slots if s is not None))
+        rec.metrics.gauge("serving_kv_page_occupancy_pct").set(
+            self.pages.occupancy_pct)
+        rec.metrics.gauge("serving_kv_bytes_per_token").set(
+            self.stats["kv_bytes_per_token"])
+        # with no decode step within the export interval the rate gauge
+        # reads 0, and the next burst's first sample has no anchor
+        if self._t_rate is not None:
+            exp = getattr(rec, "exporter", None)
+            idle_s = exp.every_s if exp is not None else self.rate_idle_s
+            if time.perf_counter() - self._t_rate > idle_s:
+                rec.metrics.gauge("serving_tokens_per_s").set(0.0)
+                self._t_rate = None
+        for key in ("aot_misses", "rejected"):
+            c = rec.metrics.counter(f"serving_{key}")
+            delta = self.stats[key] - c.value
+            if delta > 0:
+                c.inc(delta)
+        rec.run_info["kv_cache_dtype"] = self.kv_cache_dtype
 
     # -- bucketed step programs ---------------------------------------------
     def _bucket_for(self, total_len: int) -> Optional[int]:
@@ -337,10 +407,25 @@ class ServingEngine:
                                dtype=torch.int64)
         if kind == "prefill":
             template[-1] = 1
+        t0 = time.perf_counter()
         step = _cache.warmup(self._body(kind, bucket), template,
                              device=self.device, pool=self._pool)
         if isinstance(step, _cache.Captured):
             self.stats["captures"] += 1
+            rec = self._rec()
+            if rec is not None:
+                # a capture is the engine's compile: the first of a
+                # (kind, bucket), or again after the weights moved (the
+                # same signature)
+                program = f"{kind}[{bucket}]"
+                seen = self._captured.get(program, 0)
+                self._captured[program] = seen + 1
+                rec.event("retrace", program=program,
+                          step=self.stats["decode_steps"],
+                          n_traces=seen + 1, first=seen == 0,
+                          new_sig=seen == 0,
+                          sig=f"int64[{self._args_len(kind, bucket)}]",
+                          dur=round(time.perf_counter() - t0, 6))
         return step
 
     def _weight_versions(self) -> tuple:
@@ -420,6 +505,12 @@ class ServingEngine:
                              f"{max_new_tokens}")
         req = Request(prompt, int(max_new_tokens), stop_token)
         comp = Completion()
+        # trace sampling: one counter step a request; a sampled request
+        # gets its trace id and root span id here, so every later phase
+        # parents to it
+        tracer = self._tracer()
+        trace = tracer.sample() if tracer is not None else None
+        root = tracer.next_span_id() if trace is not None else None
         with self._qcond:
             if self._closed:
                 raise RuntimeError("ServingEngine is closed")
@@ -431,8 +522,17 @@ class ServingEngine:
                     raise TimeoutError("request queue stayed full")
                 if self._closed:
                     raise RuntimeError("ServingEngine is closed")
-            self._queue.append((req, comp, time.perf_counter()))
+            self._queue.append((req, comp, time.perf_counter(), trace,
+                                root))
+            depth = len(self._queue)
         self.stats["submitted"] += 1
+        rec = self._rec()
+        if rec is not None:
+            fields = {} if trace is None else {"trace": trace}
+            rec.event("serving", phase="submit", prompt_len=int(prompt.size),
+                      max_new=int(max_new_tokens), queue_depth=depth,
+                      **fields)
+            rec.metrics.gauge("serving_queue_depth").set(depth)
         return comp
 
     # -- scheduler ----------------------------------------------------------
@@ -442,7 +542,9 @@ class ServingEngine:
         was done."""
         did = self._adopt_weights()
         did = self._admit() or did
-        return self._decode_once() or did
+        did = self._decode_once() or did
+        self._gauges()
+        return did
 
     def _adopt_weights(self) -> bool:
         """Copy the watcher's staged weights into the model in place and
@@ -453,13 +555,22 @@ class ServingEngine:
         if staged is None:
             return False
         t0 = time.perf_counter()
-        _, weights = staged
+        step, weights = staged
         self.model.load_state_dict(weights)
         self._check_weights()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["swap_s"] = time.perf_counter() - t0
         self.stats["hotswaps"] += 1
+        self._event("hotswap", step=step,
+                    in_flight=sum(1 for s in self._slots if s is not None))
+        tracer = self._tracer()
+        if tracer is not None:
+            # the swap joins every traced request in flight
+            for act in self._slots:
+                if act is not None and act.trace is not None:
+                    tracer.emit("hotswap", act.trace, parent=act.root,
+                                step=step)
         return True
 
     def run_until_idle(self, max_steps: int = 100000) -> None:
@@ -505,7 +616,7 @@ class ServingEngine:
             with self._qcond:
                 if not self._queue:
                     break
-                req, comp, t_submit = self._queue[0]
+                req, comp, t_submit, trace, root = self._queue[0]
                 bucket = self._bucket_for(req.prompt.size
                                           + req.max_new_tokens)
                 if bucket is None:
@@ -522,20 +633,29 @@ class ServingEngine:
                     reject = False
             if reject:
                 self.stats["rejected"] += 1
+                self._event("reject", prompt_len=int(req.prompt.size),
+                            max_new=req.max_new_tokens)
                 comp._set(ServedResult(
                     tokens=np.zeros((0,), np.int64), timings={},
                     error=f"prompt {req.prompt.size} + max_new "
                           f"{req.max_new_tokens} fits no bucket "
                           f"(max {self.buckets[-1]})"))
                 continue
-            self._prefill_into(free_slot, req, comp, t_submit, bucket, pages)
+            self._prefill_into(free_slot, req, comp, t_submit, bucket, pages,
+                               trace, root)
             admitted = True
         return admitted
 
     def _prefill_into(self, slot: int, req: Request, comp: Completion,
-                      t_submit: float, bucket: int, pages: List[int]
-                      ) -> None:
+                      t_submit: float, bucket: int, pages: List[int],
+                      trace: Optional[str] = None,
+                      root: Optional[str] = None) -> None:
         t_admit = time.perf_counter()
+        tracer = self._tracer() if trace is not None else None
+        if tracer is not None:
+            # ends now and starts back at submit: the waterfall's first bar
+            tracer.emit("queue", trace, parent=root, dur=t_admit - t_submit,
+                        slot=slot, bucket=bucket)
         host = self._host_args("prefill", bucket)
         args = host.numpy()
         n_pages_b = len(pages)
@@ -551,8 +671,22 @@ class ServingEngine:
         t_done = time.perf_counter()
         self.stats["prefills"] += 1
         self.stats["prefill_s"] += t_done - t_admit
+        rec = self._rec()
+        if rec is not None:
+            rec.event("serving", phase="admit", slot=slot, bucket=bucket,
+                      prompt_len=int(req.prompt.size),
+                      queue_wait=round(t_admit - t_submit, 6),
+                      prefill_dur=round(t_done - t_admit, 6))
+            if tracer is not None:
+                tracer.emit("prefill", trace, parent=root,
+                            dur=t_done - t_admit, slot=slot, bucket=bucket,
+                            prompt_len=int(req.prompt.size))
+            rec.metrics.histogram("serving_queue_wait_s").observe(
+                t_admit - t_submit)
+            rec.metrics.histogram("serving_prefill_s").observe(
+                t_done - t_admit)
         self._slots[slot] = _Active(req, comp, bucket, pages, t_submit,
-                                    t_admit, t_done)
+                                    t_admit, t_done, trace, root)
         self._pos[slot] = req.prompt.size
         self._tok[slot] = first
         self._gen[slot] = [first]
@@ -581,9 +715,13 @@ class ServingEngine:
         with torch.profiler.record_function(f"decode[{bucket}]"):
             nxt = self._dispatch("decode", bucket, (host,))
             toks = nxt.cpu().numpy()     # the per-step response boundary
-        self.stats["decode_s"] += time.perf_counter() - t0
+        dur = time.perf_counter() - t0
+        self.stats["decode_s"] += dur
         self.stats["decode_steps"] += 1
         self.stats["tokens_out"] += len(live)
+        rec = self._rec()
+        if rec is not None:
+            self._note_decode(rec, live, bucket, dur)
         for i in live:
             self._pos[i] += 1
             tok = int(toks[i])
@@ -594,6 +732,28 @@ class ServingEngine:
                     or tok == act.request.stop_token):
                 self._finish(i)
         return True
+
+    def _note_decode(self, rec, live: List[int], bucket: int,
+                     dur: float) -> None:
+        """One decode step's event, its span for each traced request in
+        it (finished in this step or not), the step histogram and the
+        tokens/s gauge."""
+        rec.event("serving", phase="decode", active=len(live),
+                  bucket=bucket, dur=round(dur, 6))
+        tracer = self._tracer()
+        if tracer is not None:
+            for i in live:
+                act = self._slots[i]
+                if act.trace is not None:
+                    tracer.emit("decode_step", act.trace, parent=act.root,
+                                dur=dur, slot=i, bucket=bucket,
+                                batch_size=len(live))
+        rec.metrics.histogram("serving_decode_step_s").observe(dur)
+        now = time.perf_counter()
+        if self._t_rate is not None:
+            rec.metrics.gauge("serving_tokens_per_s").set(
+                len(live) / max(now - self._t_rate, 1e-9))
+        self._t_rate = now
 
     def _finish(self, slot: int) -> None:
         act = self._slots[slot]
@@ -622,6 +782,23 @@ class ServingEngine:
         self._tok[slot] = 0
         self._gen[slot] = []
         self.stats["completed"] += 1
+        rec = self._rec()
+        if rec is not None:
+            rec.metrics.histogram("serving_ttft_s").observe(ttft_s)
+            if tpot_s is not None:
+                rec.metrics.histogram("serving_tpot_s").observe(tpot_s)
+            rec.metrics.histogram("serving_e2e_s").observe(
+                timings["total_s"])
+            fields = {} if act.trace is None else {"trace": act.trace}
+            rec.event("serving", phase="done", slot=slot, bucket=act.bucket,
+                      n_tokens=len(gen), **fields, **timings)
+            tracer = self._tracer() if act.trace is not None else None
+            if tracer is not None:
+                # the root, last, with the span id allocated at submit
+                tracer.emit("request", act.trace, span=act.root,
+                            dur=timings["total_s"], slot=slot,
+                            bucket=act.bucket, n_tokens=len(gen),
+                            ttft_s=round(ttft_s, 6))
         act.completion._set(ServedResult(
             tokens=np.asarray(gen, np.int64), timings=timings,
             bucket=act.bucket))
@@ -662,7 +839,7 @@ class ServingEngine:
             self._qcond.notify_all()
         closed = ServedResult(tokens=np.zeros((0,), np.int64),
                               timings={}, error="engine closed")
-        for _req, comp, _t in abandoned:
+        for _req, comp, _t, _trace, _root in abandoned:
             comp._set(closed)
         for i, act in enumerate(self._slots):
             if act is None:

@@ -23,8 +23,12 @@ failing a request in flight.  Two halves, of different cost:
 A step that is newer than the adopted one but invalid, or that fails to
 load, is recorded in ``last_error`` and tried again at a later poll (an
 invalid one once its files change); it never takes the serving loop
-down.  ``telemetry=`` is not ported yet
-(ROADMAP queue 1, "Observability and tuning"); it raises.
+down.
+
+Telemetry: with a recorder (``telemetry=``, else the active one) a
+staging emits JAX's ``serving`` ``stage`` event (the step and its
+seconds) from the watcher's thread, and a step that fails to load a
+``stage_error`` event.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any, Callable, Optional, Tuple
 
 from ..checkpoint import (_load_validated, _validate_step_dir,
                           list_checkpoints)
+from ..telemetry import events as _events
 
 __all__ = ["WeightWatcher"]
 
@@ -68,10 +73,7 @@ class WeightWatcher:
                  extract: Optional[Callable] = None,
                  poll_every_s: float = 1.0,
                  initial_step: Optional[int] = None, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                'telemetry= is not ported yet (ROADMAP queue 1 item 2, '
-                '"Observability and tuning")')
+        self._telemetry = telemetry
         self.directory = directory
         self._like = like
         self._extract = extract or (lambda restored: restored.state)
@@ -88,6 +90,10 @@ class WeightWatcher:
         self._invalid: dict = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+
+    def _rec(self):
+        return (self._telemetry if self._telemetry is not None
+                else _events.get_recorder())
 
     def extract(self, restored) -> Any:
         """The weights of a restored checkpoint (``extract=``)."""
@@ -129,12 +135,20 @@ class WeightWatcher:
                 _load_validated(step_dir, manifest, self._like))
         except Exception as e:
             self.last_error = f"step {step}: {type(e).__name__}: {e}"
+            rec = self._rec()
+            if rec is not None:
+                rec.event("serving", phase="stage_error", step=step,
+                          error=f"{type(e).__name__}: {e}")
             return False
         with self._lock:
             self._staged = (step, weights)
             self.adopted_step = step
         self._invalid.clear()
         self.load_s = time.perf_counter() - t0
+        rec = self._rec()
+        if rec is not None:
+            rec.event("serving", phase="stage", step=step,
+                      dur=round(self.load_s, 6))
         return True
 
     def take(self) -> Optional[Tuple[int, Any]]:

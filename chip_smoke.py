@@ -16,8 +16,9 @@ imperative amp API (``amp.initialize``, ``scale_loss``, ``FusedAdam``,
 ``FusedLAMB``), trains the DCGAN pair with three loss scalers in both
 of its trainer's modes, checks the card's answers against the CPU's,
 trains ResNet-50 from a directory of images killed and resumed, resumes
-the LM trainer from its checkpoint, and hot-swaps trained weights into a
-serving engine.
+the LM trainer from its checkpoint, hot-swaps trained weights into a
+serving engine, trains ResNet-50 data parallel, and records, exports and
+reads back the run telemetry of the LM trainer and the serving engine.
 
     python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
@@ -299,14 +300,48 @@ line):
    with an inf on rank 1 only skipped on both, the scale halved; a CUDA
    ``StepPipeline`` of the gloo step refused; launches as phase 13's per
    step; the eager step ms a rank and gloo's share of it (not a measure
-   of NCCL).
+   of NCCL);
+   27 and 28 also record telemetry: 27 (a) runs with ``--telemetry
+   ...rank{rank}.jsonl`` (its 109 collectives a step noted once, all at
+   the warm run before the first replay, one capture, a window event a
+   replay; its state is the one held against (b) bit for bit), 28's
+   ranks each write a stream that ``prof.fleet`` merges, each noting the
+   gradient bucket once a step with the bucket's bytes;
+29. training telemetry: phase 20's LM trainer (GPT-2 small O2, B 8, T
+   1023, Adam, K 8, 16 steps) through its CLI (``run``) with no
+   telemetry flag or variable, with ``--telemetry --watchdog
+   --metrics-textfile``, and without again: the final states bit for bit
+   in every leaf, the same launches (phase 20's per-step counts x the
+   steps on the card), one ``window`` event a replay, one ``retrace``
+   with ``first`` a capture and none without, one ``metrics`` event a
+   window with JAX's fields and finite losses, no alert, a ``summary``
+   at the end, the textfile with ``steps_per_s``, ``loss`` and
+   ``peak_hbm_bytes``, ``prof.timeline --json`` reading 16 steps in 2
+   windows; the captured step ms with the recorder over the mean of the
+   two runs without, at most 1.5 (JAX's overhead gate); then 8 steps at
+   K 4 with a dynamic scale and an inf at step 5: one ``scale`` skip
+   event, no ``scale_collapse``;
+30. serving telemetry: phase 5's engine and 16 requests without a
+   recorder, with one, with every request traced (``trace_sample_n=1``,
+   the SLO ``ttft_p99<200ms,tpot_p99<30ms``, the exporter's endpoint on a
+   free localhost port) and without again: the traced run's tokens bit
+   for bit phase 5's, 16 ``done`` events, 16 complete span trees (a
+   ``request`` root with ``queue``, ``prefill`` and one ``decode_step``
+   per decode step the request was in), ``prof.requests``' TTFT and TPOT
+   per request equal to each ``ServedResult.timings``, ``GET /metrics``
+   with ``serving_tokens_per_s`` and ``slo_goodput_pct``, the 4 warmup
+   captures as ``retrace`` events and none while serving; TPOT p50/p99
+   and tokens/s of the four runs, and the host us of one ``span`` and
+   one ``decode`` event through a recorder with the traced run's
+   attachments.
 
-Phases 24-28 write their data under a temporary directory, removed at
-the end.  The phases run in the order 1-4, 17's calibration, 20, 21 (all
-but its traces), 22, 23, 5, 17's served load, 6 (with 17's traces),
+Phases 24-30 write their data under temporary directories, removed at
+the end.  The phases run in the order 1-4, 17's calibration, 20, 29, 21
+(all but its traces), 22, 23, 5, 30, 17's served load, 6 (with 17's
+traces),
 7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28: the eager
 sides of 20-23, 5 and
-17 run before the first profiler session, after which every launch of
+17, and 29-30, run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
 LM steps again).
 
@@ -992,6 +1027,7 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
     check(same == 16, f"gpt2_small ({tag} KV): captured greedy tokens equal "
           f"the eager bodies' in {same}/16 requests")
     res.update(kv_bytes_per_token=st["kv_bytes_per_token"],
+               tokens=[r.tokens.tolist() for r in results],
                buckets=sorted({r.bucket for r in results if r.ok}),
                launches={n: v for n, v in launches.items() if v},
                tokens_equal_eager=same, eager=eager,
@@ -4035,10 +4071,11 @@ def ddp_nccl(counters, tmp):
     cache = importlib.import_module("apex_tpu_torch.cache")
     k, steps = 2, 16
     ran = cache.WARM_RUNS * k + steps
+    stream = os.path.join(tmp, "ddp_nccl_rank{rank}.jsonl")
     spawned = _trainer_subprocess("ddp_nccl_group", [
         sys.executable, "-m", "apex_tpu_torch.parallel.multiproc", "--nproc",
         "1", "--coordinator", f"file://{tmp}/ddp_nccl_store", "--timeout",
-        "800"] + DDP_NCCL_ARGS, tmp)
+        "800"] + DDP_NCCL_ARGS + ["--telemetry", stream], tmp)
     plain = _trainer_subprocess("ddp_nccl_plain",
                                 [sys.executable] + DDP_NCCL_ARGS, tmp)
     if spawned is None or plain is None:
@@ -4063,7 +4100,23 @@ def ddp_nccl(counters, tmp):
           f"ddp_nccl: (a)'s collectives {coll} = {DDP_NCCL_COLLECTIVES} a "
           f"step x {ran} (the warm run and 8 replays of one graph), (b) "
           f"none")
-    out = dict(launches=ka, collectives_per_step=DDP_NCCL_COLLECTIVES)
+    # (a) recorded its stream: the collectives noted once, in the warm
+    # run's first step before the graph was captured, never per replay
+    ev = _stream(stream.format(rank=0))
+    first_window = next(i for i, e in enumerate(ev) if e["kind"] == "window")
+    coll = [i for i, e in enumerate(ev) if e["kind"] == "collective"]
+    retr = [e for e in ev if e["kind"] == "retrace"]
+    check(len(coll) == sum(DDP_NCCL_COLLECTIVES.values())
+          and all(i < first_window for i in coll)
+          and len(retr) == 1 and retr[0]["first"]
+          and ev[0]["process_index"] == 0
+          and sum(e["kind"] == "window" for e in ev) == steps // k,
+          f"ddp_nccl (a) telemetry: {len(coll)} collective events (the "
+          f"{sum(DDP_NCCL_COLLECTIVES.values())} a step), all at the warm "
+          f"run before the first replay; {len(retr)} capture; "
+          f"{sum(e['kind'] == 'window' for e in ev)} windows")
+    out = dict(launches=ka, collectives_per_step=DDP_NCCL_COLLECTIVES,
+               collective_events=len(coll))
     for tag, st in (("group", a), ("plain", b)):
         out[f"{tag}_step_ms"] = float(np.median(st["step_s"][2:])) * 1e3
         out[f"{tag}_step_ms_all"] = [x * 1e3 for x in st["step_s"]]
@@ -4118,6 +4171,9 @@ def ddp_gloo_worker(out_dir) -> int:
     on rank 1 only.  Writes ``rank<r>.npz`` and ``rank<r>.json``."""
     multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
     rank, world = multiproc.initialize(device="cuda", backend="gloo")
+    telemetry = importlib.import_module("apex_tpu_torch.telemetry")
+    rec = telemetry.start(os.path.join(out_dir, f"rank{rank}.jsonl"),
+                          example="ddp_gloo")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4167,6 +4223,11 @@ def ddp_gloo_worker(out_dir) -> int:
     info.update(step_ms=step_ms, losses=losses,
                 launches={c.__name__: c.launches for c in build.COUNTED
                           if c.launches})
+    buckets = importlib.import_module("apex_tpu_torch.multi_tensor.buckets")
+    info["bucket_bytes"] = int(sum(
+        d.numel() * d.element_size() for d in
+        buckets.BucketStore(state.params).pack(state.params).data))
+    rec.close()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **_state_arrays(state))
     # one more step, its result dropped, with every all_reduce timed
     # between two synchronizations: gloo's share of an eager step
@@ -4265,6 +4326,24 @@ def ddp_gloo(counters, tmp, dev):
           f"{DDP_GLOO_STEPS} eager steps")
     coll = {kind: n / DDP_GLOO_STEPS
             for kind, n in _collectives(infos[0]["launches"]).items()}
+    # the ranks' streams, merged by prof.fleet: each rank noted the
+    # gradient bucket once a step, its bytes the bucket's
+    tfleet = importlib.import_module("apex_tpu_torch.prof.fleet")
+    paths = [os.path.join(out_dir, f"rank{r}.jsonl")
+             for r in range(DDP_GLOO_WORLD)]
+    hosts = tfleet.load_fleet(paths)
+    fleet = tfleet.analyze_fleet(hosts)
+    grads = [[e["bytes"] for e in h.events if e["kind"] == "collective"
+              and e["op"] == "psum" and e["bytes"] == i["bucket_bytes"]]
+             for h, i in zip(hosts, infos)]
+    check(fleet["n_hosts"] == DDP_GLOO_WORLD
+          and [h.host for h in hosts] == list(range(DDP_GLOO_WORLD))
+          and all(len(g) == DDP_GLOO_STEPS for g in grads)
+          and infos[0]["bucket_bytes"] == infos[1]["bucket_bytes"],
+          f"ddp_gloo telemetry: prof.fleet merged {fleet['n_hosts']} rank "
+          f"streams; each noted the {infos[0]['bucket_bytes']}-byte "
+          f"gradient bucket once an eager step "
+          f"({[len(g) for g in grads]})")
     # one process, the whole batch, statistics over all 64 images
     models = importlib.import_module("apex_tpu_torch.models")
     groupbn = importlib.import_module("apex_tpu_torch.contrib.groupbn")
@@ -4314,6 +4393,334 @@ def ddp_gloo(counters, tmp, dev):
           f"instrumented step's {[round(x, 2) for x in out['instrumented_step_ms']]}"
           f" (share {[round(x, 4) for x in out['gloo_share']]}; gloo, not "
           f"a measure of NCCL); collectives a step {coll}", flush=True)
+    return out
+
+
+# -- phases 29-30: run telemetry ------------------------------------------------------
+
+TELEMETRY_ENV = ("APEX_TPU_TELEMETRY", "APEX_TPU_WATCHDOG",
+                 "APEX_TPU_METRICS_PORT", "APEX_TPU_METRICS_TEXTFILE",
+                 "APEX_TPU_TRACE_SAMPLE", "APEX_TPU_SLO")
+SERVE_SLO = "ttft_p99<200ms,tpot_p99<30ms"
+
+
+def _stream(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _lm_telemetry_run(main_amp, counters, flags, steps=16, k=8):
+    """Phase 20's LM trainer at K ``k`` through its CLI (``run``) with
+    ``flags``: its result and the launches of the run (every counter set
+    to 0 just before)."""
+    for c in counters.values():
+        c.launches = 0
+    res = main_amp.run(TRAIN_ARGS + ["--steps", str(steps),
+                                     "--steps-per-call", str(k)] + flags,
+                       log=lambda line: None)
+    launches = {n: c.launches for n, c in counters.items()}
+    return res, launches
+
+
+def _timeline_json(path):
+    """``python -m apex_tpu_torch.prof.timeline PATH --json``."""
+    out = subprocess.run([sys.executable, "-m",
+                          "apex_tpu_torch.prof.timeline", path, "--json"],
+                         capture_output=True, text=True, timeout=120,
+                         env=_child_env(), cwd=REPO_ROOT, check=True)
+    return json.loads(out.stdout)
+
+
+def _skip_run(main_amp, training, telemetry, path, dev, steps=8, k=4,
+              bad=5):
+    """GPT-2 small O2 with a dynamic scale through ``StepPipeline`` at K
+    ``k``, the loss multiplied by a per-step factor of the window (inf at
+    step ``bad``), under a recorder with the watchdog: its stream and the
+    per-step overflow flags."""
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    args = main_amp.parse(TRAIN_ARGS)
+    model = importlib.import_module("apex_tpu_torch.models").GPT(
+        vocab_size=args.vocab, hidden_size=args.hidden,
+        num_layers=args.layers, num_heads=args.heads, mlp_dim=4 * args.hidden,
+        max_len=args.seq_len, dtype=torch.bfloat16, attention_impl="flash",
+        device=dev, seed=0)
+    init, step = _lm_step(main_amp, training, model, "O2",
+                          loss_scale="dynamic", inject=True)
+    state = init(model.state_dict())
+    x, y = main_amp.synthetic_batch(args.batch_size, args.seq_len,
+                                    args.vocab, dev)
+    factors = torch.ones(steps, device=dev)
+    factors[bad] = float("inf")
+    windows = [((x.expand(k, *x.shape), y.expand(k, *y.shape),
+                 factors[i:i + k]), k) for i in range(0, steps, k)]
+    flags = []
+    rec = telemetry.start(path, watchdog=True, example="skip")
+    try:
+        runtime.StepPipeline(step, k).run(
+            state, windows, on_metrics=lambda wm: flags.extend(
+                bool(f) for f in wm.fetch()["overflow"][:wm.n_valid]))
+    finally:
+        rec.close()
+    return _stream(path), flags, rec.watchdog.health()
+
+
+def training_telemetry(main_amp, training, counters, dev, tmp):
+    """Phase 29: phase 20's LM trainer (GPT-2 small O2, B 8, T 1023, Adam,
+    K 8, 16 steps) through its CLI without any telemetry flag or variable
+    and with ``--telemetry --watchdog --metrics-textfile``: the final
+    states bit for bit, the same launches (phase 20's per-step counts x
+    the steps on the card), the stream's windows, captures, metric reads,
+    no alert, the summary, the textfile, ``prof.timeline --json``; the
+    captured step ms of both and their ratio (at most 1.5, JAX's
+    overhead gate).  Then a dynamic-scale run with an inf at one step:
+    one ``scale`` skip event, no ``scale_collapse``."""
+    telemetry = importlib.import_module("apex_tpu_torch.telemetry")
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    saved = {k: os.environ.pop(k) for k in TELEMETRY_ENV if k in os.environ}
+    steps, k = 16, 8
+    path, prom = os.path.join(tmp, "lm.jsonl"), os.path.join(tmp, "lm.prom")
+    try:
+        # without, with, without: the recorder's run between two plain ones
+        plain, plain_l = _lm_telemetry_run(main_amp, counters, [], steps, k)
+        rec_res, rec_l = _lm_telemetry_run(
+            main_amp, counters, ["--telemetry", path, "--watchdog",
+                                 "--metrics-textfile", prom], steps, k)
+        again, _ = _lm_telemetry_run(main_amp, counters, [], steps, k)
+    finally:
+        os.environ.update(saved)
+    differ, n, worst, names = _state_diff(rec_res["state"], plain["state"])
+    check(differ == 0, f"lm telemetry: the final state with the recorder "
+          f"equals the run without in {n - differ}/{n} leaves"
+          + (f" (first {names}, max |diff| {worst:.3g})" if differ else ""))
+    ran = cache.WARM_RUNS * k + steps
+    want = {name: LM_PER_STEP.get(name, 0) * ran for name in counters}
+    check(plain_l == rec_l == want,
+          f"lm telemetry: launches with the recorder {rec_l} = without "
+          f"{plain_l} = {LM_PER_STEP} x {ran} steps on the card")
+    ev = _stream(path)
+    kinds = [e["kind"] for e in ev]
+    pipe = rec_res["pipeline"]
+    retr = [e for e in ev if e["kind"] == "retrace"]
+    check(kinds.count("window") == pipe["replays"] == steps // k
+          and len(retr) == pipe["captures"]["hot"] == 1
+          and all(e["first"] for e in retr),
+          f"lm telemetry: {kinds.count('window')} window events = "
+          f"{pipe['replays']} replays, {len(retr)} retrace event(s) with "
+          f"first = {pipe['captures']['hot']} capture, none without")
+    mets = [e for e in ev if e["kind"] == "metrics"]
+    fields = {"t", "kind", "step", "n_valid", "dur", "loss", "loss_scale",
+              "skips"}
+    check(len(mets) == steps // k
+          and all(set(m) == fields and len(m["loss"]) == k
+                  and all(np.isfinite(m["loss"])) for m in mets)
+          and [m["step"] for m in mets] == list(range(0, steps, k)),
+          f"lm telemetry: {len(mets)} metrics events, one a window, "
+          f"fields {sorted(set().union(*map(set, mets)))} with {k} finite "
+          f"losses each")
+    check("alert" not in kinds and kinds[-1] == "summary",
+          f"lm telemetry: no alert ({kinds.count('alert')}), the stream "
+          f"ends with the summary ({kinds[-1]})")
+    with open(prom) as f:
+        text = f.read()
+    have = {m: f"apex_tpu_{m} " in text
+            for m in ("steps_per_s", "loss", "peak_hbm_bytes")}
+    check(all(have.values()), f"lm telemetry: the textfile holds {have}")
+    tl = _timeline_json(path)
+    check((tl["steps"], tl["windows"]) == (steps, steps // k),
+          f"lm telemetry: prof.timeline --json reads {tl['steps']} steps "
+          f"in {tl['windows']} windows")
+    ms = [float(np.median(r["step_s"][k:])) * 1e3
+          for r in (plain, rec_res, again)]
+    ratio = ms[1] / (0.5 * (ms[0] + ms[2]))
+    check(ratio <= 1.5, f"lm telemetry: captured step {ms[1]:.3f} ms with "
+          f"the recorder / {0.5 * (ms[0] + ms[2]):.3f} ms without (the "
+          f"mean of the runs before and after) = {ratio:.4f} (<= 1.5)")
+    print(f"      lm telemetry K {k}: captured step ms without "
+          f"{ms[0]:.3f}, with the recorder {ms[1]:.3f}, without again "
+          f"{ms[2]:.3f} (ratio {ratio:.4f}); window events' host ms "
+          f"{[round(e['dur'] * 1e3, 3) for e in ev if e['kind'] == 'window']}"
+          f", gaps {[round(e['gap'] * 1e3, 3) for e in ev if e['kind'] == 'window']}"
+          f"; {len(ev)} events", flush=True)
+    skip_ev, flags, health = _skip_run(main_amp, training, telemetry,
+                                       os.path.join(tmp, "skip.jsonl"), dev)
+    skips = [e for e in skip_ev if e["kind"] == "scale"
+             and e["event"] == "skip"]
+    check(flags == [i == 5 for i in range(8)]
+          and [e["step"] for e in skips] == [5]
+          and "scale_collapse" not in health["by_rule"],
+          f"lm telemetry: an inf at step 5 of 8 (K 4, dynamic scale): "
+          f"overflow flags {flags}, skip events at {[e['step'] for e in skips]}"
+          f", watchdog {health} (nonfinite: the skipped step's loss is "
+          f"inf, as in JAX)")
+    return dict(step_ms_without=ms[0], step_ms_with=ms[1],
+                step_ms_without_again=ms[2], ratio=ratio,
+                step_ms_all_without=[x * 1e3 for x in plain["step_s"]],
+                step_ms_all_with=[x * 1e3 for x in rec_res["step_s"]],
+                events=len(ev), launches=rec_l,
+                window_host_ms=[e["dur"] * 1e3 for e in ev
+                                if e["kind"] == "window"],
+                skip_steps=[e["step"] for e in skips],
+                skip_health=health, timeline=tl)
+
+
+def _traced_serve(model, engine_mod, prompts, dev, telemetry, path,
+                  sample_n, slo):
+    """Phase 5's captured engine over ``prompts`` under a recorder (None:
+    none; ``sample_n`` its tracer, ``slo`` its SLO, with the exporter's
+    endpoint on a free localhost port): the results, the engine's stats,
+    TPOT p50/p99 ms, tokens/s and, with a recorder, the ``GET /metrics``
+    body taken after serving."""
+    rec = None
+    if path is not None:
+        rec = telemetry.start(path, watchdog=True, trace_sample_n=sample_n,
+                              slo=slo, export_port=0 if slo else None,
+                              example="serving")
+    body = None
+    try:
+        eng = engine_mod.ServingEngine(model, buckets=(256, 1024),
+                                       page_size=16, max_seqs=8, device=dev)
+        eng.warmup()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        warm = eng.stats["captures"]
+        t0 = time.perf_counter()
+        results = eng.generate(prompts, max_new_tokens=32)
+        wall = time.perf_counter() - t0
+        st = dict(eng.stats)
+        eng.close()
+        if rec is not None and rec.exporter is not None:
+            import urllib.request
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{rec.exporter.port}/metrics",
+                    timeout=30) as r:
+                body = r.read().decode()
+    finally:
+        if rec is not None:
+            rec.close()
+    tpots = [r.timings["tpot_s"] for r in results if r.ok]
+    return results, dict(
+        warmup_captures=warm, captures_serving=st["captures"] - warm,
+        tokens_per_s=st["tokens_out"] / wall,
+        tpot_p50_ms=_pct(tpots, 0.5), tpot_p99_ms=_pct(tpots, 0.99),
+        decode_steps=st["decode_steps"]), body
+
+
+def _event_host_us(telemetry, path, n=4000):
+    """Host microseconds of one event through a recorder with the traced
+    run's attachments (the watchdog, the SLO, the tracer, the endpoint):
+    a ``span`` event by ``Tracer.emit`` (what tracing adds per request
+    and decode step) and a ``serving`` ``decode`` event (what the
+    recorder adds per decode step)."""
+    rec = telemetry.start(path, watchdog=True, trace_sample_n=1,
+                          slo=SERVE_SLO, export_port=0, example="cost")
+    try:
+        tr = rec.tracer
+        t0 = time.perf_counter()
+        for i in range(n):
+            tr.emit("decode_step", "t0-000000", parent="s000000",
+                    dur=0.004, slot=i % 8, bucket=1024, batch_size=8)
+        t1 = time.perf_counter()
+        for _ in range(n):
+            rec.event("serving", phase="decode", active=8, bucket=1024,
+                      dur=0.004)
+        t2 = time.perf_counter()
+    finally:
+        rec.close()
+    return (t1 - t0) / n * 1e6, (t2 - t1) / n * 1e6
+
+
+def serving_telemetry(model, engine_mod, dev, phase5_tokens, tmp):
+    """Phase 30: phase 5's GPT-2 small bf16 engine and 16 requests three
+    ways: no recorder, a recorder without tracing, and a recorder with
+    every request traced, the SLO folded and the exporter's endpoint on a
+    free localhost port.  The traced run's tokens bit for bit phase 5's,
+    16 ``done`` events and 16 complete span trees, the requests reader's
+    TTFT and TPOT equal to each ``ServedResult.timings``, ``GET
+    /metrics`` with ``serving_tokens_per_s`` and ``slo_goodput_pct``, no
+    capture while serving; TPOT p50/p99 and tokens/s of the three."""
+    telemetry = importlib.import_module("apex_tpu_torch.telemetry")
+    trequests = importlib.import_module("apex_tpu_torch.prof.requests")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, model.vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    saved = {k: os.environ.pop(k) for k in TELEMETRY_ENV if k in os.environ}
+    runs = {}
+    try:
+        for tag, path, n, slo in (
+                ("none", None, 0, None),
+                ("recorder", os.path.join(tmp, "serve_rec.jsonl"), 0, None),
+                ("traced", os.path.join(tmp, "serve.jsonl"), 1, SERVE_SLO),
+                ("none_again", None, 0, None)):
+            runs[tag] = _traced_serve(model, engine_mod, prompts, dev,
+                                      telemetry, path, n, slo)
+    finally:
+        os.environ.update(saved)
+    results, res, body = runs["traced"]
+    same = sum(np.array_equal(r.tokens, t)
+               for r, t in zip(results, phase5_tokens))
+    check(same == 16 and all(r.ok for r in results),
+          f"serving telemetry: traced tokens equal phase 5's in {same}/16 "
+          f"requests")
+    ev = _stream(os.path.join(tmp, "serve.jsonl"))
+    dones = [e for e in ev if e["kind"] == "serving"
+             and e["phase"] == "done"]
+    falls = trequests.build_waterfalls(ev)
+    complete = 0
+    for w in falls:
+        names = [s["name"] for s in w["spans"]]
+        roots = [s for s in w["spans"] if s["name"] == "request"]
+        done = [d for d in dones if d.get("trace") == w["trace"]]
+        complete += (len(roots) == 1 and roots[0]["parent"] is None
+                     and names.count("queue") == names.count("prefill") == 1
+                     and len(done) == 1
+                     and w["decode_steps"] == done[0]["n_tokens"] - 1
+                     and all(s["parent"] == roots[0]["span"]
+                             for s in w["spans"] if s is not roots[0]))
+    check(len(dones) == 16 and len(falls) == 16 and complete == 16,
+          f"serving telemetry: {len(dones)} done events, {complete}/"
+          f"{len(falls)} complete span trees (a request root with queue, "
+          f"prefill and one decode_step a decode step it was in)")
+    from_stream = sorted((d["ttft_s"], d["tpot_s"]) for d in
+                         trequests._dones(trequests.load_request_events(
+                             [os.path.join(tmp, "serve.jsonl")])))
+    from_results = sorted((r.timings["ttft_s"], r.timings["tpot_s"])
+                          for r in results)
+    check(from_stream == from_results,
+          "serving telemetry: prof.requests' TTFT and TPOT per request "
+          "equal the engine's ServedResult.timings")
+    have = {m: body is not None and f"apex_tpu_{m} " in body
+            for m in ("serving_tokens_per_s", "slo_goodput_pct")}
+    retr = [e for e in ev if e["kind"] == "retrace"]
+    check(all(have.values()) and res["captures_serving"] == 0
+          and len(retr) == res["warmup_captures"] == 4
+          and all(e["first"] for e in retr),
+          f"serving telemetry: GET /metrics holds {have}; "
+          f"{res['warmup_captures']} captures at warmup as retrace events "
+          f"({len(retr)}), {res['captures_serving']} while serving")
+    req = trequests.analyze(ev, slo=SERVE_SLO)
+    out = {tag: r[1] for tag, r in runs.items()}
+    out["slo"] = req.get("slo")
+    out["slo_online"] = req.get("slo_online")
+    out["events"] = len(ev)
+    out["span_event_us"], out["decode_event_us"] = _event_host_us(
+        importlib.import_module("apex_tpu_torch.telemetry"),
+        os.path.join(tmp, "cost.jsonl"))
+    base = 0.5 * (out["none"]["tpot_p50_ms"] + out["none_again"]["tpot_p50_ms"])
+    for tag in ("none", "recorder", "traced", "none_again"):
+        out[tag]["tpot_p50_over_none"] = out[tag]["tpot_p50_ms"] / base
+    print("      serving telemetry (16 requests, 32 new tokens; ratios "
+          "against the mean of the two runs without): "
+          + "; ".join(f"{tag} TPOT p50 {out[tag]['tpot_p50_ms']:.3f} "
+                      f"(x{out[tag]['tpot_p50_over_none']:.4f})"
+                      f" / p99 {out[tag]['tpot_p99_ms']:.3f} ms, "
+                      f"{out[tag]['tokens_per_s']:.1f} tok/s"
+                      for tag in ("none", "recorder", "traced",
+                                  "none_again"))
+          + f"; SLO {SERVE_SLO}: goodput "
+          f"{(req.get('slo') or {}).get('goodput_pct')}%; host us an event "
+          f"(watchdog, SLO, tracer, endpoint attached): span "
+          f"{out['span_event_us']:.2f}, decode {out['decode_event_us']:.2f}",
+          flush=True)
     return out
 
 
@@ -4435,6 +4842,9 @@ def main(argv=None) -> int:
     calib = calibrate_gpt2_small(models, quant, dev)               # 17
     build_o4 = o4_setup(models, quant, main_amp, training, calib, dev)
     windows = training_windows(main_amp, imagenet, build_o4)       # 20
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as d:
+        train_tel = training_telemetry(main_amp, training, counters,  # 29
+                                       dev, d)
     bert_build = bert_setup(models, training, xent, dev)           # 21
     bert = bert_windows(bert_build, training, counters)
     bert["parity"] = bert_optimizer_parity(bert_build, training)
@@ -4449,6 +4859,9 @@ def main(argv=None) -> int:
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
                                SERVE_PER_FORWARD)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as d:
+        serve_tel = serving_telemetry(model, engine_mod, dev,         # 30
+                                      serving["tokens"], d)
     o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
                                  quant=quant.QuantConfig.frozen(calib))
     o4_serving = serve_gpt2_small(o4_model, engine_mod, counters,  # 17
@@ -4631,6 +5044,8 @@ def main(argv=None) -> int:
                            imperative_bert=imp_bert, dcgan=gan,
                            state_and_input=state_input,
                            data_parallel=data_parallel,
+                           telemetry={"training": train_tel,
+                                      "serving": serve_tel},
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

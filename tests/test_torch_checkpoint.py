@@ -16,6 +16,7 @@ answers; each package restores the other's directory.
 """
 
 import glob
+import io
 import json
 import os
 import shutil
@@ -28,7 +29,7 @@ import jax.numpy as jnp
 
 from apex_tpu import checkpoint as jckpt
 from apex_tpu_torch import checkpoint as ckpt
-from apex_tpu_torch import training
+from apex_tpu_torch import telemetry, training
 from apex_tpu_torch.checkpoint import (CheckpointError, CheckpointManager,
                                        latest_checkpoint, list_checkpoints,
                                        load_checkpoint, load_checkpoint_dir,
@@ -315,8 +316,14 @@ def test_manager_refuses_what_is_not_ported(tmp_path):
     # process index outside the count is refused, as in JAX
     with pytest.raises(ValueError, match="not in"):
         CheckpointManager(str(tmp_path), procs=(2, 2))
-    with pytest.raises(NotImplementedError, match="Observability"):
-        CheckpointManager(str(tmp_path), telemetry=object())
+    # telemetry= is ported: the pinned recorder gets the checkpoint events
+    sink = io.StringIO()
+    rec = telemetry.Recorder(sink)
+    mgr = CheckpointManager(str(tmp_path), telemetry=rec)
+    assert mgr.run_id != rec.run_id     # only the active recorder's id
+    mgr.save(1, {"w": torch.ones(2)}, block=True)
+    mgr.close()
+    assert '"phase": "commit", "step": 1' in sink.getvalue()
     CheckpointManager(str(tmp_path), procs=(0, 1)).close()
     CheckpointManager(str(tmp_path), procs=(1, 2)).close()
 

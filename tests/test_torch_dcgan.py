@@ -417,15 +417,27 @@ def test_imperative_overflow_on_loss_one_skips_only_d():
                                   ["--resume"], ["--metrics-port", "0"],
                                   ["--metrics-textfile", "m.prom"],
                                   ["--watchdog"]])
-def test_trainer_refuses_what_is_not_ported(flag):
+def test_trainer_refuses_what_is_not_ported(flag, tmp_path, monkeypatch,
+                                            capsys):
     if flag[0] in ("--checkpoint-dir", "--resume"):
         # checkpointing is ported for the pipelined mode; --imperative
         # refuses it, as the JAX example does
         with pytest.raises(SystemExit, match="pipelined"):
             dcgan.main(["--device", "cpu", "--imperative"] + flag)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcgan.main(["--device", "cpu"] + flag)
+    # the telemetry flags are ported: each runs, and closes its recorder
+    monkeypatch.chdir(tmp_path)
+    assert dcgan.main(["--device", "cpu", "--ngf", "8", "--ndf", "8",
+                       "--batchSize", "4", "--iters-per-epoch", "2",
+                       "--steps-per-call", "2"] + flag) == 0
+    out = capsys.readouterr().out
+    # the watchdog is on with --telemetry or --watchdog
+    assert ("health: ok (0 alerts)" in out) == (
+        flag[0] in ("--telemetry", "--watchdog"))
+    if flag[0] == "--telemetry":
+        assert os.path.exists(tmp_path / "x.jsonl")
+    if flag[0] == "--metrics-textfile":
+        assert os.path.exists(tmp_path / "m.prom")
 
 
 def test_pipelined_resume_is_bit_for_bit(tmp_path, capsys):

@@ -12,6 +12,7 @@ step at most once, and an LM trainer's checkpoint serves through
 """
 
 import glob
+import io
 import os
 
 import numpy as np
@@ -24,7 +25,7 @@ import jax.numpy as jnp
 from apex_tpu import serving as jserving
 from apex_tpu.checkpoint import CheckpointManager as JCheckpointManager
 from apex_tpu.models import gpt_tiny as jgpt_tiny
-from apex_tpu_torch import convert
+from apex_tpu_torch import convert, telemetry
 from apex_tpu_torch.checkpoint import CheckpointManager, latest_checkpoint
 from apex_tpu_torch.convert import gpt_params_from_jax
 from apex_tpu_torch.models import gpt_tiny
@@ -236,8 +237,12 @@ def test_watcher_extract_and_initial_step(weights, tmp_path):
     assert sorted(got) == sorted(model.state_dict())
     assert all(torch.equal(got[k], state.params[k]) for k in got)
     assert w2.load_s > 0
-    with pytest.raises(NotImplementedError, match="Observability"):
-        WeightWatcher(d, like=like, telemetry=object())
+    # telemetry= is ported: a staging is a serving "stage" event
+    sink = io.StringIO()
+    w3 = WeightWatcher(d, like=like, telemetry=telemetry.Recorder(sink),
+                       extract=convert.gpt_params_from_train_state)
+    assert w3.poll_once()
+    assert '"kind": "serving", "phase": "stage"' in sink.getvalue()
 
 
 def test_serving_cli_serves_and_watches_a_trainer_checkpoint(tmp_path,

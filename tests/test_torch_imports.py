@@ -49,7 +49,8 @@ def test_import_leaves_jax_and_triton_out():
             "apex_tpu_torch.parallel.multiproc, "
             "apex_tpu_torch.parallel.distributed, "
             "apex_tpu_torch.examples.simple.distributed."
-            "distributed_data_parallel; "
+            "distributed_data_parallel, apex_tpu_torch.telemetry, "
+            "apex_tpu_torch.prof.memory; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'apex_tpu', 'triton')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -60,7 +61,8 @@ def test_import_leaves_jax_and_triton_out():
 
 #: test files that run as the workers of their own spawns
 WORKER_TESTS = [os.path.join(REPO, "tests", name) for name in (
-    "test_torch_distributed.py", "test_torch_syncbn_dist.py")]
+    "test_torch_distributed.py", "test_torch_syncbn_dist.py",
+    "test_torch_telemetry.py")]
 
 
 def _main_guard_line(tree):

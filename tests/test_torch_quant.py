@@ -22,6 +22,8 @@ The CUDA kernel itself runs only on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,8 @@ from apex_tpu import training as jtraining
 from apex_tpu.amp.properties import opt_levels as jopt_levels
 from apex_tpu.models import gpt_tiny as jgpt_tiny
 from apex_tpu.serving import kv_cache as JKV
-from apex_tpu_torch import quant, training
+from apex_tpu_torch import quant, telemetry, training
+from apex_tpu_torch.telemetry.metrics import MetricsRegistry
 from apex_tpu_torch.amp import AmpOptionError, opt_levels
 from apex_tpu_torch.convert import gpt_params_from_jax
 from apex_tpu_torch.examples.lm import main_amp
@@ -254,10 +257,16 @@ def test_calibration_refusals():
     c.observe("a", 1.0)
     with pytest.raises(ValueError, match="percentile"):
         c.freeze(mode=0.0)
-    with pytest.raises(NotImplementedError, match="registry"):
-        quant.Calibrator(registry=object())
-    with pytest.raises(NotImplementedError, match="recorder"):
-        quant.Calibration({}).note_saturation("a", 1, recorder=object())
+    # the telemetry mirror and the saturation events are ported (held
+    # against JAX's in tests/test_torch_telemetry.py)
+    reg = MetricsRegistry()
+    quant.Calibrator(registry=reg).observe("x", 2.0)
+    assert reg.gauge("quant_absmax/x").value == 2.0
+    rec = telemetry.Recorder(io.StringIO())
+    cal = quant.Calibration({})
+    cal.note_saturation("a", 1, recorder=rec)
+    assert rec.metrics.counter("quant_saturations/a").value == 1
+    assert cal.saturations == {"a": 1}
     # the JAX quant_stats collection (nested amax leaves) harvests too
     c.harvest({"block_0": {"mlp_up": {"amax": np.float32(2.0)}}})
     assert c.sites == ["a", "block_0/mlp_up"]

@@ -16,6 +16,7 @@ the deferred metric reader, ``window_batches``, ``stage_windows`` over
 ``--steps-per-call``.
 """
 
+import io
 import os
 import signal
 import threading
@@ -32,7 +33,7 @@ from apex_tpu import training as jtraining
 from apex_tpu.contrib.groupbn import BatchNorm2d_NHWC as JBatchNorm2d_NHWC
 from apex_tpu.models import gpt_tiny as jgpt_tiny
 from apex_tpu.models import resnet as jresnet
-from apex_tpu_torch import data, runtime, training
+from apex_tpu_torch import data, runtime, telemetry, training
 from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
 from apex_tpu_torch.convert import gpt_params_from_jax, \
     resnet_variables_to_jax
@@ -256,8 +257,9 @@ def test_pipeline_rejects_what_it_does_not_take():
         runtime.StepPipeline(step, k=0)
     with pytest.raises(NotImplementedError, match="wrap"):
         runtime.StepPipeline(step, k=2, wrap=lambda f: f)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        runtime.StepPipeline(step, k=2, telemetry=object())
+    # telemetry= is ported: the pinned recorder gets the window events
+    rec = telemetry.Recorder(io.StringIO())
+    assert runtime.StepPipeline(step, k=2, telemetry=rec)._rec() is rec
     pipe = runtime.StepPipeline(step, k=2)
     window, _ = next(runtime.window_batches(iter(make_batches(2)), 2,
                                             transform=to_torch))
@@ -383,8 +385,11 @@ def test_prefetch_loader_orders_errors_and_closes():
     assert not any(t.is_alive() for t in loader_threads())
     with pytest.raises(ValueError):
         data.PrefetchLoader([], workers=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        data.PrefetchLoader([], device="cpu", telemetry=object())
+    # telemetry= is ported: the pinned recorder gets the loader's events
+    sink = io.StringIO()
+    rec = telemetry.Recorder(sink)
+    assert list(data.PrefetchLoader([7], device="cpu", telemetry=rec)) == [7]
+    assert '"kind": "loader_wait"' in sink.getvalue()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             data.PrefetchLoader([])
@@ -402,8 +407,11 @@ def test_graceful_shutdown_signal_and_request():
     stop.request("preemption-notice")
     stop.request("second")
     assert stop.draining and stop.reason == "preemption-notice"
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        runtime.GracefulShutdown(telemetry=object())
+    # telemetry= is ported: the first request is a drain event
+    sink = io.StringIO()
+    rec = telemetry.Recorder(sink)
+    runtime.GracefulShutdown(telemetry=rec).request("preemption-notice")
+    assert '"kind": "drain", "reason": "preemption-notice"' in sink.getvalue()
 
 
 class _Windows:

@@ -16,6 +16,8 @@ CPU runs the kernels' plain versions; the card runs them in
 ``chip_smoke.py``.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -660,14 +662,16 @@ def test_imagenet_trainer_conv_flag_trains(capsys, flag):
 
 
 def test_imagenet_trainer_refusals(tmp_path):
-    """``--telemetry`` refuses, naming its ROADMAP item; ``--sync_bn``
-    is ported (in one process it syncs nothing; two ranks in
-    ``tests/test_torch_multiproc.py``), as are checkpointing and a
+    """``--telemetry`` is ported (the stream written, the recorder closed
+    at the end), as are ``--sync_bn`` (in one process it syncs nothing;
+    two ranks in ``tests/test_torch_multiproc.py``), checkpointing and a
     ``data`` directory (a missing directory fails as a missing
     directory)."""
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        imagenet_main.main(IMAGENET_TINY + ["--prof", "1", "--telemetry",
-                                            "t.jsonl"])
+    stream = str(tmp_path / "t.jsonl")
+    assert imagenet_main.main(IMAGENET_TINY + ["--prof", "1", "--telemetry",
+                                               stream]) == 0
+    with open(stream) as f:
+        assert json.loads(f.read().splitlines()[-1])["kind"] == "summary"
     assert imagenet_main.main(IMAGENET_TINY + ["--prof", "1",
                                                "--sync_bn"]) == 0
     with pytest.raises(FileNotFoundError):
