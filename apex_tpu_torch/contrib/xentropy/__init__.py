@@ -51,6 +51,7 @@ import functools
 import torch
 
 from ... import _build
+from ...prof import costs as _costs
 
 __all__ = ["SoftmaxCrossEntropyLoss", "softmax_cross_entropy_loss"]
 
@@ -229,7 +230,12 @@ class _SoftmaxXentropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, smoothing, padding_idx):
         labels = labels.to(torch.int32).contiguous()
-        if logits.is_cuda:
+        walk = _costs.counting(logits)
+        if walk is not None:
+            losses, mlse = walk.kernel(
+                _costs.xentropy_fwd(logits), _fwd_ref, logits, labels,
+                smoothing)
+        elif logits.is_cuda:
             if logits.stride(1) != 1:
                 logits = logits.contiguous()
             losses, mlse = xentropy_fwd_kernel(logits, labels, smoothing)
@@ -245,7 +251,11 @@ class _SoftmaxXentropy(torch.autograd.Function):
     def backward(ctx, g):
         logits, mlse, labels = ctx.saved_tensors
         g = torch.where(labels == ctx.padding_idx, 0.0, g.float())
-        if logits.is_cuda:
+        walk = _costs.counting(logits)
+        if walk is not None:
+            dx = walk.kernel(_costs.xentropy_bwd(logits), _bwd_ref, g, logits,
+                             mlse, labels, ctx.smoothing)
+        elif logits.is_cuda:
             dx = xentropy_bwd_kernel(g, logits, mlse, labels, ctx.smoothing)
         else:
             dx = _bwd_ref(g, logits, mlse, labels, ctx.smoothing)

@@ -12,8 +12,19 @@ relative L2 error), and how far G's parameter gradients lie from fp64's
 (largest error over the net's largest gradient).
 
     python -m apex_tpu_torch.examples.dcgan.kink_probe   # one CUDA device
+    python -m apex_tpu_torch.examples.dcgan.kink_probe --deterministic \
+        --repeats 5
+
+``--repeats N`` computes every gradient N times and prints, for each, G's
+gradients on the card against the CPU's (largest error over the largest
+gradient: the quantity of ``chip_smoke.py`` phase 23's initial-gradient
+gate); ``--deterministic`` runs the card under torch's deterministic
+algorithms (the ImageNet trainer's ``--deterministic``: cuDNN's
+deterministic kernels, cuBLAS's fixed workspace).
 """
 
+import argparse
+import os
 import sys
 
 import torch
@@ -26,11 +37,20 @@ WIDTHS = ["--batchSize", "64", "--nz", "100", "--ngf", "64", "--ndf", "64",
           "--opt_level", "O0", "--data-pool", "1"]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--deterministic", action="store_true")
+    ap.add_argument("--repeats", type=int, default=1)
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kink_probe: no CUDA device is available",
               file=sys.stderr)
         return 2
+    if opts.deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = dcgan.parse(WIDTHS)
@@ -66,12 +86,16 @@ def main() -> int:
         return (d_fake.double().cpu(), [g.double().cpu() for g in grads],
                 list(seen))
     try:
-        for name, d_params in (("initial D", state["d"]),
-                               ("D after one iteration", new["d"])):
+        for rep_i, (name, d_params) in (
+                (i, nd) for i in range(opts.repeats)
+                for nd in (("initial D", state["d"]),
+                           ("D after one iteration", new["d"]))):
             ref, ref_g, ref_pre = run(d_params, "fp64")
             big = max(g.abs().max().item() for g in ref_g)
+            grads_of = {}
             for d in ("cuda", "cpu"):
                 got, got_g, pre = run(d_params, d)
+                grads_of[d] = got_g
                 flips = [int(((a > 0) != (b > 0)).sum())
                          for a, b in zip(pre, ref_pre)]
                 near = max([a[(a > 0) != (b > 0)].abs().max().item()
@@ -89,6 +113,13 @@ def main() -> int:
                       f"{err.norm().item() / ref.norm().item():.3g}; G's "
                       f"gradients largest error {g_err:.3g} of the "
                       f"largest", flush=True)
+            card_cpu = max((a - b).abs().max().item() for a, b in zip(
+                grads_of["cuda"], grads_of["cpu"])) / max(
+                g.abs().max().item() for g in grads_of["cpu"])
+            print(f"{name}, repeat {rep_i}: G's gradients card vs CPU "
+                  f"largest error {card_cpu:.3g} of the largest"
+                  f"{' (deterministic)' if opts.deterministic else ''}",
+                  flush=True)
     finally:
         models.F.leaky_relu = leaky
     print(torch.cuda.get_device_name(0))

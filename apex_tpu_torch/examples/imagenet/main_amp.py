@@ -95,6 +95,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import zlib
 
 import numpy as np
@@ -110,6 +111,7 @@ from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...data import (augment_images, directory_imagenet, format_loader_line,
                      load_batch, normalize_images, synthetic_imagenet)
 from ...models import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
+from ...prof.capture import scope
 from .. import _telemetry
 from ...ops import (PallasConv, conv_dispatch_stats, publish_conv_counters,
                    reset_conv_dispatch_stats)
@@ -142,6 +144,10 @@ def parse(argv=None):
                         "carried as a few large per-dtype buffers "
                         "instead of one per parameter (bit for bit the "
                         "leafwise update)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="torch's deterministic algorithms (cuDNN's and "
+                        "cuBLAS's included): the JAX example's highest "
+                        "matmul precision is the port's default, TF32 off")
     p.add_argument("--keep-batchnorm-fp32", type=str, default=None)
     p.add_argument("--loss-scale", type=str, default=None,
                    help="a number, or 'dynamic'")
@@ -226,12 +232,13 @@ def synthetic_batch(batch_size: int, image_size: int, device):
 def image_loss(logits, labels, fused: bool = True):
     """Mean cross entropy of fp32 logits: the fused kernels
     (``padding_idx=-1``, smoothing 0) or log_softmax + gather."""
-    if fused:
-        return softmax_cross_entropy_loss(logits.float(), labels,
-                                          smoothing=0.0,
-                                          padding_idx=-1).mean()
-    logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(1, labels[:, None]).mean()
+    with scope("loss"):
+        if fused:
+            return softmax_cross_entropy_loss(logits.float(), labels,
+                                              smoothing=0.0,
+                                              padding_idx=-1).mean()
+        logp = F.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, labels[:, None]).mean()
 
 
 def _world(args):
@@ -245,12 +252,26 @@ def _world(args):
     return rank, world, ("data" if dist.is_initialized() else None)
 
 
+def set_deterministic(device) -> None:
+    """``--deterministic``: torch's deterministic algorithms for the rest
+    of the process, cuDNN's deterministic kernels without benchmarking,
+    and on CUDA the cuBLAS workspace that makes its GEMMs deterministic
+    (read when cuBLAS makes its first handle, so set before it)."""
+    if device.type == "cuda":
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def build(args):
     """``(state, step_fn, batch)`` for the parsed arguments (``batch``
     this rank's rows of the synthetic batch, None for a ``data``
     directory)."""
     rank, world, axis = _world(args)
     device = resolve_device(args.device)
+    if args.deterministic:
+        set_deterministic(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -48,9 +48,11 @@ run-health rules over it (on by default with ``--telemetry``; a
 export live Prometheus metrics; each defaults from the JAX example's
 environment variable.  A run without them is bit for bit the same.
 
-Runs on CUDA unless given ``--device cpu``; raises without a GPU.  Not
-ported: sequence parallelism (``--sp``, ROADMAP queue 1 item 3,
-"Sharding").
+``--attention {full,blockwise,flash}`` picks the GPT's attention
+(``flash`` by default: the kernels on CUDA).  Runs on CUDA unless given
+``--device cpu``; raises without a GPU.  Not ported: sequence
+parallelism (``--sp`` and ``--attention ring/ring_flash/ulysses``,
+ROADMAP queue 1 item 3, "Sharding").
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from ... import cache, checkpoint, runtime, training
 from ..._device import resolve_device
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...models import GPT
+from ...prof.capture import scope
 from .. import _telemetry
 
 
@@ -95,8 +98,14 @@ def parse(argv=None):
     p.add_argument("--kv-heads", type=int, default=None,
                    help="GQA/MQA: kv heads shared across query heads "
                         "(must divide --heads)")
+    p.add_argument("--attention", type=str, default="flash",
+                   choices=["full", "blockwise", "flash", "ring",
+                            "ring_flash", "ulysses"],
+                   help="the GPT's attention_impl (ring, ring_flash and "
+                        "ulysses are sequence parallel: not ported)")
     p.add_argument("--window", type=int, default=None,
-                   help="sliding-window local attention (causal)")
+                   help="sliding-window local attention (causal; needs "
+                        "--attention flash)")
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="K steps per host call (runtime.StepPipeline: on "
                         "CUDA one captured graph of K steps); --steps "
@@ -131,15 +140,16 @@ def lm_loss(logits, labels, smoothing: float = 0.0, fused: bool = False):
     fp32; label 0 is padding and contributes 0.  ``fused``: the fused
     cross-entropy kernels; otherwise the JAX example's
     ``--no-fused-loss`` composition."""
-    flat = logits.reshape(-1, logits.shape[-1])
-    labels = labels.reshape(-1)
-    if fused:
-        return softmax_cross_entropy_loss(flat, labels, smoothing).mean()
-    logp = F.log_softmax(flat.float(), dim=-1)
-    nll = -logp.gather(-1, labels[:, None])[:, 0]
-    smooth = -logp.mean(dim=-1)
-    losses = (1.0 - smoothing) * nll + smoothing * smooth
-    return torch.where(labels == 0, 0.0, losses).mean()
+    with scope("loss"):
+        flat = logits.reshape(-1, logits.shape[-1])
+        labels = labels.reshape(-1)
+        if fused:
+            return softmax_cross_entropy_loss(flat, labels, smoothing).mean()
+        logp = F.log_softmax(flat.float(), dim=-1)
+        nll = -logp.gather(-1, labels[:, None])[:, 0]
+        smooth = -logp.mean(dim=-1)
+        losses = (1.0 - smoothing) * nll + smoothing * smooth
+        return torch.where(labels == 0, 0.0, losses).mean()
 
 
 def synthetic_batch(batch_size: int, seq_len: int, vocab: int, device):
@@ -148,6 +158,9 @@ def synthetic_batch(batch_size: int, seq_len: int, vocab: int, device):
     ids = np.random.RandomState(0).randint(1, vocab, (batch_size, seq_len))
     ids = torch.from_numpy(ids).to(device)
     return ids[:, :-1], ids[:, 1:]
+
+
+_SEQUENCE_PARALLEL = ("ring", "ring_flash", "ulysses")
 
 
 def _loss_scale(value):
@@ -161,6 +174,12 @@ def build(args):
     if not args.synthetic:
         raise SystemExit("only --synthetic data is implemented; pass "
                          "--synthetic")
+    if args.attention in _SEQUENCE_PARALLEL:
+        raise SystemExit(
+            f"--attention {args.attention} is sequence parallel and not "
+            f"ported yet (ROADMAP queue 1 item 3, \"Sharding\")")
+    if args.window is not None and args.attention != "flash":
+        raise SystemExit("--window needs --attention flash")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,7 +187,7 @@ def build(args):
     model = GPT(vocab_size=args.vocab, hidden_size=args.hidden,
                 num_layers=args.layers, num_heads=args.heads,
                 mlp_dim=4 * args.hidden, max_len=args.seq_len,
-                dtype=torch.bfloat16, attention_impl="flash",
+                dtype=torch.bfloat16, attention_impl=args.attention,
                 num_kv_heads=args.kv_heads, window=args.window,
                 device=device, seed=0)
     smoothing, fused = args.smoothing, args.fused_loss
@@ -202,8 +221,8 @@ def train(args, log=print) -> dict:
     n_params = sum(p.numel() for p in state.params.values())
     k = max(1, args.steps_per_call)
     log(f"GPT {args.layers}L/{args.hidden}H  {n_params / 1e6:.1f}M params  "
-        f"attention=flash  opt_level = {args.opt_level}  steps_per_call "
-        f"{k}  on {batch[0].device}")
+        f"attention={args.attention}  opt_level = {args.opt_level}  "
+        f"steps_per_call {k}  on {batch[0].device}")
     steps = runtime.round_steps(args.steps, k, "--steps", log)
     mgr, restored = checkpoint.open_for_training(
         args.checkpoint_dir, state, every_steps=args.checkpoint_every,
@@ -256,7 +275,7 @@ def run(argv=None, log=print) -> dict:
     ends.  Returns :func:`train`'s result."""
     args = parse(argv)
     rec = _telemetry.start(args, "lm", log=log, opt_level=args.opt_level,
-                           attention="flash",
+                           attention=args.attention,
                            steps_per_call=args.steps_per_call)
     try:
         res = train(args, log=log)

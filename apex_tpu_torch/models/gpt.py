@@ -43,6 +43,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..normalization import FusedLayerNorm
+from ..prof.capture import scope
 from .bert import BertSelfAttention, _dense_factory
 
 
@@ -164,12 +165,15 @@ class GPT(nn.Module):
         if t > self.max_len:
             raise ValueError(f"sequence of {t} tokens exceeds max_len="
                              f"{self.max_len}")
-        pos = torch.arange(t, device=input_ids.device)
-        x = (self.wte[input_ids] + self.wpe[pos][None]).to(self.dtype)
-        for block in self.blocks():
-            x = block(x)
-        x = self.ln_f(x)
-        return x.float() @ self.wte.float().T
+        with scope("embed"):
+            pos = torch.arange(t, device=input_ids.device)
+            x = (self.wte[input_ids] + self.wpe[pos][None]).to(self.dtype)
+        for i, block in enumerate(self.blocks()):
+            with scope(f"block_{i}"):
+                x = block(x)
+        with scope("head"):
+            x = self.ln_f(x)
+            return x.float() @ self.wte.float().T
 
 
 def gpt2_small(**kw) -> GPT:

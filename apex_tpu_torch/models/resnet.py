@@ -64,6 +64,7 @@ from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils import checkpoint as _checkpoint
 
 from .._device import resolve_device
+from ..prof.capture import scope
 from .bert import DenseGeneral, lecun_normal_
 
 
@@ -386,15 +387,19 @@ class ResNet(nn.Module):
                                  device=dev, generator=gen)
 
     def forward(self, x, train: bool = True):
-        x = self.conv_init(x)
-        x = self.bn_init(x, use_running_average=not train)
-        if not self.fused:
-            x = F.relu(x)
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        with scope("stem"):
+            x = self.conv_init(x)
+            x = self.bn_init(x, use_running_average=not train)
+            if not self.fused:
+                x = F.relu(x)
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(
+                0, 2, 3, 1)
         for name in self.block_names:
-            x = getattr(self, name)(x, train)
-        x = x.mean(dim=(1, 2))
-        return self.head(x).float()
+            with scope(name):
+                x = getattr(self, name)(x, train)
+        with scope("head"):
+            x = x.mean(dim=(1, 2))
+            return self.head(x).float()
 
     def variables(self):
         """``(params, batch_stats)``: the parameters and the running

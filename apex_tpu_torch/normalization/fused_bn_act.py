@@ -53,6 +53,7 @@ import functools
 import torch
 
 from .. import _build
+from ..prof import costs as _costs
 
 __all__ = ["bn_relu_residual", "bn_act_epilogue_ref"]
 
@@ -296,7 +297,11 @@ class _Epilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, mean, invstd, scale, bias, z2d, relu):
-        if x2d.is_cuda:
+        walk = _costs.counting(x2d)
+        if walk is not None:
+            out = walk.kernel(_costs.bn_act_fwd(x2d, z2d), _fwd_ref, x2d,
+                              mean, invstd, scale, bias, z2d, relu)
+        elif x2d.is_cuda:
             out = bn_act_fwd_kernel(x2d, mean, invstd, scale, bias, z2d,
                                     relu)
         else:
@@ -310,12 +315,20 @@ class _Epilogue(torch.autograd.Function):
     def backward(ctx, g):
         x2d, mean, invstd, scale, bias, z2d = ctx.saved_tensors
         relu = ctx.relu
-        if not x2d.is_cuda:
+        walk = _costs.counting(x2d)
+        if not x2d.is_cuda and walk is None:
             dx, d_mean, d_invstd, d_scale, d_bias, dz = _bwd_ref(
                 g, x2d, mean, invstd, scale, bias, z2d, relu)
         else:
-            dx, dz = bn_act_bwd_kernel(g.contiguous(), x2d, mean, invstd,
-                                       scale, bias, z2d, relu)
+            # under a count, the card's split: the kernel's (dx, dz) by
+            # its formula, the channel sums as the ops they are
+            if walk is not None:
+                dx, dz = walk.kernel(
+                    _costs.bn_act_bwd(x2d, z2d, relu), _bwd_act_ref, g, x2d,
+                    mean, invstd, scale, bias, z2d, relu)
+            else:
+                dx, dz = bn_act_bwd_kernel(g.contiguous(), x2d, mean,
+                                           invstd, scale, bias, z2d, relu)
             gf = _masked_cotangent(g, x2d, mean, invstd, scale, bias, z2d,
                                    relu)
             d_mean, d_invstd, d_scale, d_bias = _channel_sums(

@@ -49,6 +49,7 @@ import torch
 from torch import nn
 
 from .. import _build
+from ..prof import costs as _costs
 from .._device import resolve_device
 
 
@@ -252,6 +253,10 @@ _build.counted(layer_norm_bwd_kernel)
 def layer_norm_fwd(x2d, weight, bias, eps):
     """``(out, mean, invvar)`` of a ``[n1, n2]`` input, no gradient: the
     kernel for a CUDA tensor, the plain version for a CPU one."""
+    walk = _costs.counting(x2d)
+    if walk is not None:
+        return walk.kernel(_costs.layer_norm_fwd(x2d, weight, bias),
+                           _fwd_ref, x2d, weight, bias, eps)
     if not x2d.is_cuda:
         return _fwd_ref(x2d, weight, bias, eps)
     return layer_norm_fwd_kernel(x2d.contiguous(), weight, bias, eps)
@@ -260,6 +265,10 @@ def layer_norm_fwd(x2d, weight, bias, eps):
 def layer_norm_bwd_input(g2d, x2d, mean, invvar, weight):
     """``dx`` of a ``[n1, n2]`` input: the kernel for a CUDA tensor, the
     plain version for a CPU one."""
+    walk = _costs.counting(x2d)
+    if walk is not None:
+        return walk.kernel(_costs.layer_norm_bwd(g2d, x2d, weight),
+                           _bwd_input_ref, g2d, x2d, mean, invvar, weight)
     if not x2d.is_cuda:
         return _bwd_input_ref(g2d, x2d, mean, invvar, weight)
     return layer_norm_bwd_kernel(g2d.contiguous(), x2d, mean, invvar,

@@ -105,3 +105,8 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def mha_attention(q, k, v, **kw):
+    """Alias choosing the blockwise path (public name)."""
+    return blockwise_attention(q, k, v, **kw)

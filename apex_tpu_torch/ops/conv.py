@@ -62,6 +62,7 @@ from torch import nn
 
 from .. import _build
 from .._device import resolve_device
+from ..prof import costs as _costs
 from ..normalization.fused_bn_act import _bwd_ref as _ep_bwd_ref
 from ..normalization.fused_bn_act import _fwd_ref as _ep_fwd_ref
 from ..normalization.fused_bn_act import bn_act_epilogue_ref
@@ -490,8 +491,15 @@ class _Conv(torch.autograd.Function):
     def forward(ctx, x, w, mean, invstd, scale, bias, z, relu, stride,
                 padding, dilation, groups):
         epilogue = mean is not None
-        kernel = x.is_cuda and groups == 1
-        if kernel:
+        walk = _costs.counting(x)
+        kernel = (x.is_cuda or walk is not None) and groups == 1
+        if kernel and walk is not None:
+            oh, ow = _geometry(x.shape, w.shape, stride, padding, dilation)
+            out, y = walk.kernel(
+                _costs.conv_fwd(x, w, (oh, ow), epilogue), _fwd_ref, x, w,
+                stride, padding, dilation, mean, invstd, scale, bias, z,
+                relu, want_preact=epilogue)
+        elif kernel:
             x, w = x.contiguous(), w.contiguous()
             z = None if z is None else z.contiguous()
             out, y = conv_fwd_kernel(x, w, stride, padding, dilation, mean,
@@ -519,7 +527,17 @@ class _Conv(torch.autograd.Function):
                                                          None, None, None)
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if kernel:
+        walk = _costs.counting(x)
+        if kernel and walk is not None:
+            if need_dx:
+                dx = walk.kernel(
+                    _costs.conv_dgrad(dy, w, x.shape), _dgrad_ref, dy, w,
+                    stride, padding, dilation, x.shape[1:3])
+            if need_dw:
+                dw = walk.kernel(
+                    _costs.conv_wgrad(x, dy, w.shape), _wgrad_ref, x, dy,
+                    stride, padding, dilation, w.shape[:2])
+        elif kernel:
             dy = dy.contiguous()
             if need_dx:
                 dx = conv_dgrad_kernel(dy, w, stride, padding, dilation,

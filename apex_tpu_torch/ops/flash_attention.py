@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ..prof import costs as _costs
 
 NEG_INF = -1e30
 
@@ -516,6 +517,22 @@ _build.counted(flash_bwd_db2_kernel)
 
 # -- autograd --------------------------------------------------------------------
 
+def _counted_bwd(walk, ctx, q, k, v, kbias, bias, out, lse, do, kw):
+    """The backward under an analytic count: the dQ and dK/dV kernels'
+    costs (and db2's when the bias needs a gradient), the plain
+    version's arithmetic with its ops hidden."""
+    masks = dict(causal=kw["causal"], q_offset=kw["q_offset"],
+                 window=kw["window"])
+    cost = [_costs.flash_bwd_dq(q, k, v, kbias, bias, **masks),
+            _costs.flash_bwd_dkv(q, k, v, kbias, bias,
+                                 kbias_grad=ctx.needs_input_grad[3],
+                                 **masks)]
+    if ctx.needs_input_grad[4]:
+        cost.append(_costs.flash_bwd_db2(q, k, v, bias, **masks))
+    return walk.kernel(cost, _flash_bwd_ref, q, k, v, kbias, bias, out,
+                       lse, do, **kw)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, saving ``out`` and ``lse``; backward the dQ and
     dK/dV kernels (and the bias-gradient kernel when the ``[B, T, S]``
@@ -526,8 +543,15 @@ class _FlashAttention(torch.autograd.Function):
                 window):
         kw = dict(sm_scale=sm_scale, causal=causal, q_offset=q_offset,
                   window=window)
-        fwd = flash_fwd_kernel if q.is_cuda else _flash_fwd_ref
-        out, lse = fwd(q, k, v, kbias, bias, **kw)
+        walk = _costs.counting(q)
+        if walk is not None:
+            out, lse = walk.kernel(
+                _costs.flash_fwd(q, k, v, kbias, bias, causal=causal,
+                                 q_offset=q_offset, window=window),
+                _flash_fwd_ref, q, k, v, kbias, bias, **kw)
+        else:
+            fwd = flash_fwd_kernel if q.is_cuda else _flash_fwd_ref
+            out, lse = fwd(q, k, v, kbias, bias, **kw)
         ctx.save_for_backward(q, k, v, kbias, bias, out, lse)
         ctx.kw = kw
         return out
@@ -537,7 +561,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, kbias, bias, out, lse = ctx.saved_tensors
         kw = ctx.kw
-        if q.is_cuda:
+        walk = _costs.counting(q)
+        if walk is not None:
+            dq, dk, dv, dkb, db = _counted_bwd(walk, ctx, q, k, v, kbias,
+                                               bias, out, lse, do, kw)
+        elif q.is_cuda:
             do = do if do.stride(-1) == 1 else do.contiguous()
             delta = _delta(do, out)
             dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias,

@@ -83,9 +83,24 @@ def _init_method(coordinator: str) -> str:
     return coordinator if "://" in coordinator else f"tcp://{coordinator}"
 
 
+def _local_device(local_device_ids, device) -> torch.device:
+    """The CUDA device ``local_device_ids`` names (one id, or a sequence
+    of one)."""
+    if device is not None:
+        raise ValueError("pass device= or local_device_ids=, not both")
+    ids = ([local_device_ids] if isinstance(local_device_ids, int)
+           else list(local_device_ids))
+    if len(ids) != 1:
+        raise ValueError(
+            f"local_device_ids={local_device_ids!r}: NCCL takes one rank a "
+            f"GPU, so a process drives exactly one device id")
+    return torch.device("cuda", int(ids[0]))
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, *,
+               process_id: Optional[int] = None,
+               local_device_ids=None, *,
                device=None, backend: Optional[str] = None
                ) -> Tuple[int, int]:
     """Join the process group; returns ``(rank, world_size)``.
@@ -96,8 +111,14 @@ def initialize(coordinator_address: Optional[str] = None,
     ``device`` (default CUDA) picks the backend: NCCL for a CUDA device
     (which becomes the current device, ``cuda:<rank % visible>``), gloo
     for the CPU; ``backend`` overrides it (``"gloo"`` on CUDA tensors
-    takes ``all_reduce`` and ``broadcast`` only, eagerly).  A second
-    call returns the identity the first established."""
+    takes ``all_reduce`` and ``broadcast`` only, eagerly).
+    ``local_device_ids`` (JAX's argument) names this process's GPU: one
+    id, or a one-item sequence, is ``device=torch.device("cuda", id)``;
+    NCCL takes one rank a GPU, so more ids raise ``ValueError``, as does
+    passing ``device`` beside it.  A second call returns the identity
+    the first established."""
+    if local_device_ids is not None:
+        device = _local_device(local_device_ids, device)
     if _STATE["initialized"]:
         return _STATE["procs"]
     if dist.is_initialized():                  # someone else made it
@@ -127,7 +148,8 @@ def initialize(coordinator_address: Optional[str] = None,
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.cuda.set_device(rank % torch.cuda.device_count()
+                              if dev.index is None else dev.index)
     dist.init_process_group(
         backend=backend, init_method=_init_method(coordinator_address),
         world_size=world, rank=rank)

@@ -45,6 +45,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..prof import costs as _costs
 
 __all__ = ["amax_to_scale", "quantize", "dequantize", "channel_scale",
            "quantized_matmul", "quantized_matmul_ref", "saturation_count",
@@ -252,8 +253,13 @@ class _QuantizedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, w2d, x_scale, w_scale, use_kernel):
         qw = weight_layout(w2d, w_scale)                       # [N, Kp]
-        qmm = qmm_kernel if use_kernel else _qmm_ref
-        out = qmm(x2d, qw, x_scale, w_scale, x2d.dtype)
+        walk = _costs.counting(x2d)
+        if use_kernel and walk is not None:
+            out = walk.kernel(_costs.qmm(x2d, qw), _qmm_ref, x2d, qw,
+                              x_scale, w_scale, x2d.dtype)
+        else:
+            qmm = qmm_kernel if use_kernel else _qmm_ref
+            out = qmm(x2d, qw, x_scale, w_scale, x2d.dtype)
         ctx.save_for_backward(x2d, w2d)
         ctx.scale_shapes = (x_scale.shape, w_scale.shape, x_scale.device)
         return out
@@ -283,6 +289,10 @@ def _quantized_matmul_prepared(x2d, qw, w_scale, x_scale,
     callers that record no gradient: the kernel on CUDA, :func:`_qmm_ref`
     on the CPU or for ``impl="jnp"``; ``x2d`` ``[M, K]``, the result in
     its dtype."""
+    walk = _costs.counting(x2d)
+    if walk is not None and impl != "jnp":
+        return walk.kernel(_costs.qmm(x2d, qw), _qmm_ref, x2d, qw, x_scale,
+                           w_scale, x2d.dtype)
     if x2d.is_cuda and impl != "jnp":
         return qmm_kernel(x2d, qw, x_scale, w_scale, x2d.dtype)
     return _qmm_ref(x2d, qw, x_scale, w_scale, x2d.dtype)
@@ -327,6 +337,7 @@ def quantized_matmul(x, w, *, x_scale, w_scale=None,
     w_scale = _f32(w_scale, x.device).reshape(w.shape[1])
     lead = x.shape[:-1]
     x2d = x.reshape(-1, k)
-    use_kernel = x2d.is_cuda and impl != "jnp"
+    use_kernel = ((x2d.is_cuda or _costs.counting(x2d) is not None)
+                  and impl != "jnp")
     out = _QuantizedMatmul.apply(x2d, w, x_scale, w_scale, use_kernel)
     return out.reshape(*lead, w.shape[1])

@@ -420,19 +420,20 @@ class StepPipeline:
     def _run_window(self, program, state, window, valid, device, rec=None):
         if device.type != "cuda":
             fn = self.loop if program == "hot" else self.tail_loop
-            if rec is None:
-                return fn(state, window, valid)
-            # a program's first run, or a new window signature, is the
-            # CPU's counterpart of a capture
+            # a program's first run for a window signature is the CPU's
+            # counterpart of a capture (``prof.trace_count`` counts them)
             sig = _window_sig(window)
-            if sig in self._sigs_seen[program]:
+            seen = self._sigs_seen[program]
+            if rec is None:
+                seen.add(sig)
+                return fn(state, window, valid)
+            if sig in seen:
                 with _events._pipeline_notes(False):
                     return fn(state, window, valid)
             t0 = time.perf_counter()
             with _events._pipeline_notes(True):
                 out = fn(state, window, valid)
-            self._note_retrace(rec, program, sig,
-                               len(self._sigs_seen[program]) + 1,
+            self._note_retrace(rec, program, sig, len(seen) + 1,
                                time.perf_counter() - t0)
             return out
         key = (program, _cache.signature(window))

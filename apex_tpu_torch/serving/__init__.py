@@ -3,6 +3,7 @@ the weight watcher behind its hot-swap."""
 
 from .engine import Completion, Request, ServedResult, ServingEngine
 from .hotswap import WeightWatcher
+from .kv_cache import PageAllocator, make_pool
 
 __all__ = ["Completion", "Request", "ServedResult", "ServingEngine",
-           "WeightWatcher"]
+           "WeightWatcher", "PageAllocator", "make_pool"]

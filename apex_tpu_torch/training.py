@@ -63,6 +63,7 @@ from .multi_tensor import flatten_tree
 from .multi_tensor.buckets import cached_store
 from .optimizers import functional as F
 from .parallel import distributed as _dist
+from .prof.capture import scope
 
 _SHARDING = 'ROADMAP queue 1 item 3, "Sharding"'
 
@@ -263,7 +264,11 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
         new model state); ``view`` maps the leaves to what ``loss_fn``
         takes, inside the differentiated function."""
         with torch.enable_grad():
-            p = leaves if view is None else view(leaves)
+            if view is None:
+                p = leaves
+            else:
+                with scope("cast"):
+                    p = view(leaves)
             if has_model_state:
                 loss, new_ms = loss_fn(p, model_state, batch)
             else:
@@ -319,15 +324,18 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                 allreduce_always_fp32=allreduce_always_fp32,
                 axis_index_groups=axis_index_groups,
                 bucket_store=cached_store(grad_store, grads))
-        grads, scaler_state = scaler.unscale(grads, state.scaler)
-        if scaler.dynamic and group is not None:
-            scaler_state = scaler_state._replace(
-                overflow=_dist.por(scaler_state.overflow, group))
-        apply_mask = (torch.logical_not(scaler_state.overflow)
-                      if scaler.dynamic else None)
-        new_params, new_opt = optimizer.update(
-            grads, state.opt_state, state.params, apply_mask=apply_mask)
-        scaler_state = scaler.update_scale(scaler_state)
+        with scope("scaler"):
+            grads, scaler_state = scaler.unscale(grads, state.scaler)
+            if scaler.dynamic and group is not None:
+                scaler_state = scaler_state._replace(
+                    overflow=_dist.por(scaler_state.overflow, group))
+            apply_mask = (torch.logical_not(scaler_state.overflow)
+                          if scaler.dynamic else None)
+        with scope("optimizer"):
+            new_params, new_opt = optimizer.update(
+                grads, state.opt_state, state.params, apply_mask=apply_mask)
+        with scope("scaler"):
+            scaler_state = scaler.update_scale(scaler_state)
         _autocast.clear_cast_cache()
         if group is not None:
             # a replicated loss, and replicated BN statistics

@@ -17,8 +17,10 @@ imperative amp API (``amp.initialize``, ``scale_loss``, ``FusedAdam``,
 of its trainer's modes, checks the card's answers against the CPU's,
 trains ResNet-50 from a directory of images killed and resumed, resumes
 the LM trainer from its checkpoint, hot-swaps trained weights into a
-serving engine, trains ResNet-50 data parallel, and records, exports and
-reads back the run telemetry of the LM trainer and the serving engine.
+serving engine, trains ResNet-50 data parallel, records, exports and
+reads back the run telemetry of the LM trainer and the serving engine,
+and runs the profiling stages (capture, parse, analysis, roofline, the
+memory ledger, capture counts) over the LM and ResNet-50 steps.
 
     python3 chip_smoke.py [--out results.json] [--was PARENT_CHECKOUT]
 
@@ -333,13 +335,29 @@ line):
    captures as ``retrace`` events and none while serving; TPOT p50/p99
    and tokens/s of the four runs, and the host us of one ``span`` and
    one ``decode`` event through a recorder with the traced run's
-   attachments.
+   attachments;
+31. the profiling stages (``apex_tpu_torch.prof``) over phase 20's LM
+   (GPT-2 small O2 B 8 T 1023) and ResNet-50 (O2 B 128) training steps:
+   ``roofline.harvest_costs`` on fake CUDA tensors equal to the same on
+   fake CPU tensors (FLOPs, bytes, products), two eager steps under
+   ``prof.trace``, parsed by ``prof.parse``: the per-kind device ms
+   equal to ``trace_steps``' from the same trace within 0.1%, the
+   launches per kernel equal to the counters, ``<unattributed>`` under
+   5% of the kernel time; the MFU of the captured K 8 step in (0, 1) on
+   the card's data-sheet peaks (``roofline.load_peaks``), the LM's
+   products within 10% of the hand count; ``harvest_memory`` over one
+   real step with its peak equal to ``max_memory_allocated``;
+   ``assert_trace_count``: one capture of the LM pipeline and none
+   after, 4 captures at phase 5's engine warmup and none while it serves
+   phase 5's load, traced; that trace's decode steps' host time split
+   into the CPU events inside each ``decode[b]`` range and the gaps
+   between them (``prof.parse.range_host_time``).
 
-Phases 24-30 write their data under temporary directories, removed at
+Phases 24-31 write their data under temporary directories, removed at
 the end.  The phases run in the order 1-4, 17's calibration, 20, 29, 21
 (all but its traces), 22, 23, 5, 30, 17's served load, 6 (with 17's
 traces),
-7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28: the eager
+7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31: the eager
 sides of 20-23, 5 and
 17, and 29-30, run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
@@ -380,12 +398,6 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
-            torch.float16: 989e12,   # dense tensor-core fp16
-            torch.float32: 67e12,    # fp32 outside the tensor cores
-            torch.int8: 1979e12}     # dense tensor-core int8
 
 # kernel launches per serving forward (prefill or decode step)
 SERVE_PER_FORWARD = {"layer_norm_fwd": 25, "flash_attention_fwd": 12}
@@ -450,12 +462,18 @@ def _events_ms(run) -> float:
     return start.elapsed_time(stop)
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
-    """(bound_ms, bound_by): the least time for the bytes over the memory
-    rate and for the operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def costs():
+    """The package's kernel cost formulas (``apex_tpu_torch.prof.costs``:
+    the work each kernel call needs, and its bound on the card's peaks),
+    the ones the analytic walk counts."""
+    return importlib.import_module("apex_tpu_torch.prof.costs")
+
+
+def bound(cost) -> tuple:
+    """(bound_ms, bound_by) of a :class:`KernelCost`: the least time for
+    its bytes over the memory rate and its operations over the peak rate
+    of their type (``costs.HBM_BYTES_PER_S``, ``costs.PEAK_OPS``)."""
+    return costs().bound(cost)
 
 
 def max_err(a, b) -> float:
@@ -481,9 +499,7 @@ def layer_norm_cases(fln, dev):
             err = max(max_err(g, t) for g, t in zip(got, want))
             name = f"layer_norm [{rows}, 768] {str(dtype)[6:]}"
             check(err <= tol, f"{name}: max_abs_err {err:.3g} <= {tol}")
-            isz = x.element_size()
-            nbytes = 2 * rows * 768 * isz + 2 * 768 * 4 + 2 * rows * 4
-            bms, by = bound(nbytes, 8 * rows * 768, torch.float32)
+            bms, by = bound(costs().layer_norm_fwd(x, w, b))
             case = dict(
                 case=name, max_abs_err=err,
                 ms=time_ms(lambda: fln.layer_norm_fwd_kernel(x, w, b, 1e-5)),
@@ -523,8 +539,7 @@ def layer_norm_large_mean(fln, dev):
           and two_err > 10 * kern_err and err <= 1e-5,
           f"{name}: invvar err {kern_err:.3g} (two-pass formula "
           f"{two_err:.3g}), max_abs_err {err:.3g} <= 1e-5")
-    bms, by = bound(2 * x.numel() * 4 + 2 * 1024 * 4, 8 * x.numel(),
-                    torch.float32)
+    bms, by = bound(costs().layer_norm_fwd(x, None, None))
     case = dict(case=name, max_abs_err=err, invvar_err=kern_err,
                 two_pass_invvar_err=two_err,
                 ms=time_ms(lambda: fln.layer_norm_fwd_kernel(x, None, None,
@@ -540,19 +555,6 @@ def layer_norm_large_mean(fln, dev):
 
 
 # -- phase 4: flash attention --------------------------------------------------
-
-def _visible_pairs(b, tq, tk, causal, q_offset, window, kbias):
-    """Query-key pairs the masks of this call leave visible, summed over
-    batch (per head): the work these inputs need."""
-    if kbias is not None:                 # decode: the live cache keys
-        return int((kbias == 0).sum().item()) * tq
-    if not causal:
-        return b * tq * tk
-    n = np.minimum(q_offset + np.arange(tq) + 1, tk)
-    if window is not None:
-        n = np.minimum(n, window)
-    return b * int(n.sum())
-
 
 def flash_cases(fa, dev):
     rng = np.random.RandomState(1)
@@ -623,16 +625,8 @@ def flash_cases(fa, dev):
         check(err <= tol and lse_err <= 1e-3,
               f"flash {name}: max_abs_err {err:.3g} <= {tol}, lse "
               f"{lse_err:.3g} <= 1e-3")
-        isz = q.element_size()
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz \
-            + lse.numel() * 4
-        if bias is not None:
-            nbytes += bias.numel() * 4
-        if kb is not None:
-            nbytes += kb.numel() * 4
-        pairs = _visible_pairs(b, tq, tk, causal, tk - tq, window, kb)
-        ops = 4.0 * h * d * pairs
-        bms, by = bound(nbytes, ops, dtype)
+        bms, by = bound(costs().flash_fwd(q, k, v, kb, bias, causal=causal,
+                                          q_offset=tk - tq, window=window))
         # the library call gets KV heads repeated up front (untimed)
         qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2)
                       .transpose(1, 2) for x in (q, k, v))
@@ -722,9 +716,7 @@ def layer_norm_bwd_cases(fln, dev):
             err = max_err(got, want)
             name = f"layer_norm_bwd [{rows}, 768] {str(dtype)[6:]}"
             check(err <= tol, f"{name}: max_abs_err {err:.3g} <= {tol}")
-            isz = x.element_size()
-            nbytes = 3 * rows * 768 * isz + 2 * rows * 4 + 768 * 4
-            bms, by = bound(nbytes, 10 * rows * 768, torch.float32)
+            bms, by = bound(costs().layer_norm_bwd(g, x, w))
             wd = w.to(dtype)
             m2, r2 = mean[:, None], invvar[:, None]
             case = dict(
@@ -838,16 +830,10 @@ def flash_bwd_cases(fa, dev):
               + f" <= {tol} (max |dq| {dq.float().abs().max().item():.3g},"
               f" |dk| {dk.float().abs().max().item():.3g})")
         del want
-        isz = q.element_size()
-        pairs = _visible_pairs(b, tq, tk, causal, q_offset, window, None) * h
-        rows_bytes = 2 * b * h * tq * 4                     # lse, delta
-        dq_bytes = (3 * q.numel() + k.numel() + v.numel()) * isz + rows_bytes
-        dkv_bytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) * isz \
-            + rows_bytes + (b * h * tk * 4 if kgrad else 0)
-        for extra in (kb, bias):
-            if extra is not None:
-                dq_bytes += extra.numel() * 4
-                dkv_bytes += extra.numel() * 4
+        masks = dict(causal=causal, q_offset=q_offset, window=window)
+        dq_cost = costs().flash_bwd_dq(q, k, v, kb, bias, **masks)
+        dkv_cost = costs().flash_bwd_dkv(q, k, v, kb, bias, kbias_grad=kgrad,
+                                         **masks)
         plain_ms = time_ms(run_plain, iters=3)
         # the library yardstick: SDPA's backward on a retained graph,
         # KV heads repeated up front (untimed)
@@ -869,11 +855,10 @@ def flash_bwd_cases(fa, dev):
         # milliseconds of work)
         library_ms = eager_ms(lambda: torch.autograd.grad(
             lout, (qt, kt, vt), dot, retain_graph=True), iters=5)
-        for cases, fn, n_mm, nbytes, keys in (
-                (dq_cases, run_dq, 3, dq_bytes, ("dq",)),
-                (dkv_cases, run_dkv, 4, dkv_bytes,
-                 ("dk", "dv", "dkbias"))):
-            bms, by = bound(nbytes, 2.0 * n_mm * d * pairs, dtype)
+        for cases, fn, cost, keys in (
+                (dq_cases, run_dq, dq_cost, ("dq",)),
+                (dkv_cases, run_dkv, dkv_cost, ("dk", "dv", "dkbias"))):
+            bms, by = bound(cost)
             case = dict(case=name, max_abs_err=max(
                             e for k_, e in errs.items() if k_ in keys),
                         ms=time_ms(fn, iters=5),
@@ -1047,12 +1032,6 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
     return res
 
 
-_KERNEL_KINDS = (("qmm", ("qmm_kernel",)),
-                 ("flash", ("flash_fwd_",)), ("layer_norm", ("ln_fwd",)),
-                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
-                 ("index", ("index", "gather", "scatter")))
-
-
 def preparations(model) -> int:
     """Weight preparations so far of every int8 site of ``model``."""
     from apex_tpu_torch.quant import QuantDenseGeneral
@@ -1060,12 +1039,15 @@ def preparations(model) -> int:
                if isinstance(m, QuantDenseGeneral))
 
 
+def kind_tables():
+    """The kernel-kind tables (``apex_tpu_torch.prof.parse``:
+    ``SERVING_KINDS``, ``TRAINING_KINDS``, ``RESNET_KINDS``) and
+    ``kernel_kind``, shared with the trace parser."""
+    return importlib.import_module("apex_tpu_torch.prof.parse")
+
+
 def _kind(name: str) -> str:
-    low = name.lower()
-    for kind, keys in _KERNEL_KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "other"
+    return kind_tables().kernel_kind(name, kind_tables().SERVING_KINDS)
 
 
 def where_time_goes(model, engine_mod, dev, cache_dtype=None,
@@ -1098,10 +1080,11 @@ def where_time_goes(model, engine_mod, dev, cache_dtype=None,
     ranges = sorted((e.time_range.start, e.time_range.end, e.name)
                     for e in events
                     if e.device_type == DeviceType.CPU and is_range(e.name))
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in events
                      if e.device_type == DeviceType.CUDA
-                     and not is_range(e.name))
+                     and e.name not in cpu_names)
     starts = [r[0] for r in ranges]
     steps = {}
     for lo, hi, name in ranges:
@@ -1209,14 +1192,6 @@ TRAIN_ARGS = ["--synthetic", "-b", "8", "--seq-len", "1024", "--vocab",
               "50257", "--hidden", "768", "--layers", "12", "--heads", "12",
               "--opt-level", "O2", "--lr", "3e-4", "--weight-decay", "0.1"]
 
-_TRAIN_KINDS = (("qmm", ("qmm_kernel",)),
-                ("flash_fwd", ("flash_fwd_",)),
-                ("flash_bwd", ("flash_bwd_",)),
-                ("layer_norm", ("ln_fwd", "ln_bwd")),
-                ("loss", ("xent_",)),
-                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
-                ("optimizer", ("foreach", "multi_tensor")))
-
 
 def pipeline_gate(name, pipe, steps, k=1):
     """The trainer's pipeline captured its hot loop once (K steps, after
@@ -1263,34 +1238,45 @@ def train_gpt2_small(main_amp, counters, steps=10):
     return out
 
 
-def trace_training(trainer, argv, kinds=_TRAIN_KINDS):
+def trace_training(trainer, argv, kinds=None):
     """Two training steps of ``trainer`` (an example module with
     ``parse`` and ``build``) under ``torch.profiler``: device time by
     kind and the device's idle share of the wall time."""
     return trace_steps(*trainer.build(trainer.parse(argv)), kinds)
 
 
-def trace_steps(state, step_fn, batch, kinds=_TRAIN_KINDS):
+def trace_steps(state, step_fn, batch, kinds=None, logdir=None,
+                counters=None):
     """One warm step, then two steps of ``step_fn`` under
-    ``torch.profiler``."""
+    ``torch.profiler`` (with ``logdir``, ``prof.capture.trace``'s: its
+    Chrome trace written there for ``prof.parse``); with ``counters``,
+    their launches over the two steps in ``launches``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    kinds = kinds or kind_tables().TRAINING_KINDS
     state, m = step_fn(state, batch)          # warm: compiles, allocates
     m["loss"].item()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for c in (counters or {}).values():
+        c.launches = 0
+    ctx = (importlib.import_module("apex_tpu_torch.prof.capture").trace(
+        logdir) if logdir else profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]))
+    with ctx as prof:
         t0 = time.perf_counter()
         for _ in range(2):
             state, m = step_fn(state, batch)
             m["loss"].item()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # the optimizer.update range shows on the device's timeline too: it
-    # is no kernel
+    launches = {n: c.launches for n, c in (counters or {}).items()}
+    # the user ranges (the models' scopes, optimizer.update) show on the
+    # device's timeline too: they are no kernels
+    events = prof.events()
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
-                     for e in prof.events()
+                     for e in events
                      if e.device_type == DeviceType.CUDA
-                     and e.name != "optimizer.update")
+                     and e.name not in cpu_names)
     busy, edge, by_kind, by_name = 0.0, None, {}, {}
     for lo, hi, name in kernels:
         lo2 = lo if edge is None else max(lo, edge)
@@ -1314,7 +1300,7 @@ def trace_steps(state, step_fn, batch, kinds=_TRAIN_KINDS):
                device_ms_per_step_by_kind={k: v / 2e3 for k, v in
                                            sorted(by_kind.items())},
                top_kernels_ms_per_step=[(n[:100], v / 2e3) for n, v in top],
-               kernels_per_step=len(kernels) / 2)
+               kernels_per_step=len(kernels) / 2, launches=launches)
     print(f"      traced training step: wall {res['wall_ms_per_step']:.2f} "
           f"ms, device busy {res['device_busy_ms_per_step']:.2f} ms, idle "
           f"share {res['device_idle_share']:.3f}, "
@@ -1488,14 +1474,11 @@ def bn_epilogue_cases(fba, dev):
               f"bn epilogue {name}: fwd max_abs_err {f_err:.3g} (ulps "
               f"{f_ulps}), bwd {b_err:.3g} (ulps {b_ulps}); bf16 <= 1 ulp, "
               f"fp32 <= 1e-6")
-        isz, n = x.element_size(), rows * c
-        acts_in = 2 if has_z else 1
         # each input read once, each output written once: forward x (z)
         # in, out; backward g in, dx out, x (and z) in only under ReLU,
         # dz out with a z
-        fwd_bytes = (acts_in + 1) * n * isz + 4 * c * 4
-        bwd_acts = 2 + relu + (relu and has_z) + has_z
-        bwd_bytes = bwd_acts * n * isz + 4 * c * 4
+        fwd_cost, bwd_cost = costs().bn_act_fwd(x, z), costs().bn_act_bwd(
+            x, z, relu)
         lib_fwd = lib_bwd = None
         if not relu and not has_z:
             var = 1.0 / invstd ** 2 - 1e-5
@@ -1506,14 +1489,14 @@ def bn_epilogue_cases(fba, dev):
             lib_bwd = eager_ms(lambda: torch.autograd.grad(
                 lout, xr, g, retain_graph=True), iters=10)
             del lout, xr
-        for cases, fn, plain, nbytes, ops, err, ulps, lib in (
+        for cases, fn, plain, cost, err, ulps, lib in (
                 (fwd_cases, run_fwd,
                  lambda: fba._fwd_ref(x, mean, invstd, w, b, z, relu),
-                 fwd_bytes, 6 * n, f_err, f_ulps, lib_fwd),
+                 fwd_cost, f_err, f_ulps, lib_fwd),
                 (bwd_cases, run_bwd,
                  lambda: fba._bwd_act_ref(g, x, mean, invstd, w, b, z, relu),
-                 bwd_bytes, 8 * n, b_err, b_ulps, lib_bwd)):
-            bms, by = bound(nbytes, ops, torch.float32)
+                 bwd_cost, b_err, b_ulps, lib_bwd)):
+            bms, by = bound(cost)
             case = dict(case=name, max_abs_err=err, max_bf16_ulps=ulps,
                         ms=time_ms(fn), eager_ms=eager_ms(fn),
                         plain_ms=time_ms(plain, iters=5), library_ms=lib,
@@ -1578,7 +1561,6 @@ def xentropy_cases(xent, dev):
               f"xentropy {name}: losses/mlse max_abs_err {f_err:.3g} <= "
               f"1e-4, dx {b_err:.3g} (ulps {ulps}); fp32 <= 1e-5, bf16 <= "
               f"1 ulp")
-        isz = x.element_size()
         lab64 = labels.long()
         xr = x.detach().requires_grad_(True)
         lout = F.cross_entropy(xr, lab64, reduction="none",
@@ -1589,14 +1571,14 @@ def xentropy_cases(xent, dev):
         lib_fwd = time_ms(lambda: F.cross_entropy(
             x, lab64, reduction="none", label_smoothing=smoothing,
             ignore_index=pad), iters=5)
-        for cases, fn, plain, nbytes, ops, err, lib in (
+        for cases, fn, plain, cost, err, lib in (
                 (fwd_cases, run_fwd,
                  lambda: xent._fwd_ref(x, labels, smoothing),
-                 n * v * isz + 3 * n * 4, 5 * n * v, f_err, lib_fwd),
+                 costs().xentropy_fwd(x), f_err, lib_fwd),
                 (bwd_cases, run_bwd,
                  lambda: xent._bwd_ref(g, x, mlse, labels, smoothing),
-                 2 * n * v * isz + 3 * n * 4, 5 * n * v, b_err, lib_bwd)):
-            bms, by = bound(nbytes, ops, torch.float32)
+                 costs().xentropy_bwd(x), b_err, lib_bwd)):
+            bms, by = bound(cost)
             case = dict(case=name, max_abs_err=err,
                         max_bf16_ulps=ulps if cases is bwd_cases else None,
                         ms=time_ms(fn, iters=10), eager_ms=eager_ms(fn),
@@ -1717,9 +1699,6 @@ def conv_cases(cv, fba, dev):
                    0.2 * torch.randn(o, device=dev, generator=gen),
                    torch.randn((xs[0], oh, ow, o), device=dev,
                                generator=gen).to(dtype), True)
-        macs = xs[0] * oh * ow * o * ws[0] * ws[1] * ws[2]
-        isz = x.element_size()
-        n_x, n_w, n_y = x.numel(), w.numel(), dy.numel()
         # library operands: the NCHW views of the NHWC tensors (channels-
         # last memory), the weights made channels-last, pads applied
         (pt, pb), (pl_, pr) = padding
@@ -1749,22 +1728,21 @@ def conv_cases(cv, fba, dev):
         def plain_fwd():
             return cv._fwd_ref(x, w, stride, padding, dil, *epi)[0]
         phases = [("conv_fwd", run_fwd, plain_fwd, lib_fwd, time_ms,
-                   (n_x + n_w + n_y * (2 if ep else 1)) * isz
-                   + (4 * o * 4 if ep else 0))]
+                   costs().conv_fwd(x, w, (oh, ow), bool(ep)))]
         if xs[3] != 3:                 # the stem's input needs no dx
             phases.append((
                 "conv_dgrad", run_dgrad,
                 lambda: cv._dgrad_ref(dy, w, stride, padding, dil, xs[1:3]),
                 lambda: lib_bwd([True, False, False]), eager_ms,
-                (n_y + n_w + n_x) * isz))
+                costs().conv_dgrad(dy, w, x.shape)))
         phases.append((
             "conv_wgrad", run_wgrad,
             lambda: cv._wgrad_ref(x, dy, stride, padding, dil, ws[:2]),
             lambda: lib_bwd([False, True, False]), eager_ms,
-            (n_x + n_y + n_w) * isz))
+            costs().conv_wgrad(x, dy, w.shape)))
         if only:
             phases = [ph for ph in phases if ph[0] in only[0]]
-        for kname, fn, plain, lib, lib_timer, nbytes in phases:
+        for kname, fn, plain, lib, lib_timer, cost in phases:
             got = fn()
             want = plain()
             exact = plain_within = None
@@ -1786,7 +1764,7 @@ def conv_cases(cv, fba, dev):
                 msg += f", equals conv -> plain epilogue bit for bit {exact}"
             check(ok, msg)
             del got, want, exact
-            bms, by = bound(nbytes, 2.0 * macs, dtype)
+            bms, by = bound(cost)
             case = dict(case=name, max_abs_err=err, within_1ulp=within,
                         plain_within_1ulp_of_fp64=plain_within,
                         ms=time_ms(fn, iters=10), eager_ms=eager_ms(fn,
@@ -1796,7 +1774,7 @@ def conv_cases(cv, fba, dev):
                                   else eager_ms(plain, iters=3)),
                         library_ms=(None if ep else lib_timer(lib, iters=5)),
                         bound_ms=bms, bound_by=by)
-            case["tflops"] = 2.0 * macs / case["ms"] / 1e9
+            case["tflops"] = cost.flops / case["ms"] / 1e9
             out[kname].append(case)
             lib_s = ("n/a" if case["library_ms"] is None
                      else f"{case['library_ms']:.4f} ms")
@@ -1910,9 +1888,10 @@ def conv_sites(cv, dev, was=None):
             "conv_wgrad",
             lambda: cv._wgrad_ref(x, dy, stride, padding, dil, ws[:2]),
             lambda: lib_bwd([False, True, False]), eager_ms))
-        macs = xs[0] * oh * ow * ws[3] * ws[0] * ws[1] * ws[2]
-        nbytes = (x.numel() + w.numel() + dy.numel()) * 2
-        bms, by = bound(nbytes, 2.0 * macs, torch.bfloat16)
+        # x, w and dy read or written once, the forward's multiply-adds:
+        # the same bound for the three passes
+        site_cost = costs().conv_wgrad(x, dy, w.shape)
+        bms, by = bound(site_cost)
         for kname, plain, lib, lib_timer in phases:
             run = call(cv, kname)
             got, want = run(), plain()
@@ -1931,7 +1910,7 @@ def conv_sites(cv, dev, was=None):
                                if was else None),
                        library_ms=lib_timer(lib, iters=5), bound_ms=bms,
                        bound_by=by)
-            row["tflops"] = 2.0 * macs / row["ms"] / 1e9
+            row["tflops"] = site_cost.flops / row["ms"] / 1e9
             rows.append(row)
             for k in ("ms", "was_ms", "library_ms"):
                 if row[k] is not None:
@@ -1955,22 +1934,6 @@ def conv_sites(cv, dev, was=None):
 
 IMAGENET_ARGS = ["--synthetic", "--arch", "resnet50", "-b", "128",
                  "--opt-level", "O2", "--print-freq", "1"]
-
-# the conv kernels by template mode (0 forward, 1 and 3 dgrad, 2 wgrad),
-# as the profiler names them, demangled or not
-_RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e")),
-                 ("conv_dgrad_kernel", ("conv_gemm_kernel<1", "kernelili1e",
-                                        "conv_gemm_kernel<3",
-                                        "kernelili3e")),
-                 ("conv_wgrad_kernel", ("conv_gemm_kernel<2", "kernelili2e",
-                                        "wgrad_reduce")),
-                 ("bn_epilogue", ("bn_fwd", "bn_bwd")),
-                 ("loss", ("xent_",)),
-                 ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
-                           "implicit", "xmma")),
-                 ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
-                 ("optimizer", ("foreach", "multi_tensor")),
-                 ("reduce", ("reduce",)))
 
 
 def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
@@ -2239,9 +2202,7 @@ def qmm_cases(qk, dev, was=None):
             exact = exact and not got[:, n // 3].any()
         check(exact, f"qmm {name}: equals the plain version bit for bit "
               f"{exact} (max_abs_err {max_err(got, want):.3g})")
-        isz = x.element_size()
-        nbytes = m * k * isz + n * qw.shape[1] + 4 * n + 4 + m * n * isz
-        bms, by = bound(nbytes, 2.0 * m * n * k, torch.int8)
+        bms, by = bound(costs().qmm(x, qw))
         lib = None
         qx, qkn = qk.quantize(x, xs), qw[:, :k].t()
         try:
@@ -2620,13 +2581,10 @@ def db2_cases(fa, counters, dev, was=None):
               f"|dbias| {scale:.3g}; hidden keys zero {zeros}; the op's "
               f"dbias equals the kernel's {op_same}")
         del grads
-        isz = q.element_size()
         # the bias is read where the band leaves a key visible; dbias is
         # written whole (its hidden entries are zeros)
-        pairs = _visible_pairs(b, t, t, causal, 0, window, None)
-        nbytes = ((q.numel() + k.numel() + v.numel() + do.numel()) * isz
-                  + pairs * 4 + bias.numel() * 4 + 2 * b * h * t * 4)
-        bms, by = bound(nbytes, 4.0 * d * pairs * h, dtype)
+        bms, by = bound(costs().flash_bwd_db2(q, k, v, bias, causal=causal,
+                                              q_offset=0, window=window))
         lib = None
         try:
             qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2)
@@ -4724,6 +4682,289 @@ def serving_telemetry(model, engine_mod, dev, phase5_tokens, tmp):
     return out
 
 
+# -- phase 31: the profiling stages -------------------------------------------
+
+def _on_cpu(tree):
+    """The same tree's tensors as uninitialized CPU tensors of the same
+    shapes, strides and dtypes: what the analytic walk reads."""
+    return torch.utils._pytree.tree_map(
+        lambda t: torch.empty_strided(t.shape, t.stride(), dtype=t.dtype)
+        if isinstance(t, torch.Tensor) else t, tree)
+
+
+def lm_hand_flops(b=8, t=1023, layers=12, d=768, heads=12, vocab=50257):
+    """The hand count of a GPT-2 small training step: 3 x (2 x the
+    dense and tied-head weights + 2 x 2 x head width x heads x layers x
+    the causal pairs' mean keys) x tokens (forward and the two backward
+    products of every product)."""
+    dense = layers * (4 * d * d + 2 * d * 4 * d) + vocab * d
+    attn = 4 * (d // heads) * heads * layers * (t + 1) / 2
+    return 3.0 * (2 * dense + attn) * b * t
+
+
+def model_flops(records):
+    """The products' FLOPs the model needs, from the walk's records: the
+    kernels' formulas count the work the flash backward does, which
+    recomputes the scores and their gradient's product (dQ 3 and dK/dV
+    4 products a visible pair and head, where the model's backward
+    needs 4 in all); here the backward's attention products are twice
+    the forward's, as for every other product."""
+    ledger = importlib.import_module("apex_tpu_torch.prof.ledger")
+    total = fwd = bwd = 0.0
+    for r in records:
+        if r.op not in ledger.COMPUTE_OPS:
+            continue
+        total += r.flops * r.count
+        if r.op == "flash_attention_fwd":
+            fwd += r.flops * r.count
+        elif r.op.startswith("flash_attention_bwd"):
+            bwd += r.flops * r.count
+    return total - bwd + 2 * fwd
+
+
+def _prof_step(name, build, step_ms, kinds, counters, tmp,
+               cross_check=True):
+    """One training step through the profiling stages: the analytic
+    harvest on fake CUDA and fake CPU tensors (equal), two eager steps
+    traced and parsed (per-kind device ms equal to ``trace_steps``'s,
+    launches equal to the counters, ``<unattributed>`` under 5%), the
+    MFU ledger at the captured K 8 step, and the allocator's memory
+    ledger of one real step held to its own history and to the walk."""
+    analysis = importlib.import_module("apex_tpu_torch.prof.analysis")
+    roofline = importlib.import_module("apex_tpu_torch.prof.roofline")
+    memory = importlib.import_module("apex_tpu_torch.prof.memory")
+    parse = kind_tables()
+    state, step_fn, batch = build()
+    t0 = time.perf_counter()
+    walked = analysis.profile_function(step_fn, state, batch,
+                                       xla_cost=cross_check)
+    harvest = roofline.harvest_costs(step_fn, state, batch, prof=walked)
+    harvest_s = time.perf_counter() - t0
+    on_cpu = roofline.harvest_costs(step_fn, _on_cpu(state), _on_cpu(batch),
+                                    xla=False)
+    check((on_cpu.flops, on_cpu.bytes, on_cpu.matmul_flops)
+          == (harvest.flops, harvest.bytes, harvest.matmul_flops),
+          f"prof {name}: the harvest counts {harvest.flops:.6g} FLOPs, "
+          f"{harvest.bytes:.6g} bytes on fake CUDA tensors and "
+          f"{on_cpu.flops:.6g}, {on_cpu.bytes:.6g} on fake CPU ones")
+    logdir = os.path.join(tmp, f"trace_{name}")
+    traced = trace_steps(state, step_fn, batch, kinds, logdir=logdir,
+                         counters=counters)
+    tp = parse.parse_trace(logdir, kinds=kinds)
+    parsed = {k: v["total_us"] / 2e3 for k, v in tp.by_category().items()}
+    want = traced["device_ms_per_step_by_kind"]
+    worst = max((abs(parsed.get(k, 0.0) - v) / v for k, v in want.items()
+                 if v > 0), default=0.0)
+    check(set(parsed) == set(want) and worst < 1e-3,
+          f"prof {name}: per-kind device ms parsed from the trace equal "
+          f"trace_steps' within 0.1% (worst {worst:.2e}; parsed {parsed})")
+    launched = {k: v for k, v in traced["launches"].items() if v}
+    check(tp.launches() == launched,
+          f"prof {name}: launches parsed {tp.launches()} = the counters "
+          f"{launched} over the two traced steps")
+    regions = tp.by_region()
+    unattributed = regions.get("<unattributed>", 0.0) / max(tp.total_us,
+                                                            1e-9)
+    check(unattributed < 0.05,
+          f"prof {name}: <unattributed> holds {unattributed:.4f} of the "
+          f"eager step's kernel time (< 0.05)")
+    peaks = roofline.load_peaks()
+    ledger = roofline.mfu_ledger(harvest, step_time_s=step_ms / 1e3,
+                                 peaks=peaks, top=8)
+    # MFU counts the model's products; HFU the kernels' formulas (the
+    # ledger's "mfu", as JAX's), the flash backward's recompute included
+    flops_model = model_flops(walked.records)
+    mfu = flops_model / (step_ms / 1e3) / peaks["flops"]
+    hfu = harvest.matmul_flops / (step_ms / 1e3) / peaks["flops"]
+    check(0.0 < mfu <= hfu < 1.0, f"prof {name}: MFU of the captured K 8 "
+          f"step ({step_ms:.2f} ms) {mfu:.4f} in (0, 1), at most its HFU "
+          f"{hfu:.4f}")
+    mem_state, mem_step, mem_batch = build()
+    # what the process holds besides the call (earlier phases' tensors)
+    # is in the allocator's totals, not in the walk: the three are
+    # compared on the bytes the call adds above its start
+    requested_before = torch.cuda.memory_stats().get(
+        "requested_bytes.all.current")
+    mem = memory.harvest_memory(mem_step, mem_state, mem_batch, xla=True)
+    requested = torch.cuda.memory_stats().get("requested_bytes.all.peak")
+    check(mem.source == "allocator"
+          and mem.requested_peak_bytes == requested,
+          f"prof {name}: the call's allocator history replayed peaks at "
+          f"{mem.requested_peak_bytes} requested bytes = the allocator's "
+          f"requested-bytes peak {requested}")
+    added = mem.requested_peak_bytes - requested_before
+    rounding = (mem.peak_bytes - mem.argument_bytes) / max(added, 1) - 1
+    check(abs(rounding) < 0.02,
+          f"prof {name}: harvest_memory's peak {mem.peak_bytes} "
+          f"(max_memory_allocated) adds {rounding:+.4%} to the history's "
+          f"{added} bytes above the call's start (the allocator's blocks "
+          f"round requests up; < 2%)")
+    walk_added = mem.walk_peak_bytes - mem.by_region.get("<arguments>", 0)
+    walk_rel = walk_added / max(added, 1) - 1
+    check(abs(walk_rel) < 0.05,
+          f"prof {name}: the walk's peak adds {walk_added} bytes to the "
+          f"call's arguments, within 5% of the history's ({walk_rel:+.4%})")
+    del mem_state, mem_step, mem_batch
+    measured = {r: us / 2e3 for r, us in sorted(
+        regions.items(), key=lambda kv: -kv[1])[:8]}
+    res = dict(harvest_s=harvest_s, flops=harvest.flops,
+               bytes=harvest.bytes, matmul_flops=harvest.matmul_flops,
+               flop_counter_flops=harvest.counter_flops,
+               coverage_pct=harvest.coverage_pct, step_ms_k8=step_ms,
+               model_flops=flops_model, mfu=mfu, hfu=hfu, ledger=ledger,
+               unattributed_share=unattributed,
+               measured_ms_by_region=measured, parsed_ms_by_kind=parsed,
+               parse_worst_rel=worst, launches=tp.launches(),
+               memory=dict(peak_bytes=mem.peak_bytes,
+                           requested_peak_bytes=mem.requested_peak_bytes,
+                           walk_peak_bytes=mem.walk_peak_bytes,
+                           requested_before_bytes=requested_before,
+                           walk_over_history=walk_rel,
+                           allocator_over_history=rounding,
+                           argument_bytes=mem.argument_bytes,
+                           output_bytes=mem.output_bytes,
+                           temp_bytes=mem.temp_bytes,
+                           by_region=dict(sorted(
+                               mem.by_region.items(),
+                               key=lambda kv: -kv[1])[:6])))
+    print(f"      prof {name}: {harvest.matmul_flops / 1e12:.4f} TFLOP of "
+          f"products ({harvest.flops / 1e12:.4f} all, "
+          f"{harvest.bytes / 1e9:.2f} GB; FlopCounterMode "
+          f"{(harvest.counter_flops or 0) / 1e12:.4f}) in "
+          f"{harvest_s:.1f} s; at K 8 {step_ms:.2f} ms MFU {mfu:.4f} "
+          f"({flops_model / 1e12:.4f} TFLOP of the model's products), HFU "
+          f"{hfu:.4f} ({peaks['source']}); peak memory "
+          f"{mem.peak_bytes / 2**30:.3f} GiB (requested "
+          f"{mem.requested_peak_bytes / 2**30:.3f}, walk "
+          f"{mem.walk_peak_bytes / 2**30:.3f})", flush=True)
+    print("      " + roofline.format_ledger(ledger).replace("\n", "\n      "),
+          flush=True)
+    print("      measured ms by region (eager step): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in measured.items()), flush=True)
+    return res
+
+
+def _decode_host_untraced(eng, prompts):
+    """The load once more with no profiler: the engine's host ms a decode
+    step, and the host ms of the decode graph's call (its inputs copied
+    in and the replay, ``cache.Captured.__call__``; the graph called
+    most)."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    calls, call = {}, cache.Captured.__call__
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        out = call(self, *args)
+        calls.setdefault(id(self), []).append(time.perf_counter() - t0)
+        return out
+    s0, n0 = eng.stats["decode_s"], eng.stats["decode_steps"]
+    cache.Captured.__call__ = timed
+    try:
+        eng.generate(prompts, max_new_tokens=32)
+    finally:
+        cache.Captured.__call__ = call
+    steps = eng.stats["decode_steps"] - n0
+    decode = max(calls.values(), key=len)
+    return dict(steps=steps,
+                step_ms=(eng.stats["decode_s"] - s0) / max(steps, 1) * 1e3,
+                replay_call_ms=float(np.mean(decode)) * 1e3,
+                replay_calls=len(decode))
+
+
+def prof_stages(main_amp, imagenet, models, engine_mod, counters, windows,
+                dev, tmp):
+    """Phase 31: the profiling stages over GPT-2 small and ResNet-50
+    training, the capture counts of a serving engine and a trainer's
+    pipeline, and the host time of a captured decode step."""
+    prof = importlib.import_module("apex_tpu_torch.prof")
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    parse = kind_tables()
+    out = {}
+    out["lm"] = _prof_step(
+        "gpt2_small O2", lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
+        windows["lm_o2"]["k8"]["step_ms"], parse.TRAINING_KINDS, counters,
+        tmp)
+    hand = lm_hand_flops()
+    rel = out["lm"]["model_flops"] / hand - 1
+    check(abs(rel) < 0.10, f"prof gpt2_small O2: "
+          f"{out['lm']['model_flops']:.5g} FLOPs of the model's products "
+          f"within 10% of the hand count {hand:.5g} ({rel:+.4f}; the "
+          f"kernels' formulas {out['lm']['matmul_flops']:.5g})")
+    out["lm"]["hand_flops"] = hand
+    out["resnet50"] = _prof_step(
+        "resnet50 O2", lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
+        windows["resnet50_o2"]["k8"]["step_ms"], parse.RESNET_KINDS,
+        counters, tmp, cross_check=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one hot capture for a trainer's pipeline, none after
+    state, step_fn, batch = main_amp.build(main_amp.parse(TRAIN_ARGS))
+    pipe = runtime.StepPipeline(step_fn, 1)
+    window = tuple(t.unsqueeze(0) for t in batch)
+    try:
+        with prof.assert_trace_count(pipe, 1):
+            pipe.warmup(state, window)
+            state, _ = pipe.step_window(state, window)
+        with prof.assert_trace_count(pipe, 0):
+            pipe.step_window(state, window)
+        check(True, "prof: the LM pipeline captured once, then replayed "
+              "with no capture (assert_trace_count)")
+    except AssertionError as e:
+        check(False, f"prof: trainer pipeline capture count: {e}")
+    del pipe, state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 5's engine: 4 captures at warmup, none while serving; its
+    # traced decode steps' host time split
+    model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+    eng = engine_mod.ServingEngine(model, buckets=(256, 1024), page_size=16,
+                                   max_seqs=8, device=dev)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, model.vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    logdir = os.path.join(tmp, "trace_serving")
+    try:
+        with prof.assert_trace_count(eng, 4):
+            eng.warmup()
+        with prof.assert_trace_count(eng, 0):
+            untraced = _decode_host_untraced(eng, prompts)
+            with prof.trace(logdir):
+                t0 = time.perf_counter()
+                results = eng.generate(prompts, max_new_tokens=32)
+                wall = time.perf_counter() - t0
+        check(all(r.ok for r in results),
+              "prof: the engine captured 4 graphs at warmup and none while "
+              "serving (assert_trace_count)")
+    except AssertionError as e:
+        check(False, f"prof: serving capture count: {e}")
+        wall, untraced = None, None
+    eng.close()
+    del eng, model
+    out["serving_decode_untraced"] = untraced
+    if untraced:
+        print(f"      prof decode, untraced: host {untraced['step_ms']:.3f} "
+              f"ms a step, of which the graph's call (inputs copied in, "
+              f"replay) {untraced['replay_call_ms']:.3f} ms, over "
+              f"{untraced['steps']} steps", flush=True)
+    split = parse.range_host_time(logdir, "decode[")
+    tp = parse.parse_trace(logdir, kinds=parse.SERVING_KINDS)
+    for name, row in split.items():
+        dev_ms = tp.steps().get(name, 0.0) / 1e3 / row["count"]
+        row["device_ms"] = dev_ms
+        top = list(row["by_name"].items())[:6]
+        print(f"      prof {name} x{row['count']}: host "
+              f"{row['host_us'] / 1e3:.3f} ms = CPU events "
+              f"{row['covered_us'] / 1e3:.3f} + gaps "
+              f"{row['gaps_us'] / 1e3:.3f}; device {dev_ms:.3f} ms; "
+              + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in top),
+              flush=True)
+        row["by_name"] = dict(top)
+    out["serving_decode_host"] = split
+    out["serving_traced_wall_s"] = wall
+    check(bool(split), "prof: the traced serving run's decode ranges split")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -4900,12 +5141,12 @@ def main(argv=None) -> int:
     resnet = train_resnet50(imagenet, counters)                    # 13
     resnet["profile"] = trace_training(imagenet,
                                        IMAGENET_ARGS + ["--prof", "1"],
-                                       _RESNET_KINDS)
+                                       kind_tables().RESNET_KINDS)
     resnet["no_pallas_conv"] = train_resnet50(imagenet, counters,  # 13b
                                               pallas_conv=False)
     resnet["no_pallas_conv"]["profile"] = trace_training(
         imagenet, IMAGENET_ARGS + ["--prof", "1", "--no-pallas-conv"],
-        _RESNET_KINDS)
+        kind_tables().RESNET_KINDS)
     resnet["bucketed"] = resnet50_bucketed(imagenet, counters)      # 13c
     resnet.update(resnet_correctness(imagenet, training, dev))     # 14
     conv = conv_cases(cv, fba, dev)                                # 15
@@ -4942,6 +5183,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         data_parallel = {"ddp_nccl": ddp_nccl(counters, tmp)}           # 27
         data_parallel["ddp_gloo"] = ddp_gloo(counters, tmp, dev)       # 28
+        t31 = time.perf_counter()
+        profiling = prof_stages(main_amp, imagenet, models,            # 31
+                                engine_mod, counters, windows, dev, tmp)
+        profiling["phase_s"] = time.perf_counter() - t31
+        print(f"      phase 31: {profiling['phase_s']:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {"serving": serving["launches"], "training": trained["launches"],
@@ -5046,6 +5292,7 @@ def main(argv=None) -> int:
                            data_parallel=data_parallel,
                            telemetry={"training": train_tel,
                                       "serving": serve_tel},
+                           profiling=profiling,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

@@ -285,3 +285,24 @@ def test_per_head_bias_grads_match_jax():
     for name, gt, wt in zip(("dq", "dk", "dv", "dbias"), got, want):
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
                                    err_msg=name, atol=2e-5, rtol=2e-5)
+
+
+def test_mha_attention_is_the_blockwise_alias_as_in_jax():
+    """``ops.mha_attention`` (exported by the package, as JAX's
+    ``apex_tpu.ops``) is ``blockwise_attention``: the same numpy inputs
+    through JAX's alias and the port's agree at fp32 2e-5."""
+    from apex_tpu import ops as jops
+    from apex_tpu_torch import ops
+    q, k, v = _qkv(2, 24, 24, 2, 2, 16, 5)
+    for causal in (False, True):
+        want = jops.mha_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  block_size=8)
+        got = ops.mha_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                block_size=8)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        torch.testing.assert_close(got, blockwise_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            causal=causal, block_size=8), rtol=0, atol=0)
+    assert "mha_attention" in ops.__all__

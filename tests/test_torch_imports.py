@@ -39,6 +39,30 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+PROF_MODULES = ["apex_tpu_torch.prof", "apex_tpu_torch.prof.capture",
+                "apex_tpu_torch.prof.parse", "apex_tpu_torch.prof.analysis",
+                "apex_tpu_torch.prof.roofline", "apex_tpu_torch.prof.ledger",
+                "apex_tpu_torch.prof.trace_count",
+                "apex_tpu_torch.prof.memory", "apex_tpu_torch.prof.costs",
+                "apex_tpu_torch.examples.prof.lenet",
+                "apex_tpu_torch.examples.prof.imagenet"]
+
+
+@pytest.mark.parametrize("module", PROF_MODULES)
+def test_prof_modules_import_no_jax_nor_triton(module):
+    """Importing ``apex_tpu_torch.prof`` and each of its modules (and
+    the profiling examples) on a CPU host pulls in neither JAX nor
+    Triton: the fake-tensor walk and the profiler load inside the calls
+    that use them."""
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'apex_tpu', 'triton')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_import_leaves_jax_and_triton_out():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.serving, "
             "apex_tpu_torch.convert, apex_tpu_torch.serving.__main__, "

@@ -361,3 +361,26 @@ def test_simple_distributed_example_matches_jax(clean_env, tmp_path):
             want.append(float(m["loss"]))
     assert len(got) == 2
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_initialize_takes_local_device_ids_like_jax(clean_env):
+    """``local_device_ids`` (JAX's fourth argument): one id, or a
+    one-item sequence, names ``cuda:<id>``; more ids, or ``device=``
+    beside it, raise ``ValueError`` (NCCL takes one rank a GPU).  In
+    one process both packages return ``(0, 1)`` and join nothing."""
+    import inspect
+    import torch.distributed as dist
+    jparams = list(inspect.signature(jmp.initialize).parameters)
+    tparams = list(inspect.signature(multiproc.initialize).parameters)
+    assert tparams[:4] == jparams[:4] == [
+        "coordinator_address", "num_processes", "process_id",
+        "local_device_ids"]
+    assert multiproc._local_device(3, None) == torch.device("cuda", 3)
+    assert multiproc._local_device([1], None) == torch.device("cuda", 1)
+    with pytest.raises(ValueError, match="one rank a GPU"):
+        multiproc.initialize(local_device_ids=[0, 1])
+    with pytest.raises(ValueError, match="not both"):
+        multiproc.initialize(local_device_ids=0, device="cpu")
+    assert multiproc.initialize(local_device_ids=[0]) == (0, 1) \
+        == jmp.initialize(local_device_ids=[0])
+    assert not dist.is_initialized()

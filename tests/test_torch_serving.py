@@ -258,3 +258,15 @@ def test_engine_notices_replaced_weights(models, how):
     np.testing.assert_array_equal(got, want)
     eng.close()
     fresh.close()
+
+
+def test_package_exports_page_allocator_and_make_pool_as_jax():
+    """``serving.PageAllocator`` and ``serving.make_pool`` are exported
+    by the package, in its names and ``__all__``, as JAX's are."""
+    from apex_tpu_torch import serving
+    assert serving.PageAllocator is PageAllocator
+    assert serving.make_pool is make_pool
+    assert set(jserving.__all__) <= set(serving.__all__)
+    al, jal = serving.PageAllocator(5), jserving.PageAllocator(5)
+    assert al.alloc(3) == jal.alloc(3)
+    assert al.free_pages == jal.free_pages == 1

@@ -449,6 +449,71 @@ def test_lm_trainer_options_and_refusals():
             main_amp.main(TINY[:1] + TINY[3:] + ["--steps", "1"])
 
 
+@pytest.mark.parametrize("attention", ["full", "blockwise", "flash"])
+def test_lm_trainer_attention_flag_matches_jax_losses(attention,
+                                                      monkeypatch):
+    """``--attention`` (JAX's choices; default ``flash``) picks the GPT's
+    ``attention_impl``: two O0 steps of the trainer's ``build`` at each
+    value give the losses of the JAX LM example's model (the same
+    ``attention_impl``), fused loss and Adam step (``main_amp.py:192-243``)
+    from the same weights on the same synthetic batch, at rtol 1e-4 (the
+    model computes in bf16 on both sides, in different summation orders;
+    the worst seen is 3.4e-5); ring, ring_flash and ulysses are refused
+    naming the sharding item; ``--window`` needs flash, as in the JAX
+    example (``main_amp.py:186-187``)."""
+    import importlib.util
+    import os
+    import sys
+    from apex_tpu.models.gpt import GPT as JGPT
+    from apex_tpu_torch.models import GPT
+    from apex_tpu_torch.convert import gpt_params_to_jax
+    spec = importlib.util.spec_from_file_location(
+        "_jax_lm_main_amp", os.path.join(os.path.dirname(__file__),
+                                         os.pardir, "examples", "lm",
+                                         "main_amp.py"))
+    jlm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jlm)
+    monkeypatch.setattr(sys, "argv", ["main_amp.py"])
+    jargs = jlm.parse()
+    assert main_amp.parse(TINY).attention == jargs.attention == "flash"
+    made = []
+    monkeypatch.setattr(main_amp, "GPT", lambda **kw: made.append(
+        kw["attention_impl"]) or GPT(**kw))
+    args = main_amp.parse(TINY + ["--opt-level", "O0", "--attention",
+                                  attention])
+    state, step_fn, batch = main_amp.build(args)
+    assert made == [attention]
+    jm = JGPT(vocab_size=args.vocab, hidden_size=args.hidden,
+              num_layers=args.layers, num_heads=args.heads,
+              mlp_dim=4 * args.hidden, max_len=args.seq_len,
+              dtype=jnp.bfloat16, attention_impl=attention)
+
+    def jloss(p, b):
+        logits = jm.apply({"params": p}, b[0])
+        flat = logits.reshape(-1, logits.shape[-1])
+        return jnp.mean(jax_xentropy(flat, b[1].reshape(-1),
+                                     smoothing=args.smoothing))
+    jinit, jstep = jtraining.make_train_step(
+        jloss, jtraining.adam(args.lr, weight_decay=args.weight_decay),
+        opt_level="O0")
+    jst = jinit(gpt_params_to_jax(state.params))
+    jstep = jax.jit(jstep)
+    jbatch = tuple(jnp.asarray(t.numpy()) for t in batch)
+    for i in range(2):
+        state, met = step_fn(state, batch)
+        jst, jmet = jstep(jst, jbatch)
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=1e-4, err_msg=f"step {i}")
+    for impl in ("ring", "ring_flash", "ulysses"):
+        with pytest.raises(SystemExit, match="queue 1 item 3"):
+            main_amp.build(main_amp.parse(TINY + ["--attention", impl]))
+    if attention != "flash":
+        with pytest.raises(SystemExit, match="--window needs --attention "
+                                             "flash"):
+            main_amp.build(main_amp.parse(
+                TINY + ["--attention", attention, "--window", "8"]))
+
+
 # -- SGD -------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
@@ -684,6 +749,31 @@ def test_imagenet_trainer_refusals(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             imagenet_main.main(IMAGENET_TINY[:1] + IMAGENET_TINY[3:]
                                + ["--prof", "1"])
+
+
+def test_imagenet_trainer_deterministic_flag():
+    """``--deterministic`` (JAX's flag; there the highest matmul
+    precision, the port's default) turns on torch's deterministic
+    algorithms and cuDNN's deterministic kernels without benchmarking; a
+    CPU run under it trains the same losses as without.  The process
+    state is restored after."""
+    assert not imagenet_main.parse(IMAGENET_TINY).deterministic
+    argv = IMAGENET_TINY + ["--prof", "2"]
+    ref = imagenet_main.train(imagenet_main.parse(argv), log=lambda s: None)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        res = imagenet_main.train(imagenet_main.parse(
+            argv + ["--deterministic"]), log=lambda s: None)
+        assert torch.are_deterministic_algorithms_enabled()
+        assert torch.backends.cudnn.deterministic
+        assert not torch.backends.cudnn.benchmark
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        torch.backends.cudnn.benchmark = saved[2]
+    np.testing.assert_allclose(res["losses"], ref["losses"], rtol=1e-6)
 
 
 def _image_tree(root, classes=2, per_class=8, size=48):
