@@ -59,15 +59,21 @@ _CAPTURE_STREAMS: dict = {}      # device -> the stream graphs capture on
 
 
 def enable(path: str) -> str:
-    """Keep the CUDA libraries and the Triton kernels under ``path``
-    (created if missing): the libraries in ``path`` itself, Triton's
-    cache in ``path/triton``.  A library already loaded in this process
-    stays loaded; one built under ``path`` by an earlier process is
-    loaded from there instead of rebuilt.  Returns the resolved path."""
+    """Keep the CUDA libraries, the Triton kernels and the tuner's
+    configs under ``path`` (created if missing): the libraries in
+    ``path`` itself, Triton's cache in ``path/triton``, and
+    ``path/tune_configs.json`` as the tune store's default
+    (:func:`apex_tpu_torch.tune.store.set_default_dir`, as JAX's
+    ``cache.enable`` does; ``APEX_TPU_TUNE_CACHE`` still wins).  A
+    library already loaded in this process stays loaded; one built under
+    ``path`` by an earlier process is loaded from there instead of
+    rebuilt.  Returns the resolved path."""
+    from .tune import store as _tune_store
     path = os.path.abspath(os.path.expanduser(path))
     os.makedirs(path, exist_ok=True)
     _build.set_build_dir(path)
     os.environ["TRITON_CACHE_DIR"] = os.path.join(path, "triton")
+    _tune_store.set_default_dir(path)
     _STATE["dir"] = path
     return path
 

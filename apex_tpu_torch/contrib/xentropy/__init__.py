@@ -42,20 +42,60 @@ as torch's kernels do, not Triton's faster approximations), rounding
 one operation at a time as the plain version does: near
 ``softmax == s / V`` the backward's difference cancels, and an
 approximate ``exp`` would move a small ``dx`` by many bf16 ulps.
+
+The tile.  The JAX kernel's ``row_block`` has no meaning here (one row a
+program); the card's knobs are the column chunk a program holds
+(``col_block``, a power of two; the rule: the row's next power of two,
+at most 4096) and the program's warps (``num_warps``; the rule: chunk /
+512 within [4, 8]), both forward and backward.  The chunk and the warps
+change the order of the forward's row reductions, so another config's
+loss and ``mlse`` (and through ``mlse`` the backward) agree with the
+rule's to a tolerance, not bit for bit.  A CUDA call consults the
+tuner's cache for this shape's bucket (:func:`tune_bucket`, the JAX
+package's string, :data:`TUNE_VERSION`); the JAX API has no tile
+argument, nor has this one.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from ... import _build
 from ...prof import costs as _costs
+from ...tune import space as _space
+from ...tune.dispatch import kernel_config as _tuned_config
 
-__all__ = ["SoftmaxCrossEntropyLoss", "softmax_cross_entropy_loss"]
+__all__ = ["SoftmaxCrossEntropyLoss", "softmax_cross_entropy_loss",
+           "TUNE_VERSION", "tune_bucket"]
 
-_MAX_BLOCK = 4096          # columns a program holds at once
+_MAX_BLOCK = 4096          # columns a program holds at once (the rule)
+#: the widest chunk and the most warps the tuner may name
+_MAX_TUNED_BLOCK, _MAX_WARPS = 16384, 16
+
+#: the tuner's config version of the xentropy kernels
+TUNE_VERSION = 1
+
+
+def tune_bucket(n: int, h: int) -> str:
+    """Config-cache shape bucket (the JAX package's string): vocabulary
+    width exact, rows rounded to a power of two."""
+    return f"r{_space.pow2_bucket(n)}_h{h}"
+
+
+def config_legal(n_cols: int, col_block: int, num_warps: int) -> bool:
+    """Whether ``(col_block, num_warps)`` is a launch the kernels take:
+    a power-of-two chunk of 128 to 16384 columns, no wider than the
+    row's power of two (a wider one only masks), and a warp count of
+    :data:`apex_tpu_torch.tune.space.NUM_WARPS` up to 16 that leaves
+    every thread at least one column."""
+    cover = 1 << max(0, n_cols - 1).bit_length()
+    return (128 <= col_block <= min(_MAX_TUNED_BLOCK, max(128, cover))
+            and not col_block & (col_block - 1)
+            and num_warps in _space.NUM_WARPS
+            and num_warps <= _MAX_WARPS and 32 * num_warps <= col_block)
 
 
 # -- plain version ------------------------------------------------------------
@@ -156,6 +196,24 @@ def _block(n_cols: int) -> int:
     return min(_MAX_BLOCK, 1 << max(0, n_cols - 1).bit_length())
 
 
+def rule_config(n_cols: int) -> Tuple[int, int]:
+    """``(col_block, num_warps)`` of the rule for rows of ``n_cols``."""
+    block = _block(n_cols)
+    return block, min(8, max(4, block // 512))
+
+
+def _launch_config(n_cols: int, config: Optional[Tuple[int, int]]
+                   ) -> Tuple[int, int]:
+    if config is None:
+        return rule_config(n_cols)
+    block, warps = (int(c) for c in config)
+    if not config_legal(n_cols, block, warps):
+        raise ValueError(f"xentropy config (col_block {block}, num_warps "
+                         f"{warps}) is not a launch the kernels take for "
+                         f"rows of {n_cols}")
+    return block, warps
+
+
 def _check(logits, rows):
     """What the kernels take: CUDA float ``[N, V]`` logits with unit
     column stride, and contiguous ``[N]`` row vectors on their device
@@ -174,22 +232,24 @@ def _check(logits, rows):
                              f"tensor on {logits.device}")
 
 
-def xentropy_fwd_kernel(logits, labels, smoothing):
+def xentropy_fwd_kernel(logits, labels, smoothing, config=None):
     """Launch the Triton forward kernel on CUDA ``[N, V]`` logits and
     int32 ``[N]`` labels; returns fp32 ``(losses, mlse)``, unmasked.
-    Adds one to ``xentropy_fwd_kernel.launches`` per launch."""
+    ``config``: ``(col_block, num_warps)`` (:func:`config_legal`), None
+    for the rule.  Adds one to ``xentropy_fwd_kernel.launches`` per
+    launch."""
     _check(logits, (("labels", labels, torch.int32),))
     n, v = logits.shape
     losses = torch.empty((n,), dtype=torch.float32, device=logits.device)
     mlse = torch.empty((n,), dtype=torch.float32, device=logits.device)
     if n == 0:
         return losses, mlse
-    block = _block(v)
+    block, warps = _launch_config(v, config)
     kernel, _ = _triton_kernels()
     with torch.cuda.device(logits.device):
         kernel[(n,)](logits, labels, losses, mlse, logits.stride(0), v,
                      1.0 - smoothing, float(smoothing), BLOCK=block,
-                     num_warps=min(8, max(4, block // 512)), enable_fp_fusion=False)
+                     num_warps=warps, enable_fp_fusion=False)
     xentropy_fwd_kernel.launches += 1
     return losses, mlse
 
@@ -197,29 +257,42 @@ def xentropy_fwd_kernel(logits, labels, smoothing):
 _build.counted(xentropy_fwd_kernel)
 
 
-def xentropy_bwd_kernel(g, logits, mlse, labels, smoothing):
+def xentropy_bwd_kernel(g, logits, mlse, labels, smoothing, config=None):
     """Launch the Triton backward kernel: fp32 ``g`` and ``mlse`` and
     int32 ``labels`` (``[N]``, contiguous) with the CUDA ``[N, V]``
-    logits; returns ``dx`` in the logits' dtype.  Adds one to
-    ``xentropy_bwd_kernel.launches`` per launch."""
+    logits; returns ``dx`` in the logits' dtype.  ``config`` as the
+    forward's.  Adds one to ``xentropy_bwd_kernel.launches`` per
+    launch."""
     _check(logits, (("g", g, torch.float32), ("mlse", mlse, torch.float32),
                     ("labels", labels, torch.int32)))
     n, v = logits.shape
     dx = torch.empty((n, v), dtype=logits.dtype, device=logits.device)
     if n == 0:
         return dx
-    block = _block(v)
+    block, warps = _launch_config(v, config)
     _, kernel = _triton_kernels()
     with torch.cuda.device(logits.device):
         kernel[(n, -(-v // block))](
             g, logits, mlse, labels, dx, logits.stride(0), dx.stride(0), v,
-            1.0 - smoothing, smoothing / v, BLOCK=block,
-            num_warps=min(8, max(4, block // 512)), enable_fp_fusion=False)
+            1.0 - smoothing, smoothing / v, BLOCK=block, num_warps=warps,
+            enable_fp_fusion=False)
     xentropy_bwd_kernel.launches += 1
     return dx
 
 
 _build.counted(xentropy_bwd_kernel)
+
+
+def _tuned(logits) -> Optional[Tuple[int, int]]:
+    """The kernel path's consult: the tuned ``(col_block, num_warps)``
+    of this shape's bucket when the kernels take it, else None (the
+    rule)."""
+    n, v = logits.shape
+    cfg = _tuned_config("xentropy", TUNE_VERSION, lambda: tune_bucket(n, v),
+                        params=("col_block", "num_warps"), key=(n, v))
+    if cfg and config_legal(v, cfg["col_block"], cfg["num_warps"]):
+        return cfg["col_block"], cfg["num_warps"]
+    return None
 
 
 class _SoftmaxXentropy(torch.autograd.Function):
@@ -238,12 +311,15 @@ class _SoftmaxXentropy(torch.autograd.Function):
         elif logits.is_cuda:
             if logits.stride(1) != 1:
                 logits = logits.contiguous()
-            losses, mlse = xentropy_fwd_kernel(logits, labels, smoothing)
+            config = _tuned(logits)
+            losses, mlse = xentropy_fwd_kernel(logits, labels, smoothing,
+                                               config)
         else:
             losses, mlse = _fwd_ref(logits, labels, smoothing)
         losses = torch.where(labels == padding_idx, 0.0, losses)
         ctx.save_for_backward(logits, mlse, labels)
         ctx.smoothing, ctx.padding_idx = smoothing, padding_idx
+        ctx.config = config if logits.is_cuda and walk is None else None
         return losses
 
     @staticmethod
@@ -256,7 +332,8 @@ class _SoftmaxXentropy(torch.autograd.Function):
             dx = walk.kernel(_costs.xentropy_bwd(logits), _bwd_ref, g, logits,
                              mlse, labels, ctx.smoothing)
         elif logits.is_cuda:
-            dx = xentropy_bwd_kernel(g, logits, mlse, labels, ctx.smoothing)
+            dx = xentropy_bwd_kernel(g, logits, mlse, labels, ctx.smoothing,
+                                     ctx.config)
         else:
             dx = _bwd_ref(g, logits, mlse, labels, ctx.smoothing)
         return dx, None, None, None

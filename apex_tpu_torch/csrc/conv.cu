@@ -744,7 +744,8 @@ __global__ void wgrad_reduce_kernel(const float* ws, T* dw, int splits,
 
 // Grid z: wgrad's K splits, the parity classes (sh*sw; x sized by the
 // largest, class (0, 0)), else 1.  The tile is 128 x 128 where the GEMM's
-// N is at least 128, else 128 x 64.
+// N is at least 128, else 128 x 64 (the rule), unless the caller names
+// its width (`by_tile`).
 template <int MODE, typename T, int BN>
 cudaError_t launch_tile(const ConvParams& p, int splits, cudaStream_t st) {
   using C = Cfg<MODE, T, BN>;
@@ -768,20 +769,27 @@ cudaError_t launch_tile(const ConvParams& p, int splits, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// bn: the tile's width, 64 or 128 (both instantiations exist for every
+// mode and type), or -1 for the rule.  The width changes which block
+// computes an output, not the order of its K sum: every width gives the
+// same bits.
 template <int MODE, typename T>
-cudaError_t by_tile(const ConvParams& p, int splits, cudaStream_t st) {
+cudaError_t by_tile(const ConvParams& p, int splits, int bn,
+                    cudaStream_t st) {
   const int n = MODE == MODE_FWD || MODE == MODE_WGRAD ? p.O : p.C;
-  return n >= 128 ? launch_tile<MODE, T, 128>(p, splits, st)
-                  : launch_tile<MODE, T, 64>(p, splits, st);
+  if (bn < 0) bn = n >= 128 ? 128 : 64;
+  if (bn == 128) return launch_tile<MODE, T, 128>(p, splits, st);
+  if (bn == 64) return launch_tile<MODE, T, 64>(p, splits, st);
+  return cudaErrorInvalidValue;
 }
 
 template <int MODE>
-cudaError_t dispatch(const ConvParams& p, int dtype, int splits,
+cudaError_t dispatch(const ConvParams& p, int dtype, int splits, int bn,
                      cudaStream_t st) {
   if (p.C % 8 != 0 || p.O % 8 != 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return by_tile<MODE, float>(p, splits, st);
-  if (dtype == 1) return by_tile<MODE, __nv_bfloat16>(p, splits, st);
-  if (dtype == 2) return by_tile<MODE, __half>(p, splits, st);
+  if (dtype == 0) return by_tile<MODE, float>(p, splits, bn, st);
+  if (dtype == 1) return by_tile<MODE, __nv_bfloat16>(p, splits, bn, st);
+  if (dtype == 2) return by_tile<MODE, __half>(p, splits, bn, st);
   return cudaErrorInvalidValue;
 }
 
@@ -789,27 +797,31 @@ cudaError_t dispatch(const ConvParams& p, int dtype, int splits,
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on
 // success).  dtype 0 picks fp32, 1 bf16, 2 fp16 operands.  C and O must be
-// multiples of 8 and every tensor 16-byte aligned.
-extern "C" int conv_fwd(const ConvParams* p, int dtype, void* stream) {
+// multiples of 8 and every tensor 16-byte aligned.  bn: the tile's width
+// (64 or 128), -1 for the rule.
+extern "C" int conv_fwd(const ConvParams* p, int dtype, int bn,
+                        void* stream) {
   return static_cast<int>(dispatch<MODE_FWD>(
-      *p, dtype, 1, static_cast<cudaStream_t>(stream)));
+      *p, dtype, 1, bn, static_cast<cudaStream_t>(stream)));
 }
 
 // Stride 1: one GEMM over every pixel; stride > 1: the parity classes.
-extern "C" int conv_dgrad(const ConvParams* p, int dtype, void* stream) {
+extern "C" int conv_dgrad(const ConvParams* p, int dtype, int bn,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p->sh > 1 || p->sw > 1)
-    return static_cast<int>(dispatch<MODE_PARITY>(*p, dtype, 1, st));
-  return static_cast<int>(dispatch<MODE_DGRAD>(*p, dtype, 1, st));
+    return static_cast<int>(dispatch<MODE_PARITY>(*p, dtype, 1, bn, st));
+  return static_cast<int>(dispatch<MODE_DGRAD>(*p, dtype, 1, bn, st));
 }
 
 // The split GEMM into p->out (fp32 [splits, KH*KW*C, O], K split every
 // p->k_per_split pixels), then the reduce into p->aux (dw, in the operands'
-// type).
-extern "C" int conv_wgrad(const ConvParams* p, int dtype, int splits,
+// type).  The wrapper sizes the splits by the rule's tile whatever bn is,
+// so the sum's order, and its bits, do not depend on bn.
+extern "C" int conv_wgrad(const ConvParams* p, int dtype, int splits, int bn,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch<MODE_WGRAD>(*p, dtype, splits, st);
+  cudaError_t err = dispatch<MODE_WGRAD>(*p, dtype, splits, bn, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t mn = (int64_t)p->KH * p->KW * p->C * p->O;
   const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);

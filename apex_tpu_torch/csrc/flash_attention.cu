@@ -46,6 +46,9 @@
 //    phase-4 shape on the H100: the registers they need leave one block
 //    an SM.  `wgmma` and TMA are later work.  Query tiles are issued
 //    longest first, so causal blocks with the most keys start earliest.
+//    The tile is the rule's; the tuner (apex_tpu_torch.tune) may name
+//    another of the same kernel at widths 64 and 128: 64 x 32, 64 x 128,
+//    128 x 64 (8 warps of 16 rows) or 128 x 128 (`launch_mma_tile`).
 //  * fp32 prefill keeps a SIMT kernel in full fp32 (the tensor cores would
 //    round to TF32): 64 query rows, two threads a row, FMA loops.  Width
 //    256 takes the same kernel for every dtype (p rounded to v's dtype),
@@ -73,6 +76,12 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// 0 builds the tensor-core kernel at its rule's tile only (the build's
+// cost of the tuner's tiles is the difference).
+#ifndef APEX_FLASH_TUNE_TILES
+#define APEX_FLASH_TUNE_TILES 1
+#endif
 
 // Field order and types mirror the ctypes Structure in
 // apex_tpu_torch/ops/flash_attention.py (_FlashParams).
@@ -241,19 +250,22 @@ __device__ __forceinline__ void key_band(const Params& p, int q0, int q_last,
 
 // -- bf16 / fp16 prefill: tensor cores ----------------------------------------
 
-constexpr int TC_BQ = 64;        // query rows per block (16 per warp)
-constexpr int TC_BK = 64;        // keys per KV tile
-constexpr int TC_THREADS = 128;  // 4 warps
-constexpr int TC_LDB = TC_BK + 8;   // fp32 bias tile row (conflict-free)
+// The tile: BQ query rows a block (16 a warp, so 2 * BQ threads) over KV
+// tiles of BK keys.  The rule is 64 x 64; the tuner's other tiles
+// (`launch_mma_tile` below) are instantiations of the same kernel.
+constexpr int TC_BQ = 64;        // the rule's query rows per block
+constexpr int TC_BK = 64;        // the rule's keys per KV tile
+// the opt-in limit of dynamic shared memory a block on sm_90
+constexpr int SMEM_OPTIN = 232448;
 
 // Rows [r0, r0 + ROWS) of a [*, d] operand (row stride `st`) into a
 // [ROWS][D + 8] tile: 16-byte cp.async copies when `vec`, else element
 // loads; rows past `n` and columns past `d` are zero.
-template <typename T, int D, int ROWS>
+template <typename T, int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t st,
                                           int r0, int n, int d, bool vec) {
   constexpr int LDS = D + 8, CPR = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += TC_THREADS) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const int t = r0 + r;
     T* s = dst + r * LDS + c;
@@ -268,17 +280,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t st,
   }
 }
 
-// The [ROWS, 64] block of the fp32 [T, S] bias at (q0, k0) into a
-// [ROWS][TC_LDB] tile, 16-byte cp.async copies when `bvec` (kv_len and
-// the strides multiples of 4, the rows 16-byte aligned); zero outside.
-template <int ROWS>
+// The [ROWS, BK] block of the fp32 [T, S] bias at (q0, k0) into a
+// [ROWS][BK + 8] tile (rows padded: conflict-free), 16-byte cp.async
+// copies when `bvec` (kv_len and the strides multiples of 4, the rows
+// 16-byte aligned); zero outside.
+template <int ROWS, int BK, int NT>
 __device__ __forceinline__ void load_bias(float* dst, const float* bias,
                                           int64_t st, int q0, int k0, int tq,
                                           int tk, bool bvec) {
-  for (int i = threadIdx.x; i < ROWS * (TC_BK / 4); i += TC_THREADS) {
-    const int r = i / (TC_BK / 4), c = (i % (TC_BK / 4)) * 4;
+  constexpr int LDB = BK + 8;
+  for (int i = threadIdx.x; i < ROWS * (BK / 4); i += NT) {
+    const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
     const int t = q0 + r, key = k0 + c;
-    float* s = dst + r * TC_LDB + c;
+    float* s = dst + r * LDB + c;
     if (bvec) {
       const bool ok = t < tq && key < tk;
       cp_async16(s, ok ? bias + t * st + key : bias, ok);
@@ -290,24 +304,26 @@ __device__ __forceinline__ void load_bias(float* dst, const float* bias,
   }
 }
 
-// A block is 4 warps, each owning 16 query rows.
-template <typename T, int D>
-__global__ void __launch_bounds__(TC_THREADS)
+// A block is BQ / 16 warps, each owning 16 query rows.
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ)
 flash_fwd_mma_kernel(const Params p) {
+  constexpr int NT = 2 * BQ;       // threads: BQ / 16 warps
+  constexpr int LDB = BK + 8;      // fp32 bias tile row (conflict-free)
   constexpr int LDS = D + 8;       // padded row: conflict-free ldmatrix
   constexpr int KD = D / 16;       // k-steps of S = Q K^T
-  constexpr int NS = TC_BK / 8;    // 8-key n-tiles of S
+  constexpr int NS = BK / 8;       // 8-key n-tiles of S
   constexpr int NO = D / 8;        // 8-column n-tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [BQ][LDS], later the output
-  T* Ks = Qs + TC_BQ * LDS;                 // [2][BK][LDS]
-  T* Vs = Ks + 2 * TC_BK * LDS;             // [2][BK][LDS]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * TC_BK * LDS);
-                                            // [2][BQ][TC_LDB] with a bias
+  T* Ks = Qs + BQ * LDS;                 // [2][BK][LDS]
+  T* Vs = Ks + 2 * BK * LDS;             // [2][BK][LDS]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BK * LDS);
+                                            // [2][BQ][LDB] with a bias
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const bool vec = p.vec, bvec = p.bvec;
@@ -318,19 +334,19 @@ flash_fwd_mma_kernel(const Params p) {
   const float* kb = p.kbias ? p.kbias + b * p.skb_b : nullptr;
   const float* bias = p.bias ? p.bias + b * p.sb_b : nullptr;
 
-  const int q_last = min(q0 + TC_BQ, p.tq) - 1;
+  const int q_last = min(q0 + BQ, p.tq) - 1;
   int k_begin, k_end;
   key_band(p, q0, q_last, k_begin, k_end);
-  k_begin = (k_begin / TC_BK) * TC_BK;
+  k_begin = (k_begin / BK) * BK;
   const int n_tiles =
-      k_end > k_begin ? (k_end - k_begin + TC_BK - 1) / TC_BK : 0;
+      k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  load_tile<T, D, TC_BQ>(Qs, q, p.sq_t, q0, p.tq, p.d, vec);
+  load_tile<T, D, BQ, NT>(Qs, q, p.sq_t, q0, p.tq, p.d, vec);
   if (n_tiles > 0) {
-    load_tile<T, D, TC_BK>(Ks, k, p.sk_t, k_begin, p.tk, p.d, vec);
-    load_tile<T, D, TC_BK>(Vs, v, p.sv_t, k_begin, p.tk, p.d, vec);
+    load_tile<T, D, BK, NT>(Ks, k, p.sk_t, k_begin, p.tk, p.d, vec);
+    load_tile<T, D, BK, NT>(Vs, v, p.sv_t, k_begin, p.tk, p.d, vec);
     if (bias)
-      load_bias<TC_BQ>(Bs, bias, p.sb_t, q0, k_begin, p.tq, p.tk, bvec);
+      load_bias<BQ, BK, NT>(Bs, bias, p.sb_t, q0, k_begin, p.tq, p.tk, bvec);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -352,27 +368,27 @@ flash_fwd_mma_kernel(const Params p) {
   const int row0 = q0 + wrow + g;          // rows g and g + 8 of the warp
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = k_begin + j * TC_BK;
+    const int k0 = k_begin + j * BK;
     const int buf = j & 1;
     if (j > 0) {
       cp_async_wait_all();                 // tile j has landed
       __syncthreads();                     // and tile j - 1 is consumed
     }
     if (j + 1 < n_tiles) {                 // tile j + 1 loads under the math
-      load_tile<T, D, TC_BK>(Ks + (buf ^ 1) * TC_BK * LDS, k, p.sk_t,
-                             k0 + TC_BK, p.tk, p.d, vec);
-      load_tile<T, D, TC_BK>(Vs + (buf ^ 1) * TC_BK * LDS, v, p.sv_t,
-                             k0 + TC_BK, p.tk, p.d, vec);
+      load_tile<T, D, BK, NT>(Ks + (buf ^ 1) * BK * LDS, k, p.sk_t,
+                             k0 + BK, p.tk, p.d, vec);
+      load_tile<T, D, BK, NT>(Vs + (buf ^ 1) * BK * LDS, v, p.sv_t,
+                             k0 + BK, p.tk, p.d, vec);
       if (bias)
-        load_bias<TC_BQ>(Bs + (buf ^ 1) * TC_BQ * TC_LDB, bias, p.sb_t, q0,
-                         k0 + TC_BK, p.tq, p.tk, bvec);
+        load_bias<BQ, BK, NT>(Bs + (buf ^ 1) * BQ * LDB, bias, p.sb_t, q0,
+                         k0 + BK, p.tq, p.tk, bvec);
     }
     cp_async_commit();
-    const T* Kb = Ks + buf * TC_BK * LDS;
-    const T* Vb = Vs + buf * TC_BK * LDS;
-    const float* Bb = Bs + (buf * TC_BQ + wrow + g) * TC_LDB + 2 * t4;
+    const T* Kb = Ks + buf * BK * LDS;
+    const T* Vb = Vs + buf * BK * LDS;
+    const float* Bb = Bs + (buf * BQ + wrow + g) * LDB + 2 * t4;
 
-    // S = Q K^T: 16 rows x 64 keys per warp
+    // S = Q K^T: 16 rows x BK keys per warp
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -393,8 +409,8 @@ flash_fwd_mma_kernel(const Params p) {
     // scale, biases and the band; element (n, r) is row g + 8 (r >> 1) of
     // the warp, key n * 8 + 2 t4 + (r & 1)
     const bool edge =
-        k0 + TC_BK > p.tk ||
-        (p.causal && (k0 + TC_BK - 1 > p.q_offset + q0 ||
+        k0 + BK > p.tk ||
+        (p.causal && (k0 + BK - 1 > p.q_offset + q0 ||
                       (p.window > 0 && p.q_offset + q_last - k0 >= p.window)));
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -409,7 +425,7 @@ flash_fwd_mma_kernel(const Params p) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const float2 bb = *reinterpret_cast<const float2*>(
-              Bb + 8 * hh * TC_LDB + n * 8);
+              Bb + 8 * hh * LDB + n * 8);
           add[2 * hh] += bb.x;
           add[2 * hh + 1] += bb.y;
         }
@@ -923,16 +939,44 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <typename T, int D>
-cudaError_t launch_mma(const Params& p, cudaStream_t st) {
-  constexpr int base = (TC_BQ + 4 * TC_BK) * (D + 8) * sizeof(T);
-  constexpr int with_bias = base + 2 * TC_BQ * TC_LDB * sizeof(float);
-  auto kernel = flash_fwd_mma_kernel<T, D>;
-  static const cudaError_t configured = allow_smem(kernel, with_bias);
+// A tile whose bias stages do not fit the block's shared memory takes no
+// [B, T, S] bias.  `check`: only say whether the launch would be taken.
+template <typename T, int D, int BQ, int BK>
+cudaError_t launch_mma(const Params& p, cudaStream_t st, bool check) {
+  constexpr int base = (BQ + 4 * BK) * (D + 8) * sizeof(T);
+  constexpr int with_bias = base + 2 * BQ * (BK + 8) * sizeof(float);
+  constexpr int optin = with_bias <= SMEM_OPTIN ? with_bias : base;
+  if (p.bias && with_bias > SMEM_OPTIN) return cudaErrorInvalidValue;
+  if (check) return cudaSuccess;
+  auto kernel = flash_fwd_mma_kernel<T, D, BQ, BK>;
+  static const cudaError_t configured = allow_smem(kernel, optin);
   if (configured != cudaSuccess) return configured;
-  const dim3 grid((p.tq + TC_BQ - 1) / TC_BQ, p.H, p.B);
-  kernel<<<grid, TC_THREADS, p.bias ? with_bias : base, st>>>(p);
+  const dim3 grid((p.tq + BQ - 1) / BQ, p.H, p.B);
+  kernel<<<grid, 2 * BQ, p.bias ? with_bias : base, st>>>(p);
   return cudaGetLastError();
+}
+
+// The tensor-core tile (bq, bk), a half at -1 the rule's: the rule is
+// 64 x 64 at every width; the tuner's tiles are instantiated at widths
+// 64 and 128 (the models' heads).  Any other pair is refused.
+template <typename T, int D>
+cudaError_t launch_mma_tile(const Params& p, int bq, int bk,
+                            cudaStream_t st, bool check) {
+  bq = bq < 0 ? TC_BQ : bq;
+  bk = bk < 0 ? TC_BK : bk;
+  if (bq == 64 && bk == 64) return launch_mma<T, D, 64, 64>(p, st, check);
+#if APEX_FLASH_TUNE_TILES
+  if constexpr (D == 64 || D == 128) {
+    if (bq == 64 && bk == 32) return launch_mma<T, D, 64, 32>(p, st, check);
+    if (bq == 64 && bk == 128)
+      return launch_mma<T, D, 64, 128>(p, st, check);
+    if (bq == 128 && bk == 64)
+      return launch_mma<T, D, 128, 64>(p, st, check);
+    if (bq == 128 && bk == 128)
+      return launch_mma<T, D, 128, 128>(p, st, check);
+  }
+#endif
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -950,12 +994,26 @@ cudaError_t launch_simt(const Params& p, cudaStream_t st) {
 
 constexpr int SP_MAX_SMEM = 96 * 1024;
 
+// Shared memory of a split-KV block: the queries, the PV partials and
+// the [tq][chunk] scores.
+template <int D>
+int split_smem(const Params& p) {
+  return sizeof(float) * (SP_ROWS * D + SP_THREADS / (D / 8) * SP_RB * D +
+                          p.tq * p.chunk);
+}
+
+// Whether the split-KV path takes p: fewer than SP_ROWS query rows, a
+// chunk of 32 keys or a multiple, its scores within SP_MAX_SMEM.
+template <int D>
+bool split_fits(const Params& p) {
+  return p.tq < SP_ROWS && p.chunk >= 32 && p.chunk % 32 == 0 &&
+         split_smem<D>(p) <= SP_MAX_SMEM;
+}
+
 template <typename T, int D>
 cudaError_t launch_split(const Params& p, cudaStream_t st) {
-  const int smem = sizeof(float) * (SP_ROWS * D +
-                                    SP_THREADS / (D / 8) * SP_RB * D +
-                                    p.tq * p.chunk);
-  if (p.tq >= SP_ROWS || smem > SP_MAX_SMEM) return cudaErrorInvalidValue;
+  if (!split_fits<D>(p)) return cudaErrorInvalidValue;
+  const int smem = split_smem<D>(p);
   auto kernel = flash_fwd_split_kernel<T, D>;
   static const cudaError_t configured = allow_smem(kernel, SP_MAX_SMEM);
   if (configured != cudaSuccess) return configured;
@@ -971,23 +1029,45 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
 // The wrapper decides the path: scratch and chunks (p.splits > 0) for
 // q_len < 16, none otherwise.  Tensor cores take bf16 / fp16 up to width
 // 128; fp32, and every dtype at 256 and wider, take the SIMT kernel.
+// The tile (bq, bk) applies to the tensor-core kernel only: the SIMT and
+// split-KV paths take -1, -1 (the split's chunk is p.chunk).
+// `check`: only say whether the launch would be taken (cudaSuccess) or
+// refused, launching nothing.
 template <typename T, int D>
-cudaError_t by_path(const Params& p, cudaStream_t st) {
-  if (p.splits > 0) return launch_split<T, D>(p, st);
-  if constexpr (std::is_same<T, float>::value || D > 128)
-    return launch_simt<T, D>(p, st);
-  else return launch_mma<T, D>(p, st);
+cudaError_t by_path(const Params& p, int bq, int bk, cudaStream_t st,
+                    bool check) {
+  const bool rule = bq < 0 && bk < 0;
+  if (p.splits > 0) {
+    if (!rule || !split_fits<D>(p)) return cudaErrorInvalidValue;
+    return check ? cudaSuccess : launch_split<T, D>(p, st);
+  }
+  if constexpr (std::is_same<T, float>::value || D > 128) {
+    if (!rule) return cudaErrorInvalidValue;
+    return check ? cudaSuccess : launch_simt<T, D>(p, st);
+  } else {
+    return launch_mma_tile<T, D>(p, bq, bk, st, check);
+  }
 }
 
 template <typename T>
-cudaError_t by_dim(const Params& p, int head_dim, cudaStream_t st) {
+cudaError_t by_dim(const Params& p, int head_dim, int bq, int bk,
+                   cudaStream_t st, bool check) {
   switch (head_dim) {
-    case 16: return by_path<T, 16>(p, st);
-    case 32: return by_path<T, 32>(p, st);
-    case 64: return by_path<T, 64>(p, st);
-    case 128: return by_path<T, 128>(p, st);
-    case 256: return by_path<T, 256>(p, st);
+    case 16: return by_path<T, 16>(p, bq, bk, st, check);
+    case 32: return by_path<T, 32>(p, bq, bk, st, check);
+    case 64: return by_path<T, 64>(p, bq, bk, st, check);
+    case 128: return by_path<T, 128>(p, bq, bk, st, check);
+    case 256: return by_path<T, 256>(p, bq, bk, st, check);
   }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t by_dtype(const Params& p, int head_dim, int dtype, int bq,
+                     int bk, cudaStream_t st, bool check) {
+  if (dtype == 0) return by_dim<float>(p, head_dim, bq, bk, st, check);
+  if (dtype == 1)
+    return by_dim<__nv_bfloat16>(p, head_dim, bq, bk, st, check);
+  if (dtype == 2) return by_dim<__half>(p, head_dim, bq, bk, st, check);
   return cudaErrorInvalidValue;
 }
 
@@ -999,13 +1079,22 @@ cudaError_t by_dim(const Params& p, int head_dim, cudaStream_t st) {
 // 0 fp32, 1 bf16, 2 fp16.  p->splits > 0 (q_len < 16) takes the split-KV
 // path (p->splits chunks of p->chunk keys, scratch in p->part_o /
 // p->part_ml, then the combine kernel); otherwise one kernel, tensor
-// cores for bf16/fp16 up to width 128.
+// cores for bf16/fp16 up to width 128.  block_q, block_k: the tensor-core
+// kernel's tile (launch_mma_tile; a half at -1 the rule's); the other
+// paths take only -1, -1 (the split-KV chunk is p->chunk).
 extern "C" int flash_attention_fwd(const Params* p, int head_dim, int dtype,
-                                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) err = by_dim<float>(*p, head_dim, st);
-  else if (dtype == 1) err = by_dim<__nv_bfloat16>(*p, head_dim, st);
-  else if (dtype == 2) err = by_dim<__half>(*p, head_dim, st);
-  return static_cast<int>(err);
+                                   int block_q, int block_k, void* stream) {
+  return static_cast<int>(by_dtype(*p, head_dim, dtype, block_q, block_k,
+                                   static_cast<cudaStream_t>(stream),
+                                   false));
+}
+
+// 0 when flash_attention_fwd would take these arguments, else the error
+// it would return; launches nothing.  Of *p only the path's fields are
+// read: splits, chunk and tq on decode, bias (null or not) otherwise.
+extern "C" int flash_attention_fwd_check(const Params* p, int head_dim,
+                                         int dtype, int block_q,
+                                         int block_k) {
+  return static_cast<int>(
+      by_dtype(*p, head_dim, dtype, block_q, block_k, nullptr, true));
 }

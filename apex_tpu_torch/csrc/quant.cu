@@ -477,22 +477,35 @@ int sm_count() {
   return sms[dev];
 }
 
-Plan plan(int M, int N, int Kp, int x_size) {
+// bm, bn: the caller's tile, one of the four below (16 x 32, 64 x 32,
+// the wide 128 x 256 or, for fp32 x, 64 x 256, and 64 x 128); a half
+// at -1 is the rule's (both -1: the rule's tile).  kind -1 refuses a
+// pair the kernel lacks.  The K split follows the tile (decode rows
+// only); int32 sums give the same bits at any split.
+Plan plan(int M, int N, int Kp, int x_size, int bm = -1, int bn = -1) {
   Plan p;
   const int nk = (Kp + BK - 1) / BK;
   const int sms = sm_count();
   int splits = 1;
+  const int wide_bm = x_size == 4 ? 64 : 128;
   if (M <= 64) {
     p.kind = M <= 16 ? 0 : 1;
     p.bm = M <= 16 ? 16 : 64;
     p.bn = 32;
   } else {
-    const int wide_bm = x_size == 4 ? 64 : 128;
     const bool wide = N >= 256 && 2 * ((M + wide_bm - 1) / wide_bm) *
                                           ((N + 255) / 256) >= sms;
     p.kind = wide ? 2 : 3;
     p.bm = wide ? wide_bm : 64;
     p.bn = wide ? 256 : 128;
+  }
+  if (bm > 0 || bn > 0) {
+    p.bm = bm > 0 ? bm : p.bm;
+    p.bn = bn > 0 ? bn : p.bn;
+    p.kind = p.bm == 16 && p.bn == 32 ? 0 : p.bm == 64 && p.bn == 32 ? 1
+           : p.bm == wide_bm && p.bn == 256 ? 2
+           : p.bm == 64 && p.bn == 128 ? 3 : -1;
+    if (p.kind < 0) return p;
   }
   p.tiles_m = (M + p.bm - 1) / p.bm;
   p.tiles_n = (N + p.bn - 1) / p.bn;
@@ -545,9 +558,22 @@ int x_size(int x_dtype) { return x_dtype == 0 ? 4 : 2; }
 
 // int32 elements of the zeroed workspace quant_matmul needs at this shape
 // (0: no K split).  The kernel leaves it zeroed.
+// -1 when the kernel has no such tile (bm, bn as `plan`).
 extern "C" int64_t quant_matmul_workspace(int M, int N, int Kp,
-                                          int x_dtype) {
-  return workspace_ints(plan(M, N, Kp, x_size(x_dtype)));
+                                          int x_dtype, int bm, int bn) {
+  const Plan p = plan(M, N, Kp, x_size(x_dtype), bm, bn);
+  return p.kind < 0 ? -1 : workspace_ints(p);
+}
+
+// The tile a call runs (bm, bn as `plan`): writes it to tile[0..1] and
+// returns 0, or returns -1 when the kernel has no such tile.
+extern "C" int quant_matmul_tile(int M, int N, int Kp, int x_dtype, int bm,
+                                 int bn, int* tile) {
+  const Plan p = plan(M, N, Kp, x_size(x_dtype), bm, bn);
+  if (p.kind < 0) return -1;
+  tile[0] = p.bm;
+  tile[1] = p.bn;
+  return 0;
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -556,13 +582,15 @@ extern "C" int64_t quant_matmul_workspace(int M, int N, int Kp,
 // 16-byte aligned (the wrapper checks both); xs one fp32 value and ws [N]
 // fp32 in device memory; work: quant_matmul_workspace(...) zeroed int32
 // elements (null when that is 0).  vec: K % 8 == 0 and x 16-byte aligned.
+// bm, bn: the tile (`plan`; -1 for a half of the rule's).
 extern "C" int quant_matmul(const void* x, const void* qw, const float* xs,
                             const float* ws, void* out, void* work, int M,
                             int N, int K, int Kp, int vec, int x_dtype,
-                            int out_dtype, void* stream) {
+                            int out_dtype, int bm, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype < 0 || out_dtype > 2) return cudaErrorInvalidValue;
-  const Plan p = plan(M, N, Kp, x_size(x_dtype));
+  const Plan p = plan(M, N, Kp, x_size(x_dtype), bm, bn);
+  if (p.kind < 0) return cudaErrorInvalidValue;
   if (workspace_ints(p) > 0 && work == nullptr) return cudaErrorInvalidValue;
   Args a{x, static_cast<const int8_t*>(qw), xs, ws, out,
          static_cast<int*>(work), M, N, K, Kp, vec, out_dtype, p.steps};

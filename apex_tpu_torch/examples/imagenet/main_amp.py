@@ -48,14 +48,16 @@ flax-style BatchNorm with explicit ReLU and residual adds;
 ``--no-fused-loss`` the log_softmax + gather composition; ``--bucketed``
 keeps the SGD momentum in flat buckets (``training.sgd(bucketed=True)``).
 The run ends
-with the conv sites' count, as the JAX example's ``tune:`` line does.
+with the conv sites' count and the ``tune:`` line (the share of consulted
+kernels that ran a tuned config, as the JAX example's).
 
 The loop runs on :class:`apex_tpu_torch.runtime.StepPipeline`, as the
 JAX example's does: ``--steps-per-call K`` runs K steps per host call
 (on CUDA one captured graph of K steps, captured before step 0 under
 ``--aot-warmup``, the default), ``--prof`` and ``--print-freq`` round up
 to multiples of K, and the metrics are read one window behind.
-``--compilation-cache DIR`` keeps the built kernels in DIR.
+``--compilation-cache DIR`` keeps the built kernels and the tuner's
+configs in DIR.
 
 Data parallel, as the JAX example's mesh: the trainer calls
 ``parallel.multiproc.initialize()`` first (a no-op in one process, so a
@@ -112,6 +114,7 @@ from ...data import (augment_images, directory_imagenet, format_loader_line,
                      load_batch, normalize_images, synthetic_imagenet)
 from ...models import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
 from ...prof.capture import scope
+from ...tune import dispatch as tune_dispatch
 from .. import _telemetry
 from ...ops import (PallasConv, conv_dispatch_stats, publish_conv_counters,
                    reset_conv_dispatch_stats)
@@ -497,6 +500,9 @@ def run(argv=None) -> dict:
         print(f"conv sites {cs['pallas_sites']} kernel / "
               f"{cs['fallback_sites']} plain-fallback "
               f"{cs['fallback_reasons'] or ''}".rstrip())
+        line = tune_dispatch.coverage_line()
+        if line:
+            print(line)
         if args.stats_json:
             write_stats(args.stats_json, res)
         print("done")

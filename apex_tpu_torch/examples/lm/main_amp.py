@@ -17,8 +17,9 @@ JAX example's does: ``--steps-per-call K`` runs K steps per host call
 ``--aot-warmup``, the default), ``--steps`` rounds up to a multiple of
 K, and the losses are read one window behind
 (:class:`~apex_tpu_torch.runtime.DeferredMetrics`).
-``--compilation-cache DIR`` keeps the built kernels in DIR
-(:func:`apex_tpu_torch.cache.enable`).
+``--compilation-cache DIR`` keeps the built kernels and the tuner's
+configs in DIR (:func:`apex_tpu_torch.cache.enable`); the run ends with
+the ``tune:`` line when a kernel consulted the tuner's cache.
 
 ``--checkpoint-dir DIR`` saves the state (fp32 masters, Adam moments and
 step, the scaler) every ``--checkpoint-every`` steps at a window
@@ -69,6 +70,7 @@ from ..._device import resolve_device
 from ...contrib.xentropy import softmax_cross_entropy_loss
 from ...models import GPT
 from ...prof.capture import scope
+from ...tune import dispatch as tune_dispatch
 from .. import _telemetry
 
 
@@ -283,6 +285,9 @@ def run(argv=None, log=print) -> dict:
         _telemetry.finish(rec, args, log=log)
     if not all(np.isfinite(res["losses"])):
         raise SystemExit("training diverged: a loss is not finite")
+    line = tune_dispatch.coverage_line()
+    if line:
+        log(line)
     return res
 
 

@@ -43,6 +43,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..normalization import FusedLayerNorm
+from ..prof.capture import scope
 
 _NOT_PORTED_IMPLS = ("ring", "ring_flash", "ulysses")
 
@@ -280,12 +281,19 @@ class BertLayer(nn.Module):
         self.output_ln = FusedLayerNorm(d, device=device)
 
     def forward(self, x, mask=None):
-        attn = self.attention(x, mask)
-        x = self.attention_ln(x + attn).to(x.dtype)
-        h = self.intermediate(x)
+        # the JAX layer's submodule names as profiler scopes, so a roofline
+        # ledger's regions name what they hold (the tuner reads them)
+        with scope("attention"):
+            attn = self.attention(x, mask)
+        with scope("attention_ln"):
+            x = self.attention_ln(x + attn).to(x.dtype)
+        with scope("intermediate"):
+            h = self.intermediate(x)
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        h = self.output(h)
-        return self.output_ln(x + h).to(x.dtype)
+        with scope("output"):
+            h = self.output(h)
+        with scope("output_ln"):
+            return self.output_ln(x + h).to(x.dtype)
 
 
 class Embed(nn.Module):
@@ -358,16 +366,21 @@ class BertEncoder(nn.Module):
         pos = torch.arange(s, device=input_ids.device)[None]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings_ln(self.word_embeddings(input_ids)
-                               + self.position_embeddings(pos)
-                               + self.token_type_embeddings(token_type_ids))
+        with scope("embeddings_ln"):
+            x = self.embeddings_ln(
+                self.word_embeddings(input_ids)
+                + self.position_embeddings(pos)
+                + self.token_type_embeddings(token_type_ids))
         x = x.to(self.dtype)
-        for layer in self.layers():
-            x = layer(x, attention_mask)
+        for i, layer in enumerate(self.layers()):
+            with scope(f"layer_{i}"):
+                x = layer(x, attention_mask)
         if self.num_classes is None:
             return x.float()
-        pooled = torch.tanh(self.pooler(x[:, 0]))
-        return self.classifier(pooled).float()
+        with scope("pooler"):
+            pooled = torch.tanh(self.pooler(x[:, 0]))
+        with scope("classifier"):
+            return self.classifier(pooled).float()
 
 
 def bert_base(**kw) -> BertEncoder:

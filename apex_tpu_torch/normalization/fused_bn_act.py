@@ -44,6 +44,15 @@ variant (affine or not, with or without ``z``, ReLU or not) is its own
 compiled kernel: no dummy ``z`` is read, and the backward writes ``dz``
 only when there is a ``z`` (the Pallas kernel ships a ``[1, C]`` dummy
 and writes a zero ``dz``: TPU layout artefacts).
+
+The tile.  ``row_block`` (JAX's name) is ``BLOCK_R``, the rows of a
+program's tile; the rule makes tiles of 8192 elements (64 rows of 128
+channels).  Each element's arithmetic is the same in any tile, so every
+``row_block`` gives the same bits.  ``bn_relu_residual(row_block=)``
+sets it (rounded to a power of two within :mod:`apex_tpu_torch.tune.
+space`'s register budget); left at None, a CUDA call consults the
+tuner's cache for this shape's bucket (:func:`tune_bucket`, the JAX
+package's string, :data:`TUNE_VERSION`).
 """
 
 from __future__ import annotations
@@ -52,10 +61,27 @@ import functools
 
 import torch
 
+from typing import Optional
+
 from .. import _build
 from ..prof import costs as _costs
+from ..tune import space as _space
+from ..tune.dispatch import kernel_config as _tuned_config
 
-__all__ = ["bn_relu_residual", "bn_act_epilogue_ref"]
+__all__ = ["bn_relu_residual", "bn_act_epilogue_ref", "TUNE_VERSION",
+           "tune_bucket"]
+
+#: the tuner's config version of the BN epilogue kernels
+TUNE_VERSION = 1
+#: fp32 working bytes of a tile element: x, z and the pre-activation
+#: live at once
+_TILE_BYTES_PER_ELEM = 12
+
+
+def tune_bucket(n_rows: int, c: int, itemsize: int, has_z: bool) -> str:
+    """Config-cache shape bucket (the JAX package's string): rows round
+    to a power of two; channels, itemsize and the residual flag exact."""
+    return f"r{_space.pow2_bucket(n_rows)}_c{c}_i{itemsize}_z{int(has_z)}"
 
 
 # -- plain version ------------------------------------------------------------
@@ -202,11 +228,17 @@ def _triton_kernels():
     return bn_fwd, bn_bwd
 
 
-def _grid(n_rows: int, n_ch: int):
-    """``(grid, BLOCK_R, BLOCK_C)``: channel blocks of up to 128, row
-    blocks making tiles of 8192 elements."""
+def _grid(n_rows: int, n_ch: int, row_block: Optional[int] = None):
+    """``(grid, BLOCK_R, BLOCK_C)``: channel blocks of up to 128; row
+    blocks of ``row_block`` (:func:`apex_tpu_torch.tune.space.pick_rows`:
+    a power of two within the register budget), else the rule's tiles of
+    8192 elements."""
     block_c = min(128, 1 << max(0, n_ch - 1).bit_length())
-    block_r = 8192 // block_c
+    if row_block is None:
+        block_r = 8192 // block_c
+    else:
+        block_r = _space.pick_rows(n_rows, block_c, _TILE_BYTES_PER_ELEM,
+                                   row_block=row_block)
     return ((-(-n_rows // block_r), -(-n_ch // block_c)), block_r, block_c)
 
 
@@ -234,17 +266,19 @@ def _check(x2d, acts, vecs):
                              f"tensor on {x2d.device}")
 
 
-def bn_act_fwd_kernel(x2d, mean, invstd, scale, bias, z2d, relu):
+def bn_act_fwd_kernel(x2d, mean, invstd, scale, bias, z2d, relu,
+                      row_block=None):
     """Launch the Triton forward kernel on a contiguous CUDA ``[rows,
     C]`` input (``z2d`` the same shape, or None; ``scale`` and ``bias``
     both fp32 ``[C]`` or both None); returns the output in x's dtype.
+    ``row_block``: the tile's rows (:func:`_grid`), None for the rule.
     Adds one to ``bn_act_fwd_kernel.launches`` per launch."""
     _check(x2d, (("z", z2d),), (("mean", mean), ("invstd", invstd),
                                 ("scale", scale), ("bias", bias)))
     out = torch.empty_like(x2d)
     if x2d.numel() == 0:
         return out
-    grid, block_r, block_c = _grid(*x2d.shape)
+    grid, block_r, block_c = _grid(*x2d.shape, row_block)
     kernel, _ = _triton_kernels()
     affine = scale is not None
     with torch.cuda.device(x2d.device):
@@ -261,11 +295,12 @@ def bn_act_fwd_kernel(x2d, mean, invstd, scale, bias, z2d, relu):
 _build.counted(bn_act_fwd_kernel)
 
 
-def bn_act_bwd_kernel(g2d, x2d, mean, invstd, scale, bias, z2d, relu):
+def bn_act_bwd_kernel(g2d, x2d, mean, invstd, scale, bias, z2d, relu,
+                      row_block=None):
     """Launch the Triton backward kernel: ``g2d`` the output gradient
     (x's shape), the forward's operands; returns ``(dx, dz)`` in x's and
-    z's dtypes, ``dz`` None without a ``z``.  Adds one to
-    ``bn_act_bwd_kernel.launches`` per launch."""
+    z's dtypes, ``dz`` None without a ``z``.  ``row_block`` as the
+    forward's.  Adds one to ``bn_act_bwd_kernel.launches`` per launch."""
     _check(x2d, (("g", g2d), ("z", z2d)),
            (("mean", mean), ("invstd", invstd), ("scale", scale),
             ("bias", bias)))
@@ -273,7 +308,7 @@ def bn_act_bwd_kernel(g2d, x2d, mean, invstd, scale, bias, z2d, relu):
     dz = torch.empty_like(z2d) if z2d is not None else None
     if x2d.numel() == 0:
         return dx, dz
-    grid, block_r, block_c = _grid(*x2d.shape)
+    grid, block_r, block_c = _grid(*x2d.shape, row_block)
     _, kernel = _triton_kernels()
     affine = scale is not None
     with torch.cuda.device(x2d.device):
@@ -296,18 +331,20 @@ class _Epilogue(torch.autograd.Function):
     kernel plus plain per-channel sums (``fused_bn_act.py:281-311``)."""
 
     @staticmethod
-    def forward(ctx, x2d, mean, invstd, scale, bias, z2d, relu):
+    def forward(ctx, x2d, mean, invstd, scale, bias, z2d, relu, row_block):
         walk = _costs.counting(x2d)
         if walk is not None:
             out = walk.kernel(_costs.bn_act_fwd(x2d, z2d), _fwd_ref, x2d,
                               mean, invstd, scale, bias, z2d, relu)
         elif x2d.is_cuda:
+            if row_block is None:
+                row_block = _tuned_rows(x2d, z2d)
             out = bn_act_fwd_kernel(x2d, mean, invstd, scale, bias, z2d,
-                                    relu)
+                                    relu, row_block)
         else:
             out = _fwd_ref(x2d, mean, invstd, scale, bias, z2d, relu)
         ctx.save_for_backward(x2d, mean, invstd, scale, bias, z2d)
-        ctx.relu = relu
+        ctx.relu, ctx.row_block = relu, row_block
         return out
 
     @staticmethod
@@ -328,16 +365,27 @@ class _Epilogue(torch.autograd.Function):
                     mean, invstd, scale, bias, z2d, relu)
             else:
                 dx, dz = bn_act_bwd_kernel(g.contiguous(), x2d, mean,
-                                           invstd, scale, bias, z2d, relu)
+                                           invstd, scale, bias, z2d, relu,
+                                           ctx.row_block)
             gf = _masked_cotangent(g, x2d, mean, invstd, scale, bias, z2d,
                                    relu)
             d_mean, d_invstd, d_scale, d_bias = _channel_sums(
                 gf, x2d, mean, invstd, scale, bias)
-        return dx, d_mean, d_invstd, d_scale, d_bias, dz, None
+        return dx, d_mean, d_invstd, d_scale, d_bias, dz, None, None
+
+
+def _tuned_rows(x2d, z2d) -> Optional[int]:
+    """The kernel path's consult: the tuned ``row_block`` of this
+    shape's bucket, or None (the rule)."""
+    shape = (*x2d.shape, x2d.element_size(), z2d is not None)
+    cfg = _tuned_config("bn_relu_residual", TUNE_VERSION,
+                        lambda: tune_bucket(*shape), params=("row_block",),
+                        key=shape)
+    return cfg["row_block"] if cfg else None
 
 
 def bn_relu_residual(x, mean, invstd, scale=None, bias=None, z=None,
-                     relu=True):
+                     relu=True, row_block: Optional[int] = None):
     """Fused BN epilogue ``relu((x - mean) * invstd * scale + bias + z)``.
 
     ``x`` is channels-last (``[..., C]``); ``mean``/``invstd`` and the
@@ -345,7 +393,15 @@ def bn_relu_residual(x, mean, invstd, scale=None, bias=None, z=None,
     or cast to it); ``z`` is an optional residual of x's shape, added
     before the ReLU.  Returns x's shape and dtype.  Differentiable in
     ``x``, ``mean``, ``invstd``, ``scale``, ``bias`` and ``z``.
+    ``row_block``: the kernels' tile rows (the module docstring); left at
+    None, a CUDA call consults the tuner's cache, else runs the rule.  An
+    explicit value wins over the cache, as in JAX; the plain version
+    ignores it.
     """
+    if row_block is not None and (isinstance(row_block, bool)
+                                  or int(row_block) <= 0):
+        raise ValueError(f"row_block must be a positive int, got "
+                         f"{row_block!r}")
     c = x.shape[-1]
     x2d = x.reshape(-1, c).contiguous()
     z2d = z.reshape(-1, c).contiguous() if z is not None else None
@@ -354,5 +410,5 @@ def bn_relu_residual(x, mean, invstd, scale=None, bias=None, z=None,
         return None if v is None else v.reshape(c).float().contiguous()
 
     out = _Epilogue.apply(x2d, vec(mean), vec(invstd), vec(scale), vec(bias),
-                          z2d, bool(relu))
+                          z2d, bool(relu), row_block)
     return out.reshape(x.shape)

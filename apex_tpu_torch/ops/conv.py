@@ -7,9 +7,9 @@ Counterpart of ``apex_tpu/ops/conv.py``: the same public ``conv2d(x, w,
 relu)`` in the JAX layouts (``x`` ``[N, H, W, C]``, ``w`` HWIO ``[KH,
 KW, C // groups, O]``), with the JAX validation messages, and the
 ``PallasConv`` module the ResNet ``conv_cls=`` hook takes.  The TPU's
-dispatch and tuner knobs (``impl``, ``interpret``, ``block_m``,
-``block_n``) and its crossover and VMEM model (``_JNP_MAX_ELEMENTS``,
-``_fwd_fits``, ``_dgrad_fits``, ``_wgrad_fits``) do not carry over.
+dispatch knobs (``impl``, ``interpret``) and its crossover and VMEM model
+(``_JNP_MAX_ELEMENTS``, ``_fwd_fits``, ``_dgrad_fits``, ``_wgrad_fits``)
+do not carry over; ``block_m``/``block_n`` name the card's tile.
 
 The gradient is a ``torch.autograd.Function`` (the JAX ``custom_vjp``):
 the forward kernel saves the pre-activation when an epilogue consumes
@@ -46,9 +46,18 @@ layout pass, not a counted launch), and the padded output channels are
 cut off.  The source says more.
 
 :func:`publish_conv_counters` exports the dispatch counters into a
-telemetry registry under the JAX package's names.  Not ported yet: the
-tuner's ``tune_bucket`` / ``TUNE_VERSION`` (ROADMAP queue 1 item 2, the
-``tune`` slice, keyed by the CUDA device name).
+telemetry registry under the JAX package's names.
+
+The tile.  The kernels' block is 128 output rows (``block_m``, one
+instantiation) by 64 or 128 columns (``block_n``, both instantiated for
+every mode and type); the rule takes 128 where the GEMM's N is at least
+128.  :func:`conv2d` takes ``block_m``/``block_n`` (JAX's names); left at
+None, a CUDA call consults the tuner's cache for this shape's bucket
+(:func:`tune_bucket`, the JAX package's string, :data:`TUNE_VERSION`).
+The tile applies to the forward, dgrad and wgrad GEMMs of the call; the
+width moves which block computes an output, not the order of its K sum,
+and wgrad's split is sized by the rule's tile whatever the width, so
+every tile gives the same bits.
 """
 
 from __future__ import annotations
@@ -63,22 +72,45 @@ from torch import nn
 from .. import _build
 from .._device import resolve_device
 from ..prof import costs as _costs
+from ..tune import space as _space
+from ..tune.dispatch import kernel_config as _tuned_config
 from ..normalization.fused_bn_act import _bwd_ref as _ep_bwd_ref
 from ..normalization.fused_bn_act import _fwd_ref as _ep_fwd_ref
 from ..normalization.fused_bn_act import bn_act_epilogue_ref
 
 __all__ = ["conv2d", "conv2d_ref", "PallasConv", "conv_dispatch_stats",
-           "reset_conv_dispatch_stats", "publish_conv_counters"]
+           "reset_conv_dispatch_stats", "publish_conv_counters",
+           "TUNE_VERSION", "tune_bucket"]
 
 # the kernels' tile, as in csrc/conv.cu: 128 rows, K steps of 32, 128
 # columns where the GEMM's N is at least 128, else 64
 _BM, _BK = 128, 32
 _BN = (64, 128)
 
+#: the tuner's config version of the conv kernels
+TUNE_VERSION = 1
+
 
 def _tile_n(n: int) -> int:
-    """The kernels' tile width for a GEMM of N columns."""
+    """The kernels' tile width for a GEMM of N columns (the rule)."""
     return _BN[1] if n >= _BN[1] else _BN[0]
+
+
+def tune_bucket(n: int, oh: int, ow: int, c: int, o: int, kh: int, kw: int,
+                sh: int, sw: int, dh: int, dw: int, isz: int,
+                epilogue: bool, has_z: bool) -> str:
+    """Config-cache shape bucket (the JAX package's string): batch and
+    the joint output extent round to powers of two
+    (:func:`apex_tpu_torch.tune.space.nhwc_bucket`); channels, the
+    filter, stride and dilation, the itemsize and the epilogue and
+    residual flags are exact."""
+    return (f"{_space.nhwc_bucket(n, oh, ow, c)}_o{o}_k{kh}x{kw}"
+            f"_s{sh}x{sw}_d{dh}x{dw}_i{isz}_e{int(epilogue)}"
+            f"_z{int(has_z)}")
+
+
+def _legal_tile(block_m, block_n) -> bool:
+    return block_m == _BM and block_n in _BN
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -248,10 +280,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv")
     for fn in (lib.conv_fwd, lib.conv_dgrad):
         fn.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.conv_wgrad.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
-                               ctypes.c_int, ctypes.c_void_p]
+                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.conv_wgrad.restype = ctypes.c_int
     return lib
 
@@ -335,11 +367,15 @@ def _params(x_shape, w_shape, oh, ow, stride, padding, dilation,
         sw=stride[1], dh=dilation[0], dw=dilation[1], pt=pt, pl=pl_)
 
 
-def _launch(name, prm, dtype, device, *extra):
+def _launch(name, prm, dtype, device, *extra, block_n=None):
     stream = torch.cuda.current_stream(device).cuda_stream
+    if block_n is not None and block_n not in _BN:
+        raise ValueError(f"conv block_n must be one of {_BN}, got "
+                         f"{block_n}")
     with torch.cuda.device(device):
         err = getattr(_lib(), name)(ctypes.byref(prm),
                                     _build.dtype_code(dtype), *extra,
+                                    -1 if block_n is None else int(block_n),
                                     stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -358,13 +394,14 @@ def _geometry(x_shape, w_shape, stride, padding, dilation):
 
 def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
                     scale=None, bias=None, z=None, relu=False,
-                    want_preact=False):
+                    want_preact=False, block_n=None):
     """Launch the CUDA forward kernel: ``x`` ``[N, H, W, C]`` and ``w``
     ``[KH, KW, C, O]`` contiguous CUDA tensors of one type, ``stride`` and
     ``dilation`` pairs, ``padding`` ``((pt, pb), (pl, pr))``; with
     ``mean``/``invstd`` (fp32 ``[O]``) the epilogue ``relu((y - mean) *
     invstd * scale + bias + z)``.  Returns ``(out, preact)``, ``preact``
-    (the conv result before the epilogue) only with ``want_preact``.  Adds
+    (the conv result before the epilogue) only with ``want_preact``.
+    ``block_n``: the tile's width (64 or 128), None for the rule.  Adds
     one to ``conv_fwd_kernel.launches`` per launch."""
     if w.dim() != 4 or x.dim() != 4 or w.shape[2] != x.shape[3]:
         raise ValueError(f"conv kernel wants NHWC x and HWIO w with equal "
@@ -392,7 +429,7 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
                   a=x, b=w, out=out, preact=preact, mean=mean, invstd=invstd,
                   scale=scale, bias=bias, z=z)
     prm.relu, prm.epilogue = int(bool(relu)), int(mean is not None)
-    _launch("conv_fwd", prm, x.dtype, x.device)
+    _launch("conv_fwd", prm, x.dtype, x.device, block_n=block_n)
     conv_fwd_kernel.launches += 1
     if op != o:
         out = out[..., :o].contiguous()
@@ -403,14 +440,15 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
 _build.counted(conv_fwd_kernel)
 
 
-def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw):
+def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw, block_n=None):
     """Launch the CUDA dgrad kernel: the input gradient ``[N, H, W, C]``
     (``hw = (H, W)``) of the conv of :func:`conv_fwd_kernel`'s arguments,
     from the output gradient ``dy`` ``[N, OH, OW, O]``; in dy's type.  At
     stride 1 one GEMM over every pixel (:func:`_dgrad_ref`); at stride > 1
     one launch of all the parity classes' sub-GEMMs
-    (:func:`_dgrad_parity_ref` is their arithmetic).  Adds one to
-    ``conv_dgrad_kernel.launches`` per launch."""
+    (:func:`_dgrad_parity_ref` is their arithmetic).  ``block_n`` as
+    :func:`conv_fwd_kernel`'s.  Adds one to ``conv_dgrad_kernel.launches``
+    per launch."""
     n = dy.shape[0]
     x_shape = (n, *hw, w.shape[2])
     oh, ow = _geometry(x_shape, w.shape, stride, padding, dilation)
@@ -424,7 +462,7 @@ def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw):
     dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
     prm = _params(x_shape, w.shape, oh, ow, stride, padding, dilation,
                   a=dy, b=w, out=dx)
-    _launch("conv_dgrad", prm, dy.dtype, dy.device)
+    _launch("conv_dgrad", prm, dy.dtype, dy.device, block_n=block_n)
     conv_dgrad_kernel.launches += 1
     return dx if w.shape[2] == c else dx[..., :c].contiguous()
 
@@ -434,7 +472,8 @@ _build.counted(conv_dgrad_kernel)
 
 def _wgrad_splits(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     """``(splits, pixels per split)`` for wgrad's K (the pixels): enough
-    blocks of the kernels' tile (:func:`_tile_n`) for ~4 a streaming
+    blocks of the rule's tile (:func:`_tile_n`, whatever tile runs, so
+    the sum's order does not move with it) for ~4 a streaming
     multiprocessor, each split at least 8 K steps; a multiple of the K
     step per split."""
     tiles = -(-m // _BM) * -(-n // _tile_n(n))
@@ -444,12 +483,14 @@ def _wgrad_splits(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     return -(-k // per), per
 
 
-def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size):
+def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size,
+                      block_n=None):
     """Launch the CUDA wgrad kernels (the split GEMM, then the reduce of
     its fp32 workspace in split order): the weight gradient ``[KH, KW, C,
     O]`` of the conv of ``x`` from the output gradient ``dy``; in x's
-    type.  Adds one to ``conv_wgrad_kernel.launches`` per call (the
-    reduce pass is counted within it)."""
+    type.  ``block_n`` as :func:`conv_fwd_kernel`'s.  Adds one to
+    ``conv_wgrad_kernel.launches`` per call (the reduce pass is counted
+    within it)."""
     kh, kw = kernel_size
     w_shape = (kh, kw, x.shape[3], dy.shape[3])
     oh, ow = _geometry(x.shape, w_shape, stride, padding, dilation)
@@ -469,7 +510,7 @@ def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size):
     prm = _params(x.shape, wp_shape, oh, ow, stride, padding, dilation,
                   a=x, b=dy, out=ws, aux=dw)
     prm.k_per_split = per
-    _launch("conv_wgrad", prm, x.dtype, x.device, splits)
+    _launch("conv_wgrad", prm, x.dtype, x.device, splits, block_n=block_n)
     conv_wgrad_kernel.launches += 1
     if wp_shape != w_shape:
         dw = dw[:, :, :w_shape[2], :w_shape[3]].contiguous()
@@ -489,7 +530,7 @@ class _Conv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, mean, invstd, scale, bias, z, relu, stride,
-                padding, dilation, groups):
+                padding, dilation, groups, block_n):
         epilogue = mean is not None
         walk = _costs.counting(x)
         kernel = (x.is_cuda or walk is not None) and groups == 1
@@ -504,21 +545,22 @@ class _Conv(torch.autograd.Function):
             z = None if z is None else z.contiguous()
             out, y = conv_fwd_kernel(x, w, stride, padding, dilation, mean,
                                      invstd, scale, bias, z, relu,
-                                     want_preact=epilogue)
+                                     want_preact=epilogue, block_n=block_n)
         else:
             y = _raw_conv(x, w, stride, padding, dilation, groups, x.dtype)
             out = (_ep_fwd_ref(y, mean, invstd, scale, bias, z, relu)
                    if epilogue else y)
         ctx.save_for_backward(x, w, mean, invstd, scale, bias, z,
                               y if epilogue else None)
-        ctx.conf = (relu, stride, padding, dilation, groups, kernel)
+        ctx.conf = (relu, stride, padding, dilation, groups, kernel,
+                    block_n)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, w, mean, invstd, scale, bias, z, y = ctx.saved_tensors
-        relu, stride, padding, dilation, groups, kernel = ctx.conf
+        relu, stride, padding, dilation, groups, kernel, block_n = ctx.conf
         if mean is not None:
             dy, d_mean, d_invstd, d_scale, d_bias, dz = _ep_bwd_ref(
                 g, y, mean, invstd, scale, bias, z, relu)
@@ -541,10 +583,10 @@ class _Conv(torch.autograd.Function):
             dy = dy.contiguous()
             if need_dx:
                 dx = conv_dgrad_kernel(dy, w, stride, padding, dilation,
-                                       x.shape[1:3])
+                                       x.shape[1:3], block_n=block_n)
             if need_dw:
                 dw = conv_wgrad_kernel(x, dy, stride, padding, dilation,
-                                       w.shape[:2])
+                                       w.shape[:2], block_n=block_n)
         elif need_dx or need_dw:
             xx = x.detach().requires_grad_(need_dx)
             ww = w.detach().requires_grad_(need_dw)
@@ -557,14 +599,15 @@ class _Conv(torch.autograd.Function):
             dx = grads.pop(0) if need_dx else None
             dw = grads.pop(0) if need_dw else None
         return (dx, dw, d_mean, d_invstd, d_scale, d_bias, dz, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 # -- public op -------------------------------------------------------------------
 
 def conv2d(x, w, *, stride=(1, 1), padding="SAME", dilation=(1, 1),
            groups: int = 1, mean=None, invstd=None, scale=None, bias=None,
-           z=None, relu: bool = False):
+           z=None, relu: bool = False, block_m: Optional[int] = None,
+           block_n: Optional[int] = None):
     """NHWC 2-D convolution with an optional fused BN/ReLU/residual
     epilogue: ``relu((conv(x, w) - mean) * invstd * scale + bias + z)``.
 
@@ -583,7 +626,11 @@ def conv2d(x, w, *, stride=(1, 1), padding="SAME", dilation=(1, 1),
     ``bn_relu_residual`` chain.
 
     CUDA tensors run the kernels (a grouped conv excepted); CPU tensors
-    the plain version.
+    the plain version, which takes the tile arguments and ignores them.
+    ``block_m``/``block_n``: the kernels' tile (128 rows; 64 or 128
+    columns; a missing one is the rule's); left at None, a CUDA call
+    consults the tuner's cache for this shape's bucket, else runs the
+    rule.  An explicit tile wins over the cache, as in JAX.
     """
     stride, dilation = _pair(stride), _pair(dilation)
     if x.dim() != 4 or w.dim() != 4:
@@ -618,8 +665,37 @@ def conv2d(x, w, *, stride=(1, 1), padding="SAME", dilation=(1, 1),
                 raise ValueError(f"z must have the output shape "
                                  f"{(n, oh, ow, o)}; got {tuple(z.shape)}")
             z = z.to(dt)
+    tile_n = None
+    if x.is_cuda and groups == 1 and _costs.counting(x) is None:
+        tile_n = _pick_tile_n(n, oh, ow, cin, o, kh, kw, stride, dilation,
+                              x.element_size(), mean is not None,
+                              z is not None, block_m, block_n)
     return _Conv.apply(x, w, mean, invstd, scale, bias, z, bool(relu),
-                       stride, padding, dilation, int(groups))
+                       stride, padding, dilation, int(groups), tile_n)
+
+
+def _pick_tile_n(n, oh, ow, cin, o, kh, kw, stride, dilation, isz,
+                 epilogue, has_z, block_m, block_n) -> Optional[int]:
+    """The tile width a kernel call runs: the caller's (its block_m must
+    be 128; a pair the kernels lack raises), else the tuned config of
+    this shape's bucket when it names a tile the kernels have, else None
+    (the rule)."""
+    if block_m is None and block_n is None:
+        shape = (n, oh, ow, cin, o, kh, kw, *stride, *dilation, isz,
+                 epilogue, has_z)
+        cfg = _tuned_config("conv2d", TUNE_VERSION,
+                            lambda: tune_bucket(*shape),
+                            params=("block_m", "block_n"), key=shape)
+        if cfg and _legal_tile(cfg["block_m"], cfg["block_n"]):
+            return cfg["block_n"]
+        return None
+    bm = _BM if block_m is None else block_m
+    bn = _tile_n(o) if block_n is None else block_n
+    if not _legal_tile(bm, bn):
+        raise ValueError(f"conv block_m/block_n ({bm}, {bn}) is not a "
+                         f"tile of the kernels: block_m {_BM}, block_n "
+                         f"one of {_BN}")
+    return bn
 
 
 # -- module + per-site dispatch stats ------------------------------------------

@@ -33,6 +33,18 @@ say what bounds them on the card and how they are laid out.  A per-head
 ``[B, H, T, S]`` bias has no kernel here or in the JAX package: it takes
 the plain, differentiable path on either device, as JAX takes its jnp
 ``blockwise_attention``.
+
+The tile.  ``flash_attention(block_q=, block_k=)`` (JAX's names) sets the
+forward's tile: the tensor-core kernel's query rows and keys a tile
+(:func:`tiles`: the rule's 64 x 64 at every width; 64 x 32, 64 x 128,
+128 x 64 and 128 x 128 at widths 64 and 128), and on the split-KV decode
+path ``block_k`` is the chunk of keys a block reads (a multiple of 32,
+as many as its shared memory holds; ``block_q`` has no meaning there).
+The fp32 and wide-head SIMT kernels and the backward kernels keep their
+rule's tile.  Left at None, a CUDA call consults the tuner's cache for
+this shape's bucket (:func:`tune_bucket`, the JAX package's string,
+:data:`TUNE_VERSION`).  Another tile reorders the online softmax's sums,
+so its outputs agree with the rule's to a tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +57,8 @@ import torch
 
 from .. import _build
 from ..prof import costs as _costs
+from ..tune import space as _space
+from ..tune.dispatch import kernel_config as _tuned_config
 
 NEG_INF = -1e30
 
@@ -57,6 +71,51 @@ _SPLIT_TQ = 16
 #: keys per split-KV chunk: at least a few passes of a block, at most
 #: what its shared-memory score rows hold
 _MIN_CHUNK, _MAX_CHUNK = 64, 512
+#: the tensor-core forward's tile by the rule, and the tuner's other
+#: tiles, instantiated at the widths in ``_TUNED_DIMS``
+_RULE_TILE = (64, 64)
+_TUNED_TILES = ((64, 32), (64, 128), (128, 64), (128, 128))
+_TUNED_DIMS = (64, 128)
+
+#: the tuner's config version of the flash forward
+TUNE_VERSION = 1
+
+
+def tune_bucket(tq: int, tk: int, d: int, causal: bool, has_bias: bool,
+                windowed: bool) -> str:
+    """Config-cache shape bucket (the JAX package's string): sequence
+    lengths round up to powers of two; head width, causality, the
+    ``[B, T, S]`` bias flag and the window flag are exact."""
+    return (f"q{_space.pow2_bucket(tq)}_k{_space.pow2_bucket(tk)}_d{d}"
+            f"_c{int(causal)}_b{int(has_bias)}_w{int(windowed)}")
+
+
+def tiles(d: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """The tensor-core forward's tiles ``(block_q, block_k)`` for head
+    width ``d`` and ``dtype``: none for fp32 and widths above 128 (the
+    SIMT kernel has no tile knob)."""
+    dk = _kernel_dim(d)
+    if dtype == torch.float32 or dk > 128:
+        return ()
+    return (_RULE_TILE,) + (_TUNED_TILES if dk in _TUNED_DIMS else ())
+
+
+def tile_fits(tq: int, d: int, dtype: torch.dtype, tile: Tuple[int, int],
+              bias: bool = False) -> bool:
+    """Whether the forward kernel takes ``tile`` for ``tq`` query rows of
+    width ``d`` in ``dtype`` (with a ``[B, T, S]`` bias or none): a
+    tensor-core tile it is instantiated at whose stages fit the block's
+    shared memory, or on decode (``tq`` < 16) a chunk of ``tile[1]``
+    keys its block holds.  The kernel's own check, asked of the built
+    library without a launch, so only on the card."""
+    decode = tq < _SPLIT_TQ
+    prm = _FlashParams(tq=tq, splits=int(decode),
+                       chunk=int(tile[1]) if decode else 0,
+                       bias=1 if bias and not decode else None)
+    mma = (-1, -1) if decode else (int(tile[0]), int(tile[1]))
+    return _fwd_lib().flash_attention_fwd_check(
+        ctypes.byref(prm), _kernel_dim(d), _build.dtype_code(dtype),
+        *mma) == 0
 
 
 # -- plain versions -------------------------------------------------------------
@@ -249,9 +308,12 @@ class _FlashBwdParams(ctypes.Structure):
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_FlashParams)] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    check = lib.flash_attention_fwd_check
+    check.argtypes = [ctypes.POINTER(_FlashParams)] + [ctypes.c_int] * 4
+    check.restype = ctypes.c_int
     return lib
 
 
@@ -356,7 +418,8 @@ def _kv_split(b: int, h: int, tk: int, sms: int) -> Tuple[int, int]:
 
 def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                      causal: bool, q_offset: int = 0,
-                     window: Optional[int] = None
+                     window: Optional[int] = None,
+                     tile: Optional[Tuple[int, int]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA forward kernel: the arguments of
     :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
@@ -364,11 +427,25 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     bf16/fp16 up to width 128, fp32 FMA for fp32 and above 128); a
     shorter call runs the split-KV
     kernel and its combine (:func:`_flash_fwd_split_ref` is their
-    arithmetic), with fp32 scratch allocated here.  Adds one to
+    arithmetic), with fp32 scratch allocated here.  ``tile``: ``(block_q,
+    block_k)``, None for the rule; the tensor-core kernel takes one of
+    :func:`tiles` (a half at -1 is the rule's), the split-KV path a chunk
+    of ``block_k`` keys, the SIMT kernel none; one the kernel refuses
+    (:func:`tile_fits`) raises ``ValueError``.  Adds one to
     ``flash_fwd_kernel.launches`` per call."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias)
     b, tq, h, d = q.shape
     dk = _kernel_dim(d)
+    if tile is not None:
+        tile = (int(tile[0]), int(tile[1]))
+        if not tile_fits(tq, d, q.dtype, tile, bias is not None):
+            raise ValueError(
+                f"flash tile {tile} is not one the forward kernel takes "
+                f"for {tq} query rows of width {d}, {q.dtype}"
+                f"{' with a bias' if bias is not None else ''}: the "
+                f"tensor-core tiles {tiles(d, q.dtype)}, or on decode a "
+                f"chunk of 32 keys or a multiple within shared memory")
+    mma = tile if tile is not None and tq >= _SPLIT_TQ else (-1, -1)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     splits = chunk = 0
@@ -376,6 +453,9 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     if tq < _SPLIT_TQ:
         splits, chunk = _kv_split(b, h, k.shape[1],
                                   _sm_count(q.device.index or 0))
+        if tile is not None:
+            chunk = tile[1]
+            splits = -(-k.shape[1] // chunk)
         part_o = torch.empty((b, h, tq, splits, -(-d // dk) * dk),
                              dtype=torch.float32, device=q.device)
         part_ml = torch.empty((b, h, tq, splits, 2), dtype=torch.float32,
@@ -393,7 +473,8 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _fwd_lib().flash_attention_fwd(
-            ctypes.byref(prm), dk, _build.dtype_code(q.dtype), stream)
+            ctypes.byref(prm), dk, _build.dtype_code(q.dtype), *mma,
+            stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
@@ -540,7 +621,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kbias, bias, sm_scale, causal, q_offset,
-                window):
+                window, tile):
         kw = dict(sm_scale=sm_scale, causal=causal, q_offset=q_offset,
                   window=window)
         walk = _costs.counting(q)
@@ -549,9 +630,11 @@ class _FlashAttention(torch.autograd.Function):
                 _costs.flash_fwd(q, k, v, kbias, bias, causal=causal,
                                  q_offset=q_offset, window=window),
                 _flash_fwd_ref, q, k, v, kbias, bias, **kw)
+        elif q.is_cuda:
+            out, lse = flash_fwd_kernel(q, k, v, kbias, bias, tile=tile,
+                                        **kw)
         else:
-            fwd = flash_fwd_kernel if q.is_cuda else _flash_fwd_ref
-            out, lse = fwd(q, k, v, kbias, bias, **kw)
+            out, lse = _flash_fwd_ref(q, k, v, kbias, bias, **kw)
         ctx.save_for_backward(q, k, v, kbias, bias, out, lse)
         ctx.kw = kw
         return out
@@ -585,7 +668,7 @@ class _FlashAttention(torch.autograd.Function):
             dkb = dkb.sum_to_size(kbias.shape).to(kbias.dtype)
         if db is not None:
             db = db.sum_to_size(bias.shape).to(bias.dtype)
-        return dq, dk, dv, dkb, db, None, None, None, None
+        return dq, dk, dv, dkb, db, None, None, None, None, None
 
 
 # -- public API ---------------------------------------------------------------
@@ -594,7 +677,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
                     key_padding_bias=None,
                     bias=None,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
     """Flash attention.  ``q``: [batch, q_len, heads, head_dim]; ``k, v``:
     [batch, kv_len, kv_heads, head_dim]; returns q's shape and dtype.
     Differentiable in q, k, v, ``key_padding_bias`` and ``bias``.
@@ -611,6 +696,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
     query sees the last ``window`` keys, itself included.  Causal
     ``q_len < kv_len`` aligns the queries to the END of the keys, the
     KV-cache decode convention.
+    ``block_q``/``block_k``: the forward kernel's tile (see the module
+    docstring; a missing one is the rule's); left at None, a CUDA call
+    consults the tuner's cache, else runs the rule.  An explicit tile
+    wins over the cache, as in JAX.  The plain version takes them and
+    ignores them.
     """
     tq, tk = q.shape[1], k.shape[1]
     d = q.shape[-1]
@@ -635,6 +725,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
             raise ValueError(f"window must be >= 1, got {window}")
     if sm_scale is None:
         sm_scale = d ** -0.5
+    for name, val in (("block_q", block_q), ("block_k", block_k)):
+        if val is not None and (isinstance(val, bool) or int(val) <= 0):
+            raise ValueError(f"{name} must be a positive int, got {val!r}")
+    has_bias = bias is not None
     per_head_bias = None
     if bias is not None and bias.dim() == 4:
         per_head_bias, bias = bias, None
@@ -662,6 +756,49 @@ def flash_attention(q, k, v, *, causal: bool = False,
                                 sm_scale=sm_scale, causal=causal,
                                 q_offset=q_offset, window=window)
         return out
+    tile = None
+    if q.is_cuda and _costs.counting(q) is None:
+        tile = _pick_tile(q, k, bias, causal, has_bias, window, block_q,
+                          block_k)
     return _FlashAttention.apply(q, k, v, key_padding_bias, bias,
                                  float(sm_scale), bool(causal),
-                                 int(q_offset), window)
+                                 int(q_offset), window, tile)
+
+
+def _rule_chunk(q, k) -> int:
+    """The split-KV chunk of the rule."""
+    return _kv_split(q.shape[0], q.shape[2], k.shape[1],
+                     _sm_count(q.device.index or 0))[1]
+
+
+def _tuned_tile(q, k, causal, has_bias, window
+                ) -> Optional[Tuple[int, int]]:
+    """The consult: the tuned ``(block_q, block_k)`` of this call's
+    bucket, or None."""
+    shape = (q.shape[1], k.shape[1], q.shape[3], causal, has_bias,
+             window is not None)
+    cfg = _tuned_config("flash_attention", TUNE_VERSION,
+                        lambda: tune_bucket(*shape),
+                        params=("block_q", "block_k"), key=shape)
+    return (cfg["block_q"], cfg["block_k"]) if cfg else None
+
+
+def _pick_tile(q, k, bias, causal, has_bias, window, block_q, block_k
+               ) -> Optional[Tuple[int, int]]:
+    """The forward's tile for a kernel call: the caller's (a missing one
+    the rule's: -1 for the tensor-core kernel, the rule's chunk on
+    decode; the SIMT path has no tile and takes none), else the tuned
+    config of this shape's bucket when the kernel takes it for this call
+    (:func:`tile_fits`), else None (the rule).  The kernel path only."""
+    tq, d = q.shape[1], q.shape[3]
+    if tq >= _SPLIT_TQ and not tiles(d, q.dtype):
+        return None                                   # SIMT: no tile
+    if block_q is None and block_k is None:
+        tile = _tuned_tile(q, k, causal, has_bias, window)
+        if tile is None or not tile_fits(tq, d, q.dtype, tile,
+                                         bias is not None):
+            return None
+        return tile
+    if tq < _SPLIT_TQ:
+        return (-1, int(block_k or _rule_chunk(q, k)))
+    return (int(block_q or -1), int(block_k or -1))

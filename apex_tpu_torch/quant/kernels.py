@@ -40,19 +40,41 @@ plain version on either device.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
 from ..prof import costs as _costs
+from ..tune import space as _space
+from ..tune.dispatch import kernel_config as _tuned_config
 
 __all__ = ["amax_to_scale", "quantize", "dequantize", "channel_scale",
            "quantized_matmul", "quantized_matmul_ref", "saturation_count",
-           "QMAX"]
+           "QMAX", "TUNE_VERSION", "tune_bucket"]
 
 #: symmetric int8 range: quantized values live in [-QMAX, QMAX].
 QMAX = 127.0
+
+#: the tuner's config version of this kernel: bump it when a tile's
+#: meaning changes, and every cached config of the old one stops matching
+TUNE_VERSION = 1
+
+
+def tune_bucket(m: int, k: int, n: int, x_itemsize: int) -> str:
+    """Config-cache shape bucket (the JAX package's string): K and N
+    exact, rows rounded up to a power of two."""
+    return f"m{_space.pow2_bucket(m)}_k{k}_n{n}_i{x_itemsize}"
+
+
+def tiles(x_itemsize: int) -> Tuple[Tuple[int, int], ...]:
+    """The ``(block_m, block_n)`` tiles ``csrc/quant.cu`` is instantiated
+    at for an x of this itemsize, the tuner's candidates: the decode
+    tiles 16 x 32 and 64 x 32, the wide tile (128 x 256; 64 x 256 for
+    fp32 x) and 64 x 128.  Which of them a call may run is the kernel's
+    ``plan()``'s to say (:func:`kernel_tile`)."""
+    wide_bm = 64 if x_itemsize == 4 else 128
+    return ((16, 32), (64, 32), (wide_bm, 256), (64, 128))
 
 
 def _f32(v, device=None) -> torch.Tensor:
@@ -161,29 +183,55 @@ def weight_layout(w2d, w_scale) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quant")
     fn = lib.quant_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ws = lib.quant_matmul_workspace
-    ws.argtypes = [ctypes.c_int] * 4
+    ws.argtypes = [ctypes.c_int] * 6
     ws.restype = ctypes.c_int64
+    tl = lib.quant_matmul_tile
+    tl.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    tl.restype = ctypes.c_int
     return lib
 
 
-_WORKSPACE_INTS: dict = {}   # (M, N, Kp, x dtype code) -> int32 elements
+def kernel_tile(m: int, k: int, n: int, x_dtype: torch.dtype,
+                tile: Tuple[int, int] = (-1, -1)
+                ) -> Optional[Tuple[int, int]]:
+    """The ``(block_m, block_n)`` the kernel's ``plan()`` runs for an
+    ``[m, k] x [k, n]`` call naming ``tile`` (a half at -1 is the
+    rule's; ``(-1, -1)``: the rule's tile), or None when the kernel has
+    no such tile.  Asks the built library, so only on the card."""
+    out = (ctypes.c_int * 2)()
+    kp = -(-k // 16) * 16
+    if _lib().quant_matmul_tile(m, n, kp, _build.dtype_code(x_dtype),
+                                *tile, out) != 0:
+        return None
+    return out[0], out[1]
+
+
+# (M, N, Kp, x dtype code, block_m, block_n) -> int32 elements, -1 for a
+# tile the kernel lacks
+_WORKSPACE_INTS: dict = {}
 _WORKSPACES: dict = {}       # device -> zeroed int32 buffers, largest last
 
 
-def _workspace(m, n, kp, x_code, device) -> Optional[torch.Tensor]:
+def _workspace_ints(m, n, kp, x_code, tile) -> int:
+    key = (m, n, kp, x_code, *tile)
+    ints = _WORKSPACE_INTS.get(key)
+    if ints is None:
+        ints = _WORKSPACE_INTS[key] = int(
+            _lib().quant_matmul_workspace(m, n, kp, x_code, *tile))
+    return ints
+
+
+def _workspace(m, n, kp, x_code, device, tile=(-1, -1)
+               ) -> Optional[torch.Tensor]:
     """The zeroed int32 workspace of a split-K call (``None`` without a
     split), one per device, grown as needed; the kernel leaves it
     zeroed.  A grown buffer keeps the smaller ones alive, since a CUDA
     graph may hold their addresses."""
-    key = (m, n, kp, x_code)
-    ints = _WORKSPACE_INTS.get(key)
-    if ints is None:
-        ints = _WORKSPACE_INTS[key] = int(
-            _lib().quant_matmul_workspace(m, n, kp, x_code))
+    ints = _workspace_ints(m, n, kp, x_code, tile)
     if ints == 0:
         return None
     bufs = _WORKSPACES.setdefault(device, [])
@@ -192,11 +240,15 @@ def _workspace(m, n, kp, x_code, device) -> Optional[torch.Tensor]:
     return bufs[-1]
 
 
-def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
+def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype,
+               tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Launch the CUDA quantized-matmul kernel: arguments as
     :func:`_qmm_ref`, CUDA tensors, ``qw`` ``[N, Kp]`` as
     :func:`weight_layout` gives it (``Kp`` a multiple of 16, at most 15
     past K); returns ``[M, N]`` in ``out_dtype`` (fp32, bf16 or fp16).
+    ``tile``: ``(block_m, block_n)``, one of :func:`tiles` (a half at -1
+    is the rule's), or None for the rule's tile; a tile the kernel lacks
+    raises ``ValueError``.  Every tile gives the same bits (int32 sums).
     Adds one to ``qmm_kernel.launches`` per launch."""
     if x2d.dim() != 2 or qw.dim() != 2:
         raise ValueError(f"need x [M, K] and qw [N, Kp]; got "
@@ -221,18 +273,23 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
     x2d, qw, w_scale = (t.contiguous() for t in (x2d, qw, w_scale))
     if qw.data_ptr() % 16:
         raise ValueError("qw must start on a 16-byte boundary")
+    tile = (-1, -1) if tile is None else (int(tile[0]), int(tile[1]))
+    if _workspace_ints(m, n, kp, x_code, tile) < 0:
+        raise ValueError(f"qmm tile {tile} is not one the kernel has for "
+                         f"{x2d.dtype} x (-1: a half of the rule's); its "
+                         f"tiles are {tiles(x2d.element_size())}")
     vec = int(k % 8 == 0 and x2d.data_ptr() % 16 == 0)
     out = torch.empty((m, n), dtype=out_dtype, device=x2d.device)
     if m == 0 or n == 0:
         return out
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        work = _workspace(m, n, kp, x_code, x2d.device)
+        work = _workspace(m, n, kp, x_code, x2d.device, tile)
         err = _lib().quant_matmul(
             x2d.data_ptr(), qw.data_ptr(), x_scale.data_ptr(),
             w_scale.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(), m, n, k, kp, vec,
-            x_code, out_code, stream)
+            x_code, out_code, *tile, stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
     qmm_kernel.launches += 1
@@ -240,6 +297,33 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype) -> torch.Tensor:
 
 
 _build.counted(qmm_kernel)
+
+
+def _tuned_tile(x2d, n: int) -> Optional[Tuple[int, int]]:
+    """The consult: the tuned ``(block_m, block_n)`` of this shape's
+    bucket, or None."""
+    m, k = x2d.shape
+    isz = x2d.element_size()
+    cfg = _tuned_config("quantized_matmul", TUNE_VERSION,
+                        lambda: tune_bucket(m, k, n, isz),
+                        params=("block_m", "block_n"), key=(m, k, n, isz))
+    return (cfg["block_m"], cfg["block_n"]) if cfg else None
+
+
+def _pick_tile(x2d, qw, block_m: Optional[int],
+               block_n: Optional[int]) -> Optional[Tuple[int, int]]:
+    """The tile a kernel call names: the caller's ``block_m``/``block_n``
+    (a missing one -1, the rule's; a pair the kernel lacks raises at the
+    launch), else the tuned config of this shape's bucket when the
+    kernel has it, else None (the rule).  The kernel path only."""
+    if block_m is None and block_n is None:
+        tile = _tuned_tile(x2d, qw.shape[0])
+        if tile is None or _workspace_ints(
+                x2d.shape[0], qw.shape[0], qw.shape[1],
+                _build.dtype_code(x2d.dtype), tile) < 0:
+            return None
+        return tile
+    return (int(block_m or -1), int(block_n or -1))
 
 
 # -- autograd ---------------------------------------------------------------------
@@ -251,15 +335,17 @@ class _QuantizedMatmul(torch.autograd.Function):
     scales."""
 
     @staticmethod
-    def forward(ctx, x2d, w2d, x_scale, w_scale, use_kernel):
+    def forward(ctx, x2d, w2d, x_scale, w_scale, use_kernel, blocks):
         qw = weight_layout(w2d, w_scale)                       # [N, Kp]
         walk = _costs.counting(x2d)
         if use_kernel and walk is not None:
             out = walk.kernel(_costs.qmm(x2d, qw), _qmm_ref, x2d, qw,
                               x_scale, w_scale, x2d.dtype)
+        elif use_kernel:
+            out = qmm_kernel(x2d, qw, x_scale, w_scale, x2d.dtype,
+                             _pick_tile(x2d, qw, *blocks))
         else:
-            qmm = qmm_kernel if use_kernel else _qmm_ref
-            out = qmm(x2d, qw, x_scale, w_scale, x2d.dtype)
+            out = _qmm_ref(x2d, qw, x_scale, w_scale, x2d.dtype)
         ctx.save_for_backward(x2d, w2d)
         ctx.scale_shapes = (x_scale.shape, w_scale.shape, x_scale.device)
         return out
@@ -278,11 +364,14 @@ class _QuantizedMatmul(torch.autograd.Function):
             dxs = torch.zeros(xs_shape, device=dev)
         if ctx.needs_input_grad[3]:
             dws = torch.zeros(ws_shape, device=dev)
-        return dx, dw, dxs, dws, None
+        return dx, dw, dxs, dws, None, None
 
 
 def _quantized_matmul_prepared(x2d, qw, w_scale, x_scale,
-                               impl: Optional[str] = None) -> torch.Tensor:
+                               impl: Optional[str] = None, *,
+                               block_m: Optional[int] = None,
+                               block_n: Optional[int] = None
+                               ) -> torch.Tensor:
     """The forward of :func:`quantized_matmul` on a weight already
     prepared (``qw`` ``[N, Kp]`` and ``w_scale`` ``[N]`` as
     :func:`weight_layout` and :func:`channel_scale` give them), for
@@ -294,7 +383,8 @@ def _quantized_matmul_prepared(x2d, qw, w_scale, x_scale,
         return walk.kernel(_costs.qmm(x2d, qw), _qmm_ref, x2d, qw, x_scale,
                            w_scale, x2d.dtype)
     if x2d.is_cuda and impl != "jnp":
-        return qmm_kernel(x2d, qw, x_scale, w_scale, x2d.dtype)
+        return qmm_kernel(x2d, qw, x_scale, w_scale, x2d.dtype,
+                          _pick_tile(x2d, qw, block_m, block_n))
     return _qmm_ref(x2d, qw, x_scale, w_scale, x2d.dtype)
 
 
@@ -317,8 +407,12 @@ def quantized_matmul(x, w, *, x_scale, w_scale=None,
     (the kernel on CUDA, the plain version on the CPU); ``"jnp"`` asks
     for the plain version on either device.  ``interpret`` is accepted
     for the JAX signature's sake and ignored: the port has no interpreter
-    mode.  ``block_m``/``block_n`` (tile overrides and the tuner's
-    consult) wait for the tuner and raise ``NotImplementedError``.
+    mode.  ``block_m``/``block_n`` name the kernel's tile (one of
+    :func:`tiles`; a missing one is the rule's); left at
+    None, the kernel path consults the tuned config of this shape's
+    bucket (:mod:`apex_tpu_torch.tune`), else runs the rule's tile.  An
+    explicit tile wins over the cache, as in JAX.  Every tile gives the
+    same bits.  The plain version takes the arguments and ignores them.
     """
     del interpret
     k = x.shape[-1]
@@ -327,10 +421,9 @@ def quantized_matmul(x, w, *, x_scale, w_scale=None,
     if impl not in (None, "pallas", "jnp"):
         raise ValueError(f"impl must be None, 'pallas', or 'jnp'; got "
                          f"{impl!r}")
-    if block_m is not None or block_n is not None:
-        raise NotImplementedError("block_m/block_n (and the tuner's "
-                                  "consult) are not ported yet (ROADMAP "
-                                  "queue 1 item 2, the tune slice)")
+    for name, v in (("block_m", block_m), ("block_n", block_n)):
+        if v is not None and (isinstance(v, bool) or int(v) <= 0):
+            raise ValueError(f"{name} must be a positive int, got {v!r}")
     if w_scale is None:
         w_scale = channel_scale(w)
     x_scale = _f32(x_scale, x.device).reshape(())
@@ -339,5 +432,6 @@ def quantized_matmul(x, w, *, x_scale, w_scale=None,
     x2d = x.reshape(-1, k)
     use_kernel = ((x2d.is_cuda or _costs.counting(x2d) is not None)
                   and impl != "jnp")
-    out = _QuantizedMatmul.apply(x2d, w, x_scale, w_scale, use_kernel)
+    out = _QuantizedMatmul.apply(x2d, w, x_scale, w_scale, use_kernel,
+                                 (block_m, block_n))
     return out.reshape(*lead, w.shape[1])

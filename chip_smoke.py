@@ -351,13 +351,28 @@ line):
    after, 4 captures at phase 5's engine warmup and none while it serves
    phase 5's load, traced; that trace's decode steps' host time split
    into the CPU events inside each ``decode[b]`` range and the gaps
-   between them (``prof.parse.range_host_time``).
+   between them (``prof.parse.range_host_time``);
+32. the tuner (``apex_tpu_torch.tune``) in a cache of its own (phases
+   1-31 run with an empty one: every kernel its rule's tile): each of
+   the six families tuned at its example shape (at most 6 candidates
+   measured), best ms <= the rule's, each winner through its public
+   function with the cache consulted within the kernel table's
+   tolerance of its plain version; ``tune_from_ledger`` on phase 31's
+   GPT-2 small ledger by the blocks' submodules, not stored; the LM and
+   ResNet-50 trainers (O2, K 8, 16 steps) and phase 17's O4 load with
+   the tuned cache: a hit for every tuned bucket a path consults, the
+   launches of phases 20 and 17, the final state (tokens) bit for bit
+   phase 20's (17's) where every consulted config is exact, else losses
+   finite and falling; step ms and TPOT beside the untuned; then the
+   cache rewritten for another device: every consult misses and the six
+   calls equal the rule's bit for bit.  Phase 2's ``build:`` line also
+   times ``flash_attention.cu`` built at the rule's tile only.
 
-Phases 24-31 write their data under temporary directories, removed at
+Phases 24-32 write their data under temporary directories, removed at
 the end.  The phases run in the order 1-4, 17's calibration, 20, 29, 21
 (all but its traces), 22, 23, 5, 30, 17's served load, 6 (with 17's
 traces),
-7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31: the eager
+7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31, 32: the eager
 sides of 20-23, 5 and
 17, and 29-30, run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
@@ -2738,8 +2753,20 @@ def _window_run(name, run_k, k, steps, want):
                 losses=res["losses"])
 
 
+def _cpu_copy(tree):
+    """A copy of ``tree``'s tensors on the CPU."""
+    return torch.utils._pytree.tree_map(
+        lambda t: t.detach().to("cpu", copy=True)
+        if isinstance(t, torch.Tensor) else t, tree)
+
+
+#: final states and step ms of phase 20's runs with an empty tune cache,
+#: kept on the CPU for phase 32's tuned runs
+UNTUNED = {}
+
+
 def capture_vs_eager(name, build, run_k, steps=16, ks=(1, 8),
-                     window_end=None):
+                     window_end=None, keep=None):
     """``steps`` eager calls of the step function (``build()`` gives the
     initial state, the step and the batch), then ``run_k(k, steps)`` for
     each K, the same steps in windows of K replayed from CUDA graphs: the
@@ -2748,7 +2775,8 @@ def capture_vs_eager(name, build, run_k, steps=16, ks=(1, 8),
     each.  With ``window_end`` (:func:`window_end_commit`'s arguments)
     the K > 1 windows run again with the state copied in only at the
     window's end, for the step ms and peak memory before the per-step
-    copy.  The window's bytes are K batches'."""
+    copy.  The window's bytes are K batches'.  With ``keep``, the final
+    state (on the CPU) and the last K's step ms go to ``UNTUNED[keep]``."""
     torch.cuda.reset_peak_memory_stats()
     want, step_ms, batch_bytes = eager_steps(build, steps)
     out = {"eager": dict(
@@ -2762,6 +2790,10 @@ def capture_vs_eager(name, build, run_k, steps=16, ks=(1, 8),
                 out[f"k{k}_window_end_commit"] = _window_run(
                     f"{name} (state copied at the window's end)", run_k, k,
                     steps, want)
+    if keep is not None:
+        UNTUNED[keep] = dict(state=_cpu_copy(want),
+                             step_ms=out[f"k{ks[-1]}"]["step_ms"])
+    del want
     torch.cuda.empty_cache()
 
     def gib(key):
@@ -2798,7 +2830,7 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
         lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
         lambda k, n: main_amp.train(main_amp.parse(
             TRAIN_ARGS + ["--steps", str(n), "--steps-per-call", str(k)]),
-            **quiet), steps, window_end=window_end)
+            **quiet), steps, window_end=window_end, keep="lm_o2")
     o4 = capture_vs_eager(
         "gpt2_small O4 B8 T1023", lambda: build_o4()[:3],
         lambda k, n: window_loop(*build_o4()[:3], k, n), steps,
@@ -2808,7 +2840,7 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
         lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
         lambda k, n: imagenet.train(imagenet.parse(
             IMAGENET_ARGS + ["--prof", str(n), "--steps-per-call", str(k)]),
-            **quiet), steps, window_end=window_end)
+            **quiet), steps, window_end=window_end, keep="resnet50_o2")
     return dict(lm_o2=lm, lm_o4=o4, resnet50_o2=resnet)
 
 
@@ -4771,6 +4803,12 @@ def _prof_step(name, build, step_ms, kinds, counters, tmp,
     peaks = roofline.load_peaks()
     ledger = roofline.mfu_ledger(harvest, step_time_s=step_ms / 1e3,
                                  peaks=peaks, top=8)
+    # the same walk by the blocks' submodules (depth 2: block_i/attention,
+    # block_i/ln1, ...): the regions phase 32's tuner reads
+    ledger_blocks = roofline.mfu_ledger(
+        roofline.harvest_costs(step_fn, state, batch, prof=walked,
+                               region_depth=2),
+        step_time_s=step_ms / 1e3, peaks=peaks)
     # MFU counts the model's products; HFU the kernels' formulas (the
     # ledger's "mfu", as JAX's), the flash backward's recompute included
     flops_model = model_flops(walked.records)
@@ -4812,6 +4850,7 @@ def _prof_step(name, build, step_ms, kinds, counters, tmp,
                flop_counter_flops=harvest.counter_flops,
                coverage_pct=harvest.coverage_pct, step_ms_k8=step_ms,
                model_flops=flops_model, mfu=mfu, hfu=hfu, ledger=ledger,
+               ledger_blocks=ledger_blocks,
                unattributed_share=unattributed,
                measured_ms_by_region=measured, parsed_ms_by_kind=parsed,
                parse_worst_rel=worst, launches=tp.launches(),
@@ -4965,6 +5004,575 @@ def prof_stages(main_amp, imagenet, models, engine_mod, counters, windows,
     return out
 
 
+# -- phase 32: the tuner ------------------------------------------------------
+
+#: the tune cache phases 1-31 run with: a path in an empty directory, so
+#: every kernel runs its rule's tile whatever the host's cache holds
+EMPTY_TUNE_CACHE = os.path.join(tempfile.gettempdir(),
+                                f"chip_smoke_no_tune_{os.getpid()}",
+                                "tune_configs.json")
+
+TUNE_FAMILIES = ("flash_attention", "conv2d", "fused_layer_norm",
+                 "bn_relu_residual", "xentropy", "quantized_matmul")
+#: phase 32's measurement budget a family (the tuner's max_candidates):
+#: every flash, conv and qmm tile at its example shape; the Triton
+#: families' candidates past it are launched once untimed (below)
+TUNE_MAX_CANDIDATES = 6
+
+
+def _use_tune_cache(path):
+    """Point the tune store at ``path`` and drop the consults' memo and
+    counts."""
+    os.environ["APEX_TPU_TUNE_CACHE"] = path
+    importlib.import_module("apex_tpu_torch.tune.store").load(reload=True)
+    importlib.import_module("apex_tpu_torch.tune.dispatch").reset_stats()
+
+
+def _untimed_candidates(spec, shape, res):
+    """The legal candidates of ``spec`` at ``shape`` that its tuning
+    ``res`` did not time (``max_candidates`` truncated them), each
+    launched once on the card: its outputs against the rule's by the
+    tuner's oracle (bit for bit for an exact family).  A launch that
+    raises fails the phase.  Returns ``(launched, failing configs)``."""
+    measure = importlib.import_module("apex_tpu_torch.tune.measure")
+    default = spec.defaults(shape)
+    legal = [c for c in measure._dedupe(
+        spec, shape, [default] + list(spec.candidates(shape, res.bound)))
+        if c == default or spec.constraint(shape, c)]
+    rest = [c for c in legal if c not in res.order]
+    if not rest:
+        return 0, []
+    case = spec.build(shape, False)
+    ref = case.run(default)
+    bad = []
+    for cfg in rest:
+        out = case.run(cfg)
+        torch.cuda.synchronize()
+        if not measure._oracle_ok(spec, case, ref, out):
+            bad.append(cfg)
+        del out
+    del case, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return len(rest), bad
+
+
+@contextlib.contextmanager
+def _plain_kernels(families):
+    """Within it, the tile-taking kernels of ``families`` (flash's
+    forward, xentropy's forward and backward) run their plain versions
+    on the card: the reference of :func:`_tuned_vs_plain`."""
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    xe = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    swaps = {
+        "flash_attention": [(fa, "flash_fwd_kernel",
+                             lambda q, k, v, kb, b, tile=None, **kw:
+                             fa._flash_fwd_ref(q, k, v, kb, b, **kw))],
+        "xentropy": [(xe, "xentropy_fwd_kernel",
+                      lambda lg, lb, sm, config=None:
+                      xe._fwd_ref(lg, lb, sm)),
+                     (xe, "xentropy_bwd_kernel",
+                      lambda g, lg, mlse, lb, sm, config=None:
+                      xe._bwd_ref(g, lg, mlse, lb, sm))]}
+    undo = []
+    try:
+        for fam in families:
+            for mod, name, plain in swaps[fam]:
+                undo.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, plain)
+        yield
+    finally:
+        for mod, name, fn in reversed(undo):
+            setattr(mod, name, fn)
+
+
+def _tuned_vs_plain(label, run, families, tuned_path):
+    """The gate of a path whose consulted tuned configs are not exact
+    (``families``): ``run()`` (a list of tensors: a loss and every
+    gradient, or logits) with the tuned cache, with the rule's tiles (an
+    empty cache), and with the rule where those families' kernels run
+    their plain versions.  The tuned outputs may be no further from the
+    plain ones than twice the rule's own distance (the largest relative
+    L2 error of an output, ||tuned - plain|| / ||plain||), and the tuned
+    run must hit each of those families."""
+    dispatch = importlib.import_module("apex_tpu_torch.tune.dispatch")
+    outs = {}
+    for key, path, plain in (("tuned", tuned_path, ()),
+                             ("rule", EMPTY_TUNE_CACHE, ()),
+                             ("plain", EMPTY_TUNE_CACHE, families)):
+        _use_tune_cache(path)
+        with _plain_kernels(plain):
+            outs[key] = [t.detach().float() for t in run()]
+        if key == "tuned":
+            by = dispatch.dispatch_stats()["by_kernel"]
+            hits = {f: by.get(f, {}).get("hits", 0) for f in families}
+    _use_tune_cache(tuned_path)
+
+    def dist(a, b):
+        return max((x - y).norm().item() / max(y.norm().item(), 1e-30)
+                   for x, y in zip(a, b))
+    d_tuned = dist(outs["tuned"], outs["plain"])
+    d_rule = dist(outs["rule"], outs["plain"])
+    check(all(hits.values()) and d_tuned <= 2 * d_rule,
+          f"tune: {label} with {families} tuned (not exact), hits {hits}: "
+          f"tuned vs their plain versions {d_tuned:.3g} <= 2 x the rule's "
+          f"{d_rule:.3g} (the largest relative L2 error of "
+          f"{len(outs['plain'])} outputs)")
+    return dict(tuned_vs_plain=d_tuned, rule_vs_plain=d_rule, hits=hits)
+
+
+def _tune_public_calls(dev):
+    """Each family's public function at its example shape (the tuner's
+    registry) with its tile left to the consult: ``name -> (call, plain,
+    gate)``, ``gate(got, want) -> (max_abs_err, ok)`` the kernel table
+    phase's tolerance (3: LN 2e-2; 4: flash 2e-2; 11: BN one bf16 ulp;
+    12: xentropy 1e-4; 15: conv one bf16 ulp of the largest value, 99.9%
+    within one ulp; 16: qmm bit for bit)."""
+    fln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    fba = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
+    xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    cv = importlib.import_module("apex_tpu_torch.ops.conv")
+    qk = importlib.import_module("apex_tpu_torch.quant.kernels")
+    reg = importlib.import_module("apex_tpu_torch.tune.registry")
+    ex = {s.name: s.example_shape for s in reg.all_specs()}
+    g = torch.Generator().manual_seed(32)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def within(tol):
+        return lambda got, want: (max_err(got, want),
+                                  max_err(got, want) <= tol)
+
+    def ulp(got, want):
+        err, _, ok = _kernel_err(got, want)
+        return err, ok
+
+    def conv_gate(got, want):
+        err, _, ok = _conv_err(got, want)
+        return err, ok
+
+    calls = {}
+    sh = ex["fused_layer_norm"]
+    x = rnd(sh["n1"], sh["n2"])
+    w, b = rnd(sh["n2"], dtype=torch.float32), rnd(sh["n2"],
+                                                   dtype=torch.float32)
+    calls["fused_layer_norm"] = (
+        lambda: fln.fused_layer_norm(x, (x.shape[1],), w, b),
+        lambda: fln._fwd_ref(x, w, b, 1e-5)[0], within(2e-2))
+    sh = ex["flash_attention"]
+    q, k, v = (rnd(sh["batch"], sh["q_len"], sh["heads"], sh["head_dim"],
+                   scale=0.5) for _ in range(3))
+    calls["flash_attention"] = (
+        lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: fa._flash_fwd_ref(q, k, v, None, None, sm_scale=0.125,
+                                  causal=True)[0], within(2e-2))
+    sh = ex["bn_relu_residual"]
+    xb, zb = (rnd(sh["rows"], sh["channels"]) for _ in range(2))
+    vb = [rnd(sh["channels"], dtype=torch.float32, scale=0.1) + off
+          for off in (0.0, 1.0, 1.0, 0.0)]
+    calls["bn_relu_residual"] = (
+        lambda: fba.bn_relu_residual(xb, *vb, z=zb),
+        lambda: fba.bn_act_epilogue_ref(xb, *vb, z=zb, relu=True), ulp)
+    sh = ex["xentropy"]
+    logits = rnd(sh["rows"], sh["vocab"], dtype=torch.float32, scale=2.0)
+    labels = torch.randint(1, sh["vocab"], (sh["rows"],), generator=g).to(dev)
+    calls["xentropy"] = (
+        lambda: xent.softmax_cross_entropy_loss(logits, labels, 0.1),
+        lambda: xent._fwd_ref(logits, labels.int(), 0.1)[0], within(1e-4))
+    sh = ex["conv2d"]
+    xc = rnd(sh["batch"], sh["h"], sh["w"], sh["cin"])
+    wc = rnd(sh["kh"], sh["kw"], sh["cin"], sh["cout"], scale=0.05)
+    calls["conv2d"] = (lambda: cv.conv2d(xc, wc),
+                       lambda: cv.conv2d_ref(xc, wc), conv_gate)
+    sh = ex["quantized_matmul"]
+    xq, wq = rnd(sh["m"], sh["k"], scale=0.05), rnd(sh["k"], sh["n"],
+                                                     scale=0.05)
+    xs = 0.25 / 127.0
+    calls["quantized_matmul"] = (
+        lambda: qk.quantized_matmul(xq, wq, x_scale=xs),
+        lambda: qk.quantized_matmul_ref(xq, wq, x_scale=xs),
+        lambda got, want: (max_err(got, want), torch.equal(got, want)))
+    return calls
+
+
+def _tuned_hits_gate(name, dispatch, results):
+    """The families a run consulted; every one whose tuned bucket it
+    consulted hit the cache.  Returns the families whose consulted
+    config is not the rule's and not exact (the run is then not bit for
+    bit the untuned one)."""
+    reg = importlib.import_module("apex_tpu_torch.tune.registry")
+    tuned = {(r.kernel, r.bucket): r for r in results.values()}
+    seen = {tuple(kb) for kb in dispatch.dispatch_stats()["consulted"]}
+    hit = {kb: tuned[kb] for kb in seen if kb in tuned}
+    by = dispatch.dispatch_stats()["by_kernel"]
+    fams = sorted({k for k, _ in hit})
+    check(bool(hit) and all(by[k]["hits"] >= 1 for k in fams),
+          f"tune: {name} consulted {sorted({k for k, _ in seen})}; the "
+          f"tuned buckets {sorted(b for _, b in hit)} hit "
+          f"{ {k: by[k]['hits'] for k in fams} }")
+    return sorted({k for (k, _), r in hit.items()
+                   if r.config != r.default_config
+                   and not reg.get_spec(k).exact})
+
+
+def _lm_loss_and_grads(models, main_amp, dev):
+    """gpt2_small bf16 at the LM trainer's B 8, T 1023: the fused loss
+    and every parameter's gradient, one forward and backward (the
+    tuned flash and xentropy buckets of the trainer)."""
+    def run():
+        m = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+        x, y = main_amp.synthetic_batch(8, 1024, 50257, dev)
+        params = list(m.parameters())
+        loss = main_amp.lm_loss(m(x), y, 0.1, fused=True)
+        grads = torch.autograd.grad(loss, params)
+        return [loss, torch.cat([g.float().flatten() for g in grads])]
+    return run
+
+
+def _image_loss_and_grad(imagenet, dev):
+    """ResNet-50's loss at B 128 (its xentropy bucket): the fused loss of
+    seeded fp32 logits and its gradient."""
+    def run():
+        g = torch.Generator().manual_seed(13)
+        logits = (torch.randn(128, 1000, generator=g) * 3).to(dev)
+        labels = torch.randint(0, 1000, (128,), generator=g).to(dev)
+        logits.requires_grad_(True)
+        loss = imagenet.image_loss(logits, labels)
+        return [loss, torch.autograd.grad(loss, logits)[0]]
+    return run
+
+
+def _o4_logits(model, dev):
+    """The O4 model's logits of a 1000-token prefill into a 1024-key
+    cache and of the next decode step (the serving path's attention)."""
+    from apex_tpu_torch.models import init_cache
+
+    def run():
+        ids = torch.from_numpy(np.random.RandomState(5).randint(
+            1, model.vocab_size, (1, 1000))).to(dev)
+        with torch.inference_mode():
+            caches = init_cache(model, 1, cache_len=1024)
+            pre, caches = model(ids, kv_caches=caches, positions=torch.zeros(
+                (1,), dtype=torch.long, device=dev))
+            dec, _ = model(pre[:, -1:].argmax(-1), kv_caches=caches,
+                           positions=torch.full((1,), 1000,
+                                                dtype=torch.long,
+                                                device=dev))
+        return [pre, dec]
+    return run
+
+
+def tune_phase(main_amp, imagenet, models, engine_mod, quant, calib,
+               counters, dev, ledger, o4_tokens, tmp):
+    """Phase 32: the tuner on the card, in a cache of its own.  (1) Each
+    family tuned at its example shape (at most ``TUNE_MAX_CANDIDATES``
+    timed; the legal candidates past them launched once untimed), and
+    flash at width 128 (not stored): best <= default, no candidate
+    failing the oracle or refused by the kernels, each winner through
+    its public function with the cache consulted within the kernel
+    table's tolerance of its plain version; (2) ``tune_from_ledger`` on
+    phase 31's GPT-2 small ledger, not stored; (3) the LM (O2, K 8, 16
+    steps) and ResNet-50 (O2, K 8, 16 steps) trainers and O4 serving of
+    phase 17's load with the tuned cache: a hit for every tuned bucket a
+    path consults, phase 20's and 17's launches, the state or tokens bit
+    for bit the untuned ones where every consulted config is exact, else
+    :func:`_tuned_vs_plain` (also run with non-rule flash and xentropy
+    tiles forced, so the gate is exercised whatever wins); step ms beside
+    phase 20's untuned ones, and the O4 load served untuned, tuned,
+    tuned, untuned for TPOT; (4) the cache rewritten for another device:
+    every consult misses and the six calls equal the rule's bit for
+    bit."""
+    measure = importlib.import_module("apex_tpu_torch.tune.measure")
+    reg = importlib.import_module("apex_tpu_torch.tune.registry")
+    store = importlib.import_module("apex_tpu_torch.tune.store")
+    dispatch = importlib.import_module("apex_tpu_torch.tune.dispatch")
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    cache_dir = os.path.join(tmp, "tune_cache")
+    _use_tune_cache(cache_dir)
+    out = {"cache": store.cache_path()}
+    calls = _tune_public_calls(dev)
+    rule = {n: c[0]() for n, c in calls.items()}
+    by = dispatch.dispatch_stats()["by_kernel"]
+    check(set(by) == set(calls) and all(v["hits"] == 0 for v in by.values()),
+          f"tune: with an empty cache the six calls consult and miss "
+          f"({ {k: v['misses'] for k, v in by.items()} })")
+
+    # (1) each family at its example shape, the qmm at the O4 server's
+    # prefill shape too (its example is the O4 trainer's), and flash at
+    # width 128 (6 heads of 128), which no model of the paths runs, so
+    # it is not stored
+    results = {}
+    flash_ex = reg.get_spec("flash_attention").example_shape
+    shapes = {"quantized_matmul_prefill": (
+        "quantized_matmul", dict(reg.get_spec("quantized_matmul")
+                                 .example_shape, m=1024), True),
+        "flash_attention_d128": (
+            "flash_attention", dict(flash_ex, heads=6, head_dim=128), False)}
+    for name in TUNE_FAMILIES + tuple(shapes):
+        family, shape, keep = shapes.get(name, (name, None, True))
+        spec = reg.get_spec(family)
+        t0 = time.perf_counter()
+        res = measure.tune_kernel(family, shape, iters=10, reps=3, seed=0,
+                                  max_candidates=TUNE_MAX_CANDIDATES,
+                                  store_result=keep)
+        untimed, bad = _untimed_candidates(
+            spec, dict(shape or spec.example_shape), res)
+        results[name] = res
+        print(f"      tune {name} [{res.bucket}]: default "
+              f"{res.default_config} {res.default_ms:.4f} ms, best "
+              f"{res.config} {res.best_ms:.4f} ms "
+              f"(x{res.tuned_over_default}); {res.candidates} measured, "
+              f"{res.rejected_constraint} rejected by constraint, "
+              f"{res.rejected_oracle} by the oracle, {res.rejected_kernel} "
+              f"refused by the kernels, {res.truncated} truncated and "
+              f"launched once untimed ({untimed}, {len(bad)} failing the "
+              f"oracle) ({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(res.best_ms <= res.default_ms and res.stored == keep
+              and res.source == "device" and res.rejected_oracle == 0
+              and res.rejected_kernel == 0 and untimed == res.truncated
+              and not bad,
+              f"tune {name}: best {res.best_ms} ms <= default "
+              f"{res.default_ms} ms; every legal candidate launched at "
+              f"{res.bucket} passed the oracle ({res.rejected_oracle} "
+              f"timed, {bad} untimed failed) and none was refused by the "
+              f"kernels ({res.rejected_kernel})")
+    out["results"] = {n: {k: getattr(r, k) for k in (
+        "bucket", "config", "default_config", "best_ms", "default_ms",
+        "candidates", "rejected_constraint", "rejected_oracle",
+        "rejected_kernel", "truncated")} for n, r in results.items()}
+    # the width-128 rule against the plain version (the oracle above
+    # held every other tile to it)
+    sh = shapes["flash_attention_d128"][1]
+    g = torch.Generator().manual_seed(128)
+    q, k, v = ((torch.randn(sh["batch"], sh["q_len"], sh["heads"],
+                            sh["head_dim"], generator=g) * 0.5)
+               .to(dev, torch.bfloat16) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    err = max_err(got, fa._flash_fwd_ref(q, k, v, None, None,
+                                         sm_scale=128 ** -0.5,
+                                         causal=True)[0])
+    check(err <= 2e-2, f"tune: flash at width 128 (B8 T1023 6 heads), "
+          f"the rule's tile against its plain version: max_abs_err "
+          f"{err:.3g} <= 2e-2")
+    del q, k, v, got
+
+    dispatch.reset_stats()
+    for name, (call, plain, gate) in calls.items():
+        got = call()
+        err, ok = gate(got, plain())
+        hits = dispatch.dispatch_stats()["by_kernel"][name]["hits"]
+        same = torch.equal(got, rule[name])
+        default = results[name].config == results[name].default_config
+        check(ok and hits == 1 and (same or not default),
+              f"tune {name}: the public call with the cache consulted "
+              f"({hits} hit, {results[name].config}) max_abs_err "
+              f"{err:.3g} against its plain version; "
+              + ("the rule's tile: bit for bit the rule's output "
+                 f"({same})" if default else
+                 f"bit for bit the rule's output: {same}"))
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the ledger's verdicts
+    verdicts = {s.name: measure.bound_from_ledger(ledger, s)
+                for s in reg.all_specs()}
+    matched = {s.name: [r["region"] for r in ledger.get("regions", [])
+                        if any(f in str(r["region"]).lower()
+                               for f in s.regions)]
+               for s in reg.all_specs()}
+    led = measure.tune_from_ledger(ledger, store_result=False, iters=3,
+                                   reps=2, max_candidates=TUNE_MAX_CANDIDATES)
+    print(f"      tune from phase 31's GPT-2 small ledger ("
+          f"{len(ledger.get('regions', []))} regions): "
+          + "; ".join(f"{r.kernel} {verdicts[r.kernel] or 'no region'}"
+                      f" -> {r.config} ({len(matched[r.kernel])} regions)"
+                      for r in led), flush=True)
+    check(not any(r.stored for r in led)
+          and all(r.best_ms <= r.default_ms and r.rejected_oracle == 0
+                  and r.rejected_kernel == 0 for r in led)
+          and any(matched.values()),
+          f"tune: tune_from_ledger stored nothing, best <= default and no "
+          f"candidate failing the oracle or refused for every family; "
+          f"regions matched: { {k: len(v) for k, v in matched.items()} }")
+    out["ledger"] = {r.kernel: dict(verdict=verdicts[r.kernel],
+                                    regions=matched[r.kernel],
+                                    config=r.config) for r in led}
+
+    # (3) the trainers and the server with the tuned cache
+    quiet = dict(log=lambda line: None)
+    runs = {}
+    for key, label, run, per_step, plain_run in (
+            ("lm_o2", "lm O2 B8 T1023 K 8", lambda: main_amp.train(
+                main_amp.parse(TRAIN_ARGS + ["--steps", "16",
+                                             "--steps-per-call", "8"]),
+                **quiet), LM_PER_STEP,
+             _lm_loss_and_grads(models, main_amp, dev)),
+            ("resnet50_o2", "resnet50 O2 B128 K 8", lambda: imagenet.train(
+                imagenet.parse(IMAGENET_ARGS + ["--prof", "16",
+                                                "--steps-per-call", "8"]),
+                **quiet), RESNET_PER_STEP,
+             _image_loss_and_grad(imagenet, dev))):
+        dispatch.reset_stats()
+        res, launches = _counted_run(f"tune: {label}", counters, run,
+                                     per_step, 8)
+        inexact = _tuned_hits_gate(label, dispatch, results)
+        stats = dispatch.dispatch_stats()
+        coverage = dispatch.coverage_line()
+        losses = res["losses"]
+        differ, n, worst, names = _state_diff(_cpu_copy(res["state"]),
+                                              UNTUNED[key]["state"])
+        step_ms = float(np.median(res["step_s"][8:])) * 1e3
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        vs_plain = None
+        if inexact:
+            check(all(np.isfinite(losses)),
+                  f"tune: {label}: losses finite ({losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}); {differ}/{n} leaves differ from "
+                  f"the untuned run (max |diff| {worst:.3g})")
+            vs_plain = _tuned_vs_plain(label, plain_run, inexact,
+                                       cache_dir)
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            check(differ == 0, f"tune: {label}: every consulted config "
+                  f"exact; the final state equals the untuned run's in "
+                  f"{n - differ}/{n} leaves" + (f" (first {names})"
+                                                if differ else ""))
+        print(f"      tune {label}: step {step_ms:.2f} ms tuned, "
+              f"{UNTUNED[key]['step_ms']:.2f} untuned (phase 20); "
+              f"{coverage}", flush=True)
+        runs[key] = dict(step_ms=step_ms,
+                         untuned_step_ms=UNTUNED[key]["step_ms"],
+                         inexact=inexact, leaves_differing=differ,
+                         vs_plain=vs_plain,
+                         launches={k: v for k, v in launches.items() if v},
+                         stats=stats)
+
+    # O4 serving of phase 17's load: untuned, tuned, tuned, untuned in
+    # one stretch, so the TPOTs compare under one state of the process
+    o4_model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0,
+                                 quant=quant.QuantConfig.frozen(calib))
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, o4_model.vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    serves, inexact = [], []
+    for tuned in (False, True, True, False):
+        _use_tune_cache(cache_dir if tuned else EMPTY_TUNE_CACHE)
+        for c in counters.values():
+            c.launches = 0
+        served, st, res = _serve(o4_model, engine_mod.ServingEngine,
+                                 prompts, dev, torch.int8)
+        launches = {n: c.launches for n, c in counters.items()}
+        forwards = cache.WARM_RUNS * res["warmup_captures"] + res["replays"]
+        tag = "tuned" if tuned else "untuned"
+        check(all(r.ok and len(r.tokens) == 32 for r in served)
+              and all(launches[n] == O4_SERVE_PER_FORWARD.get(n, 0)
+                      * forwards for n in launches),
+              f"tune: O4 serving ({tag}): {sum(r.ok for r in served)}/16 "
+              f"requests served, launches "
+              f"{ {n: v for n, v in launches.items() if v} } = "
+              f"{O4_SERVE_PER_FORWARD} x {forwards} forwards (phase 17's)")
+        if tuned:
+            inexact = _tuned_hits_gate("O4 serving", dispatch, results)
+        same = sum(np.array_equal(r.tokens, np.asarray(t))
+                   for r, t in zip(served, o4_tokens))
+        check(same == 16 or (tuned and inexact),
+              f"tune: O4 serving ({tag}): "
+              + ("every consulted config exact; " if tuned else "")
+              + f"tokens equal phase 17's in {same}/16 requests")
+        serves.append(dict(tuned=tuned, tokens_equal=same,
+                           stats=dispatch.dispatch_stats(),
+                           coverage=dispatch.coverage_line(), **{
+                               k: res[k] for k in (
+                                   "tpot_p50_ms", "tpot_p99_ms",
+                                   "ttft_p50_ms", "prefill_ms_mean",
+                                   "decode_step_ms_mean", "tokens_per_s")}))
+        del served
+    vs_plain = None
+    if inexact:
+        vs_plain = _tuned_vs_plain("O4 serving", _o4_logits(o4_model, dev),
+                                   inexact, cache_dir)
+    _use_tune_cache(cache_dir)
+    tpot = {t: [r["tpot_p50_ms"] for r in serves if r["tuned"] == t]
+            for t in (False, True)}
+    def each(key):
+        return ", ".join(f"{r[key]:.3f}" for r in serves)
+    print(f"      tune O4 serving (untuned, tuned, tuned, untuned): tpot "
+          f"p50 {each('tpot_p50_ms')} ms; prefill {each('prefill_ms_mean')}"
+          f" ms, decode step {each('decode_step_ms_mean')} ms host "
+          f"(means); tokens equal phase 17's "
+          f"{[r['tokens_equal'] for r in serves]}/16"
+          + (f" ({inexact} tuned, not exact)" if inexact else "") + "; "
+          + serves[1]["coverage"], flush=True)
+    runs["o4_serving"] = dict(serves=serves, inexact=inexact,
+                              vs_plain=vs_plain,
+                              untuned_tpot_p50_ms=tpot[False],
+                              tuned_tpot_p50_ms=tpot[True])
+    # the inexact gate above, exercised whatever the winners: flash's
+    # 64 x 32 tile (the rule's is 64 x 64) and a 96-key decode chunk, and
+    # xentropy's 2048 columns on 4 warps (the rule's 4096 on 8), forced
+    # into the LM's and the O4 model's buckets
+    xe = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    forced = os.path.join(tmp, "tune_forced", "tune_configs.json")
+    for kernel, version, bucket, cfg in (
+            ("flash_attention", fa.TUNE_VERSION,
+             fa.tune_bucket(1023, 1023, 64, True, False, False),
+             {"block_q": 64, "block_k": 32}),
+            ("flash_attention", fa.TUNE_VERSION,
+             fa.tune_bucket(1000, 1024, 64, False, True, False),
+             {"block_q": 64, "block_k": 32}),
+            ("flash_attention", fa.TUNE_VERSION,
+             fa.tune_bucket(1, 1024, 64, True, False, False),
+             {"block_q": 64, "block_k": 96}),
+            ("xentropy", xe.TUNE_VERSION, xe.tune_bucket(8184, 50257),
+             {"col_block": 2048, "num_warps": 4})):
+        store.put(kernel, version, bucket, cfg, path=forced)
+    runs["forced_inexact"] = {
+        "lm": _tuned_vs_plain("lm (forced tiles)", _lm_loss_and_grads(
+            models, main_amp, dev), ["flash_attention", "xentropy"],
+            forced),
+        "o4": _tuned_vs_plain("O4 (forced tiles)", _o4_logits(o4_model, dev),
+                              ["flash_attention"], forced)}
+    _use_tune_cache(cache_dir)
+    out["runs"] = runs
+    del o4_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) another card's cache: every consult misses
+    path = store.cache_path()
+    with open(path) as f:
+        data = json.load(f)
+    other = "NVIDIA_A100-SXM4-80GB"
+    data["entries"] = {
+        "|".join([other] + key.split("|")[1:]): dict(ent, device_kind=other)
+        for key, ent in data["entries"].items()}
+    with open(path, "w") as f:
+        json.dump(data, f)
+    _use_tune_cache(cache_dir)
+    calls = _tune_public_calls(dev)
+    same = {n: torch.equal(c[0](), rule[n]) for n, c in calls.items()}
+    by = dispatch.dispatch_stats()["by_kernel"]
+    check(all(same.values()) and set(by) == set(calls)
+          and all(v["hits"] == 0 for v in by.values()),
+          f"tune: a cache of another device ({other}, "
+          f"{len(data['entries'])} entries): every consult misses "
+          f"({ {k: v['misses'] for k, v in by.items()} }) and the six calls "
+          f"equal the rule's bit for bit ({same})")
+    del calls, rule
+    _use_tune_cache(EMPTY_TUNE_CACHE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -5000,6 +5608,8 @@ def main(argv=None) -> int:
     qk = importlib.import_module("apex_tpu_torch.quant.kernels")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # phases 1-31 run with an empty tune cache (the rules' tiles)
+    os.environ["APEX_TPU_TUNE_CACHE"] = EMPTY_TUNE_CACHE
 
     # phase 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5036,7 +5646,21 @@ def main(argv=None) -> int:
             xent.xentropy_bwd_kernel(mlse, x, mlse, labels, 0.0)
         torch.cuda.synchronize()
 
+    def build_rule_tiles(scratch):
+        """flash_attention.cu with the tensor-core forward at its rule's
+        tile only (the difference from flash_attention_nvcc_s is what
+        the tuner's tiles cost the build)."""
+        src = os.path.join(os.path.dirname(build.__file__), "csrc",
+                           "flash_attention.cu")
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
+                        "-DAPEX_FLASH_TUNE_TILES=0", "-o",
+                        os.path.join(scratch, "librule.so"), src],
+                       check=True, capture_output=True)
+
+    tile_scratch = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
     jobs = {"flash_attention_nvcc_s": lambda: build.load("flash_attention"),
+            "flash_attention_rule_tile_only_nvcc_s":
+                lambda: build_rule_tiles(tile_scratch),
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
             "conv_nvcc_s": lambda: build.load("conv"),
@@ -5050,7 +5674,13 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
         build_s = {k: f.result() for k, f in futures.items()}
+    shutil.rmtree(tile_scratch, ignore_errors=True)
     print(f"      build: {build_s}", flush=True)
+    print(f"      build: the tuner's 16 flash forward tiles (4 tiles x "
+          f"widths 64, 128 x bf16, fp16) cost "
+          f"{build_s['flash_attention_nvcc_s'] - build_s['flash_attention_rule_tile_only_nvcc_s']:.1f} s "
+          f"of flash_attention.cu's nvcc (conv and qmm reuse their "
+          f"instantiations)", flush=True)
     for name in ("flash_attention", "flash_attention_bwd", "conv", "quant"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
@@ -5188,6 +5818,13 @@ def main(argv=None) -> int:
                                 engine_mod, counters, windows, dev, tmp)
         profiling["phase_s"] = time.perf_counter() - t31
         print(f"      phase 31: {profiling['phase_s']:.1f} s", flush=True)
+        t32 = time.perf_counter()
+        tuned = tune_phase(main_amp, imagenet, models, engine_mod,    # 32
+                           quant, calib, counters, dev,
+                           profiling["lm"]["ledger_blocks"],
+                           o4_serving["tokens"], tmp)
+        tuned["phase_s"] = time.perf_counter() - t32
+        print(f"      phase 32: {tuned['phase_s']:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {"serving": serving["launches"], "training": trained["launches"],
@@ -5292,7 +5929,7 @@ def main(argv=None) -> int:
                            data_parallel=data_parallel,
                            telemetry={"training": train_tel,
                                       "serving": serve_tel},
-                           profiling=profiling,
+                           profiling=profiling, tune=tuned,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

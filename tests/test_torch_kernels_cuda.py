@@ -9,6 +9,7 @@ Every test is marked ``cuda`` and skips (inside its fixture) where no
 CUDA device is visible.
 """
 
+import json
 import importlib
 
 import numpy as np
@@ -2015,3 +2016,157 @@ def test_engine_adopts_weights_between_steps(cuda_device, tmp_path, o4):
     fresh.close()
     for a, w in zip(after, want):
         np.testing.assert_array_equal(a, w)
+
+
+# -- the tuner's tiles ---------------------------------------------------------
+
+_TUNE_FAMILIES = ["flash_attention", "conv2d", "fused_layer_norm",
+                  "bn_relu_residual", "xentropy", "quantized_matmul"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,extra", [(n, {}) for n in _TUNE_FAMILIES] + [
+    ("flash_attention", {"head_dim": 128}),          # the d128 tiles
+    ("flash_attention", {"q_len": 1, "kv_len": 700})])   # decode chunks
+def test_tune_candidates_match_plain(conv_device, name, extra):
+    """Every legal candidate of a family's small shape (and flash's at
+    width 128 and on decode): its outputs (the case's forward and
+    backward) equal the plain version's on the CPU within the family's
+    table tolerance (bf16 2e-2 of the largest value, fp32 1e-4), and the
+    rule's bit for bit (exact families) or within the spec's stated
+    tolerance."""
+    from apex_tpu_torch.tune import measure, registry
+    spec = registry.get_spec(name)
+    shape = dict(spec.small_shape, **extra)
+    card, cpu = spec.build(shape, False), spec.build(shape, True)
+    default = spec.defaults(shape)
+    ref = card.run(default)
+    want = [t.float() for t in measure._leaves(cpu.run(default))]
+    tol = 2e-2 if shape.get("dtype") == "bfloat16" else 1e-4
+    legal = [c for c in measure._dedupe(
+        spec, shape, [default] + spec.candidates(shape, None))
+        if c == default or spec.constraint(shape, c)]
+    assert len(legal) >= 2
+    for cfg in legal:
+        out = card.run(cfg)
+        torch.cuda.synchronize()
+        if spec.exact:
+            assert measure._tree_equal_bitwise(ref, out), cfg
+        else:
+            assert measure._tree_close(ref, out, card.tol), cfg
+        for got, w in zip(measure._leaves(out), want):
+            err = (got.cpu().float() - w).abs().max().item()
+            assert err <= tol * max(1.0, w.abs().max().item()), (cfg, err)
+
+
+@pytest.mark.cuda
+def test_tile_legality_is_the_kernels(conv_device):
+    """The tile queries answer from the kernels: qmm's plan() fills a
+    half at -1 from its rule and refuses a tile it lacks, and the launch
+    refuses it too; flash's check takes its instantiated tiles, a decode
+    chunk of 32 keys or a multiple, and refuses the rest."""
+    qk = importlib.import_module("apex_tpu_torch.quant.kernels")
+    bf = torch.bfloat16
+    rule = qk.kernel_tile(1024, 768, 3072, bf)
+    assert rule in qk.tiles(2)
+    assert qk.kernel_tile(1024, 768, 3072, bf, (rule[0], -1)) == rule
+    assert qk.kernel_tile(1024, 768, 3072, bf, (16, -1)) is None  # 16 x 256
+    assert qk.kernel_tile(8, 768, 768, bf) == (16, 32)
+    assert qk.kernel_tile(8, 768, 768, bf, (64, -1)) == (64, 32)
+    x = torch.randn(100, 128, device=conv_device, dtype=bf) * 0.05
+    w = torch.randn(128, 256, device=conv_device, dtype=bf) * 0.05
+    base = qk.quantized_matmul(x, w, x_scale=0.002)
+    torch.testing.assert_close(                       # 64 x 32 at M 100
+        qk.quantized_matmul(x, w, x_scale=0.002, block_n=32), base,
+        rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not one the kernel has"):
+        qk.quantized_matmul(x, w, x_scale=0.002, block_m=128, block_n=128)
+    for tile in fa.tiles(64, bf):
+        assert fa.tile_fits(1023, 64, bf, tile)
+    assert not fa.tile_fits(1023, 64, bf, (32, 32))
+    assert not fa.tile_fits(1023, 64, torch.float32, (128, 128))  # SIMT
+    assert fa.tile_fits(1, 64, bf, (-1, 96))
+    assert not fa.tile_fits(1, 64, bf, (-1, 100))
+    q = torch.randn(1, 256, 2, 64, device=conv_device, dtype=bf)
+    torch.testing.assert_close(
+        fa.flash_attention(q, q, q, causal=True, block_k=64),
+        fa.flash_attention(q, q, q, causal=True, block_q=64, block_k=64),
+        rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not one the forward kernel"):
+        fa.flash_attention(q, q, q, causal=True, block_q=32, block_k=32)
+
+
+@pytest.mark.cuda
+def test_tuned_cache_reaches_the_launch(conv_device, tmp_path, monkeypatch):
+    """With a cache entry for the call's bucket, each public function
+    left at its defaults consults it on the kernel path (a hit in
+    ``dispatch_stats``) and launches that tile: its output equals the
+    explicit tile's bit for bit; an entry of another card misses."""
+    from apex_tpu_torch.tune import dispatch, store
+    fba = importlib.import_module("apex_tpu_torch.normalization.fused_bn_act")
+    qk = importlib.import_module("apex_tpu_torch.quant.kernels")
+    cv = importlib.import_module("apex_tpu_torch.ops.conv")
+    xe = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    path = str(tmp_path / "tune_configs.json")
+    monkeypatch.setenv("APEX_TPU_TUNE_CACHE", path)
+    store._STATE["memo_path"] = store._STATE["memo"] = None
+    dispatch.reset_stats()
+    dev = conv_device
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*s, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dev, dtype)
+
+    x = rnd(300, 768)
+    q, k, v = (rnd(2, 256, 4, 64, scale=0.5) for _ in range(3))
+    xc, wc = rnd(2, 8, 8, 64), rnd(3, 3, 64, 128, scale=0.05)
+    xq, wq = rnd(100, 128, scale=0.05), rnd(128, 256, scale=0.05)
+    xb, zb = rnd(640, 128), rnd(640, 128)
+    vb = [torch.linspace(0.5, 1.5, 128, device=dev) for _ in range(4)]
+    lg = rnd(32, 1000, dtype=torch.float32)
+    lab = torch.arange(1, 33, device=dev)
+    calls = {
+        "fused_layer_norm": (
+            fln.tune_bucket(300, 768, 2), {"row_block": 8},
+            lambda **t: fln.fused_layer_norm(x, (768,), **t)),
+        "flash_attention": (
+            fa.tune_bucket(256, 256, 64, True, False, False),
+            {"block_q": 128, "block_k": 128},
+            lambda **t: fa.flash_attention(q, k, v, causal=True, **t)),
+        "conv2d": (
+            cv.tune_bucket(2, 8, 8, 64, 128, 3, 3, 1, 1, 1, 1, 2, False,
+                           False), {"block_m": 128, "block_n": 64},
+            lambda **t: cv.conv2d(xc, wc, **t)),
+        "quantized_matmul": (
+            qk.tune_bucket(100, 128, 256, 2), {"block_m": 16, "block_n": 32},
+            lambda **t: qk.quantized_matmul(xq, wq, x_scale=0.002, **t)),
+        "bn_relu_residual": (
+            fba.tune_bucket(640, 128, 2, True), {"row_block": 16},
+            lambda **t: fba.bn_relu_residual(xb, *vb, z=zb, **t)),
+        "xentropy": (
+            xe.tune_bucket(32, 1000), {"col_block": 512, "num_warps": 4},
+            lambda **t: xe.xentropy_fwd_kernel(
+                lg, lab.to(torch.int32), 0.1, tuple(t.values()) or None)[0]
+            if t else xe.softmax_cross_entropy_loss(lg, lab, 0.1)),
+    }
+    rule = {n: fn() for n, (_, _, fn) in calls.items()}
+    for name, (bucket, cfg, _) in calls.items():
+        store.put(name, 1, bucket, cfg, path=path)
+        store.put(name, 1, bucket, cfg, dev_kind="TPU_v5_lite", path=path)
+    for name, (_, cfg, fn) in calls.items():
+        tuned, explicit = fn(), fn(**cfg)
+        torch.testing.assert_close(tuned, explicit, rtol=0, atol=0)
+        assert dispatch.dispatch_stats()["by_kernel"][name]["hits"] >= 1
+    # only another card's entries: every consult misses, the rule runs
+    with open(path) as f:
+        data = json.load(f)
+    data["entries"] = {k: e for k, e in data["entries"].items()
+                       if e["device_kind"] == "TPU_v5_lite"}
+    with open(path, "w") as f:
+        json.dump(data, f)
+    store.load(reload=True)
+    dispatch.reset_stats()
+    for name, (_, _, fn) in calls.items():
+        torch.testing.assert_close(fn(), rule[name], rtol=0, atol=0)
+        st = dispatch.dispatch_stats()["by_kernel"][name]
+        assert st["hits"] == 0 and st["misses"] >= 1

@@ -196,9 +196,17 @@ def test_quantized_matmul_validation():
     with pytest.raises(ValueError, match="impl"):
         quant.quantized_matmul(x, torch.zeros((16, 4)), x_scale=1.0,
                                impl="bogus", interpret=True)
-    with pytest.raises(NotImplementedError, match="block_m"):
+    # a tile is the kernel's knob: the plain version takes it and
+    # ignores it (the same result); a non-positive tile raises
+    w = torch.linspace(-1, 1, 64).reshape(16, 4)
+    xr = torch.linspace(-2, 2, 48).reshape(3, 16)
+    base = quant.quantized_matmul(xr, w, x_scale=0.02)
+    tiled = quant.quantized_matmul(xr, w, x_scale=0.02, block_m=128,
+                                   block_n=256)
+    assert torch.equal(base, tiled)
+    with pytest.raises(ValueError, match="block_m"):
         quant.quantized_matmul(x, torch.zeros((16, 4)), x_scale=1.0,
-                               block_m=128)
+                               block_m=0)
     # the kernel's wrapper takes CUDA tensors only: no quiet plain path
     qw = torch.zeros((4, 16), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
