@@ -63,9 +63,10 @@ waits for the writer, ``prune`` and ``restore``; and the
 ``checkpoint_errors`` instruments.  A manager made without a ``run_id``
 takes the active recorder's.
 
-Not ported yet, raising ``NotImplementedError``: restoring a
-``bucket_layout`` state at another shard count (the zero1 reshard,
-ROADMAP queue 1 item 3, "Sharding").
+A state saved with a ``bucket_layout`` (a zero1 state gathered with
+:func:`~apex_tpu_torch.parallel.zero.zero1_gather_state`) restores at
+another shard count: each flat bucket is cut to its true size and
+padded to the template's, as JAX's reshard-on-read does.
 """
 
 from __future__ import annotations
@@ -96,8 +97,6 @@ _DTYPE_TAG = "@dtype="
 _JSON_PREFIX = "__extrajson__/"
 _STEP_DIR_RE = re.compile(r"^step_(\d{8,})$")
 _MANIFEST_VERSION = 1
-
-_SHARDING = 'ROADMAP queue 1 item 3, "Sharding"'
 
 
 class CheckpointError(RuntimeError):
@@ -295,6 +294,36 @@ def _split_raw_arrays(arrays: dict):
     return plain, amp_state, extra_raw
 
 
+def _maybe_reshard_flat(t: torch.Tensor, want_shape, key: str,
+                        buckets: Optional[dict]) -> Optional[torch.Tensor]:
+    """A zero1 flat-bucket leaf resharded on read, as JAX's
+    ``_maybe_reshard_flat``: a checkpoint saved at shard count N holds
+    each bucket's state leaves padded to ``padded_shard_len(size, N)``;
+    a template padded for M takes the bucket's true size (from the
+    manifest's bucket layout) and zeros up to its own length.  The
+    bucket is the one whose index is a segment of the leaf's key
+    (``opt_state/inner/<i>/...``), else the first whose padded size
+    fits.  None when the leaf is not a recorded bucket."""
+    from .multi_tensor.buckets import padded_shard_len
+    if not buckets or t.dim() != 1 or len(want_shape) != 1:
+        return None
+    old_n = int(buckets.get("num_shards", 0))
+    if old_n < 1:
+        return None
+    want = int(want_shape[0])
+    sizes = [int(x) for x in buckets.get("sizes", ())]
+    candidates = [sizes[int(seg)] for seg in key.split("/")
+                  if seg.isdigit() and int(seg) < len(sizes)] + sizes
+    for true_size in candidates:
+        if padded_shard_len(true_size, old_n) == t.numel() \
+                and want >= true_size:
+            out = t[:true_size]
+            if want > true_size:
+                out = torch.cat([out, out.new_zeros(want - true_size)])
+            return out
+    return None
+
+
 def _rebuild(plain: dict, like, *, buckets: Optional[dict] = None,
              context: str = "checkpoint"):
     """Match ``plain`` (key -> CPU tensor) against the template ``like``:
@@ -320,16 +349,15 @@ def _rebuild(plain: dict, like, *, buckets: Optional[dict] = None,
                     f"opt_level used at save time (reference checkpointing "
                     f"rule)")
             if tuple(t.shape) != tuple(leaf.shape):
-                if buckets and t.dim() == 1 and leaf.dim() == 1:
-                    raise NotImplementedError(
-                        f"{context}: flat bucket {key!r} was saved padded "
-                        f"for {buckets.get('num_shards')} shard(s) and the "
-                        f"template differs; restoring at another shard "
-                        f"count (the zero1 reshard) is not ported yet "
-                        f"({_SHARDING})")
-                raise ValueError(
-                    f"shape mismatch for {key!r}: checkpoint "
-                    f"{tuple(t.shape)}, template {tuple(leaf.shape)}")
+                resharded = _maybe_reshard_flat(t, tuple(leaf.shape), key,
+                                                buckets)
+                if resharded is None:
+                    raise ValueError(
+                        f"shape mismatch for {key!r}: checkpoint "
+                        f"{tuple(t.shape)}, template {tuple(leaf.shape)} "
+                        f"— not a recorded flat bucket, so elastic "
+                        f"resharding cannot apply")
+                t = resharded
             t = t.to(leaf.device)
         leaves.append(t)
     unconsumed = set(plain) - consumed

@@ -27,6 +27,15 @@ state's ``Packed`` moments cross unchanged: the port's
 :class:`~apex_tpu_torch.multi_tensor.BucketStore` lays out the same
 buckets as JAX's for the converted tree.
 
+The RNN stack's weights move with :func:`rnn_params_from_jax` /
+:func:`rnn_params_to_jax` (flax ``Dense`` kernels ``[in, out]`` are the
+``nn.Linear`` weights ``[out, in]`` transposed), weight-normed subtrees
+(``g``, ``v`` and the ``__reparam__`` marker) included;
+:func:`reparam_tree_from_jax` / :func:`reparam_tree_to_jax` carry a
+reparameterized tree whose layouts the two packages share.  The GPT
+``decode=True`` cache moves with :func:`gpt_decode_cache_from_jax` /
+:func:`gpt_decode_cache_to_jax`.
+
 For weight hot-swap (:mod:`apex_tpu_torch.serving.hotswap`),
 :func:`lm_train_state_like` is the template an LM trainer checkpoint is
 loaded against and :func:`gpt_params_from_train_state` the ``extract``
@@ -245,3 +254,166 @@ def gpt_params_from_train_state(restored) -> Dict[str, torch.Tensor]:
     ``state_dict`` names (``load_state_dict`` takes them as they are)."""
     state = getattr(restored, "state", restored)
     return dict(state.params)
+
+
+# -- the RNN stack, weight norm, the decode cache ----------------------------------
+
+_MARKER = "__reparam__"
+
+
+def _reparam_from_jax(sub: Mapping[str, Any], transpose: bool):
+    """One JAX reparameterized subtree (``g``, ``v``, marker) as the
+    port's; ``transpose`` turns a flax kernel's subtree into an
+    ``nn.Linear`` weight's (``g`` and ``v`` transposed, ``dim`` d ->
+    1 - d)."""
+    kind = sub[_MARKER]
+    out = {}
+    for k, v in sub.items():
+        if k == _MARKER:
+            continue
+        t = _tensor(v)
+        out[k] = t.T.contiguous() if transpose and t.dim() == 2 else t
+    dim = kind.dim
+    if transpose and dim is not None:
+        dim = 1 - dim
+    from .reparameterization import _Kind
+    out[_MARKER] = _Kind(kind.name, dim)
+    return out
+
+
+def _reparam_to_jax(sub: Mapping[str, Any], transpose: bool, marker):
+    kind = sub[_MARKER]
+    out = {}
+    for k, v in sub.items():
+        if k == _MARKER:
+            continue
+        a = v.detach().to("cpu").float().numpy()
+        out[k] = np.ascontiguousarray(a.T) if transpose and a.ndim == 2 \
+            else a
+    dim = kind.dim
+    if transpose and dim is not None:
+        dim = 1 - dim
+    if marker is None:
+        from .reparameterization import _Kind as marker
+    out[_MARKER] = marker(kind.name, dim)
+    return out
+
+
+def rnn_params_from_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """A flax RNN ``params`` tree (``stackedRNN``/``bidirectionalRNN``,
+    nested mappings of numpy arrays) as a ``state_dict`` for the port's
+    module: each ``.../kernel`` ``[in, out]`` becomes ``.../weight``
+    ``[out, in]``, biases keep their names; a weight-normed kernel's
+    subtree becomes the weight's (``g`` and ``v`` transposed, the
+    marker's ``dim`` d -> 1 - d), for ``reconstruct``."""
+    out: Dict[str, Any] = {}
+
+    def walk(tree, prefix):
+        for name, sub in tree.items():
+            key = f"{prefix}{name}"
+            leaf = "weight" if name == "kernel" else name
+            if isinstance(sub, Mapping) and _MARKER in sub:
+                out[f"{prefix}{leaf}"] = _reparam_from_jax(sub, True)
+            elif isinstance(sub, Mapping):
+                walk(sub, key + ".")
+            elif name == "kernel":
+                out[f"{prefix}weight"] = torch.from_numpy(
+                    np.array(sub, dtype=np.float32).T.copy())
+            else:
+                out[key] = torch.from_numpy(np.array(sub, dtype=np.float32))
+    walk(params, "")
+    return out
+
+
+def rnn_params_to_jax(state_dict: Mapping[str, Any], marker=None
+                      ) -> Dict[str, Any]:
+    """The inverse: a nested dict of float32 numpy arrays in the flax
+    layout; a reparameterized weight's subtree gets a marker made by
+    ``marker(name, dim)`` (pass the JAX package's ``_Kind``, which its
+    ``reconstruct`` and ``jax.grad`` expect; default the port's)."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        jleaf = "kernel" if leaf == "weight" else leaf
+        if isinstance(t, Mapping):
+            node[jleaf] = _reparam_to_jax(t, True, marker)
+        elif leaf == "weight":
+            node[jleaf] = np.ascontiguousarray(
+                t.detach().to("cpu", torch.float32).numpy().T)
+        else:
+            node[jleaf] = t.detach().to("cpu", torch.float32).numpy()
+    return tree
+
+
+def reparam_tree_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX tree that ``apply_weight_norm`` (or another
+    reparameterization) produced, nested mappings of numpy arrays, as
+    the port's nested dict of tensors with the port's markers (layouts
+    unchanged)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and _MARKER in v:
+            out[k] = _reparam_from_jax(v, False)
+        elif isinstance(v, Mapping):
+            out[k] = reparam_tree_from_jax(v)
+        else:
+            out[k] = _tensor(v)
+    return out
+
+
+def reparam_tree_to_jax(tree: Mapping[str, Any], marker=None
+                        ) -> Dict[str, Any]:
+    """The inverse of :func:`reparam_tree_from_jax` (float32 numpy
+    arrays; markers made by ``marker(name, dim)``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and _MARKER in v:
+            out[k] = _reparam_to_jax(v, False, marker)
+        elif isinstance(v, Mapping):
+            out[k] = reparam_tree_to_jax(v, marker)
+        else:
+            out[k] = v.detach().to("cpu", torch.float32).numpy()
+    return out
+
+
+def gpt_decode_cache_from_jax(cache: Mapping[str, Any], device=None
+                              ) -> Dict[str, Any]:
+    """JAX's GPT ``"cache"`` collection (``pos_index`` and each
+    ``block_{i}/attention``'s ``cached_key``, ``cached_value``,
+    ``cache_index``; numpy leaves) as the port's decode cache
+    (:func:`apex_tpu_torch.models.gpt.init_decode_cache`'s layout): the
+    buffers keep their dtype, the indices become 0-dim int64 tensors."""
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                out[k] = walk(v)
+            elif k in ("cache_index", "pos_index"):
+                out[k] = torch.tensor(int(np.asarray(v)), dtype=torch.long,
+                                      device=device)
+            else:
+                out[k] = _tensor(v).to(device)
+        return out
+    return walk(cache)
+
+
+def gpt_decode_cache_to_jax(cache: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse: numpy leaves, the indices int32 scalars, the buffers
+    in their dtype (a bf16 buffer as float32, numpy having no bf16: cast
+    it back on the JAX side)."""
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                out[k] = walk(v)
+            elif k in ("cache_index", "pos_index"):
+                out[k] = np.asarray(int(v), np.int32)
+            elif v.dtype == torch.bfloat16:
+                out[k] = v.detach().to("cpu", torch.float32).numpy()
+            else:
+                out[k] = v.detach().to("cpu").numpy()
+        return out
+    return walk(cache)

@@ -24,12 +24,13 @@ The padding mask reaches ``flash`` as a key-padding bias and
 ``blockwise`` and ``full`` as a ``[B, 1, 1, S]`` additive bias.
 
 Ported: the ``flash``, ``blockwise`` and ``full`` attention impls, the
-external-cache incremental forward the serving engine drives, and
-``quant=`` (every projection a
-:class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`).  Not ported
+external-cache incremental forward the serving engine drives, the
+``decode=True`` one-token step over a cache the caller holds (JAX's flax
+``"cache"`` collection as a dict of tensors updated in place,
+:meth:`BertSelfAttention.init_cache`), and ``quant=`` (every projection
+a :class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`).  Not ported
 yet, and raising ``NotImplementedError``: ``ring``, ``ring_flash``,
-``ulysses``, ``sp_axis`` (sequence parallelism) and the ``decode=True``
-flax-cache path.
+``ulysses`` and ``sp_axis`` (sequence parallelism).
 """
 
 from __future__ import annotations
@@ -118,14 +119,27 @@ class BertSelfAttention(nn.Module):
     CPU), ``"blockwise"`` (online softmax over key blocks in plain torch,
     :func:`~apex_tpu_torch.ops.attention.blockwise_attention`) or
     ``"full"`` (materialized scores, the oracle).  ``mask`` ``[B, S]``
-    marks the keys to attend to (nonzero or True)."""
+    marks the keys to attend to (nonzero or True).
+
+    ``decode=True`` is JAX's autoregressive step: one token a call, its
+    key and value written into a cache of ``cache_len`` positions that
+    the caller holds (:meth:`init_cache`: ``cached_key`` and
+    ``cached_value`` ``[B, cache_len, n_kv, head_dim]`` in the compute
+    dtype, and ``cache_index``, a 0-dim int64 tensor on the device, so
+    one captured step serves every position) and passes as ``cache=``;
+    the step updates it in place.  The attention is JAX's plain fp32
+    grouped einsum over the whole buffer with the ``pos <= i`` mask (and
+    the ``window`` mask), no kernel; GQA caches only the kv heads.  As
+    JAX's ``dynamic_update_slice`` does, a write past ``cache_len``
+    lands on the last row without an error: the caller bounds its steps
+    (:func:`~apex_tpu_torch.models.gpt.generate` clamps them)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, *,
                  attention_impl: str = "full", causal: bool = False,
                  num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None, decode: bool = False,
-                 quant=None, device=None,
+                 cache_len: int = 0, quant=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if attention_impl in _NOT_PORTED_IMPLS:
@@ -134,11 +148,6 @@ class BertSelfAttention(nn.Module):
                 f"(ROADMAP queue 1 item 3, \"Sharding\")")
         if attention_impl not in ("flash", "blockwise", "full"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
-        if decode:
-            raise NotImplementedError(
-                "decode=True (the flax-cache decode path; ROADMAP queue 1 "
-                "item 4) is not ported; "
-                "use the external-cache forward (kv_cache=, positions=)")
         n_kv = num_kv_heads or num_heads
         if num_heads % n_kv:
             raise ValueError(f"num_kv_heads {n_kv} must divide "
@@ -150,6 +159,8 @@ class BertSelfAttention(nn.Module):
         self.attention_impl = attention_impl
         self.causal = causal
         self.window = window
+        self.decode = decode
+        self.cache_len = int(cache_len)
         dense = _dense_factory(quant, dtype, device=device,
                                generator=generator)
         d, hd = hidden_size, self.head_dim
@@ -158,9 +169,37 @@ class BertSelfAttention(nn.Module):
         self.value = dense((d,), (n_kv, hd))
         self.out = dense((num_heads, hd), (d,))
 
-    def forward(self, x, mask=None, *, kv_cache=None, positions=None):
+    def init_cache(self, batch_size: int, *, dtype=None, device=None
+                   ) -> dict:
+        """A zeroed ``decode=True`` cache for ``batch_size`` sequences:
+        flax's ``cached_key``, ``cached_value`` (in ``dtype``, default
+        the compute dtype) and ``cache_index``, on ``device`` (default
+        the parameters')."""
+        dev = self.query.kernel.device if device is None else device
+        shape = (batch_size, self.cache_len, self.n_kv, self.head_dim)
+        dt = self.dtype if dtype is None else dtype
+        return {"cached_key": torch.zeros(shape, dtype=dt, device=dev),
+                "cached_value": torch.zeros(shape, dtype=dt, device=dev),
+                "cache_index": torch.zeros((), dtype=torch.long,
+                                           device=dev)}
+
+    def forward(self, x, mask=None, *, kv_cache=None, positions=None,
+                cache=None):
         if mask is not None:
             mask = mask.to(torch.bool)
+        if self.decode:
+            if not self.causal or mask is not None:
+                raise ValueError("decode mode is causal-only and takes no "
+                                 "padding mask — batch equal-length "
+                                 "prompts (padding is unsupported: cached "
+                                 "pad KV would be attended to)")
+            if x.shape[1] != 1:
+                raise ValueError(f"decode consumes ONE token per call, got "
+                                 f"sequence length {x.shape[1]}")
+            if cache is None:
+                raise ValueError("decode=True needs cache= (init_cache)")
+        elif cache is not None:
+            raise ValueError("cache= is the decode=True step's")
         q = self.query(x)
         k = self.key(x)
         v = self.value(x)
@@ -168,6 +207,8 @@ class BertSelfAttention(nn.Module):
             ctx, kf, vf = self._incremental(q, k, v, kv_cache, positions,
                                             mask)
             return self.out(ctx.to(x.dtype)), (kf, vf)
+        if self.decode:
+            return self.out(self._decode_step(q, k, v, cache).to(x.dtype))
         if self.window is not None and (self.attention_impl != "flash"
                                         or not self.causal):
             raise ValueError(
@@ -195,6 +236,35 @@ class BertSelfAttention(nn.Module):
                       == "blockwise" else dot_product_attention)
             ctx = attend(q, k, v, causal=self.causal, bias=bias)
         return self.out(ctx.to(x.dtype))
+
+    def _decode_step(self, q, k, v, cache: dict) -> torch.Tensor:
+        """One token: write its k/v at ``cache_index`` (clamped to the
+        last row, as ``dynamic_update_slice`` clamps), advance the index,
+        and attend in fp32 over the whole buffer, the positions past the
+        index (and before the window) masked; the context ``[B, 1,
+        heads, head_dim]`` in fp32."""
+        ck, cv, ci = (cache["cached_key"], cache["cached_value"],
+                      cache["cache_index"])
+        b, hd = q.shape[0], self.head_dim
+        cache_len = ck.shape[1]
+        i = ci.clone()
+        row = i.clamp(max=cache_len - 1).view(1)
+        ck.index_copy_(1, row, k.to(ck.dtype))
+        cv.index_copy_(1, row, v.to(cv.dtype))
+        ci.add_(1)
+        # grouped einsums keep the cache un-repeated, as in JAX
+        grp = self.num_heads // self.n_kv
+        qg = q.reshape(b, 1, self.n_kv, grp, hd)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                         ck.float()) * (hd ** -0.5)
+        pos = torch.arange(cache_len, device=q.device)
+        live = pos <= i
+        if self.window is not None:
+            live = live & (pos > i - self.window)
+        s = torch.where(live, s, -1e30)
+        att = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhgqk,bkhd->bqhgd", att, cv.float())
+        return ctx.reshape(b, 1, self.num_heads, hd)
 
     def _incremental(self, q, k, v, kv_cache: Tuple[torch.Tensor, torch.Tensor],
                      positions, mask):

@@ -28,14 +28,21 @@ JAX's, whose generator is another).
 every q/k/v/out/mlp_up/mlp_down projection as a ``QuantDenseGeneral``
 named by its flax path (``block_0/attention/query``), so a calibration
 moves between the packages; the LM head is not quantized, as in JAX.
-Not ported yet: ``generate()`` and ``decode=True`` (the serving engine's
-external-cache forward is the decode path) and ``sp_axis`` sequence
-parallelism.
+
+``decode=True`` is JAX's one-token step over the flax ``"cache"``
+collection, here a nested dict of tensors that the caller holds and the
+step updates in place (:func:`init_decode_cache`: ``pos_index`` and,
+per layer, ``block_{i}/attention/{cached_key, cached_value,
+cache_index}``); :func:`generate` drives it, teacher-forcing the prompt
+and then feeding back greedy or sampled tokens, with the step captured
+once in a CUDA graph on the card.  Not ported yet: ``sp_axis`` sequence
+parallelism (``NotImplementedError``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import contextlib
+from typing import List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +51,7 @@ from torch import nn
 from .._device import resolve_device
 from ..normalization import FusedLayerNorm
 from ..prof.capture import scope
-from .bert import BertSelfAttention, _dense_factory
+from .bert import BertSelfAttention, _dense_factory, _refuse_sp_axis
 
 
 class GPTBlock(nn.Module):
@@ -52,30 +59,36 @@ class GPTBlock(nn.Module):
                  dtype: torch.dtype = torch.float32, *,
                  attention_impl: str = "flash",
                  num_kv_heads: Optional[int] = None,
-                 window: Optional[int] = None, quant=None, device=None,
+                 window: Optional[int] = None, decode: bool = False,
+                 cache_len: int = 0, quant=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         d = hidden_size
         self.ln1 = FusedLayerNorm(d, device=device)
         self.attention = BertSelfAttention(
             d, num_heads, dtype, attention_impl=attention_impl, causal=True,
-            num_kv_heads=num_kv_heads, window=window, quant=quant,
-            device=device, generator=generator)
+            num_kv_heads=num_kv_heads, window=window, decode=decode,
+            cache_len=cache_len, quant=quant, device=device,
+            generator=generator)
         self.ln2 = FusedLayerNorm(d, device=device)
         dense = _dense_factory(quant, dtype, device=device,
                                generator=generator)
         self.mlp_up = dense((d,), (mlp_dim,))
         self.mlp_down = dense((mlp_dim,), (d,))
 
-    def forward(self, x, *, kv_cache=None, positions=None):
-        if kv_cache is not None:
+    def forward(self, x, *, kv_cache=None, positions=None, cache=None):
+        if kv_cache is not None or cache is not None:
             h = self.ln1(x).to(x.dtype)
-            h, new_cache = self.attention(h, kv_cache=kv_cache,
-                                          positions=positions)
+            if cache is not None:     # the decode step: cache in place
+                h = self.attention(h, cache=cache)
+            else:
+                h, kv_cache = self.attention(h, kv_cache=kv_cache,
+                                             positions=positions)
             x = x + h
             h = self.ln2(x).to(x.dtype)
             h = F.gelu(self.mlp_up(h).float(), approximate="tanh")
-            return x + self.mlp_down(h.to(x.dtype)), new_cache
+            x = x + self.mlp_down(h.to(x.dtype))
+            return x if cache is not None else (x, kv_cache)
         # the JAX block's submodule names as profiler scopes, so a
         # roofline ledger's regions name what they hold (the tuner reads
         # them); the incremental forward above opens none
@@ -97,7 +110,9 @@ class GPTBlock(nn.Module):
 class GPT(nn.Module):
     """Decoder-only LM.  ``forward(input_ids) -> logits [B, T, V]`` (fp32,
     tied to the token embedding); with ``kv_caches`` it is the
-    incremental forward and returns ``(logits, new_caches)``."""
+    incremental forward and returns ``(logits, new_caches)``; built with
+    ``decode=True`` it is the one-token step over ``cache=`` (the module
+    docstring) and returns ``(logits, cache)``."""
 
     def __init__(self, vocab_size: int = 50257, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
@@ -106,14 +121,12 @@ class GPT(nn.Module):
                  attention_impl: str = "flash",
                  num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None, decode: bool = False,
-                 quant=None, *, device=None, seed: int = 0):
+                 quant=None, *, sp_axis=None, device=None, seed: int = 0):
         super().__init__()
-        if decode:
-            raise NotImplementedError(
-                "decode=True (ROADMAP queue 1 item 4) is not ported; decode "
-                "through the serving engine's external-cache forward "
-                "(kv_caches=, positions=)")
+        _refuse_sp_axis(sp_axis)
         dev = resolve_device(device)
+        self.sp_axis = sp_axis
+        self.decode = decode
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -133,7 +146,8 @@ class GPT(nn.Module):
             self.add_module(f"block_{i}", GPTBlock(
                 hidden_size, num_heads, mlp_dim, dtype,
                 attention_impl=attention_impl, num_kv_heads=num_kv_heads,
-                window=window, quant=quant, device=dev, generator=gen))
+                window=window, decode=decode, cache_len=max_len,
+                quant=quant, device=dev, generator=gen))
         self.ln_f = FusedLayerNorm(hidden_size, device=dev)
         if quant is not None:
             from ..quant.layers import name_quant_sites
@@ -146,8 +160,13 @@ class GPT(nn.Module):
     def blocks(self) -> List[GPTBlock]:
         return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
 
-    def forward(self, input_ids, kv_caches=None, positions=None):
+    def forward(self, input_ids, kv_caches=None, positions=None, *,
+                cache=None):
         b, t = input_ids.shape
+        if self.decode:
+            return self._decode_step(input_ids, cache)
+        if cache is not None:
+            raise ValueError("cache= is the decode=True step's")
         if kv_caches is not None:
             # Incremental forward over caller-owned caches: one (k, v)
             # dense view per layer, [B, L, n_kv, head_dim] (init_cache
@@ -185,6 +204,25 @@ class GPT(nn.Module):
                 x = self.ln_f(x)
             return x.float() @ self.wte.float().T
 
+    def _decode_step(self, input_ids, cache):
+        """One token a sequence at position ``cache["pos_index"]`` (the
+        tokens consumed so far), which advances; returns ``(logits [B, 1,
+        V], cache)``, the cache updated in place."""
+        if input_ids.shape[1] != 1:
+            raise ValueError(f"decode consumes ONE token per call, got "
+                             f"{input_ids.shape[1]}")
+        if cache is None:
+            raise ValueError("decode=True needs cache= (init_decode_cache)")
+        pi = cache["pos_index"]
+        # JAX's gather clamps an index past the table
+        pos = pi.clamp(max=self.max_len - 1).view(1)
+        x = (self.wte[input_ids] + self.wpe[pos][None]).to(self.dtype)
+        pi.add_(1)
+        for i, block in enumerate(self.blocks()):
+            x = block(x, cache=cache[f"block_{i}"]["attention"])
+        x = self.ln_f(x)
+        return x.float() @ self.wte.float().T, cache
+
 
 def gpt2_small(**kw) -> GPT:
     """GPT-2 small: hidden 768, 12 layers, 12 heads, MLP 3072, vocab
@@ -221,3 +259,104 @@ def init_cache(model: GPT, batch_size: int, *,
     return [(torch.zeros(shape, dtype=dt, device=model.device),
              torch.zeros(shape, dtype=dt, device=model.device))
             for _ in range(model.num_layers)]
+
+
+def init_decode_cache(model: GPT, batch_size: int, *, dtype=None) -> dict:
+    """A zeroed ``decode=True`` cache for ``batch_size`` sequences, on the
+    model's device: JAX's ``"cache"`` collection as a nested dict,
+    ``pos_index`` (a 0-dim int64 tensor) and ``block_{i}`` ->
+    ``attention`` -> ``cached_key``, ``cached_value`` ``[batch_size,
+    max_len, n_kv_heads, head_dim]`` (``dtype``, default the compute
+    dtype) and ``cache_index``."""
+    cache = {f"block_{i}": {"attention": block.attention.init_cache(
+                 batch_size, dtype=dtype, device=model.device)}
+             for i, block in enumerate(model.blocks())}
+    cache["pos_index"] = torch.zeros((), dtype=torch.long,
+                                     device=model.device)
+    return cache
+
+
+@contextlib.contextmanager
+def _decoding(model: GPT):
+    """``model`` as its ``decode=True`` twin for the context (the flags of
+    the model and its attentions set, the cache length ``max_len``), as
+    JAX's ``model.clone(decode=True)`` shares the parameters."""
+    attns = [blk.attention for blk in model.blocks()]
+    saved = (model.decode, [(a.decode, a.cache_len) for a in attns])
+    model.decode = True
+    for a in attns:
+        a.decode, a.cache_len = True, model.max_len
+    try:
+        yield model
+    finally:
+        model.decode = saved[0]
+        for a, (d, n) in zip(attns, saved[1]):
+            a.decode, a.cache_len = d, n
+
+
+def generate(model: GPT, params_or_model, prompt_ids, max_new_tokens: int,
+             *, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             capture: bool = True) -> torch.Tensor:
+    """Autoregressive generation over the ``decode=True`` cache (JAX's
+    ``generate``): each step feeds one token, teacher-forced from the
+    prompt while it lasts, then the greedy (``temperature == 0``,
+    ``argmax``) or sampled (``softmax(logits / temperature)``, drawn with
+    ``generator``, default one seeded 0 on the model's device) token.
+
+    ``model`` is the GPT whose configuration runs; ``params_or_model``
+    its weights, a ``state_dict``-style mapping (through
+    ``torch.func.functional_call``) or a GPT module (often ``model``
+    itself).  Returns ``[B, min(P + max_new_tokens, max_len)]`` int64
+    token ids on the model's device, the prompt included: the step count
+    is clamped so no position passes ``max_len``.
+
+    On CUDA the step is captured once in a CUDA graph
+    (:func:`apex_tpu_torch.cache.warmup`, whose warm run works on copies)
+    and replayed per token over the cache and the token it holds; the
+    next token is chosen outside the graph (``capture=False`` runs the
+    step eagerly instead, the same kernels).  On the CPU the step runs
+    eagerly.  A sequence-parallel model (``sp_axis``) is refused."""
+    from .. import cache as _cache
+
+    if getattr(model, "sp_axis", None) is not None:
+        raise ValueError("generate() decodes full sequences; build the "
+                         "model without sp_axis for inference")
+    module = params_or_model if isinstance(params_or_model, nn.Module) \
+        else model
+    dev = module.wte.device
+    prompt = torch.as_tensor(prompt_ids).to(dev, torch.long)
+    b, p = prompt.shape
+    total = min(p + int(max_new_tokens), model.max_len)
+    if generator is None and temperature != 0.0:
+        generator = torch.Generator(dev).manual_seed(0)
+    with _decoding(module), torch.no_grad():
+        if isinstance(params_or_model, Mapping):
+            params = dict(params_or_model)
+
+            def step(cache, tok):
+                logits, _ = torch.func.functional_call(
+                    module, params, (tok[:, None],), {"cache": cache})
+                return logits[:, 0]
+        else:
+            def step(cache, tok):
+                return module(tok[:, None], cache=cache)[0][:, 0]
+
+        args = (init_decode_cache(module, b), prompt[:, 0].clone())
+        run = (_cache.warmup(step, *args) if capture and total > 1
+               else step)
+        toks = [prompt[:, 0]]
+        for t in range(total - 1):
+            logits = run(*args)
+            if t == 0 and run is not step:
+                args = run.static_args       # replays copy nothing in
+            if t + 1 < p:
+                nxt = prompt[:, t + 1]
+            elif temperature == 0.0:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            args[1].copy_(nxt)
+            toks.append(nxt)
+    return torch.stack(toks, dim=1)

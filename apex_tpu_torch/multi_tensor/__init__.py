@@ -35,7 +35,10 @@ __all__ = ["flatten_tree", "tree_finite", "multi_tensor_scale",
 def flatten_tree(tree) -> Tuple[List[torch.Tensor], Callable[[list], Any]]:
     """``(leaves, rebuild)``: the tensors of a dict (in its order) or of a
     list/tuple, and the function that puts new leaves back in the same
-    container."""
+    container; a bare tensor is one leaf (a JAX array is a pytree leaf:
+    zero1 updates a flat chunk)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda xs: xs[0]
     if isinstance(tree, Mapping):
         keys = list(tree)
         return [tree[k] for k in keys], lambda xs: dict(zip(keys, xs))

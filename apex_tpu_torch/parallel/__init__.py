@@ -1,9 +1,10 @@
 """Parallel: data parallelism over ``torch.distributed`` (DDP,
 ``Reducer``, the gradient and parameter collectives, the multi-process
 runtime), SyncBatchNorm across processes, the LARC gradient rewrite and
-its optimizer wrapper — counterpart of ``apex_tpu/parallel/__init__.py``
-(the mesh, tensor, pipeline, expert and sequence parallelism wait for
-the sharding slice)."""
+its optimizer wrapper, and the functional sharding primitives over a
+process group: ZeRO-1, tensor, expert and pipeline parallelism —
+counterpart of ``apex_tpu/parallel/__init__.py`` (the mesh front end and
+sequence parallelism are not ported yet)."""
 
 from typing import Optional
 
@@ -12,16 +13,29 @@ from torch import nn
 
 from .distributed import (DistributedDataParallel, Reducer,
                           broadcast_params, group_psum, reduce_gradients)
+from .expert_parallel import MoEAux, moe_layer
 from .LARC import LARC, GradientTransformation, larc_gradients, larc_transform
+from .pipeline import (spmd_pipeline, spmd_pipeline_interleaved,
+                       stack_interleaved_stage_params, stack_stage_params)
 from .sync_batchnorm import (SyncBatchNorm, adopt_batchnorm_stats,
                              welford_parallel)
+from .tensor_parallel import (column_parallel_dense, row_parallel_dense,
+                              shard_column, shard_row, tp_mlp,
+                              tp_self_attention)
+from .zero import Zero1State, zero1, zero1_partition_spec
 
 __all__ = ["DistributedDataParallel", "GradientTransformation", "LARC",
-           "Reducer", "SyncBatchNorm", "adopt_batchnorm_stats",
-           "broadcast_params", "convert_syncbn_model",
+           "MoEAux", "Reducer", "SyncBatchNorm", "Zero1State",
+           "adopt_batchnorm_stats", "broadcast_params",
+           "column_parallel_dense", "convert_syncbn_model",
            "create_syncbn_process_group", "group_psum", "initialize",
            "is_coordinator", "larc_gradients", "larc_transform",
-           "process_identity", "reduce_gradients", "welford_parallel"]
+           "moe_layer", "process_identity", "reduce_gradients",
+           "row_parallel_dense", "shard_column", "shard_row",
+           "spmd_pipeline", "spmd_pipeline_interleaved",
+           "stack_interleaved_stage_params", "stack_stage_params",
+           "tp_mlp", "tp_self_attention", "welford_parallel", "zero1",
+           "zero1_partition_spec"]
 
 
 def __getattr__(name):

@@ -31,7 +31,11 @@ with the kernels' in :mod:`apex_tpu_torch._build`, so a captured graph's
 replays count what they issue): ``grads`` (:func:`reduce_gradients`),
 ``bn_stats`` and ``bn_grad`` (:func:`group_psum` forward and backward:
 SyncBatchNorm's statistics are its one use in the port), ``state``
-(:func:`pmean_tree`), ``overflow`` (:func:`por`) and ``broadcast``.
+(:func:`pmean_tree`), ``overflow`` (:func:`por`) and ``broadcast``;
+the sharding primitives add ``reduce_scatter`` and ``all_gather``
+(ZeRO-1), ``tp_psum`` (a row-parallel product's sum and its
+transpose), ``all_to_all`` (expert dispatch) and ``permute`` (a
+pipeline's rotation, one a send-and-receive pair).
 
 Telemetry: with a recorder, each collective issued is noted as JAX's
 ``collective`` event (``op`` ``psum`` or ``broadcast``, the ``axis``,
@@ -78,7 +82,9 @@ class _Collective:
 #: issued on the device
 COLLECTIVES = {k: _build.counted(_Collective(f"collective_{k}"))
                for k in ("grads", "bn_stats", "bn_grad", "state",
-                         "overflow", "broadcast")}
+                         "overflow", "broadcast", "reduce_scatter",
+                         "all_gather", "tp_psum", "all_to_all",
+                         "permute")}
 
 #: rank lists -> this rank's sub-group (made once, by every rank)
 _SUBGROUPS: dict = {}

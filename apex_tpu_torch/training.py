@@ -42,9 +42,12 @@ gradients, issued in reverse-topological order, the same sums as
 leafwise); every rank agrees on the overflow flag (an ``all_reduce``
 of it), so all skip or step together; and the loss and the model state
 (the BN running statistics) are averaged over the group in one flat
-``all_reduce`` a dtype, so the carried state stays replicated.  The
-sharding arguments (``reduce_grads=False``, ``param_view``) raise
-``NotImplementedError``, naming ROADMAP queue 1 item 3.
+``all_reduce`` a dtype, so the carried state stays replicated.
+``reduce_grads=False`` skips the gradient all-reduce for an optimizer
+that reduces them itself (:func:`~apex_tpu_torch.parallel.zero.zero1`
+reduce-scatters inside its update); ``axis_name`` still agrees the
+overflow flag and averages the loss.  ``param_view`` (the ZeRO-3 view)
+raises ``NotImplementedError``, naming ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -213,10 +216,6 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
     the step function then carries the group as ``step_fn.process_group``
     (:class:`~apex_tpu_torch.runtime.StepPipeline` reads it).
     """
-    if not reduce_grads:
-        raise NotImplementedError(
-            f"reduce_grads=False (an optimizer that reduces the gradients "
-            f"itself, the zero1 path) is not ported yet ({_SHARDING})")
     if param_view is not None:
         raise NotImplementedError(
             f"param_view (the ZeRO-3 view of sharded parameters) is not "
@@ -317,7 +316,7 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                          for a, b in zip(grads, g_i)]
                 loss = loss + l_i / accum_steps
         grads = dict(zip(names, grads))
-        if group is not None:
+        if group is not None and reduce_grads:
             grads = _dist.reduce_gradients(
                 grads, group, gradient_average=gradient_average,
                 gradient_predivide_factor=gradient_predivide_factor,

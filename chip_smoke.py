@@ -367,12 +367,38 @@ line):
    cache rewritten for another device: every consult misses and the six
    calls equal the rule's bit for bit.  Phase 2's ``build:`` line also
    times ``flash_attention.cu`` built at the rule's tile only.
+33. ``generate`` on GPT-2 small at full width (random weights from seed
+   0), B 8, prompts of 64 tokens, 128 new tokens, fp32 and bf16, its
+   decode step captured once and replayed: every counter set to 0 just
+   before and read just after (25 LayerNorm launches a forward, the
+   warm run and 191 replays; no flash launch: the decode attention is
+   plain fp32, as in JAX); captured tokens bit for bit the eager step's;
+   fp32 greedy tokens equal to the serving engine's for the same prompts
+   and weights (the smallest top-2 logit margin printed); the first 4
+   decode steps' logits against a CPU fp32 run (atol 2e-3 fp32, 0.25
+   bf16); tokens/s captured and eager;
+34. the RNN stack: a byte-level mLSTM at 4096 units (input 64, T 64,
+   B 32) and a 2-layer bidirectional LSTM at 1024, forward and backward
+   card vs CPU fp32 (relative max error 1e-4 forward, 1e-3 gradients),
+   bf16 finite, ms a step; one SGD step on the mLSTM with weight norm on
+   its ``ih``/``hh`` weights over 16 time steps (``g``, ``v`` gradients
+   against the CPU);
+35. the sharding primitives: ZeRO-1 Adam on GPT-2 small at O2 through
+   ``make_train_step(reduce_grads=False)`` over an NCCL group of one,
+   bit for bit the replicated step for 4 steps (the counters set to 0
+   just before it and read after); then two gloo ranks on the card
+   (``--shard-gloo-worker``): zero1 staged through the host (gloo moves
+   only all_reduce and broadcast of CUDA tensors) (each rank half the padded
+   Adam state; parameters within rtol 1e-6 of the replicated two-rank DP
+   step's), ``tp_self_attention`` (one flash launch a rank) and
+   ``tp_mlp`` at GPT-2 small width, ``moe_layer`` and ``spmd_pipeline``
+   against their single-process oracles.
 
-Phases 24-32 write their data under temporary directories, removed at
-the end.  The phases run in the order 1-4, 17's calibration, 20, 29, 21
+Phases 24-32 and 35 write their data under temporary directories,
+removed at the end.  The phases run in the order 1-4, 17's calibration, 20, 29, 21
 (all but its traces), 22, 23, 5, 30, 17's served load, 6 (with 17's
 traces),
-7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31, 32: the eager
+7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31-35: the eager
 sides of 20-23, 5 and
 17, and 29-30, run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
@@ -389,7 +415,8 @@ phase 22's ``FusedLAMB`` run, ``dcgan`` phase 23's runs,
 ``resnet_directory``, ``lm_resume`` and ``hotswap_serving`` the
 uninterrupted runs of phases 24 and 25 and phase 26's engine,
 ``ddp_nccl`` phase 27's run in an NCCL group, ``ddp_gloo`` phase 28's
-rank 0); then the
+rank 0, ``generate`` phase 33's fp32 captured run, ``zero1_lm`` phase
+35's zero1 run); then the
 ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -5573,6 +5600,478 @@ def tune_phase(main_amp, imagenet, models, engine_mod, quant, calib,
     return out
 
 
+# -- phase 33: generate() over the decode cache ------------------------------------
+
+GEN_B, GEN_PROMPT, GEN_NEW = 8, 64, 128
+
+
+def _top2_margin(logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return float((top[..., 0] - top[..., 1]).min())
+
+
+def _decode_logits(models, model, tokens, steps):
+    """``model``'s decode step teacher-forced through ``tokens`` ``[B,
+    steps]``: the logits of each step, ``[steps, B, V]`` on the CPU."""
+    gpt = importlib.import_module("apex_tpu_torch.models.gpt")
+    out = []
+    with gpt._decoding(model), torch.no_grad():
+        cache = models.init_decode_cache(model, tokens.shape[0])
+        for t in range(steps):
+            logits, _ = model(tokens[:, t:t + 1].to(model.device),
+                              cache=cache)
+            out.append(logits[:, 0].float().cpu())
+    return torch.stack(out)
+
+
+def generate_phase(models, engine_mod, counters, dev):
+    """Phase 33: ``generate`` on GPT-2 small at full width (random weights
+    from seed 0), B 8, prompts of 64 tokens, 128 new tokens, in fp32 and
+    bf16: the captured step (every counter set to 0 just before, read
+    just after: 25 LayerNorm launches a forward, the warm run and 191
+    replays; no flash launch, the decode attention being plain) equal
+    bit for bit to the eager step; fp32 greedy tokens equal to the
+    serving engine's for the same prompts and weights (the smallest
+    top-2 logit margin printed); the first 4 decode steps' logits
+    against a CPU fp32 run (atol 2e-3 fp32, 0.25 bf16); tokens/s."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    rng = np.random.RandomState(33)
+    prompts = rng.randint(1, 50257, (GEN_B, GEN_PROMPT))
+    cpu = models.gpt2_small(dtype=torch.float32, device="cpu", seed=0)
+    want4 = _decode_logits(models, cpu, torch.from_numpy(prompts), 4)
+    del cpu
+    steps = GEN_PROMPT + GEN_NEW - 1
+    out = {}
+    for dtype, atol in ((torch.float32, 2e-3), (torch.bfloat16, 0.25)):
+        tag = str(dtype).replace("torch.", "")
+        model = models.gpt2_small(dtype=dtype, device=dev, seed=0)
+        res = {}
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        captured = models.generate(model, model, prompts, GEN_NEW)
+        torch.cuda.synchronize()
+        res["captured_s"] = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()
+                    if c.launches}
+        t0 = time.perf_counter()
+        eager = models.generate(model, model, prompts, GEN_NEW,
+                                capture=False)
+        torch.cuda.synchronize()
+        res["eager_s"] = time.perf_counter() - t0
+        forwards = cache.WARM_RUNS + steps
+        check(launches == {"layer_norm_fwd": 25 * forwards},
+              f"generate {tag}: launches {launches} = 25 LayerNorm a "
+              f"forward x {forwards} (the warm run and {steps} replays)")
+        check(tuple(captured.shape) == (GEN_B, GEN_PROMPT + GEN_NEW)
+              and torch.equal(captured, eager)
+              and torch.equal(captured[:, :GEN_PROMPT].cpu(),
+                              torch.from_numpy(prompts)),
+              f"generate {tag}: captured tokens {tuple(captured.shape)} "
+              f"equal the eager step's bit for bit, the prompt kept")
+        # every step's logits for fp32's top-2 margins; bf16's first 4
+        got = _decode_logits(models, model, captured,
+                             steps if dtype == torch.float32 else 4)
+        err = (got[:4] - want4).abs().max().item()
+        check(err <= atol, f"generate {tag}: the first 4 decode steps' "
+              f"logits vs a CPU fp32 run: max abs err {err:.3g} "
+              f"(atol {atol})")
+        res.update(tokens_per_s_captured=GEN_B * GEN_NEW
+                   / res["captured_s"],
+                   tokens_per_s_eager=GEN_B * GEN_NEW / res["eager_s"],
+                   cpu_logits_max_abs_err=err, launches=launches)
+        if dtype == torch.float32:
+            res["min_top2_margin"] = _top2_margin(got[GEN_PROMPT - 1:])
+            eng = engine_mod.ServingEngine(model, buckets=(256,),
+                                           page_size=16, max_seqs=GEN_B,
+                                           device=dev)
+            eng.warmup()
+            served = eng.generate(list(prompts), max_new_tokens=GEN_NEW)
+            eng.close()
+            same = sum(r.ok and np.array_equal(
+                np.asarray(r.tokens), captured[i, GEN_PROMPT:].cpu().numpy())
+                for i, r in enumerate(served))
+            first = [next((j for j, (a, b) in enumerate(zip(
+                np.asarray(r.tokens), captured[i, GEN_PROMPT:].tolist()))
+                if a != b), None) for i, r in enumerate(served)]
+            check(same == GEN_B,
+                  f"generate fp32: greedy tokens equal the serving "
+                  f"engine's in {same}/{GEN_B} requests x {GEN_NEW} tokens "
+                  f"(first differing position a request {first}); "
+                  f"smallest top-2 logit margin {res['min_top2_margin']:.4g}")
+            res["engine_equal"] = same
+        print(f"      generate {tag}: {GEN_B} x {GEN_NEW} tokens, captured "
+              f"{res['tokens_per_s_captured']:.1f} tok/s "
+              f"({res['captured_s']:.3f} s with the capture), eager "
+              f"{res['tokens_per_s_eager']:.1f} tok/s; CPU logits err "
+              f"{err:.3g}", flush=True)
+        out[tag] = res
+        del model
+    return out
+
+
+# -- phase 34: the RNN stack and weight norm ------------------------------------------
+
+def _rel(a, b):
+    return ((a.float().cpu() - b.float().cpu()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _rnn_fwd_bwd(model, x):
+    out, finals = model(x)
+    loss = (out.float() ** 2).mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return out, finals, grads
+
+
+def rnn_phase(dev):
+    """Phase 34: a byte-level mLSTM at the 4096-unit width of Radford et
+    al. 2017 (input 64, T 64, B 32) and a 2-layer bidirectional LSTM at
+    1024: forward (outputs, final states) and backward (every gradient)
+    on the card against the CPU in fp32, the relative max error gated at
+    1e-4 (forward) and 1e-3 (gradients); bf16 finite; one SGD step on
+    the mLSTM with weight norm on its ``ih``/``hh`` weights (T 16), ``g``
+    and ``v`` gradients and the stepped ``g``, ``v`` against the CPU; ms
+    a forward-and-backward step."""
+    rnn = importlib.import_module("apex_tpu_torch.RNN")
+    rep = importlib.import_module("apex_tpu_torch.reparameterization")
+    T, B, IN = 64, 32, 64
+    x = torch.from_numpy(np.random.RandomState(34).randn(T, B, IN)
+                         .astype(np.float32))
+    out = {}
+    for name, make in (("mlstm_4096", lambda d, dt=torch.float32: rnn.mLSTM(
+                            IN, 4096, 1, dtype=dt, device=d)),
+                       ("bilstm_1024_x2", lambda d, dt=torch.float32:
+                        rnn.LSTM(IN, 1024, 2, bidirectional=True, dtype=dt,
+                                 device=d))):
+        card, host = make(dev), make("cpu")
+        o_c, f_c, g_c = _rnn_fwd_bwd(card, x.to(dev))
+        o_h, f_h, g_h = _rnn_fwd_bwd(host, x)
+        fwd = max([_rel(o_c, o_h)] + [_rel(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(f_c),
+            torch.utils._pytree.tree_leaves(f_h))])
+        bwd = max(_rel(a, b) for a, b in zip(g_c, g_h))
+        ms = eager_ms(lambda: _rnn_fwd_bwd(card, x.to(dev)), iters=3)
+        bf = make(dev, torch.bfloat16)
+        o_b, _, g_b = _rnn_fwd_bwd(bf, x.to(dev))
+        finite = bool(torch.isfinite(o_b.float()).all()) and all(
+            bool(torch.isfinite(g.float()).all()) for g in g_b)
+        check(fwd <= 1e-4 and bwd <= 1e-3 and finite,
+              f"{name}: card vs CPU fp32 forward rel err {fwd:.3g} (1e-4), "
+              f"gradients {bwd:.3g} (1e-3); bf16 finite {finite}")
+        print(f"      {name}: T {T} B {B}, forward+backward {ms:.2f} ms a "
+              f"step (fp32, card)", flush=True)
+        out[name] = dict(fwd_rel_err=fwd, grad_rel_err=bwd, step_ms=ms,
+                         bf16_finite=finite)
+        del card, bf
+    # weight norm on the mLSTM's ih/hh weights (JAX's dim 0 of the
+    # kernel is dim 1 of the weight), one SGD step over the first 16
+    # time steps (the depth cut: the CPU's side is the phase's cost)
+    results = []
+    for d in (dev, "cpu"):
+        model = rnn.mLSTM(IN, 4096, 1, device=d)
+        p = rep.apply_weight_norm(dict(model.state_dict()),
+                                  name="layer0/ih", dim=1)
+        p = rep.apply_weight_norm(p, name="layer0/hh", dim=1)
+        aux = [p[k][part] for k in ("layer0.ih.weight", "layer0.hh.weight")
+               for part in ("g", "v")]
+        for t in aux:
+            t.requires_grad_(True)
+        o, _ = torch.func.functional_call(model, rep.reconstruct(p),
+                                          (x[:16].to(d),))
+        grads = torch.autograd.grad((o ** 2).mean(), aux)
+        with torch.no_grad():
+            stepped = [t - 0.1 * g for t, g in zip(aux, grads)]
+        results.append((grads, stepped))
+    g_err = max(_rel(a, b) for a, b in zip(results[0][0], results[1][0]))
+    s_err = max(_rel(a, b) for a, b in zip(results[0][1], results[1][1]))
+    check(g_err <= 1e-3 and s_err <= 1e-5,
+          f"mlstm weight norm: g/v gradients card vs CPU rel err "
+          f"{g_err:.3g} (1e-3), after one SGD step {s_err:.3g} (1e-5)")
+    out["weight_norm"] = dict(grad_rel_err=g_err, step_rel_err=s_err)
+    return out
+
+
+# -- phase 35: the sharding primitives --------------------------------------------
+
+SHARD_GLOO_WORLD, GLOO_ZERO_STEPS = 2, 2
+ZERO_ARGS = dict(b=4, t=256, steps=4)
+
+
+def _lm_batch(b, t, seed, dev):
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        1, 50257, (b, t + 1))).to(dev)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def _lm_loss_fn(main_amp, model):
+    def loss_fn(p, batch):
+        return main_amp.lm_loss(torch.func.functional_call(
+            model, p, (batch[0],)), batch[1], fused=True)
+    return loss_fn
+
+
+def _flat_jax_order(tree):
+    zero = importlib.import_module("apex_tpu_torch.parallel.zero")
+    return zero._flatten(tree)
+
+
+def zero1_nccl(models, main_amp, training, counters, tmp, dev):
+    """Phase 35 (a): Adam on GPT-2 small at O2 through
+    ``make_train_step(reduce_grads=False)`` with ``zero1`` over an NCCL
+    group of one, against the replicated step from the same weights: 4
+    steps, every parameter and both moments bit for bit; the counters
+    set to 0 just before the zero1 run and read just after."""
+    import torch.distributed as dist
+    zero = importlib.import_module("apex_tpu_torch.parallel.zero")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/zero1_nccl",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        batch = _lm_batch(ZERO_ARGS["b"], ZERO_ARGS["t"], 35, dev)
+        runs = {}
+        for name in ("replicated", "zero1"):
+            adam = training.adam(3e-4, weight_decay=0.1)
+            tx = (zero.zero1(adam, group, num_shards=1)
+                  if name == "zero1" else adam)
+            init_fn, step_fn = training.make_train_step(
+                _lm_loss_fn(main_amp, model), tx, opt_level="O2",
+                axis_name=group if name == "zero1" else None,
+                reduce_grads=name != "zero1")
+            state = init_fn({k: v.clone() for k, v in params.items()})
+            for c in counters.values():
+                c.launches = 0
+            losses = []
+            for _ in range(ZERO_ARGS["steps"]):
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))
+            runs[name] = (state, losses,
+                          {n: c.launches for n, c in counters.items()
+                           if c.launches})
+        rs, zs = runs["replicated"][0], runs["zero1"][0]
+        same_p = sum(torch.equal(rs.params[k], zs.params[k])
+                     for k in rs.params)
+        inner = zs.opt_state.inner
+        same_m = (torch.equal(_flat_jax_order(rs.opt_state.exp_avg),
+                              inner.exp_avg[:sum(v.numel() for v in
+                                                 params.values())])
+                  and torch.equal(_flat_jax_order(rs.opt_state.exp_avg_sq),
+                                  inner.exp_avg_sq[:sum(
+                                      v.numel() for v in params.values())]))
+        check(same_p == len(rs.params) and same_m
+              and runs["zero1"][1] == runs["replicated"][1],
+              f"zero1 (NCCL group of one): after {ZERO_ARGS['steps']} O2 "
+              f"Adam steps {same_p}/{len(rs.params)} parameters and both "
+              f"moments bit for bit the replicated step's, losses "
+              f"{runs['zero1'][1]}")
+        return dict(losses=runs["zero1"][1], launches=runs["zero1"][2],
+                    state_bytes=sum(t.numel() * t.element_size()
+                                    for t in torch.utils._pytree
+                                    .tree_leaves(zs.opt_state)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _staged_tx(tx, dev):
+    """``tx`` run on host copies: gloo moves only ``all_reduce`` and
+    ``broadcast`` of CUDA tensors (a reduce-scatter of one aborts the
+    process: ``gloo::IoException`` ``writev ... Bad address``, torch
+    2.11), so phase 35 moves the gradients and parameters to the CPU for
+    the zero1 update and the result back (the Adam state lives on the
+    host)."""
+    training = importlib.import_module("apex_tpu_torch.training")
+
+    def update(grads, state, params, *, apply_mask=None, **kw):
+        def cpu(tree):
+            return {k: v.cpu() for k, v in tree.items()}
+        mask = None if apply_mask is None else apply_mask.cpu()
+        new_p, new_s = tx.update(cpu(grads), state, cpu(params),
+                                 apply_mask=mask, **kw)
+        return {k: v.to(dev) for k, v in new_p.items()}, new_s
+
+    return training.FunctionalOptimizer(
+        init=lambda p: tx.init({k: v.cpu() for k, v in p.items()}),
+        update=update, elementwise=True)
+
+
+def shard_gloo_worker(out_dir) -> int:
+    """One rank of phase 35 (b) (``chip_smoke.py --shard-gloo-worker
+    DIR``): two gloo ranks sharing the card."""
+    import torch.distributed as dist
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    models = importlib.import_module("apex_tpu_torch.models")
+    training = importlib.import_module("apex_tpu_torch.training")
+    main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
+    par = importlib.import_module("apex_tpu_torch.parallel")
+    zero = importlib.import_module("apex_tpu_torch.parallel.zero")
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = multiproc.initialize(device=dev, backend="gloo")
+    info, arrays = {}, {}
+    # ZeRO-1 (host-staged) against the replicated two-rank DP step
+    model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    ids, labels = _lm_batch(2 * 2, 128, 351, dev)
+    batch = (ids[2 * rank:2 * rank + 2], labels[2 * rank:2 * rank + 2])
+    for name in ("dp", "zero1"):
+        # both runs update on the host, so they differ only in the
+        # sharding: the DP step all-reduces on the card, zero1
+        # reduce-scatters and all-gathers on the host
+        adam = training.adam(3e-4, weight_decay=0.1)
+        tx = _staged_tx(zero.zero1(adam, "data", num_shards=world)
+                        if name == "zero1" else adam, dev)
+        init_fn, step_fn = training.make_train_step(
+            _lm_loss_fn(main_amp, model), tx, opt_level="O2",
+            axis_name="data", reduce_grads=name != "zero1")
+        state = init_fn({k: v.clone() for k, v in params.items()})
+        for _ in range(GLOO_ZERO_STEPS):
+            state, m = step_fn(state, batch)
+        info[f"{name}_loss"] = float(m["loss"])
+        info[f"{name}_state_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in torch.utils._pytree.tree_leaves(state.opt_state)
+            if t.dim() >= 1)
+        arrays.update({f"{name}/{k}": v.float().cpu().numpy()
+                       for k, v in state.params.items()})
+    info["padded_state_bytes"] = 2 * 4 * zero.padded_shard_len(
+        sum(v.numel() for v in params.values()), world)
+    del model, state
+    # tensor parallel at GPT-2 small width: 12 heads, 6 a rank
+    g = torch.Generator().manual_seed(352)
+    rnd = lambda *s: (torch.randn(*s, generator=g) * 0.05).to(dev)
+    x, wqkv, wo = rnd(4, 256, 768), rnd(768, 3, 12, 64), rnd(768, 768)
+    w1, b1, w2, b2 = rnd(768, 3072), rnd(3072), rnd(3072, 768), rnd(768)
+    h = slice(6 * rank, 6 * rank + 6)
+    before = fa.flash_fwd_kernel.launches
+    y = par.tp_self_attention(x, wqkv[:, :, h].contiguous(),
+                              par.shard_row(wo, "data"), 6, "data",
+                              causal=True)
+    info["tp_flash_launches"] = fa.flash_fwd_kernel.launches - before
+    qkv = torch.einsum("btd,dche->btche", x, wqkv)
+    ref = fa.flash_attention(qkv[:, :, 0].contiguous(),
+                             qkv[:, :, 1].contiguous(),
+                             qkv[:, :, 2].contiguous(), causal=True)
+    ref = ref.reshape(4, 256, -1) @ wo
+    info["tp_attention_rel_err"] = _rel(y, ref)
+    y = par.tp_mlp(x, par.shard_column(w1, "data"),
+                   par.shard_column(b1[None], "data")[0],
+                   par.shard_row(w2, "data"), b2, "data")
+    ref = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+    info["tp_mlp_rel_err"] = _rel(y, ref)
+    # expert and pipeline parallel: the tokens and activations on the
+    # host (gloo moves no CUDA tensor in all_to_all or send/recv), every
+    # expert and stage computing on the card
+    def ffn(p, hh):
+        return (torch.tanh(hh.to(dev) @ p["w"]) @ p["v"]).cpu()
+    experts = [{"w": rnd(768, 3072), "v": rnd(3072, 768)}
+               for _ in range(world)]
+    router = rnd(768, world).cpu()
+    xt = (torch.randn(world * 512, 768, generator=g) * 0.5)
+    rows = slice(512 * rank, 512 * rank + 512)
+    y, aux = par.moe_layer(xt[rows], router, ffn, experts[rank],
+                           axis_name="data", capacity_factor=world)
+    probs = torch.softmax(xt @ router, -1)
+    gate, assign = probs.max(-1)
+    dense = torch.stack([ffn(e, xt) for e in experts])
+    oracle = dense[assign, torch.arange(xt.shape[0])] * gate[:, None]
+    info["moe_rel_err"] = _rel(y, oracle[rows])
+    info["moe_dropped"] = float(aux.dropped_fraction)
+    stages = [{"w": rnd(768, 768), "b": rnd(768)} for _ in range(world)]
+
+    def stage(p, hh):
+        return torch.tanh(hh.to(dev) @ p["w"] + p["b"]).cpu()
+    xp = torch.randn(16, 768, generator=g)
+    mine = {k: v[None].clone().requires_grad_(True)
+            for k, v in stages[rank].items()}
+    yp = par.spmd_pipeline(stage, mine, xp, axis_name="data",
+                           num_microbatches=4)
+    yp.square().mean().backward()
+    seq = [{k: v.clone().requires_grad_(True) for k, v in s.items()}
+           for s in stages]
+    ys = xp
+    for s in seq:
+        ys = stage(s, ys)
+    ys.square().mean().backward()
+    info["pipeline_rel_err"] = _rel(yp, ys)
+    info["pipeline_grad_rel_err"] = max(
+        _rel(mine[k].grad[0], seq[rank][k].grad) for k in ("w", "b"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    multiproc.shutdown()
+    return 0
+
+
+def shard_gloo(tmp):
+    """Phase 35 (b): two gloo ranks sharing the card
+    (``shard_gloo_worker``): zero1 Adam on GPT-2 small at O2, each rank
+    holding half the padded state, parameters within rtol 1e-6 of the
+    replicated two-rank DP step's (both updating on the host: gloo
+    moves no reduce-scatter of CUDA tensors); ``tp_self_attention`` (one flash
+    launch a rank on its 6 heads) and ``tp_mlp`` at GPT-2 small width
+    against the unsharded product; ``moe_layer`` and ``spmd_pipeline``
+    (forward and gradients) against their single-process oracles."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    out_dir = os.path.join(tmp, "shard_gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    res = multiproc.spawn([os.path.abspath(__file__), "--shard-gloo-worker",
+                           out_dir], SHARD_GLOO_WORLD,
+                          f"file://{out_dir}/store", timeout=420,
+                          capture=True, env=_child_env(), cwd=REPO_ROOT)
+    wall = time.perf_counter() - t0
+    rcs = [r["returncode"] for r in res]
+    check(rcs == [0] * SHARD_GLOO_WORLD,
+          f"shard_gloo: {SHARD_GLOO_WORLD} ranks exited {rcs} in "
+          f"{wall:.1f} s" + ("" if rcs == [0] * SHARD_GLOO_WORLD else
+                             ": " + " | ".join((r["output"] or "")[-3000:]
+                                               for r in res)))
+    if rcs != [0] * SHARD_GLOO_WORLD:
+        return {}
+    infos, arrays = [], []
+    for r in range(SHARD_GLOO_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
+            arrays.append({k: z[k] for k in z.files})
+    worst = 0.0
+    for a in arrays:
+        for k in a:
+            if k.startswith("zero1/"):
+                want = a["dp/" + k[len("zero1/"):]]
+                diff = np.abs(a[k] - want)
+                worst = max(worst, float(np.max(np.where(
+                    diff == 0, 0.0, diff / np.maximum(np.abs(want),
+                                                      1e-30)))))
+    half = infos[0]["padded_state_bytes"] // SHARD_GLOO_WORLD
+    check(all(i["zero1_state_bytes"] == half for i in infos)
+          and worst <= 1e-6,
+          f"shard_gloo zero1: each rank holds {infos[0]['zero1_state_bytes']} "
+          f"B of Adam state, half the padded {infos[0]['padded_state_bytes']}"
+          f" B (replicated DP: {infos[0]['dp_state_bytes']} B a rank); "
+          f"parameters after {GLOO_ZERO_STEPS} O2 steps within rtol "
+          f"{worst:.3g} of the "
+          f"replicated two-rank DP step's (1e-6)")
+    check(all(i["tp_flash_launches"] == 1 and i["tp_attention_rel_err"]
+              <= 1e-5 and i["tp_mlp_rel_err"] <= 1e-5 for i in infos),
+          f"shard_gloo tp: flash launches a rank "
+          f"{[i['tp_flash_launches'] for i in infos]}, tp_self_attention "
+          f"rel err {[i['tp_attention_rel_err'] for i in infos]}, tp_mlp "
+          f"{[i['tp_mlp_rel_err'] for i in infos]} (1e-5)")
+    check(all(i["moe_rel_err"] <= 1e-5 and i["moe_dropped"] == 0
+              and i["pipeline_rel_err"] <= 1e-6
+              and i["pipeline_grad_rel_err"] <= 1e-5 for i in infos),
+          f"shard_gloo moe rel err {[i['moe_rel_err'] for i in infos]} "
+          f"(1e-5), pipeline {[i['pipeline_rel_err'] for i in infos]} "
+          f"(1e-6), its gradients "
+          f"{[i['pipeline_grad_rel_err'] for i in infos]} (1e-5)")
+    return dict(wall_s=wall, ranks=infos, zero1_param_rtol=worst)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -5584,6 +6083,8 @@ def main(argv=None) -> int:
                          "beside this one's")
     ap.add_argument("--ddp-gloo-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--shard-gloo-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5591,6 +6092,8 @@ def main(argv=None) -> int:
         return 2
     if args.ddp_gloo_worker:
         return ddp_gloo_worker(args.ddp_gloo_worker)
+    if args.shard_gloo_worker:
+        return shard_gloo_worker(args.shard_gloo_worker)
     fln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
@@ -5825,6 +6328,20 @@ def main(argv=None) -> int:
                            o4_serving["tokens"], tmp)
         tuned["phase_s"] = time.perf_counter() - t32
         print(f"      phase 32: {tuned['phase_s']:.1f} s", flush=True)
+        t33 = time.perf_counter()
+        gen = generate_phase(models, engine_mod, counters, dev)        # 33
+        gen["phase_s"] = time.perf_counter() - t33
+        t34 = time.perf_counter()
+        rnn = rnn_phase(dev)                                           # 34
+        rnn["phase_s"] = time.perf_counter() - t34
+        t35 = time.perf_counter()
+        sharding = {"zero1_nccl": zero1_nccl(models, main_amp,         # 35
+                                             training, counters, tmp, dev)}
+        sharding["gloo"] = shard_gloo(tmp)
+        sharding["phase_s"] = time.perf_counter() - t35
+        print(f"      phases 33-35: {gen['phase_s']:.1f} s, "
+              f"{rnn['phase_s']:.1f} s, {sharding['phase_s']:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {"serving": serving["launches"], "training": trained["launches"],
@@ -5839,7 +6356,9 @@ def main(argv=None) -> int:
              "lm_resume": state_input["lm_resume"]["launches"],
              "hotswap_serving": state_input["hotswap_serving"]["launches"],
              "ddp_nccl": data_parallel["ddp_nccl"]["launches"],
-             "ddp_gloo": data_parallel["ddp_gloo"]["launches"]}
+             "ddp_gloo": data_parallel["ddp_gloo"]["launches"],
+             "generate": gen["float32"]["launches"],
+             "zero1_lm": sharding["zero1_nccl"]["launches"]}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -5930,6 +6449,7 @@ def main(argv=None) -> int:
                            telemetry={"training": train_tel,
                                       "serving": serve_tel},
                            profiling=profiling, tune=tuned,
+                           generate=gen, rnn=rnn, sharding=sharding,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

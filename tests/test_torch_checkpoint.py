@@ -331,7 +331,9 @@ def test_manager_refuses_what_is_not_ported(tmp_path):
 def test_bucketed_state_restores_at_the_same_count(tmp_path):
     """A bucketed Adam state (``Packed`` moments) saves with its
     ``bucket_layout`` and restores at the same shard count; a template
-    padded for another count raises, naming the queue item."""
+    padded longer (another shard count) takes each bucket's true size
+    and zeros after it, JAX's reshard-on-read; a flat leaf with no
+    recorded layout still raises."""
     model = gpt_tiny(**CFG, device="cpu", seed=0)
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     tx = training.adam(1e-2, bucketed=True)
@@ -345,8 +347,14 @@ def test_bucketed_state_restores_at_the_same_count(tmp_path):
     _assert_same(restored.state, state)
     wide = state._replace(exp_avg=state.exp_avg._replace(data=tuple(
         torch.zeros(d.numel() + 3) for d in state.exp_avg.data)))
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        load_checkpoint_dir(str(tmp_path), wide)
+    got = load_checkpoint_dir(str(tmp_path), wide).state
+    for a, b in zip(got.exp_avg.data, state.exp_avg.data):
+        assert a.numel() == b.numel() + 3
+        assert torch.equal(a[:b.numel()], b) and not a[b.numel():].any()
+    with CheckpointManager(str(tmp_path / "plain")) as mgr:
+        mgr.save(3, state, block=True)
+    with pytest.raises(ValueError, match="not a recorded flat bucket"):
+        load_checkpoint_dir(str(tmp_path / "plain"), wide)
 
 
 # -- v2: the layout against JAX's ------------------------------------------------

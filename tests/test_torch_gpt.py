@@ -121,8 +121,17 @@ def test_init_mirrors_flax_initializers():
 
 
 def test_not_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="decode=True"):
-        gpt_tiny(decode=True, device="cpu")
+    # decode=True is ported: the one-token step over init_decode_cache
+    # gives the full forward's logits for the first token
+    from apex_tpu_torch.models import init_decode_cache
+    dec = gpt_tiny(**CFG, decode=True, device="cpu")
+    ids = torch.from_numpy(np.random.RandomState(2).randint(0, 96, (2, 3)))
+    cache = init_decode_cache(dec, 2)
+    with torch.no_grad():
+        logits, _ = dec(ids[:, :1], cache=cache)
+        full = gpt_tiny(**CFG, device="cpu")(ids[:, :1])
+    torch.testing.assert_close(logits, full, rtol=1e-5, atol=1e-5)
+    assert int(cache["pos_index"]) == 1
     with pytest.raises(NotImplementedError, match="ring"):
         gpt_tiny(attention_impl="ring", device="cpu")
     # quant= is ported: every projection is a QuantDenseGeneral named by

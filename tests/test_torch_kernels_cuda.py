@@ -2170,3 +2170,101 @@ def test_tuned_cache_reaches_the_launch(conv_device, tmp_path, monkeypatch):
         torch.testing.assert_close(fn(), rule[name], rtol=0, atol=0)
         st = dispatch.dispatch_stats()["by_kernel"][name]
         assert st["hits"] == 0 and st["misses"] >= 1
+
+
+# -- generate's captured decode step; zero1 in an NCCL group of one ------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generate_captured_decode_step_equals_eager(cuda_device, dtype):
+    """The ``decode=True`` step of gpt_tiny captured (``cache.warmup``)
+    and replayed twice from the same cache and token equals its eager
+    call bit for bit (logits and the cache it writes), the LayerNorm
+    kernel launched by every replay; and ``generate`` captured gives the
+    tokens of ``generate(capture=False)``."""
+    models = importlib.import_module("apex_tpu_torch.models")
+    gpt = importlib.import_module("apex_tpu_torch.models.gpt")
+    model = models.gpt_tiny(dtype=dtype, max_len=64, device=cuda_device,
+                            seed=3)
+    prompt = torch.from_numpy(np.random.RandomState(5).randint(
+        1, 1024, (3, 7))).to(cuda_device)
+    with gpt._decoding(model), torch.no_grad():
+        cache0 = models.init_decode_cache(model, 3)
+        for t in range(5):                      # a cache part filled
+            model(prompt[:, t:t + 1], cache=cache0)
+
+        def step(cache, tok):
+            return model(tok[:, None], cache=cache)[0][:, 0]
+
+        def fresh():
+            return torch.utils._pytree.tree_map(torch.clone, cache0)
+
+        want_cache = fresh()
+        want = step(want_cache, prompt[:, 5])
+        run = cache.warmup(step, fresh(), prompt[:, 5])
+        assert isinstance(run, cache.Captured)
+        per_replay = run.launches[fln.layer_norm_fwd_kernel]
+        assert per_replay == 2 * 2 + 1
+        for _ in range(2):
+            before = fln.layer_norm_fwd_kernel.launches
+            got = run(fresh(), prompt[:, 5])
+            torch.cuda.synchronize()
+            assert fln.layer_norm_fwd_kernel.launches == before + per_replay
+            assert torch.equal(got, want)
+            for a, b in zip(torch.utils._pytree.tree_leaves(
+                    run.static_args[0]),
+                    torch.utils._pytree.tree_leaves(want_cache)):
+                assert torch.equal(a, b)
+    a = models.generate(model, model, prompt, 20)
+    b = models.generate(model, model, prompt, 20, capture=False)
+    assert a.shape == (3, 27) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_zero1_nccl_group_of_one_equals_replicated(cuda_device, tmp_path):
+    """``zero1`` Adam over an NCCL group of one through
+    ``make_train_step(reduce_grads=False)`` at O2 equals the replicated
+    step bit for bit: parameters and both moments after three steps."""
+    import torch.distributed as dist
+    models = importlib.import_module("apex_tpu_torch.models")
+    training = importlib.import_module("apex_tpu_torch.training")
+    zero = importlib.import_module("apex_tpu_torch.parallel.zero")
+    main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/s",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        model = models.gpt_tiny(dtype=torch.bfloat16, device=cuda_device,
+                                seed=0)
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        ids = torch.from_numpy(np.random.RandomState(6).randint(
+            1, 1024, (4, 65))).to(cuda_device)
+        batch = (ids[:, :-1].contiguous(), ids[:, 1:].contiguous())
+
+        def loss_fn(p, b):
+            return main_amp.lm_loss(torch.func.functional_call(
+                model, p, (b[0],)), b[1], fused=True)
+
+        states = {}
+        for name in ("replicated", "zero1"):
+            adam = training.adam(1e-3, weight_decay=0.1)
+            tx = zero.zero1(adam, group, num_shards=1) if name == "zero1" \
+                else adam
+            init_fn, step_fn = training.make_train_step(
+                loss_fn, tx, opt_level="O2",
+                axis_name=group if name == "zero1" else None,
+                reduce_grads=name != "zero1")
+            st = init_fn({k: v.clone() for k, v in params.items()})
+            for _ in range(3):
+                st, _ = step_fn(st, batch)
+            states[name] = st
+        rs, zs = states["replicated"], states["zero1"]
+        for k in params:
+            assert torch.equal(rs.params[k], zs.params[k]), k
+        n = sum(v.numel() for v in params.values())
+        assert torch.equal(zero._flatten(rs.opt_state.exp_avg),
+                           zs.opt_state.inner.exp_avg[:n])
+        assert torch.equal(zero._flatten(rs.opt_state.exp_avg_sq),
+                           zs.opt_state.inner.exp_avg_sq[:n])
+    finally:
+        dist.destroy_process_group()

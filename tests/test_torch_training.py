@@ -394,10 +394,15 @@ def test_port_continues_a_jax_train_state(flax_params):
 
 
 def test_not_ported_arguments_raise():
-    """The sharding arguments raise naming their ROADMAP item; the data-
-    parallel ones are ported (``tests/test_torch_distributed.py``), and
+    """``param_view`` raises naming its ROADMAP item; the data-parallel
+    arguments are ported (``tests/test_torch_distributed.py``), and so is
+    ``reduce_grads=False`` (the zero1 path, ``tests/test_torch_sharding
+    .py``): without a group it builds, and with one it takes the group;
     ``axis_name="data"`` without a process group says how to make one."""
-    with pytest.raises(NotImplementedError, match="item 3"):
+    _, step = training.make_train_step(lambda p, b: 0, training.adam(),
+                                       reduce_grads=False)
+    assert step.process_group is None
+    with pytest.raises(RuntimeError, match="multiproc.initialize"):
         training.make_train_step(lambda p, b: 0, training.adam(),
                                  axis_name="data", reduce_grads=False)
     with pytest.raises(NotImplementedError, match="item 3"):
