@@ -49,11 +49,26 @@ run-health rules over it (on by default with ``--telemetry``; a
 export live Prometheus metrics; each defaults from the JAX example's
 environment variable.  A run without them is bit for bit the same.
 
-``--attention {full,blockwise,flash}`` picks the GPT's attention
-(``flash`` by default: the kernels on CUDA).  Runs on CUDA unless given
-``--device cpu``; raises without a GPU.  Not ported: sequence
-parallelism (``--sp`` and ``--attention ring/ring_flash/ulysses``,
-ROADMAP queue 1 item 3, "Sharding").
+``--attention`` picks the GPT's attention (``flash`` by default: the
+kernels on CUDA).  ``--sp N`` is JAX's sequence parallelism: one process
+a rank under :mod:`apex_tpu_torch.parallel.multiproc` (the world must be
+N ranks), the mesh axis ``sp`` over them, ``--attention`` ``ring``,
+``ring_flash`` (the flash kernels a ring step) or ``ulysses``, and
+``--seq-len`` 1 + a multiple of N.  The next-token pairs are built on
+the whole sequence before it is sharded; each rank's step
+(``make_train_step(axis_name="sp")``) sees its contiguous shard of T',
+which the pipeline's ``wrap=`` cuts from each ``[K, B, T']`` window (JAX's
+``P(None, None, "sp")``), and the gradients and the loss are averaged
+over the ranks.  On CUDA the ranks run NCCL, one card a rank (not yet
+run on more than one card)::
+
+    python -m apex_tpu_torch.parallel.multiproc --nproc 2 \
+        --coordinator file:///tmp/sp_store -m \
+        apex_tpu_torch.examples.lm.main_amp --synthetic --device cpu \
+        --vocab 256 --hidden 64 --layers 2 --heads 4 --seq-len 33 \
+        --sp 2 --attention ring_flash
+
+Runs on CUDA unless given ``--device cpu``; raises without a GPU.
 """
 
 from __future__ import annotations
@@ -104,7 +119,14 @@ def parse(argv=None):
                    choices=["full", "blockwise", "flash", "ring",
                             "ring_flash", "ulysses"],
                    help="the GPT's attention_impl (ring, ring_flash and "
-                        "ulysses are sequence parallel: not ported)")
+                        "ulysses are sequence parallel: --sp)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ways: one process a rank, the "
+                        "world size")
+    p.add_argument("--rank", type=int, default=None,
+                   help="the rank this process joins --sp's group as "
+                        "(the spawner appends it; default: RANK from the "
+                        "environment)")
     p.add_argument("--window", type=int, default=None,
                    help="sliding-window local attention (causal; needs "
                         "--attention flash)")
@@ -163,6 +185,41 @@ def synthetic_batch(batch_size: int, seq_len: int, vocab: int, device):
 
 
 _SEQUENCE_PARALLEL = ("ring", "ring_flash", "ulysses")
+#: the mesh axis the sequence is sharded over (JAX's)
+SP_AXIS = "sp"
+
+
+def sequence_shard(tree, axis: int):
+    """This rank's contiguous shard on ``axis`` of every tensor of
+    ``tree``, the shards in rank order over :data:`SP_AXIS`."""
+    from ...parallel.distributed import axis_index, axis_size
+    n, r = axis_size(SP_AXIS), axis_index(SP_AXIS)
+
+    def one(t):
+        size = t.shape[axis] // n
+        return t.narrow(axis, r * size, size)
+    return tuple(one(t) for t in tree)
+
+
+def sp_wrap(fn):
+    """``StepPipeline``'s ``wrap=`` for ``--sp``: the window function on
+    this rank's shard of T' of each ``[K, B, T']`` window."""
+    def wrapped(state, window, valid):
+        return fn(state, sequence_shard(window, 2), valid)
+    return wrapped
+
+
+def _join_sp(args, device) -> None:
+    """Join the ``--sp`` ranks' process group and lay the ``sp`` axis
+    over it."""
+    from ...parallel import distributed, multiproc
+    _, world = multiproc.initialize(process_id=args.rank, device=device)
+    if world != args.sp:
+        raise SystemExit(
+            f"--sp {args.sp} runs one process a rank: start {args.sp} "
+            f"ranks (python -m apex_tpu_torch.parallel.multiproc --nproc "
+            f"{args.sp} ...); the world has {world}")
+    distributed.register_mesh((SP_AXIS,), (args.sp,))
 
 
 def _loss_scale(value):
@@ -172,17 +229,33 @@ def _loss_scale(value):
 
 
 def build(args):
-    """``(state, step_fn, batch)`` for the parsed arguments."""
+    """``(state, step_fn, batch)`` for the parsed arguments; ``batch`` is
+    the whole sequence's (under ``--sp`` a rank steps on
+    :func:`sequence_shard` of it on axis 1, after joining the ranks)."""
     if not args.synthetic:
         raise SystemExit("only --synthetic data is implemented; pass "
                          "--synthetic")
-    if args.attention in _SEQUENCE_PARALLEL:
+    sp = args.sp
+    if sp > 1 and args.attention not in _SEQUENCE_PARALLEL:
         raise SystemExit(
-            f"--attention {args.attention} is sequence parallel and not "
-            f"ported yet (ROADMAP queue 1 item 3, \"Sharding\")")
+            f"--sp {sp} shards the sequence; attention_impl="
+            f"{args.attention!r} is shard-local and would silently attend "
+            f"within shards only — use ring, ring_flash or ulysses")
+    if sp == 1 and args.attention in _SEQUENCE_PARALLEL:
+        raise SystemExit(f"--attention {args.attention} shards the "
+                         f"sequence over --sp ranks: give --sp > 1")
     if args.window is not None and args.attention != "flash":
         raise SystemExit("--window needs --attention flash")
+    if args.kv_heads is not None and args.attention not in (
+            "flash", "blockwise", "full"):
+        raise SystemExit("--kv-heads needs --attention flash/blockwise/full "
+                         "(GQA is shard-local; ring/ulysses paths are MHA)")
+    if sp > 1 and (args.seq_len - 1) % sp:
+        raise SystemExit(f"--seq-len must be 1 + multiple of --sp "
+                         f"(got {args.seq_len}, sp={sp})")
     device = resolve_device(args.device)
+    if sp > 1:
+        _join_sp(args, device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -191,7 +264,7 @@ def build(args):
                 mlp_dim=4 * args.hidden, max_len=args.seq_len,
                 dtype=torch.bfloat16, attention_impl=args.attention,
                 num_kv_heads=args.kv_heads, window=args.window,
-                device=device, seed=0)
+                sp_axis=SP_AXIS if sp > 1 else None, device=device, seed=0)
     smoothing, fused = args.smoothing, args.fused_loss
 
     def loss_fn(params, batch):
@@ -201,7 +274,8 @@ def build(args):
 
     init_fn, step_fn = training.make_train_step(
         loss_fn, training.adam(args.lr, weight_decay=args.weight_decay),
-        opt_level=args.opt_level, loss_scale=_loss_scale(args.loss_scale))
+        opt_level=args.opt_level, loss_scale=_loss_scale(args.loss_scale),
+        axis_name=SP_AXIS if sp > 1 else None)
     state = init_fn(model.state_dict())
     batch = synthetic_batch(args.batch_size, args.seq_len, args.vocab,
                             device)
@@ -236,7 +310,8 @@ def train(args, log=print) -> dict:
     res = dict(losses=[], loss_scales=[], step_s=[], tokens_per_step=tokens)
     # the synthetic batch is reused every step: one window of K views
     window = tuple(t.unsqueeze(0).expand(k, *t.shape) for t in batch)
-    pipe = runtime.StepPipeline(step_fn, k)
+    pipe = runtime.StepPipeline(step_fn, k,
+                                wrap=sp_wrap if args.sp > 1 else None)
     if args.aot_warmup:
         pipe.warmup(state, window)
     last = runtime.mark(batch[0].device)
@@ -292,7 +367,11 @@ def run(argv=None, log=print) -> dict:
 
 
 def main(argv=None) -> int:
-    run(argv)
+    from ...parallel import multiproc
+    try:
+        run(argv)
+    finally:
+        multiproc.shutdown()
     return 0
 
 

@@ -28,9 +28,16 @@ external-cache incremental forward the serving engine drives, the
 ``decode=True`` one-token step over a cache the caller holds (JAX's flax
 ``"cache"`` collection as a dict of tensors updated in place,
 :meth:`BertSelfAttention.init_cache`), and ``quant=`` (every projection
-a :class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`).  Not ported
-yet, and raising ``NotImplementedError``: ``ring``, ``ring_flash``,
-``ulysses`` and ``sp_axis`` (sequence parallelism).
+a :class:`~apex_tpu_torch.quant.layers.QuantDenseGeneral`), and sequence
+parallelism: ``sp_axis`` (a process group, or a mesh axis of
+:func:`~apex_tpu_torch.parallel.distributed.register_mesh`) with the
+``ring``, ``ring_flash`` and ``ulysses`` impls
+(:mod:`apex_tpu_torch.parallel.ring_attention`).  Under ``sp_axis`` the
+input is this rank's contiguous shard of the sequence: its positions
+start at ``rank * shard_len``, and the pooler takes the true first token
+from the axis's rank 0 (a ``psum`` of it masked to that rank, whose
+transpose is JAX's: the cotangent as it is), so the sharded and unsharded
+models compute the same function on the same parameters.
 """
 
 from __future__ import annotations
@@ -44,9 +51,12 @@ from torch import nn
 
 from .._device import resolve_device
 from ..normalization import FusedLayerNorm
+from ..parallel.distributed import axis_index
+from ..parallel.tensor_parallel import psum_replicated
 from ..prof.capture import scope
 
-_NOT_PORTED_IMPLS = ("ring", "ring_flash", "ulysses")
+#: the sequence-parallel impls (they need ``sp_axis``)
+_SP_IMPLS = ("ring", "ring_flash", "ulysses")
 
 # flax's truncated-normal correction: the std of a unit normal truncated
 # to [-2, 2] (jax.nn.initializers.variance_scaling)
@@ -117,9 +127,11 @@ class BertSelfAttention(nn.Module):
     (``attention_impl``): ``"flash"`` (the CUDA kernel of
     :mod:`apex_tpu_torch.ops.flash_attention`, its plain version on the
     CPU), ``"blockwise"`` (online softmax over key blocks in plain torch,
-    :func:`~apex_tpu_torch.ops.attention.blockwise_attention`) or
-    ``"full"`` (materialized scores, the oracle).  ``mask`` ``[B, S]``
-    marks the keys to attend to (nonzero or True).
+    :func:`~apex_tpu_torch.ops.attention.blockwise_attention`),
+    ``"full"`` (materialized scores, the oracle), or over the sequence
+    shards of ``sp_axis`` ``"ring"``, ``"ring_flash"`` (the flash kernels
+    a ring step) or ``"ulysses"``, which take no padding mask.  ``mask``
+    ``[B, S]`` marks the keys to attend to (nonzero or True).
 
     ``decode=True`` is JAX's autoregressive step: one token a call, its
     key and value written into a cache of ``cache_len`` positions that
@@ -137,16 +149,12 @@ class BertSelfAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, *,
                  attention_impl: str = "full", causal: bool = False,
-                 num_kv_heads: Optional[int] = None,
+                 sp_axis=None, num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None, decode: bool = False,
                  cache_len: int = 0, quant=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if attention_impl in _NOT_PORTED_IMPLS:
-            raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported yet "
-                f"(ROADMAP queue 1 item 3, \"Sharding\")")
-        if attention_impl not in ("flash", "blockwise", "full"):
+        if attention_impl not in ("flash", "blockwise", "full") + _SP_IMPLS:
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         n_kv = num_kv_heads or num_heads
         if num_heads % n_kv:
@@ -158,6 +166,7 @@ class BertSelfAttention(nn.Module):
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.causal = causal
+        self.sp_axis = sp_axis
         self.window = window
         self.decode = decode
         self.cache_len = int(cache_len)
@@ -215,7 +224,19 @@ class BertSelfAttention(nn.Module):
                 f"window (sliding-window local attention) needs "
                 f"attention_impl='flash' and causal=True; got "
                 f"impl={self.attention_impl!r}, causal={self.causal}")
-        if self.attention_impl == "flash":
+        if self.attention_impl in _SP_IMPLS:
+            if mask is not None:
+                raise ValueError(
+                    "ring/ulysses attention paths take no padding mask; pad "
+                    "to shard boundaries or use attention_impl='blockwise'")
+            from ..parallel.ring_attention import (ring_attention,
+                                                   ring_flash_attention,
+                                                   ulysses_attention)
+            fn = {"ring": ring_attention,
+                  "ring_flash": ring_flash_attention,
+                  "ulysses": ulysses_attention}[self.attention_impl]
+            ctx = fn(q, k, v, self.sp_axis, causal=self.causal)
+        elif self.attention_impl == "flash":
             from ..ops.flash_attention import flash_attention
             kb = None
             if mask is not None:
@@ -317,13 +338,6 @@ class BertSelfAttention(nn.Module):
         return ctx, ck, cv
 
 
-def _refuse_sp_axis(sp_axis):
-    if sp_axis is not None:
-        raise NotImplementedError(
-            "sp_axis (sequence parallelism over a mesh axis) is not "
-            "ported yet (ROADMAP queue 1 item 3, \"Sharding\")")
-
-
 class BertLayer(nn.Module):
     """One post-LN encoder layer: self-attention, ``attention_ln(x +
     attn)``, the GELU MLP (``intermediate``, ``output``) and
@@ -337,12 +351,11 @@ class BertLayer(nn.Module):
                  num_kv_heads: Optional[int] = None, quant=None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _refuse_sp_axis(sp_axis)
         d = hidden_size
         self.attention = BertSelfAttention(
             d, num_heads, dtype, attention_impl=attention_impl,
-            num_kv_heads=num_kv_heads, quant=quant, device=device,
-            generator=generator)
+            sp_axis=sp_axis, num_kv_heads=num_kv_heads, quant=quant,
+            device=device, generator=generator)
         self.attention_ln = FusedLayerNorm(d, device=device)
         dense = _dense_factory(quant, dtype, device=device,
                                generator=generator)
@@ -401,9 +414,9 @@ class BertEncoder(nn.Module):
                  num_kv_heads: Optional[int] = None, quant=None, *,
                  device=None, seed: int = 0):
         super().__init__()
-        _refuse_sp_axis(sp_axis)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
+        self.sp_axis = sp_axis
         self.num_layers = num_layers
         self.num_classes = num_classes
         self.dtype = dtype
@@ -416,8 +429,9 @@ class BertEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BertLayer(
                 hidden_size, num_heads, mlp_dim, dtype,
-                attention_impl=attention_impl, num_kv_heads=num_kv_heads,
-                quant=quant, device=dev, generator=gen))
+                attention_impl=attention_impl, sp_axis=sp_axis,
+                num_kv_heads=num_kv_heads, quant=quant, device=dev,
+                generator=gen))
         if num_classes is not None:
             self.pooler = DenseGeneral((hidden_size,), (hidden_size,),
                                        dtype, device=dev, generator=gen)
@@ -434,6 +448,9 @@ class BertEncoder(nn.Module):
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None]
+        if self.sp_axis is not None:
+            # this shard's global positions start at rank * shard_len
+            pos = pos + axis_index(self.sp_axis) * s
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         with scope("embeddings_ln"):
@@ -447,8 +464,19 @@ class BertEncoder(nn.Module):
                 x = layer(x, attention_mask)
         if self.num_classes is None:
             return x.float()
+        pool_in = x[:, 0]
+        if self.sp_axis is not None:
+            # only the axis's rank 0 holds the true first token: a psum
+            # of it masked to that rank gives it to every rank (a select,
+            # so every rank's encoder stays on the loss's graph and runs
+            # its backward's collectives)
+            first = x[:, 0].float()
+            rank0 = torch.tensor(axis_index(self.sp_axis) == 0,
+                                 device=first.device)
+            first = torch.where(rank0, first, torch.zeros_like(first))
+            pool_in = psum_replicated(first, self.sp_axis).to(x.dtype)
         with scope("pooler"):
-            pooled = torch.tanh(self.pooler(x[:, 0]))
+            pooled = torch.tanh(self.pooler(pool_in))
         with scope("classifier"):
             return self.classifier(pooled).float()
 

@@ -35,8 +35,15 @@ step updates in place (:func:`init_decode_cache`: ``pos_index`` and,
 per layer, ``block_{i}/attention/{cached_key, cached_value,
 cache_index}``); :func:`generate` drives it, teacher-forcing the prompt
 and then feeding back greedy or sampled tokens, with the step captured
-once in a CUDA graph on the card.  Not ported yet: ``sp_axis`` sequence
-parallelism (``NotImplementedError``).
+once in a CUDA graph on the card.
+
+``sp_axis`` (a process group, or a mesh axis of
+:func:`~apex_tpu_torch.parallel.distributed.register_mesh`) with
+``attention_impl`` ``ring``, ``ring_flash`` or ``ulysses`` is JAX's
+sequence parallelism: the input is this rank's contiguous shard of the
+sequence, its positions start at ``rank * shard_len``, and the global
+length (shards times the shard's) must fit ``max_len``.  :func:`generate`
+refuses such a model, as JAX's does.
 """
 
 from __future__ import annotations
@@ -51,13 +58,14 @@ from torch import nn
 from .._device import resolve_device
 from ..normalization import FusedLayerNorm
 from ..prof.capture import scope
-from .bert import BertSelfAttention, _dense_factory, _refuse_sp_axis
+from ..parallel.distributed import axis_index, axis_size
+from .bert import BertSelfAttention, _dense_factory
 
 
 class GPTBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.float32, *,
-                 attention_impl: str = "flash",
+                 attention_impl: str = "flash", sp_axis=None,
                  num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None, decode: bool = False,
                  cache_len: int = 0, quant=None, device=None,
@@ -67,7 +75,7 @@ class GPTBlock(nn.Module):
         self.ln1 = FusedLayerNorm(d, device=device)
         self.attention = BertSelfAttention(
             d, num_heads, dtype, attention_impl=attention_impl, causal=True,
-            num_kv_heads=num_kv_heads, window=window, decode=decode,
+            sp_axis=sp_axis, num_kv_heads=num_kv_heads, window=window, decode=decode,
             cache_len=cache_len, quant=quant, device=device,
             generator=generator)
         self.ln2 = FusedLayerNorm(d, device=device)
@@ -123,7 +131,6 @@ class GPT(nn.Module):
                  window: Optional[int] = None, decode: bool = False,
                  quant=None, *, sp_axis=None, device=None, seed: int = 0):
         super().__init__()
-        _refuse_sp_axis(sp_axis)
         dev = resolve_device(device)
         self.sp_axis = sp_axis
         self.decode = decode
@@ -145,8 +152,9 @@ class GPT(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block_{i}", GPTBlock(
                 hidden_size, num_heads, mlp_dim, dtype,
-                attention_impl=attention_impl, num_kv_heads=num_kv_heads,
-                window=window, decode=decode, cache_len=max_len,
+                attention_impl=attention_impl, sp_axis=sp_axis,
+                num_kv_heads=num_kv_heads, window=window, decode=decode,
+                cache_len=max_len,
                 quant=quant, device=dev, generator=gen))
         self.ln_f = FusedLayerNorm(hidden_size, device=dev)
         if quant is not None:
@@ -190,11 +198,16 @@ class GPT(nn.Module):
                 new_caches.append(c)
             x = self.ln_f(x)
             return x.float() @ self.wte.float().T, new_caches
-        if t > self.max_len:
-            raise ValueError(f"sequence of {t} tokens exceeds max_len="
-                             f"{self.max_len}")
+        sp = 1 if self.sp_axis is None else axis_size(self.sp_axis)
+        if sp * t > self.max_len:
+            raise ValueError(
+                f"global sequence {sp} shard(s) x {t} tokens = {sp * t} "
+                f"exceeds max_len={self.max_len}")
         with scope("embed"):
             pos = torch.arange(t, device=input_ids.device)
+            if self.sp_axis is not None:
+                # this shard's global positions
+                pos = pos + axis_index(self.sp_axis) * t
             x = (self.wte[input_ids] + self.wpe[pos][None]).to(self.dtype)
         for i, block in enumerate(self.blocks()):
             with scope(f"block_{i}"):

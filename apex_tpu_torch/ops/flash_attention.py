@@ -431,8 +431,11 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
     block_k)``, None for the rule; the tensor-core kernel takes one of
     :func:`tiles` (a half at -1 is the rule's), the split-KV path a chunk
     of ``block_k`` keys, the SIMT kernel none; one the kernel refuses
-    (:func:`tile_fits`) raises ``ValueError``.  Adds one to
-    ``flash_fwd_kernel.launches`` per call."""
+    (:func:`tile_fits`) raises ``ValueError``.  ``q_offset`` may be any
+    signed value (ring attention passes ``q_off - k_off``): a row that
+    sees no key gives ``out = 0`` and ``lse = NEG_INF``, and the kernels
+    skip every key tile no row of a block sees (chip_smoke phase 36).
+    Adds one to ``flash_fwd_kernel.launches`` per call."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias)
     b, tq, h, d = q.shape
     dk = _kernel_dim(d)

@@ -1,10 +1,11 @@
 """Parallel: data parallelism over ``torch.distributed`` (DDP,
 ``Reducer``, the gradient and parameter collectives, the multi-process
 runtime), SyncBatchNorm across processes, the LARC gradient rewrite and
-its optimizer wrapper, and the functional sharding primitives over a
-process group: ZeRO-1, tensor, expert and pipeline parallelism —
-counterpart of ``apex_tpu/parallel/__init__.py`` (the mesh front end and
-sequence parallelism are not ported yet)."""
+its optimizer wrapper, the functional sharding primitives over a
+process group (ZeRO-1, tensor, expert and pipeline parallelism),
+sequence parallelism (ring, ring-flash and Ulysses attention) and the
+mesh front end (``MeshPlan``, ZeRO 1-3) — counterpart of
+``apex_tpu/parallel/__init__.py``."""
 
 from typing import Optional
 
@@ -15,8 +16,12 @@ from .distributed import (DistributedDataParallel, Reducer,
                           broadcast_params, group_psum, reduce_gradients)
 from .expert_parallel import MoEAux, moe_layer
 from .LARC import LARC, GradientTransformation, larc_gradients, larc_transform
+from .mesh import (MeshPlan, MeshTrainStep, MeshZeroState,
+                   make_mesh_train_step, zero_sharded)
 from .pipeline import (spmd_pipeline, spmd_pipeline_interleaved,
                        stack_interleaved_stage_params, stack_stage_params)
+from .ring_attention import (ring_attention, ring_flash_attention,
+                             ulysses_attention)
 from .sync_batchnorm import (SyncBatchNorm, adopt_batchnorm_stats,
                              welford_parallel)
 from .tensor_parallel import (column_parallel_dense, row_parallel_dense,
@@ -25,17 +30,20 @@ from .tensor_parallel import (column_parallel_dense, row_parallel_dense,
 from .zero import Zero1State, zero1, zero1_partition_spec
 
 __all__ = ["DistributedDataParallel", "GradientTransformation", "LARC",
-           "MoEAux", "Reducer", "SyncBatchNorm", "Zero1State",
+           "MeshPlan", "MeshTrainStep", "MeshZeroState", "MoEAux",
+           "Reducer", "SyncBatchNorm", "Zero1State",
            "adopt_batchnorm_stats", "broadcast_params",
            "column_parallel_dense", "convert_syncbn_model",
            "create_syncbn_process_group", "group_psum", "initialize",
            "is_coordinator", "larc_gradients", "larc_transform",
-           "moe_layer", "process_identity", "reduce_gradients",
+           "make_mesh_train_step", "moe_layer", "process_identity",
+           "reduce_gradients", "ring_attention", "ring_flash_attention",
            "row_parallel_dense", "shard_column", "shard_row",
            "spmd_pipeline", "spmd_pipeline_interleaved",
            "stack_interleaved_stage_params", "stack_stage_params",
-           "tp_mlp", "tp_self_attention", "welford_parallel", "zero1",
-           "zero1_partition_spec"]
+           "tp_mlp", "tp_self_attention", "ulysses_attention",
+           "welford_parallel", "zero1", "zero1_partition_spec",
+           "zero_sharded"]
 
 
 def __getattr__(name):

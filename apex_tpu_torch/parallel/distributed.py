@@ -3,12 +3,16 @@
 
 JAX's mesh axis ``"data"`` is a process group here, one device a rank
 (:mod:`apex_tpu_torch.parallel.multiproc` makes it).  An ``axis_name``
-is ``"data"`` (the default group) or a ``ProcessGroup``; rank lists
-(``axis_index_groups``, SyncBatchNorm's ``process_group``) become
-sub-groups made with ``dist.new_group`` the first time they are used.
-Every rank makes every sub-group, in the same order, as the reference's
-``create_syncbn_process_group`` requires, so every rank must use the
-same lists in the same order.
+is ``"data"`` (the default group), a ``ProcessGroup``, an axis of the
+mesh :func:`register_mesh` laid over the world (a
+:class:`~apex_tpu_torch.parallel.mesh.MeshPlan` registers ``dp``,
+``fsdp`` and ``tp``), or a tuple of such axes, which names the group
+over their product (JAX's ``axis_name=("dp", "fsdp")``).  Rank lists
+(``axis_index_groups``, SyncBatchNorm's ``process_group``, a mesh
+axis's groups) become sub-groups made with ``dist.new_group`` the first
+time they are used.  Every rank makes every sub-group, in the same
+order, as the reference's ``create_syncbn_process_group`` requires, so
+every rank must use the same lists and axes in the same order.
 
 Every collective is an ``all_reduce`` or a ``broadcast``: JAX needs no
 other (``psum``; its broadcast is a mask and a ``psum``), and they are
@@ -34,8 +38,16 @@ SyncBatchNorm's statistics are its one use in the port), ``state``
 (:func:`pmean_tree`), ``overflow`` (:func:`por`) and ``broadcast``;
 the sharding primitives add ``reduce_scatter`` and ``all_gather``
 (ZeRO-1), ``tp_psum`` (a row-parallel product's sum and its
-transpose), ``all_to_all`` (expert dispatch) and ``permute`` (a
-pipeline's rotation, one a send-and-receive pair).
+transpose), ``all_to_all`` (expert dispatch and Ulysses) and
+``permute`` (:func:`ppermute`: a pipeline's or a ring's rotation, one a
+send-and-receive pair).
+
+Gloo moves only ``all_reduce`` and ``broadcast`` of CUDA tensors.  A
+send and receive, an ``all_to_all``, a reduce-scatter or an all-gather
+of CUDA tensors over a gloo group raises, unless the caller asks for
+:func:`host_staging`: inside it each such collective copies its CUDA
+tensors to the host, runs there and copies the result back, and adds
+one to ``COLLECTIVES["host_staged"]`` beside its own kind's counter.
 
 Telemetry: with a recorder, each collective issued is noted as JAX's
 ``collective`` event (``op`` ``psum`` or ``broadcast``, the ``axis``,
@@ -52,6 +64,8 @@ the call that captures (see :mod:`apex_tpu_torch.telemetry.events`).
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -62,8 +76,9 @@ from torch.utils import _pytree as pytree
 from .. import _build
 
 __all__ = ["DistributedDataParallel", "Reducer", "reduce_gradients",
-           "broadcast_params", "group_psum", "axis_group", "por",
-           "pmean_tree", "COLLECTIVES"]
+           "broadcast_params", "group_psum", "axis_group", "axis_size",
+           "axis_index", "register_mesh", "ppermute", "por", "pmean_tree",
+           "COLLECTIVES"]
 
 _WORLD_AXIS = "data"
 
@@ -84,25 +99,122 @@ COLLECTIVES = {k: _build.counted(_Collective(f"collective_{k}"))
                for k in ("grads", "bn_stats", "bn_grad", "state",
                          "overflow", "broadcast", "reduce_scatter",
                          "all_gather", "tp_psum", "all_to_all",
-                         "permute")}
+                         "permute", "host_staged")}
+
+#: whether collectives gloo cannot move on CUDA tensors go through the
+#: host (:func:`host_staging`)
+_STAGING = {"on": False}
+
+
+@contextlib.contextmanager
+def host_staging():
+    """Inside the context, a send and receive, ``all_to_all``,
+    reduce-scatter or all-gather of CUDA tensors over a gloo group runs
+    on host copies (gloo takes only ``all_reduce`` and ``broadcast`` of
+    CUDA tensors, and aborts on the others), each counted once in
+    ``COLLECTIVES["host_staged"]``.  Outside it such a call raises."""
+    saved = _STAGING["on"]
+    _STAGING["on"] = True
+    try:
+        yield
+    finally:
+        _STAGING["on"] = saved
+
+
+def _staged(group, x: torch.Tensor, what: str) -> bool:
+    """Whether a ``what`` of ``x`` over ``group`` runs on host copies:
+    a CUDA tensor on a gloo group inside :func:`host_staging` (counted);
+    outside it, such a call raises."""
+    if not x.is_cuda or dist.get_backend(group) != "gloo":
+        return False
+    if not _STAGING["on"]:
+        raise RuntimeError(
+            f"gloo moves no {what} of CUDA tensors (only all_reduce and "
+            f"broadcast): use NCCL, or stage it through the host inside "
+            f"apex_tpu_torch.parallel.distributed.host_staging()")
+    COLLECTIVES["host_staged"].launches += 1
+    return True
 
 #: rank lists -> this rank's sub-group (made once, by every rank)
 _SUBGROUPS: dict = {}
 
+#: the mesh laid over the world: its axis names and sizes, row-major
+_MESH: dict = {"names": (), "shape": ()}
+
+
+def register_mesh(names: Sequence[str], shape: Sequence[int]) -> None:
+    """Lay a mesh of axes ``names`` with sizes ``shape`` over the world,
+    row-major (JAX's ``Mesh(devices.reshape(shape), names)`` over
+    ``jax.devices()``): rank ``r`` sits at ``unravel(r, shape)``.  Each
+    name (and a tuple of them) then resolves in :func:`axis_group`.
+    Every rank makes every single axis's groups here, in mesh order; a
+    tuple's are made at its first use."""
+    names, shape = tuple(names), tuple(int(n) for n in shape)
+    if len(names) != len(shape) or len(set(names)) != len(names):
+        raise ValueError(f"mesh axes {names} and sizes {shape} must pair "
+                         f"up, each name once")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("a mesh needs a process group: call "
+                           "apex_tpu_torch.parallel.multiproc.initialize() "
+                           "first")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {dict(zip(names, shape))} has "
+                         f"{math.prod(shape)} places for {world} ranks")
+    _MESH.update(names=names, shape=shape)
+    for name in names:
+        _mesh_group((name,))
+
+
+def _mesh_group(axes: tuple):
+    """This rank's group over the mesh ``axes`` (in mesh order): the
+    ranks that share its coordinates on every other axis."""
+    names, shape = _MESH["names"], _MESH["shape"]
+    pos = [names.index(a) for a in axes]
+    if pos != sorted(pos):
+        raise ValueError(f"axes {axes} must follow the mesh's order "
+                         f"{names}")
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    groups: dict = {}
+    for rank, c in enumerate(coords):
+        key = tuple(x for i, x in enumerate(c) if i not in pos)
+        groups.setdefault(key, []).append(rank)
+    return _subgroup([groups[k] for k in sorted(groups)])
+
 
 def axis_group(axis_name, axis_index_groups=None):
     """The process group an ``axis_name`` (and ``axis_index_groups``)
-    names: ``"data"`` is the default group, a ``ProcessGroup`` itself,
-    None None.  Rank lists give this rank's sub-group of the world."""
+    names: a mesh axis of :func:`register_mesh`, or a tuple of them, its
+    group; ``"data"`` otherwise the default group; a ``ProcessGroup``
+    itself; None None.  Rank lists give this rank's sub-group of the
+    world."""
     if axis_name is None:
         if axis_index_groups:
             raise ValueError("axis_index_groups needs an axis_name")
         return None
+    if isinstance(axis_name, (tuple, list)):
+        axes = tuple(axis_name)
+        if len(axes) == 1:
+            return axis_group(axes[0], axis_index_groups)
+        unknown = [a for a in axes if a not in _MESH["names"]]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not axes of the "
+                             f"registered mesh {_MESH['names']} "
+                             f"(register_mesh / MeshPlan)")
+        if axis_index_groups:
+            raise ValueError("axis_index_groups need a single axis")
+        return _mesh_group(axes)
     if isinstance(axis_name, str):
+        if axis_name in _MESH["names"]:
+            if axis_index_groups:
+                raise ValueError("axis_index_groups are ranks of the "
+                                 "world: they need axis_name='data'")
+            return _mesh_group((axis_name,))
         if axis_name != _WORLD_AXIS:
             raise ValueError(f"axis_name {axis_name!r}: the port's one "
-                             f"named axis is {_WORLD_AXIS!r}; pass a "
-                             f"ProcessGroup for any other")
+                             f"unregistered axis is {_WORLD_AXIS!r}; "
+                             f"register a mesh (register_mesh, MeshPlan) "
+                             f"or pass a ProcessGroup for any other")
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError(
                 f"axis_name={_WORLD_AXIS!r} needs a process group: call "
@@ -116,6 +228,17 @@ def axis_group(axis_name, axis_index_groups=None):
         raise ValueError("axis_index_groups are ranks of the world: they "
                          "need axis_name='data'")
     return _subgroup(axis_index_groups)
+
+
+def axis_size(axis_name) -> int:
+    """The number of ranks on ``axis_name`` (JAX's ``_axis_size``)."""
+    return dist.get_world_size(axis_group(axis_name))
+
+
+def axis_index(axis_name) -> int:
+    """This rank's index on ``axis_name`` (JAX's ``lax.axis_index``; a
+    tuple's is row-major over its axes)."""
+    return dist.get_rank(axis_group(axis_name))
 
 
 def _subgroup(axis_index_groups):
@@ -177,6 +300,58 @@ def _all_reduce_(t: torch.Tensor, group, kind: str,
 
 def _owned(x: torch.Tensor) -> torch.Tensor:
     return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _shift(x: torch.Tensor, group, step: int, axis_name) -> torch.Tensor:
+    """``x`` sent to the rank ``step`` places on (cyclically) and the one
+    from the rank ``step`` places back received: one ``batch_isend_irecv``
+    pair, counted as one ``permute``."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.clone()
+    r = dist.get_rank(group)
+    dev = x.device
+    x = x.contiguous()
+    if _staged(group, x, "send and receive"):
+        x = x.cpu()
+    out = torch.empty_like(x)
+    to = dist.get_global_rank(group, (r + step) % n)
+    frm = dist.get_global_rank(group, (r - step) % n)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, to, group),
+            dist.P2POp(dist.irecv, out, frm, group)]):
+        req.wait()
+    out = out.to(dev)
+    COLLECTIVES["permute"].launches += 1
+    _note_collective("ppermute", axis_name, group,
+                     x.numel() * x.element_size(), 1,
+                     {_dtype_name(x.dtype)})
+    return out
+
+
+class _Rotate(torch.autograd.Function):
+    """JAX's ``ppermute`` to the next rank; the backward sends the
+    cotangent back one rank."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis_name):
+        ctx.group, ctx.axis_name = group, axis_name
+        return _shift(x, group, 1, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -1, ctx.axis_name), None, None
+
+
+def ppermute(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """JAX's ring ``ppermute`` (``perm = [(i, (i + 1) % n)]``) over
+    ``axis_name``: each rank's ``x`` goes to the next rank and the
+    previous rank's comes back; differentiable (the backward rotates the
+    cotangent the other way).  The pipeline's and the ring's rotation."""
+    group = axis_group(axis_name)
+    if group is None:
+        raise ValueError("ppermute needs an axis_name (a process group)")
+    return _Rotate.apply(x, group, axis_name)
 
 
 class _PSum(torch.autograd.Function):

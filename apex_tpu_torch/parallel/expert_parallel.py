@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from .distributed import (COLLECTIVES, _dtype_name, _note_collective,
-                          axis_group)
+                          _staged, axis_group)
 from .tensor_parallel import replicated_input
 
 __all__ = ["MoEAux", "moe_layer"]
@@ -61,9 +61,13 @@ class _AllToAll(torch.autograd.Function):
 
 
 def _exchange(x, group, axis_name):
+    dev = x.device
     x = x.contiguous()
+    if _staged(group, x, "all_to_all"):
+        x = x.cpu()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    out = out.to(dev)
     COLLECTIVES["all_to_all"].launches += 1
     _note_collective("all_to_all", axis_name, group,
                      x.numel() * x.element_size(), 1,

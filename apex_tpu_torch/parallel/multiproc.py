@@ -160,9 +160,11 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def shutdown() -> None:
     """Leave the process group :func:`initialize` made (or adopted) and
-    forget the identity; the cached sub-groups go with it."""
+    forget the identity; the cached sub-groups and the registered mesh
+    go with it."""
     from . import distributed
     distributed._SUBGROUPS.clear()
+    distributed._MESH.update(names=(), shape=())
     if dist.is_initialized():
         dist.destroy_process_group()
     _STATE.update(initialized=False, procs=None)

@@ -7,9 +7,10 @@ As in JAX it is one program on every rank, not a scheduler:
   ...]`` stack, :func:`stack_stage_params`);
 * a loop over ``n_stages + n_microbatches - 1`` ticks runs every stage
   every tick and rotates the activations to the next rank: JAX's
-  ``ppermute`` is a ``batch_isend_irecv`` pair (send to rank ``r + 1``,
-  receive from ``r - 1``) inside an autograd ``Function`` whose backward
-  is the reverse rotation;
+  ``ppermute`` is :func:`~apex_tpu_torch.parallel.distributed.ppermute`,
+  a ``batch_isend_irecv`` pair (send to rank ``r + 1``, receive from
+  ``r - 1``) inside an autograd ``Function`` whose backward is the
+  reverse rotation;
 * stage 0 takes in microbatch ``t`` and the last stage collects output
   ``t - (n_stages - 1)``; off-schedule ticks compute on don't-care data
   that the collection masks out, so their gradients are zero;
@@ -33,48 +34,11 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from .distributed import (COLLECTIVES, _dtype_name, _note_collective,
-                          axis_group)
+from .distributed import _Rotate, axis_group
 from .tensor_parallel import psum_replicated, replicated_input
 
 __all__ = ["spmd_pipeline", "spmd_pipeline_interleaved",
            "stack_stage_params", "stack_interleaved_stage_params"]
-
-
-def _shift(x: torch.Tensor, group, step: int, axis_name) -> torch.Tensor:
-    """``x`` sent to the rank ``step`` places on (cyclically) and the one
-    from the rank ``step`` places back received."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return x.clone()
-    r = dist.get_rank(group)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    to = dist.get_global_rank(group, (r + step) % n)
-    frm = dist.get_global_rank(group, (r - step) % n)
-    for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x, to, group),
-            dist.P2POp(dist.irecv, out, frm, group)]):
-        req.wait()
-    COLLECTIVES["permute"].launches += 1
-    _note_collective("ppermute", axis_name, group,
-                     x.numel() * x.element_size(), 1,
-                     {_dtype_name(x.dtype)})
-    return out
-
-
-class _Rotate(torch.autograd.Function):
-    """JAX's ``ppermute`` to the next rank; the backward sends the
-    cotangent back one rank."""
-
-    @staticmethod
-    def forward(ctx, x, group, axis_name):
-        ctx.group, ctx.axis_name = group, axis_name
-        return _shift(x, group, 1, axis_name)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _shift(g, ctx.group, -1, ctx.axis_name), None, None
 
 
 def _group(axis_name):

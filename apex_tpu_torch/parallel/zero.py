@@ -53,8 +53,8 @@ from torch.utils import _pytree as pytree
 
 from ..multi_tensor.buckets import (BucketStore, Packed, _sort_key,
                                     cached_store, padded_shard_len)
-from .distributed import COLLECTIVES, _dtype_name, _note_collective, \
-    axis_group
+from .distributed import COLLECTIVES, _all_reduce_, _dtype_name, \
+    _note_collective, _staged, axis_group
 
 __all__ = ["Zero1State", "zero1", "zero1_partition_spec", "zero1_init_full",
            "zero1_gather_state", "zero1_shard_state"]
@@ -115,22 +115,32 @@ def _chunk(flat: torch.Tensor, n: int, idx: int) -> torch.Tensor:
     return flat[idx * c:(idx + 1) * c]
 
 
-def _reduce_scatter(flat: torch.Tensor, group, n: int, axis_name):
+def _reduce_scatter(flat: torch.Tensor, group, n: int, axis_name,
+                    op: str = "psum_scatter"):
+    dev = flat.device
+    flat = flat.contiguous()
+    if _staged(group, flat, "reduce-scatter"):
+        flat = flat.cpu()
     out = torch.empty(flat.numel() // n, dtype=flat.dtype,
                       device=flat.device)
-    dist.reduce_scatter_tensor(out, flat.contiguous(), op=dist.ReduceOp.SUM,
-                               group=group)
+    dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=group)
+    out = out.to(dev)
     COLLECTIVES["reduce_scatter"].launches += 1
-    _note_collective("psum_scatter", axis_name, group,
+    _note_collective(op, axis_name, group,
                      flat.numel() * flat.element_size(), 1,
                      {_dtype_name(flat.dtype)})
     return out
 
 
 def _all_gather(local: torch.Tensor, group, n: int, axis_name):
+    dev = local.device
+    local = local.contiguous()
+    if _staged(group, local, "all-gather"):
+        local = local.cpu()
     out = torch.empty(local.numel() * n, dtype=local.dtype,
                       device=local.device)
-    dist.all_gather_into_tensor(out, local.contiguous(), group=group)
+    dist.all_gather_into_tensor(out, local, group=group)
+    out = out.to(dev)
     COLLECTIVES["all_gather"].launches += 1
     _note_collective("all_gather", axis_name, group,
                      out.numel() * out.element_size(), 1,
@@ -139,11 +149,19 @@ def _all_gather(local: torch.Tensor, group, n: int, axis_name):
 
 
 def _shard_one(flat_p, flat_g, inner, tx, group, n, idx, num_shards,
-               axis_name, apply_mask, kw):
-    """Reduce-scatter, local update and gather for one flat buffer."""
+               axis_name, apply_mask, kw, *, pre=None, denom=None):
+    """Reduce-scatter, local update and gather for one flat buffer.
+
+    ``pre`` ``(group, axis_name)`` (JAX's ``pre_axes``) sums the
+    scattered chunk over another group before the update (the mesh's
+    pure-DP axis: replicas that hold the same chunks but saw other data);
+    ``denom`` is the mean's divisor (default ``n``)."""
     size = flat_p.numel()
     flat_p, flat_g = _pad(flat_p, num_shards), _pad(flat_g, num_shards)
-    g_local = _reduce_scatter(flat_g, group, n, axis_name) / n
+    g_local = _reduce_scatter(flat_g, group, n, axis_name)
+    if pre is not None and dist.get_world_size(pre[0]) > 1:
+        g_local = _all_reduce_(g_local, pre[0], "grads", pre[1])
+    g_local = g_local / (n if denom is None else denom)
     new_local, new_inner = tx.update(g_local, inner,
                                      _chunk(flat_p, n, idx),
                                      apply_mask=apply_mask, **kw)

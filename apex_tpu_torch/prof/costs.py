@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 __all__ = ["KernelCost", "HBM_BYTES_PER_S", "PEAK_OPS", "bound",
-           "visible_pairs", "layer_norm_fwd", "layer_norm_bwd",
+           "visible_pairs", "seen_rows_keys", "layer_norm_fwd",
+           "layer_norm_bwd",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_db2",
            "bn_act_fwd", "bn_act_bwd", "xentropy_fwd", "xentropy_bwd",
            "conv_fwd", "conv_dgrad", "conv_wgrad", "qmm", "active_count",
@@ -100,10 +101,32 @@ def visible_pairs(b, tq, tk, causal, q_offset, window, kbias) -> int:
         return int((kbias == 0).sum().item()) * tq
     if kbias is not None or not causal:
         return b * tq * tk
-    n = np.minimum(q_offset + np.arange(tq) + 1, tk)
+    # a negative offset (a ring step's shard ahead of the queries) hides
+    # whole rows: none counts below zero
+    n = np.clip(q_offset + np.arange(tq) + 1, 0, tk)
     if window is not None:
         n = np.minimum(n, window)
     return b * int(n.sum())
+
+
+def seen_rows_keys(tq, tk, causal, q_offset, window, kbias) -> tuple:
+    """``(rows, keys)``: the query rows that see at least one key and the
+    keys that at least one row sees under the causal band, a batch
+    element's; what a flash call must read of q and of k and v.  A
+    shard wholly ahead of the queries (a ring step) is ``(0, 0)``.
+    Without the band every row and key counts."""
+    if kbias is not None or not causal:
+        return tq, tk
+    n = np.clip(q_offset + np.arange(tq) + 1, 0, tk)
+    rows = int((n > 0).sum())
+    # row r sees keys (q_offset + r - window, q_offset + r]
+    lo = 0 if window is None else max(0, q_offset - window + 1)
+    return rows, max(0, min(tk, q_offset + tq) - lo) if rows else 0
+
+
+def _rows_bytes(t, rows) -> int:
+    """The bytes of ``rows`` rows on axis 1 of ``[B, T, ...]`` ``t``."""
+    return t.numel() // t.shape[1] * rows * t.element_size()
 
 
 def _nbytes(*tensors) -> int:
@@ -140,38 +163,47 @@ def _flash_dims(q, k):
 
 def flash_fwd(q, k, v, kbias, bias, *, causal, q_offset, window
               ) -> KernelCost:
-    """q, k, v read, out and the fp32 lse written, the biases read; two
+    """q read where a row sees a key, k and v where a row sees them, out
+    and the fp32 lse written for every row, the biases read; two
     products of 2 x head_dim operations a visible pair and head."""
     b, tq, tk, h, d = _flash_dims(q, k)
     pairs = visible_pairs(b, tq, tk, causal, q_offset, window, kbias)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + b * h * tq * 4 + _nbytes(bias, kbias)
+    rows, keys = seen_rows_keys(tq, tk, causal, q_offset, window, kbias)
+    nbytes = (_rows_bytes(q, rows) + q.numel() * q.element_size()
+              + _rows_bytes(k, keys) + _rows_bytes(v, keys)
+              + b * h * tq * 4 + _nbytes(bias, kbias))
     return KernelCost("flash_attention_fwd", 4.0 * h * d * pairs, nbytes,
                       q.dtype)
 
 
 def flash_bwd_dq(q, k, v, kbias, bias, *, causal, q_offset, window
                  ) -> KernelCost:
-    """q, k, v and dO read, dQ written, lse and delta read, the biases
-    read; three products a visible pair and head."""
+    """q, dO, lse and delta read where a row sees a key, k and v where a
+    row sees them, dQ written for every row, the biases read; three
+    products a visible pair and head."""
     b, tq, tk, h, d = _flash_dims(q, k)
     pairs = visible_pairs(b, tq, tk, causal, q_offset, window, None) * h
-    nbytes = (3 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + 2 * b * h * tq * 4 + _nbytes(kbias, bias)
+    rows, keys = seen_rows_keys(tq, tk, causal, q_offset, window, kbias)
+    nbytes = (2 * _rows_bytes(q, rows) + q.numel() * q.element_size()
+              + _rows_bytes(k, keys) + _rows_bytes(v, keys)
+              + 2 * b * h * rows * 4 + _nbytes(kbias, bias))
     return KernelCost("flash_attention_bwd_dq", 2.0 * 3 * d * pairs, nbytes,
                       q.dtype)
 
 
 def flash_bwd_dkv(q, k, v, kbias, bias, *, causal, q_offset, window,
                   kbias_grad=False) -> KernelCost:
-    """q, k, v and dO read, dK and dV written, lse and delta read, the
-    biases read, the key-bias partials written when they need a
-    gradient; four products a visible pair and head."""
+    """q, dO, lse and delta read where a row sees a key, k and v where a
+    row sees them, dK and dV written for every key, the biases read, the
+    key-bias partials written when they need a gradient; four products a
+    visible pair and head."""
     b, tq, tk, h, d = _flash_dims(q, k)
     pairs = visible_pairs(b, tq, tk, causal, q_offset, window, None) * h
-    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
-        * q.element_size() + 2 * b * h * tq * 4 \
-        + (b * h * tk * 4 if kbias_grad else 0) + _nbytes(kbias, bias)
+    rows, keys = seen_rows_keys(tq, tk, causal, q_offset, window, kbias)
+    nbytes = (2 * _rows_bytes(q, rows) + _rows_bytes(k, keys)
+              + _rows_bytes(v, keys) + (k.numel() + v.numel())
+              * k.element_size() + 2 * b * h * rows * 4
+              + (b * h * tk * 4 if kbias_grad else 0) + _nbytes(kbias, bias))
     return KernelCost("flash_attention_bwd_dkv", 2.0 * 4 * d * pairs,
                       nbytes, q.dtype)
 

@@ -36,9 +36,16 @@ collectives inside the graph when the group's backend is NCCL: the warm
 run issues them first on the capture stream, which makes the
 communicators before the capture begins.  Any other backend on CUDA
 raises: gloo's CUDA collectives wait on the host and cannot be captured,
-and the pipeline never runs eagerly in their place.  ``wrap=``
-(``shard_map`` over a mesh, ROADMAP queue 1 item 3, "Sharding") is not
-ported yet; it raises.
+and the pipeline never runs eagerly in their place.
+
+``wrap=`` is JAX's ``shard_map`` hook: ``wrap(fn)`` turns a window
+function ``(state, window, valid) -> (state, metrics)`` into this rank's.
+JAX's wrap places the global window on the mesh; the port runs one
+process a rank, so its wrap takes this rank's slice of the window (the
+LM trainer's ``--sp`` slices ``[K, B, T']`` on T, JAX's ``P(None, None,
+"sp")``; :meth:`~apex_tpu_torch.parallel.mesh.MeshTrainStep.
+pipeline_wrap` slices the batch axis over the data axes).  Both window
+functions and their captures run wrapped.
 
 Telemetry (:mod:`apex_tpu_torch.telemetry`): ``telemetry=`` pins a
 recorder, else each call reads the active one.  The hooks sit at the host
@@ -235,11 +242,8 @@ class StepPipeline:
                  telemetry=None):
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
-        if wrap is not None:
-            raise NotImplementedError(
-                "wrap= (shard_map over a mesh) is not ported yet (ROADMAP "
-                "queue 1 item 3, \"Sharding\")")
         self.k = int(k)
+        self._wrap = wrap
         self._step_fn = step_fn
         self._telemetry = telemetry
         self._t_last_dispatch: Optional[float] = None
@@ -257,9 +261,14 @@ class StepPipeline:
 
     def _window_fn(self, program: str, commit: Optional[Callable] = None):
         """The ``(state, window, valid) -> (state, metrics)`` function of
-        ``program``: the hot loop's K steps, or the tail loop's with each
-        step's state gated by ``valid``; ``commit`` as in
-        :func:`~apex_tpu_torch.training.chain_steps`."""
+        ``program``, through ``wrap`` when given: the hot loop's K steps,
+        or the tail loop's with each step's state gated by ``valid``;
+        ``commit`` as in :func:`~apex_tpu_torch.training.chain_steps`."""
+        fn = self._window_fn_unwrapped(program, commit)
+        return fn if self._wrap is None else self._wrap(fn)
+
+    def _window_fn_unwrapped(self, program: str,
+                             commit: Optional[Callable] = None):
         # a local, not self: a closure over self would make a reference
         # cycle, and the collector could free a dropped pipeline's graphs
         # in the middle of another capture

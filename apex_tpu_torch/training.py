@@ -46,14 +46,24 @@ of it), so all skip or step together; and the loss and the model state
 ``reduce_grads=False`` skips the gradient all-reduce for an optimizer
 that reduces them itself (:func:`~apex_tpu_torch.parallel.zero.zero1`
 reduce-scatters inside its update); ``axis_name`` still agrees the
-overflow flag and averages the loss.  ``param_view`` (the ZeRO-3 view)
-raises ``NotImplementedError``, naming ROADMAP queue 1 item 3.
+overflow flag and averages the loss.  ``axis_name`` may also name a mesh
+axis or a tuple of them (:func:`~apex_tpu_torch.parallel.distributed.
+register_mesh`; JAX's ``axis_name=plan.all_axes``).
+
+``param_view`` (JAX's ZeRO-3 hook, :mod:`apex_tpu_torch.parallel.mesh`)
+maps the STORED parameter tree (then any tree of tensors, such as a
+``Packed``) to the tree ``loss_fn`` takes, inside the differentiated
+function, before the opt level's cast: its backward (the mesh view's
+reduce-scatter) hands the optimizer gradients in the stored layout.
+Under ``accum_steps > 1`` the view runs once a step, outside the
+microbatch loop, and its backward once, on the accumulated gradients, as
+JAX's ``jax.vjp`` of it does.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -67,9 +77,6 @@ from .multi_tensor.buckets import cached_store
 from .optimizers import functional as F
 from .parallel import distributed as _dist
 from .prof.capture import scope
-
-_SHARDING = 'ROADMAP queue 1 item 3, "Sharding"'
-
 
 class FunctionalOptimizer(NamedTuple):
     init: Callable        # params -> state
@@ -216,10 +223,6 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
     the step function then carries the group as ``step_fn.process_group``
     (:class:`~apex_tpu_torch.runtime.StepPipeline` reads it).
     """
-    if param_view is not None:
-        raise NotImplementedError(
-            f"param_view (the ZeRO-3 view of sharded parameters) is not "
-            f"ported yet ({_SHARDING})")
     group = _dist.axis_group(axis_name)
     if axis_index_groups and group is None:
         raise ValueError("axis_index_groups needs an axis_name")
@@ -250,46 +253,63 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                                       norm_predicate=norm_predicate)
 
     def init_fn(params, model_state=None) -> TrainState:
-        params = dict(params)
+        if isinstance(params, Mapping):
+            params = dict(params)
         if store_cast:               # O3: reduced precision, no masters
             params = {k: v.detach() for k, v in cast(params).items()}
-        device = next(iter(params.values())).device
+        device = pytree.tree_leaves(params)[0].device
         return TrainState(params=params, opt_state=optimizer.init(params),
                           scaler=scaler.init(device),
                           model_state=model_state)
 
-    def grads_of(leaves, model_state, batch, scale, view=None):
+    def split(params):
+        """``(leaves, rebuild)``: the parameter tree's tensors, and the
+        function that puts a list of that length back in its structure
+        (a mapping keeps its names and order)."""
+        if isinstance(params, dict):
+            names = list(params)
+            return list(params.values()), lambda vals: dict(zip(names, vals))
+        flat, spec = pytree.tree_flatten(params)
+        return flat, lambda vals: pytree.tree_unflatten(list(vals), spec)
+
+    def compute_view(p):
+        """The stored tree as ``loss_fn`` takes it: the view, then the
+        opt level's cast."""
+        if param_view is not None:
+            p = param_view(p)
+        return cast(p) if cast_in_step else p
+
+    def grads_of(leaves, rebuild, model_state, batch, scale, view=None):
         """(loss, grads of ``loss * scale`` with respect to ``leaves``,
-        new model state); ``view`` maps the leaves to what ``loss_fn``
-        takes, inside the differentiated function."""
+        new model state); ``view`` maps the rebuilt tree to what
+        ``loss_fn`` takes, inside the differentiated function."""
         with torch.enable_grad():
-            if view is None:
-                p = leaves
-            else:
+            p = rebuild(leaves)
+            if view is not None:
                 with scope("cast"):
-                    p = view(leaves)
+                    p = view(p)
             if has_model_state:
                 loss, new_ms = loss_fn(p, model_state, batch)
             else:
                 loss, new_ms = loss_fn(p, batch), model_state
-            grads = torch.autograd.grad(loss.float() * scale,
-                                        list(leaves.values()),
+            grads = torch.autograd.grad(loss.float() * scale, leaves,
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves.values())]
+                 for g, p in zip(grads, leaves)]
         return loss.detach().float(), grads, new_ms
 
     def step_fn(state: TrainState, batch):
         scale = state.scaler.loss_scale
-        names = list(state.params)
+        stored, rebuild = split(state.params)
         if accum_steps == 1:
             # under O2 the cast is inside the differentiated function:
-            # its backward returns each gradient in the master's dtype
-            masters = {k: v.detach().requires_grad_(True)
-                       for k, v in state.params.items()}
-            loss, grads, new_ms = grads_of(masters, state.model_state,
-                                           batch, scale,
-                                           cast if cast_in_step else None)
+            # its backward returns each gradient in the master's dtype;
+            # the view's backward is its transpose (ZeRO-3's scatter)
+            masters = [v.detach().requires_grad_(True) for v in stored]
+            loss, grads, new_ms = grads_of(
+                masters, rebuild, state.model_state, batch, scale,
+                compute_view if (cast_in_step or param_view is not None)
+                else None)
         else:
             leaves, _ = flatten_tree(batch)
             for x in leaves:
@@ -298,24 +318,42 @@ def make_train_step(loss_fn: Callable, optimizer: FunctionalOptimizer, *,
                         f"batch leading dim {x.shape[0]} not divisible by "
                         f"accum_steps={accum_steps}")
             # the cast is hoisted out of the microbatch loop; its
-            # transpose is an upcast, the identity on the fp32 sum
+            # transpose is an upcast, the identity on the fp32 sum.  The
+            # view is hoisted too, its backward kept for the accumulated
+            # gradients (JAX's jax.vjp): one gather and one scatter a step
+            masters = full = None
             cp = state.params
+            if param_view is not None:
+                masters = [v.detach().requires_grad_(True) for v in stored]
+                with torch.enable_grad():
+                    full = param_view(rebuild(masters))
+                cp = full
             if cast_in_step:
                 cp = cast(cp)
-            cp = {k: v.detach().requires_grad_(True) for k, v in cp.items()}
-            _, rebuild = flatten_tree(batch)
+            cp_leaves, cp_rebuild = split(cp)
+            cp_leaves = [v.detach().requires_grad_(True) for v in cp_leaves]
+            _, rebuild_batch = flatten_tree(batch)
             parts = [torch.chunk(x, accum_steps) for x in leaves]
             grads = [torch.zeros_like(p, dtype=torch.float32)
-                     for p in cp.values()]
+                     for p in cp_leaves]
             loss = torch.zeros((), dtype=torch.float32, device=scale.device)
             new_ms = state.model_state
             for i in range(accum_steps):
-                mb = rebuild([p[i] for p in parts])
-                l_i, g_i, new_ms = grads_of(cp, new_ms, mb, scale)
+                mb = rebuild_batch([p[i] for p in parts])
+                l_i, g_i, new_ms = grads_of(cp_leaves, cp_rebuild, new_ms,
+                                            mb, scale)
                 grads = [a + b.float() / accum_steps
                          for a, b in zip(grads, g_i)]
                 loss = loss + l_i / accum_steps
-        grads = dict(zip(names, grads))
+            if param_view is not None:
+                full_leaves, _ = split(full)
+                grads = torch.autograd.grad(
+                    full_leaves, masters,
+                    [g.to(f.dtype) for g, f in zip(grads, full_leaves)],
+                    allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, masters)]
+        grads = rebuild(grads)
         if group is not None and reduce_grads:
             grads = _dist.reduce_gradients(
                 grads, group, gradient_average=gradient_average,

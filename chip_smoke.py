@@ -387,18 +387,49 @@ line):
    ``make_train_step(reduce_grads=False)`` over an NCCL group of one,
    bit for bit the replicated step for 4 steps (the counters set to 0
    just before it and read after); then two gloo ranks on the card
-   (``--shard-gloo-worker``): zero1 staged through the host (gloo moves
-   only all_reduce and broadcast of CUDA tensors) (each rank half the padded
+   (``--shard-gloo-worker``; gloo moves only all_reduce and broadcast
+   of CUDA tensors, so zero1's reduce-scatter and all-gather, the MoE's
+   all_to_all and the pipeline's send and receive are staged through the
+   host inside ``distributed.host_staging()``): zero1 (each rank half the padded
    Adam state; parameters within rtol 1e-6 of the replicated two-rank DP
    step's), ``tp_self_attention`` (one flash launch a rank) and
    ``tp_mlp`` at GPT-2 small width, ``moe_layer`` and ``spmd_pipeline``
-   against their single-process oracles.
+   against their single-process oracles;
+36. sequence parallelism: (a) kernels 10-12 against their plain
+   versions at the ring's relative offsets (-512, 0, +512 and -475 with
+   512-row shards; GPT-2 small's 12 x 64 heads, B 8; bf16, fp32 and the
+   split-KV route at q_len 8; causal and not): a row with no visible key
+   gives out 0 and lse -1e30, hidden rows and unseen keys zero
+   gradients, no NaN; (b) two gloo ranks on the card
+   (``--seq-gloo-worker``, the ring's send and receive, Ulysses's
+   all_to_all and the mesh's all-gather and reduce-scatter staged
+   through the host inside ``distributed.host_staging()``):
+   ``ring_flash_attention``, ``ring_attention`` and
+   ``ulysses_attention`` at B 8, T 1024 (512 a rank), 12 x 64, causal,
+   against one process's ``flash_attention`` at T 1024 (fp32 out 2e-5,
+   gradients 5e-4 relative; bf16 2e-2 both), ring_flash launching each
+   of kernels 10-12 twice a rank (one a ring step); (c) the LM trainer's
+   ``--sp 2 --attention ring_flash`` (its ``build``) on GPT-2 small O2,
+   B 8, ``--seq-len 1025``, the fused loss, 3 eager steps on the two
+   ranks, the launches counted (24 of each of kernels 10-12 a step), its
+   losses within rtol 1.2e-4 of ``--sp 1 --attention flash``'s on the same
+   batch;
+37. the mesh: (a) in an NCCL group of one, ``make_mesh_train_step`` at
+   zero 1, 2 and 3 on GPT-2 small O2 (B 4, T 256), 4 steps each bit for
+   bit the replicated ``make_train_step`` (losses, parameters, zero 3's
+   moments), the counters set to 0 just before each run; (b) zero 3
+   through ``StepPipeline(wrap=ms.pipeline_wrap(state))`` at K 4,
+   captured with the gather and scatter inside the graph: one capture,
+   4 replays, every state leaf bit for bit 16 eager steps; (c) on the
+   two gloo ranks of 36 (b), ``fsdp=2``, ``zero=3`` against the
+   replicated two-rank DP step (parameters within rtol 1e-6, phase 35's
+   gate), a rank holding half the state.
 
-Phases 24-32 and 35 write their data under temporary directories,
+Phases 24-32 and 35-37 write their data under temporary directories,
 removed at the end.  The phases run in the order 1-4, 17's calibration, 20, 29, 21
 (all but its traces), 22, 23, 5, 30, 17's served load, 6 (with 17's
 traces),
-7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31-35: the eager
+7-10, 21's traces, 11-16, the rest of 17, 18, 19, 24-28, 31-37: the eager
 sides of 20-23, 5 and
 17, and 29-30, run before the first profiler session, after which every launch of
 the process costs the host more (phase 6 ends by timing phase 20's eager
@@ -416,9 +447,15 @@ phase 22's ``FusedLAMB`` run, ``dcgan`` phase 23's runs,
 uninterrupted runs of phases 24 and 25 and phase 26's engine,
 ``ddp_nccl`` phase 27's run in an NCCL group, ``ddp_gloo`` phase 28's
 rank 0, ``generate`` phase 33's fp32 captured run, ``zero1_lm`` phase
-35's zero1 run); then the
+35's zero1 run, ``ring_lm`` phase 36's ``--sp 2`` steps on rank 0,
+``mesh_zero3`` phase 37's zero 3 run); then the
 ``nvidia-smi`` line;
 the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --sp-gate-faults`` runs only phase 36 (c), sound
+and with faults planted at run time, and prints how far each run's
+losses part from ``--sp 1`` beside the limit; it exits 1 unless the
+limit passes the sound run and fails every fault.
 """
 
 from __future__ import annotations
@@ -5875,33 +5912,16 @@ def zero1_nccl(models, main_amp, training, counters, tmp, dev):
         dist.destroy_process_group()
 
 
-def _staged_tx(tx, dev):
-    """``tx`` run on host copies: gloo moves only ``all_reduce`` and
-    ``broadcast`` of CUDA tensors (a reduce-scatter of one aborts the
-    process: ``gloo::IoException`` ``writev ... Bad address``, torch
-    2.11), so phase 35 moves the gradients and parameters to the CPU for
-    the zero1 update and the result back (the Adam state lives on the
-    host)."""
-    training = importlib.import_module("apex_tpu_torch.training")
-
-    def update(grads, state, params, *, apply_mask=None, **kw):
-        def cpu(tree):
-            return {k: v.cpu() for k, v in tree.items()}
-        mask = None if apply_mask is None else apply_mask.cpu()
-        new_p, new_s = tx.update(cpu(grads), state, cpu(params),
-                                 apply_mask=mask, **kw)
-        return {k: v.to(dev) for k, v in new_p.items()}, new_s
-
-    return training.FunctionalOptimizer(
-        init=lambda p: tx.init({k: v.cpu() for k, v in p.items()}),
-        update=update, elementwise=True)
-
-
 def shard_gloo_worker(out_dir) -> int:
     """One rank of phase 35 (b) (``chip_smoke.py --shard-gloo-worker
-    DIR``): two gloo ranks sharing the card."""
-    import torch.distributed as dist
+    DIR``): two gloo ranks sharing the card, every collective gloo
+    cannot move on CUDA tensors (zero1's reduce-scatter and all-gather,
+    the MoE's all_to_all, the pipeline's send and receive) staged
+    through the host inside ``distributed.host_staging()``, as in phases
+    36-37."""
     multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    distributed = importlib.import_module(
+        "apex_tpu_torch.parallel.distributed")
     models = importlib.import_module("apex_tpu_torch.models")
     training = importlib.import_module("apex_tpu_torch.training")
     main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
@@ -5911,19 +5931,34 @@ def shard_gloo_worker(out_dir) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     rank, world = multiproc.initialize(device=dev, backend="gloo")
+    with distributed.host_staging():
+        info, arrays = _shard_gloo_rank(models, training, main_amp, par,
+                                        zero, fa, rank, world, dev)
+    info["collectives"] = {k: c.launches
+                           for k, c in distributed.COLLECTIVES.items()
+                           if c.launches}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    multiproc.shutdown()
+    return 0
+
+
+def _shard_gloo_rank(models, training, main_amp, par, zero, fa, rank,
+                     world, dev):
+    """Phase 35 (b) on one rank: ``(info, arrays)``."""
     info, arrays = {}, {}
-    # ZeRO-1 (host-staged) against the replicated two-rank DP step
+    # ZeRO-1 against the replicated two-rank DP step
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     params = {k: v.detach() for k, v in model.state_dict().items()}
     ids, labels = _lm_batch(2 * 2, 128, 351, dev)
     batch = (ids[2 * rank:2 * rank + 2], labels[2 * rank:2 * rank + 2])
     for name in ("dp", "zero1"):
-        # both runs update on the host, so they differ only in the
-        # sharding: the DP step all-reduces on the card, zero1
-        # reduce-scatters and all-gathers on the host
+        # both runs update on the card: the DP step all-reduces there,
+        # zero1 reduce-scatters and all-gathers through the host
         adam = training.adam(3e-4, weight_decay=0.1)
-        tx = _staged_tx(zero.zero1(adam, "data", num_shards=world)
-                        if name == "zero1" else adam, dev)
+        tx = (zero.zero1(adam, "data", num_shards=world)
+              if name == "zero1" else adam)
         init_fn, step_fn = training.make_train_step(
             _lm_loss_fn(main_amp, model), tx, opt_level="O2",
             axis_name="data", reduce_grads=name != "zero1")
@@ -5962,15 +5997,14 @@ def shard_gloo_worker(out_dir) -> int:
                    par.shard_row(w2, "data"), b2, "data")
     ref = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
     info["tp_mlp_rel_err"] = _rel(y, ref)
-    # expert and pipeline parallel: the tokens and activations on the
-    # host (gloo moves no CUDA tensor in all_to_all or send/recv), every
-    # expert and stage computing on the card
+    # expert and pipeline parallel on the card, the tokens' all_to_all
+    # and the activations' send and receive staged
     def ffn(p, hh):
-        return (torch.tanh(hh.to(dev) @ p["w"]) @ p["v"]).cpu()
+        return torch.tanh(hh @ p["w"]) @ p["v"]
     experts = [{"w": rnd(768, 3072), "v": rnd(3072, 768)}
                for _ in range(world)]
-    router = rnd(768, world).cpu()
-    xt = (torch.randn(world * 512, 768, generator=g) * 0.5)
+    router = rnd(768, world)
+    xt = (torch.randn(world * 512, 768, generator=g) * 0.5).to(dev)
     rows = slice(512 * rank, 512 * rank + 512)
     y, aux = par.moe_layer(xt[rows], router, ffn, experts[rank],
                            axis_name="data", capacity_factor=world)
@@ -5983,8 +6017,8 @@ def shard_gloo_worker(out_dir) -> int:
     stages = [{"w": rnd(768, 768), "b": rnd(768)} for _ in range(world)]
 
     def stage(p, hh):
-        return torch.tanh(hh.to(dev) @ p["w"] + p["b"]).cpu()
-    xp = torch.randn(16, 768, generator=g)
+        return torch.tanh(hh @ p["w"] + p["b"])
+    xp = torch.randn(16, 768, generator=g).to(dev)
     mine = {k: v[None].clone().requires_grad_(True)
             for k, v in stages[rank].items()}
     yp = par.spmd_pipeline(stage, mine, xp, axis_name="data",
@@ -5999,19 +6033,15 @@ def shard_gloo_worker(out_dir) -> int:
     info["pipeline_rel_err"] = _rel(yp, ys)
     info["pipeline_grad_rel_err"] = max(
         _rel(mine[k].grad[0], seq[rank][k].grad) for k in ("w", "b"))
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(info, f)
-    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
-    multiproc.shutdown()
-    return 0
+    return info, arrays
 
 
 def shard_gloo(tmp):
     """Phase 35 (b): two gloo ranks sharing the card
     (``shard_gloo_worker``): zero1 Adam on GPT-2 small at O2, each rank
     holding half the padded state, parameters within rtol 1e-6 of the
-    replicated two-rank DP step's (both updating on the host: gloo
-    moves no reduce-scatter of CUDA tensors); ``tp_self_attention`` (one flash
+    replicated two-rank DP step's (zero1's reduce-scatter and
+    all-gather staged through the host); ``tp_self_attention`` (one flash
     launch a rank on its 6 heads) and ``tp_mlp`` at GPT-2 small width
     against the unsharded product; ``moe_layer`` and ``spmd_pipeline``
     (forward and gradients) against their single-process oracles."""
@@ -6069,7 +6099,547 @@ def shard_gloo(tmp):
           f"(1e-5), pipeline {[i['pipeline_rel_err'] for i in infos]} "
           f"(1e-6), its gradients "
           f"{[i['pipeline_grad_rel_err'] for i in infos]} (1e-5)")
+    print(f"      shard_gloo collectives, rank 0: {infos[0]['collectives']}",
+          flush=True)
     return dict(wall_s=wall, ranks=infos, zero1_param_rtol=worst)
+
+
+# -- phases 36-37: sequence parallelism and the mesh --------------------------------
+
+SEQ_GLOO_WORLD = 2
+RING_T_LOCAL = 512
+#: 36 (c): the LM trainer's --sp 2 on GPT-2 small, a few eager steps
+SP_LM_ARGS = ["--synthetic", "--device", "cuda", "--vocab", "50257",
+              "--hidden", "768", "--layers", "12", "--heads", "12",
+              "--seq-len", "1025", "-b", "8", "--opt-level", "O2",
+              "--fused-loss"]
+SP_LM_STEPS = 3
+#: the --sp 2 losses against --sp 1's: bf16 activations either way, but
+#: the ring merges each shard's bf16-rounded partial output in fp32 and
+#: the gradients are all-reduced over two ranks, so the sums run in
+#: another order. Measured on an H100: sound 1.69e-5; rank 1's positions
+#: started at 0 9.10e-4; rank 1's ring step over rank 0's keys dropped
+#: 3.44e-2. The limit sits between the sound run and the first fault
+SP_LM_RTOL = 1.2e-4
+MESH_ARGS = dict(b=4, t=256, steps=4, k=4)
+
+
+def ring_kernel_offsets(fa, dev):
+    """Phase 36 (a): kernels 10-12 against their plain versions at the
+    ring's relative offsets (-t_local, 0, +t_local and a non-multiple)
+    with t_local 512 and GPT-2 small's heads (B 8, 12 x 64), bf16 and
+    fp32, causal and not, plus the split-KV route (q_len 8) in bf16: a
+    row with no visible key gives out 0 and lse -1e30, every gradient
+    of a hidden row or an unseen key is 0, no NaN anywhere."""
+    t = RING_T_LOCAL
+    g = torch.Generator().manual_seed(36)
+    worst, ms = {}, {}
+    ok = True
+    for dtype, tol, tq in ((torch.bfloat16, 2e-2, t), (torch.float32, 1e-4, t),
+                           (torch.bfloat16, 2e-2, 8)):
+        q, do = (torch.randn(8, tq, 12, 64, generator=g).to(dev, dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(8, t, 12, 64, generator=g).to(dev, dtype)
+                for _ in range(2))
+        for causal in (True, False):
+            for off in (-t, 0, t, 37 - t):
+                kw = dict(sm_scale=64 ** -0.5, causal=causal, q_offset=off)
+                out, lse = fa.flash_fwd_kernel(q, k, v, None, None, **kw)
+                ro, rl = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+                rows = torch.arange(tq, device=dev)
+                hidden = ((off + rows < 0) if causal
+                          else torch.zeros_like(rows, dtype=torch.bool))
+                glse = torch.where(lse == fa.NEG_INF,
+                                   torch.full_like(lse, 0.5),
+                                   torch.logaddexp(lse, torch.full_like(
+                                       lse, 0.5))).contiguous()
+                delta = fa._delta(do, out)
+                dq = fa.flash_bwd_dq_kernel(q, k, v, do, glse, delta, None,
+                                            None, **kw)
+                dk, dv, _ = fa.flash_bwd_dkv_kernel(q, k, v, do, glse, delta,
+                                                    None, None, **kw)
+                wq, wk, wv, _, _ = fa._flash_bwd_ref(q, k, v, None, None,
+                                                     out, glse, do, **kw)
+                errs = [(out.float() - ro.float()).abs().max().item(),
+                        (lse - rl).abs().max().item()]
+                errs += [_rel(a, b) for a, b in ((dq, wq), (dk, wk),
+                                                 (dv, wv))]
+                finite = all(not torch.isnan(x.float()).any()
+                             for x in (out, lse, dq, dk, dv))
+                zeros = True
+                if hidden.any():
+                    zeros = (bool((out[:, hidden] == 0).all())
+                             and bool((lse[:, :, hidden] == fa.NEG_INF).all())
+                             and bool((dq[:, hidden] == 0).all()))
+                if causal:
+                    unseen = torch.arange(t, device=dev) > off + tq - 1
+                    if unseen.any():
+                        zeros = zeros and bool((dk[:, unseen] == 0).all()
+                                               and (dv[:, unseen] == 0).all())
+                key = (f"{str(dtype)[6:]} tq{tq} "
+                       f"{'causal' if causal else 'full'} {off:+d}")
+                worst[key] = max(errs)
+                if dtype == torch.bfloat16 and tq == t and causal \
+                        and off % t == 0:
+                    # what a ring step costs at each offset (a shard
+                    # ahead skips every tile), beside its bound
+                    masks = dict(causal=True, q_offset=off, window=None)
+                    cf = costs()
+                    ms[off] = dict(
+                        ms=[time_ms(fn, iters=5) for fn in (
+                            lambda: fa.flash_fwd_kernel(q, k, v, None, None,
+                                                        **kw),
+                            lambda: fa.flash_bwd_dq_kernel(
+                                q, k, v, do, glse, delta, None, None, **kw),
+                            lambda: fa.flash_bwd_dkv_kernel(
+                                q, k, v, do, glse, delta, None, None,
+                                **kw))],
+                        bound_ms=[bound(c)[0] for c in (
+                            cf.flash_fwd(q, k, v, None, None, **masks),
+                            cf.flash_bwd_dq(q, k, v, None, None, **masks),
+                            cf.flash_bwd_dkv(q, k, v, None, None,
+                                             **masks))])
+                ok = ok and max(errs) <= tol and finite and zeros
+                if not (max(errs) <= tol and finite and zeros):
+                    print(f"      ring offsets {key}: errs {errs}, finite "
+                          f"{finite}, hidden zeros {zeros}", flush=True)
+    check(ok, f"ring offsets: kernels 10-12 vs plain at q_offset "
+              f"{{-512, 0, +512, -475}} (bf16 2e-2, fp32 1e-4; split-KV "
+              f"q_len 8 in bf16), hidden rows 0 / -1e30 / zero gradients, "
+              f"no NaN: worst {max(worst.values()):.3g}")
+    print("      ring offsets, bf16 causal, B 8 x 512 rows x 12 x 64, "
+          "kernels 10 / 11 / 12 ms (bound ms): " + "; ".join(
+              f"{off:+d}: " + " / ".join(
+                  f"{x:.4f} ({y:.4f})" for x, y in zip(v["ms"],
+                                                       v["bound_ms"]))
+              for off, v in ms.items()), flush=True)
+    return dict(worst=worst, ms={str(k): v for k, v in ms.items()})
+
+
+def _ring_gloo(fa, ra, rank, world, dev):
+    """Phase 36 (b) on one rank: ring_flash, ring and Ulysses attention at
+    B 8, T 1024 (512 a rank), 12 x 64, causal, forward and the gradients
+    of ``sum(out * dout)``, against one process's ``flash_attention`` at
+    T 1024 on the same inputs; ring_flash's kernel launches counted."""
+    info = {}
+    counters = _kernel_counters()
+    g = torch.Generator().manual_seed(362)
+    for dtype in (torch.float32, torch.bfloat16):
+        full = [torch.randn(8, 1024, 12, 64, generator=g).to(dev, dtype)
+                for _ in range(4)]
+        ref_in = [x.clone().requires_grad_(True) for x in full[:3]]
+        ref = fa.flash_attention(*ref_in, causal=True)
+        (ref.float() * full[3].float()).sum().backward()
+        sl = slice(512 * rank, 512 * rank + 512)
+        for name in ("ring_flash", "ring", "ulysses"):
+            fn = getattr(ra, f"{name}_attention")
+            mine = [x[:, sl].clone().requires_grad_(True) for x in full[:3]]
+            for c in counters.values():
+                c.launches = 0
+            out = fn(*mine, "data", causal=True)
+            (out.float() * full[3][:, sl].float()).sum().backward()
+            torch.cuda.synchronize()
+            key = f"{name}_{str(dtype)[6:]}"
+            info[f"{key}_out_err"] = (out.float() - ref[:, sl].float()
+                                      ).abs().max().item()
+            info[f"{key}_grad_rel"] = max(
+                _rel(m.grad, r.grad[:, sl]) for m, r in zip(mine, ref_in))
+            info[f"{key}_launches"] = {n: c.launches
+                                       for n, c in counters.items()
+                                       if c.launches}
+    return info
+
+
+def _sp_lm_gloo(main_amp, rank, dev):
+    """Phase 36 (c) on one rank: the LM trainer's ``--sp 2 --attention
+    ring_flash`` (its ``build``: the ``sp`` axis over the two ranks), a
+    few eager steps on this rank's half of the sequence, the kernels'
+    launches counted; rank 0 then runs ``--sp 1 --attention flash`` on
+    the same batch for the reference losses."""
+    counters = _kernel_counters()
+    args = main_amp.parse(SP_LM_ARGS + ["--attention", "ring_flash",
+                                        "--sp", "2"])
+    state, step_fn, batch = main_amp.build(args)
+    mine = main_amp.sequence_shard(batch, 1)
+    for c in counters.values():
+        c.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SP_LM_STEPS):
+        state, m = step_fn(state, mine)
+        losses.append(float(m["loss"]))
+    info = {"sp_lm_losses": losses,
+            "sp_lm_step_s": (time.perf_counter() - t0) / SP_LM_STEPS,
+            "sp_lm_launches": {n: c.launches for n, c in counters.items()
+                               if c.launches}}
+    del state
+    if rank == 0:
+        args = main_amp.parse(SP_LM_ARGS + ["--attention", "flash"])
+        state, step_fn, batch = main_amp.build(args)
+        ref = []
+        for _ in range(SP_LM_STEPS):
+            state, m = step_fn(state, batch)
+            ref.append(float(m["loss"]))
+        info["sp1_lm_losses"] = ref
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def _mesh_gloo(models, main_amp, training, rank, dev):
+    """Phase 37 (c) on one rank: ``make_mesh_train_step`` at ``fsdp=2``,
+    ``zero=3`` on GPT-2 small O2 (2 rows a rank, T 128) against the
+    replicated two-rank DP step, 2 steps from the same weights."""
+    mesh = importlib.import_module("apex_tpu_torch.parallel.mesh")
+    model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    ids, labels = _lm_batch(2 * SEQ_GLOO_WORLD, 128, 373, dev)
+    loss_fn = _lm_loss_fn(main_amp, model)
+    plan = mesh.MeshPlan(dp=1, fsdp=SEQ_GLOO_WORLD)
+    ms = mesh.make_mesh_train_step(
+        loss_fn, training.adam(3e-4, weight_decay=0.1), plan, zero=3,
+        opt_level="O2")
+    st = ms.init({k: v.clone() for k, v in params.items()})
+    spec = ms.state_spec(st)
+    ratio = plan.state_bytes((st.params, st.opt_state),
+                             (spec.params, spec.opt_state))["ratio"]
+    batch = plan.device_put_batch((ids, labels))
+    for _ in range(GLOO_ZERO_STEPS):
+        st, m = ms.step_fn(st, batch)
+    full = ms.gather_params(st)
+    init_fn, step_fn = training.make_train_step(
+        loss_fn, training.adam(3e-4, weight_decay=0.1), opt_level="O2",
+        axis_name="data")
+    dp = init_fn({k: v.clone() for k, v in params.items()})
+    for _ in range(GLOO_ZERO_STEPS):
+        dp, m_dp = step_fn(dp, batch)
+    worst = 0.0
+    for k, v in full.items():
+        want = dp.params[k].float()
+        diff = (v.float() - want).abs()
+        rel = torch.where(diff == 0, torch.zeros_like(diff),
+                          diff / want.abs().clamp_min(1e-30))
+        worst = max(worst, rel.max().item())
+    return {"mesh_state_ratio": ratio, "mesh_param_rtol": worst,
+            "mesh_loss": float(m["loss"]), "dp_loss": float(m_dp["loss"])}
+
+
+def seq_gloo_worker(out_dir) -> int:
+    """One rank of phases 36 (b, c) and 37 (c) (``chip_smoke.py
+    --seq-gloo-worker DIR``): two gloo ranks sharing the card, every
+    collective gloo cannot move on CUDA tensors (the ring's send and
+    receive, Ulysses's all_to_all, the mesh's all-gather and
+    reduce-scatter) staged through the host inside
+    ``distributed.host_staging()``, each counted in
+    ``COLLECTIVES["host_staged"]``."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    distributed = importlib.import_module(
+        "apex_tpu_torch.parallel.distributed")
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    ra = importlib.import_module("apex_tpu_torch.parallel.ring_attention")
+    models = importlib.import_module("apex_tpu_torch.models")
+    training = importlib.import_module("apex_tpu_torch.training")
+    main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = multiproc.initialize(device=dev, backend="gloo")
+    info = {}
+    with distributed.host_staging():
+        t0 = time.perf_counter()
+        info.update(_ring_gloo(fa, ra, rank, world, dev))
+        info["ring_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info.update(_sp_lm_gloo(main_amp, rank, dev))
+        info["sp_lm_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info.update(_mesh_gloo(models, main_amp, training, rank, dev))
+        info["mesh_s"] = time.perf_counter() - t0
+    info["collectives"] = {k: c.launches
+                           for k, c in distributed.COLLECTIVES.items()
+                           if c.launches}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multiproc.shutdown()
+    return 0
+
+
+#: the faults ``--sp-gate-faults`` plants in phase 36 (c), each read
+#: against the sound run to place ``SP_LM_RTOL`` between them
+SP_GATE_FAULTS = ("none", "positions", "dropped_step")
+
+
+def sp_fault_worker(out_dir, fault) -> int:
+    """One rank of ``--sp-gate-faults`` (``chip_smoke.py
+    --sp-fault-worker DIR FAULT``): phase 36 (c) with ``fault`` planted
+    at run time: ``positions`` starts every rank's positions at 0,
+    ``dropped_step`` drops each rank's ring step over an earlier shard's
+    keys (its forward part set to out 0, lse -1e30)."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    distributed = importlib.import_module(
+        "apex_tpu_torch.parallel.distributed")
+    main_amp = importlib.import_module("apex_tpu_torch.examples.lm.main_amp")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, _ = multiproc.initialize(device=dev, backend="gloo")
+    if fault == "positions":
+        gpt = importlib.import_module("apex_tpu_torch.models.gpt")
+        gpt.axis_index = lambda axis: 0
+    elif fault == "dropped_step":
+        ra = importlib.import_module("apex_tpu_torch.parallel.ring_attention")
+        fwd = ra._fwd_part
+
+        def dropped(q, k, v, sm_scale, causal, offset):
+            out, lse = fwd(q, k, v, sm_scale, causal, offset)
+            if offset > 0:
+                return torch.zeros_like(out), torch.full_like(lse, -1e30)
+            return out, lse
+        ra._fwd_part = dropped
+    with distributed.host_staging():
+        info = _sp_lm_gloo(main_amp, rank, dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multiproc.shutdown()
+    return 0
+
+
+def sp_gate_faults() -> int:
+    """``chip_smoke.py --sp-gate-faults``: the reach of phase 36 (c)'s
+    gate. Runs it sound and with each of :data:`SP_GATE_FAULTS` planted
+    (two gloo ranks each) and prints each run's largest relative loss
+    difference from ``--sp 1`` beside ``SP_LM_RTOL``; exits 1 if the
+    sound run fails the limit or a fault passes it."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    tmp = tempfile.mkdtemp(prefix="sp_gate_")
+    rels = {}
+    try:
+        for fault in SP_GATE_FAULTS:
+            d = os.path.join(tmp, fault)
+            os.makedirs(d)
+            res = multiproc.spawn(
+                [os.path.abspath(__file__), "--sp-fault-worker", d, fault],
+                SEQ_GLOO_WORLD, f"file://{d}/store", timeout=420,
+                capture=True, env=_child_env(), cwd=REPO_ROOT)
+            if [r["returncode"] for r in res] != [0] * SEQ_GLOO_WORLD:
+                print(f"{fault}: ranks failed: " + " | ".join(
+                    (r["output"] or "")[-3000:] for r in res), flush=True)
+                return 1
+            with open(os.path.join(d, "rank0.json")) as f:
+                info = json.load(f)
+            lm, ref = info["sp_lm_losses"], info["sp1_lm_losses"]
+            rels[fault] = max(abs(a - b) / abs(b) for a, b in zip(lm, ref))
+            print(f"{fault}: losses {lm}, --sp 1 {ref}, rel "
+                  f"{rels[fault]!r} (limit {SP_LM_RTOL})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = rels["none"] <= SP_LM_RTOL and all(
+        r > SP_LM_RTOL for f, r in rels.items() if f != "none")
+    print(json.dumps({"sp_gate": rels, "limit": SP_LM_RTOL, "ok": ok}))
+    return 0 if ok else 1
+
+
+def seq_gloo(tmp):
+    """Phases 36 (b, c) and 37 (c): two gloo ranks sharing the card
+    (``seq_gloo_worker``)."""
+    multiproc = importlib.import_module("apex_tpu_torch.parallel.multiproc")
+    out_dir = os.path.join(tmp, "seq_gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    res = multiproc.spawn([os.path.abspath(__file__), "--seq-gloo-worker",
+                           out_dir], SEQ_GLOO_WORLD,
+                          f"file://{out_dir}/store", timeout=420,
+                          capture=True, env=_child_env(), cwd=REPO_ROOT)
+    wall = time.perf_counter() - t0
+    rcs = [r["returncode"] for r in res]
+    check(rcs == [0] * SEQ_GLOO_WORLD,
+          f"seq_gloo: {SEQ_GLOO_WORLD} ranks exited {rcs} in {wall:.1f} s"
+          + ("" if rcs == [0] * SEQ_GLOO_WORLD else
+             ": " + " | ".join((r["output"] or "")[-3000:] for r in res)))
+    if rcs != [0] * SEQ_GLOO_WORLD:
+        return {}
+    infos = []
+    for r in range(SEQ_GLOO_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+    for dtype, out_tol, grad_tol in (("float32", 2e-5, 5e-4),
+                                     ("bfloat16", 2e-2, 2e-2)):
+        for name in ("ring_flash", "ring", "ulysses"):
+            key = f"{name}_{dtype}"
+            errs = [(i[f"{key}_out_err"], i[f"{key}_grad_rel"])
+                    for i in infos]
+            check(all(o <= out_tol and gr <= grad_tol for o, gr in errs),
+                  f"{key} over 2 gloo ranks (B 8, T 1024, 12 x 64, causal) "
+                  f"vs one process's flash_attention: out err / gradient "
+                  f"rel err a rank {errs} ({out_tol} / {grad_tol})")
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+            "flash_attention_bwd_dkv": 2}
+    got = [i["ring_flash_float32_launches"] for i in infos]
+    check(all(g == want for g in got),
+          f"ring_flash launches a rank {got} (n = 2 of each of kernels "
+          f"10-12: one a ring step)")
+    lm = [i["sp_lm_losses"] for i in infos]
+    ref = infos[0]["sp1_lm_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lm[0], ref))
+    per_step = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+                "flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
+                "flash_attention_bwd_dkv": 24, "xentropy_fwd": 1,
+                "xentropy_bwd": 1}
+    want = {k: v * SP_LM_STEPS for k, v in per_step.items()}
+    launches = [i["sp_lm_launches"] for i in infos]
+    check(lm[0] == lm[1] and rel <= SP_LM_RTOL
+          and all(la == want for la in launches),
+          f"LM --sp 2 --attention ring_flash (GPT-2 small O2 B 8, "
+          f"--seq-len 1025, fused loss, {SP_LM_STEPS} eager steps on 2 gloo "
+          f"ranks): losses {lm[0]} on both ranks, --sp 1 --attention flash "
+          f"{ref}, rel {rel:.3g} ({SP_LM_RTOL}); launches a rank "
+          f"{launches} = {per_step} x {SP_LM_STEPS} (kernels 10-12: "
+          f"2 ring steps x 12 layers a pass)")
+    worst = max(i["mesh_param_rtol"] for i in infos)
+    check(worst <= 1e-6 and all(i["mesh_state_ratio"] <= 0.5 + 0.01
+                                for i in infos),
+          f"mesh fsdp=2 zero=3 over 2 gloo ranks (GPT-2 small O2): "
+          f"parameters after {GLOO_ZERO_STEPS} steps within rtol "
+          f"{worst:.3g} of the replicated two-rank DP step's (1e-6, phase "
+          f"35's); state held a rank {[i['mesh_state_ratio'] for i in infos]}"
+          f" of the whole")
+    print(f"      seq_gloo: {wall:.1f} s (ring {infos[0]['ring_s']:.1f}, "
+          f"LM --sp 2 {infos[0]['sp_lm_s']:.1f} at "
+          f"{infos[0]['sp_lm_step_s'] * 1e3:.1f} ms a step, mesh "
+          f"{infos[0]['mesh_s']:.1f}); collectives a rank "
+          f"{[i['collectives'] for i in infos]}", flush=True)
+    return dict(wall_s=wall, ranks=infos, lm_rel=rel, mesh_param_rtol=worst,
+                ring_lm_launches=launches[0])
+
+
+def mesh_nccl(models, main_amp, training, counters, tmp, dev):
+    """Phase 37 (a, b) in an NCCL group of one: ``make_mesh_train_step``
+    at zero 1, 2 and 3 on GPT-2 small O2 (B 4, T 256), each bit for bit
+    ``make_train_step``'s replicated step after 4 steps (losses and
+    parameters; zero 3's moments too); then zero 3 through
+    ``StepPipeline(wrap=ms.pipeline_wrap(state))`` at K 4, captured with
+    its gather and scatter inside the graph: one capture, 16 / K
+    replays, every state leaf bit for bit 16 eager steps."""
+    import torch.distributed as dist
+    mesh = importlib.import_module("apex_tpu_torch.parallel.mesh")
+    runtime = importlib.import_module("apex_tpu_torch.runtime")
+    bk = importlib.import_module("apex_tpu_torch.multi_tensor.buckets")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/mesh_nccl",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
+        params = {k: v.detach() for k, v in model.state_dict().items()}
+        batch = _lm_batch(MESH_ARGS["b"], MESH_ARGS["t"], 37, dev)
+        loss_fn = _lm_loss_fn(main_amp, model)
+
+        def adam():
+            return training.adam(3e-4, weight_decay=0.1)
+
+        def fresh():
+            return {k: v.clone() for k, v in params.items()}
+        init_fn, step_fn = training.make_train_step(loss_fn, adam(),
+                                                    opt_level="O2")
+        ref = init_fn(fresh())
+        ref_losses = []
+        for _ in range(MESH_ARGS["steps"]):
+            ref, m = step_fn(ref, batch)
+            ref_losses.append(float(m["loss"]))
+        plan = mesh.MeshPlan()
+        for zero in (1, 2, 3):
+            ms = mesh.make_mesh_train_step(loss_fn, adam(), plan, zero=zero,
+                                           opt_level="O2")
+            st = ms.init(fresh())
+            for c in counters.values():
+                c.launches = 0
+            losses = []
+            for _ in range(MESH_ARGS["steps"]):
+                st, m = ms.step_fn(st, plan.device_put_batch(batch))
+                losses.append(float(m["loss"]))
+            launches = {n: c.launches for n, c in counters.items()
+                        if c.launches}
+            full = ms.gather_params(st)
+            same = sum(torch.equal(full[k], ref.params[k]) for k in params)
+            moments = True
+            if zero == 3:
+                store = ms.store()
+                inner = st.opt_state.inner
+                for attr in ("exp_avg", "exp_avg_sq"):
+                    got = store.unpack(bk.Packed(
+                        data=tuple(getattr(s, attr)[:b.size] for s, b in
+                                   zip(inner, store.buckets)), rest=()))
+                    moments = moments and all(
+                        torch.equal(got[k], getattr(ref.opt_state, attr)[k])
+                        for k in params)
+            check(same == len(params) and moments and losses == ref_losses,
+                  f"mesh zero={zero} (NCCL group of one): after "
+                  f"{MESH_ARGS['steps']} O2 steps {same}/{len(params)} "
+                  f"parameters{' and both moments' if zero == 3 else ''} "
+                  f"bit for bit the replicated step's, losses {losses}")
+            out[f"zero{zero}"] = dict(losses=losses, launches=launches)
+            del st
+        # 37 (b): zero 3 through the captured pipeline
+        k = MESH_ARGS["k"]
+        ms = mesh.make_mesh_train_step(loss_fn, adam(), plan, zero=3,
+                                       opt_level="O2")
+        st = ms.init(fresh())
+        pipe = runtime.StepPipeline(ms.step_fn, k,
+                                    wrap=ms.pipeline_wrap(st))
+        window = tuple(t.unsqueeze(0).expand(k, *t.shape).contiguous()
+                       for t in batch)
+        pipe.warmup(st, window)
+        for _ in range(16 // k):
+            st, metrics = pipe.step_window(st, window)
+        eager = ms.init(fresh())
+        for _ in range(16):
+            eager, _ = ms.step_fn(eager, batch)
+        leaves = torch.utils._pytree.tree_leaves((st.params, st.opt_state))
+        want = torch.utils._pytree.tree_leaves((eager.params,
+                                                eager.opt_state))
+        same = sum(torch.equal(a, b) for a, b in zip(leaves, want))
+        stats = pipe.stats
+        check(same == len(want) and stats["captures"]["hot"] == 1
+              and stats["replays"] == 16 // k,
+              f"mesh zero=3 StepPipeline(wrap=) K {k} captured (gather and "
+              f"scatter in the graph): {same}/{len(want)} state leaves bit "
+              f"for bit 16 eager steps; captures {stats['captures']}, "
+              f"replays {stats['replays']} (1, {16 // k})")
+        out["pipeline"] = dict(same_leaves=same, leaves=len(want),
+                               captures=stats["captures"]["hot"],
+                               replays=stats["replays"])
+    finally:
+        # the group, and the mesh's axes and sub-groups cached on it
+        importlib.import_module(
+            "apex_tpu_torch.parallel.multiproc").shutdown()
+    return out
+
+
+def _kernel_counters():
+    """Every kernel's wrapper (its launch counter) by the kernel's name."""
+    mod = importlib.import_module
+    fln = mod("apex_tpu_torch.normalization.fused_layer_norm")
+    fa = mod("apex_tpu_torch.ops.flash_attention")
+    fba = mod("apex_tpu_torch.normalization.fused_bn_act")
+    xent = mod("apex_tpu_torch.contrib.xentropy")
+    cv = mod("apex_tpu_torch.ops.conv")
+    qk = mod("apex_tpu_torch.quant.kernels")
+    return {
+        "layer_norm_fwd": fln.layer_norm_fwd_kernel,
+        "layer_norm_bwd": fln.layer_norm_bwd_kernel,
+        "flash_attention_fwd": fa.flash_fwd_kernel,
+        "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+        "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel,
+        "bn_act_fwd": fba.bn_act_fwd_kernel,
+        "bn_act_bwd": fba.bn_act_bwd_kernel,
+        "xentropy_fwd": xent.xentropy_fwd_kernel,
+        "xentropy_bwd": xent.xentropy_bwd_kernel,
+        "conv_fwd": cv.conv_fwd_kernel,
+        "conv_dgrad": cv.conv_dgrad_kernel,
+        "conv_wgrad": cv.conv_wgrad_kernel,
+        "qmm": qk.qmm_kernel,
+        "flash_attention_bwd_db2": fa.flash_bwd_db2_kernel}
 
 
 def main(argv=None) -> int:
@@ -6085,6 +6655,13 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--shard-gloo-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--seq-gloo-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sp-fault-worker", default=None, nargs=2,
+                    metavar=("DIR", "FAULT"), help=argparse.SUPPRESS)
+    ap.add_argument("--sp-gate-faults", action="store_true",
+                    help="only run phase 36 (c) sound and with faults "
+                         "planted, against its limit")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6094,6 +6671,12 @@ def main(argv=None) -> int:
         return ddp_gloo_worker(args.ddp_gloo_worker)
     if args.shard_gloo_worker:
         return shard_gloo_worker(args.shard_gloo_worker)
+    if args.seq_gloo_worker:
+        return seq_gloo_worker(args.seq_gloo_worker)
+    if args.sp_fault_worker:
+        return sp_fault_worker(*args.sp_fault_worker)
+    if args.sp_gate_faults:
+        return sp_gate_faults()
     fln = importlib.import_module(
         "apex_tpu_torch.normalization.fused_layer_norm")
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
@@ -6190,21 +6773,7 @@ def main(argv=None) -> int:
         print(f"      ptxas {name}: "
               + " | ".join(r.strip() for r in report[:36]), flush=True)
 
-    counters = {
-        "layer_norm_fwd": fln.layer_norm_fwd_kernel,
-        "layer_norm_bwd": fln.layer_norm_bwd_kernel,
-        "flash_attention_fwd": fa.flash_fwd_kernel,
-        "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
-        "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel,
-        "bn_act_fwd": fba.bn_act_fwd_kernel,
-        "bn_act_bwd": fba.bn_act_bwd_kernel,
-        "xentropy_fwd": xent.xentropy_fwd_kernel,
-        "xentropy_bwd": xent.xentropy_bwd_kernel,
-        "conv_fwd": cv.conv_fwd_kernel,
-        "conv_dgrad": cv.conv_dgrad_kernel,
-        "conv_wgrad": cv.conv_wgrad_kernel,
-        "qmm": qk.qmm_kernel,
-        "flash_attention_bwd_db2": fa.flash_bwd_db2_kernel}
+    counters = _kernel_counters()
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
     fa_cases = flash_cases(fa, dev)                # phase 4
     same_as_was = (flash_same_as_was(fa, load_was(args.was,
@@ -6342,6 +6911,17 @@ def main(argv=None) -> int:
         print(f"      phases 33-35: {gen['phase_s']:.1f} s, "
               f"{rnn['phase_s']:.1f} s, {sharding['phase_s']:.1f} s",
               flush=True)
+        t36 = time.perf_counter()
+        seq = {"offsets": ring_kernel_offsets(fa, dev)}                # 36
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq["mesh_nccl"] = mesh_nccl(models, main_amp, training,      # 37
+                                     counters, tmp, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq["gloo"] = seq_gloo(tmp)                            # 36b-c, 37c
+        seq["phase_s"] = time.perf_counter() - t36
+        print(f"      phases 36-37: {seq['phase_s']:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths = {"serving": serving["launches"], "training": trained["launches"],
@@ -6358,7 +6938,9 @@ def main(argv=None) -> int:
              "ddp_nccl": data_parallel["ddp_nccl"]["launches"],
              "ddp_gloo": data_parallel["ddp_gloo"]["launches"],
              "generate": gen["float32"]["launches"],
-             "zero1_lm": sharding["zero1_nccl"]["launches"]}
+             "zero1_lm": sharding["zero1_nccl"]["launches"],
+             "ring_lm": seq["gloo"].get("ring_lm_launches", {}),
+             "mesh_zero3": seq["mesh_nccl"]["zero3"]["launches"]}
 
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
@@ -6450,6 +7032,7 @@ def main(argv=None) -> int:
                                       "serving": serve_tel},
                            profiling=profiling, tune=tuned,
                            generate=gen, rnn=rnn, sharding=sharding,
+                           sequence_and_mesh=seq,
                            o4_calibration=calib.state_dict(),
                            elapsed_s=elapsed, failures=FAILURES), f,
                       indent=1)

@@ -12,7 +12,7 @@ smoothing 0.1, ``padding_idx=-1``) at O2 for three steps with the
 bucketed LAMB and the bucketed Adam (losses rtol 2e-2, parameters within
 2e-2 and a tenth of the learning rate: bf16 activations, Adam's and
 LAMB's per-element normalisation); the conversions; and the refusals of
-``sp_axis`` and ``ring``.  The CPU runs the kernels' plain versions;
+``sp_axis`` and ``ring`` (held in ``test_torch_ring_attention.py``).  The CPU runs the kernels' plain versions;
 ``chip_smoke.py`` runs BERT-base on the card.
 """
 
@@ -201,11 +201,15 @@ def test_o2_bert_step_bucketed_matches_jax(params, opt, lr):
 
 
 def test_not_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="sp_axis"):
-        bert_tiny(sp_axis="sp", device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        bert_tiny(attention_impl="ring", device="cpu")
-    with pytest.raises(NotImplementedError, match="ulysses"):
-        BertSelfAttention(32, 2, attention_impl="ulysses", device="cpu")
+    """The sequence-parallel impls and ``sp_axis`` are ported
+    (``tests/test_torch_ring_attention.py`` holds them against JAX over
+    gloo ranks): they build, and a padding mask is refused on them, as in
+    JAX; an impl JAX lacks still raises."""
+    m = bert_tiny(attention_impl="ring", sp_axis="sp", device="cpu")
+    assert m.sp_axis == "sp" and m.layer_0.attention.sp_axis == "sp"
+    att = BertSelfAttention(32, 2, attention_impl="ulysses", sp_axis="sp",
+                            device="cpu")
+    with pytest.raises(ValueError, match="no padding mask"):
+        att(torch.zeros(1, 4, 32), torch.ones(1, 4))
     with pytest.raises(ValueError, match="unknown attention_impl"):
         BertSelfAttention(32, 2, attention_impl="sparse", device="cpu")

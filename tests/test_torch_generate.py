@@ -11,7 +11,7 @@ BERT attention against the JAX package's, on the same weights (flax
   the steps equal JAX's;
 * BERT's self-attention in decode mode, sampling (deterministic for a
   generator, inside the vocabulary), truncation at ``max_len`` and the
-  ``sp_axis`` refusal.
+  ``sp_axis`` refusal (JAX's).
 """
 
 import numpy as np
@@ -217,9 +217,14 @@ def test_generate_sampling_and_truncation():
 
 
 def test_generate_rejects_sp_models():
-    with pytest.raises(NotImplementedError, match="sp_axis"):
-        GPT(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
-            mlp_dim=64, max_len=16, sp_axis="sp", device="cpu")
+    """A model built for sequence parallelism (``sp_axis``, ported) is
+    refused by ``generate``, as JAX's refuses it
+    (``apex_tpu/models/gpt.py:220-222``)."""
+    sp = GPT(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+             mlp_dim=64, max_len=16, attention_impl="ring", sp_axis="sp",
+             device="cpu")
+    with pytest.raises(ValueError, match="without sp_axis"):
+        generate(sp, sp, np.ones((1, 2), np.int64), 4)
     m = gpt_tiny(max_len=16, device="cpu")
     m.sp_axis = "sp"          # as a model built for sequence parallelism
     with pytest.raises(ValueError, match="without sp_axis"):

@@ -132,8 +132,12 @@ def test_not_ported_paths_raise():
         full = gpt_tiny(**CFG, device="cpu")(ids[:, :1])
     torch.testing.assert_close(logits, full, rtol=1e-5, atol=1e-5)
     assert int(cache["pos_index"]) == 1
-    with pytest.raises(NotImplementedError, match="ring"):
-        gpt_tiny(attention_impl="ring", device="cpu")
+    # the ring impls are ported (test_torch_ring_attention.py): a ring
+    # model builds, and its sp axis needs a process group to run
+    ring = gpt_tiny(attention_impl="ring", sp_axis="sp", device="cpu")
+    assert ring.sp_axis == "sp"
+    with pytest.raises((RuntimeError, ValueError)):
+        ring(ids)
     # quant= is ported: every projection is a QuantDenseGeneral named by
     # its flax path, and the LM head stays plain
     from apex_tpu_torch.quant import QuantConfig, QuantDenseGeneral

@@ -2268,3 +2268,66 @@ def test_zero1_nccl_group_of_one_equals_replicated(cuda_device, tmp_path):
                            zs.opt_state.inner.exp_avg_sq[:n])
     finally:
         dist.destroy_process_group()
+
+
+def _ring_case(dev, dtype, tq, h, d, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(2, tq, h, d).astype(np.float32))
+            .to(dev, dtype) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [-512, -1024, -475, 0, 37, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)])
+@pytest.mark.parametrize("tq", [512, 8])
+def test_flash_kernels_at_signed_ring_offsets(cuda_device, offset, causal,
+                                              dtype, atol, tq):
+    """Kernels 10-12 at the ring's relative offsets ``q_off - k_off``
+    (negative, zero, positive multiples of the shard, a non-multiple, a
+    shard two ahead): the forward (tensor cores for bf16/fp16, SIMT for
+    fp32, split-KV with its combine for q_len 8) against its plain
+    version, a row that sees no key giving ``out = 0`` and ``lse =
+    -1e30``; dQ and dK/dV against theirs with a global ``lse`` (finite on
+    every row, as the ring's), hidden rows and unseen keys giving zero
+    gradients; no NaN anywhere."""
+    q, k, v, do = _ring_case(cuda_device, dtype, tq, 12, 64, 19)
+    if tq != 512:
+        k, v = (_ring_case(cuda_device, dtype, 512, 12, 64, 20)[i]
+                for i in (0, 1))
+    kw = dict(sm_scale=0.125, causal=causal, q_offset=offset)
+    out, lse = fa.flash_fwd_kernel(q, k, v, None, None, **kw)
+    want_out, want_lse = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out.float()).any() and not torch.isnan(lse).any()
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    rows = torch.arange(tq, device=cuda_device)
+    hidden = (offset + rows < 0) if causal else torch.zeros_like(rows, dtype=torch.bool)
+    if hidden.any():
+        assert (out[:, hidden] == 0).all()
+        assert (lse[:, :, hidden] == fa.NEG_INF).all()
+    # the global lse of a ring: finite on every row
+    glse = torch.where(lse == fa.NEG_INF, torch.full_like(lse, 0.5),
+                       torch.logaddexp(lse, torch.full_like(lse, 0.5)))
+    glse = glse.contiguous()
+    delta = fa._delta(do, out)
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, glse, delta, None, None, **kw)
+    dk, dv, _ = fa.flash_bwd_dkv_kernel(q, k, v, do, glse, delta, None,
+                                        None, **kw)
+    wq, wk, wv, _, _ = fa._flash_bwd_ref(q, k, v, None, None, out, glse, do,
+                                         **kw)
+    torch.cuda.synchronize()
+    for got, want in ((dq, wq), (dk, wk), (dv, wv)):
+        assert not torch.isnan(got.float()).any()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=atol)
+    if hidden.any():
+        assert (dq[:, hidden] == 0).all()
+    if causal:
+        unseen = torch.arange(k.shape[1], device=cuda_device) > offset + tq - 1
+        if unseen.any():
+            assert (dk[:, unseen] == 0).all() and (dv[:, unseen] == 0).all()

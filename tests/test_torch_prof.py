@@ -605,6 +605,32 @@ def test_kernel_costs_are_chip_smokes_formulas():
                         window=None)
     assert f.flops == 4.0 * 12 * 64 * 8 * (1023 * 1024 // 2)
     assert costs.visible_pairs(1, 4, 4, True, 0, 2, None) == 1 + 2 + 2 + 2
+    # the ring's signed offsets: a shard ahead hides rows, one behind
+    # shows every key
+    assert costs.visible_pairs(1, 4, 4, True, -2, None, None) == 1 + 2
+    assert costs.visible_pairs(1, 4, 4, True, -4, None, None) == 0
+    assert costs.visible_pairs(1, 4, 4, True, 4, None, None) == 16
+    # what a ring step must read: the rows that see a key and the keys a
+    # row sees; a shard wholly ahead reads nothing and writes its zeros
+    assert costs.seen_rows_keys(4, 4, True, -2, None, None) == (2, 2)
+    assert costs.seen_rows_keys(4, 4, True, -4, None, None) == (0, 0)
+    assert costs.seen_rows_keys(4, 4, True, 4, None, None) == (4, 4)
+    assert costs.seen_rows_keys(4, 8, True, 0, None, None) == (4, 4)
+    assert costs.seen_rows_keys(4, 8, True, 4, 2, None) == (4, 5)
+    assert costs.seen_rows_keys(4, 4, False, -4, None, None) == (4, 4)
+    r = torch.empty((8, 512, 12, 64), dtype=torch.bfloat16, device="meta")
+    kw = dict(causal=True, window=None)
+    out_b, lse_b = r.numel() * 2, 8 * 12 * 512 * 4
+    hidden = [f(r, r, r, None, None, q_offset=-512, **kw)
+              for f in (costs.flash_fwd, costs.flash_bwd_dq,
+                        costs.flash_bwd_dkv)]
+    assert [(c.flops, c.bytes) for c in hidden] == [
+        (0.0, out_b + lse_b), (0.0, out_b), (0.0, 2 * out_b)]
+    behind = [f(r, r, r, None, None, q_offset=512, **kw)
+              for f in (costs.flash_fwd, costs.flash_bwd_dq,
+                        costs.flash_bwd_dkv)]
+    assert [c.bytes for c in behind] == [
+        4 * out_b + lse_b, 5 * out_b + 2 * lse_b, 6 * out_b + 2 * lse_b]
     kb = torch.tensor([[0.0, 0.0, -1e9]])
     assert costs.visible_pairs(1, 1, 3, True, 2, None, kb) == 2
 

@@ -255,8 +255,13 @@ def test_pipeline_rejects_what_it_does_not_take():
     _, (init, step, to_torch), make_batches = _gpt_pair(None)
     with pytest.raises(ValueError):
         runtime.StepPipeline(step, k=0)
-    with pytest.raises(NotImplementedError, match="wrap"):
-        runtime.StepPipeline(step, k=2, wrap=lambda f: f)
+    # wrap= is ported: the hook turns each window function into this
+    # rank's (test_torch_mesh.py, the LM trainer's --sp); here it sees the
+    # hot loop's and the tail loop's
+    seen = []
+    pipe = runtime.StepPipeline(step, k=2,
+                                wrap=lambda f: seen.append(f) or f)
+    assert len(seen) == 2 and pipe.loop is seen[0]
     # telemetry= is ported: the pinned recorder gets the window events
     rec = telemetry.Recorder(io.StringIO())
     assert runtime.StepPipeline(step, k=2, telemetry=rec)._rec() is rec

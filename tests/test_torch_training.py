@@ -394,7 +394,8 @@ def test_port_continues_a_jax_train_state(flax_params):
 
 
 def test_not_ported_arguments_raise():
-    """``param_view`` raises naming its ROADMAP item; the data-parallel
+    """``param_view`` is ported (the ZeRO-3 view, ``tests/test_torch_mesh
+    .py``): an identity view steps as no view does; the data-parallel
     arguments are ported (``tests/test_torch_distributed.py``), and so is
     ``reduce_grads=False`` (the zero1 path, ``tests/test_torch_sharding
     .py``): without a group it builds, and with one it takes the group;
@@ -405,9 +406,19 @@ def test_not_ported_arguments_raise():
     with pytest.raises(RuntimeError, match="multiproc.initialize"):
         training.make_train_step(lambda p, b: 0, training.adam(),
                                  axis_name="data", reduce_grads=False)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        training.make_train_step(lambda p, b: 0, training.adam(),
-                                 param_view=lambda p: p)
+    views = []
+
+    def loss_fn(p, b):
+        return (p["w"] * b).sum()
+    states = []
+    for view in (None, lambda p: views.append(1) or p):
+        init, step = training.make_train_step(loss_fn, training.adam(0.1),
+                                              opt_level="O0",
+                                              param_view=view)
+        st, _ = step(init({"w": torch.ones(3)}), torch.arange(3.0))
+        states.append(st)
+    assert views == [1]
+    assert torch.equal(states[0].params["w"], states[1].params["w"])
     with pytest.raises(RuntimeError, match="multiproc.initialize"):
         training.make_train_step(lambda p, b: 0, training.adam(),
                                  axis_name="data")
@@ -463,8 +474,8 @@ def test_lm_trainer_attention_flag_matches_jax_losses(attention,
     ``attention_impl``), fused loss and Adam step (``main_amp.py:192-243``)
     from the same weights on the same synthetic batch, at rtol 1e-4 (the
     model computes in bf16 on both sides, in different summation orders;
-    the worst seen is 3.4e-5); ring, ring_flash and ulysses are refused
-    naming the sharding item; ``--window`` needs flash, as in the JAX
+    the worst seen is 3.4e-5); ring, ring_flash and ulysses need ``--sp``
+    and ``--sp`` needs them, as in the JAX example; ``--window`` needs flash, as in the JAX
     example (``main_amp.py:186-187``)."""
     import importlib.util
     import os
@@ -510,8 +521,13 @@ def test_lm_trainer_attention_flag_matches_jax_losses(attention,
         np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
                                    rtol=1e-4, err_msg=f"step {i}")
     for impl in ("ring", "ring_flash", "ulysses"):
-        with pytest.raises(SystemExit, match="queue 1 item 3"):
+        # sequence parallel: they need --sp > 1 (test_torch_ring_attention
+        # .py runs --sp 2), and --sp > 1 needs one of them
+        with pytest.raises(SystemExit, match="--sp > 1"):
             main_amp.build(main_amp.parse(TINY + ["--attention", impl]))
+    with pytest.raises(SystemExit, match="shard-local"):
+        main_amp.build(main_amp.parse(TINY + ["--attention", attention,
+                                              "--sp", "2"]))
     if attention != "flash":
         with pytest.raises(SystemExit, match="--window needs --attention "
                                              "flash"):
