@@ -155,10 +155,12 @@ class Captured:
     ``static_args`` are the graph's inputs and ``out`` its outputs, both
     rewritten in place by every replay; ``launches`` maps each kernel
     wrapper the graph holds to its launches a replay (added to the
-    wrapper's counter at every replay).  Calling the object copies each
-    tensor argument into its static input (``non_blocking``, so a pinned
-    host tensor copies asynchronously), skipping an argument that is
-    that static input already, replays the graph and returns ``out``.
+    wrapper's counter at every replay), ``routes`` each wrapper with a
+    ``routes`` dict to its launches a replay by route.  Calling the
+    object copies each tensor argument into its static input
+    (``non_blocking``, so a pinned host tensor copies asynchronously),
+    skipping an argument that is that static input already, replays the
+    graph and returns ``out``.
     Non-tensor arguments were fixed at capture and must not change.
     """
 
@@ -182,6 +184,8 @@ class Captured:
                     fn(*self.static_args)
             self.graph = torch.cuda.CUDAGraph()
             before = {w: w.launches for w in _build.COUNTED}
+            routes = {w: dict(w.routes) for w in _build.COUNTED
+                      if hasattr(w, "routes")}
             # thread_local: a loader thread may stage windows on its own
             # stream while this thread captures
             with torch.cuda.graph(self.graph, pool=pool, stream=stream,
@@ -195,6 +199,13 @@ class Captured:
                          if w.launches != before.get(w, 0)}
         for w, n in self.launches.items():
             w.launches -= n
+        # a wrapper's launches by route (``flash_fwd_kernel.routes``) alike
+        self.routes = {w: {r: w.routes[r] - n for r, n in was.items()
+                           if w.routes[r] != n}
+                       for w, was in routes.items()}
+        for w, moved in self.routes.items():
+            for r, n in moved.items():
+                w.routes[r] -= n
 
     def __call__(self, *args):
         leaves, spec = pytree.tree_flatten(args)
@@ -212,6 +223,9 @@ class Captured:
         self.graph.replay()
         for w, n in self.launches.items():
             w.launches += n
+        for w, moved in self.routes.items():
+            for r, n in moved.items():
+                w.routes[r] += n
         return self.out
 
 

@@ -44,11 +44,14 @@
 //    the LM's B 8, T 1023 that is 1,536 blocks, at a B 1 prefill 192.
 //    Two 16-row tiles a warp (128-row blocks) measured slower at every
 //    phase-4 shape on the H100: the registers they need leave one block
-//    an SM.  `wgmma` and TMA are later work.  Query tiles are issued
-//    longest first, so causal blocks with the most keys start earliest.
-//    The tile is the rule's; the tuner (apex_tpu_torch.tune) may name
-//    another of the same kernel at widths 64 and 128: 64 x 32, 64 x 128,
-//    128 x 64 (8 warps of 16 rows) or 128 x 128 (`launch_mma_tile`).
+//    an SM.  Query tiles are issued longest first, so causal blocks with
+//    the most keys start earliest.  At widths 33-128 the wrapper routes
+//    these calls to flash_attention_sm90.cu (`wgmma` and TMA, faster at
+//    every phase-4 shape: PERF.md row 10) wherever TMA can read the
+//    views; this kernel keeps widths 16 and 32, views TMA refuses, and
+//    any call that names one of its tiles: the rule's 64 x 64, or at
+//    widths 64 and 128 64 x 32, 64 x 128, 128 x 64 (8 warps of 16 rows)
+//    or 128 x 128 (`launch_mma_tile`).
 //  * fp32 prefill keeps a SIMT kernel in full fp32 (the tensor cores would
 //    round to TF32): 64 query rows, two threads a row, FMA loops.  Width
 //    256 takes the same kernel for every dtype (p rounded to v's dtype),

@@ -15,10 +15,12 @@ its forward saves ``out`` and the fp32 ``lse``, its backward recomputes
 ``p = exp(s - lse)`` tile by tile.  Dispatch is by the tensors' device and
 nothing else: CPU tensors take :func:`_flash_fwd_ref` and
 :func:`_flash_bwd_ref`; CUDA tensors launch the kernels of
-``csrc/flash_attention.cu`` (forward, every shape: tensor cores for
-bf16/fp16 prefill, a full-fp32 SIMT kernel for fp32, split-KV with a
-combine for ``q_len < 16`` — the TPU's block sizes and measured
-crossovers do not carry over) and ``csrc/flash_attention_bwd.cu`` (dQ,
+``csrc/flash_attention_sm90.cu`` (the forward of bf16/fp16 prefill at
+widths 33-128 on ``wgmma`` and TMA) and ``csrc/flash_attention.cu`` (the
+forward's other routes: ``mma.sync`` tensor cores for bf16/fp16 at
+widths up to 32 or views TMA cannot read, a full-fp32 SIMT kernel for
+fp32 and widths above 128, split-KV with a combine for ``q_len < 16`` —
+the TPU's block sizes and measured crossovers do not carry over) and ``csrc/flash_attention_bwd.cu`` (dQ,
 dK/dV and, when a ``[B, T, S]`` bias needs a gradient, its head-summed
 gradient), or raise.  The kernels take fp32, bf16 and fp16 and any head
 width, as the JAX package does: up to 256 in the next of 16, 32, 64,
@@ -34,12 +36,24 @@ say what bounds them on the card and how they are laid out.  A per-head
 the plain, differentiable path on either device, as JAX takes its jnp
 ``blockwise_attention``.
 
+The route.  :func:`flash_fwd_kernel` picks one kernel a call
+(:func:`_route`, counted in ``flash_fwd_kernel.routes``): ``split`` for
+``q_len < 16``; ``simt`` for fp32 and widths above 128; else ``wgmma``
+where every view meets TMA's rules (:func:`_tma_ok`: 16-byte aligned
+bases, strides multiples of 16 bytes, the width a multiple of 8) at
+widths 33-128, and ``mma`` (``mma.sync``) otherwise, widths 16 and 32
+included.  A view TMA cannot read is routed to ``mma`` by that rule, never
+by a failed launch; a ``wgmma`` tile asked for on such a view raises.
+
 The tile.  ``flash_attention(block_q=, block_k=)`` (JAX's names) sets the
-forward's tile: the tensor-core kernel's query rows and keys a tile
-(:func:`tiles`: the rule's 64 x 64 at every width; 64 x 32, 64 x 128,
-128 x 64 and 128 x 128 at widths 64 and 128), and on the split-KV decode
-path ``block_k`` is the chunk of keys a block reads (a multiple of 32,
-as many as its shared memory holds; ``block_q`` has no meaning there).
+forward's tile, and the tile names the kernel: the ``wgmma`` kernel's
+64 x 96, 128 x 96, 64 x 160 and 128 x 160 (query rows by keys; 64 rows a
+consumer warpgroup) at widths 64 and 128, the ``mma.sync`` kernel's
+64 x 64 at every width and 64 x 32, 64 x 128, 128 x 64 and 128 x 128 at
+widths 64 and 128 (:func:`tiles`; a half left at None is 64).  The rule
+is :func:`rule_tile`.  On the split-KV decode path ``block_k`` is the
+chunk of keys a block reads (a multiple of 32, as many as its shared
+memory holds; ``block_q`` has no meaning there).
 The fp32 and wide-head SIMT kernels and the backward kernels keep their
 rule's tile.  Left at None, a CUDA call consults the tuner's cache for
 this shape's bucket (:func:`tune_bucket`, the JAX package's string,
@@ -71,14 +85,18 @@ _SPLIT_TQ = 16
 #: keys per split-KV chunk: at least a few passes of a block, at most
 #: what its shared-memory score rows hold
 _MIN_CHUNK, _MAX_CHUNK = 64, 512
-#: the tensor-core forward's tile by the rule, and the tuner's other
-#: tiles, instantiated at the widths in ``_TUNED_DIMS``
+#: the ``mma.sync`` forward's tile by its rule, and its other tiles,
+#: instantiated at the widths in ``_TUNED_DIMS``
 _RULE_TILE = (64, 64)
 _TUNED_TILES = ((64, 32), (64, 128), (128, 64), (128, 128))
 _TUNED_DIMS = (64, 128)
+#: the ``wgmma`` forward's tiles (``csrc/flash_attention_sm90.cu``), at
+#: the widths in ``_TUNED_DIMS``: 64 or 128 query rows by 96 or 160 keys
+_WGMMA_TILES = ((64, 96), (128, 96), (64, 160), (128, 160))
 
-#: the tuner's config version of the flash forward
-TUNE_VERSION = 1
+#: the tuner's config version of the flash forward (2: the ``wgmma``
+#: rule and tiles)
+TUNE_VERSION = 2
 
 
 def tune_bucket(tq: int, tk: int, d: int, causal: bool, has_bias: bool,
@@ -91,31 +109,57 @@ def tune_bucket(tq: int, tk: int, d: int, causal: bool, has_bias: bool,
 
 
 def tiles(d: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
-    """The tensor-core forward's tiles ``(block_q, block_k)`` for head
-    width ``d`` and ``dtype``: none for fp32 and widths above 128 (the
-    SIMT kernel has no tile knob)."""
+    """The tensor-core forwards' tiles ``(block_q, block_k)`` for head
+    width ``d`` and ``dtype``, each naming one kernel: at widths 64 and
+    128 the ``wgmma`` kernel's (the rule, :func:`rule_tile`, is one of
+    them) and then the ``mma.sync`` kernel's; at 16 and 32 the ``mma.sync``
+    rule's 64 x 64 alone; none for fp32 and widths above 128 (the SIMT
+    kernel has no tile knob)."""
     dk = _kernel_dim(d)
     if dtype == torch.float32 or dk > 128:
         return ()
-    return (_RULE_TILE,) + (_TUNED_TILES if dk in _TUNED_DIMS else ())
+    if dk not in _TUNED_DIMS:
+        return (_RULE_TILE,)
+    return _WGMMA_TILES + (_RULE_TILE,) + _TUNED_TILES
+
+
+def rule_tile(d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The forward's tile by the rule for a prefill of head width ``d``
+    (the split-KV chunk is :func:`_kv_split`'s): in bf16 and fp16 the
+    ``wgmma`` kernel's 64 x 96 at width 64 (three blocks an SM) and its
+    128 x 96 at 128, each the fastest tile at every phase-4 shape of
+    ``chip_smoke.py`` on the H100; else the ``mma.sync`` rule's 64 x 64
+    (the SIMT kernel ignores it).  A call whose views TMA cannot read
+    takes the ``mma.sync`` rule instead (:func:`_route`)."""
+    dk = _kernel_dim(d)
+    if dtype == torch.float32 or dk not in _TUNED_DIMS:
+        return _RULE_TILE
+    return (64, 96) if dk == 64 else (128, 96)
+
+
+def _is_wgmma(tile) -> bool:
+    return tile is not None and tuple(tile) in _WGMMA_TILES
 
 
 def tile_fits(tq: int, d: int, dtype: torch.dtype, tile: Tuple[int, int],
               bias: bool = False) -> bool:
-    """Whether the forward kernel takes ``tile`` for ``tq`` query rows of
-    width ``d`` in ``dtype`` (with a ``[B, T, S]`` bias or none): a
-    tensor-core tile it is instantiated at whose stages fit the block's
-    shared memory, or on decode (``tq`` < 16) a chunk of ``tile[1]``
-    keys its block holds.  The kernel's own check, asked of the built
-    library without a launch, so only on the card."""
+    """Whether the forward kernel that ``tile`` names takes it for ``tq``
+    query rows of width ``d`` in ``dtype`` (with a ``[B, T, S]`` bias or
+    none): a tensor-core tile it is instantiated at whose stages fit the
+    block's shared memory, or on decode (``tq`` < 16) a chunk of
+    ``tile[1]`` keys its block holds.  The kernel's own check, asked of
+    the built library without a launch, so only on the card."""
     decode = tq < _SPLIT_TQ
     prm = _FlashParams(tq=tq, splits=int(decode),
                        chunk=int(tile[1]) if decode else 0,
                        bias=1 if bias and not decode else None)
     mma = (-1, -1) if decode else (int(tile[0]), int(tile[1]))
+    dk, code = _kernel_dim(d), _build.dtype_code(dtype)
+    if not decode and _is_wgmma(mma):
+        return _wgmma_lib().flash_attention_fwd_wgmma_check(
+            ctypes.byref(prm), dk, code, *mma) == 0
     return _fwd_lib().flash_attention_fwd_check(
-        ctypes.byref(prm), _kernel_dim(d), _build.dtype_code(dtype),
-        *mma) == 0
+        ctypes.byref(prm), dk, code, *mma) == 0
 
 
 # -- plain versions -------------------------------------------------------------
@@ -317,6 +361,18 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_sm90")
+    fn = lib.flash_attention_fwd_wgmma
+    fn.argtypes = [ctypes.POINTER(_FlashParams)] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check = lib.flash_attention_fwd_wgmma_check
+    check.argtypes = [ctypes.POINTER(_FlashParams)] + [ctypes.c_int] * 4
+    check.restype = ctypes.c_int
+    return lib
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv,
@@ -392,6 +448,48 @@ def _vec16(d: int, *tensors) -> int:
         for t in tensors))
 
 
+def _tma_ok(d: int, *tensors, bias=None) -> bool:
+    """Whether the ``wgmma`` kernel's TMA loads and store can read every
+    view in place: ``d`` a multiple of 8 (the contiguous output's rows),
+    each of q, k, v and out starting on a 16-byte boundary with every
+    stride but the last (of a dimension longer than 1) a nonzero multiple
+    of 8 elements (16 bytes), and the fp32 ``[B, T, S]`` bias, when
+    there is one, 16-byte aligned with its row stride a nonzero multiple
+    of 4 and its batch stride a multiple of 4 (0, a broadcast batch, is
+    read as one row of batches).  The routing rule: a call that breaks
+    it runs the ``mma.sync`` kernel."""
+    if d % 8:
+        return False
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        for s, n in zip(t.stride()[:-1], t.shape[:-1]):
+            if n > 1 and (s % 8 or not s):
+                return False
+    if bias is None:
+        return True
+    return (bias.data_ptr() % 16 == 0
+            and (bias.shape[0] == 1 or bias.stride(0) % 4 == 0)
+            and (bias.shape[1] == 1 or (bias.stride(1) % 4 == 0
+                                        and bias.stride(1) != 0)))
+
+
+def _route(tq: int, d: int, dtype: torch.dtype, tile, tma: bool) -> str:
+    """The kernel a forward call runs (the key of
+    ``flash_fwd_kernel.routes`` it counts in): ``split`` for ``tq`` < 16,
+    ``simt`` for fp32 and widths above 128, ``wgmma`` for a tile of
+    ``_WGMMA_TILES`` or, with no tile, at widths 64 and 128 where the
+    views meet TMA's rules (``tma``, :func:`_tma_ok`), else ``mma``."""
+    dk = _kernel_dim(d)
+    if tq < _SPLIT_TQ:
+        return "split"
+    if dtype == torch.float32 or dk > 128:
+        return "simt"
+    if tile is not None:
+        return "wgmma" if _is_wgmma(tile) else "mma"
+    return "wgmma" if dk in _TUNED_DIMS and tma else "mma"
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -423,24 +521,29 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA forward kernel: the arguments of
     :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
-    ``(out, lse)``.  ``q_len >= 16`` runs one kernel (tensor cores for
-    bf16/fp16 up to width 128, fp32 FMA for fp32 and above 128); a
-    shorter call runs the split-KV
-    kernel and its combine (:func:`_flash_fwd_split_ref` is their
-    arithmetic), with fp32 scratch allocated here.  ``tile``: ``(block_q,
-    block_k)``, None for the rule; the tensor-core kernel takes one of
-    :func:`tiles` (a half at -1 is the rule's), the split-KV path a chunk
-    of ``block_k`` keys, the SIMT kernel none; one the kernel refuses
-    (:func:`tile_fits`) raises ``ValueError``.  ``q_offset`` may be any
-    signed value (ring attention passes ``q_off - k_off``): a row that
-    sees no key gives ``out = 0`` and ``lse = NEG_INF``, and the kernels
-    skip every key tile no row of a block sees (chip_smoke phase 36).
-    Adds one to ``flash_fwd_kernel.launches`` per call."""
+    ``(out, lse)``.  ``q_len >= 16`` runs one kernel: the ``wgmma`` one
+    for bf16/fp16 at widths 33-128 where TMA can read the views, else
+    ``mma.sync`` tensor cores up to width 128, fp32 FMA for fp32 and above
+    128 (:func:`_route`); a shorter call runs the split-KV kernel and its
+    combine (:func:`_flash_fwd_split_ref` is their arithmetic), with fp32
+    scratch allocated here.  ``tile``: ``(block_q, block_k)``, None for
+    the rule (:func:`rule_tile`); a tensor-core tile names its kernel (a
+    half at -1 is 64), the split-KV path takes a chunk of ``block_k``
+    keys, the SIMT kernel none; one the kernel refuses (:func:`tile_fits`),
+    or a ``wgmma`` tile on views TMA cannot read, raises ``ValueError``.
+    ``q_offset`` may be any signed value (ring attention passes ``q_off -
+    k_off``): a row that sees no key gives ``out = 0`` and ``lse =
+    NEG_INF``, and the kernels skip every key tile no row of a block sees
+    (chip_smoke phase 36).  Adds one to ``flash_fwd_kernel.launches``
+    and to ``flash_fwd_kernel.routes[route]`` per call."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias)
     b, tq, h, d = q.shape
     dk = _kernel_dim(d)
     if tile is not None:
         tile = (int(tile[0]), int(tile[1]))
+        if tq >= _SPLIT_TQ:
+            tile = (64 if tile[0] < 0 else tile[0],
+                    64 if tile[1] < 0 else tile[1])
         if not tile_fits(tq, d, q.dtype, tile, bias is not None):
             raise ValueError(
                 f"flash tile {tile} is not one the forward kernel takes "
@@ -448,12 +551,25 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                 f"{' with a bias' if bias is not None else ''}: the "
                 f"tensor-core tiles {tiles(d, q.dtype)}, or on decode a "
                 f"chunk of 32 keys or a multiple within shared memory")
-    mma = tile if tile is not None and tq >= _SPLIT_TQ else (-1, -1)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    # TMA's rule is asked only of a call the wgmma kernel could serve
+    tma = (tq >= _SPLIT_TQ and q.dtype != torch.float32
+           and dk in _TUNED_DIMS and _tma_ok(d, q, k, v, out, bias=bias))
+    route = _route(tq, d, q.dtype, tile, tma)
+    if route == "wgmma" and not tma:
+        raise ValueError(
+            f"flash tile {tile} is the wgmma kernel's, whose TMA loads "
+            f"cannot read these views (16-byte aligned starts, strides "
+            f"multiples of 16 bytes, head width a multiple of 8)")
+    mma = (-1, -1)
+    if route == "wgmma":
+        mma = tile or rule_tile(d, q.dtype)
+    elif route == "mma" and tile is not None:
+        mma = tile
     splits = chunk = 0
     part_o = part_ml = None
-    if tq < _SPLIT_TQ:
+    if route == "split":
         splits, chunk = _kv_split(b, h, k.shape[1],
                                   _sm_count(q.device.index or 0))
         if tile is not None:
@@ -475,17 +591,26 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                   q_offset=q_offset, window=window))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _fwd_lib().flash_attention_fwd(
-            ctypes.byref(prm), dk, _build.dtype_code(q.dtype), *mma,
-            stream)
+        if route == "wgmma":
+            err = _wgmma_lib().flash_attention_fwd_wgmma(
+                ctypes.byref(prm), dk, _build.dtype_code(q.dtype), *mma,
+                stream)
+        else:
+            err = _fwd_lib().flash_attention_fwd(
+                ctypes.byref(prm), dk, _build.dtype_code(q.dtype), *mma,
+                stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention_fwd ({route}) launch failed: "
+                           f"CUDA error {err}")
     flash_fwd_kernel.launches += 1
+    flash_fwd_kernel.routes[route] += 1
     return out, lse
 
 
 _build.counted(flash_fwd_kernel)
+#: the forward's launches by the kernel that served them (:func:`_route`),
+#: counted as ``launches`` is (a captured graph's replays included)
+flash_fwd_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0, "split": 0}
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
@@ -762,7 +887,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     tile = None
     if q.is_cuda and _costs.counting(q) is None:
         tile = _pick_tile(q, k, bias, causal, has_bias, window, block_q,
-                          block_k)
+                          block_k, v=v)
     return _FlashAttention.apply(q, k, v, key_padding_bias, bias,
                                  float(sm_scale), bool(causal),
                                  int(q_offset), window, tile)
@@ -786,13 +911,15 @@ def _tuned_tile(q, k, causal, has_bias, window
     return (cfg["block_q"], cfg["block_k"]) if cfg else None
 
 
-def _pick_tile(q, k, bias, causal, has_bias, window, block_q, block_k
-               ) -> Optional[Tuple[int, int]]:
-    """The forward's tile for a kernel call: the caller's (a missing one
-    the rule's: -1 for the tensor-core kernel, the rule's chunk on
-    decode; the SIMT path has no tile and takes none), else the tuned
-    config of this shape's bucket when the kernel takes it for this call
-    (:func:`tile_fits`), else None (the rule).  The kernel path only."""
+def _pick_tile(q, k, bias, causal, has_bias, window, block_q, block_k,
+               v=None) -> Optional[Tuple[int, int]]:
+    """The forward's tile for a kernel call: the caller's (a missing half
+    64 on a tensor-core kernel, the rule's chunk on decode; the SIMT path
+    has no tile and takes none), else the tuned config of this shape's
+    bucket when the kernel it names takes it for this call
+    (:func:`tile_fits`, and for a ``wgmma`` tile :func:`_tma_ok` of q, k,
+    ``v`` (k's layout when None) and the bias), else None (the rule).  The
+    kernel path only."""
     tq, d = q.shape[1], q.shape[3]
     if tq >= _SPLIT_TQ and not tiles(d, q.dtype):
         return None                                   # SIMT: no tile
@@ -800,6 +927,11 @@ def _pick_tile(q, k, bias, causal, has_bias, window, block_q, block_k
         tile = _tuned_tile(q, k, causal, has_bias, window)
         if tile is None or not tile_fits(tq, d, q.dtype, tile,
                                          bias is not None):
+            return None
+        if tq >= _SPLIT_TQ and _is_wgmma(tile) and not _tma_ok(
+                d, q, k, k if v is None else v,
+                bias=None if bias is None else bias.to(
+                    torch.float32).expand(q.shape[0], tq, k.shape[1])):
             return None
         return tile
     if tq < _SPLIT_TQ:

@@ -89,8 +89,8 @@ RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e")),
 #: the second kernels of a call (split-KV's combine, wgrad's reduce) are
 #: not launches of their own
 COUNTED_KERNELS = (
-    ("flash_attention_fwd", ("flash_fwd_mma", "flash_fwd_simt",
-                             "flash_fwd_split")),
+    ("flash_attention_fwd", ("flash_fwd_wgmma", "flash_fwd_mma",
+                             "flash_fwd_simt", "flash_fwd_split")),
     ("flash_attention_bwd_dq", ("flash_bwd_dq",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_attention_bwd_db2", ("flash_bwd_db2",)),

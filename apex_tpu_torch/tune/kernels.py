@@ -104,11 +104,14 @@ def _flash_decode(shape: Mapping) -> bool:
 
 
 def _flash_defaults(shape: Mapping) -> Dict[str, int]:
+    # the rule: the wgmma kernel's tile at widths 64 and 128 in bf16 and
+    # fp16 (fa.rule_tile), the split-KV chunk on decode
     fa = _mod("ops.flash_attention")
-    b, h, tq, tk, _, _, _ = _flash_dims(shape)
-    bq, bk = fa._RULE_TILE
+    b, h, tq, tk, d, _, dtype = _flash_dims(shape)
     if tq < fa._SPLIT_TQ:
-        bk = fa._kv_split(b, h, tk, _sms())[1]
+        return {"block_q": fa._RULE_TILE[0],
+                "block_k": fa._kv_split(b, h, tk, _sms())[1]}
+    bq, bk = fa.rule_tile(d, dtype)
     return {"block_q": bq, "block_k": bk}
 
 

@@ -29,12 +29,12 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the four CUDA libraries (flash forward; flash dQ, dK/dV and the
-   bias gradient; the conv forward, dgrad and wgrad; the int8 quantized
-   matmul: one ``nvcc`` each) and compile the Triton kernels (LayerNorm,
-   BN epilogue and cross-entropy, forward and backward, one after
-   another), the five concurrently, time each and print ``ptxas``'s
-   registers and spills;
+2. build the five CUDA libraries (the flash forward's wgmma kernel;
+   its other routes; flash dQ, dK/dV and the bias gradient; the conv
+   forward, dgrad and wgrad; the int8 quantized matmul: one ``nvcc``
+   each) and compile the Triton kernels (LayerNorm, BN epilogue and
+   cross-entropy, forward and backward, one after another), all
+   concurrently, time each and print ``ptxas``'s registers and spills;
 3. LayerNorm kernel vs plain at ``[1024, 768]``, ``[8, 768]``, the LM
    step's ``[8184, 768]`` and the BERT step's ``[2048, 768]``, bf16 and
    fp32, and rows of mean 100 (the kernel's single-pass variance
@@ -44,8 +44,13 @@ line):
    bias: the split-KV path), GQA (12 query heads over 4 KV heads), a
    256-key window, fp32, the LM's B 8, T 1023 causal call, fp16 (prefill
    and decode), head widths 16, 48, 256, 320 and 512 (the last two
-   in 256-wide slices of the 256 kernel), and the BERT step's B 16, T 128
-   with every key visible; 4b. with ``--was``, the flash
+   in 256-wide slices of the 256 kernel), the BERT step's B 16, T 128
+   with every key visible, and width 128; each case names the route
+   that served it (``flash_fwd_kernel.routes``), and where that is the
+   wgmma kernel the ``mma.sync`` rule's tile (64 x 64) is timed on the
+   same inputs beside it, and must be slower at the bf16/fp16 width-64
+   causal and bias cases; with ``--was`` the other checkout's forward
+   is timed beside each case; 4b. with ``--was``, the flash
    kernels of this checkout and the other one at widths up to 256 on the
    same inputs, compared bit for bit (printed, not a gate).
    ``library_ms`` times one
@@ -60,7 +65,9 @@ line):
    warmup's warm run of prefill and decode for each bucket, and every
    replay; a replay adds the launches its graph recorded, the capture
    adds none; 4 graphs at warmup, no capture and no AOT miss while
-   serving, one replay a step), then the
+   serving, one replay a step; every prefill forward on the wgmma
+   route, every decode step's on split-KV, counted as the launches
+   are), then the
    same load through the eager bodies: greedy tokens equal bit for bit,
    tokens/s, TTFT and TPOT p50/p99, host ms a step and the bytes of the
    graphs' memory pool, both ways; then a
@@ -194,7 +201,9 @@ line):
    peak plus the window; and each K 8 run again with the state copied
    into the graph's static inputs only at the window's end (the design
    before each step's state was copied in), its state bit for bit too,
-   for the step ms and peak memory before that change;
+   for the step ms and peak memory before that change; every flash
+   forward of the LM runs (eager, K 1, K 8, O2 and O4) on the wgmma
+   route;
 21. BERT-base training: the JAX package's BERT step (``bench.py``:
    ``bert_base(dtype=bf16, num_classes=None, attention_impl="flash")``,
    B 16, T 128, the tied fp32 head, cross-entropy with smoothing 0.1,
@@ -205,7 +214,8 @@ line):
    to the eager one bit for bit, every launch counter set to 0 just
    before each window run and read just after (25 LN forward and
    backward, 12 flash forward, dQ and dK/dV, 1 cross-entropy forward and
-   backward per step that ran on the card, nothing else), losses finite
+   backward per step that ran on the card, nothing else; every flash
+   forward on the wgmma route), losses finite
    and falling (the last four steps' mean below the first four's);
    step ms, sequences/s and peak memory; the bucketed Adam
    equal to the leafwise Adam bit for bit after 16 steps with a dynamic
@@ -400,7 +410,8 @@ line):
    512-row shards; GPT-2 small's 12 x 64 heads, B 8; bf16, fp32 and the
    split-KV route at q_len 8; causal and not): a row with no visible key
    gives out 0 and lse -1e30, hidden rows and unseen keys zero
-   gradients, no NaN; (b) two gloo ranks on the card
+   gradients, no NaN; every bf16 forward at 512 rows on the wgmma
+   route, fp32 on SIMT, q_len 8 on split-KV; (b) two gloo ranks on the card
    (``--seq-gloo-worker``, the ring's send and receive, Ulysses's
    all_to_all and the mesh's all-gather and reduce-scatter staged
    through the host inside ``distributed.host_staging()``):
@@ -635,7 +646,40 @@ def layer_norm_large_mean(fln, dev):
 
 # -- phase 4: flash attention --------------------------------------------------
 
-def flash_cases(fa, dev):
+#: phase 4's bf16/fp16 width-64 causal and bias cases, where the wgmma
+#: route must beat the mma.sync rule
+FLASH_MUST_BEAT_MMA = ("prefill bias [1,1024,1024]", "causal 1024",
+                       "gqa 12/4 causal 1024", "lm causal b8 t1023",
+                       "fp16 causal 1024")
+
+
+def zero_routes(fa):
+    """The flash forward's route counts set to 0, as each phase sets the
+    launch counters."""
+    for r in fa.flash_fwd_kernel.routes:
+        fa.flash_fwd_kernel.routes[r] = 0
+
+
+def route_gate(fa, name, launches):
+    """Since :func:`zero_routes`: every flash forward with q_len >= 16 of
+    the path (all bf16 at width 64) was served by the wgmma kernel, the
+    rest by split-KV decode: no mma.sync or SIMT launch, and the routes
+    sum to the forward's ``launches`` (captured replays included)."""
+    routes = dict(fa.flash_fwd_kernel.routes)
+    check(routes["wgmma"] > 0 and routes["mma"] == 0 and routes["simt"] == 0
+          and sum(routes.values()) == launches,
+          f"{name}: flash forward routes {routes}: every prefill or "
+          f"training forward on wgmma, {launches} launches")
+    return routes
+
+
+def flash_cases(fa, dev, was_fa=None):
+    """Each case: the kernel of the rule's route against the plain
+    version; its time (a CUDA graph of 20 calls), eager, the plain
+    version's, SDPA's and the bound; where the route is wgmma, the
+    mma.sync rule's tile (64 x 64) on the same inputs beside it (it must
+    be slower at ``FLASH_MUST_BEAT_MMA``); with ``was_fa`` the other
+    checkout's kernel too."""
     rng = np.random.RandomState(1)
     t, h = 1024, 12
 
@@ -688,6 +732,9 @@ def flash_cases(fa, dev):
         # the BERT step's call, 12 a forward: no mask, every key visible
         ("bert b16 t128 full", 16, 128, 128, h, 64, bf16, False, None, None,
          None, {}),
+        # the wgmma kernel's other width
+        ("head_dim 128 causal 1024", 1, t, t, h, 128, bf16, True, None, None,
+         None, dict(is_causal=True)),
     ]
     cases = []
     for (name, b, tq, tk, h_kv, d, dtype, causal, window, kb, bias,
@@ -695,14 +742,17 @@ def flash_cases(fa, dev):
         q, k, v = qkv(b, tq, tk, h_kv, d, dtype)
         kw = dict(sm_scale=d ** -0.5, causal=causal, q_offset=tk - tq,
                   window=window)
+        before = dict(fa.flash_fwd_kernel.routes)
         out, lse = fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)
+        route = next(r for r, n in fa.flash_fwd_kernel.routes.items()
+                     if n != before[r])
         want_out, want_lse = fa._flash_fwd_ref(q, k, v, kb, bias, **kw)
         torch.cuda.synchronize()
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         err = max_err(out, want_out)
         lse_err = max_err(lse, want_lse)
         check(err <= tol and lse_err <= 1e-3,
-              f"flash {name}: max_abs_err {err:.3g} <= {tol}, lse "
+              f"flash {name} ({route}): max_abs_err {err:.3g} <= {tol}, lse "
               f"{lse_err:.3g} <= 1e-3")
         bms, by = bound(costs().flash_fwd(q, k, v, kb, bias, causal=causal,
                                           q_offset=tk - tq, window=window))
@@ -721,11 +771,30 @@ def flash_cases(fa, dev):
                                                        **kw)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=d ** -0.5, **lib)),
-            bound_ms=bms, bound_by=by)
-        print(f"      flash {name}: kernel {case['ms']:.4f} ms (eager "
-              f"{case['eager_ms']:.4f}), plain "
+            bound_ms=bms, bound_by=by, route=route, mma_ms=None,
+            was_ms=None)
+        line = ""
+        if route == "wgmma":
+            # the mma.sync kernel by its rule's tile, on the same inputs
+            mo, ml = fa.flash_fwd_kernel(q, k, v, kb, bias, tile=(64, 64),
+                                         **kw)
+            torch.cuda.synchronize()
+            case["mma_max_abs_err"] = max_err(mo, want_out)
+            case["mma_ms"] = time_ms(lambda: fa.flash_fwd_kernel(
+                q, k, v, kb, bias, tile=(64, 64), **kw))
+            line += f", mma.sync rule {case['mma_ms']:.4f} ms"
+            if name in FLASH_MUST_BEAT_MMA:
+                check(case["ms"] < case["mma_ms"],
+                      f"flash {name}: wgmma {case['ms']:.4f} ms < mma.sync "
+                      f"rule {case['mma_ms']:.4f} ms")
+        if was_fa is not None:
+            case["was_ms"] = time_ms(lambda: was_fa.flash_fwd_kernel(
+                q, k, v, kb, bias, **kw))
+            line += f", was {case['was_ms']:.4f} ms"
+        print(f"      flash {name} ({route}): kernel {case['ms']:.4f} ms "
+              f"(eager {case['eager_ms']:.4f}), plain "
               f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
-              f"ms, bound {bms:.4f} ms ({by})", flush=True)
+              f"ms, bound {bms:.4f} ms ({by}){line}", flush=True)
         cases.append(case)
     return cases
 
@@ -1061,8 +1130,11 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
     rng = np.random.RandomState(2)
     prompts = [rng.randint(1, model.vocab_size, (int(n),))
                for n in rng.randint(32, 901, 16)]
+    fa = counters["flash_attention_fwd"]
+    fa_mod = importlib.import_module(fa.__module__)
     for c in counters.values():
         c.launches = 0
+    zero_routes(fa_mod)
     results, st, res = _serve(model, engine_mod.ServingEngine, prompts, dev,
                               cache_dtype)
     launches = {name: c.launches for name, c in counters.items()}
@@ -1084,6 +1156,8 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
           f"gpt2_small ({tag} KV): launches {launches} = {per_forward} x "
           f"{forwards} forwards (the warmup's warm runs and the "
           f"replays)")
+    res["flash_routes"] = route_gate(fa_mod, f"gpt2_small ({tag} KV)",
+                                     launches["flash_attention_fwd"])
     eager_results, _, eager = _serve(model, eager_engine_cls(engine_mod),
                                      prompts, dev, cache_dtype)
     same = sum(np.array_equal(a.tokens, b.tokens)
@@ -2889,6 +2963,9 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
     quiet = dict(log=lambda line: None)
     window_end = (importlib.import_module("apex_tpu_torch.runtime"),
                   importlib.import_module("apex_tpu_torch.cache"))
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    launched = fa.flash_fwd_kernel.launches
+    zero_routes(fa)
     lm = capture_vs_eager(
         "gpt2_small O2 B8 T1023",
         lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
@@ -2899,6 +2976,9 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
         "gpt2_small O4 B8 T1023", lambda: build_o4()[:3],
         lambda k, n: window_loop(*build_o4()[:3], k, n), steps,
         window_end=window_end)
+    lm["flash_routes"] = route_gate(
+        fa, "gpt2_small O2 and O4 B8 T1023, eager and K 1 / K 8",
+        fa.flash_fwd_kernel.launches - launched)
     resnet = capture_vs_eager(
         "resnet50 O2 B128 224",
         lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
@@ -2971,13 +3051,17 @@ def bert_windows(build, training, counters, steps=16):
     memory.  The launches of the bucketed
     LAMB's K 4 run are the path's."""
     out, launches = {}, {}
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     for name, make_tx in bert_optimizers(training).items():
         def run_k(k, n, name=name, make_tx=make_tx):
             state, step, batch = build(make_tx())
             for c in counters.values():
                 c.launches = 0
+            zero_routes(fa)
             res = window_loop(state, step, batch, k, n)
             got = {c: w.launches for c, w in counters.items()}
+            route_gate(fa, f"bert_base {name} K {k}",
+                       got["flash_attention_fwd"])
             ran = pipeline_gate(f"bert_base {name} K {k}", res["pipeline"],
                                 n, k)
             check(all(got[c] == BERT_PER_STEP.get(c, 0) * ran for c in got),
@@ -6141,6 +6225,7 @@ def ring_kernel_offsets(fa, dev):
                  for _ in range(2))
         k, v = (torch.randn(8, t, 12, 64, generator=g).to(dev, dtype)
                 for _ in range(2))
+        zero_routes(fa)
         for causal in (True, False):
             for off in (-t, 0, t, 37 - t):
                 kw = dict(sm_scale=64 ** -0.5, causal=causal, q_offset=off)
@@ -6203,6 +6288,14 @@ def ring_kernel_offsets(fa, dev):
                 if not (max(errs) <= tol and finite and zeros):
                     print(f"      ring offsets {key}: errs {errs}, finite "
                           f"{finite}, hidden zeros {zeros}", flush=True)
+        # the route of every forward of this group: bf16 at 512 rows on
+        # wgmma, fp32 on SIMT, 8 rows on split-KV
+        routes = dict(fa.flash_fwd_kernel.routes)
+        want = ("split" if tq < fa._SPLIT_TQ else
+                "simt" if dtype == torch.float32 else "wgmma")
+        check(routes[want] > 0 and sum(routes.values()) == routes[want],
+              f"ring offsets {str(dtype)[6:]} q_len {tq}: forward routes "
+              f"{routes}, all {want}")
     check(ok, f"ring offsets: kernels 10-12 vs plain at q_offset "
               f"{{-512, 0, +512, -475}} (bf16 2e-2, fp32 1e-4; split-KV "
               f"q_len 8 in bf16), hidden rows 0 / -1e30 / zero gradients, "
@@ -6732,21 +6825,26 @@ def main(argv=None) -> int:
             xent.xentropy_bwd_kernel(mlse, x, mlse, labels, 0.0)
         torch.cuda.synchronize()
 
-    def build_rule_tiles(scratch):
-        """flash_attention.cu with the tensor-core forward at its rule's
-        tile only (the difference from flash_attention_nvcc_s is what
-        the tuner's tiles cost the build)."""
+    def build_rule_tiles(scratch, name):
+        """csrc/<name>.cu with its tensor-core forward at the rule's tiles
+        only (the difference from <name>_nvcc_s is what the tuner's tiles
+        cost the build)."""
         src = os.path.join(os.path.dirname(build.__file__), "csrc",
-                           "flash_attention.cu")
+                           f"{name}.cu")
         subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
                         "-DAPEX_FLASH_TUNE_TILES=0", "-o",
-                        os.path.join(scratch, "librule.so"), src],
+                        os.path.join(scratch, f"lib{name}.so"), src],
                        check=True, capture_output=True)
 
     tile_scratch = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
     jobs = {"flash_attention_nvcc_s": lambda: build.load("flash_attention"),
+            "flash_attention_sm90_nvcc_s":
+                lambda: build.load("flash_attention_sm90"),
             "flash_attention_rule_tile_only_nvcc_s":
-                lambda: build_rule_tiles(tile_scratch),
+                lambda: build_rule_tiles(tile_scratch, "flash_attention"),
+            "flash_attention_sm90_rule_tile_only_nvcc_s":
+                lambda: build_rule_tiles(tile_scratch,
+                                         "flash_attention_sm90"),
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
             "conv_nvcc_s": lambda: build.load("conv"),
@@ -6754,20 +6852,27 @@ def main(argv=None) -> int:
             "triton_s": build_triton}
     if args.was:
         was_build = load_was(args.was, "_build")
-        for name in ("flash_attention", "flash_attention_bwd", "conv",
-                     "quant"):
-            jobs[f"was_{name}_nvcc_s"] = (lambda n=name: was_build.load(n))
+        for name in ("flash_attention", "flash_attention_sm90",
+                     "flash_attention_bwd", "conv", "quant"):
+            if os.path.exists(os.path.join(args.was, "apex_tpu_torch",
+                                           "csrc", f"{name}.cu")):
+                jobs[f"was_{name}_nvcc_s"] = (
+                    lambda n=name: was_build.load(n))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(timed(fn)) for k, fn in jobs.items()}
         build_s = {k: f.result() for k, f in futures.items()}
     shutil.rmtree(tile_scratch, ignore_errors=True)
     print(f"      build: {build_s}", flush=True)
-    print(f"      build: the tuner's 16 flash forward tiles (4 tiles x "
-          f"widths 64, 128 x bf16, fp16) cost "
+    print(f"      build: the tuner's 16 mma.sync flash forward tiles (4 "
+          f"tiles x widths 64, 128 x bf16, fp16) cost "
           f"{build_s['flash_attention_nvcc_s'] - build_s['flash_attention_rule_tile_only_nvcc_s']:.1f} s "
-          f"of flash_attention.cu's nvcc (conv and qmm reuse their "
+          f"of flash_attention.cu's nvcc, the 8 wgmma tiles past the "
+          f"rule's (2 tiles x 2 widths x 2 dtypes) "
+          f"{build_s['flash_attention_sm90_nvcc_s'] - build_s['flash_attention_sm90_rule_tile_only_nvcc_s']:.1f} s "
+          f"of flash_attention_sm90.cu's (conv and qmm reuse their "
           f"instantiations)", flush=True)
-    for name in ("flash_attention", "flash_attention_bwd", "conv", "quant"):
+    for name in ("flash_attention", "flash_attention_sm90",
+                 "flash_attention_bwd", "conv", "quant"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"      ptxas {name}: "
@@ -6775,7 +6880,9 @@ def main(argv=None) -> int:
 
     counters = _kernel_counters()
     ln_cases = layer_norm_cases(fln, dev)          # phase 3
-    fa_cases = flash_cases(fa, dev)                # phase 4
+    fa_cases = flash_cases(fa, dev, load_was(args.was,            # 4
+                                             "ops.flash_attention")
+                           if args.was else None)
     same_as_was = (flash_same_as_was(fa, load_was(args.was,
                                                   "ops.flash_attention"),
                                      dev) if args.was else None)   # 4b
@@ -6964,9 +7071,15 @@ def main(argv=None) -> int:
               "apex_tpu_torch/normalization/fused_layer_norm.py",
               "apex_tpu/normalization/fused_layer_norm.py:223", ln_bwd_cases,
               0, "training"),
-        entry("flash_attention_fwd", "cuda",
-              "apex_tpu_torch/csrc/flash_attention.cu",
-              "apex_tpu/ops/flash_attention.py:238", fa_cases, 0, "serving"),
+        # the serving path's prefill forwards run the wgmma kernel, its
+        # decode steps the split-KV kernels of flash_attention.cu
+        dict(entry("flash_attention_fwd", "cuda",
+                   "apex_tpu_torch/csrc/flash_attention_sm90.cu",
+                   "apex_tpu/ops/flash_attention.py:238", fa_cases, 0,
+                   "serving"),
+             sources=["apex_tpu_torch/csrc/flash_attention_sm90.cu",
+                      "apex_tpu_torch/csrc/flash_attention.cu"],
+             routes=serving["flash_routes"]),
         entry("flash_attention_bwd_dq", "cuda",
               "apex_tpu_torch/csrc/flash_attention_bwd.cu",
               "apex_tpu/ops/flash_attention.py:440", dq_cases, 0,

@@ -306,3 +306,105 @@ def test_mha_attention_is_the_blockwise_alias_as_in_jax():
             torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
             causal=causal, block_size=8), rtol=0, atol=0)
     assert "mha_attention" in ops.__all__
+
+
+# -- the forward's routes and tiles (csrc/flash_attention_sm90.cu beside
+#    csrc/flash_attention.cu): the pure-Python side, which picks the kernel
+
+@pytest.mark.parametrize("tq,d,dtype,tile,tma,want", [
+    (64, 64, torch.bfloat16, None, True, "wgmma"),
+    (16, 128, torch.float16, None, True, "wgmma"),
+    (333, 48, torch.bfloat16, None, True, "wgmma"),
+    (64, 64, torch.bfloat16, None, False, "mma"),
+    (64, 32, torch.bfloat16, None, True, "mma"),
+    (64, 16, torch.float16, None, True, "mma"),
+    (64, 64, torch.bfloat16, (64, 64), True, "mma"),
+    (64, 64, torch.bfloat16, (128, 128), True, "mma"),
+    (64, 128, torch.bfloat16, (128, 96), True, "wgmma"),
+    (64, 64, torch.float16, (64, 160), True, "wgmma"),
+    (64, 64, torch.float32, None, True, "simt"),
+    (64, 160, torch.bfloat16, None, True, "simt"),
+    (64, 256, torch.float16, None, True, "simt"),
+    (15, 64, torch.bfloat16, None, True, "split"),
+    (1, 64, torch.bfloat16, (64, 96), True, "split"),
+])
+def test_forward_route_by_dtype_width_qlen_and_tile(tq, d, dtype, tile, tma,
+                                                    want):
+    assert fa_mod._route(tq, d, dtype, tile, tma) == want
+
+
+def test_tma_rule_on_views():
+    """TMA reads a view in place when its start is 16-byte aligned and its
+    strides are nonzero multiples of 16 bytes: a fused projection's q, k
+    and v pass; an odd start, a 52-wide head, a batch broadcast by a zero
+    stride fail (and then route to ``mma``).  A dimension of size 1 may
+    have any stride.  The fp32 bias may broadcast its batch, not its
+    rows."""
+    b, t, h, d = 2, 32, 4, 64
+    bf = torch.bfloat16
+    q, k, v = torch.zeros(b, t, 3, h, d, dtype=bf).unbind(2)
+    assert q.stride() == (t * 3 * h * d, 3 * h * d, d, 1)
+    assert fa_mod._tma_ok(d, q, k, v)
+    odd = torch.zeros(b * t * h * d + 1, dtype=bf)[1:].view(b, t, h, d)
+    assert not fa_mod._tma_ok(d, odd, k, v)
+    w52 = torch.zeros(b, t, h, 52, dtype=bf)
+    assert not fa_mod._tma_ok(52, w52, w52, w52)
+    k_bcast = torch.zeros(1, t, h, d, dtype=bf).expand(b, t, h, d)
+    assert not fa_mod._tma_ok(d, q, k_bcast, v)
+    one = torch.zeros(t * h * d + 8, dtype=bf)[8:].as_strided(
+        (1, t, h, d), (3, h * d, d, 1))
+    assert fa_mod._tma_ok(d, one, one, one)
+    assert fa_mod._tma_ok(d, q, k, v, bias=torch.zeros(b, t, t))
+    assert fa_mod._tma_ok(d, q, k, v,
+                          bias=torch.zeros(1, t, t).expand(b, t, t))
+    assert not fa_mod._tma_ok(d, q, k, v,
+                              bias=torch.zeros(b, 1, t).expand(b, t, t))
+    assert not fa_mod._tma_ok(d, q, k, v,
+                              bias=torch.zeros(b, t, t + 1)[..., 1:])
+    assert (fa_mod._route(t, d, bf, None, fa_mod._tma_ok(d, odd, k, v))
+            == "mma")
+
+
+def test_tiles_each_name_one_kernel_and_hold_the_rule():
+    bf, fp = torch.bfloat16, torch.float16
+    mma = set((fa_mod._RULE_TILE,) + fa_mod._TUNED_TILES)
+    wg = set(fa_mod._WGMMA_TILES)
+    assert not mma & wg and len(wg) == 4
+    for d in (48, 64, 128):
+        assert set(fa_mod.tiles(d, bf)) == set(fa_mod.tiles(d, fp)) \
+            == mma | wg
+        assert fa_mod.tiles(d, bf)[:4] == fa_mod._WGMMA_TILES
+        assert fa_mod.rule_tile(d, bf) in fa_mod.tiles(d, bf)
+    assert fa_mod.tiles(16, bf) == fa_mod.tiles(32, fp) == ((64, 64),)
+    assert fa_mod.tiles(64, torch.float32) == fa_mod.tiles(256, bf) == ()
+    assert fa_mod.rule_tile(64, bf) == fa_mod.rule_tile(48, fp) == (64, 96)
+    assert fa_mod.rule_tile(128, bf) == fa_mod.rule_tile(100, fp) \
+        == (128, 96)
+    assert fa_mod.rule_tile(32, bf) == fa_mod.rule_tile(
+        64, torch.float32) == fa_mod.rule_tile(256, bf) == (64, 64)
+
+
+def test_route_counter_keys():
+    routes = fa_mod.flash_fwd_kernel.routes
+    assert set(routes) == {"wgmma", "mma", "simt", "split"}
+    assert all(isinstance(n, int) for n in routes.values())
+
+
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("case", ["causal", "window", "bias", "gqa_cross"])
+def test_wgmma_route_widths_match_jax(d, case):
+    """The widths the wgmma route serves (48 in the 64 instantiation, 64
+    and 128) with the semantics it carries over: the plain version (its
+    CPU path) against the JAX Pallas kernel in interpret mode."""
+    if case == "gqa_cross":
+        q, k, v = _qkv(1, 16, 32, 4, 2, d, seed=d)
+        got, want = _both(q, k, v, BLOCKS, causal=True)
+    elif case == "bias":
+        q, k, v = _qkv(2, 32, 32, 2, 2, d, seed=d + 1)
+        bias = np.random.RandomState(d).randn(2, 32, 32).astype(np.float32)
+        got, want = _both(q, k, v, BLOCKS, bias=bias)
+    else:
+        q, k, v = _qkv(2, 32, 32, 2, 2, d, seed=d + 2)
+        kw = dict(window=8) if case == "window" else {}
+        got, want = _both(q, k, v, BLOCKS, causal=True, **kw)
+    np.testing.assert_allclose(got, want, **TOL)

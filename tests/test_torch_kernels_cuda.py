@@ -2150,9 +2150,13 @@ def test_tuned_cache_reaches_the_launch(conv_device, tmp_path, monkeypatch):
             if t else xe.softmax_cross_entropy_loss(lg, lab, 0.1)),
     }
     rule = {n: fn() for n, (_, _, fn) in calls.items()}
+    # each family's config version (flash's is 2, its wgmma rule's)
+    version = dict(dict.fromkeys(calls, 1),
+                   flash_attention=fa.TUNE_VERSION)
     for name, (bucket, cfg, _) in calls.items():
-        store.put(name, 1, bucket, cfg, path=path)
-        store.put(name, 1, bucket, cfg, dev_kind="TPU_v5_lite", path=path)
+        store.put(name, version[name], bucket, cfg, path=path)
+        store.put(name, version[name], bucket, cfg, dev_kind="TPU_v5_lite",
+                  path=path)
     for name, (_, cfg, fn) in calls.items():
         tuned, explicit = fn(), fn(**cfg)
         torch.testing.assert_close(tuned, explicit, rtol=0, atol=0)
@@ -2331,3 +2335,209 @@ def test_flash_kernels_at_signed_ring_offsets(cuda_device, offset, causal,
         unseen = torch.arange(k.shape[1], device=cuda_device) > offset + tq - 1
         if unseen.any():
             assert (dk[:, unseen] == 0).all() and (dv[:, unseen] == 0).all()
+
+
+# -- the wgmma forward (csrc/flash_attention_sm90.cu) ----------------------------
+
+def _wg_case(dev, dtype, *, b=2, tq=200, tk=200, h=4, h_kv=4, d=64, seed=31):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, n, hh, d).astype(np.float32))
+            .to(dev, dtype) for n, hh in ((tq, h), (tk, h_kv), (tk, h_kv))]
+
+
+def _wg_check(q, k, v, kb, bias, kw, tile=None):
+    """One forward through the wgmma route (its counter moves by one)
+    against the plain version at phase 4's gates: out 2e-2, lse 1e-3, no
+    NaN."""
+    before = dict(fa.flash_fwd_kernel.routes)
+    out, lse = fa.flash_fwd_kernel(q, k, v, kb, bias, tile=tile, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_kernel.routes["wgmma"] == before["wgmma"] + 1
+    want, want_lse = fa._flash_fwd_ref(q, k, v, kb, bias, **kw)
+    assert not torch.isnan(out.float()).any()
+    assert not torch.isnan(lse).any()
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    return out, lse
+
+
+WG_CASES = {
+    "causal": {}, "full": dict(causal=False),
+    "cross_333_1021": dict(tq=333, tk=1021),
+    "t1023": dict(b=1, tq=1023, tk=1023, h=2, h_kv=2),
+    "gqa4_2": dict(h_kv=2), "mqa4_1": dict(h_kv=1),
+    "window64": dict(window=64),
+    "kbias": dict(causal=False, kbias=True),
+    "bias": dict(causal=False, bias=True),
+    "bias_causal": dict(bias=True),
+    "kbias_bias_window": dict(kbias=True, bias=True, window=48)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WG_CASES))
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_semantics(cuda_device, case, d, dtype):
+    """The rule's wgmma tile at widths 48 (in the 64 instantiation: zero
+    columns read, never stored), 64 and 128: causal (the queries the
+    suffix of the keys), every key visible, ragged tq 333 over tk 1021,
+    T 1023, GQA and MQA, a sliding window, the fp32 [B, S] key-padding
+    and [B, T, S] biases."""
+    spec = dict(WG_CASES[case])
+    causal = spec.pop("causal", True)
+    window = spec.pop("window", None)
+    kbias, bias = spec.pop("kbias", False), spec.pop("bias", False)
+    q, k, v = _wg_case(cuda_device, dtype, d=d, **spec)
+    b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    kb = bs = None
+    if kbias:
+        kb = torch.where(torch.rand(b, tk, device=cuda_device, generator=g)
+                         < 0.8, 0.0, -1e9)
+    if bias:
+        bs = torch.randn(b, tq, tk, device=cuda_device, generator=g)
+    kw = dict(sm_scale=d ** -0.5, causal=causal,
+              q_offset=tk - tq if causal else 0, window=window)
+    _wg_check(q, k, v, kb, bs, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", fa._WGMMA_TILES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["causal_cross", "bias_window"])
+def test_flash_wgmma_every_tile(cuda_device, tile, d, case):
+    """Every wgmma tile the tuner may name; one whose bias stages do not
+    fit a block's shared memory is refused, by tile_fits and the
+    launch."""
+    bias_case = case == "bias_window"
+    q, k, v = _wg_case(cuda_device, torch.bfloat16, tq=333, tk=400, d=d,
+                       seed=7)
+    bs = (torch.randn(2, 333, 400, device=cuda_device) if bias_case
+          else None)
+    kw = dict(sm_scale=d ** -0.5, causal=True, q_offset=67,
+              window=80 if bias_case else None)
+    if not fa.tile_fits(333, d, torch.bfloat16, tile, bias_case):
+        assert bias_case
+        with pytest.raises(ValueError, match="not one the forward kernel"):
+            fa.flash_fwd_kernel(q, k, v, None, bs, tile=tile, **kw)
+        return
+    _wg_check(q, k, v, None, bs, kw, tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [-512, 0, 512, -475])
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_signed_ring_offsets(cuda_device, offset, d, dtype):
+    """The ring's relative offsets on 512-row shards: a row that sees no
+    key gives out 0 and lse -1e30 (at -512 no row sees one, and no tile
+    is loaded), no NaN."""
+    q, k, v = _wg_case(cuda_device, dtype, tq=512, tk=512, h=6, h_kv=6,
+                       d=d, seed=19)
+    out, lse = _wg_check(q, k, v, None, None,
+                         dict(sm_scale=d ** -0.5, causal=True,
+                              q_offset=offset))
+    hidden = offset + torch.arange(512, device=cuda_device) < 0
+    assert (out[:, hidden] == 0).all()
+    assert (lse[:, :, hidden] == fa.NEG_INF).all()
+    assert (lse[:, :, ~hidden] > fa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_fully_masked_rows(cuda_device, d, dtype):
+    """Rows hidden by the band inside a block that has visible rows: the
+    first 100 rows see no key (q_offset -100), with a window the rest see
+    at most 30; hidden rows 0 / -1e30, exactly."""
+    q, k, v = _wg_case(cuda_device, dtype, tq=256, tk=256, d=d, seed=3)
+    out, lse = _wg_check(q, k, v, None, None,
+                         dict(sm_scale=d ** -0.5, causal=True,
+                              q_offset=-100, window=30))
+    assert (out[:, :100] == 0).all()
+    assert (lse[:, :, :100] == fa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_reads_fused_projection_views(cuda_device, d, dtype):
+    """q, k and v as strided views of one [B, T, 3, H, D] projection:
+    read in place by TMA, the same outputs bit for bit as on contiguous
+    copies."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    qkv = torch.randn(2, 300, 3, 4, d, device=cuda_device,
+                      generator=g).to(dtype)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous() and fa._tma_ok(d, q, k, v)
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    out, lse = _wg_check(q, k, v, None, None, kw)
+    out2, lse2 = fa.flash_fwd_kernel(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), None, None, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_refused_view_routes_to_mma_or_raises(cuda_device):
+    """A q that starts 2 bytes past a 16-byte boundary breaks TMA's rule:
+    the rule routes the call to the mma.sync kernel (its counter moves),
+    and an explicit wgmma tile raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    n = 2 * 200 * 4 * 64
+    flat = torch.randn(n + 1, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    q = flat[1:].view(2, 200, 4, 64)
+    _, k, v = _wg_case(cuda_device, torch.bfloat16)
+    assert not fa._tma_ok(64, q, k, v)
+    kw = dict(sm_scale=0.125, causal=True)
+    before = dict(fa.flash_fwd_kernel.routes)
+    out, lse = fa.flash_fwd_kernel(q, k, v, None, None, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_kernel.routes["mma"] == before["mma"] + 1
+    assert fa.flash_fwd_kernel.routes["wgmma"] == before["wgmma"]
+    want, _ = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_fwd_kernel(q, k, v, None, None, tile=(64, 96), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_bit_stable(cuda_device, d, dtype):
+    """Two calls, identical outputs (no atomics, a fixed order of sums)."""
+    q, k, v = _wg_case(cuda_device, dtype, tq=500, tk=500, d=d, seed=8)
+    bs = torch.randn(2, 500, 500, device=cuda_device)
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    a = fa.flash_fwd_kernel(q, k, v, None, bs, **kw)
+    b = fa.flash_fwd_kernel(q, k, v, None, bs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_flash_routes_count_captured_replays(cuda_device):
+    """A captured forward counts its route as it counts its launches: the
+    warm run as it runs, the capture nothing, each replay one; the
+    replays equal the eager call bit for bit."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    q, k, v = _wg_case(cuda_device, torch.bfloat16, seed=4)
+
+    def fwd(q, k, v):
+        return fa.flash_fwd_kernel(q, k, v, None, None, sm_scale=0.125,
+                                   causal=True)[0]
+
+    eager = fwd(q, k, v)
+    before = dict(fa.flash_fwd_kernel.routes)
+    launches = fa.flash_fwd_kernel.launches
+    step = cache.warmup(fwd, q, k, v)
+    outs = [step(q, k, v).clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    runs = cache.WARM_RUNS + 2
+    assert fa.flash_fwd_kernel.routes["wgmma"] == before["wgmma"] + runs
+    assert fa.flash_fwd_kernel.launches == launches + runs
+    assert all(fa.flash_fwd_kernel.routes[r] == before[r]
+               for r in ("mma", "simt", "split"))
+    assert all(torch.equal(o, eager) for o in outs)

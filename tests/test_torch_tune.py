@@ -321,7 +321,8 @@ def test_bound_from_ledger_reorders_candidates():
     cmp_ = spec.candidates(shape, "compute")
     cmp_.sort(key=lambda c: spec.priority(shape, c, "compute"))
     area = lambda c: c["block_q"] * c["block_k"]                    # noqa
-    assert len(mem) == 5
+    # the wgmma kernel's 4 tiles and the mma.sync kernel's 5
+    assert len(mem) == len(fa.tiles(64, torch.bfloat16)) == 9
     assert area(mem[0]) == min(area(c) for c in mem)
     assert area(cmp_[0]) == max(area(c) for c in cmp_)
 
@@ -682,9 +683,12 @@ def test_tune_buckets_equal_jax():
             == jfba.tune_bucket(a, b, isz, f1)
         assert xe.tune_bucket(a, b) == jxe.tune_bucket(a, b)
         assert qk.tune_bucket(a, b, c, isz) == jqk.tune_bucket(a, b, c, isz)
-    for mod, jmod in ((fa, jfa), (cv, jcv), (fln, jfln), (fba, jfba),
-                      (xe, jxe), (qk, jqk)):
+    for mod, jmod in ((cv, jcv), (fln, jfln), (fba, jfba), (xe, jxe),
+                      (qk, jqk)):
         assert mod.TUNE_VERSION == jmod.TUNE_VERSION == 1
+    # the port's flash forward moved its rule to the wgmma kernel: version
+    # 2, so an entry tuned against the mma.sync rule misses
+    assert fa.TUNE_VERSION == 2 and jfa.TUNE_VERSION == 1
 
 
 def test_bound_from_ledger_equals_jax():
@@ -794,3 +798,38 @@ def test_gpt_tiny_ledger_selects_jax_families():
     want = selected(jled, jregistry.all_specs(), jmeasure.bound_from_ledger)
     assert got == want == {"flash_attention", "fused_layer_norm",
                            "quantized_matmul", "xentropy"}
+
+
+def test_flash_rule_candidates_and_defaults_name_the_wgmma_kernel():
+    """The flash family's rule is the wgmma kernel's tile (64 x 96 at
+    width 64, 128 x 96 at 128); its candidates are every tile of both
+    tensor-core kernels; fp32 has none; decode keeps the split-KV
+    chunk."""
+    spec = registry.get_spec("flash_attention")
+    assert spec.version == fa.TUNE_VERSION == 2
+    base = dict(spec.example_shape)
+    assert spec.defaults(base) == {"block_q": 64, "block_k": 96}
+    assert spec.defaults(dict(base, head_dim=128)) == {"block_q": 128,
+                                                      "block_k": 96}
+    assert spec.defaults(dict(base, dtype="float32")) == {"block_q": 64,
+                                                         "block_k": 64}
+    got = {(c["block_q"], c["block_k"]) for c in spec.candidates(base, None)}
+    assert got == set(fa.tiles(64, torch.bfloat16))
+    assert spec.candidates(dict(base, dtype="float32"), None) == []
+    dec = dict(base, q_len=1)
+    assert spec.defaults(dec)["block_k"] == fa._kv_split(8, 12, 1023, 132)[1]
+    assert spec.effective(base, spec.defaults(base)) == (64, 96)
+
+
+def test_flash_version_one_entry_misses(tune_cache):
+    """An entry tuned against version 1 (the mma.sync rule) misses; the
+    same bucket at version 2 hits."""
+    bucket = fa.tune_bucket(256, 256, 64, True, False, False)
+    store.put("flash_attention", 1, bucket, {"block_q": 128, "block_k": 128},
+              path=tune_cache)
+    q = torch.zeros((1, 256, 2, 64), dtype=torch.bfloat16)
+    assert fa._tuned_tile(q, q, True, False, None) is None
+    assert not _stats("flash_attention")["tuned"]
+    store.put("flash_attention", 2, bucket, {"block_q": 128, "block_k": 96},
+              path=tune_cache)
+    assert fa._tuned_tile(q, q, True, False, None) == (128, 96)
