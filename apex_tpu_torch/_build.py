@@ -5,7 +5,8 @@ compiles on its own with ``nvcc`` into ``csrc/build/lib<name>.so`` on
 first use (a few seconds; no PyTorch headers are involved).  The host
 runtime ``csrc/<name>.cpp`` (:mod:`apex_tpu_torch.native`) compiles the
 same way with the host compiler, ``g++ -O3 -shared -fPIC -pthread
--std=c++17``.  A library is rebuilt when its source is newer than it.
+-std=c++17``.  A library is rebuilt when its source, or any header
+``csrc/*.cuh`` (a CUDA source may include one), is newer than it.
 Nothing is compiled at import time, so the CPU tests can import every
 module on a host without ``nvcc``.
 """
@@ -103,15 +104,22 @@ def _host_cxx() -> str:
                        "from source")
 
 
+def _source_mtime(src: str) -> float:
+    """The newest modification time of ``src`` and the headers it may
+    include: every ``csrc/*.cuh``."""
+    heads = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+             if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [src, *heads])
+
+
 def build(name: str, host: bool = False) -> str:
     """Compile ``csrc/<name>.cu`` with ``nvcc`` (``host``:
     ``csrc/<name>.cpp`` with the host compiler) into
     ``BUILD_DIR/lib<name>.so`` when the library is missing or older than
-    the source; returns its path."""
+    the source or a ``csrc/*.cuh`` header; returns its path."""
     src = os.path.join(_CSRC, f"{name}.cpp" if host else f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src)):
+    if os.path.exists(out) and os.path.getmtime(out) >= _source_mtime(src):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"

@@ -72,6 +72,8 @@
 
 #include <type_traits>
 
+#include "sm90.cuh"
+
 // 0 builds the rule's tiles only (block_k 96)
 #ifndef APEX_FLASH_TUNE_TILES
 #define APEX_FLASH_TUNE_TILES 1
@@ -112,65 +114,16 @@ struct Maps {
 
 namespace {
 
+using namespace sm90;
+
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int SMEM_OPTIN = 232448;   // a block's opt-in shared memory
 constexpr int STAGES = 2;            // the K / V ring (3 measured no faster)
 constexpr int PANEL = 64;            // elements in a 128-byte swizzled row
 
 
 // -- PTX helpers -----------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the barrier's phase of this parity has completed.  A wait
-// longer than ~10 s traps (a fault, not a hang of the card).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  uint64_t t0;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  for (uint32_t spins = 1;; ++spins) {
-    if (mbar_try(bar, parity)) return;
-    if ((spins & 1023) == 0) {
-      uint64_t t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      if (t - t0 > 10000000000ull) __trap();
-    }
-  }
-}
 
 // TMA: a box of the tensor at coordinates (c0 innermost, ...) into shared
 // memory, its bytes counted on `bar`
@@ -207,41 +160,14 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
-// the map into the TMA unit's descriptor cache ahead of its first load
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
 __device__ __forceinline__ void tma_store_commit_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// A shared-memory matrix descriptor of `wgmma`: the 128-byte swizzle,
-// `lbo` and `sbo` in bytes.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
 __device__ __forceinline__ void wgmma_commit_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of these registers
-// across the `wgmma` issue and wait around it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -768,33 +694,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const Params p) {
 }
 
 // -- launchers -----------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime,
-// so the library links no libcuda; null where it is missing.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A map of the [B, T, H, D] view at `ptr` (strides in elements) as the
 // tensor [d, T, H, B], its box 64 columns by `rows` rows of one head, the

@@ -454,13 +454,16 @@ def train(args, log=print) -> dict:
 
 def write_stats(path: str, res: dict) -> None:
     """The run's numbers as JSON: steps, per-step seconds and losses, the
-    pipeline's counts, the world size and every counted kernel's and
-    collective's launches (``_build.COUNTED``, the non-zero ones)."""
+    pipeline's counts, the world size, every counted kernel's and
+    collective's launches (``_build.COUNTED``, the non-zero ones) and, of
+    a kernel with routes, its launches by route."""
     stats = dict(steps=len(res["losses"]), step_s=res["step_s"],
                  losses=res["losses"], pipeline=res["pipeline"],
                  world=multiproc.process_identity()[1],
                  launches={w.__name__: w.launches for w in _build.COUNTED
-                           if w.launches})
+                           if w.launches},
+                 routes={w.__name__: dict(w.routes) for w in _build.COUNTED
+                         if w.launches and hasattr(w, "routes")})
     with open(path, "w") as f:
         json.dump(stats, f, indent=1)
 

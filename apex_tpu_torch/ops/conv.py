@@ -19,9 +19,18 @@ it; the backward takes the six epilogue cotangents from the port's
 the wgrad kernel.  Dispatch is by the tensors' device and nothing else:
 CPU tensors take the plain versions (:func:`_raw_conv`, an fp32 upcast
 of ``F.conv2d`` on the NCHW view, and its autograd); CUDA tensors launch
-the kernels of ``csrc/conv.cu`` at every size, the C = 3 stem included,
-or raise.  A grouped conv is outside the kernels' contract, as in JAX,
-and takes the plain version on either device.
+the kernels at every size, the C = 3 stem included, or raise.  A grouped
+conv is outside the kernels' contract, as in JAX, and takes the plain
+version on either device.
+
+Forward routes (:func:`_fwd_route`, counted in
+``conv_fwd_kernel.routes``): bf16 and fp16 with a channel count that is
+a multiple of 64 (every ResNet-50 site but the stem) run
+``csrc/conv_sm90.cu``, the implicit GEMM on ``wgmma`` (a K step of 64
+channels of one tap, gathered by ``cp.async`` into the 128-byte swizzle;
+the weight loaded by TMA); the stem and any other channel count run
+``csrc/conv.cu``'s ``mma.sync`` kernel, and fp32 its FMA path.  dgrad and
+wgrad run ``csrc/conv.cu``.
 
 Kernel notes.  ``conv_fwd_kernel`` replaces the Pallas ``_fwd_kernel``
 (``apex_tpu/ops/conv.py:267``, launched by ``_im2col_conv`` for
@@ -87,8 +96,9 @@ __all__ = ["conv2d", "conv2d_ref", "PallasConv", "conv_dispatch_stats",
 _BM, _BK = 128, 32
 _BN = (64, 128)
 
-#: the tuner's config version of the conv kernels
-TUNE_VERSION = 1
+#: the tuner's config version of the conv kernels (2: a bucket's tiles
+#: are its forward route's, :func:`_fwd_route`)
+TUNE_VERSION = 2
 
 
 def _tile_n(n: int) -> int:
@@ -288,6 +298,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _sm90_lib() -> ctypes.CDLL:
+    lib = _build.load("conv_sm90")
+    lib.conv_fwd_wgmma.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.conv_fwd_wgmma.restype = ctypes.c_int
+    return lib
+
+
+def _fwd_route(dtype: torch.dtype, c: int, tma: bool) -> str:
+    """The kernel a forward call runs (the key of ``conv_fwd_kernel.routes``
+    it counts in), from the operands' type, their channel count ``c`` (as
+    the kernels take it, padded to a multiple of 8) and whether TMA can
+    read the weight (``tma``: 16-byte aligned, O a multiple of 8):
+    ``simt`` for fp32 (``csrc/conv.cu``'s FMA loops); ``wgmma``
+    (``csrc/conv_sm90.cu``) for bf16 and fp16 where ``c`` is a multiple of
+    64, so that a K step of 64 channels is one tap; else ``mma``
+    (``csrc/conv.cu``'s ``mma.sync`` kernel: the C = 3 stem, a ragged
+    C).  Both tile widths of a bucket run on its route."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if c % 64 == 0 and tma else "mma"
+
+
 def _check_operands(acts, vecs=()):
     """What the kernels take: contiguous 4-D CUDA tensors of one float
     type (fp32, bf16 or fp16) on one device, under 2**31 elements each, and
@@ -367,16 +400,15 @@ def _params(x_shape, w_shape, oh, ow, stride, padding, dilation,
         sw=stride[1], dh=dilation[0], dw=dilation[1], pt=pt, pl=pl_)
 
 
-def _launch(name, prm, dtype, device, *extra, block_n=None):
+def _launch(name, prm, dtype, device, *extra, block_n=None, lib=None):
     stream = torch.cuda.current_stream(device).cuda_stream
     if block_n is not None and block_n not in _BN:
         raise ValueError(f"conv block_n must be one of {_BN}, got "
                          f"{block_n}")
     with torch.cuda.device(device):
-        err = getattr(_lib(), name)(ctypes.byref(prm),
-                                    _build.dtype_code(dtype), *extra,
-                                    -1 if block_n is None else int(block_n),
-                                    stream)
+        err = getattr(lib or _lib(), name)(
+            ctypes.byref(prm), _build.dtype_code(dtype), *extra,
+            -1 if block_n is None else int(block_n), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -394,15 +426,21 @@ def _geometry(x_shape, w_shape, stride, padding, dilation):
 
 def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
                     scale=None, bias=None, z=None, relu=False,
-                    want_preact=False, block_n=None):
+                    want_preact=False, block_n=None, route=None):
     """Launch the CUDA forward kernel: ``x`` ``[N, H, W, C]`` and ``w``
     ``[KH, KW, C, O]`` contiguous CUDA tensors of one type, ``stride`` and
     ``dilation`` pairs, ``padding`` ``((pt, pb), (pl, pr))``; with
     ``mean``/``invstd`` (fp32 ``[O]``) the epilogue ``relu((y - mean) *
     invstd * scale + bias + z)``.  Returns ``(out, preact)``, ``preact``
     (the conv result before the epilogue) only with ``want_preact``.
-    ``block_n``: the tile's width (64 or 128), None for the rule.  Adds
-    one to ``conv_fwd_kernel.launches`` per launch."""
+    ``block_n``: the tile's width (64 or 128), None for the rule.  The
+    route (:func:`_fwd_route`) picks the kernel: ``csrc/conv_sm90.cu`` for
+    bf16 and fp16 with C a multiple of 64, else ``csrc/conv.cu``;
+    ``route`` names one instead (``"mma"`` runs conv.cu's tensor-core
+    kernel where the rule is ``wgmma``, to compare the two), and one the
+    call cannot take raises ``ValueError``.  Adds one to
+    ``conv_fwd_kernel.launches`` and to ``conv_fwd_kernel.routes[route]``
+    per launch."""
     if w.dim() != 4 or x.dim() != 4 or w.shape[2] != x.shape[3]:
         raise ValueError(f"conv kernel wants NHWC x and HWIO w with equal "
                          f"channels; got {tuple(x.shape)} / "
@@ -429,8 +467,20 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
                   a=x, b=w, out=out, preact=preact, mean=mean, invstd=invstd,
                   scale=scale, bias=bias, z=z)
     prm.relu, prm.epilogue = int(bool(relu)), int(mean is not None)
-    _launch("conv_fwd", prm, x.dtype, x.device, block_n=block_n)
+    rule = _fwd_route(x.dtype, x.shape[3], w.data_ptr() % 16 == 0)
+    if route is not None and route != rule and not (
+            route == "mma" and rule == "wgmma"):
+        raise ValueError(f"conv forward route {route!r} cannot take {x.dtype}"
+                         f" operands of {x.shape[3]} channels: its route is "
+                         f"{rule!r}")
+    route = route or rule
+    if route == "wgmma":
+        _launch("conv_fwd_wgmma", prm, x.dtype, x.device, block_n=block_n,
+                lib=_sm90_lib())
+    else:
+        _launch("conv_fwd", prm, x.dtype, x.device, block_n=block_n)
     conv_fwd_kernel.launches += 1
+    conv_fwd_kernel.routes[route] += 1
     if op != o:
         out = out[..., :o].contiguous()
         preact = None if preact is None else preact[..., :o].contiguous()
@@ -438,6 +488,10 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
 
 
 _build.counted(conv_fwd_kernel)
+#: the forward's launches by the kernel that served them
+#: (:func:`_fwd_route`), counted as ``launches`` is (a captured graph's
+#: replays included)
+conv_fwd_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0}
 
 
 def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw, block_n=None):

@@ -57,12 +57,12 @@ LOOP_FUSION_CATEGORY = "other"
 
 #: kernel kinds by substrings of the (lower-cased) kernel name, first
 #: match wins, ``other`` for none: serving steps
-SERVING_KINDS = (("qmm", ("qmm_kernel",)),
+SERVING_KINDS = (("qmm", ("qmm_kernel", "qmm_wgmma")),
                  ("flash", ("flash_fwd_",)), ("layer_norm", ("ln_fwd",)),
                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("index", ("index", "gather", "scatter")))
 #: the LM and BERT training steps
-TRAINING_KINDS = (("qmm", ("qmm_kernel",)),
+TRAINING_KINDS = (("qmm", ("qmm_kernel", "qmm_wgmma")),
                   ("flash_fwd", ("flash_fwd_",)),
                   ("flash_bwd", ("flash_bwd_",)),
                   ("layer_norm", ("ln_fwd", "ln_bwd")),
@@ -70,7 +70,8 @@ TRAINING_KINDS = (("qmm", ("qmm_kernel",)),
                   ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
                   ("optimizer", ("foreach", "multi_tensor")))
 #: the ResNet training step: the conv kernels split by pass
-RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e")),
+RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e",
+                                     "conv_fwd_wgmma")),
                 ("conv_dgrad_kernel", ("conv_gemm_kernel<1", "kernelili1e",
                                        "conv_gemm_kernel<3",
                                        "kernelili3e")),
@@ -100,11 +101,11 @@ COUNTED_KERNELS = (
     ("bn_act_bwd", ("bn_bwd",)),
     ("xentropy_fwd", ("xent_fwd",)),
     ("xentropy_bwd", ("xent_bwd",)),
-    ("conv_fwd", ("conv_gemm_kernel<0", "kernelili0e")),
+    ("conv_fwd", ("conv_gemm_kernel<0", "kernelili0e", "conv_fwd_wgmma")),
     ("conv_dgrad", ("conv_gemm_kernel<1", "kernelili1e",
                     "conv_gemm_kernel<3", "kernelili3e")),
     ("conv_wgrad", ("conv_gemm_kernel<2", "kernelili2e")),
-    ("qmm", ("qmm_kernel",)))
+    ("qmm", ("qmm_kernel", "qmm_wgmma")))
 
 #: device events that are work (the rest are projections of user ranges)
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -31,10 +31,18 @@ w.T``, ``dw = x.T @ g``, plain ``torch.matmul``), as in JAX: the int8
 path never appears in it.
 
 Dispatch is by the tensor's device: a CPU tensor takes :func:`_qmm_ref`,
-a CUDA tensor launches the kernel (every shape, decode rows included —
+a CUDA tensor launches a kernel (every shape, decode rows included —
 the TPU's ``_JNP_MAX_ELEMENTS`` crossover and VMEM fit gate do not carry
 over) or raises.  ``impl="jnp"`` is the caller's explicit request for the
 plain version on either device.
+
+Routes (:func:`_route`, counted in ``qmm_kernel.routes``): the prefill and
+training rows (M > 64) run ``csrc/quant_sm90.cu`` (``wgmma`` with TMA
+loads) where TMA can read x and qw (:func:`_tma_ok`); the decode rows
+(M <= 64) run ``csrc/quant.cu``'s split-K kernel (``split``), and a view
+TMA cannot read, or a K under one 128-byte step (where ``wgmma`` measured
+slower), its ``mma.sync`` kernel (``mma``).  Every route gives the same
+bits.
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ QMAX = 127.0
 
 #: the tuner's config version of this kernel: bump it when a tile's
 #: meaning changes, and every cached config of the old one stops matching
-TUNE_VERSION = 1
+#: (2: the tiles of M > 64 name the ``wgmma`` kernel's)
+TUNE_VERSION = 2
 
 
 def tune_bucket(m: int, k: int, n: int, x_itemsize: int) -> str:
@@ -67,14 +76,22 @@ def tune_bucket(m: int, k: int, n: int, x_itemsize: int) -> str:
     return f"m{_space.pow2_bucket(m)}_k{k}_n{n}_i{x_itemsize}"
 
 
+def _wgmma_tiles(x_itemsize: int) -> Tuple[Tuple[int, int], ...]:
+    """``csrc/quant_sm90.cu``'s tiles: the wide one (128 x 256; 64 x 256
+    for fp32 x), 128 x 128 and 64 x 128."""
+    return ((64 if x_itemsize == 4 else 128, 256), (128, 128), (64, 128))
+
+
 def tiles(x_itemsize: int) -> Tuple[Tuple[int, int], ...]:
-    """The ``(block_m, block_n)`` tiles ``csrc/quant.cu`` is instantiated
-    at for an x of this itemsize, the tuner's candidates: the decode
-    tiles 16 x 32 and 64 x 32, the wide tile (128 x 256; 64 x 256 for
-    fp32 x) and 64 x 128.  Which of them a call may run is the kernel's
-    ``plan()``'s to say (:func:`kernel_tile`)."""
-    wide_bm = 64 if x_itemsize == 4 else 128
-    return ((16, 32), (64, 32), (wide_bm, 256), (64, 128))
+    """The ``(block_m, block_n)`` tiles of the kernels for an x of this
+    itemsize, the tuner's candidates: ``csrc/quant.cu``'s decode tiles 16
+    x 32 and 64 x 32, then the wide tile (128 x 256; 64 x 256 for fp32
+    x) and 64 x 128, which both kernels have, and ``wgmma``'s 128 x 128.
+    At M > 64 a tile of the ``wgmma`` kernel runs there (:func:`_route`),
+    another on ``mma.sync``.  Which of them a call may run is the
+    kernels' ``plan()``'s to say (:func:`kernel_tile`)."""
+    wide, mid, narrow = _wgmma_tiles(x_itemsize)
+    return ((16, 32), (64, 32), wide, narrow, mid)
 
 
 def _f32(v, device=None) -> torch.Tensor:
@@ -169,7 +186,8 @@ def weight_layout(w2d, w_scale) -> torch.Tensor:
     """The quantized weight as the kernel reads it: ``w2d`` ``[K, N]``
     quantized per column by ``w_scale`` ``[N]``, laid out ``[N, Kp]``
     int8 (K contiguous) with zero columns up to ``Kp``, the next multiple
-    of 16 (the K step of ``mma.sync.m16n8k32`` loads)."""
+    of 16 (the K step of ``mma.sync.m16n8k32`` loads; TMA's 16-byte rows
+    for ``wgmma``'s K-major operand)."""
     k = w2d.shape[0]
     qw = quantize(w2d, w_scale[None, :]).t()
     pad = -k % 16
@@ -195,17 +213,92 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _sm90_lib() -> ctypes.CDLL:
+    lib = _build.load("quant_sm90")
+    fn = lib.quant_matmul_sm90
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    tl = lib.quant_matmul_sm90_tile
+    tl.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    tl.restype = ctypes.c_int
+    return lib
+
+
+def _tma_ok(x2d, qw) -> bool:
+    """Whether the ``wgmma`` kernel's TMA loads can read the row-major x
+    the wrapper launches on (``x2d`` itself, or its contiguous copy, which
+    starts aligned) and ``qw``: 16-byte aligned starts and rows a multiple
+    of 16 bytes (``qw``'s are: Kp is a multiple of 16).  The routing rule:
+    a call that breaks it runs ``mma.sync``."""
+    aligned = not x2d.is_contiguous() or x2d.data_ptr() % 16 == 0
+    return (aligned and qw.data_ptr() % 16 == 0
+            and x2d.shape[1] * x2d.element_size() % 16 == 0)
+
+
+# (M, N, x dtype code, block_m, block_n) -> whether the wgmma kernel has it
+_SM90_TILES: dict = {}
+
+
+def _sm90_tile_ok(m, n, x_code, tile) -> bool:
+    key = (m, n, x_code, *tile)
+    ok = _SM90_TILES.get(key)
+    if ok is None:
+        out = (ctypes.c_int * 2)()
+        ok = _SM90_TILES[key] = _sm90_lib().quant_matmul_sm90_tile(
+            m, n, x_code, *tile, out) == 0
+    return ok
+
+
+#: the least K the rule sends to the wgmma kernel: one full 128-byte K
+#: step.  At K 8 and 40 (M 1000-1024) it measured slower than mma.sync
+#: (0.0061 / 0.0081 ms against 0.0052 / 0.0063), at K 768 and 3072 faster
+#: (H100 80GB HBM3, 700 W; chip_smoke.py phase 16)
+_WGMMA_MIN_K = 128
+
+
+def _route(m: int, k: int, n: int, dtype: torch.dtype,
+           tile: Optional[Tuple[int, int]], tma: bool) -> str:
+    """The kernel an ``[m, k] x [k, n]`` call of x ``dtype`` runs (the key
+    of ``qmm_kernel.routes`` it counts in): ``split`` for the decode rows
+    (``m`` <= 64: ``csrc/quant.cu``'s kernel, K split over the SMs); else
+    ``wgmma`` (``csrc/quant_sm90.cu``) where TMA can read the operands
+    (``tma``, :func:`_tma_ok`) and ``tile`` names one of its tiles (a
+    half at -1 matches any) or, with no tile, K is at least
+    ``_WGMMA_MIN_K``; else ``mma`` (``csrc/quant.cu``)."""
+    del n
+    if m <= 64:
+        return "split"
+    if not tma:
+        return "mma"
+    if tile is None:
+        return "wgmma" if k >= _WGMMA_MIN_K else "mma"
+    bm, bn = tile
+    return ("wgmma" if any((bm < 0 or bm == a) and (bn < 0 or bn == b)
+                           for a, b in _wgmma_tiles(dtype.itemsize))
+            else "mma")
+
+
 def kernel_tile(m: int, k: int, n: int, x_dtype: torch.dtype,
-                tile: Tuple[int, int] = (-1, -1)
-                ) -> Optional[Tuple[int, int]]:
-    """The ``(block_m, block_n)`` the kernel's ``plan()`` runs for an
+                tile: Tuple[int, int] = (-1, -1),
+                tma: Optional[bool] = None) -> Optional[Tuple[int, int]]:
+    """The ``(block_m, block_n)`` the kernels' ``plan()`` runs for an
     ``[m, k] x [k, n]`` call naming ``tile`` (a half at -1 is the
-    rule's; ``(-1, -1)``: the rule's tile), or None when the kernel has
-    no such tile.  Asks the built library, so only on the card."""
+    rule's; ``(-1, -1)``: the rule's tile), or None when the call's
+    kernel (:func:`_route`; ``tma`` None: an aligned x, whose rows TMA
+    reads where ``k * itemsize`` is a multiple of 16) has no such tile.
+    Asks the built library, so only on the card."""
     out = (ctypes.c_int * 2)()
-    kp = -(-k // 16) * 16
-    if _lib().quant_matmul_tile(m, n, kp, _build.dtype_code(x_dtype),
-                                *tile, out) != 0:
+    code = _build.dtype_code(x_dtype)
+    if tma is None:
+        tma = k * x_dtype.itemsize % 16 == 0
+    want = None if tuple(tile) == (-1, -1) else tuple(tile)
+    if _route(m, k, n, x_dtype, want, tma) == "wgmma":
+        err = _sm90_lib().quant_matmul_sm90_tile(m, n, code, *tile, out)
+    else:
+        err = _lib().quant_matmul_tile(m, n, -(-k // 16) * 16, code, *tile,
+                                       out)
+    if err != 0:
         return None
     return out[0], out[1]
 
@@ -241,15 +334,22 @@ def _workspace(m, n, kp, x_code, device, tile=(-1, -1)
 
 
 def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype,
-               tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               tile: Optional[Tuple[int, int]] = None,
+               route: Optional[str] = None) -> torch.Tensor:
     """Launch the CUDA quantized-matmul kernel: arguments as
     :func:`_qmm_ref`, CUDA tensors, ``qw`` ``[N, Kp]`` as
     :func:`weight_layout` gives it (``Kp`` a multiple of 16, at most 15
     past K); returns ``[M, N]`` in ``out_dtype`` (fp32, bf16 or fp16).
     ``tile``: ``(block_m, block_n)``, one of :func:`tiles` (a half at -1
     is the rule's), or None for the rule's tile; a tile the kernel lacks
-    raises ``ValueError``.  Every tile gives the same bits (int32 sums).
-    Adds one to ``qmm_kernel.launches`` per launch."""
+    raises ``ValueError``.  The route (:func:`_route`) picks the kernel:
+    ``csrc/quant_sm90.cu`` for M > 64 and K >= 128 where TMA reads the
+    operands, else ``csrc/quant.cu``; ``route`` names one instead (at M >
+    64 ``"mma"`` or, where TMA reads the operands, ``"wgmma"``, to compare
+    the two), and one the call cannot take raises ``ValueError``.  Every
+    route and tile gives the same bits (int32 sums).  Adds one to
+    ``qmm_kernel.launches`` and to ``qmm_kernel.routes[route]`` per
+    launch."""
     if x2d.dim() != 2 or qw.dim() != 2:
         raise ValueError(f"need x [M, K] and qw [N, Kp]; got "
                          f"{tuple(x2d.shape)} and {tuple(qw.shape)}")
@@ -273,30 +373,54 @@ def qmm_kernel(x2d, qw, x_scale, w_scale, out_dtype,
     x2d, qw, w_scale = (t.contiguous() for t in (x2d, qw, w_scale))
     if qw.data_ptr() % 16:
         raise ValueError("qw must start on a 16-byte boundary")
+    tma = _tma_ok(x2d, qw)
+    rule = _route(m, k, n, x2d.dtype, tile, tma)
+    takes = ("split",) if m <= 64 else ("wgmma", "mma") if tma else ("mma",)
+    if route is not None and route not in takes:
+        raise ValueError(
+            f"qmm route {route!r} cannot take this call (M={m}, x "
+            f"{x2d.dtype}, TMA {'can' if tma else 'cannot'} read the "
+            f"operands): its routes are {takes}, the rule's {rule!r}")
+    route = route or rule
     tile = (-1, -1) if tile is None else (int(tile[0]), int(tile[1]))
-    if _workspace_ints(m, n, kp, x_code, tile) < 0:
+    if (not _sm90_tile_ok(m, n, x_code, tile) if route == "wgmma"
+            else _workspace_ints(m, n, kp, x_code, tile) < 0):
         raise ValueError(f"qmm tile {tile} is not one the kernel has for "
-                         f"{x2d.dtype} x (-1: a half of the rule's); its "
-                         f"tiles are {tiles(x2d.element_size())}")
-    vec = int(k % 8 == 0 and x2d.data_ptr() % 16 == 0)
+                         f"{x2d.dtype} x on the {route} route (-1: a half "
+                         f"of the rule's); the tiles are "
+                         f"{tiles(x2d.element_size())}")
     out = torch.empty((m, n), dtype=out_dtype, device=x2d.device)
     if m == 0 or n == 0:
         return out
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        work = _workspace(m, n, kp, x_code, x2d.device, tile)
-        err = _lib().quant_matmul(
-            x2d.data_ptr(), qw.data_ptr(), x_scale.data_ptr(),
-            w_scale.data_ptr(), out.data_ptr(),
-            0 if work is None else work.data_ptr(), m, n, k, kp, vec,
-            x_code, out_code, *tile, stream)
+        if route == "wgmma":
+            err = _sm90_lib().quant_matmul_sm90(
+                x2d.data_ptr(), qw.data_ptr(), x_scale.data_ptr(),
+                w_scale.data_ptr(), out.data_ptr(), m, n, k, kp, x_code,
+                out_code, *tile, stream)
+        else:
+            vec = int(k % 8 == 0 and x2d.data_ptr() % 16 == 0)
+            work = _workspace(m, n, kp, x_code, x2d.device, tile)
+            err = _lib().quant_matmul(
+                x2d.data_ptr(), qw.data_ptr(), x_scale.data_ptr(),
+                w_scale.data_ptr(), out.data_ptr(),
+                0 if work is None else work.data_ptr(), m, n, k, kp, vec,
+                x_code, out_code, *tile, stream)
     if err != 0:
-        raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
+        raise RuntimeError(f"quant_matmul ({route}) launch failed: CUDA "
+                           f"error {err}" + (
+                               " (cuTensorMapEncodeTiled refused a tensor map)"
+                               if route == "wgmma" else ""))
     qmm_kernel.launches += 1
+    qmm_kernel.routes[route] += 1
     return out
 
 
 _build.counted(qmm_kernel)
+#: the launches by the kernel that served them (:func:`_route`), counted
+#: as ``launches`` is (a captured graph's replays included)
+qmm_kernel.routes = {"wgmma": 0, "mma": 0, "split": 0}
 
 
 def _tuned_tile(x2d, n: int) -> Optional[Tuple[int, int]]:
@@ -318,9 +442,9 @@ def _pick_tile(x2d, qw, block_m: Optional[int],
     kernel has it, else None (the rule).  The kernel path only."""
     if block_m is None and block_n is None:
         tile = _tuned_tile(x2d, qw.shape[0])
-        if tile is None or _workspace_ints(
-                x2d.shape[0], qw.shape[0], qw.shape[1],
-                _build.dtype_code(x2d.dtype), tile) < 0:
+        m, k = x2d.shape
+        if tile is None or kernel_tile(m, k, qw.shape[0], x2d.dtype, tile,
+                                       _tma_ok(x2d, qw)) != tile:
             return None
         return tile
     return (int(block_m or -1), int(block_n or -1))

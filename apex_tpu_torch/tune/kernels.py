@@ -20,7 +20,9 @@ Off the card (``interpret``) each runs its plain versions on the CPU.
   with the tile; tolerance phase 4's bf16 gate, 2e-2.
 * **conv2d** — ``block_m`` (128, the one instantiation) / ``block_n``
   (64 or 128) of the implicit-GEMM tile, for forward, dgrad and wgrad.
-  Exact: the width moves which block computes an output, not its K sum.
+  Exact: the width moves which block computes an output, not its K sum;
+  both widths of a bucket run its forward's route (``_fwd_route``: the
+  wgmma kernel for bf16/fp16 with C a multiple of 64).
 * **fused_layer_norm** — ``row_block``: rows a program handles, one
   after another.  Exact: each row's arithmetic is unchanged.
 * **bn_relu_residual** — ``row_block``: the rows of a program's tile.
@@ -29,8 +31,10 @@ Off the card (``interpret``) each runs its plain versions on the CPU.
   program holds and its warps.  Not exact: both reorder the forward's
   row reductions; tolerance phase 12's, 1e-4 on the losses and ``mlse``
   and 1e-5 on ``dx``.
-* **quantized_matmul** — ``block_m``/``block_n``: one of the four tiles
-  ``csrc/quant.cu`` has.  Exact: int32 sums at any tile and K split.
+* **quantized_matmul** — ``block_m``/``block_n``: one of the tiles of
+  ``csrc/quant_sm90.cu`` (the wgmma kernel of M > 64) or ``csrc/quant.cu``
+  (the decode tiles; ``quant.kernels.tiles``).  Exact: int32 sums at any
+  tile, route and K split.
 
 Candidate priority (the ledger hook): a memory-bound verdict visits
 small tiles first, a compute-bound one big tiles first, as in JAX.

@@ -29,10 +29,11 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the five CUDA libraries (the flash forward's wgmma kernel;
+2. build the seven CUDA libraries (the flash forward's wgmma kernel;
    its other routes; flash dQ, dK/dV and the bias gradient; the conv
-   forward, dgrad and wgrad; the int8 quantized matmul: one ``nvcc``
-   each) and compile the Triton kernels (LayerNorm, BN epilogue and
+   forward's wgmma kernel; the conv forward's other routes, dgrad and
+   wgrad; the int8 quantized matmul's wgmma kernel; its decode and
+   ``mma.sync`` routes: one ``nvcc`` each) and compile the Triton kernels (LayerNorm, BN epilogue and
    cross-entropy, forward and backward, one after another), all
    concurrently, time each and print ``ptxas``'s registers and spills;
 3. LayerNorm kernel vs plain at ``[1024, 768]``, ``[8, 768]``, the LM
@@ -124,7 +125,9 @@ line):
    just before and read just after (53 conv forward, 52 dgrad (the
    stem's input needs no gradient) and 53 wgrad, 53 BN forward and
    backward, 1 cross-entropy forward and backward per step of the warm
-   run and of the replays, nothing else); losses finite; step ms,
+   run and of the replays, nothing else; of the forwards, the stem's on
+   conv.cu's ``mma.sync`` route and the other 52 on the wgmma route,
+   counted as the launches are); losses finite; step ms,
    images/s, peak memory; two eager steps traced (device time by kind,
    the conv kernels split into forward, dgrad and wgrad; idle share);
    13b. the same with ``--no-pallas-conv`` (cuDNN convs), 5 steps, no
@@ -149,8 +152,14 @@ line):
    elements within one ulp of their plain value (wgrad: of the fp64 sum,
    since its fp32 plain sum over up to 1.6 M products misses by more on
    elements near zero), the epilogue equal to the kernel's conv
-   followed by the plain epilogue bit for bit; ``library_ms`` is cuDNN
-   (``F.conv2d`` channels-last, ``aten.convolution_backward``);
+   followed by the plain epilogue bit for bit; each forward names its
+   route (``conv_fwd_kernel.routes``: wgmma for bf16/fp16 with C a
+   multiple of 64, mma for the stem, simt for fp32), and where that is
+   the wgmma kernel the ``mma.sync`` kernel is timed on the same inputs
+   beside it (equal bit for bit: printed, not a gate); with ``--was``
+   the other checkout's kernels are timed beside each case;
+   ``library_ms`` is cuDNN (``F.conv2d`` channels-last,
+   ``aten.convolution_backward``);
    15b. forward, dgrad and wgrad at every distinct ResNet-50 conv site (23
    at B 128, bf16) against their plain versions as in 15, timed beside
    cuDNN and, with ``--was``, beside the conv kernels of another checkout
@@ -162,14 +171,19 @@ line):
    (768->3072), an fp32 case, a zero-amax weight column, ragged M 1000 /
    N 130, fp16, and K = 8 and K = 40 (the weight padded to a multiple of
    16); ``library_ms`` ``torch._int_mm`` on the quantized operands where
-   it takes the shape, beside the bf16 matmul of O2; with ``--was``, the
-   other checkout's qmm kernel timed on the same inputs;
+   it takes the shape, beside the bf16 matmul of O2; each case names its
+   route (``qmm_kernel.routes``: wgmma for M > 64 and K >= 128, split
+   for the decode rows, mma below K 128) and at M > 64 the other kernel
+   is timed on the same inputs beside it, bit for bit too; with
+   ``--was``, the other checkout's qmm kernel timed on the same inputs;
 17. O4 serving: gpt2_small bf16 calibrated in observe mode on 4 batches
    (frozen with "max"), rebuilt with the frozen scales, serving phase
    5's load with an int8 KV cache through the captured engine and the
    eager bodies as in phase 5 (72 qmm, 25 LN and 12 flash launches a
    forward, nothing else; 72 weight preparations at the engine's warmup
-   and none while serving; tokens equal), traced as in phase 6, and
+   and none while serving; every prefill forward's qmm on the wgmma
+   route, every decode step's on split; tokens equal), traced as in
+   phase 6, and
    O4 beside O2 (host and device ms and kernels a decode step,
    tokens/s); O4 with an empty calibration equal to O2 bit for bit, O4
    vs O2 prefill logits, and O4's prefill logits and greedy tokens with
@@ -203,7 +217,8 @@ line):
    before each step's state was copied in), its state bit for bit too,
    for the step ms and peak memory before that change; every flash
    forward of the LM runs (eager, K 1, K 8, O2 and O4) on the wgmma
-   route;
+   route, every qmm of the O4 runs on wgmma, and every ResNet-50 conv
+   forward but the stem's on wgmma;
 21. BERT-base training: the JAX package's BERT step (``bench.py``:
    ``bert_base(dtype=bf16, num_classes=None, attention_impl="flash")``,
    B 16, T 128, the tied fp32 head, cross-entropy with smoothing 0.1,
@@ -673,6 +688,57 @@ def route_gate(fa, name, launches):
     return routes
 
 
+#: a ResNet-50 step's 53 conv forwards by route: the stem (C = 3, padded
+#: to 8) on conv.cu's mma.sync kernel, the other 52 (C a multiple of 64)
+#: on conv_sm90.cu's wgmma kernel
+RESNET_FWD_ROUTES = {"wgmma": 52, "mma": 1, "simt": 0}
+
+
+def zero_wrapper_routes(*wrappers):
+    """Each wrapper's route counts set to 0, as the launch counters are."""
+    for w in wrappers:
+        for r in w.routes:
+            w.routes[r] = 0
+
+
+def launched_route(wrapper, fn):
+    """``fn()``'s result and the route of the one launch it made."""
+    before = dict(wrapper.routes)
+    out = fn()
+    moved = [r for r, n in wrapper.routes.items() if n != before[r]]
+    return out, (moved[0] if len(moved) == 1 else moved)
+
+
+def conv_route_gate(name, routes, launches):
+    """Since the route counts were set to 0: ``launches`` ResNet-50 conv
+    forwards, a whole number of steps, each step's stem on the mma route
+    and its other 52 forwards on wgmma (``RESNET_FWD_ROUTES``)."""
+    routes = dict(routes)
+    steps = launches // 53
+    want = {r: n * steps for r, n in RESNET_FWD_ROUTES.items()}
+    check(launches > 0 and launches % 53 == 0 and routes == want,
+          f"{name}: conv forward routes {routes} = {RESNET_FWD_ROUTES} x "
+          f"{steps} steps ({launches} launches): every forward but the "
+          f"stem's on wgmma")
+    return routes
+
+
+def qmm_route_gate(name, routes, launches, decode):
+    """Since the route counts were set to 0: every qmm launch of a path
+    with more than 64 rows (a prefill or a training step, 72 a forward)
+    on the wgmma route and, where the path decodes, every decode step's on
+    split; no mma.sync launch, the routes summing to the launches."""
+    routes = dict(routes)
+    check(routes["mma"] == 0 and routes["wgmma"] > 0
+          and routes["wgmma"] % 72 == 0 and routes["split"] % 72 == 0
+          and (routes["split"] > 0) == decode
+          and sum(routes.values()) == launches,
+          f"{name}: qmm routes {routes}: every prefill or training qmm on "
+          f"wgmma{', every decode step on split' if decode else ''}, "
+          f"{launches} launches")
+    return routes
+
+
 def flash_cases(fa, dev, was_fa=None):
     """Each case: the kernel of the rule's route against the plain
     version; its time (a CUDA graph of 20 calls), eager, the plain
@@ -1135,9 +1201,11 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
     for c in counters.values():
         c.launches = 0
     zero_routes(fa_mod)
+    zero_wrapper_routes(counters["qmm"])
     results, st, res = _serve(model, engine_mod.ServingEngine, prompts, dev,
                               cache_dtype)
     launches = {name: c.launches for name, c in counters.items()}
+    qmm_routes = dict(counters["qmm"].routes)
     cache = importlib.import_module("apex_tpu_torch.cache")
     forwards = cache.WARM_RUNS * res["warmup_captures"] + res["replays"]
     tag = res["kv_cache_dtype"]
@@ -1172,6 +1240,9 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
                preparations_per_decode_step=res["preparations_served"]
                / max(1, st["decode_steps"]))
     if per_forward.get("qmm"):
+        res["qmm_routes"] = qmm_route_gate(
+            f"gpt2_small ({tag} KV)", qmm_routes, launches["qmm"],
+            decode=True)
         check(res["preparations_warmup"] == per_forward["qmm"]
               and res["preparations_served"] == 0,
               f"gpt2_small ({tag} KV): weight preparations "
@@ -1822,9 +1893,13 @@ def _wgrad_fp64(x, dy, stride, padding, kernel_size):
     return dw.permute(2, 3, 1, 0).to(x.dtype)
 
 
-def conv_cases(cv, fba, dev):
+def conv_cases(cv, fba, dev, was=None):
     """Kernels 1-3 against their plain versions at ResNet-50 B 128 shapes
-    (cuDNN TF32 off, so the fp32 plain conv is full fp32).  ``library_ms``
+    (cuDNN TF32 off, so the fp32 plain conv is full fp32).  Each forward
+    names its route; where that is wgmma, conv.cu's ``mma.sync`` kernel
+    is timed on the same inputs (``mma_ms``, and whether it gives the same
+    bits).  With ``was`` (another checkout's ``ops.conv``, ``--was``) its
+    kernel is timed on the same inputs, in the same process.  ``library_ms``
     is cuDNN on the same inputs, channels-last: ``F.conv2d`` (an
     asymmetric pad applied to its input beforehand, untimed) and
     ``aten.convolution_backward`` with the matching output mask; none for
@@ -1878,6 +1953,14 @@ def conv_cases(cv, fba, dev):
         def run_wgrad():
             return cv.conv_wgrad_kernel(x, dy, stride, padding, dil, ws[:2])
 
+        def calls(mod, **kw):
+            return {"conv_fwd": lambda: mod.conv_fwd_kernel(
+                        x, w, stride, padding, dil, *epi, **kw)[0],
+                    "conv_dgrad": lambda: mod.conv_dgrad_kernel(
+                        dy, w, stride, padding, dil, xs[1:3]),
+                    "conv_wgrad": lambda: mod.conv_wgrad_kernel(
+                        x, dy, stride, padding, dil, ws[:2])}
+
         def plain_fwd():
             return cv._fwd_ref(x, w, stride, padding, dil, *epi)[0]
         phases = [("conv_fwd", run_fwd, plain_fwd, lib_fwd, time_ms,
@@ -1896,7 +1979,11 @@ def conv_cases(cv, fba, dev):
         if only:
             phases = [ph for ph in phases if ph[0] in only[0]]
         for kname, fn, plain, lib, lib_timer, cost in phases:
-            got = fn()
+            route = None
+            if kname == "conv_fwd":
+                got, route = launched_route(cv.conv_fwd_kernel, fn)
+            else:
+                got = fn()
             want = plain()
             exact = plain_within = None
             if kname == "conv_wgrad" and dtype == torch.bfloat16:
@@ -1928,13 +2015,26 @@ def conv_cases(cv, fba, dev):
                         library_ms=(None if ep else lib_timer(lib, iters=5)),
                         bound_ms=bms, bound_by=by)
             case["tflops"] = cost.flops / case["ms"] / 1e9
+            extra = ""
+            if route is not None:
+                case["route"] = route
+                extra = f", route {route}"
+            if route == "wgmma":
+                mma = calls(cv, route="mma")["conv_fwd"]
+                case["mma_ms"] = time_ms(mma, iters=10)
+                case["mma_same_bits"] = torch.equal(mma(), fn())
+                extra += (f" (mma.sync {case['mma_ms']:.4f} ms, the same "
+                          f"bits {case['mma_same_bits']})")
+            if was is not None:
+                case["was_ms"] = time_ms(calls(was)[kname], iters=10)
+                extra += f" [was {case['was_ms']:.4f} ms]"
             out[kname].append(case)
             lib_s = ("n/a" if case["library_ms"] is None
                      else f"{case['library_ms']:.4f} ms")
             print(f"      {kname} {name}: kernel {case['ms']:.4f} ms (eager "
-                  f"{case['eager_ms']:.4f}, {case['tflops']:.1f} TFLOP/s), "
-                  f"plain {case['plain_ms']:.4f} ms, library {lib_s}, bound "
-                  f"{bms:.4f} ms ({by})", flush=True)
+                  f"{case['eager_ms']:.4f}, {case['tflops']:.1f} TFLOP/s)"
+                  f"{extra}, plain {case['plain_ms']:.4f} ms, library "
+                  f"{lib_s}, bound {bms:.4f} ms ({by})", flush=True)
         del x, w, dy, xl, wl, dyl, epi
     return out
 
@@ -2099,6 +2199,7 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+    zero_wrapper_routes(counters["conv_fwd"])
     res = imagenet.train(args, log=lambda line: print("      " + line,
                                                       flush=True))
     launches = {name: c.launches for name, c in counters.items()}
@@ -2114,6 +2215,11 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
           f"resnet50 training {flag}: launches {launches} = {per_step} x "
           f"{ran} steps (the warm run and the replays; no other "
           f"kernel)")
+    conv_routes = None
+    if pallas_conv:
+        conv_routes = conv_route_gate(f"resnet50 training {flag}",
+                                      counters["conv_fwd"].routes,
+                                      launches["conv_fwd"])
     losses = res["losses"]
     check(all(np.isfinite(losses)),
           f"resnet50 training {flag}: losses finite ({losses[0]:.4f} -> "
@@ -2123,7 +2229,7 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
                step_ms_median_3_10=step_ms,
                images_per_s=res["images_per_step"] / step_ms * 1e3,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               launches=launches)
+               launches=launches, conv_fwd_routes=conv_routes)
     print(f"      resnet50 O2 B128 224 {flag}: step {step_ms:.2f} ms "
           f"(median of steps 3-{steps}), {out['images_per_s']:.1f} "
           f"images/s, peak "
@@ -2327,7 +2433,11 @@ def qmm_cases(qk, dev, was=None):
     ``library_ms`` is ``torch._int_mm`` on the pre-quantized operands
     where it takes the shape (the int8 GEMM alone: a lower bound
     on the same product); ``o2_matmul_ms`` the bf16 ``torch.matmul`` the
-    O2 path runs at the same shape (what O4 competes with).  The bound
+    O2 path runs at the same shape (what O4 competes with).  Each case
+    names its route; at M > 64 the other kernel (quant.cu's ``mma.sync``
+    beside wgmma, wgmma where the rule keeps ``mma.sync``) runs on the
+    same inputs, bit for bit the plain version too, and is timed beside
+    it (``mma_ms`` or ``wgmma_ms``).  The bound
     counts x, qw, the scales and the output once, and 2 M N K operations
     at the int8 peak."""
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -2348,13 +2458,25 @@ def qmm_cases(qk, dev, was=None):
 
         def plain():
             return qk._qmm_ref(x, qw, xs, ws, dtype)
-        got, want = run(), plain()
+
+        (got, route), want = launched_route(qk.qmm_kernel, run), plain()
+        # the other kernel of the prefill and training rows, on the same
+        # inputs: mma.sync beside wgmma, wgmma where the rule keeps mma
+        other = ({"wgmma": "mma", "mma": "wgmma"}.get(route)
+                 if qk._tma_ok(x, qw) else None)
+
+        def run_other():
+            return qk.qmm_kernel(x, qw, xs, ws, dtype, route=other)
         torch.cuda.synchronize()
         exact = torch.equal(got, want)
+        if other:
+            exact = exact and torch.equal(run_other(), want)
         if zero_col:
             exact = exact and not got[:, n // 3].any()
-        check(exact, f"qmm {name}: equals the plain version bit for bit "
-              f"{exact} (max_abs_err {max_err(got, want):.3g})")
+        check(exact, f"qmm {name}: route {route}, equals the plain version "
+              f"bit for bit {exact}"
+              + (f" (and the {other} kernel)" if other else "")
+              + f" (max_abs_err {max_err(got, want):.3g})")
         bms, by = bound(costs().qmm(x, qw))
         lib = None
         qx, qkn = qk.quantize(x, xs), qw[:, :k].t()
@@ -2364,20 +2486,23 @@ def qmm_cases(qk, dev, was=None):
             print(f"      qmm {name}: torch._int_mm refused "
                   f"({str(e).splitlines()[0][:80]})", flush=True)
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-        case = dict(case=name, max_abs_err=max_err(got, want),
+        case = dict(case=name, route=route, max_abs_err=max_err(got, want),
                     bit_exact=exact, ms=time_ms(run), eager_ms=eager_ms(run),
                     plain_ms=time_ms(plain, iters=3), library_ms=lib,
                     o2_matmul_ms=time_ms(lambda: xb @ wb),
                     bound_ms=bms, bound_by=by)
         case["tops"] = 2.0 * m * n * k / case["ms"] / 1e9
-        was_s = ""
+        was_s = f" route {route}"
+        if other:
+            case[f"{other}_ms"] = time_ms(run_other)
+            was_s += f" ({other} {case[f'{other}_ms']:.4f} ms)"
         if was is not None:
             was_got = was.qmm_kernel(x, qw, xs, ws, dtype)
             case["was_bit_exact"] = torch.equal(was_got, want)
             case["was_ms"] = time_ms(
                 lambda: was.qmm_kernel(x, qw, xs, ws, dtype))
-            was_s = (f" [was {case['was_ms']:.4f} ms, bit for bit "
-                     f"{case['was_bit_exact']}]")
+            was_s += (f" [was {case['was_ms']:.4f} ms, bit for bit "
+                      f"{case['was_bit_exact']}]")
         lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
         print(f"      qmm {name}: kernel {case['ms']:.4f} ms{was_s} (eager "
               f"{case['eager_ms']:.4f}, {case['tops']:.1f} TOP/s), plain "
@@ -2964,6 +3089,8 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
     window_end = (importlib.import_module("apex_tpu_torch.runtime"),
                   importlib.import_module("apex_tpu_torch.cache"))
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    qk = importlib.import_module("apex_tpu_torch.quant.kernels")
+    cv = importlib.import_module("apex_tpu_torch.ops.conv")
     launched = fa.flash_fwd_kernel.launches
     zero_routes(fa)
     lm = capture_vs_eager(
@@ -2972,19 +3099,30 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
         lambda k, n: main_amp.train(main_amp.parse(
             TRAIN_ARGS + ["--steps", str(n), "--steps-per-call", str(k)]),
             **quiet), steps, window_end=window_end, keep="lm_o2")
+    qmm_launched = qk.qmm_kernel.launches
+    zero_wrapper_routes(qk.qmm_kernel)
     o4 = capture_vs_eager(
         "gpt2_small O4 B8 T1023", lambda: build_o4()[:3],
         lambda k, n: window_loop(*build_o4()[:3], k, n), steps,
         window_end=window_end)
+    o4["qmm_routes"] = qmm_route_gate(
+        "gpt2_small O4 B8 T1023, eager and K 1 / K 8", qk.qmm_kernel.routes,
+        qk.qmm_kernel.launches - qmm_launched, decode=False)
     lm["flash_routes"] = route_gate(
         fa, "gpt2_small O2 and O4 B8 T1023, eager and K 1 / K 8",
         fa.flash_fwd_kernel.launches - launched)
+    conv_launched = cv.conv_fwd_kernel.launches
+    zero_wrapper_routes(cv.conv_fwd_kernel)
     resnet = capture_vs_eager(
         "resnet50 O2 B128 224",
         lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
         lambda k, n: imagenet.train(imagenet.parse(
             IMAGENET_ARGS + ["--prof", str(n), "--steps-per-call", str(k)]),
             **quiet), steps, window_end=window_end, keep="resnet50_o2")
+    resnet["conv_fwd_routes"] = conv_route_gate(
+        "resnet50 O2 B128 224, eager and K 1 / K 8",
+        cv.conv_fwd_kernel.routes,
+        cv.conv_fwd_kernel.launches - conv_launched)
     return dict(lm_o2=lm, lm_o4=o4, resnet50_o2=resnet)
 
 
@@ -4232,6 +4370,11 @@ def ddp_nccl(counters, tmp):
     check(ka == kb and all(ka.get(n, 0) >= ran for n in RESNET_KERNELS),
           f"ddp_nccl: kernel launches of (a) {ka} = (b)'s {kb}, kernels 1-7 "
           f"each at least once a step ({ran} steps on the card)")
+    fwd_name = counters["conv_fwd"].__name__
+    for tag, st in (("(a)", a), ("(b)", b)):
+        conv_route_gate(f"ddp_nccl {tag}",
+                        st.get("routes", {}).get(fwd_name, {}),
+                        st["launches"].get(fwd_name, 0))
     coll = _collectives(a["launches"])
     want = {kind: n * ran for kind, n in DDP_NCCL_COLLECTIVES.items()}
     check(coll == want and not _collectives(b["launches"]),
@@ -6848,12 +6991,15 @@ def main(argv=None) -> int:
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
             "conv_nvcc_s": lambda: build.load("conv"),
+            "conv_sm90_nvcc_s": lambda: build.load("conv_sm90"),
             "quant_nvcc_s": lambda: build.load("quant"),
+            "quant_sm90_nvcc_s": lambda: build.load("quant_sm90"),
             "triton_s": build_triton}
     if args.was:
         was_build = load_was(args.was, "_build")
         for name in ("flash_attention", "flash_attention_sm90",
-                     "flash_attention_bwd", "conv", "quant"):
+                     "flash_attention_bwd", "conv", "conv_sm90", "quant",
+                     "quant_sm90"):
             if os.path.exists(os.path.join(args.was, "apex_tpu_torch",
                                            "csrc", f"{name}.cu")):
                 jobs[f"was_{name}_nvcc_s"] = (
@@ -6872,7 +7018,8 @@ def main(argv=None) -> int:
           f"of flash_attention_sm90.cu's (conv and qmm reuse their "
           f"instantiations)", flush=True)
     for name in ("flash_attention", "flash_attention_sm90",
-                 "flash_attention_bwd", "conv", "quant"):
+                 "flash_attention_bwd", "conv", "conv_sm90", "quant",
+                 "quant_sm90"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"      ptxas {name}: "
@@ -6958,7 +7105,8 @@ def main(argv=None) -> int:
         kind_tables().RESNET_KINDS)
     resnet["bucketed"] = resnet50_bucketed(imagenet, counters)      # 13c
     resnet.update(resnet_correctness(imagenet, training, dev))     # 14
-    conv = conv_cases(cv, fba, dev)                                # 15
+    conv = conv_cases(cv, fba, dev,                                # 15
+                      load_was(args.was, "ops.conv") if args.was else None)
     sites = conv_sites(cv, dev,                                    # 15b
                        load_was(args.was, "ops.conv") if args.was else None)
     qmm = qmm_cases(qk, dev, load_was(args.was, "quant.kernels")   # 16
@@ -7107,10 +7255,15 @@ def main(argv=None) -> int:
               "apex_tpu_torch/contrib/xentropy/__init__.py",
               "apex_tpu/contrib/xentropy/__init__.py:123", xent_bwd_cases,
               2, "resnet_training"),
-        # the conv rows show the stage-1 3x3 case; every case is in --out
-        entry("conv_fwd", "cuda", "apex_tpu_torch/csrc/conv.cu",
-              "apex_tpu/ops/conv.py:267", conv["conv_fwd"], 1,
-              "resnet_training"),
+        # the conv rows show the stage-1 3x3 case; every case is in --out.
+        # The forward's non-stem bf16 sites run the wgmma kernel, the
+        # stem conv.cu's mma.sync kernel
+        dict(entry("conv_fwd", "cuda", "apex_tpu_torch/csrc/conv_sm90.cu",
+                   "apex_tpu/ops/conv.py:267", conv["conv_fwd"], 1,
+                   "resnet_training"),
+             sources=["apex_tpu_torch/csrc/conv_sm90.cu",
+                      "apex_tpu_torch/csrc/conv.cu"],
+             routes=resnet["conv_fwd_routes"]),
         entry("conv_dgrad", "cuda", "apex_tpu_torch/csrc/conv.cu",
               "apex_tpu/ops/conv.py:375", conv["conv_dgrad"], 0,
               "resnet_training"),
@@ -7119,8 +7272,11 @@ def main(argv=None) -> int:
               "resnet_training"),
         # the qmm row shows the prefill 768->3072 case, the db2 row the
         # causal one; every case is in --out
-        entry("qmm", "cuda", "apex_tpu_torch/csrc/quant.cu",
-              "apex_tpu/quant/kernels.py:147", qmm, 1, "o4_serving"),
+        dict(entry("qmm", "cuda", "apex_tpu_torch/csrc/quant_sm90.cu",
+                   "apex_tpu/quant/kernels.py:147", qmm, 1, "o4_serving"),
+             sources=["apex_tpu_torch/csrc/quant_sm90.cu",
+                      "apex_tpu_torch/csrc/quant.cu"],
+             routes=o4_serving["qmm_routes"]),
         entry("flash_attention_bwd_db2", "cuda",
               "apex_tpu_torch/csrc/flash_attention_bwd.cu",
               "apex_tpu/ops/flash_attention.py:562", db2, 1, "bias_grad"),

@@ -333,3 +333,21 @@ def test_padded_layout_matches_jax_pallas(case):
     want_dx = jconv._pallas_dgrad(jnp.asarray(dy), jnp.asarray(w), stride,
                                   padding, dil, xs[1:3], (None, None), True)
     _close(dx[..., :c].numpy(), want_dx, 1e-4)
+
+
+def test_fwd_route_by_dtype_channels_and_tma():
+    """The forward's route rule (pure Python, no card): fp32 on conv.cu's
+    SIMT path; bf16 and fp16 on the wgmma kernel where the channel count
+    (as the kernels take it, padded to 8) is a multiple of 64 and TMA
+    reads the weight; else conv.cu's mma.sync kernel (the C = 3 stem,
+    padded to 8; a ragged C); the conv's tuner version is 2."""
+    for dt in (torch.bfloat16, torch.float16):
+        for c in (64, 128, 256, 512, 1024, 2048):
+            assert tconv._fwd_route(dt, c, True) == "wgmma"
+        assert tconv._fwd_route(dt, 64, False) == "mma"
+        for c in (8, 16, 40, 72, 96):
+            assert tconv._fwd_route(dt, c, True) == "mma"
+    for c in (8, 64, 128):
+        assert tconv._fwd_route(torch.float32, c, True) == "simt"
+    assert tconv.TUNE_VERSION == 2
+    assert tconv.conv_fwd_kernel.routes.keys() == {"wgmma", "mma", "simt"}

@@ -1306,8 +1306,12 @@ def test_qmm_kernel_unaligned_x(cuda_device, m):
 
 
 def _db2_kernel_names(fn):
-    """The names of the CUDA kernels ``fn`` launches."""
+    """The names of the CUDA kernels ``fn`` launches.  ``fn`` runs once
+    before the profiler's window opens: the first launch of a kernel in a
+    process loads its module lazily (CUDA's lazy loading), and with that
+    load inside the window the profiler could miss the launch."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -2079,8 +2083,11 @@ def test_tile_legality_is_the_kernels(conv_device):
     torch.testing.assert_close(                       # 64 x 32 at M 100
         qk.quantized_matmul(x, w, x_scale=0.002, block_n=32), base,
         rtol=0, atol=0)
+    torch.testing.assert_close(                       # wgmma's 128 x 128
+        qk.quantized_matmul(x, w, x_scale=0.002, block_m=128, block_n=128),
+        base, rtol=0, atol=0)
     with pytest.raises(ValueError, match="not one the kernel has"):
-        qk.quantized_matmul(x, w, x_scale=0.002, block_m=128, block_n=128)
+        qk.quantized_matmul(x, w, x_scale=0.002, block_m=128, block_n=64)
     for tile in fa.tiles(64, bf):
         assert fa.tile_fits(1023, 64, bf, tile)
     assert not fa.tile_fits(1023, 64, bf, (32, 32))
@@ -2150,9 +2157,12 @@ def test_tuned_cache_reaches_the_launch(conv_device, tmp_path, monkeypatch):
             if t else xe.softmax_cross_entropy_loss(lg, lab, 0.1)),
     }
     rule = {n: fn() for n, (_, _, fn) in calls.items()}
-    # each family's config version (flash's is 2, its wgmma rule's)
+    # each family's config version (flash's, conv's and qmm's are 2,
+    # their wgmma rules')
     version = dict(dict.fromkeys(calls, 1),
-                   flash_attention=fa.TUNE_VERSION)
+                   flash_attention=fa.TUNE_VERSION,
+                   conv2d=cv.TUNE_VERSION,
+                   quantized_matmul=qk.TUNE_VERSION)
     for name, (bucket, cfg, _) in calls.items():
         store.put(name, version[name], bucket, cfg, path=path)
         store.put(name, version[name], bucket, cfg, dev_kind="TPU_v5_lite",
@@ -2541,3 +2551,210 @@ def test_flash_routes_count_captured_replays(cuda_device):
     assert all(fa.flash_fwd_kernel.routes[r] == before[r]
                for r in ("mma", "simt", "split"))
     assert all(torch.equal(o, eager) for o in outs)
+
+
+# -- kernels 14 and 1 on wgmma (csrc/quant_sm90.cu, csrc/conv_sm90.cu) --------------
+
+def _routed(wrapper, fn):
+    """``fn()``'s result and the launches it added to each of
+    ``wrapper.routes``."""
+    before = dict(wrapper.routes)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {r: n - before[r] for r, n in wrapper.routes.items()
+                 if n != before[r]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("m", [65, 1000, 1024, 8184])
+def test_qmm_wgmma_route_bit_for_bit(cuda_device, dtype, m):
+    """The prefill and training rows (M > 64) run quant_sm90.cu's wgmma
+    kernel, bit for bit ``_qmm_ref`` at N 130, 768, 3072 and K 40, 768,
+    3072 (the K tail read as TMA's zero fill), with a zero-amax weight
+    column, in the input dtype and fp32 out; each launch counted on the
+    wgmma route, which the rule takes at K 768 and 3072 (K 40 keeps
+    mma.sync); quant.cu's mma.sync kernel on the same inputs gives the
+    same bits."""
+    for n in (130, 768, 3072):
+        for k in (40, 768, 3072):
+            x, qw, xs, ws = _qmm_operands(cuda_device, m, k, n, dtype,
+                                          seed=m + 3 * k + n)
+            rule = "wgmma" if k >= 128 else "mma"
+            assert qk._route(m, k, n, dtype, None,
+                             qk._tma_ok(x, qw)) == rule
+            for out_dtype in (dtype, torch.float32):
+                got, routes = _routed(qk.qmm_kernel, lambda: qk.qmm_kernel(
+                    x, qw, xs, ws, out_dtype, route="wgmma"))
+                assert routes == {"wgmma": 1}, (n, k, routes)
+                assert torch.equal(got, qk._qmm_ref(x, qw, xs, ws,
+                                                    out_dtype)), (n, k)
+                assert not got[:, n // 3].any()
+            mma, routes = _routed(qk.qmm_kernel, lambda: qk.qmm_kernel(
+                x, qw, xs, ws, dtype, route="mma"))
+            assert routes == {"mma": 1}
+            assert torch.equal(mma, qk._qmm_ref(x, qw, xs, ws, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qmm_wgmma_every_tile_bit_for_bit(cuda_device, dtype):
+    """Every tile of the wgmma kernel (two warpgroups over the rows or
+    over K) gives the plain version's bits, and ``kernel_tile`` answers
+    for it from the library."""
+    x, qw, xs, ws = _qmm_operands(cuda_device, 1000, 768, 3072, dtype,
+                                  seed=5)
+    want = qk._qmm_ref(x, qw, xs, ws, dtype)
+    for tile in qk._wgmma_tiles(x.element_size()):
+        got, routes = _routed(qk.qmm_kernel, lambda: qk.qmm_kernel(
+            x, qw, xs, ws, dtype, tile))
+        assert routes == {"wgmma": 1} and torch.equal(got, want), tile
+        assert qk.kernel_tile(1000, 768, 3072, dtype, tile) == tile
+    assert qk.kernel_tile(1000, 768, 3072, dtype) in qk._wgmma_tiles(
+        x.element_size())
+
+
+@pytest.mark.cuda
+def test_qmm_routes_refuse_what_they_do_not_take(cuda_device):
+    """A route the call cannot take raises: wgmma for decode rows or for
+    an x TMA cannot read (its start off 16 bytes), split for prefill
+    rows, a tile neither kernel has; the decode rows run split."""
+    bf = torch.bfloat16
+    x, qw, xs, ws = _qmm_operands(cuda_device, 64, 768, 768, bf, seed=3)
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        qk.qmm_kernel(x, qw, xs, ws, bf, route="wgmma")
+    got, routes = _routed(qk.qmm_kernel, lambda: qk.qmm_kernel(
+        x, qw, xs, ws, bf, route="split"))
+    assert routes == {"split": 1}
+    assert torch.equal(got, qk._qmm_ref(x, qw, xs, ws, bf))
+    x, qw, xs, ws = _qmm_operands(cuda_device, 300, 768, 768, bf, seed=3)
+    with pytest.raises(ValueError, match="route 'split'"):
+        qk.qmm_kernel(x, qw, xs, ws, bf, route="split")
+    buf = torch.empty(300 * 768 + 1, dtype=bf, device=cuda_device)
+    xu = buf[1:].view(300, 768)
+    xu.copy_(x)
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        qk.qmm_kernel(xu, qw, xs, ws, bf, route="wgmma")
+    got, routes = _routed(qk.qmm_kernel, lambda: qk.qmm_kernel(
+        xu, qw, xs, ws, bf))
+    assert routes == {"mma": 1}
+    assert torch.equal(got, qk._qmm_ref(x, qw, xs, ws, bf))
+    with pytest.raises(ValueError, match="not one the kernel has"):
+        qk.qmm_kernel(x.float(), qw, xs, ws, torch.float32, (128, 256))
+
+
+#: phase 15's forward shapes that take the wgmma route (ResNet-50 at B
+#: 128), then ragged M and N, padded edges and stride 2 at small sizes:
+#: x shape, w shape, stride, flax padding
+WGMMA_CONV_CASES = {
+    "[128,56,56,64] 3x3/1": ((128, 56, 56, 64), (3, 3, 64, 64), 1, "SAME"),
+    "[128,56,56,128] 3x3/2": ((128, 56, 56, 128), (3, 3, 128, 128), 2,
+                              "SAME"),
+    "[128,14,14,1024] 1x1 ->256": ((128, 14, 14, 1024), (1, 1, 1024, 256),
+                                   1, "SAME"),
+    "[128,14,14,1024] 1x1/2 ->2048": ((128, 14, 14, 1024),
+                                      (1, 1, 1024, 2048), 2, "SAME"),
+    "[128,56,56,64] 1x1 ->256": ((128, 56, 56, 64), (1, 1, 64, 256), 1,
+                                 "SAME"),
+    "ragged 3x3/2 ->72": ((3, 9, 11, 64), (3, 3, 64, 72), 2, "SAME"),
+    "ragged 3x3/1 ->8": ((2, 7, 5, 128), (3, 3, 128, 8), 1,
+                         ((2, 0), (1, 1))),
+    "ragged 1x1/2 valid ->136": ((1, 13, 13, 192), (1, 1, 192, 136), 2,
+                                 "VALID"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(WGMMA_CONV_CASES))
+def test_conv_fwd_wgmma_route(conv_device, case, dtype):
+    """bf16 and fp16 with C a multiple of 64 run conv_sm90.cu's wgmma
+    kernel: within phase 15's tolerance of the plain conv, both tile
+    widths bit for bit, and with the fused epilogue the output equal to
+    ``fused_bn_act._fwd_ref`` of the route's own pre-activation bit for
+    bit; each launch counted on the wgmma route."""
+    xs, ws, s, pad = WGMMA_CONV_CASES[case]
+    stride, dil = (s, s), (1, 1)
+    padding = cv._norm_padding(pad, xs[1], xs[2], ws[0], ws[1], s, s, 1, 1)
+    oh, ow = cv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], s, s, 1, 1)
+    gen = torch.Generator(device=conv_device).manual_seed(21)
+    x = torch.randn(xs, device=conv_device, generator=gen).to(dtype)
+    w = (torch.randn(ws, device=conv_device, generator=gen)
+         / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+    o = ws[3]
+    epi = (0.3 * torch.randn(o, device=conv_device, generator=gen),
+           torch.rand(o, device=conv_device, generator=gen) + 0.5,
+           1 + 0.2 * torch.randn(o, device=conv_device, generator=gen),
+           0.2 * torch.randn(o, device=conv_device, generator=gen),
+           torch.randn((xs[0], oh, ow, o), device=conv_device,
+                       generator=gen).to(dtype), True)
+    (out, _), routes = _routed(cv.conv_fwd_kernel, lambda: cv.conv_fwd_kernel(
+        x, w, stride, padding, dil))
+    assert routes == {"wgmma": 1}
+    _conv_err_ok(out, cv._fwd_ref(x, w, stride, padding, dil)[0])
+    for bn in (64, 128):
+        assert torch.equal(cv.conv_fwd_kernel(x, w, stride, padding, dil,
+                                              block_n=bn)[0], out), bn
+    (got, pre), routes = _routed(cv.conv_fwd_kernel, lambda: (
+        cv.conv_fwd_kernel(x, w, stride, padding, dil, *epi,
+                           want_preact=True)))
+    assert routes == {"wgmma": 1}
+    assert torch.equal(pre, out)
+    assert torch.equal(got, fba._fwd_ref(pre, *epi))
+
+
+@pytest.mark.cuda
+def test_conv_fwd_routes_refuse_what_they_do_not_take(conv_device):
+    """The stem's C = 3 and fp32 keep conv.cu's routes (mma, simt), and
+    naming wgmma for them raises; mma may run where the rule is
+    wgmma."""
+    pads = ((1, 1), (1, 1))
+    x = torch.randn((2, 8, 8, 3), device=conv_device, dtype=torch.bfloat16)
+    w = torch.randn((3, 3, 3, 64), device=conv_device, dtype=torch.bfloat16)
+    _, routes = _routed(cv.conv_fwd_kernel, lambda: cv.conv_fwd_kernel(
+        x, w, (1, 1), pads, (1, 1)))
+    assert routes == {"mma": 1}
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        cv.conv_fwd_kernel(x, w, (1, 1), pads, (1, 1), route="wgmma")
+    x = torch.randn((2, 8, 8, 64), device=conv_device)
+    w = torch.randn((3, 3, 64, 64), device=conv_device)
+    _, routes = _routed(cv.conv_fwd_kernel, lambda: cv.conv_fwd_kernel(
+        x, w, (1, 1), pads, (1, 1)))
+    assert routes == {"simt": 1}
+    for route in ("wgmma", "mma"):
+        with pytest.raises(ValueError, match=f"route '{route}'"):
+            cv.conv_fwd_kernel(x, w, (1, 1), pads, (1, 1), route=route)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    _, routes = _routed(cv.conv_fwd_kernel, lambda: cv.conv_fwd_kernel(
+        xb, wb, (1, 1), pads, (1, 1), route="mma"))
+    assert routes == {"mma": 1}
+
+
+@pytest.mark.cuda
+def test_db2_kernel_names_seen_from_a_fresh_process(cuda_device):
+    """The db2 path test's profiler window, in a new process, where the
+    db2 kernel's first launch loads its module: ``_db2_kernel_names``
+    sees the one tensor-core db2 launch (its call before the window keeps
+    that load out of it)."""
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import json, sys, torch\n"
+        f"sys.path[:0] = [{os.path.dirname(tests)!r}, {tests!r}]\n"
+        "import test_torch_kernels_cuda as t\n"
+        "dev = torch.device('cuda')\n"
+        "q, k, v, do, kb, bs, kw = t._bwd_case(dev, torch.bfloat16, d=64, "
+        "tq=100, tk=100, bias=True, seed=33)\n"
+        "out, lse = t.fa._flash_fwd_ref(q, k, v, kb, bs, **kw)\n"
+        "delta = t.fa._delta(do, out)\n"
+        "print(json.dumps(t._db2_kernel_names(lambda: "
+        "t.fa.flash_bwd_db2_kernel(q, k, v, do, lse, delta, kb, bs, "
+        "**kw))))\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "db2_mma" in names[0], names

@@ -822,3 +822,22 @@ def test_prof_example_runs_on_the_cpu(name, capsys, tmp_path):
     out = capsys.readouterr().out
     assert "TOTAL" in out or "flops" in out
     assert costs.active_count() is None
+
+
+@pytest.mark.parametrize("name,kind,counted", [
+    ("void (anonymous namespace)::qmm_wgmma_kernel<__nv_bfloat16, 2, 2, 1>"
+     "(Maps, Args)", "qmm", "qmm"),
+    ("void (anonymous namespace)::qmm_kernel<__nv_bfloat16, 16, 32, 1, 4>"
+     "(Args)", "qmm", "qmm"),
+    ("void (anonymous namespace)::conv_fwd_wgmma_kernel<__nv_bfloat16, 128>"
+     "(CUtensorMap_st, ConvParams)", "conv_fwd_kernel", "conv_fwd"),
+    ("void (anonymous namespace)::conv_gemm_kernel<0, __nv_bfloat16, 64>"
+     "(ConvParams)", "conv_fwd_kernel", "conv_fwd")])
+def test_kernel_names_of_both_routes_count_alike(name, kind, counted):
+    """A trace's kernel of either route of qmm and of the conv forward
+    (the wgmma kernels and the mma.sync ones) takes its kernel's kind and
+    counts as that kernel's launch."""
+    kinds = parse.RESNET_KINDS if kind.startswith("conv") \
+        else parse.SERVING_KINDS
+    assert parse.kernel_kind(name, kinds) == kind
+    assert parse.counted_name(name) == counted

@@ -717,3 +717,44 @@ def test_lm_trainer_o4_without_calibration_is_bitwise_o2():
     assert res["O4"]["losses"] == res["O2"]["losses"]
     for k, v in res["O2"]["state"].params.items():
         assert torch.equal(res["O4"]["state"].params[k], v), k
+
+
+def test_qmm_routes_by_rows_alignment_and_tile():
+    """The route rule (pure Python, no card): decode rows (M <= 64) take
+    quant.cu's split-K kernel whatever the tile; prefill and training rows
+    the wgmma kernel where TMA reads the operands and the tile is one of
+    its own (a half at -1 matches) or, with no tile, K is one 128-byte
+    step or more; else quant.cu's mma.sync kernel."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert K._route(8, 768, 768, bf, None, True) == "split"
+    assert K._route(64, 768, 768, bf, (128, 256), True) == "split"
+    assert K._route(65, 768, 768, bf, None, True) == "wgmma"
+    assert K._route(8184, 768, 3072, bf, None, False) == "mma"
+    # under one 128-byte K step the rule keeps mma.sync, a named tile not
+    assert K._route(1024, 40, 130, bf, None, True) == "mma"
+    assert K._route(1024, 127, 130, bf, None, True) == "mma"
+    assert K._route(1024, 128, 130, bf, None, True) == "wgmma"
+    assert K._route(1024, 40, 130, bf, (64, 128), True) == "wgmma"
+    for tile in K._wgmma_tiles(2):
+        assert K._route(1024, 768, 3072, bf, tile, True) == "wgmma"
+    assert K._route(1024, 768, 3072, bf, (128, -1), True) == "wgmma"
+    assert K._route(1024, 768, 3072, bf, (-1, 32), True) == "mma"
+    assert K._route(1024, 768, 3072, bf, (64, 32), True) == "mma"
+    assert K._route(1024, 768, 768, f32, (128, 256), True) == "mma"
+    assert K._route(1024, 768, 768, f32, (64, 256), True) == "wgmma"
+    assert K.tiles(2)[:2] == ((16, 32), (64, 32))
+    assert set(K._wgmma_tiles(2)) < set(K.tiles(2))
+    assert K.TUNE_VERSION == 2
+
+
+def test_qmm_tma_rule_reads_alignment_and_row_bytes():
+    """TMA reads x where its start is 16-byte aligned (or the wrapper's
+    contiguous copy is) and its rows are a multiple of 16 bytes."""
+    qw = torch.zeros((16, 48), dtype=torch.int8)
+    x = torch.zeros((100, 48), dtype=torch.bfloat16)
+    assert K._tma_ok(x, qw)
+    assert not K._tma_ok(x[:, :44].contiguous(), qw)   # 88-byte rows
+    buf = torch.zeros(100 * 48 + 1, dtype=torch.bfloat16)
+    assert not K._tma_ok(buf[1:].view(100, 48), qw)    # off 16 bytes
+    assert K._tma_ok(buf[1:].view(48, 100).t(), qw)    # copied first
+    assert K._tma_ok(torch.zeros((100, 40)), qw)       # fp32 K 40

@@ -683,12 +683,13 @@ def test_tune_buckets_equal_jax():
             == jfba.tune_bucket(a, b, isz, f1)
         assert xe.tune_bucket(a, b) == jxe.tune_bucket(a, b)
         assert qk.tune_bucket(a, b, c, isz) == jqk.tune_bucket(a, b, c, isz)
-    for mod, jmod in ((cv, jcv), (fln, jfln), (fba, jfba), (xe, jxe),
-                      (qk, jqk)):
+    for mod, jmod in ((fln, jfln), (fba, jfba), (xe, jxe)):
         assert mod.TUNE_VERSION == jmod.TUNE_VERSION == 1
-    # the port's flash forward moved its rule to the wgmma kernel: version
-    # 2, so an entry tuned against the mma.sync rule misses
-    assert fa.TUNE_VERSION == 2 and jfa.TUNE_VERSION == 1
+    # the port's flash forward, conv forward and qmm moved their rules to
+    # wgmma kernels: version 2, so an entry tuned against the mma.sync
+    # kernels misses
+    for mod, jmod in ((fa, jfa), (cv, jcv), (qk, jqk)):
+        assert mod.TUNE_VERSION == 2 and jmod.TUNE_VERSION == 1
 
 
 def test_bound_from_ledger_equals_jax():
@@ -833,3 +834,61 @@ def test_flash_version_one_entry_misses(tune_cache):
     store.put("flash_attention", 2, bucket, {"block_q": 128, "block_k": 96},
               path=tune_cache)
     assert fa._tuned_tile(q, q, True, False, None) == (128, 96)
+
+
+def test_qmm_candidates_name_both_kernels_tiles_at_version_two():
+    """qmm's candidates are every tile of its two kernels: quant.cu's
+    decode tiles and the wgmma kernel's three (the wide one, 128 x 128,
+    64 x 128); at M 8184 the wgmma tiles route to the wgmma kernel and
+    the decode tiles to mma.sync; the cache keys carry version 2."""
+    spec = registry.get_spec("quantized_matmul")
+    assert spec.version == qk.TUNE_VERSION == 2
+    shape = dict(spec.example_shape)
+    got = {(c["block_m"], c["block_n"]) for c in spec.candidates(shape,
+                                                                   None)}
+    assert got == set(qk.tiles(2)) == {(16, 32), (64, 32), (128, 256),
+                                       (64, 128), (128, 128)}
+    assert set(qk.tiles(4)) == {(16, 32), (64, 32), (64, 256), (64, 128),
+                                (128, 128)}
+    routes = {t: qk._route(8184, 768, 3072, torch.bfloat16, t, True)
+              for t in got}
+    assert {t for t, r in routes.items() if r == "wgmma"} \
+        == set(qk._wgmma_tiles(2))
+    assert {t for t, r in routes.items() if r == "mma"} == {(16, 32),
+                                                          (64, 32)}
+    assert "|quantized_matmul|v2|" in store.key_for(
+        "quantized_matmul", spec.version, spec.bucket(shape))
+
+
+def test_conv_candidates_share_their_bucket_route_at_version_two():
+    """conv's candidates are the two tile widths of the bucket's forward
+    route (every candidate of a bf16 bucket with C a multiple of 64 runs
+    wgmma, of the stem's mma, of fp32 simt), and its cache keys carry
+    version 2."""
+    spec = registry.get_spec("conv2d")
+    assert spec.version == cv.TUNE_VERSION == 2
+    shape = dict(spec.example_shape)
+    cands = spec.candidates(shape, None)
+    assert {(c["block_m"], c["block_n"]) for c in cands} == {(128, 64),
+                                                            (128, 128)}
+    assert all(spec.constraint(shape, c) for c in cands)
+    assert cv._fwd_route(torch.bfloat16, shape["cin"], True) == "wgmma"
+    assert "|conv2d|v2|" in store.key_for("conv2d", spec.version,
+                                          spec.bucket(shape))
+
+
+@pytest.mark.parametrize("name,kmod", [("quantized_matmul", qk),
+                                       ("conv2d", cv)])
+def test_version_one_entries_of_qmm_and_conv_miss(tune_cache, name, kmod):
+    """An entry tuned against version 1 (before the wgmma kernels) misses;
+    the same bucket at version 2 hits."""
+    spec = registry.get_spec(name)
+    bucket = spec.bucket(dict(spec.example_shape))
+    cfg = spec.defaults(dict(spec.example_shape))
+    params = tuple(spec.params)
+    store.put(name, 1, bucket, cfg, path=tune_cache)
+    assert dispatch.kernel_config(name, kmod.TUNE_VERSION, bucket,
+                                  params=params) is None
+    store.put(name, kmod.TUNE_VERSION, bucket, cfg, path=tune_cache)
+    assert dispatch.kernel_config(name, kmod.TUNE_VERSION, bucket,
+                                  params=params) == cfg
