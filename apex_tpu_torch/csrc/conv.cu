@@ -92,11 +92,14 @@
 //    memory.  A class no tap reaches (the odd pixels of a 1x1/2 conv) has
 //    K = 0 and its blocks write zeros;
 //  * wgrad splits K (the N*OH*OW pixels) over gridDim.z into a fp32
-//    workspace [splits, KH*KW*C, O]; a second kernel of this file sums the
-//    splits in a fixed order and casts: deterministic, no atomics (the
-//    Pallas kernel carries the sum across its sequential batch axis, which
-//    the card does not have).
-// `wgmma`, TMA (and its im2col mode) and persistent blocks are later work.
+//    workspace [splits, KH*KW*C, O]; a second kernel (conv_common.cuh)
+//    sums the splits in a fixed order and casts: deterministic, no atomics
+//    (the Pallas kernel carries the sum across its sequential batch axis,
+//    which the card does not have).
+// conv_sm90.cu runs the three passes on `wgmma` for bf16 and fp16 where the
+// gathered channel count is a multiple of 64 (the routes of ops/conv.py);
+// this file keeps the stem, ragged channel counts, fp32, and the `mma.sync`
+// route that the smoke run times beside `wgmma` on the same inputs.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -106,69 +109,18 @@
 
 #include <type_traits>
 
-// Field order and types mirror the ctypes Structure in
-// apex_tpu_torch/ops/conv.py (_ConvParams).
-struct ConvParams {
-  const void* a;          // forward, wgrad: x; dgrad: dy
-  const void* b;          // forward, dgrad: w; wgrad: dy
-  void* out;              // forward: y; dgrad: dx; wgrad: fp32 workspace
-  void* aux;              // wgrad: dw (the reduce kernel's output)
-  void* preact;           // forward: the pre-epilogue conv result, or null
-  const float* mean;      // forward epilogue, fp32 [O]
-  const float* invstd;
-  const float* scale;     // null without the affine part
-  const float* bias;
-  const void* z;          // residual [N, OH, OW, O] in y's type, or null
-  int32_t N, H, W, C, O, OH, OW, KH, KW;
-  int32_t sh, sw, dh, dw, pt, pl;
-  int32_t relu, epilogue, k_per_split;
-};
+#include "conv_common.cuh"
 
 namespace {
 
 constexpr int BM = 128;          // output rows per block
 constexpr int BK = 32;           // K per stage
 constexpr int WN_WIDE = 64;      // a warp's columns in a 128-wide tile
-constexpr int kFar = -(1 << 29); // a row past M: every bounds test fails
 
 constexpr int MODE_FWD = 0;
 constexpr int MODE_DGRAD = 1;
 constexpr int MODE_WGRAD = 2;
 constexpr int MODE_PARITY = 3;   // dgrad at stride > 1, per parity class
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// two floats rounded to T (as from_f rounds), the first in the low half
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo,
-                                                               float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(
-    float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
-                                                              float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -198,25 +150,6 @@ __device__ __forceinline__ void copy8(T* dst, const T* src, bool ok) {
   for (int v = 0; v < static_cast<int>(sizeof(T)) * 8 / 16; ++v)
     cp_async16(reinterpret_cast<char*>(dst) + 16 * v,
                reinterpret_cast<const char*>(src) + 16 * v, ok);
-}
-
-template <typename T>
-__device__ __forceinline__ void load8(T (&v)[8], const T* src) {
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(T)) * 8 / 16; ++i) {
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        reinterpret_cast<const char*>(src) + 16 * i);
-    memcpy(reinterpret_cast<char*>(v) + 16 * i, &u, 16);
-  }
-}
-template <typename T>
-__device__ __forceinline__ void store8(T* dst, const T (&v)[8]) {
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(T)) * 8 / 16; ++i) {
-    uint4 u;
-    memcpy(&u, reinterpret_cast<const char*>(v) + 16 * i, 16);
-    *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dst) + 16 * i) = u;
-  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -254,25 +187,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
   }
 }
 
-// n / d for 0 <= n < 2**31 by a multiply-high and a shift (the
-// round-up method CUTLASS's FastDivmod uses), d >= 1.
-struct FastDiv {
-  uint32_t d, mul, shr;
-  __device__ __forceinline__ explicit FastDiv(int div) : d(div), mul(0),
-                                                          shr(0) {
-    if (div > 1) {
-      const uint32_t l = 32 - __clz(div - 1);          // ceil(log2 div)
-      mul = static_cast<uint32_t>(((1ull << (31 + l)) + div - 1) / div);
-      shr = l - 1;
-    }
-  }
-  __device__ __forceinline__ int operator()(int n) const {
-    return d == 1 ? n
-                  : static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >>
-                                     shr);
-  }
-};
-
 // The block shape: BM x BN outputs (BN 64 or 128), rows padded by 16
 // bytes, a ring of STAGES K steps.  Tensor cores: warps of 64 x WN (4 x
 // WN / 8 mma tiles); fp32: 2 * BN threads of 8 x 8 outputs.
@@ -307,44 +221,6 @@ struct Cfg {
   static_assert(A_IT * NT * 8 == BM * BK && B_IT * NT * 8 == BK * BN,
                 "chunks split evenly over the threads");
 };
-
-// A dgrad parity class: input pixels (ph + sh*i, pw + sw*j), i < Hc,
-// j < Wc, reached by the taps kh = kh0 + jh*sth (jh < nth) and
-// kw = kw0 + jw*stw (jw < ntw), which read output row oh = i + oh0 -
-// jh*doh and column ow = j + ow0 - jw*dow.
-struct Parity {
-  int ph, pw, Hc, Wc, kh0, kw0, sth, stw, nth, ntw, oh0, doh, ow0, dow;
-};
-
-// The kernel offsets k < K with (phase + pad - k*dil) % s == 0: an
-// arithmetic progression k0 + j*step (step = s / gcd(dil, s)), n long.
-__device__ __forceinline__ void parity_taps(int phase, int pad, int dil,
-                                            int s, int K, int& k0, int& step,
-                                            int& n) {
-  int a = dil, b = s;
-  while (b != 0) { const int t = a % b; a = b; b = t; }
-  step = s / a;
-  k0 = -1;
-  for (int k = 0; k < step && k < K; ++k)
-    if ((phase + pad - k * dil) % s == 0) { k0 = k; break; }
-  n = k0 < 0 ? 0 : (K - k0 + step - 1) / step;
-}
-
-__device__ __forceinline__ Parity parity_class(const ConvParams& p, int z) {
-  Parity c{};
-  c.ph = z / p.sw;
-  c.pw = z - c.ph * p.sw;
-  c.Hc = c.ph < p.H ? (p.H - c.ph + p.sh - 1) / p.sh : 0;
-  c.Wc = c.pw < p.W ? (p.W - c.pw + p.sw - 1) / p.sw : 0;
-  parity_taps(c.ph, p.pt, p.dh, p.sh, p.KH, c.kh0, c.sth, c.nth);
-  parity_taps(c.pw, p.pl, p.dw, p.sw, p.KW, c.kw0, c.stw, c.ntw);
-  // exact divisions: the class's taps are those that divide
-  c.oh0 = (c.ph + p.pt - c.kh0 * p.dh) / p.sh;
-  c.doh = c.sth * p.dh / p.sh;
-  c.ow0 = (c.pw + p.pl - c.kw0 * p.dw) / p.sw;
-  c.dow = c.stw * p.dw / p.sw;
-  return c;
-}
 
 // The operand gather of one thread: which chunks of each stage it copies,
 // and the part of their addresses that does not change along K, decoded
@@ -730,18 +606,6 @@ conv_gemm_kernel(const ConvParams p) {
   }
 }
 
-// dw = cast(sum over splits of the workspace), splits in order.
-template <typename T>
-__global__ void wgrad_reduce_kernel(const float* ws, T* dw, int splits,
-                                    int64_t mn) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < mn;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
-    dw[i] = from_f<T>(s);
-  }
-}
-
 // Grid z: wgrad's K splits, the parity classes (sh*sw; x sized by the
 // largest, class (0, 0)), else 1.  The tile is 128 x 128 where the GEMM's
 // N is at least 128, else 128 x 64 (the rule), unless the caller names
@@ -823,17 +687,5 @@ extern "C" int conv_wgrad(const ConvParams* p, int dtype, int splits, int bn,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dispatch<MODE_WGRAD>(*p, dtype, splits, bn, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t mn = (int64_t)p->KH * p->KW * p->C * p->O;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-  const float* ws = static_cast<const float*>(p->out);
-  if (dtype == 1)
-    wgrad_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        ws, static_cast<__nv_bfloat16*>(p->aux), splits, mn);
-  else if (dtype == 2)
-    wgrad_reduce_kernel<__half><<<blocks, 256, 0, st>>>(
-        ws, static_cast<__half*>(p->aux), splits, mn);
-  else
-    wgrad_reduce_kernel<float><<<blocks, 256, 0, st>>>(
-        ws, static_cast<float*>(p->aux), splits, mn);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(wgrad_reduce(*p, dtype, splits, st));
 }

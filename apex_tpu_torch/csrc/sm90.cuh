@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by flash_attention_sm90.cu,
 // quant_sm90.cu and conv_sm90.cu: `mbarrier`s, TMA loads under tensor maps,
 // `wgmma` shared-memory descriptors and the `wgmma.mma_async` forms qmm and
-// the conv forward issue, and the host's tensor-map encoding with a cache.
+// the conv kernels issue, and the host's tensor-map encoding with a cache.
 // Helpers only: no kernel, no entry point.
 //
 // Layouts (CUTLASS's canonical GMMA forms, `cute/atom/mma_traits_sm90_gmma.hpp`):
@@ -209,9 +209,10 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
   APEX_WGMMA_S8_N128();
 }
 
-// d += A B, bf16 or fp16 -> fp32: A (64 x 16) K-major, B (16 x N) MN-major
-// (the transpose bit), both in shared memory
-#define APEX_WGMMA_SS_TB_N128(TY) \
+// d += A B, bf16 or fp16 -> fp32: A (64 x 16) and B (16 x N), both in
+// shared memory, each K-major (transpose bit 0) or MN-major (bit 1: 16-bit
+// types only), the bits TA and TB immediates of the instruction
+#define APEX_WGMMA_SS_N128(TY) \
   asm volatile( \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
@@ -223,7 +224,7 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
   "%40, %41, %42, %43, %44, %45, %46, %47, " \
   "%48, %49, %50, %51, %52, %53, %54, %55, " \
   "%56, %57, %58, %59, %60, %61, %62, %63}, " \
-  "%64, %65, p, 1, 1, 0, 1;\n}\n" \
+  "%64, %65, p, 1, 1, %67, %68;\n}\n" \
   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
     "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
     "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -240,9 +241,9 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
     "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
     "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
     "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
-  : "l"(da), "l"(db), "r"(1))
+  : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB))
 
-#define APEX_WGMMA_SS_TB_N64(TY) \
+#define APEX_WGMMA_SS_N64(TY) \
   asm volatile( \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
@@ -250,7 +251,7 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
   "%8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, " \
   "%24, %25, %26, %27, %28, %29, %30, %31}, " \
-  "%32, %33, p, 1, 1, 0, 1;\n}\n" \
+  "%32, %33, p, 1, 1, %35, %36;\n}\n" \
   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
     "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
     "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -259,19 +260,21 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
     "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
     "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
     "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
-  : "l"(da), "l"(db), "r"(1))
+  : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB))
 
-template <bool BF16>
-__device__ __forceinline__ void wgmma_tb(float (&d)[64], uint64_t da,
+// TA, TB: A's and B's transpose bits (0 K-major, 1 MN-major).  The conv
+// forward takes (0, 1), dgrad (0, 0) and wgrad (1, 1).
+template <bool BF16, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db) {
-  if constexpr (BF16) APEX_WGMMA_SS_TB_N128("bf16");
-  else APEX_WGMMA_SS_TB_N128("f16");
+  if constexpr (BF16) APEX_WGMMA_SS_N128("bf16");
+  else APEX_WGMMA_SS_N128("f16");
 }
-template <bool BF16>
-__device__ __forceinline__ void wgmma_tb(float (&d)[32], uint64_t da,
+template <bool BF16, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db) {
-  if constexpr (BF16) APEX_WGMMA_SS_TB_N64("bf16");
-  else APEX_WGMMA_SS_TB_N64("f16");
+  if constexpr (BF16) APEX_WGMMA_SS_N64("bf16");
+  else APEX_WGMMA_SS_N64("f16");
 }
 
 // -- host: tensor maps -----------------------------------------------------------

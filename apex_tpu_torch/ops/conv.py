@@ -23,14 +23,14 @@ the kernels at every size, the C = 3 stem included, or raise.  A grouped
 conv is outside the kernels' contract, as in JAX, and takes the plain
 version on either device.
 
-Forward routes (:func:`_fwd_route`, counted in
-``conv_fwd_kernel.routes``): bf16 and fp16 with a channel count that is
-a multiple of 64 (every ResNet-50 site but the stem) run
-``csrc/conv_sm90.cu``, the implicit GEMM on ``wgmma`` (a K step of 64
-channels of one tap, gathered by ``cp.async`` into the 128-byte swizzle;
-the weight loaded by TMA); the stem and any other channel count run
-``csrc/conv.cu``'s ``mma.sync`` kernel, and fp32 its FMA path.  dgrad and
-wgrad run ``csrc/conv.cu``.
+Routes (:func:`_fwd_route`, :func:`_dgrad_route`, :func:`_wgrad_route`,
+counted in each wrapper's ``routes``): bf16 and fp16 where the gathered
+channel count is a multiple of 64 (the forward's and wgrad's C, dgrad's
+O: every ResNet-50 site but the stem) run ``csrc/conv_sm90.cu``, the
+implicit GEMMs on ``wgmma`` (a gathered operand of 128-byte rows by
+``cp.async`` into the 128-byte swizzle; the weight, or wgrad's dy, loaded
+by TMA); the stem and any other channel count run ``csrc/conv.cu``'s
+``mma.sync`` kernels, and fp32 their FMA path.
 
 Kernel notes.  ``conv_fwd_kernel`` replaces the Pallas ``_fwd_kernel``
 (``apex_tpu/ops/conv.py:267``, launched by ``_im2col_conv`` for
@@ -40,9 +40,11 @@ all three are GEMMs bound by tensor-core operations (M, N, K in the
 thousands); the design gathers each operand tile straight from NHWC
 (implicit im2col, zero padding by the copy's bounds test, no padded
 copy) by 16-byte ``cp.async`` copies into a ring of shared-memory stages,
-each tile kept along its channel axis and read into bf16 or fp16
-``mma.sync`` fragments by ``ldmatrix`` (``.trans`` where the tile is
-K-major), with fp32 accumulators, or a full-fp32 FMA loop for fp32
+each tile kept along its channel axis: on the ``wgmma`` routes in the
+instruction's 128-byte-swizzled layout, the other operand by TMA, K-major
+or MN-major as it lies (the transpose bits); on the ``mma.sync`` routes
+read into fragments by ``ldmatrix`` (``.trans`` where the tile is
+K-major); fp32 accumulators, or a full-fp32 FMA loop for fp32
 operands; dgrad gathers the cotangent as a transposed conv (no dilated
 tensor), at stride > 1 as one sub-GEMM per parity class of the input
 pixels over only the taps that reach it (one launch), so no zero tap
@@ -60,7 +62,9 @@ telemetry registry under the JAX package's names.
 The tile.  The kernels' block is 128 output rows (``block_m``, one
 instantiation) by 64 or 128 columns (``block_n``, both instantiated for
 every mode and type); the rule takes 128 where the GEMM's N is at least
-128.  :func:`conv2d` takes ``block_m``/``block_n`` (JAX's names); left at
+128.  wgrad's ``wgmma`` kernel takes 256 rows at width 64 (two 64-row
+sub-tiles a warpgroup beside one dy tile) and 128 at width 128.
+:func:`conv2d` takes ``block_m``/``block_n`` (JAX's names); left at
 None, a CUDA call consults the tuner's cache for this shape's bucket
 (:func:`tune_bucket`, the JAX package's string, :data:`TUNE_VERSION`).
 The tile applies to the forward, dgrad and wgrad GEMMs of the call; the
@@ -72,6 +76,7 @@ every tile gives the same bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -97,8 +102,10 @@ _BM, _BK = 128, 32
 _BN = (64, 128)
 
 #: the tuner's config version of the conv kernels (2: a bucket's tiles
-#: are its forward route's, :func:`_fwd_route`)
-TUNE_VERSION = 2
+#: are its forward route's, :func:`_fwd_route`; 3: and its backward
+#: routes', :func:`_dgrad_route`, :func:`_wgrad_route`, wgrad's width 64
+#: a tile of 256 rows on wgmma)
+TUNE_VERSION = 3
 
 
 def _tile_n(n: int) -> int:
@@ -300,9 +307,14 @@ def _lib() -> ctypes.CDLL:
 
 def _sm90_lib() -> ctypes.CDLL:
     lib = _build.load("conv_sm90")
-    lib.conv_fwd_wgmma.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_void_p]
-    lib.conv_fwd_wgmma.restype = ctypes.c_int
+    for fn in (lib.conv_fwd_wgmma, lib.conv_dgrad_wgmma):
+        fn.argtypes = [ctypes.POINTER(_ConvParams), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.conv_wgrad_wgmma.argtypes = [ctypes.POINTER(_ConvParams),
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.conv_wgrad_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -319,6 +331,45 @@ def _fwd_route(dtype: torch.dtype, c: int, tma: bool) -> str:
     if dtype == torch.float32:
         return "simt"
     return "wgmma" if c % 64 == 0 and tma else "mma"
+
+
+#: the most parity classes (sh * sw) the wgmma dgrad decodes, on the host
+_DGRAD_WGMMA_CLASSES = 16
+
+
+def _dgrad_route(dtype: torch.dtype, o: int, tma: bool,
+                 classes: int = 1) -> str:
+    """The kernel a dgrad call runs (its key of
+    ``conv_dgrad_kernel.routes``): :func:`_fwd_route`'s rule on the
+    channels dgrad gathers, dy's ``o`` (padded to a multiple of 8), with
+    ``tma`` whether TMA can read the weight: ``wgmma`` for bf16 and fp16
+    where ``o`` is a multiple of 64 and the stride's parity classes
+    (``classes``, sh * sw) are at most :data:`_DGRAD_WGMMA_CLASSES`, else
+    ``mma``; ``simt`` for fp32."""
+    return _fwd_route(dtype, o, tma and classes <= _DGRAD_WGMMA_CLASSES)
+
+
+def _wgrad_route(dtype: torch.dtype, c: int, tma: bool) -> str:
+    """The kernel a wgrad call runs (its key of
+    ``conv_wgrad_kernel.routes``): :func:`_fwd_route`'s rule on the
+    channels wgrad gathers, x's ``c`` (padded to a multiple of 8), with
+    ``tma`` whether TMA can read dy: ``wgmma`` for bf16 and fp16 where
+    ``c`` is a multiple of 64, else ``mma`` (the C = 3 stem); ``simt`` for
+    fp32."""
+    return _fwd_route(dtype, c, tma)
+
+
+def _take_route(kind: str, rule: str, route, dtype, channels: int) -> str:
+    """The route a call runs: the rule's, or ``route`` where the caller
+    names one: ``"mma"`` may stand for a ``wgmma`` rule (to compare the
+    two kernels on the same inputs); any other route the call cannot take
+    raises ``ValueError``."""
+    if route is not None and route != rule and not (
+            route == "mma" and rule == "wgmma"):
+        raise ValueError(f"conv {kind} route {route!r} cannot take {dtype} "
+                         f"operands of {channels} gathered channels: its "
+                         f"route is {rule!r}")
+    return route or rule
 
 
 def _check_operands(acts, vecs=()):
@@ -467,13 +518,9 @@ def conv_fwd_kernel(x, w, stride, padding, dilation, mean=None, invstd=None,
                   a=x, b=w, out=out, preact=preact, mean=mean, invstd=invstd,
                   scale=scale, bias=bias, z=z)
     prm.relu, prm.epilogue = int(bool(relu)), int(mean is not None)
-    rule = _fwd_route(x.dtype, x.shape[3], w.data_ptr() % 16 == 0)
-    if route is not None and route != rule and not (
-            route == "mma" and rule == "wgmma"):
-        raise ValueError(f"conv forward route {route!r} cannot take {x.dtype}"
-                         f" operands of {x.shape[3]} channels: its route is "
-                         f"{rule!r}")
-    route = route or rule
+    route = _take_route("forward", _fwd_route(x.dtype, x.shape[3],
+                                              w.data_ptr() % 16 == 0),
+                        route, x.dtype, x.shape[3])
     if route == "wgmma":
         _launch("conv_fwd_wgmma", prm, x.dtype, x.device, block_n=block_n,
                 lib=_sm90_lib())
@@ -494,15 +541,19 @@ _build.counted(conv_fwd_kernel)
 conv_fwd_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0}
 
 
-def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw, block_n=None):
+def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw, block_n=None,
+                      route=None):
     """Launch the CUDA dgrad kernel: the input gradient ``[N, H, W, C]``
     (``hw = (H, W)``) of the conv of :func:`conv_fwd_kernel`'s arguments,
     from the output gradient ``dy`` ``[N, OH, OW, O]``; in dy's type.  At
     stride 1 one GEMM over every pixel (:func:`_dgrad_ref`); at stride > 1
     one launch of all the parity classes' sub-GEMMs
     (:func:`_dgrad_parity_ref` is their arithmetic).  ``block_n`` as
-    :func:`conv_fwd_kernel`'s.  Adds one to ``conv_dgrad_kernel.launches``
-    per launch."""
+    :func:`conv_fwd_kernel`'s.  The route (:func:`_dgrad_route`) picks
+    ``csrc/conv_sm90.cu`` for bf16 and fp16 with O a multiple of 64, else
+    ``csrc/conv.cu``; ``route`` as :func:`conv_fwd_kernel`'s.  Adds one to
+    ``conv_dgrad_kernel.launches`` and to its ``routes[route]`` per
+    launch."""
     n = dy.shape[0]
     x_shape = (n, *hw, w.shape[2])
     oh, ow = _geometry(x_shape, w.shape, stride, padding, dilation)
@@ -516,20 +567,32 @@ def conv_dgrad_kernel(dy, w, stride, padding, dilation, hw, block_n=None):
     dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
     prm = _params(x_shape, w.shape, oh, ow, stride, padding, dilation,
                   a=dy, b=w, out=dx)
-    _launch("conv_dgrad", prm, dy.dtype, dy.device, block_n=block_n)
+    route = _take_route("dgrad", _dgrad_route(dy.dtype, dy.shape[3],
+                                              w.data_ptr() % 16 == 0,
+                                              stride[0] * stride[1]),
+                        route, dy.dtype, dy.shape[3])
+    if route == "wgmma":
+        _launch("conv_dgrad_wgmma", prm, dy.dtype, dy.device,
+                block_n=block_n, lib=_sm90_lib())
+    else:
+        _launch("conv_dgrad", prm, dy.dtype, dy.device, block_n=block_n)
     conv_dgrad_kernel.launches += 1
+    conv_dgrad_kernel.routes[route] += 1
     return dx if w.shape[2] == c else dx[..., :c].contiguous()
 
 
 _build.counted(conv_dgrad_kernel)
+#: dgrad's launches by route (:func:`_dgrad_route`), counted as
+#: ``launches`` is
+conv_dgrad_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0}
 
 
 def _wgrad_splits(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
-    """``(splits, pixels per split)`` for wgrad's K (the pixels): enough
-    blocks of the rule's tile (:func:`_tile_n`, whatever tile runs, so
-    the sum's order does not move with it) for ~4 a streaming
-    multiprocessor, each split at least 8 K steps; a multiple of the K
-    step per split."""
+    """``(splits, pixels per split)`` for the ``mma.sync`` wgrad's K (the
+    pixels): enough blocks of the rule's tile (:func:`_tile_n`, whatever
+    tile runs, so the sum's order does not move with it) for ~4 a
+    streaming multiprocessor, each split at least 8 K steps; a multiple
+    of the K step per split."""
     tiles = -(-m // _BM) * -(-n // _tile_n(n))
     k_steps = -(-k // _BK)
     splits = max(1, min(max(1, k_steps // 8), -(-4 * sms // tiles)))
@@ -537,14 +600,55 @@ def _wgrad_splits(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     return -(-k // per), per
 
 
+#: the wgmma wgrad's tile rows by its width (two 64-row sub-tiles a
+#: warpgroup at 64, one at 128)
+_WGRAD_WGMMA_BM = {64: 256, 128: 128}
+#: what one K step of a block costs in workspace bytes: a step of the
+#: [128,56,56,64] 3x3/1 site took ~0.8 us with two blocks an SM (0.1985
+#: ms over 238 waves' steps, H100 80GB HBM3 at 700 W), in which the card
+#: moves ~2.7 MB at 3.35 TB/s
+_WS_BYTES_PER_STEP = 2.7e6
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_wgmma_splits(m: int, n: int, k: int,
+                        sms: int) -> Tuple[int, int]:
+    """``(splits, pixels per split)`` for the ``wgmma`` wgrad: sized by
+    the rule's tile (:func:`_tile_n`, :data:`_WGRAD_WGMMA_BM`, whatever
+    tile runs, so the sum's order does not move with it).  Its blocks run
+    two an SM, each a split's K steps in order, so a call takes about
+    (waves of blocks) x (K steps a split); the split count is the one
+    that minimizes that plus the fp32 workspace's bytes (written, then
+    read by the reduce) in K steps (:data:`_WS_BYTES_PER_STEP`), each split
+    at least 8 K steps of 32 pixels and the blocks at most 4 waves (ties
+    to the fewer splits); a multiple of the K step per split."""
+    bn = _tile_n(n)
+    tiles = -(-m // _WGRAD_WGMMA_BM[bn]) * -(-n // bn)
+    k_steps = -(-k // _BK)
+    slots = 2 * sms
+
+    def cost(splits):
+        waves = -(-tiles * splits // slots)
+        return (waves * -(-k_steps // splits)
+                + splits * m * n * 8 / _WS_BYTES_PER_STEP)
+    top = max(1, min(k_steps // 8, -(-4 * slots // tiles)))
+    splits = min(range(1, top + 1), key=cost)
+    per = -(-k_steps // splits) * _BK
+    return -(-k // per), per
+
+
 def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size,
-                      block_n=None):
+                      block_n=None, route=None):
     """Launch the CUDA wgrad kernels (the split GEMM, then the reduce of
     its fp32 workspace in split order): the weight gradient ``[KH, KW, C,
     O]`` of the conv of ``x`` from the output gradient ``dy``; in x's
-    type.  ``block_n`` as :func:`conv_fwd_kernel`'s.  Adds one to
-    ``conv_wgrad_kernel.launches`` per call (the reduce pass is counted
-    within it)."""
+    type.  ``block_n`` as :func:`conv_fwd_kernel`'s.  The route
+    (:func:`_wgrad_route`) picks ``csrc/conv_sm90.cu`` for bf16 and fp16
+    with C a multiple of 64 (its splits :func:`_wgrad_wgmma_splits`), else
+    ``csrc/conv.cu`` (:func:`_wgrad_splits`); ``route`` as
+    :func:`conv_fwd_kernel`'s.
+    Adds one to ``conv_wgrad_kernel.launches`` and to its
+    ``routes[route]`` per call (the reduce pass is counted within it)."""
     kh, kw = kernel_size
     w_shape = (kh, kw, x.shape[3], dy.shape[3])
     oh, ow = _geometry(x.shape, w_shape, stride, padding, dilation)
@@ -557,21 +661,34 @@ def conv_wgrad_kernel(x, dy, stride, padding, dilation, kernel_size,
     wp_shape = (kh, kw, x.shape[3], dy.shape[3])
     m, n = kh * kw * x.shape[3], dy.shape[3]
     k = x.shape[0] * oh * ow
+    route = _take_route("wgrad", _wgrad_route(x.dtype, x.shape[3],
+                                              dy.data_ptr() % 16 == 0),
+                        route, x.dtype, x.shape[3])
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = _wgrad_splits(m, n, k, sms)
+    plan = _wgrad_wgmma_splits if route == "wgmma" else _wgrad_splits
+    splits, per = plan(m, n, k, sms)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     dw = torch.empty(wp_shape, dtype=x.dtype, device=x.device)
     prm = _params(x.shape, wp_shape, oh, ow, stride, padding, dilation,
                   a=x, b=dy, out=ws, aux=dw)
     prm.k_per_split = per
-    _launch("conv_wgrad", prm, x.dtype, x.device, splits, block_n=block_n)
+    if route == "wgmma":
+        _launch("conv_wgrad_wgmma", prm, x.dtype, x.device, splits,
+                block_n=block_n, lib=_sm90_lib())
+    else:
+        _launch("conv_wgrad", prm, x.dtype, x.device, splits,
+                block_n=block_n)
     conv_wgrad_kernel.launches += 1
+    conv_wgrad_kernel.routes[route] += 1
     if wp_shape != w_shape:
         dw = dw[:, :, :w_shape[2], :w_shape[3]].contiguous()
     return dw
 
 
 _build.counted(conv_wgrad_kernel)
+#: wgrad's launches by route (:func:`_wgrad_route`), counted as
+#: ``launches`` is
+conv_wgrad_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0}
 
 
 # -- autograd --------------------------------------------------------------------

@@ -74,9 +74,9 @@ RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e",
                                      "conv_fwd_wgmma")),
                 ("conv_dgrad_kernel", ("conv_gemm_kernel<1", "kernelili1e",
                                        "conv_gemm_kernel<3",
-                                       "kernelili3e")),
+                                       "kernelili3e", "conv_dgrad_wgmma")),
                 ("conv_wgrad_kernel", ("conv_gemm_kernel<2", "kernelili2e",
-                                       "wgrad_reduce")),
+                                       "wgrad_reduce", "conv_wgrad_wgmma")),
                 ("bn_epilogue", ("bn_fwd", "bn_bwd")),
                 ("loss", ("xent_",)),
                 ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -103,8 +103,8 @@ COUNTED_KERNELS = (
     ("xentropy_bwd", ("xent_bwd",)),
     ("conv_fwd", ("conv_gemm_kernel<0", "kernelili0e", "conv_fwd_wgmma")),
     ("conv_dgrad", ("conv_gemm_kernel<1", "kernelili1e",
-                    "conv_gemm_kernel<3", "kernelili3e")),
-    ("conv_wgrad", ("conv_gemm_kernel<2", "kernelili2e")),
+                    "conv_gemm_kernel<3", "kernelili3e", "conv_dgrad_wgmma")),
+    ("conv_wgrad", ("conv_gemm_kernel<2", "kernelili2e", "conv_wgrad_wgmma")),
     ("qmm", ("qmm_kernel", "qmm_wgmma")))
 
 #: device events that are work (the rest are projections of user ranges)

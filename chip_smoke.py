@@ -31,8 +31,8 @@ line):
    products are fp32;
 2. build the seven CUDA libraries (the flash forward's wgmma kernel;
    its other routes; flash dQ, dK/dV and the bias gradient; the conv
-   forward's wgmma kernel; the conv forward's other routes, dgrad and
-   wgrad; the int8 quantized matmul's wgmma kernel; its decode and
+   kernels' wgmma routes (forward, dgrad, wgrad); their other routes; the
+   int8 quantized matmul's wgmma kernel; its decode and
    ``mma.sync`` routes: one ``nvcc`` each) and compile the Triton kernels (LayerNorm, BN epilogue and
    cross-entropy, forward and backward, one after another), all
    concurrently, time each and print ``ptxas``'s registers and spills;
@@ -125,9 +125,10 @@ line):
    just before and read just after (53 conv forward, 52 dgrad (the
    stem's input needs no gradient) and 53 wgrad, 53 BN forward and
    backward, 1 cross-entropy forward and backward per step of the warm
-   run and of the replays, nothing else; of the forwards, the stem's on
-   conv.cu's ``mma.sync`` route and the other 52 on the wgmma route,
-   counted as the launches are); losses finite; step ms,
+   run and of the replays, nothing else; of the forwards and the wgrads,
+   the stem's on conv.cu's ``mma.sync`` route and the other 52 on the
+   wgmma routes, every dgrad on wgmma, counted as the launches are:
+   ``RESNET_CONV_ROUTES``); losses finite; step ms,
    images/s, peak memory; two eager steps traced (device time by kind,
    the conv kernels split into forward, dgrad and wgrad; idle share);
    13b. the same with ``--no-pallas-conv`` (cuDNN convs), 5 steps, no
@@ -152,19 +153,21 @@ line):
    elements within one ulp of their plain value (wgrad: of the fp64 sum,
    since its fp32 plain sum over up to 1.6 M products misses by more on
    elements near zero), the epilogue equal to the kernel's conv
-   followed by the plain epilogue bit for bit; each forward names its
-   route (``conv_fwd_kernel.routes``: wgmma for bf16/fp16 with C a
-   multiple of 64, mma for the stem, simt for fp32), and where that is
-   the wgmma kernel the ``mma.sync`` kernel is timed on the same inputs
-   beside it (equal bit for bit: printed, not a gate); with ``--was``
+   followed by the plain epilogue bit for bit; each call names its route
+   (each wrapper's ``routes``: wgmma for bf16/fp16 where the gathered
+   channel count, C or for dgrad O, is a multiple of 64, mma for the
+   stem, simt for fp32), and where that is a wgmma kernel the
+   ``mma.sync`` kernel is timed on the same inputs beside it (equal bit
+   for bit: printed, not a gate); with ``--was``
    the other checkout's kernels are timed beside each case;
    ``library_ms`` is cuDNN (``F.conv2d`` channels-last,
    ``aten.convolution_backward``);
    15b. forward, dgrad and wgrad at every distinct ResNet-50 conv site (23
-   at B 128, bf16) against their plain versions as in 15, timed beside
-   cuDNN and, with ``--was``, beside the conv kernels of another checkout
-   (the parent commit's, built from its own sources), and summed over
-   the 53 convs of a step;
+   at B 128, bf16) against their plain versions as in 15, each naming its
+   route, timed beside the ``mma.sync`` kernel where the route is wgmma
+   (the same bits printed), beside cuDNN and, with ``--was``, beside the
+   conv kernels of another checkout (the parent commit's, built from its
+   own sources), and summed over the 53 convs of a step;
 16. the int8 quantized-matmul kernel vs plain, bit for bit, at the O4
    path's shapes: serving prefill M 1024 (768->768, 768->3072,
    3072->768), decode M 8 (768->768, 3072->768), training M 8184
@@ -218,7 +221,7 @@ line):
    for the step ms and peak memory before that change; every flash
    forward of the LM runs (eager, K 1, K 8, O2 and O4) on the wgmma
    route, every qmm of the O4 runs on wgmma, and every ResNet-50 conv
-   forward but the stem's on wgmma;
+   forward and wgrad but the stem's and every dgrad on wgmma;
 21. BERT-base training: the JAX package's BERT step (``bench.py``:
    ``bert_base(dtype=bf16, num_classes=None, attention_impl="flash")``,
    B 16, T 128, the tied fp32 head, cross-entropy with smoothing 0.1,
@@ -314,8 +317,9 @@ line):
    loss and statistics' pmean, the overflow flag) sits in the captured
    graph; (b) without a group: (a)'s final checkpoint equal to (b)'s bit
    for bit in every leaf, one capture and 8 replays each, the same kernel
-   launches with kernels 1-7 at least once a step, (a)'s collectives
-   counted at the warm run and each replay; step ms of both;
+   launches with kernels 1-7 at least once a step, the conv routes of
+   phase 13 in both, (a)'s collectives counted at the warm run and each
+   replay; step ms of both;
 28. data parallel under gloo: two ranks on the one card
    (``chip_smoke.py --ddp-gloo-worker DIR`` under ``multiproc.spawn``,
    600 s timeout), ResNet-50 fp32 O0 with ``PallasConv`` and GroupBN
@@ -692,6 +696,16 @@ def route_gate(fa, name, launches):
 #: to 8) on conv.cu's mma.sync kernel, the other 52 (C a multiple of 64)
 #: on conv_sm90.cu's wgmma kernel
 RESNET_FWD_ROUTES = {"wgmma": 52, "mma": 1, "simt": 0}
+#: its 52 dgrads (O a multiple of 64; the stem's input needs none), all on
+#: conv_sm90.cu's wgmma kernel
+RESNET_DGRAD_ROUTES = {"wgmma": 52, "mma": 0, "simt": 0}
+#: its 53 wgrads: the stem's (C = 3) on conv.cu's mma.sync kernel, the
+#: other 52 on wgmma
+RESNET_WGRAD_ROUTES = {"wgmma": 52, "mma": 1, "simt": 0}
+#: each conv kernel's routes a step, by its counter's name
+RESNET_CONV_ROUTES = {"conv_fwd": RESNET_FWD_ROUTES,
+                      "conv_dgrad": RESNET_DGRAD_ROUTES,
+                      "conv_wgrad": RESNET_WGRAD_ROUTES}
 
 
 def zero_wrapper_routes(*wrappers):
@@ -710,17 +724,23 @@ def launched_route(wrapper, fn):
 
 
 def conv_route_gate(name, routes, launches):
-    """Since the route counts were set to 0: ``launches`` ResNet-50 conv
-    forwards, a whole number of steps, each step's stem on the mma route
-    and its other 52 forwards on wgmma (``RESNET_FWD_ROUTES``)."""
-    routes = dict(routes)
-    steps = launches // 53
-    want = {r: n * steps for r, n in RESNET_FWD_ROUTES.items()}
-    check(launches > 0 and launches % 53 == 0 and routes == want,
-          f"{name}: conv forward routes {routes} = {RESNET_FWD_ROUTES} x "
-          f"{steps} steps ({launches} launches): every forward but the "
-          f"stem's on wgmma")
-    return routes
+    """Since the route counts were set to 0: each conv kernel's launches
+    (``launches[k]``, ``k`` a key of ``RESNET_CONV_ROUTES``) a whole
+    number of ResNet-50 steps, the same number for the three, by route
+    (``routes[k]``) its ``RESNET_CONV_ROUTES[k]`` a step: every forward
+    and wgrad but the stem's and every dgrad on wgmma."""
+    steps = launches.get("conv_fwd", 0) // 53
+    out = {}
+    for k, per_step in RESNET_CONV_ROUTES.items():
+        got = dict(routes.get(k, {}))
+        n = launches.get(k, 0)
+        want = {r: c * steps for r, c in per_step.items()}
+        check(steps > 0 and n == sum(per_step.values()) * steps
+              and got == want,
+              f"{name}: {k} routes {got} = {per_step} x {steps} steps "
+              f"({n} launches)")
+        out[k] = got
+    return out
 
 
 def qmm_route_gate(name, routes, launches, decode):
@@ -1895,7 +1915,7 @@ def _wgrad_fp64(x, dy, stride, padding, kernel_size):
 
 def conv_cases(cv, fba, dev, was=None):
     """Kernels 1-3 against their plain versions at ResNet-50 B 128 shapes
-    (cuDNN TF32 off, so the fp32 plain conv is full fp32).  Each forward
+    (cuDNN TF32 off, so the fp32 plain conv is full fp32).  Each call
     names its route; where that is wgmma, conv.cu's ``mma.sync`` kernel
     is timed on the same inputs (``mma_ms``, and whether it gives the same
     bits).  With ``was`` (another checkout's ``ops.conv``, ``--was``) its
@@ -1957,9 +1977,9 @@ def conv_cases(cv, fba, dev, was=None):
             return {"conv_fwd": lambda: mod.conv_fwd_kernel(
                         x, w, stride, padding, dil, *epi, **kw)[0],
                     "conv_dgrad": lambda: mod.conv_dgrad_kernel(
-                        dy, w, stride, padding, dil, xs[1:3]),
+                        dy, w, stride, padding, dil, xs[1:3], **kw),
                     "conv_wgrad": lambda: mod.conv_wgrad_kernel(
-                        x, dy, stride, padding, dil, ws[:2])}
+                        x, dy, stride, padding, dil, ws[:2], **kw)}
 
         def plain_fwd():
             return cv._fwd_ref(x, w, stride, padding, dil, *epi)[0]
@@ -1979,11 +1999,7 @@ def conv_cases(cv, fba, dev, was=None):
         if only:
             phases = [ph for ph in phases if ph[0] in only[0]]
         for kname, fn, plain, lib, lib_timer, cost in phases:
-            route = None
-            if kname == "conv_fwd":
-                got, route = launched_route(cv.conv_fwd_kernel, fn)
-            else:
-                got = fn()
+            got, route = launched_route(getattr(cv, f"{kname}_kernel"), fn)
             want = plain()
             exact = plain_within = None
             if kname == "conv_wgrad" and dtype == torch.bfloat16:
@@ -2015,12 +2031,10 @@ def conv_cases(cv, fba, dev, was=None):
                         library_ms=(None if ep else lib_timer(lib, iters=5)),
                         bound_ms=bms, bound_by=by)
             case["tflops"] = cost.flops / case["ms"] / 1e9
-            extra = ""
-            if route is not None:
-                case["route"] = route
-                extra = f", route {route}"
+            case["route"] = route
+            extra = f", route {route}"
             if route == "wgmma":
-                mma = calls(cv, route="mma")["conv_fwd"]
+                mma = calls(cv, route="mma")[kname]
                 case["mma_ms"] = time_ms(mma, iters=10)
                 case["mma_same_bits"] = torch.equal(mma(), fn())
                 extra += (f" (mma.sync {case['mma_ms']:.4f} ms, the same "
@@ -2089,13 +2103,17 @@ def load_was(root, module):
 def conv_sites(cv, dev, was=None):
     """Phase 15b: forward, dgrad (not at the stem) and wgrad at every
     distinct ResNet-50 site, B 128, bf16: each held against its plain
-    version as phase 15 holds it, timed (a CUDA graph of 10 calls), beside
-    ``was`` (another checkout's conv module, ``--was``: the same call
-    timed through its kernels) and cuDNN; then each kernel's sum over the
-    53 convs of a step (each site times its count)."""
+    version as phase 15 holds it, named by its route, timed (a CUDA graph
+    of 10 calls), beside conv.cu's ``mma.sync`` kernel on the same inputs
+    where the route is wgmma (whether the bits are equal printed, not
+    gated), ``was`` (another checkout's conv module, ``--was``: the same
+    call timed through its kernels) and cuDNN; then each kernel's sum over
+    the 53 convs of a step (each site times its count; the ``mma.sync``
+    sum takes the route's own time where that is mma)."""
     gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
-    step = {k: dict(ms=0.0, was_ms=0.0 if was else None, library_ms=0.0)
+    step = {k: dict(ms=0.0, mma_ms=0.0, was_ms=0.0 if was else None,
+                    library_ms=0.0)
             for k in ("conv_fwd", "conv_dgrad", "conv_wgrad")}
     for name, xs, ws, s, count in RESNET50_SITES:
         stride, dil = (s, s), (1, 1)
@@ -2120,15 +2138,15 @@ def conv_sites(cv, dev, was=None):
                 dyl, xl, wl, None, list(stride), [0, 0], [1, 1], False,
                 [0, 0], 1, mask)
 
-        def call(mod, kname):
+        def call(mod, kname, **kw):
             if kname == "conv_fwd":
                 return lambda: mod.conv_fwd_kernel(x, w, stride, padding,
-                                                   dil)[0]
+                                                   dil, **kw)[0]
             if kname == "conv_dgrad":
                 return lambda: mod.conv_dgrad_kernel(dy, w, stride, padding,
-                                                     dil, xs[1:3])
+                                                     dil, xs[1:3], **kw)
             return lambda: mod.conv_wgrad_kernel(x, dy, stride, padding, dil,
-                                                 ws[:2])
+                                                 ws[:2], **kw)
         phases = [("conv_fwd",
                    lambda: cv._fwd_ref(x, w, stride, padding, dil)[0],
                    lambda: F.conv2d(xl, wl, stride=stride), time_ms)]
@@ -2147,18 +2165,25 @@ def conv_sites(cv, dev, was=None):
         bms, by = bound(site_cost)
         for kname, plain, lib, lib_timer in phases:
             run = call(cv, kname)
-            got, want = run(), plain()
+            got, route = launched_route(getattr(cv, f"{kname}_kernel"), run)
+            want = plain()
             exact = (_wgrad_fp64(x, dy, stride, padding, ws[:2])
                      if kname == "conv_wgrad" else None)
             torch.cuda.synchronize()
             err, within, ok = _conv_err(got, want, exact)
-            check(ok, f"{kname} site {name}: max_abs_err {err:.3g} (max "
-                      f"|plain| {want.float().abs().max().item():.3g}), "
-                      f"within 1 ulp {within}")
+            check(ok, f"{kname} site {name}: route {route}, max_abs_err "
+                      f"{err:.3g} (max |plain| "
+                      f"{want.float().abs().max().item():.3g}), within 1 "
+                      f"ulp {within}")
+            mma = call(cv, kname, route="mma") if route == "wgmma" else None
+            same = None if mma is None else torch.equal(mma(), got)
             del got, want, exact
-            row = dict(site=name, kernel=kname, count=count,
+            row = dict(site=name, kernel=kname, count=count, route=route,
                        max_abs_err=err, within_1ulp=within,
                        ms=time_ms(run, iters=10),
+                       mma_ms=None if mma is None else time_ms(mma,
+                                                               iters=10),
+                       mma_same_bits=same,
                        was_ms=(time_ms(call(was, kname), iters=10)
                                if was else None),
                        library_ms=lib_timer(lib, iters=5), bound_ms=bms,
@@ -2168,18 +2193,23 @@ def conv_sites(cv, dev, was=None):
             for k in ("ms", "was_ms", "library_ms"):
                 if row[k] is not None:
                     step[kname][k] += count * row[k]
+            step[kname]["mma_ms"] += count * (row["mma_ms"] or row["ms"])
             was_s = ("" if row["was_ms"] is None
                      else f", was {row['was_ms']:.4f} ms")
-            print(f"      {kname} site {name} (x{count}): kernel "
-                  f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s){was_s}"
-                  f", library {row['library_ms']:.4f} ms, bound {bms:.4f} "
-                  f"ms ({by})", flush=True)
+            mma_s = ("" if mma is None else
+                     f" (mma.sync {row['mma_ms']:.4f} ms, the same bits "
+                     f"{same})")
+            print(f"      {kname} site {name} (x{count}): route {route} "
+                  f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s)"
+                  f"{mma_s}{was_s}, library {row['library_ms']:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
         del x, w, dy, xl, wl, dyl
     for kname, st in step.items():
         was_s = ("" if st["was_ms"] is None
                  else f", was {st['was_ms']:.2f} ms")
-        print(f"      {kname}: the 53 convs of a step {st['ms']:.2f} ms"
-              f"{was_s}, cuDNN {st['library_ms']:.2f} ms", flush=True)
+        print(f"      {kname}: the 53 convs of a step {st['ms']:.2f} ms "
+              f"(mma.sync {st['mma_ms']:.2f}){was_s}, cuDNN "
+              f"{st['library_ms']:.2f} ms", flush=True)
     return dict(sites=rows, per_step=step)
 
 
@@ -2199,7 +2229,7 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    zero_wrapper_routes(counters["conv_fwd"])
+    zero_wrapper_routes(*(counters[k] for k in RESNET_CONV_ROUTES))
     res = imagenet.train(args, log=lambda line: print("      " + line,
                                                       flush=True))
     launches = {name: c.launches for name, c in counters.items()}
@@ -2217,9 +2247,9 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
           f"kernel)")
     conv_routes = None
     if pallas_conv:
-        conv_routes = conv_route_gate(f"resnet50 training {flag}",
-                                      counters["conv_fwd"].routes,
-                                      launches["conv_fwd"])
+        conv_routes = conv_route_gate(
+            f"resnet50 training {flag}",
+            {k: counters[k].routes for k in RESNET_CONV_ROUTES}, launches)
     losses = res["losses"]
     check(all(np.isfinite(losses)),
           f"resnet50 training {flag}: losses finite ({losses[0]:.4f} -> "
@@ -2229,7 +2259,7 @@ def train_resnet50(imagenet, counters, steps=10, pallas_conv=True):
                step_ms_median_3_10=step_ms,
                images_per_s=res["images_per_step"] / step_ms * 1e3,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               launches=launches, conv_fwd_routes=conv_routes)
+               launches=launches, conv_routes=conv_routes)
     print(f"      resnet50 O2 B128 224 {flag}: step {step_ms:.2f} ms "
           f"(median of steps 3-{steps}), {out['images_per_s']:.1f} "
           f"images/s, peak "
@@ -3111,18 +3141,21 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
     lm["flash_routes"] = route_gate(
         fa, "gpt2_small O2 and O4 B8 T1023, eager and K 1 / K 8",
         fa.flash_fwd_kernel.launches - launched)
-    conv_launched = cv.conv_fwd_kernel.launches
-    zero_wrapper_routes(cv.conv_fwd_kernel)
+    conv_kernels = {"conv_fwd": cv.conv_fwd_kernel,
+                    "conv_dgrad": cv.conv_dgrad_kernel,
+                    "conv_wgrad": cv.conv_wgrad_kernel}
+    conv_launched = {k: w.launches for k, w in conv_kernels.items()}
+    zero_wrapper_routes(*conv_kernels.values())
     resnet = capture_vs_eager(
         "resnet50 O2 B128 224",
         lambda: imagenet.build(imagenet.parse(IMAGENET_ARGS)),
         lambda k, n: imagenet.train(imagenet.parse(
             IMAGENET_ARGS + ["--prof", str(n), "--steps-per-call", str(k)]),
             **quiet), steps, window_end=window_end, keep="resnet50_o2")
-    resnet["conv_fwd_routes"] = conv_route_gate(
+    resnet["conv_routes"] = conv_route_gate(
         "resnet50 O2 B128 224, eager and K 1 / K 8",
-        cv.conv_fwd_kernel.routes,
-        cv.conv_fwd_kernel.launches - conv_launched)
+        {k: w.routes for k, w in conv_kernels.items()},
+        {k: w.launches - conv_launched[k] for k, w in conv_kernels.items()})
     return dict(lm_o2=lm, lm_o4=o4, resnet50_o2=resnet)
 
 
@@ -4370,11 +4403,12 @@ def ddp_nccl(counters, tmp):
     check(ka == kb and all(ka.get(n, 0) >= ran for n in RESNET_KERNELS),
           f"ddp_nccl: kernel launches of (a) {ka} = (b)'s {kb}, kernels 1-7 "
           f"each at least once a step ({ran} steps on the card)")
-    fwd_name = counters["conv_fwd"].__name__
+    names = {k: counters[k].__name__ for k in RESNET_CONV_ROUTES}
     for tag, st in (("(a)", a), ("(b)", b)):
-        conv_route_gate(f"ddp_nccl {tag}",
-                        st.get("routes", {}).get(fwd_name, {}),
-                        st["launches"].get(fwd_name, 0))
+        conv_route_gate(
+            f"ddp_nccl {tag}",
+            {k: st.get("routes", {}).get(n, {}) for k, n in names.items()},
+            {k: st["launches"].get(n, 0) for k, n in names.items()})
     coll = _collectives(a["launches"])
     want = {kind: n * ran for kind, n in DDP_NCCL_COLLECTIVES.items()}
     check(coll == want and not _collectives(b["launches"]),
@@ -7256,20 +7290,26 @@ def main(argv=None) -> int:
               "apex_tpu/contrib/xentropy/__init__.py:123", xent_bwd_cases,
               2, "resnet_training"),
         # the conv rows show the stage-1 3x3 case; every case is in --out.
-        # The forward's non-stem bf16 sites run the wgmma kernel, the
-        # stem conv.cu's mma.sync kernel
+        # The non-stem bf16 sites run the wgmma kernels, the stem's
+        # forward and wgrad conv.cu's mma.sync kernels
         dict(entry("conv_fwd", "cuda", "apex_tpu_torch/csrc/conv_sm90.cu",
                    "apex_tpu/ops/conv.py:267", conv["conv_fwd"], 1,
                    "resnet_training"),
              sources=["apex_tpu_torch/csrc/conv_sm90.cu",
                       "apex_tpu_torch/csrc/conv.cu"],
-             routes=resnet["conv_fwd_routes"]),
-        entry("conv_dgrad", "cuda", "apex_tpu_torch/csrc/conv.cu",
-              "apex_tpu/ops/conv.py:375", conv["conv_dgrad"], 0,
-              "resnet_training"),
-        entry("conv_wgrad", "cuda", "apex_tpu_torch/csrc/conv.cu",
-              "apex_tpu/ops/conv.py:397", conv["conv_wgrad"], 1,
-              "resnet_training"),
+             routes=resnet["conv_routes"]["conv_fwd"]),
+        dict(entry("conv_dgrad", "cuda", "apex_tpu_torch/csrc/conv_sm90.cu",
+                   "apex_tpu/ops/conv.py:375", conv["conv_dgrad"], 0,
+                   "resnet_training"),
+             sources=["apex_tpu_torch/csrc/conv_sm90.cu",
+                      "apex_tpu_torch/csrc/conv.cu"],
+             routes=resnet["conv_routes"]["conv_dgrad"]),
+        dict(entry("conv_wgrad", "cuda", "apex_tpu_torch/csrc/conv_sm90.cu",
+                   "apex_tpu/ops/conv.py:397", conv["conv_wgrad"], 1,
+                   "resnet_training"),
+             sources=["apex_tpu_torch/csrc/conv_sm90.cu",
+                      "apex_tpu_torch/csrc/conv.cu"],
+             routes=resnet["conv_routes"]["conv_wgrad"]),
         # the qmm row shows the prefill 768->3072 case, the db2 row the
         # causal one; every case is in --out
         dict(entry("qmm", "cuda", "apex_tpu_torch/csrc/quant_sm90.cu",

@@ -340,7 +340,8 @@ def test_fwd_route_by_dtype_channels_and_tma():
     SIMT path; bf16 and fp16 on the wgmma kernel where the channel count
     (as the kernels take it, padded to 8) is a multiple of 64 and TMA
     reads the weight; else conv.cu's mma.sync kernel (the C = 3 stem,
-    padded to 8; a ragged C); the conv's tuner version is 2."""
+    padded to 8; a ragged C); the conv's tuner version is 3 (the backward
+    took its own wgmma routes)."""
     for dt in (torch.bfloat16, torch.float16):
         for c in (64, 128, 256, 512, 1024, 2048):
             assert tconv._fwd_route(dt, c, True) == "wgmma"
@@ -349,5 +350,92 @@ def test_fwd_route_by_dtype_channels_and_tma():
             assert tconv._fwd_route(dt, c, True) == "mma"
     for c in (8, 64, 128):
         assert tconv._fwd_route(torch.float32, c, True) == "simt"
-    assert tconv.TUNE_VERSION == 2
+    assert tconv.TUNE_VERSION == 3
     assert tconv.conv_fwd_kernel.routes.keys() == {"wgmma", "mma", "simt"}
+
+
+def test_dgrad_route_by_dtype_channels_and_tma():
+    """dgrad's route rule (pure Python, no card): the channels it gathers
+    are dy's O; bf16 and fp16 run conv_sm90.cu's wgmma kernel where O (as
+    the kernels take it, padded to 8) is a multiple of 64 and TMA reads
+    the weight (and the stride has at most 16 parity classes), else
+    conv.cu's mma.sync kernel; fp32 its SIMT path.  Every ResNet-50 dgrad
+    site (O 64 to 2048) takes wgmma."""
+    for dt in (torch.bfloat16, torch.float16):
+        for o in (64, 128, 256, 512, 1024, 2048):
+            assert tconv._dgrad_route(dt, o, True) == "wgmma"
+        assert tconv._dgrad_route(dt, 64, False) == "mma"
+        for o in (8, 16, 40, 72, 136):
+            assert tconv._dgrad_route(dt, o, True) == "mma"
+        # strides up to sh * sw 16: the parity classes decoded on the host
+        for classes in (1, 4, 16):
+            assert tconv._dgrad_route(dt, 64, True, classes) == "wgmma"
+        assert tconv._dgrad_route(dt, 64, True, 25) == "mma"
+    for o in (8, 64, 128):
+        assert tconv._dgrad_route(torch.float32, o, True) == "simt"
+    assert tconv.conv_dgrad_kernel.routes.keys() == {"wgmma", "mma", "simt"}
+
+
+def test_wgrad_route_by_dtype_channels_and_tma():
+    """wgrad's route rule (pure Python, no card): the channels it gathers
+    are x's C; bf16 and fp16 run the wgmma kernel where C (padded to 8) is
+    a multiple of 64 and TMA reads dy, else the mma.sync kernel (the
+    C = 3 stem, padded to 8); fp32 SIMT.  Both kernels take the same
+    split plan, whatever the tile."""
+    for dt in (torch.bfloat16, torch.float16):
+        for c in (64, 128, 256, 512, 1024, 2048):
+            assert tconv._wgrad_route(dt, c, True) == "wgmma"
+        assert tconv._wgrad_route(dt, 64, False) == "mma"
+        for c in (8, 16, 40, 72, 96):
+            assert tconv._wgrad_route(dt, c, True) == "mma"
+    for c in (8, 64, 128):
+        assert tconv._wgrad_route(torch.float32, c, True) == "simt"
+    assert tconv.conv_wgrad_kernel.routes.keys() == {"wgmma", "mma", "simt"}
+
+
+@pytest.mark.parametrize("kind,rule,route,ok", [
+    ("forward", "wgmma", None, "wgmma"), ("dgrad", "wgmma", "mma", "mma"),
+    ("wgrad", "wgmma", "wgmma", "wgmma"), ("wgrad", "mma", None, "mma"),
+    ("dgrad", "mma", "wgmma", None), ("wgrad", "simt", "mma", None),
+    ("forward", "simt", "wgmma", None), ("dgrad", "wgmma", "simt", None)])
+def test_named_route_taken_or_refused(kind, rule, route, ok):
+    """A named route runs where the rule takes it, ``mma`` also where the
+    rule is ``wgmma`` (the smoke run's comparison); any other raises
+    ``ValueError`` naming the route, before anything launches."""
+    if ok is None:
+        with pytest.raises(ValueError, match=f"{kind} route '{route}'"):
+            tconv._take_route(kind, rule, route, torch.bfloat16, 64)
+    else:
+        assert tconv._take_route(kind, rule, route, torch.bfloat16,
+                                 64) == ok
+
+
+@pytest.mark.parametrize("m,n,k", [(576, 64, 401408), (4608, 512, 6272),
+                                   (64, 64, 401408), (1024, 2048, 6272),
+                                   (256, 64, 401408), (2304, 256, 25088),
+                                   (1152, 128, 100352), (64, 8, 126),
+                                   (192, 136, 49)])
+def test_wgrad_wgmma_splits_cover_k_whatever_the_tile(m, n, k):
+    """The wgmma wgrad's own split of its pixel sum: every split
+    non-empty, together exactly K, each a whole number of 32-pixel K
+    steps and at least 8 of them where K has that many, the blocks of the
+    rule's tile at most 4 waves of two an SM.  The plan is a function of
+    the GEMM's shape alone (the rule's tile, not the one a call runs), so
+    both tile widths sum the same splits in the same order."""
+    splits, per = tconv._wgrad_wgmma_splits(m, n, k, 132)
+    assert per % 32 == 0 and splits >= 1
+    assert (splits - 1) * per < k <= splits * per
+    k_steps = -(-k // 32)
+    if k_steps >= 16:
+        assert per >= 8 * 32
+    bn = tconv._tile_n(n)
+    tiles = -(-m // tconv._WGRAD_WGMMA_BM[bn]) * -(-n // bn)
+    assert splits == 1 or tiles * splits <= 4 * 2 * 132
+
+
+def test_wgrad_wgmma_splits_fill_whole_waves():
+    """Where K is long, the splits fill whole waves of two blocks an SM:
+    at [128,56,56,64] 3x3/1 (M 576 in 3 tiles of 256 x 64) 88 splits
+    make 264 blocks, one wave of 132 x 2."""
+    splits, _ = tconv._wgrad_wgmma_splits(576, 64, 128 * 56 * 56, 132)
+    assert 3 * splits == 2 * 132

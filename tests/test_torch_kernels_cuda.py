@@ -2731,6 +2731,145 @@ def test_conv_fwd_routes_refuse_what_they_do_not_take(conv_device):
     assert routes == {"mma": 1}
 
 
+#: the conv backward's wgmma cases: every ResNet-50 site but the stem at
+#: B 2 (``RESNET50_SITES``, flax 'SAME' pads), then ragged M, padded edges,
+#: strides 1 and 2, a dilated tap and a ragged C under a dgrad of O 64:
+#: x shape, w shape, stride, padding, dilation
+WGMMA_BWD_CASES = dict(
+    {site: (xs, ws, s, "SAME", 1)
+     for site, (xs, ws, s) in RESNET50_SITES.items() if xs[3] % 64 == 0},
+    **{"ragged 3x3/1 pad (2,0),(1,1) 128->64": (
+           (2, 7, 5, 128), (3, 3, 128, 64), 1, ((2, 0), (1, 1)), 1),
+       "ragged 3x3/2 64->128": ((3, 9, 11, 64), (3, 3, 64, 128), 2,
+                                "SAME", 1),
+       "ragged 1x1/2 valid 192->64": ((1, 13, 13, 192), (1, 1, 192, 64), 2,
+                                      "VALID", 1),
+       "ragged 3x3/2 pad (0,1) 64->72": ((3, 10, 9, 64), (3, 3, 64, 72), 2,
+                                         ((0, 1), (0, 1)), 1),
+       "dilated 3x3 64->64": ((2, 12, 12, 64), (3, 3, 64, 64), 1, "VALID",
+                              2),
+       "dgrad ragged C 40 ->64": ((2, 6, 6, 40), (3, 3, 40, 64), 1, "SAME",
+                                  1)})
+
+
+def _conv_bwd_case(device, case, dtype, seed):
+    xs, ws, s, pad, d = WGMMA_BWD_CASES[case]
+    stride, dil = (s, s), (d, d)
+    padding = cv._norm_padding(pad, xs[1], xs[2], ws[0], ws[1], s, s, d, d)
+    oh, ow = cv._out_hw(xs[1], xs[2], padding, ws[0], ws[1], s, s, d, d)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(xs, device=device, generator=gen).to(dtype)
+    w = (torch.randn(ws, device=device, generator=gen)
+         / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dtype)
+    dy = torch.randn((xs[0], oh, ow, ws[3]), device=device,
+                     generator=gen).to(dtype)
+    return x, w, dy, stride, padding, dil
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(
+    c for c, (_, ws, *_) in WGMMA_BWD_CASES.items() if ws[3] % 64 == 0))
+def test_conv_dgrad_wgmma_route(conv_device, case, dtype):
+    """bf16 and fp16 dgrad with O a multiple of 64 runs conv_sm90.cu's
+    wgmma kernel (the parity classes in one launch at stride 2): within
+    phase 15's tolerance of the plain version, both tile widths bit for
+    bit, each launch counted on the wgmma route."""
+    x, w, dy, stride, padding, dil = _conv_bwd_case(conv_device, case,
+                                                    dtype, 22)
+    hw = x.shape[1:3]
+    dx, routes = _routed(cv.conv_dgrad_kernel, lambda: cv.conv_dgrad_kernel(
+        dy, w, stride, padding, dil, hw))
+    assert routes == {"wgmma": 1}
+    _conv_err_ok(dx, cv._dgrad_ref(dy, w, stride, padding, dil, hw))
+    for bn in (64, 128):
+        assert torch.equal(cv.conv_dgrad_kernel(dy, w, stride, padding, dil,
+                                                hw, block_n=bn), dx), bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(
+    c for c, (xs, _, _, _, d) in WGMMA_BWD_CASES.items()
+    if xs[3] % 64 == 0 and d == 1))
+def test_conv_wgrad_wgmma_route(conv_device, case, dtype):
+    """bf16 and fp16 wgrad with C a multiple of 64 runs conv_sm90.cu's
+    wgmma kernel and its reduce: within phase 15's tolerance of the plain
+    version, 99.9% of bf16 elements within one ulp of the fp64 sum, both
+    tile widths (256 x 64 and 128 x 128) bit for bit, each call counted
+    once on the wgmma route."""
+    x, w, dy, stride, padding, dil = _conv_bwd_case(conv_device, case,
+                                                    dtype, 23)
+    ks = w.shape[:2]
+    dw, routes = _routed(cv.conv_wgrad_kernel, lambda: cv.conv_wgrad_kernel(
+        x, dy, stride, padding, dil, ks))
+    assert routes == {"wgmma": 1}
+    _conv_err_ok(dw, cv._wgrad_ref(x, dy, stride, padding, dil, ks),
+                 _wgrad_fp64(x, dy, stride, padding, ks))
+    for bn in (64, 128):
+        assert torch.equal(cv.conv_wgrad_kernel(x, dy, stride, padding, dil,
+                                                ks, block_n=bn), dw), bn
+
+
+@pytest.mark.cuda
+def test_conv_bwd_routes_refuse_what_they_do_not_take(conv_device):
+    """dgrad with O not a multiple of 64 or a stride of more than 16
+    parity classes, and the stem's wgrad (C = 3), keep conv.cu's mma.sync
+    kernels and refuse wgmma; fp32 keeps SIMT and refuses both
+    tensor-core routes; mma may run where the rule is wgmma."""
+    pads, bf = ((1, 1), (1, 1)), torch.bfloat16
+    dy = torch.randn((2, 8, 8, 72), device=conv_device, dtype=bf)
+    w = torch.randn((3, 3, 64, 72), device=conv_device, dtype=bf)
+    _, routes = _routed(cv.conv_dgrad_kernel, lambda: cv.conv_dgrad_kernel(
+        dy, w, (1, 1), pads, (1, 1), (8, 8)))
+    assert routes == {"mma": 1}
+    with pytest.raises(ValueError, match="dgrad route 'wgmma'"):
+        cv.conv_dgrad_kernel(dy, w, (1, 1), pads, (1, 1), (8, 8),
+                             route="wgmma")
+    x = torch.randn((2, 8, 8, 3), device=conv_device, dtype=bf)
+    dy = torch.randn((2, 8, 8, 64), device=conv_device, dtype=bf)
+    _, routes = _routed(cv.conv_wgrad_kernel, lambda: cv.conv_wgrad_kernel(
+        x, dy, (1, 1), pads, (1, 1), (3, 3)))
+    assert routes == {"mma": 1}
+    with pytest.raises(ValueError, match="wgrad route 'wgmma'"):
+        cv.conv_wgrad_kernel(x, dy, (1, 1), pads, (1, 1), (3, 3),
+                             route="wgmma")
+    x = torch.randn((2, 8, 8, 64), device=conv_device)
+    dy = torch.randn((2, 8, 8, 64), device=conv_device)
+    w = torch.randn((3, 3, 64, 64), device=conv_device)
+    for route in ("wgmma", "mma"):
+        with pytest.raises(ValueError, match=f"dgrad route '{route}'"):
+            cv.conv_dgrad_kernel(dy, w, (1, 1), pads, (1, 1), (8, 8),
+                                 route=route)
+        with pytest.raises(ValueError, match=f"wgrad route '{route}'"):
+            cv.conv_wgrad_kernel(x, dy, (1, 1), pads, (1, 1), (3, 3),
+                                 route=route)
+    _, routes = _routed(cv.conv_wgrad_kernel, lambda: cv.conv_wgrad_kernel(
+        x, dy, (1, 1), pads, (1, 1), (3, 3)))
+    assert routes == {"simt": 1}
+    # a stride of more than 16 parity classes runs conv.cu's dgrad
+    dy5 = torch.randn((1, 4, 4, 64), device=conv_device, dtype=bf)
+    w5 = torch.randn((1, 1, 64, 64), device=conv_device, dtype=bf)
+    valid = ((0, 0), (0, 0))
+    dx5, routes = _routed(cv.conv_dgrad_kernel, lambda: cv.conv_dgrad_kernel(
+        dy5, w5, (5, 5), valid, (1, 1), (20, 20)))
+    assert routes == {"mma": 1}
+    _conv_err_ok(dx5, cv._dgrad_ref(dy5, w5, (5, 5), valid, (1, 1),
+                                    (20, 20)))
+    with pytest.raises(ValueError, match="dgrad route 'wgmma'"):
+        cv.conv_dgrad_kernel(dy5, w5, (5, 5), valid, (1, 1), (20, 20),
+                             route="wgmma")
+    xb, dyb, wb = x.to(bf), dy.to(bf), w.to(bf)
+    for kernel, args in ((cv.conv_dgrad_kernel, (dyb, wb, (1, 1), pads,
+                                                 (1, 1), (8, 8))),
+                         (cv.conv_wgrad_kernel, (xb, dyb, (1, 1), pads,
+                                                 (1, 1), (3, 3)))):
+        _, routes = _routed(kernel, lambda: kernel(*args, route="mma"))
+        assert routes == {"mma": 1}
+        _, routes = _routed(kernel, lambda: kernel(*args))
+        assert routes == {"wgmma": 1}
+
+
 @pytest.mark.cuda
 def test_db2_kernel_names_seen_from_a_fresh_process(cuda_device):
     """The db2 path test's profiler window, in a new process, where the

@@ -832,11 +832,21 @@ def test_prof_example_runs_on_the_cpu(name, capsys, tmp_path):
     ("void (anonymous namespace)::conv_fwd_wgmma_kernel<__nv_bfloat16, 128>"
      "(CUtensorMap_st, ConvParams)", "conv_fwd_kernel", "conv_fwd"),
     ("void (anonymous namespace)::conv_gemm_kernel<0, __nv_bfloat16, 64>"
-     "(ConvParams)", "conv_fwd_kernel", "conv_fwd")])
+     "(ConvParams)", "conv_fwd_kernel", "conv_fwd"),
+    ("void (anonymous namespace)::conv_dgrad_wgmma_kernel<__half, 128>"
+     "(CUtensorMap_st, ConvParams)", "conv_dgrad_kernel", "conv_dgrad"),
+    ("void (anonymous namespace)::conv_gemm_kernel<3, __nv_bfloat16, 64>"
+     "(ConvParams)", "conv_dgrad_kernel", "conv_dgrad"),
+    ("void (anonymous namespace)::conv_wgrad_wgmma_kernel<__nv_bfloat16, "
+     "64>(CUtensorMap_st, ConvParams)", "conv_wgrad_kernel", "conv_wgrad"),
+    ("void (anonymous namespace)::wgrad_reduce_kernel<__nv_bfloat16>("
+     "float const*, __nv_bfloat16*, int, long)", "conv_wgrad_kernel",
+     None)])
 def test_kernel_names_of_both_routes_count_alike(name, kind, counted):
-    """A trace's kernel of either route of qmm and of the conv forward
+    """A trace's kernel of either route of qmm and of the conv passes
     (the wgmma kernels and the mma.sync ones) takes its kernel's kind and
-    counts as that kernel's launch."""
+    counts as that kernel's launch; wgrad's reduce takes wgrad's kind and
+    counts as no launch of its own (it runs within the wgrad call)."""
     kinds = parse.RESNET_KINDS if kind.startswith("conv") \
         else parse.SERVING_KINDS
     assert parse.kernel_kind(name, kinds) == kind

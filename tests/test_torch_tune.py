@@ -687,9 +687,10 @@ def test_tune_buckets_equal_jax():
         assert mod.TUNE_VERSION == jmod.TUNE_VERSION == 1
     # the port's flash forward, conv forward and qmm moved their rules to
     # wgmma kernels: version 2, so an entry tuned against the mma.sync
-    # kernels misses
-    for mod, jmod in ((fa, jfa), (cv, jcv), (qk, jqk)):
+    # kernels misses; conv's backward followed (version 3)
+    for mod, jmod in ((fa, jfa), (qk, jqk)):
         assert mod.TUNE_VERSION == 2 and jmod.TUNE_VERSION == 1
+    assert cv.TUNE_VERSION == 3 and jcv.TUNE_VERSION == 1
 
 
 def test_bound_from_ledger_equals_jax():
@@ -861,19 +862,21 @@ def test_qmm_candidates_name_both_kernels_tiles_at_version_two():
 
 
 def test_conv_candidates_share_their_bucket_route_at_version_two():
-    """conv's candidates are the two tile widths of the bucket's forward
-    route (every candidate of a bf16 bucket with C a multiple of 64 runs
+    """conv's candidates are the two tile widths of the bucket's routes
+    (every candidate of a bf16 bucket with C a multiple of 64 runs
     wgmma, of the stem's mma, of fp32 simt), and its cache keys carry
-    version 2."""
+    version 3 (version 2 named the forward's routes alone)."""
     spec = registry.get_spec("conv2d")
-    assert spec.version == cv.TUNE_VERSION == 2
+    assert spec.version == cv.TUNE_VERSION == 3
     shape = dict(spec.example_shape)
     cands = spec.candidates(shape, None)
     assert {(c["block_m"], c["block_n"]) for c in cands} == {(128, 64),
                                                             (128, 128)}
     assert all(spec.constraint(shape, c) for c in cands)
     assert cv._fwd_route(torch.bfloat16, shape["cin"], True) == "wgmma"
-    assert "|conv2d|v2|" in store.key_for("conv2d", spec.version,
+    assert cv._dgrad_route(torch.bfloat16, shape["cout"], True) == "wgmma"
+    assert cv._wgrad_route(torch.bfloat16, shape["cin"], True) == "wgmma"
+    assert "|conv2d|v3|" in store.key_for("conv2d", spec.version,
                                           spec.bucket(shape))
 
 
