@@ -19,7 +19,8 @@
 // exponentials (16 a cycle an SM) come as close as the products.  The
 // `mma.sync` kernel of flash_attention.cu ran 2.4-3.0x SDPA there.  Here:
 //  * Loads are TMA (`cp.async.bulk.tensor`) under `CUtensorMap`s that the
-//    launcher encodes from the Params strides, so a [B, T, H, D] view is
+//    launcher encodes from the Params strides (through sm90::map_nd's
+//    cache: a view seen before costs no encode), so a [B, T, H, D] view is
 //    read in place (a fused projection's strided q, k, v included), and
 //    into the 128-byte swizzle that is `wgmma`'s operand layout: a tile is
 //    D / 64 panels of [rows][64] elements, 128 bytes a row.  Completion is
@@ -72,6 +73,7 @@
 
 #include <type_traits>
 
+#include "flash_sm90.cuh"
 #include "sm90.cuh"
 
 // 0 builds the rule's tiles only (block_k 96)
@@ -115,80 +117,9 @@ struct Maps {
 namespace {
 
 using namespace sm90;
+using namespace flash_sm90;
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr int STAGES = 2;            // the K / V ring (3 measured no faster)
-constexpr int PANEL = 64;            // elements in a 128-byte swizzled row
-
-
-// -- PTX helpers -----------------------------------------------------------------
-
-// TMA: a box of the tensor at coordinates (c0 innermost, ...) into shared
-// memory, its bytes counted on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             const void* src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_commit_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats rounded to T, the first in the low half (the lower column)
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo,
-                                                               float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(
-    float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
-                                                              float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // The key range rows [q0, q_last] can see (the causal / window band).
 __device__ __forceinline__ void key_band(const Params& p, int q0, int q_last,
@@ -200,166 +131,6 @@ __device__ __forceinline__ void key_band(const Params& p, int q0, int q_last,
     if (p.window > 0) k_begin = max(0, p.q_offset + q0 - p.window + 1);
   }
 }
-
-// -- wgmma.mma_async, m64nNk16 with fp32 accumulators ---------------------------
-// (N = 96 and 160 for the scores, 64 and 128 for O)
-
-#define APEX_WGMMA_SS_N96(TY) \
-  asm volatile( \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47}, " \
-  "%48, %49, p, 1, 1, 0, 0;\n}\n" \
-  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
-    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
-    "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
-  : "l"(da), "l"(db), "r"(scale_d))
-
-// d (+)= A B: A (64 x 16) and B (16 x 96) K-major in shared memory
-template <typename T>
-__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    APEX_WGMMA_SS_N96("bf16");
-  else
-    APEX_WGMMA_SS_N96("f16");
-}
-
-#define APEX_WGMMA_SS_N160(TY) \
-  asm volatile( \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, " \
-  "%72, %73, %74, %75, %76, %77, %78, %79}, " \
-  "%80, %81, p, 1, 1, 0, 0;\n}\n" \
-  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
-    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
-    "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
-    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
-    "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
-    "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
-    "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
-    "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]) \
-  : "l"(da), "l"(db), "r"(scale_d))
-
-// d (+)= A B: A (64 x 16) and B (16 x 160) K-major in shared memory
-template <typename T>
-__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    APEX_WGMMA_SS_N160("bf16");
-  else
-    APEX_WGMMA_SS_N160("f16");
-}
-
-#define APEX_WGMMA_RS_N64(TY) \
-  asm volatile( \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31}, " \
-  "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
-    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
-  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
-
-// d += A B: A (64 x 16) in registers, B (16 x 64) MN-major in shared
-// memory (the transpose bit)
-template <typename T>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    APEX_WGMMA_RS_N64("bf16");
-  else
-    APEX_WGMMA_RS_N64("f16");
-}
-
-#define APEX_WGMMA_RS_N128(TY) \
-  asm volatile( \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
-  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63}, " \
-  "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
-  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
-    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
-    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
-    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
-    "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
-    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
-  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
-
-// d += A B: A (64 x 16) in registers, B (16 x 128) MN-major in shared
-// memory (the transpose bit)
-template <typename T>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    APEX_WGMMA_RS_N128("bf16");
-  else
-    APEX_WGMMA_RS_N128("f16");
-}
-
 
 // -- the kernel ------------------------------------------------------------------
 
@@ -695,56 +466,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const Params p) {
 
 // -- launchers -----------------------------------------------------------------
 
-// A map of the [B, T, H, D] view at `ptr` (strides in elements) as the
-// tensor [d, T, H, B], its box 64 columns by `rows` rows of one head, the
-// 128-byte swizzle.  A dimension of size 1 takes the stride of one packed
-// after the dimension before it (its coordinate is always 0), so that a
-// size-1 dimension's arbitrary stride meets TMA's rules.
-bool map_bthd(CUtensorMap* m, CUtensorMapDataType ty, const void* ptr, int d,
-              int t, int h, int b, int64_t st, int64_t sh, int64_t sb,
-              int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(b)};
-  int64_t s[3] = {st, sh, sb};
-  int64_t prev_stride = 1, prev_size = d;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1) s[i] = prev_stride * prev_size;
-    prev_stride = s[i];
-    prev_size = static_cast<int64_t>(dims[i + 1]);
-  }
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[0]) * 2,
-                                 static_cast<cuuint64_t>(s[1]) * 2,
-                                 static_cast<cuuint64_t>(s[2]) * 2};
-  const cuuint32_t box[4] = {PANEL, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_tiled()(m, ty, 4, const_cast<void*>(ptr), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The fp32 [B, T, S] bias as the tensor [S, T, B] (one batch row when its
-// batch stride is 0: broadcast), boxes of 32 keys by `rows` rows.
-bool map_bias(CUtensorMap* m, const Params& p, int rows) {
-  const cuuint64_t nb = p.sb_b != 0 ? static_cast<cuuint64_t>(p.B) : 1;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.tk),
-                              static_cast<cuuint64_t>(p.tq), nb};
-  const int64_t sb = nb == 1 ? p.sb_t * p.tq : p.sb_b;
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.sb_t) * 4,
-                                 static_cast<cuuint64_t>(sb) * 4};
-  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                        const_cast<float*>(p.bias), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A tile whose stages (with the bias's, when there is one) do not fit a
 // block's shared memory is refused.  `check`: only say whether the launch
 // would be taken.
@@ -768,7 +489,8 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t st, bool check) {
                p.sv_b, BK) &&
       map_bthd(&maps.o, ty, p.out, p.d, p.tq, p.H, p.B, p.so_t, p.so_h,
                p.so_b, 64) &&
-      (p.bias == nullptr || map_bias(&maps.bias, p, L::BQ));
+      (p.bias == nullptr ||
+       map_bias(&maps.bias, p.bias, p.B, p.tq, p.tk, p.sb_b, p.sb_t, L::BQ));
   if (!ok) return cudaErrorInvalidValue;
   auto kernel = flash_fwd_wgmma_kernel<T, D, NC, BK>;
   static const cudaError_t configured = cudaFuncSetAttribute(

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by flash_attention_sm90.cu,
-// quant_sm90.cu and conv_sm90.cu: `mbarrier`s, TMA loads under tensor maps,
-// `wgmma` shared-memory descriptors and the `wgmma.mma_async` forms qmm and
-// the conv kernels issue, and the host's tensor-map encoding with a cache.
+// flash_attention_bwd_sm90.cu, quant_sm90.cu and conv_sm90.cu: `mbarrier`s,
+// TMA loads under tensor maps, `wgmma` shared-memory descriptors and the
+// `wgmma.mma_async` forms qmm and the conv kernels issue, and the host's
+// tensor-map encoding with a cache.
 // Helpers only: no kernel, no entry point.
 //
 // Layouts (CUTLASS's canonical GMMA forms, `cute/atom/mma_traits_sm90_gmma.hpp`):
@@ -306,32 +307,40 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// What a 2-D map encodes: the row-major [rows, cols] tensor at `ptr` with
-// `row_bytes` between rows, read in boxes of box_cols x box_rows.  A map is
-// a function of these alone, so one encoded for a key serves every later
-// call with that key (the same weight, or a buffer at an address seen
-// before), whatever tensor lies there now.
-struct MapKey {
+// What a map of rank <= 4 encodes: the tensor at `ptr` with `dims`
+// (innermost first), byte `strides` between the entries of dims 1 ..
+// rank - 1, read in boxes of `box`, under `swizzle`.  A map is a function
+// of these alone, so one encoded for a key serves every later call with
+// that key (the same weight, or a buffer at an address seen before),
+// whatever tensor lies there now.  Unused entries are 0.
+struct MapKeyNd {
   const void* ptr;
-  uint64_t rows, cols, row_bytes;
-  uint32_t box_cols, box_rows;
-  int type, swizzle;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rows == o.rows && cols == o.cols &&
-           row_bytes == o.row_bytes && box_cols == o.box_cols &&
-           box_rows == o.box_rows && type == o.type && swizzle == o.swizzle;
+  uint64_t dims[4];
+  uint64_t strides[3];
+  uint32_t box[4];
+  int rank, type, swizzle;
+  bool operator==(const MapKeyNd& o) const {
+    if (ptr != o.ptr || rank != o.rank || type != o.type ||
+        swizzle != o.swizzle)
+      return false;
+    for (int i = 0; i < 4; ++i)
+      if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
+    for (int i = 0; i < 3; ++i)
+      if (strides[i] != o.strides[i]) return false;
+    return true;
   }
 };
 
 // The map of `key`, encoded on first use and kept in a small table
-// (an eager call then pays no encode for a weight it has seen); false when
-// cuTensorMapEncodeTiled refuses it (TMA's rules: 16-byte aligned start,
-// row_bytes a multiple of 16).  Thread-safe: the Python threads of one
-// process may launch at once (ctypes drops the GIL).
-inline bool map_2d(CUtensorMap* out, const MapKey& key) {
+// (an eager call then pays no encode for a weight or a view it has seen);
+// false when cuTensorMapEncodeTiled refuses it (TMA's rules: 16-byte
+// aligned start, strides multiples of 16 bytes).  Thread-safe: the
+// Python threads of one process may launch at once (ctypes drops the
+// GIL).
+inline bool map_nd(CUtensorMap* out, const MapKeyNd& key) {
   constexpr int SLOTS = 256;
   static std::mutex lock;
-  static MapKey keys[SLOTS];
+  static MapKeyNd keys[SLOTS];
   static CUtensorMap maps[SLOTS];
   static bool used[SLOTS] = {};
   static int next = 0;
@@ -344,13 +353,11 @@ inline bool map_2d(CUtensorMap* out, const MapKey& key) {
       }
   }
   if (encode_tiled() == nullptr) return false;
-  const cuuint64_t dims[2] = {key.cols, key.rows};
-  const cuuint64_t strides[1] = {key.row_bytes};
-  const cuuint32_t box[2] = {key.box_cols, key.box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUtensorMap m;
-  if (encode_tiled()(&m, static_cast<CUtensorMapDataType>(key.type), 2,
-                     const_cast<void*>(key.ptr), dims, strides, box, elem,
+  if (encode_tiled()(&m, static_cast<CUtensorMapDataType>(key.type),
+                     key.rank, const_cast<void*>(key.ptr), key.dims,
+                     key.strides, key.box, elem,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                      static_cast<CUtensorMapSwizzle>(key.swizzle),
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -363,6 +370,29 @@ inline bool map_2d(CUtensorMap* out, const MapKey& key) {
   next = (next + 1) % SLOTS;
   *out = m;
   return true;
+}
+
+// A 2-D map: the row-major [rows, cols] tensor at `ptr` with `row_bytes`
+// between rows, read in boxes of box_cols x box_rows.
+struct MapKey {
+  const void* ptr;
+  uint64_t rows, cols, row_bytes;
+  uint32_t box_cols, box_rows;
+  int type, swizzle;
+};
+
+inline bool map_2d(CUtensorMap* out, const MapKey& k) {
+  MapKeyNd key{};
+  key.ptr = k.ptr;
+  key.rank = 2;
+  key.type = k.type;
+  key.swizzle = k.swizzle;
+  key.dims[0] = k.cols;
+  key.dims[1] = k.rows;
+  key.strides[0] = k.row_bytes;
+  key.box[0] = k.box_cols;
+  key.box[1] = k.box_rows;
+  return map_nd(out, key);
 }
 
 }  // namespace sm90

@@ -20,10 +20,13 @@ widths 33-128 on ``wgmma`` and TMA) and ``csrc/flash_attention.cu`` (the
 forward's other routes: ``mma.sync`` tensor cores for bf16/fp16 at
 widths up to 32 or views TMA cannot read, a full-fp32 SIMT kernel for
 fp32 and widths above 128, split-KV with a combine for ``q_len < 16`` —
-the TPU's block sizes and measured crossovers do not carry over) and ``csrc/flash_attention_bwd.cu`` (dQ,
-dK/dV and, when a ``[B, T, S]`` bias needs a gradient, its head-summed
-gradient), or raise.  The kernels take fp32, bf16 and fp16 and any head
-width, as the JAX package does: up to 256 in the next of 16, 32, 64,
+the TPU's block sizes and measured crossovers do not carry over),
+``csrc/flash_attention_bwd_sm90.cu`` (dQ and dK/dV of bf16/fp16 at widths
+33-128 on ``wgmma`` and TMA) and ``csrc/flash_attention_bwd.cu`` (dQ and
+dK/dV's other routes, ``mma.sync`` and SIMT, and, when a ``[B, T, S]``
+bias needs a gradient, its head-summed gradient), or raise.  The
+kernels take fp32, bf16 and fp16 and any head width, as the JAX package
+does: up to 256 in the next of 16, 32, 64,
 128, 256 (nothing padded is copied to device memory), a wider head in
 the 256 kernels taken in 256-wide column slices; bf16 and fp16 up to 128
 run the forward, dQ and dK/dV on the tensor cores, fp32 and the widths
@@ -44,6 +47,10 @@ bases, strides multiples of 16 bytes, the width a multiple of 8) at
 widths 33-128, and ``mma`` (``mma.sync``) otherwise, widths 16 and 32
 included.  A view TMA cannot read is routed to ``mma`` by that rule, never
 by a failed launch; a ``wgmma`` tile asked for on such a view raises.
+dQ and dK/dV follow the same rule (:func:`_bwd_route`, counted in
+``flash_bwd_dq_kernel.routes`` and ``flash_bwd_dkv_kernel.routes``):
+``simt`` for fp32 and widths above 128, ``wgmma`` at widths 33-128 where
+q, k, v, do, the outputs and the bias meet TMA's rules, else ``mma``.
 
 The tile.  ``flash_attention(block_q=, block_k=)`` (JAX's names) sets the
 forward's tile, and the tile names the kernel: the ``wgmma`` kernel's
@@ -55,7 +62,7 @@ is :func:`rule_tile`.  On the split-KV decode path ``block_k`` is the
 chunk of keys a block reads (a multiple of 32, as many as its shared
 memory holds; ``block_q`` has no meaning there).
 The fp32 and wide-head SIMT kernels and the backward kernels keep their
-rule's tile.  Left at None, a CUDA call consults the tuner's cache for
+rule's tiles.  Left at None, a CUDA call consults the tuner's cache for
 this shape's bucket (:func:`tune_bucket`, the JAX package's string,
 :data:`TUNE_VERSION`).  Another tile reorders the online softmax's sums,
 so its outputs agree with the rule's to a tolerance, not bit for bit.
@@ -383,6 +390,16 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_wgmma_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd_sm90")
+    for fn in (lib.flash_attention_bwd_dq_wgmma,
+               lib.flash_attention_bwd_dkv_wgmma):
+        fn.argtypes = [ctypes.POINTER(_FlashBwdParams), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _check_kernel_inputs(q, k, v, kbias, bias, *extra):
     """Validate what every flash kernel takes and bring the biases to
     the fp32 layouts the kernels read; returns ``(kbias, bias)``."""
@@ -487,6 +504,21 @@ def _route(tq: int, d: int, dtype: torch.dtype, tile, tma: bool) -> str:
         return "simt"
     if tile is not None:
         return "wgmma" if _is_wgmma(tile) else "mma"
+    return "wgmma" if dk in _TUNED_DIMS and tma else "mma"
+
+
+def _bwd_route(d: int, dtype: torch.dtype, tma: bool) -> str:
+    """The kernel a dQ or dK/dV call runs (the key of
+    ``flash_bwd_dq_kernel.routes`` and ``flash_bwd_dkv_kernel.routes`` it
+    counts in): ``simt`` for fp32 and widths above 128, ``wgmma``
+    (``csrc/flash_attention_bwd_sm90.cu``) at widths 64 and 128 (heads
+    33-128 wide) where every view meets TMA's rules (``tma``,
+    :func:`_tma_ok` of q, k, v, do, the outputs and the bias), else
+    ``mma`` (``mma.sync``): widths 16 and 32, and views TMA cannot
+    read."""
+    dk = _kernel_dim(d)
+    if dtype == torch.float32 or dk > 128:
+        return "simt"
     return "wgmma" if dk in _TUNED_DIMS and tma else "mma"
 
 
@@ -614,7 +646,7 @@ flash_fwd_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0, "split": 0}
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
-                dv, dkbias, kw, dbias=None):
+                dv, dkbias, kw, dbias=None, route: Optional[str] = None):
     prm = _FlashBwdParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), dout=do.data_ptr(),
         lse=lse.data_ptr(), delta=delta.data_ptr(),
@@ -627,13 +659,33 @@ def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
                    dk=k if dk is None else dk, dv=v if dv is None else dv),
         **_common(q, k, kbias, bias, **kw))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "wgmma":
+        name, lib = f"flash_attention_bwd_{which}_wgmma", _bwd_wgmma_lib()
+    else:
+        name, lib = f"flash_attention_bwd_{which}", _bwd_lib()
     with torch.cuda.device(q.device):
-        err = getattr(_bwd_lib(), f"flash_attention_bwd_{which}")(
-            ctypes.byref(prm), _kernel_dim(q.shape[3]),
-            _build.dtype_code(q.dtype), stream)
+        err = getattr(lib, name)(ctypes.byref(prm), _kernel_dim(q.shape[3]),
+                                 _build.dtype_code(q.dtype), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_{which} launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _pick_bwd_route(route: Optional[str], q, k, v, do, bias, *outs) -> str:
+    """The route of a dQ or dK/dV call: the rule's (:func:`_bwd_route`,
+    TMA's rule asked only of a call the ``wgmma`` kernels could serve), or
+    ``route`` where the call can take it: the rule's own, or ``mma`` where
+    the rule is ``wgmma`` (the comparisons of the card's tests and
+    ``chip_smoke.py``); any other raises ``ValueError``."""
+    d = q.shape[3]
+    tma = (q.dtype != torch.float32 and _kernel_dim(d) in _TUNED_DIMS
+           and _tma_ok(d, q, k, v, do, *outs, bias=bias))
+    rule = _bwd_route(d, q.dtype, tma)
+    if route is None or route == rule:
+        return rule
+    if route == "mma" and rule == "wgmma":
+        return route
+    raise ValueError(f"flash backward route {route!r} cannot serve this "
+                     f"call (its rule is {rule!r})")
 
 
 def _check_bwd_extras(q, do, lse, delta):
@@ -649,37 +701,49 @@ def _check_bwd_extras(q, do, lse, delta):
 
 def flash_bwd_dq_kernel(q, k, v, do, lse, delta, kbias, bias, *,
                         sm_scale: float, causal: bool, q_offset: int = 0,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        route: Optional[str] = None) -> torch.Tensor:
     """Launch the CUDA dQ kernel: the forward's arguments plus the output
     gradient ``do`` (q's shape and dtype), the forward's fp32 ``lse`` and
     ``delta = rowsum(do * out)`` (both ``[B, H, T]`` contiguous); returns
-    dq in q's shape and dtype.  bf16/fp16 up to width 128 run on the
-    tensor cores, fp32 and wider heads in fp32 FMA loops (dK/dV likewise).
-    Adds one to ``flash_bwd_dq_kernel.launches`` per launch."""
+    dq in q's shape and dtype.  One kernel a call (:func:`_bwd_route`,
+    dK/dV likewise): bf16/fp16 at widths 33-128 on ``wgmma`` where TMA
+    can read the views, else on ``mma.sync`` up to width 128; fp32 and
+    wider heads in fp32 FMA loops.  ``route`` runs the kernel it names
+    where the call can take it (None: the rule's; :func:`_pick_bwd_route`).
+    Adds one to ``flash_bwd_dq_kernel.launches`` and to
+    ``flash_bwd_dq_kernel.routes[route]`` per launch."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
     _check_bwd_extras(q, do, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    route = _pick_bwd_route(route, q, k, v, do, bias, dq)
     _launch_bwd("dq", q, k, v, do, lse, delta, kbias, bias, dq, None, None,
                 None, dict(sm_scale=sm_scale, causal=causal,
-                           q_offset=q_offset, window=window))
+                           q_offset=q_offset, window=window), route=route)
     flash_bwd_dq_kernel.launches += 1
+    flash_bwd_dq_kernel.routes[route] += 1
     return dq
 
 
 _build.counted(flash_bwd_dq_kernel)
+#: dQ's launches by the kernel that served them (:func:`_bwd_route`),
+#: counted as ``launches`` is (a captured graph's replays included)
+flash_bwd_dq_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0}
 
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kbias, bias, *,
                          sm_scale: float, causal: bool, q_offset: int = 0,
                          window: Optional[int] = None,
-                         kbias_grad: bool = False):
-    """Launch the CUDA dK/dV kernel (arguments as
+                         kbias_grad: bool = False,
+                         route: Optional[str] = None):
+    """Launch the CUDA dK/dV kernel (arguments and route as
     :func:`flash_bwd_dq_kernel`); returns ``(dk, dv, dkbias_part)``: dk
     and dv in k's shape and dtype (query heads of one KV head summed), and
     with ``kbias_grad`` the fp32 ``[B, H, S]`` column sums of ``ds`` (the
     key-padding-bias gradient before the head sum and the division by
     ``sm_scale``), else None.  Adds one to
-    ``flash_bwd_dkv_kernel.launches`` per launch."""
+    ``flash_bwd_dkv_kernel.launches`` and to
+    ``flash_bwd_dkv_kernel.routes[route]`` per launch."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias, ("do", do))
     _check_bwd_extras(q, do, lse, delta)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -688,14 +752,18 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kbias, bias, *,
     if kbias_grad:
         part = torch.empty((q.shape[0], q.shape[2], k.shape[1]),
                            dtype=torch.float32, device=q.device)
+    route = _pick_bwd_route(route, q, k, v, do, bias, dk, dv)
     _launch_bwd("dkv", q, k, v, do, lse, delta, kbias, bias, None, dk, dv,
                 part, dict(sm_scale=sm_scale, causal=causal,
-                           q_offset=q_offset, window=window))
+                           q_offset=q_offset, window=window), route=route)
     flash_bwd_dkv_kernel.launches += 1
+    flash_bwd_dkv_kernel.routes[route] += 1
     return dk, dv, part
 
 
 _build.counted(flash_bwd_dkv_kernel)
+#: dK/dV's launches by route, as ``flash_bwd_dq_kernel.routes``
+flash_bwd_dkv_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0}
 
 
 def flash_bwd_db2_kernel(q, k, v, do, lse, delta, kbias, bias, *,

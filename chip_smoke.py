@@ -29,13 +29,15 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the seven CUDA libraries (the flash forward's wgmma kernel;
-   its other routes; flash dQ, dK/dV and the bias gradient; the conv
-   kernels' wgmma routes (forward, dgrad, wgrad); their other routes; the
-   int8 quantized matmul's wgmma kernel; its decode and
-   ``mma.sync`` routes: one ``nvcc`` each) and compile the Triton kernels (LayerNorm, BN epilogue and
-   cross-entropy, forward and backward, one after another), all
-   concurrently, time each and print ``ptxas``'s registers and spills;
+2. build the eight CUDA libraries (the flash forward's wgmma kernel;
+   its other routes; flash dQ and dK/dV's wgmma kernels; their other
+   routes and the bias gradient; the conv kernels' wgmma routes
+   (forward, dgrad, wgrad); their other routes; the int8 quantized
+   matmul's wgmma kernel; its decode and ``mma.sync`` routes: one
+   ``nvcc`` each) and compile the Triton kernels
+   (LayerNorm, BN epilogue and cross-entropy, forward and backward, one
+   after another), all concurrently, time each and print ``ptxas``'s
+   registers and spills;
 3. LayerNorm kernel vs plain at ``[1024, 768]``, ``[8, 768]``, the LM
    step's ``[8184, 768]`` and the BERT step's ``[2048, 768]``, bf16 and
    fp32, and rows of mean 100 (the kernel's single-pass variance
@@ -53,7 +55,8 @@ line):
    causal and bias cases; with ``--was`` the other checkout's forward
    is timed beside each case; 4b. with ``--was``, the flash
    kernels of this checkout and the other one at widths up to 256 on the
-   same inputs, compared bit for bit (printed, not a gate).
+   same inputs, compared bit for bit, forward and backward apart
+   (printed, not a gate).
    ``library_ms`` times one
    PyTorch call computing the same function (``F.layer_norm``,
    ``F.scaled_dot_product_attention``) as a yardstick only; the port
@@ -90,9 +93,16 @@ line):
    48, 128 and 256, 320 and 512 (B 1, T 1024), a ``[B, T, S]`` bias, and
    causal cross attention (q_len
    333, kv_len 1021: the queries the suffix of the keys), and the BERT
-   step's B 16, T 128 with every key visible; ``library_ms``
-   is the backward of one SDPA call, timed eagerly (its autograd graph
-   is recorded once, outside any capture, and walked again each call);
+   step's B 16, T 128 with every key visible; each case names the route
+   that served it (``flash_bwd_dq_kernel.routes``,
+   ``flash_bwd_dkv_kernel.routes``), and where that is the wgmma
+   kernels the ``mma.sync`` kernels run on the same inputs, held to the
+   plain version too and timed beside them (slower at the width-64 bf16
+   and fp16 causal cases and width 128); with
+   ``--was`` the other checkout's kernels are timed beside each case;
+   ``library_ms`` is the backward of one SDPA call (``torch.autograd.
+   grad`` on a retained graph), captured in a CUDA graph of 5 calls as
+   the kernels are, its eager time beside it;
 9. training: the LM trainer (``apex_tpu_torch.examples.lm.main_amp``)
    on GPT-2 small, bf16 O2, Adam lr 3e-4, weight decay 0.1, static loss
    scale 1.0, the fused loss, B 8, seq_len 1024, 10 steps replayed from
@@ -100,7 +110,9 @@ line):
    set to 0 just before and read just after (25 LN forward and backward,
    12 flash forward, dQ and dK/dV, 1 cross-entropy forward and backward
    per step of the warm run and of the ten replays, nothing else; one
-   capture, ten replays); losses finite and falling; step ms, tokens/s,
+   capture, ten replays; every dQ and dK/dV launch on the wgmma route,
+   counted as the launches are: ``bwd_route_gate``, also in phases 20,
+   21, 22, 36 (c) and 37); losses finite and falling; step ms, tokens/s,
    peak memory; then two eager steps traced with ``torch.profiler``
    (device time by kind, idle share);
 10. training correctness: gpt_tiny O0 fp32 three steps on the card and
@@ -221,7 +233,9 @@ line):
    for the step ms and peak memory before that change; every flash
    forward of the LM runs (eager, K 1, K 8, O2 and O4) on the wgmma
    route, every qmm of the O4 runs on wgmma, and every ResNet-50 conv
-   forward and wgrad but the stem's and every dgrad on wgmma;
+   forward and wgrad but the stem's and every dgrad on wgmma; with
+   ``--was`` the O2 and O4 eager steps beside the other checkout's on the
+   same model and batch, in the order was, this, this, was;
 21. BERT-base training: the JAX package's BERT step (``bench.py``:
    ``bert_base(dtype=bf16, num_classes=None, attention_impl="flash")``,
    B 16, T 128, the tied fp32 head, cross-entropy with smoothing 0.1,
@@ -527,19 +541,21 @@ def check(ok: bool, what: str) -> None:
         FAILURES.append(what)
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, stream=None) -> float:
     """Device milliseconds per call: ``iters`` calls captured in one CUDA
     graph and replayed between two CUDA events, so the host's launch cost
     is left out (inputs stay warm in L2 where they fit its 50 MB, as they
-    do when the previous layer has just written them)."""
+    do when the previous layer has just written them).  ``stream``: the
+    capture stream, for an autograd backward whose forward ran there (its
+    kernels are launched on the forward's stream)."""
     fn()
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -713,6 +729,32 @@ def zero_wrapper_routes(*wrappers):
     for w in wrappers:
         for r in w.routes:
             w.routes[r] = 0
+
+
+def zero_bwd_routes(fa):
+    """The flash backward's route counts (dQ and dK/dV) set to 0."""
+    zero_wrapper_routes(fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel)
+
+
+def bwd_route_gate(name, routes, launches):
+    """Since :func:`zero_bwd_routes`: every dQ and dK/dV launch of a
+    training path (all bf16 at width 64) served by the wgmma kernels of
+    ``flash_attention_bwd_sm90.cu``, none by mma.sync or SIMT, each
+    kernel's routes (``routes["dq"]``, ``routes["dkv"]``) summing to its
+    launches (``launches``, the same keys; captured replays included)."""
+    for key in ("dq", "dkv"):
+        got = dict(routes[key])
+        check(got["wgmma"] > 0 and got["mma"] == 0 and got["simt"] == 0
+              and sum(got.values()) == launches[key],
+              f"{name}: flash backward {key} routes {got}: every training "
+              f"{key} on wgmma, {launches[key]} launches")
+    return {k: dict(routes[k]) for k in ("dq", "dkv")}
+
+
+def bwd_routes(fa):
+    """The flash backward's route counts now, by kernel."""
+    return {"dq": dict(fa.flash_bwd_dq_kernel.routes),
+            "dkv": dict(fa.flash_bwd_dkv_kernel.routes)}
 
 
 def launched_route(wrapper, fn):
@@ -889,8 +931,9 @@ def flash_same_as_was(fa, was_fa, dev):
     """Phase 4b, with ``--was``: the flash kernels of this checkout and of
     the other one on the same inputs at head widths up to 256, every path
     (tensor cores, SIMT, split-KV decode; the forward, dQ, dK/dV and db2),
-    fp32 and bf16, compared bit for bit.  Recorded and printed, not a
-    gate: a kernel redesigned since that checkout may round otherwise."""
+    fp32 and bf16, compared bit for bit, the forward's outputs apart from
+    the backward's.  Recorded and printed, not a gate: a kernel
+    redesigned since that checkout may round otherwise."""
     rng = np.random.RandomState(4)
     rows = []
     for d in (16, 48, 64, 128, 160, 256):
@@ -903,11 +946,12 @@ def flash_same_as_was(fa, was_fa, dev):
                 bias = torch.from_numpy(rng.randn(2, tq, 300).astype(
                     np.float32)).to(dev)
                 kw = dict(sm_scale=d ** -0.5, causal=True, q_offset=300 - tq)
-                outs = []
+                fwds, bwds = [], []
                 for mod in (fa, was_fa):
                     out, lse = mod.flash_fwd_kernel(q, k, v, None, None,
                                                     **kw)
-                    got = [out, lse]
+                    fwds.append([out, lse])
+                    got = []
                     if tq > 1:
                         delta = fa._delta(do, out)
                         args = (q, k, v, do, lse, delta, None)
@@ -915,16 +959,21 @@ def flash_same_as_was(fa, was_fa, dev):
                                 *mod.flash_bwd_dkv_kernel(*args, None,
                                                           **kw)[:2],
                                 mod.flash_bwd_db2_kernel(*args, bias, **kw)]
-                    outs.append(got)
+                    bwds.append(got)
                 torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(*outs))
-                rows.append(dict(head_dim=d, dtype=str(dtype), q_len=tq,
-                                 bit_equal=same))
-    print(f"      flash kernels at widths <= 256 equal the other "
-          f"checkout's bit for bit: {sum(r['bit_equal'] for r in rows)} of "
-          f"{len(rows)} cases"
-          + "".join(f"; differ: {r}" for r in rows if not r["bit_equal"]),
-          flush=True)
+                rows.append(dict(
+                    head_dim=d, dtype=str(dtype), q_len=tq,
+                    fwd_bit_equal=all(torch.equal(a, b)
+                                      for a, b in zip(*fwds)),
+                    bwd_bit_equal=all(torch.equal(a, b)
+                                      for a, b in zip(*bwds))))
+    for part in ("fwd", "bwd"):
+        key = f"{part}_bit_equal"
+        print(f"      flash {part} kernels at widths <= 256 equal the other "
+              f"checkout's bit for bit: {sum(r[key] for r in rows)} of "
+              f"{len(rows)} cases"
+              + "".join(f"; differ: {r}" for r in rows if not r[key]),
+              flush=True)
     return rows
 
 
@@ -976,13 +1025,24 @@ def layer_norm_bwd_cases(fln, dev):
 
 # -- phase 8: flash backward ------------------------------------------------------
 
-def flash_bwd_cases(fa, dev):
+#: phase 8's width-64 bf16/fp16 cases, where the wgmma route must beat the
+#: mma.sync kernel on the same inputs
+FLASH_BWD_MUST_BEAT_MMA = ("causal b8 t1023", "gqa 12/4", "window 256",
+                           "fp16 causal", "head_dim 128 causal")
+
+
+def flash_bwd_cases(fa, dev, was_fa=None):
     """dQ and dK/dV against their plain version at gpt2_small training
     shapes (B 8, T 1023, 12 heads of 64; a case's shape may give its own
-    batch).  ``plain_ms`` and
-    ``library_ms`` are each one call computing dq, dk and dv together
-    (``_flash_bwd_ref``; the backward of one SDPA call), so both kernels
-    carry the same two numbers."""
+    batch), each on the route the rule picks (printed).  Where that is
+    wgmma, the mma.sync kernels on the same inputs are held to the plain
+    version too and timed beside it (slower at
+    ``FLASH_BWD_MUST_BEAT_MMA``); with ``was_fa`` the other checkout's
+    kernels are timed too.  ``plain_ms`` and ``library_ms`` are
+    each one call computing dq, dk and dv together (``_flash_bwd_ref``;
+    the backward of one SDPA call, ``torch.autograd.grad`` on a retained
+    graph captured in a CUDA graph as the kernels are, its eager time
+    beside it), so both kernels carry the same two numbers."""
     rng = np.random.RandomState(8)
     t, h = 1023, 12
     bf16 = torch.bfloat16
@@ -1037,32 +1097,51 @@ def flash_bwd_cases(fa, dev):
                   window=window)
         out, lse = fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)
         delta = fa._delta(do, out)
+        args = (q, k, v, do, lse, delta, kb, bias)
 
         def run_dq():
-            return fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, bias,
-                                          **kw)
+            return fa.flash_bwd_dq_kernel(*args, **kw)
 
         def run_dkv():
-            return fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, bias,
-                                           kbias_grad=kgrad, **kw)
+            return fa.flash_bwd_dkv_kernel(*args, kbias_grad=kgrad, **kw)
 
         def run_plain():
             return fa._flash_bwd_ref(q, k, v, kb, bias, out, lse, do, **kw)
 
-        dq = run_dq()
-        dk, dv, part = run_dkv()
+        def errors(dq, dk, dv, part, want):
+            errs = dict(dq=max_err(dq, want[0]), dk=max_err(dk, want[1]),
+                        dv=max_err(dv, want[2]))
+            if kgrad:
+                errs["dkbias"] = max_err(part.sum(1) / kw["sm_scale"],
+                                         want[3])
+            return errs
+
+        dq, route = launched_route(fa.flash_bwd_dq_kernel, run_dq)
+        (dk, dv, part), dkv_route = launched_route(fa.flash_bwd_dkv_kernel,
+                                                   run_dkv)
         want = run_plain()
         torch.cuda.synchronize()
         tol = 1e-4 if dtype == torch.float32 else 3e-2
-        errs = dict(dq=max_err(dq, want[0]), dk=max_err(dk, want[1]),
-                    dv=max_err(dv, want[2]))
-        if kgrad:
-            errs["dkbias"] = max_err(part.sum(1) / kw["sm_scale"], want[3])
-        check(all(e <= tol for e in errs.values()),
-              f"flash bwd {name}: max_abs_err "
+        errs = errors(dq, dk, dv, part, want)
+        check(all(e <= tol for e in errs.values()) and route == dkv_route,
+              f"flash bwd {name} ({route}): max_abs_err "
               + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
               + f" <= {tol} (max |dq| {dq.float().abs().max().item():.3g},"
-              f" |dk| {dk.float().abs().max().item():.3g})")
+              f" |dk| {dk.float().abs().max().item():.3g}, |dv| "
+              f"{dv.float().abs().max().item():.3g})")
+        mma_errs = None
+        if route == "wgmma":
+            # the mma.sync kernels on the same inputs
+            mdq = fa.flash_bwd_dq_kernel(*args, route="mma", **kw)
+            mdk, mdv, mpart = fa.flash_bwd_dkv_kernel(
+                *args, kbias_grad=kgrad, route="mma", **kw)
+            torch.cuda.synchronize()
+            mma_errs = errors(mdq, mdk, mdv, mpart, want)
+            check(all(e <= tol for e in mma_errs.values()),
+                  f"flash bwd {name} (mma, the same inputs): max_abs_err "
+                  + ", ".join(f"{k_} {e:.3g}" for k_, e in mma_errs.items())
+                  + f" <= {tol}")
+            del mdq, mdk, mdv, mpart
         del want
         masks = dict(causal=causal, q_offset=q_offset, window=window)
         dq_cost = costs().flash_bwd_dq(q, k, v, kb, bias, **masks)
@@ -1081,30 +1160,69 @@ def flash_bwd_cases(fa, dev):
             lib = dict(attn_mask=kb[:, None, None, :].to(dtype))
         if bias is not None:
             lib = dict(attn_mask=bias[:, None].to(dtype))
-        lout = F.scaled_dot_product_attention(qt, kt, vt, scale=d ** -0.5,
-                                              **lib)
+        # the forward on the stream its backward is captured on (autograd
+        # runs a backward op on its forward's stream)
+        lib_stream = torch.cuda.Stream()
+        lib_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(lib_stream):
+            lout = F.scaled_dot_product_attention(qt, kt, vt,
+                                                  scale=d ** -0.5, **lib)
+        torch.cuda.current_stream().wait_stream(lib_stream)
         dot = do.transpose(1, 2)
-        # (one autograd graph recorded outside any capture and walked
-        # again each call: timed eagerly; its host cost is small beside
-        # milliseconds of work)
-        library_ms = eager_ms(lambda: torch.autograd.grad(
-            lout, (qt, kt, vt), dot, retain_graph=True), iters=5)
-        for cases, fn, cost, keys in (
-                (dq_cases, run_dq, dq_cost, ("dq",)),
-                (dkv_cases, run_dkv, dkv_cost, ("dk", "dv", "dkbias"))):
+
+        def run_library():
+            return torch.autograd.grad(lout, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        # timed as the kernels are (its backward kernels captured in a
+        # graph of 5 calls), and eagerly, host cost included
+        library_eager_ms = eager_ms(run_library, iters=5)
+        library_ms = time_ms(run_library, iters=5, stream=lib_stream)
+        for cases, fn, mma_fn, was_fn, cost, keys, rt in (
+                (dq_cases, run_dq,
+                 lambda: fa.flash_bwd_dq_kernel(*args, route="mma", **kw),
+                 was_fa and (lambda: was_fa.flash_bwd_dq_kernel(*args,
+                                                                **kw)),
+                 dq_cost, ("dq",), route),
+                (dkv_cases, run_dkv,
+                 lambda: fa.flash_bwd_dkv_kernel(*args, kbias_grad=kgrad,
+                                                 route="mma", **kw),
+                 was_fa and (lambda: was_fa.flash_bwd_dkv_kernel(
+                     *args, kbias_grad=kgrad, **kw)),
+                 dkv_cost, ("dk", "dv", "dkbias"), dkv_route)):
             bms, by = bound(cost)
-            case = dict(case=name, max_abs_err=max(
+            case = dict(case=name, route=rt, max_abs_err=max(
                             e for k_, e in errs.items() if k_ in keys),
                         ms=time_ms(fn, iters=5),
                         eager_ms=eager_ms(fn, iters=5),
                         plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bms, bound_by=by)
+                        library_eager_ms=library_eager_ms,
+                        bound_ms=bms, bound_by=by, mma_ms=None,
+                        mma_eager_ms=None, was_ms=None,
+                        was_eager_ms=None)
+            line = ""
+            if rt == "wgmma":
+                case["mma_max_abs_err"] = max(
+                    e for k_, e in mma_errs.items() if k_ in keys)
+                case["mma_ms"] = time_ms(mma_fn, iters=5)
+                case["mma_eager_ms"] = eager_ms(mma_fn, iters=5)
+                line += (f", mma.sync {case['mma_ms']:.4f} ms (eager "
+                         f"{case['mma_eager_ms']:.4f})")
+                if name in FLASH_BWD_MUST_BEAT_MMA:
+                    check(case["ms"] < case["mma_ms"],
+                          f"flash bwd {fn.__name__[4:]} {name}: wgmma "
+                          f"{case['ms']:.4f} ms < mma.sync "
+                          f"{case['mma_ms']:.4f} ms")
+            if was_fn:
+                case["was_ms"] = time_ms(was_fn, iters=5)
+                case["was_eager_ms"] = eager_ms(was_fn, iters=5)
+                line += (f", was {case['was_ms']:.4f} ms (eager "
+                         f"{case['was_eager_ms']:.4f})")
             cases.append(case)
-            print(f"      flash bwd {fn.__name__[4:]} {name}: kernel "
+            print(f"      flash bwd {fn.__name__[4:]} {name} ({rt}): kernel "
                   f"{case['ms']:.4f} ms (eager {case['eager_ms']:.4f}), "
                   f"plain (dq+dk+dv) {plain_ms:.4f} ms, library (dq+dk+dv) "
-                  f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})",
-                  flush=True)
+                  f"{library_ms:.4f} ms (eager {library_eager_ms:.4f}), "
+                  f"bound {bms:.4f} ms ({by}){line}", flush=True)
         del lout, qt, kt, vt
     return dq_cases, dkv_cases
 
@@ -1453,12 +1571,18 @@ def train_gpt2_small(main_amp, counters, steps=10):
     """The LM trainer's entry point at GPT-2 small, bf16 O2, Adam: every
     launch counter set to 0 just before and read just after."""
     args = main_amp.parse(TRAIN_ARGS + ["--steps", str(steps)])
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+    zero_bwd_routes(fa)
     res = main_amp.train(args, log=lambda line: print("      " + line,
                                                       flush=True))
     launches = {name: c.launches for name, c in counters.items()}
+    flash_bwd_routes = bwd_route_gate(
+        "gpt2_small training", bwd_routes(fa),
+        {"dq": launches["flash_attention_bwd_dq"],
+         "dkv": launches["flash_attention_bwd_dkv"]})
     ran = pipeline_gate("gpt2_small training", res["pipeline"], steps)
     per_step = LM_PER_STEP
     check(all(launches[n] == per_step.get(n, 0) * ran
@@ -1475,7 +1599,7 @@ def train_gpt2_small(main_amp, counters, steps=10):
                step_ms_median_3_10=step_ms,
                tokens_per_s=res["tokens_per_step"] / step_ms * 1e3,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               launches=launches)
+               launches=launches, flash_bwd_routes=flash_bwd_routes)
     print(f"      gpt2_small O2 B8 T1023: step {step_ms:.2f} ms (median of "
           f"steps 3-{steps}), {out['tokens_per_s']:.0f} tok/s, peak memory "
           f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB", flush=True)
@@ -3122,7 +3246,10 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
     qk = importlib.import_module("apex_tpu_torch.quant.kernels")
     cv = importlib.import_module("apex_tpu_torch.ops.conv")
     launched = fa.flash_fwd_kernel.launches
+    bwd_launched = {"dq": fa.flash_bwd_dq_kernel.launches,
+                    "dkv": fa.flash_bwd_dkv_kernel.launches}
     zero_routes(fa)
+    zero_bwd_routes(fa)
     lm = capture_vs_eager(
         "gpt2_small O2 B8 T1023",
         lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
@@ -3141,6 +3268,10 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
     lm["flash_routes"] = route_gate(
         fa, "gpt2_small O2 and O4 B8 T1023, eager and K 1 / K 8",
         fa.flash_fwd_kernel.launches - launched)
+    lm["flash_bwd_routes"] = bwd_route_gate(
+        "gpt2_small O2 and O4 B8 T1023, eager and K 1 / K 8", bwd_routes(fa),
+        {"dq": fa.flash_bwd_dq_kernel.launches - bwd_launched["dq"],
+         "dkv": fa.flash_bwd_dkv_kernel.launches - bwd_launched["dkv"]})
     conv_kernels = {"conv_fwd": cv.conv_fwd_kernel,
                     "conv_dgrad": cv.conv_dgrad_kernel,
                     "conv_wgrad": cv.conv_wgrad_kernel}
@@ -3157,6 +3288,25 @@ def training_windows(main_amp, imagenet, build_o4, steps=16):
         {k: w.routes for k, w in conv_kernels.items()},
         {k: w.launches - conv_launched[k] for k, w in conv_kernels.items()})
     return dict(lm_o2=lm, lm_o4=o4, resnet50_o2=resnet)
+
+
+def eager_vs_was(builds, steps=16):
+    """Phase 20 with ``--was``: each eager step (:func:`eager_steps`)
+    beside the other checkout's on the same model, batch and step, in
+    one process, run in the order was, this, this, was; ``builds`` maps a
+    name to its ``(this, was)`` builds.  Returns each run's ms a step."""
+    out = {}
+    for name, (this, was) in builds.items():
+        runs = []
+        for which, build in (("was", was), ("this", this), ("this", this),
+                             ("was", was)):
+            runs.append((which, eager_steps(build, steps)[1]))
+            torch.cuda.empty_cache()
+        out[name] = {w: [ms for w_, ms in runs if w_ == w]
+                     for w in ("this", "was")}
+        print(f"      {name} eager step ms (was, this, this, was): "
+              + ", ".join(f"{ms:.2f}" for _, ms in runs), flush=True)
+    return out
 
 
 # -- phase 21: BERT-base at O2 with Adam and LAMB ------------------------------------
@@ -3229,10 +3379,14 @@ def bert_windows(build, training, counters, steps=16):
             for c in counters.values():
                 c.launches = 0
             zero_routes(fa)
+            zero_bwd_routes(fa)
             res = window_loop(state, step, batch, k, n)
             got = {c: w.launches for c, w in counters.items()}
             route_gate(fa, f"bert_base {name} K {k}",
                        got["flash_attention_fwd"])
+            bwd_route_gate(f"bert_base {name} K {k}", bwd_routes(fa),
+                           {"dq": got["flash_attention_bwd_dq"],
+                            "dkv": got["flash_attention_bwd_dkv"]})
             ran = pipeline_gate(f"bert_base {name} K {k}", res["pipeline"],
                                 n, k)
             check(all(got[c] == BERT_PER_STEP.get(c, 0) * ran for c in got),
@@ -3457,8 +3611,10 @@ def _imperative_bert_run(name, make_opt, bert_build, models, amp, xent,
     gc.collect()                   # an earlier run's cycles held off the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     for c in counters.values():
         c.launches = 0
+    zero_bwd_routes(fa)
     inf = torch.full_like(one, float("inf"))
     skipped_ok = False
     t0 = None
@@ -3492,6 +3648,9 @@ def _imperative_bert_run(name, make_opt, bert_build, models, amp, xent,
     check(got == {c: BERT_PER_STEP.get(c, 0) * steps for c in counters},
           f"imperative bert_base {name}: launches {got} = {BERT_PER_STEP} "
           f"x {steps} steps")
+    bwd_route_gate(f"imperative bert_base {name}", bwd_routes(fa),
+                   {"dq": got["flash_attention_bwd_dq"],
+                    "dkv": got["flash_attention_bwd_dkv"]})
     check(skipped_ok, f"imperative bert_base {name}: the inf step {bad_step} "
           f"left every master bit-identical and halved its scaler")
     res = dict(step_ms=step_ms, launches=got,
@@ -6403,6 +6562,7 @@ def ring_kernel_offsets(fa, dev):
         k, v = (torch.randn(8, t, 12, 64, generator=g).to(dev, dtype)
                 for _ in range(2))
         zero_routes(fa)
+        zero_bwd_routes(fa)
         for causal in (True, False):
             for off in (-t, 0, t, 37 - t):
                 kw = dict(sm_scale=64 ** -0.5, causal=causal, q_offset=off)
@@ -6473,6 +6633,12 @@ def ring_kernel_offsets(fa, dev):
         check(routes[want] > 0 and sum(routes.values()) == routes[want],
               f"ring offsets {str(dtype)[6:]} q_len {tq}: forward routes "
               f"{routes}, all {want}")
+        # and of every dQ and dK/dV: bf16 on wgmma, fp32 on SIMT
+        want = "simt" if dtype == torch.float32 else "wgmma"
+        for key, got in bwd_routes(fa).items():
+            check(got[want] > 0 and sum(got.values()) == got[want],
+                  f"ring offsets {str(dtype)[6:]} q_len {tq}: backward "
+                  f"{key} routes {got}, all {want}")
     check(ok, f"ring offsets: kernels 10-12 vs plain at q_offset "
               f"{{-512, 0, +512, -475}} (bf16 2e-2, fp32 1e-4; split-KV "
               f"q_len 8 in bf16), hidden rows 0 / -1e30 / zero gradients, "
@@ -6527,12 +6693,14 @@ def _sp_lm_gloo(main_amp, rank, dev):
     launches counted; rank 0 then runs ``--sp 1 --attention flash`` on
     the same batch for the reference losses."""
     counters = _kernel_counters()
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     args = main_amp.parse(SP_LM_ARGS + ["--attention", "ring_flash",
                                         "--sp", "2"])
     state, step_fn, batch = main_amp.build(args)
     mine = main_amp.sequence_shard(batch, 1)
     for c in counters.values():
         c.launches = 0
+    zero_bwd_routes(fa)
     losses = []
     t0 = time.perf_counter()
     for _ in range(SP_LM_STEPS):
@@ -6541,7 +6709,8 @@ def _sp_lm_gloo(main_amp, rank, dev):
     info = {"sp_lm_losses": losses,
             "sp_lm_step_s": (time.perf_counter() - t0) / SP_LM_STEPS,
             "sp_lm_launches": {n: c.launches for n, c in counters.items()
-                               if c.launches}}
+                               if c.launches},
+            "sp_lm_bwd_routes": bwd_routes(fa)}
     del state
     if rank == 0:
         args = main_amp.parse(SP_LM_ARGS + ["--attention", "flash"])
@@ -6767,6 +6936,12 @@ def seq_gloo(tmp):
           f"{ref}, rel {rel:.3g} ({SP_LM_RTOL}); launches a rank "
           f"{launches} = {per_step} x {SP_LM_STEPS} (kernels 10-12: "
           f"2 ring steps x 12 layers a pass)")
+    for r, i in enumerate(infos):
+        bwd_route_gate(f"LM --sp 2 --attention ring_flash, rank {r}",
+                       i["sp_lm_bwd_routes"],
+                       {"dq": i["sp_lm_launches"]["flash_attention_bwd_dq"],
+                        "dkv": i["sp_lm_launches"][
+                            "flash_attention_bwd_dkv"]})
     worst = max(i["mesh_param_rtol"] for i in infos)
     check(worst <= 1e-6 and all(i["mesh_state_ratio"] <= 0.5 + 0.01
                                 for i in infos),
@@ -6822,14 +6997,20 @@ def mesh_nccl(models, main_amp, training, counters, tmp, dev):
             ms = mesh.make_mesh_train_step(loss_fn, adam(), plan, zero=zero,
                                            opt_level="O2")
             st = ms.init(fresh())
+            fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
             for c in counters.values():
                 c.launches = 0
+            zero_bwd_routes(fa)
             losses = []
             for _ in range(MESH_ARGS["steps"]):
                 st, m = ms.step_fn(st, plan.device_put_batch(batch))
                 losses.append(float(m["loss"]))
             launches = {n: c.launches for n, c in counters.items()
                         if c.launches}
+            bwd_route_gate(f"mesh zero={zero} (NCCL group of one)",
+                           bwd_routes(fa),
+                           {"dq": launches["flash_attention_bwd_dq"],
+                            "dkv": launches["flash_attention_bwd_dkv"]})
             full = ms.gather_params(st)
             same = sum(torch.equal(full[k], ref.params[k]) for k in params)
             moments = True
@@ -7024,6 +7205,8 @@ def main(argv=None) -> int:
                                          "flash_attention_sm90"),
             "flash_attention_bwd_nvcc_s":
                 lambda: build.load("flash_attention_bwd"),
+            "flash_attention_bwd_sm90_nvcc_s":
+                lambda: build.load("flash_attention_bwd_sm90"),
             "conv_nvcc_s": lambda: build.load("conv"),
             "conv_sm90_nvcc_s": lambda: build.load("conv_sm90"),
             "quant_nvcc_s": lambda: build.load("quant"),
@@ -7032,8 +7215,8 @@ def main(argv=None) -> int:
     if args.was:
         was_build = load_was(args.was, "_build")
         for name in ("flash_attention", "flash_attention_sm90",
-                     "flash_attention_bwd", "conv", "conv_sm90", "quant",
-                     "quant_sm90"):
+                     "flash_attention_bwd", "flash_attention_bwd_sm90",
+                     "conv", "conv_sm90", "quant", "quant_sm90"):
             if os.path.exists(os.path.join(args.was, "apex_tpu_torch",
                                            "csrc", f"{name}.cu")):
                 jobs[f"was_{name}_nvcc_s"] = (
@@ -7052,8 +7235,8 @@ def main(argv=None) -> int:
           f"of flash_attention_sm90.cu's (conv and qmm reuse their "
           f"instantiations)", flush=True)
     for name in ("flash_attention", "flash_attention_sm90",
-                 "flash_attention_bwd", "conv", "conv_sm90", "quant",
-                 "quant_sm90"):
+                 "flash_attention_bwd", "flash_attention_bwd_sm90", "conv",
+                 "conv_sm90", "quant", "quant_sm90"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"      ptxas {name}: "
@@ -7073,6 +7256,17 @@ def main(argv=None) -> int:
     calib = calibrate_gpt2_small(models, quant, dev)               # 17
     build_o4 = o4_setup(models, quant, main_amp, training, calib, dev)
     windows = training_windows(main_amp, imagenet, build_o4)       # 20
+    if args.was:
+        was_lm = load_was(args.was, "examples.lm.main_amp")
+        was_o4 = o4_setup(load_was(args.was, "models"),
+                          load_was(args.was, "quant"), was_lm,
+                          load_was(args.was, "training"), calib, dev)
+        windows["eager_vs_was"] = eager_vs_was({
+            "gpt2_small O2": (
+                lambda: main_amp.build(main_amp.parse(TRAIN_ARGS)),
+                lambda: was_lm.build(was_lm.parse(TRAIN_ARGS))),
+            "gpt2_small O4": (lambda: build_o4()[:3],
+                              lambda: was_o4()[:3])})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as d:
         train_tel = training_telemetry(main_amp, training, counters,  # 29
                                        dev, d)
@@ -7116,7 +7310,9 @@ def main(argv=None) -> int:
           f"(before them {windows['lm_o2']['eager']['step_ms']:.2f})",
           flush=True)
     ln_bwd_cases = layer_norm_bwd_cases(fln, dev)                  # 7
-    dq_cases, dkv_cases = flash_bwd_cases(fa, dev)                 # 8
+    dq_cases, dkv_cases = flash_bwd_cases(                         # 8
+        fa, dev,
+        load_was(args.was, "ops.flash_attention") if args.was else None)
     trained = train_gpt2_small(main_amp, counters)                 # 9
     trained["profile"] = trace_training(main_amp,
                                         TRAIN_ARGS + ["--steps", "1"])
@@ -7262,14 +7458,22 @@ def main(argv=None) -> int:
              sources=["apex_tpu_torch/csrc/flash_attention_sm90.cu",
                       "apex_tpu_torch/csrc/flash_attention.cu"],
              routes=serving["flash_routes"]),
-        entry("flash_attention_bwd_dq", "cuda",
-              "apex_tpu_torch/csrc/flash_attention_bwd.cu",
-              "apex_tpu/ops/flash_attention.py:440", dq_cases, 0,
-              "training"),
-        entry("flash_attention_bwd_dkv", "cuda",
-              "apex_tpu_torch/csrc/flash_attention_bwd.cu",
-              "apex_tpu/ops/flash_attention.py:478", dkv_cases, 0,
-              "training"),
+        # the training path's dQ and dK/dV run the wgmma kernels; fp32,
+        # widths 16, 32 and above 128 the kernels of flash_attention_bwd.cu
+        dict(entry("flash_attention_bwd_dq", "cuda",
+                   "apex_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+                   "apex_tpu/ops/flash_attention.py:440", dq_cases, 0,
+                   "training"),
+             sources=["apex_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+                      "apex_tpu_torch/csrc/flash_attention_bwd.cu"],
+             routes=trained["flash_bwd_routes"]["dq"]),
+        dict(entry("flash_attention_bwd_dkv", "cuda",
+                   "apex_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+                   "apex_tpu/ops/flash_attention.py:478", dkv_cases, 0,
+                   "training"),
+             sources=["apex_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+                      "apex_tpu_torch/csrc/flash_attention_bwd.cu"],
+             routes=trained["flash_bwd_routes"]["dkv"]),
         # the BN rows show the stage-4 downsample_bn case, the one with a
         # library call computing the same function; every case is in
         # --out

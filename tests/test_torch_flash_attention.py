@@ -390,6 +390,72 @@ def test_route_counter_keys():
     assert all(isinstance(n, int) for n in routes.values())
 
 
+# -- the backward's routes (csrc/flash_attention_bwd_sm90.cu beside
+#    csrc/flash_attention_bwd.cu)
+
+@pytest.mark.parametrize("d,dtype,tma,want", [
+    (64, torch.bfloat16, True, "wgmma"),
+    (128, torch.float16, True, "wgmma"),
+    (48, torch.bfloat16, True, "wgmma"),
+    (33, torch.float16, True, "wgmma"),
+    (64, torch.bfloat16, False, "mma"),
+    (128, torch.bfloat16, False, "mma"),
+    (32, torch.bfloat16, True, "mma"),
+    (16, torch.float16, True, "mma"),
+    (64, torch.float32, True, "simt"),
+    (16, torch.float32, True, "simt"),
+    (129, torch.bfloat16, True, "simt"),
+    (256, torch.float16, True, "simt"),
+])
+def test_backward_route_by_dtype_and_width(d, dtype, tma, want):
+    assert fa_mod._bwd_route(d, dtype, tma) == want
+
+
+def test_backward_tma_rule_on_views():
+    """dQ and dK/dV take the wgmma kernels where q, k, v, do, the outputs
+    and the bias all meet TMA's rules: a fused projection's strided q, k
+    and v and a batch-broadcast bias pass; an odd ``do``, a 52-wide head,
+    a bias broadcast over its rows fail and route to ``mma``; fp32 is
+    ``simt``.  A named ``mma`` route is taken where the rule is wgmma;
+    any other route the call cannot take raises."""
+    b, t, h, d = 2, 32, 4, 64
+    bf = torch.bfloat16
+    q, k, v = torch.zeros(b, t, 3, h, d, dtype=bf).unbind(2)
+    do = torch.zeros(b, t, h, d, dtype=bf)
+    out = torch.zeros(b, t, h, d, dtype=bf)
+    pick = fa_mod._pick_bwd_route
+    assert pick(None, q, k, v, do, None, out) == "wgmma"
+    assert pick(None, q, k, v, do, None, out, out) == "wgmma"
+    bias = torch.zeros(1, t, t).expand(b, t, t)
+    assert pick(None, q, k, v, do, bias, out) == "wgmma"
+    assert pick(None, q, k, v, do, torch.zeros(b, 1, t).expand(b, t, t),
+                out) == "mma"
+    odd = torch.zeros(b * t * h * d + 1, dtype=bf)[1:].view(b, t, h, d)
+    assert pick(None, q, k, v, odd, None, out) == "mma"
+    assert pick(None, odd, k, v, do, None, out) == "mma"
+    w52 = torch.zeros(b, t, h, 52, dtype=bf)
+    assert pick(None, w52, w52, w52, w52, None, w52) == "mma"
+    w16 = torch.zeros(b, t, h, 16, dtype=bf)
+    assert pick(None, w16, w16, w16, w16, None, w16) == "mma"
+    f32 = torch.zeros(b, t, h, d)
+    assert pick(None, f32, f32, f32, f32, None, f32) == "simt"
+    assert pick("mma", q, k, v, do, None, out) == "mma"
+    assert pick("wgmma", q, k, v, do, None, out) == "wgmma"
+    for route, args in (("wgmma", (q, k, v, odd, None, out)),
+                        ("simt", (q, k, v, do, None, out)),
+                        ("mma", (f32, f32, f32, f32, None, f32)),
+                        ("split", (q, k, v, do, None, out))):
+        with pytest.raises(ValueError, match="route"):
+            pick(route, *args)
+
+
+def test_backward_route_counter_keys():
+    for wrapper in (fa_mod.flash_bwd_dq_kernel, fa_mod.flash_bwd_dkv_kernel):
+        assert set(wrapper.routes) == {"wgmma", "mma", "simt"}
+        assert all(isinstance(n, int) for n in wrapper.routes.values())
+        assert wrapper in fa_mod._build.COUNTED
+
+
 @pytest.mark.parametrize("d", [48, 64, 128])
 @pytest.mark.parametrize("case", ["causal", "window", "bias", "gqa_cross"])
 def test_wgmma_route_widths_match_jax(d, case):

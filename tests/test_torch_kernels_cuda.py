@@ -1211,7 +1211,7 @@ def test_flash_bwd_tensor_core_fully_masked_rows(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [64, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_bwd_kernels_bit_stable(cuda_device, head_dim, dtype):
     """No atomics: dQ, dK/dV and the key-bias partial sums are equal bit
@@ -2551,6 +2551,243 @@ def test_flash_routes_count_captured_replays(cuda_device):
     assert all(fa.flash_fwd_kernel.routes[r] == before[r]
                for r in ("mma", "simt", "split"))
     assert all(torch.equal(o, eager) for o in outs)
+
+
+# -- the wgmma backward (csrc/flash_attention_bwd_sm90.cu) -------------------------
+
+def _bwd_routes():
+    return (dict(fa.flash_bwd_dq_kernel.routes),
+            dict(fa.flash_bwd_dkv_kernel.routes))
+
+
+def _bwd_on_route(q, k, v, do, kb, bs, kw, route, atol=3e-2):
+    """dQ and dK/dV on ``route`` (None: the rule's), each launch counted on
+    the route wanted (``route`` or wgmma), against the plain version at
+    ``atol``; returns ``(dq, dk, dv, part)``."""
+    out, lse = fa._flash_fwd_ref(q, k, v, kb, bs, **kw)
+    delta = fa._delta(do, out)
+    before = _bwd_routes()
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, bs,
+                                route=route, **kw)
+    dk, dv, part = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, bs,
+                                           kbias_grad=kb is not None,
+                                           route=route, **kw)
+    torch.cuda.synchronize()
+    after = _bwd_routes()
+    want_route = route or "wgmma"
+    for was, now in zip(before, after):
+        assert {r: now[r] - was[r] for r in now} == {
+            r: int(r == want_route) for r in now}
+    want = fa._flash_bwd_ref(q, k, v, kb, bs, out, lse, do, **kw)
+    for name, got, wnt in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                           ("dv", dv, want[2])):
+        assert got.dtype == q.dtype and got.shape == wnt.shape, name
+        assert not torch.isnan(got.float()).any(), name
+        torch.testing.assert_close(got.float(), wnt.float(), atol=atol,
+                                   rtol=atol, msg=name)
+    if kb is not None:
+        torch.testing.assert_close(part.sum(1) / kw["sm_scale"], want[3],
+                                   atol=atol, rtol=atol)
+    return dq, dk, dv, part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TC_BWD_CASES))
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_wgmma_route_matches_plain(cuda_device, case, d, dtype):
+    """Every tensor-core backward case on the wgmma kernels at widths 48
+    (in the 64 instantiation), 64 and 128, each launch on the wgmma
+    route, and the mma.sync kernels on the same inputs, both within the
+    unchanged 3e-2 of the plain version."""
+    args = _bwd_case(cuda_device, dtype, d=d, seed=24, **TC_BWD_CASES[case])
+    _bwd_on_route(*args, route=None)
+    _bwd_on_route(*args, route="mma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [-512, 0, 512, -475])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wgmma_signed_ring_offsets(cuda_device, offset, d):
+    """The ring's relative offsets on 512-row shards: a hidden row's dQ
+    and an unseen key's dK and dV are 0 exactly (at -512 nothing is
+    seen and only zeros are written), no NaN."""
+    q, k, v, do, kb, bs, kw = _bwd_case(cuda_device, torch.bfloat16,
+                                        tq=512, tk=512, h=4, h_kv=2, d=d,
+                                        seed=36)
+    kw = dict(kw, q_offset=offset)
+    dq, dk, dv, _ = _bwd_on_route(q, k, v, do, kb, bs, kw, route=None)
+    hidden = offset + torch.arange(512, device=cuda_device) < 0
+    assert (dq[:, hidden] == 0).all()
+    unseen = torch.arange(512, device=cuda_device) > offset + 511
+    assert (dk[:, unseen] == 0).all() and (dv[:, unseen] == 0).all()
+
+
+def _bwd_float64_witness(q, k, v, kb, do, lse, delta, *, sm_scale, **_):
+    """dq, dk and dv of an unmasked call as :func:`fa._flash_bwd_ref`
+    computes them, with dp, ds and every product in float64 from the same
+    fp32 scores, lse and delta: p and ds rounded to the inputs' dtype
+    before their products, as the kernels and the plain version round
+    them, and nothing else rounded."""
+    kr, vr = fa._repeat_kv(q, k, v)
+    p = torch.exp(fa._scores(q, kr, kb, None, sm_scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), vr.double())
+    ds = p.double() * (dp - delta.double()[..., None]) * sm_scale
+    dsr = ds.float().to(q.dtype).double()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsr, kr.double())
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsr, q.double())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).double(),
+                      do.double())
+    b, tk, h_kv, d = k.shape
+    grp = q.shape[2] // h_kv
+    return (dq, dk.reshape(b, tk, h_kv, grp, d).sum(3),
+            dv.reshape(b, tk, h_kv, grp, d).sum(3))
+
+
+def _gaps(got, want, atol=3e-2):
+    """Per output: the largest |got - want| and the largest excess over
+    ``atol + atol * |want|`` (assert_close's bound; <= 0 within it)."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.double() - w.double()).abs()
+        out[name] = (diff.max().item(),
+                     (diff - atol - atol * w.double().abs()).max().item())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_wgmma_fully_masked_rows(cuda_device, d, dtype):
+    """Rows the band hides entirely (lse -1e30: the first 100 see no key
+    at q_offset -100, the rest at most 30 with the window), and rows whose
+    keys a -1e9 key-padding bias hides everywhere, on the wgmma kernels.
+    There the fp32 scores all round to -1e9, every p is 1 and |dq| reaches
+    ~80 as a sum of 256 terms that can cancel, so a ds that an fp32
+    rounding puts on the other side of a bf16 rounding moves dq by up to
+    ~0.04.  Both kernels are held, within the same 3e-2, to the float64
+    witness (:func:`_bwd_float64_witness`), dk and dv to the plain
+    version too, and dq to the plain version at width 64; each gap is
+    printed, the plain version's own to the witness beside it."""
+    q, k, v, do, kb, bs, kw = _bwd_case(cuda_device, dtype, tq=256, tk=256,
+                                        d=d, seed=27)
+    kw = dict(kw, q_offset=-100, window=30)
+    dq, _, _, _ = _bwd_on_route(q, k, v, do, kb, bs, kw, route=None)
+    assert (dq[:, :100] == 0).all()
+    kb = torch.full((2, 256), -1e9, device=cuda_device)
+    kw = dict(kw, causal=False, window=None, q_offset=0)
+    if d == 64:
+        _bwd_on_route(q, k, v, do, kb, None, kw, route=None)
+    out, lse = fa._flash_fwd_ref(q, k, v, kb, None, **kw)
+    delta = fa._delta(do, out)
+    plain = fa._flash_bwd_ref(q, k, v, kb, None, out, lse, do, **kw)[:3]
+    witness = _bwd_float64_witness(q, k, v, kb, do, lse, delta, **kw)
+    print(f"\n-1e9 on every key, d {d} {dtype}: (max |diff|, excess over "
+          f"3e-2 + 3e-2 |want|); plain vs witness {_gaps(plain, witness)}")
+    for route in ("wgmma", "mma"):
+        got = (fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, kb, None,
+                                      route=route, **kw),
+               *fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, kb, None,
+                                        kbias_grad=True, route=route,
+                                        **kw)[:2])
+        torch.cuda.synchronize()
+        print(f"  {route}: vs witness {_gaps(got, witness)}, vs plain "
+              f"{_gaps(got, plain)}")
+        for name, g, w in zip(("dq", "dk", "dv"), got, witness):
+            torch.testing.assert_close(g.double(), w, atol=3e-2, rtol=3e-2,
+                                       msg=f"{route} {name} vs witness")
+        for name, g, w in zip(("dq", "dk", "dv"), got, plain):
+            if name == "dq" and d != 64:
+                continue   # its gap is printed above
+            torch.testing.assert_close(g.float(), w.float(), atol=3e-2,
+                                       rtol=3e-2, msg=f"{route} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_wgmma_reads_fused_projection_views(cuda_device, d,
+                                                      dtype):
+    """q, k and v as strided views of one [B, T, 3, H, D] projection (do
+    contiguous, as autograd hands it): read in place by TMA, the same
+    gradients bit for bit as on contiguous copies."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    qkv = torch.randn(2, 300, 3, 4, d, device=cuda_device,
+                      generator=g).to(dtype)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 300, 4, d, device=cuda_device, generator=g).to(dtype)
+    assert not q.is_contiguous() and fa._tma_ok(d, q, k, v, do)
+    kw = dict(sm_scale=d ** -0.5, causal=True, q_offset=0, window=None)
+    got = _bwd_on_route(q, k, v, do, None, None, kw, route=None)
+    out, lse = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+    delta = fa._delta(do, out)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    dq = fa.flash_bwd_dq_kernel(qc, kc, vc, do, lse, delta, None, None, **kw)
+    dk, dv, _ = fa.flash_bwd_dkv_kernel(qc, kc, vc, do, lse, delta, None,
+                                        None, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], (dq, dk, dv)))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refused_view_routes_to_mma(cuda_device):
+    """A do that starts 2 bytes past a 16-byte boundary breaks TMA's rule:
+    dQ and dK/dV run the mma.sync kernels (their counters move), and the
+    wgmma route named for such a view raises."""
+    q, k, v, _, kb, bs, kw = _bwd_case(cuda_device, torch.bfloat16, seed=5)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    flat = torch.randn(q.numel() + 1, device=cuda_device, generator=g).to(
+        torch.bfloat16)
+    do = flat[1:].view(q.shape)
+    assert not fa._tma_ok(64, q, k, v, do)
+    out, lse = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+    delta = fa._delta(do, out)
+    before = _bwd_routes()
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, None, None, **kw)
+    dk, dv, _ = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, None,
+                                        None, **kw)
+    torch.cuda.synchronize()
+    for was, now in zip(before, _bwd_routes()):
+        assert now["mma"] == was["mma"] + 1 and now["wgmma"] == was["wgmma"]
+    want = fa._flash_bwd_ref(q, k, v, None, None, out, lse, do, **kw)
+    for got, wnt in zip((dq, dk, dv), want[:3]):
+        torch.testing.assert_close(got.float(), wnt.float(), atol=3e-2,
+                                   rtol=3e-2)
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, None, None,
+                               route="wgmma", **kw)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_routes_count_captured_replays(cuda_device):
+    """Captured dQ and dK/dV count their routes as they count their
+    launches: the warm run as it runs, the capture nothing, each replay
+    one; the replays equal the eager calls bit for bit."""
+    cache = importlib.import_module("apex_tpu_torch.cache")
+    q, k, v, do, _, _, kw = _bwd_case(cuda_device, torch.bfloat16, seed=6)
+    out, lse = fa._flash_fwd_ref(q, k, v, None, None, **kw)
+    delta = fa._delta(do, out)
+
+    def bwd(q, k, v, do):
+        dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, None, None,
+                                    **kw)
+        return (dq, *fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, None,
+                                             None, **kw)[:2])
+
+    eager = bwd(q, k, v, do)
+    before = _bwd_routes()
+    launches = (fa.flash_bwd_dq_kernel.launches,
+                fa.flash_bwd_dkv_kernel.launches)
+    step = cache.warmup(bwd, q, k, v, do)
+    outs = [[t.clone() for t in step(q, k, v, do)] for _ in range(2)]
+    torch.cuda.synchronize()
+    runs = cache.WARM_RUNS + 2
+    for was, now in zip(before, _bwd_routes()):
+        assert now == dict(was, wgmma=was["wgmma"] + runs)
+    assert (fa.flash_bwd_dq_kernel.launches,
+            fa.flash_bwd_dkv_kernel.launches) == (launches[0] + runs,
+                                                  launches[1] + runs)
+    assert all(torch.equal(a, b) for o in outs for a, b in zip(o, eager))
 
 
 # -- kernels 14 and 1 on wgmma (csrc/quant_sm90.cu, csrc/conv_sm90.cu) --------------

@@ -841,13 +841,25 @@ def test_prof_example_runs_on_the_cpu(name, capsys, tmp_path):
      "64>(CUtensorMap_st, ConvParams)", "conv_wgrad_kernel", "conv_wgrad"),
     ("void (anonymous namespace)::wgrad_reduce_kernel<__nv_bfloat16>("
      "float const*, __nv_bfloat16*, int, long)", "conv_wgrad_kernel",
-     None)])
+     None),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<__nv_bfloat16, "
+     "64, 1, 64, 3>(BwdMaps, BwdParams)", "flash_bwd",
+     "flash_attention_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dq_mma_kernel<__nv_bfloat16, "
+     "64>(BwdParams, int, int)", "flash_bwd", "flash_attention_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dkv_wgmma_kernel<__half, 128, "
+     "2, 32, 1>(BwdMaps, BwdParams)", "flash_bwd",
+     "flash_attention_bwd_dkv"),
+    ("void (anonymous namespace)::flash_bwd_dkv_mma_kernel<__half, 128>("
+     "BwdParams, int, int)", "flash_bwd", "flash_attention_bwd_dkv")])
 def test_kernel_names_of_both_routes_count_alike(name, kind, counted):
-    """A trace's kernel of either route of qmm and of the conv passes
-    (the wgmma kernels and the mma.sync ones) takes its kernel's kind and
-    counts as that kernel's launch; wgrad's reduce takes wgrad's kind and
-    counts as no launch of its own (it runs within the wgrad call)."""
+    """A trace's kernel of either route of qmm, of the conv passes and of
+    flash's dQ and dK/dV (the wgmma kernels and the mma.sync ones) takes
+    its kernel's kind and counts as that kernel's launch; wgrad's reduce
+    takes wgrad's kind and counts as no launch of its own (it runs within
+    the wgrad call)."""
     kinds = parse.RESNET_KINDS if kind.startswith("conv") \
+        else parse.TRAINING_KINDS if kind == "flash_bwd" \
         else parse.SERVING_KINDS
     assert parse.kernel_kind(name, kinds) == kind
     assert parse.counted_name(name) == counted
