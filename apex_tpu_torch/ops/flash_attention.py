@@ -16,11 +16,14 @@ its forward saves ``out`` and the fp32 ``lse``, its backward recomputes
 nothing else: CPU tensors take :func:`_flash_fwd_ref` and
 :func:`_flash_bwd_ref`; CUDA tensors launch the kernels of
 ``csrc/flash_attention_sm90.cu`` (the forward of bf16/fp16 prefill at
-widths 33-128 on ``wgmma`` and TMA) and ``csrc/flash_attention.cu`` (the
+widths 33-128 on ``wgmma`` and TMA), ``csrc/flash_decode_sm90.cu`` (the
+forward of bf16/fp16 decode, ``q_len < 16``, at widths 33-128 on a TMA
+ring, one launch a call) and ``csrc/flash_attention.cu`` (the
 forward's other routes: ``mma.sync`` tensor cores for bf16/fp16 at
 widths up to 32 or views TMA cannot read, a full-fp32 SIMT kernel for
-fp32 and widths above 128, split-KV with a combine for ``q_len < 16`` —
-the TPU's block sizes and measured crossovers do not carry over),
+fp32 and widths above 128, split-KV with a combine for the other
+``q_len < 16`` calls — the TPU's block sizes and measured crossovers do
+not carry over),
 ``csrc/flash_attention_bwd_sm90.cu`` (dQ and dK/dV of bf16/fp16 at widths
 33-128 on ``wgmma`` and TMA) and ``csrc/flash_attention_bwd.cu`` (dQ and
 dK/dV's other routes, ``mma.sync`` and SIMT, and, when a ``[B, T, S]``
@@ -40,8 +43,11 @@ the plain, differentiable path on either device, as JAX takes its jnp
 ``blockwise_attention``.
 
 The route.  :func:`flash_fwd_kernel` picks one kernel a call
-(:func:`_route`, counted in ``flash_fwd_kernel.routes``): ``split`` for
-``q_len < 16``; ``simt`` for fp32 and widths above 128; else ``wgmma``
+(:func:`_route`, counted in ``flash_fwd_kernel.routes``): for ``q_len <
+16`` ``decode`` in bf16/fp16 at widths 33-128 where K and V meet TMA's
+rules and the kernel takes the call (:func:`_decode_route`), else
+``split``; ``simt`` for fp32 and widths
+above 128; else ``wgmma``
 where every view meets TMA's rules (:func:`_tma_ok`: 16-byte aligned
 bases, strides multiples of 16 bytes, the width a multiple of 8) at
 widths 33-128, and ``mma`` (``mma.sync``) otherwise, widths 16 and 32
@@ -58,9 +64,10 @@ forward's tile, and the tile names the kernel: the ``wgmma`` kernel's
 consumer warpgroup) at widths 64 and 128, the ``mma.sync`` kernel's
 64 x 64 at every width and 64 x 32, 64 x 128, 128 x 64 and 128 x 128 at
 widths 64 and 128 (:func:`tiles`; a half left at None is 64).  The rule
-is :func:`rule_tile`.  On the split-KV decode path ``block_k`` is the
-chunk of keys a block reads (a multiple of 32, as many as its shared
-memory holds; ``block_q`` has no meaning there).
+is :func:`rule_tile`.  On the decode routes ``block_k`` is the chunk of
+keys a block reads (a multiple of 32 within the kernel's bounds; the
+rules :func:`_decode_split` and :func:`_kv_split`; ``block_q`` has no
+meaning there).
 The fp32 and wide-head SIMT kernels and the backward kernels keep their
 rule's tiles.  Left at None, a CUDA call consults the tuner's cache for
 this shape's bucket (:func:`tune_bucket`, the JAX package's string,
@@ -87,11 +94,28 @@ NEG_INF = -1e30
 #: last runs in the next one, its missing columns read as zero, and a
 #: wider one in the last, in slices of its width
 _KERNEL_DIMS = (16, 32, 64, 128, 256)
-#: q_len below this takes the split-KV decode path (two CUDA kernels)
+#: q_len below this takes a decode route: ``decode`` (one CUDA kernel on a
+#: TMA ring) or ``split`` (split-KV, two CUDA kernels)
 _SPLIT_TQ = 16
 #: keys per split-KV chunk: at least a few passes of a block, at most
 #: what its shared-memory score rows hold
 _MIN_CHUNK, _MAX_CHUNK = 64, 512
+#: what the decode rule (:func:`_decode_split`) knows of the ``decode``
+#: kernel (``csrc/flash_decode_sm90.cu``; its launcher checks the rest):
+#: chunks are multiples of ``_DECODE_BK`` keys (a ring stage) up to
+#: ``_DECODE_MAX_CHUNK``, and a block takes at most ``_DECODE_ROWS[width]``
+#: query rows
+_DECODE_BK, _DECODE_MAX_CHUNK = 32, 1024
+_DECODE_ROWS = {64: 64, 128: 32}
+#: the decode rule: at most this many blocks an SM (four fit one, so
+#: every block of a call is resident at once), and at most
+#: ``_DECODE_CLUSTER`` chunks (the kernel merges up to that many in one
+#: thread block cluster)
+_DECODE_WAVE, _DECODE_CLUSTER = 3, 8
+#: the decode kernel merges a call of 2 .. ``_DECODE_CLUSTER`` chunks in a
+#: thread block cluster (True) or, as a call of more, through its atomic
+#: ticket (False: ``chip_smoke.py`` phase 4 times both)
+_DECODE_CLUSTER_MERGE = True
 #: the ``mma.sync`` forward's tile by its rule, and its other tiles,
 #: instantiated at the widths in ``_TUNED_DIMS``
 _RULE_TILE = (64, 64)
@@ -102,8 +126,8 @@ _TUNED_DIMS = (64, 128)
 _WGMMA_TILES = ((64, 96), (128, 96), (64, 160), (128, 160))
 
 #: the tuner's config version of the flash forward (2: the ``wgmma``
-#: rule and tiles)
-TUNE_VERSION = 2
+#: rule and tiles; 3: a decode chunk is the ``decode`` kernel's)
+TUNE_VERSION = 3
 
 
 def tune_bucket(tq: int, tk: int, d: int, causal: bool, has_bias: bool,
@@ -132,7 +156,8 @@ def tiles(d: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
 
 def rule_tile(d: int, dtype: torch.dtype) -> Tuple[int, int]:
     """The forward's tile by the rule for a prefill of head width ``d``
-    (the split-KV chunk is :func:`_kv_split`'s): in bf16 and fp16 the
+    (a decode chunk is :func:`_decode_split`'s or :func:`_kv_split`'s):
+    in bf16 and fp16 the
     ``wgmma`` kernel's 64 x 96 at width 64 (three blocks an SM) and its
     128 x 96 at 128, each the fastest tile at every phase-4 shape of
     ``chip_smoke.py`` on the H100; else the ``mma.sync`` rule's 64 x 64
@@ -149,19 +174,24 @@ def _is_wgmma(tile) -> bool:
 
 
 def tile_fits(tq: int, d: int, dtype: torch.dtype, tile: Tuple[int, int],
-              bias: bool = False) -> bool:
+              bias: bool = False, route: Optional[str] = None) -> bool:
     """Whether the forward kernel that ``tile`` names takes it for ``tq``
     query rows of width ``d`` in ``dtype`` (with a ``[B, T, S]`` bias or
     none): a tensor-core tile it is instantiated at whose stages fit the
     block's shared memory, or on decode (``tq`` < 16) a chunk of
-    ``tile[1]`` keys its block holds.  The kernel's own check, asked of
-    the built library without a launch, so only on the card."""
+    ``tile[1]`` keys that the decode route's kernel takes (``route``:
+    ``decode`` or ``split``; None: the one the rule gives views TMA can
+    read).  The kernel's own check, asked of the built library without a
+    launch, so only on the card."""
     decode = tq < _SPLIT_TQ
-    prm = _FlashParams(tq=tq, splits=int(decode),
+    prm = _FlashParams(tq=tq, splits=int(decode), H=1, Hkv=1,
                        chunk=int(tile[1]) if decode else 0,
                        bias=1 if bias and not decode else None)
     mma = (-1, -1) if decode else (int(tile[0]), int(tile[1]))
     dk, code = _kernel_dim(d), _build.dtype_code(dtype)
+    if decode and (route or _route(tq, d, dtype, None, True)) == "decode":
+        return _decode_lib().flash_attention_fwd_decode_check(
+            ctypes.byref(prm), dk, code) == 0
     if not decode and _is_wgmma(mma):
         return _wgmma_lib().flash_attention_fwd_wgmma_check(
             ctypes.byref(prm), dk, code, *mma) == 0
@@ -232,9 +262,10 @@ def _flash_fwd_split_ref(q, k, v, kbias, bias, *, sm_scale: float,
                          causal: bool, q_offset: int = 0,
                          window: Optional[int] = None, chunk: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split-KV decode kernels' arithmetic in plain PyTorch: the
-    function of :func:`_flash_fwd_ref`, computed over keys in chunks of
-    ``chunk`` and merged as the combine kernel merges them.
+    """The decode routes' arithmetic in plain PyTorch (the split-KV
+    kernels' and ``csrc/flash_decode_sm90.cu``'s): the function of
+    :func:`_flash_fwd_ref`, computed over keys in chunks of ``chunk`` and
+    merged as the combine kernel and the decode kernel merge them.
 
     Each chunk c keeps fp32 ``(m_c, l_c, acc_c)``: its visible maximum,
     ``l_c = sum p``, ``acc_c = sum p v`` with ``p = exp(s - m_c)`` rounded
@@ -380,6 +411,22 @@ def _wgmma_lib() -> ctypes.CDLL:
     return lib
 
 
+def _decode_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_decode_sm90")
+    fn = lib.flash_attention_fwd_decode
+    fn.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check = lib.flash_attention_fwd_decode_check
+    check.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_int,
+                      ctypes.c_int]
+    check.restype = ctypes.c_int
+    rows = lib.flash_attention_fwd_decode_rows
+    rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    rows.restype = ctypes.c_int
+    return lib
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv,
@@ -493,18 +540,33 @@ def _tma_ok(d: int, *tensors, bias=None) -> bool:
 
 def _route(tq: int, d: int, dtype: torch.dtype, tile, tma: bool) -> str:
     """The kernel a forward call runs (the key of
-    ``flash_fwd_kernel.routes`` it counts in): ``split`` for ``tq`` < 16,
-    ``simt`` for fp32 and widths above 128, ``wgmma`` for a tile of
-    ``_WGMMA_TILES`` or, with no tile, at widths 64 and 128 where the
-    views meet TMA's rules (``tma``, :func:`_tma_ok`), else ``mma``."""
+    ``flash_fwd_kernel.routes`` it counts in).  For ``tq`` < 16:
+    ``decode`` (``csrc/flash_decode_sm90.cu``) for bf16 and fp16 at widths
+    64 and 128 (heads 33-128) where K and V meet TMA's rules and the
+    kernel's check takes the call (``tma``: :func:`_decode_ok` and
+    :func:`_decode_route`), else ``split``.  Else ``simt`` for fp32 and
+    widths above 128, ``wgmma`` for a tile of ``_WGMMA_TILES`` or, with
+    no tile, at widths 64 and 128 where the views meet TMA's rules
+    (``tma``, :func:`_tma_ok`), else ``mma``.  On decode the tile is the chunk and
+    names no kernel."""
     dk = _kernel_dim(d)
     if tq < _SPLIT_TQ:
-        return "split"
+        return ("decode" if dtype != torch.float32 and dk in _TUNED_DIMS
+                and tma else "split")
     if dtype == torch.float32 or dk > 128:
         return "simt"
     if tile is not None:
         return "wgmma" if _is_wgmma(tile) else "mma"
     return "wgmma" if dk in _TUNED_DIMS and tma else "mma"
+
+
+def _decode_ok(q, k, v) -> bool:
+    """Whether the ``decode`` kernel can read this call's K and V by TMA
+    (:func:`_tma_ok` of k and v: q and the output are read and written
+    by plain loads and stores) at its width.  The decode routing rule's
+    view half (:func:`_decode_route` adds the kernel's own check)."""
+    d = q.shape[3]
+    return _kernel_dim(d) in _TUNED_DIMS and _tma_ok(d, k, v)
 
 
 def _bwd_route(d: int, dtype: torch.dtype, tma: bool) -> str:
@@ -536,59 +598,119 @@ def _bias_vec(bias) -> int:
 
 
 def _kv_split(b: int, h: int, tk: int, sms: int) -> Tuple[int, int]:
-    """``(splits, chunk)`` for the split-KV decode path: enough chunks
-    that B * H * splits blocks cover the SMs about four times, each
-    chunk a multiple of 32 keys between ``_MIN_CHUNK`` and
-    ``_MAX_CHUNK``."""
+    """``(splits, chunk)`` for the ``split`` route: enough chunks that
+    B * H * splits blocks cover the SMs about four times, each chunk a
+    multiple of 32 keys between ``_MIN_CHUNK`` and ``_MAX_CHUNK``."""
     want = max(1, -(-4 * sms // (b * h)))
     chunk = -(-tk // want)
     chunk = min(_MAX_CHUNK, max(_MIN_CHUNK, -(-chunk // 32) * 32))
     return -(-tk // chunk), chunk
 
 
+def _decode_split(b: int, h_kv: int, rows: int, tk: int, d: int,
+                  sms: int) -> Tuple[int, int]:
+    """``(splits, chunk)`` for the ``decode`` route, ``rows`` the query
+    rows of a KV head (query heads over KV heads x q_len): as many chunks
+    as keep the blocks (B x Hkv x row blocks x splits) within
+    ``_DECODE_WAVE`` an SM, at most ``_DECODE_CLUSTER``, each a multiple
+    of ``_DECODE_BK`` keys up to ``_DECODE_MAX_CHUNK``.  On the H100 at
+    serving's B 8, 12 heads of 64: 4 chunks of 256 keys at 1,024 keys,
+    of 64 at 256, and 8 of 128 for 4 KV heads (chip_smoke phase 4)."""
+    units = b * h_kv * -(-rows // _DECODE_ROWS[_kernel_dim(d)])
+    splits = max(1, min(_DECODE_CLUSTER, _DECODE_WAVE * sms // units))
+    chunk = -(-tk // splits)
+    chunk = -(-chunk // _DECODE_BK) * _DECODE_BK
+    chunk = min(_DECODE_MAX_CHUNK, chunk)
+    return -(-tk // chunk), chunk
+
+
+def _decode_scratch(q, k, splits: int, chunk: int):
+    """The ``decode`` kernel's fp32 partials ``(part_o, part_ml)`` of a
+    call of more than one chunk (``[units][splits][rows][D]`` and
+    ``[units][splits][rows][2]``), else ``(None, None)``."""
+    if splits == 1:
+        return None, None
+    d = q.shape[3]
+    rows = q.shape[1] * (q.shape[2] // k.shape[2])
+    per = _decode_lib().flash_attention_fwd_decode_rows(_kernel_dim(d),
+                                                        chunk)
+    units = q.shape[0] * k.shape[2] * -(-rows // per)
+    n = units * splits * min(rows, per)
+    return (torch.empty(n * _kernel_dim(d), dtype=torch.float32,
+                        device=q.device),
+            torch.empty(n * 2, dtype=torch.float32, device=q.device))
+
+
+def _pick_fwd_route(route: Optional[str], rule: str) -> str:
+    """The forward's route: the rule's, or ``route`` where the call can
+    take it: the rule's own, or ``split`` where the rule is ``decode``
+    (the comparisons of the card's tests and ``chip_smoke.py``); any
+    other raises ``ValueError``."""
+    if route is None or route == rule:
+        return rule
+    if route == "split" and rule == "decode":
+        return route
+    raise ValueError(f"flash forward route {route!r} cannot serve this "
+                     f"call (its rule is {rule!r})")
+
+
 def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
                      causal: bool, q_offset: int = 0,
                      window: Optional[int] = None,
-                     tile: Optional[Tuple[int, int]] = None
+                     tile: Optional[Tuple[int, int]] = None,
+                     route: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA forward kernel: the arguments of
     :func:`_flash_fwd_ref` (a 3-D ``bias`` only), CUDA tensors; returns
     ``(out, lse)``.  ``q_len >= 16`` runs one kernel: the ``wgmma`` one
     for bf16/fp16 at widths 33-128 where TMA can read the views, else
     ``mma.sync`` tensor cores up to width 128, fp32 FMA for fp32 and above
-    128 (:func:`_route`); a shorter call runs the split-KV kernel and its
-    combine (:func:`_flash_fwd_split_ref` is their arithmetic), with fp32
-    scratch allocated here.  ``tile``: ``(block_q, block_k)``, None for
-    the rule (:func:`rule_tile`); a tensor-core tile names its kernel (a
-    half at -1 is 64), the split-KV path takes a chunk of ``block_k``
-    keys, the SIMT kernel none; one the kernel refuses (:func:`tile_fits`),
-    or a ``wgmma`` tile on views TMA cannot read, raises ``ValueError``.
-    ``q_offset`` may be any signed value (ring attention passes ``q_off -
-    k_off``): a row that sees no key gives ``out = 0`` and ``lse =
-    NEG_INF``, and the kernels skip every key tile no row of a block sees
-    (chip_smoke phase 36).  Adds one to ``flash_fwd_kernel.launches``
-    and to ``flash_fwd_kernel.routes[route]`` per call."""
+    128 (:func:`_route`).  A shorter call runs the ``decode`` kernel (one
+    launch, bf16/fp16 at widths 33-128 where TMA can read K and V,
+    :func:`_decode_route`) or else the split-KV kernel and its combine
+    (two); :func:`_flash_fwd_split_ref` is the arithmetic of both, with fp32
+    scratch allocated here.  ``route="split"`` runs the split-KV kernels
+    where the rule is ``decode`` (:func:`_pick_fwd_route`; any other
+    route the call cannot take raises ``ValueError``).  ``tile``:
+    ``(block_q, block_k)``, None for the rule (:func:`rule_tile`); a
+    tensor-core tile names its kernel (a half at -1 is 64), a decode
+    route takes a chunk of ``block_k`` keys (:func:`_decode_split` and
+    :func:`_kv_split` are the rules), the SIMT kernel none; one the kernel
+    refuses (:func:`tile_fits`), or a ``wgmma`` tile on views TMA cannot
+    read, raises ``ValueError``.  ``q_offset`` may be any signed value
+    (ring attention passes ``q_off - k_off``): a row that sees no key gives
+    ``out = 0`` and ``lse = NEG_INF``, and the kernels skip every key tile
+    no row of a block sees (chip_smoke phase 36).  Adds one to
+    ``flash_fwd_kernel.launches`` and to ``flash_fwd_kernel.routes[route]``
+    per call."""
     kbias, bias = _check_kernel_inputs(q, k, v, kbias, bias)
     b, tq, h, d = q.shape
     dk = _kernel_dim(d)
+    decode = tq < _SPLIT_TQ
     if tile is not None:
         tile = (int(tile[0]), int(tile[1]))
-        if tq >= _SPLIT_TQ:
+        if not decode:
             tile = (64 if tile[0] < 0 else tile[0],
                     64 if tile[1] < 0 else tile[1])
-        if not tile_fits(tq, d, q.dtype, tile, bias is not None):
-            raise ValueError(
-                f"flash tile {tile} is not one the forward kernel takes "
-                f"for {tq} query rows of width {d}, {q.dtype}"
-                f"{' with a bias' if bias is not None else ''}: the "
-                f"tensor-core tiles {tiles(d, q.dtype)}, or on decode a "
-                f"chunk of 32 keys or a multiple within shared memory")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    # TMA's rule is asked only of a call the wgmma kernel could serve
-    tma = (tq >= _SPLIT_TQ and q.dtype != torch.float32
-           and dk in _TUNED_DIMS and _tma_ok(d, q, k, v, out, bias=bias))
-    route = _route(tq, d, q.dtype, tile, tma)
+    tma = False
+    if decode:
+        rule = _decode_route(q, k, v)
+    else:
+        # TMA's rule is asked only of a call the wgmma kernel could serve
+        tma = (q.dtype != torch.float32 and dk in _TUNED_DIMS
+               and _tma_ok(d, q, k, v, out, bias=bias))
+        rule = _route(tq, d, q.dtype, tile, tma)
+    route = _pick_fwd_route(route, rule)
+    if tile is not None and not tile_fits(tq, d, q.dtype, tile,
+                                          bias is not None, route=route):
+        raise ValueError(
+            f"flash tile {tile} is not one the forward kernel takes for "
+            f"{tq} query rows of width {d}, {q.dtype}"
+            f"{' with a bias' if bias is not None else ''}: the "
+            f"tensor-core tiles {tiles(d, q.dtype)}, or on decode a chunk "
+            f"of 32 keys or a multiple within the kernel's bounds")
     if route == "wgmma" and not tma:
         raise ValueError(
             f"flash tile {tile} is the wgmma kernel's, whose TMA loads "
@@ -601,16 +723,23 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
         mma = tile
     splits = chunk = 0
     part_o = part_ml = None
-    if route == "split":
-        splits, chunk = _kv_split(b, h, k.shape[1],
-                                  _sm_count(q.device.index or 0))
+    if decode:
+        tk, sms = k.shape[1], _sm_count(q.device.index or 0)
         if tile is not None:
             chunk = tile[1]
-            splits = -(-k.shape[1] // chunk)
-        part_o = torch.empty((b, h, tq, splits, -(-d // dk) * dk),
-                             dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b, h, tq, splits, 2), dtype=torch.float32,
-                              device=q.device)
+        elif route == "decode":
+            chunk = _decode_split(b, k.shape[2], tq * (h // k.shape[2]), tk,
+                                  d, sms)[1]
+        else:
+            chunk = _kv_split(b, h, tk, sms)[1]
+        splits = -(-tk // chunk)
+        if route == "decode":
+            part_o, part_ml = _decode_scratch(q, k, splits, chunk)
+        else:
+            part_o = torch.empty((b, h, tq, splits, -(-d // dk) * dk),
+                                 dtype=torch.float32, device=q.device)
+            part_ml = torch.empty((b, h, tq, splits, 2),
+                                  dtype=torch.float32, device=q.device)
     prm = _FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
         out=out.data_ptr(), lse=lse.data_ptr(),
@@ -622,15 +751,18 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
         **_common(q, k, kbias, bias, sm_scale=sm_scale, causal=causal,
                   q_offset=q_offset, window=window))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _build.dtype_code(q.dtype)
     with torch.cuda.device(q.device):
-        if route == "wgmma":
-            err = _wgmma_lib().flash_attention_fwd_wgmma(
-                ctypes.byref(prm), dk, _build.dtype_code(q.dtype), *mma,
+        if route == "decode":
+            err = _decode_lib().flash_attention_fwd_decode(
+                ctypes.byref(prm), dk, code, int(_DECODE_CLUSTER_MERGE),
                 stream)
+        elif route == "wgmma":
+            err = _wgmma_lib().flash_attention_fwd_wgmma(
+                ctypes.byref(prm), dk, code, *mma, stream)
         else:
             err = _fwd_lib().flash_attention_fwd(
-                ctypes.byref(prm), dk, _build.dtype_code(q.dtype), *mma,
-                stream)
+                ctypes.byref(prm), dk, code, *mma, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({route}) launch failed: "
                            f"CUDA error {err}")
@@ -642,7 +774,8 @@ def flash_fwd_kernel(q, k, v, kbias, bias, *, sm_scale: float,
 _build.counted(flash_fwd_kernel)
 #: the forward's launches by the kernel that served them (:func:`_route`),
 #: counted as ``launches`` is (a captured graph's replays included)
-flash_fwd_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0, "split": 0}
+flash_fwd_kernel.routes = {"wgmma": 0, "mma": 0, "simt": 0, "split": 0,
+                           "decode": 0}
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, kbias, bias, dq, dk,
@@ -961,10 +1094,35 @@ def flash_attention(q, k, v, *, causal: bool = False,
                                  int(q_offset), window, tile)
 
 
-def _rule_chunk(q, k) -> int:
-    """The split-KV chunk of the rule."""
-    return _kv_split(q.shape[0], q.shape[2], k.shape[1],
-                     _sm_count(q.device.index or 0))[1]
+def _decode_route(q, k, v) -> str:
+    """The route the rule gives a decode call (``q_len`` < 16) on these
+    CUDA views: ``decode`` where :func:`_route` gives it for the dtype,
+    width and views (:func:`_decode_ok`) and the kernel's check takes the
+    call at the rule's chunk (:func:`_decode_split`; one ticket a unit of
+    several chunks, B x Hkv x row blocks), else ``split``."""
+    b, tq, h, d = q.shape
+    ok = q.dtype != torch.float32 and _decode_ok(q, k, v)
+    if ok:
+        chunk = _decode_split(b, k.shape[2], tq * (h // k.shape[2]),
+                              k.shape[1], d,
+                              _sm_count(q.device.index or 0))[1]
+        prm = _FlashParams(B=b, H=h, Hkv=k.shape[2], tq=tq, tk=k.shape[1],
+                           chunk=chunk)
+        ok = _decode_lib().flash_attention_fwd_decode_check(
+            ctypes.byref(prm), _kernel_dim(d),
+            _build.dtype_code(q.dtype)) == 0
+    return _route(tq, d, q.dtype, None, ok)
+
+
+def _rule_chunk(q, k, v) -> int:
+    """The decode chunk of the rule: :func:`_decode_split`'s where the
+    rule runs the ``decode`` kernel, else :func:`_kv_split`'s."""
+    b, tq, h, d = q.shape
+    sms = _sm_count(q.device.index or 0)
+    if _decode_route(q, k, v) == "decode":
+        return _decode_split(b, k.shape[2], tq * (h // k.shape[2]),
+                             k.shape[1], d, sms)[1]
+    return _kv_split(b, h, k.shape[1], sms)[1]
 
 
 def _tuned_tile(q, k, causal, has_bias, window
@@ -989,19 +1147,21 @@ def _pick_tile(q, k, bias, causal, has_bias, window, block_q, block_k,
     ``v`` (k's layout when None) and the bias), else None (the rule).  The
     kernel path only."""
     tq, d = q.shape[1], q.shape[3]
+    v = k if v is None else v
     if tq >= _SPLIT_TQ and not tiles(d, q.dtype):
         return None                                   # SIMT: no tile
     if block_q is None and block_k is None:
         tile = _tuned_tile(q, k, causal, has_bias, window)
+        route = _decode_route(q, k, v) if tq < _SPLIT_TQ else None
         if tile is None or not tile_fits(tq, d, q.dtype, tile,
-                                         bias is not None):
+                                         bias is not None, route=route):
             return None
         if tq >= _SPLIT_TQ and _is_wgmma(tile) and not _tma_ok(
-                d, q, k, k if v is None else v,
+                d, q, k, v,
                 bias=None if bias is None else bias.to(
                     torch.float32).expand(q.shape[0], tq, k.shape[1])):
             return None
         return tile
     if tq < _SPLIT_TQ:
-        return (-1, int(block_k or _rule_chunk(q, k)))
+        return (-1, int(block_k or _rule_chunk(q, k, v)))
     return (int(block_q or -1), int(block_k or -1))

@@ -58,12 +58,13 @@ LOOP_FUSION_CATEGORY = "other"
 #: kernel kinds by substrings of the (lower-cased) kernel name, first
 #: match wins, ``other`` for none: serving steps
 SERVING_KINDS = (("qmm", ("qmm_kernel", "qmm_wgmma")),
-                 ("flash", ("flash_fwd_",)), ("layer_norm", ("ln_fwd",)),
+                 ("flash", ("flash_fwd_", "flash_decode")),
+                 ("layer_norm", ("ln_fwd",)),
                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("index", ("index", "gather", "scatter")))
 #: the LM and BERT training steps
 TRAINING_KINDS = (("qmm", ("qmm_kernel", "qmm_wgmma")),
-                  ("flash_fwd", ("flash_fwd_",)),
+                  ("flash_fwd", ("flash_fwd_", "flash_decode")),
                   ("flash_bwd", ("flash_bwd_",)),
                   ("layer_norm", ("ln_fwd", "ln_bwd")),
                   ("loss", ("xent_",)),
@@ -91,7 +92,8 @@ RESNET_KINDS = (("conv_fwd_kernel", ("conv_gemm_kernel<0", "kernelili0e",
 #: not launches of their own
 COUNTED_KERNELS = (
     ("flash_attention_fwd", ("flash_fwd_wgmma", "flash_fwd_mma",
-                             "flash_fwd_simt", "flash_fwd_split")),
+                             "flash_fwd_simt", "flash_fwd_split",
+                             "flash_decode")),
     ("flash_attention_bwd_dq", ("flash_bwd_dq",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_attention_bwd_db2", ("flash_bwd_db2",)),

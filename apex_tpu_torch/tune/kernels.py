@@ -15,8 +15,9 @@ Off the card (``interpret``) each runs its plain versions on the CPU.
 
 * **flash_attention** — ``block_q``/``block_k``: the tensor-core
   forward's tile (64 x 64 by the rule; 64 x 32, 64 x 128, 128 x 64, 128
-  x 128 at widths 64 and 128), and on the split-KV decode path the chunk
-  of keys a block reads.  Not exact: the online softmax's sums reorder
+  x 128 at widths 64 and 128), and on the decode routes (the decode
+  kernel, split-KV for fp32 and other widths) the chunk of keys a block
+  reads.  Not exact: the online softmax's sums reorder
   with the tile; tolerance phase 4's bf16 gate, 2e-2.
 * **conv2d** — ``block_m`` (128, the one instantiation) / ``block_n``
   (64 or 128) of the implicit-GEMM tile, for forward, dgrad and wgrad.
@@ -107,25 +108,38 @@ def _flash_decode(shape: Mapping) -> bool:
     return _flash_dims(shape)[2] < _mod("ops.flash_attention")._SPLIT_TQ
 
 
+def _flash_decode_chunk(fa, shape: Mapping) -> int:
+    # the decode route's rule chunk for the shape's contiguous views (one
+    # KV head a query head): the decode kernel's in bf16 and fp16 at
+    # widths 33-128, else the split-KV kernel's
+    b, h, tq, tk, d, _, dtype = _flash_dims(shape)
+    if dtype != torch.float32 and fa._kernel_dim(d) in fa._TUNED_DIMS:
+        return fa._decode_split(b, h, tq, tk, d, _sms())[1]
+    return fa._kv_split(b, h, tk, _sms())[1]
+
+
 def _flash_defaults(shape: Mapping) -> Dict[str, int]:
     # the rule: the wgmma kernel's tile at widths 64 and 128 in bf16 and
-    # fp16 (fa.rule_tile), the split-KV chunk on decode
+    # fp16 (fa.rule_tile), the decode route's chunk on decode
     fa = _mod("ops.flash_attention")
-    b, h, tq, tk, d, _, dtype = _flash_dims(shape)
+    _, _, tq, _, d, _, dtype = _flash_dims(shape)
     if tq < fa._SPLIT_TQ:
         return {"block_q": fa._RULE_TILE[0],
-                "block_k": fa._kv_split(b, h, tk, _sms())[1]}
+                "block_k": _flash_decode_chunk(fa, shape)}
     bq, bk = fa.rule_tile(d, dtype)
     return {"block_q": bq, "block_k": bk}
 
 
 def _flash_candidates(shape: Mapping, bound: Optional[str]
                       ) -> List[Dict[str, int]]:
+    # decode: chunks of 32 keys or a multiple, which both decode kernels
+    # take (the decode kernel up to 1,024), the rule's among them
     fa = _mod("ops.flash_attention")
     _, _, tq, tk, d, _, dtype = _flash_dims(shape)
     if tq < fa._SPLIT_TQ:
         chunks = sorted({c for c in (32, 64, 96, 128, 192, 256, 384, 512)
-                         if c <= max(32, tk)})
+                         if c <= max(32, tk)}
+                        | {_flash_decode_chunk(fa, shape)})
         return [{"block_q": fa._RULE_TILE[0], "block_k": c} for c in chunks]
     return [{"block_q": bq, "block_k": bk} for bq, bk in fa.tiles(d, dtype)]
 

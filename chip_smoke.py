@@ -29,8 +29,8 @@ line):
 
 1. the card's name and power limit (``nvidia-smi``); TF32 off, so fp32
    products are fp32;
-2. build the eight CUDA libraries (the flash forward's wgmma kernel;
-   its other routes; flash dQ and dK/dV's wgmma kernels; their other
+2. build the nine CUDA libraries (the flash forward's wgmma kernel;
+   its decode kernel; its other routes; flash dQ and dK/dV's wgmma kernels; their other
    routes and the bias gradient; the conv kernels' wgmma routes
    (forward, dgrad, wgrad); their other routes; the int8 quantized
    matmul's wgmma kernel; its decode and ``mma.sync`` routes: one
@@ -44,19 +44,24 @@ line):
    follows the plain version's, not the two-pass one);
 4. flash kernel vs plain at gpt2_small shapes: prefill with a
    ``[B, T, S]`` bias, full causal, decode (``q_len = 1``, key padding
-   bias: the split-KV path), GQA (12 query heads over 4 KV heads), a
-   256-key window, fp32, the LM's B 8, T 1023 causal call, fp16 (prefill
-   and decode), head widths 16, 48, 256, 320 and 512 (the last two
-   in 256-wide slices of the 256 kernel), the BERT step's B 16, T 128
-   with every key visible, and width 128; each case names the route
-   that served it (``flash_fwd_kernel.routes``), and where that is the
-   wgmma kernel the ``mma.sync`` rule's tile (64 x 64) is timed on the
-   same inputs beside it, and must be slower at the bf16/fp16 width-64
-   causal and bias cases; with ``--was`` the other checkout's forward
-   is timed beside each case; 4b. with ``--was``, the flash
-   kernels of this checkout and the other one at widths up to 256 on the
-   same inputs, compared bit for bit, forward and backward apart
-   (printed, not a gate).
+   bias: the decode kernel) at serving's two buckets (1024 and 256 keys),
+   GQA (12 query heads over 4 KV heads) causal and decode, a 256-key
+   window, fp32, the LM's B 8, T 1023 causal call, fp16 (prefill and
+   decode), head widths 16, 48, 256, 320 and 512 (the last two in
+   256-wide slices of the 256 kernel), the BERT step's B 16, T 128 with
+   every key visible, and width 128; each case names the route that
+   served it (``flash_fwd_kernel.routes``), and where that is the wgmma
+   kernel the ``mma.sync`` rule's tile (64 x 64) is timed on the same
+   inputs beside it, and must be slower at the bf16/fp16 width-64 causal
+   and bias cases; where it is the decode kernel the split-KV kernels
+   (``route="split"``) run on the same inputs under the same gates and
+   are timed beside it (their difference printed) and must be slower at
+   the four decode cases, and the decode kernel runs again with its
+   cluster merge off (the ticket's merge, gated and timed); with
+   ``--was`` the other checkout's forward is timed beside each case; 4b.
+   with ``--was``, the flash kernels of this checkout and the other one
+   at widths up to 256 on the same inputs, compared bit for bit, forward
+   and backward apart (printed, not a gate).
    ``library_ms`` times one
    PyTorch call computing the same function (``F.layer_norm``,
    ``F.scaled_dot_product_attention``) as a yardstick only; the port
@@ -70,15 +75,18 @@ line):
    replay; a replay adds the launches its graph recorded, the capture
    adds none; 4 graphs at warmup, no capture and no AOT miss while
    serving, one replay a step; every prefill forward on the wgmma
-   route, every decode step's on split-KV, counted as the launches
-   are), then the
+   route, every decode step's on the decode kernel and none on
+   split-KV, 12 each a forward, counted as the launches are), then the
    same load through the eager bodies: greedy tokens equal bit for bit,
    tokens/s, TTFT and TPOT p50/p99, host ms a step and the bytes of the
    graphs' memory pool, both ways; then a
    256-token prefill's logits on the card against the CPU port in fp32,
    and gpt_tiny served in fp32 on the card and on the CPU with equal
    greedy tokens (a mismatch is allowed only where the CPU's top-2 logit
-   gap at that step is below 1e-4);
+   gap at that step is below 1e-4); with ``--was`` the same load through
+   the other checkout's captured engine and this one's, alternated (was,
+   this, this, was, twice), every run's tokens/s and TPOT printed (no
+   gate; phase 17 the same for O4);
 6. where the time goes: one serving run traced with ``torch.profiler``
    (device busy and idle share, host and device time per prefill and
    decode step, kernels a step, device time by kernel kind), captured
@@ -197,8 +205,8 @@ line):
    eager bodies as in phase 5 (72 qmm, 25 LN and 12 flash launches a
    forward, nothing else; 72 weight preparations at the engine's warmup
    and none while serving; every prefill forward's qmm on the wgmma
-   route, every decode step's on split; tokens equal), traced as in
-   phase 6, and
+   route, every decode step's on split; the flash routes as phase 5's;
+   tokens equal), traced as in phase 6, and
    O4 beside O2 (host and device ms and kernels a decode step,
    tokens/s); O4 with an empty calibration equal to O2 bit for bit, O4
    vs O2 prefill logits, and O4's prefill logits and greedy tokens with
@@ -320,7 +328,8 @@ line):
    a later step with a corrupted shard not adopted (``last_error``
    names it) while serving goes on; launches per forward (the warm runs
    of every capture, the 4 after the swap among them, and the
-   replays); the watcher's load ms, the adopting step's ms and TPOT p99
+   replays; every flash decode step on the decode kernel, none on
+   split-KV); the watcher's load ms, the adopting step's ms and TPOT p99
    across the swap, while the watcher staged, and without a swap;
 27. data parallel under NCCL: the ImageNet trainer at ResNet-50 O2 B
    128 with ``--loss-scale dynamic --pallas-conv --fused-loss --sync_bn
@@ -375,8 +384,10 @@ line):
    per decode step the request was in), ``prof.requests``' TTFT and TPOT
    per request equal to each ``ServedResult.timings``, ``GET /metrics``
    with ``serving_tokens_per_s`` and ``slo_goodput_pct``, the 4 warmup
-   captures as ``retrace`` events and none while serving; TPOT p50/p99
-   and tokens/s of the four runs, and the host us of one ``span`` and
+   captures as ``retrace`` events and none while serving; every flash
+   decode step of the four runs on the decode kernel, none on split-KV;
+   TPOT p50/p99 and tokens/s of the four runs, and the host us of one
+   ``span`` and
    one ``decode`` event through a recorder with the traced run's
    attachments;
 31. the profiling stages (``apex_tpu_torch.prof``) over phase 20's LM
@@ -441,10 +452,11 @@ line):
 36. sequence parallelism: (a) kernels 10-12 against their plain
    versions at the ring's relative offsets (-512, 0, +512 and -475 with
    512-row shards; GPT-2 small's 12 x 64 heads, B 8; bf16, fp32 and the
-   split-KV route at q_len 8; causal and not): a row with no visible key
+   decode route at q_len 8; causal and not): a row with no visible key
    gives out 0 and lse -1e30, hidden rows and unseen keys zero
    gradients, no NaN; every bf16 forward at 512 rows on the wgmma
-   route, fp32 on SIMT, q_len 8 on split-KV; (b) two gloo ranks on the card
+   route, fp32 on SIMT, q_len 8 on the decode kernel; (b) two gloo ranks
+   on the card
    (``--seq-gloo-worker``, the ring's send and receive, Ulysses's
    all_to_all and the mesh's all-gather and reduce-scatter staged
    through the host inside ``distributed.host_staging()``):
@@ -481,7 +493,9 @@ LM steps again).
 
 The line before the last two is one JSON object describing every kernel
 (time, bound, launches on its path: the LN and flash forward kernels' on
-the serving run, their backward kernels' on the LM training run, the BN
+the serving run (the decode kernel, ``flash_attention_fwd_decode``,
+its own row: its launches the serving paths' decode routes), their
+backward kernels' on the LM training run, the BN
 and cross-entropy kernels' and the conv kernels' on the ResNet-50
 run, the qmm kernel's on the O4 serving run, the bias-gradient kernel's
 on phase 19's backward passes; ``launches_by_path`` adds every other
@@ -686,6 +700,11 @@ def layer_norm_large_mean(fln, dev):
 FLASH_MUST_BEAT_MMA = ("prefill bias [1,1024,1024]", "causal 1024",
                        "gqa 12/4 causal 1024", "lm causal b8 t1023",
                        "fp16 causal 1024")
+#: phase 4's decode cases (serving's two buckets, fp16, GQA 12/4), where
+#: the decode kernel must beat the split-KV kernels on the same inputs
+FLASH_MUST_BEAT_SPLIT = ("decode b8 tq1 tk1024", "fp16 decode b8 tq1 tk1024",
+                         "decode b8 tq1 tk256",
+                         "gqa 12/4 decode b8 tq1 tk1024")
 
 
 def zero_routes(fa):
@@ -695,16 +714,21 @@ def zero_routes(fa):
         fa.flash_fwd_kernel.routes[r] = 0
 
 
-def route_gate(fa, name, launches):
+def route_gate(fa, name, launches, decode=False):
     """Since :func:`zero_routes`: every flash forward with q_len >= 16 of
-    the path (all bf16 at width 64) was served by the wgmma kernel, the
-    rest by split-KV decode: no mma.sync or SIMT launch, and the routes
-    sum to the forward's ``launches`` (captured replays included)."""
+    the path (all bf16 at width 64) was served by the wgmma kernel and,
+    where the path decodes (``decode``), every decode step's by the decode
+    kernel (``csrc/flash_decode_sm90.cu``): no mma.sync, SIMT or split-KV
+    launch, and the routes sum to the forward's ``launches`` (captured
+    replays included)."""
     routes = dict(fa.flash_fwd_kernel.routes)
     check(routes["wgmma"] > 0 and routes["mma"] == 0 and routes["simt"] == 0
+          and routes["split"] == 0 and (routes["decode"] > 0) == decode
           and sum(routes.values()) == launches,
           f"{name}: flash forward routes {routes}: every prefill or "
-          f"training forward on wgmma, {launches} launches")
+          f"training forward on wgmma"
+          f"{', every decode step on decode' if decode else ''}, none on "
+          f"split-KV, {launches} launches")
     return routes
 
 
@@ -823,6 +847,11 @@ def flash_cases(fa, dev, was_fa=None):
     decode_kb = torch.where(key[None, :] <= lengths[:, None], 0.0, -1e9)
     band = ((key[:, None] >= key[None, :])
             & (key[:, None] - key[None, :] < 256))
+    # serving's small bucket: 256 keys, each row's live prefix
+    lengths256 = torch.from_numpy(
+        np.random.RandomState(5).randint(32, 256, 8)).to(dev)
+    decode_kb256 = torch.where(
+        key[None, :256] <= lengths256[:, None], 0.0, -1e9)
     bf16, fp16 = torch.bfloat16, torch.float16
     specs = [
         # name, b, tq, tk, h_kv, head_dim, dtype, causal, window, kbias,
@@ -863,6 +892,12 @@ def flash_cases(fa, dev, was_fa=None):
         # the wgmma kernel's other width
         ("head_dim 128 causal 1024", 1, t, t, h, 128, bf16, True, None, None,
          None, dict(is_causal=True)),
+        # serving's other bucket, and a GQA decode (K and V read once for
+        # the three query heads of a KV head)
+        ("decode b8 tq1 tk256", 8, 1, 256, h, 64, bf16, True, None,
+         decode_kb256, None, dict(attn_mask=decode_kb256[:, None, None, :])),
+        ("gqa 12/4 decode b8 tq1 tk1024", 8, 1, t, 4, 64, bf16, True, None,
+         decode_kb, None, dict(attn_mask=decode_kb[:, None, None, :])),
     ]
     cases = []
     for (name, b, tq, tk, h_kv, d, dtype, causal, window, kb, bias,
@@ -900,7 +935,7 @@ def flash_cases(fa, dev, was_fa=None):
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=d ** -0.5, **lib)),
             bound_ms=bms, bound_by=by, route=route, mma_ms=None,
-            was_ms=None)
+            split_ms=None, was_ms=None)
         line = ""
         if route == "wgmma":
             # the mma.sync kernel by its rule's tile, on the same inputs
@@ -915,6 +950,53 @@ def flash_cases(fa, dev, was_fa=None):
                 check(case["ms"] < case["mma_ms"],
                       f"flash {name}: wgmma {case['ms']:.4f} ms < mma.sync "
                       f"rule {case['mma_ms']:.4f} ms")
+        if route == "decode":
+            # the split-KV kernels on the same inputs, held to the same
+            # gates
+            so, sl = fa.flash_fwd_kernel(q, k, v, kb, bias, route="split",
+                                         **kw)
+            torch.cuda.synchronize()
+            case["split_max_abs_err"] = max_err(so, want_out)
+            case["split_lse_max_abs_err"] = max_err(sl, want_lse)
+            case["decode_vs_split_max_abs_diff"] = max_err(out, so)
+            check(case["split_max_abs_err"] <= tol
+                  and case["split_lse_max_abs_err"] <= 1e-3,
+                  f"flash {name} (split): max_abs_err "
+                  f"{case['split_max_abs_err']:.3g} <= {tol}, lse "
+                  f"{case['split_lse_max_abs_err']:.3g} <= 1e-3")
+            # the decode kernel with its cluster merge off: 2-8 chunks
+            # merged through the ticket, as a call of more chunks is
+            fa._DECODE_CLUSTER_MERGE = False
+            try:
+                to, tl = fa.flash_fwd_kernel(q, k, v, kb, bias, **kw)
+                torch.cuda.synchronize()
+                case["ticket_ms"] = time_ms(lambda: fa.flash_fwd_kernel(
+                    q, k, v, kb, bias, **kw))
+            finally:
+                fa._DECODE_CLUSTER_MERGE = True
+            case["ticket_max_abs_err"] = max_err(to, want_out)
+            case["ticket_lse_max_abs_err"] = max_err(tl, want_lse)
+            case["ticket_same_bits"] = bool(torch.equal(to, out)
+                                            and torch.equal(tl, lse))
+            check(case["ticket_max_abs_err"] <= tol
+                  and case["ticket_lse_max_abs_err"] <= 1e-3,
+                  f"flash {name} (decode, ticket merge): max_abs_err "
+                  f"{case['ticket_max_abs_err']:.3g} <= {tol}, lse "
+                  f"{case['ticket_lse_max_abs_err']:.3g} <= 1e-3")
+            line += (f", ticket merge {case['ticket_ms']:.4f} ms (same "
+                     f"bits {case['ticket_same_bits']})")
+            case["split_ms"] = time_ms(lambda: fa.flash_fwd_kernel(
+                q, k, v, kb, bias, route="split", **kw))
+            case["split_eager_ms"] = eager_ms(lambda: fa.flash_fwd_kernel(
+                q, k, v, kb, bias, route="split", **kw))
+            case["at_or_below_library"] = case["ms"] <= case["library_ms"]
+            line += (f", split-KV {case['split_ms']:.4f} ms (eager "
+                     f"{case['split_eager_ms']:.4f}), max |decode - split| "
+                     f"{case['decode_vs_split_max_abs_diff']:.3g}")
+            if name in FLASH_MUST_BEAT_SPLIT:
+                check(case["ms"] < case["split_ms"],
+                      f"flash {name}: decode {case['ms']:.4f} ms < split-KV "
+                      f"{case['split_ms']:.4f} ms")
         if was_fa is not None:
             case["was_ms"] = time_ms(lambda: was_fa.flash_fwd_kernel(
                 q, k, v, kb, bias, **kw))
@@ -1363,7 +1445,18 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
           f"{forwards} forwards (the warmup's warm runs and the "
           f"replays)")
     res["flash_routes"] = route_gate(fa_mod, f"gpt2_small ({tag} KV)",
-                                     launches["flash_attention_fwd"])
+                                     launches["flash_attention_fwd"],
+                                     decode=True)
+    # a warm run of each bucket's prefill and decode, then one replay a
+    # prefill or decode step: 12 forwards a layer stack each
+    per = per_forward["flash_attention_fwd"]
+    warm = cache.WARM_RUNS * res["warmup_captures"] // 2
+    want = {"wgmma": per * (warm + st["prefills"]),
+            "decode": per * (warm + st["decode_steps"])}
+    check({r: n for r, n in res["flash_routes"].items() if n} == want,
+          f"gpt2_small ({tag} KV): flash forward routes "
+          f"{res['flash_routes']} = {want} ({per} a prefill forward on "
+          f"wgmma, {per} a decode step on decode)")
     eager_results, _, eager = _serve(model, eager_engine_cls(engine_mod),
                                      prompts, dev, cache_dtype)
     same = sum(np.array_equal(a.tokens, b.tokens)
@@ -1392,6 +1485,41 @@ def serve_gpt2_small(model, engine_mod, counters, dev, per_forward,
                                  res), flush=True)
     print("      " + _serve_line("eager", eager), flush=True)
     return res
+
+
+def serve_alternated(sides, dev, tag, cache_dtype=None, rounds=2):
+    """With ``--was``: the phase-5 load (the same 16 prompts) through this
+    checkout's captured engine and the other checkout's (``sides``: name
+    -> (model, engine module), each model built by its checkout), in one
+    process, alternated ``rounds`` times as was, this, this, was, so the
+    host's drift falls on both alike: every run's tokens/s, TTFT and TPOT
+    p50/p99 and host ms a decode step, printed, and each side's median
+    (no gate: another checkout's kernels)."""
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, sides["this"][0].vocab_size, (int(n),))
+               for n in rng.randint(32, 901, 16)]
+    keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+            "tpot_p99_ms", "decode_step_ms_mean")
+    runs = {"was": [], "this": []}
+    for who in ("was", "this", "this", "was") * rounds:
+        model, engine_mod = sides[who]
+        results, _, res = _serve(model, engine_mod.ServingEngine, prompts,
+                                 dev, cache_dtype)
+        runs[who].append(dict({k: res[k] for k in keys},
+                              ok=sum(r.ok for r in results)))
+        print("      " + _serve_line(f"{who} ({tag}, run {len(runs[who])})",
+                                     res), flush=True)
+    out = dict(runs=runs, order="was, this, this, was" + f" x {rounds}")
+    for who, rs in runs.items():
+        out[who] = {k: float(np.median([r[k] for r in rs])) for k in keys}
+    print(f"      {tag} alternated, medians of {2 * rounds} runs each: this "
+          f"{out['this']['tokens_per_s']:.1f} tok/s, tpot p50 / p99 "
+          f"{out['this']['tpot_p50_ms']:.2f} / "
+          f"{out['this']['tpot_p99_ms']:.2f} ms; was "
+          f"{out['was']['tokens_per_s']:.1f} tok/s, "
+          f"{out['was']['tpot_p50_ms']:.2f} / "
+          f"{out['was']['tpot_p99_ms']:.2f} ms", flush=True)
+    return out
 
 
 def preparations(model) -> int:
@@ -4358,8 +4486,11 @@ def hotswap_serving(models, engine_mod, convert, checkpoint, counters, dev,
                for n in rng.randint(32, 901, 16)]
     later = [rng.randint(1, model.vocab_size, (int(n),))
              for n in rng.randint(32, 901, 16)]
+    fa_mod = importlib.import_module(
+        counters["flash_attention_fwd"].__module__)
     for c in counters.values():
         c.launches = 0
+    zero_routes(fa_mod)
     eng = engine_mod.ServingEngine(
         model, buckets=(256, 1024), page_size=16, max_seqs=8, device=dev,
         watch_dir=watch, extract=convert.gpt_params_from_train_state,
@@ -4393,6 +4524,8 @@ def hotswap_serving(models, engine_mod, convert, checkpoint, counters, dev,
            and time.perf_counter() < deadline):
         tail += eng.generate(prompts[:4], max_new_tokens=32)
     launches = {n: c.launches for n, c in counters.items()}
+    flash_routes = route_gate(fa_mod, "gpt2_small hot-swap",
+                              launches["flash_attention_fwd"], decode=True)
     st = dict(eng.stats)
     load_ms = eng.watcher.load_s * 1e3
     last_error = eng.watcher.last_error
@@ -4445,7 +4578,7 @@ def hotswap_serving(models, engine_mod, convert, checkpoint, counters, dev,
                tpot_p99_ms_while_staging=tpot_p99(served_before),
                tpot_p99_ms_without_swap=tpot_p99(after),
                tokens_equal_fresh=same, torn_last_error=last_error,
-               launches=launches)
+               launches=launches, flash_routes=flash_routes)
     print(f"      gpt2_small hot-swap: the watcher's thread staged step 16 "
           f"in {load_ms:.1f} ms (adopted {wait_s:.2f} s after it was "
           f"published), the adopting step's swap and recapture "
@@ -5119,6 +5252,9 @@ def serving_telemetry(model, engine_mod, dev, phase5_tokens, tmp):
                for n in rng.randint(32, 901, 16)]
     saved = {k: os.environ.pop(k) for k in TELEMETRY_ENV if k in os.environ}
     runs = {}
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    fa.flash_fwd_kernel.launches = 0
+    zero_routes(fa)
     try:
         for tag, path, n, slo in (
                 ("none", None, 0, None),
@@ -5129,6 +5265,8 @@ def serving_telemetry(model, engine_mod, dev, phase5_tokens, tmp):
                                       telemetry, path, n, slo)
     finally:
         os.environ.update(saved)
+    flash_routes = route_gate(fa, "serving telemetry (4 runs)",
+                              fa.flash_fwd_kernel.launches, decode=True)
     results, res, body = runs["traced"]
     same = sum(np.array_equal(r.tokens, t)
                for r, t in zip(results, phase5_tokens))
@@ -5173,6 +5311,7 @@ def serving_telemetry(model, engine_mod, dev, phase5_tokens, tmp):
           f"({len(retr)}), {res['captures_serving']} while serving")
     req = trequests.analyze(ev, slo=SERVE_SLO)
     out = {tag: r[1] for tag, r in runs.items()}
+    out["flash_routes"] = flash_routes
     out["slo"] = req.get("slo")
     out["slo_online"] = req.get("slo_online")
     out["events"] = len(ev)
@@ -6626,9 +6765,10 @@ def ring_kernel_offsets(fa, dev):
                     print(f"      ring offsets {key}: errs {errs}, finite "
                           f"{finite}, hidden zeros {zeros}", flush=True)
         # the route of every forward of this group: bf16 at 512 rows on
-        # wgmma, fp32 on SIMT, 8 rows on split-KV
+        # wgmma, fp32 on SIMT, 8 rows on the decode kernel (none on
+        # split-KV)
         routes = dict(fa.flash_fwd_kernel.routes)
-        want = ("split" if tq < fa._SPLIT_TQ else
+        want = ("decode" if tq < fa._SPLIT_TQ else
                 "simt" if dtype == torch.float32 else "wgmma")
         check(routes[want] > 0 and sum(routes.values()) == routes[want],
               f"ring offsets {str(dtype)[6:]} q_len {tq}: forward routes "
@@ -6640,8 +6780,9 @@ def ring_kernel_offsets(fa, dev):
                   f"ring offsets {str(dtype)[6:]} q_len {tq}: backward "
                   f"{key} routes {got}, all {want}")
     check(ok, f"ring offsets: kernels 10-12 vs plain at q_offset "
-              f"{{-512, 0, +512, -475}} (bf16 2e-2, fp32 1e-4; split-KV "
-              f"q_len 8 in bf16), hidden rows 0 / -1e30 / zero gradients, "
+              f"{{-512, 0, +512, -475}} (bf16 2e-2, fp32 1e-4; the decode "
+              f"kernel at q_len 8 in bf16), hidden rows 0 / -1e30 / zero "
+              f"gradients, "
               f"no NaN: worst {max(worst.values()):.3g}")
     print("      ring offsets, bf16 causal, B 8 x 512 rows x 12 x 64, "
           "kernels 10 / 11 / 12 ms (bound ms): " + "; ".join(
@@ -7101,7 +7242,8 @@ def main(argv=None) -> int:
                     help="the root of another checkout of the port (the "
                          "parent commit's): phases 4b, 15b, 16 and 19 "
                          "time its flash, conv, qmm and db2 kernels "
-                         "beside this one's")
+                         "beside this one's, and phases 5, 17 and 6 serve "
+                         "and trace its engine")
     ap.add_argument("--ddp-gloo-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--shard-gloo-worker", default=None, metavar="DIR",
@@ -7198,6 +7340,8 @@ def main(argv=None) -> int:
     jobs = {"flash_attention_nvcc_s": lambda: build.load("flash_attention"),
             "flash_attention_sm90_nvcc_s":
                 lambda: build.load("flash_attention_sm90"),
+            "flash_decode_sm90_nvcc_s":
+                lambda: build.load("flash_decode_sm90"),
             "flash_attention_rule_tile_only_nvcc_s":
                 lambda: build_rule_tiles(tile_scratch, "flash_attention"),
             "flash_attention_sm90_rule_tile_only_nvcc_s":
@@ -7215,8 +7359,9 @@ def main(argv=None) -> int:
     if args.was:
         was_build = load_was(args.was, "_build")
         for name in ("flash_attention", "flash_attention_sm90",
-                     "flash_attention_bwd", "flash_attention_bwd_sm90",
-                     "conv", "conv_sm90", "quant", "quant_sm90"):
+                     "flash_decode_sm90", "flash_attention_bwd",
+                     "flash_attention_bwd_sm90", "conv", "conv_sm90",
+                     "quant", "quant_sm90"):
             if os.path.exists(os.path.join(args.was, "apex_tpu_torch",
                                            "csrc", f"{name}.cu")):
                 jobs[f"was_{name}_nvcc_s"] = (
@@ -7235,8 +7380,9 @@ def main(argv=None) -> int:
           f"of flash_attention_sm90.cu's (conv and qmm reuse their "
           f"instantiations)", flush=True)
     for name in ("flash_attention", "flash_attention_sm90",
-                 "flash_attention_bwd", "flash_attention_bwd_sm90", "conv",
-                 "conv_sm90", "quant", "quant_sm90"):
+                 "flash_decode_sm90", "flash_attention_bwd",
+                 "flash_attention_bwd_sm90", "conv", "conv_sm90", "quant",
+                 "quant_sm90"):
         report = [ln for ln in build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"      ptxas {name}: "
@@ -7284,6 +7430,14 @@ def main(argv=None) -> int:
     model = models.gpt2_small(dtype=torch.bfloat16, device=dev, seed=0)
     serving = serve_gpt2_small(model, engine_mod, counters, dev,   # 5
                                SERVE_PER_FORWARD)
+    if args.was:
+        was_models = load_was(args.was, "models")
+        was_engine = load_was(args.was, "serving.engine")
+        was_model = was_models.gpt2_small(dtype=torch.bfloat16, device=dev,
+                                          seed=0)
+        serving["was"] = serve_alternated(
+            {"this": (model, engine_mod), "was": (was_model, was_engine)},
+            dev, "O2")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as d:
         serve_tel = serving_telemetry(model, engine_mod, dev,         # 30
                                       serving["tokens"], d)
@@ -7292,9 +7446,23 @@ def main(argv=None) -> int:
     o4_serving = serve_gpt2_small(o4_model, engine_mod, counters,  # 17
                                   dev, O4_SERVE_PER_FORWARD,
                                   cache_dtype=torch.int8)
+    if args.was:
+        was_o4_model = was_models.gpt2_small(
+            dtype=torch.bfloat16, device=dev, seed=0,
+            quant=load_was(args.was, "quant").QuantConfig.frozen(calib))
+        o4_serving["was"] = serve_alternated(
+            {"this": (o4_model, engine_mod),
+             "was": (was_o4_model, was_engine)},
+            dev, "O4", cache_dtype=torch.int8)
     serving.update(prefill_logits(models, dev))
     serving.update(tiny_tokens(models, engine_mod, dev))
     profile_res = where_time_goes(model, engine_mod, dev)          # 6
+    if args.was:
+        # the other checkout's captured engine, traced the same way
+        profile_res["was"] = where_time_goes(was_model, was_engine, dev)
+        o4_serving["profile_was"] = where_time_goes(
+            was_o4_model, was_engine, dev, cache_dtype=torch.int8)
+        del was_model, was_o4_model
     profile_res["eager"] = where_time_goes(
         model, engine_mod, dev, engine_cls=eager_engine_cls(engine_mod))
     o4_serving["profile"] = where_time_goes(o4_model, engine_mod, dev,
@@ -7427,6 +7595,10 @@ def main(argv=None) -> int:
              "ring_lm": seq["gloo"].get("ring_lm_launches", {}),
              "mesh_zero3": seq["mesh_nccl"]["zero3"]["launches"]}
 
+    decode_cases = [c for c in fa_cases if c["route"] == "decode"]
+    decode_main = next(c for c in decode_cases
+                       if c["case"] == "decode b8 tq1 tk1024")
+
     def entry(name, route, source, replaces, cases, main_case, path):
         rep = cases[main_case]
         launches = {p: counts.get(name) for p, counts in paths.items()}
@@ -7450,14 +7622,33 @@ def main(argv=None) -> int:
               "apex_tpu/normalization/fused_layer_norm.py:223", ln_bwd_cases,
               0, "training"),
         # the serving path's prefill forwards run the wgmma kernel, its
-        # decode steps the split-KV kernels of flash_attention.cu
+        # decode steps the decode kernel (its own row below)
         dict(entry("flash_attention_fwd", "cuda",
                    "apex_tpu_torch/csrc/flash_attention_sm90.cu",
                    "apex_tpu/ops/flash_attention.py:238", fa_cases, 0,
                    "serving"),
              sources=["apex_tpu_torch/csrc/flash_attention_sm90.cu",
+                      "apex_tpu_torch/csrc/flash_decode_sm90.cu",
                       "apex_tpu_torch/csrc/flash_attention.cu"],
              routes=serving["flash_routes"]),
+        # the decode route of the same wrapper: its launches are the
+        # serving paths' decode routes
+        dict(name="flash_attention_fwd_decode", route="cuda",
+             source="apex_tpu_torch/csrc/flash_decode_sm90.cu",
+             replaces="apex_tpu/ops/flash_attention.py:238",
+             launches=serving["flash_routes"]["decode"],
+             launches_by_path={
+                 "serving": serving["flash_routes"]["decode"],
+                 "o4_serving": o4_serving["flash_routes"]["decode"],
+                 "hotswap_serving": state_input["hotswap_serving"][
+                     "flash_routes"]["decode"],
+                 "serving_telemetry": serve_tel["flash_routes"]["decode"]},
+             max_abs_err=max(c["max_abs_err"] for c in decode_cases),
+             ms=decode_main["ms"], plain_ms=decode_main["plain_ms"],
+             bound_ms=decode_main["bound_ms"],
+             bound_by=decode_main["bound_by"],
+             library_ms=decode_main["library_ms"],
+             shape=decode_main["case"], cases=decode_cases),
         # the training path's dQ and dK/dV run the wgmma kernels; fp32,
         # widths 16, 32 and above 128 the kernels of flash_attention_bwd.cu
         dict(entry("flash_attention_bwd_dq", "cuda",

@@ -325,8 +325,8 @@ def test_mha_attention_is_the_blockwise_alias_as_in_jax():
     (64, 64, torch.float32, None, True, "simt"),
     (64, 160, torch.bfloat16, None, True, "simt"),
     (64, 256, torch.float16, None, True, "simt"),
-    (15, 64, torch.bfloat16, None, True, "split"),
-    (1, 64, torch.bfloat16, (64, 96), True, "split"),
+    (15, 64, torch.bfloat16, None, True, "decode"),
+    (1, 64, torch.bfloat16, (64, 96), True, "decode"),
 ])
 def test_forward_route_by_dtype_width_qlen_and_tile(tq, d, dtype, tile, tma,
                                                     want):
@@ -386,7 +386,7 @@ def test_tiles_each_name_one_kernel_and_hold_the_rule():
 
 def test_route_counter_keys():
     routes = fa_mod.flash_fwd_kernel.routes
-    assert set(routes) == {"wgmma", "mma", "simt", "split"}
+    assert set(routes) == {"wgmma", "mma", "simt", "split", "decode"}
     assert all(isinstance(n, int) for n in routes.values())
 
 
@@ -474,3 +474,151 @@ def test_wgmma_route_widths_match_jax(d, case):
         kw = dict(window=8) if case == "window" else {}
         got, want = _both(q, k, v, BLOCKS, causal=True, **kw)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# -- the decode route (csrc/flash_decode_sm90.cu): the rule that picks it,
+#    its chunking, and its plain version against JAX
+
+@pytest.mark.parametrize("tq,d,dtype,views,want", [
+    (1, 64, torch.bfloat16, "contiguous", "decode"),
+    (15, 64, torch.float16, "contiguous", "decode"),
+    (4, 128, torch.bfloat16, "contiguous", "decode"),
+    (1, 48, torch.bfloat16, "contiguous", "decode"),
+    (1, 104, torch.float16, "contiguous", "decode"),
+    (1, 64, torch.bfloat16, "fused", "decode"),
+    (1, 64, torch.float32, "contiguous", "split"),
+    (1, 16, torch.bfloat16, "contiguous", "split"),
+    (1, 32, torch.float16, "contiguous", "split"),
+    (1, 160, torch.bfloat16, "contiguous", "split"),
+    (1, 256, torch.bfloat16, "contiguous", "split"),
+    (1, 52, torch.bfloat16, "contiguous", "split"),
+    (1, 64, torch.bfloat16, "odd_start", "split"),
+    (1, 64, torch.bfloat16, "batch_broadcast", "split"),
+    (16, 64, torch.bfloat16, "contiguous", "wgmma"),
+])
+def test_decode_route_by_dtype_width_qlen_and_views(tq, d, dtype, views,
+                                                    want):
+    """q_len < 16 runs the decode kernel for bf16 and fp16 at kernel widths
+    64 and 128 (heads 33-128) wherever TMA can read K and V in place (a
+    fused projection's strided views included); fp32, widths 16, 32 and
+    above 128, a head whose rows break TMA's 16-byte rule, an odd start
+    and a batch broadcast by a zero stride run ``split``: the rule, asked
+    of the views, never a failed launch."""
+    b, tk, h, h_kv = 2, 40, 4, 2
+    q = torch.zeros(b, tq, h, d, dtype=dtype)
+    if views == "fused":
+        k, v = torch.zeros(b, tk, 2, h_kv, d, dtype=dtype).unbind(2)
+    elif views == "odd_start":
+        k = torch.zeros(b * tk * h_kv * d + 1, dtype=dtype)[1:].view(
+            b, tk, h_kv, d)
+        v = torch.zeros(b, tk, h_kv, d, dtype=dtype)
+    elif views == "batch_broadcast":
+        k = torch.zeros(1, tk, h_kv, d, dtype=dtype).expand(b, tk, h_kv, d)
+        v = torch.zeros(b, tk, h_kv, d, dtype=dtype)
+    else:
+        k, v = (torch.zeros(b, tk, h_kv, d, dtype=dtype) for _ in range(2))
+    tma = (dtype != torch.float32
+           and fa_mod._kernel_dim(d) in fa_mod._TUNED_DIMS
+           and (fa_mod._decode_ok(q, k, v) if tq < fa_mod._SPLIT_TQ
+                else fa_mod._tma_ok(d, q, k, v)))
+    assert fa_mod._route(tq, d, dtype, None, tma) == want
+    if tq < fa_mod._SPLIT_TQ:
+        # a named split route is taken where the rule is decode; nothing
+        # else is
+        assert fa_mod._pick_fwd_route("split", want) == "split"
+        assert fa_mod._pick_fwd_route(None, want) == want
+        with pytest.raises(ValueError, match="route"):
+            fa_mod._pick_fwd_route("wgmma", want)
+        if want == "split":
+            with pytest.raises(ValueError, match="route"):
+                fa_mod._pick_fwd_route("decode", want)
+
+
+@pytest.mark.parametrize("b,h_kv,rows,tk,d", [
+    (8, 12, 1, 1024, 64), (8, 12, 1, 256, 64), (8, 4, 3, 1024, 64),
+    (3, 12, 1, 1000, 128), (2, 2, 2, 20, 64), (2, 1, 32, 4096, 128),
+    (1, 12, 8, 512, 48), (8, 12, 1, 8192, 64), (1, 1, 1, 20000, 64),
+    (64, 32, 4, 4096, 128),
+])
+def test_decode_split_covers_the_keys_within_a_wave(b, h_kv, rows, tk, d):
+    """The decode rule's chunking: chunks multiples of 32 keys up to
+    1,024, every key in exactly one chunk, at most 8 chunks (one cluster)
+    unless 1,024-key chunks need more, and no more blocks than three an
+    SM unless one chunk a unit already exceeds that."""
+    sms = 132
+    splits, chunk = fa_mod._decode_split(b, h_kv, rows, tk, d, sms)
+    assert chunk % fa_mod._DECODE_BK == 0
+    assert fa_mod._DECODE_BK <= chunk <= fa_mod._DECODE_MAX_CHUNK
+    assert (splits - 1) * chunk < tk <= splits * chunk
+    assert splits <= fa_mod._DECODE_CLUSTER or chunk == 1024
+    units = b * h_kv * -(-rows // fa_mod._DECODE_ROWS[fa_mod._kernel_dim(d)])
+    assert units * splits <= max(3 * sms, units) or chunk == 1024
+
+
+def _decode_case(case):
+    """(q, k, v, key-padding bias or None, window or None) of a decode
+    case, fp32 numpy."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    b, tk, d = 2, 300, 64
+    tq, h, h_kv = {"tq1_gqa": (1, 12, 4), "tq4_mha": (4, 12, 12),
+                   "tq15_gqa": (15, 12, 4)}.get(case, (1, 12, 4))
+    q = rng.randn(b, tq, h, d).astype(np.float32)
+    k = rng.randn(b, tk, h_kv, d).astype(np.float32)
+    v = rng.randn(b, tk, h_kv, d).astype(np.float32)
+    kb, window = None, None
+    if case in ("dead_tail", "tq4_mha", "tq15_gqa", "tq1_gqa"):
+        # the engine's cache: each row's live prefix, -1e9 on the tail
+        live = np.arange(tk)[None, :] <= np.array([[57], [tk - 1]])
+        kb = np.where(live, 0.0, -1e9).astype(np.float32)
+    elif case == "window":
+        window = 70
+    elif case == "chunk_no_live_key":
+        # keys 96-191 dead in every row: a whole chunk of 32 (and of 64)
+        # weighs nothing
+        kb = np.where((np.arange(tk) >= 96) & (np.arange(tk) < 192), -1e9,
+                      0.0)[None].repeat(b, 0).astype(np.float32)
+    elif case == "row_no_live_key":
+        # batch row 0 sees only dead keys: every score -1e9, as JAX's
+        # kernel gives them (the average of v)
+        kb = np.zeros((b, tk), np.float32)
+        kb[0] = -1e9
+    return q, k, v, kb, window
+
+
+DECODE_CASES = ["tq1_gqa", "tq4_mha", "tq15_gqa", "dead_tail", "window",
+                "chunk_no_live_key", "row_no_live_key"]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("chunk", ["rule", 32, 96])
+def test_decode_plain_version_matches_jax(case, chunk):
+    """The decode kernel's arithmetic (its plain version,
+    ``_flash_fwd_split_ref`` at the decode rule's chunk or a named one:
+    each chunk's (m, l, acc), merged in chunk order) against the JAX
+    flash attention on the same inputs: q_len 1, 4 and 15, GQA 12/4 and
+    12/12, the serving cache's -1e9 dead tail, a window that leaves the
+    early chunks with no visible key, a chunk whose keys are all dead and
+    a row whose keys are all dead.  fp32 at 2e-5."""
+    q, k, v, kb, window = _decode_case(case)
+    b, tq, h, d = q.shape
+    tk, h_kv = k.shape[1], k.shape[2]
+    if chunk == "rule":
+        chunk = fa_mod._decode_split(b, h_kv, tq * (h // h_kv), tk, d,
+                                     132)[1]
+    jkw = dict(causal=True, interpret=True)
+    if window is not None:
+        jkw["window"] = window
+    if kb is not None:
+        jkw["key_padding_bias"] = jnp.asarray(kb)
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **jkw))
+    tq_, tk_, tv_ = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = fa_mod._flash_fwd_split_ref(
+        tq_, tk_, tv_, None if kb is None else torch.from_numpy(kb), None,
+        sm_scale=d ** -0.5, causal=True, q_offset=tk - tq, window=window,
+        chunk=chunk)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)
+    full = fa_mod._flash_fwd_ref(
+        tq_, tk_, tv_, None if kb is None else torch.from_numpy(kb), None,
+        sm_scale=d ** -0.5, causal=True, q_offset=tk - tq, window=window)
+    torch.testing.assert_close(lse, full[1], atol=1e-4, rtol=1e-5)

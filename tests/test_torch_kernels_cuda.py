@@ -990,11 +990,12 @@ def test_flash_kernel_lm_shape(cuda_device, dtype):
                                                 (777, 64, None),
                                                 (300, None, -3)])
 def test_flash_split_kv_decode(cuda_device, tk, window, q_offset):
-    """The split-KV path against the plain version and against its own
-    plain arithmetic (``_flash_fwd_split_ref`` at the wrapper's chunk):
-    kv_len no multiple of the chunk, a window that leaves most chunks
-    wholly masked, and rows that see no key at all (a negative offset:
-    out 0, lse NEG_INF).  One call counts one launch."""
+    """The split-KV path (``route="split"``: the rule runs these bf16
+    calls on the decode kernel) against the plain version and against its
+    own plain arithmetic (``_flash_fwd_split_ref`` at the wrapper's
+    chunk): kv_len no multiple of the chunk, a window that leaves most
+    chunks wholly masked, and rows that see no key at all (a negative
+    offset: out 0, lse NEG_INF).  One call counts one launch."""
     rng = np.random.RandomState(21)
     tq = 2
     q = torch.from_numpy(rng.randn(3, tq, 12, 64).astype(np.float32)).to(
@@ -1008,9 +1009,11 @@ def test_flash_split_kv_decode(cuda_device, tk, window, q_offset):
     kw = dict(sm_scale=0.125, causal=True, window=window,
               q_offset=tk - tq if q_offset is None else q_offset)
     before = fa.flash_fwd_kernel.launches
-    out, lse = fa.flash_fwd_kernel(q, k, v, kb, None, **kw)
+    split_before = fa.flash_fwd_kernel.routes["split"]
+    out, lse = fa.flash_fwd_kernel(q, k, v, kb, None, route="split", **kw)
     torch.cuda.synchronize()
     assert fa.flash_fwd_kernel.launches == before + 1
+    assert fa.flash_fwd_kernel.routes["split"] == split_before + 1
     splits, chunk = fa._kv_split(3, 12, tk, fa._sm_count(0))
     assert splits > 1 and tk % chunk != 0
     for ref in (fa._flash_fwd_ref(q, k, v, kb, None, **kw),
@@ -1022,6 +1025,187 @@ def test_flash_split_kv_decode(cuda_device, tk, window, q_offset):
     if q_offset is not None:
         assert not out[:, :-q_offset].any()
         assert (lse[..., :-q_offset] == fa.NEG_INF).all()
+
+
+#: the decode kernel's cases: (batch, q_len, kv_len, heads, kv heads,
+#: width, dtype, window, q_offset (None: kv_len - q_len), chunk (None:
+#: the rule's))
+DECODE_CASES = {
+    # serving's step: 4 chunks merged in a cluster
+    "serving_b8_tk1024": (8, 1, 1024, 12, 12, 64, torch.bfloat16, None,
+                          None, None),
+    "serving_b8_tk256": (8, 1, 256, 12, 12, 64, torch.bfloat16, None, None,
+                         None),
+    # GQA 12/4: 3 rows a block, 8 chunks in a cluster
+    "gqa12_4_tk1024": (8, 1, 1024, 12, 4, 64, torch.bfloat16, None, None,
+                       None),
+    # kv_len no multiple of a 32-key stage, width 128, fp16
+    "ragged_d128_fp16": (3, 1, 1000, 12, 12, 128, torch.float16, None,
+                         None, None),
+    # kv_len below one stage: one chunk, written directly
+    "below_one_stage": (2, 1, 20, 4, 2, 64, torch.bfloat16, None, None,
+                        None),
+    # 32 chunks: the ticket's merge
+    "ticket_32_chunks": (2, 3, 1000, 8, 8, 64, torch.bfloat16, None, None,
+                         32),
+    # 45 rows a block (q_len 15 x 3 heads): the general PV pass, the ticket
+    "tq15_gqa": (2, 15, 300, 12, 4, 64, torch.bfloat16, None, None, None),
+    # 45 rows past width 128's 32 a block: two row blocks
+    "tq15_gqa_d128": (2, 15, 300, 12, 4, 128, torch.float16, None, None,
+                      None),
+    # width 48 in the 64 kernel, a window leaving early chunks empty
+    "window_d48": (2, 4, 777, 12, 4, 48, torch.bfloat16, 64, None, None),
+    # rows that see no key (a negative offset): out 0, lse NEG_INF
+    "no_visible_key": (3, 2, 300, 12, 12, 64, torch.bfloat16, None, -3,
+                       None),
+    # one KV head for 32 query heads at q_len 15: 30 row blocks
+    "mqa_480_rows": (2, 15, 512, 32, 1, 64, torch.bfloat16, None, None,
+                     512),
+}
+
+
+def _decode_inputs(dev, case, seed=31):
+    b, tq, tk, h, h_kv, d, dtype, window, q_offset, chunk = \
+        DECODE_CASES[case]
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32)).to(
+        dev, dtype)
+    k, v = (torch.from_numpy(rng.randn(b, tk, h_kv, d).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    lens = rng.randint(max(1, tk // 3), tk + 1, b)
+    kb = torch.from_numpy(np.where(np.arange(tk)[None] < lens[:, None],
+                                   0.0, -1e9).astype(np.float32)).to(dev)
+    kw = dict(sm_scale=d ** -0.5, causal=True, window=window,
+              q_offset=tk - tq if q_offset is None else q_offset)
+    return q, k, v, kb, kw, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["cluster", "ticket"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_flash_decode_kernel_matches_plain(cuda_device, case, merge,
+                                           monkeypatch):
+    """The decode kernel (csrc/flash_decode_sm90.cu) against the plain
+    version and against its own arithmetic (``_flash_fwd_split_ref`` at
+    the call's chunk): serving's shapes, GQA, width 128 and 48, fp16, a
+    kv_len below one stage and no multiple of it, many rows and row
+    blocks, a window and rows that see no key; a call of 2-8 chunks
+    merged in a cluster or, with the cluster merge off, through the
+    ticket (as every call of more chunks is).  The rule routes each call
+    to the decode kernel; one call counts one launch; the split-KV kernel
+    on the same inputs is within the same tolerance."""
+    monkeypatch.setattr(fa, "_DECODE_CLUSTER_MERGE", merge == "cluster")
+    q, k, v, kb, kw, chunk = _decode_inputs(cuda_device, case)
+    tile = None if chunk is None else (-1, chunk)
+    before = dict(fa.flash_fwd_kernel.routes)
+    out, lse = fa.flash_fwd_kernel(q, k, v, kb, None, tile=tile, **kw)
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in fa.flash_fwd_kernel.routes.items()
+             if n != before[r]}
+    assert moved == {"decode": 1}
+    chunk = chunk or fa._rule_chunk(q, k, v)
+    for ref in (fa._flash_fwd_ref(q, k, v, kb, None, **kw),
+                fa._flash_fwd_split_ref(q, k, v, kb, None, chunk=chunk,
+                                        **kw)):
+        torch.testing.assert_close(out.float(), ref[0].float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, ref[1], atol=1e-3, rtol=1e-3)
+    so, sl = fa.flash_fwd_kernel(q, k, v, kb, None, route="split", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), so.float(), atol=2e-2,
+                               rtol=2e-2)
+    if kw["q_offset"] < 0:
+        assert not out[:, :-kw["q_offset"]].any()
+        assert (lse[..., :-kw["q_offset"]] == fa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["serving_b8_tk1024", "ticket_32_chunks",
+                                  "tq15_gqa"])
+def test_flash_decode_bits_stable_eager_and_replayed(cuda_device, case):
+    """The merge's order is fixed and its ticket returns to 0 within the
+    call: two eager calls in a row, a CUDA graph of the call replayed 3
+    times and a call on another stream give the same bits."""
+    q, k, v, kb, kw, chunk = _decode_inputs(cuda_device, case, seed=32)
+    tile = None if chunk is None else (-1, chunk)
+
+    def call():
+        return fa.flash_fwd_kernel(q, k, v, kb, None, tile=tile, **kw)
+    want = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(want[0], again[0]) and torch.equal(want[1], again[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with torch.cuda.stream(side):
+        other = call()
+    side.synchronize()
+    assert torch.equal(other[0], want[0]) and torch.equal(other[1], want[1])
+
+
+@pytest.mark.cuda
+def test_flash_decode_routes_refuse_and_scratch(cuda_device):
+    """The scratch of a call of several chunks holds a partial of the
+    library's rows a block for every chunk of every unit; a chunk the
+    decode kernel refuses (no multiple of 32, past 1,024) raises before
+    any launch; a route the call cannot take raises; fp32, a view TMA
+    cannot read and more units than the kernel's tickets run split-KV by
+    the rule."""
+    lib = fa._decode_lib()
+    for b, tq, h, h_kv, d, chunk in ((8, 1, 12, 12, 64, 256),
+                                     (2, 15, 32, 1, 64, 512),
+                                     (2, 15, 12, 4, 128, 96)):
+        q = torch.empty(b, tq, h, d, dtype=torch.bfloat16,
+                        device=cuda_device)
+        k = torch.empty(b, 1, h_kv, d, dtype=torch.bfloat16,
+                        device=cuda_device)
+        per = lib.flash_attention_fwd_decode_rows(fa._kernel_dim(d), chunk)
+        rows = tq * (h // h_kv)
+        assert 8 <= per <= fa._DECODE_ROWS[fa._kernel_dim(d)]
+        part_o, part_ml = fa._decode_scratch(q, k, 3, chunk)
+        n = b * h_kv * -(-rows // per) * 3 * min(rows, per)
+        assert part_o.numel() == n * fa._kernel_dim(d)
+        assert part_ml.numel() == 2 * n
+        assert fa._decode_scratch(q, k, 1, chunk) == (None, None)
+    # the kernel's 2^18 tickets, one a unit of a call of several chunks:
+    # q_len 15 x 32 heads over one KV head at 2,048 keys takes 60 row
+    # blocks of 8 rows at the rule's 1,024-key chunks, so 2^10 batches fit
+    # and 2^14 run split-KV (views that overlap: the rule reads shapes and
+    # strides only)
+    for b, want in ((1 << 10, "decode"), (1 << 14, "split")):
+        q = torch.empty(1, 1, 1, 64, dtype=torch.bfloat16,
+                        device=cuda_device).expand(b, 15, 32, 64)
+        kv = torch.empty(b * 128 + 2048 * 64, dtype=torch.bfloat16,
+                         device=cuda_device).as_strided(
+                             (b, 2048, 1, 64), (128, 64, 64, 1))
+        assert fa._decode_route(q, kv, kv) == want
+    q, k, v, kb, kw, _ = _decode_inputs(cuda_device, "serving_b8_tk256")
+    for chunk in (48, 2048):
+        assert not fa.tile_fits(1, 64, torch.bfloat16, (-1, chunk))
+        with pytest.raises(ValueError, match="tile"):
+            fa.flash_fwd_kernel(q, k, v, kb, None, tile=(-1, chunk), **kw)
+    for route in ("wgmma", "mma", "simt"):
+        with pytest.raises(ValueError, match="route"):
+            fa.flash_fwd_kernel(q, k, v, kb, None, route=route, **kw)
+    before = dict(fa.flash_fwd_kernel.routes)
+    fa.flash_fwd_kernel(q.float(), k.float(), v.float(), kb, None, **kw)
+    odd = torch.empty(k.numel() + 1, dtype=k.dtype,
+                      device=cuda_device)[1:].view(k.shape)
+    odd.copy_(k)
+    fa.flash_fwd_kernel(q, odd, v, kb, None, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_kernel.routes["split"] == before["split"] + 2
+    assert fa.flash_fwd_kernel.routes["decode"] == before["decode"]
 
 
 @pytest.mark.cuda

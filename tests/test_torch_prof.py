@@ -851,13 +851,20 @@ def test_prof_example_runs_on_the_cpu(name, capsys, tmp_path):
      "2, 32, 1>(BwdMaps, BwdParams)", "flash_bwd",
      "flash_attention_bwd_dkv"),
     ("void (anonymous namespace)::flash_bwd_dkv_mma_kernel<__half, 128>("
-     "BwdParams, int, int)", "flash_bwd", "flash_attention_bwd_dkv")])
+     "BwdParams, int, int)", "flash_bwd", "flash_attention_bwd_dkv"),
+    ("void (anonymous namespace)::flash_decode_kernel<__nv_bfloat16, 64>("
+     "Maps, Params)", "flash", "flash_attention_fwd"),
+    ("void (anonymous namespace)::flash_fwd_split_kernel<__nv_bfloat16, "
+     "64>(Params)", "flash", "flash_attention_fwd"),
+    ("void (anonymous namespace)::flash_fwd_combine_kernel<__nv_bfloat16, "
+     "64>(Params)", "flash", None)])
 def test_kernel_names_of_both_routes_count_alike(name, kind, counted):
     """A trace's kernel of either route of qmm, of the conv passes and of
-    flash's dQ and dK/dV (the wgmma kernels and the mma.sync ones) takes
+    flash's dQ and dK/dV (the wgmma kernels and the mma.sync ones) and of
+    the flash forward's decode routes (the decode kernel, split-KV) takes
     its kernel's kind and counts as that kernel's launch; wgrad's reduce
-    takes wgrad's kind and counts as no launch of its own (it runs within
-    the wgrad call)."""
+    and split-KV's combine take their kernel's kind and count as no launch
+    of their own (each runs within its kernel's call)."""
     kinds = parse.RESNET_KINDS if kind.startswith("conv") \
         else parse.TRAINING_KINDS if kind == "flash_bwd" \
         else parse.SERVING_KINDS

@@ -687,10 +687,11 @@ def test_tune_buckets_equal_jax():
         assert mod.TUNE_VERSION == jmod.TUNE_VERSION == 1
     # the port's flash forward, conv forward and qmm moved their rules to
     # wgmma kernels: version 2, so an entry tuned against the mma.sync
-    # kernels misses; conv's backward followed (version 3)
-    for mod, jmod in ((fa, jfa), (qk, jqk)):
-        assert mod.TUNE_VERSION == 2 and jmod.TUNE_VERSION == 1
-    assert cv.TUNE_VERSION == 3 and jcv.TUNE_VERSION == 1
+    # kernels misses; conv's backward followed (version 3), and flash's
+    # decode chunks moved to the decode kernel (version 3)
+    assert qk.TUNE_VERSION == 2 and jqk.TUNE_VERSION == 1
+    for mod, jmod in ((fa, jfa), (cv, jcv)):
+        assert mod.TUNE_VERSION == 3 and jmod.TUNE_VERSION == 1
 
 
 def test_bound_from_ledger_equals_jax():
@@ -805,10 +806,11 @@ def test_gpt_tiny_ledger_selects_jax_families():
 def test_flash_rule_candidates_and_defaults_name_the_wgmma_kernel():
     """The flash family's rule is the wgmma kernel's tile (64 x 96 at
     width 64, 128 x 96 at 128); its candidates are every tile of both
-    tensor-core kernels; fp32 has none; decode keeps the split-KV
-    chunk."""
+    tensor-core kernels; fp32 has none; decode takes the decode route's
+    chunk (the decode kernel's in bf16, split-KV's in fp32), a
+    candidate."""
     spec = registry.get_spec("flash_attention")
-    assert spec.version == fa.TUNE_VERSION == 2
+    assert spec.version == fa.TUNE_VERSION == 3
     base = dict(spec.example_shape)
     assert spec.defaults(base) == {"block_q": 64, "block_k": 96}
     assert spec.defaults(dict(base, head_dim=128)) == {"block_q": 128,
@@ -819,20 +821,30 @@ def test_flash_rule_candidates_and_defaults_name_the_wgmma_kernel():
     assert got == set(fa.tiles(64, torch.bfloat16))
     assert spec.candidates(dict(base, dtype="float32"), None) == []
     dec = dict(base, q_len=1)
-    assert spec.defaults(dec)["block_k"] == fa._kv_split(8, 12, 1023, 132)[1]
+    assert spec.defaults(dec)["block_k"] == fa._decode_split(
+        8, 12, 1, 1023, 64, 132)[1]
+    assert {"block_q": 64, "block_k": spec.defaults(dec)["block_k"]} in \
+        spec.candidates(dec, None)
+    dec32 = dict(dec, dtype="float32")
+    assert spec.defaults(dec32)["block_k"] == fa._kv_split(8, 12, 1023,
+                                                           132)[1]
     assert spec.effective(base, spec.defaults(base)) == (64, 96)
 
 
 def test_flash_version_one_entry_misses(tune_cache):
-    """An entry tuned against version 1 (the mma.sync rule) misses; the
-    same bucket at version 2 hits."""
+    """An entry tuned against version 1 (the mma.sync rule) or 2 (decode
+    chunks of the split-KV kernel) misses; the same bucket at version 3
+    hits."""
     bucket = fa.tune_bucket(256, 256, 64, True, False, False)
     store.put("flash_attention", 1, bucket, {"block_q": 128, "block_k": 128},
               path=tune_cache)
     q = torch.zeros((1, 256, 2, 64), dtype=torch.bfloat16)
     assert fa._tuned_tile(q, q, True, False, None) is None
+    store.put("flash_attention", 2, bucket, {"block_q": 64, "block_k": 160},
+              path=tune_cache)
+    assert fa._tuned_tile(q, q, True, False, None) is None
     assert not _stats("flash_attention")["tuned"]
-    store.put("flash_attention", 2, bucket, {"block_q": 128, "block_k": 96},
+    store.put("flash_attention", 3, bucket, {"block_q": 128, "block_k": 96},
               path=tune_cache)
     assert fa._tuned_tile(q, q, True, False, None) == (128, 96)
 
